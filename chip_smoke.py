@@ -5,18 +5,24 @@ Run from the root of a checkout: `python3 chip_smoke.py`. Phases, each
 printing its own lines; any failure exits non-zero:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: K1 (csrc/bvh_walk.cu), K2 (csrc/isect_dense.cu) and the native
-   BVH builder, from the sources in the checkout;
+2. build: K1 (csrc/bvh_walk.cu), K2 (csrc/isect_dense.cu), K3
+   (csrc/gather_cols.cu), the MT replay (csrc/mt_replay_bwd.cu) and the
+   native BVH builder, from the sources in the checkout, all at once;
 3. K2 against its plain torch version on the card (random soups);
 4. K1 against its plain version on S1's BVH, and against K2 brute force
    on a 20,480-triangle icosphere; kernel and plain times;
 5. render S1-S3 at 512x512 through `loadFromString(..., device="cuda")`
    and `Runtime.step()`, with every kernel's launch count reset just
-   before and read just after; no plain intersection may run; then one
-   more step of each under torch.profiler (render/profile.py): device
-   time, busy share and top device consumers of that step;
+   before and read just after; no plain version may run; then one more
+   step of each under torch.profiler (render/profile.py): device time,
+   busy share and top device consumers of that step;
 6. reference checks: the analytic point-light oracle on the card, and
    card-vs-CPU renders of small scenes;
+7. gradients: K3's gather and scatter-add and the MT replay against their
+   plain versions, with times; `train_step` (albedo) on S1-S3 at 512x512
+   and a geometry gradient on S1 and S2, counts reset before and read
+   after; one profiled train step per scene; the albedo gradient on the
+   card against the CPU's;
 then one JSON line of kernel results, the nvidia-smi line again, and as
 the last line {"ok": true, "device": {...}}.
 Imports nothing of JAX. `--profile-json PATH` also writes the renders'
@@ -275,12 +281,17 @@ def compare_hits(got, ref, what, bar, hit_mask=False):
 # ---------------------------------------------------------------------------
 
 def phase_build():
+    """Every library at once: one compiler process per source."""
+    from concurrent.futures import ThreadPoolExecutor
     from ignis_tpu_torch.native import get_lib
-    from ignis_tpu_torch.ops import bvh_cuda, cuda_build, isect_cuda
+    from ignis_tpu_torch.ops import (bvh_cuda, cuda_build, gather,
+                                     isect_cuda, mt_replay)
     t0 = time.perf_counter()
-    isect_cuda.build()
-    bvh_cuda.build()
-    get_lib()
+    builds = (isect_cuda.build, bvh_cuda.build, gather.build,
+              mt_replay.build, get_lib)
+    with ThreadPoolExecutor(len(builds)) as pool:
+        for f in [pool.submit(b) for b in builds]:
+            f.result()
     print(f"  build seconds: {time.perf_counter() - t0:.2f}")
     for name, (sec, log) in cuda_build.BUILD_LOG.items():
         print(f"  {name}: " + (f"compiled in {sec:.2f} s" if log != "cached"
@@ -394,13 +405,34 @@ def phase_times(device, s1, k1_rays):
     return out
 
 
+def all_counts():
+    """Every kernel wrapper's counters, by kernel name."""
+    from ignis_tpu_torch.ops import bvh_cuda, gather, isect_cuda, mt_replay
+    return {"K1": bvh_cuda.counts, "K2": isect_cuda.counts,
+            "K3_gather_rows": gather.gather_counts,
+            "K3_scatter_add_rows": gather.scatter_counts,
+            "MT_replay_bwd": mt_replay.counts}
+
+
+def reset_all_counts():
+    for c in all_counts().values():
+        c.reset()
+
+
+def launches():
+    return {k: c["launches"] for k, c in all_counts().items()}
+
+
+def plain_calls() -> int:
+    return sum(c["plain_calls"] for c in all_counts().values())
+
+
 def phase_render(device, runtimes):
     """Render S1-S3 on the card; launch counts reset just before."""
     import torch
     from ignis_tpu_torch.ops import bvh_cuda, isect_cuda
     bvh_cuda.reset_overflow(device)
-    isect_cuda.reset_counts()
-    bvh_cuda.reset_counts()
+    reset_all_counts()
     per_scene = {}
     for name, _, kernel in SCENES:
         rt = runtimes[name]
@@ -428,10 +460,11 @@ def phase_render(device, runtimes):
         check(launched > 0, f"{name}: {kernel} launched {launched} times")
         per_scene[name] = {"msamples_per_s": msps, "seconds_3_steps": sec,
                            "mean": mean, "K1": k1, "K2": k2}
-    counts = {"K1": bvh_cuda.counts["launches"],
-              "K2": isect_cuda.counts["launches"]}
-    plain = isect_cuda.counts["plain_calls"] + bvh_cuda.counts["plain_calls"]
-    check(plain == 0, f"no plain intersection call during the renders "
+    counts = launches()
+    check(counts["K3_gather_rows"] > 0, f"K3 gather_rows launched "
+          f"{counts['K3_gather_rows']} times")
+    plain = plain_calls()
+    check(plain == 0, f"no plain version called during the renders "
           f"({plain})")
     ovf = bvh_cuda.overflow_count(device)
     check(ovf == 0, f"K1 stack overflow counter {ovf} == 0")
@@ -444,8 +477,8 @@ def phase_profile(runtimes):
     from ignis_tpu_torch.render.profile import profile_step
     out = {}
     for name, _, _ in SCENES:
-        p = profile_step(runtimes[name], {"K1": "bvh_walk_kernel",
-                                          "K2": "isect_dense_kernel"})
+        p = profile_step(runtimes[name].step, {"K1": "bvh_walk_kernel",
+                                               "K2": "isect_dense_kernel"})
         print(f"  {name}: profiled step {p['wall_s']:.4f} s, device ops "
               f"{p['device_ops']}, device busy {p['device_busy_us']:.1f} us "
               f"(share {p['busy_share']:.4f}), device sum "
@@ -487,6 +520,305 @@ def phase_reference(device):
         check(rel <= 0.005, f"{name} 64x64: mean card {gpu.mean():.6f} vs "
               f"CPU {cpu.mean():.6f} within 0.5%")
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: gradients
+# ---------------------------------------------------------------------------
+
+def small_scene(size=64, max_depth=3):
+    """tests/test_parallel.py:19 small_scene: floor, ball, point + env."""
+    return {
+        "technique": {"type": "path", "max_depth": max_depth},
+        "camera": {"type": "perspective", "fov": 60, "near_clip": 0.1,
+                   "far_clip": 100,
+                   "transform": [-1, 0, 0, 0, 0, 1, 0, 0, 0, 0, -1, 3,
+                                 0, 0, 0, 1]},
+        "film": {"size": [size, size]},
+        "bsdfs": [{"type": "diffuse", "name": "white",
+                   "reflectance": [0.7, 0.5, 0.3]}],
+        "shapes": [
+            {"type": "rectangle", "name": "floor", "width": 4, "height": 4},
+            {"type": "sphere", "name": "ball", "radius": 0.5},
+        ],
+        "entities": [
+            {"name": "floor", "shape": "floor", "bsdf": "white",
+             "transform": [{"rotate": [-90, 0, 0]},
+                           {"translate": [0, -1, 0]}]},
+            {"name": "ball", "shape": "ball", "bsdf": "white"},
+        ],
+        "lights": [
+            {"type": "point", "name": "l", "position": [1, 2, 2],
+             "power": 30},
+            {"type": "env", "name": "e", "radiance": [0.2, 0.2, 0.3]},
+        ],
+    }
+
+
+def max_err(a, b) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def reorder_ratio(got, ref, idx, terms, rtol):
+    """Largest |got - ref| / (1e-6 + rtol * sum|terms|) over the rows of
+    two scatter-added sums (`terms` added at rows `idx`, in atomic order in
+    one and index_add_ order in the other). Reordering a float32 sum moves
+    it by a share of the sum of its terms' magnitudes, not of the result,
+    which may cancel to near 0; a ratio <= 1 is within the bar."""
+    import torch
+    mag = torch.zeros_like(ref).index_add_(0, idx, terms.abs())
+    return float(((got - ref).abs() / (1e-6 + rtol * mag)).max())
+
+
+def compare_replay(what, rays, soup, prim, seed):
+    """The MT replay kernel against mt_replay_bwd_plain at the winners
+    `prim`, with random cotangents. Per-ray gradients: rtol 1e-5 / atol
+    1e-6 (both run the same operations in the same order, without FMA
+    contraction, so they should agree bit for bit). Soup gradients are
+    sums over the rays that hit a triangle, in atomic order on the card and
+    index_add_ order in the plain version: within 1e-6 + 1e-4 times the sum
+    of their terms' magnitudes (reorder_ratio). Returns the largest
+    |difference|."""
+    import torch
+    from ignis_tpu_torch.core.vec import Vec3
+    from ignis_tpu_torch.ops import mt_replay
+    n = prim.numel()
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cts = [torch.randn(n, generator=g).to(prim.device) for _ in range(3)]
+    ray_arrays = [*rays.org, *rays.dir]
+    soup_arrays = [*soup.v0, *soup.e1, *soup.e2]
+    kr, ks = mt_replay.mt_replay_bwd(ray_arrays, soup_arrays, prim, *cts)
+    pr, ps = mt_replay.mt_replay_bwd_plain(ray_arrays, soup_arrays, prim,
+                                           *cts)
+    hit = prim >= 0
+    check(int(hit.sum()) >= 1000, f"{what}: {int(hit.sum())} of {n} rays "
+          f"hit (>= 1000)")
+    ok = all(bool(torch.isclose(a, b, rtol=1e-5, atol=1e-6).all())
+             for a, b in zip(kr, pr))
+    exact = all(torch.equal(a, b) for a, b in zip(kr, pr))
+    check(ok, f"{what}: per-ray gradients within rtol 1e-5 / atol 1e-6 "
+          f"(bit for bit: {exact})")
+    # |terms| of every soup sum
+    p = torch.clamp(prim, min=0).long()
+    rows = [a[p] for a in soup_arrays]
+    terms = mt_replay.mt_adjoint(Vec3(*ray_arrays[:3]),
+                                 Vec3(*ray_arrays[3:]), Vec3(*rows[:3]),
+                                 Vec3(*rows[3:6]), Vec3(*rows[6:]), *cts)[2:]
+    worst = max(reorder_ratio(a, b, p, torch.where(hit, term, 0.0), 1e-4)
+                for a, b, term in zip(ks, ps, [c for v in terms for c in v]))
+    check(worst <= 1.0, f"{what}: soup gradients within 1e-6 + 1e-4 "
+          f"sum|terms| (worst ratio {worst:.4f})")
+    return max(max_err(a, b) for a, b in zip(kr + ks, pr + ps))
+
+
+def phase_grad_kernels(device, s1, k1_rays):
+    """K3's gather and scatter-add and the MT replay against their plain
+    versions on the card, at the gradient path's shapes (S1's attribute
+    table, 262,144 lanes); median kernel and plain times."""
+    import torch
+    from ignis_tpu_torch.ops import bvh_cuda, gather, isect_cuda, mt_replay
+    from ignis_tpu_torch.techniques.path import attr_table
+    sc = s1.scene
+    g = torch.Generator(device="cpu").manual_seed(3)
+    tab = attr_table(sc)
+    n_rows, k = tab.shape
+    n = 262144
+    idx = torch.randint(0, n_rows, (n,), generator=g,
+                        dtype=torch.int32).to(device)
+    got = gather.gather_rows(idx, tab)
+    ref = gather.gather_rows_plain(idx, tab)
+    check(tuple(got.shape) == (n, k) and torch.equal(got, ref),
+          f"K3 gather_rows [{n_rows} x {k}] at {n} indices: equal to "
+          f"tab[idx]")
+    errs = {"K3_gather_rows": max_err(got, ref)}
+    cot = torch.randn(n, k, generator=g).to(device)
+    got = gather.scatter_add_rows(idx, cot, n_rows)
+    ref = gather.scatter_add_rows_plain(idx, cot, n_rows)
+    ratio = reorder_ratio(got, ref, idx.long(), cot, 1e-5)
+    far = int((~torch.isclose(got, ref, rtol=1e-5, atol=1e-6)).sum())
+    check(ratio <= 1.0, f"K3 scatter_add_rows: within 1e-6 + 1e-5 "
+          f"sum|terms| of index_add_ (worst ratio {ratio:.4f}; entries "
+          f"outside rtol 1e-5 / atol 1e-6 of the result: {far})")
+    errs["K3_scatter_add_rows"] = max_err(got, ref)
+
+    hit = bvh_cuda.intersect_bvh(k1_rays, sc.tris, sc.bvh)
+    e1 = compare_replay("MT replay, S1 rays at K1's winners", k1_rays,
+                        sc.tris, hit.prim, 1)
+    rng = np.random.default_rng(13)
+    soup, _ = random_soup(rng, 4096, device)
+    rays = random_rays(rng, 65536, device)
+    e2 = compare_replay("MT replay, random soup at K2's winners", rays, soup,
+                        isect_cuda.intersect_tris(rays, soup).prim, 2)
+    errs["MT_replay_bwd"] = max(e1, e2)
+
+    # times at the main path's shape: 262,144 S1 lanes (half camera rays)
+    rays = cat_rays(camera_rays(sc, s1.settings, n // 2, device),
+                    random_rays(rng, n // 2, device, extent=1.5))
+    prim = bvh_cuda.intersect_bvh(rays, sc.tris, sc.bvh).prim
+    cts = [torch.randn(n, generator=g).to(device) for _ in range(3)]
+    ra, sa = [*rays.org, *rays.dir], [*sc.tris.v0, *sc.tris.e1, *sc.tris.e2]
+    times = {
+        "K3_gather_rows": (
+            cuda_ms(lambda: gather.gather_rows(idx, tab)),
+            cuda_ms(lambda: gather.gather_rows_plain(idx, tab))),
+        "K3_scatter_add_rows": (
+            cuda_ms(lambda: gather.scatter_add_rows(idx, cot, n_rows)),
+            cuda_ms(lambda: gather.scatter_add_rows_plain(idx, cot,
+                                                          n_rows))),
+        "MT_replay_bwd": (
+            cuda_ms(lambda: mt_replay.mt_replay_bwd(ra, sa, prim, *cts)),
+            cuda_ms(lambda: mt_replay.mt_replay_bwd_plain(ra, sa, prim,
+                                                          *cts))),
+    }
+    for name, (ms, plain) in times.items():
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    return errs, times
+
+
+def geometry_leaves(scene):
+    """`scene` with tris.v0/e1/e2 replaced by fresh leaves that require
+    grad, and the list of those leaves."""
+    from ignis_tpu_torch.core.vec import Vec3
+    vs = {f: Vec3(*[c.detach().clone().requires_grad_()
+                    for c in getattr(scene.tris, f)])
+          for f in ("v0", "e1", "e2")}
+    return (scene._replace(tris=scene.tris._replace(**vs)),
+            [c for v in vs.values() for c in v])
+
+
+def phase_train(device, runtimes):
+    """One-GPU train step (SGD on the albedo, target black) on S1-S3 at
+    512x512, spi 4: median of 3 after a warm-up, peak memory; counts
+    reset before and read after; then a geometry gradient of the same
+    loss on S1 and S2."""
+    import torch
+    from ignis_tpu_torch import loss_fn, train_step
+    lr = 1e-2
+    reset_all_counts()
+    out = {}
+    for name, _, kernel in SCENES:
+        rt = runtimes[name]
+        s = rt.settings
+        target = torch.zeros((s.height, s.width, 3), device=device)
+        before = launches()
+        base = torch.stack(list(rt.scene.materials.base))
+        secs, peaks = [], []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            loss, new_scene = train_step(rt.scene, s, target, 0, 0, lr)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated(device))
+        sec = statistics.median(secs[1:])
+        msps = s.width * s.height * s.spi / sec / 1e6
+        grad = (base - torch.stack(list(new_scene.materials.base))) / lr
+        after = launches()
+        used = {k: after[k] - before[k] for k in after}
+        print(f"  {name}: train step {msps:.4f} Msamples/s fwd+bwd (median "
+              f"{sec:.4f} s of {[round(x, 4) for x in secs[1:]]}), peak "
+              f"memory {max(peaks) / 2**30:.3f} GiB, loss {float(loss):.6f},"
+              f" launches {used}")
+        check(bool(torch.isfinite(loss)), f"{name}: loss finite")
+        check(bool(torch.isfinite(grad).all()) and bool((grad != 0).any()),
+              f"{name}: albedo gradient finite and nonzero")
+        check(used[kernel] > 0 and used["K3_gather_rows"] > 0,
+              f"{name}: {kernel} and K3 gather_rows launched in the train "
+              f"steps")
+        out[name] = {"msamples_per_s": msps, "step_s": secs,
+                     "peak_gib": max(peaks) / 2**30, "loss": float(loss),
+                     "launches": used}
+    check(plain_calls() == 0, f"no plain version called in the train steps "
+          f"({plain_calls()})")
+
+    for name in ("S1_glass_ico7", "S2_graft_entry"):
+        rt = runtimes[name]
+        s = rt.settings
+        target = torch.zeros((s.height, s.width, 3), device=device)
+        scene, leaves = geometry_leaves(rt.scene)
+        before = launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        loss = loss_fn({"base": scene.materials.base}, scene, s, target, 0, 0)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        after = launches()
+        used = {k: after[k] - before[k] for k in after}
+        g = torch.stack(grads)
+        finite = float(torch.isfinite(g).float().mean())
+        nonzero = int((g != 0).sum())
+        print(f"  {name}: geometry gradient in {sec:.4f} s, peak memory "
+              f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, "
+              f"finite share {finite:.6f}, nonzero entries {nonzero} of "
+              f"{g.numel()}, launches {used}")
+        check(used["MT_replay_bwd"] > 0 and used["K3_scatter_add_rows"] > 0,
+              f"{name}: MT replay and K3 scatter_add_rows launched")
+        # S2's only triangles, the floor, lie in the camera's plane (y = 0)
+        # and through the glass ball: its hits see the lights only through
+        # glass, so its smooth gradient is 0 and only S1's must be nonzero.
+        check(bool(torch.isfinite(loss))
+              and (nonzero > 0 or name != "S1_glass_ico7"),
+              f"{name}: loss finite" + (", geometry gradient nonzero"
+                                        if name == "S1_glass_ico7" else ""))
+        out[name]["geometry"] = {"seconds": sec, "finite_share": finite,
+                                 "nonzero": nonzero, "launches": used}
+    check(plain_calls() == 0, f"no plain version called in the train and "
+          f"geometry steps ({plain_calls()})")
+    return launches(), out
+
+
+def phase_train_profile(device, runtimes):
+    """One train step per scene under torch.profiler."""
+    import torch
+    from ignis_tpu_torch import train_step
+    from ignis_tpu_torch.render.profile import profile_step
+    names = {"K1": "bvh_walk_kernel", "K2": "isect_dense_kernel",
+             "K3": "gather_rows_kernel", "K3s": "scatter_add_rows_kernel",
+             "MT": "mt_replay_bwd_kernel"}
+    out = {}
+    for name, _, _ in SCENES:
+        rt = runtimes[name]
+        s = rt.settings
+        target = torch.zeros((s.height, s.width, 3), device=device)
+        p = profile_step(lambda: train_step(rt.scene, s, target, 0, 0, 1e-2),
+                         names)
+        print(f"  {name}: profiled train step {p['wall_s']:.4f} s, device "
+              f"ops {p['device_ops']}, device busy {p['device_busy_us']:.1f}"
+              f" us (share {p['busy_share']:.4f}), "
+              + ", ".join(f"{k} {p[k + '_us']:.1f} us" for k in names))
+        for kname, count, us in p["top"]:
+            print(f"    {us:10.1f} us {count:6d}x {kname}")
+        out[name] = p
+    return out
+
+
+def phase_grad_reference(device):
+    """The albedo gradient of small_scene(64) on the card against the
+    CPU's: rtol 1e-3."""
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch import loss_fn
+    from ignis_tpu_torch.core.vec import Color
+    grads = []
+    for dev in (device, "cpu"):
+        rt = ignis_tpu_torch.loadFromString(json.dumps(small_scene(64)),
+                                            device=dev, spi=1)
+        base = Color(*[c.detach().clone().requires_grad_()
+                       for c in rt.scene.materials.base])
+        target = torch.zeros((64, 64, 3), device=dev)
+        loss = loss_fn({"base": base}, rt.scene, rt.settings, target, 0, 0)
+        grads.append(torch.stack(torch.autograd.grad(loss, list(base)))
+                     .cpu().numpy())
+    gpu, cpu = grads
+    print(f"  small_scene(64) albedo gradient: card {gpu.ravel().tolist()},"
+          f" CPU {cpu.ravel().tolist()}")
+    check(np.isfinite(gpu).all() and np.abs(cpu).max() > 0
+          and np.allclose(gpu, cpu, rtol=1e-3, atol=0),
+          "small_scene(64): albedo gradient on the card within rtol 1e-3 "
+          "of the CPU's")
 
 
 def _ico3(scene):
@@ -546,6 +878,13 @@ def main() -> int:
     print("== phase 6: reference checks")
     phase_reference(device)
 
+    print("== phase 7: gradients")
+    grad_errs, grad_times = phase_grad_kernels(
+        device, runtimes["S1_glass_ico7"], k1_rays)
+    grad_counts, train = phase_train(device, runtimes)
+    train_profile = phase_train_profile(device, runtimes)
+    phase_grad_reference(device)
+
     kernels = [
         {"name": "K1_bvh_walk", "route": "cuda",
          "source": "ignis_tpu_torch/csrc/bvh_walk.cu",
@@ -558,14 +897,27 @@ def main() -> int:
          "launches": counts["K2"], "max_abs_err": k2_err,
          "ms": times["K2"][0], "plain_ms": times["K2"][1]},
     ]
+    for name, source, replaces in (
+            ("K3_gather_rows", "ignis_tpu_torch/csrc/gather_cols.cu",
+             "ignis_tpu/ops/gather.py:59"),
+            ("K3_scatter_add_rows", "ignis_tpu_torch/csrc/gather_cols.cu",
+             "ignis_tpu/ops/gather.py:121"),
+            ("MT_replay_bwd", "ignis_tpu_torch/csrc/mt_replay_bwd.cu",
+             "ignis_tpu/ops/pallas_isect.py:381")):
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": grad_counts[name],
+                        "max_abs_err": grad_errs[name],
+                        "ms": grad_times[name][0],
+                        "plain_ms": grad_times[name][1]})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on the main path")
     if args.profile_json:
         Path(args.profile_json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.profile_json).write_text(json.dumps(
-            {"nvidia_smi": smi, "scenes": per_scene, "profile": profile},
+            {"nvidia_smi": smi, "scenes": per_scene, "profile": profile,
+             "train": train, "train_profile": train_profile},
             indent=1))
-    print(json.dumps({"scenes": per_scene,
+    print(json.dumps({"scenes": per_scene, "train": train,
                       "K1_any_hit_ms": times["K1_any"][0],
                       "K1_any_hit_plain_ms": times["K1_any"][1]}))
     print(json.dumps({"kernels": kernels}))

@@ -1,12 +1,18 @@
 """ignis_tpu_torch — the path tracer of ignis_tpu, ported to PyTorch and CUDA.
 
-The first slice: `path` scenes render progressively through
-`Runtime.step()` on an explicit device, with every closest-hit and shadow
-ray going through hand-written sm_90a CUDA kernels on the card (K1, BVH8
-walk: ops/bvh_cuda.py; K2, dense intersection: ops/isect_cuda.py) and
-through their plain torch versions on the CPU. Imports torch and numpy,
+`path` scenes render progressively through `Runtime.step()` on an
+explicit device, with every closest-hit and shadow ray going through
+hand-written sm_90a CUDA kernels on the card (K1, BVH8 walk:
+ops/bvh_cuda.py; K2, dense intersection: ops/isect_cuda.py) and the hit
+attributes through K3 (row gather: ops/gather.py); on the CPU each takes
+its plain torch version. `render_iteration` with settings.remat is
+differentiable in the scene's tensors (materials, triangle soup and
+attributes): closest hits through the fixed-winner backward kernel
+(ops/mt_replay.py), attributes through K3's scatter-add. `loss_fn` and
+`train_step` are the one-device training step. Imports torch and numpy,
 never JAX.
 """
+from .parallel.mesh import loss_fn, train_step
 from .render.session import Runtime, render_iteration
 from .scene.build import build_scene
 from .scene.parser import load_from_file, load_from_string

@@ -5,7 +5,9 @@ NamedTuples by field name and calls `np.asarray` on each leaf, so it never
 imports JAX itself. Tests use it to feed identical arrays to both
 packages. The chunked-leaf TPU BVH is dropped (`bvh` becomes the tri-leaf
 BVH8), and scene features off the slice (textures, measured BSDFs, the
-PExpr registry, instancing) raise.
+PExpr registry, instancing) raise. `param_from_reference` carries one JAX
+parameter in as leaves that require grad, and `to_numpy` brings the port's
+gradients back.
 """
 from __future__ import annotations
 
@@ -40,6 +42,20 @@ def _convert(v, device):
     if isinstance(v, tuple):
         return tuple(_convert(x, device) for x in v)
     return _leaf(v, device)
+
+
+def param_from_reference(value, device):
+    """A JAX parameter (an array, or a NamedTuple of arrays such as a Color
+    or Vec3) as the port's type, every leaf a fresh tensor on `device` that
+    requires grad."""
+    return sd.tree_map(lambda t: t.requires_grad_(),
+                       _convert(value, torch.device(device)))
+
+
+def to_numpy(value):
+    """A tensor, or NamedTuples/tuples of tensors, as numpy arrays (a
+    gradient brought back for comparison with the JAX package's)."""
+    return sd.tree_map(lambda t: t.detach().cpu().numpy(), value)
 
 
 def from_reference(scene_data, settings, device):

@@ -5,7 +5,9 @@ ignis_tpu/ops/pallas_bvh.py::_bvh_kernel. `intersect_bvh` launches it for
 rays on a CUDA device and raises if it cannot; for rays on the CPU it takes
 the plain lockstep walk of ops/bvh.py. `counts` holds the kernel's launch
 count and the plain version's call count; `overflow_count` reads the
-kernel's device counter of stack pushes it had to drop.
+kernel's device counter of stack pushes it had to drop. A closest-hit
+query whose rays or soup require grad (with grad mode on) goes through
+`mt_replay.ClosestHit` (ops/mt_replay.py); any-hit is detached.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import ctypes
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, mt_replay
 from .bvh import BVHArrays, intersect_bvh_plain as _walk_plain
 from .intersect import Rays, TriSoup
 
@@ -58,6 +60,15 @@ def intersect_bvh_plain(rays: Rays, soup: TriSoup, bvh: BVHArrays,
 def intersect_bvh(rays: Rays, soup: TriSoup, bvh: BVHArrays,
                   any_hit: bool = False, shadow_visible=None):
     """Closest hit (a Hit) or any-hit occlusion (a bool tensor)."""
+    if not any_hit and mt_replay.wants_grad(rays, soup):
+        return mt_replay.closest_hit(
+            lambda r, s: _intersect(r, s, bvh, False, None), rays, soup)
+    return _intersect(rays, soup, bvh, any_hit, shadow_visible)
+
+
+@torch.no_grad()
+def _intersect(rays: Rays, soup: TriSoup, bvh: BVHArrays, any_hit: bool,
+               shadow_visible):
     device = rays.tmin.device
     if device.type == "cpu":
         return intersect_bvh_plain(rays, soup, bvh, any_hit, shadow_visible)

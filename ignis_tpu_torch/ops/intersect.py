@@ -84,7 +84,10 @@ def intersect_spheres_dense(rays: Rays, spheres: SphereSoup,
     cc = dot(oc, oc) - r * r
     disc = b * b - 4.0 * a * cc
     ok = (disc >= 0.0) & (r > 0.0)
-    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    # sqrt only where disc > 0, so that reverse mode never meets sqrt's
+    # infinite slope at 0 (inf * 0 would be NaN)
+    pos = disc > 0.0
+    sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
     inv2a = 1.0 / (2.0 * a)
     t0 = (-b - sq) * inv2a
     t1 = (-b + sq) * inv2a

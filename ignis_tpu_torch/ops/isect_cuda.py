@@ -5,7 +5,10 @@ ignis_tpu/ops/pallas_isect.py::_isect_kernel. `intersect_tris` launches it
 for rays on a CUDA device and raises if it cannot; for rays on the CPU it
 takes `intersect_tris_plain`, a loop over 256-triangle chunks like
 ignis_tpu/ops/intersect.py:130-213. `counts` holds the kernel's launch
-count and the plain version's call count.
+count and the plain version's call count. A closest-hit query whose rays
+or soup require grad (with grad mode on) goes through
+`mt_replay.ClosestHit`, whose backward is the fixed-winner replay
+(ops/mt_replay.py); any-hit is detached, as JAX's `stop_gradient`.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ import ctypes
 import torch
 
 from ..core.vec import Vec3
-from . import cuda_build
+from . import cuda_build, mt_replay
 from .intersect import FLT_MAX, Hit, Rays, TriSoup, moeller_trumbore
 
 CHUNK = 256
@@ -38,6 +41,14 @@ def intersect_tris(rays: Rays, soup: TriSoup, shadow_visible=None,
     """Closest hit (a Hit) or any-hit occlusion (a bool tensor) of every
     ray against the whole soup. `shadow_visible` ([T] bool) gates the
     any-hit test."""
+    if not any_hit and mt_replay.wants_grad(rays, soup):
+        return mt_replay.closest_hit(_intersect, rays, soup)
+    return _intersect(rays, soup, shadow_visible, any_hit)
+
+
+@torch.no_grad()
+def _intersect(rays: Rays, soup: TriSoup, shadow_visible=None,
+               any_hit: bool = False):
     device = rays.tmin.device
     if device.type == "cpu":
         return intersect_tris_plain(rays, soup, shadow_visible, any_hit)

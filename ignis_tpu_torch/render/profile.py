@@ -1,4 +1,5 @@
-"""Where one `Runtime.step()` spends its device time.
+"""Where one step (a `Runtime.step()`, or a train step) spends its device
+time.
 
 `profile_step` runs one step under torch.profiler and reads the device
 intervals (kernels, copies, fills) of that same step: their summed time,
@@ -31,8 +32,8 @@ def busy_union(intervals) -> float:
     return total
 
 
-def profile_step(runtime, named: dict) -> dict:
-    """Profile one `runtime.step()` on its CUDA device.
+def profile_step(step, named: dict) -> dict:
+    """Profile one call of `step` (no arguments) on the CUDA device.
 
     `named` maps a label to a substring of kernel names (e.g.
     {"K1": "bvh_walk_kernel"}); their device time is reported apiece.
@@ -43,7 +44,7 @@ def profile_step(runtime, named: dict) -> dict:
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        runtime.step()
+        step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = [(e.name, e.time_range.start, e.time_range.end)

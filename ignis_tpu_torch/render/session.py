@@ -1,10 +1,12 @@
 """Runtime: scene -> progressive rendering session on one device.
 
-Port of the forward path of ignis_tpu/render/session.py: load a scene onto
-an explicit device, `step()` renders one iteration of settings.spi samples
-per pixel and adds it to the film. Films of _COMPACTION_MIN_LANES lanes or
-more go through the compacting cascade, smaller ones through the
-one-stage progressive render, as in the JAX Runtime. Lanes are in
+Port of the path technique's part of ignis_tpu/render/session.py: load a
+scene onto an explicit device, `step()` renders one iteration of
+settings.spi samples per pixel and adds it to the film. Films of
+_COMPACTION_MIN_LANES lanes or more go through the compacting cascade,
+smaller ones through the one-stage progressive render, as in the JAX
+Runtime; with settings.remat every film takes the differentiable cascade
+(`render_lanes(remat=True)`). Lanes are in
 row-major pixel order: the JAX package's 32x32 lane tiling served the
 TPU kernels' block culling, and since random streams are keyed by pixel
 and sample, any lane order gives the same image.
@@ -35,13 +37,18 @@ def resolve_device(device) -> torch.device:
 
 def render_iteration(scene: SceneData, settings: RenderSettings,
                      iteration: int, frame: int) -> torch.Tensor:
-    """One iteration: [h, w, 3] mean radiance over settings.spi samples."""
+    """One iteration: [h, w, 3] mean radiance over settings.spi samples.
+    With settings.remat, the differentiable cascade at every film size
+    (as ignis_tpu/render/session.py:227): differentiable in the scene's
+    tensors that require grad."""
     w, h = settings.width, settings.height
     device = scene.device
     x = torch.arange(w, device=device).repeat(h)
     y = torch.arange(h, device=device).repeat_interleave(w)
     color = render_lanes(scene, settings, x, y, iteration, frame,
-                         compact=w * h >= _COMPACTION_MIN_LANES)
+                         compact=(settings.remat
+                                  or w * h >= _COMPACTION_MIN_LANES),
+                         remat=settings.remat)
     img = torch.stack([color.r, color.g, color.b], dim=-1).reshape(h, w, 3)
     return img * (1.0 / settings.spi)
 

@@ -14,14 +14,21 @@ MIS is the balance heuristic in the reference's inverse-pdf form:
 Russian roulette is the max-component rule on contrib*eta^2, clamped to
 [0.05, 0.95], active after min_depth.
 
-Not on the slice: transparent shadows, textures and normal maps, blends,
-instancing, other techniques and the differentiable (remat) path.
+Reverse mode runs through the same bounce (`render_lanes(remat=True)`,
+the JAX package's path_trace_cascade_diff): closest hits through the K1/K2
+fixed-winner backward (ops/mt_replay.py), the hit-attribute fetch through
+K3 (ops/gather.py) and its scatter-add backward, bounces checkpointed in
+chunks of DIFF_CHUNK.
+
+Not carried yet: transparent shadows, textures and normal maps, blends,
+instancing and other techniques.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import rng as rnglib
 from ..core.frame import Frame, make_frame
@@ -34,13 +41,15 @@ from ..models import bsdf as bsdflib
 from ..models import camera as cameralib
 from ..models import light as lightlib
 from ..ops import bvh_cuda, isect_cuda
+from ..ops import gather as gatherlib
 from ..ops import intersect as isect
 from ..ops.intersect import FLT_MAX, Hit, Rays
 from ..scenedata import RenderSettings, SceneData, tree_map
 
 OFFSET = 1e-3
 MIN_BUCKET = 4096
-SHRINK = 4   # bucket shrink factor per cascade stage
+SHRINK = 4       # bucket shrink factor per cascade stage
+DIFF_CHUNK = 8   # bounces per checkpointed chunk of the differentiable render
 
 
 class Surface(NamedTuple):
@@ -81,42 +90,55 @@ def occluded_scene(scene: SceneData, rays: Rays) -> torch.Tensor:
     return occ
 
 
-def compute_surface(scene: SceneData, rays: Rays, hit: Hit) -> Surface:
-    """Hit attributes by plain row gathers (the JAX main path's
-    gather_cols is `tab[idx]` too)."""
+def attr_table(scene: SceneData) -> torch.Tensor:
+    """The [T, 22] f32 table of per-triangle hit attributes, in the column
+    order of the JAX hit shader (path.py:321-327): e1, e2, n0, n1, n2
+    (xyz each), uv0, uv1, uv2 (xy each), then the entity id as f32."""
+    ta = scene.tri_attr
+    return gatherlib.stack_cols([*scene.tris.e1, *scene.tris.e2, *ta.n0,
+                                 *ta.n1, *ta.n2, *ta.uv0, *ta.uv1, *ta.uv2,
+                                 ta.ent])
+
+
+def compute_surface(scene: SceneData, rays: Rays, hit: Hit,
+                    tab: torch.Tensor = None) -> Surface:
+    """Hit attributes through one row gather of `tab` (attr_table, K3);
+    the table is built here when none is given."""
     n_tri = scene.tris.v0.x.shape[0]
     prim = torch.clamp(hit.prim, min=0)
     is_tri = prim < n_tri
-    tp = torch.clamp(prim, 0, n_tri - 1).long()
+    tp = torch.clamp(prim, 0, n_tri - 1)
 
     def g3(v, i):
         return Vec3(v.x[i], v.y[i], v.z[i])
 
-    def g2(v, i):
-        return Vec2(v.x[i], v.y[i])
-
-    ta = scene.tri_attr
-    e1 = g3(scene.tris.e1, tp)
-    e2 = g3(scene.tris.e2, tp)
+    if tab is None:
+        tab = attr_table(scene)
+    (e1x, e1y, e1z, e2x, e2y, e2z, n0x, n0y, n0z, n1x, n1y, n1z,
+     n2x, n2y, n2z, uv0x, uv0y, uv1x, uv1y, uv2x, uv2y,
+     entf) = gatherlib.gather_table(tp, tab).unbind(1)
+    e1 = Vec3(e1x, e1y, e1z)
+    e2 = Vec3(e2x, e2y, e2z)
     fn = cross(e1, e2)
     face_n = fn * safe_div(1.0, length(fn))
     u, v = hit.u, hit.v
     w = 1.0 - u - v
-    n0, n1, n2 = g3(ta.n0, tp), g3(ta.n1, tp), g3(ta.n2, tp)
+    n0, n1, n2 = Vec3(n0x, n0y, n0z), Vec3(n1x, n1y, n1z), Vec3(n2x, n2y, n2z)
     ns = normalize(Vec3(n0.x * w + n1.x * u + n2.x * v,
                         n0.y * w + n1.y * u + n2.y * v,
                         n0.z * w + n1.z * u + n2.z * v))
-    uv0, uv1, uv2 = g2(ta.uv0, tp), g2(ta.uv1, tp), g2(ta.uv2, tp)
+    uv0, uv1, uv2 = Vec2(uv0x, uv0y), Vec2(uv1x, uv1y), Vec2(uv2x, uv2y)
     uv = Vec2(uv0.x * w + uv1.x * u + uv2.x * v,
               uv0.y * w + uv1.y * u + uv2.y * v)
-    ent = ta.ent[tp]
+    ent = torch.round(entf).to(torch.int32)
 
     du1 = uv1.x - uv0.x
     dv1 = uv1.y - uv0.y
     du2 = uv2.x - uv0.x
     dv2 = uv2.y - uv0.y
     det_uv = du1 * dv2 - dv1 * du2
-    inv_det = torch.where(torch.abs(det_uv) > 1e-12, 1.0 / det_uv, 0.0)
+    ok_uv = torch.abs(det_uv) > 1e-12
+    inv_det = torch.where(ok_uv, 1.0 / torch.where(ok_uv, det_uv, 1.0), 0.0)
     tu = Vec3((e1.x * dv2 - e2.x * dv1) * inv_det,
               (e1.y * dv2 - e2.y * dv1) * inv_det,
               (e1.z * dv2 - e2.z * dv1) * inv_det)
@@ -206,7 +228,7 @@ def _cadd_where(m, acc: Color, c: Color) -> Color:
 
 
 def check_settings(settings: RenderSettings, scene: SceneData) -> None:
-    """Raise for anything this forward slice does not carry."""
+    """Raise for anything the port does not carry yet."""
     if settings.technique not in ("path", "pt"):
         raise NotImplementedError(
             f"technique '{settings.technique}' is not ported yet (ROADMAP "
@@ -219,17 +241,15 @@ def check_settings(settings: RenderSettings, scene: SceneData) -> None:
         raise NotImplementedError(
             "blends, normal maps and textures are not ported yet (ROADMAP "
             "queue 1, items 6 and 7)")
-    if settings.remat:
-        raise NotImplementedError(
-            "the differentiable path is not ported yet (ROADMAP queue 1, "
-            "item 10)")
     bsdflib.check_kinds(settings.bsdf_kinds)
     lightlib.check_lights(settings, scene)
 
 
-def make_bounce(scene: SceneData, settings: RenderSettings, regen=None):
-    """Per-bounce wavefront step. With `regen` = (x, y, iteration, frame),
-    lanes whose path ended restart the next sample of their pixel."""
+def make_bounce(scene: SceneData, settings: RenderSettings,
+                tab: torch.Tensor, regen=None):
+    """Per-bounce wavefront step; `tab` is the scene's attr_table. With
+    `regen` = (x, y, iteration, frame), lanes whose path ended restart the
+    next sample of their pixel."""
     n_lights = settings.n_lights
     present = tuple(int(k) for k in settings.bsdf_kinds)
     kinds = tuple(int(k) for k in settings.light_kinds or ())
@@ -262,7 +282,7 @@ def make_bounce(scene: SceneData, settings: RenderSettings, regen=None):
 
         # ---- hit shading -----------------------------------------------
         active = state.alive & found
-        surf = compute_surface(scene, rays_b, hit)
+        surf = compute_surface(scene, rays_b, hit, tab)
         mat = gather_material(scene, surf)
         out_dir = -state.dir
         frame = make_frame(surf.ns)
@@ -409,7 +429,8 @@ def bucket_chain(n: int, min_bucket: int):
 
 
 def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
-                 iteration: int, frame: int, compact: bool = True) -> Color:
+                 iteration: int, frame: int, compact: bool = True,
+                 remat: bool = False) -> Color:
     """Render settings.spi samples for every lane (pixel (x, y)); returns
     the per-lane radiance summed over the samples, in x's lane order.
 
@@ -419,10 +440,18 @@ def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
     is), all stages share one budget of spi*max_depth bounces, and each
     stage folds its radiance into the film by original lane id and hands
     its survivors, compacted, to the next. Without it, one stage: the
-    persistent-lane progressive render (path_trace_progressive)."""
+    persistent-lane progressive render (path_trace_progressive).
+
+    With `remat`, the same bounces run in chunks of up to DIFF_CHUNK under
+    torch.utils.checkpoint, so reverse mode keeps only each chunk's input
+    state and recomputes the chunk's bounces in the backward (the JAX
+    package's path_trace_cascade_diff). A chunk decides how many bounces
+    it runs from the alive counts of its own state, so its recompute
+    repeats the same decisions."""
     n = x.shape[0]
     device = x.device
     sizes = bucket_chain(n, MIN_BUCKET) if compact else [n]
+    tab = attr_table(scene)
     st = start_state(scene, settings, x, y, iteration, frame)
     film = torch.zeros((3, n), dtype=torch.float32, device=device)
     budget = settings.spi * settings.max_depth
@@ -431,13 +460,28 @@ def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
     for si, size in enumerate(sizes):
         last = si == len(sizes) - 1
         min_alive = 0 if last else size // SHRINK
-        bounce = make_bounce(scene, settings, regen=(px, py, iteration, frame))
-        it = 0
-        while it < budget and int(st.alive.sum()) > min_alive:
-            st = bounce(st)
-            it += 1
+        bounce = make_bounce(scene, settings, tab, (px, py, iteration, frame))
+
+        def run(st, limit, bounce=bounce, min_alive=min_alive):
+            it = 0
+            while it < limit and int(st.alive.sum()) > min_alive:
+                st = bounce(st)
+                it += 1
+            return st, it
+
+        if remat:
+            it = 0
+            while it < budget:
+                limit = min(DIFF_CHUNK, budget - it)
+                st, done = checkpoint(run, st, limit, use_reentrant=False,
+                                      preserve_rng_state=False)
+                it += done
+                if done < limit:
+                    break
+        else:
+            st, it = run(st, budget)
         budget -= it
-        film.index_add_(1, l0, torch.stack(st.result))
+        film = film.index_add(1, l0, torch.stack(st.result))
         if not last:
             st = st._replace(result=black_like(st.tmin))
             order = torch.argsort((~st.alive).to(torch.int8),

@@ -1,11 +1,14 @@
 """Tests of ignis_tpu_torch that need a CUDA card. They run the checks of
 chip_smoke.py, which is the one home of the on-card checks, at a test's
 size: the hand-written kernels against their plain torch versions (t, prim,
-u, v and any-hit), and the slice on the card against the slice on the CPU.
+u, v and any-hit; K3's gather and scatter-add; the MT replay), the train
+step and geometry gradient with their launch counts, and the slice and its
+gradient on the card against the CPU.
 They skip without a card. The file imports no JAX, so it runs on the
 card's machine: `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -60,3 +63,40 @@ def test_slice_on_card_matches_cpu(device):
     subdivisions 3) on the card against the CPU at 64x64: >= 99% of
     pixels within rtol 1e-3 / atol 1e-4 and means within 0.5%."""
     chip_smoke.phase_reference(device)
+
+
+def test_grad_kernels_match_plain(device):
+    """K3 gather (equal) and scatter-add, and the MT replay at K1's and
+    K2's winners, against their plain versions at chip_smoke's bars, on
+    the icosphere's attribute table."""
+    rt = ignis_tpu_torch.loadFromString(json.dumps(ICO), device=device)
+    rays = chip_smoke.random_rays(np.random.default_rng(3), 65536, device,
+                                  extent=3.0)
+    errs, _ = chip_smoke.phase_grad_kernels(device, rt, rays)
+    assert errs["K3_gather_rows"] == 0.0
+
+
+def test_train_and_geometry_steps_launch_kernels(device):
+    """phase 7's train step on S1 (at subdivisions 3), S2 and S3 (at
+    80x100) at 64x64, spi 2, and the geometry gradient on S1 and S2: loss
+    and gradients finite, every kernel of the path launched, no plain
+    version called."""
+    s3 = json.loads(json.dumps(chip_smoke.S3_BENCH_BIG))
+    s3["shapes"][0].update(stacks=80, slices=100)
+    scenes = {"S1_glass_ico7": chip_smoke._ico3(chip_smoke.S1_GLASS_ICO7),
+              "S2_graft_entry": chip_smoke.S2_GRAFT_ENTRY,
+              "S3_bench_big": s3}
+    runtimes = {}
+    for name, sc in scenes.items():
+        small = json.loads(json.dumps(sc))
+        small["film"] = {"size": [64, 64]}
+        runtimes[name] = ignis_tpu_torch.loadFromString(
+            json.dumps(small), device=device, spi=2)
+    counts, _ = chip_smoke.phase_train(device, runtimes)
+    assert all(n > 0 for n in counts.values()), counts
+
+
+def test_gradient_on_card_matches_cpu(device):
+    """small_scene(64)'s albedo gradient on the card within rtol 1e-3 of
+    the CPU's."""
+    chip_smoke.phase_grad_reference(device)
