@@ -10,7 +10,11 @@ printing its own lines; any failure exits non-zero:
    native BVH builder, from the sources in the checkout, all at once;
 3. K2 against its plain torch version on the card (random soups);
 4. K1 against its plain version on S1's BVH, and against K2 brute force
-   on a 20,480-triangle icosphere; kernel and plain times;
+   on a 20,480-triangle icosphere; kernel and plain times; then K1 on
+   three 262,144-ray sets of S1 and S3 shaped like the main path's
+   (camera rays in pixel order, cosine secondary rays from their hits,
+   shadow rays from those hits to S1's point light): exact against the
+   plain walk, timed beside its bound, the deepest stack counted;
 5. render S1-S3 at 512x512 through `loadFromString(..., device="cuda")`
    and `Runtime.step()`, with every kernel's launch count reset just
    before and read just after; no plain version may run; then one more
@@ -19,12 +23,15 @@ printing its own lines; any failure exits non-zero:
 6. reference checks: the analytic point-light oracle on the card, and
    card-vs-CPU renders of small scenes;
 7. gradients: K3's gather and scatter-add and the MT replay against their
-   plain versions, with times; `train_step` (albedo) on S1-S3 at 512x512
-   and a geometry gradient on S1 and S2, counts reset before and read
-   after; one profiled train step per scene; the albedo gradient on the
-   card against the CPU's;
-then one JSON line of kernel results, the nvidia-smi line again, and as
-the last line {"ok": true, "device": {...}}.
+   plain versions, with times (the replay on S1's contended rays and on a
+   random soup); `train_step` (albedo) on S1-S3 at 512x512 and a geometry
+   gradient on S1 and S2, counts reset before and read after; one
+   profiled train step per scene and one profiled S1 geometry-gradient
+   step; the albedo gradient on the card against the CPU's;
+then one JSON line of kernel results (each kernel's time beside its bound
+and, where one PyTorch call computes the same function, that call's
+time), the nvidia-smi line again, and as the last line
+{"ok": true, "device": {...}}.
 Imports nothing of JAX. `--profile-json PATH` also writes the renders'
 timings and the profiled steps to PATH.
 """
@@ -114,6 +121,17 @@ SCENES = (("S1_glass_ico7", S1_GLASS_ICO7, "K1"),
           ("S2_graft_entry", S2_GRAFT_ENTRY, "K2"),
           ("S3_bench_big", S3_BENCH_BIG, "K1"))
 SPI = 4
+S1_LIGHT = (2.0, 3.0, 2.0)   # S1's point light
+
+# The least time of a kernel: the larger of its bytes (each input read once,
+# each output written once) over the card's memory rate and its operations
+# over the fp32 rate outside the tensor cores, both the H100 SXM's published
+# peaks (NVIDIA's data sheet, dense rates).
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_PER_S = 67e12
+SLAB_OPS = 22    # one child's slab test: 6 subtractions, 6 products, 10 min/max
+MT_OPS = 42      # one Moeller-Trumbore test, from the ray to t, u and v
+REPLAY_OPS = 150  # one ray of the MT replay: forward and hand-written adjoint
 
 
 def flat_scene(size=256):
@@ -214,6 +232,30 @@ def random_rays(rng, n, device, extent=4.0, dead_frac=0.05):
                 t(np.zeros(n, np.float32)), t(tmax))
 
 
+def rays_at_triangle(rng, soup, k, n, device):
+    """n rays from random origins to random points inside triangle k of
+    `soup`, so that every ray's winner can be k."""
+    import torch
+    from ignis_tpu_torch.core.vec import Vec3
+    from ignis_tpu_torch.ops.intersect import Rays
+    tri = [np.array([float(c[k]) for c in v], np.float32)
+           for v in (soup.v0, soup.e1, soup.e2)]
+    u = rng.uniform(size=(n, 1)).astype(np.float32)
+    v = rng.uniform(size=(n, 1)).astype(np.float32)
+    flip = (u + v) > 1
+    u, v = np.where(flip, 1 - u, u), np.where(flip, 1 - v, v)
+    target = tri[0] + u * tri[1] + v * tri[2]
+    o = target + rng.uniform(-4, 4, (n, 3)).astype(np.float32)
+    d = (target - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return Rays(Vec3(*[t(o[:, i]) for i in range(3)]),
+                Vec3(*[t(d[:, i]) for i in range(3)]),
+                t(np.zeros(n, np.float32)), t(np.full(n, 1e30, np.float32)))
+
+
 def camera_rays(scene, settings, n, device):
     """n camera rays of the scene's camera through random pixels."""
     import torch
@@ -234,6 +276,45 @@ def cat_rays(a, b):
     return Rays(Vec3(*[c(p, q) for p, q in zip(a.org, b.org)]),
                 Vec3(*[c(p, q) for p, q in zip(a.dir, b.dir)]),
                 c(a.tmin, b.tmin), c(a.tmax, b.tmax))
+
+
+def main_path_sets(rt, device, light=S1_LIGHT, seed=17):
+    """Three ray sets of the main path on rt's scene, one ray per pixel of
+    its film, from `seed`: "camera", camera rays in pixel order with a
+    random offset in each pixel, as the first bounce traces them;
+    "secondary", rays from their hits in cosine-distributed directions
+    about the shading normal (lanes whose camera ray missed are dead:
+    tmax < tmin); "shadow", rays from those hits to a point light at
+    `light` (any hit). Returns {name: (rays, any_hit)}."""
+    import torch
+    from ignis_tpu_torch.core.frame import make_frame
+    from ignis_tpu_torch.core.vec import Vec3
+    from ignis_tpu_torch.core.warp import sample_cosine_hemisphere
+    from ignis_tpu_torch.models.camera import generate_rays
+    from ignis_tpu_torch.ops import bvh_cuda
+    from ignis_tpu_torch.ops.intersect import FLT_MAX, Rays
+    from ignis_tpu_torch.techniques.path import OFFSET, compute_surface
+    scene, s = rt.scene, rt.settings
+    n = s.width * s.height
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pix = torch.arange(n)
+    x, y = (pix % s.width).to(device), (pix // s.width).to(device)
+    sx, sy, u0, u1 = [torch.rand(n, generator=g).to(device)
+                      for _ in range(4)]
+    cam = generate_rays(scene.camera, s, x, y, sx, sy)
+    hit = bvh_cuda.intersect_bvh(cam, scene.tris, scene.bvh)
+    surf = compute_surface(scene, cam, hit)
+    found = hit.prim >= 0
+    local, _ = sample_cosine_hemisphere(u0, u1)
+    d = make_frame(surf.ns).to_world(local)
+    org = Vec3(*[a.contiguous() for a in surf.point])
+    tmin = torch.full_like(hit.t, OFFSET)
+    sec = Rays(org, Vec3(*[a.contiguous() for a in d]), tmin,
+               torch.where(found, FLT_MAX, -1.0))
+    to_light = Vec3(*[(c - a).contiguous() for c, a in zip(light, org)])
+    shadow = Rays(org, to_light, tmin, torch.where(found, 1.0 - OFFSET, -1.0))
+    return {"camera": (cam, False), "secondary": (sec, False),
+            "shadow": (shadow, True)}
 
 
 def compare_hits(got, ref, what, bar, hit_mask=False):
@@ -274,6 +355,73 @@ def compare_hits(got, ref, what, bar, hit_mask=False):
               f"all {n_same} lanes where both hit the same primitive")
     return max(float(np.abs(a[same] - b[same]).max())
                for a, b in ((gt, rt), (gu, ru), (gv, rv)))
+
+
+def bound(n_bytes, n_ops):
+    """(least time in ms, "bytes" or "operations") of work that moves
+    n_bytes and does n_ops fp32 operations."""
+    by_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    by_ops = n_ops / H100_FP32_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                             "operations")
+
+
+def bvh_paths(bvh, n_tris):
+    """(parent of each node, node of each triangle's leaf, children of each
+    node) of a BVHArrays, in numpy."""
+    child = bvh.child.cpu().numpy().astype(np.int64)
+    parent = np.full(child.shape[0], -1)
+    node, slot = np.nonzero(child > 0)
+    parent[child[node, slot]] = node
+    node, slot = np.nonzero(child < 0)
+    code = -child[node, slot] - 1
+    start, count = code >> 4, code & 15
+    offsets = np.cumsum(count) - count
+    owner = np.full(n_tris, -1)
+    owner[np.repeat(start - offsets, count) + np.arange(count.sum())] = \
+        np.repeat(node, count)
+    return parent, owner, (child != 0).sum(1)
+
+
+def k1_bound(rays, result, paths, any_hit):
+    """K1's least time on these rays: ray arrays in (8 f32), results out
+    (t, prim, u, v; or one occlusion byte), the root's records, and for
+    closest hit each distinct winner's triangle row and the records of
+    every node on its path from the root; operations: the root's slab
+    tests of every live ray and one triangle test of every hit. What else
+    a ray must read to prove its answer depends on the walk and is not
+    counted, so this is a floor."""
+    parent, owner, kids = paths
+    n = rays.tmin.numel()
+    live = int((rays.tmax >= rays.tmin).sum())
+    n_bytes = 32 * n + (1 if any_hit else 16) * n
+    n_ops = live * int(kids[0]) * SLAB_OPS
+    on_path = np.zeros(len(parent), bool)
+    on_path[0] = True
+    if not any_hit:
+        prim = result.prim.cpu().numpy()
+        winners = np.unique(prim[prim >= 0])
+        nodes = np.unique(owner[winners])
+        while len(nodes):
+            on_path[nodes] = True
+            nodes = np.unique(parent[nodes])
+            nodes = nodes[nodes >= 0]
+            nodes = nodes[~on_path[nodes]]
+        n_bytes += 48 * len(winners)
+        n_ops += int((prim >= 0).sum()) * MT_OPS
+    n_bytes += 32 * int(kids[on_path].sum())
+    return bound(n_bytes, n_ops)
+
+
+def replay_bound(prim, n_tris):
+    """The MT replay's least time: per ray 6 ray floats, the prim and 3
+    cotangents in, 6 ray gradients out; each distinct winner's 9 soup
+    floats in; the 9 [T] soup gradients out."""
+    n = prim.numel()
+    p = prim.cpu().numpy()
+    winners = len(np.unique(p[p >= 0]))
+    return bound(n * (10 + 6) * 4 + winners * 36 + 9 * 4 * n_tris,
+                 int((p >= 0).sum()) * REPLAY_OPS)
 
 
 # ---------------------------------------------------------------------------
@@ -375,7 +523,11 @@ def phase_k1(device, s1, n_rays=65536):
 
 
 def phase_times(device, s1, k1_rays):
-    """Median CUDA-event times of each kernel and its plain version."""
+    """Median CUDA-event times of each kernel and its plain version, with
+    the kernel's bound: K2 at S2's shape, K1 on the 65,536 rays of
+    phase_k1 (closest and any hit), the soup packed beforehand as the
+    main path packs it."""
+    import torch
     from ignis_tpu_torch.ops import bvh_cuda, isect_cuda
     rng = np.random.default_rng(5)
     out = {}
@@ -384,25 +536,99 @@ def phase_times(device, s1, k1_rays):
     s2 = ignis_tpu_torch.loadFromString(json.dumps(S2_GRAFT_ENTRY),
                                         device=device)
     rays = random_rays(rng, 262144, device)
+    n_tris = s2.scene.tris.v0.x.numel()
+    n = rays.tmin.numel()
     out["K2"] = (cuda_ms(lambda: isect_cuda.intersect_tris(rays,
                                                            s2.scene.tris)),
                  cuda_ms(lambda: isect_cuda.intersect_tris_plain(
-                     rays, s2.scene.tris)))
+                     rays, s2.scene.tris)),
+                 *bound(48 * n + 36 * n_tris, n * n_tris * MT_OPS))
     sc = s1.scene
-    out["K1"] = (cuda_ms(lambda: bvh_cuda.intersect_bvh(k1_rays, sc.tris,
-                                                        sc.bvh)),
-                 cuda_ms(lambda: bvh_cuda.intersect_bvh_plain(
-                     k1_rays, sc.tris, sc.bvh), reps=10, warmup=1))
+    rows = bvh_cuda.pack_tris(sc.tris)
+    paths = bvh_paths(sc.bvh, sc.tris.v0.x.numel())
     vis = sc.tri_attr.shadow_visible
-    out["K1_any"] = (
-        cuda_ms(lambda: bvh_cuda.intersect_bvh(
-            k1_rays, sc.tris, sc.bvh, any_hit=True, shadow_visible=vis)),
-        cuda_ms(lambda: bvh_cuda.intersect_bvh_plain(
-            k1_rays, sc.tris, sc.bvh, any_hit=True, shadow_visible=vis),
-            reps=10, warmup=1))
-    for k, (ms, plain) in out.items():
-        print(f"  {k}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+    for name, any_hit in (("K1", False), ("K1_any", True)):
+        kw = dict(any_hit=any_hit, shadow_visible=vis if any_hit else None)
+        res = bvh_cuda.intersect_bvh(k1_rays, sc.tris, sc.bvh, **kw)
+        out[name] = (
+            cuda_ms(lambda: bvh_cuda.intersect_bvh(k1_rays, sc.tris, sc.bvh,
+                                                   tri_rows=rows, **kw)),
+            cuda_ms(lambda: bvh_cuda.intersect_bvh_plain(
+                k1_rays, sc.tris, sc.bvh, **kw), reps=10, warmup=1),
+            *k1_bound(k1_rays, res, paths, any_hit))
+    for k, (ms, plain, bms, by) in out.items():
+        print(f"  {k}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+              f"{bms:.4f} ms ({by})")
+    torch.cuda.synchronize()
     return out
+
+
+def phase_k1_sets(device, runtimes, check_only=False):
+    """K1 on main_path_sets of each runtime ({name: Runtime}): exact
+    against the plain walk (t, u and v bit for bit where the prims agree,
+    prim agreement > 0.995, any-hit agreement >= 0.995), and,
+    unless check_only, its median time with the soup packed beforehand, as
+    the main path packs it, beside its bound. No stack push may be
+    dropped. Returns {"<scene> <set>": {...}}."""
+    import torch
+    from ignis_tpu_torch.ops import bvh_cuda
+    bvh_cuda.reset_overflow(device)
+    out = {}
+    for name, rt in runtimes.items():
+        sc = rt.scene
+        rows = bvh_cuda.pack_tris(sc.tris)
+        paths = bvh_paths(sc.bvh, sc.tris.v0.x.numel())
+        nodes = bvh_cuda.scene_nodes(sc.bvh)
+        print(f"  {name}: {sc.bvh.child.shape[0]} nodes, "
+              f"{nodes.records.shape[0]} node records "
+              f"({nodes.records.numel() * 4 / 1e6:.1f} MB), {nodes.dropped} "
+              f"empty child slots dropped")
+        vis = sc.tri_attr.shadow_visible
+        for set_name, (rays, any_hit) in main_path_sets(rt, device).items():
+            what = f"K1 {name} {set_name}"
+            live = int((rays.tmax >= rays.tmin).sum())
+            if any_hit:
+                got = bvh_cuda.intersect_bvh(rays, sc.tris, sc.bvh, True, vis,
+                                             tri_rows=rows)
+                ref = bvh_cuda.intersect_bvh_plain(rays, sc.tris, sc.bvh,
+                                                   True, vis)
+                agree = (got == ref).float().mean().item()
+                check(agree >= 0.995, f"{what}: any-hit agreement "
+                      f"{agree:.6f} >= 0.995 ({int(ref.sum())} of {live} live "
+                      f"rays occluded)")
+                err, prim_agree = 0.0, None
+            else:
+                got = bvh_cuda.intersect_bvh(rays, sc.tris, sc.bvh,
+                                             tri_rows=rows)
+                ref = bvh_cuda.intersect_bvh_plain(rays, sc.tris, sc.bvh)
+                same = got.prim == ref.prim
+                prim_agree = float(same.float().mean())
+                check(prim_agree > 0.995, f"{what}: prim agreement "
+                      f"{prim_agree:.6f} > 0.995 ({int((ref.prim >= 0).sum())}"
+                      f" of {live} live rays hit)")
+                err = max(max_err(a[same], b[same]) for a, b in
+                          zip((got.t, got.u, got.v), (ref.t, ref.u, ref.v)))
+                check(err == 0.0, f"{what}: t, u, v bit for bit where the "
+                      f"prims agree (max |difference| {err})")
+                agree = None
+            row = {"rays": rays.tmin.numel(), "live": live,
+                   "any_hit": any_hit, "max_abs_err": err,
+                   "prim_agreement": prim_agree, "any_hit_agreement": agree}
+            if not check_only:
+                ms = cuda_ms(lambda: bvh_cuda.intersect_bvh(
+                    rays, sc.tris, sc.bvh, any_hit, vis if any_hit else None,
+                    tri_rows=rows))
+                bms, by = k1_bound(rays, got, paths, any_hit)
+                row.update(ms=ms, bound_ms=bms, bound_by=by)
+                print(f"  {what}: kernel {ms:.4f} ms, bound {bms:.4f} ms "
+                      f"({by}), {live} live rays")
+            out[f"{name} {set_name}"] = row
+    torch.cuda.synchronize()
+    ovf = bvh_cuda.overflow_count(device)
+    deepest = bvh_cuda.deepest_stack(device)
+    print(f"  K1 deepest stack on these sets: {deepest} entries")
+    check(ovf == 0, f"K1 stack overflow counter {ovf} == 0")
+    return out, deepest
 
 
 def all_counts():
@@ -467,6 +693,8 @@ def phase_render(device, runtimes):
     check(plain == 0, f"no plain version called during the renders "
           f"({plain})")
     ovf = bvh_cuda.overflow_count(device)
+    print(f"  K1 deepest stack in the renders: "
+          f"{bvh_cuda.deepest_stack(device)} entries")
     check(ovf == 0, f"K1 stack overflow counter {ovf} == 0")
     return counts, per_scene
 
@@ -572,9 +800,9 @@ def reorder_ratio(got, ref, idx, terms, rtol):
 
 def compare_replay(what, rays, soup, prim, seed):
     """The MT replay kernel against mt_replay_bwd_plain at the winners
-    `prim`, with random cotangents. Per-ray gradients: rtol 1e-5 / atol
-    1e-6 (both run the same operations in the same order, without FMA
-    contraction, so they should agree bit for bit). Soup gradients are
+    `prim`, with random cotangents. Per-ray gradients bit for bit (both
+    run the same operations in the same order, without FMA contraction).
+    Soup gradients are
     sums over the rays that hit a triangle, in atomic order on the card and
     index_add_ order in the plain version: within 1e-6 + 1e-4 times the sum
     of their terms' magnitudes (reorder_ratio). Returns the largest
@@ -593,11 +821,8 @@ def compare_replay(what, rays, soup, prim, seed):
     hit = prim >= 0
     check(int(hit.sum()) >= 1000, f"{what}: {int(hit.sum())} of {n} rays "
           f"hit (>= 1000)")
-    ok = all(bool(torch.isclose(a, b, rtol=1e-5, atol=1e-6).all())
-             for a, b in zip(kr, pr))
     exact = all(torch.equal(a, b) for a, b in zip(kr, pr))
-    check(ok, f"{what}: per-ray gradients within rtol 1e-5 / atol 1e-6 "
-          f"(bit for bit: {exact})")
+    check(exact, f"{what}: per-ray gradients bit for bit")
     # |terms| of every soup sum
     p = torch.clamp(prim, min=0).long()
     rows = [a[p] for a in soup_arrays]
@@ -614,7 +839,12 @@ def compare_replay(what, rays, soup, prim, seed):
 def phase_grad_kernels(device, s1, k1_rays):
     """K3's gather and scatter-add and the MT replay against their plain
     versions on the card, at the gradient path's shapes (S1's attribute
-    table, 262,144 lanes); median kernel and plain times."""
+    table, 262,144 lanes), the replay also with 65,536 rays aimed at one
+    triangle; median kernel, plain and library times and each kernel's
+    bound: the replay on S1's contended rays (half camera rays through
+    random pixels, half random rays about the ball, most of whose hits
+    land on the floor's two triangles) and on random rays against a
+    4,096-triangle random soup, where winners rarely repeat."""
     import torch
     from ignis_tpu_torch.ops import bvh_cuda, gather, isect_cuda, mt_replay
     from ignis_tpu_torch.techniques.path import attr_table
@@ -649,29 +879,59 @@ def phase_grad_kernels(device, s1, k1_rays):
     rays = random_rays(rng, 65536, device)
     e2 = compare_replay("MT replay, random soup at K2's winners", rays, soup,
                         isect_cuda.intersect_tris(rays, soup).prim, 2)
-    errs["MT_replay_bwd"] = max(e1, e2)
+    at0 = rays_at_triangle(rng, soup, 0, 65536, device)
+    e3 = compare_replay("MT replay, every ray on triangle 0", at0, soup,
+                        torch.zeros_like(at0.tmin, dtype=torch.int32), 4)
+    errs["MT_replay_bwd"] = max(e1, e2, e3)
 
-    # times at the main path's shape: 262,144 S1 lanes (half camera rays)
-    rays = cat_rays(camera_rays(sc, s1.settings, n // 2, device),
-                    random_rays(rng, n // 2, device, extent=1.5))
-    prim = bvh_cuda.intersect_bvh(rays, sc.tris, sc.bvh).prim
+    # times at the main path's shapes: 262,144 lanes
+    contended = cat_rays(camera_rays(sc, s1.settings, n // 2, device),
+                         random_rays(rng, n // 2, device, extent=1.5))
+    spread = random_rays(rng, n, device)
+    replay_sets = {
+        "S1 contended": (contended, [*sc.tris.v0, *sc.tris.e1, *sc.tris.e2],
+                         bvh_cuda.intersect_bvh(contended, sc.tris,
+                                                sc.bvh).prim),
+        "random soup": (spread, [*soup.v0, *soup.e1, *soup.e2],
+                        isect_cuda.intersect_tris(spread, soup).prim)}
     cts = [torch.randn(n, generator=g).to(device) for _ in range(3)]
-    ra, sa = [*rays.org, *rays.dir], [*sc.tris.v0, *sc.tris.e1, *sc.tris.e2]
+    zeros = torch.zeros(n_rows, k, device=device)
     times = {
-        "K3_gather_rows": (
-            cuda_ms(lambda: gather.gather_rows(idx, tab)),
-            cuda_ms(lambda: gather.gather_rows_plain(idx, tab))),
-        "K3_scatter_add_rows": (
-            cuda_ms(lambda: gather.scatter_add_rows(idx, cot, n_rows)),
-            cuda_ms(lambda: gather.scatter_add_rows_plain(idx, cot,
-                                                          n_rows))),
-        "MT_replay_bwd": (
-            cuda_ms(lambda: mt_replay.mt_replay_bwd(ra, sa, prim, *cts)),
-            cuda_ms(lambda: mt_replay.mt_replay_bwd_plain(ra, sa, prim,
-                                                          *cts))),
-    }
-    for name, (ms, plain) in times.items():
-        print(f"  {name}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
+        "K3_gather_rows": dict(
+            ms=cuda_ms(lambda: gather.gather_rows(idx, tab)),
+            plain_ms=cuda_ms(lambda: gather.gather_rows_plain(idx, tab)),
+            library_ms=cuda_ms(lambda: torch.index_select(tab, 0, idx))),
+        "K3_scatter_add_rows": dict(
+            ms=cuda_ms(lambda: gather.scatter_add_rows(idx, cot, n_rows)),
+            plain_ms=cuda_ms(lambda: gather.scatter_add_rows_plain(
+                idx, cot, n_rows)),
+            library_ms=cuda_ms(lambda: torch.index_add(zeros, 0, idx, cot)))}
+    distinct = int(torch.unique(idx).numel())
+    times["K3_gather_rows"].update(zip(("bound_ms", "bound_by"), bound(
+        (4 + 4 * k) * n + 4 * k * distinct, 0)))
+    times["K3_scatter_add_rows"].update(zip(("bound_ms", "bound_by"), bound(
+        (4 + 4 * k) * n + 4 * k * n_rows, n * k)))
+    replay = {}
+    for name, (r, soup_arrays, prim) in replay_sets.items():
+        ra = [*r.org, *r.dir]
+        row = dict(
+            ms=cuda_ms(lambda: mt_replay.mt_replay_bwd(ra, soup_arrays, prim,
+                                                       *cts)),
+            plain_ms=cuda_ms(lambda: mt_replay.mt_replay_bwd_plain(
+                ra, soup_arrays, prim, *cts)),
+            library_ms=None, hits=int((prim >= 0).sum()),
+            winners=int(torch.unique(prim[prim >= 0]).numel()))
+        row.update(zip(("bound_ms", "bound_by"),
+                       replay_bound(prim, soup_arrays[0].numel())))
+        replay[name] = row
+    times["MT_replay_bwd"] = dict(replay["S1 contended"], sets=replay)
+    for name, t in [*times.items()] + [(f"MT_replay_bwd {k}", v)
+                                       for k, v in replay.items()]:
+        lib = ("none" if t["library_ms"] is None
+               else f"{t['library_ms']:.4f} ms")
+        print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}"
+              f" ms, library {lib}, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']})")
     return errs, times
 
 
@@ -795,6 +1055,31 @@ def phase_train_profile(device, runtimes):
     return out
 
 
+def phase_geometry_profile(device, rt):
+    """One geometry-gradient step of `rt` (w.r.t. tris.v0/e1/e2, the loss
+    of phase_train) under torch.profiler: the MT replay's summed device
+    time in it, beside K1's and K3's."""
+    import torch
+    from ignis_tpu_torch import loss_fn
+    from ignis_tpu_torch.render.profile import profile_step
+    s = rt.settings
+    target = torch.zeros((s.height, s.width, 3), device=device)
+    names = {"MT": "mt_replay_bwd_kernel", "K1": "bvh_walk_kernel",
+             "K3": "gather_rows_kernel", "K3s": "scatter_add_rows_kernel"}
+
+    def step():
+        scene, leaves = geometry_leaves(rt.scene)
+        loss = loss_fn({"base": scene.materials.base}, scene, s, target, 0, 0)
+        torch.autograd.grad(loss, leaves)
+    p = profile_step(step, names)
+    print(f"  profiled geometry-gradient step {p['wall_s']:.4f} s, device "
+          f"ops {p['device_ops']}, device busy {p['device_busy_us']:.1f} us "
+          f"(share {p['busy_share']:.4f}), "
+          + ", ".join(f"{k} {p[k + '_us']:.1f} us" for k in names))
+    check(p["MT_us"] > 0, "the MT replay ran in the profiled step")
+    return p
+
+
 def phase_grad_reference(device):
     """The albedo gradient of small_scene(64) on the card against the
     CPU's: rtol 1e-3."""
@@ -846,7 +1131,6 @@ def main() -> int:
           f"CUDA {torch.version.cuda}")
     sys.path.insert(0, str(ROOT))
     import ignis_tpu_torch
-    from ignis_tpu_torch.ops import bvh_cuda, isect_cuda
     device = torch.device("cuda:0")
 
     print("== phase 2: build")
@@ -870,6 +1154,9 @@ def main() -> int:
     print("== phase 4: K1 against its plain version and against K2")
     k1_err, k1_rays = phase_k1(device, runtimes["S1_glass_ico7"])
     times = phase_times(device, runtimes["S1_glass_ico7"], k1_rays)
+    k1_sets, deepest = phase_k1_sets(
+        device, {"S1": runtimes["S1_glass_ico7"],
+                 "S3": runtimes["S3_bench_big"]})
 
     print("== phase 5: render S1-S3")
     counts, per_scene = phase_render(device, runtimes)
@@ -883,19 +1170,29 @@ def main() -> int:
         device, runtimes["S1_glass_ico7"], k1_rays)
     grad_counts, train = phase_train(device, runtimes)
     train_profile = phase_train_profile(device, runtimes)
+    geometry_profile = phase_geometry_profile(device,
+                                              runtimes["S1_glass_ico7"])
     phase_grad_reference(device)
 
+    def timed(t):
+        ms, plain, bms, by = t
+        return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
+    k1_sets["S1 phase-4 65,536 any hit"] = timed(times["K1_any"])
     kernels = [
         {"name": "K1_bvh_walk", "route": "cuda",
          "source": "ignis_tpu_torch/csrc/bvh_walk.cu",
          "replaces": "ignis_tpu/ops/pallas_bvh.py:74",
-         "launches": counts["K1"], "max_abs_err": k1_err,
-         "ms": times["K1"][0], "plain_ms": times["K1"][1]},
+         "launches": counts["K1"],
+         "max_abs_err": max([k1_err] + [r["max_abs_err"]
+                                        for r in k1_sets.values()
+                                        if "max_abs_err" in r]),
+         **timed(times["K1"]), "library_ms": None, "deepest_stack": deepest,
+         "sets": k1_sets},
         {"name": "K2_isect_dense", "route": "cuda",
          "source": "ignis_tpu_torch/csrc/isect_dense.cu",
          "replaces": "ignis_tpu/ops/pallas_isect.py:156",
          "launches": counts["K2"], "max_abs_err": k2_err,
-         "ms": times["K2"][0], "plain_ms": times["K2"][1]},
+         **timed(times["K2"]), "library_ms": None},
     ]
     for name, source, replaces in (
             ("K3_gather_rows", "ignis_tpu_torch/csrc/gather_cols.cu",
@@ -906,20 +1203,19 @@ def main() -> int:
              "ignis_tpu/ops/pallas_isect.py:381")):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": grad_counts[name],
-                        "max_abs_err": grad_errs[name],
-                        "ms": grad_times[name][0],
-                        "plain_ms": grad_times[name][1]})
+                        "max_abs_err": grad_errs[name], **grad_times[name]})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on the main path")
     if args.profile_json:
         Path(args.profile_json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.profile_json).write_text(json.dumps(
             {"nvidia_smi": smi, "scenes": per_scene, "profile": profile,
-             "train": train, "train_profile": train_profile},
-            indent=1))
+             "train": train, "train_profile": train_profile,
+             "geometry_profile": geometry_profile}, indent=1))
     print(json.dumps({"scenes": per_scene, "train": train,
-                      "K1_any_hit_ms": times["K1_any"][0],
-                      "K1_any_hit_plain_ms": times["K1_any"][1]}))
+                      "geometry_profile_us": {
+                          k: v for k, v in geometry_profile.items()
+                          if k.endswith("_us")}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

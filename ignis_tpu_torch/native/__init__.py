@@ -1,12 +1,13 @@
-"""The native binned-SAH BVH8 builder, compiled from the JAX package's source.
+"""The native binned-SAH BVH8 builder, the port's own copy.
 
-ignis_tpu/native/bvh_builder.cpp is the one source of truth: it is plain
-C++ with a C ABI and imports nothing of ignis_tpu, so the port compiles it
-in place, by file path, with g++ into build/ignis_tpu_torch/ in the
-checkout (ops/cuda_build.compile_and_load) and loads it with ctypes. It is
-built for the baseline of the host architecture, without -march=native,
-so a cached library runs on any host of that architecture. A failed build
-raises; there is no numpy fallback.
+bvh_builder.cpp beside this file is the port's own copy of
+ignis_tpu/native/bvh_builder.cpp, unchanged: plain C++ with a C ABI, so
+the port reads, imports and compiles nothing of the JAX package's tree.
+It is compiled with g++ into build/ignis_tpu_torch/ in the checkout
+(ops/cuda_build.compile_and_load) and loaded with ctypes, built for the
+baseline of the host architecture, without -march=native, so a cached
+library runs on any host of that architecture. A failed build raises;
+there is no numpy fallback.
 """
 from __future__ import annotations
 
@@ -17,8 +18,7 @@ import numpy as np
 
 from ..ops.cuda_build import compile_and_load
 
-SOURCE = (Path(__file__).resolve().parents[2] / "ignis_tpu" / "native"
-          / "bvh_builder.cpp")
+SOURCE = Path(__file__).resolve().parent / "bvh_builder.cpp"
 GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
 WIDTH = 8
 

@@ -10,7 +10,8 @@ Rays that miss get no gradient.
 `ClosestHit` is the torch.autograd.Function around a closest-hit launch.
 Its backward launches `csrc/mt_replay_bwd.cu` for tensors on the card
 (one thread per ray: recompute, hand-written adjoint, per-ray gradients
-stored, soup gradients atomically added into [T]) and takes
+stored, soup gradients summed per winner in the warp and atomically added
+into one [3, T, 4] buffer, returned as nine strided [T] columns) and takes
 `mt_replay_bwd_plain` for tensors on the CPU: the same adjoint in torch
 (`mt_adjoint`), in the kernel's operation order. `counts` holds the
 kernel's launches and the plain version's calls.
@@ -32,9 +33,10 @@ from .intersect import Hit, Rays, TriSoup
 MT_EPS = 1e-9
 counts = cuda_build.Counts()
 reset_counts = counts.reset
-# 6 ray arrays, 9 soup arrays, prim, gt, gu, gv, 6 ray grads, 9 soup grads,
-# n, stream
-_ARGTYPES = [ctypes.c_void_p] * 34 + [ctypes.c_int, ctypes.c_void_p]
+# 6 ray arrays, 9 soup arrays, prim, gt, gu, gv, 6 ray grads, the
+# [3, T, 4] soup-gradient buffer, T, n, stream
+_ARGTYPES = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p])
 
 
 def _kernel():
@@ -140,16 +142,16 @@ def mt_replay_bwd(ray_arrays, soup_arrays, prim, gt, gu, gv):
     cuda_build.check_inputs("MT replay prim", device, n, prim,
                             dtype=torch.int32)
     ray_grads = [torch.empty_like(a) for a in rays]
-    soup_grads = [torch.zeros_like(a) for a in soup]
+    n_tris = soup[0].numel()
+    buf = torch.zeros((3, n_tris, 4), dtype=torch.float32, device=device)
     if n:
         cuda_build.launch(
             "MT replay backward", counts, _kernel(),
             *[a.data_ptr() for a in rays], *[a.data_ptr() for a in soup],
             prim.data_ptr(), *[a.data_ptr() for a in cts],
-            *[a.data_ptr() for a in ray_grads],
-            *[a.data_ptr() for a in soup_grads], n,
+            *[a.data_ptr() for a in ray_grads], buf.data_ptr(), n_tris, n,
             torch.cuda.current_stream(device).cuda_stream)
-    return ray_grads, soup_grads
+    return ray_grads, [buf[i, :, j] for i in range(3) for j in range(3)]
 
 
 def _arrays(rays: Rays, soup: TriSoup):

@@ -1,9 +1,10 @@
 """Tests of ignis_tpu_torch that need a CUDA card. They run the checks of
 chip_smoke.py, which is the one home of the on-card checks, at a test's
 size: the hand-written kernels against their plain torch versions (t, prim,
-u, v and any-hit; K3's gather and scatter-add; the MT replay), the train
-step and geometry gradient with their launch counts, and the slice and its
-gradient on the card against the CPU.
+u, v and any-hit, also on rays shaped like the main path's; K3's gather and
+scatter-add; the MT replay, also with every ray on one triangle), the
+train step and geometry gradient with their launch counts, and the slice
+and its gradient on the card against the CPU.
 They skip without a card. The file imports no JAX, so it runs on the
 card's machine: `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 import json
@@ -56,6 +57,49 @@ def test_k1_matches_plain(device):
     bvh_cuda.reset_counts()
     chip_smoke.phase_k1(device, rt, n_rays=65536)
     assert bvh_cuda.counts["launches"] == 4
+
+
+def _small(scene, size=128, **shape):
+    s = json.loads(json.dumps(scene))
+    s["film"] = {"size": [size, size]}
+    for k, v in shape.items():
+        s["shapes"][-1][k] = v
+    return s
+
+
+def test_k1_exact_on_main_path_sets(device):
+    """K1 on chip_smoke's main-path ray sets (camera rays in pixel order,
+    cosine secondary rays from their hits, shadow rays to S1's light) of
+    S1 (icosphere at subdivisions 5) and S3 (uvsphere 80x100) at 128x128:
+    t, u, v bit for bit where the prims agree, prim agreement > 0.995,
+    any-hit agreement >= 0.995, and the stack overflow counter 0."""
+    runtimes = {
+        "S1": ignis_tpu_torch.loadFromString(json.dumps(_small(
+            chip_smoke.S1_GLASS_ICO7, subdivisions=5)), device=device),
+        "S3": ignis_tpu_torch.loadFromString(json.dumps(_small(
+            chip_smoke.S3_BENCH_BIG, stacks=80, slices=100)),
+            device=device)}
+    bvh_cuda.reset_counts()
+    out, deepest = chip_smoke.phase_k1_sets(device, runtimes,
+                                            check_only=True)
+    assert len(out) == 6 and all(r["max_abs_err"] == 0.0
+                                 for r in out.values())
+    assert bvh_cuda.overflow_count(device) == 0
+    assert 0 < deepest <= 32
+    assert bvh_cuda.counts["plain_calls"] == 6
+
+
+def test_mt_replay_every_ray_on_one_triangle(device):
+    """The MT replay with 262,144 rays aimed at one triangle and all of
+    them replayed there, where every lane of every warp shares its
+    winner: per-ray gradients bit for bit with mt_replay_bwd_plain, soup
+    sums within 1e-6 + 1e-4 sum|terms|."""
+    rng = np.random.default_rng(21)
+    soup, _ = chip_smoke.random_soup(rng, 64, device)
+    rays = chip_smoke.rays_at_triangle(rng, soup, 7, 262144, device)
+    prim = torch.full_like(rays.tmin, 7, dtype=torch.int32)
+    chip_smoke.compare_replay("MT replay, every ray on triangle 7", rays,
+                              soup, prim, 5)
 
 
 def test_slice_on_card_matches_cpu(device):

@@ -3,6 +3,7 @@ SceneData exactly; the port's own JAX-free loader builds the same tables
 as ignis_tpu.build_scene; the BVH covers every triangle; the package
 imports and loads a scene with JAX unavailable."""
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -34,6 +35,20 @@ def _point_flat():
                         "position": [0, 0, -2], "power": 1})
     return s
 
+
+# tests/test_bvh.py:271-283: the 20,480-triangle icosphere (a BVH scene)
+ICO_SCENE = {
+    "technique": {"type": "path"},
+    "camera": {"type": "perspective", "fov": 60,
+               "transform": [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, -4,
+                             0, 0, 0, 1]},
+    "film": {"size": [16, 16]},
+    "bsdfs": [{"type": "diffuse", "name": "w"}],
+    "shapes": [{"type": "icosphere", "name": "s", "radius": 1.2,
+                "subdivisions": 5}],
+    "entities": [{"name": "s", "shape": "s", "bsdf": "w"}],
+    "lights": [{"type": "env", "name": "e", "radiance": 1.0}],
+}
 
 SCENES = {"graft_entry": _SCENE, "compaction": COMPACTION_SCENE,
           "analytic_flat": _point_flat()}
@@ -170,6 +185,47 @@ def test_imports_and_loads_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_stands_alone_without_jax_package(tmp_path):
+    """ignis_tpu_torch/ and chip_smoke.py copied into a directory without
+    ignis_tpu/: with JAX unimportable, the port builds its own BVH builder
+    (native.SOURCE lies inside the port's package), loads the
+    20,480-triangle icosphere with a BVH on the CPU and renders one 16x16
+    step; nothing of ignis_tpu is loaded."""
+    shutil.copytree(ROOT / "ignis_tpu_torch", tmp_path / "ignis_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    assert not (tmp_path / "ignis_tpu").exists()
+    code = (
+        "import sys, json\n"
+        "sys.modules['jax'] = None\n"
+        "from pathlib import Path\n"
+        "import chip_smoke\n"
+        "import ignis_tpu_torch\n"
+        "from ignis_tpu_torch import native\n"
+        "pkg = Path(ignis_tpu_torch.__file__).resolve().parent\n"
+        "assert pkg.parent == Path.cwd().resolve(), pkg\n"
+        "assert native.SOURCE.resolve().is_relative_to(pkg), native.SOURCE\n"
+        "assert native.SOURCE.exists()\n"
+        f"scene = json.loads({json.dumps(json.dumps(ICO_SCENE))})\n"
+        "rt = ignis_tpu_torch.loadFromString(json.dumps(scene), "
+        "device='cpu')\n"
+        "assert rt.scene.bvh is not None\n"
+        "assert rt.scene.tris.v0.x.numel() == 20480\n"
+        "rt.step()\n"
+        "img = rt.framebuffer(normalized=True)\n"
+        "assert tuple(img.shape) == (16, 16, 3)\n"
+        "assert float(img.mean()) > 0\n"
+        "assert not any(m == 'ignis_tpu' or m.startswith('ignis_tpu.') "
+        "for m in sys.modules)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    assert list((tmp_path / "build" / "ignis_tpu_torch").glob(
+        "bvh_builder_*.so"))
 
 
 @pytest.mark.parametrize("change, item", [
