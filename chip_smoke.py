@@ -15,19 +15,26 @@ printing its own lines; any failure exits non-zero:
    (camera rays in pixel order, cosine secondary rays from their hits,
    shadow rays from those hits to S1's point light): exact against the
    plain walk, timed beside its bound, the deepest stack counted;
-5. render S1-S3 at 512x512 through `loadFromString(..., device="cuda")`
-   and `Runtime.step()`, with every kernel's launch count reset just
-   before and read just after; no plain version may run; then one more
+5. render S1-S3 at 512x512 through `loadFromString` (its default device,
+   the card) and `Runtime.step()`, with every kernel's launch count reset
+   just before and read just after; no plain version may run; then one more
    step of each under torch.profiler (render/profile.py): device time,
    busy share and top device consumers of that step;
 6. reference checks: the analytic point-light oracle on the card, and
    card-vs-CPU renders of small scenes;
-7. gradients: K3's gather and scatter-add and the MT replay against their
-   plain versions, with times (the replay on S1's contended rays and on a
-   random soup); `train_step` (albedo) on S1-S3 at 512x512 and a geometry
-   gradient on S1 and S2, counts reset before and read after; one
-   profiled train step per scene and one profiled S1 geometry-gradient
-   step; the albedo gradient on the card against the CPU's;
+7. gradients: K3's gather and scatter-add against their plain versions
+   on S1's attribute table (random rows, S1's camera hits with zero
+   cotangents on the misses, every lane on one row, cotangents holding
+   NaN, -0.0 and inf) and the MT replay against its plain version, with
+   times (K3 on the random rows, the replay on S1's contended rays and on
+   a random soup); `train_step` (albedo) on S1-S3 at 512x512 and a
+   geometry gradient on S1 and S2, counts reset before and read after;
+   one profiled train step per scene and one profiled S1
+   geometry-gradient step; every K3 launch of one S1 and one S2
+   geometry-gradient step recorded, checked and timed beside
+   index_select / index_add and its bound; the K3 scatter at the albedo
+   backward's shape beside index_put_; the albedo gradient on the card
+   against the CPU's;
 then one JSON line of kernel results (each kernel's time beside its bound
 and, where one PyTorch call computes the same function, that call's
 time), the nvidia-smi line again, and as the last line
@@ -836,40 +843,137 @@ def compare_replay(what, rays, soup, prim, seed):
     return max(max_err(a, b) for a, b in zip(kr + ks, pr + ps))
 
 
+def k3_bound(idx, k, n_rows, scatter):
+    """K3's least time at these indices: the index and the k columns of
+    every lane, each distinct row's k floats read (gather), or the whole
+    [n_rows, k] gradient written (scatter); the scatter's one addition per
+    value as operations."""
+    import torch
+    n = idx.numel()
+    if scatter:
+        return bound((4 + 4 * k) * n + 4 * k * n_rows, n * k)
+    return bound((4 + 4 * k) * n + 4 * k * torch.unique(idx).numel(), 0)
+
+
+def k3_gather_result(idx, tab, k):
+    """One K3 gather against its plain version: (the [k, N] block equal to
+    tab[idx, :k].T, largest |difference|)."""
+    import torch
+    from ignis_tpu_torch.ops import gather
+    got = gather.gather_rows(idx, tab, k)
+    ref = gather.gather_rows_plain(idx, tab, k)
+    return (tuple(got.shape) == (k, idx.numel()) and torch.equal(got, ref),
+            max_err(got, ref))
+
+
+def k3_scatter_result(idx, cot, n_rows, stride):
+    """One K3 scatter of the [k, N] cotangent block against its plain
+    version: (what differs beyond reordering, or ""; the worst ratio to
+    the reorder bar, 1e-6 + 1e-5 times the sum of the terms' magnitudes
+    of each entry (reorder_ratio), over the finite entries; the largest
+    |difference| there). NaN and inf must land where index_add_ puts them,
+    and the padding columns must stay zero."""
+    import torch
+    from ignis_tpu_torch.ops import gather
+    k = cot.shape[0]
+    got = gather.scatter_add_rows(idx, cot, n_rows, stride)
+    ref = gather.scatter_add_rows_plain(idx, cot, n_rows, stride)
+    faults = []
+    if got[:, k:].any():
+        faults.append("padding columns not zero")
+    got, ref = got[:, :k], ref[:, :k]
+    nan = ref.isnan()
+    if not torch.equal(got.isnan(), nan):
+        faults.append("NaN elsewhere than index_add_'s")
+    inf = ref.isinf()
+    if not torch.equal(got[inf], ref[inf]):
+        faults.append("inf elsewhere than index_add_'s")
+    fin = ~(nan | inf)
+    terms = torch.where(torch.isfinite(cot), cot, 0.0).t()
+    ratio = reorder_ratio(torch.where(fin, got, 0.0),
+                          torch.where(fin, ref, 0.0), idx.long(), terms, 1e-5)
+    return "; ".join(faults), ratio, max_err(got[fin], ref[fin])
+
+
+def check_k3(what, idx, tab, k, cot):
+    """K3's gather and scatter-add against their plain versions on one
+    set (k3_gather_result, k3_scatter_result); returns the largest
+    |difference| of each."""
+    n_rows, stride = tab.shape
+    equal, g_err = k3_gather_result(idx, tab, k)
+    check(equal, f"K3 gather_rows {what} [{n_rows} x {stride}, {k} columns] "
+          f"at {idx.numel()} indices: equal to tab[idx]")
+    fault, ratio, s_err = k3_scatter_result(idx, cot, n_rows, stride)
+    check(not fault and ratio <= 1.0, f"K3 scatter_add_rows {what}: within "
+          f"1e-6 + 1e-5 sum|terms| of index_add_ (worst ratio {ratio:.4f})"
+          f"{'; ' + fault if fault else ''}, NaN, inf and padding as it")
+    return g_err, s_err
+
+
+def k3_camera_set(rt, device, seed=23):
+    """K3's inputs at the first bounce of rt's main path: the clamped
+    prims of main_path_sets' camera hits (a miss on row 0) into rt's
+    attr_table, and a random cotangent block that is zero on the misses,
+    as the masked shading leaves it."""
+    import torch
+    from ignis_tpu_torch.ops import bvh_cuda
+    from ignis_tpu_torch.techniques.path import ATTR_COLS, attr_table
+    sc = rt.scene
+    cam, _ = main_path_sets(rt, device)["camera"]
+    prim = bvh_cuda.intersect_bvh(cam, sc.tris, sc.bvh).prim
+    tab = attr_table(sc)
+    idx = torch.clamp(prim, 0, tab.shape[0] - 1).to(torch.int32)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cot = torch.randn(ATTR_COLS, idx.numel(), generator=g).to(device)
+    return idx, tab, torch.where(prim >= 0, cot, 0.0)
+
+
+def k3_sets(rt, device, n=262144, seed=3):
+    """K3's check sets on rt's attr_table: "random", n random rows with
+    random cotangents; "camera", k3_camera_set; "one row", n lanes on row 7;
+    "special", random rows whose cotangents hold a NaN, a -0.0 and an inf.
+    Returns {name: (idx, tab, k, cot)}."""
+    import torch
+    from ignis_tpu_torch.techniques.path import ATTR_COLS, attr_table
+    tab = attr_table(rt.scene)
+    n_rows, k = tab.shape[0], ATTR_COLS
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    idx = torch.randint(0, n_rows, (n,), generator=g,
+                        dtype=torch.int32).to(device)
+    cot = torch.randn(k, n, generator=g).to(device)
+    special = cot.clone()
+    special[3, 10], special[5, 20], special[7, 30] = (
+        float("nan"), -0.0, float("inf"))
+    cam_idx, _, cam_cot = k3_camera_set(rt, device)
+    return {"random": (idx, tab, k, cot),
+            "camera": (cam_idx, tab, k, cam_cot),
+            "one row": (torch.full_like(idx, 7), tab, k, cot),
+            "special": (idx, tab, k, special)}
+
+
 def phase_grad_kernels(device, s1, k1_rays):
     """K3's gather and scatter-add and the MT replay against their plain
     versions on the card, at the gradient path's shapes (S1's attribute
-    table, 262,144 lanes), the replay also with 65,536 rays aimed at one
-    triangle; median kernel, plain and library times and each kernel's
-    bound: the replay on S1's contended rays (half camera rays through
-    random pixels, half random rays about the ball, most of whose hits
-    land on the floor's two triangles) and on random rays against a
-    4,096-triangle random soup, where winners rarely repeat."""
+    table, 262,144 lanes: k3_sets), the replay also with 65,536 rays aimed
+    at one triangle; median kernel, plain and library times and each
+    kernel's bound: K3 on the random set, the replay on S1's contended rays
+    (half camera rays through random pixels, half random rays about the
+    ball, most of whose hits land on the floor's two triangles) and on
+    random rays against a 4,096-triangle random soup, where winners rarely
+    repeat."""
     import torch
     from ignis_tpu_torch.ops import bvh_cuda, gather, isect_cuda, mt_replay
-    from ignis_tpu_torch.techniques.path import attr_table
     sc = s1.scene
     g = torch.Generator(device="cpu").manual_seed(3)
-    tab = attr_table(sc)
-    n_rows, k = tab.shape
-    n = 262144
-    idx = torch.randint(0, n_rows, (n,), generator=g,
-                        dtype=torch.int32).to(device)
-    got = gather.gather_rows(idx, tab)
-    ref = gather.gather_rows_plain(idx, tab)
-    check(tuple(got.shape) == (n, k) and torch.equal(got, ref),
-          f"K3 gather_rows [{n_rows} x {k}] at {n} indices: equal to "
-          f"tab[idx]")
-    errs = {"K3_gather_rows": max_err(got, ref)}
-    cot = torch.randn(n, k, generator=g).to(device)
-    got = gather.scatter_add_rows(idx, cot, n_rows)
-    ref = gather.scatter_add_rows_plain(idx, cot, n_rows)
-    ratio = reorder_ratio(got, ref, idx.long(), cot, 1e-5)
-    far = int((~torch.isclose(got, ref, rtol=1e-5, atol=1e-6)).sum())
-    check(ratio <= 1.0, f"K3 scatter_add_rows: within 1e-6 + 1e-5 "
-          f"sum|terms| of index_add_ (worst ratio {ratio:.4f}; entries "
-          f"outside rtol 1e-5 / atol 1e-6 of the result: {far})")
-    errs["K3_scatter_add_rows"] = max_err(got, ref)
+    sets = k3_sets(s1, device)
+    errs = {"K3_gather_rows": 0.0, "K3_scatter_add_rows": 0.0}
+    for name, (idx, tab, k, cot) in sets.items():
+        ge, se = check_k3(name, idx, tab, k, cot)
+        errs["K3_gather_rows"] = max(errs["K3_gather_rows"], ge)
+        errs["K3_scatter_add_rows"] = max(errs["K3_scatter_add_rows"], se)
+    idx, tab, k, cot = sets["random"]
+    n_rows, stride = tab.shape
+    n = idx.numel()
 
     hit = bvh_cuda.intersect_bvh(k1_rays, sc.tris, sc.bvh)
     e1 = compare_replay("MT replay, S1 rays at K1's winners", k1_rays,
@@ -896,21 +1000,33 @@ def phase_grad_kernels(device, s1, k1_rays):
                         isect_cuda.intersect_tris(spread, soup).prim)}
     cts = [torch.randn(n, generator=g).to(device) for _ in range(3)]
     zeros = torch.zeros(n_rows, k, device=device)
+    rows = cot.t().contiguous()
     times = {
         "K3_gather_rows": dict(
-            ms=cuda_ms(lambda: gather.gather_rows(idx, tab)),
-            plain_ms=cuda_ms(lambda: gather.gather_rows_plain(idx, tab)),
+            ms=cuda_ms(lambda: gather.gather_rows(idx, tab, k)),
+            plain_ms=cuda_ms(lambda: gather.gather_rows_plain(idx, tab, k)),
             library_ms=cuda_ms(lambda: torch.index_select(tab, 0, idx))),
         "K3_scatter_add_rows": dict(
-            ms=cuda_ms(lambda: gather.scatter_add_rows(idx, cot, n_rows)),
+            ms=cuda_ms(lambda: gather.scatter_add_rows(idx, cot, n_rows,
+                                                       stride)),
             plain_ms=cuda_ms(lambda: gather.scatter_add_rows_plain(
-                idx, cot, n_rows)),
-            library_ms=cuda_ms(lambda: torch.index_add(zeros, 0, idx, cot)))}
-    distinct = int(torch.unique(idx).numel())
-    times["K3_gather_rows"].update(zip(("bound_ms", "bound_by"), bound(
-        (4 + 4 * k) * n + 4 * k * distinct, 0)))
-    times["K3_scatter_add_rows"].update(zip(("bound_ms", "bound_by"), bound(
-        (4 + 4 * k) * n + 4 * k * n_rows, n * k)))
+                idx, cot, n_rows, stride)),
+            library_ms=cuda_ms(lambda: torch.index_add(zeros, 0, idx, rows)))}
+    times["K3_gather_rows"].update(zip(("bound_ms", "bound_by"), k3_bound(
+        idx, k, n_rows, False)))
+    times["K3_scatter_add_rows"].update(zip(("bound_ms", "bound_by"),
+                                            k3_bound(idx, k, n_rows, True)))
+    for name in ("camera", "one row"):
+        i, t, _, c = sets[name]
+        times["K3_gather_rows"].setdefault("sets", {})[name] = dict(
+            ms=cuda_ms(lambda: gather.gather_rows(i, t, k)),
+            library_ms=cuda_ms(lambda: torch.index_select(t, 0, i)),
+            bound_ms=k3_bound(i, k, n_rows, False)[0])
+        r = c.t().contiguous()
+        times["K3_scatter_add_rows"].setdefault("sets", {})[name] = dict(
+            ms=cuda_ms(lambda: gather.scatter_add_rows(i, c, n_rows, stride)),
+            library_ms=cuda_ms(lambda: torch.index_add(zeros, 0, i, r)),
+            bound_ms=k3_bound(i, k, n_rows, True)[0])
     replay = {}
     for name, (r, soup_arrays, prim) in replay_sets.items():
         ra = [*r.org, *r.dir]
@@ -925,13 +1041,15 @@ def phase_grad_kernels(device, s1, k1_rays):
                        replay_bound(prim, soup_arrays[0].numel())))
         replay[name] = row
     times["MT_replay_bwd"] = dict(replay["S1 contended"], sets=replay)
-    for name, t in [*times.items()] + [(f"MT_replay_bwd {k}", v)
-                                       for k, v in replay.items()]:
+    for name, t in [*times.items()] + [
+            (f"{kernel} {k}", v) for kernel in times
+            for k, v in times[kernel].get("sets", {}).items()]:
         lib = ("none" if t["library_ms"] is None
                else f"{t['library_ms']:.4f} ms")
-        print(f"  {name}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f}"
-              f" ms, library {lib}, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']})")
+        plain = (f", plain {t['plain_ms']:.4f} ms" if "plain_ms" in t
+                 else "")
+        print(f"  {name}: kernel {t['ms']:.4f} ms{plain}, library {lib}, "
+              f"bound {t['bound_ms']:.4f} ms")
     return errs, times
 
 
@@ -1080,6 +1198,139 @@ def phase_geometry_profile(device, rt):
     return p
 
 
+def record_k3(rt, device):
+    """The arguments of every K3 launch of one geometry-gradient step of
+    rt (phase_train's loss w.r.t. tris.v0/e1/e2), recorded by wrapping
+    gather.gather_rows and gather.scatter_add_rows for that step alone:
+    ([(idx, tab, k)], [(idx, cot, n_rows, stride)])."""
+    import torch
+    from ignis_tpu_torch import loss_fn
+    from ignis_tpu_torch.ops import gather
+    s = rt.settings
+    target = torch.zeros((s.height, s.width, 3), device=device)
+    gathers, scatters = [], []
+    gather_rows, scatter_add_rows = gather.gather_rows, gather.scatter_add_rows
+
+    def rec_gather(idx, tab, k):
+        gathers.append((idx.clone(), tab.detach(), k))
+        return gather_rows(idx, tab, k)
+
+    def rec_scatter(idx, cot, n_rows, stride):
+        scatters.append((idx.clone(), cot.contiguous().clone(), n_rows,
+                         stride))
+        return scatter_add_rows(idx, cot, n_rows, stride)
+    gather.gather_rows, gather.scatter_add_rows = rec_gather, rec_scatter
+    try:
+        scene, leaves = geometry_leaves(rt.scene)
+        loss = loss_fn({"base": scene.materials.base}, scene, s, target, 0, 0)
+        torch.autograd.grad(loss, leaves)
+    finally:
+        gather.gather_rows = gather_rows
+        gather.scatter_add_rows = scatter_add_rows
+    return gathers, scatters
+
+
+def time_k3_launches(gathers, scatters, kernels=None, library=True):
+    """Each K3 kernel's median time per recorded launch, summed over the
+    launches; with `library`, beside the sum of torch.index_select
+    (gather) and torch.index_add into zeros (scatter, the cotangent as
+    [N, k] rows, made beforehand) on the same launches and the summed
+    bound. `kernels` = (gather, scatter) replaces the wrappers timed."""
+    import torch
+    from ignis_tpu_torch.ops import gather
+    g_fn, s_fn = kernels or (gather.gather_rows, gather.scatter_add_rows)
+    out = {"gather": dict(
+        launches=len(gathers), lanes=sum(i.numel() for i, _, _ in gathers),
+        ms=sum(cuda_ms(lambda: g_fn(i, t, k)) for i, t, k in gathers))}
+    out["scatter"] = dict(
+        launches=len(scatters), lanes=sum(i.numel() for i, *_ in scatters),
+        zero_lanes=sum(int((c == 0).all(0).sum()) for _, c, _, _ in scatters),
+        ms=sum(cuda_ms(lambda: s_fn(i, c, t, st))
+               for i, c, t, st in scatters))
+    if not library:
+        return out
+    rows = [cot.t().contiguous() for _, cot, _, _ in scatters]
+    zeros = {n_rows: torch.zeros(n_rows, cot.shape[0], device=cot.device)
+             for _, cot, n_rows, _ in scatters}
+    out["gather"].update(
+        library_ms=sum(cuda_ms(lambda: torch.index_select(t, 0, i))
+                       for i, t, _ in gathers),
+        bound_ms=sum(k3_bound(i, k, t.shape[0], False)[0]
+                     for i, t, k in gathers))
+    out["scatter"].update(
+        library_ms=sum(cuda_ms(lambda: torch.index_add(zeros[t], 0, i, r))
+                       for (i, _, t, _), r in zip(scatters, rows)),
+        bound_ms=sum(k3_bound(i, c.shape[0], t, True)[0]
+                     for i, c, t, _ in scatters))
+    return out
+
+
+def phase_k3_recorded(device, runtimes):
+    """K3 on the launches of one S1 and one S2 geometry-gradient step
+    (record_k3): every gather equal to its plain version and every scatter
+    within the reorder bar (k3_gather_result, k3_scatter_result), then the
+    times of time_k3_launches. Returns {scene: {"gather": ..., "scatter":
+    ...}}."""
+    out = {}
+    for name in ("S1_glass_ico7", "S2_graft_entry"):
+        gathers, scatters = record_k3(runtimes[name], device)
+        equal = [k3_gather_result(*a)[0] for a in gathers]
+        check(len(gathers) > 0 and all(equal), f"{name} geometry step: all "
+              f"{len(gathers)} recorded K3 gathers equal to tab[idx]")
+        results = [k3_scatter_result(*a) for a in scatters]
+        worst = max((r[1] for r in results), default=0.0)
+        faults = [r[0] for r in results if r[0]]
+        check(len(scatters) > 0 and not faults and worst <= 1.0,
+              f"{name} geometry step: all {len(scatters)} recorded K3 "
+              f"scatters within 1e-6 + 1e-5 sum|terms| of index_add_ (worst "
+              f"ratio {worst:.4f}){'; ' + faults[0] if faults else ''}")
+        row = time_k3_launches(gathers, scatters)
+        for kind, t in row.items():
+            print(f"  {name} geometry step, K3 {kind}: {t['launches']} "
+                  f"launches, {t['lanes']} lanes, kernel {t['ms']:.4f} ms, "
+                  f"library {t['library_ms']:.4f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms (sums)")
+        out[name] = row
+    return out
+
+
+def phase_albedo_shape(device, s1):
+    """The K3 scatter at the shape of the albedo's backward, numbers only
+    (the port's albedo gather, path.gather_material, does not go through
+    K3): the material ids of S1's camera hits (main_path_sets; a miss
+    reads row 0's entity), T = S1's material count, K = 3, random
+    cotangents; held to the reorder bar, and timed beside
+    torch.zeros(T, 3).index_put_((mid,), g, accumulate=True), the
+    operation behind torch's indexing_backward_kernel in the train step."""
+    import torch
+    from ignis_tpu_torch.ops import bvh_cuda, gather
+    from ignis_tpu_torch.techniques.path import compute_surface
+    sc = s1.scene
+    cam, _ = main_path_sets(s1, device)["camera"]
+    surf = compute_surface(sc, cam, bvh_cuda.intersect_bvh(cam, sc.tris,
+                                                           sc.bvh))
+    mid = sc.entities.mat[torch.clamp(surf.ent, min=0).long()].long()
+    n_mat = sc.materials.base.r.numel()
+    g = torch.Generator(device="cpu").manual_seed(29)
+    cot = torch.randn(3, mid.numel(), generator=g).to(device)
+    rows = cot.t().contiguous()
+    idx = mid.to(torch.int32)
+    fault, ratio, _ = k3_scatter_result(idx, cot, n_mat, 4)
+    check(not fault and ratio <= 1.0, f"K3 scatter at the albedo's shape "
+          f"({mid.numel()} lanes onto {n_mat} materials): within the reorder "
+          f"bar (worst ratio {ratio:.4f})")
+    row = dict(
+        lanes=mid.numel(), materials=n_mat,
+        ms=cuda_ms(lambda: gather.scatter_add_rows(idx, cot, n_mat, 4)),
+        index_put_ms=cuda_ms(lambda: torch.zeros(n_mat, 3, device=device)
+                             .index_put_((mid,), rows, accumulate=True)))
+    row.update(zip(("bound_ms", "bound_by"), k3_bound(idx, 3, n_mat, True)))
+    print(f"  K3 scatter at the albedo's shape: kernel {row['ms']:.4f} ms, "
+          f"index_put_(accumulate=True) {row['index_put_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms")
+    return row
+
+
 def phase_grad_reference(device):
     """The albedo gradient of small_scene(64) on the card against the
     CPU's: rtol 1e-3."""
@@ -1143,9 +1394,11 @@ def main() -> int:
     runtimes = {}
     for name, sc, _ in SCENES:
         t0 = time.perf_counter()
-        runtimes[name] = ignis_tpu_torch.loadFromString(
-            json.dumps(sc), device=device, spi=SPI)
+        runtimes[name] = ignis_tpu_torch.loadFromString(json.dumps(sc),
+                                                        spi=SPI)
         rt = runtimes[name]
+        check(rt.scene.device == device, f"{name} loaded onto {device} by "
+              f"default")
         print(f"  {name}: {rt.scene.tris.v0.x.numel()} triangles, "
               f"{rt.scene.spheres.radius.numel()} spheres, BVH "
               f"{'yes' if rt.scene.bvh is not None else 'no'}, loaded in "
@@ -1172,6 +1425,8 @@ def main() -> int:
     train_profile = phase_train_profile(device, runtimes)
     geometry_profile = phase_geometry_profile(device,
                                               runtimes["S1_glass_ico7"])
+    k3_recorded = phase_k3_recorded(device, runtimes)
+    albedo = phase_albedo_shape(device, runtimes["S1_glass_ico7"])
     phase_grad_reference(device)
 
     def timed(t):
@@ -1204,6 +1459,12 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": grad_counts[name],
                         "max_abs_err": grad_errs[name], **grad_times[name]})
+    by_name = {k["name"]: k for k in kernels}
+    for name, part in (("K3_gather_rows", "gather"),
+                       ("K3_scatter_add_rows", "scatter")):
+        by_name[name]["sets"].update({f"{scene} geometry step": row[part]
+                                      for scene, row in k3_recorded.items()})
+    by_name["K3_scatter_add_rows"]["sets"]["S1 albedo shape"] = albedo
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on the main path")
     if args.profile_json:

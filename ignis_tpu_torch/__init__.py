@@ -1,7 +1,8 @@
 """ignis_tpu_torch — the path tracer of ignis_tpu, ported to PyTorch and CUDA.
 
-`path` scenes render progressively through `Runtime.step()` on an
-explicit device, with every closest-hit and shadow ray going through
+`path` scenes render progressively through `Runtime.step()` on the CUDA
+card (`device="cuda"`, the entry points' default, which raises without a
+card), with every closest-hit and shadow ray going through
 hand-written sm_90a CUDA kernels on the card (K1, BVH8 walk:
 ops/bvh_cuda.py; K2, dense intersection: ops/isect_cuda.py) and the hit
 attributes through K3 (row gather: ops/gather.py); on the CPU each takes
@@ -20,10 +21,11 @@ from .scene.parser import load_from_file, load_from_string
 __version__ = "0.1.0"
 
 
-def loadFromFile(path, *, device, **overrides) -> Runtime:
+def loadFromFile(path, *, device="cuda", **overrides) -> Runtime:
     return Runtime.load_from_file(path, device=device, **overrides)
 
 
-def loadFromString(text, *, device, base_dir=".", **overrides) -> Runtime:
+def loadFromString(text, *, device="cuda", base_dir=".",
+                   **overrides) -> Runtime:
     return Runtime.load_from_string(text, device=device, base_dir=base_dir,
                                     **overrides)

@@ -1,7 +1,8 @@
 """Runtime: scene -> progressive rendering session on one device.
 
 Port of the path technique's part of ignis_tpu/render/session.py: load a
-scene onto an explicit device, `step()` renders one iteration of
+scene onto a device (the CUDA card unless the caller names another;
+without a card, asking for it raises), `step()` renders one iteration of
 settings.spi samples per pixel and adds it to the film. Films of
 _COMPACTION_MIN_LANES lanes or more go through the compacting cascade,
 smaller ones through the one-stage progressive render, as in the JAX
@@ -69,13 +70,13 @@ class Runtime:
         self._sample_count = 0
 
     @staticmethod
-    def load_from_file(path, *, device, **overrides) -> "Runtime":
+    def load_from_file(path, *, device="cuda", **overrides) -> "Runtime":
         built = build_scene(load_from_file(path), resolve_device(device),
                             overrides)
         return Runtime(built.data, built.settings, built.warnings)
 
     @staticmethod
-    def load_from_string(text, *, device, base_dir=".",
+    def load_from_string(text, *, device="cuda", base_dir=".",
                          **overrides) -> "Runtime":
         built = build_scene(load_from_string(text, base_dir),
                             resolve_device(device), overrides)

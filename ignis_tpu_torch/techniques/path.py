@@ -47,6 +47,7 @@ from ..ops.intersect import FLT_MAX, Hit, Rays
 from ..scenedata import RenderSettings, SceneData, tree_map
 
 OFFSET = 1e-3
+ATTR_COLS = 22   # the hit attributes in attr_table
 MIN_BUCKET = 4096
 SHRINK = 4       # bucket shrink factor per cascade stage
 DIFF_CHUNK = 8   # bounces per checkpointed chunk of the differentiable render
@@ -101,9 +102,11 @@ def tri_rows_of(scene: SceneData):
 
 
 def attr_table(scene: SceneData) -> torch.Tensor:
-    """The [T, 22] f32 table of per-triangle hit attributes, in the column
-    order of the JAX hit shader (path.py:321-327): e1, e2, n0, n1, n2
-    (xyz each), uv0, uv1, uv2 (xy each), then the entity id as f32."""
+    """The [T, 24] f32 table of per-triangle hit attributes: ATTR_COLS
+    columns in the column order of the JAX hit shader (path.py:321-327),
+    e1, e2, n0, n1, n2 (xyz each), uv0, uv1, uv2 (xy each), then the
+    entity id as f32, and two zero columns, so that a row is 96 bytes of
+    whole 16-byte words (gatherlib.stack_cols)."""
     ta = scene.tri_attr
     return gatherlib.stack_cols([*scene.tris.e1, *scene.tris.e2, *ta.n0,
                                  *ta.n1, *ta.n2, *ta.uv0, *ta.uv1, *ta.uv2,
@@ -112,8 +115,9 @@ def attr_table(scene: SceneData) -> torch.Tensor:
 
 def compute_surface(scene: SceneData, rays: Rays, hit: Hit,
                     tab: torch.Tensor = None) -> Surface:
-    """Hit attributes through one row gather of `tab` (attr_table, K3);
-    the table is built here when none is given."""
+    """Hit attributes through one row gather of `tab` (attr_table, K3)
+    into contiguous columns; the table is built here when none is
+    given."""
     n_tri = scene.tris.v0.x.shape[0]
     prim = torch.clamp(hit.prim, min=0)
     is_tri = prim < n_tri
@@ -126,7 +130,7 @@ def compute_surface(scene: SceneData, rays: Rays, hit: Hit,
         tab = attr_table(scene)
     (e1x, e1y, e1z, e2x, e2y, e2z, n0x, n0y, n0z, n1x, n1y, n1z,
      n2x, n2y, n2z, uv0x, uv0y, uv1x, uv1y, uv2x, uv2y,
-     entf) = gatherlib.gather_table(tp, tab).unbind(1)
+     entf) = gatherlib.gather_block(tp, tab, ATTR_COLS).unbind(0)
     e1 = Vec3(e1x, e1y, e1z)
     e2 = Vec3(e2x, e2y, e2z)
     fn = cross(e1, e2)

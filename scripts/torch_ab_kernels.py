@@ -1,24 +1,36 @@
 #!/usr/bin/env python3
-"""Time two revisions of ignis_tpu_torch's K1 and MT replay kernels in turns
-on one CUDA card, on the main path's shapes.
+"""Time two revisions of ignis_tpu_torch's kernels in turns on one CUDA
+card, on the main path's shapes.
 
-    git show REV:ignis_tpu_torch/csrc/bvh_walk.cu > DIR/bvh_walk.cu
-    git show REV:ignis_tpu_torch/csrc/mt_replay_bwd.cu > DIR/mt_replay_bwd.cu
+    git show REV:ignis_tpu_torch/csrc/gather_cols.cu > DIR/gather_cols.cu
     python3 scripts/torch_ab_kernels.py --old-csrc DIR [--json PATH]
 
-The old sources are those before the packed layouts: K1 with the
-structure-of-arrays C entry point (9 soup arrays, 6 box arrays and the
-child array of BVHArrays), the MT replay with 9 soup-gradient arrays, each
-zeroed by its own fill as its wrapper did. Both revisions are built from
-source into build/ignis_tpu_torch/ and loaded into one process. Each turn
-(old, new, new, old by default) swaps one revision in behind the wrappers
-(ops/bvh_cuda._intersect, ops/mt_replay.mt_replay_bwd) and measures, with
-chip_smoke's helpers: K1's median time per launch on phase 4's 65,536 S1
-rays and on the main-path ray sets of S1 and S3; the summed K1 device time
-in one profiled forward step of S1 and of S3; the MT replay's median time
-on S1's contended 262,144 lanes and on a random 4,096-triangle soup; and
-its summed device time in one profiled S1 geometry-gradient step. The revisions' K1 results
-and per-ray replay gradients are held equal. Imports nothing of JAX.
+Each kernel whose earlier source DIR holds is compared; both revisions are
+built from source into build/ignis_tpu_torch/ and loaded into one process,
+and each turn (old, new, new, old by default) swaps one revision in behind
+its own wrapper and measures with chip_smoke's helpers.
+
+- K3 (DIR/gather_cols.cu, the source before the column layout: [N, K]
+  rows out of an unpadded [T, K] table, one element per thread): its
+  gather and scatter-add timed per launch and summed (time_k3_launches) on
+  262,144 random rows of S1's attribute table and on every launch of one
+  recorded S1 and one S2 geometry-gradient step (record_k3), each
+  revision fed its own layout, made beforehand. The revisions' gathers are
+  held equal and their scatters within the reorder bar of each other.
+- K1 and the MT replay (DIR/bvh_walk.cu and DIR/mt_replay_bwd.cu, the
+  sources before the packed layouts: K1 with the structure-of-arrays C
+  entry point, 9 soup arrays, 6 box arrays and the child array of
+  BVHArrays; the MT replay with 9 soup-gradient arrays, each zeroed by its
+  own fill as its wrapper did), swapped in behind ops/bvh_cuda._intersect
+  and ops/mt_replay.mt_replay_bwd: K1's median time per launch on phase
+  4's 65,536 S1 rays and on the main-path ray sets of S1 and S3; the
+  summed K1 device time in one profiled forward step of S1 and of S3; the
+  MT replay's median time on S1's contended 262,144 lanes and on a random
+  4,096-triangle soup; and its summed device time in one profiled S1
+  geometry-gradient step. The revisions' K1 results and per-ray replay
+  gradients are held equal.
+
+Imports nothing of JAX.
 """
 import argparse
 import ctypes
@@ -39,6 +51,9 @@ _OLD_K1_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
                     + [ctypes.c_void_p] * 17 + [ctypes.c_int]
                     + [ctypes.c_void_p] * 7)
 _OLD_MT_ARGTYPES = [ctypes.c_void_p] * 34 + [ctypes.c_int, ctypes.c_void_p]
+# the earlier K3: idx, table or cotangent, output; n, k, t; stream
+_OLD_K3_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+    ctypes.c_void_p]
 
 
 def load_old(csrc: Path):
@@ -158,25 +173,12 @@ def turn(which, revisions, rays_sets, scenes, replay_sets, device):
     return row
 
 
-def main() -> int:
+def ab_k1_replay(csrc, turns, device):
+    """K1 and the MT replay, old against new (module docstring)."""
     import torch
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old-csrc", type=Path, required=True,
-                    help="directory with the earlier bvh_walk.cu and "
-                         "mt_replay_bwd.cu")
-    ap.add_argument("--turns", default="old,new,new,old")
-    ap.add_argument("--json", type=Path, help="also write the turns here")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 1
-    smi = cs.nvidia_smi_line()
-    print(smi)
     import ignis_tpu_torch
     from ignis_tpu_torch.ops import bvh_cuda, isect_cuda, mt_replay
-    device = torch.device("cuda:0")
-    cs.phase_build()
-    old_libs = load_old(args.old_csrc)
+    old_libs = load_old(csrc)
     overflow = torch.zeros(1, dtype=torch.int32, device=device)
     old = (old_k1_intersect(old_libs["bvh_walk"], overflow),
            old_replay(old_libs["mt_replay_bwd"]))
@@ -238,9 +240,9 @@ def main() -> int:
     cs.check(int(overflow.item()) == 0, "old K1 dropped no push")
 
     rows = [turn(which, (old, new), rays_sets, scenes, replay_sets, device)
-            for which in args.turns.split(",")]
+            for which in turns]
     swap_in("new", old, new)
-    summary = {"nvidia_smi": smi}
+    summary = {}
     for which in ("old", "new"):
         mine = [r for r in rows if r["which"] == which]
         summary[which] = {
@@ -253,11 +255,148 @@ def main() -> int:
                for name, k in (("S1_glass_ico7 forward", "K1_us"),
                                ("S3_bench_big forward", "K1_us"),
                                ("S1 geometry", "MT_us"))}}
+    return {"turns": rows, **summary}
+
+
+def load_old_k3(csrc: Path):
+    """The earlier K3 as drop-ins with its own layout: gather(idx, tab)
+    with tab [T, K] -> [N, K]; scatter(idx, rows, n_rows) with rows
+    [N, K] -> [n_rows, K] from zeros."""
+    import torch
+    from ignis_tpu_torch.ops import cuda_build
+    lib = cuda_build.compile_and_load("gather_cols_old", cuda_build._nvcc(),
+                                      cuda_build.NVCC_FLAGS,
+                                      csrc / "gather_cols.cu")
+    fns = {}
+    for entry in ("ig_gather_rows", "ig_scatter_add_rows"):
+        fns[entry] = getattr(lib, entry)
+        fns[entry].argtypes = _OLD_K3_ARGTYPES
+        fns[entry].restype = ctypes.c_int
+    counts = cuda_build.Counts()
+
+    def gather(idx, tab):
+        n, (t, k) = idx.numel(), tab.shape
+        out = torch.empty((n, k), dtype=torch.float32, device=idx.device)
+        cuda_build.launch("K3 gather (old)", counts, fns["ig_gather_rows"],
+                          idx.data_ptr(), tab.data_ptr(), out.data_ptr(), n,
+                          k, t, torch.cuda.current_stream().cuda_stream)
+        return out
+
+    def scatter(idx, rows, n_rows):
+        n, k = rows.shape
+        dtab = torch.zeros((n_rows, k), dtype=torch.float32,
+                           device=idx.device)
+        cuda_build.launch("K3 scatter (old)", counts,
+                          fns["ig_scatter_add_rows"], idx.data_ptr(),
+                          rows.data_ptr(), dtab.data_ptr(), n, k, n_rows,
+                          torch.cuda.current_stream().cuda_stream)
+        return dtab
+    return gather, scatter
+
+
+def ab_k3(csrc, turns, device):
+    """K3, old against new (module docstring)."""
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch.ops import gather
+    from ignis_tpu_torch.techniques.path import ATTR_COLS, attr_table
+    old_gather, old_scatter = load_old_k3(csrc)
+    scenes = {name: ignis_tpu_torch.loadFromString(json.dumps(sc),
+                                                   device=device, spi=cs.SPI)
+              for name, sc, _ in cs.SCENES if name != "S3_bench_big"}
+    tab = attr_table(scenes["S1_glass_ico7"].scene)
+    n = 262144
+    g = torch.Generator(device="cpu").manual_seed(3)
+    idx = torch.randint(0, tab.shape[0], (n,), generator=g,
+                        dtype=torch.int32).to(device)
+    cot = torch.randn(ATTR_COLS, n, generator=g).to(device)
+    sets = {"random": ([(idx, tab, ATTR_COLS)],
+                       [(idx, cot, *tab.shape)])}
+    for name in scenes:
+        sets[f"{name} geometry step"] = cs.record_k3(scenes[name], device)
+
+    # each revision's layout, made beforehand: the old kernel reads the
+    # unpadded table and the cotangent as [N, K] rows
+    tables, rows = {}, {}
+    for gathers, scatters in sets.values():
+        for _, t, k in gathers:
+            tables.setdefault(t.data_ptr(), t[:, :k].contiguous())
+        for _, c, _, _ in scatters:
+            rows[c.data_ptr()] = c.t().contiguous()
+    old = (lambda i, t, k: old_gather(i, tables[t.data_ptr()]),
+           lambda i, c, t, st: old_scatter(i, rows[c.data_ptr()], t))
+    new = (gather.gather_rows, gather.scatter_add_rows)
+
+    for name, (gathers, scatters) in sets.items():
+        worst = 0.0
+        same = all(torch.equal(new[0](i, t, k), old[0](i, t, k).t())
+                   for i, t, k in gathers)
+        cs.check(same, f"K3 {name}: old and new gathers equal")
+        for i, c, t, st in scatters:
+            a = new[1](i, c, t, st)[:, :c.shape[0]]
+            worst = max(worst, cs.reorder_ratio(a, old[1](i, c, t, st),
+                                                i.long(), rows[c.data_ptr()],
+                                                1e-5))
+        cs.check(worst <= 1.0, f"K3 {name}: old and new scatters within "
+                 f"1e-6 + 1e-5 sum|terms| of each other (worst ratio "
+                 f"{worst:.4f})")
+    # the library calls on each layout: index_select on the padded table
+    # (time_k3_launches) and on the unpadded one that the old kernel reads
+    library = {name: cs.time_k3_launches(*v) for name, v in sets.items()}
+    for name, (gathers, _) in sets.items():
+        library[name]["gather"]["library_unpadded_ms"] = sum(
+            cs.cuda_ms(lambda: torch.index_select(tables[t.data_ptr()], 0, i))
+            for i, t, _ in gathers)
+    turn_rows = []
+    for which in turns:
+        fns = old if which == "old" else new
+        row = {"which": which}
+        for name, (gathers, scatters) in sets.items():
+            t = cs.time_k3_launches(gathers, scatters, fns, library=False)
+            row[name] = {"gather_ms": t["gather"]["ms"],
+                         "scatter_ms": t["scatter"]["ms"]}
+        print(json.dumps(row), flush=True)
+        turn_rows.append(row)
+    summary = {"library_and_bound": library}
+    for which in ("old", "new"):
+        mine = [r for r in turn_rows if r["which"] == which]
+        summary[which] = {name: {k: statistics.median(r[name][k]
+                                                      for r in mine)
+                                 for k in ("gather_ms", "scatter_ms")}
+                          for name in sets}
+    return {"turns": turn_rows, **summary}
+
+
+def main() -> int:
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--old-csrc", type=Path, required=True,
+                    help="directory with the earlier gather_cols.cu and/or "
+                         "bvh_walk.cu and mt_replay_bwd.cu")
+    ap.add_argument("--turns", default="old,new,new,old")
+    ap.add_argument("--json", type=Path, help="also write the turns here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    smi = cs.nvidia_smi_line()
+    print(smi)
+    device = torch.device("cuda:0")
+    cs.phase_build()
+    turns = args.turns.split(",")
+    summary = {"nvidia_smi": smi}
+    if (args.old_csrc / "gather_cols.cu").exists():
+        summary["K3"] = ab_k3(args.old_csrc, turns, device)
+    if (args.old_csrc / "bvh_walk.cu").exists():
+        summary["K1, MT replay"] = ab_k1_replay(args.old_csrc, turns, device)
+    if len(summary) == 1:
+        print(f"no earlier source in {args.old_csrc}", file=sys.stderr)
+        return 1
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
-        args.json.write_text(json.dumps({"turns": rows, **summary},
-                                        indent=1))
-    print(json.dumps(summary))
+        args.json.write_text(json.dumps(summary, indent=1))
+    print(json.dumps({k: {w: v[w] for w in ("old", "new")}
+                      for k, v in summary.items() if k != "nvidia_smi"}))
     print(smi)
     return 0
 

@@ -2,7 +2,10 @@
 chip_smoke.py, which is the one home of the on-card checks, at a test's
 size: the hand-written kernels against their plain torch versions (t, prim,
 u, v and any-hit, also on rays shaped like the main path's; K3's gather and
-scatter-add; the MT replay, also with every ray on one triangle), the
+scatter-add on random rows, on the main path's first bounce, on one row,
+with NaN, -0.0 and inf cotangents, and on every launch of a recorded
+geometry-gradient step; the MT replay, also with every ray on one
+triangle), the
 train step and geometry gradient with their launch counts, and the slice
 and its gradient on the card against the CPU.
 They skip without a card. The file imports no JAX, so it runs on the
@@ -15,7 +18,7 @@ import torch
 
 import chip_smoke
 import ignis_tpu_torch
-from ignis_tpu_torch.ops import bvh_cuda, isect_cuda
+from ignis_tpu_torch.ops import bvh_cuda, gather, isect_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -118,6 +121,43 @@ def test_grad_kernels_match_plain(device):
                                   extent=3.0)
     errs, _ = chip_smoke.phase_grad_kernels(device, rt, rays)
     assert errs["K3_gather_rows"] == 0.0
+
+
+@pytest.mark.parametrize("which", ["random", "camera", "one row",
+                                   "special"])
+def test_k3_matches_plain_on_set(device, which):
+    """K3 on chip_smoke.k3_sets of S1 (icosphere at subdivisions 5) at
+    128x128: random rows; the main path's first bounce (camera hits of
+    main_path_sets, a miss on row 0 with zero cotangents); every lane on
+    one row; cotangents holding a NaN, a -0.0 and an inf. The gather equal
+    to tab[idx]; the scatter within 1e-6 + 1e-5 sum|terms| of index_add_,
+    NaN and inf in index_add_'s entries, padding columns zero."""
+    rt = ignis_tpu_torch.loadFromString(json.dumps(_small(
+        chip_smoke.S1_GLASS_ICO7, subdivisions=5)), device=device)
+    idx, tab, k, cot = chip_smoke.k3_sets(rt, device, n=65536)[which]
+    gather.reset_counts()
+    g_err, _ = chip_smoke.check_k3(which, idx, tab, k, cot)
+    assert g_err == 0.0
+    assert gather.gather_counts["launches"] == 1
+    assert gather.scatter_counts["launches"] == 1
+
+
+def test_k3_on_recorded_geometry_launches(device):
+    """Every K3 launch of one geometry-gradient step of S1 (subdivisions
+    3) and S2 at 64x64, spi 2, recorded: gathers equal to their plain
+    versions, scatters within the reorder bar, and timed."""
+    runtimes = {}
+    for name, sc in (("S1_glass_ico7",
+                      chip_smoke._ico3(chip_smoke.S1_GLASS_ICO7)),
+                     ("S2_graft_entry", chip_smoke.S2_GRAFT_ENTRY)):
+        small = json.loads(json.dumps(sc))
+        small["film"] = {"size": [64, 64]}
+        runtimes[name] = ignis_tpu_torch.loadFromString(
+            json.dumps(small), device=device, spi=2)
+    out = chip_smoke.phase_k3_recorded(device, runtimes)
+    for row in out.values():
+        assert row["gather"]["launches"] > 0 and row["scatter"]["launches"] > 0
+        assert row["gather"]["ms"] > 0 and row["scatter"]["ms"] > 0
 
 
 def test_train_and_geometry_steps_launch_kernels(device):

@@ -249,3 +249,25 @@ def test_cuda_device_raises_without_a_card():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ignis_tpu_torch.loadFromString(json.dumps(_SCENE), device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["loadFromString", "loadFromFile",
+                                   "Runtime.load_from_string",
+                                   "Runtime.load_from_file"])
+def test_entry_points_default_to_the_card(entry, tmp_path):
+    """With no `device`, every entry point asks for the CUDA card: without
+    one it raises, and never returns a runtime on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    text = json.dumps(_SCENE)
+    scene_file = tmp_path / "scene.json"
+    scene_file.write_text(text)
+    load = {"loadFromString": lambda: ignis_tpu_torch.loadFromString(text),
+            "loadFromFile": lambda: ignis_tpu_torch.loadFromFile(scene_file),
+            "Runtime.load_from_string":
+                lambda: ignis_tpu_torch.Runtime.load_from_string(text),
+            "Runtime.load_from_file":
+                lambda: ignis_tpu_torch.Runtime.load_from_file(scene_file),
+            }[entry]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load()
