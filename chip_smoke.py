@@ -8,26 +8,29 @@ printing its own lines; any failure exits non-zero:
 2. build: K1 (csrc/bvh_walk.cu), K2 (csrc/isect_dense.cu), K3
    (csrc/gather_cols.cu), the MT replay (csrc/mt_replay_bwd.cu) and the
    native BVH builder, from the sources in the checkout, all at once;
-3. K2 against its plain torch version on the card (random soups);
+3. K2 against its plain torch version on the card: random soups, and
+   S2's and S4's main-path sets (camera, secondary and shadow rays, as
+   phase 4 makes them for K1), exact on every lane and timed beside its
+   floor bound and the dense bound;
 4. K1 against its plain version on S1's BVH, and against K2 brute force
    on a 20,480-triangle icosphere; kernel and plain times; then K1 on
    three 262,144-ray sets of S1 and S3 shaped like the main path's
    (camera rays in pixel order, cosine secondary rays from their hits,
    shadow rays from those hits to S1's point light): exact against the
    plain walk, timed beside its bound, the deepest stack counted;
-5. render S1-S3 at 512x512 through `loadFromString` (its default device,
+5. render S1-S4 at 512x512 through `loadFromString` (its default device,
    the card) and `Runtime.step()`, with every kernel's launch count reset
    just before and read just after; no plain version may run; then one more
    step of each under torch.profiler (render/profile.py): device time,
    busy share and top device consumers of that step;
 6. reference checks: the analytic point-light oracle on the card, and
-   card-vs-CPU renders of small scenes;
+   card-vs-CPU renders of small scenes (S2, S4, S1 at subdivisions 3);
 7. gradients: K3's gather and scatter-add against their plain versions
    on S1's attribute table (random rows, S1's camera hits with zero
    cotangents on the misses, every lane on one row, cotangents holding
    NaN, -0.0 and inf) and the MT replay against its plain version, with
    times (K3 on the random rows, the replay on S1's contended rays and on
-   a random soup); `train_step` (albedo) on S1-S3 at 512x512 and a
+   a random soup); `train_step` (albedo) on S1-S4 at 512x512 and a
    geometry gradient on S1 and S2, counts reset before and read after;
    one profiled train step per scene and one profiled S1
    geometry-gradient step; every K3 launch of one S1 and one S2
@@ -124,11 +127,18 @@ S3_BENCH_BIG = {
     "lights": [{"type": "env", "name": "e", "radiance": 1.0}],
 }
 
+# S4: S1's scene with the icosphere at subdivisions 2: 320 ball triangles
+# and the floor's 2, below the BVH threshold, so K2 serves it.
+S4_GLASS_ICO2 = json.loads(json.dumps(S1_GLASS_ICO7))
+S4_GLASS_ICO2["shapes"][1]["subdivisions"] = 2
+
 SCENES = (("S1_glass_ico7", S1_GLASS_ICO7, "K1"),
           ("S2_graft_entry", S2_GRAFT_ENTRY, "K2"),
-          ("S3_bench_big", S3_BENCH_BIG, "K1"))
+          ("S3_bench_big", S3_BENCH_BIG, "K1"),
+          ("S4_glass_ico2", S4_GLASS_ICO2, "K2"))
 SPI = 4
-S1_LIGHT = (2.0, 3.0, 2.0)   # S1's point light
+S1_LIGHT = (2.0, 3.0, 2.0)   # S1's and S4's point light
+S2_LIGHT = (0.0, 2.0, 2.0)   # S2's
 
 # The least time of a kernel: the larger of its bytes (each input read once,
 # each output written once) over the card's memory rate and its operations
@@ -288,7 +298,8 @@ def cat_rays(a, b):
 def main_path_sets(rt, device, light=S1_LIGHT, seed=17):
     """Three ray sets of the main path on rt's scene, one ray per pixel of
     its film, from `seed`: "camera", camera rays in pixel order with a
-    random offset in each pixel, as the first bounce traces them;
+    random offset in each pixel, as the first bounce traces them (closest
+    hits through trace_scene, K1 or K2 as the scene has a BVH or not);
     "secondary", rays from their hits in cosine-distributed directions
     about the shading normal (lanes whose camera ray missed are dead:
     tmax < tmin); "shadow", rays from those hits to a point light at
@@ -298,9 +309,9 @@ def main_path_sets(rt, device, light=S1_LIGHT, seed=17):
     from ignis_tpu_torch.core.vec import Vec3
     from ignis_tpu_torch.core.warp import sample_cosine_hemisphere
     from ignis_tpu_torch.models.camera import generate_rays
-    from ignis_tpu_torch.ops import bvh_cuda
     from ignis_tpu_torch.ops.intersect import FLT_MAX, Rays
-    from ignis_tpu_torch.techniques.path import OFFSET, compute_surface
+    from ignis_tpu_torch.techniques.path import (OFFSET, compute_surface,
+                                                 trace_scene)
     scene, s = rt.scene, rt.settings
     n = s.width * s.height
     g = torch.Generator(device="cpu").manual_seed(seed)
@@ -309,7 +320,7 @@ def main_path_sets(rt, device, light=S1_LIGHT, seed=17):
     sx, sy, u0, u1 = [torch.rand(n, generator=g).to(device)
                       for _ in range(4)]
     cam = generate_rays(scene.camera, s, x, y, sx, sy)
-    hit = bvh_cuda.intersect_bvh(cam, scene.tris, scene.bvh)
+    hit = trace_scene(scene, cam)
     surf = compute_surface(scene, cam, hit)
     found = hit.prim >= 0
     local, _ = sample_cosine_hemisphere(u0, u1)
@@ -420,6 +431,26 @@ def k1_bound(rays, result, paths, any_hit):
     return bound(n_bytes, n_ops)
 
 
+def k2_bound(rays, result, n_tris, any_hit):
+    """K2's floor on these rays, in K1's terms: ray arrays in (8 f32),
+    results out (t, prim, u, v; or one occlusion byte), the soup's packed
+    rows read once (48 B a triangle); operations: one slab test of every
+    live ray against the soup's box and one triangle test of every hit
+    (for any hit, every occluded ray). A kernel that culls does fewer than
+    every pair's tests, so the dense count (dense_bound) is no floor."""
+    n = rays.tmin.numel()
+    live = int((rays.tmax >= rays.tmin).sum())
+    hits = int(result.sum()) if any_hit else int((result.prim >= 0).sum())
+    return bound((32 + (1 if any_hit else 16)) * n + 48 * n_tris,
+                 live * SLAB_OPS + hits * MT_OPS)
+
+
+def dense_bound(n, n_tris):
+    """The least time of every ray's test against every triangle: 48 B a
+    ray and 36 B a triangle moved, n * n_tris triangle tests."""
+    return bound(48 * n + 36 * n_tris, n * n_tris * MT_OPS)
+
+
 def replay_bound(prim, n_tris):
     """The MT replay's least time: per ray 6 ray floats, the prim and 3
     cotangents in, 6 ray gradients out; each distinct winner's 9 soup
@@ -474,6 +505,59 @@ def phase_k2(device, n_rays=262144, sizes=(2, 256, 4096)):
         check(agree >= 0.999, f"K2 T={n_tris}: any-hit agreement "
               f"{agree:.6f} >= 0.999")
     return err
+
+
+def phase_k2_sets(device, runtimes, check_only=False):
+    """K2 on main_path_sets of each runtime ({name: (Runtime, light)}),
+    the soup packed beforehand as the main path packs it: against the
+    plain version, prims equal on every lane, t, u and v bit for bit, any
+    hit equal on every lane; unless check_only, its median time beside the
+    plain version's, its floor (k2_bound) and the dense bound
+    (dense_bound). Returns {"<scene> <set>": {...}}."""
+    import torch
+    from ignis_tpu_torch.ops import isect_cuda
+    out = {}
+    for name, (rt, light) in runtimes.items():
+        sc = rt.scene
+        n_tris = sc.tris.v0.x.numel()
+        check(sc.bvh is None, f"{name}: {n_tris} triangles, no BVH (K2)")
+        pack = isect_cuda.pack_soup(sc.tris)
+        vis = sc.tri_attr.shadow_visible
+        for set_name, (rays, any_hit) in main_path_sets(rt, device,
+                                                        light).items():
+            what = f"K2 {name} {set_name}"
+            live = int((rays.tmax >= rays.tmin).sum())
+            kw = dict(any_hit=any_hit, shadow_visible=vis if any_hit else None)
+            got = isect_cuda.intersect_tris(rays, sc.tris, packed=pack, **kw)
+            ref = isect_cuda.intersect_tris_plain(rays, sc.tris, **kw)
+            if any_hit:
+                check(torch.equal(got, ref), f"{what}: any hit equal on every "
+                      f"lane ({int(ref.sum())} of {live} live rays occluded)")
+                err = 0.0
+            else:
+                check(torch.equal(got.prim, ref.prim), f"{what}: prims equal "
+                      f"on every lane ({int((ref.prim >= 0).sum())} of {live}"
+                      f" live rays hit)")
+                pairs = [(got.t, ref.t), (got.u, ref.u), (got.v, ref.v)]
+                err = max(max_err(a, b) for a, b in pairs)
+                check(all(torch.equal(a, b) for a, b in pairs),
+                      f"{what}: t, u, v bit for bit (max |difference| {err})")
+            row = {"rays": rays.tmin.numel(), "live": live,
+                   "any_hit": any_hit, "max_abs_err": err}
+            if not check_only:
+                ms = cuda_ms(lambda: isect_cuda.intersect_tris(
+                    rays, sc.tris, packed=pack, **kw))
+                plain = cuda_ms(lambda: isect_cuda.intersect_tris_plain(
+                    rays, sc.tris, **kw))
+                bms, by = k2_bound(rays, got, n_tris, any_hit)
+                row.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                           dense_ms=dense_bound(rays.tmin.numel(),
+                                                n_tris)[0])
+                print(f"  {what}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                      f"floor {bms:.5f} ms ({by}), dense "
+                      f"{row['dense_ms']:.4f} ms, {live} live rays")
+            out[f"{name} {set_name}"] = row
+    return out
 
 
 def phase_k1(device, s1, n_rays=65536):
@@ -531,9 +615,9 @@ def phase_k1(device, s1, n_rays=65536):
 
 def phase_times(device, s1, k1_rays):
     """Median CUDA-event times of each kernel and its plain version, with
-    the kernel's bound: K2 at S2's shape, K1 on the 65,536 rays of
-    phase_k1 (closest and any hit), the soup packed beforehand as the
-    main path packs it."""
+    the kernel's bound: K2 at S2's shape (random rays, its floor
+    k2_bound), K1 on the 65,536 rays of phase_k1 (closest and any hit),
+    the soup packed beforehand as the main path packs it."""
     import torch
     from ignis_tpu_torch.ops import bvh_cuda, isect_cuda
     rng = np.random.default_rng(5)
@@ -545,11 +629,13 @@ def phase_times(device, s1, k1_rays):
     rays = random_rays(rng, 262144, device)
     n_tris = s2.scene.tris.v0.x.numel()
     n = rays.tmin.numel()
-    out["K2"] = (cuda_ms(lambda: isect_cuda.intersect_tris(rays,
-                                                           s2.scene.tris)),
+    pack = isect_cuda.pack_soup(s2.scene.tris)
+    res = isect_cuda.intersect_tris(rays, s2.scene.tris, packed=pack)
+    out["K2"] = (cuda_ms(lambda: isect_cuda.intersect_tris(
+                     rays, s2.scene.tris, packed=pack)),
                  cuda_ms(lambda: isect_cuda.intersect_tris_plain(
                      rays, s2.scene.tris)),
-                 *bound(48 * n + 36 * n_tris, n * n_tris * MT_OPS))
+                 *k2_bound(rays, res, n_tris, False))
     sc = s1.scene
     rows = bvh_cuda.pack_tris(sc.tris)
     paths = bvh_paths(sc.bvh, sc.tris.v0.x.numel())
@@ -661,7 +747,7 @@ def plain_calls() -> int:
 
 
 def phase_render(device, runtimes):
-    """Render S1-S3 on the card; launch counts reset just before."""
+    """Render S1-S4 on the card; launch counts reset just before."""
     import torch
     from ignis_tpu_torch.ops import bvh_cuda, isect_cuda
     bvh_cuda.reset_overflow(device)
@@ -738,8 +824,8 @@ def phase_reference(device):
     avg = float(rt.framebuffer(normalized=True).mean())
     check(abs(avg - 0.005100456) <= 1e-4,
           f"analytic point light: {avg:.9f} vs 0.005100456 (abs 1e-4)")
-    for name, sc in (("S2", S2_GRAFT_ENTRY), ("S1 at subdivisions 3",
-                                              _ico3(S1_GLASS_ICO7))):
+    for name, sc in (("S2", S2_GRAFT_ENTRY), ("S4", S4_GLASS_ICO2),
+                     ("S1 at subdivisions 3", _ico3(S1_GLASS_ICO7))):
         small = dict(sc)
         small["film"] = {"size": [64, 64]}
         imgs = []
@@ -1065,7 +1151,7 @@ def geometry_leaves(scene):
 
 
 def phase_train(device, runtimes):
-    """One-GPU train step (SGD on the albedo, target black) on S1-S3 at
+    """One-GPU train step (SGD on the albedo, target black) on S1-S4 at
     512x512, spi 4: median of 3 after a warm-up, peak memory; counts
     reset before and read after; then a geometry gradient of the same
     loss on S1 and S2."""
@@ -1387,10 +1473,7 @@ def main() -> int:
     print("== phase 2: build")
     phase_build()
 
-    print("== phase 3: K2 against its plain version")
-    k2_err = phase_k2(device)
-
-    print("== loading S1-S3 on the card")
+    print("== loading S1-S4 on the card")
     runtimes = {}
     for name, sc, _ in SCENES:
         t0 = time.perf_counter()
@@ -1404,6 +1487,12 @@ def main() -> int:
               f"{'yes' if rt.scene.bvh is not None else 'no'}, loaded in "
               f"{time.perf_counter() - t0:.2f} s")
 
+    print("== phase 3: K2 against its plain version")
+    k2_err = phase_k2(device)
+    k2_sets = phase_k2_sets(device, {
+        "S2": (runtimes["S2_graft_entry"], S2_LIGHT),
+        "S4": (runtimes["S4_glass_ico2"], S1_LIGHT)})
+
     print("== phase 4: K1 against its plain version and against K2")
     k1_err, k1_rays = phase_k1(device, runtimes["S1_glass_ico7"])
     times = phase_times(device, runtimes["S1_glass_ico7"], k1_rays)
@@ -1411,7 +1500,7 @@ def main() -> int:
         device, {"S1": runtimes["S1_glass_ico7"],
                  "S3": runtimes["S3_bench_big"]})
 
-    print("== phase 5: render S1-S3")
+    print("== phase 5: render S1-S4")
     counts, per_scene = phase_render(device, runtimes)
     profile = phase_profile(runtimes)
 
@@ -1446,8 +1535,14 @@ def main() -> int:
         {"name": "K2_isect_dense", "route": "cuda",
          "source": "ignis_tpu_torch/csrc/isect_dense.cu",
          "replaces": "ignis_tpu/ops/pallas_isect.py:156",
-         "launches": counts["K2"], "max_abs_err": k2_err,
-         **timed(times["K2"]), "library_ms": None},
+         "launches": counts["K2"],
+         "max_abs_err": max([k2_err] + [r["max_abs_err"]
+                                        for r in k2_sets.values()]),
+         **timed(times["K2"]),
+         "dense_ms": dense_bound(262144, runtimes["S2_graft_entry"].scene
+                                 .tris.v0.x.numel())[0],
+         "library_ms": None,
+         "sets": k2_sets},
     ]
     for name, source, replaces in (
             ("K3_gather_rows", "ignis_tpu_torch/csrc/gather_cols.cu",

@@ -64,29 +64,30 @@ class Surface(NamedTuple):
     tv: Vec3
 
 
-def trace_scene(scene: SceneData, rays: Rays, tri_rows=None) -> Hit:
+def trace_scene(scene: SceneData, rays: Rays, packed=None) -> Hit:
     """Closest hit: BVH (K1) or dense (K2) triangles, then spheres.
-    `tri_rows` is K1's packing of the soup (tri_rows_of), or None."""
+    `packed` is the soup packed for that kernel (soup_pack_of), or None."""
     if scene.bvh is not None:
         h = bvh_cuda.intersect_bvh(rays, scene.tris, scene.bvh,
-                                   tri_rows=tri_rows)
+                                   tri_rows=packed)
     else:
-        h = isect_cuda.intersect_tris(rays, scene.tris)
+        h = isect_cuda.intersect_tris(rays, scene.tris, packed=packed)
     hs = isect.intersect_spheres_dense(rays, scene.spheres,
                                        scene.tris.v0.x.shape[0])
     return isect.merge_hits(h, hs)
 
 
 def occluded_scene(scene: SceneData, rays: Rays,
-                   tri_rows=None) -> torch.Tensor:
+                   packed=None) -> torch.Tensor:
     """Any hit on a shadow-visible primitive."""
     vis = scene.tri_attr.shadow_visible
     if scene.bvh is not None:
         occ = bvh_cuda.intersect_bvh(rays, scene.tris, scene.bvh,
                                      any_hit=True, shadow_visible=vis,
-                                     tri_rows=tri_rows)
+                                     tri_rows=packed)
     else:
-        occ = isect_cuda.intersect_tris(rays, scene.tris, vis, any_hit=True)
+        occ = isect_cuda.intersect_tris(rays, scene.tris, vis, any_hit=True,
+                                        packed=packed)
     if scene.spheres.radius.shape[0] > 0:
         # sphere visibility is applied to the closest sphere hit
         h = isect.intersect_spheres_dense(rays, scene.spheres, 0)
@@ -95,10 +96,13 @@ def occluded_scene(scene: SceneData, rays: Rays,
     return occ
 
 
-def tri_rows_of(scene: SceneData):
-    """K1's packed triangle rows of the scene's current soup
-    (bvh_cuda.pack_tris), or None for a scene without a BVH."""
-    return None if scene.bvh is None else bvh_cuda.pack_tris(scene.tris)
+def soup_pack_of(scene: SceneData):
+    """The scene's current soup packed for its kernel: K1's triangle rows
+    (bvh_cuda.pack_tris) with a BVH, K2's tiles (isect_cuda.pack_soup)
+    without."""
+    if scene.bvh is not None:
+        return bvh_cuda.pack_tris(scene.tris)
+    return isect_cuda.pack_soup(scene.tris)
 
 
 def attr_table(scene: SceneData) -> torch.Tensor:
@@ -260,10 +264,10 @@ def check_settings(settings: RenderSettings, scene: SceneData) -> None:
 
 
 def make_bounce(scene: SceneData, settings: RenderSettings,
-                tab: torch.Tensor, regen=None, rows=None):
+                tab: torch.Tensor, regen=None, packed=None):
     """Per-bounce wavefront step; `tab` is the scene's attr_table and
-    `rows` its tri_rows_of. With `regen` = (x, y, iteration, frame), lanes
-    whose path ended restart the next sample of their pixel."""
+    `packed` its soup_pack_of. With `regen` = (x, y, iteration, frame),
+    lanes whose path ended restart the next sample of their pixel."""
     n_lights = settings.n_lights
     present = tuple(int(k) for k in settings.bsdf_kinds)
     kinds = tuple(int(k) for k in settings.light_kinds or ())
@@ -273,7 +277,7 @@ def make_bounce(scene: SceneData, settings: RenderSettings,
         device = state.tmin.device
         rays_b = Rays(state.org, state.dir, state.tmin,
                       torch.where(state.alive, state.tmax, -1.0))
-        hit = trace_scene(scene, rays_b, rows)
+        hit = trace_scene(scene, rays_b, packed)
         found = hit.prim >= 0
         result = state.result
 
@@ -352,7 +356,7 @@ def make_bounce(scene: SceneData, settings: RenderSettings,
             stmax = torch.where(want, stmax, -1.0)
             shadow_rays = Rays(surf.point, sdir,
                                torch.full_like(stmax, OFFSET), stmax)
-            occ = occluded_scene(scene, shadow_rays, rows)
+            occ = occluded_scene(scene, shadow_rays, packed)
             result = _cadd_where(want & ~occ, result, contrib_nee)
 
         # ---- bounce ----------------------------------------------------
@@ -466,7 +470,7 @@ def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
     device = x.device
     sizes = bucket_chain(n, MIN_BUCKET) if compact else [n]
     tab = attr_table(scene)
-    rows = tri_rows_of(scene)
+    packed = soup_pack_of(scene)
     st = start_state(scene, settings, x, y, iteration, frame)
     film = torch.zeros((3, n), dtype=torch.float32, device=device)
     budget = settings.spi * settings.max_depth
@@ -476,7 +480,7 @@ def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
         last = si == len(sizes) - 1
         min_alive = 0 if last else size // SHRINK
         bounce = make_bounce(scene, settings, tab, (px, py, iteration, frame),
-                             rows)
+                             packed)
 
         def run(st, limit, bounce=bounce, min_alive=min_alive):
             it = 0

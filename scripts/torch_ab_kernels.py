@@ -2,13 +2,23 @@
 """Time two revisions of ignis_tpu_torch's kernels in turns on one CUDA
 card, on the main path's shapes.
 
-    git show REV:ignis_tpu_torch/csrc/gather_cols.cu > DIR/gather_cols.cu
-    python3 scripts/torch_ab_kernels.py --old-csrc DIR [--json PATH]
+    git show REV:ignis_tpu_torch/csrc/isect_dense.cu > DIR/isect_dense.cu
+    python3 scripts/torch_ab_kernels.py --old-csrc DIR [--crossover] \
+        [--json PATH]
 
 Each kernel whose earlier source DIR holds is compared; both revisions are
 built from source into build/ignis_tpu_torch/ and loaded into one process,
 and each turn (old, new, new, old by default) swaps one revision in behind
 its own wrapper and measures with chip_smoke's helpers.
+
+- K2 (DIR/isect_dense.cu, the source before the packed soup: the
+  structure-of-arrays C entry point with 9 soup arrays, which reads no
+  pack), swapped in behind ops/isect_cuda._intersect: its median time per
+  launch on the main-path sets of S2 and S4 (k2_sets) and on 262,144
+  random rays against random soups of 2, 32, 128, 322 and 511 triangles,
+  closest and any hit, each soup packed beforehand for the new kernel;
+  the summed K2 device time of one profiled forward step of S2 and of S4.
+  The revisions' results are held equal on every set.
 
 - K3 (DIR/gather_cols.cu, the source before the column layout: [N, K]
   rows out of an unpadded [T, K] table, one element per thread): its
@@ -29,6 +39,10 @@ its own wrapper and measures with chip_smoke's helpers.
   4,096-triangle soup; and its summed device time in one profiled S1
   geometry-gradient step. The revisions' K1 results and per-ray replay
   gradients are held equal.
+
+`--crossover` also times K1 against K2 on the main-path sets of S1's
+scene with the icosphere at subdivisions 0-4 (22 to 5,122 triangles), K1
+over a BVH from the port's builder (crossover).
 
 Imports nothing of JAX.
 """
@@ -54,6 +68,11 @@ _OLD_MT_ARGTYPES = [ctypes.c_void_p] * 34 + [ctypes.c_int, ctypes.c_void_p]
 # the earlier K3: idx, table or cotangent, output; n, k, t; stream
 _OLD_K3_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
     ctypes.c_void_p]
+# the earlier K2: 8 ray arrays, n, 9 soup arrays, shadow mask, T, any_hit,
+# 5 outputs, stream
+_OLD_K2_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p] * 6)
 
 
 def load_old(csrc: Path):
@@ -367,12 +386,192 @@ def ab_k3(csrc, turns, device):
     return {"turns": turn_rows, **summary}
 
 
+def old_k2_intersect(csrc: Path):
+    """A drop-in for ops/isect_cuda._intersect that launches the earlier
+    K2, built from `csrc`, on the soup's 9 arrays (it takes no pack)."""
+    import torch
+    from ignis_tpu_torch.ops import cuda_build, isect_cuda
+    lib = cuda_build.compile_and_load("isect_dense_old", cuda_build._nvcc(),
+                                      cuda_build.NVCC_FLAGS,
+                                      csrc / "isect_dense.cu")
+    fn = lib.ig_isect_dense
+    fn.argtypes, fn.restype = _OLD_K2_ARGTYPES, ctypes.c_int
+
+    @torch.no_grad()
+    def _intersect(rays, soup, shadow_visible, any_hit, packed):
+        a = cuda_build.prepare_hit_launch("K2 (old)", rays, soup,
+                                          shadow_visible, any_hit)
+        if a.n:
+            cuda_build.launch("K2 (old)", isect_cuda.counts, fn, *a.rays,
+                              a.n, *a.tris, a.vis, a.n_tris, int(any_hit),
+                              *a.outs, a.stream)
+        return a.result
+    return _intersect
+
+
+def k2_sets(scenes, device):
+    """K2's A/B sets: {name: (soup, rays, any_hit, shadow mask, pack)}:
+    the main-path sets of S2 and S4, and 262,144 random rays against
+    random soups of 2, 32, 128, 322 and 511 triangles, closest and any
+    hit; each soup packed beforehand, as the main path packs it."""
+    from ignis_tpu_torch.ops import isect_cuda
+    sets = {}
+    for short, name, light in (("S2", "S2_graft_entry", cs.S2_LIGHT),
+                               ("S4", "S4_glass_ico2", cs.S1_LIGHT)):
+        sc = scenes[name].scene
+        pack = isect_cuda.pack_soup(sc.tris)
+        for set_name, (rays, any_hit) in cs.main_path_sets(
+                scenes[name], device, light).items():
+            sets[f"{short} {set_name}"] = (
+                sc.tris, rays, any_hit,
+                sc.tri_attr.shadow_visible if any_hit else None, pack)
+    rng = np.random.default_rng(7)
+    rays = cs.random_rays(rng, 262144, device)
+    for n_tris in (2, 32, 128, 322, 511):
+        soup, vis = cs.random_soup(rng, n_tris, device)
+        pack = isect_cuda.pack_soup(soup)
+        sets[f"random T={n_tris}"] = (soup, rays, False, None, pack)
+        sets[f"random T={n_tris} any hit"] = (soup, rays, True, vis, pack)
+    return sets
+
+
+def ab_k2(csrc, turns, device):
+    """K2, old against new: each set's median time per launch, and the
+    summed K2 device time of one profiled forward step of S2 and of S4.
+    The revisions' results are held equal on every set."""
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch.ops import isect_cuda
+    from ignis_tpu_torch.render.profile import profile_step
+    revisions = {"old": old_k2_intersect(csrc), "new": isect_cuda._intersect}
+    scenes = {name: ignis_tpu_torch.loadFromString(json.dumps(sc),
+                                                   device=device, spi=cs.SPI)
+              for name, sc, kernel in cs.SCENES if kernel == "K2"}
+    sets = k2_sets(scenes, device)
+
+    def call(v):
+        soup, rays, any_hit, vis, pack = v
+        return isect_cuda.intersect_tris(rays, soup, vis, any_hit,
+                                         packed=pack)
+    results = {}
+    for which, fn in revisions.items():
+        isect_cuda._intersect = fn
+        results[which] = {k: call(v) for k, v in sets.items()}
+        for rt in scenes.values():                 # warm-up step
+            rt.step()
+    for key in sets:
+        a, b = results["old"][key], results["new"][key]
+        same = (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else all(torch.equal(x, y) for x, y in zip(a, b)))
+        cs.check(same, f"K2 {key}: old and new results equal")
+    rows = []
+    for which in turns:
+        isect_cuda._intersect = revisions[which]
+        row = {"which": which, "k2_ms": {k: cs.cuda_ms(lambda: call(v))
+                                         for k, v in sets.items()}}
+        for name, rt in scenes.items():
+            p = profile_step(rt.step, {"K2": "isect_dense_kernel"})
+            row[f"{name} forward"] = {k: p[k] for k in
+                                      ("wall_s", "device_busy_us", "K2_us")}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    isect_cuda._intersect = revisions["new"]
+    summary = {"turns": rows}
+    for which in ("old", "new"):
+        mine = [r for r in rows if r["which"] == which]
+        summary[which] = {
+            "k2_ms": {k: statistics.median(r["k2_ms"][k] for r in mine)
+                      for k in sets},
+            **{f"{name} forward K2_us": statistics.median(
+                r[f"{name} forward"]["K2_us"] for r in mine)
+               for name in scenes}}
+    summary["sets"] = {}
+    for key, (soup, rays, any_hit, vis, pack) in sets.items():
+        res = results["new"][key]
+        n_tris = soup.v0.x.numel()
+        summary["sets"][key] = {
+            "tris": n_tris, "rays": rays.tmin.numel(),
+            "live": int((rays.tmax >= rays.tmin).sum()),
+            "bound_ms": cs.k2_bound(rays, res, n_tris, any_hit)[0],
+            "dense_ms": cs.dense_bound(rays.tmin.numel(), n_tris)[0]}
+    return summary
+
+
+def bvh_of(soup, device):
+    """A BVH of `soup` from the port's builder: (the soup in the BVH's
+    order, BVHArrays, the order as a tensor)."""
+    import torch
+    from ignis_tpu_torch.bvh.builder import build_bvh8
+    from ignis_tpu_torch.core.vec import Vec3
+    from ignis_tpu_torch.ops.bvh import BVHArrays
+    from ignis_tpu_torch.ops.intersect import TriSoup
+    arrays = [torch.stack(tuple(v), 1).cpu().numpy()
+              for v in (soup.v0, soup.e1, soup.e2)]
+    b = build_bvh8(*arrays)
+    order = torch.from_numpy(b.prim_order.astype(np.int64)).to(device)
+    perm = TriSoup(*[Vec3(*[c[order].contiguous() for c in v])
+                     for v in (soup.v0, soup.e1, soup.e2)])
+    bvh = BVHArrays(*[torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                      for a in (b.cmin_x, b.cmin_y, b.cmin_z, b.cmax_x,
+                                b.cmax_y, b.cmax_z, b.child)])
+    return perm, bvh, order
+
+
+def crossover(device, subdivisions=(0, 1, 2, 3, 4)):
+    """K1 (a BVH from the port's builder over the soup) against K2 (the
+    soup packed) on the main-path sets of S1's scene with the icosphere
+    at each subdivision: median time of each, and how far their results
+    agree (prims compared through the BVH's order; equal-t ties may take
+    another triangle, as each keeps its own lowest id)."""
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch.ops import bvh_cuda, isect_cuda
+    out = {}
+    for sub in subdivisions:
+        scene = json.loads(json.dumps(cs.S1_GLASS_ICO7))
+        scene["shapes"][1]["subdivisions"] = sub
+        rt = ignis_tpu_torch.loadFromString(json.dumps(scene), device=device,
+                                            spi=cs.SPI)
+        soup, vis = rt.scene.tris, rt.scene.tri_attr.shadow_visible
+        perm, bvh, order = bvh_of(soup, device)
+        rows, pack = bvh_cuda.pack_tris(perm), isect_cuda.pack_soup(soup)
+        for set_name, (rays, any_hit) in cs.main_path_sets(rt,
+                                                           device).items():
+            def k1():
+                return bvh_cuda.intersect_bvh(
+                    rays, perm, bvh, any_hit, vis[order] if any_hit else None,
+                    tri_rows=rows)
+
+            def k2():
+                return isect_cuda.intersect_tris(
+                    rays, soup, vis if any_hit else None, any_hit,
+                    packed=pack)
+            a, b = k1(), k2()
+            if any_hit:
+                agree = float((a == b).float().mean())
+            else:
+                mapped = torch.where(a.prim >= 0,
+                                     order[a.prim.clamp(min=0).long()], -1)
+                agree = float((mapped == b.prim).float().mean())
+            row = {"tris": soup.v0.x.numel(), "k1_ms": cs.cuda_ms(k1),
+                   "k2_ms": cs.cuda_ms(k2), "agreement": agree}
+            print(f"  crossover sub {sub} ({row['tris']} tris) {set_name}: "
+                  f"K1 {row['k1_ms']:.4f} ms, K2 {row['k2_ms']:.4f} ms, "
+                  f"agreement {agree:.6f}", flush=True)
+            out[f"sub {sub} {set_name}"] = row
+    return out
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--old-csrc", type=Path, required=True,
-                    help="directory with the earlier gather_cols.cu and/or "
-                         "bvh_walk.cu and mt_replay_bwd.cu")
+    ap.add_argument("--old-csrc", type=Path,
+                    help="directory with the earlier isect_dense.cu, "
+                         "gather_cols.cu and/or bvh_walk.cu and "
+                         "mt_replay_bwd.cu")
+    ap.add_argument("--crossover", action="store_true",
+                    help="also time K1 against K2 on S1's scene at "
+                         "icosphere subdivisions 0-4")
     ap.add_argument("--turns", default="old,new,new,old")
     ap.add_argument("--json", type=Path, help="also write the turns here")
     args = ap.parse_args()
@@ -385,17 +584,24 @@ def main() -> int:
     cs.phase_build()
     turns = args.turns.split(",")
     summary = {"nvidia_smi": smi}
-    if (args.old_csrc / "gather_cols.cu").exists():
-        summary["K3"] = ab_k3(args.old_csrc, turns, device)
-    if (args.old_csrc / "bvh_walk.cu").exists():
-        summary["K1, MT replay"] = ab_k1_replay(args.old_csrc, turns, device)
+    old = args.old_csrc
+    if old and (old / "isect_dense.cu").exists():
+        summary["K2"] = ab_k2(old, turns, device)
+    if old and (old / "gather_cols.cu").exists():
+        summary["K3"] = ab_k3(old, turns, device)
+    if old and (old / "bvh_walk.cu").exists():
+        summary["K1, MT replay"] = ab_k1_replay(old, turns, device)
+    if args.crossover:
+        summary["K1/K2 crossover"] = crossover(device)
     if len(summary) == 1:
-        print(f"no earlier source in {args.old_csrc}", file=sys.stderr)
+        print(f"no earlier source in {old} and no --crossover",
+              file=sys.stderr)
         return 1
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(summary, indent=1))
-    print(json.dumps({k: {w: v[w] for w in ("old", "new")}
+    print(json.dumps({k: ({w: v[w] for w in ("old", "new")}
+                          if "old" in v else v)
                       for k, v in summary.items() if k != "nvidia_smi"}))
     print(smi)
     return 0

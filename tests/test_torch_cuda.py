@@ -1,7 +1,8 @@
 """Tests of ignis_tpu_torch that need a CUDA card. They run the checks of
 chip_smoke.py, which is the one home of the on-card checks, at a test's
 size: the hand-written kernels against their plain torch versions (t, prim,
-u, v and any-hit, also on rays shaped like the main path's; K3's gather and
+u, v and any-hit, also on rays shaped like the main path's, K2 on S2's and
+S4's exactly; the S4 render through K2 alone; K3's gather and
 scatter-add on random rows, on the main path's first bounce, on one row,
 with NaN, -0.0 and inf cotangents, and on every launch of a recorded
 geometry-gradient step; the MT replay, also with every ray on one
@@ -50,6 +51,41 @@ def test_k2_matches_plain(device, n_tris):
     isect_cuda.reset_counts()
     chip_smoke.phase_k2(device, sizes=(n_tris,))
     assert isect_cuda.counts == {"launches": 2, "plain_calls": 2}
+
+
+def test_k2_exact_on_main_path_sets(device):
+    """K2 on chip_smoke's main-path ray sets of S2 and S4 (camera rays in
+    pixel order, cosine secondary rays from their hits, shadow rays to
+    the scene's point light) at 128x128, the soup packed once: prims equal
+    on every lane, t, u, v bit for bit, any hit equal on every lane."""
+    runtimes = {}
+    for name, sc, light in (("S2", chip_smoke.S2_GRAFT_ENTRY,
+                             chip_smoke.S2_LIGHT),
+                            ("S4", chip_smoke.S4_GLASS_ICO2,
+                             chip_smoke.S1_LIGHT)):
+        runtimes[name] = (ignis_tpu_torch.loadFromString(
+            json.dumps(_small(sc)), device=device), light)
+    isect_cuda.reset_counts()
+    out = chip_smoke.phase_k2_sets(device, runtimes, check_only=True)
+    assert len(out) == 6 and all(r["max_abs_err"] == 0.0
+                                 for r in out.values())
+    # 6 checked launches and each scene's camera trace in main_path_sets
+    assert isect_cuda.counts == {"launches": 8, "plain_calls": 6}
+
+
+def test_s4_render_launches_k2_only(device):
+    """S4 (322 triangles, no BVH) at 64x64, spi 2, through Runtime.step():
+    K2 launched, K1 not, and no plain version called."""
+    rt = ignis_tpu_torch.loadFromString(
+        json.dumps(_small(chip_smoke.S4_GLASS_ICO2, size=64)),
+        device=device, spi=2)
+    assert rt.scene.bvh is None and rt.scene.tris.v0.x.numel() == 322
+    chip_smoke.reset_all_counts()
+    img = rt.step().framebuffer(normalized=True)
+    launched = chip_smoke.launches()
+    assert launched["K2"] > 0 and launched["K1"] == 0, launched
+    assert chip_smoke.plain_calls() == 0
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-3
 
 
 def test_k1_matches_plain(device):
@@ -161,15 +197,16 @@ def test_k3_on_recorded_geometry_launches(device):
 
 
 def test_train_and_geometry_steps_launch_kernels(device):
-    """phase 7's train step on S1 (at subdivisions 3), S2 and S3 (at
-    80x100) at 64x64, spi 2, and the geometry gradient on S1 and S2: loss
+    """phase 7's train step on S1 (at subdivisions 3), S2, S3 (at 80x100)
+    and S4 at 64x64, spi 2, and the geometry gradient on S1 and S2: loss
     and gradients finite, every kernel of the path launched, no plain
     version called."""
     s3 = json.loads(json.dumps(chip_smoke.S3_BENCH_BIG))
     s3["shapes"][0].update(stacks=80, slices=100)
     scenes = {"S1_glass_ico7": chip_smoke._ico3(chip_smoke.S1_GLASS_ICO7),
               "S2_graft_entry": chip_smoke.S2_GRAFT_ENTRY,
-              "S3_bench_big": s3}
+              "S3_bench_big": s3,
+              "S4_glass_ico2": chip_smoke.S4_GLASS_ICO2}
     runtimes = {}
     for name, sc in scenes.items():
         small = json.loads(json.dumps(sc))

@@ -168,3 +168,173 @@ def test_wrapper_takes_plain_on_cpu(soup):
     ref = isect_cuda.intersect_tris_plain(trays, tsoup)
     assert torch.equal(h.prim, ref.prim)
     assert torch.equal(occ, ref.prim >= 0)
+
+
+# ---------------------------------------------------------------------------
+# K2's packed soup and the plain replay of its warp-tile cull
+# ---------------------------------------------------------------------------
+
+def _s4_soup():
+    """The soup of S4 (chip_smoke.S4_GLASS_ICO2: S1's scene with the
+    icosphere at subdivisions 2, 322 triangles, no BVH), on the CPU."""
+    import json
+
+    import chip_smoke
+    import ignis_tpu_torch
+    small = json.loads(json.dumps(chip_smoke.S4_GLASS_ICO2))
+    small["film"] = {"size": [64, 64]}
+    rt = ignis_tpu_torch.loadFromString(json.dumps(small), device="cpu")
+    assert rt.scene.bvh is None and rt.scene.tris.v0.x.numel() == 322
+    return rt
+
+
+def _tsoup(v0, e1, e2):
+    def t3(a):
+        return Vec3(*[torch.from_numpy(np.ascontiguousarray(a[:, i]))
+                      for i in range(3)])
+    return T.TriSoup(t3(v0), t3(e1), t3(e2))
+
+
+def _np_soup(soup):
+    return [np.stack([a.numpy() for a in v], 1)
+            for v in (soup.v0, soup.e1, soup.e2)]
+
+
+def _rays_at(o, target, tmax=1e30):
+    d = (target - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    n = len(o)
+    t3 = lambda a: Vec3(*[torch.from_numpy(np.ascontiguousarray(  # noqa
+        a[:, i].astype(np.float32))) for i in range(3)])
+    return T.Rays(t3(o), t3(d), torch.zeros(n),
+                  torch.full((n,), tmax, dtype=torch.float32))
+
+
+def test_pack_soup_rows_tiles_and_order():
+    """pack_soup: the rows are the soup in a permuted order, each carrying
+    its original prim id; tiles are consecutive runs of at most TILE rows
+    covering the soup, the large triangles (the floor) tiled apart and
+    first; every tile's box holds its triangles' vertices with a margin;
+    a chunk of CHUNK_TILES tiles holds at most TILE * CHUNK_TILES rows."""
+    rng = np.random.default_rng(4)
+    v0 = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
+    e1 = rng.uniform(-0.05, 0.05, (300, 3)).astype(np.float32)
+    e2 = rng.uniform(-0.05, 0.05, (300, 3)).astype(np.float32)
+    big = [17, 230]
+    e1[big] = [[8.0, 0.0, 0.0], [0.0, 0.0, 8.0]]
+    pack = isect_cuda.pack_soup(_tsoup(v0, e1, e2))
+    rows, tiles = pack.rows.numpy(), pack.tiles.numpy()
+    prim = rows[:, 3].copy().view(np.int32)
+    assert sorted(prim) == list(range(300))
+    np.testing.assert_array_equal(rows[:, 0:3], v0[prim])
+    np.testing.assert_array_equal(rows[:, 4:7], e1[prim])
+    np.testing.assert_array_equal(rows[:, 8:11], e2[prim])
+    assert not rows[:, [7, 11]].any()
+    start = tiles[:, 3].copy().view(np.int32)
+    count = tiles[:, 7].copy().view(np.int32)
+    assert start[0] == 0 and (start[1:] == start[:-1] + count[:-1]).all()
+    assert count.sum() == 300 and (count >= 1).all()
+    assert (count <= isect_cuda.TILE).all()
+    assert sorted(prim[:2]) == big and start[1] == 2
+    for k in range(len(tiles)):
+        r = slice(start[k], start[k] + count[k])
+        for vert in (rows[r, 0:3], rows[r, 0:3] + rows[r, 4:7],
+                     rows[r, 0:3] + rows[r, 8:11]):
+            assert (vert > tiles[k, 0:3]).all()
+            assert (vert < tiles[k, 4:7]).all()
+    for c0 in range(0, len(tiles), isect_cuda.CHUNK_TILES):
+        assert count[c0:c0 + isect_cuda.CHUNK_TILES].sum() <= \
+            isect_cuda.TILE * isect_cuda.CHUNK_TILES
+    empty = isect_cuda.pack_soup(_tsoup(*[np.zeros((0, 3), np.float32)] * 3))
+    assert empty.rows.shape == (0, 12) and empty.tiles.shape == (0, 8)
+
+
+def _cull_case(name):
+    """(soup, rays, shadow mask) of one replay case: rays from random
+    origins aimed at S4's vertices, at points on its edges (shared by two
+    triangles, so equal-t ties between ids the pack has permuted), at
+    points on its tiles' box faces and along them, or a random soup of
+    1,500 triangles, which the kernel streams in chunks."""
+    rng = np.random.default_rng(17)
+    if name == "streamed":
+        v0 = rng.uniform(-3, 3, (1500, 3)).astype(np.float32)
+        e1 = rng.uniform(-0.6, 0.6, (1500, 3)).astype(np.float32)
+        e2 = rng.uniform(-0.6, 0.6, (1500, 3)).astype(np.float32)
+        o = rng.uniform(-4, 4, (2048, 3)).astype(np.float32)
+        soup = _tsoup(v0, e1, e2)
+        return soup, _rays_at(o, rng.uniform(-3, 3, (2048, 3))), \
+            torch.from_numpy(rng.uniform(size=1500) < 0.6)
+    rt = _s4_soup()
+    soup = rt.scene.tris
+    v0, e1, e2 = _np_soup(soup)
+    k = rng.integers(0, len(v0), 2048)
+    if name == "vertices":
+        corner = rng.integers(0, 3, (2048, 1))
+        target = v0[k] + np.where(corner == 1, e1[k], 0) \
+            + np.where(corner == 2, e2[k], 0)
+    elif name == "edges":
+        s = rng.uniform(size=(2048, 1)).astype(np.float32)
+        which = rng.integers(0, 3, (2048, 1))
+        a = np.where(which == 2, v0[k] + e1[k], v0[k])
+        b = np.where(which == 0, v0[k] + e1[k], v0[k] + e2[k])
+        target = a + s * (b - a)
+    else:
+        pack = isect_cuda.pack_soup(soup)
+        tiles = pack.tiles.numpy()
+        t = tiles[rng.integers(0, len(tiles), 2048)]
+        lo, hi = t[:, 0:3], t[:, 4:7]
+        target = lo + rng.uniform(size=(2048, 3)) * (hi - lo)
+        axis = rng.integers(0, 3, 2048)
+        side = rng.uniform(size=2048) < 0.5
+        rows = np.arange(2048)
+        target[rows, axis] = np.where(side, lo[rows, axis], hi[rows, axis])
+        o = rng.uniform(-4, 4, (2048, 3)).astype(np.float32)
+        # half the rays run along the face: the origin in its plane
+        along = np.arange(2048) % 2 == 0
+        o[along, axis[along]] = target[along, axis[along]]
+        return soup, _rays_at(o, target), rt.scene.tri_attr.shadow_visible
+    o = rng.uniform(-4, 4, (2048, 3)).astype(np.float32)
+    return soup, _rays_at(o, target), rt.scene.tri_attr.shadow_visible
+
+
+@pytest.mark.parametrize("case", ["vertices", "edges", "box faces",
+                                  "streamed"])
+def test_cull_replay_exact(case):
+    """The plain replay of K2's walk over the pack (tile order, per-lane
+    slab tests against the padded boxes, warp skips, the (t, prim) rule)
+    never culls a tile holding a triangle Moeller-Trumbore accepts within
+    the lane's interval, and equals intersect_tris_plain bit for bit,
+    closest and any hit."""
+    soup, rays, vis = _cull_case(case)
+    pack = isect_cuda.pack_soup(soup)
+    got, missed = isect_cuda.intersect_packed_plain(rays, pack)
+    ref = isect_cuda.intersect_tris_plain(rays, soup)
+    assert missed == 0
+    assert (ref.prim >= 0).sum() > 100
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    occ, missed = isect_cuda.intersect_packed_plain(rays, pack, vis, True)
+    assert missed == 0
+    assert torch.equal(occ, isect_cuda.intersect_tris_plain(rays, soup, vis,
+                                                            True))
+
+
+def test_cull_replay_exact_on_s4_main_path():
+    """The replay on S4's main-path sets at 64x64 (chip_smoke's camera,
+    secondary and shadow rays): no hit culled, results equal to the plain
+    version bit for bit."""
+    import chip_smoke
+    rt = _s4_soup()
+    sc = rt.scene
+    pack = isect_cuda.pack_soup(sc.tris)
+    for name, (rays, any_hit) in chip_smoke.main_path_sets(rt, "cpu").items():
+        vis = sc.tri_attr.shadow_visible if any_hit else None
+        got, missed = isect_cuda.intersect_packed_plain(rays, pack, vis,
+                                                        any_hit)
+        ref = isect_cuda.intersect_tris_plain(rays, sc.tris, vis, any_hit)
+        assert missed == 0, name
+        if any_hit:
+            assert torch.equal(got, ref) and ref.any()
+        else:
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), name
+            assert (ref.prim >= 0).sum() > 20

@@ -32,10 +32,16 @@ def _at(scene, size):
     return s
 
 
-@pytest.fixture(scope="module", params=["compaction", "graft_entry"])
+# S4 of chip_smoke.py: the compaction scene with the icosphere at
+# subdivisions 2 (322 triangles), which both packages intersect densely
+S4_SCENE = json.loads(json.dumps(COMPACTION_SCENE))
+S4_SCENE["shapes"][1]["subdivisions"] = 2
+
+
+@pytest.fixture(scope="module", params=["compaction", "graft_entry", "s4"])
 def bridged(request):
-    scene = {"compaction": COMPACTION_SCENE,
-             "graft_entry": _SCENE}[request.param]
+    scene = {"compaction": COMPACTION_SCENE, "graft_entry": _SCENE,
+             "s4": S4_SCENE}[request.param]
     rt = ignis_tpu.loadFromString(json.dumps(_at(scene, 64)), spi=4)
     ref = np.asarray(jax_iteration(rt.scene, rt.settings, jnp.uint32(0),
                                    jnp.uint32(0)))
@@ -167,6 +173,30 @@ def test_reproducibility_and_counters():
     rt.reset()
     assert rt.iteration_count == 0 and rt.sample_count == 0
     assert float(rt.framebuffer().abs().sum()) == 0.0
+
+
+def test_k2_soup_packed_once_per_render(monkeypatch):
+    """A step of S4 (no BVH) packs K2's soup once, in render_lanes, and
+    every closest-hit and shadow query of every bounce gets that pack, so
+    the pack adds no work per bounce."""
+    from ignis_tpu_torch.ops import isect_cuda
+    made, seen = [], []
+    pack_soup, intersect_tris = isect_cuda.pack_soup, isect_cuda.intersect_tris
+
+    def counting_pack(soup):
+        made.append(pack_soup(soup))
+        return made[-1]
+
+    def recording(*args, packed=None, **kw):
+        seen.append(packed)
+        return intersect_tris(*args, packed=packed, **kw)
+    monkeypatch.setattr(isect_cuda, "pack_soup", counting_pack)
+    monkeypatch.setattr(isect_cuda, "intersect_tris", recording)
+    rt = ignis_tpu_torch.loadFromString(json.dumps(_at(S4_SCENE, 32)),
+                                        device="cpu", spi=2)
+    rt.step()
+    assert len(made) == 1 and len(seen) >= 4
+    assert all(p is made[0] for p in seen)
 
 
 @pytest.mark.parametrize("intervals, busy", [
