@@ -18,29 +18,39 @@ printing its own lines; any failure exits non-zero:
    (camera rays in pixel order, cosine secondary rays from their hits,
    shadow rays from those hits to S1's point light): exact against the
    plain walk, timed beside its bound, the deepest stack counted;
-5. render S1-S4 at 512x512 through `loadFromString` (its default device,
+5. render S1-S5 at 512x512 through `loadFromString` (its default device,
    the card) and `Runtime.step()`, with every kernel's launch count reset
    just before and read just after; no plain version may run; then one more
    step of each under torch.profiler (render/profile.py): device time,
-   busy share and top device consumers of that step;
+   busy share and top device consumers of that step. S5 (`s5_scene`) is
+   the materials-and-lights scene: every analytic BSDF kind of the slice,
+   a textured blend, a bump map, five light kinds, the hierarchy selector
+   and the 4096x2048 substitute env (written as EXR into build/ and read
+   back by the port's own loader);
 6. reference checks: the analytic point-light oracle on the card, and
-   card-vs-CPU renders of small scenes (S2, S4, S1 at subdivisions 3);
+   card-vs-CPU renders of small scenes (S2, S4, S1 at subdivisions 3, S5
+   at subdivisions 1 with a 256x128 env);
 7. gradients: K3's gather and scatter-add against their plain versions
    on S1's attribute table (random rows, S1's camera hits with zero
    cotangents on the misses, every lane on one row, cotangents holding
    NaN, -0.0 and inf) and the MT replay against its plain version, with
    times (K3 on the random rows, the replay on S1's contended rays and on
-   a random soup); `train_step` (albedo) on S1-S4 at 512x512 and a
-   geometry gradient on S1 and S2, counts reset before and read after;
-   one profiled train step per scene and one profiled S1
-   geometry-gradient step; every K3 launch of one S1 and one S2
+   a random soup); `train_step` (albedo) on S1-S5 at 512x512, a
+   roughness gradient on S5 and a geometry gradient on S1 and S2, counts
+   reset before and read after; one profiled train step per scene, in
+   which torch's indexing_backward_kernel must take under 1% of the
+   device time, and one profiled S1 geometry-gradient step; K3 on S5's
+   material table (the material fetch of S5's camera hits) against its
+   plain version, timed beside index_select / index_put_; every K3
+   launch of one S1 and one S2
    geometry-gradient step recorded, checked and timed beside
    index_select / index_add and its bound; the K3 scatter at the albedo
    backward's shape beside index_put_; the albedo gradient on the card
    against the CPU's;
-then one JSON line of kernel results (each kernel's time beside its bound
-and, where one PyTorch call computes the same function, that call's
-time), the nvidia-smi line again, and as the last line
+then the run's wall time, one JSON line of kernel results (each kernel's
+time beside its bound and, where one PyTorch call computes the same
+function, that call's time), the nvidia-smi line again, and as the last
+line
 {"ok": true, "device": {...}}.
 Imports nothing of JAX. `--profile-json PATH` also writes the renders'
 timings and the profiled steps to PATH.
@@ -136,6 +146,107 @@ SCENES = (("S1_glass_ico7", S1_GLASS_ICO7, "K1"),
           ("S2_graft_entry", S2_GRAFT_ENTRY, "K2"),
           ("S3_bench_big", S3_BENCH_BIG, "K1"),
           ("S4_glass_ico2", S4_GLASS_ICO2, "K2"))
+S5_NAME = "S5_materials_env4k"
+KERNEL_OF = {name: kernel for name, _, kernel in SCENES} | {S5_NAME: "K1"}
+S5_ENV = (4096, 2048)          # the substitute env's texels (utils/envgen)
+
+# S5's nine balls, row by row: every analytic BSDF of the slice that needs
+# no transparent shadows, and a blend whose weight is a texture
+S5_BALLS = (
+    {"type": "conductor", "material": "gold"},
+    # anisotropic: roughness 0.3 as tests/test_parallel.py:204, stretched
+    {"type": "roughconductor", "material": "copper", "roughness": 0.3,
+     "anisotropic": 0.5},
+    {"type": "plastic", "diffuse_reflectance": [0.1, 0.3, 0.7]},
+    {"type": "roughplastic", "diffuse_reflectance": [0.7, 0.2, 0.1],
+     "roughness": 0.2},
+    {"type": "phong", "specular_reflectance": [0.6, 0.6, 0.5],
+     "exponent": 40},
+    {"type": "principled", "base_color": [0.8, 0.3, 0.3], "roughness": 0.4,
+     "clearcoat": 1.0, "clearcoat_gloss": 0.8, "sheen": 1.0,
+     "sheen_tint": 0.5},
+    {"type": "principled", "base_color": [0.9, 0.9, 0.95], "roughness": 0.1,
+     "specular_transmission": 0.9},
+    {"type": "roughdielectric", "int_ior": 1.5, "roughness": 0.15},
+    {"type": "blend", "first": "s5_diffuse", "second": "s5_rough_metal",
+     "weight": "s5_checker"},
+)
+
+
+def s5_scene(env_file, subdivisions=5, size=512):
+    """S5_materials_env4k, from in-repo sources only: S1's camera and floor
+    (tests/test_compaction.py:17-40; the floor at y = -1), the floor a
+    bumpmap (noise, strength
+    0.5) over a diffuse with brick reflectance (tests/test_components.py
+    :62-75), nine icospheres of radius 0.35 on a 3x3 grid (S5_BALLS), an
+    env light with the image `env_file` as radiance, a spot
+    (tests/test_analytic.py:55), a 0.4x0.4 area light
+    (tests/test_components.py:472-477), a directional light and a sun;
+    the hierarchy light selector. At subdivisions 5: 184,324 triangles."""
+    balls, bsdfs, ents = [], [], []
+    for i, b in enumerate(S5_BALLS):
+        x, z = 0.9 * (i % 3 - 1), 0.9 * (i // 3 - 1)
+        balls.append({"type": "icosphere", "name": f"ball{i}",
+                      "radius": 0.35, "subdivisions": subdivisions})
+        bsdfs.append({**b, "name": f"m{i}"})
+        ents.append({"name": f"ball{i}", "shape": f"ball{i}",
+                     "bsdf": f"m{i}",
+                     "transform": [{"translate": [x, -0.65, z]}]})
+    return {
+        "technique": {"type": "path", "max_depth": 8,
+                      "light_selector": "hierarchy"},
+        "camera": S1_GLASS_ICO7["camera"],
+        "film": {"size": [size, size]},
+        "textures": [
+            {"type": "brick", "name": "bricks", "color0": [0.2, 0.1, 0.1],
+             "color1": [0.7, 0.3, 0.2]},
+            {"type": "noise", "name": "bump_src", "scale": 8},
+            {"type": "checkerboard", "name": "s5_checker", "scale_x": 8,
+             "scale_y": 8},
+            {"type": "image", "name": "env", "filename": str(env_file)},
+        ],
+        "bsdfs": [
+            {"type": "diffuse", "name": "floor_inner",
+             "reflectance": "bricks"},
+            {"type": "bumpmap", "name": "floor", "bsdf": "floor_inner",
+             "map": "bump_src", "strength": 0.5},
+            {"type": "diffuse", "name": "s5_diffuse",
+             "reflectance": [0.7, 0.7, 0.2]},
+            {"type": "roughconductor", "name": "s5_rough_metal",
+             "material": "aluminum", "roughness": 0.25},
+            {"type": "diffuse", "name": "black", "reflectance": [0, 0, 0]},
+        ] + bsdfs,
+        "shapes": [
+            {"type": "rectangle", "name": "floor", "width": 6, "height": 6},
+            {"type": "rectangle", "name": "lamp", "width": 0.4,
+             "height": 0.4},
+        ] + balls,
+        "entities": [
+            # the last transform of a list applies first: the floor is
+            # turned to face +y, then lowered to y = -1, where the balls
+            # rest (S1's list, the other way round, leaves its floor in
+            # the camera's plane, y = 0); the lamp faces down at y = 0.9
+            {"name": "floor", "shape": "floor", "bsdf": "floor",
+             "transform": [{"translate": [0, -1, 0]},
+                           {"rotate": [-90, 0, 0]}]},
+            {"name": "lamp", "shape": "lamp", "bsdf": "black",
+             "transform": [{"translate": [0.4, 0.9, 0.3]},
+                           {"rotate": [90, 0, 0]}]},
+        ] + ents,
+        "lights": [
+            {"type": "env", "name": "sky", "radiance": "env",
+             "scale": [0.05, 0.05, 0.05]},
+            {"type": "spot", "name": "spot", "cutoff": 45, "falloff": 45,
+             "position": [-1.0, 1.5, 1.5], "direction": [0.4, -1, -0.6],
+             "power": 20},
+            {"type": "area", "name": "lamp", "entity": "lamp",
+             "radiance": [6, 6, 6]},
+            {"type": "directional", "name": "dir",
+             "direction": [0.3, -1, -0.2], "irradiance": [0.3, 0.3, 0.35]},
+            {"type": "sun", "name": "sun", "direction": [-0.4, 0.8, 0.5],
+             "irradiance": [0.8, 0.75, 0.7]},
+        ],
+    }
 SPI = 4
 S1_LIGHT = (2.0, 3.0, 2.0)   # S1's and S4's point light
 S2_LIGHT = (0.0, 2.0, 2.0)   # S2's
@@ -747,15 +858,16 @@ def plain_calls() -> int:
 
 
 def phase_render(device, runtimes):
-    """Render S1-S4 on the card; launch counts reset just before."""
+    """Render S1-S5 on the card; launch counts reset just before."""
     import torch
-    from ignis_tpu_torch.ops import bvh_cuda, isect_cuda
+    from ignis_tpu_torch.ops import bvh_cuda, gather, isect_cuda
     bvh_cuda.reset_overflow(device)
     reset_all_counts()
     per_scene = {}
-    for name, _, kernel in SCENES:
-        rt = runtimes[name]
+    for name, rt in runtimes.items():
+        kernel = KERNEL_OF[name]
         k1_0, k2_0 = bvh_cuda.counts["launches"], isect_cuda.counts["launches"]
+        k3_0 = gather.gather_counts["launches"]
         rt.step()                               # warm-up
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -769,16 +881,19 @@ def phase_render(device, runtimes):
         mean = float(img.mean())
         k1 = bvh_cuda.counts["launches"] - k1_0
         k2 = isect_cuda.counts["launches"] - k2_0
+        k3 = gather.gather_counts["launches"] - k3_0
         print(f"  {name}: {msps:.4f} Msamples/s ({sec:.3f} s for 3 steps), "
-              f"image mean {mean:.6f}, K1 launches {k1}, K2 launches {k2}")
+              f"image mean {mean:.6f}, K1 launches {k1}, K2 launches {k2}, "
+              f"K3 gather launches {k3}")
         check(tuple(img.shape) == (s.height, s.width, 3),
               f"{name}: image shape {tuple(img.shape)}")
         check(bool(torch.isfinite(img).all()), f"{name}: image finite")
         check(mean > 1e-3, f"{name}: image not black")
         launched = k1 if kernel == "K1" else k2
-        check(launched > 0, f"{name}: {kernel} launched {launched} times")
+        check(launched > 0 and k3 > 0, f"{name}: {kernel} launched "
+              f"{launched} times, K3 gather {k3} times")
         per_scene[name] = {"msamples_per_s": msps, "seconds_3_steps": sec,
-                           "mean": mean, "K1": k1, "K2": k2}
+                           "mean": mean, "K1": k1, "K2": k2, "K3": k3}
     counts = launches()
     check(counts["K3_gather_rows"] > 0, f"K3 gather_rows launched "
           f"{counts['K3_gather_rows']} times")
@@ -797,22 +912,26 @@ def phase_profile(runtimes):
     device consumers of that same step (render/profile.py)."""
     from ignis_tpu_torch.render.profile import profile_step
     out = {}
-    for name, _, _ in SCENES:
-        p = profile_step(runtimes[name].step, {"K1": "bvh_walk_kernel",
-                                               "K2": "isect_dense_kernel"})
+    for name, rt in runtimes.items():
+        p = profile_step(rt.step, {"K1": "bvh_walk_kernel",
+                                   "K2": "isect_dense_kernel",
+                                   "K3": "gather_rows_kernel"})
+        check(p["device_ops"] > 0 and p[KERNEL_OF[name] + "_us"] > 0,
+              f"{name}: the profile sees the step's device work")
         print(f"  {name}: profiled step {p['wall_s']:.4f} s, device ops "
               f"{p['device_ops']}, device busy {p['device_busy_us']:.1f} us "
               f"(share {p['busy_share']:.4f}), device sum "
               f"{p['device_sum_us']:.1f} us, K1 {p['K1_us']:.1f} us, "
-              f"K2 {p['K2_us']:.1f} us")
+              f"K2 {p['K2_us']:.1f} us, K3 {p['K3_us']:.1f} us")
         for kname, count, us in p["top"]:
             print(f"    {us:10.1f} us {count:6d}x {kname}")
         out[name] = p
     return out
 
 
-def phase_reference(device):
-    """Analytic point-light oracle on the card, and card-vs-CPU renders."""
+def phase_reference(device, s5_small):
+    """Analytic point-light oracle on the card, and card-vs-CPU renders
+    (`s5_small` is S5 at 64x64, subdivisions 1, a 256x128 env)."""
     import torch
     import ignis_tpu_torch
     scene = flat_scene()
@@ -825,7 +944,8 @@ def phase_reference(device):
     check(abs(avg - 0.005100456) <= 1e-4,
           f"analytic point light: {avg:.9f} vs 0.005100456 (abs 1e-4)")
     for name, sc in (("S2", S2_GRAFT_ENTRY), ("S4", S4_GLASS_ICO2),
-                     ("S1 at subdivisions 3", _ico3(S1_GLASS_ICO7))):
+                     ("S1 at subdivisions 3", _ico3(S1_GLASS_ICO7)),
+                     ("S5 at subdivisions 1", s5_small)):
         small = dict(sc)
         small["film"] = {"size": [64, 64]}
         imgs = []
@@ -1150,24 +1270,28 @@ def geometry_leaves(scene):
             [c for v in vs.values() for c in v])
 
 
+TRAIN_STEPS = 3     # a warm-up and two timed train steps a scene
+
+
 def phase_train(device, runtimes):
-    """One-GPU train step (SGD on the albedo, target black) on S1-S4 at
-    512x512, spi 4: median of 3 after a warm-up, peak memory; counts
-    reset before and read after; then a geometry gradient of the same
-    loss on S1 and S2."""
+    """One-GPU train step (SGD on the albedo, target black) on S1-S5 at
+    512x512, spi 4: TRAIN_STEPS steps, Msamples/s of the faster timed
+    step (the first is a warm-up) beside both times, peak memory; counts
+    reset before and read after; then the roughness gradient of the same
+    loss on S5 and a geometry gradient on S1 and S2."""
     import torch
     from ignis_tpu_torch import loss_fn, train_step
     lr = 1e-2
     reset_all_counts()
     out = {}
-    for name, _, kernel in SCENES:
-        rt = runtimes[name]
+    for name, rt in runtimes.items():
+        kernel = KERNEL_OF[name]
         s = rt.settings
         target = torch.zeros((s.height, s.width, 3), device=device)
         before = launches()
         base = torch.stack(list(rt.scene.materials.base))
         secs, peaks = [], []
-        for _ in range(4):
+        for _ in range(TRAIN_STEPS):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
             t0 = time.perf_counter()
@@ -1175,26 +1299,49 @@ def phase_train(device, runtimes):
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             peaks.append(torch.cuda.max_memory_allocated(device))
-        sec = statistics.median(secs[1:])
+        sec = min(secs[1:])
         msps = s.width * s.height * s.spi / sec / 1e6
         grad = (base - torch.stack(list(new_scene.materials.base))) / lr
         after = launches()
         used = {k: after[k] - before[k] for k in after}
-        print(f"  {name}: train step {msps:.4f} Msamples/s fwd+bwd (median "
+        print(f"  {name}: train step {msps:.4f} Msamples/s fwd+bwd (faster "
               f"{sec:.4f} s of {[round(x, 4) for x in secs[1:]]}), peak "
               f"memory {max(peaks) / 2**30:.3f} GiB, loss {float(loss):.6f},"
               f" launches {used}")
         check(bool(torch.isfinite(loss)), f"{name}: loss finite")
         check(bool(torch.isfinite(grad).all()) and bool((grad != 0).any()),
               f"{name}: albedo gradient finite and nonzero")
-        check(used[kernel] > 0 and used["K3_gather_rows"] > 0,
-              f"{name}: {kernel} and K3 gather_rows launched in the train "
-              f"steps")
+        check(used[kernel] > 0 and used["K3_gather_rows"] > 0
+              and used["K3_scatter_add_rows"] > 0
+              and used["MT_replay_bwd"] == 0,
+              f"{name}: {kernel} and K3 launched in the train steps, the MT "
+              f"replay not (the albedo moves no ray)")
         out[name] = {"msamples_per_s": msps, "step_s": secs,
                      "peak_gib": max(peaks) / 2**30, "loss": float(loss),
                      "launches": used}
     check(plain_calls() == 0, f"no plain version called in the train steps "
           f"({plain_calls()})")
+
+    # the roughness (materials.p2) gradient of the same loss on S5
+    rt = runtimes[S5_NAME]
+    s = rt.settings
+    target = torch.zeros((s.height, s.width, 3), device=device)
+    p2 = rt.scene.materials.p2.detach().clone().requires_grad_()
+    scene = rt.scene._replace(materials=rt.scene.materials._replace(p2=p2))
+    t0 = time.perf_counter()
+    loss = loss_fn({"base": scene.materials.base}, scene, s, target, 0, 0)
+    g = torch.autograd.grad(loss, p2)[0]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    rough = [i for i, k in enumerate(scene.materials.kind.tolist())
+             if k in (1, 2, 5, 6) and float(p2[i].detach()) > 1e-4]
+    print(f"  {S5_NAME}: roughness gradient in {sec:.4f} s: "
+          f"{[round(float(x), 6) for x in g]} (rough rows {rough})")
+    nonzero = int((g[rough] != 0).sum())
+    check(bool(torch.isfinite(g).all()) and nonzero > 0,
+          f"{S5_NAME}: roughness gradient finite, nonzero on {nonzero} of "
+          f"{len(rough)} rough rows")
+    out[S5_NAME]["roughness_grad"] = [float(x) for x in g]
 
     for name in ("S1_glass_ico7", "S2_graft_entry"):
         rt = runtimes[name]
@@ -1241,10 +1388,10 @@ def phase_train_profile(device, runtimes):
     from ignis_tpu_torch.render.profile import profile_step
     names = {"K1": "bvh_walk_kernel", "K2": "isect_dense_kernel",
              "K3": "gather_rows_kernel", "K3s": "scatter_add_rows_kernel",
-             "MT": "mt_replay_bwd_kernel"}
+             "MT": "mt_replay_bwd_kernel",
+             "index_put": "indexing_backward_kernel"}
     out = {}
-    for name, _, _ in SCENES:
-        rt = runtimes[name]
+    for name, rt in runtimes.items():
         s = rt.settings
         target = torch.zeros((s.height, s.width, 3), device=device)
         p = profile_step(lambda: train_step(rt.scene, s, target, 0, 0, 1e-2),
@@ -1255,6 +1402,9 @@ def phase_train_profile(device, runtimes):
               + ", ".join(f"{k} {p[k + '_us']:.1f} us" for k in names))
         for kname, count, us in p["top"]:
             print(f"    {us:10.1f} us {count:6d}x {kname}")
+        share = p["index_put_us"] / max(p["device_sum_us"], 1e-9)
+        check(share < 0.01, f"{name}: indexing_backward_kernel takes "
+              f"{share:.4%} of the profiled train step's device time (< 1%)")
         out[name] = p
     return out
 
@@ -1417,6 +1567,61 @@ def phase_albedo_shape(device, s1):
     return row
 
 
+def k3_material_set(rt, device, seed=31):
+    """K3's inputs at the material fetch of the first bounce of rt's main
+    path (path.gather_material): the material rows of main_path_sets'
+    camera hits (a miss reads row 0's entity) into rt's material_table,
+    the columns the bounce reads with textures (MAT_COLS + TEX_COLS), and
+    a random cotangent block that is zero on the misses."""
+    import torch
+    from ignis_tpu_torch.techniques import path
+    sc = rt.scene
+    cam, _ = main_path_sets(rt, device)["camera"]
+    hit = path.trace_scene(sc, cam)
+    surf = path.compute_surface(sc, cam, hit)
+    mid = path.material_ids(sc, surf).to(torch.int32)
+    tab = path.material_table(sc)
+    k = path.MAT_COLS + len(path.TEX_COLS)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cot = torch.randn(k, mid.numel(), generator=g).to(device)
+    return mid, tab, k, torch.where(hit.prim >= 0, cot, 0.0)
+
+
+def phase_k3_material(device, s5):
+    """K3 on S5's material table (k3_material_set: 262,144 lanes onto
+    about 14 rows of 32 floats): the gather equal to its plain version,
+    the scatter within the reorder bar, each timed beside its bound and
+    torch.index_select / torch.zeros(M, 32).index_put_((mid,), rows,
+    accumulate=True), the operation behind indexing_backward_kernel that
+    the per-column material fetch used to run."""
+    import torch
+    from ignis_tpu_torch.ops import gather
+    idx, tab, k, cot = k3_material_set(s5, device)
+    n_rows, stride = tab.shape
+    g_err, s_err = check_k3("S5 material table", idx, tab, k, cot)
+    rows = torch.zeros(idx.numel(), stride, device=device)
+    rows[:, :k] = cot.t()
+    mid = idx.long()
+    out = {"gather": dict(
+        lanes=idx.numel(), rows=n_rows, columns=k,
+        ms=cuda_ms(lambda: gather.gather_rows(idx, tab, k)),
+        library_ms=cuda_ms(lambda: torch.index_select(tab, 0, idx)),
+        bound_ms=k3_bound(idx, k, n_rows, False)[0], max_abs_err=g_err),
+        "scatter": dict(
+        lanes=idx.numel(), rows=n_rows, columns=k,
+        ms=cuda_ms(lambda: gather.scatter_add_rows(idx, cot, n_rows,
+                                                   stride)),
+        library_ms=cuda_ms(lambda: torch.zeros(n_rows, stride, device=device)
+                           .index_put_((mid,), rows, accumulate=True)),
+        bound_ms=k3_bound(idx, k, n_rows, True)[0], max_abs_err=s_err)}
+    for kind, t in out.items():
+        print(f"  S5 material table, K3 {kind}: {t['lanes']} lanes onto "
+              f"{n_rows} rows, {k} columns: kernel {t['ms']:.4f} ms, "
+              f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f}"
+              f" ms")
+    return out
+
+
 def phase_grad_reference(device):
     """The albedo gradient of small_scene(64) on the card against the
     CPU's: rtol 1e-3."""
@@ -1457,7 +1662,8 @@ def main() -> int:
                     help="also write the renders' timings and the profiled "
                          "steps' breakdown to PATH")
     args = ap.parse_args()
-    print("== phase 1: device")
+    t_start = time.perf_counter()
+    print(f"== phase 1: device ({time.perf_counter() - t_start:.1f} s in)")
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke needs one card", file=sys.stderr)
         return 1
@@ -1470,12 +1676,20 @@ def main() -> int:
     import ignis_tpu_torch
     device = torch.device("cuda:0")
 
-    print("== phase 2: build")
+    print(f"== phase 2: build ({time.perf_counter() - t_start:.1f} s in)")
     phase_build()
 
-    print("== loading S1-S4 on the card")
+    print(f"== loading S1-S5 on the card "
+          f"({time.perf_counter() - t_start:.1f} s in)")
+    from ignis_tpu_torch.utils.envgen import ensure_substitute_env
+    t0 = time.perf_counter()
+    env = ensure_substitute_env(ROOT / "build", *S5_ENV)
+    env_small = ensure_substitute_env(ROOT / "build", 256, 128)
+    print(f"  substitute envs {env.name}, {env_small.name} in "
+          f"{time.perf_counter() - t0:.2f} s")
     runtimes = {}
-    for name, sc, _ in SCENES:
+    for name, sc in [(n, sc) for n, sc, _ in SCENES] + [
+            (S5_NAME, s5_scene(env))]:
         t0 = time.perf_counter()
         runtimes[name] = ignis_tpu_torch.loadFromString(json.dumps(sc),
                                                         spi=SPI)
@@ -1486,28 +1700,32 @@ def main() -> int:
               f"{rt.scene.spheres.radius.numel()} spheres, BVH "
               f"{'yes' if rt.scene.bvh is not None else 'no'}, loaded in "
               f"{time.perf_counter() - t0:.2f} s")
+    s5 = runtimes[S5_NAME]
+    check(s5.scene.tris.v0.x.numel() == 184324 and s5.scene.bvh is not None
+          and tuple(s5.scene.textures[3].image.shape) == (2048, 4096, 3),
+          f"{S5_NAME}: 184,324 triangles with a BVH, the 4096x2048 env")
 
-    print("== phase 3: K2 against its plain version")
+    print(f"== phase 3: K2 against its plain version ({time.perf_counter() - t_start:.1f} s in)")
     k2_err = phase_k2(device)
     k2_sets = phase_k2_sets(device, {
         "S2": (runtimes["S2_graft_entry"], S2_LIGHT),
         "S4": (runtimes["S4_glass_ico2"], S1_LIGHT)})
 
-    print("== phase 4: K1 against its plain version and against K2")
+    print(f"== phase 4: K1 against its plain version and against K2 ({time.perf_counter() - t_start:.1f} s in)")
     k1_err, k1_rays = phase_k1(device, runtimes["S1_glass_ico7"])
     times = phase_times(device, runtimes["S1_glass_ico7"], k1_rays)
     k1_sets, deepest = phase_k1_sets(
         device, {"S1": runtimes["S1_glass_ico7"],
                  "S3": runtimes["S3_bench_big"]})
 
-    print("== phase 5: render S1-S4")
+    print(f"== phase 5: render S1-S5 ({time.perf_counter() - t_start:.1f} s in)")
     counts, per_scene = phase_render(device, runtimes)
     profile = phase_profile(runtimes)
 
-    print("== phase 6: reference checks")
-    phase_reference(device)
+    print(f"== phase 6: reference checks ({time.perf_counter() - t_start:.1f} s in)")
+    phase_reference(device, s5_scene(env_small, subdivisions=1, size=64))
 
-    print("== phase 7: gradients")
+    print(f"== phase 7: gradients ({time.perf_counter() - t_start:.1f} s in)")
     grad_errs, grad_times = phase_grad_kernels(
         device, runtimes["S1_glass_ico7"], k1_rays)
     grad_counts, train = phase_train(device, runtimes)
@@ -1516,6 +1734,7 @@ def main() -> int:
                                               runtimes["S1_glass_ico7"])
     k3_recorded = phase_k3_recorded(device, runtimes)
     albedo = phase_albedo_shape(device, runtimes["S1_glass_ico7"])
+    k3_material = phase_k3_material(device, s5)
     phase_grad_reference(device)
 
     def timed(t):
@@ -1560,6 +1779,11 @@ def main() -> int:
         by_name[name]["sets"].update({f"{scene} geometry step": row[part]
                                       for scene, row in k3_recorded.items()})
     by_name["K3_scatter_add_rows"]["sets"]["S1 albedo shape"] = albedo
+    for name, part in (("K3_gather_rows", "gather"),
+                       ("K3_scatter_add_rows", "scatter")):
+        by_name[name]["sets"]["S5 material table"] = k3_material[part]
+        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
+                                           k3_material[part]["max_abs_err"])
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on the main path")
     if args.profile_json:
@@ -1572,6 +1796,7 @@ def main() -> int:
                       "geometry_profile_us": {
                           k: v for k, v in geometry_profile.items()
                           if k.endswith("_us")}}))
+    print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

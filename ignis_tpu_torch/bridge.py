@@ -4,8 +4,9 @@
 NamedTuples by field name and calls `np.asarray` on each leaf, so it never
 imports JAX itself. Tests use it to feed identical arrays to both
 packages. The chunked-leaf TPU BVH is dropped (`bvh` becomes the tri-leaf
-BVH8), and scene features off the slice (textures, measured BSDFs, the
-PExpr registry, instancing) raise. `param_from_reference` carries one JAX
+BVH8), textures arrive as the port's TexData, and what the port does not
+carry (measured BSDFs, PExpr textures and the parameter registry,
+instancing) raises naming its ROADMAP item. `param_from_reference` carries one JAX
 parameter in as leaves that require grad, and `to_numpy` brings the port's
 gradients back.
 """
@@ -18,13 +19,14 @@ import torch
 
 from . import scenedata as sd
 from .core.vec import Color, Vec2, Vec3
+from .models.texture import TexData, TexDesc, check_descs
 from .ops.bvh import BVHArrays
 from .ops.intersect import SphereSoup, TriSoup
 
 _PORT_TYPES = {cls.__name__: cls for cls in (
     Vec2, Vec3, Color, TriSoup, SphereSoup, BVHArrays, sd.TriAttributes,
     sd.SphereAttributes, sd.Entities, sd.Materials, sd.Lights, sd.EnvMap,
-    sd.CameraData, sd.Media)}
+    sd.CameraData, sd.Media, TexData)}
 
 
 def _leaf(v, device) -> torch.Tensor:
@@ -62,11 +64,19 @@ def from_reference(scene_data, settings, device):
     """(JAX SceneData, JAX RenderSettings) -> (port SceneData, port
     RenderSettings) with every leaf on `device`."""
     device = torch.device(device)
-    if scene_data.textures or scene_data.measured or scene_data.registry \
-            or scene_data.instances is not None:
-        raise NotImplementedError(
-            "textures, measured BSDFs, PExpr parameters and instancing are "
-            "not ported yet")
+    if scene_data.measured:
+        raise NotImplementedError("measured BSDFs are not ported yet "
+                                  "(ROADMAP queue 1, item 16)")
+    if scene_data.registry:
+        raise NotImplementedError("the PExpr parameter registry is not "
+                                  "ported yet (ROADMAP queue 1, item 15)")
+    if scene_data.instances is not None:
+        raise NotImplementedError("instancing is not ported yet (ROADMAP "
+                                  "queue 1, item 13)")
+    descs = tuple(TexDesc(d.kind, d.wrap_u, d.wrap_v, d.filter, None,
+                          d.inner) for d in settings.texture_descs)
+    check_descs(tuple(d._replace(fn=j.fn) for d, j in
+                      zip(descs, settings.texture_descs)))
     fields = {f: _convert(getattr(scene_data, f), device)
               for f in sd.SceneData._fields if f != "bvh"}
     fields["bvh"] = (None if scene_data.bvh is None
@@ -74,4 +84,5 @@ def from_reference(scene_data, settings, device):
     port_settings = sd.RenderSettings(**{
         f.name: getattr(settings, f.name)
         for f in dataclasses.fields(sd.RenderSettings)})
+    port_settings = dataclasses.replace(port_settings, texture_descs=descs)
     return sd.SceneData(**fields), port_settings

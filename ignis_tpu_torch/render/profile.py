@@ -32,6 +32,21 @@ def busy_union(intervals) -> float:
     return total
 
 
+def device_spans(prof):
+    """(name, start us, end us) of every device interval of a finished
+    torch.profiler run, read from its raw Kineto events: building the
+    profiler's FunctionEvents takes minutes for the million events of a
+    large train step."""
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    if raw is None:
+        raise RuntimeError("torch.profiler kept no raw Kineto results "
+                           "(profiler.kineto_results)")
+    return [(e.name(), e.start_ns() / 1e3,
+             (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in raw.events() if e.device_type() == cuda]
+
+
 def profile_step(step, named: dict) -> dict:
     """Profile one call of `step` (no arguments) on the CUDA device.
 
@@ -47,9 +62,7 @@ def profile_step(step, named: dict) -> dict:
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = [(e.name, e.time_range.start, e.time_range.end)
-             for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = device_spans(prof)
     busy = busy_union((s, e) for _, s, e in spans)
     by_name = defaultdict(lambda: [0, 0.0])
     for name, s, e in spans:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..models.texture import make_texture_evaluator
 from ..scene.build import build_scene
 from ..scene.parser import load_from_file, load_from_string
 from ..scenedata import RenderSettings, SceneData
@@ -46,10 +47,12 @@ def render_iteration(scene: SceneData, settings: RenderSettings,
     device = scene.device
     x = torch.arange(w, device=device).repeat(h)
     y = torch.arange(h, device=device).repeat_interleave(w)
+    eval_texture = make_texture_evaluator(settings.texture_descs,
+                                          scene.textures)
     color = render_lanes(scene, settings, x, y, iteration, frame,
                          compact=(settings.remat
                                   or w * h >= _COMPACTION_MIN_LANES),
-                         remat=settings.remat)
+                         remat=settings.remat, eval_texture=eval_texture)
     img = torch.stack([color.r, color.g, color.b], dim=-1).reshape(h, w, 3)
     return img * (1.0 / settings.spi)
 

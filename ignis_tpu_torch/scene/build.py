@@ -1,29 +1,42 @@
 """Scene build: parsed scene graph -> SceneData tensors + RenderSettings.
 
-The slice's subset of ignis_tpu/scene/build.py, producing the port's
+The port's copy of ignis_tpu/scene/build.py, producing the port's
 SceneData directly as tensors on an explicit device, without JAX.
 Covered: perspective/orthogonal/fishlens cameras; rectangle, analytic
-sphere, icosphere and uvsphere shapes; diffuse (with Oren-Nayar
-roughness) and smooth, non-thin dielectric BSDFs; point and constant
-environment lights. Anything else raises NotImplementedError naming its
-ROADMAP item. Rows and values follow the JAX build exactly; the triangle
-order differs: scenes with a BVH are reordered by the tri-leaf BVH8's
-prim_order alone (no TPU chunk padding or clustering), smaller scenes keep
-their load order, and the soup is not padded (an empty scene gets one
-degenerate triangle).
+sphere, icosphere and uvsphere shapes; every analytic BSDF (diffuse,
+dielectric smooth / rough / thin, conductor, phong, plastic, principled,
+passthrough, transparent, the Radiance models) and the wrappers (blend,
+mask, cutoff, twosided, normalmap, bumpmap); image, checkerboard, brick,
+noise-family, constant and transform textures, by name; point, spot,
+directional, area, sun and environment lights, the env constant or an
+image texture with its conditional / SAT / hierarchical importance table;
+the uniform, cdf and hierarchy light selectors and their tables. Anything
+else raises NotImplementedError naming its ROADMAP item: PExpr strings
+(item 15), measured BSDFs and sky lights (item 16), scenes whose BSDFs
+turn on transparent shadows (thin dielectric, passthrough, mask, RAD;
+item 12), other shapes (item 19).
+
+Rows and values follow the JAX build; the triangle order differs: scenes
+with a BVH are reordered by the tri-leaf BVH8's prim_order alone (no TPU
+chunk padding or clustering, area-light triangle ids remapped alike),
+smaller scenes keep their load order, and the soup is not padded (an
+empty scene gets one degenerate triangle).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..bvh.builder import build_bvh8
+from ..core import cdf as cdflib
 from ..core.vec import Color, Vec2, Vec3
-from ..models.bsdf import DELTA_ALPHA, BsdfKind
+from ..models import texture as texlib
+from ..models.bsdf import BLEND_MAX_DEPTH, ROUGH_FLAG, BsdfKind
 from ..models.light import LightKind
 from ..ops.bvh import BVHArrays
 from ..ops.intersect import SphereSoup, TriSoup
@@ -34,7 +47,7 @@ from . import mesh as meshlib
 from .parser import Scene, SceneObject
 
 # A triangle count carried over from the JAX package (scene/build.py:1305,
-# measured there on a TPU); not yet measured on the card.
+# measured there on a TPU); the card's crossover is near 82 (PERF.md).
 BVH_THRESHOLD = 512
 
 DIELECTRIC_IOR = {
@@ -44,7 +57,23 @@ DIELECTRIC_IOR = {
     "ethanol": 1.361, "pet": 1.5750, "acrylic_glass": 1.49,
 }
 
+# Conductor (eta, k) per channel (public tabulated values)
+CONDUCTOR_SPECTRA = {
+    "gold": ((0.143085, 0.374852, 1.44208), (3.98205, 2.38506, 1.60276)),
+    "au": ((0.143085, 0.374852, 1.44208), (3.98205, 2.38506, 1.60276)),
+    "silver": ((0.15522, 0.116692, 0.138342), (4.81810, 3.12313, 2.14628)),
+    "ag": ((0.15522, 0.116692, 0.138342), (4.81810, 3.12313, 2.14628)),
+    "aluminum": ((1.34560, 0.96521, 0.61722), (7.47460, 6.39950, 5.30310)),
+    "al": ((1.34560, 0.96521, 0.61722), (7.47460, 6.39950, 5.30310)),
+    "copper": ((0.200438, 0.924033, 1.10221), (3.91295, 2.44763, 2.14219)),
+    "cu": ((0.200438, 0.924033, 1.10221), (3.91295, 2.44763, 2.14219)),
+    "none": ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),  # perfect mirror
+}
+
 _MESH_SHAPES = ("rectangle", "icosphere", "uvsphere")
+_SKY_LIGHTS = ("cie_uniform", "cieuniform", "cie_cloudy", "ciecloudy",
+               "cie_clear", "cieclear", "cie_intermediate",
+               "cieintermediate", "perez", "sky")
 
 
 @dataclass
@@ -59,19 +88,57 @@ def _todo(what: str, item: str):
                                f"item {item})")
 
 
+def _pexpr(obj: SceneObject, key, v):
+    return _todo(f"{obj.name}.{key}: PExpr value '{v}'", "15 (PExpr)")
+
+
 def _const_color(obj: SceneObject, key, default) -> np.ndarray:
     v = obj.get_color(key, default)
     if isinstance(v, str):
-        raise _todo(f"{obj.name}.{key}: textured or PExpr value '{v}'",
-                    "7 (textures) / 15 (PExpr)")
+        raise _pexpr(obj, key, v)
     return np.asarray(v, np.float64)
 
 
-def _const_number(obj: SceneObject, key, default) -> float:
+def _number(obj: SceneObject, key, default) -> float:
+    """A number property; strings are PExpr (item 15)."""
     v = obj.get(key, default)
     if isinstance(v, str):
-        raise _todo(f"{obj.name}.{key}: PExpr value '{v}'", "15 (PExpr)")
+        raise _pexpr(obj, key, v)
     return float(v)
+
+
+def _as_color_const(v, default):
+    if v is None:
+        return np.asarray(default, np.float64)
+    if isinstance(v, str):
+        return None
+    if isinstance(v, (int, float)):
+        return np.full(3, float(v))
+    return np.asarray(v, np.float64)
+
+
+class TextureRegistry:
+    """Named texture nodes (the ShadingTree without PExpr): a string
+    colour or number property resolves to a texture by name, any other
+    string is a PExpr and raises (ROADMAP queue 1, item 15)."""
+
+    def __init__(self):
+        self.descs: List = []
+        self.datas: List = []
+        self.name_to_tex: Dict[str, int] = {}
+        self.images: Dict[str, np.ndarray] = {}
+
+    def add(self, name, desc, data) -> int:
+        self.descs.append(desc)
+        self.datas.append(data)
+        if name:
+            self.name_to_tex[name] = len(self.descs) - 1
+        return len(self.descs) - 1
+
+    def resolve_color(self, s: str, what: str) -> int:
+        if s in self.name_to_tex:
+            return self.name_to_tex[s]
+        raise _todo(f"{what}: PExpr '{s}'", "15 (PExpr)")
 
 
 def _shape_to_mesh(obj: SceneObject) -> meshlib.TriMesh:
@@ -120,21 +187,23 @@ def _shape_to_mesh(obj: SceneObject) -> meshlib.TriMesh:
     return m
 
 
-def _roughness(obj: SceneObject) -> float:
-    """Largest alpha of BSDF::setupRoughness (no property = delta)."""
+def _roughness_uv(obj: SceneObject):
+    """BSDF::setupRoughness: 'roughness' / 'alpha' (+ _u/_v) and
+    'anisotropic'; alpha == roughness; no property means delta."""
     name = "alpha" if ("alpha" in obj.props or "alpha_u" in obj.props
                        or "alpha_v" in obj.props) else "roughness"
     if name + "_u" in obj.props or name + "_v" in obj.props:
-        ru = _const_number(obj, name + "_u", 0.1)
-        return max(ru, _const_number(obj, name + "_v", ru))
+        ru = _number(obj, name + "_u", 0.1)
+        return ru, _number(obj, name + "_v", ru)
     if name not in obj.props:
-        return 0.0
-    r = _const_number(obj, name, 0.1)
-    aniso = _const_number(obj, "anisotropic", 0.0)
-    return r / math.sqrt(1.0 - min(max(aniso, 0.0), 1.0) * 0.99)
+        return 0.0, 0.0
+    r = _number(obj, name, 0.1)
+    aniso = _number(obj, "anisotropic", 0.0)
+    aspect = math.sqrt(1.0 - min(max(aniso, 0.0), 1.0) * 0.99)
+    return r / aspect, r * aspect
 
 
-def _bsdf_row(obj: SceneObject) -> dict:
+def _bsdf_row(obj: SceneObject, texreg: TextureRegistry) -> dict:
     """Translate a BSDF scene object into a Materials row dict."""
     t = obj.plugin_type
     row = dict(kind=int(BsdfKind.DIFFUSE),
@@ -145,29 +214,349 @@ def _bsdf_row(obj: SceneObject) -> dict:
                base_tex=-1, extra_tex=-1, p0_tex=-1, p1_tex=-1,
                bump_kind=0, bump_tex=-1, bump_strength=1.0)
 
+    def col(key, default, slot="base", tex_slot="base_tex"):
+        v = obj.get_color(key, default)
+        if isinstance(v, str):
+            row[tex_slot] = texreg.resolve_color(v, f"BSDF '{obj.name}' "
+                                                 f"{key}")
+            row[slot] = np.asarray(default, np.float64)
+        else:
+            row[slot] = v
+
     def ior(key, default_name):
         s = obj.get_string(key + "_material")
         if s and s.lower() in DIELECTRIC_IOR:
             return DIELECTRIC_IOR[s.lower()]
-        return _const_number(obj, key, DIELECTRIC_IOR[default_name])
+        return _number(obj, key, DIELECTRIC_IOR[default_name])
+
+    def weight(key, default, what):
+        w = obj.get(key, default)
+        if isinstance(w, str):
+            row["p0_tex"] = texreg.resolve_color(w, f"BSDF '{obj.name}' "
+                                                 f"{what}")
+            return default
+        return float(w)
 
     if t in ("diffuse", "roughdiffuse"):
-        row["base"] = _const_color(obj, "reflectance", (0.8, 0.8, 0.8))
-        row["p1"] = obj.get_number("roughness", 0.0)
-    elif t in ("dielectric", "glass"):
+        col("reflectance", (0.8, 0.8, 0.8))
+        row["p1"] = _number(obj, "roughness", 0.0)
+    elif t in ("dielectric", "glass", "roughdielectric", "thindielectric"):
         row["kind"] = int(BsdfKind.DIELECTRIC)
-        row["base"] = _const_color(obj, "specular_reflectance", (1, 1, 1))
-        row["extra"] = _const_color(obj, "specular_transmittance", (1, 1, 1))
+        col("specular_reflectance", (1, 1, 1), "base", "base_tex")
+        col("specular_transmittance", (1, 1, 1), "extra", "extra_tex")
         row["p0"] = ior("ext_ior", "vacuum")
         row["p1"] = ior("int_ior", "bk7")
-        if _roughness(obj) > DELTA_ALPHA:
-            raise _todo(f"rough dielectric '{obj.name}'", "6")
-        if obj.get_bool("thin", False):
-            raise _todo(f"thin dielectric '{obj.name}' (transparent "
-                        "shadows)", "12")
+        row["p2"] = _roughness_uv(obj)[0]
+        row["p3"] = 1.0 if (t == "thindielectric"
+                            or obj.get_bool("thin", False)) else 0.0
+    elif t in ("conductor", "roughconductor", "mirror", "perfect_mirror"):
+        row["kind"] = int(BsdfKind.CONDUCTOR)
+        col("specular_reflectance", (1, 1, 1), "base", "base_tex")
+        mat = obj.get_string("material", "none")
+        eta_k = CONDUCTOR_SPECTRA.get(mat.lower(), CONDUCTOR_SPECTRA["none"])
+        row["extra"] = _const_color(obj, "eta", eta_k[0])
+        row["extra2"] = _const_color(obj, "k", eta_k[1])
+        row["p2"], row["p3"] = _roughness_uv(obj)
+    elif t == "phong":
+        row["kind"] = int(BsdfKind.PHONG)
+        col("specular_reflectance", (0.2, 0.2, 0.2))
+        row["p0"] = _number(obj, "exponent", 30.0)
+    elif t in ("plastic", "roughplastic"):
+        row["kind"] = int(BsdfKind.PLASTIC)
+        col("diffuse_reflectance", (0.5, 0.5, 0.5))
+        col("specular_reflectance", (1, 1, 1), "extra", "extra_tex")
+        row["p0"] = ior("ext_ior", "vacuum")
+        row["p1"] = ior("int_ior", "bk7")
+        row["p2"] = _roughness_uv(obj)[0]
+    elif t == "principled":
+        row["kind"] = int(BsdfKind.PRINCIPLED)
+        col("base_color", (0.8, 0.8, 0.8))
+        i = _number(obj, "ior", DIELECTRIC_IOR["bk7"])
+        row["p0"] = _number(obj, "reflective_ior", i)
+        row["p1"] = _number(obj, "refractive_ior", i)
+        if "roughness_u" in obj.props or "roughness_v" in obj.props:
+            ru = _number(obj, "roughness_u", 0.5)
+            rv = _number(obj, "roughness_v", ru)
+        else:
+            r = _number(obj, "roughness", 0.5)
+            aniso = _number(obj, "anisotropic", 0.0)
+            aspect = math.sqrt(1.0 - min(max(aniso, 0.0), 1.0) * 0.99)
+            ru, rv = r / aspect, r * aspect
+        row["p2"], row["p3"] = ru, rv
+        for q, key, default in (
+                ("q0", "metallic", 0.0), ("q1", "specular_transmission", 0.0),
+                ("q2", "specular_tint", 0.0), ("q3", "sheen", 0.0),
+                ("q4", "sheen_tint", 0.0), ("q5", "clearcoat", 0.0),
+                ("q6", "clearcoat_gloss", 0.0),
+                ("q7", "clearcoat_roughness", 0.1)):
+            row[q] = _number(obj, key, default)
+        row["extra2"] = np.array([
+            _number(obj, "flatness", 0.0),
+            _number(obj, "diffuse_transmission", 0.0),
+            1.0 if obj.get_bool("thin", False) else 0.0])
+    elif t in ("passthrough", "null"):
+        row["kind"] = int(BsdfKind.PASSTHROUGH)
+        row["base"] = np.ones(3)
+    elif t in ("transparent", "ignore"):
+        # tinted delta transmission (TransparentBSDF.cpp:16-20)
+        row["kind"] = int(BsdfKind.PASSTHROUGH)
+        col("color", (1, 1, 1))
+    elif t in ("blend", "mix", "add"):
+        # children resolved once every BSDF is registered (BlendBSDF.cpp)
+        row["kind"] = int(BsdfKind.BLEND)
+        row["_children"] = (obj.get_string("first", obj.get_string("bsdf1")),
+                            obj.get_string("second",
+                                           obj.get_string("bsdf2")))
+        row["p0"] = weight("weight", 0.5, "weight")
+    elif t in ("mask", "cutoff"):
+        # mask = blend(passthrough, inner, opacity) (MaskBSDF.cpp)
+        row["kind"] = int(BsdfKind.BLEND)
+        row["_children"] = ("__passthrough__", obj.get_string("bsdf"))
+        row["p0"] = weight("opacity", 1.0, "opacity")
+        if t == "cutoff":
+            row["p1"] = _number(obj, "threshold", 0.5)
+            row["p2"] = 1.0   # cutoff flag: the weight is thresholded
+    elif t in ("twosided", "doublesided"):
+        # frames always face the ray, so the inner row is two-sided already
+        row["_alias"] = obj.get_string("bsdf")
+    elif t == "transform":
+        if obj.get("normal") is not None:
+            raise _todo(f"BSDF '{obj.name}': transform normal (a PExpr vec3 "
+                        "per shading point)", "15 (PExpr)")
+        row["_alias"] = obj.get_string("bsdf")
+    elif t in ("map", "normalmap", "bumpmap"):
+        # normal / bump map over the inner row (MapBSDF.cpp), applied per
+        # hit in techniques/path.apply_normal_map
+        row["_alias"] = obj.get_string("bsdf")
+        row["bump_kind"] = 2 if t == "bumpmap" else 1
+        m = obj.get("map", obj.get("texture"))
+        if isinstance(m, str):
+            row["bump_tex"] = texreg.resolve_color(m, f"BSDF '{obj.name}' "
+                                                   "map")
+        else:
+            row["bump_kind"] = 0  # a constant map perturbs nothing
+        row["bump_strength"] = _number(obj, "strength", 1.0)
+    elif t in ("rad_brtdfunc", "rad_roos"):
+        # Radiance compliance models (RadBRTDFuncBSDF.cpp / RadRoosBSDF.cpp)
+        dir_diff = _const_color(obj, "direct_diffuse", (0, 0, 0))
+        front = _const_color(obj, "reflection_front_diffuse",
+                             (0, 0, 0)) + dir_diff
+        back = _const_color(obj, "reflection_back_diffuse",
+                            (0, 0, 0)) + dir_diff
+        row["extra2"] = _const_color(obj, "transmission_diffuse", (0, 0, 0))
+        row["q0"], row["q1"], row["q2"] = front.tolist()
+        row["q3"], row["q4"], row["q5"] = back.tolist()
+        if t == "rad_brtdfunc":
+            row["kind"] = int(BsdfKind.RAD_BRTDF)
+            row["base"] = _const_color(obj, "reflection_specular", (1, 1, 1))
+            row["extra"] = _const_color(obj, "transmission_specular",
+                                        (0, 0, 0))
+        else:
+            row["kind"] = int(BsdfKind.RAD_ROOS)
+            row["base"] = np.array([_number(obj, "trns_" + c, 0.0)
+                                    for c in "wpq"])
+            row["extra"] = np.array([_number(obj, "refl_" + c, 0.0)
+                                     for c in "wpq"])
+    elif t in ("klems", "tensortree", "djmeasured"):
+        raise _todo(f"measured BSDF '{obj.name}' ({t})", "16")
     else:
         raise _todo(f"BSDF type '{t}'", "6 (remaining BSDF kinds)")
     return row
+
+
+def _resolve_wrappers(mat_rows: List[dict], mat_index: Dict[str, int],
+                      texreg: TextureRegistry, warnings: List[str]) -> bool:
+    """Resolve aliases (twosided, maps) and blend children once every row
+    exists; returns whether the scene has a blend."""
+    def passthrough_row():
+        for i, r in enumerate(mat_rows):
+            if r["kind"] == int(BsdfKind.PASSTHROUGH):
+                return i
+        mat_rows.append(_bsdf_row(SceneObject("passthrough",
+                                              "__passthrough__"), texreg))
+        return len(mat_rows) - 1
+
+    def depth_of(idx, seen=()):
+        if idx in seen or mat_rows[idx]["kind"] != int(BsdfKind.BLEND):
+            return 0
+        return 1 + max(depth_of(int(mat_rows[idx].get(q, 0)), seen + (idx,))
+                       for q in ("q0", "q1"))
+
+    has_blend = False
+    for i, r in enumerate(list(mat_rows)):
+        if "_alias" in r:
+            inner = mat_index.get(r.pop("_alias"))
+            if inner is not None:
+                alias = dict(mat_rows[inner])
+                for k in ("_children", "_alias", "bump_kind", "bump_tex",
+                          "bump_strength"):
+                    alias.pop(k, None)   # the wrapper's map survives
+                mat_rows[i].update(alias)
+            else:
+                warnings.append("twosided/map: unknown inner bsdf")
+        if "_children" in r:
+            has_blend = True
+            a_name, b_name = r.pop("_children")
+            a = (passthrough_row() if a_name == "__passthrough__"
+                 else mat_index.get(a_name, 0))
+            b = mat_index.get(b_name, 0)
+            if max(depth_of(a), depth_of(b)) >= BLEND_MAX_DEPTH:
+                warnings.append(
+                    f"blend '{a_name}'/'{b_name}' nesting exceeds "
+                    f"BLEND_MAX_DEPTH={BLEND_MAX_DEPTH}; deepest children "
+                    "degrade to their first leaf")
+            mat_rows[i]["q0"] = float(a)
+            mat_rows[i]["q1"] = float(b)
+    return has_blend
+
+
+def _load_textures(scene: Scene, texreg: TextureRegistry, device, overrides,
+                   warnings: List[str]) -> None:
+    """Texture nodes in file order (ignis_tpu/scene/build.py:715-800); a
+    node that fails to load becomes magenta with a warning, as there."""
+    from ..utils.image import load_image
+
+    def wrap_of(s):
+        return {"repeat": texlib.WrapMode.REPEAT,
+                "mirror": texlib.WrapMode.MIRROR,
+                "clamp": texlib.WrapMode.CLAMP}.get(s, texlib.WrapMode.REPEAT)
+
+    def proc(*args, **kw):
+        return texlib.make_procedural(*args, device=device, **kw)
+
+    for name, obj in scene.textures.items():
+        t = obj.plugin_type
+        if t in ("expr", "pexpr"):
+            raise _todo(f"texture '{name}': PExpr texture", "15 (PExpr)")
+        try:
+            if t in ("image", "bitmap"):
+                tex_path = obj.path("filename")
+                sub = (overrides.get("texture_substitutes") or {}).get(
+                    Path(str(tex_path)).name)
+                if sub is not None and not Path(str(tex_path)).exists():
+                    warnings.append(f"Texture '{name}': missing asset "
+                                    f"{Path(str(tex_path)).name} substituted "
+                                    f"by {sub}")
+                    tex_path = sub
+                img = load_image(tex_path,
+                                 linear=obj.get_bool("linear", False))
+                texreg.images[name] = img
+                filt = {"nearest": texlib.FilterMode.NEAREST,
+                        "bilinear": texlib.FilterMode.BILINEAR}.get(
+                    obj.get_string("filter_type", "bicubic"),
+                    texlib.FilterMode.BICUBIC)
+                wrap = obj.get_string("wrap_mode", "repeat")
+                d, a = texlib.make_image_texture(
+                    img, wrap_of(obj.get_string("wrap_mode_u", wrap)),
+                    wrap_of(obj.get_string("wrap_mode_v", wrap)), filt,
+                    obj.get_transform()[:2, (0, 1, 3)], device=device)
+            elif t == "checkerboard":
+                d, a = proc(texlib.TexKind.CHECKERBOARD,
+                            _as_color_const(obj.get("color0"), (0, 0, 0)),
+                            _as_color_const(obj.get("color1"), (1, 1, 1)),
+                            obj.get_number("scale_x", 2.0),
+                            obj.get_number("scale_y", 2.0))
+            elif t in ("noise", "pnoise", "perlin", "fbm", "voronoi",
+                       "cellnoise"):
+                kind = {"noise": texlib.TexKind.NOISE,
+                        "pnoise": texlib.TexKind.PERLIN,
+                        "perlin": texlib.TexKind.PERLIN,
+                        "fbm": texlib.TexKind.FBM,
+                        "voronoi": texlib.TexKind.VORONOI,
+                        "cellnoise": texlib.TexKind.CELLNOISE}[t]
+                d, a = proc(kind,
+                            _as_color_const(obj.get("color0"), (0, 0, 0)),
+                            _as_color_const(obj.get("color1"), (1, 1, 1)),
+                            obj.get_number("scale", 20.0))
+            elif t == "brick":
+                # BrickPattern.cpp defaults: scale (3, 6), gap (0.05, 0.1)
+                d, a = proc(texlib.TexKind.BRICK,
+                            _as_color_const(obj.get("color0"), (0, 0, 0)),
+                            _as_color_const(obj.get("color1"), (1, 1, 1)),
+                            obj.get_number("scale_x", 3.0),
+                            obj.get_number("scale_y", 6.0),
+                            obj.get_transform()[:2, (0, 1, 3)],
+                            obj.get_number("gap_x", 0.05),
+                            obj.get_number("gap_y", 0.1))
+            elif t == "transform":
+                inner_name = obj.get_string("texture", "")
+                inner_id = texreg.name_to_tex.get(inner_name, -1)
+                if inner_id < 0:
+                    warnings.append(f"Texture '{name}': transform of unknown "
+                                    f"texture '{inner_name}' (define it "
+                                    "first); using white")
+                    d, a = proc(texlib.TexKind.CONSTANT, (1, 1, 1),
+                                (1, 1, 1))
+                else:
+                    d, a = proc(texlib.TexKind.TRANSFORM, (0, 0, 0),
+                                (1, 1, 1),
+                                transform=obj.get_transform()[:2, (0, 1, 3)],
+                                inner=inner_id)
+            elif t == "constant":
+                d, a = proc(texlib.TexKind.CONSTANT,
+                            _as_color_const(obj.get("color"), (1, 1, 1)),
+                            (1, 1, 1))
+            else:
+                warnings.append(f"Texture '{name}': type '{t}' TODO, using "
+                                "white")
+                d, a = proc(texlib.TexKind.CONSTANT, (1, 1, 1), (1, 1, 1))
+        except (OSError, ValueError, TypeError) as e:  # a missing file etc.
+            warnings.append(f"Texture '{name}': {e}; using magenta")
+            d, a = proc(texlib.TexKind.CONSTANT, (1, 0, 1), (1, 0, 1))
+        texreg.add(name, d, a)
+
+
+def _light_direction(obj: SceneObject) -> np.ndarray:
+    """LoaderUtils::getDirection: direction | sun_direction |
+    elevation/azimuth | sun position from date, time and place (Y up)."""
+    from ..models.skysun import compute_sun_ea, ea_to_direction_yup
+    if "direction" in obj.props:
+        d = obj.get_vec3("direction", (0, 0, 1))
+    elif "sun_direction" in obj.props:
+        d = obj.get_vec3("sun_direction", (0, 0, 1))
+    elif "elevation" in obj.props or "azimuth" in obj.props:
+        d = ea_to_direction_yup(obj.get_number("elevation", 0.0),
+                                obj.get_number("azimuth", 0.0))
+    else:
+        el, az = compute_sun_ea(
+            obj.get_int("year", 2020), obj.get_int("month", 5),
+            obj.get_int("day", 6), obj.get_int("hour", 12),
+            obj.get_int("minute", 0), obj.get_number("seconds", 0.0),
+            obj.get_number("latitude", 49.235422),
+            obj.get_number("longitude", -6.9965744),
+            obj.get_number("timezone", -2.0))
+        d = ea_to_direction_yup(el, az)
+    n = np.linalg.norm(d)
+    return d / n if n > 0 else np.array([0, 0, 1.0])
+
+
+def _build_env_cdf(img: np.ndarray, compensate: bool, method: str,
+                   device) -> EnvMap:
+    """The env importance tables (CDF::computeForImage / LoaderUtils
+    setup_cdf2d{,_sat,_hierachical}): row-luminance weights premultiplied
+    by sin(theta), optional MIS compensation, rows flipped so row 0 is
+    v = 0 (the bottom)."""
+    w = np.maximum(img, 0.0).mean(axis=-1)
+    defect = 0.0
+    if compensate:
+        d = float(w.mean())
+        if abs(float(w.min()) - d) >= 1e-4:
+            defect = d
+    w = np.maximum(w - defect, 0.0)[::-1]
+    h = w.shape[0]
+    sin_theta = np.sin(np.pi * (np.arange(h) + 0.5) / h)[:, None]
+    weights = (w * sin_theta).astype(np.float32)
+    zero1 = torch.zeros((1,), dtype=torch.float32, device=device)
+    zero2 = torch.zeros((1, 1), dtype=torch.float32, device=device)
+    present = torch.tensor(True, device=device)
+    if method == "sat":
+        sat = cdflib.build_sat_2d(weights, device)
+        return EnvMap(present, zero1, zero2, sat.table, sat.grid)
+    if method in ("hierachical", "hierarchical"):
+        return EnvMap(present, zero1, zero2, zero2, zero2,
+                      cdflib.build_hier_2d(weights, device).levels)
+    c = cdflib.build_cdf_2d(weights, device)
+    return EnvMap(present, c.marginal, c.conditional, zero2, zero2)
 
 
 def build_scene(scene: Scene, device, overrides: Optional[dict] = None
@@ -177,6 +566,8 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     overrides = overrides or {}
     if overrides.get("instancing"):
         raise _todo("instancing", "13")
+    if scene.parameters:
+        raise _todo("scene parameters (the PExpr registry)", "15")
 
     # --- film / technique / camera -------------------------------------
     film = scene.film
@@ -233,19 +624,31 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         else:
             raise _todo(f"shape type '{obj.plugin_type}'",
                         "19 (remaining shapes and mesh loaders)")
-    if scene.textures:
-        raise _todo("textures", "7")
     if scene.media:
         raise _todo("participating media", "12")
 
-    # --- materials ------------------------------------------------------
+    # --- textures and materials ----------------------------------------
+    texreg = TextureRegistry()
+    _load_textures(scene, texreg, device, overrides, warnings)
     mat_rows: List[dict] = []
     mat_index: Dict[str, int] = {}
     for name, obj in scene.bsdfs.items():
         mat_index[name] = len(mat_rows)
-        mat_rows.append(_bsdf_row(obj))
+        mat_rows.append(_bsdf_row(obj, texreg))
     if not mat_rows:
-        mat_rows.append(_bsdf_row(SceneObject("diffuse", "_default")))
+        mat_rows.append(_bsdf_row(SceneObject("diffuse", "_default"),
+                                  texreg))
+    has_blend = _resolve_wrappers(mat_rows, mat_index, texreg, warnings)
+    see_through = [r for r in mat_rows
+                   if r["kind"] in (int(BsdfKind.PASSTHROUGH),
+                                    int(BsdfKind.RAD_BRTDF),
+                                    int(BsdfKind.RAD_ROOS))
+                   or (r["kind"] == int(BsdfKind.DIELECTRIC)
+                       and r["p3"] > 0.5)]
+    if see_through:
+        # the JAX build turns transparent shadows on for these rows
+        raise _todo("transparent shadows (thin dielectric, passthrough, "
+                    "mask or Radiance BSDFs)", "12")
 
     # --- entities: flatten transforms into one soup --------------------
     tri_v0, tri_e1, tri_e2 = [], [], []
@@ -255,7 +658,10 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     sph_center, sph_radius, sph_ent, sph_shadow = [], [], [], []
     ent_names: List[str] = []
     ent_mat, ent_light = [], []
+    ent_tri_range: Dict[str, tuple] = {}
+    ent_sphere: Dict[str, tuple] = {}
     all_points = []
+    n_soup = 0
     for name, obj in scene.entities.items():
         shape_name = obj.get_string("shape")
         eid = len(ent_names)
@@ -264,6 +670,7 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         ent_light.append(-1)
         shadow_visible = obj.get_bool("shadow_visible", True)
         tr = obj.get_transform()
+        m = None
         if shape_name in analytic_spheres:
             c, r = analytic_spheres[shape_name]
             lin = tr[:3, :3]
@@ -273,9 +680,6 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
                                 "tessellating")
                 m = meshlib.make_ico_sphere(c, r, 5)
                 m.transform(tr)
-                _append_mesh(m, eid, shadow_visible, tri_v0, tri_e1, tri_e2,
-                             tri_n, tri_uv, tri_ent, tri_area, tri_shadow)
-                all_points.append(m.vertices)
             else:
                 wc = tr[:3, :3] @ np.asarray(c, np.float64) + tr[:3, 3]
                 wr = r * scale
@@ -283,6 +687,7 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
                 sph_radius.append(wr)
                 sph_ent.append(eid)
                 sph_shadow.append(shadow_visible)
+                ent_sphere[name] = (wc, wr)
                 all_points.append(wc[None] + np.array([[-wr, -wr, -wr],
                                                        [wr, wr, wr]]))
         elif shape_name in meshes:
@@ -295,16 +700,26 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
             m.ensure_attributes()
             if not np.allclose(tr, np.eye(4)):
                 m.transform(tr)
-            _append_mesh(m, eid, shadow_visible, tri_v0, tri_e1, tri_e2,
-                         tri_n, tri_uv, tri_ent, tri_area, tri_shadow)
-            all_points.append(m.vertices)
         else:
             warnings.append(f"Entity '{name}': unknown shape '{shape_name}'")
+        if m is not None:
+            ent_tri_range[name] = (n_soup, len(m.indices))
+            n_soup += _append_mesh(m, eid, shadow_visible, tri_v0, tri_e1,
+                                   tri_e2, tri_n, tri_uv, tri_ent, tri_area,
+                                   tri_shadow)
+            all_points.append(m.vertices)
         if obj.get_string("inner_medium") or obj.get_string("outer_medium"):
             raise _todo("participating media", "12")
+    areas_all = (np.concatenate(tri_area).astype(np.float32) if tri_area
+                 else np.zeros(0, np.float32))
 
     # --- lights ---------------------------------------------------------
     l_rows = []
+    area_tris: List[int] = []
+    area_cdf: List[float] = []
+    envmap = None
+    env_cdf_method = "conditional"
+    ent_name_to_id = {n: i for i, n in enumerate(ent_names)}
 
     def light_row(**kw):
         row = dict(kind=int(LightKind.POINT), pos=np.zeros(3),
@@ -325,11 +740,99 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
             l_rows.append(light_row(kind=int(LightKind.POINT),
                                     pos=obj.get_vec3("position"),
                                     intensity=inten, delta=True))
-        elif t in ("env", "envmap", "environment", "uniform", "constant"):
+        elif t == "spot":
+            cutoff = math.radians(obj.get_number("cutoff", 30.0))
+            falloff = math.radians(obj.get_number("falloff", 20.0))
+            if "power" in obj.props:
+                factor = 2 * np.pi * (1 - 0.5 * (math.cos(cutoff)
+                                                 + math.cos(falloff)))
+                inten = _const_color(obj, "power", (1, 1, 1)) / factor
+            else:
+                inten = _const_color(obj, "intensity", (1, 1, 1))
+            l_rows.append(light_row(kind=int(LightKind.SPOT),
+                                    pos=obj.get_vec3("position"),
+                                    dir=_light_direction(obj),
+                                    intensity=inten, p0=math.cos(cutoff),
+                                    p1=math.cos(falloff), delta=True))
+        elif t == "directional":
+            l_rows.append(light_row(
+                kind=int(LightKind.DIRECTIONAL), dir=_light_direction(obj),
+                intensity=_const_color(obj, "irradiance", (1, 1, 1)),
+                delta=True, infinite=True))
+        elif t == "area":
+            ent_name = obj.get_string("entity")
+            eid = ent_name_to_id.get(ent_name, -1)
+            if eid < 0:
+                warnings.append(f"Area light '{name}': unknown entity")
+                continue
             rad = _const_color(obj, "radiance", (1, 1, 1))
+            row_id = len(l_rows)
+            if ent_name in ent_sphere:
+                wc, wr = ent_sphere[ent_name]
+                total = float(4.0 * np.pi * wr * wr)
+                l_rows.append(light_row(kind=int(LightKind.AREA),
+                                        intensity=rad, pos=np.asarray(wc),
+                                        p0=total, p1=float(row_id), p2=wr,
+                                        entity=eid))
+            else:
+                start, count = ent_tri_range.get(ent_name, (0, 0))
+                areas = areas_all[start:start + count].astype(np.float64)
+                total = float(np.sum(areas))
+                cdf_local = np.cumsum(areas) / max(total, 1e-30)
+                a_start = len(area_tris)
+                area_tris.extend(range(start, start + count))
+                area_cdf.extend((row_id + cdf_local).tolist())
+                l_rows.append(light_row(kind=int(LightKind.AREA),
+                                        intensity=rad, p0=total,
+                                        p1=float(row_id), entity=eid,
+                                        tri_start=a_start, tri_count=count))
+            if "power" in obj.props:
+                pw = _const_color(obj, "power", (1, 1, 1))
+                l_rows[row_id]["intensity"] = pw / (np.pi * max(total, 1e-30))
+            ent_light[eid] = row_id
+        elif t in ("env", "envmap", "environment", "uniform", "constant"):
+            rad = obj.get_color("radiance", (1, 1, 1))
             scale = _const_color(obj, "scale", (1, 1, 1))
-            l_rows.append(light_row(kind=int(LightKind.ENV),
-                                    intensity=rad * scale, infinite=True))
+            if isinstance(rad, str):
+                tid = texreg.resolve_color(rad, f"Env light '{name}'")
+                if rad in texreg.images:
+                    # the "cdf" method (EnvironmentLight.cpp:22-27)
+                    m = (obj.get_string("cdf", "conditional")
+                         or "conditional").lower()
+                    if m not in ("none", "conditional", "sat", "hierachical",
+                                 "hierarchical"):
+                        warnings.append(f"Env light '{name}': unknown cdf "
+                                        f"method '{m}', using conditional")
+                        m = "conditional"
+                    if m != "none":
+                        env_cdf_method = m
+                        envmap = _build_env_cdf(
+                            texreg.images[rad],
+                            obj.get_bool("compensate", True), m, device)
+                l_rows.append(light_row(kind=int(LightKind.ENV),
+                                        intensity=scale, tex=tid,
+                                        infinite=True))
+            else:
+                l_rows.append(light_row(kind=int(LightKind.ENV),
+                                        intensity=np.asarray(rad) * scale,
+                                        infinite=True))
+        elif t == "sun":
+            # SunLight.cpp: direction points scene -> sun; radiance given,
+            # or irradiance over the sun disk's solid angle
+            from ..models.skysun import sun_area_from_angle
+            d = _light_direction(obj)
+            angle = obj.get_number("angle", 0.533)
+            if "radiance" in obj.props:
+                rad = _const_color(obj, "radiance", (1, 1, 1))
+            else:
+                rad = (_const_color(obj, "irradiance", (1, 1, 1))
+                       / sun_area_from_angle(angle))
+            l_rows.append(light_row(kind=int(LightKind.SUN), dir=-d,
+                                    intensity=rad,
+                                    p0=math.cos(math.radians(angle / 2.0)),
+                                    infinite=True))
+        elif t in _SKY_LIGHTS:
+            raise _todo(f"sky light '{name}' ({t})", "16")
         else:
             raise _todo(f"light type '{t}'", "7 (remaining light kinds)")
 
@@ -343,7 +846,7 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     nrm = [cat(a, 3, np.float32) for a in tri_n]
     uvs = [cat(a, 2, np.float32) for a in tri_uv]
     t_ent = cat(tri_ent, 0, np.int32)
-    t_area = cat(tri_area, 0, np.float32)
+    t_area = areas_all
     t_shadow = cat(tri_shadow, 0, bool)
     n_tris = len(v0)
     bvh = None
@@ -354,6 +857,9 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         nrm = [a[perm] for a in nrm]
         uvs = [a[perm] for a in uvs]
         t_ent, t_area, t_shadow = t_ent[perm], t_area[perm], t_shadow[perm]
+        inv_perm = np.empty_like(perm)
+        inv_perm[perm] = np.arange(len(perm))
+        area_tris = [int(inv_perm[i]) for i in area_tris]
         bvh = BVHArrays(*[torch.from_numpy(np.ascontiguousarray(a)).to(device)
                           for a in (b.cmin_x, b.cmin_y, b.cmin_z, b.cmax_x,
                                     b.cmax_y, b.cmax_z, b.child)])
@@ -420,16 +926,6 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         n_lights = 0
     else:
         n_lights = len(l_rows)
-    lights = _pack_lights(l_rows, ten, soa3)
-
-    media = Media(sigma_a=Color(*[ten(np.zeros(1, np.float32))] * 3),
-                  sigma_s=Color(*[ten(np.zeros(1, np.float32))] * 3),
-                  g=ten(np.zeros(1, np.float32)))
-    envmap = EnvMap(present=ten(np.asarray(False)),
-                    marginal=ten(np.zeros((1,), np.float32)),
-                    conditional=ten(np.zeros((1, 1), np.float32)),
-                    sat_table=ten(np.zeros((1, 1), np.float32)),
-                    sat_grid=ten(np.zeros((1, 1), np.float32)))
 
     # --- scene bounds ---------------------------------------------------
     if all_points:
@@ -441,6 +937,18 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     radius = float(np.linalg.norm(bmax - bmin) * 0.5)
     if radius <= 0:
         radius = 1.0
+
+    lights = _pack_lights(l_rows, n_lights, radius, area_tris, area_cdf,
+                          v0, e1, e2, ten, soa3)
+    media = Media(sigma_a=Color(*[ten(np.zeros(1, np.float32))] * 3),
+                  sigma_s=Color(*[ten(np.zeros(1, np.float32))] * 3),
+                  g=ten(np.zeros(1, np.float32)))
+    if envmap is None:
+        envmap = EnvMap(present=ten(np.asarray(False)),
+                        marginal=ten(np.zeros((1,), np.float32)),
+                        conditional=ten(np.zeros((1, 1), np.float32)),
+                        sat_table=ten(np.zeros((1, 1), np.float32)),
+                        sat_grid=ten(np.zeros((1, 1), np.float32)))
 
     # --- camera ---------------------------------------------------------
     if cam_transform is not None:
@@ -469,9 +977,20 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
                      materials=materials, lights=lights, envmap=envmap,
                      camera=camera, media=media, bvh=bvh,
                      scene_radius=scalar(radius),
-                     scene_center=Vec3(*[scalar(v) for v in center]))
+                     scene_center=Vec3(*[scalar(v) for v in center]),
+                     textures=tuple(texreg.datas))
     selector = (tech.get_string("light_selector", "uniform") or "uniform"
                 ) if tech else "uniform"
+
+    def rough(r):
+        a = float(r["p2"])
+        if r["kind"] == int(BsdfKind.CONDUCTOR):
+            a = max(a, float(r["p3"]))
+        return a > 1e-4
+    kinds = {int(r["kind"]) for r in mat_rows}
+    kinds |= {ROUGH_FLAG + int(r["kind"]) for r in mat_rows
+              if r["kind"] in (int(BsdfKind.CONDUCTOR),
+                               int(BsdfKind.DIELECTRIC)) and rough(r)}
     settings = RenderSettings(
         width=width, height=height, technique=tech_type,
         max_depth=max_depth, min_depth=min_depth, clamp=clamp,
@@ -481,21 +1000,88 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         camera_type=cam_type, fish_mode=fish_mode,
         light_selector={"simple": "cdf"}.get(selector, selector),
         infinite_light_rows=infinite_rows, n_lights=n_lights,
-        bsdf_kinds=tuple(sorted({int(r["kind"]) for r in mat_rows})),
-        light_kinds=tuple(sorted({int(r["kind"]) for r in l_rows})))
+        texture_descs=tuple(texreg.descs), has_blend=has_blend,
+        has_bump=any(r["bump_kind"] != 0 and r["bump_tex"] >= 0
+                     for r in mat_rows),
+        bsdf_kinds=tuple(sorted(kinds)),
+        light_kinds=tuple(sorted({int(r["kind"]) for r in l_rows})),
+        env_cdf_method=env_cdf_method)
     return BuiltScene(data=data, settings=settings, warnings=warnings)
 
 
-def _pack_lights(l_rows, ten, soa3) -> Lights:
-    """Light table, one row per light. The tables of the cdf and hierarchy
-    selectors (select_cdf, hier_*) stay one-entry placeholders: only the
-    uniform selector is on the slice (ROADMAP queue 1, item 7)."""
+def _pack_lights(l_rows, n_lights, scene_r, area_tris, area_cdf, v0, e1, e2,
+                 ten, soa3) -> Lights:
+    """The light table, one row per light, with the cdf selector's flux
+    CDF (LoaderLight::generateLightSelectionCDF) and the light hierarchy
+    over the finite lights (LightHierarchy.cpp: balanced median split,
+    siblings adjacent, right = left + 1, a path code per light)."""
     def lcol(key):
         return np.asarray([r[key] for r in l_rows], np.float32)
 
+    def flux(r):
+        kind = r["kind"]
+        mi = float(np.mean(r["intensity"]))
+        if kind == int(LightKind.POINT):
+            return 4 * np.pi * mi
+        if kind == int(LightKind.SPOT):
+            return 2 * np.pi * (1 - r["p0"]) * mi
+        if kind == int(LightKind.AREA):
+            return np.pi * r["p0"] * mi
+        return np.pi * scene_r * scene_r * max(mi, 1e-3)
+
+    fluxes = np.asarray([max(flux(r), 1e-8) for r in l_rows], np.float64)
+    select_cdf = np.cumsum(fluxes) / fluxes.sum()
+
+    def centroid(r):
+        if r["kind"] == int(LightKind.AREA) and int(r["tri_count"]) > 0:
+            s, c = int(r["tri_start"]), int(r["tri_count"])
+            ids = [int(area_tris[s + k]) for k in range(c)]
+            return np.mean([np.asarray(v0[t], np.float64)
+                            + (np.asarray(e1[t], np.float64)
+                               + np.asarray(e2[t], np.float64)) / 3.0
+                            for t in ids], axis=0)
+        return np.asarray(r["pos"], np.float64).reshape(3)
+
+    entries: List = []   # (pos, dir, flux, has_dir, child)
+    codes = np.zeros(len(l_rows), np.int32)
+    finite = [i for i, r in enumerate(l_rows)
+              if not r["infinite"] and n_lights > 0]
+    if finite:
+        pos = {i: centroid(l_rows[i]) for i in finite}
+
+        def emit(rows, slot, code, depth):
+            if len(rows) == 1:
+                i = rows[0]
+                r = l_rows[i]
+                codes[i] = code
+                entries[slot] = (pos[i],
+                                 np.asarray(r["dir"], np.float64).reshape(3),
+                                 float(fluxes[i]),
+                                 r["kind"] == int(LightKind.SPOT), i)
+                return entries[slot]
+            ps = np.asarray([pos[i] for i in rows])
+            axis = int(np.argmax(ps.max(0) - ps.min(0)))
+            order = np.argsort(ps[:, axis], kind="stable")
+            mid = len(rows) // 2
+            li = len(entries)
+            entries.extend([None, None])
+            le = emit([rows[k] for k in order[:mid]], li, code, depth + 1)
+            re = emit([rows[k] for k in order[mid:]], li + 1,
+                      code | (1 << depth), depth + 1)
+            d = le[1] + re[1]
+            dn = np.linalg.norm(d)
+            entries[slot] = ((le[0] + re[0]) * 0.5,
+                             d / dn if dn > 1e-9 else np.array([0.0, 0, 1]),
+                             le[2] + re[2], le[3] and re[3], -(li + 1))
+            return entries[slot]
+
+        entries.append(None)
+        emit(finite, 0, 0, 0)
+
+    def hcol(j, dtype=np.float32):
+        return ten(np.asarray([e[j] for e in entries] or [0], dtype))
+
     intensity = lcol("intensity").reshape(-1, 3)
-    zero_f = ten(np.zeros(1, np.float32))
-    zero_i = ten(np.zeros(1, np.int32))
     return Lights(
         kind=ten(lcol("kind").astype(np.int32)),
         pos=soa3(lcol("pos")), dir=soa3(lcol("dir")),
@@ -507,16 +1093,21 @@ def _pack_lights(l_rows, ten, soa3) -> Lights:
         tex=ten(lcol("tex").astype(np.int32)),
         delta=ten(lcol("delta").astype(bool)),
         infinite=ten(lcol("infinite").astype(bool)),
-        area_tris=zero_i, area_cdf=zero_f, select_cdf=zero_f,
-        hier_pos=soa3(np.zeros((1, 3), np.float32)),
-        hier_dir=soa3(np.zeros((1, 3), np.float32)),
-        hier_flux=zero_f, hier_has_dir=ten(np.zeros(1, bool)),
-        hier_child=zero_i, hier_code=zero_i)
+        area_tris=ten(np.asarray(area_tris or [0], np.int32)),
+        area_cdf=ten(np.asarray(area_cdf or [0.0], np.float32)),
+        select_cdf=ten(select_cdf.astype(np.float32)),
+        hier_pos=soa3(np.asarray([e[0] for e in entries] or [[0, 0, 0]],
+                                 np.float32)),
+        hier_dir=soa3(np.asarray([e[1] for e in entries] or [[0, 0, 1]],
+                                 np.float32)),
+        hier_flux=hcol(2), hier_has_dir=hcol(3, bool),
+        hier_child=hcol(4, np.int32), hier_code=ten(codes))
 
 
 def _append_mesh(m: meshlib.TriMesh, eid: int, shadow_visible: bool,
                  tri_v0, tri_e1, tri_e2, tri_n, tri_uv, tri_ent, tri_area,
-                 tri_shadow):
+                 tri_shadow) -> int:
+    """Append a mesh's triangles to the soup lists; returns their count."""
     v = m.vertices
     i = m.indices
     p0 = v[i[:, 0]]
@@ -531,3 +1122,4 @@ def _append_mesh(m: meshlib.TriMesh, eid: int, shadow_visible: bool,
     tri_ent.append(np.full(len(i), eid, np.int32))
     tri_area.append(0.5 * np.linalg.norm(np.cross(e1, e2), axis=1))
     tri_shadow.append(np.full(len(i), shadow_visible, bool))
+    return len(i)

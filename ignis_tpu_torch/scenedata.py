@@ -5,9 +5,10 @@ NamedTuples whose field names match the JAX package, so the bridge
 (bridge.py) and the module-by-module tests compare like for like. Nothing
 is placed on a device implicitly: `SceneData.to(device)` moves every leaf.
 
-Left out against the JAX SceneData: textures, measured BSDF tables, the
-PExpr registry and instancing (none is on the slice), and the TPU-only
-chunked-leaf BVH: `bvh` is the tri-leaf BVH8 alone (ops/bvh.BVHArrays).
+Left out against the JAX SceneData: measured BSDF tables, the PExpr
+registry and instancing (ROADMAP queue 1, items 16, 15 and 13), and the
+TPU-only chunked-leaf BVH: `bvh` is the tri-leaf BVH8 alone
+(ops/bvh.BVHArrays). `textures` is a tuple of models/texture.TexData.
 """
 from __future__ import annotations
 
@@ -114,8 +115,10 @@ class Lights(NamedTuple):
 
 
 class EnvMap(NamedTuple):
-    """Environment importance tables; the slice's constant env leaves
-    them at their [1]/[1, 1] placeholders."""
+    """Environment importance tables of a textured env light: the
+    conditional CDF (marginal, conditional), the summed-area table
+    (sat_table, sat_grid) or the mip pyramid (hier_levels); the unused
+    ones stay [1] / [1, 1] placeholders (core/cdf.py)."""
     present: torch.Tensor
     marginal: torch.Tensor
     conditional: torch.Tensor
@@ -155,6 +158,7 @@ class SceneData(NamedTuple):
     bvh: Optional[BVHArrays]
     scene_radius: torch.Tensor
     scene_center: Vec3
+    textures: tuple = ()
 
     def to(self, device) -> "SceneData":
         """Every tensor leaf on `device` (a copy where it moves)."""

@@ -14,14 +14,21 @@ MIS is the balance heuristic in the reference's inverse-pdf form:
 Russian roulette is the max-component rule on contrib*eta^2, clamped to
 [0.05, 0.95], active after min_depth.
 
+Materials: the Materials columns are stacked once per render into one
+[M, 32] table (`material_table`), and a lane's row, or a blend child's,
+is one K3 gather of it (`gather_mat_rows`), whose backward is K3's
+scatter-add. Textures replace the albedo and extra colours, normal and
+bump maps perturb the shading normal (`apply_normal_map`), and a
+texture may drive the top blend's weight.
+
 Reverse mode runs through the same bounce (`render_lanes(remat=True)`,
 the JAX package's path_trace_cascade_diff): closest hits through the K1/K2
-fixed-winner backward (ops/mt_replay.py), the hit-attribute fetch through
-K3 (ops/gather.py) and its scatter-add backward, bounces checkpointed in
-chunks of DIFF_CHUNK.
+fixed-winner backward (ops/mt_replay.py), the hit-attribute and material
+fetches through K3 (ops/gather.py) and its scatter-add backward, bounces
+checkpointed in chunks of DIFF_CHUNK.
 
-Not carried yet: transparent shadows, textures and normal maps, blends,
-instancing and other techniques.
+Not carried yet: transparent shadows and volumes (ROADMAP queue 1, item
+12), instancing (13) and the other techniques (14).
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..core import rng as rnglib
-from ..core.frame import Frame, make_frame
+from ..core.frame import Frame, ensure_valid_reflection, make_frame
 from ..core.sampler import sample_pixel_offsets
 from ..core.vec import (Color, Vec2, Vec3, black_like, color_max_component,
                         cross, cselect, dot, length, normalize, safe_div,
@@ -40,6 +47,7 @@ from ..core.warp import PI, TWO_PI, spherical_from_dir
 from ..models import bsdf as bsdflib
 from ..models import camera as cameralib
 from ..models import light as lightlib
+from ..models import texture as texlib
 from ..ops import bvh_cuda, isect_cuda
 from ..ops import gather as gatherlib
 from ..ops import intersect as isect
@@ -48,6 +56,11 @@ from ..scenedata import RenderSettings, SceneData, tree_map
 
 OFFSET = 1e-3
 ATTR_COLS = 22   # the hit attributes in attr_table
+# the columns of material_table: MatParams' (MAT_COLS), then the texture
+# and normal-map slots (TEX_COLS); integers are exact as f32 below 2^24
+MAT_COLS = 23
+TEX_COLS = ("base_tex", "extra_tex", "p0_tex", "p1_tex", "bump_kind",
+            "bump_tex", "bump_strength")
 MIN_BUCKET = 4096
 SHRINK = 4       # bucket shrink factor per cascade stage
 DIFF_CHUNK = 8   # bounces per checkpointed chunk of the differentiable render
@@ -206,16 +219,176 @@ def shading_frame(surf: Surface) -> Frame:
     return Frame(vselect(ok, t, fr.t), vselect(ok, b, fr.b), ns)
 
 
-def gather_material(scene: SceneData, surf: Surface) -> bsdflib.MatParams:
+def material_columns(scene: SceneData) -> list:
+    """The Materials columns in material_table's order: kind, base,
+    extra, extra2 (rgb each), p0-p3 and q0-q8 (MAT_COLS of them, in
+    MatParams' order), then TEX_COLS."""
     m = scene.materials
-    mid = scene.entities.mat[torch.clamp(surf.ent, min=0).long()].long()
+    return ([m.kind, *m.base, *m.extra, *m.extra2, m.p0, m.p1, m.p2, m.p3,
+             m.q0, m.q1, m.q2, m.q3, m.q4, m.q5, m.q6, m.q7, m.q8]
+            + [getattr(m, c) for c in TEX_COLS])
 
-    def gc(c):
-        return Color(c.r[mid], c.g[mid], c.b[mid])
-    return bsdflib.MatParams(kind=m.kind[mid], base=gc(m.base),
-                             extra=gc(m.extra), extra2=gc(m.extra2),
-                             p0=m.p0[mid], p1=m.p1[mid], p2=m.p2[mid],
-                             p3=m.p3[mid])
+
+def material_table(scene: SceneData) -> torch.Tensor:
+    """The [M, 32] f32 table of material_columns, padded with two zero
+    columns (gatherlib.stack_cols). Made once per render; a leaf that
+    requires grad gets its gradient through K3's scatter into this
+    table."""
+    return gatherlib.stack_cols(material_columns(scene))
+
+
+def _ids(col):
+    return torch.round(col).to(torch.int32)
+
+
+def gather_mat_rows(mtab: torch.Tensor, ids, with_tex: bool = False,
+                    grad=None):
+    """MatParams of material rows `ids` ([N] int32) through one K3 gather
+    of material_table; with `with_tex` also the TEX_COLS columns, by name
+    (texture ids and bump kind as int32). `grad` (SceneInfo.mat_grad)
+    names the columns whose leaves require grad; the others leave the
+    graph, so that, say, an albedo gradient does not reach the ray
+    directions through the iors, and the graph's columns are copied out
+    of the block, so that what autograd saves holds no [k, N] block."""
+    k = MAT_COLS + len(TEX_COLS) if with_tex else MAT_COLS
+    cols = gatherlib.gather_block(ids, mtab, k).unbind(0)
+    if grad is not None and mtab.requires_grad:
+        cols = [c.clone() if g else c.detach() for c, g in zip(cols, grad)]
+    mat = bsdflib.MatParams(_ids(cols[0]), Color(*cols[1:4]),
+                            Color(*cols[4:7]), Color(*cols[7:10]),
+                            *cols[10:MAT_COLS])
+    if not with_tex:
+        return mat
+    tex = dict(zip(TEX_COLS, cols[MAT_COLS:]))
+    for c in TEX_COLS[:-1]:
+        tex[c] = _ids(tex[c])
+    return mat, tex
+
+
+def material_ids(scene: SceneData, surf: Surface):
+    """Each lane's material row (int32)."""
+    return scene.entities.mat[torch.clamp(surf.ent, min=0).long()]
+
+
+class SceneInfo(NamedTuple):
+    """What a render reads once from the scene's small tables on the host,
+    so that no bounce syncs: the blend nesting depth, the hierarchy depth,
+    the bump kinds present, the texture ids each slot can hold, the kind,
+    texture and delta flag of each infinite light row, and which
+    material_columns require grad."""
+    blend_depth: int
+    hier_depth: int
+    bump_kinds: tuple
+    tex_ids: dict        # TEX_COLS slot -> texture ids that occur in it
+    light_tex: tuple     # texture ids of the lights
+    infinite: dict       # infinite light row -> (kind, texture id, delta)
+    mat_grad: tuple      # per material_columns column: requires grad
+
+
+def scene_info(scene: SceneData, settings: RenderSettings) -> SceneInfo:
+    m = scene.materials
+    kind = m.kind.detach().cpu().numpy()
+    q0 = m.q0.detach().cpu().numpy()
+    q1 = m.q1.detach().cpu().numpy()
+
+    def depth(i, seen=()):
+        if i in seen or kind[i] != bsdflib.BsdfKind.BLEND:
+            return 0
+        return 1 + max(depth(int(round(c)), seen + (i,))
+                       for c in (q0[i], q1[i]))
+    blend_depth = (max(depth(i) for i in range(len(kind)))
+                   if settings.has_blend else 0)
+    tex_ids = {c: tuple(sorted({int(t) for t in getattr(m, c).cpu().numpy()
+                                if t >= 0}))
+               for c in ("base_tex", "extra_tex", "p0_tex", "bump_tex")}
+    bk = m.bump_kind.cpu().numpy()
+    bt = m.bump_tex.cpu().numpy()
+    return SceneInfo(
+        blend_depth=blend_depth,
+        hier_depth=(lightlib.hier_depth(scene.lights)
+                    if settings.light_selector == "hierarchy" else 0),
+        bump_kinds=tuple(sorted({int(k) for k, t in zip(bk, bt)
+                                 if k > 0 and t >= 0})),
+        tex_ids=tex_ids,
+        light_tex=tuple(sorted({int(t) for t in
+                                scene.lights.tex.cpu().numpy() if t >= 0})),
+        infinite={r: (int(scene.lights.kind[r]), int(scene.lights.tex[r]),
+                      bool(scene.lights.delta[r]))
+                  for r in settings.infinite_light_rows},
+        mat_grad=tuple(c.requires_grad for c in material_columns(scene)))
+
+
+def make_surface_ctx(rays: Rays, surf: Surface) -> texlib.ShadeCtx:
+    """The texture lookup context at a surface hit: its uv, and the view
+    direction for the normal-map clamp."""
+    return texlib.make_shade_ctx(surf.uv, (-rays.dir.x, -rays.dir.y,
+                                           -rays.dir.z))
+
+
+def apply_textures(mat, tex: dict, eval_texture, ctx, info: SceneInfo):
+    """`mat` with its albedo and extra colours replaced by their textures
+    on the rows that have one (only the ids a slot holds are evaluated)."""
+    for slot, col in (("base", "base_tex"), ("extra", "extra_tex")):
+        if info.tex_ids[col]:
+            c = eval_texture(tex[col], ctx, info.tex_ids[col])
+            mat = mat._replace(**{slot: cselect(tex[col] >= 0, c,
+                                                getattr(mat, slot))})
+    return mat
+
+
+def gather_material(scene: SceneData, surf: Surface, mtab: torch.Tensor,
+                    eval_texture=None, ctx=None, info: SceneInfo = None):
+    """(MatParams, material ids, texture columns or None) of each lane's
+    hit, the albedo and extra colours replaced by their textures where a
+    row has one."""
+    mid = material_ids(scene, surf)
+    if eval_texture is None:
+        return gather_mat_rows(mtab, mid, grad=info.mat_grad), mid, None
+    mat, tex = gather_mat_rows(mtab, mid, with_tex=True, grad=info.mat_grad)
+    return apply_textures(mat, tex, eval_texture, ctx, info), mid, tex
+
+
+def apply_normal_map(surf: Surface, ctx: texlib.ShadeCtx, eval_texture,
+                     tex: dict, info: SceneInfo) -> Surface:
+    """Perturb the shading normal of normal- and bump-mapped rows
+    (reference bsdf/map.art make_normalmap / make_bumpmap), then clamp it
+    so the view reflection stays above the geometric surface (make_normal
+    _set). Only the bump kinds the scene has are evaluated."""
+    if not info.bump_kinds:
+        return surf
+    bk = tex["bump_kind"]
+    bt = torch.clamp(tex["bump_tex"], min=0)
+    bs = tex["bump_strength"]
+    ids = info.tex_ids["bump_tex"]
+    fr = shading_frame(surf)
+    new_ns = surf.ns
+    if 1 in info.bump_kinds:
+        # normalmap (map.art:56): tangent-space colour to world, lerped by
+        # the strength
+        c = eval_texture(bt, ctx, ids)
+        tx, ty, tz = 2.0 * c.r - 1.0, 2.0 * c.g - 1.0, 2.0 * c.b - 1.0
+        o = normalize(fr.to_world(Vec3(tx, ty, tz)))
+        n_n = normalize(Vec3(surf.ns.x + (o.x - surf.ns.x) * bs,
+                             surf.ns.y + (o.y - surf.ns.y) * bs,
+                             surf.ns.z + (o.z - surf.ns.z) * bs))
+        new_ns = vselect(bk == 1, n_n, new_ns)
+    if 2 in info.bump_kinds:
+        # bumpmap (map.art:64): n - strength * (t dh/du + b dh/dv), central
+        # differences scaled to a derivative (texture/common.art:28)
+        h = 0.001
+        u, v = ctx.uv
+
+        def height(uu, vv):
+            return eval_texture(bt, ctx._replace(uv=(uu, vv)), ids).r
+        dx = (height(u + h, v) - height(u - h, v)) / (2.0 * h)
+        dy = (height(u, v + h) - height(u, v - h)) / (2.0 * h)
+        b_n = normalize(Vec3(surf.ns.x - bs * (fr.t.x * dx + fr.b.x * dy),
+                             surf.ns.y - bs * (fr.t.y * dx + fr.b.y * dy),
+                             surf.ns.z - bs * (fr.t.z * dx + fr.b.z * dy)))
+        new_ns = vselect(bk == 2, b_n, new_ns)
+    new_ns = vselect(bk > 0, ensure_valid_reflection(
+        surf.face_n, Vec3(*ctx.ray_dir), new_ns), new_ns)
+    return surf._replace(ns=new_ns)
 
 
 class PathState(NamedTuple):
@@ -255,22 +428,28 @@ def check_settings(settings: RenderSettings, scene: SceneData) -> None:
         raise NotImplementedError(
             "transparent shadows are not ported yet (ROADMAP queue 1, "
             "item 12)")
-    if settings.has_blend or settings.has_bump or settings.texture_descs:
-        raise NotImplementedError(
-            "blends, normal maps and textures are not ported yet (ROADMAP "
-            "queue 1, items 6 and 7)")
+    if settings.medium_exprs and any(settings.medium_exprs):
+        raise NotImplementedError("PExpr media are not ported yet (ROADMAP "
+                                  "queue 1, items 12 and 15)")
+    texlib.check_descs(settings.texture_descs)
     bsdflib.check_kinds(settings.bsdf_kinds)
-    lightlib.check_lights(settings, scene)
 
 
 def make_bounce(scene: SceneData, settings: RenderSettings,
-                tab: torch.Tensor, regen=None, packed=None):
-    """Per-bounce wavefront step; `tab` is the scene's attr_table and
-    `packed` its soup_pack_of. With `regen` = (x, y, iteration, frame),
-    lanes whose path ended restart the next sample of their pixel."""
+                tab: torch.Tensor, mtab: torch.Tensor, info: SceneInfo,
+                regen=None, packed=None, eval_texture=None):
+    """Per-bounce wavefront step; `tab` is the scene's attr_table, `mtab`
+    its material_table, `info` its scene_info, `packed` its soup_pack_of
+    and `eval_texture` its texture evaluator (None without textures).
+    With `regen` = (x, y, iteration, frame), lanes whose path ended
+    restart the next sample of their pixel."""
     n_lights = settings.n_lights
     present = tuple(int(k) for k in settings.bsdf_kinds)
     kinds = tuple(int(k) for k in settings.light_kinds or ())
+    lights = scene.lights
+    depth_h = info.hier_depth
+    textured = eval_texture is not None and bool(
+        info.tex_ids["base_tex"] or info.tex_ids["extra_tex"])
 
     def bounce(state: PathState) -> PathState:
         n = state.tmin.shape[0]
@@ -283,42 +462,77 @@ def make_bounce(scene: SceneData, settings: RenderSettings,
 
         # ---- miss: infinite lights -------------------------------------
         miss = state.alive & ~found
-        for lid in settings.infinite_light_rows:
-            lp = lightlib.gather_light(
-                scene.lights, torch.full((n,), lid, dtype=torch.int64,
-                                         device=device))
-            emit = lightlib.env_emission(lp)
-            pdf_s = lightlib.env_pdf_direct(lp)
-            lsel_pdf = lightlib.selector_pdf(settings, state.tmin)
+        for lid, (kind, tex_id, delta) in info.infinite.items():
+            if delta:
+                continue    # a delta light adds nothing to a miss
+            rows = torch.full((n,), lid, dtype=torch.int64, device=device)
+            lp = lightlib.gather_light(lights, rows)
+            env_tex = None
+            if eval_texture is not None and tex_id >= 0:
+                def env_tex(tid, ctx, tex_id=tex_id):
+                    return eval_texture(tid, ctx, (tex_id,))
+            emit = lightlib.env_emission(scene, lp, state.dir, env_tex,
+                                         (kind,))
+            pdf_s = lightlib.env_pdf_direct(scene, lp, state.dir, (kind,),
+                                            textured=tex_id >= 0)
+            lsel_pdf = lightlib.infinite_selector_pdf(settings, lights, lid,
+                                                      rows)
             if settings.enable_nee:
-                mis = torch.where(lp.delta, 0.0,
-                                  1.0 / (1.0 + state.inv_pdf * lsel_pdf * pdf_s))
+                mis = 1.0 / (1.0 + state.inv_pdf * lsel_pdf * pdf_s)
+                c = state.contrib.cmul(emit) * mis
             else:
-                mis = torch.where(lp.delta, 0.0, 1.0)
-            c = _handle_color(state.contrib.cmul(emit) * mis, settings)
-            result = _cadd_where(miss & ~lp.delta, result, c)
+                c = state.contrib.cmul(emit)
+            result = _cadd_where(miss, result, _handle_color(c, settings))
 
         # ---- hit shading -----------------------------------------------
         active = state.alive & found
         surf = compute_surface(scene, rays_b, hit, tab)
-        mat = gather_material(scene, surf)
+        ctx = (make_surface_ctx(rays_b, surf) if eval_texture is not None
+               else None)
+        mat, mid, tex = gather_material(scene, surf, mtab, eval_texture, ctx,
+                                        info)
         out_dir = -state.dir
+        if tex is not None:
+            surf = apply_normal_map(surf, ctx, eval_texture, tex, info)
         frame = make_frame(surf.ns)
-        shader = bsdflib.LaneShader(mat, frame, surf.is_entering, present)
+        w_override = None
+        if tex is not None and info.blend_depth and info.tex_ids["p0_tex"]:
+            wtex = eval_texture(tex["p0_tex"], ctx, info.tex_ids["p0_tex"])
+            w_override = torch.where(tex["p0_tex"] >= 0, wtex.r, mat.p0)
+
+        def gather_row(ids):
+            # the rows of blend children, and of every lane of a scene with
+            # blends, textured as gather_material textures a lane's own row
+            # (the JAX package reads them untextured: ROADMAP queue 3);
+            # `ids` holds k rows a lane (make_lane_shader stacks children)
+            if not textured:
+                return gather_mat_rows(mtab, ids, grad=info.mat_grad)
+            k = ids.shape[0] // n
+            ctx_k = ctx._replace(uv=tuple(torch.cat([c] * k)
+                                          for c in ctx.uv))
+            return apply_textures(*gather_mat_rows(mtab, ids, with_tex=True,
+                                                   grad=info.mat_grad),
+                                  eval_texture, ctx_k, info)
+        shader = bsdflib.make_lane_shader(gather_row, mid, mat, frame,
+                                          surf.is_entering, info.blend_depth,
+                                          w_override, present)
         all_delta = shader.is_all_delta()
 
         # emission on hit (area emitters)
         light_row = scene.entities.light[torch.clamp(surf.ent, min=0).long()]
         is_emissive = light_row >= 0
-        lp_hit = lightlib.gather_light(scene.lights,
-                                       torch.clamp(light_row, min=0))
+        hit_row = torch.clamp(light_row, min=0)
+        lp_hit = lightlib.gather_light(lights, hit_row)
         cos_l = -dot(state.dir, frame.n)
         emit_ok = active & is_emissive & surf.is_entering & (cos_l > 1e-6)
         pdf_area = safe_div(1.0, lp_hit.p0)
+        # miss lanes carry t = FLT_MAX and cos_l may be <= 0: sanitise so
+        # that reverse mode meets no inf or NaN on the masked lanes
         t_safe = torch.where(emit_ok, hit.t, 1.0)
         cos_safe = torch.where(emit_ok, cos_l, 1.0)
         pdf_s = pdf_area * t_safe * t_safe / cos_safe
-        esel_pdf = lightlib.selector_pdf(settings, state.tmin)
+        esel_pdf = lightlib.selector_pdf(settings, lights, hit_row,
+                                         state.org, depth_h)
         if settings.enable_nee:
             mis_e = 1.0 / (1.0 + state.inv_pdf * esel_pdf * pdf_s)
         else:
@@ -333,9 +547,16 @@ def make_bounce(scene: SceneData, settings: RenderSettings,
         # ---- NEE -------------------------------------------------------
         if settings.enable_nee and n_lights > 0:
             rng, (ul, u0, u1) = rnglib.next_f32_n(rng, 3)
-            lsel, sel_pdf = lightlib.select_light(settings, ul)
-            lp = lightlib.gather_light(scene.lights, lsel)
-            ls = lightlib.sample_direct(scene, lp, surf.point, u0, u1, kinds)
+            lsel, sel_pdf = lightlib.select_light(settings, lights, ul,
+                                                  surf.point, depth_h)
+            lp = lightlib.gather_light(lights, lsel)
+            light_tex = None
+            if eval_texture is not None and info.light_tex:
+                def light_tex(tid, c):
+                    return eval_texture(tid, c, info.light_tex)
+            ls = lightlib.sample_direct(scene, lp, surf.point,
+                                        surf.is_entering, u0, u1, light_tex,
+                                        kinds)
             pdf_l_s = lightlib.pdf_as_solid(ls.pdf_value, ls.pdf_is_area,
                                             ls.cos, ls.dist * ls.dist) * sel_pdf
             bsdf_f = shader.eval(ls.dir, out_dir)
@@ -448,7 +669,7 @@ def bucket_chain(n: int, min_bucket: int):
 
 def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
                  iteration: int, frame: int, compact: bool = True,
-                 remat: bool = False) -> Color:
+                 remat: bool = False, eval_texture=None) -> Color:
     """Render settings.spi samples for every lane (pixel (x, y)); returns
     the per-lane radiance summed over the samples, in x's lane order.
 
@@ -465,11 +686,20 @@ def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
     state and recomputes the chunk's bounces in the backward (the JAX
     package's path_trace_cascade_diff). A chunk decides how many bounces
     it runs from the alive counts of its own state, so its recompute
-    repeats the same decisions."""
+    repeats the same decisions.
+
+    `eval_texture` is the scene's texture evaluator (made here when not
+    given). The attribute and material tables, the packed soup and
+    scene_info are made once here."""
     n = x.shape[0]
     device = x.device
     sizes = bucket_chain(n, MIN_BUCKET) if compact else [n]
     tab = attr_table(scene)
+    mtab = material_table(scene)
+    info = scene_info(scene, settings)
+    if eval_texture is None:
+        eval_texture = texlib.make_texture_evaluator(settings.texture_descs,
+                                                     scene.textures)
     packed = soup_pack_of(scene)
     st = start_state(scene, settings, x, y, iteration, frame)
     film = torch.zeros((3, n), dtype=torch.float32, device=device)
@@ -479,8 +709,8 @@ def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
     for si, size in enumerate(sizes):
         last = si == len(sizes) - 1
         min_alive = 0 if last else size // SHRINK
-        bounce = make_bounce(scene, settings, tab, (px, py, iteration, frame),
-                             packed)
+        bounce = make_bounce(scene, settings, tab, mtab, info,
+                             (px, py, iteration, frame), packed, eval_texture)
 
         def run(st, limit, bounce=bounce, min_alive=min_alive):
             it = 0

@@ -2,8 +2,9 @@
 chip_smoke.py, which is the one home of the on-card checks, at a test's
 size: the hand-written kernels against their plain torch versions (t, prim,
 u, v and any-hit, also on rays shaped like the main path's, K2 on S2's and
-S4's exactly; the S4 render through K2 alone; K3's gather and
-scatter-add on random rows, on the main path's first bounce, on one row,
+S4's exactly; the S4 render through K2 alone, S5's through K1 and K3;
+K3's gather and scatter-add on random rows, on the main path's first
+bounce, at S5's material fetch, on one row,
 with NaN, -0.0 and inf cotangents, and on every launch of a recorded
 geometry-gradient step; the MT replay, also with every ray on one
 triangle), the
@@ -141,11 +142,53 @@ def test_mt_replay_every_ray_on_one_triangle(device):
                               soup, prim, 5)
 
 
-def test_slice_on_card_matches_cpu(device):
-    """The analytic point-light oracle on the card, and S2 and S1 (at
-    subdivisions 3) on the card against the CPU at 64x64: >= 99% of
-    pixels within rtol 1e-3 / atol 1e-4 and means within 0.5%."""
-    chip_smoke.phase_reference(device)
+def _s5(env_dir, size=64, env=(128, 64)):
+    """chip_smoke's S5 with icospheres at subdivisions 1."""
+    from ignis_tpu_torch.utils.envgen import ensure_substitute_env
+    return chip_smoke.s5_scene(ensure_substitute_env(env_dir, *env),
+                               subdivisions=1, size=size)
+
+
+def test_slice_on_card_matches_cpu(device, tmp_path):
+    """The analytic point-light oracle on the card, and S2, S4, S1 (at
+    subdivisions 3) and S5 (at subdivisions 1, a 256x128 env) on the card
+    against the CPU at 64x64: >= 99% of pixels within rtol 1e-3 / atol
+    1e-4 and means within 0.5%."""
+    chip_smoke.phase_reference(device, _s5(tmp_path, env=(256, 128)))
+
+
+def test_s5_render_launches_k1_and_k3(device, tmp_path):
+    """S5 (subdivisions 1, 724 triangles, a BVH) at 64x64, spi 2, through
+    Runtime.step(): K1 and K3's gather launched, K2 not, no plain version
+    called, the image finite and not black."""
+    rt = ignis_tpu_torch.loadFromString(json.dumps(_s5(tmp_path)),
+                                        device=device, spi=2)
+    assert rt.scene.bvh is not None and rt.settings.has_blend
+    chip_smoke.reset_all_counts()
+    img = rt.step().framebuffer(normalized=True)
+    launched = chip_smoke.launches()
+    assert launched["K1"] > 0 and launched["K3_gather_rows"] > 0, launched
+    assert launched["K2"] == 0
+    assert chip_smoke.plain_calls() == 0
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-3
+
+
+def test_k3_on_s5_material_table(device, tmp_path):
+    """K3 at the material fetch's shape (chip_smoke.k3_material_set): the
+    material rows of S5's 262,144 camera hits at 512x512 in its [14, 32]
+    material table, 30 columns. The gather bit for bit with tab[idx]; the
+    scatter within 1e-6 + 1e-5 sum|terms| of index_add_ (the contention
+    of 262,144 lanes on 14 rows reorders the sums)."""
+    rt = ignis_tpu_torch.loadFromString(json.dumps(_s5(tmp_path, size=512)),
+                                        device=device, spi=1)
+    idx, tab, k, cot = chip_smoke.k3_material_set(rt, device)
+    assert idx.numel() == 262144 and tuple(tab.shape) == (14, 32)
+    assert k == 30
+    gather.reset_counts()
+    g_err, _ = chip_smoke.check_k3("S5 material table", idx, tab, k, cot)
+    assert g_err == 0.0
+    assert gather.gather_counts["launches"] == 1
+    assert gather.scatter_counts["launches"] == 1
 
 
 def test_grad_kernels_match_plain(device):
@@ -196,17 +239,18 @@ def test_k3_on_recorded_geometry_launches(device):
         assert row["gather"]["ms"] > 0 and row["scatter"]["ms"] > 0
 
 
-def test_train_and_geometry_steps_launch_kernels(device):
-    """phase 7's train step on S1 (at subdivisions 3), S2, S3 (at 80x100)
-    and S4 at 64x64, spi 2, and the geometry gradient on S1 and S2: loss
-    and gradients finite, every kernel of the path launched, no plain
-    version called."""
+def test_train_and_geometry_steps_launch_kernels(device, tmp_path):
+    """phase 7's train step on S1 (at subdivisions 3), S2, S3 (at 80x100),
+    S4 and S5 (at subdivisions 1) at 64x64, spi 2, S5's roughness gradient
+    and the geometry gradient on S1 and S2: loss and gradients finite,
+    every kernel of the path launched, no plain version called."""
     s3 = json.loads(json.dumps(chip_smoke.S3_BENCH_BIG))
     s3["shapes"][0].update(stacks=80, slices=100)
     scenes = {"S1_glass_ico7": chip_smoke._ico3(chip_smoke.S1_GLASS_ICO7),
               "S2_graft_entry": chip_smoke.S2_GRAFT_ENTRY,
               "S3_bench_big": s3,
-              "S4_glass_ico2": chip_smoke.S4_GLASS_ICO2}
+              "S4_glass_ico2": chip_smoke.S4_GLASS_ICO2,
+              chip_smoke.S5_NAME: _s5(tmp_path)}
     runtimes = {}
     for name, sc in scenes.items():
         small = json.loads(json.dumps(sc))

@@ -117,31 +117,75 @@ def _tri_rows(scene):
     return a[np.lexsort(a.T[::-1])]
 
 
-def test_own_loader_matches_build_scene(pair):
-    """The JAX-free loader: material, light, entity, camera and sphere
-    tables equal the JAX build's; the same multiset of triangles (the
-    order differs: no TPU chunk clustering or padding). The tables of the
-    cdf and hierarchy light selectors are not built: only the uniform
-    selector is on the slice."""
-    _, ref, own = pair
-    bridged, _ = from_reference(ref.scene, ref.settings, "cpu")
+def _soup_rows(scene, ids):
+    """The v0, e1, e2 rows of triangles `ids` of scene's soup."""
+    cols = [*scene.tris.v0, *scene.tris.e1, *scene.tris.e2]
+    return np.stack([np.asarray(c)[ids] for c in cols], 1)
+
+
+def _assert_loader_matches(ref, own, env_rtol=0.0):
+    """The own loader's tables against the bridged JAX build: every leaf
+    of the material, light (selector CDF and hierarchy included), entity,
+    camera, sphere, env, medium and texture tables equal (the env CDF
+    within `env_rtol`), the same multiset of triangles (the order differs:
+    no TPU chunk clustering or padding), and the same settings."""
+    bridged, bs = from_reference(ref.scene, ref.settings, "cpu")
     for f in ("materials", "lights", "entities", "camera", "spheres",
-              "sph_attr", "envmap", "media"):
+              "sph_attr", "envmap", "media", "textures"):
         jl = dict(_leaves(getattr(bridged, f)))
         pl = dict(_leaves(getattr(own.scene, f)))
         assert jl.keys() == pl.keys(), f
         for k in jl:
-            if k.startswith((".select_cdf", ".hier_")):
-                continue
-            np.testing.assert_array_equal(pl[k], jl[k], err_msg=f + k)
-    assert own.settings.light_selector == "uniform"
+            assert pl[k].dtype == jl[k].dtype, f + k
+            if k == ".area_tris":
+                # triangle ids: compare the triangles they name, since the
+                # two soups order the triangles apart
+                np.testing.assert_array_equal(
+                    _soup_rows(own.scene, pl[k]), _soup_rows(bridged, jl[k]))
+            elif f == "envmap" and env_rtol:
+                np.testing.assert_allclose(pl[k], jl[k], rtol=env_rtol,
+                                           atol=env_rtol, err_msg=f + k)
+            else:
+                np.testing.assert_array_equal(pl[k], jl[k], err_msg=f + k)
     np.testing.assert_array_equal(_tri_rows(own.scene), _tri_rows(bridged))
     assert float(own.scene.scene_radius) == float(bridged.scene_radius)
     assert (own.scene.bvh is None) == (bridged.bvh is None)
     for f in ("width", "height", "max_depth", "min_depth", "spi",
               "infinite_light_rows", "n_lights", "bsdf_kinds", "light_kinds",
-              "light_selector", "camera_type", "enable_nee"):
+              "light_selector", "camera_type", "enable_nee", "has_blend",
+              "has_bump", "env_cdf_method", "transparent_shadows"):
         assert getattr(own.settings, f) == getattr(ref.settings, f), f
+    assert own.settings.texture_descs == bs.texture_descs
+
+
+def test_own_loader_matches_build_scene(pair):
+    """The JAX-free loader builds the JAX build's tables
+    (_assert_loader_matches), the uniform selector's scenes included."""
+    _, ref, own = pair
+    _assert_loader_matches(ref, own)
+    assert own.settings.light_selector == "uniform"
+
+
+@pytest.mark.parametrize("method", ["conditional", "sat", "hierachical"])
+def test_own_loader_matches_build_scene_s5(method, tmp_path):
+    """chip_smoke's S5 at 64x64 (icospheres at subdivisions 1, a 128x64
+    substitute env written as EXR and read back by each package's loader):
+    every BSDF kind of the slice, textures, a bump map, a textured blend
+    weight, every light kind and the hierarchy selector's tables equal the
+    JAX build's, under each env method. The conditional CDF's prefix sums
+    are within 1e-5 (numpy and XLA associate float32 sums apart)."""
+    import chip_smoke
+    from ignis_tpu_torch.utils.envgen import ensure_substitute_env
+    sc = chip_smoke.s5_scene(ensure_substitute_env(tmp_path, 128, 64),
+                             subdivisions=1, size=64)
+    sc["lights"][0]["cdf"] = method
+    text = json.dumps(sc)
+    ref = ignis_tpu.loadFromString(text, spi=2)
+    own = ignis_tpu_torch.loadFromString(text, device="cpu", spi=2)
+    assert ref.warnings == [] and own.warnings == []
+    _assert_loader_matches(ref, own, env_rtol=1e-5)
+    assert own.settings.light_selector == "hierarchy"
+    assert len(own.scene.textures) == 4 and own.settings.has_bump
 
 
 def test_bvh_covers_every_triangle_once(pair):
@@ -230,16 +274,26 @@ def test_port_stands_alone_without_jax_package(tmp_path):
 
 @pytest.mark.parametrize("change, item", [
     (("shapes", 0, {"type": "cube", "name": "floor"}), "item 19"),
-    (("bsdfs", 1, {"type": "conductor", "name": "glass"}), "item 6"),
-    (("lights", 0, {"type": "spot", "name": "l", "position": [0, 2, 2]}),
-     "item 7"),
+    (("bsdfs", 1, {"type": "klems", "name": "glass",
+                   "filename": "missing.xml"}), "item 16"),
+    (("bsdfs", 1, {"type": "diffuse", "name": "glass",
+                   "reflectance": "tex"}), "item 15"),
+    (("bsdfs", 1, {"type": "dielectric", "name": "glass", "thin": True}),
+     "item 12"),
+    (("bsdfs", 1, {"type": "passthrough", "name": "glass"}), "item 12"),
+    (("lights", 0, {"type": "perez", "name": "l"}), "item 16"),
 ])
 def test_off_slice_features_raise(change, item):
     """Anything off the slice raises NotImplementedError naming its
-    ROADMAP item."""
+    ROADMAP item: other shapes (19), measured BSDFs and sky models (16),
+    PExpr textures (15; `tex` is an `expr` texture), and the BSDFs that
+    need transparent shadows (12)."""
     scene = json.loads(json.dumps(_SCENE))
     key, i, obj = change
     scene[key][i] = obj
+    if item == "item 15":
+        scene["textures"] = [{"type": "expr", "name": "tex",
+                              "expr": "vec3(uv.x, uv.y, 0.5)"}]
     with pytest.raises(NotImplementedError, match=item):
         ignis_tpu_torch.loadFromString(json.dumps(scene), device="cpu")
 
