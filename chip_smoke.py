@@ -17,8 +17,11 @@ printing its own lines; any failure exits non-zero:
    three 262,144-ray sets of S1 and S3 shaped like the main path's
    (camera rays in pixel order, cosine secondary rays from their hits,
    shadow rays from those hits to S1's point light): exact against the
-   plain walk, timed beside its bound, the deepest stack counted;
-5. render S1-S5 at 512x512 through `loadFromString` (its default device,
+   plain walk, timed beside its bound, the deepest stack counted; and on
+   S6's secondary set and two sets of its transparent-shadow walk
+   (`crossing_sets`: the first and second closest hits along the shadow
+   segments to its point light);
+5. render S1-S6 at 512x512 through `loadFromString` (its default device,
    the card) and `Runtime.step()`, with every kernel's launch count reset
    just before and read just after; no plain version may run; then one more
    step of each under torch.profiler (render/profile.py): device time,
@@ -26,16 +29,22 @@ printing its own lines; any failure exits non-zero:
    the materials-and-lights scene: every analytic BSDF kind of the slice,
    a textured blend, a bump map, five light kinds, the hierarchy selector
    and the 4096x2048 substitute env (written as EXR into build/ and read
-   back by the port's own loader);
+   back by the port's own loader). S6 (`s6_scene`) is the
+   volumes-and-meshes scene: volpath through a glass ball full of fog,
+   its 327,680-triangle icosphere written into build/ as a binary PLY and
+   loaded as a `ply` shape, a passthrough box of a second medium, a thin
+   glass pane (every NEE ray takes the crossing walk), a cylinder written
+   as OBJ and loaded as `obj`, a cone and a disk;
 6. reference checks: the analytic point-light oracle on the card, and
    card-vs-CPU renders of small scenes (S2, S4, S1 at subdivisions 3, S5
-   at subdivisions 1 with a 256x128 env);
+   at subdivisions 1 with a 256x128 env, S6 with its ball at subdivisions
+   2, under the BVH threshold);
 7. gradients: K3's gather and scatter-add against their plain versions
    on S1's attribute table (random rows, S1's camera hits with zero
    cotangents on the misses, every lane on one row, cotangents holding
    NaN, -0.0 and inf) and the MT replay against its plain version, with
    times (K3 on the random rows, the replay on S1's contended rays and on
-   a random soup); `train_step` (albedo) on S1-S5 at 512x512, a
+   a random soup); `train_step` (albedo) on S1-S6 at 512x512, a
    roughness gradient on S5 and a geometry gradient on S1 and S2, counts
    reset before and read after; one profiled train step per scene, in
    which torch's indexing_backward_kernel must take under 1% of the
@@ -46,7 +55,11 @@ printing its own lines; any failure exits non-zero:
    geometry-gradient step recorded, checked and timed beside
    index_select / index_add and its bound; the K3 scatter at the albedo
    backward's shape beside index_put_; the albedo gradient on the card
-   against the CPU's;
+   against the CPU's; K3 on S6's medium table (the medium fetch after
+   S6's camera hits) as on S5's material table; one sigma gradient step
+   of S6 (media.sigma_a and sigma_s; the estimator's gradient, biased by
+   Russian roulette, see phase_sigma), and the sigma gradient of the
+   small S6 on the card against the CPU's;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -247,8 +260,105 @@ def s5_scene(env_file, subdivisions=5, size=512):
              "irradiance": [0.8, 0.75, 0.7]},
         ],
     }
+S6_NAME = "S6_volume_meshes"
+KERNEL_OF[S6_NAME] = "K1"
+S6_SECTIONS = 16    # the cylinder's, cone's and disk's: the small S6 of
+#                     phase 6 (ball at subdivisions 2) stays under the BVH
+#                     threshold of 512 triangles, so K2 serves it
+
+
+def s6_files(build_dir, subdivisions=7):
+    """S6's mesh files in `build_dir`, written on every call by the port's
+    writers (one numpy pass each, so a run always exercises them): the
+    ball, an icosphere of radius 0.8 at `subdivisions`, as a binary PLY
+    (save_ply); a cylinder as an OBJ (save_obj). Returns their paths."""
+    from ignis_tpu_torch.scene import mesh as meshlib
+    build_dir = Path(build_dir)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    ball = build_dir / f"s6_ico{subdivisions}.ply"
+    meshlib.save_ply(ball, meshlib.make_ico_sphere((0, 0, 0), 0.8,
+                                                   subdivisions))
+    cyl = build_dir / "s6_cylinder.obj"
+    meshlib.save_obj(cyl, meshlib.make_cylinder(
+        (0, 0, 0), 0.3, (0, 0.9, 0), 0.3, S6_SECTIONS, True))
+    return ball, cyl
+
+
+def s6_scene(build_dir, subdivisions=7, size=512):
+    """S6_volume_meshes: tests/test_compaction.py:88 VOL_SCENE's camera,
+    floor, fog (sigma_a 0.1, sigma_s 0.6, g 0.2) and lights, volpath at
+    max_depth 8, holding a glass ball (int_ior 1.1) full of the fog, its
+    icosphere (subdivisions 7: 327,680 triangles) loaded from a binary
+    PLY; a passthrough box full of a second medium (sigma_a 0.05, sigma_s
+    0.3, g -0.3); a thin glass pane above them, which makes the scene
+    glassy, so that every NEE ray takes the crossing walk; a cylinder
+    loaded from an OBJ, and a cone and a disk as shapes."""
+    ball, cyl = s6_files(build_dir, subdivisions)
+    return {
+        "technique": {"type": "volpath", "max_depth": 8},
+        "camera": S1_GLASS_ICO7["camera"],
+        "film": {"size": [size, size]},
+        "bsdfs": [
+            {"type": "diffuse", "name": "w", "reflectance": [0.7, 0.7, 0.7]},
+            {"type": "dielectric", "name": "glass", "int_ior": 1.1},
+            {"type": "passthrough", "name": "clear"},
+            {"type": "dielectric", "name": "pane", "thin": True,
+             "specular_transmittance": [0.9, 0.9, 0.8]},
+            {"type": "diffuse", "name": "red", "reflectance": [0.7, 0.2, 0.1]},
+            {"type": "plastic", "name": "blue",
+             "diffuse_reflectance": [0.1, 0.2, 0.7]},
+        ],
+        "media": [
+            {"type": "homogeneous", "name": "fog", "sigma_a": [0.1, 0.1, 0.1],
+             "sigma_s": [0.6, 0.6, 0.6], "g": 0.2},
+            {"type": "homogeneous", "name": "smoke",
+             "sigma_a": [0.05, 0.05, 0.05], "sigma_s": [0.3, 0.3, 0.3],
+             "g": -0.3},
+        ],
+        "shapes": [
+            {"type": "rectangle", "name": "floor", "width": 6, "height": 6},
+            {"type": "ply", "name": "ball", "filename": str(ball)},
+            {"type": "box", "name": "box", "width": 0.8, "height": 0.8,
+             "depth": 0.8},
+            {"type": "rectangle", "name": "pane", "width": 2.4,
+             "height": 2.4},
+            {"type": "obj", "name": "cylinder", "filename": str(cyl)},
+            {"type": "cone", "name": "cone", "p0": [0, 0, 0],
+             "p1": [0, 0.95, 0], "radius": 0.35, "sections": S6_SECTIONS},
+            {"type": "disk", "name": "disk", "normal": [0, 0, 1],
+             "radius": 0.4, "sections": S6_SECTIONS},
+        ],
+        "entities": [
+            {"name": "floor", "shape": "floor", "bsdf": "w",
+             "transform": [{"rotate": [-90, 0, 0]},
+                           {"translate": [0, -1, 0]}]},
+            {"name": "ball", "shape": "ball", "bsdf": "glass",
+             "inner_medium": "fog"},
+            {"name": "box", "shape": "box", "bsdf": "clear",
+             "inner_medium": "smoke",
+             "transform": [{"translate": [-1.5, 0.45, 0]}]},
+            # the last transform of a list applies first: turned to face
+            # down, then raised to y = 1.5, between the lights and the rest
+            {"name": "pane", "shape": "pane", "bsdf": "pane",
+             "transform": [{"translate": [0, 1.5, 0]},
+                           {"rotate": [90, 0, 0]}]},
+            {"name": "cylinder", "shape": "cylinder", "bsdf": "red",
+             "transform": [{"translate": [1.5, 0.05, -0.3]}]},
+            {"name": "cone", "shape": "cone", "bsdf": "blue",
+             "transform": [{"translate": [-0.9, 0.05, -1.2]}]},
+            {"name": "disk", "shape": "disk", "bsdf": "red",
+             "transform": [{"translate": [0.9, 0.6, -1.2]}]},
+        ],
+        "lights": [
+            {"type": "point", "name": "l", "position": [2, 3, 2],
+             "power": 60},
+            {"type": "env", "name": "e", "radiance": [0.2, 0.25, 0.3]},
+        ],
+    }
+
+
 SPI = 4
-S1_LIGHT = (2.0, 3.0, 2.0)   # S1's and S4's point light
+S1_LIGHT = (2.0, 3.0, 2.0)   # S1's, S4's and S6's point light
 S2_LIGHT = (0.0, 2.0, 2.0)   # S2's
 
 # The least time of a kernel: the larger of its bytes (each input read once,
@@ -296,24 +406,34 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+SPIN_CYCLES_PER_MS = 2_000_000   # at least 1 ms of torch.cuda._sleep on a
+#                                  card clocked at up to 2 GHz (H100: 1.98)
+
+
 def cuda_ms(fn, reps=10, warmup=2):
     """Median of `reps` CUDA-event timings of fn() after warm-up, in ms.
 
     A spin kernel (`torch.cuda._sleep`) keeps the device busy while the
     host enqueues each timing's start event, fn()'s work and end event, so
-    the events bracket device time rather than the host's launch overhead
-    wherever fn() enqueues its work within the spin (~2 ms on an H100). A
-    plain version that waits on the device inside fn() is timed with its
-    host time, as it runs."""
+    the events bracket device time rather than the host's launch overhead.
+    The spin lasts at least 2 ms and at least twice the host time of the
+    last warm-up call (up to 50 ms), so that a slow host still enqueues
+    fn() within it. A plain version that waits on the device inside fn()
+    is timed with its host time, as it runs."""
     import torch
+    host_ms = 0.0
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    spin = int(min(max(2.0, 2.0 * host_ms), 50.0) * SPIN_CYCLES_PER_MS)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
-        torch.cuda._sleep(4_000_000)
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -444,6 +564,27 @@ def main_path_sets(rt, device, light=S1_LIGHT, seed=17):
     shadow = Rays(org, to_light, tmin, torch.where(found, 1.0 - OFFSET, -1.0))
     return {"camera": (cam, False), "secondary": (sec, False),
             "shadow": (shadow, True)}
+
+
+def crossing_sets(rt, device, light=S1_LIGHT, seed=17):
+    """main_path_sets' secondary set and two sets of the transparent-
+    shadow walk (path.shadow_transmittance) on rt's scene: "crossing 1",
+    closest hits along the shadow segments from the camera hits to a
+    point light at `light` (unnormalised directions, t in [o, 1 - o]), as
+    the walk's first step traces them; "crossing 2", the same segments
+    from just past those hits on (lanes that crossed nothing are dead)."""
+    import torch
+    from ignis_tpu_torch.ops.intersect import Rays
+    from ignis_tpu_torch.techniques.path import OFFSET, trace_scene
+    sets = main_path_sets(rt, device, light, seed)
+    shadow, _ = sets["shadow"]
+    first = trace_scene(rt.scene, shadow)
+    more = first.prim >= 0
+    second = Rays(shadow.org, shadow.dir,
+                  torch.where(more, first.t + OFFSET, OFFSET).contiguous(),
+                  torch.where(more, shadow.tmax, -1.0).contiguous())
+    return {"secondary": sets["secondary"], "crossing 1": (shadow, False),
+            "crossing 2": (second, False)}
 
 
 def compare_hits(got, ref, what, bar, hit_mask=False):
@@ -767,8 +908,9 @@ def phase_times(device, s1, k1_rays):
     return out
 
 
-def phase_k1_sets(device, runtimes, check_only=False):
-    """K1 on main_path_sets of each runtime ({name: Runtime}): exact
+def phase_k1_sets(device, runtimes, check_only=False, sets_of=None):
+    """K1 on main_path_sets (or `sets_of`) of each runtime ({name:
+    Runtime}): exact
     against the plain walk (t, u and v bit for bit where the prims agree,
     prim agreement > 0.995, any-hit agreement >= 0.995), and,
     unless check_only, its median time with the soup packed beforehand, as
@@ -788,7 +930,8 @@ def phase_k1_sets(device, runtimes, check_only=False):
               f"({nodes.records.numel() * 4 / 1e6:.1f} MB), {nodes.dropped} "
               f"empty child slots dropped")
         vis = sc.tri_attr.shadow_visible
-        for set_name, (rays, any_hit) in main_path_sets(rt, device).items():
+        for set_name, (rays, any_hit) in (sets_of or main_path_sets)(
+                rt, device).items():
             what = f"K1 {name} {set_name}"
             live = int((rays.tmax >= rays.tmin).sum())
             if any_hit:
@@ -929,9 +1072,10 @@ def phase_profile(runtimes):
     return out
 
 
-def phase_reference(device, s5_small):
+def phase_reference(device, s5_small, s6_small):
     """Analytic point-light oracle on the card, and card-vs-CPU renders
-    (`s5_small` is S5 at 64x64, subdivisions 1, a 256x128 env)."""
+    (`s5_small` is S5 at 64x64, subdivisions 1, a 256x128 env; `s6_small`
+    S6 at 64x64 with its ball at subdivisions 2: 448 triangles, K2)."""
     import torch
     import ignis_tpu_torch
     scene = flat_scene()
@@ -945,13 +1089,17 @@ def phase_reference(device, s5_small):
           f"analytic point light: {avg:.9f} vs 0.005100456 (abs 1e-4)")
     for name, sc in (("S2", S2_GRAFT_ENTRY), ("S4", S4_GLASS_ICO2),
                      ("S1 at subdivisions 3", _ico3(S1_GLASS_ICO7)),
-                     ("S5 at subdivisions 1", s5_small)):
+                     ("S5 at subdivisions 1", s5_small),
+                     ("S6 at subdivisions 2", s6_small)):
         small = dict(sc)
         small["film"] = {"size": [64, 64]}
         imgs = []
         for dev in (device, "cpu"):
             r = ignis_tpu_torch.loadFromString(json.dumps(small), device=dev,
                                                spi=4)
+            if name.startswith("S6"):
+                check(r.scene.bvh is None and r.settings.transparent_shadows,
+                      f"{name}: under the BVH threshold (K2), glassy")
             imgs.append(r.step().framebuffer(normalized=True).cpu().numpy())
         gpu, cpu = imgs
         close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1).mean()
@@ -1505,8 +1653,9 @@ def phase_k3_recorded(device, runtimes):
     """K3 on the launches of one S1 and one S2 geometry-gradient step
     (record_k3): every gather equal to its plain version and every scatter
     within the reorder bar (k3_gather_result, k3_scatter_result), then the
-    times of time_k3_launches. Returns {scene: {"gather": ..., "scatter":
-    ...}}."""
+    times of time_k3_launches, the kernels' timed a second time after the
+    library's (`ms_repeat`), which shows how far the sums move within one
+    run. Returns {scene: {"gather": ..., "scatter": ...}}."""
     out = {}
     for name in ("S1_glass_ico7", "S2_graft_entry"):
         gathers, scatters = record_k3(runtimes[name], device)
@@ -1521,10 +1670,13 @@ def phase_k3_recorded(device, runtimes):
               f"scatters within 1e-6 + 1e-5 sum|terms| of index_add_ (worst "
               f"ratio {worst:.4f}){'; ' + faults[0] if faults else ''}")
         row = time_k3_launches(gathers, scatters)
+        again = time_k3_launches(gathers, scatters, library=False)
         for kind, t in row.items():
+            t["ms_repeat"] = again[kind]["ms"]
             print(f"  {name} geometry step, K3 {kind}: {t['launches']} "
-                  f"launches, {t['lanes']} lanes, kernel {t['ms']:.4f} ms, "
-                  f"library {t['library_ms']:.4f} ms, bound "
+                  f"launches, {t['lanes']} lanes, kernel {t['ms']:.4f} ms "
+                  f"(timed again after the library: {t['ms_repeat']:.4f} "
+                  f"ms), library {t['library_ms']:.4f} ms, bound "
                   f"{t['bound_ms']:.4f} ms (sums)")
         out[name] = row
     return out
@@ -1587,18 +1739,43 @@ def k3_material_set(rt, device, seed=31):
     return mid, tab, k, torch.where(hit.prim >= 0, cot, 0.0)
 
 
-def phase_k3_material(device, s5):
-    """K3 on S5's material table (k3_material_set: 262,144 lanes onto
-    about 14 rows of 32 floats): the gather equal to its plain version,
-    the scatter within the reorder bar, each timed beside its bound and
-    torch.index_select / torch.zeros(M, 32).index_put_((mid,), rows,
-    accumulate=True), the operation behind indexing_backward_kernel that
-    the per-column material fetch used to run."""
+def k3_medium_set(rt, device, seed=37):
+    """K3's inputs at the medium fetch of the first bounce of rt's main
+    path (volpath's eval_medium_at after the camera hits, one gather of
+    medium.gather_medium): the medium a camera lane takes on crossing the
+    surface it hits (the entity's inner medium where it enters, its outer
+    where it leaves, vacuum (-1, read as row 0) on a miss), clamped as
+    gather_medium clamps it, into rt's medium_table ([n, 8]), its
+    MED_COLS = 7 columns, and a random cotangent block."""
+    import torch
+    from ignis_tpu_torch.models import medium
+    from ignis_tpu_torch.techniques import path
+    sc = rt.scene
+    cam, _ = main_path_sets(rt, device)["camera"]
+    hit = path.trace_scene(sc, cam)
+    surf = path.compute_surface(sc, cam, hit)
+    ent = torch.clamp(surf.ent, min=0).long()
+    med = torch.where(surf.is_entering, sc.entities.med_inner[ent],
+                      sc.entities.med_outer[ent])
+    med = torch.where(hit.prim >= 0, med, -1)
+    tab = medium.medium_table(sc.media)
+    idx = torch.clamp(med, 0, tab.shape[0] - 1).to(torch.int32)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cot = torch.randn(medium.MED_COLS, idx.numel(), generator=g).to(device)
+    return idx, tab, medium.MED_COLS, cot
+
+
+def phase_k3_table(device, what, idx, tab, k, cot):
+    """K3 on one table of the main path (k3_material_set, k3_medium_set):
+    the gather equal to its plain version, the scatter within the reorder
+    bar, each timed beside its bound and torch.index_select /
+    torch.zeros(T, S).index_put_((idx,), rows, accumulate=True), the
+    operation behind indexing_backward_kernel that a per-column fetch
+    runs."""
     import torch
     from ignis_tpu_torch.ops import gather
-    idx, tab, k, cot = k3_material_set(s5, device)
     n_rows, stride = tab.shape
-    g_err, s_err = check_k3("S5 material table", idx, tab, k, cot)
+    g_err, s_err = check_k3(what, idx, tab, k, cot)
     rows = torch.zeros(idx.numel(), stride, device=device)
     rows[:, :k] = cot.t()
     mid = idx.long()
@@ -1615,10 +1792,9 @@ def phase_k3_material(device, s5):
                            .index_put_((mid,), rows, accumulate=True)),
         bound_ms=k3_bound(idx, k, n_rows, True)[0], max_abs_err=s_err)}
     for kind, t in out.items():
-        print(f"  S5 material table, K3 {kind}: {t['lanes']} lanes onto "
-              f"{n_rows} rows, {k} columns: kernel {t['ms']:.4f} ms, "
-              f"library {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f}"
-              f" ms")
+        print(f"  {what}, K3 {kind}: {t['lanes']} lanes onto {n_rows} rows, "
+              f"{k} columns: kernel {t['ms']:.4f} ms, library "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
     return out
 
 
@@ -1646,6 +1822,79 @@ def phase_grad_reference(device):
           and np.allclose(gpu, cpu, rtol=1e-3, atol=0),
           "small_scene(64): albedo gradient on the card within rtol 1e-3 "
           "of the CPU's")
+
+
+def sigma_grad(rt, device):
+    """(loss, [6] gradient) of phase_train's loss (target black) w.r.t.
+    rt's media.sigma_a and sigma_s, on the device rt lives on."""
+    import torch
+    from ignis_tpu_torch import loss_fn
+    from ignis_tpu_torch.core.vec import Color
+    s = rt.settings
+    med = rt.scene.media
+    sa, ss = [Color(*[c.detach().clone().requires_grad_() for c in col])
+              for col in (med.sigma_a, med.sigma_s)]
+    scene = rt.scene._replace(media=med._replace(sigma_a=sa, sigma_s=ss))
+    target = torch.zeros((s.height, s.width, 3), device=device)
+    loss = loss_fn({"base": scene.materials.base}, scene, s, target, 0, 0)
+    grads = torch.autograd.grad(loss, [*sa, *ss])
+    return loss, torch.stack([g.reshape(-1) for g in grads])
+
+
+def phase_sigma(device, rt, small):
+    """One sigma gradient step of S6 (`rt`) at its full size: the loss of
+    phase_train w.r.t. media.sigma_a and sigma_s, through the weights of
+    the medium events and surface branches and the transmittances (the
+    crossing walk's included); counts reset before and read after. Then
+    the same gradient of `small` (S6 at 64x64, K2) on the card against the
+    CPU's: rtol 1e-3.
+
+    The gradient is the estimator's, and it is biased: S6 plays Russian
+    roulette from depth 2, whose probability follows the throughput and is
+    not detached, so reverse mode misses the survival term (ROADMAP queue
+    3; the CPU tests hold the sigma gradient to central differences with
+    roulette off). The distance sampling is held fixed under the gradient
+    (medium.sample_distance), so the free-flight sample adds no bias."""
+    import torch
+    import ignis_tpu_torch
+    reset_all_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    loss, g = sigma_grad(rt, device)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    used = launches()
+    print(f"  {S6_NAME}: sigma gradient (the estimator's, biased by the "
+          f"undetached roulette past depth 2) in {sec:.4f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB, "
+          f"loss {float(loss):.6f}, d/d(sigma_a, sigma_s) "
+          f"{g.cpu().numpy().round(8).tolist()}, launches {used}")
+    check(bool(torch.isfinite(g).all()) and bool((g != 0).all()),
+          f"{S6_NAME}: sigma gradient finite and nonzero on every entry")
+    check(used["K1"] > 0 and used["K3_scatter_add_rows"] > 0
+          and plain_calls() == 0, f"{S6_NAME}: K1 and the K3 scatter "
+          f"launched, no plain version called ({plain_calls()})")
+    check(used["MT_replay_bwd"] == 0, f"{S6_NAME}: no MT replay in the "
+          f"sigma gradient (no ray follows sigma): "
+          f"{used['MT_replay_bwd']}")
+    grads = []
+    for dev in (device, "cpu"):
+        r = ignis_tpu_torch.loadFromString(json.dumps(small), device=dev,
+                                           spi=1)
+        grads.append(sigma_grad(r, dev)[1].cpu().numpy())
+    gpu, cpu = grads
+    print(f"  small S6 (64x64) sigma gradient: card {gpu.ravel().tolist()},"
+          f" CPU {cpu.ravel().tolist()}")
+    check(np.isfinite(gpu).all() and np.abs(cpu).min() > 0
+          and np.allclose(gpu, cpu, rtol=1e-3, atol=0),
+          "small S6: sigma gradient on the card within rtol 1e-3 of the "
+          "CPU's")
+    return {"seconds": sec, "loss": float(loss),
+            "grad": g.cpu().numpy().ravel().tolist(),
+            "small_card": gpu.ravel().tolist(),
+            "small_cpu": cpu.ravel().tolist(),
+            "launches": used}
 
 
 def _ico3(scene):
@@ -1704,6 +1953,26 @@ def main() -> int:
     check(s5.scene.tris.v0.x.numel() == 184324 and s5.scene.bvh is not None
           and tuple(s5.scene.textures[3].image.shape) == (2048, 4096, 3),
           f"{S5_NAME}: 184,324 triangles with a BVH, the 4096x2048 env")
+    t0 = time.perf_counter()
+    s6_dict = s6_scene(ROOT / "build")
+    print(f"  {S6_NAME}: mesh files written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    s6 = runtimes[S6_NAME] = ignis_tpu_torch.loadFromString(
+        json.dumps(s6_dict), spi=SPI)
+    n6 = s6.scene.tris.v0.x.numel()
+    print(f"  {S6_NAME}: {n6} triangles, BVH "
+          f"{'yes' if s6.scene.bvh is not None else 'no'}, technique "
+          f"{s6.settings.technique}, transparent_shadows "
+          f"{s6.settings.transparent_shadows}, "
+          f"{s6.scene.media.g.numel()} media, loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(n6 == 327808 and s6.scene.bvh is not None
+          and s6.settings.transparent_shadows
+          and s6.settings.technique == "volpath" and s6.warnings == [],
+          f"{S6_NAME}: 327,808 triangles with a BVH, volpath with "
+          f"transparent shadows")
+    s6_small = s6_scene(ROOT / "build", subdivisions=2, size=64)
 
     print(f"== phase 3: K2 against its plain version ({time.perf_counter() - t_start:.1f} s in)")
     k2_err = phase_k2(device)
@@ -1717,13 +1986,18 @@ def main() -> int:
     k1_sets, deepest = phase_k1_sets(
         device, {"S1": runtimes["S1_glass_ico7"],
                  "S3": runtimes["S3_bench_big"]})
+    s6_sets, deepest6 = phase_k1_sets(device, {"S6": s6},
+                                      sets_of=crossing_sets)
+    k1_sets.update(s6_sets)
+    deepest = max(deepest, deepest6)
 
-    print(f"== phase 5: render S1-S5 ({time.perf_counter() - t_start:.1f} s in)")
+    print(f"== phase 5: render S1-S6 ({time.perf_counter() - t_start:.1f} s in)")
     counts, per_scene = phase_render(device, runtimes)
     profile = phase_profile(runtimes)
 
     print(f"== phase 6: reference checks ({time.perf_counter() - t_start:.1f} s in)")
-    phase_reference(device, s5_scene(env_small, subdivisions=1, size=64))
+    phase_reference(device, s5_scene(env_small, subdivisions=1, size=64),
+                    s6_small)
 
     print(f"== phase 7: gradients ({time.perf_counter() - t_start:.1f} s in)")
     grad_errs, grad_times = phase_grad_kernels(
@@ -1734,8 +2008,13 @@ def main() -> int:
                                               runtimes["S1_glass_ico7"])
     k3_recorded = phase_k3_recorded(device, runtimes)
     albedo = phase_albedo_shape(device, runtimes["S1_glass_ico7"])
-    k3_material = phase_k3_material(device, s5)
+    k3_tables = {
+        "S5 material table": phase_k3_table(
+            device, "S5 material table", *k3_material_set(s5, device)),
+        "S6 medium table": phase_k3_table(
+            device, "S6 medium table", *k3_medium_set(s6, device))}
     phase_grad_reference(device)
+    sigma = phase_sigma(device, s6, s6_small)
 
     def timed(t):
         ms, plain, bms, by = t
@@ -1781,18 +2060,19 @@ def main() -> int:
     by_name["K3_scatter_add_rows"]["sets"]["S1 albedo shape"] = albedo
     for name, part in (("K3_gather_rows", "gather"),
                        ("K3_scatter_add_rows", "scatter")):
-        by_name[name]["sets"]["S5 material table"] = k3_material[part]
-        by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
-                                           k3_material[part]["max_abs_err"])
+        for table, row in k3_tables.items():
+            by_name[name]["sets"][table] = row[part]
+            by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
+                                               row[part]["max_abs_err"])
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on the main path")
     if args.profile_json:
         Path(args.profile_json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.profile_json).write_text(json.dumps(
             {"nvidia_smi": smi, "scenes": per_scene, "profile": profile,
-             "train": train, "train_profile": train_profile,
+             "train": train, "sigma": sigma, "train_profile": train_profile,
              "geometry_profile": geometry_profile}, indent=1))
-    print(json.dumps({"scenes": per_scene, "train": train,
+    print(json.dumps({"scenes": per_scene, "train": train, "sigma": sigma,
                       "geometry_profile_us": {
                           k: v for k, v in geometry_profile.items()
                           if k.endswith("_us")}}))

@@ -2,19 +2,23 @@
 
 The port's copy of ignis_tpu/scene/build.py, producing the port's
 SceneData directly as tensors on an explicit device, without JAX.
-Covered: perspective/orthogonal/fishlens cameras; rectangle, analytic
-sphere, icosphere and uvsphere shapes; every analytic BSDF (diffuse,
-dielectric smooth / rough / thin, conductor, phong, plastic, principled,
-passthrough, transparent, the Radiance models) and the wrappers (blend,
-mask, cutoff, twosided, normalmap, bumpmap); image, checkerboard, brick,
-noise-family, constant and transform textures, by name; point, spot,
-directional, area, sun and environment lights, the env constant or an
-image texture with its conditional / SAT / hierarchical importance table;
-the uniform, cdf and hierarchy light selectors and their tables. Anything
-else raises NotImplementedError naming its ROADMAP item: PExpr strings
-(item 15), measured BSDFs and sky lights (item 16), scenes whose BSDFs
-turn on transparent shadows (thin dielectric, passthrough, mask, RAD;
-item 12), other shapes (item 19).
+Covered: perspective/orthogonal/fishlens cameras; every shape of the JAX
+build (triangle, rectangle, cube/box, the analytic sphere, icosphere,
+uvsphere, cylinder, cone, disk, the two gaussians, inline meshes and the
+ply, obj, mitsuba and external mesh files; any other type is skipped with
+the JAX build's warning); every analytic BSDF (diffuse, dielectric smooth
+/ rough / thin, conductor, phong, plastic, principled, passthrough,
+transparent, the Radiance models) and the wrappers (blend, mask, cutoff,
+twosided, normalmap, bumpmap); image, checkerboard, brick, noise-family,
+constant and transform textures, by name; point, spot, directional, area,
+sun and environment lights, the env constant or an image texture with
+its conditional / SAT / hierarchical importance table; the uniform, cdf
+and hierarchy light selectors and their tables; homogeneous media and the
+entities' inner and outer media. Transparent shadows turn on, as in the
+JAX build, when a row is passthrough, thin dielectric or Radiance.
+Anything else raises NotImplementedError naming its ROADMAP item: PExpr
+strings (item 15; PExpr-valued media included), measured BSDFs and sky
+lights (item 16).
 
 Rows and values follow the JAX build; the triangle order differs: scenes
 with a BVH are reordered by the tri-leaf BVH8's prim_order alone (no TPU
@@ -36,7 +40,7 @@ from ..bvh.builder import build_bvh8
 from ..core import cdf as cdflib
 from ..core.vec import Color, Vec2, Vec3
 from ..models import texture as texlib
-from ..models.bsdf import BLEND_MAX_DEPTH, ROUGH_FLAG, BsdfKind
+from ..models.bsdf import BLEND_MAX_DEPTH, ROUGH_FLAG, THIN_FLAG, BsdfKind
 from ..models.light import LightKind
 from ..ops.bvh import BVHArrays
 from ..ops.intersect import SphereSoup, TriSoup
@@ -70,7 +74,6 @@ CONDUCTOR_SPECTRA = {
     "none": ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),  # perfect mirror
 }
 
-_MESH_SHAPES = ("rectangle", "icosphere", "uvsphere")
 _SKY_LIGHTS = ("cie_uniform", "cieuniform", "cie_cloudy", "ciecloudy",
                "cie_clear", "cieclear", "cie_intermediate",
                "cieintermediate", "perez", "sky")
@@ -141,10 +144,19 @@ class TextureRegistry:
         raise _todo(f"{what}: PExpr '{s}'", "15 (PExpr)")
 
 
-def _shape_to_mesh(obj: SceneObject) -> meshlib.TriMesh:
+def _shape_to_mesh(obj: SceneObject,
+                   warnings: List[str]) -> Optional[meshlib.TriMesh]:
+    """The mesh of a shape object (ignis_tpu/scene/build.py:227-346), with
+    the same defaults; None, with a warning, for an unknown type. Mesh
+    files are parsed at every load (no cache). `sphere` never gets here:
+    build_scene keeps it analytic."""
     t = obj.plugin_type
     p = obj
-    if t == "rectangle":
+    if t == "triangle":
+        m = meshlib.make_triangle(p.get_vec3("p0", (0, 0, 0)),
+                                  p.get_vec3("p1", (1, 0, 0)),
+                                  p.get_vec3("p2", (0, 1, 0)))
+    elif t == "rectangle":
         if "p0" in p.props:
             m = meshlib.make_rectangle(p.get_vec3("p0", (-1, -1, 0)),
                                        p.get_vec3("p1", (1, -1, 0)),
@@ -156,6 +168,13 @@ def _shape_to_mesh(obj: SceneObject) -> meshlib.TriMesh:
             origin = p.get_vec3("origin", (-w / 2, -h / 2, 0))
             m = meshlib.make_plane(origin, np.array([w, 0, 0]),
                                    np.array([0, h, 0]))
+    elif t in ("cube", "box"):
+        w = p.get_number("width", 2.0)
+        h = p.get_number("height", 2.0)
+        d = p.get_number("depth", 2.0)
+        origin = p.get_vec3("origin", (-w / 2, -h / 2, -d / 2))
+        m = meshlib.make_box(origin, np.array([w, 0, 0]), np.array([0, h, 0]),
+                             np.array([0, 0, d]))
     elif t == "icosphere":
         m = meshlib.make_ico_sphere(p.get_vec3("center"),
                                     p.get_number("radius", 1.0),
@@ -165,9 +184,64 @@ def _shape_to_mesh(obj: SceneObject) -> meshlib.TriMesh:
                                    p.get_number("radius", 1.0),
                                    p.get_int("stacks", 32),
                                    p.get_int("slices", 16))
+    elif t == "cylinder":
+        if "radius" in p.props:
+            br = tr = p.get_number("radius", 1.0)
+        else:
+            br = p.get_number("bottom_radius", 1.0)
+            tr = p.get_number("top_radius", br)
+        m = meshlib.make_cylinder(p.get_vec3("p0"), br,
+                                  p.get_vec3("p1", (0, 0, 1)), tr,
+                                  p.get_int("sections", 32),
+                                  p.get_bool("filled", True))
+    elif t == "cone":
+        m = meshlib.make_cone(p.get_vec3("p0"), p.get_number("radius", 1.0),
+                              p.get_vec3("p1", (0, 0, 1)),
+                              p.get_int("sections", 32),
+                              p.get_bool("filled", True))
+    elif t == "disk":
+        m = meshlib.make_disk(p.get_vec3("origin"),
+                              p.get_vec3("normal", (0, 0, 1)),
+                              p.get_number("radius", 1.0),
+                              p.get_int("sections", 32))
+    elif t == "gauss":
+        m = meshlib.make_radial_gaussian(
+            p.get_vec3("origin"),
+            np.asarray(p.get_vec3("normal", (0, 0, 1)), np.float64)
+            * p.get_number("height", 1.0),
+            p.get_number("sigma", 1.0), p.get_number("radius_scale", 1.0),
+            p.get_int("sections", 32), p.get_int("slices", 16))
+    elif t == "gauss_lobe":
+        st = p.get_number("sigma_theta", 1.0)
+        sp = p.get_number("sigma_phi", 1.0)
+        an = p.get_number("anisotropy", 0.0)
+        cov = [[st * st, an * st * sp], [an * st * sp, sp * sp]]
+        m = meshlib.make_gaussian_lobe(
+            p.get_vec3("origin"), p.get_vec3("direction", (0, 0, 1)),
+            p.get_vec3("x_axis", (1, 0, 0)), p.get_vec3("y_axis", (0, 1, 0)),
+            cov, p.get_int("theta_size", 64), p.get_int("phi_size", 128),
+            p.get_number("scale", 1.0))
+    elif t == "mitsuba":
+        m = meshlib.load_mts_serialized(p.path("filename"),
+                                        p.get_int("shape_index", 0))
+    elif t == "obj":
+        m = meshlib.load_obj(p.path("filename"), p.get_int("shape_index", -1))
+    elif t == "ply":
+        m = meshlib.load_ply(p.path("filename"))
+    elif t == "external":
+        m = meshlib.load_mesh_file(p.path("filename"))
+    elif t == "inline":
+        verts = np.asarray(p.get("vertices", []), np.float32).reshape(-1, 3)
+        idx = np.asarray(p.get("indices", []), np.int32).reshape(-1, 3)
+        norms = p.get("normals")
+        uvs = p.get("texcoords")
+        m = meshlib.TriMesh(
+            verts, idx,
+            np.asarray(norms, np.float32).reshape(-1, 3) if norms else None,
+            np.asarray(uvs, np.float32).reshape(-1, 2) if uvs else None)
     else:
-        raise _todo(f"shape type '{t}'", "19 (remaining shapes and mesh "
-                    "loaders)")
+        warnings.append(f"Unsupported shape type '{t}', skipping")
+        return None
     # post-processing flags (TriMeshProvider.cpp:525-545)
     if p.get_bool("flip_normals", False):
         m.flip_normals()
@@ -619,13 +693,10 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         if obj.plugin_type == "sphere":
             analytic_spheres[name] = (obj.get_vec3("center"),
                                       obj.get_number("radius", 1.0))
-        elif obj.plugin_type in _MESH_SHAPES:
-            meshes[name] = _shape_to_mesh(obj)
         else:
-            raise _todo(f"shape type '{obj.plugin_type}'",
-                        "19 (remaining shapes and mesh loaders)")
-    if scene.media:
-        raise _todo("participating media", "12")
+            m = _shape_to_mesh(obj, warnings)
+            if m is not None:
+                meshes[name] = m
 
     # --- textures and materials ----------------------------------------
     texreg = TextureRegistry()
@@ -639,16 +710,15 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         mat_rows.append(_bsdf_row(SceneObject("diffuse", "_default"),
                                   texreg))
     has_blend = _resolve_wrappers(mat_rows, mat_index, texreg, warnings)
-    see_through = [r for r in mat_rows
-                   if r["kind"] in (int(BsdfKind.PASSTHROUGH),
-                                    int(BsdfKind.RAD_BRTDF),
-                                    int(BsdfKind.RAD_ROOS))
-                   or (r["kind"] == int(BsdfKind.DIELECTRIC)
-                       and r["p3"] > 0.5)]
-    if see_through:
-        # the JAX build turns transparent shadows on for these rows
-        raise _todo("transparent shadows (thin dielectric, passthrough, "
-                    "mask or Radiance BSDFs)", "12")
+
+    # --- media (ignis_tpu/scene/build.py:867-889): homogeneous constants
+    med_rows = []
+    med_index: Dict[str, int] = {}
+    for name, obj in scene.media.items():
+        med_index[name] = len(med_rows)
+        sa = _const_color(obj, "sigma_a", (0, 0, 0))
+        ss = _const_color(obj, "sigma_s", (0, 0, 0))
+        med_rows.append((sa, ss, _number(obj, "g", 0.0)))
 
     # --- entities: flatten transforms into one soup --------------------
     tri_v0, tri_e1, tri_e2 = [], [], []
@@ -657,7 +727,7 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     tri_ent, tri_area, tri_shadow = [], [], []
     sph_center, sph_radius, sph_ent, sph_shadow = [], [], [], []
     ent_names: List[str] = []
-    ent_mat, ent_light = [], []
+    ent_mat, ent_light, ent_med_in, ent_med_out = [], [], [], []
     ent_tri_range: Dict[str, tuple] = {}
     ent_sphere: Dict[str, tuple] = {}
     all_points = []
@@ -668,6 +738,8 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         ent_names.append(name)
         ent_mat.append(mat_index.get(obj.get_string("bsdf"), 0))
         ent_light.append(-1)
+        ent_med_in.append(med_index.get(obj.get_string("inner_medium"), -1))
+        ent_med_out.append(med_index.get(obj.get_string("outer_medium"), -1))
         shadow_visible = obj.get_bool("shadow_visible", True)
         tr = obj.get_transform()
         m = None
@@ -708,8 +780,6 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
                                    tri_e2, tri_n, tri_uv, tri_ent, tri_area,
                                    tri_shadow)
             all_points.append(m.vertices)
-        if obj.get_string("inner_medium") or obj.get_string("outer_medium"):
-            raise _todo("participating media", "12")
     areas_all = (np.concatenate(tri_area).astype(np.float32) if tri_area
                  else np.zeros(0, np.float32))
 
@@ -901,8 +971,8 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     entities = Entities(
         mat=ten(np.asarray(ent_mat or [0], np.int32)),
         light=ten(np.asarray(ent_light or [-1], np.int32)),
-        med_inner=ten(np.full(max(len(ent_names), 1), -1, np.int32)),
-        med_outer=ten(np.full(max(len(ent_names), 1), -1, np.int32)))
+        med_inner=ten(np.asarray(ent_med_in or [-1], np.int32)),
+        med_outer=ten(np.asarray(ent_med_out or [-1], np.int32)))
 
     def mcol(key, dtype=np.float32):
         return ten(np.asarray([r[key] for r in mat_rows], dtype))
@@ -940,9 +1010,12 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
 
     lights = _pack_lights(l_rows, n_lights, radius, area_tris, area_cdf,
                           v0, e1, e2, ten, soa3)
-    media = Media(sigma_a=Color(*[ten(np.zeros(1, np.float32))] * 3),
-                  sigma_s=Color(*[ten(np.zeros(1, np.float32))] * 3),
-                  g=ten(np.zeros(1, np.float32)))
+    media = Media(
+        sigma_a=Color(*[ten(np.asarray([r[0][i] for r in med_rows] or [0.0],
+                                       np.float32)) for i in range(3)]),
+        sigma_s=Color(*[ten(np.asarray([r[1][i] for r in med_rows] or [0.0],
+                                       np.float32)) for i in range(3)]),
+        g=ten(np.asarray([r[2] for r in med_rows] or [0.0], np.float32)))
     if envmap is None:
         envmap = EnvMap(present=ten(np.asarray(False)),
                         marginal=ten(np.zeros((1,), np.float32)),
@@ -991,6 +1064,15 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     kinds |= {ROUGH_FLAG + int(r["kind"]) for r in mat_rows
               if r["kind"] in (int(BsdfKind.CONDUCTOR),
                                int(BsdfKind.DIELECTRIC)) and rough(r)}
+    kinds |= {THIN_FLAG + int(BsdfKind.DIELECTRIC) for r in mat_rows
+              if r["kind"] == int(BsdfKind.DIELECTRIC) and r["p3"] > 0.5}
+    # the rows a shadow ray may see through (ignis_tpu/scene/build.py
+    # :1633-1640, without its environment switch)
+    see_through = any(r["kind"] in (int(BsdfKind.PASSTHROUGH),
+                                    int(BsdfKind.RAD_BRTDF),
+                                    int(BsdfKind.RAD_ROOS))
+                      or (r["kind"] == int(BsdfKind.DIELECTRIC)
+                          and r["p3"] > 0.5) for r in mat_rows)
     settings = RenderSettings(
         width=width, height=height, technique=tech_type,
         max_depth=max_depth, min_depth=min_depth, clamp=clamp,
@@ -1001,6 +1083,7 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         light_selector={"simple": "cdf"}.get(selector, selector),
         infinite_light_rows=infinite_rows, n_lights=n_lights,
         texture_descs=tuple(texreg.descs), has_blend=has_blend,
+        transparent_shadows=see_through,
         has_bump=any(r["bump_kind"] != 0 and r["bump_tex"] >= 0
                      for r in mat_rows),
         bsdf_kinds=tuple(sorted(kinds)),

@@ -1,9 +1,9 @@
 """Scene file parsing: tolerant JSON + externals + transform DSL.
 
 Copied from ignis_tpu/scene/parser.py, which cannot be imported without
-JAX (ignis_tpu/__init__.py imports the JAX renderer). Changes against the
-source: the glTF include branch raises NotImplementedError (not on the
-slice). Output is a plain-Python `Scene` of `SceneObject`s, consumed by
+JAX (ignis_tpu/__init__.py imports the JAX renderer), unchanged; glTF
+includes go through the port's own copy of the importer (scene/gltf.py).
+Output is a plain-Python `Scene` of `SceneObject`s, consumed by
 ignis_tpu_torch.scene.build.
 """
 
@@ -290,8 +290,8 @@ def _merge_into(scene: Scene, data: dict, base_dir: Path, top_level: bool):
         p = Path(fn)
         p = p if p.is_absolute() else base_dir / p
         if p.suffix.lower() in (".gltf", ".glb"):
-            raise NotImplementedError(
-                f"glTF includes are not ported yet ({p.name})")
+            from .gltf import merge_gltf
+            merge_gltf(scene, p)
         else:
             sub = loads_tolerant(p.read_text())
             _merge_into(scene, sub, p.parent, top_level=False)

@@ -27,8 +27,11 @@ fixed-winner backward (ops/mt_replay.py), the hit-attribute and material
 fetches through K3 (ops/gather.py) and its scatter-add backward, bounces
 checkpointed in chunks of DIFF_CHUNK.
 
-Not carried yet: transparent shadows and volumes (ROADMAP queue 1, item
-12), instancing (13) and the other techniques (14).
+Transparent shadows (`shadow_transmittance`) walk a shadow ray's
+crossings of see-through rows and media; the volumetric technique
+(techniques/volpath.py) shares this module's shading, light sampling and
+cascade (`technique_fns`). Not carried yet: instancing (ROADMAP queue 1,
+item 13) and the other techniques (14).
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import rng as rnglib
 from ..core.frame import Frame, ensure_valid_reflection, make_frame
+from ..core.fresnel import fresnel_dielectric
 from ..core.sampler import sample_pixel_offsets
 from ..core.vec import (Color, Vec2, Vec3, black_like, color_max_component,
                         cross, cselect, dot, length, normalize, safe_div,
@@ -47,6 +51,7 @@ from ..core.warp import PI, TWO_PI, spherical_from_dir
 from ..models import bsdf as bsdflib
 from ..models import camera as cameralib
 from ..models import light as lightlib
+from ..models import medium as medlib
 from ..models import texture as texlib
 from ..ops import bvh_cuda, isect_cuda
 from ..ops import gather as gatherlib
@@ -420,165 +425,376 @@ def _cadd_where(m, acc: Color, c: Color) -> Color:
 
 def check_settings(settings: RenderSettings, scene: SceneData) -> None:
     """Raise for anything the port does not carry yet."""
-    if settings.technique not in ("path", "pt"):
+    if settings.technique not in ("path", "pt", "volpath"):
         raise NotImplementedError(
             f"technique '{settings.technique}' is not ported yet (ROADMAP "
-            "queue 1, items 12 and 14)")
-    if settings.transparent_shadows:
-        raise NotImplementedError(
-            "transparent shadows are not ported yet (ROADMAP queue 1, "
-            "item 12)")
+            "queue 1, item 14)")
     if settings.medium_exprs and any(settings.medium_exprs):
         raise NotImplementedError("PExpr media are not ported yet (ROADMAP "
-                                  "queue 1, items 12 and 15)")
+                                  "queue 1, item 15)")
     texlib.check_descs(settings.texture_descs)
     bsdflib.check_kinds(settings.bsdf_kinds)
 
 
-def make_bounce(scene: SceneData, settings: RenderSettings,
-                tab: torch.Tensor, mtab: torch.Tensor, info: SceneInfo,
-                regen=None, packed=None, eval_texture=None):
-    """Per-bounce wavefront step; `tab` is the scene's attr_table, `mtab`
-    its material_table, `info` its scene_info, `packed` its soup_pack_of
-    and `eval_texture` its texture evaluator (None without textures).
-    With `regen` = (x, y, iteration, frame), lanes whose path ended
-    restart the next sample of their pixel."""
-    n_lights = settings.n_lights
+class RenderTables(NamedTuple):
+    """What a render makes once from the scene and hands to every bounce:
+    the attr_table, the material_table, the medium_table (None where no
+    bounce reads a medium), scene_info, the soup packed for its kernel
+    (soup_pack_of) and the texture evaluator (None without textures)."""
+    attr: torch.Tensor
+    mat: torch.Tensor
+    med: torch.Tensor
+    info: SceneInfo
+    packed: object
+    eval_texture: object
+
+
+def render_tables(scene: SceneData, settings: RenderSettings,
+                  eval_texture=None) -> RenderTables:
+    if eval_texture is None:
+        eval_texture = texlib.make_texture_evaluator(settings.texture_descs,
+                                                     scene.textures)
+    media = settings.transparent_shadows or settings.technique == "volpath"
+    return RenderTables(attr_table(scene), material_table(scene),
+                        medlib.medium_table(scene.media) if media else None,
+                        scene_info(scene, settings), soup_pack_of(scene),
+                        eval_texture)
+
+
+def shadow_transmittance(scene: SceneData, settings: RenderSettings,
+                         rays: Rays, tabs: RenderTables, init_medium=None,
+                         max_crossings: int = 4) -> Color:
+    """Transparent shadow rays (ignis_tpu/techniques/path.py:187-300): the
+    transmittance along each shadow segment, 0 where it is blocked.
+
+    Walks up to `max_crossings` closest hits along the segment, one
+    trace_scene (K1 or K2) and the K3 fetches of its hit attributes and
+    material rows each, as fixed masked steps with no host sync. A
+    straight-through delta transmitter (passthrough, thin smooth
+    dielectric, RAD_BRTDF and RAD_ROOS specular transmission) multiplies
+    its tint into the carried transmittance (textured tints take the
+    table's constant, as in the JAX package); any other surface blocks.
+    Homogeneous media attenuate each leg under the medium tracked across
+    the crossed entities' inner and outer media, from `init_medium` (ids,
+    vacuum when None) on. Lanes still alive after the last crossing are
+    attenuated to the segment's end and blocked by any further hit.
+
+    Unlike the JAX function, the leg after the last crossing is attenuated
+    too: there a ray that meets nothing more gets seg_len 0 (ROADMAP queue
+    3, ADVICE path.py:237). The walk's geometry is detached (its rays,
+    hits and attributes carry no gradient, so no MT replay runs for it);
+    its tints and transmittances carry gradients to the material and
+    medium tables."""
+    n = rays.tmin.shape[0]
+    info = tabs.info
     present = tuple(int(k) for k in settings.bsdf_kinds)
-    kinds = tuple(int(k) for k in settings.light_kinds or ())
+    one = torch.ones_like(rays.tmin)
+    zero = torch.zeros_like(one)
+    tint = Color(one, one, one)
+    alive = rays.tmax > rays.tmin
+    med_id = (torch.full((n,), -1, dtype=torch.int32, device=one.device)
+              if init_medium is None else init_medium)
+    org = Vec3(*[c.detach() for c in rays.org])
+    d = Vec3(*[c.detach() for c in rays.dir])
+    # area-light shadow rays run over an unnormalised direction (t in
+    # [o, 1 - o]): a medium's path length needs |d|
+    dlen = length(d)
+    t_cur = rays.tmin.detach()
+    t_end = rays.tmax.detach()
+    attr = tabs.attr.detach()
+    ent_in, ent_out = scene.entities.med_inner, scene.entities.med_outer
+
+    for _ in range(max_crossings):
+        seg = Rays(org, d, t_cur, torch.where(alive, t_end, -1.0))
+        hit = trace_scene(scene, seg, tabs.packed)
+        found = hit.prim >= 0
+        surf = compute_surface(scene, seg, hit, attr)
+        mat = gather_mat_rows(tabs.mat, material_ids(scene, surf),
+                              grad=info.mat_grad)
+        # the medium over [t_cur, t_hit], or to the segment's end
+        seg_len = (torch.where(found, hit.t, t_end) - t_cur) * dlen
+        med = medlib.gather_medium(tabs.med, med_id)
+        tr = medlib.transmittance(med, torch.clamp(seg_len, min=0.0))
+        # the tint of the crossed row
+        cos_h = torch.abs(dot(normalize(d), surf.face_n))
+        f_th = fresnel_dielectric(mat.p0 / torch.clamp(mat.p1, min=1e-6),
+                                  cos_h).factor
+        f_th = f_th + (1.0 - f_th) * f_th / (f_th + 1.0)
+        thin_ok = (mat.p3 > 0.5) & (mat.p2 <= bsdflib.DELTA_ALPHA)
+        kind = mat.kind
+        through = Color(zero, zero, zero)
+        through = cselect(kind == bsdflib.BsdfKind.PASSTHROUGH, mat.base,
+                          through)
+        through = cselect((kind == bsdflib.BsdfKind.DIELECTRIC) & thin_ok,
+                          mat.extra * (1.0 - f_th), through)
+        if int(bsdflib.BsdfKind.RAD_BRTDF) in present:
+            # the specular transmission colour is in `extra`
+            through = cselect(kind == bsdflib.BsdfKind.RAD_BRTDF, mat.extra,
+                              through)
+        if int(bsdflib.BsdfKind.RAD_ROOS) in present:
+            # `base` holds the (w, p, q) model parameters: the angular tau
+            # of rad.art make_rad_roos_bsdf
+            tw, tp, tq = (mat.base.r, mat.base.g,
+                          torch.clamp(mat.base.b, min=1e-4))
+            z = torch.arccos(torch.clamp(cos_h, 0.0, 1.0 - 1e-7)) \
+                * 0.636619772368
+            a_c = 8.0
+            alpha_t = 5.2 + 0.7 * tq
+            gamma_t = (5.26 + 0.06 * tp) + (0.73 + 0.04 * tp) * tq
+            b_t = 0.25 / tq
+            c_t = 1.0 - a_c - b_t
+            tau = torch.clamp(tw * (1.0 - a_c * torch.pow(z, alpha_t)
+                                    - b_t * z * z
+                                    - c_t * torch.pow(z, gamma_t)), 0.0, 1.0)
+            through = cselect(kind == bsdflib.BsdfKind.RAD_ROOS,
+                              Color(tau, tau, tau), through)
+        crossed = alive & found
+        tint = cselect(crossed, tint.cmul(tr).cmul(through),
+                       cselect(alive, tint.cmul(tr), tint))
+        # the medium on the far side of the interface
+        ent = torch.clamp(surf.ent, min=0).long()
+        med_id = torch.where(crossed, torch.where(surf.is_entering,
+                                                  ent_in[ent], ent_out[ent]),
+                             med_id)
+        t_cur = torch.where(crossed, hit.t + OFFSET, t_end)
+        alive = crossed & (color_max_component(tint) > 0.0) & (t_cur < t_end)
+    # past the crossing budget: the rest of the segment under the last
+    # medium, blocked by anything there (no light leaks past the budget)
+    med = medlib.gather_medium(tabs.med, med_id)
+    rest = torch.clamp(t_end - t_cur, min=0.0) * dlen
+    rest = torch.where(torch.isfinite(rest), rest, 0.0)
+    tint = tint.cmul(medlib.transmittance(med, rest))
+    fin = Rays(org, d, t_cur, torch.where(alive, t_end, -1.0))
+    blocked = occluded_scene(scene, fin, tabs.packed)
+    return cselect(alive & blocked, Color(zero, zero, zero), tint)
+
+
+def env_miss(scene: SceneData, settings: RenderSettings, tabs: RenderTables,
+             state, inv_pdf, mask, result: Color) -> Color:
+    """`result` plus the emission of the infinite lights that the lanes
+    under `mask` see along their ray, MIS-weighted with `inv_pdf` (a delta
+    light adds nothing to a miss)."""
+    n = state.tmin.shape[0]
     lights = scene.lights
-    depth_h = info.hier_depth
-    textured = eval_texture is not None and bool(
-        info.tex_ids["base_tex"] or info.tex_ids["extra_tex"])
+    for lid, (kind, tex_id, delta) in tabs.info.infinite.items():
+        if delta:
+            continue
+        rows = torch.full((n,), lid, dtype=torch.int64,
+                          device=state.tmin.device)
+        lp = lightlib.gather_light(lights, rows)
+        env_tex = None
+        if tabs.eval_texture is not None and tex_id >= 0:
+            def env_tex(tid, ctx, tex_id=tex_id):
+                return tabs.eval_texture(tid, ctx, (tex_id,))
+        emit = lightlib.env_emission(scene, lp, state.dir, env_tex, (kind,))
+        pdf_s = lightlib.env_pdf_direct(scene, lp, state.dir, (kind,),
+                                        textured=tex_id >= 0)
+        lsel_pdf = lightlib.infinite_selector_pdf(settings, lights, lid,
+                                                  rows)
+        if settings.enable_nee:
+            mis = 1.0 / (1.0 + inv_pdf * lsel_pdf * pdf_s)
+            c = state.contrib.cmul(emit) * mis
+        else:
+            c = state.contrib.cmul(emit)
+        result = _cadd_where(mask, result, _handle_color(c, settings))
+    return result
+
+
+class Shading(NamedTuple):
+    surf: Surface
+    frame: Frame
+    shader: bsdflib.LaneShader
+
+
+def shade_hit(scene: SceneData, settings: RenderSettings, tabs: RenderTables,
+              rays: Rays, hit: Hit) -> Shading:
+    """The surface at each lane's hit (K3 attribute fetch), its material
+    (K3 material fetch, textures, normal and bump maps) and the lane
+    shader over it, blends resolved."""
+    info, ev = tabs.info, tabs.eval_texture
+    n = rays.tmin.shape[0]
+    present = tuple(int(k) for k in settings.bsdf_kinds)
+    textured = ev is not None and bool(info.tex_ids["base_tex"]
+                                       or info.tex_ids["extra_tex"])
+    surf = compute_surface(scene, rays, hit, tabs.attr)
+    ctx = make_surface_ctx(rays, surf) if ev is not None else None
+    mat, mid, tex = gather_material(scene, surf, tabs.mat, ev, ctx, info)
+    if tex is not None:
+        surf = apply_normal_map(surf, ctx, ev, tex, info)
+    frame = make_frame(surf.ns)
+    w_override = None
+    if tex is not None and info.blend_depth and info.tex_ids["p0_tex"]:
+        wtex = ev(tex["p0_tex"], ctx, info.tex_ids["p0_tex"])
+        w_override = torch.where(tex["p0_tex"] >= 0, wtex.r, mat.p0)
+
+    def gather_row(ids):
+        # the rows of blend children, and of every lane of a scene with
+        # blends, textured as gather_material textures a lane's own row
+        # (the JAX package reads them untextured: ROADMAP queue 3); `ids`
+        # holds k rows a lane (make_lane_shader stacks children)
+        if not textured:
+            return gather_mat_rows(tabs.mat, ids, grad=info.mat_grad)
+        k = ids.shape[0] // n
+        ctx_k = ctx._replace(uv=tuple(torch.cat([c] * k) for c in ctx.uv))
+        return apply_textures(*gather_mat_rows(tabs.mat, ids, with_tex=True,
+                                               grad=info.mat_grad),
+                              ev, ctx_k, info)
+    shader = bsdflib.make_lane_shader(gather_row, mid, mat, frame,
+                                      surf.is_entering, info.blend_depth,
+                                      w_override, present)
+    return Shading(surf, frame, shader)
+
+
+def hit_emission(scene: SceneData, settings: RenderSettings,
+                 tabs: RenderTables, state, inv_pdf, active, hit: Hit,
+                 sh: Shading):
+    """(lanes that see an area emitter's front, its radiance, the MIS
+    weight of that hit against NEE with `inv_pdf`)."""
+    lights = scene.lights
+    surf = sh.surf
+    light_row = scene.entities.light[torch.clamp(surf.ent, min=0).long()]
+    hit_row = torch.clamp(light_row, min=0)
+    lp_hit = lightlib.gather_light(lights, hit_row)
+    cos_l = -dot(state.dir, sh.frame.n)
+    emit_ok = active & (light_row >= 0) & surf.is_entering & (cos_l > 1e-6)
+    pdf_area = safe_div(1.0, lp_hit.p0)
+    # miss lanes carry t = FLT_MAX and cos_l may be <= 0: sanitise so that
+    # reverse mode meets no inf or NaN on the masked lanes
+    t_safe = torch.where(emit_ok, hit.t, 1.0)
+    cos_safe = torch.where(emit_ok, cos_l, 1.0)
+    pdf_s = pdf_area * t_safe * t_safe / cos_safe
+    esel_pdf = lightlib.selector_pdf(settings, lights, hit_row, state.org,
+                                     tabs.info.hier_depth)
+    if settings.enable_nee:
+        mis_e = 1.0 / (1.0 + inv_pdf * esel_pdf * pdf_s)
+    else:
+        mis_e = torch.ones_like(pdf_s)
+    return emit_ok, lp_hit.intensity, mis_e
+
+
+class NeeSample(NamedTuple):
+    lp: lightlib.LightParams
+    ls: lightlib.DirectSample
+    pdf_l_s: torch.Tensor    # light pdf in solid angle, selection included
+    bsdf_f: Color
+    bsdf_p: torch.Tensor
+    factor: torch.Tensor
+
+
+def sample_nee(scene: SceneData, settings: RenderSettings,
+               tabs: RenderTables, rng, sh: Shading, out_dir: Vec3):
+    """(rng, NeeSample): a light picked by the selector, a point on it,
+    and the BSDF's value and pdf towards it."""
+    lights = scene.lights
+    kinds = tuple(int(k) for k in settings.light_kinds or ())
+    ev, info = tabs.eval_texture, tabs.info
+    surf = sh.surf
+    rng, (ul, u0, u1) = rnglib.next_f32_n(rng, 3)
+    lsel, sel_pdf = lightlib.select_light(settings, lights, ul, surf.point,
+                                          info.hier_depth)
+    lp = lightlib.gather_light(lights, lsel)
+    light_tex = None
+    if ev is not None and info.light_tex:
+        def light_tex(tid, c):
+            return ev(tid, c, info.light_tex)
+    ls = lightlib.sample_direct(scene, lp, surf.point, surf.is_entering, u0,
+                                u1, light_tex, kinds)
+    pdf_l_s = lightlib.pdf_as_solid(ls.pdf_value, ls.pdf_is_area, ls.cos,
+                                    ls.dist * ls.dist) * sel_pdf
+    return rng, NeeSample(lp, ls, pdf_l_s, sh.shader.eval(ls.dir, out_dir),
+                          sh.shader.pdf(ls.dir, out_dir),
+                          safe_div(ls.pdf_value, pdf_l_s))
+
+
+def shadow_rays_of(nee: NeeSample, surf: Surface, want) -> Rays:
+    """The shadow segment from the hit to the light sample: finite lights
+    aim at the sampled point (range [o, 1-o]); unwanted lanes get
+    tmax < tmin, so the kernels cull them."""
+    sdir = vselect(nee.lp.infinite, nee.ls.dir, nee.ls.pos - surf.point)
+    stmax = torch.where(nee.lp.infinite, FLT_MAX, 1.0 - OFFSET)
+    stmax = torch.where(want, stmax, -1.0)
+    return Rays(surf.point, sdir, torch.full_like(stmax, OFFSET), stmax)
+
+
+def through_inv_pdf(bs: bsdflib.BsdfSample, out_dir: Vec3, old_inv_pdf,
+                    new_inv_pdf):
+    """A straight-through delta transmission (passthrough, thin glass, a
+    BRTDfunc's transmission) keeps the direction measure, so the path's
+    MIS density carries through the interface: its old inv_pdf stays,
+    which keeps the transparent-shadow NEE and the light hit behind the
+    interface complementary."""
+    is_through = bs.is_delta & (dot(bs.in_dir, -out_dir) > 1.0 - 1e-6)
+    return torch.where(is_through, old_inv_pdf, new_inv_pdf)
+
+
+def regenerate(scene: SceneData, settings: RenderSettings, regen, state,
+               cont):
+    """(lanes that restart, their sample counters, their camera rays, their
+    random states): lanes whose path ended with samples of their pixel
+    left restart the next one."""
+    x, y, iteration, frame_id = regen
+    do_regen = state.alive & ~cont & (state.sample + 1 < settings.spi)
+    new_sample = torch.where(do_regen, state.sample + 1, state.sample)
+    fresh = rnglib.seed(new_sample, iteration, frame_id, x, y, settings.seed)
+    sample_idx = (rnglib.as_u32(new_sample)
+                  + iteration * settings.spi) & rnglib.MASK
+    fresh2, (rx, ry) = sample_pixel_offsets(settings.pixel_sampler, fresh,
+                                            sample_idx, x, y)
+    cam = cameralib.generate_rays(scene.camera, settings, x, y, rx, ry,
+                                  rng_state=fresh2)
+    return do_regen, new_sample, cam, fresh2
+
+
+def make_bounce(scene: SceneData, settings: RenderSettings,
+                tabs: RenderTables, regen=None):
+    """Per-bounce wavefront step over the render's `tabs`. With `regen` =
+    (x, y, iteration, frame), lanes whose path ended restart the next
+    sample of their pixel."""
+    n_lights = settings.n_lights
 
     def bounce(state: PathState) -> PathState:
-        n = state.tmin.shape[0]
-        device = state.tmin.device
         rays_b = Rays(state.org, state.dir, state.tmin,
                       torch.where(state.alive, state.tmax, -1.0))
-        hit = trace_scene(scene, rays_b, packed)
+        hit = trace_scene(scene, rays_b, tabs.packed)
         found = hit.prim >= 0
-        result = state.result
-
-        # ---- miss: infinite lights -------------------------------------
-        miss = state.alive & ~found
-        for lid, (kind, tex_id, delta) in info.infinite.items():
-            if delta:
-                continue    # a delta light adds nothing to a miss
-            rows = torch.full((n,), lid, dtype=torch.int64, device=device)
-            lp = lightlib.gather_light(lights, rows)
-            env_tex = None
-            if eval_texture is not None and tex_id >= 0:
-                def env_tex(tid, ctx, tex_id=tex_id):
-                    return eval_texture(tid, ctx, (tex_id,))
-            emit = lightlib.env_emission(scene, lp, state.dir, env_tex,
-                                         (kind,))
-            pdf_s = lightlib.env_pdf_direct(scene, lp, state.dir, (kind,),
-                                            textured=tex_id >= 0)
-            lsel_pdf = lightlib.infinite_selector_pdf(settings, lights, lid,
-                                                      rows)
-            if settings.enable_nee:
-                mis = 1.0 / (1.0 + state.inv_pdf * lsel_pdf * pdf_s)
-                c = state.contrib.cmul(emit) * mis
-            else:
-                c = state.contrib.cmul(emit)
-            result = _cadd_where(miss, result, _handle_color(c, settings))
+        result = env_miss(scene, settings, tabs, state, state.inv_pdf,
+                          state.alive & ~found, state.result)
 
         # ---- hit shading -----------------------------------------------
         active = state.alive & found
-        surf = compute_surface(scene, rays_b, hit, tab)
-        ctx = (make_surface_ctx(rays_b, surf) if eval_texture is not None
-               else None)
-        mat, mid, tex = gather_material(scene, surf, mtab, eval_texture, ctx,
-                                        info)
+        sh = shade_hit(scene, settings, tabs, rays_b, hit)
+        surf, shader = sh.surf, sh.shader
         out_dir = -state.dir
-        if tex is not None:
-            surf = apply_normal_map(surf, ctx, eval_texture, tex, info)
-        frame = make_frame(surf.ns)
-        w_override = None
-        if tex is not None and info.blend_depth and info.tex_ids["p0_tex"]:
-            wtex = eval_texture(tex["p0_tex"], ctx, info.tex_ids["p0_tex"])
-            w_override = torch.where(tex["p0_tex"] >= 0, wtex.r, mat.p0)
-
-        def gather_row(ids):
-            # the rows of blend children, and of every lane of a scene with
-            # blends, textured as gather_material textures a lane's own row
-            # (the JAX package reads them untextured: ROADMAP queue 3);
-            # `ids` holds k rows a lane (make_lane_shader stacks children)
-            if not textured:
-                return gather_mat_rows(mtab, ids, grad=info.mat_grad)
-            k = ids.shape[0] // n
-            ctx_k = ctx._replace(uv=tuple(torch.cat([c] * k)
-                                          for c in ctx.uv))
-            return apply_textures(*gather_mat_rows(mtab, ids, with_tex=True,
-                                                   grad=info.mat_grad),
-                                  eval_texture, ctx_k, info)
-        shader = bsdflib.make_lane_shader(gather_row, mid, mat, frame,
-                                          surf.is_entering, info.blend_depth,
-                                          w_override, present)
         all_delta = shader.is_all_delta()
-
-        # emission on hit (area emitters)
-        light_row = scene.entities.light[torch.clamp(surf.ent, min=0).long()]
-        is_emissive = light_row >= 0
-        hit_row = torch.clamp(light_row, min=0)
-        lp_hit = lightlib.gather_light(lights, hit_row)
-        cos_l = -dot(state.dir, frame.n)
-        emit_ok = active & is_emissive & surf.is_entering & (cos_l > 1e-6)
-        pdf_area = safe_div(1.0, lp_hit.p0)
-        # miss lanes carry t = FLT_MAX and cos_l may be <= 0: sanitise so
-        # that reverse mode meets no inf or NaN on the masked lanes
-        t_safe = torch.where(emit_ok, hit.t, 1.0)
-        cos_safe = torch.where(emit_ok, cos_l, 1.0)
-        pdf_s = pdf_area * t_safe * t_safe / cos_safe
-        esel_pdf = lightlib.selector_pdf(settings, lights, hit_row,
-                                         state.org, depth_h)
-        if settings.enable_nee:
-            mis_e = 1.0 / (1.0 + state.inv_pdf * esel_pdf * pdf_s)
-        else:
-            mis_e = torch.ones_like(pdf_s)
-        c_emit = _handle_color(state.contrib.cmul(lp_hit.intensity) * mis_e,
-                               settings)
-        result = _cadd_where(emit_ok, result, c_emit)
+        emit_ok, intensity, mis_e = hit_emission(
+            scene, settings, tabs, state, state.inv_pdf, active, hit, sh)
+        result = _cadd_where(emit_ok, result, _handle_color(
+            state.contrib.cmul(intensity) * mis_e, settings))
 
         rng = state.rng
         depth = state.depth
 
         # ---- NEE -------------------------------------------------------
         if settings.enable_nee and n_lights > 0:
-            rng, (ul, u0, u1) = rnglib.next_f32_n(rng, 3)
-            lsel, sel_pdf = lightlib.select_light(settings, lights, ul,
-                                                  surf.point, depth_h)
-            lp = lightlib.gather_light(lights, lsel)
-            light_tex = None
-            if eval_texture is not None and info.light_tex:
-                def light_tex(tid, c):
-                    return eval_texture(tid, c, info.light_tex)
-            ls = lightlib.sample_direct(scene, lp, surf.point,
-                                        surf.is_entering, u0, u1, light_tex,
-                                        kinds)
-            pdf_l_s = lightlib.pdf_as_solid(ls.pdf_value, ls.pdf_is_area,
-                                            ls.cos, ls.dist * ls.dist) * sel_pdf
-            bsdf_f = shader.eval(ls.dir, out_dir)
-            bsdf_p = shader.pdf(ls.dir, out_dir)
-            mis = torch.where(lp.delta, 1.0,
-                              1.0 / (1.0 + safe_div(bsdf_p, pdf_l_s)))
-            factor = safe_div(ls.pdf_value, pdf_l_s)
+            rng, nee = sample_nee(scene, settings, tabs, rng, sh, out_dir)
+            mis = torch.where(nee.lp.delta, 1.0,
+                              1.0 / (1.0 + safe_div(nee.bsdf_p, nee.pdf_l_s)))
             contrib_nee = _handle_color(
-                ls.intensity.cmul(state.contrib.cmul(bsdf_f)) * (mis * factor),
-                settings)
+                nee.ls.intensity.cmul(state.contrib.cmul(nee.bsdf_f))
+                * (mis * nee.factor), settings)
             want = (active & ~all_delta & (depth + 1 <= settings.max_depth)
-                    & (pdf_l_s > 1e-9) & (ls.cos > 1e-6)
+                    & (nee.pdf_l_s > 1e-9) & (nee.ls.cos > 1e-6)
                     & (color_max_component(contrib_nee) > 0))
-            # finite lights aim at the sampled point (range [o, 1-o]);
-            # unwanted lanes get tmax < tmin so the kernels cull them
-            sdir = vselect(lp.infinite, ls.dir, ls.pos - surf.point)
-            stmax = torch.where(lp.infinite, FLT_MAX, 1.0 - OFFSET)
-            stmax = torch.where(want, stmax, -1.0)
-            shadow_rays = Rays(surf.point, sdir,
-                               torch.full_like(stmax, OFFSET), stmax)
-            occ = occluded_scene(scene, shadow_rays, packed)
-            result = _cadd_where(want & ~occ, result, contrib_nee)
+            shadow_rays = shadow_rays_of(nee, surf, want)
+            if settings.transparent_shadows:
+                s_tint = shadow_transmittance(scene, settings, shadow_rays,
+                                              tabs)
+                result = _cadd_where(
+                    want & (color_max_component(s_tint) > 0.0), result,
+                    contrib_nee.cmul(s_tint))
+            else:
+                occ = occluded_scene(scene, shadow_rays, tabs.packed)
+                result = _cadd_where(want & ~occ, result, contrib_nee)
 
         # ---- bounce ----------------------------------------------------
         rng, (b_pick, b0, b1, b2, b_rr) = rnglib.next_f32_n(rng, 5)
@@ -592,6 +808,9 @@ def make_bounce(scene: SceneData, settings: RenderSettings,
                 & (depth + 1 <= settings.max_depth))
         new_contrib = new_contrib * (1.0 / rr_prob)
         new_inv_pdf = torch.where(bs.is_delta, 0.0, safe_div(1.0, bs.pdf))
+        if settings.transparent_shadows:
+            new_inv_pdf = through_inv_pdf(bs, out_dir, state.inv_pdf,
+                                          new_inv_pdf)
 
         new_state = PathState(
             org=surf.point, dir=bs.in_dir,
@@ -606,18 +825,8 @@ def make_bounce(scene: SceneData, settings: RenderSettings,
         if regen is None:
             return new_state
 
-        x, y, iteration, frame_id = regen
-        died = state.alive & ~cont
-        do_regen = died & (state.sample + 1 < settings.spi)
-        new_sample = torch.where(do_regen, state.sample + 1, state.sample)
-        fresh = rnglib.seed(new_sample, iteration, frame_id, x, y,
-                            settings.seed)
-        sample_idx = (rnglib.as_u32(new_sample)
-                      + iteration * settings.spi) & rnglib.MASK
-        fresh2, (rx, ry) = sample_pixel_offsets(settings.pixel_sampler,
-                                                fresh, sample_idx, x, y)
-        cam = cameralib.generate_rays(scene.camera, settings, x, y, rx, ry,
-                                      rng_state=fresh2)
+        do_regen, new_sample, cam, fresh2 = regenerate(scene, settings,
+                                                       regen, state, cont)
         return PathState(
             org=vselect(do_regen, cam.org, new_state.org),
             dir=vselect(do_regen, cam.dir, new_state.dir),
@@ -648,15 +857,25 @@ def initial_state(rays: Rays, rng_state) -> PathState:
 
 
 def start_state(scene: SceneData, settings: RenderSettings, x, y,
-                iteration: int, frame: int) -> PathState:
-    """Camera rays of every lane's first sample."""
+                iteration: int, frame: int, initial=initial_state):
+    """Camera rays of every lane's first sample, in the state `initial`
+    makes of them."""
     st0 = rnglib.seed(torch.zeros_like(x), iteration, frame, x, y,
                       settings.seed)
     st0, (rx, ry) = sample_pixel_offsets(settings.pixel_sampler, st0,
                                          iteration * settings.spi, x, y)
     rays = cameralib.generate_rays(scene.camera, settings, x, y, rx, ry,
                                    rng_state=st0)
-    return initial_state(rays, st0)
+    return initial(rays, st0)
+
+
+def technique_fns(settings: RenderSettings):
+    """(initial state, bounce maker) of the settings' technique: the
+    cascade's technique adapter (ignis_tpu/techniques/path.py:961-978)."""
+    if settings.technique == "volpath":
+        from .volpath import make_vol_bounce, vol_initial_state
+        return vol_initial_state, make_vol_bounce
+    return initial_state, make_bounce
 
 
 def bucket_chain(n: int, min_bucket: int):
@@ -688,20 +907,16 @@ def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
     it runs from the alive counts of its own state, so its recompute
     repeats the same decisions.
 
-    `eval_texture` is the scene's texture evaluator (made here when not
-    given). The attribute and material tables, the packed soup and
-    scene_info are made once here."""
+    The technique's bounce (path or volpath, technique_fns) runs in
+    either. `eval_texture` is the scene's texture evaluator (made here
+    when not given); the render's tables are made once here
+    (render_tables)."""
     n = x.shape[0]
     device = x.device
     sizes = bucket_chain(n, MIN_BUCKET) if compact else [n]
-    tab = attr_table(scene)
-    mtab = material_table(scene)
-    info = scene_info(scene, settings)
-    if eval_texture is None:
-        eval_texture = texlib.make_texture_evaluator(settings.texture_descs,
-                                                     scene.textures)
-    packed = soup_pack_of(scene)
-    st = start_state(scene, settings, x, y, iteration, frame)
+    initial, make = technique_fns(settings)
+    tabs = render_tables(scene, settings, eval_texture)
+    st = start_state(scene, settings, x, y, iteration, frame, initial)
     film = torch.zeros((3, n), dtype=torch.float32, device=device)
     budget = settings.spi * settings.max_depth
     px, py = x, y
@@ -709,8 +924,7 @@ def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
     for si, size in enumerate(sizes):
         last = si == len(sizes) - 1
         min_alive = 0 if last else size // SHRINK
-        bounce = make_bounce(scene, settings, tab, mtab, info,
-                             (px, py, iteration, frame), packed, eval_texture)
+        bounce = make(scene, settings, tabs, (px, py, iteration, frame))
 
         def run(st, limit, bounce=bounce, min_alive=min_alive):
             it = 0

@@ -3,7 +3,8 @@ chip_smoke.py, which is the one home of the on-card checks, at a test's
 size: the hand-written kernels against their plain torch versions (t, prim,
 u, v and any-hit, also on rays shaped like the main path's, K2 on S2's and
 S4's exactly; the S4 render through K2 alone, S5's through K1 and K3;
-K3's gather and scatter-add on random rows, on the main path's first
+S6's volpath with its crossing walk through K1 and K3, its sigma
+gradient; K3's gather and scatter-add on random rows, on the main path's first
 bounce, at S5's material fetch, on one row,
 with NaN, -0.0 and inf cotangents, and on every launch of a recorded
 geometry-gradient step; the MT replay, also with every ray on one
@@ -149,12 +150,62 @@ def _s5(env_dir, size=64, env=(128, 64)):
                                subdivisions=1, size=size)
 
 
+def _s6(build_dir, subdivisions=2, size=64):
+    """chip_smoke's S6 with its ball at `subdivisions`."""
+    return chip_smoke.s6_scene(build_dir, subdivisions=subdivisions,
+                               size=size)
+
+
 def test_slice_on_card_matches_cpu(device, tmp_path):
     """The analytic point-light oracle on the card, and S2, S4, S1 (at
-    subdivisions 3) and S5 (at subdivisions 1, a 256x128 env) on the card
-    against the CPU at 64x64: >= 99% of pixels within rtol 1e-3 / atol
-    1e-4 and means within 0.5%."""
-    chip_smoke.phase_reference(device, _s5(tmp_path, env=(256, 128)))
+    subdivisions 3), S5 (at subdivisions 1, a 256x128 env) and S6 (volpath,
+    its ball at subdivisions 2, K2) on the card against the CPU at 64x64:
+    >= 99% of pixels within rtol 1e-3 / atol 1e-4 and means within
+    0.5%."""
+    chip_smoke.phase_reference(device, _s5(tmp_path, env=(256, 128)),
+                               _s6(tmp_path))
+
+
+def test_k1_exact_on_s6_crossing_sets(device, tmp_path):
+    """K1 on S6's secondary set and the two crossing sets of its
+    transparent-shadow walk (chip_smoke.crossing_sets), the ball at
+    subdivisions 5 (a BVH), at 128x128: t, u, v bit for bit where the
+    prims agree, prim agreement > 0.995, no stack overflow."""
+    rt = ignis_tpu_torch.loadFromString(json.dumps(_s6(tmp_path, 5, 128)),
+                                        device=device)
+    assert rt.scene.bvh is not None
+    out, _ = chip_smoke.phase_k1_sets(device, {"S6": rt}, check_only=True,
+                                      sets_of=chip_smoke.crossing_sets)
+    assert len(out) == 3 and all(r["max_abs_err"] == 0.0
+                                 for r in out.values())
+    assert bvh_cuda.overflow_count(device) == 0
+
+
+def test_s6_render_launches_k1_and_k3(device, tmp_path):
+    """S6 (the ball at subdivisions 4, a BVH) at 64x64, spi 2, through
+    Runtime.step(): volpath with the crossing walk launches K1 and K3's
+    gather, not K2, no plain version; the image finite and not black."""
+    rt = ignis_tpu_torch.loadFromString(json.dumps(_s6(tmp_path, 4)),
+                                        device=device, spi=2)
+    assert rt.scene.bvh is not None and rt.settings.transparent_shadows
+    chip_smoke.reset_all_counts()
+    img = rt.step().framebuffer(normalized=True)
+    launched = chip_smoke.launches()
+    assert launched["K1"] > 0 and launched["K3_gather_rows"] > 0, launched
+    assert launched["K2"] == 0
+    assert chip_smoke.plain_calls() == 0
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 1e-3
+
+
+def test_sigma_gradient_step_and_card_against_cpu(device, tmp_path):
+    """phase 7's sigma gradient step on S6 (the ball at subdivisions 4,
+    64x64, spi 2): finite and nonzero on every entry, K1 and K3's scatter
+    launched, no plain version; then the small S6's sigma gradient on the
+    card within rtol 1e-3 of the CPU's."""
+    rt = ignis_tpu_torch.loadFromString(json.dumps(_s6(tmp_path, 4)),
+                                        device=device, spi=2)
+    out = chip_smoke.phase_sigma(device, rt, _s6(tmp_path))
+    assert len(out["grad"]) == 12
 
 
 def test_s5_render_launches_k1_and_k3(device, tmp_path):
@@ -189,6 +240,25 @@ def test_k3_on_s5_material_table(device, tmp_path):
     assert g_err == 0.0
     assert gather.gather_counts["launches"] == 1
     assert gather.scatter_counts["launches"] == 1
+
+
+def test_k3_on_s6_medium_table(device, tmp_path):
+    """K3 at the medium fetch's shape (chip_smoke.k3_medium_set): the media
+    of S6's 262,144 camera hits at 512x512 (the ball at subdivisions 4) in
+    its [2, 8] medium table, 7 columns, and phase 7's timing of it. The
+    gather bit for bit with tab[idx]; the scatter within 1e-6 + 1e-5
+    sum|terms| of index_add_ (262,144 lanes on 2 rows)."""
+    rt = ignis_tpu_torch.loadFromString(
+        json.dumps(_s6(tmp_path, 4, size=512)), device=device, spi=1)
+    idx, tab, k, cot = chip_smoke.k3_medium_set(rt, device)
+    assert idx.numel() == 262144 and tuple(tab.shape) == (2, 8) and k == 7
+    assert 0 < int(idx.sum()) < idx.numel()     # both media are read
+    gather.reset_counts()
+    out = chip_smoke.phase_k3_table(device, "S6 medium table", idx, tab, k,
+                                    cot)
+    assert out["gather"]["max_abs_err"] == 0.0
+    assert gather.gather_counts["launches"] > 0
+    assert gather.scatter_counts["launches"] > 0
 
 
 def test_grad_kernels_match_plain(device):
@@ -241,7 +311,8 @@ def test_k3_on_recorded_geometry_launches(device):
 
 def test_train_and_geometry_steps_launch_kernels(device, tmp_path):
     """phase 7's train step on S1 (at subdivisions 3), S2, S3 (at 80x100),
-    S4 and S5 (at subdivisions 1) at 64x64, spi 2, S5's roughness gradient
+    S4, S5 (at subdivisions 1) and S6 (its ball at subdivisions 4, a BVH)
+    at 64x64, spi 2, S5's roughness gradient
     and the geometry gradient on S1 and S2: loss and gradients finite,
     every kernel of the path launched, no plain version called."""
     s3 = json.loads(json.dumps(chip_smoke.S3_BENCH_BIG))
@@ -250,7 +321,8 @@ def test_train_and_geometry_steps_launch_kernels(device, tmp_path):
               "S2_graft_entry": chip_smoke.S2_GRAFT_ENTRY,
               "S3_bench_big": s3,
               "S4_glass_ico2": chip_smoke.S4_GLASS_ICO2,
-              chip_smoke.S5_NAME: _s5(tmp_path)}
+              chip_smoke.S5_NAME: _s5(tmp_path),
+              chip_smoke.S6_NAME: _s6(tmp_path, 4)}
     runtimes = {}
     for name, sc in scenes.items():
         small = json.loads(json.dumps(sc))
