@@ -60,6 +60,17 @@ printing its own lines; any failure exits non-zero:
    of S6 (media.sigma_a and sigma_s; the estimator's gradient, biased by
    Russian roulette, see phase_sigma), and the sigma gradient of the
    small S6 on the card against the CPU's;
+8. instancing and the other techniques: S7 (`S7_SCENE`, 1,024 instances
+   of one 5,120-triangle icosphere through loadFromString(instancing=
+   True): the groups' bytes on the card, forward steps with launches and
+   host syncs a step and a profiled step, one albedo train step), the
+   instanced render against the flattened one on _grid_scene(8) with the
+   local soup through K1 and through K2; ao, debug, wireframe,
+   lightvisibility, camera_check and env_check on S1's arrays, aept on
+   S1's scene under S5's substitute env, S8 (`S8_BOX`) under lt and ppm
+   (1,000,000 photons), each with its launches, host syncs and a profiled
+   step; and every technique and the instanced render on the card
+   against the CPU at 64x64 (`technique_card_vs_cpu`);
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -69,6 +80,7 @@ Imports nothing of JAX. `--profile-json PATH` also writes the renders'
 timings and the profiled steps to PATH.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1897,6 +1909,357 @@ def phase_sigma(device, rt, small):
             "launches": used}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: instancing and the other techniques
+# ---------------------------------------------------------------------------
+
+def grid_scene(n_side, spacing=1.5, subdivisions=2, size=64):
+    """tests/test_instancing.py:17 _grid_scene: n_side^2 icospheres
+    (radius 0.5, one shared mesh) on a grid under a point light, path
+    tracing at max_depth 3; `subdivisions` is the shared icosphere's."""
+    entities = []
+    for i in range(n_side):
+        for j in range(n_side):
+            entities.append({
+                "name": f"ball_{i}_{j}", "shape": "ball", "bsdf": "white",
+                "transform": [
+                    {"translate": [(i - n_side / 2) * spacing, 0.0,
+                                   (j - n_side / 2) * spacing]},
+                    {"rotate": [0, math.degrees((i * n_side + j) * 0.37),
+                                0]},
+                    {"scale": 0.5}]})
+    return {
+        "technique": {"type": "path", "max_depth": 3},
+        "camera": {"type": "perspective", "fov": 60,
+                   "transform": [1, 0, 0, 0, 0, 0.7071, -0.7071, 8,
+                                 0, 0.7071, 0.7071, -8]},
+        "film": {"size": [size, size]},
+        "bsdfs": [{"type": "diffuse", "name": "white",
+                   "reflectance": [0.7, 0.6, 0.5]}],
+        "shapes": [{"type": "icosphere", "name": "ball", "radius": 1.0,
+                    "subdivisions": subdivisions}],
+        "entities": entities,
+        "lights": [{"type": "point", "name": "P", "position": [0, 6, 0],
+                    "intensity": [80, 80, 80]}],
+    }
+
+
+# S7: _grid_scene(32, spacing=1.2) with the shared icosphere at
+# subdivisions 4: 1,024 instances of one 5,120-triangle mesh (5,242,880
+# triangles flattened), whose local soup takes K1.
+S7_NAME = "S7_instanced_grid"
+S7_SCENE = grid_scene(32, spacing=1.2, subdivisions=4, size=512)
+
+# S8: tests/test_lighttracer.py:13 SCENE (a diffuse box lit by a small area
+# light) raised from 48x48 to 512x512, max_depth 4; rendered under `lt`
+# and `ppm` (1,000,000 photons, the reference default).
+S8_NAME = "S8_lt_ppm_box"
+S8_BOX = {
+    "technique": {"type": "lt", "max_depth": 4},
+    "camera": {"type": "perspective", "fov": 60, "near_clip": 0.01,
+               "far_clip": 100,
+               "transform": [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, -2]},
+    "film": {"size": [512, 512]},
+    "bsdfs": [{"type": "diffuse", "name": "g",
+               "reflectance": [0.8, 0.8, 0.8]},
+              {"type": "diffuse", "name": "black", "reflectance": [0, 0, 0]}],
+    "shapes": [{"type": "rectangle", "name": "B", "width": 4, "height": 4,
+                "flip_normals": True},
+               {"type": "rectangle", "name": "L", "width": 0.5,
+                "height": 0.5}],
+    "entities": [{"name": "B", "shape": "B", "bsdf": "g"},
+                 {"name": "L", "shape": "L", "bsdf": "black",
+                  "transform": [{"translate": [1.5, 0, -1.0]}]}],
+    "lights": [{"type": "area", "name": "L", "entity": "L",
+                "radiance": [10, 10, 10]}],
+}
+SIMPLE_TECHNIQUES = ("ao", "debug", "wireframe", "lightvisibility",
+                     "camera_check", "env_check")
+PROFILE_NAMES = {"K1": "bvh_walk_kernel", "K2": "isect_dense_kernel",
+                 "K3": "gather_rows_kernel", "K3_scatter": "scatter_add"}
+
+
+def aept_scene(env_file, size=512, subdivisions=7):
+    """S1's scene under aept, its constant env replaced by S5's substitute
+    env (`env_file`, at S5's scale): a constant env gives the guiding
+    nothing to learn."""
+    sc = json.loads(json.dumps(S1_GLASS_ICO7))
+    sc["technique"]["type"] = "aept"
+    sc["shapes"][1]["subdivisions"] = subdivisions
+    sc["film"] = {"size": [size, size]}
+    sc["textures"] = [{"type": "image", "name": "env",
+                       "filename": str(env_file)}]
+    sc["lights"][1] = {"type": "env", "name": "e", "radiance": "env",
+                       "scale": [0.05, 0.05, 0.05]}
+    return sc
+
+
+def count_syncs(fn):
+    """(fn()'s result, the host syncs it made), counted by torch's CUDA
+    sync debug mode, which warns at every synchronizing call (an alive
+    count, a nonzero, a host read)."""
+    import warnings
+    import torch
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def measure_steps(name, rt, need, steps=1, profile=True):
+    """A warm-up step, then `steps` timed steps of `rt` with every
+    kernel's launches reset just before and read just after and the host
+    syncs counted, then one profiled step. `need` names the kernels the
+    path must launch; no plain version may run."""
+    import torch
+    from ignis_tpu_torch.render.profile import profile_step
+    rt.step()
+    torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    _, syncs = count_syncs(lambda: [rt.step() for _ in range(steps)])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    used = launches()
+    plain = plain_calls()
+    img = rt.framebuffer(normalized=True)
+    s = rt.settings
+    msps = steps * s.width * s.height * s.spi / sec / 1e6
+    mean = float(img.mean())
+    per = {k: v / steps for k, v in used.items()}
+    print(f"  {name}: {msps:.4f} Msamples/s ({sec:.3f} s for {steps} "
+          f"step(s)), image mean {mean:.6f}, a step: launches {per}, host "
+          f"syncs {syncs / steps:g}")
+    check(tuple(img.shape) == (s.height, s.width, 3)
+          and bool(torch.isfinite(img).all()) and mean > 0,
+          f"{name}: image finite and not black")
+    check(all(used[k] > 0 for k in need),
+          f"{name}: {', '.join(need)} launched")
+    check(plain == 0, f"{name}: no plain version called ({plain})")
+    out = {"msamples_per_s": msps, "seconds": sec, "steps": steps,
+           "mean": mean, "launches_per_step": per,
+           "host_syncs_per_step": syncs / steps}
+    if profile:
+        p = profile_step(rt.step, PROFILE_NAMES)
+        print(f"    profiled step {p['wall_s']:.4f} s, device ops "
+              f"{p['device_ops']}, device busy {p['device_busy_us']:.1f} us "
+              f"(share {p['busy_share']:.4f}), K1 {p['K1_us']:.1f} us, K2 "
+              f"{p['K2_us']:.1f} us, K3 {p['K3_us']:.1f} us, K3 scatter "
+              f"{p['K3_scatter_us']:.1f} us")
+        for kname, count, us in p["top"][:4]:
+            print(f"      {us:10.1f} us {count:6d}x {kname}")
+        out["profile"] = p
+    return out
+
+
+def group_bytes(rt):
+    """Bytes on the card of each instanced group's tables (local soup,
+    [T, 24] attribute table, [I, 12] instance table, [I, 20] transform
+    table) beside what the flattened scene's soup and attribute table
+    would take."""
+    from ignis_tpu_torch.ops.instanced import group_tables
+    out = []
+    for g in rt.scene.instances:
+        gt = group_tables(g)
+        t, i = g.tris_per_instance, g.n_instances
+        out.append({"instances": i, "tris_per_instance": t,
+                    "local_bvh": g.bvh is not None,
+                    "soup_bytes": 9 * 4 * t,
+                    "attr_table_bytes": gt.attr.numel() * 4,
+                    "instance_table_bytes": gt.inst.numel() * 4,
+                    "transform_table_bytes": gt.xform.numel() * 4,
+                    "flattened_soup_bytes": 9 * 4 * t * i,
+                    "flattened_attr_table_bytes": 24 * 4 * t * i})
+    return out
+
+
+def phase_instanced(device):
+    """S7 at 512x512, spi 4 through loadFromString(instancing=True) on the
+    card: the groups' bytes, forward steps (launches, host syncs, a
+    profiled step) and one albedo train step; then the instanced render
+    against the flattened one on _grid_scene(8) at subdivisions 4 (the
+    local soup through K1) and 2 (through K2), at tests/test_instancing.py
+    :69-73's bars."""
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch import train_step
+    t0 = time.perf_counter()
+    rt = ignis_tpu_torch.loadFromString(json.dumps(S7_SCENE), spi=SPI,
+                                        instancing=True)
+    (geo,) = rt.scene.instances
+    sizes = group_bytes(rt)[0]
+    print(f"  {S7_NAME}: loaded in {time.perf_counter() - t0:.2f} s; "
+          f"bytes on the card: {sizes}")
+    check(geo.n_instances == 1024 and geo.tris_per_instance == 5120
+          and geo.bvh is not None, f"{S7_NAME}: 1,024 instances of a "
+          f"5,120-triangle mesh with its own BVH (K1)")
+    out = {"bytes": sizes,
+           "forward": measure_steps(S7_NAME, rt, ("K1", "K3_gather_rows"),
+                                    steps=2)}
+    s = rt.settings
+    target = torch.zeros((s.height, s.width, 3), device=device)
+    train_step(rt.scene, s, target, 0, 0, 1e-2)     # warm-up
+    torch.cuda.synchronize()
+    reset_all_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    (loss, _), syncs = count_syncs(
+        lambda: train_step(rt.scene, s, target, 0, 0, 1e-2))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    used = launches()
+    msps = s.width * s.height * s.spi / sec / 1e6
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    print(f"  {S7_NAME}: train step {msps:.4f} Msamples/s fwd+bwd ({sec:.4f}"
+          f" s), peak memory {peak:.3f} GiB, launches {used}, host syncs "
+          f"{syncs}")
+    check(bool(torch.isfinite(loss)) and used["K1"] > 0
+          and used["K3_scatter_add_rows"] > 0 and used["MT_replay_bwd"] == 0
+          and plain_calls() == 0,
+          f"{S7_NAME}: train step finite through K1 and K3's scatter, no MT "
+          f"replay (instanced geometry held fixed), no plain version")
+    out["train"] = {"msamples_per_s": msps, "seconds": sec,
+                    "peak_gib": peak, "launches": used, "host_syncs": syncs}
+    del rt
+
+    out["flattened"] = {sub: instanced_against_flattened(sub)
+                        for sub in (4, 2)}
+    return out
+
+
+def instanced_against_flattened(subdivisions, size=512):
+    """_grid_scene(8) with its icosphere at `subdivisions` (4: 5,120
+    triangles, the local soup through K1; 2: 320, through K2) rendered
+    instanced and flattened on the card, one step at spi 4: the 99th
+    percentile of the per-pixel relative difference under 0.05 and means
+    within 1% (tests/test_instancing.py:69-73)."""
+    import ignis_tpu_torch
+    local = "K1" if subdivisions >= 4 else "K2"
+    doc = json.dumps(grid_scene(8, subdivisions=subdivisions, size=size))
+    imgs, used = [], {}
+    for inst in (False, True):
+        r = ignis_tpu_torch.loadFromString(doc, spi=SPI, instancing=inst)
+        reset_all_counts()
+        imgs.append(r.step().framebuffer(normalized=True).cpu().numpy())
+        used[inst] = launches()
+    flat, inst = imgs
+    rel = np.abs(flat - inst) / np.maximum(np.abs(flat), 1e-3)
+    q99 = float(np.quantile(rel, 0.99))
+    dmean = float(abs(flat.mean() - inst.mean()) / max(flat.mean(), 1e-6))
+    print(f"  grid_scene(8) at subdivisions {subdivisions}, {size}x{size}: "
+          f"means flat {flat.mean():.6f} / instanced {inst.mean():.6f}, 99th "
+          f"percentile of the relative difference {q99:.6f}, launches flat "
+          f"{used[False]}, instanced {used[True]}")
+    check(q99 < 0.05 and dmean < 0.01 and used[True][local] > 0,
+          f"grid_scene(8) at subdivisions {subdivisions}: instanced (local "
+          f"soup through {local}) against flattened, 99th percentile "
+          f"{q99:.4f} < 0.05, means within {dmean:.5f} < 1%")
+    return {"q99": q99, "mean_rel": dmean, "flat_mean": float(flat.mean()),
+            "instanced_mean": float(inst.mean()), "launches": used}
+
+
+def phase_techniques(device, s1, env):
+    """The other techniques on the card at 512x512, spi 4, each a warm-up,
+    a timed step and a profiled step with its launches and host syncs:
+    the six simple ones on S1's scene (its loaded arrays), aept on S1's
+    scene under S5's substitute env, and S8 under lt and ppm."""
+    import dataclasses
+    import ignis_tpu_torch
+    from ignis_tpu_torch.render.session import Runtime
+    out = {}
+    for tech in SIMPLE_TECHNIQUES:
+        rt = Runtime(s1.scene, dataclasses.replace(s1.settings,
+                                                   technique=tech))
+        # wireframe and env_check read no hit attributes: no K3
+        need = (("K1",) if tech in ("wireframe", "env_check")
+                else ("K1", "K3_gather_rows"))
+        out[tech] = measure_steps(f"S1 {tech}", rt, need)
+    t0 = time.perf_counter()
+    rt = ignis_tpu_torch.loadFromString(json.dumps(aept_scene(env)),
+                                        spi=SPI)
+    print(f"  S1 aept: loaded in {time.perf_counter() - t0:.2f} s")
+    reset_all_counts()
+    t0 = time.perf_counter()
+    rt.step()               # the learning iteration, then a guided one
+    import torch
+    torch.cuda.synchronize()
+    used = launches()
+    print(f"  S1 aept: the first step (learning and guided) in "
+          f"{time.perf_counter() - t0:.3f} s, launches {used}")
+    check(used["K3_scatter_add_rows"] > 0,
+          "S1 aept: the learning pass's histograms through K3's scatter")
+    out["aept"] = measure_steps("S1 aept", rt, ("K1", "K3_gather_rows"))
+    out["aept"]["first_step_launches"] = used
+    for tech, need in (("lt", ("K2", "K3_gather_rows",
+                               "K3_scatter_add_rows")),
+                       ("ppm", ("K2", "K3_gather_rows"))):
+        sc = json.loads(json.dumps(S8_BOX))
+        sc["technique"]["type"] = tech
+        rt = ignis_tpu_torch.loadFromString(json.dumps(sc), spi=SPI)
+        if tech == "ppm":
+            check(rt.settings.photon_count == 1_000_000,
+                  "S8 ppm: 1,000,000 photons")
+        out[tech] = measure_steps(f"{S8_NAME} {tech}", rt, need)
+    return out
+
+
+REFERENCE_CASES = SIMPLE_TECHNIQUES + ("aept", "lt", "ppm", "instanced")
+
+
+def technique_card_vs_cpu(device, name, env_small, size=64):
+    """One of REFERENCE_CASES on the card against the CPU at size x size,
+    spi 4: 99% of pixels within rtol 1e-3 / atol 1e-4 and image means
+    within 1e-4 relative; within 1e-3 for lt and aept, whose splat and
+    histograms add in the order of the card's atomics."""
+    import ignis_tpu_torch
+    bar = 1e-3 if name in ("lt", "aept") else 1e-4
+    if name in SIMPLE_TECHNIQUES:
+        sc, kw = _ico3(S1_GLASS_ICO7), {"technique": name}
+    elif name == "aept":
+        sc, kw = aept_scene(env_small, size, subdivisions=3), {}
+    elif name == "instanced":
+        sc, kw = grid_scene(8), {"instancing": True}
+    else:
+        sc, kw = S8_BOX, {"technique": name}
+        if name == "ppm":
+            kw["photons"] = 50000
+    small = json.loads(json.dumps(sc))
+    small["film"] = {"size": [size, size]}
+    imgs = []
+    for dev in (device, "cpu"):
+        r = ignis_tpu_torch.loadFromString(json.dumps(small), device=dev,
+                                           spi=SPI, **kw)
+        imgs.append(r.step().framebuffer(normalized=True).cpu().numpy())
+    gpu, cpu = imgs
+    close = float(np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1).mean())
+    rel = float(abs(gpu.mean() - cpu.mean()) / max(cpu.mean(), 1e-9))
+    print(f"  {name} {size}x{size}: means card {gpu.mean():.6f} / CPU "
+          f"{cpu.mean():.6f} (relative {rel:.3e}), pixels close {close:.4f}")
+    check(close >= 0.99 and rel <= bar and cpu.mean() > 0,
+          f"{name} {size}x{size}: card against CPU, pixels close "
+          f"{close:.4f} >= 0.99, means within {rel:.2e} <= {bar:g}")
+    return {"mean_rel": rel, "pixels_close": close,
+            "card_mean": float(gpu.mean()), "cpu_mean": float(cpu.mean())}
+
+
+def phase_techniques_reference(device, env_small):
+    """Every technique and the instanced render on the card against the
+    CPU at 64x64 (technique_card_vs_cpu)."""
+    return {name: technique_card_vs_cpu(device, name, env_small)
+            for name in REFERENCE_CASES}
+
+
+def _no_top(obj):
+    """obj without the profiles' `top` lists (for the summary line)."""
+    if isinstance(obj, dict):
+        return {k: _no_top(v) for k, v in obj.items() if k != "top"}
+    return obj
+
+
 def _ico3(scene):
     s = json.loads(json.dumps(scene))
     s["shapes"][1]["subdivisions"] = 3
@@ -2016,6 +2379,12 @@ def main() -> int:
     phase_grad_reference(device)
     sigma = phase_sigma(device, s6, s6_small)
 
+    print(f"== phase 8: instancing and the other techniques "
+          f"({time.perf_counter() - t_start:.1f} s in)")
+    instancing = phase_instanced(device)
+    techniques = phase_techniques(device, runtimes["S1_glass_ico7"], env)
+    techniques_reference = phase_techniques_reference(device, env_small)
+
     def timed(t):
         ms, plain, bms, by = t
         return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
@@ -2071,11 +2440,16 @@ def main() -> int:
         Path(args.profile_json).write_text(json.dumps(
             {"nvidia_smi": smi, "scenes": per_scene, "profile": profile,
              "train": train, "sigma": sigma, "train_profile": train_profile,
-             "geometry_profile": geometry_profile}, indent=1))
+             "geometry_profile": geometry_profile,
+             "instancing": instancing, "techniques": techniques,
+             "techniques_reference": techniques_reference}, indent=1))
     print(json.dumps({"scenes": per_scene, "train": train, "sigma": sigma,
                       "geometry_profile_us": {
                           k: v for k, v in geometry_profile.items()
                           if k.endswith("_us")}}))
+    print(json.dumps({"instancing": _no_top(instancing),
+                      "techniques": _no_top(techniques),
+                      "techniques_reference": techniques_reference}))
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,11 +4,13 @@
 NamedTuples by field name and calls `np.asarray` on each leaf, so it never
 imports JAX itself. Tests use it to feed identical arrays to both
 packages. The chunked-leaf TPU BVH is dropped (`bvh` becomes the tri-leaf
-BVH8), textures arrive as the port's TexData, and what the port does not
-carry (measured BSDFs, PExpr textures and the parameter registry,
-instancing) raises naming its ROADMAP item. `param_from_reference` carries one JAX
-parameter in as leaves that require grad, and `to_numpy` brings the port's
-gradients back.
+BVH8), textures arrive as the port's TexData, instance groups as the
+port's InstancedGeo without the JAX local soup's TPU padding (and without
+a local BVH, so K2 serves them and local prim ids keep the JAX order), and
+what the port does not carry (measured BSDFs, PExpr textures and the
+parameter registry) raises naming its ROADMAP item.
+`param_from_reference` carries one JAX parameter in as leaves that
+require grad, and `to_numpy` brings the port's gradients back.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from . import scenedata as sd
 from .core.vec import Color, Vec2, Vec3
 from .models.texture import TexData, TexDesc, check_descs
 from .ops.bvh import BVHArrays
+from .ops.instanced import InstancedGeo
 from .ops.intersect import SphereSoup, TriSoup
 
 _PORT_TYPES = {cls.__name__: cls for cls in (
@@ -70,19 +73,36 @@ def from_reference(scene_data, settings, device):
     if scene_data.registry:
         raise NotImplementedError("the PExpr parameter registry is not "
                                   "ported yet (ROADMAP queue 1, item 15)")
-    if scene_data.instances is not None:
-        raise NotImplementedError("instancing is not ported yet (ROADMAP "
-                                  "queue 1, item 13)")
     descs = tuple(TexDesc(d.kind, d.wrap_u, d.wrap_v, d.filter, None,
                           d.inner) for d in settings.texture_descs)
     check_descs(tuple(d._replace(fn=j.fn) for d, j in
                       zip(descs, settings.texture_descs)))
     fields = {f: _convert(getattr(scene_data, f), device)
-              for f in sd.SceneData._fields if f != "bvh"}
+              for f in sd.SceneData._fields if f not in ("bvh", "instances")}
     fields["bvh"] = (None if scene_data.bvh is None
                      else _convert(scene_data.bvh.tri, device))
+    fields["instances"] = (None if scene_data.instances is None else tuple(
+        _instance_group(g, device) for g in scene_data.instances))
     port_settings = sd.RenderSettings(**{
         f.name: getattr(settings, f.name)
         for f in dataclasses.fields(sd.RenderSettings)})
     port_settings = dataclasses.replace(port_settings, texture_descs=descs)
     return sd.SceneData(**fields), port_settings
+
+
+def _instance_group(g, device) -> InstancedGeo:
+    """A JAX InstancedGeo as the port's: the local soup's trailing
+    all-zero padding rows dropped, no local BVH."""
+    rows = np.stack([np.asarray(c) for v in g.soup for c in v], 1)
+    nz = np.flatnonzero(np.any(rows != 0, axis=1))
+    t = int(nz[-1]) + 1 if nz.size else 1
+
+    def cut(v):
+        return type(v)(*[np.asarray(c)[:t] for c in v])
+    return InstancedGeo(
+        soup=_convert(type(g.soup)(*[cut(v) for v in g.soup]), device),
+        **{f: _convert(cut(getattr(g, f)), device)
+           for f in ("n0", "n1", "n2", "uv0", "uv1", "uv2")},
+        **{f: _leaf(getattr(g, f), device)
+           for f in ("w2l", "nrm_mat", "ent", "shadow_visible", "aabb_min",
+                     "aabb_max")})

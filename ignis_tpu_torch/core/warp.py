@@ -35,6 +35,10 @@ def dir_from_spherical(theta, phi) -> Vec3:
     return Vec3(s * torch.cos(phi), s * torch.sin(phi), torch.cos(theta))
 
 
+def uniform_sphere_pdf():
+    return INV_4PI
+
+
 def sample_uniform_sphere(u, v):
     c = 2.0 * v - 1.0
     s = safe_sqrt(1.0 - c * c)
@@ -51,6 +55,13 @@ def sample_cosine_hemisphere(u, v):
     s = safe_sqrt(1.0 - v)
     phi = TWO_PI * u
     return _from_theta_phi(c, s, phi), cosine_hemisphere_pdf(c)
+
+
+def sample_uniform_hemisphere(u, v):
+    c = v
+    s = safe_sqrt(1.0 - c * c)
+    phi = TWO_PI * u
+    return _from_theta_phi(c, s, phi), torch.full_like(u, INV_2PI)
 
 
 def cosine_power_hemisphere_pdf(c, k):
@@ -76,6 +87,10 @@ def square_to_concentric_disk(u, v) -> Vec2:
                       (PI / 2.0) - (PI / 4.0) * (a / safe_r))
     phi = torch.where(r == 0, 0.0, phi)
     return Vec2(r * torch.cos(phi), r * torch.sin(phi))
+
+
+def uniform_disk_pdf(radius):
+    return 1.0 / (PI * radius * radius)
 
 
 def uniform_cone_pdf(cos_angle):

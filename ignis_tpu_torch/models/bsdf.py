@@ -804,6 +804,34 @@ class LaneShader:
         return torch.where(self.w >= 1.0, b,
                            torch.where(self.w <= 0.0, a, a & b))
 
+    def map_lanes(self, fn) -> "LaneShader":
+        """The shader over the lanes that `fn` makes of its [N] lane
+        tensors (a slice, a repeat: photon mapping shades K photons a
+        lane); the stacked children of a blend are mapped half by half."""
+        def halves(t):
+            m = t.shape[0] // 2
+            return torch.cat([fn(t[:m]), fn(t[m:])])
+
+        def tmap(f, x):
+            if isinstance(x, torch.Tensor):
+                return f(x)
+            return type(x)(*[tmap(f, c) for c in x])
+
+        new = object.__new__(LaneShader)
+        new.present = self.present
+        new.w = None if self.w is None else fn(self.w)
+        if self.w is not None and isinstance(self.rows, LaneShader):
+            new.rows = self.rows.map_lanes(halves)
+            new.frame, new.entering = tmap(fn, self.frame), fn(self.entering)
+        elif self.w is not None:
+            new.rows = tmap(halves, self.rows)
+            new.frame = tmap(halves, self.frame)
+            new.entering = halves(self.entering)
+        else:
+            new.rows = tmap(fn, self.rows)
+            new.frame, new.entering = tmap(fn, self.frame), fn(self.entering)
+        return new
+
     def sample(self, out_dir: Vec3, u_pick, u0, u1, u2,
                adjoint=False) -> BsdfSample:
         if self.w is None:

@@ -1,6 +1,7 @@
 """Cameras: perspective (+DoF), orthogonal, fishlens.
 
-Port of ignis_tpu/models/camera.py (`generate_rays`). Conventions:
+Port of ignis_tpu/models/camera.py: `generate_rays`, and `sample_pixel`,
+the light tracer's connection to the pinhole. Conventions:
   - view matrix columns (right, up, dir); right = normalize(cross(dir, up))
   - nx = 2*(x+sx)/w - 1 ; ny = 1 - 2*(y+sy)/h
   - scale = (tan(hfov/2), tan(hfov/2)/aspect)
@@ -95,3 +96,31 @@ def _fishlens_dir(cam: CameraData, settings: RenderSettings, nx, ny) -> Vec3:
     return normalize(Vec3(right.x * dx + cam.up.x * dy + cam.dir.x * cos_t,
                           right.y * dx + cam.up.y * dy + cam.dir.y * cos_t,
                           right.z * dx + cam.up.z * dy + cam.dir.z * cos_t))
+
+
+def sample_pixel(cam: CameraData, settings: RenderSettings, point: Vec3):
+    """Project world points onto the image (perspective.art
+    perspective_pos_to_pixel): (valid, linear pixel index, direction to the
+    camera, point -> eye and unnormalised, importance weight). The weight is
+    the pinhole importance in image-area measure, 1 / (A_img cos^3), A_img
+    = 4 sx sy the image plane's area at unit distance (the w*h pixel count
+    cancels against one light path a pixel lane)."""
+    right = normalize(cross(cam.dir, cam.up))
+    d = Vec3(point.x - cam.eye.x, point.y - cam.eye.y, point.z - cam.eye.z)
+    ux = right.x * d.x + right.y * d.y + right.z * d.z
+    uy = cam.up.x * d.x + cam.up.y * d.y + cam.up.z * d.z
+    uz = cam.dir.x * d.x + cam.dir.y * d.y + cam.dir.z * d.z
+    nx = ux / (uz * cam.scale.x)
+    ny = uy / (uz * cam.scale.y)
+    valid = (uz > 1e-6) & (nx >= -1) & (nx <= 1) & (ny >= -1) & (ny <= 1)
+    w, h = settings.width, settings.height
+    px = torch.clamp(torch.floor(w * (nx + 1.0) * 0.5).to(torch.int32), 0,
+                     w - 1)
+    py = torch.clamp(torch.floor(h * (1.0 - ny) * 0.5).to(torch.int32), 0,
+                     h - 1)
+    s_dir = Vec3(cam.eye.x - point.x, cam.eye.y - point.y,
+                 cam.eye.z - point.z)
+    dlen = torch.sqrt(torch.clamp(ux * ux + uy * uy + uz * uz, min=1e-24))
+    cos_t = torch.clamp(uz / dlen, min=1e-6)
+    weight = 1.0 / (4.0 * cam.scale.x * cam.scale.y * cos_t * cos_t * cos_t)
+    return valid, py * w + px, s_dir, weight

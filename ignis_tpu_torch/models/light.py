@@ -4,9 +4,9 @@ Port of ignis_tpu/models/light.py: point, spot, directional, area (over
 triangles by the area CDF, or an analytic sphere), sun, and environment
 lights, constant or textured with an importance table (conditional CDF,
 summed-area table or mip pyramid, core/cdf.py); the uniform, flux-CDF
-(`cdf`) and light-hierarchy selectors. `settings.light_kinds` prunes
-absent kinds statically. Emission sampling for light tracing is ROADMAP
-queue 1, item 14.
+(`cdf`) and light-hierarchy selectors; emission sampling for the light
+tracer and the photon pass (`sample_emission`). `settings.light_kinds`
+prunes absent kinds statically.
 
 Pdf convention (reference driver/light.art Pdf): every direct sample
 carries (pdf_value, pdf_is_area); solid = value * dist^2 / cos for area
@@ -30,8 +30,9 @@ from ..core.frame import make_frame
 from ..core.vec import (Color, Vec2, Vec3, cselect, cross, dot, length,
                         safe_div, vselect)
 from ..core.warp import (INV_4PI, PI, TWO_PI, dir_from_spherical,
-                         sample_triangle, sample_uniform_cone,
-                         sample_uniform_sphere, spherical_from_dir,
+                         sample_cosine_hemisphere, sample_triangle,
+                         sample_uniform_cone, sample_uniform_sphere,
+                         spherical_from_dir, square_to_concentric_disk,
                          uniform_cone_pdf)
 from ..scenedata import EnvMap, Lights, SceneData
 
@@ -527,3 +528,97 @@ def selector_pdf(settings, lights: Lights, light_row, pos: Vec3 = None,
         return cdf[idx] - torch.where(idx > 0,
                                       cdf[torch.clamp(idx - 1, min=0)], 0.0)
     return uniform
+
+
+# ---------------------------------------------------------------------------
+# Emission sampling (light tracer, photon pass)
+# ---------------------------------------------------------------------------
+
+class EmissionSample(NamedTuple):
+    pos: Vec3
+    dir: Vec3
+    intensity: Color   # divided by (pdf_area * pdf_dir)
+    cos: torch.Tensor  # cosine at the light
+
+
+def sample_emission(scene: SceneData, lp: LightParams, u0, u1, u2, u3,
+                    kinds=None) -> EmissionSample:
+    """A point and a direction of emission on each lane's light (light.art
+    sample_emission; ignis_tpu/models/light.py:571-657), for every kind in
+    `kinds` (settings.light_kinds; all when None). A textured env emits
+    its constant scale, as in the JAX package. The spot's photon weight is
+    I(dir) / pdf_cone, its cos_axis in `cos`: the JAX package drops the
+    reference's division by the spot's area (which dims spot photons
+    about 2x against its own path tracer), and so does the port."""
+    kinds = _kinds(kinds)
+    one = torch.ones_like(lp.p0)
+    zero = torch.zeros_like(lp.p0)
+    radius = scene.scene_radius * 1.01
+    center = scene.scene_center
+    sdir, spdf = sample_uniform_sphere(u2, u3)
+    cdirl, cpdf = sample_uniform_cone(u2, u3, lp.p0)
+    dpos_pdf = safe_div(1.0, PI * radius * radius)
+    disk = square_to_concentric_disk(u0, u1)
+    # the disk's frame is the env direction's for all three infinite kinds,
+    # as in the JAX package
+    dframe = make_frame(-sdir)
+
+    def boundary_pos(d):
+        # a point of the disk across the bounding sphere, facing d
+        off = dframe.to_world(Vec3(disk.x * radius, disk.y * radius, zero))
+        return Vec3(center.x - d.x * radius + off.x,
+                    center.y - d.y * radius + off.y,
+                    center.z - d.z * radius + off.z)
+
+    branches = []
+    if LightKind.POINT in kinds:
+        branches.append((LightKind.POINT, EmissionSample(
+            lp.pos, sdir, lp.intensity * safe_div(1.0, spdf), one)))
+    if LightKind.SPOT in kinds:
+        sp_dir = make_frame(lp.dir).to_world(cdirl)
+        blend = lp.p1 - lp.p0
+        cosang = dot(sp_dir, lp.dir)
+        tfac = torch.clamp(safe_div(cosang - lp.p0, blend), 0.0, 1.0)
+        sfac = torch.where(blend <= 1e-6,
+                           torch.where(cosang <= lp.p0, 0.0, 1.0),
+                           tfac * tfac * (3.0 - 2.0 * tfac))
+        branches.append((LightKind.SPOT, EmissionSample(
+            lp.pos, sp_dir, lp.intensity * (sfac * safe_div(1.0, cpdf)),
+            cdirl.z)))
+    if LightKind.AREA in kinds:
+        a_pos, a_n = sample_area_point(scene, lp, u0, u1)
+        hdir, hpdf = sample_cosine_hemisphere(u2, u3)
+        # weight 1 / (area pdf * cosine pdf) = total area / cosine pdf
+        branches.append((LightKind.AREA, EmissionSample(
+            a_pos, make_frame(a_n).to_world(hdir),
+            lp.intensity * (lp.p0 * safe_div(1.0, hpdf)), hdir.z)))
+    if LightKind.ENV in kinds:
+        env_dir = -sdir   # inwards
+        branches.append((LightKind.ENV, EmissionSample(
+            boundary_pos(env_dir), env_dir,
+            lp.intensity * safe_div(1.0, spdf * dpos_pdf), one)))
+    if LightKind.SUN in kinds:
+        scone = make_frame(lp.dir).to_world(cdirl)
+        branches.append((LightKind.SUN, EmissionSample(
+            boundary_pos(scone), scone,
+            lp.intensity * safe_div(1.0, cpdf * dpos_pdf), cdirl.z)))
+    if LightKind.DIRECTIONAL in kinds:
+        branches.append((LightKind.DIRECTIONAL, EmissionSample(
+            boundary_pos(lp.dir), lp.dir,
+            lp.intensity * safe_div(1.0, dpos_pdf), one)))
+    if not branches:
+        z3 = Vec3(zero, zero, zero)
+        return EmissionSample(z3, z3, Color(zero, zero, zero), zero)
+
+    def sel(kv, e, cur):
+        m = lp.kind == kv
+        return EmissionSample(vselect(m, e.pos, cur.pos),
+                              vselect(m, e.dir, cur.dir),
+                              cselect(m, e.intensity, cur.intensity),
+                              torch.where(m, e.cos, cur.cos))
+
+    # the JAX order of selection: point first, directional last
+    out = branches[0][1]
+    for kv, e in branches[1:]:
+        out = sel(kv, e, out)
+    return out

@@ -1,26 +1,41 @@
 """Runtime: scene -> progressive rendering session on one device.
 
-Port of the path technique's part of ignis_tpu/render/session.py: load a
-scene onto a device (the CUDA card unless the caller names another;
-without a card, asking for it raises), `step()` renders one iteration of
-settings.spi samples per pixel and adds it to the film. Films of
-_COMPACTION_MIN_LANES lanes or more go through the compacting cascade,
-smaller ones through the one-stage progressive render, as in the JAX
-Runtime; with settings.remat every film takes the differentiable cascade
-(`render_lanes(remat=True)`). Lanes are in
-row-major pixel order: the JAX package's 32x32 lane tiling served the
-TPU kernels' block culling, and since random streams are keyed by pixel
-and sample, any lane order gives the same image.
+Port of ignis_tpu/render/session.py: load a scene onto a device (the CUDA
+card unless the caller names another; without a card, asking for it
+raises), `step()` renders one iteration of settings.spi samples per pixel
+with the scene's technique and adds it to the film (`render_iteration`):
+
+- path and volpath: films of _COMPACTION_MIN_LANES lanes or more go
+  through the compacting cascade, smaller ones through the one-stage
+  progressive render, as in the JAX Runtime; with settings.remat every
+  film takes the differentiable cascade (`render_lanes(remat=True)`);
+- the simple techniques (ao, debug, wireframe, lightvisibility,
+  camera_check, env_check): one camera sample of every pixel a call,
+  settings.spi calls (the JAX per-sample loop, session.py:273-294);
+- lt: the light tracer's film; ppm: the photon pass, grid and camera pass;
+- aept: the first step runs the learning iterations and builds the
+  guiding CDFs, which the runtime keeps; every step renders guided.
+
+`render_aovs()` returns the Normals, Albedo and Depth AOVs (the info
+buffer at pixel centres). Lanes are in row-major pixel order: the JAX
+package's 32x32 lane tiling served the TPU kernels' block culling, and
+since random streams are keyed by pixel and sample, any lane order gives
+the same image.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import rng as rnglib
+from ..core.sampler import sample_pixel_offsets
+from ..core.vec import Color
+from ..models import camera as cameralib
 from ..models.texture import make_texture_evaluator
 from ..scene.build import build_scene
 from ..scene.parser import load_from_file, load_from_string
 from ..scenedata import RenderSettings, SceneData
-from ..techniques.path import check_settings, render_lanes
+from ..techniques import canonical, dispatch_technique
+from ..techniques.path import check_settings, render_lanes, render_tables
 
 # The JAX package's gate (ignis_tpu/render/session.py:152), carried over;
 # where the cascade starts to pay on the card is not measured yet.
@@ -37,24 +52,73 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _pixels(settings: RenderSettings, device):
+    w, h = settings.width, settings.height
+    return (torch.arange(w, device=device).repeat(h),
+            torch.arange(h, device=device).repeat_interleave(w))
+
+
+def _image(color: Color, settings: RenderSettings) -> torch.Tensor:
+    img = torch.stack([color.r, color.g, color.b], dim=-1)
+    return img.reshape(settings.height, settings.width, 3) * (
+        1.0 / settings.spi)
+
+
+def aept_guiding(scene: SceneData, settings: RenderSettings, frame: int,
+                 tabs=None):
+    """aept's guiding CDFs from settings.learning_iterations learning
+    iterations (iterations 0, 1, ...)."""
+    from ..techniques import aept
+    if tabs is None:
+        tabs = render_tables(scene, settings)
+    x, y = _pixels(settings, scene.device)
+    hs = hc = None
+    for it in range(settings.learning_iterations):
+        s, c = aept.learn_trace(scene, settings, x, y, it, frame, tabs)
+        hs, hc = (s, c) if hs is None else (hs + s, hc + c)
+    return aept.build_guiding(hs, hc)
+
+
 def render_iteration(scene: SceneData, settings: RenderSettings,
-                     iteration: int, frame: int) -> torch.Tensor:
-    """One iteration: [h, w, 3] mean radiance over settings.spi samples.
-    With settings.remat, the differentiable cascade at every film size
-    (as ignis_tpu/render/session.py:227): differentiable in the scene's
-    tensors that require grad."""
+                     iteration: int, frame: int,
+                     guiding=None) -> torch.Tensor:
+    """One iteration: [h, w, 3] mean radiance over settings.spi samples,
+    by the settings' technique. With settings.remat, path and volpath take
+    the differentiable cascade at every film size (as
+    ignis_tpu/render/session.py:227): differentiable in the scene's
+    tensors that require grad. aept uses `guiding` (aept_guiding), and
+    learns it first when none is given."""
     w, h = settings.width, settings.height
     device = scene.device
-    x = torch.arange(w, device=device).repeat(h)
-    y = torch.arange(h, device=device).repeat_interleave(w)
+    x, y = _pixels(settings, device)
+    tech = canonical(settings.technique)
     eval_texture = make_texture_evaluator(settings.texture_descs,
                                           scene.textures)
-    color = render_lanes(scene, settings, x, y, iteration, frame,
-                         compact=(settings.remat
-                                  or w * h >= _COMPACTION_MIN_LANES),
-                         remat=settings.remat, eval_texture=eval_texture)
-    img = torch.stack([color.r, color.g, color.b], dim=-1).reshape(h, w, 3)
-    return img * (1.0 / settings.spi)
+    if tech in ("path", "volpath"):
+        return _image(render_lanes(
+            scene, settings, x, y, iteration, frame,
+            compact=settings.remat or w * h >= _COMPACTION_MIN_LANES,
+            remat=settings.remat, eval_texture=eval_texture), settings)
+    tabs = render_tables(scene, settings, eval_texture)
+    fn = dispatch_technique(tech)
+    if tech in ("lt", "ppm"):
+        return _image(fn(scene, settings, x, y, iteration, frame, tabs),
+                      settings)
+    if tech == "aept":
+        if guiding is None:
+            guiding = aept_guiding(scene, settings, frame, tabs)
+        return _image(fn(scene, settings, x, y, iteration, frame, guiding,
+                         tabs), settings)
+    acc = None
+    for s in range(settings.spi):
+        state = rnglib.seed(s, iteration, frame, x, y, settings.seed)
+        state, (rx, ry) = sample_pixel_offsets(
+            settings.pixel_sampler, state, iteration * settings.spi + s, x, y)
+        rays = cameralib.generate_rays(scene.camera, settings, x, y, rx, ry,
+                                       rng_state=state)
+        color = fn(scene, settings, rays, state, tabs)
+        acc = color if acc is None else acc + color
+    return _image(acc, settings)
 
 
 class Runtime:
@@ -71,6 +135,7 @@ class Runtime:
         self._iteration = 0
         self._frame = 0
         self._sample_count = 0
+        self._aept_guiding = None
 
     @staticmethod
     def load_from_file(path, *, device="cuda", **overrides) -> "Runtime":
@@ -94,8 +159,14 @@ class Runtime:
         return self._sample_count
 
     def step(self) -> "Runtime":
+        guiding = None
+        if canonical(self.settings.technique) == "aept":
+            if self._aept_guiding is None:
+                self._aept_guiding = aept_guiding(self.scene, self.settings,
+                                                  self._frame)
+            guiding = self._aept_guiding
         img = render_iteration(self.scene, self.settings, self._iteration,
-                               self._frame)
+                               self._frame, guiding)
         self._film = img if self._film is None else self._film + img
         self._iteration += 1
         self._sample_count += self.settings.spi
@@ -115,3 +186,22 @@ class Runtime:
         self._film = None
         self._iteration = 0
         self._sample_count = 0
+        self._aept_guiding = None
+
+    def render_aovs(self) -> dict:
+        """The Normals, Albedo ([h, w, 3] each) and Depth ([h, w]) AOVs of
+        one ray through each pixel's centre (the info buffer,
+        techniques/simple.info_buffer), on the runtime's device."""
+        from ..techniques.simple import info_buffer
+        s = self.settings
+        x, y = _pixels(s, self.device)
+        state = rnglib.seed(0, 0, 0, x, y, s.seed)
+        half = torch.full(x.shape, 0.5, device=self.device)
+        rays = cameralib.generate_rays(self.scene.camera, s, x, y, half, half)
+        normals, albedo, depth = info_buffer(
+            self.scene, s, rays, state, render_tables(self.scene, s))
+
+        def im(c):
+            return torch.stack(list(c), dim=-1).reshape(s.height, s.width, 3)
+        return {"Normals": im(normals), "Albedo": im(albedo),
+                "Depth": im(depth)[..., 0]}

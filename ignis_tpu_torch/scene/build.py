@@ -15,10 +15,17 @@ sun and environment lights, the env constant or an image texture with
 its conditional / SAT / hierarchical importance table; the uniform, cdf
 and hierarchy light selectors and their tables; homogeneous media and the
 entities' inner and outer media. Transparent shadows turn on, as in the
-JAX build, when a row is passthrough, thin dielectric or Radiance.
-Anything else raises NotImplementedError naming its ROADMAP item: PExpr
-strings (item 15; PExpr-valued media included), measured BSDFs and sky
-lights (item 16).
+JAX build, when a row is passthrough, thin dielectric or Radiance. With
+`instancing=True` every mesh shape that two or more entities use becomes
+an instance group (ops/instanced.InstancedGeo: one local soup, with its
+own BVH at BVH_THRESHOLD triangles or more, and a transform per
+instance). The technique section sets the technique, its depths
+(ppm's max_camera_depth spelling), NEE (off by default for aept), the
+debug view, the photon count (the `photons` override, default
+1,000,000), the light depth, the merge radius and aept's learning
+iterations. Anything else raises NotImplementedError naming its ROADMAP
+item: PExpr strings (item 15; PExpr-valued media included), measured
+BSDFs and sky lights (item 16).
 
 Rows and values follow the JAX build; the triangle order differs: scenes
 with a BVH are reordered by the tri-leaf BVH8's prim_order alone (no TPU
@@ -43,6 +50,7 @@ from ..models import texture as texlib
 from ..models.bsdf import BLEND_MAX_DEPTH, ROUGH_FLAG, THIN_FLAG, BsdfKind
 from ..models.light import LightKind
 from ..ops.bvh import BVHArrays
+from ..ops.instanced import InstancedGeo
 from ..ops.intersect import SphereSoup, TriSoup
 from ..scenedata import (CameraData, Entities, EnvMap, Lights, Materials,
                          Media, RenderSettings, SceneData, SphereAttributes,
@@ -638,8 +646,6 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     device = torch.device(device)
     warnings: List[str] = []
     overrides = overrides or {}
-    if overrides.get("instancing"):
-        raise _todo("instancing", "13")
     if scene.parameters:
         raise _todo("scene parameters (the PExpr registry)", "15")
 
@@ -663,7 +669,10 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     if "max_depth" in overrides:
         max_depth = int(overrides["max_depth"])
     clamp = tech.get_number("clamp", 0.0) if tech else 0.0
-    enable_nee = tech.get_bool("nee", True) if tech else True
+    # aept turns NEE off by default (AdaptiveEnvPathTechnique.cpp:18)
+    enable_nee = (tech.get_bool("nee", tech_type not in ("aept",
+                                                          "adaptive_env"))
+                  if tech else True)
 
     cam = scene.camera
     cam_type = cam.plugin_type if cam else "perspective"
@@ -732,6 +741,18 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     ent_sphere: Dict[str, tuple] = {}
     all_points = []
     n_soup = 0
+    # two-level instancing (ignis_tpu/scene/build.py:906-1037): with
+    # `instancing`, every mesh shape that two or more entities use keeps
+    # one local-space soup and a world->local transform per entity
+    inst_shapes: set = set()
+    inst_records: Dict[str, list] = {}
+    if overrides.get("instancing"):
+        use_count: Dict[str, int] = {}
+        for _, obj in scene.entities.items():
+            sn = obj.get_string("shape")
+            if sn in meshes:
+                use_count[sn] = use_count.get(sn, 0) + 1
+        inst_shapes = {sn for sn, c in use_count.items() if c >= 2}
     for name, obj in scene.entities.items():
         shape_name = obj.get_string("shape")
         eid = len(ent_names)
@@ -762,6 +783,20 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
                 ent_sphere[name] = (wc, wr)
                 all_points.append(wc[None] + np.array([[-wr, -wr, -wr],
                                                        [wr, wr, wr]]))
+        elif shape_name in inst_shapes:
+            w2l = np.linalg.inv(tr)
+            src = meshes[shape_name]
+            lo, hi = src.vertices.min(axis=0), src.vertices.max(axis=0)
+            corners = np.array([[x, y, z, 1.0] for x in (lo[0], hi[0])
+                                for y in (lo[1], hi[1])
+                                for z in (lo[2], hi[2])])
+            wc = (tr @ corners.T).T[:, :3]
+            inst_records.setdefault(shape_name, []).append(
+                (w2l[:3, :4].astype(np.float32),
+                 w2l[:3, :3].T.astype(np.float32), eid, shadow_visible,
+                 wc.min(axis=0).astype(np.float32),
+                 wc.max(axis=0).astype(np.float32)))
+            all_points.append(wc)
         elif shape_name in meshes:
             src = meshes[shape_name]
             m = meshlib.TriMesh(src.vertices.copy(), src.indices.copy(),
@@ -959,6 +994,10 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         return torch.tensor(float(v), dtype=torch.float32, device=device)
 
     tris = TriSoup(soa3(v0), soa3(e1), soa3(e2))
+    instances = (tuple(_instance_group(meshes[sn], inst_records[sn], ten,
+                                       soa3, soa2)
+                       for sn in sorted(inst_records))
+                 if inst_records else None)
     attr = TriAttributes(n0=soa3(nrm[0]), n1=soa3(nrm[1]), n2=soa3(nrm[2]),
                          uv0=soa2(uvs[0]), uv1=soa2(uvs[1]),
                          uv2=soa2(uvs[2]), ent=ten(t_ent), area=ten(t_area),
@@ -1051,7 +1090,7 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
                      camera=camera, media=media, bvh=bvh,
                      scene_radius=scalar(radius),
                      scene_center=Vec3(*[scalar(v) for v in center]),
-                     textures=tuple(texreg.datas))
+                     textures=tuple(texreg.datas), instances=instances)
     selector = (tech.get_string("light_selector", "uniform") or "uniform"
                 ) if tech else "uniform"
 
@@ -1088,8 +1127,82 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
                      for r in mat_rows),
         bsdf_kinds=tuple(sorted(kinds)),
         light_kinds=tuple(sorted({int(r["kind"]) for r in l_rows})),
-        env_cdf_method=env_cdf_method)
+        env_cdf_method=env_cdf_method,
+        debug_mode=_debug_mode_of(tech) if tech else 0,
+        # photon mapping (PhotonMappingTechnique.cpp:14-20): the reference
+        # default of 1e6 photons, overridable
+        photon_count=max(100, int(overrides.get(
+            "photons", tech.get_int("photons", 1000000) if tech
+            else 1000000))),
+        max_light_depth=tech.get_int("max_light_depth", 8) if tech else 8,
+        merge_radius=tech.get_number("radius", 0.01) if tech else 0.01,
+        learning_iterations=(max(1, tech.get_int("learning_iterations", 1))
+                             if tech else 1))
     return BuiltScene(data=data, settings=settings, warnings=warnings)
+
+
+def _instance_group(src: meshlib.TriMesh, recs: list, ten, soa3, soa2):
+    """The InstancedGeo of one reused mesh: its local soup (not padded;
+    with its own BVH8 at BVH_THRESHOLD triangles or more, the soup and
+    attributes reordered by its prim_order) and the instances' records
+    (w2l, normal matrix, entity, shadow_visible, world box)."""
+    lm = meshlib.TriMesh(src.vertices.copy(), src.indices.copy(),
+                         None if src.normals is None else src.normals.copy(),
+                         None if src.texcoords is None
+                         else src.texcoords.copy())
+    lm.ensure_attributes()
+    lv0, le1, le2 = [], [], []
+    ln, luv = ([], [], []), ([], [], [])
+    _append_mesh(lm, 0, True, lv0, le1, le2, ln, luv, [], [], [])
+    v0, e1, e2 = (np.concatenate(a).astype(np.float32)
+                  for a in (lv0, le1, le2))
+    nrm = [np.concatenate(a).astype(np.float32) for a in ln]
+    uvs = [np.concatenate(a).astype(np.float32) for a in luv]
+    bvh = None
+    if len(v0) >= BVH_THRESHOLD:
+        b = build_bvh8(v0, e1, e2)
+        perm = b.prim_order.astype(np.int64)
+        v0, e1, e2 = v0[perm], e1[perm], e2[perm]
+        nrm = [a[perm] for a in nrm]
+        uvs = [a[perm] for a in uvs]
+        bvh = BVHArrays(*[ten(a) for a in (b.cmin_x, b.cmin_y, b.cmin_z,
+                                           b.cmax_x, b.cmax_y, b.cmax_z,
+                                           b.child)])
+    return InstancedGeo(
+        soup=TriSoup(soa3(v0), soa3(e1), soa3(e2)),
+        n0=soa3(nrm[0]), n1=soa3(nrm[1]), n2=soa3(nrm[2]),
+        uv0=soa2(uvs[0]), uv1=soa2(uvs[1]), uv2=soa2(uvs[2]),
+        w2l=ten(np.stack([r[0] for r in recs])),
+        nrm_mat=ten(np.stack([r[1] for r in recs])),
+        ent=ten(np.asarray([r[2] for r in recs], np.int32)),
+        shadow_visible=ten(np.asarray([r[3] for r in recs], bool)),
+        aabb_min=ten(np.stack([r[4] for r in recs])),
+        aabb_max=ten(np.stack([r[5] for r in recs])), bvh=bvh)
+
+
+# DebugMode.cpp's names of the debug views, in enum order
+# (ignis_tpu/scene/build.py:622-645)
+_DEBUG_MODES = ["normal", "tangent", "bitangent", "geometric normal",
+                "local normal", "local tangent", "local bitangent",
+                "local geometric normal", "texture coords", "prim coords",
+                "point", "local point", "generated coords", "hit distance",
+                "area", "raw prim id", "prim id", "raw entity id",
+                "entity id", "raw material id", "material id", "is emissive",
+                "is specular", "is entering", "check bsdf", "albedo",
+                "medium inner", "medium outer"]
+
+
+def _debug_mode_of(tech) -> int:
+    v = tech.get("mode", 0)
+    if isinstance(v, str):
+        try:
+            return _DEBUG_MODES.index(v.strip().lower())
+        except ValueError:
+            return 0
+    try:
+        return int(v)
+    except (TypeError, ValueError):
+        return 0
 
 
 def _pack_lights(l_rows, n_lights, scene_r, area_tris, area_cdf, v0, e1, e2,

@@ -5,10 +5,12 @@ NamedTuples whose field names match the JAX package, so the bridge
 (bridge.py) and the module-by-module tests compare like for like. Nothing
 is placed on a device implicitly: `SceneData.to(device)` moves every leaf.
 
-Left out against the JAX SceneData: measured BSDF tables, the PExpr
-registry and instancing (ROADMAP queue 1, items 16, 15 and 13), and the
-TPU-only chunked-leaf BVH: `bvh` is the tri-leaf BVH8 alone
-(ops/bvh.BVHArrays). `textures` is a tuple of models/texture.TexData.
+Left out against the JAX SceneData: measured BSDF tables and the PExpr
+registry (ROADMAP queue 1, items 16 and 15), and the TPU-only chunked-leaf
+BVH: `bvh` is the tri-leaf BVH8 alone (ops/bvh.BVHArrays). `textures` is
+a tuple of models/texture.TexData; `instances` a tuple of
+ops/instanced.InstancedGeo, one per mesh shared by two or more entities
+under `instancing=True`, or None.
 """
 from __future__ import annotations
 
@@ -159,6 +161,7 @@ class SceneData(NamedTuple):
     scene_radius: torch.Tensor
     scene_center: Vec3
     textures: tuple = ()
+    instances: Optional[tuple] = None
 
     def to(self, device) -> "SceneData":
         """Every tensor leaf on `device` (a copy where it moves)."""

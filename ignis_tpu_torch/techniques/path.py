@@ -30,8 +30,11 @@ checkpointed in chunks of DIFF_CHUNK.
 Transparent shadows (`shadow_transmittance`) walk a shadow ray's
 crossings of see-through rows and media; the volumetric technique
 (techniques/volpath.py) shares this module's shading, light sampling and
-cascade (`technique_fns`). Not carried yet: instancing (ROADMAP queue 1,
-item 13) and the other techniques (14).
+cascade (`technique_fns`), and the other techniques (techniques/simple.py,
+lighttracer.py, ppm.py, aept.py) its tracing, hit shading and tables.
+Instanced groups (ops/instanced.py) take part in every closest hit, any
+hit and hit-attribute fetch, through their own tables
+(`RenderTables.inst`).
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from ..models import medium as medlib
 from ..models import texture as texlib
 from ..ops import bvh_cuda, isect_cuda
 from ..ops import gather as gatherlib
+from ..ops import instanced as instlib
 from ..ops import intersect as isect
 from ..ops.intersect import FLT_MAX, Hit, Rays
 from ..scenedata import RenderSettings, SceneData, tree_map
@@ -82,9 +86,32 @@ class Surface(NamedTuple):
     tv: Vec3
 
 
-def trace_scene(scene: SceneData, rays: Rays, packed=None) -> Hit:
-    """Closest hit: BVH (K1) or dense (K2) triangles, then spheres.
-    `packed` is the soup packed for that kernel (soup_pack_of), or None."""
+def instance_tables(scene: SceneData):
+    """The GroupTables of each instanced group (ops/instanced.py), or None
+    for a scene without instances."""
+    if scene.instances is None:
+        return None
+    return tuple(instlib.group_tables(g) for g in scene.instances)
+
+
+def _groups(scene: SceneData, inst):
+    """(group, its tables, its prim base) of each instanced group."""
+    if inst is None:
+        inst = instance_tables(scene)
+    base = scene.tris.v0.x.shape[0] + scene.spheres.radius.shape[0]
+    out = []
+    for g, gt in zip(scene.instances, inst):
+        out.append((g, gt, base))
+        base += g.n_instances * g.tris_per_instance
+    return out
+
+
+def trace_scene(scene: SceneData, rays: Rays, packed=None,
+                inst=None) -> Hit:
+    """Closest hit: BVH (K1) or dense (K2) triangles, then spheres, then
+    the instanced groups (one K1 or K2 launch each). `packed` is the soup
+    packed for that kernel (soup_pack_of), or None; `inst` the groups'
+    tables (instance_tables), made here when None."""
     if scene.bvh is not None:
         h = bvh_cuda.intersect_bvh(rays, scene.tris, scene.bvh,
                                    tri_rows=packed)
@@ -92,12 +119,17 @@ def trace_scene(scene: SceneData, rays: Rays, packed=None) -> Hit:
         h = isect_cuda.intersect_tris(rays, scene.tris, packed=packed)
     hs = isect.intersect_spheres_dense(rays, scene.spheres,
                                        scene.tris.v0.x.shape[0])
-    return isect.merge_hits(h, hs)
+    h = isect.merge_hits(h, hs)
+    if scene.instances is not None:
+        for g, gt, base in _groups(scene, inst):
+            h = isect.merge_hits(h, instlib.intersect_instanced(
+                rays, g, base, tabs=gt))
+    return h
 
 
 def occluded_scene(scene: SceneData, rays: Rays,
-                   packed=None) -> torch.Tensor:
-    """Any hit on a shadow-visible primitive."""
+                   packed=None, inst=None) -> torch.Tensor:
+    """Any hit on a shadow-visible primitive, instanced ones included."""
     vis = scene.tri_attr.shadow_visible
     if scene.bvh is not None:
         occ = bvh_cuda.intersect_bvh(rays, scene.tris, scene.bvh,
@@ -111,6 +143,10 @@ def occluded_scene(scene: SceneData, rays: Rays,
         h = isect.intersect_spheres_dense(rays, scene.spheres, 0)
         svis = scene.sph_attr.shadow_visible[torch.clamp(h.prim, min=0).long()]
         occ = occ | ((h.prim >= 0) & svis)
+    if scene.instances is not None:
+        for g, gt, _ in _groups(scene, inst):
+            occ = occ | instlib.intersect_instanced(rays, g, 0, any_hit=True,
+                                                    tabs=gt)
     return occ
 
 
@@ -136,10 +172,12 @@ def attr_table(scene: SceneData) -> torch.Tensor:
 
 
 def compute_surface(scene: SceneData, rays: Rays, hit: Hit,
-                    tab: torch.Tensor = None) -> Surface:
+                    tab: torch.Tensor = None, inst=None) -> Surface:
     """Hit attributes through one row gather of `tab` (attr_table, K3)
     into contiguous columns; the table is built here when none is
-    given."""
+    given. Hits on an instanced group take its local attributes and the
+    instance's normal matrix and entity (instanced_surface: two K3
+    gathers a group, of the group's tables `inst`)."""
     n_tri = scene.tris.v0.x.shape[0]
     prim = torch.clamp(hit.prim, min=0)
     is_tri = prim < n_tri
@@ -201,6 +239,30 @@ def compute_surface(scene: SceneData, rays: Rays, hit: Hit,
         zero = Vec3(z, z, z)
         tu = vselect(is_tri, tu, zero)
         tv = vselect(is_tri, tv, zero)
+
+    if scene.instances is not None:
+        # the instanced region, prim >= n_tri + n_sph (JAX path.py:390-420)
+        z = torch.zeros_like(uv.x)
+        zero = Vec3(z, z, z)
+        for g, gt, base in _groups(scene, inst):
+            size = g.n_instances * g.tris_per_instance
+            keep = ~((prim >= base) & (prim < base + size))
+            (ifn, in0, in1, in2, iuv0, iuv1, iuv2,
+             ient) = instlib.instanced_surface(
+                 g, gt, torch.clamp(prim - base, 0, size - 1))
+            ifn = normalize(ifn)
+            ins = normalize(Vec3(in0.x * w + in1.x * u + in2.x * v,
+                                 in0.y * w + in1.y * u + in2.y * v,
+                                 in0.z * w + in1.z * u + in2.z * v))
+            face_n = vselect(keep, face_n, ifn)
+            ns = vselect(keep, ns, ins)
+            uv = Vec2(torch.where(keep, uv.x, iuv0.x * w + iuv1.x * u
+                                  + iuv2.x * v),
+                      torch.where(keep, uv.y, iuv0.y * w + iuv1.y * u
+                                  + iuv2.y * v))
+            ent = torch.where(keep, ent, ient)
+            tu = vselect(keep, tu, zero)
+            tv = vselect(keep, tv, zero)
 
     is_entering = dot(rays.dir, face_n) <= 0.0
     flip = torch.where(is_entering, 1.0, -1.0)
@@ -424,11 +486,11 @@ def _cadd_where(m, acc: Color, c: Color) -> Color:
 
 
 def check_settings(settings: RenderSettings, scene: SceneData) -> None:
-    """Raise for anything the port does not carry yet."""
-    if settings.technique not in ("path", "pt", "volpath"):
-        raise NotImplementedError(
-            f"technique '{settings.technique}' is not ported yet (ROADMAP "
-            "queue 1, item 14)")
+    """Raise for anything the port does not carry yet, and for a technique
+    that does not exist."""
+    from . import TECHNIQUES
+    if settings.technique not in TECHNIQUES:
+        raise ValueError(f"Unknown technique '{settings.technique}'")
     if settings.medium_exprs and any(settings.medium_exprs):
         raise NotImplementedError("PExpr media are not ported yet (ROADMAP "
                                   "queue 1, item 15)")
@@ -440,13 +502,15 @@ class RenderTables(NamedTuple):
     """What a render makes once from the scene and hands to every bounce:
     the attr_table, the material_table, the medium_table (None where no
     bounce reads a medium), scene_info, the soup packed for its kernel
-    (soup_pack_of) and the texture evaluator (None without textures)."""
+    (soup_pack_of), the texture evaluator (None without textures) and the
+    instanced groups' tables (instance_tables, None without instances)."""
     attr: torch.Tensor
     mat: torch.Tensor
     med: torch.Tensor
     info: SceneInfo
     packed: object
     eval_texture: object
+    inst: tuple = None
 
 
 def render_tables(scene: SceneData, settings: RenderSettings,
@@ -458,7 +522,7 @@ def render_tables(scene: SceneData, settings: RenderSettings,
     return RenderTables(attr_table(scene), material_table(scene),
                         medlib.medium_table(scene.media) if media else None,
                         scene_info(scene, settings), soup_pack_of(scene),
-                        eval_texture)
+                        eval_texture, instance_tables(scene))
 
 
 def shadow_transmittance(scene: SceneData, settings: RenderSettings,
@@ -506,9 +570,9 @@ def shadow_transmittance(scene: SceneData, settings: RenderSettings,
 
     for _ in range(max_crossings):
         seg = Rays(org, d, t_cur, torch.where(alive, t_end, -1.0))
-        hit = trace_scene(scene, seg, tabs.packed)
+        hit = trace_scene(scene, seg, tabs.packed, tabs.inst)
         found = hit.prim >= 0
-        surf = compute_surface(scene, seg, hit, attr)
+        surf = compute_surface(scene, seg, hit, attr, tabs.inst)
         mat = gather_mat_rows(tabs.mat, material_ids(scene, surf),
                               grad=info.mat_grad)
         # the medium over [t_cur, t_hit], or to the segment's end
@@ -565,8 +629,26 @@ def shadow_transmittance(scene: SceneData, settings: RenderSettings,
     rest = torch.where(torch.isfinite(rest), rest, 0.0)
     tint = tint.cmul(medlib.transmittance(med, rest))
     fin = Rays(org, d, t_cur, torch.where(alive, t_end, -1.0))
-    blocked = occluded_scene(scene, fin, tabs.packed)
+    blocked = occluded_scene(scene, fin, tabs.packed, tabs.inst)
     return cselect(alive & blocked, Color(zero, zero, zero), tint)
+
+
+def infinite_emissions(scene: SceneData, tabs: RenderTables, dirs: Vec3):
+    """For each infinite light row that is no delta light: (row, its
+    kind, its texture id, the row id a lane, its LightParams, its radiance
+    along `dirs`, the texture evaluated)."""
+    n = dirs.x.shape[0]
+    for lid, (kind, tex_id, delta) in tabs.info.infinite.items():
+        if delta:
+            continue
+        rows = torch.full((n,), lid, dtype=torch.int64, device=dirs.x.device)
+        lp = lightlib.gather_light(scene.lights, rows)
+        env_tex = None
+        if tabs.eval_texture is not None and tex_id >= 0:
+            def env_tex(tid, ctx, tex_id=tex_id):
+                return tabs.eval_texture(tid, ctx, (tex_id,))
+        yield (lid, kind, tex_id, rows, lp,
+               lightlib.env_emission(scene, lp, dirs, env_tex, (kind,)))
 
 
 def env_miss(scene: SceneData, settings: RenderSettings, tabs: RenderTables,
@@ -574,23 +656,12 @@ def env_miss(scene: SceneData, settings: RenderSettings, tabs: RenderTables,
     """`result` plus the emission of the infinite lights that the lanes
     under `mask` see along their ray, MIS-weighted with `inv_pdf` (a delta
     light adds nothing to a miss)."""
-    n = state.tmin.shape[0]
-    lights = scene.lights
-    for lid, (kind, tex_id, delta) in tabs.info.infinite.items():
-        if delta:
-            continue
-        rows = torch.full((n,), lid, dtype=torch.int64,
-                          device=state.tmin.device)
-        lp = lightlib.gather_light(lights, rows)
-        env_tex = None
-        if tabs.eval_texture is not None and tex_id >= 0:
-            def env_tex(tid, ctx, tex_id=tex_id):
-                return tabs.eval_texture(tid, ctx, (tex_id,))
-        emit = lightlib.env_emission(scene, lp, state.dir, env_tex, (kind,))
+    for lid, kind, tex_id, rows, lp, emit in infinite_emissions(
+            scene, tabs, state.dir):
         pdf_s = lightlib.env_pdf_direct(scene, lp, state.dir, (kind,),
                                         textured=tex_id >= 0)
-        lsel_pdf = lightlib.infinite_selector_pdf(settings, lights, lid,
-                                                  rows)
+        lsel_pdf = lightlib.infinite_selector_pdf(settings, scene.lights,
+                                                  lid, rows)
         if settings.enable_nee:
             mis = 1.0 / (1.0 + inv_pdf * lsel_pdf * pdf_s)
             c = state.contrib.cmul(emit) * mis
@@ -600,6 +671,17 @@ def env_miss(scene: SceneData, settings: RenderSettings, tabs: RenderTables,
     return result
 
 
+def light_texture(tabs: RenderTables):
+    """The texture evaluator over the lights' texture ids, or None."""
+    ev, info = tabs.eval_texture, tabs.info
+    if ev is None or not info.light_tex:
+        return None
+
+    def light_tex(tid, c):
+        return ev(tid, c, info.light_tex)
+    return light_tex
+
+
 class Shading(NamedTuple):
     surf: Surface
     frame: Frame
@@ -607,23 +689,26 @@ class Shading(NamedTuple):
 
 
 def shade_hit(scene: SceneData, settings: RenderSettings, tabs: RenderTables,
-              rays: Rays, hit: Hit) -> Shading:
+              rays: Rays, hit: Hit, weight_texture: bool = True) -> Shading:
     """The surface at each lane's hit (K3 attribute fetch), its material
     (K3 material fetch, textures, normal and bump maps) and the lane
-    shader over it, blends resolved."""
+    shader over it, blends resolved. Without `weight_texture` a textured
+    blend weight keeps its constant, as the JAX light tracer, photon pass
+    and aept shade (they pass no override to make_lane_shader)."""
     info, ev = tabs.info, tabs.eval_texture
     n = rays.tmin.shape[0]
     present = tuple(int(k) for k in settings.bsdf_kinds)
     textured = ev is not None and bool(info.tex_ids["base_tex"]
                                        or info.tex_ids["extra_tex"])
-    surf = compute_surface(scene, rays, hit, tabs.attr)
+    surf = compute_surface(scene, rays, hit, tabs.attr, tabs.inst)
     ctx = make_surface_ctx(rays, surf) if ev is not None else None
     mat, mid, tex = gather_material(scene, surf, tabs.mat, ev, ctx, info)
     if tex is not None:
         surf = apply_normal_map(surf, ctx, ev, tex, info)
     frame = make_frame(surf.ns)
     w_override = None
-    if tex is not None and info.blend_depth and info.tex_ids["p0_tex"]:
+    if (weight_texture and tex is not None and info.blend_depth
+            and info.tex_ids["p0_tex"]):
         wtex = ev(tex["p0_tex"], ctx, info.tex_ids["p0_tex"])
         w_override = torch.where(tex["p0_tex"] >= 0, wtex.r, mat.p0)
 
@@ -687,18 +772,13 @@ def sample_nee(scene: SceneData, settings: RenderSettings,
     and the BSDF's value and pdf towards it."""
     lights = scene.lights
     kinds = tuple(int(k) for k in settings.light_kinds or ())
-    ev, info = tabs.eval_texture, tabs.info
     surf = sh.surf
     rng, (ul, u0, u1) = rnglib.next_f32_n(rng, 3)
     lsel, sel_pdf = lightlib.select_light(settings, lights, ul, surf.point,
-                                          info.hier_depth)
+                                          tabs.info.hier_depth)
     lp = lightlib.gather_light(lights, lsel)
-    light_tex = None
-    if ev is not None and info.light_tex:
-        def light_tex(tid, c):
-            return ev(tid, c, info.light_tex)
     ls = lightlib.sample_direct(scene, lp, surf.point, surf.is_entering, u0,
-                                u1, light_tex, kinds)
+                                u1, light_texture(tabs), kinds)
     pdf_l_s = lightlib.pdf_as_solid(ls.pdf_value, ls.pdf_is_area, ls.cos,
                                     ls.dist * ls.dist) * sel_pdf
     return rng, NeeSample(lp, ls, pdf_l_s, sh.shader.eval(ls.dir, out_dir),
@@ -755,7 +835,7 @@ def make_bounce(scene: SceneData, settings: RenderSettings,
     def bounce(state: PathState) -> PathState:
         rays_b = Rays(state.org, state.dir, state.tmin,
                       torch.where(state.alive, state.tmax, -1.0))
-        hit = trace_scene(scene, rays_b, tabs.packed)
+        hit = trace_scene(scene, rays_b, tabs.packed, tabs.inst)
         found = hit.prim >= 0
         result = env_miss(scene, settings, tabs, state, state.inv_pdf,
                           state.alive & ~found, state.result)
@@ -793,7 +873,8 @@ def make_bounce(scene: SceneData, settings: RenderSettings,
                     want & (color_max_component(s_tint) > 0.0), result,
                     contrib_nee.cmul(s_tint))
             else:
-                occ = occluded_scene(scene, shadow_rays, tabs.packed)
+                occ = occluded_scene(scene, shadow_rays, tabs.packed,
+                                     tabs.inst)
                 result = _cadd_where(want & ~occ, result, contrib_nee)
 
         # ---- bounce ----------------------------------------------------

@@ -109,7 +109,7 @@ def make_vol_bounce(scene: SceneData, settings: RenderSettings,
     def bounce(state: VolPathState) -> VolPathState:
         rays_b = Rays(state.org, state.dir, state.tmin,
                       torch.where(state.alive, state.tmax, -1.0))
-        hit = trace_scene(scene, rays_b, tabs.packed)
+        hit = trace_scene(scene, rays_b, tabs.packed, tabs.inst)
         found = hit.prim >= 0
         med = medlib.params_from_state(state.med_sa, state.med_ss,
                                        state.med_g, state.medium)
@@ -161,7 +161,8 @@ def make_vol_bounce(scene: SceneData, settings: RenderSettings,
                     want & (color_max_component(s_tint) > 0.0), result,
                     contrib_nee.cmul(s_tint))
             else:
-                occ = occluded_scene(scene, shadow_rays, tabs.packed)
+                occ = occluded_scene(scene, shadow_rays, tabs.packed,
+                                     tabs.inst)
                 result = _cadd_where(want & ~occ, result, contrib_nee)
 
         # ---- continuation: a medium event or the surface bounce ----------

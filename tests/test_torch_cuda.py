@@ -9,8 +9,9 @@ bounce, at S5's material fetch, on one row,
 with NaN, -0.0 and inf cotangents, and on every launch of a recorded
 geometry-gradient step; the MT replay, also with every ray on one
 triangle), the
-train step and geometry gradient with their launch counts, and the slice
-and its gradient on the card against the CPU.
+train step and geometry gradient with their launch counts, the slice
+and its gradient on the card against the CPU, instanced renders against
+flattened ones, and every other technique on the card against the CPU.
 They skip without a card. The file imports no JAX, so it runs on the
 card's machine: `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 import json
@@ -337,3 +338,24 @@ def test_gradient_on_card_matches_cpu(device):
     """small_scene(64)'s albedo gradient on the card within rtol 1e-3 of
     the CPU's."""
     chip_smoke.phase_grad_reference(device)
+
+
+@pytest.mark.parametrize("subdivisions", [4, 2])
+def test_instanced_matches_flattened_on_card(device, subdivisions):
+    """phase 8's check at 128x128: _grid_scene(8) instanced (the local soup
+    through K1 at subdivisions 4, through K2 at 2) against flattened, the
+    99th percentile of the relative difference under 0.05 and means within
+    1%."""
+    out = chip_smoke.instanced_against_flattened(subdivisions, size=128)
+    assert out["q99"] < 0.05 and out["mean_rel"] < 0.01
+
+
+@pytest.mark.parametrize("name", chip_smoke.REFERENCE_CASES)
+def test_technique_on_card_matches_cpu(device, name, tmp_path):
+    """Each technique and the instanced render on the card against the
+    CPU at 64x64 (chip_smoke.technique_card_vs_cpu's bars: 99% of pixels
+    close, means within 1e-4 relative, 1e-3 for lt and aept)."""
+    from ignis_tpu_torch.utils.envgen import ensure_substitute_env
+    out = chip_smoke.technique_card_vs_cpu(
+        device, name, ensure_substitute_env(tmp_path, 256, 128))
+    assert out["pixels_close"] >= 0.99

@@ -293,21 +293,27 @@ def _pexpr_medium(scene):
                        "sigma_a": "vec3(uv.x, 0.5, 0.5)"}]
 
 
+def _parameters(scene):
+    scene["parameters"] = {"exposure": 1.0}
+
+
 @pytest.mark.parametrize("change, item, overrides", [
-    (_with("technique", "type", "lt"), "item 14", {}),
+    (_with("bsdfs", 1, {"type": "tensortree", "name": "glass",
+                        "filename": "missing.xml"}), "item 16", {}),
     (_with("bsdfs", 1, {"type": "klems", "name": "glass",
                         "filename": "missing.xml"}), "item 16", {}),
     (_expr_texture, "item 15", {}),
     (_pexpr_medium, "item 15", {}),
-    (lambda scene: None, "item 13", {"instancing": True}),
+    (_parameters, "item 15", {}),
     (_with("lights", 0, {"type": "perez", "name": "l"}), "item 16", {}),
-], ids=["technique_lt", "klems", "expr_texture", "pexpr_sigma_a",
-        "instancing", "perez_sky"])
+], ids=["tensortree", "klems", "expr_texture", "pexpr_sigma_a",
+        "scene_parameters", "perez_sky"])
 def test_off_slice_features_raise(change, item, overrides):
     """Anything off the slice raises NotImplementedError naming its
-    ROADMAP item: techniques other than path and volpath (14), measured
-    BSDFs and sky models (16), PExpr textures and PExpr-valued media
-    (15), and instancing (13)."""
+    ROADMAP item: measured BSDFs and sky models (16), PExpr textures,
+    PExpr-valued media and the scene's parameter registry (15). Every
+    technique and instancing are on the slice since they were ported
+    (tests/test_torch_techniques.py, tests/test_torch_instancing.py)."""
     scene = json.loads(json.dumps(_SCENE))
     change(scene)
     with pytest.raises(NotImplementedError, match=item):
