@@ -45,7 +45,8 @@ printing its own lines; any failure exits non-zero:
    NaN, -0.0 and inf) and the MT replay against its plain version, with
    times (K3 on the random rows, the replay on S1's contended rays and on
    a random soup); `train_step` (albedo) on S1-S6 at 512x512, a
-   roughness gradient on S5 and a geometry gradient on S1 and S2, counts
+   roughness gradient on S5 (max_depth 4) and a geometry gradient on S1
+   and S2, counts
    reset before and read after; one profiled train step per scene, in
    which torch's indexing_backward_kernel must take under 1% of the
    device time, and one profiled S1 geometry-gradient step; K3 on S5's
@@ -71,6 +72,19 @@ printing its own lines; any failure exits non-zero:
    (1,000,000 photons), each with its launches, host syncs and a profiled
    step; and every technique and the instanced render on the card
    against the CPU at 64x64 (`technique_card_vs_cpu`);
+9. the scene-language slice: S9 (`s9_scene`: S5's camera and floor, the
+   floor a PExpr texture reading the registry parameter `tint`, five
+   icospheres of a 145-patch Klems window, a depth-4 TensorTree3, a
+   Dupuy-Jakob ball, a rough plastic with a per-lane PExpr colour (and a
+   PExpr roughness that folds to a constant at load) and a transform
+   BSDF with a PExpr normal, under a perez sky with its sun;
+   the measured files written into build/): forward steps with launches,
+   host syncs and a profiled step, the Dupuy-Jakob K3 gathers of one step
+   against their plain version and timed, setParameter('tint') with no
+   rebuild (and tests/test_runtime_api.py's 4x ratio), an albedo train
+   step with its peak memory; card against CPU at 64x64 of S9 at
+   subdivisions 1 (K2), of each CIE sky and the Hosek sky, of
+   VOL_SCENE's fog with a PExpr sigma_s, and of bake_texture2d;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -79,6 +93,7 @@ line
 Imports nothing of JAX. `--profile-json PATH` also writes the renders'
 timings and the profiled steps to PATH.
 """
+import dataclasses
 import json
 import math
 import statistics
@@ -368,6 +383,237 @@ def s6_scene(build_dir, subdivisions=7, size=512):
         ],
     }
 
+
+
+S9_NAME = "S9_scene_language"
+KERNEL_OF[S9_NAME] = "K1"
+# the floor's texture: tests/test_runtime_api.py:27's registry parameter
+# times a checker and a noise
+S9_FLOOR = "tint * checkerboard(uv*8) * (0.5 + 0.5*perlin(uv*16))"
+S9_TINT = 0.8
+# a number property: the build folds it to its value at uv = 0 (as the
+# JAX build's _prop_number does), so the ball's per-lane PExpr is its
+# diffuse colour
+S9_ROUGHNESS = "0.05 + 0.3*perlin(uv*8)"
+S9_ROUGH_DIFFUSE = "color(0.2, 0.5, 0.3) * (0.6 + 0.8*perlin(uv*8))"
+# the Cycles exporter's normal chain (TransformBSDF's `normal`)
+S9_NORMAL = ("ensure_valid_reflection(Ng, V, bump(N, Nx, Ny, 0.05, "
+             "0.5*voronoi(uv*12), fbm(uv*6)))")
+S9_SUN = [0.4, 0.75, 0.5]
+# the full LBNL Klems basis: theta bands (degrees) and phis a band, 145
+# patches
+KLEMS_THETA = (0, 5, 15, 25, 35, 45, 55, 65, 75, 90)
+KLEMS_PHIS = (1, 8, 16, 20, 24, 24, 24, 16, 12)
+
+
+def _klems_centres():
+    """Unit vectors of the 145 patch centres of the full basis."""
+    out = []
+    for lo, hi, n in zip(KLEMS_THETA[:-1], KLEMS_THETA[1:], KLEMS_PHIS):
+        t = math.radians(0.0 if lo == 0 else 0.5 * (lo + hi))
+        for j in range(n):
+            p = 2 * math.pi * j / n
+            out.append((math.sin(t) * math.cos(p), math.sin(t) * math.sin(p),
+                        math.cos(t)))
+    return np.asarray(out)
+
+
+def write_klems_xml(path, diffuse=0.15, peak=2.0, width=4.0, refl=0.4):
+    """A Klems window of the full 145-patch basis filled from an analytic
+    lobe (the format of tests/test_components.py:165 _klems_xml): entry
+    (out, in) = (diffuse + peak * exp(-width * (1 - cos gamma))) / pi,
+    gamma the angle between the patch centres (transmission peaks
+    straight through), reflection scaled by `refl`."""
+    c = _klems_centres()
+    lobe = (diffuse + peak * np.exp(-width * (1.0 - c @ c.T))) / math.pi
+    blocks = "".join(
+        "<AngleBasisBlock><ThetaBounds>"
+        f"<LowerTheta>{lo}</LowerTheta><UpperTheta>{hi}</UpperTheta>"
+        f"</ThetaBounds><nPhis>{n}</nPhis></AngleBasisBlock>"
+        for lo, hi, n in zip(KLEMS_THETA[:-1], KLEMS_THETA[1:], KLEMS_PHIS))
+    basis = ("<AngleBasis><AngleBasisName>LBNL/Klems Full</AngleBasisName>"
+             + blocks + "</AngleBasis>")
+
+    def block(direction, m):
+        data = " ".join("%.7g" % v for v in m.reshape(-1))
+        return ("<WavelengthData><Wavelength>Visible</Wavelength>"
+                "<WavelengthDataBlock>"
+                f"<WavelengthDataDirection>{direction}"
+                "</WavelengthDataDirection>"
+                "<ColumnAngleBasis>LBNL/Klems Full</ColumnAngleBasis>"
+                "<RowAngleBasis>LBNL/Klems Full</RowAngleBasis>"
+                f"<ScatteringData>{data}</ScatteringData>"
+                "</WavelengthDataBlock></WavelengthData>")
+    Path(path).write_text(
+        "<WindowElement><Optical><Layer><DataDefinition>"
+        "<IncidentDataStructure>Columns</IncidentDataStructure>"
+        + basis + "</DataDefinition>"
+        + block("Transmission Front", lobe)
+        + block("Transmission Back", lobe)
+        + block("Reflection Front", refl * lobe)
+        + block("Reflection Back", refl * lobe)
+        + "</Layer></Optical></WindowElement>")
+
+
+def _tt_lobe(p):
+    """The TensorTree lobe at a cell centre p of [0, 1]^n: a peak at the
+    first square's centre, fading along the other axes."""
+    r2 = (p[0] - 0.5) ** 2 + (p[1] - 0.5) ** 2
+    fade = 1.0 - sum(p[2:]) / max(len(p) - 2, 1)
+    return (0.2 + 1.5 * math.exp(-r2 / 0.05) * fade) / math.pi
+
+
+def _tt_tree(lo, size, depth):
+    """The {}-nested TensorTree text of _tt_lobe over [0, 1]^len(lo):
+    2^n children a node, child bit j the upper half of axis j
+    (scene/tensortree.py _bake)."""
+    n = len(lo)
+    if depth == 0:
+        return "{ %.7g }" % _tt_lobe([x + 0.5 * size for x in lo])
+    half = 0.5 * size
+    kids = [_tt_tree([lo[j] + half * ((k >> j) & 1) for j in range(n)],
+                     half, depth - 1) for k in range(1 << n)]
+    return "{ " + " ".join(kids) + " }"
+
+
+def write_tensortree_xml(path, depth=4, ndim=3):
+    """A TensorTree3 (or 4) window of the given depth (2^(ndim*depth)
+    leaves) from an analytic lobe, in the format of
+    tests/test_components.py:207, for the front and back transmission and
+    reflection."""
+    tree = _tt_tree([0.0] * ndim, 1.0, depth)
+
+    def blk(d):
+        return ("<WavelengthData><Wavelength>Visible</Wavelength>"
+                "<WavelengthDataBlock>"
+                f"<WavelengthDataDirection>{d}</WavelengthDataDirection>"
+                "<AngleBasis>LBNL/Shirley-Chiu</AngleBasis>"
+                f"<ScatteringData>{tree}</ScatteringData>"
+                "</WavelengthDataBlock></WavelengthData>")
+    Path(path).write_text(
+        "<WindowElement><Optical><Layer><DataDefinition>"
+        f"<IncidentDataStructure>TensorTree{ndim}</IncidentDataStructure>"
+        "</DataDefinition>" + blk("Transmission Front")
+        + blk("Transmission Back") + blk("Reflection Front")
+        + blk("Reflection Back") + "</Layer></Optical></WindowElement>")
+
+
+def write_tensor_file(path, fields):
+    """A powitacq tensor file (tests/test_components.py:368
+    _write_tensor_file)."""
+    import struct
+    names = list(fields)
+    header = (b"tensor_file\x00" + bytes([1, 0])
+              + struct.pack("<I", len(names)))
+    pos = len(header)
+    for n in names:
+        pos += 2 + len(n) + 2 + 1 + 8 + 8 * fields[n].ndim
+    metas = []
+    for n in names:
+        a = fields[n]
+        dt = {np.dtype(np.uint8): 1, np.dtype(np.float32): 10}[a.dtype]
+        metas.append((n, a, dt, pos))
+        pos += a.nbytes
+    out = bytearray(header)
+    for n, a, dt, off in metas:
+        out += struct.pack("<H", len(n)) + n.encode()
+        out += struct.pack("<HB", a.ndim, dt) + struct.pack("<Q", off)
+        for sz in a.shape:
+            out += struct.pack("<Q", sz)
+    for n, a, dt, off in metas:
+        out += a.tobytes()
+    Path(path).write_bytes(bytes(out))
+
+
+def write_dj_file(path, T=16, R=32, phis=2, colour=(0.8, 0.5, 0.3)):
+    """A Dupuy-Jakob (powitacq) tensor file of T theta_i nodes and an RxR
+    grid: a glossy analytic lobe in u_wm.x over a uniform sampling
+    density; `phis` phi_i nodes (2: isotropic)."""
+    u = (np.arange(R) + 0.5) / R
+    lobe = 0.1 + 0.9 * np.exp(-(u[None, :] ** 2) / 0.05) \
+        * np.ones((R, 1))
+    rgb = np.stack([c * lobe / math.pi for c in colour])
+    write_tensor_file(path, {
+        "theta_i": np.linspace(0, math.pi / 2 * 0.98, T).astype(np.float32),
+        "phi_i": np.linspace(-math.pi, math.pi, phis).astype(np.float32),
+        "ndf": np.ones((R, R), np.float32),
+        "sigma": np.full((R, R), 0.25, np.float32),
+        "vndf": np.ones((phis, T, R, R), np.float32),
+        "luminance": np.ones((phis, T, R, R), np.float32),
+        "rgb": np.broadcast_to(rgb, (phis, T, 3, R, R)).astype(np.float32),
+        "jacobian": np.zeros((1,), np.uint8)})
+
+
+def s9_files(build_dir):
+    """S9's measured BSDF files in `build_dir`, written on every call: the
+    145-patch Klems window, the depth-4 TensorTree3 and the Dupuy-Jakob
+    file (T 16, R 32). Returns their paths."""
+    build_dir = Path(build_dir)
+    build_dir.mkdir(parents=True, exist_ok=True)
+    klems, tt, dj = (build_dir / "s9_klems145.xml",
+                     build_dir / "s9_tensortree3_d4.xml",
+                     build_dir / "s9_dj_t16_r32.bsdf")
+    write_klems_xml(klems)
+    write_tensortree_xml(tt)
+    write_dj_file(dj)
+    return klems, tt, dj
+
+
+def s9_scene(build_dir, subdivisions=5, size=512):
+    """S9_scene_language: S5's camera and floor layout (s5_scene), the
+    floor a diffuse whose reflectance is the PExpr S9_FLOOR reading the
+    number parameter `tint`; five icospheres of radius 0.35 (subdivisions
+    5: 20,480 triangles each) on a row: a Klems window of the full
+    145-patch basis, a depth-4 TensorTree3, a Dupuy-Jakob ball (T 16,
+    R 32), a rough plastic whose diffuse colour is the PExpr
+    S9_ROUGH_DIFFUSE (evaluated per lane) and whose roughness is the PExpr
+    S9_ROUGHNESS (folded at load), and a transform BSDF whose `normal` is
+    S9_NORMAL over a plastic; lit by a perez sky with its sun (clearness
+    6, a clear sky: perez gives no sun at clearness 1). At subdivisions 5: 102,402 triangles."""
+    klems, tt, dj = s9_files(build_dir)
+    bsdfs = [
+        {"type": "klems", "name": "window", "filename": str(klems),
+         "up": [0, 1, 0]},
+        {"type": "tensortree", "name": "tree", "filename": str(tt),
+         "up": [0, 1, 0]},
+        {"type": "djmeasured", "name": "dj", "filename": str(dj),
+         "tint": [1.0, 0.9, 0.8]},
+        {"type": "roughplastic", "name": "rough",
+         "diffuse_reflectance": S9_ROUGH_DIFFUSE,
+         "roughness": S9_ROUGHNESS},
+        {"type": "transform", "name": "bumped", "bsdf": "bumped_inner",
+         "normal": S9_NORMAL},
+    ]
+    balls, ents = [], []
+    for i, b in enumerate(bsdfs):
+        balls.append({"type": "icosphere", "name": f"ball{i}",
+                      "radius": 0.35, "subdivisions": subdivisions})
+        ents.append({"name": f"ball{i}", "shape": f"ball{i}",
+                     "bsdf": b["name"],
+                     "transform": [{"translate": [0.85 * (i - 2), -0.65,
+                                                  0.3 * (i % 2)]}]})
+    return {
+        "technique": {"type": "path", "max_depth": 8},
+        "camera": S1_GLASS_ICO7["camera"],
+        "film": {"size": [size, size]},
+        "parameters": {"tint": S9_TINT},
+        "textures": [{"type": "expr", "name": "s9_floor",
+                      "expr": S9_FLOOR}],
+        "bsdfs": [
+            {"type": "diffuse", "name": "floor", "reflectance": "s9_floor"},
+            {"type": "plastic", "name": "bumped_inner",
+             "diffuse_reflectance": [0.7, 0.6, 0.2]},
+        ] + bsdfs,
+        "shapes": [{"type": "rectangle", "name": "floor", "width": 6,
+                    "height": 6}] + balls,
+        "entities": [
+            {"name": "floor", "shape": "floor", "bsdf": "floor",
+             "transform": [{"translate": [0, -1, 0]},
+                           {"rotate": [-90, 0, 0]}]},
+        ] + ents,
+        "lights": [{"type": "perez", "name": "sky", "direction": S9_SUN,
+                    "clearness": 6, "brightness": 0.2}],
+    }
 
 SPI = 4
 S1_LIGHT = (2.0, 3.0, 2.0)   # S1's, S4's and S6's point light
@@ -1084,6 +1330,28 @@ def phase_profile(runtimes):
     return out
 
 
+def card_vs_cpu(device, name, scene, spi=4):
+    """One step of `scene` on the card and on the CPU at its film size:
+    >= 99% of the pixels within rtol 1e-3 / atol 1e-4 and the means within
+    0.5% (phase 6's bar). Returns (close share, relative mean
+    difference)."""
+    import ignis_tpu_torch
+    imgs = []
+    for dev in (device, "cpu"):
+        r = ignis_tpu_torch.loadFromString(json.dumps(scene), device=dev,
+                                           spi=spi)
+        imgs.append(r.step().framebuffer(normalized=True).cpu().numpy())
+    gpu, cpu = imgs
+    close = float(np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1).mean())
+    rel = float(abs(gpu.mean() - cpu.mean()) / max(abs(cpu.mean()), 1e-9))
+    check(np.isfinite(gpu).all() and close >= 0.99 and rel <= 0.005,
+          f"{name}: card vs CPU pixels close {close:.4f} >= 0.99, means "
+          f"{gpu.mean():.6f} / {cpu.mean():.6f} within 0.5%")
+    print(f"  {name}: card vs CPU close {close:.4f}, mean {gpu.mean():.6f} "
+          f"(rel diff {rel:.2e})")
+    return close, rel
+
+
 def phase_reference(device, s5_small, s6_small):
     """Analytic point-light oracle on the card, and card-vs-CPU renders
     (`s5_small` is S5 at 64x64, subdivisions 1, a 256x128 env; `s6_small`
@@ -1099,27 +1367,15 @@ def phase_reference(device, s5_small, s6_small):
     avg = float(rt.framebuffer(normalized=True).mean())
     check(abs(avg - 0.005100456) <= 1e-4,
           f"analytic point light: {avg:.9f} vs 0.005100456 (abs 1e-4)")
+    r = ignis_tpu_torch.loadFromString(json.dumps(s6_small), device="cpu")
+    check(r.scene.bvh is None and r.settings.transparent_shadows,
+          "S6 at subdivisions 2: under the BVH threshold (K2), glassy")
     for name, sc in (("S2", S2_GRAFT_ENTRY), ("S4", S4_GLASS_ICO2),
                      ("S1 at subdivisions 3", _ico3(S1_GLASS_ICO7)),
                      ("S5 at subdivisions 1", s5_small),
                      ("S6 at subdivisions 2", s6_small)):
-        small = dict(sc)
-        small["film"] = {"size": [64, 64]}
-        imgs = []
-        for dev in (device, "cpu"):
-            r = ignis_tpu_torch.loadFromString(json.dumps(small), device=dev,
-                                               spi=4)
-            if name.startswith("S6"):
-                check(r.scene.bvh is None and r.settings.transparent_shadows,
-                      f"{name}: under the BVH threshold (K2), glassy")
-            imgs.append(r.step().framebuffer(normalized=True).cpu().numpy())
-        gpu, cpu = imgs
-        close = np.isclose(gpu, cpu, rtol=1e-3, atol=1e-4).all(-1).mean()
-        rel = abs(gpu.mean() - cpu.mean()) / max(cpu.mean(), 1e-9)
-        check(close >= 0.99, f"{name} 64x64: card vs CPU pixels close "
-              f"{close:.4f} >= 0.99")
-        check(rel <= 0.005, f"{name} 64x64: mean card {gpu.mean():.6f} vs "
-              f"CPU {cpu.mean():.6f} within 0.5%")
+        card_vs_cpu(device, f"{name} 64x64", {**sc,
+                                              "film": {"size": [64, 64]}})
     torch.cuda.synchronize()
 
 
@@ -1431,6 +1687,7 @@ def geometry_leaves(scene):
 
 
 TRAIN_STEPS = 3     # a warm-up and two timed train steps a scene
+S5_ROUGHNESS_DEPTH = 4
 
 
 def phase_train(device, runtimes):
@@ -1438,7 +1695,8 @@ def phase_train(device, runtimes):
     512x512, spi 4: TRAIN_STEPS steps, Msamples/s of the faster timed
     step (the first is a warm-up) beside both times, peak memory; counts
     reset before and read after; then the roughness gradient of the same
-    loss on S5 and a geometry gradient on S1 and S2."""
+    loss on S5 (at S5_ROUGHNESS_DEPTH) and a geometry gradient on S1 and
+    S2."""
     import torch
     from ignis_tpu_torch import loss_fn, train_step
     lr = 1e-2
@@ -1482,9 +1740,10 @@ def phase_train(device, runtimes):
     check(plain_calls() == 0, f"no plain version called in the train steps "
           f"({plain_calls()})")
 
-    # the roughness (materials.p2) gradient of the same loss on S5
+    # the roughness (materials.p2) gradient of the same loss on S5, at
+    # max_depth 4 (a shallower path keeps the script within its time)
     rt = runtimes[S5_NAME]
-    s = rt.settings
+    s = dataclasses.replace(rt.settings, max_depth=S5_ROUGHNESS_DEPTH)
     target = torch.zeros((s.height, s.width, 3), device=device)
     p2 = rt.scene.materials.p2.detach().clone().requires_grad_()
     scene = rt.scene._replace(materials=rt.scene.materials._replace(p2=p2))
@@ -1495,7 +1754,8 @@ def phase_train(device, runtimes):
     sec = time.perf_counter() - t0
     rough = [i for i, k in enumerate(scene.materials.kind.tolist())
              if k in (1, 2, 5, 6) and float(p2[i].detach()) > 1e-4]
-    print(f"  {S5_NAME}: roughness gradient in {sec:.4f} s: "
+    print(f"  {S5_NAME}: roughness gradient (max_depth {s.max_depth}) in "
+          f"{sec:.4f} s: "
           f"{[round(float(x), 6) for x in g]} (rough rows {rough})")
     nonzero = int((g[rough] != 0).sum())
     check(bool(torch.isfinite(g).all()) and nonzero > 0,
@@ -1594,16 +1854,11 @@ def phase_geometry_profile(device, rt):
     return p
 
 
-def record_k3(rt, device):
-    """The arguments of every K3 launch of one geometry-gradient step of
-    rt (phase_train's loss w.r.t. tris.v0/e1/e2), recorded by wrapping
-    gather.gather_rows and gather.scatter_add_rows for that step alone:
-    ([(idx, tab, k)], [(idx, cot, n_rows, stride)])."""
-    import torch
-    from ignis_tpu_torch import loss_fn
+def record_k3_calls(run):
+    """The arguments of every K3 launch while run() runs, recorded by
+    wrapping gather.gather_rows and gather.scatter_add_rows for that call
+    alone: ([(idx, tab, k)], [(idx, cot, n_rows, stride)])."""
     from ignis_tpu_torch.ops import gather
-    s = rt.settings
-    target = torch.zeros((s.height, s.width, 3), device=device)
     gathers, scatters = [], []
     gather_rows, scatter_add_rows = gather.gather_rows, gather.scatter_add_rows
 
@@ -1617,13 +1872,26 @@ def record_k3(rt, device):
         return scatter_add_rows(idx, cot, n_rows, stride)
     gather.gather_rows, gather.scatter_add_rows = rec_gather, rec_scatter
     try:
-        scene, leaves = geometry_leaves(rt.scene)
-        loss = loss_fn({"base": scene.materials.base}, scene, s, target, 0, 0)
-        torch.autograd.grad(loss, leaves)
+        run()
     finally:
         gather.gather_rows = gather_rows
         gather.scatter_add_rows = scatter_add_rows
     return gathers, scatters
+
+
+def record_k3(rt, device):
+    """record_k3_calls of one geometry-gradient step of rt (phase_train's
+    loss w.r.t. tris.v0/e1/e2)."""
+    import torch
+    from ignis_tpu_torch import loss_fn
+    s = rt.settings
+    target = torch.zeros((s.height, s.width, 3), device=device)
+
+    def step():
+        scene, leaves = geometry_leaves(rt.scene)
+        loss = loss_fn({"base": scene.materials.base}, scene, s, target, 0, 0)
+        torch.autograd.grad(loss, leaves)
+    return record_k3_calls(step)
 
 
 def time_k3_launches(gathers, scatters, kernels=None, library=True):
@@ -2266,6 +2534,261 @@ def _ico3(scene):
     return s
 
 
+
+# ---------------------------------------------------------------------------
+# phase 9: the scene-language slice (S9)
+# ---------------------------------------------------------------------------
+
+# tests/test_runtime_api.py:10 SCENE: a PExpr texture reading the
+# registry parameter `tint`; the JAX package's test holds its image mean
+# to 4x when tint goes 0.2 -> 0.8
+RUNTIME_SCENE = {
+    "technique": {"type": "path", "max_depth": 3},
+    "camera": {"type": "perspective", "fov": 60,
+               "transform": [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, -2]},
+    "film": {"size": [16, 16]},
+    "parameters": {"tint": 0.2},
+    "textures": [{"type": "expr", "name": "refl",
+                  "expr": "vec3(tint, tint, tint)"}],
+    "bsdfs": [{"type": "diffuse", "name": "g", "reflectance": "refl"}],
+    "shapes": [{"type": "rectangle", "name": "B", "width": 4, "height": 4,
+                "flip_normals": True}],
+    "entities": [{"name": "B", "shape": "B", "bsdf": "g"}],
+    "lights": [{"type": "point", "name": "P", "position": [0, 1, -1.5],
+                "intensity": [8, 8, 8]}],
+}
+S9_SKIES = (
+    {"type": "cie_uniform"}, {"type": "cie_cloudy"}, {"type": "cie_clear"},
+    {"type": "cie_intermediate"}, {"type": "sky", "turbidity": 3.0})
+# VOL_SCENE's fog (tests/test_compaction.py:88) with a PExpr sigma_s
+# (the participating_media.json gate scene's expression family)
+S9_FOG_SIGMA_S = "0.2*(color(1)-norm(Np.xyzz))"
+
+
+def tensor_bytes(obj) -> int:
+    """Bytes of every tensor in nested NamedTuples / tuples."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if isinstance(obj, tuple):
+        return sum(tensor_bytes(v) for v in obj)
+    return 0
+
+
+def record_dj_gathers(rt):
+    """(rows, table, k) of every K3 gather of the Dupuy-Jakob corner fetch
+    in one step of rt: record_k3_calls' gathers from the scene's
+    Dupuy-Jakob gather table."""
+    from ignis_tpu_torch.models.djmeasured import DJData
+    tables = {m.table.data_ptr() for m in rt.scene.measured
+              if isinstance(m, DJData)}
+    gathers, _ = record_k3_calls(rt.step)
+    return [g for g in gathers if g[1].data_ptr() in tables]
+
+
+def phase_dj_k3(seen):
+    """K3 on the recorded Dupuy-Jakob gathers: each equal to its plain
+    version, then the sums of the kernel's, the plain version's and
+    torch.index_select's times and of the bound."""
+    import torch
+    from ignis_tpu_torch.ops import gather
+    equal, errs = zip(*[k3_gather_result(*a) for a in seen])
+    check(len(seen) > 0 and all(equal), f"S9 Dupuy-Jakob: all {len(seen)} "
+          f"recorded K3 gathers equal to tab[idx]")
+    t = time_k3_launches(seen, [])["gather"]
+    t["plain_ms"] = sum(cuda_ms(lambda: gather.gather_rows_plain(i, tb, k))
+                        for i, tb, k in seen)
+    t["max_abs_err"] = max(errs)
+    t["bound_by"] = "bytes"
+    t["table_rows"] = int(seen[0][1].shape[0])
+    print(f"  S9 Dupuy-Jakob K3 gathers: {t['launches']} launches, "
+          f"{t['lanes']} lanes onto a [{t['table_rows']} x 4] table: kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, index_select "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (sums)")
+    torch.cuda.synchronize()
+    return t
+
+
+def _counting(module, name, counter):
+    """Wrap module.name so each call adds one to counter[name]; returns
+    the original."""
+    real = getattr(module, name)
+
+    def wrapped(*a, **kw):
+        counter[name] = counter.get(name, 0) + 1
+        return real(*a, **kw)
+    setattr(module, name, wrapped)
+    return real
+
+
+def phase_tint(device, rt):
+    """setParameter("tint") on the card: on S9 (`rt` has stepped, so its
+    node records are packed), one step before and one after the change
+    with pack_nodes and render_tables calls counted: the same counts, no
+    rebuild, the registry's tensor updated in place, the image moved; on
+    tests/test_runtime_api.py's scene, the JAX package's 4x ratio (within
+    its 0.01)."""
+    import ignis_tpu_torch
+    from ignis_tpu_torch.ops import bvh_cuda
+    from ignis_tpu_torch.render import session
+    from ignis_tpu_torch.techniques import path
+    reg = rt.scene.registry["tint"]
+    counts = [{}, {}]
+    means = []
+    for i, tint in enumerate((None, S9_TINT / 2)):
+        if tint is not None:
+            rt.setParameter("tint", tint)
+        rt.reset()
+        real_pack = _counting(bvh_cuda, "pack_nodes", counts[i])
+        real_tabs = _counting(path, "render_tables", counts[i])
+        real_stabs = _counting(session, "render_tables", counts[i])
+        try:
+            rt.step()
+        finally:
+            bvh_cuda.pack_nodes = real_pack
+            path.render_tables = real_tabs
+            session.render_tables = real_stabs
+        means.append(float(rt.framebuffer(normalized=True).mean()))
+    print(f"  S9 setParameter('tint', {S9_TINT} -> {S9_TINT / 2}): image "
+          f"mean {means[0]:.6f} -> {means[1]:.6f}; calls a step before "
+          f"{counts[0]}, after {counts[1]}; rebuilds {rt.rebuilds}")
+    check(counts[0] == counts[1] and rt.rebuilds == 0
+          and rt.scene.registry["tint"] is reg
+          and abs(float(reg) - S9_TINT / 2) < 1e-7
+          and means[1] < means[0],
+          "S9 tint: no rebuild (pack_nodes and render_tables calls "
+          "unchanged), the registry tensor updated in place, the image "
+          "darker")
+    r = ignis_tpu_torch.loadFromString(json.dumps(RUNTIME_SCENE),
+                                       device=device, spi=8)
+    a = float(r.step().framebuffer(normalized=True).mean())
+    r.setParameter("tint", 0.8)
+    r.reset()
+    b = float(r.step().framebuffer(normalized=True).mean())
+    check(abs(b / a - 4.0) < 0.01 and r.rebuilds == 0,
+          f"tests/test_runtime_api.py's scene on the card: mean ratio "
+          f"{b / a:.6f} within 0.01 of 4, no rebuild")
+    print(f"  tests/test_runtime_api.py's scene: ratio {b / a:.6f}")
+    return {"mean_before": means[0], "mean_after": means[1],
+            "calls_before": counts[0], "calls_after": counts[1],
+            "runtime_api_ratio": b / a}
+
+
+def phase_s9(device, build_dir):
+    """S9 at 512x512, spi 4: forward steps (launches, host syncs, one
+    profiled step), the Dupuy-Jakob K3 gathers against their plain
+    version, setParameter('tint') without a rebuild, an albedo train
+    step with its peak memory; then card against CPU at 64x64: S9 at
+    subdivisions 1 (K2), each CIE sky and the Hosek sky, VOL_SCENE's fog
+    with a PExpr sigma_s, and bake_texture2d."""
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch import train_step
+    from ignis_tpu_torch.render.bake import bake_texture2d
+    t0 = time.perf_counter()
+    sc = s9_scene(build_dir)
+    rt = ignis_tpu_torch.loadFromString(json.dumps(sc), spi=SPI)
+    load_s = time.perf_counter() - t0
+    n = rt.scene.tris.v0.x.numel()
+    mbytes = [tensor_bytes(m) for m in rt.scene.measured]
+    kinds = [type(m).__name__ for m in rt.scene.measured]
+    print(f"  {S9_NAME}: {n} triangles, BVH "
+          f"{'yes' if rt.scene.bvh is not None else 'no'}, measured tables "
+          f"{dict(zip(kinds, mbytes))} bytes on the card, registry "
+          f"{sorted(rt.scene.registry)}, BSDF kinds {rt.settings.bsdf_kinds},"
+          f" light kinds {rt.settings.light_kinds}; files written and "
+          f"loaded in {load_s:.2f} s")
+    check(n == 102402 and rt.scene.bvh is not None and rt.warnings == []
+          and kinds == ["KlemsData", "TensorTreeData", "DJData"]
+          and {11, 12, 13} <= set(rt.settings.bsdf_kinds)
+          and {4, 5} <= set(rt.settings.light_kinds)
+          and "tint" in rt.scene.registry,
+          f"{S9_NAME}: 102,402 triangles with a BVH, the three measured "
+          f"tables, the perez sky with its sun, the registry")
+    fwd = measure_steps(S9_NAME, rt, ("K1", "K3_gather_rows"))
+    seen = record_dj_gathers(rt)
+    dj = phase_dj_k3(seen)
+    tint = phase_tint(device, rt)
+    s = rt.settings
+    target = torch.zeros((s.height, s.width, 3), device=device)
+    reset_all_counts()
+    secs, peaks = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t1 = time.perf_counter()
+        loss, new_scene = train_step(rt.scene, s, target, 0, 0, 1e-2)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+        peaks.append(torch.cuda.max_memory_allocated(device))
+    used = launches()
+    grad = torch.stack(list(rt.scene.materials.base)) - torch.stack(
+        list(new_scene.materials.base))
+    msps = s.width * s.height * s.spi / min(secs[1:]) / 1e6
+    print(f"  {S9_NAME}: train step {msps:.4f} Msamples/s fwd+bwd (faster of "
+          f"{[round(x, 4) for x in secs[1:]]} s), peak memory "
+          f"{max(peaks) / 2**30:.3f} GiB, loss {float(loss):.6f}, launches "
+          f"{used}")
+    check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all())
+          and bool((grad != 0).any()) and used["K1"] > 0
+          and used["K3_gather_rows"] > 0 and used["K3_scatter_add_rows"] > 0
+          and plain_calls() == 0,
+          f"{S9_NAME}: train step finite, albedo gradient nonzero, K1 and K3 "
+          f"launched, no plain version")
+    train = {"msamples_per_s": msps, "step_s": secs,
+             "peak_gib": max(peaks) / 2**30, "loss": float(loss),
+             "launches": used}
+
+    small = s9_scene(build_dir, subdivisions=1, size=64)
+    r = ignis_tpu_torch.loadFromString(json.dumps(small), spi=SPI)
+    check(r.scene.bvh is None, "S9 at subdivisions 1: under the BVH "
+          "threshold (K2)")
+    ref = {"S9 at subdivisions 1": card_vs_cpu(device, "S9 at subdivisions "
+                                               "1", small)}
+    for sky in S9_SKIES:
+        scene = {**small, "lights": [{**sky, "name": "sky",
+                                      "direction": S9_SUN}]}
+        ref[sky["type"]] = card_vs_cpu(device, f"S9 small under "
+                                       f"{sky['type']}", scene)
+    fog = {
+        "technique": {"type": "volpath", "max_depth": 8},
+        "camera": S1_GLASS_ICO7["camera"], "film": {"size": [64, 64]},
+        "bsdfs": [{"type": "diffuse", "name": "w",
+                   "reflectance": [0.7, 0.7, 0.7]},
+                  {"type": "dielectric", "name": "glass", "int_ior": 1.1}],
+        "media": [{"type": "homogeneous", "name": "fog",
+                   "sigma_a": [0.1, 0.1, 0.1], "sigma_s": S9_FOG_SIGMA_S,
+                   "g": 0.2}],
+        "shapes": [{"type": "rectangle", "name": "floor", "width": 6,
+                    "height": 6},
+                   {"type": "icosphere", "name": "ball", "radius": 0.8,
+                    "subdivisions": 3}],
+        "entities": [
+            {"name": "floor", "shape": "floor", "bsdf": "w",
+             "transform": [{"rotate": [-90, 0, 0]},
+                           {"translate": [0, -1, 0]}]},
+            {"name": "ball", "shape": "ball", "bsdf": "glass",
+             "inner_medium": "fog"}],
+        "lights": [{"type": "point", "name": "l", "position": [2, 3, 2],
+                    "power": 60},
+                   {"type": "env", "name": "e",
+                    "radiance": [0.2, 0.25, 0.3]}]}
+    ref["pexpr_fog"] = card_vs_cpu(device, "VOL_SCENE fog with a PExpr "
+                                   "sigma_s", fog)
+    params = {"tint": ("num", 0.6)}
+    a = bake_texture2d(S9_FLOOR, 256, 128, parameters=params, device=device)
+    b = bake_texture2d(S9_FLOOR, 256, 128, parameters=params, device="cpu")
+    err = float(np.abs(a - b).max())
+    check(a.shape == (128, 256, 3) and err <= 1e-6 * max(np.abs(b).max(), 1),
+          f"bake_texture2d of S9's floor on the card vs the CPU: max |diff| "
+          f"{err:.3e}")
+    print(f"  bake_texture2d 256x128 of S9's floor: card vs CPU max |diff| "
+          f"{err:.3e}")
+    ref["bake"] = err
+    return {"load_s": load_s, "triangles": n,
+            "measured_bytes": dict(zip(kinds, mbytes)), "forward": fwd,
+            "dj_k3": dj, "tint": tint, "train": train, "reference": ref}
+
 def main() -> int:
     import argparse
     import torch
@@ -2385,6 +2908,10 @@ def main() -> int:
     techniques = phase_techniques(device, runtimes["S1_glass_ico7"], env)
     techniques_reference = phase_techniques_reference(device, env_small)
 
+    print(f"== phase 9: the scene-language slice, S9 "
+          f"({time.perf_counter() - t_start:.1f} s in)")
+    s9 = phase_s9(device, ROOT / "build")
+
     def timed(t):
         ms, plain, bms, by = t
         return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
@@ -2433,6 +2960,9 @@ def main() -> int:
             by_name[name]["sets"][table] = row[part]
             by_name[name]["max_abs_err"] = max(by_name[name]["max_abs_err"],
                                                row[part]["max_abs_err"])
+    by_name["K3_gather_rows"]["sets"]["S9 Dupuy-Jakob step"] = s9["dj_k3"]
+    by_name["K3_gather_rows"]["max_abs_err"] = max(
+        by_name["K3_gather_rows"]["max_abs_err"], s9["dj_k3"]["max_abs_err"])
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} launched on the main path")
     if args.profile_json:
@@ -2442,7 +2972,8 @@ def main() -> int:
              "train": train, "sigma": sigma, "train_profile": train_profile,
              "geometry_profile": geometry_profile,
              "instancing": instancing, "techniques": techniques,
-             "techniques_reference": techniques_reference}, indent=1))
+             "techniques_reference": techniques_reference, "s9": s9},
+            indent=1))
     print(json.dumps({"scenes": per_scene, "train": train, "sigma": sigma,
                       "geometry_profile_us": {
                           k: v for k, v in geometry_profile.items()
@@ -2450,6 +2981,7 @@ def main() -> int:
     print(json.dumps({"instancing": _no_top(instancing),
                       "techniques": _no_top(techniques),
                       "techniques_reference": techniques_reference}))
+    print(json.dumps({"s9": _no_top(s9)}))
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

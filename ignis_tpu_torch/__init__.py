@@ -10,7 +10,10 @@ and the adaptive environment path tracer (aept), with every alias of
 ignis_tpu/techniques/__init__.py. `loadFromString(..., instancing=True)`
 keeps one local soup for each mesh that several entities share
 (ops/instanced.py), and `Runtime.render_aovs()` returns the Normals,
-Albedo and Depth AOVs. Every closest-hit and shadow ray goes through
+Albedo and Depth AOVs. Scenes may hold PExpr strings (scene/pexpr.py),
+a `parameters` registry that `Runtime.setParameter` updates without a
+rebuild, measured klems / tensortree / djmeasured BSDFs and the CIE,
+perez and Hosek-Wilkie sky lights. Every closest-hit and shadow ray goes through
 hand-written sm_90a CUDA kernels on the card (K1, BVH8 walk:
 ops/bvh_cuda.py; K2, dense intersection: ops/isect_cuda.py), the hit
 attributes, materials, photons and instance tables through K3 (row

@@ -6,9 +6,14 @@ imports JAX itself. Tests use it to feed identical arrays to both
 packages. The chunked-leaf TPU BVH is dropped (`bvh` becomes the tri-leaf
 BVH8), textures arrive as the port's TexData, instance groups as the
 port's InstancedGeo without the JAX local soup's TPU padding (and without
-a local BVH, so K2 serves them and local prim ids keep the JAX order), and
-what the port does not carry (measured BSDFs, PExpr textures and the
-parameter registry) raises naming its ROADMAP item.
+a local BVH, so K2 serves them and local prim ids keep the JAX order),
+the measured tables as the port's KlemsData / TensorTreeData / DJData
+(Dupuy-Jakob's fr and g as the one gather table), and the parameter
+registry as a dict of tensors. A compiled PExpr closure cannot cross
+frameworks: the PEXPR textures' closures and the medium closures come
+from `closures`, the port's RenderSettings of the same scene built by the
+port (build_scene on the same JSON); without it a PEXPR texture has no
+closure and PExpr media render with their constant table.
 `param_from_reference` carries one JAX parameter in as leaves that
 require grad, and `to_numpy` brings the port's gradients back.
 """
@@ -21,7 +26,8 @@ import torch
 
 from . import scenedata as sd
 from .core.vec import Color, Vec2, Vec3
-from .models.texture import TexData, TexDesc, check_descs
+from .models import djmeasured, klems, tensortree
+from .models.texture import TexData, TexDesc
 from .ops.bvh import BVHArrays
 from .ops.instanced import InstancedGeo
 from .ops.intersect import SphereSoup, TriSoup
@@ -29,7 +35,9 @@ from .ops.intersect import SphereSoup, TriSoup
 _PORT_TYPES = {cls.__name__: cls for cls in (
     Vec2, Vec3, Color, TriSoup, SphereSoup, BVHArrays, sd.TriAttributes,
     sd.SphereAttributes, sd.Entities, sd.Materials, sd.Lights, sd.EnvMap,
-    sd.CameraData, sd.Media, TexData)}
+    sd.CameraData, sd.Media, TexData, klems.KlemsBasisData,
+    klems.KlemsComponentData, klems.KlemsData, tensortree.TTComponentData,
+    tensortree.TensorTreeData)}
 
 
 def _leaf(v, device) -> torch.Tensor:
@@ -40,6 +48,16 @@ def _leaf(v, device) -> torch.Tensor:
 
 
 def _convert(v, device):
+    if v is None:
+        return None
+    if isinstance(v, dict):
+        return {k: _convert(x, device) for k, x in v.items()}
+    if type(v).__name__ == "DJData":
+        return djmeasured.DJData(
+            _leaf(v.theta_nodes, device), _leaf(v.phi_nodes, device),
+            _leaf(djmeasured.table_of(np.asarray(v.fr), np.asarray(v.g)),
+                  device),
+            _leaf(v.marg_cdf, device), _leaf(v.cond_cdf, device))
     if isinstance(v, tuple) and hasattr(v, "_fields"):
         cls = _PORT_TYPES[type(v).__name__]
         return cls(**{f: _convert(getattr(v, f), device)
@@ -63,20 +81,18 @@ def to_numpy(value):
     return sd.tree_map(lambda t: t.detach().cpu().numpy(), value)
 
 
-def from_reference(scene_data, settings, device):
+def from_reference(scene_data, settings, device, closures=None):
     """(JAX SceneData, JAX RenderSettings) -> (port SceneData, port
-    RenderSettings) with every leaf on `device`."""
+    RenderSettings) with every leaf on `device`; `closures` (the port's
+    RenderSettings of the same scene) supplies the PExpr closures."""
     device = torch.device(device)
-    if scene_data.measured:
-        raise NotImplementedError("measured BSDFs are not ported yet "
-                                  "(ROADMAP queue 1, item 16)")
-    if scene_data.registry:
-        raise NotImplementedError("the PExpr parameter registry is not "
-                                  "ported yet (ROADMAP queue 1, item 15)")
     descs = tuple(TexDesc(d.kind, d.wrap_u, d.wrap_v, d.filter, None,
                           d.inner) for d in settings.texture_descs)
-    check_descs(tuple(d._replace(fn=j.fn) for d, j in
-                      zip(descs, settings.texture_descs)))
+    med = ()
+    if closures is not None:
+        descs = tuple(d._replace(fn=c.fn) for d, c in
+                      zip(descs, closures.texture_descs))
+        med = closures.medium_exprs
     fields = {f: _convert(getattr(scene_data, f), device)
               for f in sd.SceneData._fields if f not in ("bvh", "instances")}
     fields["bvh"] = (None if scene_data.bvh is None
@@ -86,7 +102,8 @@ def from_reference(scene_data, settings, device):
     port_settings = sd.RenderSettings(**{
         f.name: getattr(settings, f.name)
         for f in dataclasses.fields(sd.RenderSettings)})
-    port_settings = dataclasses.replace(port_settings, texture_descs=descs)
+    port_settings = dataclasses.replace(port_settings, texture_descs=descs,
+                                        medium_exprs=med)
     return sd.SceneData(**fields), port_settings
 
 

@@ -9,7 +9,9 @@ RAD_BRTDF and RAD_ROOS, with the blend wrapper (`LaneShader`,
 and a mask selects; `settings.bsdf_kinds` prunes absent kinds statically,
 with the ROUGH_FLAG / THIN_FLAG pseudo-kinds pruning the microfacet and
 thin-glass code of scenes without such rows. The measured kinds (klems,
-tensortree, djmeasured) are ROADMAP queue 1, item 16.
+tensortree, djmeasured; models/klems.py, tensortree.py, djmeasured.py)
+read their tables from SceneData.measured by the row's q6, one unrolled
+masked select over the scene's tables (`_select_tables`).
 
 Semantics (reference bsdf/*.art): eval includes the cosine term and delta
 lobes eval to 0; sample returns weight = eval/pdf, the eta ratio and a
@@ -27,6 +29,8 @@ Material slots (scenedata.Materials):
   BLEND:      p0=weight, q0/q1=child rows, p1=cutoff threshold, p2=cutoff
   RAD_*:      base/extra=(specular or Roos w,p,q), extra2=trns_diff,
               q0-q5=front/back diffuse reflection
+  KLEMS, TENSORTREE: base=colour, extra2=the up vector, q6=table index
+  DJMEASURED: base=tint, q6=table index
 """
 from __future__ import annotations
 
@@ -72,19 +76,10 @@ class BsdfKind(IntEnum):
     DJMEASURED = 13
 
 
-MEASURED_KINDS = (int(BsdfKind.KLEMS), int(BsdfKind.TENSORTREE),
-                  int(BsdfKind.DJMEASURED))
-
-
 def check_kinds(present) -> None:
-    """Raise for the measured kinds, which are not ported."""
+    """Raise for settings without their BSDF kinds."""
     if present is None:
-        raise NotImplementedError("settings.bsdf_kinds must be set")
-    for k in present:
-        if int(k) in MEASURED_KINDS:
-            raise NotImplementedError(
-                f"measured BSDF kind {int(k)} is not ported yet (ROADMAP "
-                "queue 1, item 16)")
+        raise ValueError("settings.bsdf_kinds must be set")
 
 
 class MatParams(NamedTuple):
@@ -424,14 +419,50 @@ def _rad_sample(mat: MatParams, is_entering, wo: Vec3, u0, cdir: Vec3,
                       torch.where(pick_spec, one > 0, cpdf > 0))
 
 
+def _select_tables(mat: MatParams, measured, want_type, fn, zero):
+    """An unrolled masked select over the scene's measured tables of type
+    `want_type` by the row's q6: each lane takes fn(its table), a tensor,
+    Color or tuple of them shaped like `zero`."""
+    kid = mat.q6.to(torch.int32)
+    out = zero
+    for i, kd in enumerate(measured):
+        if not isinstance(kd, want_type):
+            continue
+        v = fn(kd)
+        m = kid == i
+        if isinstance(out, Color):
+            out = cselect(m, v, out)
+        elif isinstance(out, tuple):
+            out = tuple(
+                cselect(m, a, b) if isinstance(b, Color) else
+                (vselect(m, a, b) if isinstance(b, Vec3)
+                 else torch.where(m, a, b))
+                for a, b in zip(v, out))
+        else:
+            out = torch.where(m, v, out)
+    return out
+
+
+def _measured_dispatch(op, mat: MatParams, frame: Frame, is_entering,
+                       measured, zero, want_type):
+    """_select_tables of op(table, the Klems frame of the row's up vector)
+    (ignis_tpu/models/bsdf.py:419-445): the Klems and TensorTree kinds."""
+    from . import klems as klemslib
+    up = Vec3(mat.extra2.r, mat.extra2.g, mat.extra2.b)
+    kframe = klemslib.make_klems_frame(frame.n, is_entering, up)
+    return _select_tables(mat, measured, want_type,
+                          lambda kd: op(kd, kframe), zero)
+
+
 # ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
 def eval_bsdf(mat: MatParams, frame: Frame, is_entering, in_dir: Vec3,
-              out_dir: Vec3, present=None) -> Color:
+              out_dir: Vec3, present=None, measured=()) -> Color:
     """Masked dispatch over the kinds in `present` (settings.bsdf_kinds;
-    None = all); delta lobes eval to 0."""
+    None = all); delta lobes eval to 0. `measured` holds the scene's
+    measured tables (SceneData.measured)."""
     from . import principled
     wi = frame.to_local(in_dir)
     wo = frame.to_local(out_dir)
@@ -458,6 +489,27 @@ def eval_bsdf(mat: MatParams, frame: Frame, is_entering, in_dir: Vec3,
     if _want_rad(present):
         is_rad = (kinds == BsdfKind.RAD_BRTDF) | (kinds == BsdfKind.RAD_ROOS)
         res = cselect(is_rad, _rad_eval(mat, is_entering, wi, wo), res)
+    if measured and _want(present, BsdfKind.KLEMS):
+        from . import klems as klemslib
+        v = _measured_dispatch(
+            lambda kd, kf: klemslib.klems_eval(kd, mat.base, kf, in_dir,
+                                               out_dir),
+            mat, frame, is_entering, measured, _black(mat.p0),
+            klemslib.KlemsData)
+        res = cselect(kinds == BsdfKind.KLEMS, v, res)
+    if measured and _want(present, BsdfKind.TENSORTREE):
+        from . import tensortree as ttlib
+        v = _measured_dispatch(
+            lambda kd, kf: ttlib.tt_eval(kd, mat.base, kf, in_dir, out_dir),
+            mat, frame, is_entering, measured, _black(mat.p0),
+            ttlib.TensorTreeData)
+        res = cselect(kinds == BsdfKind.TENSORTREE, v, res)
+    if measured and _want(present, BsdfKind.DJMEASURED):
+        from . import djmeasured as djlib
+        v = _select_tables(mat, measured, djlib.DJData,
+                           lambda kd: djlib.dj_eval(kd, mat.base, wi, wo),
+                           _black(mat.p0))
+        res = cselect(kinds == BsdfKind.DJMEASURED, v, res)
     if _want(present, BsdfKind.NULL_ERROR):
         err = torch.clamp(wi.z, min=0.0) * INV_PI
         res = cselect(kinds == BsdfKind.NULL_ERROR,
@@ -466,7 +518,7 @@ def eval_bsdf(mat: MatParams, frame: Frame, is_entering, in_dir: Vec3,
 
 
 def pdf_bsdf(mat: MatParams, frame: Frame, is_entering, in_dir: Vec3,
-             out_dir: Vec3, present=None) -> torch.Tensor:
+             out_dir: Vec3, present=None, measured=()) -> torch.Tensor:
     from . import principled
     wi = frame.to_local(in_dir)
     # the diffuse and null pdfs need no out direction: scenes of those
@@ -475,7 +527,8 @@ def pdf_bsdf(mat: MatParams, frame: Frame, is_entering, in_dir: Vec3,
                                        BsdfKind.PRINCIPLED)) or any(
             _want_rough(present, k) for k in (BsdfKind.CONDUCTOR,
                                               BsdfKind.DIELECTRIC)) \
-            or _want_rad(present):
+            or _want_rad(present) or (measured and _want(
+                present, BsdfKind.DJMEASURED)):
         wo = frame.to_local(out_dir)
     kinds = mat.kind
     cos_pdf = cosine_hemisphere_pdf(torch.clamp(wi.z, min=0.0))
@@ -505,6 +558,26 @@ def pdf_bsdf(mat: MatParams, frame: Frame, is_entering, in_dir: Vec3,
     if _want_rad(present):
         is_rad = (kinds == BsdfKind.RAD_BRTDF) | (kinds == BsdfKind.RAD_ROOS)
         pdf = torch.where(is_rad, _rad_pdf(mat, is_entering, wi, wo), pdf)
+    if measured and _want(present, BsdfKind.KLEMS):
+        from . import klems as klemslib
+        v = _measured_dispatch(
+            lambda kd, kf: klemslib.klems_pdf(kd, kf, in_dir, out_dir),
+            mat, frame, is_entering, measured, torch.zeros_like(mat.p0),
+            klemslib.KlemsData)
+        pdf = torch.where(kinds == BsdfKind.KLEMS, v, pdf)
+    if measured and _want(present, BsdfKind.TENSORTREE):
+        from . import tensortree as ttlib
+        v = _measured_dispatch(
+            lambda kd, kf: ttlib.tt_pdf(kd, kf, in_dir, out_dir),
+            mat, frame, is_entering, measured, torch.zeros_like(mat.p0),
+            ttlib.TensorTreeData)
+        pdf = torch.where(kinds == BsdfKind.TENSORTREE, v, pdf)
+    if measured and _want(present, BsdfKind.DJMEASURED):
+        from . import djmeasured as djlib
+        v = _select_tables(mat, measured, djlib.DJData,
+                           lambda kd: djlib.dj_pdf(kd, wi, wo),
+                           torch.zeros_like(mat.p0))
+        pdf = torch.where(kinds == BsdfKind.DJMEASURED, v, pdf)
     return pdf
 
 
@@ -537,7 +610,8 @@ def _sel_sample(m, a: BsdfSample, b: BsdfSample) -> BsdfSample:
 
 
 def sample_bsdf(mat: MatParams, frame: Frame, is_entering, out_dir: Vec3,
-                u0, u1, u2, present=None, adjoint=False) -> BsdfSample:
+                u0, u1, u2, present=None, adjoint=False,
+                measured=()) -> BsdfSample:
     """Masked-dispatch sample. u0: lobe select; u1, u2: direction. With
     `adjoint` (importance transport) refraction carries no (eta_i/eta_t)^2
     radiance compression."""
@@ -717,6 +791,36 @@ def sample_bsdf(mat: MatParams, frame: Frame, is_entering, out_dir: Vec3,
                   BsdfSample(cdir, cpdf, Color(one, zero, one), one, false,
                              cpdf > 0), out)
 
+    # measured kinds (ignis_tpu/models/bsdf.py:778-824): Klems and
+    # TensorTree sample in world space, brought to local for the common
+    # to_world below
+    zero_t = (Vec3(zero, zero, one), zero, Color(zero, zero, zero), false)
+    if measured and _want(present, BsdfKind.KLEMS):
+        from . import klems as klemslib
+        wdir, kpdf, kw, kvalid = _measured_dispatch(
+            lambda kd, kf: klemslib.klems_sample(kd, mat.base, kf, out_dir,
+                                                 u0, u1, u2),
+            mat, frame, is_entering, measured, zero_t, klemslib.KlemsData)
+        out = sel(BsdfKind.KLEMS, BsdfSample(frame.to_local(wdir), kpdf, kw,
+                                             one, false, kvalid), out)
+    if measured and _want(present, BsdfKind.TENSORTREE):
+        from . import tensortree as ttlib
+        wdir, tpdf, tw, tvalid, tpeak = _measured_dispatch(
+            lambda kd, kf: ttlib.tt_sample(kd, mat.base, kf, out_dir,
+                                           u0, u1, u2),
+            mat, frame, is_entering, measured, zero_t + (false,),
+            ttlib.TensorTreeData)
+        # tpeak: the peak-extraction delta transmission
+        out = sel(BsdfKind.TENSORTREE, BsdfSample(
+            frame.to_local(wdir), tpdf, tw, one, tpeak, tvalid), out)
+    if measured and _want(present, BsdfKind.DJMEASURED):
+        from . import djmeasured as djlib
+        dj_dir, dj_pdf, dj_w, dj_valid = _select_tables(
+            mat, measured, djlib.DJData,
+            lambda kd: djlib.dj_sample(kd, mat.base, wo, u0, u1, u2), zero_t)
+        out = sel(BsdfKind.DJMEASURED, BsdfSample(dj_dir, dj_pdf, dj_w, one,
+                                                  false, dj_valid), out)
+
     return out._replace(in_dir=frame.to_world(out.in_dir))
 
 
@@ -753,12 +857,14 @@ class LaneShader:
     the 2N lanes: the two children are shaded in one masked dispatch, so a
     blend costs one more dispatch per level, not two."""
 
-    def __init__(self, rows, w, frame: Frame, entering, present):
+    def __init__(self, rows, w, frame: Frame, entering, present,
+                 measured=()):
         self.rows = rows
         self.w = w
         self.frame = frame
         self.entering = entering
         self.present = present
+        self.measured = measured
         if w is not None and not isinstance(rows, LaneShader):
             self.frame, self.entering = _pair(frame), _pair(entering)
 
@@ -766,19 +872,19 @@ class LaneShader:
         if isinstance(self.rows, LaneShader):
             return self.rows.eval(in_dir, out_dir)
         return eval_bsdf(self.rows, self.frame, self.entering, in_dir,
-                         out_dir, self.present)
+                         out_dir, self.present, self.measured)
 
     def _pdf(self, in_dir, out_dir):
         if isinstance(self.rows, LaneShader):
             return self.rows.pdf(in_dir, out_dir)
         return pdf_bsdf(self.rows, self.frame, self.entering, in_dir,
-                        out_dir, self.present)
+                        out_dir, self.present, self.measured)
 
     def _sample(self, out_dir, u_pick, u0, u1, u2, adjoint):
         if isinstance(self.rows, LaneShader):
             return self.rows.sample(out_dir, u_pick, u0, u1, u2, adjoint)
         return sample_bsdf(self.rows, self.frame, self.entering, out_dir,
-                           u0, u1, u2, self.present, adjoint)
+                           u0, u1, u2, self.present, adjoint, self.measured)
 
     def _delta(self):
         if isinstance(self.rows, LaneShader):
@@ -819,6 +925,7 @@ class LaneShader:
 
         new = object.__new__(LaneShader)
         new.present = self.present
+        new.measured = self.measured
         new.w = None if self.w is None else fn(self.w)
         if self.w is not None and isinstance(self.rows, LaneShader):
             new.rows = self.rows.map_lanes(halves)
@@ -872,13 +979,15 @@ def blend_weight(mat: MatParams, override=None):
 
 def make_lane_shader(gather_row, mid, base_mat: MatParams, frame: Frame,
                      entering, blend_depth: int, weight_override=None,
-                     present=None) -> LaneShader:
+                     present=None, measured=()) -> LaneShader:
     """The lane shader, resolving `blend_depth` levels of blend children
     (the scene's nesting depth, at most BLEND_MAX_DEPTH; 0 = no blends).
     `gather_row(ids)` fetches the MatParams of material rows `ids`. The
-    texture-driven weight override applies to the top level only."""
+    texture-driven weight override applies to the top level only;
+    `measured` is SceneData.measured."""
     if blend_depth <= 0:
-        return LaneShader(base_mat, None, frame, entering, present)
+        return LaneShader(base_mat, None, frame, entering, present,
+                          measured)
 
     def build(ids, mat, frame, entering, depth, override=None):
         # both children's rows in one gather: the first child's, then the
@@ -892,7 +1001,7 @@ def make_lane_shader(gather_row, mid, base_mat: MatParams, frame: Frame,
             rows = build(kids, rows, _pair(frame), _pair(entering),
                          depth - 1)
         return LaneShader(rows, blend_weight(mat, override), frame,
-                          entering, present)
+                          entering, present, measured)
 
     return build(mid, base_mat, frame, entering,
                  min(blend_depth, BLEND_MAX_DEPTH), weight_override)

@@ -12,8 +12,8 @@ The media's constants are stacked once per render into one [n, 8] table
 (`medium_table`: sigma_a, sigma_s, g and a zero column), and a lane's
 medium is one K3 row gather of it (ops/gather.py), whose backward is K3's
 scatter-add: a sigma gradient meets no per-column indexing backward.
-PExpr-valued media (the JAX package's settings.medium_exprs) are ROADMAP
-queue 1, item 15: only `eval_medium_at`'s constant branch is carried.
+PExpr-valued sigmas (settings.medium_exprs) override the table where a
+lane enters such a medium (`eval_medium_at`).
 """
 from __future__ import annotations
 
@@ -71,12 +71,26 @@ def params_from_state(sa: Color, ss: Color, g, medium_id) -> MediumParams:
     return _params(sa, ss, g, medium_id < 0)
 
 
-def eval_medium_at(tab: torch.Tensor, medium_id):
-    """(sigma_a, sigma_s, g) of each lane's medium: the constant table's
-    (ignis_tpu/models/medium.py eval_medium_at without its PExpr
-    closures, ROADMAP item 15)."""
+def eval_medium_at(tab: torch.Tensor, medium_id, medium_exprs=(),
+                   sctx=None):
+    """(sigma_a, sigma_s, g) of each lane's medium: the constant table's,
+    with the PExpr closures of `medium_exprs` (settings.medium_exprs: per
+    medium None or (fn_a, fn_s)) evaluated at the surface context `sctx`
+    on the lanes in such a medium (ignis_tpu/models/medium.py:60-78)."""
     m = gather_medium(tab, medium_id)
-    return m.sigma_a, m.sigma_s, m.g
+    sa, ss = m.sigma_a, m.sigma_s
+    for mi, entry in enumerate(medium_exprs or ()):
+        if entry is None:
+            continue
+        fn_a, fn_s = entry
+        sel = medium_id == mi
+        if fn_a is not None:
+            sa = Color(*[torch.where(sel, c, d)
+                         for c, d in zip(fn_a(sctx), sa)])
+        if fn_s is not None:
+            ss = Color(*[torch.where(sel, c, d)
+                         for c, d in zip(fn_s(sctx), ss)])
+    return sa, ss, m.g
 
 
 # Distances reaching transmittance can be FLT_MAX (infinite lights, miss

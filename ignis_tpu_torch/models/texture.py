@@ -1,5 +1,5 @@
-"""Texture nodes: image lookup and procedural patterns (port of
-ignis_tpu/models/texture.py, every kind but PEXPR).
+"""Texture nodes: image lookup, procedural patterns and PExpr closures
+(port of ignis_tpu/models/texture.py).
 
 Split representation, as in the JAX package:
   - TexDesc: static python ints (kind, wraps, filter, inner texture), part
@@ -7,8 +7,9 @@ Split representation, as in the JAX package:
   - TexData: tensors (image, uv transform, colours, parameters), the
     SceneData `textures` leaf.
 `make_texture_evaluator` returns eval_texture(tex_id, ctx), an unrolled
-masked select over the scene's textures. PExpr textures (kind PEXPR) are
-ROADMAP queue 1, item 15.
+masked select over the scene's textures. A PEXPR texture evaluates its
+compiled closure (scene/pexpr.py, `desc.fn`) on the full ShadeCtx, and may
+read other textures through `ctx.textures`.
 """
 from __future__ import annotations
 
@@ -49,8 +50,8 @@ class FilterMode(IntEnum):
 
 
 class TexDesc(NamedTuple):
-    """Static per-texture descriptor (hashable). `fn` is the JAX
-    package's compiled PExpr slot, always None here."""
+    """Static per-texture descriptor (hashable). `fn` holds a PEXPR
+    texture's compiled closure (scene/pexpr.Compiler.compile_color)."""
     kind: int
     wrap_u: int
     wrap_v: int
@@ -72,11 +73,30 @@ class TexData(NamedTuple):
 
 
 class ShadeCtx(NamedTuple):
-    """What a texture lookup at a surface sees. The non-PExpr kinds read
-    `uv` alone; `ray_dir` (pointing away from the surface) serves the
-    normal-map clamp."""
+    """What a texture lookup at a surface sees (ignis_tpu/scene/pexpr.py
+    ShadeCtx). The non-PExpr kinds read `uv` alone; `ray_dir` (pointing
+    away from the surface, PExpr's V) serves the normal-map clamp; the
+    other fields are PExpr's variables, built by make_shade_ctx only for
+    scenes with a PExpr texture or medium. `textures(tex_id, uv)` gives
+    nested lookups, `registry` the scene's live parameters, `dpdu` and
+    `dpdv` the raw surface derivatives that bump() reads."""
     uv: tuple
     ray_dir: tuple = None
+    point: tuple = None
+    np_: tuple = None
+    normal: tuple = None
+    face_normal: tuple = None
+    tangent: tuple = None
+    bitangent: tuple = None
+    ray_org: tuple = None
+    prim_coords: tuple = None
+    entity_id: torch.Tensor = None
+    pixel: tuple = None
+    frontside: torch.Tensor = None
+    textures: object = None
+    registry: dict = None
+    dpdu: tuple = None
+    dpdv: tuple = None
 
 
 def _f32(v, device):
@@ -261,8 +281,7 @@ def _eval_one(desc: TexDesc, tex: TexData, ctx: ShadeCtx) -> Color:
     if desc.kind == TexKind.CONSTANT:
         return _const(tex.color0, u)
     if desc.kind == TexKind.PEXPR:
-        raise NotImplementedError("PExpr textures are not ported yet "
-                                  "(ROADMAP queue 1, item 15)")
+        return Color(*desc.fn(ctx))
     return _eval_noiselike(desc, tex, u, v)
 
 
@@ -277,30 +296,82 @@ def _eval_resolved(descs, datas, i: int, ctx: ShadeCtx) -> Color:
     return _eval_one(desc, tex, ctx)
 
 
-def make_shade_ctx(uv: Vec2, ray_dir=None) -> ShadeCtx:
+def light_ctx(uv: Vec2, ray_dir=None) -> ShadeCtx:
+    """The context of a scene without PExpr: uv and the view direction."""
     return ShadeCtx(uv=(uv.x, uv.y), ray_dir=ray_dir)
 
 
-def check_descs(descs) -> None:
-    for d in descs:
-        if d.kind == TexKind.PEXPR or d.fn is not None:
-            raise NotImplementedError("PExpr textures are not ported yet "
-                                      "(ROADMAP queue 1, item 15)")
+def make_shade_ctx(uv: Vec2, point=None, normal=None, face_normal=None,
+                   ray_dir=None, ray_org=None, prim_coords=None,
+                   entity_id=None, pixel=None, frontside=None,
+                   tangent=None, bitangent=None, scene_center=None,
+                   scene_radius=None, textures=None, registry=None,
+                   dpdu=None, dpdv=None) -> ShadeCtx:
+    """The full PExpr context (ignis_tpu/models/texture.py:264-291); the
+    pieces not given are zeros, Np is the point relative to the scene's
+    bounding sphere."""
+    z = torch.zeros_like(uv.x)
+    zv = (z, z, z)
+    npos = zv
+    if point is not None and scene_center is not None:
+        inv = 1.0 / torch.clamp(torch.as_tensor(scene_radius), min=1e-6)
+        npos = ((point[0] - scene_center[0]) * inv,
+                (point[1] - scene_center[1]) * inv,
+                (point[2] - scene_center[2]) * inv)
+    zi = z.to(torch.int32)
+    return ShadeCtx(
+        uv=(uv.x, uv.y), ray_dir=ray_dir or zv,
+        point=point or zv, np_=npos,
+        normal=normal or zv, face_normal=face_normal or zv,
+        tangent=tangent or zv, bitangent=bitangent or zv,
+        ray_org=ray_org or zv, prim_coords=prim_coords or (z, z),
+        entity_id=entity_id if entity_id is not None else zi,
+        pixel=pixel or (zi, zi),
+        frontside=frontside if frontside is not None else z < 1,
+        textures=textures, registry=registry, dpdu=dpdu, dpdv=dpdv)
+
+
+def map_lanes(ctx: ShadeCtx, fn) -> ShadeCtx:
+    """`ctx` with `fn` applied to each of its lane tensors (the textures
+    and the registry stay)."""
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return fn(v)
+        if isinstance(v, tuple):
+            return tuple(one(c) for c in v)
+        return v
+    return ShadeCtx(*[v if f in ("textures", "registry") else one(v)
+                      for f, v in zip(ShadeCtx._fields, ctx)])
+
+
+def has_pexpr(descs, medium_exprs=()) -> bool:
+    """Whether a scene needs the full ShadeCtx: a PEXPR texture or a PExpr
+    medium."""
+    return (any(d.kind == TexKind.PEXPR for d in descs)
+            or any(e is not None for e in medium_exprs or ()))
 
 
 def make_texture_evaluator(descs: Tuple[TexDesc, ...], datas):
     """eval_texture(tex_id [N] int, ctx, ids=None) -> Color [N], or None
-    for a scene without textures; `ctx` is a ShadeCtx or a bare Vec2 uv.
+    for a scene without textures; `ctx` is a ShadeCtx or a bare Vec2 uv
+    (a PExpr then sees zeros for every variable but uv, as in the JAX
+    package).
     `ids`, when given, are the only texture ids tex_id can hold (known
     from the scene's tables), and only those textures are evaluated;
     other lanes get black, as for a tex_id that is no texture."""
     if not descs:
         return None
-    check_descs(descs)
+    pexpr = has_pexpr(descs)
 
     def eval_texture(tex_id, ctx, ids=None) -> Color:
         if isinstance(ctx, Vec2):
-            ctx = make_shade_ctx(ctx)
+            ctx = make_shade_ctx(ctx) if pexpr else light_ctx(ctx)
+        if ctx.textures is None:
+            # nested texture references of PExpr closures
+            def nested(tid, uvt):
+                c = _eval_resolved(descs, datas, tid, ctx._replace(uv=uvt))
+                return (c.r, c.g, c.b)
+            ctx = ctx._replace(textures=nested)
         z = torch.zeros(tex_id.shape, dtype=torch.float32,
                         device=tex_id.device)
         out = Color(z, z, z)

@@ -17,7 +17,13 @@ with the scene's technique and adds it to the film (`render_iteration`):
   guiding CDFs, which the runtime keeps; every step renders guided.
 
 `render_aovs()` returns the Normals, Albedo and Depth AOVs (the info
-buffer at pixel centres). Lanes are in row-major pixel order: the JAX
+buffer at pixel centres). `setParameter` / `getParameter` are the JAX
+Runtime's (ignis_tpu/render/session.py:346-398): a parameter of the live
+registry (SceneData.registry) is copied into its tensor in place, which
+the PExpr closures read at evaluation time, so nothing is rebuilt; the
+camera's __camera_eye / dir / up replace the camera's tensors; any other
+parameter marks the scene for a rebuild before the next step
+(`rebuilds` counts them). Lanes are in row-major pixel order: the JAX
 package's 32x32 lane tiling served the TPU kernels' block culling, and
 since random streams are keyed by pixel and sample, any lane order gives
 the same image.
@@ -28,7 +34,7 @@ import torch
 
 from ..core import rng as rnglib
 from ..core.sampler import sample_pixel_offsets
-from ..core.vec import Color
+from ..core.vec import Color, Vec3
 from ..models import camera as cameralib
 from ..models.texture import make_texture_evaluator
 from ..scene.build import build_scene
@@ -125,7 +131,7 @@ class Runtime:
     """Progressive rendering session."""
 
     def __init__(self, scene: SceneData, settings: RenderSettings,
-                 warnings=()):
+                 warnings=(), source=None, overrides=None):
         check_settings(settings, scene)
         self.scene = scene
         self.settings = settings
@@ -136,19 +142,78 @@ class Runtime:
         self._frame = 0
         self._sample_count = 0
         self._aept_guiding = None
+        self._source = source          # the parsed scene, for rebuilds
+        self._overrides = dict(overrides or {})
+        self._params_dirty = False
+        self.rebuilds = 0
+
+    @staticmethod
+    def _load(sc, device, overrides) -> "Runtime":
+        built = build_scene(sc, resolve_device(device), overrides)
+        return Runtime(built.data, built.settings, built.warnings, sc,
+                       overrides)
 
     @staticmethod
     def load_from_file(path, *, device="cuda", **overrides) -> "Runtime":
-        built = build_scene(load_from_file(path), resolve_device(device),
-                            overrides)
-        return Runtime(built.data, built.settings, built.warnings)
+        return Runtime._load(load_from_file(path), device, overrides)
 
     @staticmethod
     def load_from_string(text, *, device="cuda", base_dir=".",
                          **overrides) -> "Runtime":
-        built = build_scene(load_from_string(text, base_dir),
-                            resolve_device(device), overrides)
-        return Runtime(built.data, built.settings, built.warnings)
+        return Runtime._load(load_from_string(text, base_dir), device,
+                             overrides)
+
+    # -- runtime parameters (reference Runtime::setParameter) -----------
+    def setParameter(self, name: str, value) -> None:
+        """Set a scene parameter (reference Runtime.h:134-142): the camera
+        (__camera_eye / __camera_dir / __camera_up) and the live registry
+        update in place, with no rebuild; any other parameter rebuilds
+        the scene before the next step."""
+        cam_fields = {"__camera_eye": "eye", "__camera_dir": "dir",
+                      "__camera_up": "up"}
+        if name in cam_fields:
+            v = [float(x) for x in value]
+            vec = Vec3(*[torch.tensor(x, dtype=torch.float32,
+                                      device=self.device) for x in v[:3]])
+            self.scene = self.scene._replace(
+                camera=self.scene.camera._replace(**{cam_fields[name]: vec}))
+            return
+        reg = self.scene.registry or {}
+        if name in reg:
+            old = reg[name]
+            new = torch.as_tensor(
+                [float(x) for x in value] if old.dim() > 0
+                else float(value), dtype=torch.float32)
+            if new.shape != old.shape:
+                raise ValueError(f"parameter '{name}' expects shape "
+                                 f"{tuple(old.shape)}")
+            with torch.no_grad():
+                old.copy_(new)
+            if self._source is not None:
+                self._source.parameters[name] = value
+            return
+        if self._source is None:
+            raise RuntimeError("setParameter needs a Runtime loaded from a "
+                               "scene file or string")
+        self._source.parameters[name] = value
+        self._params_dirty = True
+
+    def getParameter(self, name: str, default=None):
+        if self._source is None:
+            return default
+        return self._source.parameters.get(name, default)
+
+    def _refresh_parameters(self) -> None:
+        """The rebuild that setParameter deferred, if any."""
+        if not self._params_dirty:
+            return
+        self._params_dirty = False
+        built = build_scene(self._source, self.device, self._overrides)
+        check_settings(built.settings, built.data)
+        self.scene, self.settings = built.data, built.settings
+        self.warnings = list(built.warnings)
+        self._aept_guiding = None
+        self.rebuilds += 1
 
     @property
     def iteration_count(self) -> int:
@@ -159,6 +224,7 @@ class Runtime:
         return self._sample_count
 
     def step(self) -> "Runtime":
+        self._refresh_parameters()
         guiding = None
         if canonical(self.settings.technique) == "aept":
             if self._aept_guiding is None:

@@ -6,26 +6,32 @@ Covered: perspective/orthogonal/fishlens cameras; every shape of the JAX
 build (triangle, rectangle, cube/box, the analytic sphere, icosphere,
 uvsphere, cylinder, cone, disk, the two gaussians, inline meshes and the
 ply, obj, mitsuba and external mesh files; any other type is skipped with
-the JAX build's warning); every analytic BSDF (diffuse, dielectric smooth
-/ rough / thin, conductor, phong, plastic, principled, passthrough,
-transparent, the Radiance models) and the wrappers (blend, mask, cutoff,
-twosided, normalmap, bumpmap); image, checkerboard, brick, noise-family,
-constant and transform textures, by name; point, spot, directional, area,
-sun and environment lights, the env constant or an image texture with
-its conditional / SAT / hierarchical importance table; the uniform, cdf
-and hierarchy light selectors and their tables; homogeneous media and the
-entities' inner and outer media. Transparent shadows turn on, as in the
-JAX build, when a row is passthrough, thin dielectric or Radiance. With
-`instancing=True` every mesh shape that two or more entities use becomes
-an instance group (ops/instanced.InstancedGeo: one local soup, with its
-own BVH at BVH_THRESHOLD triangles or more, and a transform per
-instance). The technique section sets the technique, its depths
-(ppm's max_camera_depth spelling), NEE (off by default for aept), the
-debug view, the photon count (the `photons` override, default
-1,000,000), the light depth, the merge radius and aept's learning
-iterations. Anything else raises NotImplementedError naming its ROADMAP
-item: PExpr strings (item 15; PExpr-valued media included), measured
-BSDFs and sky lights (item 16).
+the JAX build's warning); every BSDF (diffuse, dielectric smooth / rough /
+thin, conductor, phong, plastic, principled, passthrough, transparent, the
+Radiance models, the measured klems, tensortree and djmeasured, whose
+tables go to SceneData.measured) and the wrappers (blend, mask, cutoff,
+twosided, normalmap, bumpmap, and transform with its PExpr normal); image,
+checkerboard, brick, noise-family, constant, transform and expr (PExpr)
+textures; point, spot, directional, area, sun and environment lights, the
+env constant, an image or a PExpr with its conditional / SAT /
+hierarchical importance table, and the sky models (the CIE skies, perez
+with its sun, and the Hosek-Wilkie `sky`), baked to equirect images with
+the conditional table; the uniform, cdf and hierarchy light selectors and
+their tables; homogeneous media, their sigmas constant or PExpr
+(settings.medium_exprs), and the entities' inner and outer media. Any
+colour or number property may be a PExpr string (scene/pexpr.py): a
+constant one folds into the row, any other becomes a PEXPR texture, and
+one that does not compile degrades with the JAX build's warning. The
+scene's `parameters` become SceneData.registry, which closures read live.
+Transparent shadows turn on, as in the JAX build, when a row is
+passthrough, thin dielectric or Radiance. With `instancing=True` every
+mesh shape that two or more entities use becomes an instance group
+(ops/instanced.InstancedGeo: one local soup, with its own BVH at
+BVH_THRESHOLD triangles or more, and a transform per instance). The
+technique section sets the technique, its depths (ppm's
+max_camera_depth spelling), NEE (off by default for aept), the debug
+view, the photon count (the `photons` override, default 1,000,000), the
+light depth, the merge radius and aept's learning iterations.
 
 Rows and values follow the JAX build; the triangle order differs: scenes
 with a BVH are reordered by the tri-leaf BVH8's prim_order alone (no TPU
@@ -35,7 +41,9 @@ empty scene gets one degenerate triangle).
 """
 from __future__ import annotations
 
+import datetime
 import math
+import re
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional
@@ -82,9 +90,8 @@ CONDUCTOR_SPECTRA = {
     "none": ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),  # perfect mirror
 }
 
-_SKY_LIGHTS = ("cie_uniform", "cieuniform", "cie_cloudy", "ciecloudy",
-               "cie_clear", "cieclear", "cie_intermediate",
-               "cieintermediate", "perez", "sky")
+_CIE_SKIES = ("cie_uniform", "cieuniform", "cie_cloudy", "ciecloudy",
+              "cie_clear", "cieclear", "cie_intermediate", "cieintermediate")
 
 
 @dataclass
@@ -94,28 +101,19 @@ class BuiltScene:
     warnings: List[str] = field(default_factory=list)
 
 
-def _todo(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, "
-                               f"item {item})")
-
-
-def _pexpr(obj: SceneObject, key, v):
-    return _todo(f"{obj.name}.{key}: PExpr value '{v}'", "15 (PExpr)")
-
-
-def _const_color(obj: SceneObject, key, default) -> np.ndarray:
+def _const_color(obj: SceneObject, key, default, texreg, warnings):
+    """A colour property that must be constant: a PExpr string folds to
+    its constant value, or, where it is not constant, the default with a
+    warning."""
     v = obj.get_color(key, default)
     if isinstance(v, str):
-        raise _pexpr(obj, key, v)
+        c = texreg.eval_constant_color(v)
+        if c is not None:
+            return c
+        warnings.append(f"'{obj.name}': non-constant {key} '{v}', using "
+                        "its default")
+        return np.asarray(default, np.float64)
     return np.asarray(v, np.float64)
-
-
-def _number(obj: SceneObject, key, default) -> float:
-    """A number property; strings are PExpr (item 15)."""
-    v = obj.get(key, default)
-    if isinstance(v, str):
-        raise _pexpr(obj, key, v)
-    return float(v)
 
 
 def _as_color_const(v, default):
@@ -128,16 +126,71 @@ def _as_color_const(v, default):
     return np.asarray(v, np.float64)
 
 
-class TextureRegistry:
-    """Named texture nodes (the ShadingTree without PExpr): a string
-    colour or number property resolves to a texture by name, any other
-    string is a PExpr and raises (ROADMAP queue 1, item 15)."""
+def _prop_number(obj: SceneObject, key, default, texreg):
+    """A number property that may be a PExpr string, folded by
+    evaluating it at one lane (ignis_tpu/scene/build.py:1730); the
+    default where it does not evaluate."""
+    v = obj.get(key, default)
+    if isinstance(v, str):
+        c = texreg.eval_constant_number(v)
+        return default if c is None else c
+    return float(v)
 
-    def __init__(self):
+
+def _dry_ctx():
+    """The one-lane CPU context of resolve_color's load-time dry run
+    (texture lookups answer with the uv)."""
+    z = torch.zeros((1,))
+    return texlib.make_shade_ctx(
+        Vec2(z, z), textures=lambda tid, uv: (uv[0], uv[1], uv[0]))
+
+
+def _probe_ctx(u, point):
+    """eval_constant_color's probe at uv (u, 1 - u) and `point`, which
+    serves as the normal too; texture lookups answer (u, v, u)."""
+    z = torch.full((1,), u)
+    p = tuple(torch.full((1,), c) for c in point)
+    return texlib.make_shade_ctx(
+        Vec2(z, 1.0 - z), point=p, normal=p,
+        textures=lambda tid, uv: (uv[0], uv[1], uv[0] * 0 + u))
+
+
+class TextureRegistry:
+    """Named texture nodes and PExpr compilation (the ShadingTree): a
+    string colour or number property resolves to a texture by name, or
+    to an implicit PEXPR texture compiled on demand; an expression that
+    does not compile or evaluate degrades to -1 with a warning, as the
+    JAX build does (ErrorBSDF-style, reference LoaderBSDF.cpp:36-49).
+    `measured` collects the measured BSDFs' tables (SceneData.measured)."""
+
+    def __init__(self, warnings: List[str], parameters=None, device="cpu"):
         self.descs: List = []
         self.datas: List = []
         self.name_to_tex: Dict[str, int] = {}
         self.images: Dict[str, np.ndarray] = {}
+        self.measured: List = []
+        self.warnings = warnings
+        self.parameters = parameters or {}
+        self.device = device
+        self._pexpr_cache: Dict[str, int] = {}
+
+    def _compiler(self):
+        from .pexpr import Compiler
+        params = {}
+        for name, p in self.parameters.items():
+            if isinstance(p, dict):
+                ptype = p.get("type", "number")
+                val = p.get("value", 0)
+            else:
+                ptype, val = "number", p
+            if ptype in ("number", "num", "int"):
+                params[name] = ("num", float(val))
+            elif ptype == "vector":
+                params[name] = ("vec3", tuple(float(x) for x in val))
+            else:
+                v = list(val) + [1.0]
+                params[name] = ("vec4", tuple(float(x) for x in v[:4]))
+        return Compiler(self.name_to_tex, params)
 
     def add(self, name, desc, data) -> int:
         self.descs.append(desc)
@@ -146,10 +199,61 @@ class TextureRegistry:
             self.name_to_tex[name] = len(self.descs) - 1
         return len(self.descs) - 1
 
+    def pexpr_texture(self, fn) -> tuple:
+        d, a = texlib.make_procedural(texlib.TexKind.PEXPR, (0, 0, 0),
+                                      (1, 1, 1), device=self.device)
+        return d._replace(fn=fn), a
+
     def resolve_color(self, s: str, what: str) -> int:
+        """A texture name or PExpr string -> texture id (-1 on failure)."""
         if s in self.name_to_tex:
             return self.name_to_tex[s]
-        raise _todo(f"{what}: PExpr '{s}'", "15 (PExpr)")
+        if s in self._pexpr_cache:
+            return self._pexpr_cache[s]
+        try:
+            fn = self._compiler().compile_color(s)
+            # a dry run on one lane, so that unknown variables and arity
+            # errors surface at load time
+            fn(_dry_ctx())
+            tid = self.add(None, *self.pexpr_texture(fn))
+            self._pexpr_cache[s] = tid
+            return tid
+        except Exception as e:
+            self.warnings.append(f"{what}: PExpr error: {e}")
+            return -1
+
+    def eval_constant_color(self, s: str):
+        """The rgb of a spatially constant PExpr (the exporters'
+        "color(r,g,b,a)" literals), else None. Expressions that read a
+        declared parameter (live in the registry) or a spatial input are
+        never folded; the others are probed at two points."""
+        toks = set(re.findall(r"[A-Za-z_]\w*", s))
+        if toks & set(self.parameters):
+            return None
+        if toks & {"uv", "uvw", "P", "N", "Np", "Ng", "V"}:
+            return None
+        try:
+            fn = self._compiler().compile_color(s)
+
+            def at(u, point):
+                r, g, b = fn(_probe_ctx(u, point))
+                return np.array([float(r[0]), float(g[0]), float(b[0])])
+            a = at(0.13, (0.4, -1.2, 2.0))
+            b = at(0.77, (-0.9, 0.3, -0.5))
+            if np.allclose(a, b, atol=1e-6) and np.isfinite(a).all():
+                return a
+            return None
+        except Exception:
+            return None
+
+    def eval_constant_number(self, s: str):
+        """A PExpr evaluated at one lane of zeros, or None."""
+        try:
+            fn = self._compiler().compile_number(s)
+            z = torch.zeros((1,), dtype=torch.float32)
+            return float(fn(texlib.make_shade_ctx(Vec2(z, z)))[0])
+        except Exception:
+            return None
 
 
 def _shape_to_mesh(obj: SceneObject,
@@ -269,24 +373,63 @@ def _shape_to_mesh(obj: SceneObject,
     return m
 
 
-def _roughness_uv(obj: SceneObject):
+def _roughness_uv(obj: SceneObject, texreg):
     """BSDF::setupRoughness: 'roughness' / 'alpha' (+ _u/_v) and
     'anisotropic'; alpha == roughness; no property means delta."""
     name = "alpha" if ("alpha" in obj.props or "alpha_u" in obj.props
                        or "alpha_v" in obj.props) else "roughness"
     if name + "_u" in obj.props or name + "_v" in obj.props:
-        ru = _number(obj, name + "_u", 0.1)
-        return ru, _number(obj, name + "_v", ru)
+        ru = _prop_number(obj, name + "_u", 0.1, texreg)
+        return ru, _prop_number(obj, name + "_v", ru, texreg)
     if name not in obj.props:
         return 0.0, 0.0
-    r = _number(obj, name, 0.1)
-    aniso = _number(obj, "anisotropic", 0.0)
+    r = _prop_number(obj, name, 0.1, texreg)
+    aniso = _prop_number(obj, "anisotropic", 0.0, texreg)
     aspect = math.sqrt(1.0 - min(max(aniso, 0.0), 1.0) * 0.99)
     return r / aspect, r * aspect
 
 
-def _bsdf_row(obj: SceneObject, texreg: TextureRegistry) -> dict:
-    """Translate a BSDF scene object into a Materials row dict."""
+def _measured_row(obj: SceneObject, texreg: TextureRegistry, row: dict,
+                  kind: BsdfKind, warnings: List[str], col) -> None:
+    """A klems, tensortree or djmeasured row: its table loaded onto the
+    device and appended to texreg.measured, q6 its index; a file that
+    fails to load gives an error row with a warning."""
+    from ..models import djmeasured as djmodel
+    from ..models import klems as klemsmodel
+    from ..models import tensortree as ttmodel
+    from . import djmeasured, klems, tensortree
+    t = obj.plugin_type
+    try:
+        if kind == BsdfKind.KLEMS:
+            data = klemsmodel.from_numpy(klems.load_klems(obj.path(
+                "filename")), texreg.device)
+        elif kind == BsdfKind.TENSORTREE:
+            # peakExtraction (default true, TensorTreeBSDF.cpp:67)
+            data = ttmodel.from_numpy(
+                tensortree.load_tensortree(obj.path("filename")),
+                use_peak=obj.get_bool("peakExtraction", True),
+                device=texreg.device)
+        else:
+            data = djmodel.from_numpy(djmeasured.load_djmeasured(obj.path(
+                "filename")), texreg.device)
+        row["kind"] = int(kind)
+        row["q6"] = float(len(texreg.measured))
+        texreg.measured.append(data)
+        if kind == BsdfKind.DJMEASURED:
+            col("tint", (1, 1, 1))
+        else:
+            col("base_color", (1, 1, 1))
+            up = np.asarray(obj.get_vec3("up", (0, 0, 1)), np.float64)
+            row["extra2"] = up / max(np.linalg.norm(up), 1e-9)
+    except Exception as e:
+        warnings.append(f"BSDF '{obj.name}': {t} load failed: {e}")
+        row["kind"] = int(BsdfKind.NULL_ERROR)
+
+
+def _bsdf_row(obj: SceneObject, texreg: TextureRegistry,
+              warnings: List[str]) -> dict:
+    """Translate a BSDF scene object into a Materials row dict
+    (ignis_tpu/scene/build.py:350-619)."""
     t = obj.plugin_type
     row = dict(kind=int(BsdfKind.DIFFUSE),
                base=np.array([0.8, 0.8, 0.8]), extra=np.zeros(3),
@@ -299,8 +442,14 @@ def _bsdf_row(obj: SceneObject, texreg: TextureRegistry) -> dict:
     def col(key, default, slot="base", tex_slot="base_tex"):
         v = obj.get_color(key, default)
         if isinstance(v, str):
-            row[tex_slot] = texreg.resolve_color(v, f"BSDF '{obj.name}' "
-                                                 f"{key}")
+            const = texreg.eval_constant_color(v)
+            if const is not None:
+                row[slot] = const
+                return
+            tid = texreg.resolve_color(v, f"BSDF '{obj.name}' {key}")
+            row[tex_slot] = tid
+            if tid < 0:
+                warnings.append(f"BSDF '{obj.name}': unresolved '{v}'")
             row[slot] = np.asarray(default, np.float64)
         else:
             row[slot] = v
@@ -309,7 +458,14 @@ def _bsdf_row(obj: SceneObject, texreg: TextureRegistry) -> dict:
         s = obj.get_string(key + "_material")
         if s and s.lower() in DIELECTRIC_IOR:
             return DIELECTRIC_IOR[s.lower()]
-        return _number(obj, key, DIELECTRIC_IOR[default_name])
+        v = obj.get(key)
+        if isinstance(v, str):
+            c = texreg.eval_constant_number(v)
+            if c is not None:
+                return c
+            warnings.append(f"BSDF '{obj.name}': non-constant ior '{v}'")
+            return DIELECTRIC_IOR[default_name]
+        return obj.get_number(key, DIELECTRIC_IOR[default_name])
 
     def weight(key, default, what):
         w = obj.get(key, default)
@@ -319,16 +475,19 @@ def _bsdf_row(obj: SceneObject, texreg: TextureRegistry) -> dict:
             return default
         return float(w)
 
+    def const_color(key, default):
+        return _const_color(obj, key, default, texreg, warnings)
+
     if t in ("diffuse", "roughdiffuse"):
         col("reflectance", (0.8, 0.8, 0.8))
-        row["p1"] = _number(obj, "roughness", 0.0)
+        row["p1"] = obj.get_number("roughness", 0.0)
     elif t in ("dielectric", "glass", "roughdielectric", "thindielectric"):
         row["kind"] = int(BsdfKind.DIELECTRIC)
         col("specular_reflectance", (1, 1, 1), "base", "base_tex")
         col("specular_transmittance", (1, 1, 1), "extra", "extra_tex")
         row["p0"] = ior("ext_ior", "vacuum")
         row["p1"] = ior("int_ior", "bk7")
-        row["p2"] = _roughness_uv(obj)[0]
+        row["p2"] = _roughness_uv(obj, texreg)[0]
         row["p3"] = 1.0 if (t == "thindielectric"
                             or obj.get_bool("thin", False)) else 0.0
     elif t in ("conductor", "roughconductor", "mirror", "perfect_mirror"):
@@ -336,32 +495,35 @@ def _bsdf_row(obj: SceneObject, texreg: TextureRegistry) -> dict:
         col("specular_reflectance", (1, 1, 1), "base", "base_tex")
         mat = obj.get_string("material", "none")
         eta_k = CONDUCTOR_SPECTRA.get(mat.lower(), CONDUCTOR_SPECTRA["none"])
-        row["extra"] = _const_color(obj, "eta", eta_k[0])
-        row["extra2"] = _const_color(obj, "k", eta_k[1])
-        row["p2"], row["p3"] = _roughness_uv(obj)
+        row["extra"] = const_color("eta", eta_k[0])
+        row["extra2"] = const_color("k", eta_k[1])
+        row["p2"], row["p3"] = _roughness_uv(obj, texreg)
     elif t == "phong":
         row["kind"] = int(BsdfKind.PHONG)
         col("specular_reflectance", (0.2, 0.2, 0.2))
-        row["p0"] = _number(obj, "exponent", 30.0)
+        row["p0"] = obj.get_number("exponent", 30.0)
     elif t in ("plastic", "roughplastic"):
         row["kind"] = int(BsdfKind.PLASTIC)
         col("diffuse_reflectance", (0.5, 0.5, 0.5))
         col("specular_reflectance", (1, 1, 1), "extra", "extra_tex")
         row["p0"] = ior("ext_ior", "vacuum")
         row["p1"] = ior("int_ior", "bk7")
-        row["p2"] = _roughness_uv(obj)[0]
+        row["p2"] = _roughness_uv(obj, texreg)[0]
     elif t == "principled":
         row["kind"] = int(BsdfKind.PRINCIPLED)
         col("base_color", (0.8, 0.8, 0.8))
-        i = _number(obj, "ior", DIELECTRIC_IOR["bk7"])
-        row["p0"] = _number(obj, "reflective_ior", i)
-        row["p1"] = _number(obj, "refractive_ior", i)
+
+        def num(key, default):
+            return _prop_number(obj, key, default, texreg)
+        i = num("ior", DIELECTRIC_IOR["bk7"])
+        row["p0"] = num("reflective_ior", i)
+        row["p1"] = num("refractive_ior", i)
         if "roughness_u" in obj.props or "roughness_v" in obj.props:
-            ru = _number(obj, "roughness_u", 0.5)
-            rv = _number(obj, "roughness_v", ru)
+            ru = num("roughness_u", 0.5)
+            rv = num("roughness_v", ru)
         else:
-            r = _number(obj, "roughness", 0.5)
-            aniso = _number(obj, "anisotropic", 0.0)
+            r = num("roughness", 0.5)
+            aniso = num("anisotropic", 0.0)
             aspect = math.sqrt(1.0 - min(max(aniso, 0.0), 1.0) * 0.99)
             ru, rv = r / aspect, r * aspect
         row["p2"], row["p3"] = ru, rv
@@ -371,10 +533,9 @@ def _bsdf_row(obj: SceneObject, texreg: TextureRegistry) -> dict:
                 ("q4", "sheen_tint", 0.0), ("q5", "clearcoat", 0.0),
                 ("q6", "clearcoat_gloss", 0.0),
                 ("q7", "clearcoat_roughness", 0.1)):
-            row[q] = _number(obj, key, default)
+            row[q] = num(key, default)
         row["extra2"] = np.array([
-            _number(obj, "flatness", 0.0),
-            _number(obj, "diffuse_transmission", 0.0),
+            num("flatness", 0.0), num("diffuse_transmission", 0.0),
             1.0 if obj.get_bool("thin", False) else 0.0])
     elif t in ("passthrough", "null"):
         row["kind"] = int(BsdfKind.PASSTHROUGH)
@@ -396,16 +557,33 @@ def _bsdf_row(obj: SceneObject, texreg: TextureRegistry) -> dict:
         row["_children"] = ("__passthrough__", obj.get_string("bsdf"))
         row["p0"] = weight("opacity", 1.0, "opacity")
         if t == "cutoff":
-            row["p1"] = _number(obj, "threshold", 0.5)
+            row["p1"] = _prop_number(obj, "threshold", 0.5, texreg)
             row["p2"] = 1.0   # cutoff flag: the weight is thresholded
     elif t in ("twosided", "doublesided"):
         # frames always face the ray, so the inner row is two-sided already
         row["_alias"] = obj.get_string("bsdf")
     elif t == "transform":
-        if obj.get("normal") is not None:
-            raise _todo(f"BSDF '{obj.name}': transform normal (a PExpr vec3 "
-                        "per shading point)", "15 (PExpr)")
+        # the normal override (TransformBSDF.cpp:20-44): a PExpr vec3 per
+        # shading point in world space, such as the Cycles exporter's
+        # ensure_valid_reflection(Ng, V, bump(...)) chains; applied in
+        # techniques/path.apply_normal_map as bump kind 3
         row["_alias"] = obj.get_string("bsdf")
+        nexpr = obj.get("normal")
+        if isinstance(nexpr, str):
+            tid = texreg.resolve_color(nexpr, f"BSDF '{obj.name}' normal")
+        elif nexpr is not None:
+            v = np.asarray(nexpr, np.float64).reshape(-1)[:3]
+            tid = texreg.resolve_color(
+                f"vec3({v[0]!r}, {v[1]!r}, {v[2]!r})",
+                f"BSDF '{obj.name}' normal")
+        else:
+            tid = -1
+        if tid >= 0:
+            row["bump_kind"] = 3
+            row["bump_tex"] = tid
+        if "tangent" in obj.props:
+            warnings.append(f"BSDF '{obj.name}': transform tangent "
+                            "override not supported; using normal only")
     elif t in ("map", "normalmap", "bumpmap"):
         # normal / bump map over the inner row (MapBSDF.cpp), applied per
         # hit in techniques/path.apply_normal_map
@@ -417,32 +595,48 @@ def _bsdf_row(obj: SceneObject, texreg: TextureRegistry) -> dict:
                                                    "map")
         else:
             row["bump_kind"] = 0  # a constant map perturbs nothing
-        row["bump_strength"] = _number(obj, "strength", 1.0)
+        row["bump_strength"] = obj.get_number("strength", 1.0)
     elif t in ("rad_brtdfunc", "rad_roos"):
         # Radiance compliance models (RadBRTDFuncBSDF.cpp / RadRoosBSDF.cpp)
-        dir_diff = _const_color(obj, "direct_diffuse", (0, 0, 0))
-        front = _const_color(obj, "reflection_front_diffuse",
-                             (0, 0, 0)) + dir_diff
-        back = _const_color(obj, "reflection_back_diffuse",
-                            (0, 0, 0)) + dir_diff
-        row["extra2"] = _const_color(obj, "transmission_diffuse", (0, 0, 0))
+        def cc(key, default):
+            v = obj.get_color(key, default)
+            if isinstance(v, str):
+                c = texreg.eval_constant_number(v)
+                if c is not None:
+                    return np.full(3, float(c))
+                warnings.append(f"BSDF '{obj.name}': non-constant {key}")
+                return np.asarray(default, np.float64)
+            return np.asarray(v, np.float64)
+        dir_diff = cc("direct_diffuse", (0, 0, 0))
+        front = cc("reflection_front_diffuse", (0, 0, 0)) + dir_diff
+        back = cc("reflection_back_diffuse", (0, 0, 0)) + dir_diff
+        row["extra2"] = cc("transmission_diffuse", (0, 0, 0))
         row["q0"], row["q1"], row["q2"] = front.tolist()
         row["q3"], row["q4"], row["q5"] = back.tolist()
         if t == "rad_brtdfunc":
             row["kind"] = int(BsdfKind.RAD_BRTDF)
-            row["base"] = _const_color(obj, "reflection_specular", (1, 1, 1))
-            row["extra"] = _const_color(obj, "transmission_specular",
-                                        (0, 0, 0))
+            row["base"] = cc("reflection_specular", (1, 1, 1))
+            row["extra"] = cc("transmission_specular", (0, 0, 0))
         else:
             row["kind"] = int(BsdfKind.RAD_ROOS)
-            row["base"] = np.array([_number(obj, "trns_" + c, 0.0)
+            row["base"] = np.array([obj.get_number("trns_" + c, 0.0)
                                     for c in "wpq"])
-            row["extra"] = np.array([_number(obj, "refl_" + c, 0.0)
+            row["extra"] = np.array([obj.get_number("refl_" + c, 0.0)
                                      for c in "wpq"])
-    elif t in ("klems", "tensortree", "djmeasured"):
-        raise _todo(f"measured BSDF '{obj.name}' ({t})", "16")
+    elif t == "klems":
+        # measured Klems BSDF (KlemsBSDF.cpp): XML -> 4 scattering matrices
+        _measured_row(obj, texreg, row, BsdfKind.KLEMS, warnings, col)
+    elif t == "tensortree":
+        # measured tensor-tree BSDF (TensorTreeBSDF.cpp), baked to dense
+        # grids at load (scene/tensortree.py)
+        _measured_row(obj, texreg, row, BsdfKind.TENSORTREE, warnings, col)
+    elif t == "djmeasured":
+        # Dupuy-Jakob measured BRDF (DJMeasuredBSDF.cpp); a powitacq tensor
+        # file baked to per-theta_i tables (scene/djmeasured.py)
+        _measured_row(obj, texreg, row, BsdfKind.DJMEASURED, warnings, col)
     else:
-        raise _todo(f"BSDF type '{t}'", "6 (remaining BSDF kinds)")
+        warnings.append(f"Unsupported BSDF type '{t}' -> error bsdf")
+        row["kind"] = int(BsdfKind.NULL_ERROR)
     return row
 
 
@@ -455,7 +649,8 @@ def _resolve_wrappers(mat_rows: List[dict], mat_index: Dict[str, int],
             if r["kind"] == int(BsdfKind.PASSTHROUGH):
                 return i
         mat_rows.append(_bsdf_row(SceneObject("passthrough",
-                                              "__passthrough__"), texreg))
+                                              "__passthrough__"), texreg,
+                                  texreg.warnings))
         return len(mat_rows) - 1
 
     def depth_of(idx, seen=()):
@@ -508,10 +703,12 @@ def _load_textures(scene: Scene, texreg: TextureRegistry, device, overrides,
 
     for name, obj in scene.textures.items():
         t = obj.plugin_type
-        if t in ("expr", "pexpr"):
-            raise _todo(f"texture '{name}': PExpr texture", "15 (PExpr)")
         try:
-            if t in ("image", "bitmap"):
+            if t in ("expr", "pexpr"):
+                src = obj.get_string("expr", obj.get_string("value", "1"))
+                d, a = texreg.pexpr_texture(
+                    texreg._compiler().compile_color(src))
+            elif t in ("image", "bitmap"):
                 tex_path = obj.path("filename")
                 sub = (overrides.get("texture_substitutes") or {}).get(
                     Path(str(tex_path)).name)
@@ -582,7 +779,7 @@ def _load_textures(scene: Scene, texreg: TextureRegistry, device, overrides,
                 warnings.append(f"Texture '{name}': type '{t}' TODO, using "
                                 "white")
                 d, a = proc(texlib.TexKind.CONSTANT, (1, 1, 1), (1, 1, 1))
-        except (OSError, ValueError, TypeError) as e:  # a missing file etc.
+        except Exception as e:  # a missing file, a PExpr error etc.
             warnings.append(f"Texture '{name}': {e}; using magenta")
             d, a = proc(texlib.TexKind.CONSTANT, (1, 0, 1), (1, 0, 1))
         texreg.add(name, d, a)
@@ -646,8 +843,6 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     device = torch.device(device)
     warnings: List[str] = []
     overrides = overrides or {}
-    if scene.parameters:
-        raise _todo("scene parameters (the PExpr registry)", "15")
 
     # --- film / technique / camera -------------------------------------
     film = scene.film
@@ -708,26 +903,41 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
                 meshes[name] = m
 
     # --- textures and materials ----------------------------------------
-    texreg = TextureRegistry()
+    texreg = TextureRegistry(warnings, scene.parameters, device)
     _load_textures(scene, texreg, device, overrides, warnings)
     mat_rows: List[dict] = []
     mat_index: Dict[str, int] = {}
     for name, obj in scene.bsdfs.items():
         mat_index[name] = len(mat_rows)
-        mat_rows.append(_bsdf_row(obj, texreg))
+        mat_rows.append(_bsdf_row(obj, texreg, warnings))
     if not mat_rows:
         mat_rows.append(_bsdf_row(SceneObject("diffuse", "_default"),
-                                  texreg))
+                                  texreg, warnings))
     has_blend = _resolve_wrappers(mat_rows, mat_index, texreg, warnings)
 
-    # --- media (ignis_tpu/scene/build.py:867-889): homogeneous constants
+    # --- media (ignis_tpu/scene/build.py:867-889): homogeneous constants,
+    # or PExpr sigmas evaluated where a lane enters the medium
     med_rows = []
+    med_exprs: List = []
     med_index: Dict[str, int] = {}
     for name, obj in scene.media.items():
         med_index[name] = len(med_rows)
-        sa = _const_color(obj, "sigma_a", (0, 0, 0))
-        ss = _const_color(obj, "sigma_s", (0, 0, 0))
-        med_rows.append((sa, ss, _number(obj, "g", 0.0)))
+        sigmas, fns = [], []
+        for key in ("sigma_a", "sigma_s"):
+            c = _as_color_const(obj.get(key), (0, 0, 0))
+            fn = None
+            if c is None:
+                try:
+                    fn = texreg._compiler().compile_color(
+                        obj.get_string(key))
+                except Exception as e:
+                    warnings.append(f"Medium '{name}' {key}: {e}")
+                c = np.zeros(3)
+            sigmas.append(c)
+            fns.append(fn)
+        med_exprs.append(tuple(fns) if any(fns) else None)
+        med_rows.append((sigmas[0], sigmas[1],
+                         _prop_number(obj, "g", 0.0, texreg)))
 
     # --- entities: flatten transforms into one soup --------------------
     tri_v0, tri_e1, tri_e2 = [], [], []
@@ -834,14 +1044,27 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         row.update(kw)
         return row
 
+    def lcolor(o, key, default):
+        return _const_color(o, key, default, texreg, warnings)
+
+    def sky_env(name, img, intensity):
+        """A baked sky image as a textured env light with the
+        conditional CDF (ignis_tpu/scene/build.py:1186-1191)."""
+        td, ta = texlib.make_image_texture(img, filt=texlib.FilterMode(1),
+                                           device=device)
+        tid = texreg.add(name, td, ta)
+        l_rows.append(light_row(kind=int(LightKind.ENV), intensity=intensity,
+                                tex=tid, infinite=True))
+        return _build_env_cdf(img, False, "conditional", device)
+
     for name, obj in scene.lights.items():
         t = obj.plugin_type
         if t == "point":
             if "power" in obj.props:
-                inten = _const_color(obj, "power", (4 * np.pi,) * 3) \
+                inten = lcolor(obj, "power", (4 * np.pi,) * 3) \
                     / (4 * np.pi)
             else:
-                inten = _const_color(obj, "intensity", (1, 1, 1))
+                inten = lcolor(obj, "intensity", (1, 1, 1))
             l_rows.append(light_row(kind=int(LightKind.POINT),
                                     pos=obj.get_vec3("position"),
                                     intensity=inten, delta=True))
@@ -851,9 +1074,9 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
             if "power" in obj.props:
                 factor = 2 * np.pi * (1 - 0.5 * (math.cos(cutoff)
                                                  + math.cos(falloff)))
-                inten = _const_color(obj, "power", (1, 1, 1)) / factor
+                inten = lcolor(obj, "power", (1, 1, 1)) / factor
             else:
-                inten = _const_color(obj, "intensity", (1, 1, 1))
+                inten = lcolor(obj, "intensity", (1, 1, 1))
             l_rows.append(light_row(kind=int(LightKind.SPOT),
                                     pos=obj.get_vec3("position"),
                                     dir=_light_direction(obj),
@@ -862,7 +1085,7 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         elif t == "directional":
             l_rows.append(light_row(
                 kind=int(LightKind.DIRECTIONAL), dir=_light_direction(obj),
-                intensity=_const_color(obj, "irradiance", (1, 1, 1)),
+                intensity=lcolor(obj, "irradiance", (1, 1, 1)),
                 delta=True, infinite=True))
         elif t == "area":
             ent_name = obj.get_string("entity")
@@ -870,7 +1093,11 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
             if eid < 0:
                 warnings.append(f"Area light '{name}': unknown entity")
                 continue
-            rad = _const_color(obj, "radiance", (1, 1, 1))
+            rad = _as_color_const(obj.get("radiance"), (1, 1, 1))
+            if rad is None:
+                warnings.append(f"Area light '{name}': textured radiance "
+                                "TODO")
+                rad = np.ones(3)
             row_id = len(l_rows)
             if ent_name in ent_sphere:
                 wc, wr = ent_sphere[ent_name]
@@ -892,15 +1119,18 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
                                         p1=float(row_id), entity=eid,
                                         tri_start=a_start, tri_count=count))
             if "power" in obj.props:
-                pw = _const_color(obj, "power", (1, 1, 1))
+                pw = lcolor(obj, "power", (1, 1, 1))
                 l_rows[row_id]["intensity"] = pw / (np.pi * max(total, 1e-30))
             ent_light[eid] = row_id
         elif t in ("env", "envmap", "environment", "uniform", "constant"):
             rad = obj.get_color("radiance", (1, 1, 1))
-            scale = _const_color(obj, "scale", (1, 1, 1))
+            scale = lcolor(obj, "scale", (1, 1, 1))
             if isinstance(rad, str):
                 tid = texreg.resolve_color(rad, f"Env light '{name}'")
-                if rad in texreg.images:
+                if tid < 0:
+                    warnings.append(f"Env light '{name}': unresolved "
+                                    f"'{rad}', using white")
+                elif rad in texreg.images:
                     # the "cdf" method (EnvironmentLight.cpp:22-27)
                     m = (obj.get_string("cdf", "conditional")
                          or "conditional").lower()
@@ -928,18 +1158,75 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
             d = _light_direction(obj)
             angle = obj.get_number("angle", 0.533)
             if "radiance" in obj.props:
-                rad = _const_color(obj, "radiance", (1, 1, 1))
+                rad = lcolor(obj, "radiance", (1, 1, 1))
             else:
-                rad = (_const_color(obj, "irradiance", (1, 1, 1))
+                rad = (lcolor(obj, "irradiance", (1, 1, 1))
                        / sun_area_from_angle(angle))
             l_rows.append(light_row(kind=int(LightKind.SUN), dir=-d,
                                     intensity=rad,
                                     p0=math.cos(math.radians(angle / 2.0)),
                                     infinite=True))
-        elif t in _SKY_LIGHTS:
-            raise _todo(f"sky light '{name}' ({t})", "16")
+        elif t in _CIE_SKIES:
+            from ..models.daylight import bake_cie
+            img = bake_cie(
+                t.replace("cie_", "").replace("cie", ""),
+                _light_direction(obj),
+                _as_color_const(obj.get("zenith"), (1, 1, 1)),
+                _as_color_const(obj.get("ground"), (1, 1, 1)),
+                _prop_number(obj, "ground_brightness", 0.2, texreg),
+                _prop_number(obj, "turbidity", 2.45, texreg),
+                obj.get_bool("has_ground", True),
+                _as_color_const(obj.get("scale"), (1, 1, 1)))
+            envmap = sky_env(f"__cie_{name}", img, np.ones(3))
+        elif t == "perez":
+            from ..models.daylight import bake_perez, perez_model
+            d = _light_direction(obj)
+            sz = math.pi / 2 - math.asin(max(-1.0, min(1.0, d[1])))
+            try:
+                day = datetime.date(obj.get_int("year", 2020),
+                                    obj.get_int("month", 5),
+                                    obj.get_int("day", 6)).timetuple().tm_yday
+            except ValueError:
+                day = 127
+            day = _prop_number(obj, "day_of_the_year", day, texreg)
+
+            def num(key, default):
+                return _prop_number(obj, key, default, texreg)
+            if ("diffuse_irradiance" in obj.props
+                    or "direct_irradiance" in obj.props
+                    or "direct_horizontal_irradiance" in obj.props):
+                direct = num("direct_irradiance", -1.0)
+                if direct < 0:
+                    direct = (num("direct_horizontal_irradiance", 1.0)
+                              / max(math.cos(sz), 1e-6))
+                model = perez_model(
+                    sz, day, diffuse_irrad=num("diffuse_irradiance", 1.0),
+                    direct_irrad=direct)
+            else:
+                model = perez_model(sz, day,
+                                    brightness=num("brightness", 0.2),
+                                    clearness=num("clearness", 1.0))
+            img, sun_rad, cos_angle = bake_perez(
+                d, model, tint=_as_color_const(obj.get("color"), (1, 1, 1)),
+                ground=_as_color_const(obj.get("ground"), (0.2, 0.2, 0.2)),
+                has_ground=obj.get_bool("has_ground", True),
+                has_sun=obj.get_bool("has_sun", True),
+                output=obj.get_string("output", "visibleradiance").lower())
+            envmap = sky_env(f"__perez_{name}", img, np.ones(3))
+            if sun_rad is not None:
+                l_rows.append(light_row(kind=int(LightKind.SUN), dir=-d,
+                                        intensity=np.asarray(sun_rad),
+                                        p0=cos_angle, infinite=True))
+        elif t == "sky":
+            # the Hosek-Wilkie sky baked to an equirect env texture
+            from ..models.skysun import bake_sky
+            img = bake_sky(_light_direction(obj),
+                           obj.get_number("turbidity", 3.0),
+                           obj.get_vec3("ground", (0.8, 0.8, 0.8)))
+            envmap = sky_env(f"__sky_{name}", img,
+                             _as_color_const(obj.get("scale"), (1, 1, 1)))
         else:
-            raise _todo(f"light type '{t}'", "7 (remaining light kinds)")
+            warnings.append(f"Unsupported light type '{t}', skipped")
 
     # --- pack tables ----------------------------------------------------
     def cat(parts, width, dtype):
@@ -1084,13 +1371,31 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
 
     infinite_rows = tuple(int(i) for i, r in enumerate(l_rows)
                           if r["infinite"] and n_lights > 0)
+    # the live parameter registry (ignis_tpu/scene/build.py:1583-1600):
+    # number and vector parameters as f32 tensors that PExpr closures read
+    # at evaluation time, so Runtime.setParameter re-renders without a
+    # rebuild
+    registry = {}
+    for pname, p in (scene.parameters or {}).items():
+        ptype, val = ((p.get("type", "number"), p.get("value", 0))
+                      if isinstance(p, dict) else ("number", p))
+        try:
+            if ptype in ("number", "num", "int") and isinstance(
+                    val, (int, float)):
+                registry[pname] = scalar(float(np.float32(val)))
+            elif ptype in ("vector", "color") and hasattr(val, "__len__"):
+                registry[pname] = ten(np.asarray([float(x) for x in val],
+                                                 np.float32))
+        except (TypeError, ValueError):
+            pass  # strings and malformed values stay load-time constants
     data = SceneData(tris=tris, tri_attr=attr, spheres=spheres,
                      sph_attr=sph_attr, entities=entities,
                      materials=materials, lights=lights, envmap=envmap,
                      camera=camera, media=media, bvh=bvh,
                      scene_radius=scalar(radius),
                      scene_center=Vec3(*[scalar(v) for v in center]),
-                     textures=tuple(texreg.datas), instances=instances)
+                     textures=tuple(texreg.datas), instances=instances,
+                     measured=tuple(texreg.measured), registry=registry)
     selector = (tech.get_string("light_selector", "uniform") or "uniform"
                 ) if tech else "uniform"
 
@@ -1121,7 +1426,8 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
         camera_type=cam_type, fish_mode=fish_mode,
         light_selector={"simple": "cdf"}.get(selector, selector),
         infinite_light_rows=infinite_rows, n_lights=n_lights,
-        texture_descs=tuple(texreg.descs), has_blend=has_blend,
+        texture_descs=tuple(texreg.descs), medium_exprs=tuple(med_exprs),
+        has_blend=has_blend,
         transparent_shadows=see_through,
         has_bump=any(r["bump_kind"] != 0 and r["bump_tex"] >= 0
                      for r in mat_rows),

@@ -5,12 +5,14 @@ NamedTuples whose field names match the JAX package, so the bridge
 (bridge.py) and the module-by-module tests compare like for like. Nothing
 is placed on a device implicitly: `SceneData.to(device)` moves every leaf.
 
-Left out against the JAX SceneData: measured BSDF tables and the PExpr
-registry (ROADMAP queue 1, items 16 and 15), and the TPU-only chunked-leaf
-BVH: `bvh` is the tri-leaf BVH8 alone (ops/bvh.BVHArrays). `textures` is
-a tuple of models/texture.TexData; `instances` a tuple of
-ops/instanced.InstancedGeo, one per mesh shared by two or more entities
-under `instancing=True`, or None.
+Left out against the JAX SceneData: the TPU-only chunked-leaf BVH: `bvh`
+is the tri-leaf BVH8 alone (ops/bvh.BVHArrays). `textures` is a tuple of
+models/texture.TexData; `instances` a tuple of ops/instanced.InstancedGeo,
+one per mesh shared by two or more entities under `instancing=True`, or
+None; `measured` the measured BSDFs' tables (models/klems.KlemsData,
+models/tensortree.TensorTreeData, models/djmeasured.DJData), indexed by
+a material row's q6; `registry` the scene's live parameters, name -> a
+0-d or [3] / [4] f32 tensor, which Runtime.setParameter updates in place.
 """
 from __future__ import annotations
 
@@ -25,13 +27,16 @@ from .ops.intersect import SphereSoup, TriSoup
 
 
 def tree_map(fn, obj):
-    """Apply `fn` to every tensor leaf of nested NamedTuples/tuples."""
+    """Apply `fn` to every tensor leaf of nested NamedTuples, tuples and
+    dicts."""
     if isinstance(obj, torch.Tensor):
         return fn(obj)
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
         return type(obj)(*[tree_map(fn, v) for v in obj])
     if isinstance(obj, tuple):
         return tuple(tree_map(fn, v) for v in obj)
+    if isinstance(obj, dict):
+        return {k: tree_map(fn, v) for k, v in obj.items()}
     return obj
 
 
@@ -162,6 +167,8 @@ class SceneData(NamedTuple):
     scene_center: Vec3
     textures: tuple = ()
     instances: Optional[tuple] = None
+    measured: tuple = ()
+    registry: Optional[dict] = None
 
     def to(self, device) -> "SceneData":
         """Every tensor leaf on `device` (a copy where it moves)."""

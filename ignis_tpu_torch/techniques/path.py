@@ -341,8 +341,8 @@ class SceneInfo(NamedTuple):
     """What a render reads once from the scene's small tables on the host,
     so that no bounce syncs: the blend nesting depth, the hierarchy depth,
     the bump kinds present, the texture ids each slot can hold, the kind,
-    texture and delta flag of each infinite light row, and which
-    material_columns require grad."""
+    texture and delta flag of each infinite light row, which
+    material_columns require grad, and whether the scene has PExpr."""
     blend_depth: int
     hier_depth: int
     bump_kinds: tuple
@@ -350,6 +350,7 @@ class SceneInfo(NamedTuple):
     light_tex: tuple     # texture ids of the lights
     infinite: dict       # infinite light row -> (kind, texture id, delta)
     mat_grad: tuple      # per material_columns column: requires grad
+    pexpr: bool = False  # a PExpr texture or medium: the full ShadeCtx
 
 
 def scene_info(scene: SceneData, settings: RenderSettings) -> SceneInfo:
@@ -382,14 +383,28 @@ def scene_info(scene: SceneData, settings: RenderSettings) -> SceneInfo:
         infinite={r: (int(scene.lights.kind[r]), int(scene.lights.tex[r]),
                       bool(scene.lights.delta[r]))
                   for r in settings.infinite_light_rows},
-        mat_grad=tuple(c.requires_grad for c in material_columns(scene)))
+        mat_grad=tuple(c.requires_grad for c in material_columns(scene)),
+        pexpr=texlib.has_pexpr(settings.texture_descs, settings.medium_exprs))
 
 
-def make_surface_ctx(rays: Rays, surf: Surface) -> texlib.ShadeCtx:
-    """The texture lookup context at a surface hit: its uv, and the view
-    direction for the normal-map clamp."""
-    return texlib.make_shade_ctx(surf.uv, (-rays.dir.x, -rays.dir.y,
-                                           -rays.dir.z))
+def make_surface_ctx(scene: SceneData, rays: Rays, surf: Surface,
+                     info: SceneInfo) -> texlib.ShadeCtx:
+    """The texture lookup context at a surface hit: its uv and the view
+    direction, and for a scene with PExpr (info.pexpr) every PExpr
+    variable (ignis_tpu/techniques/path.py:447-469), the scene's live
+    parameter registry included."""
+    view = (-rays.dir.x, -rays.dir.y, -rays.dir.z)
+    if not info.pexpr:
+        return texlib.light_ctx(surf.uv, view)
+    fr = shading_frame(surf)
+    return texlib.make_shade_ctx(
+        surf.uv, point=tuple(surf.point), normal=tuple(surf.ns),
+        face_normal=tuple(surf.face_n), tangent=tuple(fr.t),
+        bitangent=tuple(fr.b), ray_dir=view, ray_org=tuple(rays.org),
+        entity_id=surf.ent, frontside=surf.is_entering,
+        scene_center=tuple(scene.scene_center),
+        scene_radius=scene.scene_radius, registry=scene.registry,
+        dpdu=tuple(surf.tu), dpdv=tuple(surf.tv))
 
 
 def apply_textures(mat, tex: dict, eval_texture, ctx, info: SceneInfo):
@@ -418,7 +433,8 @@ def gather_material(scene: SceneData, surf: Surface, mtab: torch.Tensor,
 def apply_normal_map(surf: Surface, ctx: texlib.ShadeCtx, eval_texture,
                      tex: dict, info: SceneInfo) -> Surface:
     """Perturb the shading normal of normal- and bump-mapped rows
-    (reference bsdf/map.art make_normalmap / make_bumpmap), then clamp it
+    (reference bsdf/map.art make_normalmap / make_bumpmap) and set that of
+    transform BSDFs (bump kind 3), then clamp it
     so the view reflection stays above the geometric surface (make_normal
     _set). Only the bump kinds the scene has are evaluated."""
     if not info.bump_kinds:
@@ -453,6 +469,11 @@ def apply_normal_map(surf: Surface, ctx: texlib.ShadeCtx, eval_texture,
                              surf.ns.y - bs * (fr.t.y * dx + fr.b.y * dy),
                              surf.ns.z - bs * (fr.t.z * dx + fr.b.z * dy)))
         new_ns = vselect(bk == 2, b_n, new_ns)
+    if 3 in info.bump_kinds:
+        # the transform BSDF's normal (TransformBSDF.cpp:40-44): a PExpr
+        # vec3 per shading point in world space, its rgb the new normal
+        c = eval_texture(bt, ctx, ids)
+        new_ns = vselect(bk == 3, normalize(Vec3(c.r, c.g, c.b)), new_ns)
     new_ns = vselect(bk > 0, ensure_valid_reflection(
         surf.face_n, Vec3(*ctx.ray_dir), new_ns), new_ns)
     return surf._replace(ns=new_ns)
@@ -486,15 +507,11 @@ def _cadd_where(m, acc: Color, c: Color) -> Color:
 
 
 def check_settings(settings: RenderSettings, scene: SceneData) -> None:
-    """Raise for anything the port does not carry yet, and for a technique
-    that does not exist."""
+    """Raise for a technique that does not exist, and for settings without
+    their BSDF kinds."""
     from . import TECHNIQUES
     if settings.technique not in TECHNIQUES:
         raise ValueError(f"Unknown technique '{settings.technique}'")
-    if settings.medium_exprs and any(settings.medium_exprs):
-        raise NotImplementedError("PExpr media are not ported yet (ROADMAP "
-                                  "queue 1, item 15)")
-    texlib.check_descs(settings.texture_descs)
     bsdflib.check_kinds(settings.bsdf_kinds)
 
 
@@ -686,6 +703,7 @@ class Shading(NamedTuple):
     surf: Surface
     frame: Frame
     shader: bsdflib.LaneShader
+    ctx: texlib.ShadeCtx = None   # the lookup context (None: no textures)
 
 
 def shade_hit(scene: SceneData, settings: RenderSettings, tabs: RenderTables,
@@ -701,7 +719,8 @@ def shade_hit(scene: SceneData, settings: RenderSettings, tabs: RenderTables,
     textured = ev is not None and bool(info.tex_ids["base_tex"]
                                        or info.tex_ids["extra_tex"])
     surf = compute_surface(scene, rays, hit, tabs.attr, tabs.inst)
-    ctx = make_surface_ctx(rays, surf) if ev is not None else None
+    ctx = (make_surface_ctx(scene, rays, surf, info)
+           if ev is not None or info.pexpr else None)
     mat, mid, tex = gather_material(scene, surf, tabs.mat, ev, ctx, info)
     if tex is not None:
         surf = apply_normal_map(surf, ctx, ev, tex, info)
@@ -720,14 +739,19 @@ def shade_hit(scene: SceneData, settings: RenderSettings, tabs: RenderTables,
         if not textured:
             return gather_mat_rows(tabs.mat, ids, grad=info.mat_grad)
         k = ids.shape[0] // n
-        ctx_k = ctx._replace(uv=tuple(torch.cat([c] * k) for c in ctx.uv))
+        if info.pexpr:
+            ctx_k = texlib.map_lanes(ctx, lambda c: torch.cat([c] * k))
+        else:
+            # the other kinds read the uv alone
+            ctx_k = ctx._replace(uv=tuple(torch.cat([c] * k)
+                                          for c in ctx.uv))
         return apply_textures(*gather_mat_rows(tabs.mat, ids, with_tex=True,
                                                grad=info.mat_grad),
                               ev, ctx_k, info)
     shader = bsdflib.make_lane_shader(gather_row, mid, mat, frame,
                                       surf.is_entering, info.blend_depth,
-                                      w_override, present)
-    return Shading(surf, frame, shader)
+                                      w_override, present, scene.measured)
+    return Shading(surf, frame, shader, ctx)
 
 
 def hit_emission(scene: SceneData, settings: RenderSettings,

@@ -208,7 +208,8 @@ def info_buffer(scene: SceneData, settings: RenderSettings, rays: Rays,
     hit, surf = _hit_surface(scene, rays, tabs)
     found = hit.prim >= 0
     ev = tabs.eval_texture
-    ctx = make_surface_ctx(rays, surf) if ev is not None else None
+    ctx = (make_surface_ctx(scene, rays, surf, tabs.info)
+           if ev is not None else None)
     mat = gather_material(scene, surf, tabs.mat, ev, ctx, tabs.info)[0]
     z = torch.zeros_like(rays.tmin)
     normals = Color(*[torch.where(found, c, 0.0) for c in surf.ns])

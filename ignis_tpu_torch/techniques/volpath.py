@@ -123,7 +123,7 @@ def make_vol_bounce(scene: SceneData, settings: RenderSettings,
         # ---- hit shading -------------------------------------------------
         active = state.alive & found
         sh = shade_hit(scene, settings, tabs, rays_b, hit)
-        surf, frame, shader = sh
+        surf, frame, shader = sh.surf, sh.frame, sh.shader
         out_dir = -state.dir
         all_delta = shader.is_all_delta()
         seg_tr = medlib.transmittance(med, torch.where(found, hit.t, 0.0))
@@ -190,6 +190,7 @@ def make_vol_bounce(scene: SceneData, settings: RenderSettings,
         new_contrib = new_contrib * (1.0 / rr_prob)
 
         # the medium behind a transmission through the surface, read there
+        # (a PExpr sigma at the entry surface's context)
         is_trans = dot(frame.n, bs.in_dir) < 0.0
         ent = torch.clamp(surf.ent, min=0).long()
         new_med = torch.where(
@@ -197,7 +198,8 @@ def make_vol_bounce(scene: SceneData, settings: RenderSettings,
                                   scene.entities.med_inner[ent],
                                   scene.entities.med_outer[ent]),
             state.medium)
-        new_sa, new_ss, new_g = medlib.eval_medium_at(tabs.med, new_med)
+        new_sa, new_ss, new_g = medlib.eval_medium_at(
+            tabs.med, new_med, settings.medium_exprs, sh.ctx)
         if not scene.media.g.requires_grad:
             # g turns the scattered direction: with no g leaf to
             # differentiate, the direction leaves the graph, and a sigma

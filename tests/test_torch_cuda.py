@@ -11,8 +11,10 @@ geometry-gradient step; the MT replay, also with every ray on one
 triangle), the
 train step and geometry gradient with their launch counts, the slice
 and its gradient on the card against the CPU, instanced renders against
-flattened ones, and every other technique on the card against the CPU.
-They skip without a card. The file imports no JAX, so it runs on the
+flattened ones, every other technique on the card against the CPU, and
+the scene-language slice (S9's launches and Dupuy-Jakob K3 gathers,
+setParameter without a rebuild, skies, a PExpr medium and the bake on the
+card against the CPU). They skip without a card. The file imports no JAX, so it runs on the
 card's machine: `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 import json
 
@@ -359,3 +361,64 @@ def test_technique_on_card_matches_cpu(device, name, tmp_path):
     out = chip_smoke.technique_card_vs_cpu(
         device, name, ensure_substitute_env(tmp_path, 256, 128))
     assert out["pixels_close"] >= 0.99
+
+
+def test_s9_render_launches_k1_and_k3_and_dj_gathers(device, tmp_path):
+    """Phase 9 at 64x64, spi 2, with S9's balls at subdivisions 3 (5,122
+    triangles, a BVH): a step through K1 and K3 alone, and the Dupuy-Jakob
+    K3 gathers of a step equal to their plain version."""
+    rt = ignis_tpu_torch.loadFromString(json.dumps(chip_smoke.s9_scene(
+        tmp_path, subdivisions=3, size=64)), device=device, spi=2)
+    assert rt.scene.bvh is not None and len(rt.scene.measured) == 3
+    rt.step()
+    chip_smoke.reset_all_counts()
+    rt.step()
+    launched = chip_smoke.launches()
+    assert launched["K1"] > 0 and launched["K3_gather_rows"] > 0
+    assert launched["K2"] == 0 and chip_smoke.plain_calls() == 0
+    out = chip_smoke.phase_dj_k3(chip_smoke.record_dj_gathers(rt))
+    assert out["launches"] > 0 and out["max_abs_err"] == 0
+
+
+def test_s9_set_parameter_without_rebuild(device, tmp_path):
+    """phase 9's setParameter('tint') check at 64x64: pack_nodes and
+    render_tables calls unchanged, no rebuild, the registry's tensor
+    updated in place; tests/test_runtime_api.py's 4x ratio on the card."""
+    rt = ignis_tpu_torch.loadFromString(json.dumps(chip_smoke.s9_scene(
+        tmp_path, subdivisions=3, size=64)), device=device, spi=2)
+    rt.step()
+    out = chip_smoke.phase_tint(device, rt)
+    assert abs(out["runtime_api_ratio"] - 4.0) < 0.01
+
+
+@pytest.mark.parametrize("which", ["s9_small", "cie_clear", "sky",
+                                   "pexpr_fog"])
+def test_scene_language_on_card_matches_cpu(device, which, tmp_path):
+    """phase 9's card-vs-CPU checks at 64x64 (phase 6's bar): S9 at
+    subdivisions 1 (K2), S9 small under a CIE sky and the Hosek sky, and
+    VOL_SCENE's fog with a PExpr sigma_s."""
+    small = chip_smoke.s9_scene(tmp_path, subdivisions=1, size=64)
+    if which in ("cie_clear", "sky"):
+        small = {**small, "lights": [{"type": which, "name": "sky",
+                                      "direction": chip_smoke.S9_SUN}]}
+    if which == "pexpr_fog":
+        small = json.loads(json.dumps(chip_smoke.S1_GLASS_ICO7))
+        small["film"] = {"size": [64, 64]}
+        small["technique"] = {"type": "volpath", "max_depth": 8}
+        small["shapes"][1]["subdivisions"] = 3
+        small["media"] = [{"type": "homogeneous", "name": "fog",
+                           "sigma_a": [0.1, 0.1, 0.1],
+                           "sigma_s": chip_smoke.S9_FOG_SIGMA_S, "g": 0.2}]
+        small["entities"][1]["inner_medium"] = "fog"
+    close, rel = chip_smoke.card_vs_cpu(device, which, small)
+    assert close >= 0.99 and rel <= 0.005
+
+
+def test_bake_on_card_matches_cpu(device):
+    from ignis_tpu_torch.render.bake import bake_texture2d
+    params = {"tint": ("num", 0.6)}
+    a = bake_texture2d(chip_smoke.S9_FLOOR, 64, 32, parameters=params,
+                       device=device)
+    b = bake_texture2d(chip_smoke.S9_FLOOR, 64, 32, parameters=params,
+                       device="cpu")
+    np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)

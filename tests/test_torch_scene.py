@@ -17,6 +17,7 @@ import ignis_tpu_torch
 from ignis_tpu_torch import scenedata as sd
 from ignis_tpu_torch.bridge import from_reference
 from ignis_tpu_torch.bvh.builder import decode_leaf
+from ignis_tpu_torch.render import bake
 
 from __graft_entry__ import _SCENE
 from test_analytic import flat_scene
@@ -239,7 +240,8 @@ def test_port_stands_alone_without_jax_package(tmp_path):
     ignis_tpu/: with JAX unimportable, the port builds its own BVH builder
     (native.SOURCE lies inside the port's package), loads the
     20,480-triangle icosphere with a BVH on the CPU and renders one 16x16
-    step; nothing of ignis_tpu is loaded."""
+    step, and loads it under the Hosek sky, whose data file is the port's
+    own copy; nothing of ignis_tpu is loaded."""
     shutil.copytree(ROOT / "ignis_tpu_torch", tmp_path / "ignis_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
@@ -264,6 +266,12 @@ def test_port_stands_alone_without_jax_package(tmp_path):
         "img = rt.framebuffer(normalized=True)\n"
         "assert tuple(img.shape) == (16, 16, 3)\n"
         "assert float(img.mean()) > 0\n"
+        "scene['lights'] = [{'type': 'sky', 'name': 'sky', "
+        "'direction': [0.3, 0.8, 0.4]}]\n"
+        "sky = ignis_tpu_torch.loadFromString(json.dumps(scene), "
+        "device='cpu')\n"
+        "assert sky.warnings == [] and bool(sky.scene.envmap.present)\n"
+        "assert (pkg / 'data' / 'hosek_rgb.npz').exists()\n"
         "assert not any(m == 'ignis_tpu' or m.startswith('ignis_tpu.') "
         "for m in sys.modules)\n"
         "print('ok')\n")
@@ -297,28 +305,33 @@ def _parameters(scene):
     scene["parameters"] = {"exposure": 1.0}
 
 
-@pytest.mark.parametrize("change, item, overrides", [
-    (_with("bsdfs", 1, {"type": "tensortree", "name": "glass",
-                        "filename": "missing.xml"}), "item 16", {}),
-    (_with("bsdfs", 1, {"type": "klems", "name": "glass",
-                        "filename": "missing.xml"}), "item 16", {}),
-    (_expr_texture, "item 15", {}),
-    (_pexpr_medium, "item 15", {}),
-    (_parameters, "item 15", {}),
-    (_with("lights", 0, {"type": "perez", "name": "l"}), "item 16", {}),
+@pytest.mark.parametrize("change", [
+    _with("bsdfs", 1, {"type": "tensortree", "name": "glass",
+                       "filename": "missing.xml"}),
+    _with("bsdfs", 1, {"type": "klems", "name": "glass",
+                       "filename": "missing.xml"}),
+    _expr_texture, _pexpr_medium, _parameters,
+    _with("lights", 0, {"type": "perez", "name": "l"}),
 ], ids=["tensortree", "klems", "expr_texture", "pexpr_sigma_a",
         "scene_parameters", "perez_sky"])
-def test_off_slice_features_raise(change, item, overrides):
-    """Anything off the slice raises NotImplementedError naming its
-    ROADMAP item: measured BSDFs and sky models (16), PExpr textures,
-    PExpr-valued media and the scene's parameter registry (15). Every
-    technique and instancing are on the slice since they were ported
-    (tests/test_torch_techniques.py, tests/test_torch_instancing.py)."""
+def test_scene_language_features_load(change):
+    """What a scene file may hold of the scene language loads as in the
+    JAX package: measured BSDFs (a missing file degrades to an error row
+    with the JAX build's warning), PExpr textures, PExpr media, the
+    parameter registry and the sky models."""
     scene = json.loads(json.dumps(_SCENE))
     change(scene)
-    with pytest.raises(NotImplementedError, match=item):
-        ignis_tpu_torch.loadFromString(json.dumps(scene), device="cpu",
-                                       **overrides)
+    text = json.dumps(scene)
+    ref = ignis_tpu.loadFromString(text, spi=1)
+    own = ignis_tpu_torch.loadFromString(text, device="cpu", spi=1)
+    assert own.warnings == list(ref.warnings)
+    assert own.settings.bsdf_kinds == ref.settings.bsdf_kinds
+    assert own.settings.light_kinds == ref.settings.light_kinds
+    assert [d.kind for d in own.settings.texture_descs] == \
+        [d.kind for d in ref.settings.texture_descs]
+    assert ([e is None for e in own.settings.medium_exprs]
+            == [e is None for e in ref.settings.medium_exprs])
+    assert sorted(own.scene.registry) == sorted(ref.scene.registry)
 
 
 def test_cuda_device_raises_without_a_card():
@@ -330,10 +343,11 @@ def test_cuda_device_raises_without_a_card():
 
 @pytest.mark.parametrize("entry", ["loadFromString", "loadFromFile",
                                    "Runtime.load_from_string",
-                                   "Runtime.load_from_file"])
+                                   "Runtime.load_from_file",
+                                   "bake_texture2d", "bake_texture_average"])
 def test_entry_points_default_to_the_card(entry, tmp_path):
-    """With no `device`, every entry point asks for the CUDA card: without
-    one it raises, and never returns a runtime on the CPU."""
+    """With no `device`, every entry point (the loaders and the bakes) asks
+    for the CUDA card: without one it raises, and never runs on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     text = json.dumps(_SCENE)
@@ -345,6 +359,9 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
                 lambda: ignis_tpu_torch.Runtime.load_from_string(text),
             "Runtime.load_from_file":
                 lambda: ignis_tpu_torch.Runtime.load_from_file(scene_file),
+            "bake_texture2d": lambda: bake.bake_texture2d("uv.x", 4, 4),
+            "bake_texture_average":
+                lambda: bake.bake_texture_average("uv.x", res=4),
             }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load()

@@ -16,8 +16,8 @@ same random streams:
 - the JAX tests' oracles on the port: the light tracer and PPM against
   the path tracer (tests/test_lighttracer.py, tests/test_ppm.py), and
   tests/test_components.py's aept and check-technique oracles, whose PExpr
-  `expr` env textures (ROADMAP queue 1, item 15) are swapped for an image
-  env made with numpy and a constant env.
+  `expr` env textures are swapped for an image env made with numpy and a
+  constant env (tests/test_torch_pexpr.py holds PExpr textures).
 """
 import dataclasses
 import json

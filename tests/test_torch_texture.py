@@ -1,10 +1,11 @@
 """Textures and image IO of ignis_tpu_torch against ignis_tpu.
 
-Every non-PExpr texture kind (image under each wrap and filter,
+Every texture kind (image under each wrap and filter,
 checkerboard, brick, noise, perlin, fbm, voronoi, cellnoise, constant,
-transform) made by both packages from the same numpy inputs and
-evaluated on the same random uv, out of [0, 1] included: within rtol
-1e-5 / atol 1e-6. The image loader against the JAX package's (OpenCV):
+transform, and a PEXPR closure that reads another texture) made by
+both packages from the same numpy inputs and evaluated on the same random
+uv, out of [0, 1] included: within rtol 1e-5 / atol 1e-6 (the PEXPR one
+within rtol 1e-6). The image loader against the JAX package's (OpenCV):
 ZIP and uncompressed EXR and 8- and 16-bit PNGs in gray, gray+alpha, RGB
 and RGBA, written here; exact for EXR, within 1e-6 after the sRGB decode
 for PNG (16-bit samples scaled as the JAX loader should: it divides them
@@ -137,10 +138,30 @@ def test_transform_texture_matches_jax():
         assert (a.numpy()[~keep] == 0).all()
 
 
-def test_pexpr_raises():
-    d, a = T.make_procedural(T.TexKind.PEXPR, (0, 0, 0), (1, 1, 1))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        T.make_texture_evaluator((d,), (a,))
+def test_pexpr_texture_matches_jax():
+    """A PEXPR texture evaluated through the evaluator (kind PEXPR calls
+    desc.fn) on a bare uv, reading a second texture by name (the nested
+    lookup the evaluator gives a closure), against the JAX package."""
+    from ignis_tpu.scene.pexpr import Compiler as JC
+    from ignis_tpu_torch.scene.pexpr import Compiler as TC
+    src = "checker(uv * 2) * 0.5 + color(uv.x, fbm(uv * 3), 0.25)"
+
+    def make(lib, comp):
+        chk = lib.make_procedural(lib.TexKind.CHECKERBOARD, (0.1, 0.2, 0.3),
+                                  (0.9, 0.8, 0.7), 4.0, 4.0)
+        d, a = lib.make_procedural(lib.TexKind.PEXPR, (0, 0, 0), (1, 1, 1))
+        d = d._replace(fn=comp({"checker": 1}).compile_color(src))
+        return [d, chk[0]], [a, chk[1]]
+    (jd, ja), (td, ta) = make(JT, JC), make(T, TC)
+    u, v = _uv(8)
+    ids = np.random.RandomState(9).randint(0, 2, N).astype(np.int32)
+    jc = JT.make_texture_evaluator(tuple(jd), tuple(ja))(
+        jnp.asarray(ids), JVec2(jnp.asarray(u), jnp.asarray(v)))
+    tc = T.make_texture_evaluator(tuple(td), tuple(ta))(
+        torch.from_numpy(ids), Vec2(torch.from_numpy(u), torch.from_numpy(v)))
+    for a, b in zip(tc, jc):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-7)
 
 
 # --- image IO ----------------------------------------------------------------
