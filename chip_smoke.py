@@ -85,6 +85,19 @@ printing its own lines; any failure exits non-zero:
    step with its peak memory; card against CPU at 64x64 of S9 at
    subdivisions 1 (K2), of each CIE sky and the Hosek sky, of
    VOL_SCENE's fog with a PExpr sigma_s, and of bake_texture2d;
+10. the frontends and post-processing (`phase_frontends`): the CLI
+   (`python -m ignis_tpu_torch.cli build/s1.json --spp 8 --spi 4`) in two
+   subprocesses, its EXR bit-equal to an in-process Runtime's film and
+   its denoised PNG to the in-process denoised film's bytes, its
+   Msamples/s beside phase 5's; tonemap (7 methods), image_info, both
+   denoisers and compute_glare on S1's 512x512 film and AOVs, card
+   against CPU, timed; trace() of 262,144 pixel-centre rays of S1 at spp
+   4 (rays/s, K1 and K3 launches; its first 2,048 rays against the
+   CPU's) and acquireStats of S1 at 64x64 equal to the CPU's; a
+   checkpoint resumed bit-equal; a headless viewer on S2 (4 frames, an
+   orbit and a tonemap event, PNGs through read_png); igutil info,
+   convert and glare on the CLI's EXR; S6 loaded cold and warm through
+   the mesh cache, bit-equal;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -96,6 +109,7 @@ timings and the profiled steps to PATH.
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -2789,6 +2803,433 @@ def phase_s9(device, build_dir):
             "measured_bytes": dict(zip(kinds, mbytes)), "forward": fwd,
             "dj_k3": dj, "tint": tint, "train": train, "reference": ref}
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the frontends and post-processing
+# ---------------------------------------------------------------------------
+
+CLI_SPP = 8                       # the CLI's runs: 2 iterations of spi 4
+SUMMARY_LINE = re.compile(r"^# ([\d.]+)/([\d.]+)/([\d.]+) \(([\d.]+)/"
+                          r"([\d.]+)/([\d.]+) Msamples/s\)$", re.M)
+TRACE_RAYS = 262144               # S1's pixel centres, in a seeded order
+TRACE_CPU_RAYS = 2048             # the first of them, traced on the CPU too
+TRACE_SPP = 4
+# S1's film is dim (E_v ~40 lx, below glare.art's 100 lx floor, and its
+# brightest pixels under 5x the average): scaled 10x with a 1.5x source
+# threshold, it has a glare source and every metric
+GLARE_ARGS = {"scale": 10.0, "mul": 1.5}
+
+
+def run_cli(*args, timeout=600):
+    """`python -m ignis_tpu_torch.cli ARGS` from the checkout's root:
+    (its stdout, its wall seconds); fails on a non-zero exit."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "ignis_tpu_torch.cli",
+                          *map(str, args)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=timeout)
+    sec = time.perf_counter() - t0
+    if out.returncode != 0:
+        print(out.stderr[-4000:], file=sys.stderr)
+    check(out.returncode == 0, f"cli {' '.join(map(str, args[1:]))}: exit "
+          f"{out.returncode} in {sec:.1f} s")
+    return out.stdout, sec
+
+
+def phase_cli(device, build_dir, s1_msps):
+    """The CLI on S1 (build/s1.json) in two subprocesses: an EXR with
+    --json, and a denoised PNG. The EXR must equal, bit for bit, the film
+    of an in-process Runtime with the CLI's seed and spi (whose launches
+    a step are counted), the PNG the in-process denoised film's bytes."""
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch.utils.exr import load_exr_rgb
+    from ignis_tpu_torch.utils.image import encode_png, linear_to_srgb, \
+        read_png
+    scene_file = build_dir / "s1.json"
+    scene_file.write_text(json.dumps(S1_GLASS_ICO7))
+    exr, png = build_dir / "s1.exr", build_dir / "s1_dn.png"
+    for f in (exr, png):
+        f.unlink(missing_ok=True)
+    common = [scene_file, "--spp", CLI_SPP, "--spi", SPI]
+    out, sec = run_cli(*common, "-o", exr, "--json")
+    out_dn, sec_dn = run_cli(*common, "--denoise", "-o", png)
+    runs = {}
+    for what, text, s in (("exr", out, sec), ("denoise", out_dn, sec_dn)):
+        m = SUMMARY_LINE.search(text)
+        check(m is not None, f"cli ({what}): the '# min/med/max (... "
+              f"Msamples/s)' line")
+        v = [float(x) for x in m.groups()]
+        runs[what] = {"wall_s": s, "seconds": v[:3], "msamples_per_s": v[3:]}
+    js = json.loads(out.strip().splitlines()[-1])
+    check(js["spp"] == CLI_SPP and js["iterations"] == CLI_SPP // SPI
+          and js["device"] == "cuda:0",
+          f"cli --json: spp {js['spp']}, iterations {js['iterations']}, "
+          f"device {js['device']}")
+    check(exr.exists() and png.exists(), f"cli wrote {exr.name} and "
+          f"{png.name}")
+    rt = ignis_tpu_torch.loadFromString(json.dumps(S1_GLASS_ICO7), spi=SPI,
+                                        seed=0)
+    reset_all_counts()
+    for _ in range(CLI_SPP // SPI):
+        rt.step()
+    torch.cuda.synchronize()
+    per_step = {k: v / (CLI_SPP // SPI) for k, v in launches().items()}
+    film = rt.framebuffer(normalized=True).cpu().numpy()
+    check(np.array_equal(load_exr_rgb(exr), film),
+          "cli's EXR read back by load_exr_rgb equals the in-process film "
+          "bit for bit")
+    den = rt.denoised_framebuffer()
+    ldr = (linear_to_srgb(den) * 255.0 + 0.5).astype(np.uint8)
+    check(png.read_bytes() == encode_png(ldr)
+          and read_png(png).shape == film.shape,
+          "cli's denoised PNG equals the in-process denoised film's bytes "
+          "and decodes")
+    check(per_step["K1"] > 0 and per_step["K3_gather_rows"] > 0,
+          f"an S1 step of the CLI's runtime launches K1 and K3: {per_step}")
+    md = runs["exr"]["msamples_per_s"]
+    print(f"  cli S1 512x512, spp {CLI_SPP}, spi {SPI}: min/med/max "
+          f"{md[0]:.4f}/{md[1]:.4f}/{md[2]:.4f} Msamples/s (the first "
+          f"iteration holds the process's first launches) beside phase 5's "
+          f"{s1_msps:.4f}; subprocess walls {sec:.1f} s, {sec_dn:.1f} s "
+          f"(--denoise); launches a step {per_step}")
+    return {"runs": runs, "launches_per_step": per_step,
+            "phase5_msamples_per_s": s1_msps}
+
+
+def tonemap_close(got, want):
+    """tests/test_torch_post.py's tonemap bar."""
+    return (np.isclose(got, want, rtol=1e-5, atol=0.0).mean() >= 0.97
+            and np.allclose(got, want, rtol=1e-5, atol=3e-4))
+
+
+def glare_f64(img, cam_dir=(0.0, 0.0, 1.0), cam_up=(0.0, 1.0, 0.0),
+              fov_deg=60.0, mul=5.0):
+    """E_v and the glare source's omega of a radiance image in float64
+    numpy: an independent evaluation of glare.art's spherical excess."""
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+    h, w = img.shape[:2]
+    d = unit(np.asarray(cam_dir, np.float64))
+    r = unit(np.cross(d, np.asarray(cam_up, np.float64)))
+    u = np.cross(r, d)
+    t = math.tan(math.radians(fov_deg) / 2)
+    ys, xs = np.mgrid[0:h + 1, 0:w + 1].astype(np.float64)
+    c = unit(d + ((2 * xs / w - 1) * t)[..., None] * r
+             + ((1 - 2 * ys / h) * t * h / w)[..., None] * u)
+    r1, r2, r3, r4 = c[:-1, :-1], c[1:, :-1], c[1:, 1:], c[:-1, 1:]
+    n = [unit(np.cross(a, b - a)) for a, b in
+         ((r1, r2), (r2, r3), (r3, r4), (r4, r1))]
+    omega = sum(math.pi - np.arccos(np.clip((a * b).sum(-1), -1, 1))
+                for a, b in zip(n, n[1:] + n[:1])) - 2 * math.pi
+    cos = np.abs((unit(r1 + r2 + r3 + r4) * d).sum(-1))
+    lum = 179.0 * (0.2126 * img[..., 0] + 0.7152 * img[..., 1]
+                   + 0.0722 * img[..., 2]).astype(np.float64)
+    src = lum > mul * (lum * omega).sum() / omega.sum()
+    return float((lum * omega * cos).sum()), float(omega[src].sum())
+
+
+def phase_post(device, rt):
+    """tonemap (7 methods), image_info, both denoisers and compute_glare
+    on S1's 512x512 film and AOVs, on the card against the same calls on
+    the CPU at the CPU tests' tolerances, each timed with cuda_ms.
+    Glare's metrics are held on every 8th pixel (64x64, the CPU test's
+    size): at 512x512 the float32 solid angles leave E_v and the source's
+    omega percents apart in each package, so there the card, the CPU and
+    a float64 evaluation are printed."""
+    import torch
+    from ignis_tpu_torch.render import denoise, glare, tonemap
+    film = rt.framebuffer(normalized=True)
+    aovs = rt.render_aovs()
+    guides = [aovs[k] for k in ("Normals", "Albedo", "Depth")]
+    cpu_film, cpu_guides = film.cpu(), [g.cpu() for g in guides]
+    out = {}
+    for m in range(7):
+        got = tonemap.tonemap(film, method=m).cpu().numpy()
+        want = tonemap.tonemap(cpu_film, method=m).numpy()
+        check(tonemap_close(got, want), f"tonemap method {m}: card vs CPU "
+              f"max |diff| {np.abs(got - want).max():.2e}")
+        out[f"tonemap_{m}_ms"] = cuda_ms(
+            lambda m=m: tonemap.tonemap(film, method=m), reps=5)
+    got, want = tonemap.image_info(film), tonemap.image_info(cpu_film)
+    for f in ("inf_count", "nan_count", "neg_count", "histogram"):
+        check(torch.equal(getattr(got, f).cpu(), getattr(want, f)),
+              f"image_info {f}: card equals CPU")
+    for f in ("min", "max", "average", "soft_min", "soft_max", "median"):
+        a, b = float(getattr(got, f)), float(getattr(want, f))
+        check(math.isclose(a, b, rel_tol=1e-6, abs_tol=0.0),
+              f"image_info {f}: card {a:.7g} vs CPU {b:.7g} (rtol 1e-6)")
+    out["image_info_ms"] = cuda_ms(lambda: tonemap.image_info(film), reps=5)
+    for name, fn in (("denoise_image", denoise.denoise_image),
+                     ("denoise_image_nlm", denoise.denoise_image_nlm)):
+        got = fn(film, *guides).cpu().numpy()
+        want = fn(cpu_film, *cpu_guides).numpy()
+        err = float(np.abs(got - want).max())
+        check(np.allclose(got, want, rtol=1e-5, atol=1e-7),
+              f"{name}: card vs CPU within rtol 1e-5 (max |diff| {err:.2e})")
+        out[f"{name}_ms"] = cuda_ms(lambda fn=fn: fn(film, *guides), reps=3,
+                                    warmup=1)
+    small = film[::8, ::8].contiguous()
+    got = glare.compute_glare(small, **GLARE_ARGS)
+    want = glare.compute_glare(small.cpu(), **GLARE_ARGS)
+    check(got.source_omega > 0 and got.dgp > 0,
+          f"glare 64x64: a glare source ({got.source_omega:.3g} sr) and "
+          f"metrics")
+    for f in got._fields[:-1]:
+        a, b = getattr(got, f), getattr(want, f)
+        check(math.isclose(a, b, rel_tol=1e-3, abs_tol=1e-9),
+              f"glare 64x64 {f}: card {a:.6g} vs CPU {b:.6g} (rtol 1e-3)")
+    big_card = glare.compute_glare(film, **GLARE_ARGS)
+    big_cpu = glare.compute_glare(cpu_film, **GLARE_ARGS)
+    ev64, so64 = glare_f64(cpu_film.numpy() * GLARE_ARGS["scale"],
+                           mul=GLARE_ARGS["mul"])
+    for what, r in (("card", big_card), ("cpu", big_cpu)):
+        check(math.isfinite(r.dgp) and math.isfinite(r.vertical_illuminance),
+              f"glare 512x512 on the {what}: finite metrics")
+    spread = {"ev": [big_card.vertical_illuminance,
+                     big_cpu.vertical_illuminance, ev64],
+              "source_omega": [big_card.source_omega, big_cpu.source_omega,
+                               so64]}
+    print(f"  glare 512x512 (card, CPU, float64): E_v {spread['ev']}, "
+          f"source omega {spread['source_omega']}; DGP card {big_card.dgp:.6f}"
+          f", CPU {big_cpu.dgp:.6f}")
+    out["glare_512_spread"] = spread
+    out["compute_glare_ms"] = cuda_ms(
+        lambda: glare.compute_glare(film, **GLARE_ARGS), reps=5)
+    print("  times at 512x512 (ms, cuda_ms): " + ", ".join(
+        f"{k[:-3]} {v:.3f}" for k, v in out.items() if k.endswith("_ms")))
+    return out
+
+
+def pixel_centre_rays(rt, n, seed=29):
+    """Camera rays through the centres of n pixels of rt's film, in a
+    seeded order (so the first ones spread over the image), as an
+    [n, 8] numpy array (origin, direction, tmin, tmax)."""
+    import torch
+    from ignis_tpu_torch.models.camera import generate_rays
+    s = rt.settings
+    order = np.random.default_rng(seed).permutation(s.width * s.height)[:n]
+    idx = torch.from_numpy(order).to(rt.device)
+    half = torch.full((n,), 0.5, device=rt.device)
+    r = generate_rays(rt.scene.camera, s, idx % s.width, idx // s.width,
+                      half, half)
+    return torch.stack([*r.org, *r.dir, r.tmin, r.tmax], dim=1).cpu().numpy()
+
+
+def phase_trace_and_stats(device, s1):
+    """trace() of 262,144 pixel-centre rays of S1 at spp 4 on the card
+    (timed, K1 and K3 launches counted), its first 2,048 rays against the
+    CPU's trace of them (the same streams: ray i is keyed by i), by the
+    render-parity bar; and acquireStats of S1 at 64x64 on the card equal
+    to the CPU's."""
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch.render.session import Runtime
+    rays = pixel_centre_rays(s1, TRACE_RAYS)
+    card = Runtime(s1.scene, s1.settings)
+    card.trace(rays[:1024], spp=1)           # warm-up
+    card = Runtime(s1.scene, s1.settings)
+    torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    got = card.trace(rays, spp=TRACE_SPP)
+    sec = time.perf_counter() - t0
+    used = launches()
+    check(plain_calls() == 0 and used["K1"] > 0
+          and used["K3_gather_rows"] > 0,
+          f"trace: K1 {used['K1']}, K3 {used['K3_gather_rows']} launches, "
+          f"no plain version")
+    small = dict(S1_GLASS_ICO7, film={"size": [64, 64]})
+    cpu = ignis_tpu_torch.loadFromString(json.dumps(small), device="cpu",
+                                         spi=SPI)
+    q_cpu = cpu.acquireStats()
+    want = cpu.trace(rays[:TRACE_CPU_RAYS], spp=TRACE_SPP)
+    head = got[:TRACE_CPU_RAYS]
+    close = float(np.isclose(head, want, rtol=1e-3, atol=1e-4).all(-1)
+                  .mean())
+    rel = float(abs(head.mean() - want.mean()) / max(abs(want.mean()), 1e-9))
+    check(np.isfinite(got).all() and close >= 0.99 and rel <= 0.005,
+          f"trace on the card vs the CPU, first {TRACE_CPU_RAYS} rays: close "
+          f"{close:.4f} >= 0.99, means within 0.5% ({rel:.2e})")
+    card_small = ignis_tpu_torch.loadFromString(json.dumps(small), spi=SPI)
+    reset_all_counts()
+    q_card = card_small.acquireStats()
+    stats_launches = launches()
+    check(q_card == q_cpu, f"acquireStats of S1 at 64x64: card {q_card} "
+          f"equals the CPU's")
+    rps = TRACE_RAYS / sec
+    print(f"  trace S1 {TRACE_RAYS} rays x spp {TRACE_SPP}: {sec:.3f} s, "
+          f"{rps:.0f} rays/s ({rps * TRACE_SPP / 1e6:.4f} M ray-samples/s), "
+          f"launches {used}; acquireStats 64x64 {q_card}, launches "
+          f"{stats_launches}")
+    return {"seconds": sec, "rays_per_s": rps, "launches": used,
+            "close": close, "mean_rel_diff": rel, "stats": q_card,
+            "stats_launches": stats_launches}
+
+
+def phase_checkpoint(device, s1, build_dir):
+    """Two steps of S1, saveCheckpoint, loadCheckpoint into a fresh
+    Runtime and two more steps: the film bit-equal to four straight
+    steps."""
+    import torch
+    from ignis_tpu_torch.render.session import Runtime
+    straight = Runtime(s1.scene, s1.settings)
+    for _ in range(4):
+        straight.step()
+    first = Runtime(s1.scene, s1.settings)
+    first.step().step()
+    ck = build_dir / "s1_ckpt.npz"
+    first.saveCheckpoint(ck)
+    resumed = Runtime(s1.scene, s1.settings).loadCheckpoint(ck)
+    resumed.step().step()
+    same = torch.equal(resumed.framebuffer(), straight.framebuffer())
+    check(same and resumed.iteration_count == 4,
+          "checkpoint after 2 steps, resumed for 2: bit-equal to 4 steps")
+    return {"bit_equal": same, "bytes": ck.stat().st_size}
+
+
+def phase_viewer(device, s2, build_dir):
+    """A headless ViewerState on S2 (K2): its render loop in a worker
+    thread for at least 3 frames, an orbit event (the film resets) and a
+    tonemap event; every frame's PNG decodes through read_png."""
+    import threading
+    import torch
+    from ignis_tpu_torch import view
+    from ignis_tpu_torch.render.session import Runtime
+    from ignis_tpu_torch.utils.image import read_png
+    rt = Runtime(s2.scene, s2.settings)
+    state = view.ViewerState(rt)
+    reset_all_counts()
+    th = threading.Thread(target=state.render_loop, daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    frames, stats = [], []
+    try:
+        seq = 0
+        for step in range(4):
+            png, seq, st = state.wait_frame(seq, timeout=120)
+            frames.append(png)
+            stats.append(st)
+            with state.lock:
+                if step == 0:
+                    state.events.append({"type": "orbit", "dx": 80, "dy": 0})
+                elif step == 1:
+                    state.events.append({"type": "tonemap", "method": 1,
+                                         "exposure": 1.0})
+    finally:
+        state.running = False
+        th.join(timeout=120)
+    sec = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    used = launches()
+    check(not th.is_alive(), "viewer render thread stopped")
+    check(len(frames) == 4 and len({st["frame"] for st in stats}) == 4,
+          f"viewer: 4 frames, frame counter {[st['frame'] for st in stats]}")
+    # a frame's iteration equals its frame number until a move resets the
+    # film; the orbit, sent after the first frame read, is drained by the
+    # second frame after it at the latest
+    check(stats[-1]["iteration"] < stats[-1]["frame"],
+          f"viewer: the orbit reset the film (iterations "
+          f"{[st['iteration'] for st in stats]}, frames "
+          f"{[st['frame'] for st in stats]})")
+    check(stats[-1]["tonemap"] == "reinhard", "viewer: the tonemap event "
+          "took effect")
+    shapes = []
+    for i, png in enumerate(frames):
+        f = build_dir / f"view_{i}.png"
+        f.write_bytes(png)
+        shapes.append(read_png(f).shape)
+    size = (rt.settings.height, rt.settings.width, 3)
+    check(all(s == size for s in shapes),
+          f"viewer: every frame's PNG decodes to {size}")
+    check(used["K2"] > 0 and plain_calls() == 0,
+          f"viewer frames launch K2: {used}")
+    rendered = state.frame_seq
+    print(f"  viewer S2: {rendered} frames rendered in {sec:.2f} s, 4 read "
+          f"(iterations {[st['iteration'] for st in stats]}, Msamples/s "
+          f"{[st['msamples_per_s'] for st in stats]}), launches {used}, a "
+          f"frame {({k: v / rendered for k, v in used.items()})}")
+    return {"seconds": sec, "launches": used, "frames": len(frames),
+            "frames_rendered": rendered,
+            "stats": [{k: st[k] for k in ("iteration", "frame",
+                                          "msamples_per_s", "tonemap")}
+                      for st in stats]}
+
+
+def phase_igutil(build_dir):
+    """igutil on the CLI's build/s1.exr, on the card: info, convert EXR ->
+    PNG and EXR -> HDR -> EXR (within RGBE's precision), glare."""
+    from ignis_tpu_torch import util_cli
+    from ignis_tpu_torch.utils.exr import load_exr_rgb
+    from ignis_tpu_torch.utils.image import read_png
+    exr = build_dir / "s1.exr"
+    png, hdr, back = (build_dir / n for n in ("s1_util.png", "s1.hdr",
+                                              "s1_back.exr"))
+    for args in (["info", exr], ["convert", exr, png],
+                 ["convert", exr, hdr], ["convert", hdr, back],
+                 ["glare", exr]):
+        rc = util_cli.main([str(a) for a in args])
+        names = " ".join(p.name for p in args[1:])
+        check(rc == 0, f"util_cli {args[0]} {names}: exit {rc}")
+    src = np.maximum(load_exr_rgb(exr), 0.0)
+    err = np.abs(load_exr_rgb(back) - src)
+    check(read_png(png).shape == src.shape
+          and np.all(err <= 2.0 ** -7 * src.max(-1, keepdims=True)),
+          "util_cli: the PNG decodes, EXR -> HDR -> EXR within 2^-7 of "
+          "each pixel's largest channel")
+    return {"hdr_max_abs_err": float(err.max())}
+
+
+def phase_mesh_cache(build_dir):
+    """S6 (its 327,680-triangle PLY and its OBJ) loaded with the cache on
+    in a fresh build/cache: cold, then warm; every tensor of the warm
+    scene bit-equal to the cold one's."""
+    import shutil
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch.utils import cache
+    cdir = build_dir / "cache"
+    shutil.rmtree(cdir, ignore_errors=True)
+    text = json.dumps(s6_scene(build_dir))
+    cache.enable(cdir)
+    try:
+        times = []
+        rts = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rts.append(ignis_tpu_torch.loadFromString(text, spi=SPI))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    finally:
+        cache.disable()
+    leaves = [torch.utils._pytree.tree_leaves(r.scene) for r in rts]
+    same = len(leaves[0]) == len(leaves[1]) and all(
+        torch.equal(a, b) for a, b in zip(*leaves)
+        if isinstance(a, torch.Tensor))
+    files = sorted(p.name.split("_")[1] for p in cdir.iterdir())
+    check(same, f"mesh cache: the warm S6's {len(leaves[0])} leaves "
+          f"bit-equal to the cold one's")
+    check(files == ["bvh8", "mesh", "mesh"], f"mesh cache files {files}")
+    print(f"  mesh cache S6: cold load {times[0]:.3f} s, warm "
+          f"{times[1]:.3f} s; files {files}")
+    return {"cold_s": times[0], "warm_s": times[1]}
+
+
+def phase_frontends(device, runtimes, per_scene, build_dir):
+    """Phase 10: the CLI, post-processing, trace / acquireStats,
+    checkpoints, the viewer, igutil and the mesh cache on the card."""
+    s1, s2 = runtimes["S1_glass_ico7"], runtimes["S2_graft_entry"]
+    out = {"cli": phase_cli(device, build_dir,
+                            per_scene["S1_glass_ico7"]["msamples_per_s"])}
+    out["post"] = phase_post(device, s1)
+    out["trace"] = phase_trace_and_stats(device, s1)
+    out["checkpoint"] = phase_checkpoint(device, s1, build_dir)
+    out["viewer"] = phase_viewer(device, s2, build_dir)
+    out["igutil"] = phase_igutil(build_dir)
+    out["mesh_cache"] = phase_mesh_cache(build_dir)
+    return out
+
+
+
 def main() -> int:
     import argparse
     import torch
@@ -2912,6 +3353,10 @@ def main() -> int:
           f"({time.perf_counter() - t_start:.1f} s in)")
     s9 = phase_s9(device, ROOT / "build")
 
+    print(f"== phase 10: the frontends and post-processing "
+          f"({time.perf_counter() - t_start:.1f} s in)")
+    frontends = phase_frontends(device, runtimes, per_scene, ROOT / "build")
+
     def timed(t):
         ms, plain, bms, by = t
         return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
@@ -2972,8 +3417,8 @@ def main() -> int:
              "train": train, "sigma": sigma, "train_profile": train_profile,
              "geometry_profile": geometry_profile,
              "instancing": instancing, "techniques": techniques,
-             "techniques_reference": techniques_reference, "s9": s9},
-            indent=1))
+             "techniques_reference": techniques_reference, "s9": s9,
+             "frontends": frontends}, indent=1))
     print(json.dumps({"scenes": per_scene, "train": train, "sigma": sigma,
                       "geometry_profile_us": {
                           k: v for k, v in geometry_profile.items()
@@ -2982,6 +3427,7 @@ def main() -> int:
                       "techniques": _no_top(techniques),
                       "techniques_reference": techniques_reference}))
     print(json.dumps({"s9": _no_top(s9)}))
+    print(json.dumps({"frontends": frontends}))
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

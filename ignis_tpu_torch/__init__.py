@@ -23,7 +23,14 @@ torch version. `render_iteration` with settings.remat is differentiable
 in the scene's tensors (materials, triangle soup and attributes): closest
 hits through the fixed-winner backward kernel (ops/mt_replay.py),
 attributes through K3's scatter-add. `loss_fn` and `train_step` are the
-one-device training step. Imports torch and numpy, never JAX. CPU tests:
+one-device training step. The Runtime also traces ray lists
+(`trace`), counts rays (`acquireStats`), writes multilayer EXRs,
+denoises (render/denoise.py), tonemaps (render/tonemap.py), checkpoints,
+profiles and runs user passes; render/glare.py computes glare metrics.
+The frontends: `python -m ignis_tpu_torch.cli scene.json -o out.exr`
+(igcli), `.trace_cli` (igtrace), `.util_cli info|convert|glare|inspect`
+(igutil) and `.view` (igview, a local web page); each runs on the card
+unless `--target cpu`. Imports torch and numpy, never JAX. CPU tests:
 `JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py`; on the card,
 `python3 chip_smoke.py` and `python -m pytest tests/test_torch_cuda.py -m
 cuda`.

@@ -172,3 +172,12 @@ def saturate(c: Color, mx) -> Color:
     """Clamp each channel to [0, mx] (reference color_saturate)."""
     return Color(torch.clamp(c.r, 0.0, mx), torch.clamp(c.g, 0.0, mx),
                  torch.clamp(c.b, 0.0, mx))
+
+
+def i32_saturate(x: Tensor) -> Tensor:
+    """jnp's astype(int32) of a float tensor: truncation toward zero,
+    saturating at the int32 range with NaN -> 0 (XLA's conversion), as
+    int64 values. A plain .to(torch.int32) of NaN or inf is undefined and
+    differs between the CPU and CUDA."""
+    x = torch.where(torch.isnan(x), 0.0, torch.clamp(x, -3.0e9, 3.0e9))
+    return torch.clamp(x.to(torch.int64), -2 ** 31, 2 ** 31 - 1)

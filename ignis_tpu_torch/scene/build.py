@@ -37,7 +37,9 @@ Rows and values follow the JAX build; the triangle order differs: scenes
 with a BVH are reordered by the tri-leaf BVH8's prim_order alone (no TPU
 chunk padding or clustering, area-light triangle ids remapped alike),
 smaller scenes keep their load order, and the soup is not padded (an
-empty scene gets one degenerate triangle).
+empty scene gets one degenerate triangle). Mesh files and built BVHs go
+through the content-addressed cache (utils/cache.py), which is off
+unless it is enabled.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..bvh.builder import build_bvh8
+from ..bvh.builder import BVH8, build_bvh8
 from ..core import cdf as cdflib
 from ..core.vec import Color, Vec2, Vec3
 from ..models import texture as texlib
@@ -63,6 +65,7 @@ from ..ops.intersect import SphereSoup, TriSoup
 from ..scenedata import (CameraData, Entities, EnvMap, Lights, Materials,
                          Media, RenderSettings, SceneData, SphereAttributes,
                          TriAttributes)
+from ..utils.cache import cached_arrays, cached_mesh
 from . import mesh as meshlib
 from .parser import Scene, SceneObject
 
@@ -89,6 +92,14 @@ CONDUCTOR_SPECTRA = {
     "cu": ((0.200438, 0.924033, 1.10221), (3.91295, 2.44763, 2.14219)),
     "none": ((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),  # perfect mirror
 }
+
+
+def cached_bvh8(v0, e1, e2) -> BVH8:
+    """The soup's BVH8, through the built-BVH cache (keyed on the soup's
+    bytes) when the cache is on."""
+    return BVH8(**cached_arrays("bvh8", (v0, e1, e2),
+                                lambda: build_bvh8(v0, e1, e2)._asdict()))
+
 
 _CIE_SKIES = ("cie_uniform", "cieuniform", "cie_cloudy", "ciecloudy",
               "cie_clear", "cieclear", "cie_intermediate", "cieintermediate")
@@ -334,14 +345,22 @@ def _shape_to_mesh(obj: SceneObject,
             cov, p.get_int("theta_size", 64), p.get_int("phi_size", 128),
             p.get_number("scale", 1.0))
     elif t == "mitsuba":
-        m = meshlib.load_mts_serialized(p.path("filename"),
-                                        p.get_int("shape_index", 0))
+        si = p.get_int("shape_index", 0)
+        m = cached_mesh(p.path("filename"),
+                        lambda: meshlib.load_mts_serialized(
+                            p.path("filename"), si), f"mts{si}")
     elif t == "obj":
-        m = meshlib.load_obj(p.path("filename"), p.get_int("shape_index", -1))
+        si = p.get_int("shape_index", -1)
+        m = cached_mesh(p.path("filename"),
+                        lambda: meshlib.load_obj(p.path("filename"), si),
+                        f"obj{si}")
     elif t == "ply":
-        m = meshlib.load_ply(p.path("filename"))
+        m = cached_mesh(p.path("filename"),
+                        lambda: meshlib.load_ply(p.path("filename")), "ply")
     elif t == "external":
-        m = meshlib.load_mesh_file(p.path("filename"))
+        m = cached_mesh(p.path("filename"),
+                        lambda: meshlib.load_mesh_file(p.path("filename")),
+                        "ext")
     elif t == "inline":
         verts = np.asarray(p.get("vertices", []), np.float32).reshape(-1, 3)
         idx = np.asarray(p.get("indices", []), np.int32).reshape(-1, 3)
@@ -1243,7 +1262,7 @@ def build_scene(scene: Scene, device, overrides: Optional[dict] = None
     n_tris = len(v0)
     bvh = None
     if n_tris >= BVH_THRESHOLD:
-        b = build_bvh8(v0, e1, e2)
+        b = cached_bvh8(v0, e1, e2)
         perm = b.prim_order.astype(np.int64)
         v0, e1, e2 = v0[perm], e1[perm], e2[perm]
         nrm = [a[perm] for a in nrm]
@@ -1466,7 +1485,7 @@ def _instance_group(src: meshlib.TriMesh, recs: list, ten, soa3, soa2):
     uvs = [np.concatenate(a).astype(np.float32) for a in luv]
     bvh = None
     if len(v0) >= BVH_THRESHOLD:
-        b = build_bvh8(v0, e1, e2)
+        b = cached_bvh8(v0, e1, e2)
         perm = b.prim_order.astype(np.int64)
         v0, e1, e2 = v0[perm], e1[perm], e2[perm]
         nrm = [a[perm] for a in nrm]

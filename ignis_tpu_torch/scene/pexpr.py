@@ -27,6 +27,7 @@ from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
+from ..core.vec import i32_saturate as _i32
 from ..models.texture import ShadeCtx, _hash2, _value_noise
 
 
@@ -250,13 +251,6 @@ def _mod(x, y):
     a python number)."""
     r = torch.fmod(x, y)
     return torch.where((r != 0) & ((r < 0) != (y < 0)), r + y, r)
-
-
-def _i32(x):
-    """jnp's astype(int32): truncation toward zero, saturating at the
-    int32 range with NaN -> 0 (XLA's conversion), as int64 values."""
-    x = torch.where(torch.isnan(x), 0.0, torch.clamp(x, -3.0e9, 3.0e9))
-    return torch.clamp(x.to(torch.int64), -2 ** 31, 2 ** 31 - 1)
 
 
 def _floor_i32(x):

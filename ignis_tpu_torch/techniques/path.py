@@ -849,14 +849,26 @@ def regenerate(scene: SceneData, settings: RenderSettings, regen, state,
     return do_regen, new_sample, cam, fresh2
 
 
+def _count(stats, name, mask):
+    """Add mask's true lanes to stats[name], a device tensor (no host
+    read)."""
+    stats[name] = stats[name] + mask.sum()
+
+
 def make_bounce(scene: SceneData, settings: RenderSettings,
-                tabs: RenderTables, regen=None):
+                tabs: RenderTables, regen=None, stats=None):
     """Per-bounce wavefront step over the render's `tabs`. With `regen` =
     (x, y, iteration, frame), lanes whose path ended restart the next
-    sample of their pixel."""
+    sample of their pixel. With `stats` (a dict of device tensors, as
+    `render_lanes_stats` makes), each bounce adds its BounceRay (lanes
+    alive at its start), ShadowRay (NEE rays wanted) and CameraRay
+    (regenerated lanes) counts: ignis_tpu's collect_stats
+    (techniques/path.py:797-805)."""
     n_lights = settings.n_lights
 
     def bounce(state: PathState) -> PathState:
+        if stats is not None:
+            _count(stats, "BounceRay", state.alive)
         rays_b = Rays(state.org, state.dir, state.tmin,
                       torch.where(state.alive, state.tmax, -1.0))
         hit = trace_scene(scene, rays_b, tabs.packed, tabs.inst)
@@ -900,6 +912,8 @@ def make_bounce(scene: SceneData, settings: RenderSettings,
                 occ = occluded_scene(scene, shadow_rays, tabs.packed,
                                      tabs.inst)
                 result = _cadd_where(want & ~occ, result, contrib_nee)
+            if stats is not None:
+                _count(stats, "ShadowRay", want)
 
         # ---- bounce ----------------------------------------------------
         rng, (b_pick, b0, b1, b2, b_rr) = rnglib.next_f32_n(rng, 5)
@@ -932,6 +946,8 @@ def make_bounce(scene: SceneData, settings: RenderSettings,
 
         do_regen, new_sample, cam, fresh2 = regenerate(scene, settings,
                                                        regen, state, cont)
+        if stats is not None:
+            _count(stats, "CameraRay", do_regen)
         return PathState(
             org=vselect(do_regen, cam.org, new_state.org),
             dir=vselect(do_regen, cam.dir, new_state.dir),
@@ -981,6 +997,50 @@ def technique_fns(settings: RenderSettings):
         from .volpath import make_vol_bounce, vol_initial_state
         return vol_initial_state, make_vol_bounce
     return initial_state, make_bounce
+
+
+def trace_rays(scene: SceneData, settings: RenderSettings, rays: Rays,
+               rng_state, tabs: RenderTables) -> Color:
+    """The rays traced to completion by the settings' technique (path or
+    volpath), without regeneration: ignis_tpu's path_trace and
+    volpath_trace (techniques/path.py:1109, volpath.py:325). Bounces run
+    until no lane is alive or max_depth is reached (one host read of the
+    alive flags a bounce); returns the per-ray radiance."""
+    initial, make = technique_fns(settings)
+    st = initial(rays, rng_state)
+    bounce = make(scene, settings, tabs)
+    b = 0
+    while b < settings.max_depth and bool(st.alive.any()):
+        st = bounce(st)
+        b += 1
+    return st.result
+
+
+STAT_NAMES = ("BounceRay", "ShadowRay", "CameraRay")
+
+
+def render_lanes_stats(scene: SceneData, settings: RenderSettings, x, y,
+                       iteration: int, frame: int):
+    """One instrumented iteration of the path technique without compaction
+    (ignis_tpu's path_trace_progressive_stats, techniques/path.py:855):
+    (per-lane radiance summed over the samples, quantities). The
+    quantities count BounceRay, ShadowRay and CameraRay lanes (CameraRay
+    from the first samples' n on) as device tensors, read once at the
+    end, and the wavefront iterations (Iteration)."""
+    n = x.shape[0]
+    tabs = render_tables(scene, settings)
+    st = start_state(scene, settings, x, y, iteration, frame)
+    stats = {name: torch.zeros((), dtype=torch.int64, device=x.device)
+             for name in STAT_NAMES}
+    stats["CameraRay"] = stats["CameraRay"] + n
+    bounce = make_bounce(scene, settings, tabs, (x, y, iteration, frame),
+                         stats)
+    it = 0
+    while it < settings.spi * settings.max_depth and bool(st.alive.any()):
+        st = bounce(st)
+        it += 1
+    counts = torch.stack([stats[name] for name in STAT_NAMES]).tolist()
+    return st.result, {**dict(zip(STAT_NAMES, counts)), "Iteration": it}
 
 
 def bucket_chain(n: int, min_bucket: int):

@@ -1,12 +1,17 @@
-"""Image IO without OpenCV or PIL: EXR (utils/exr.py) and PNG read, EXR
-write.
+"""Image IO without OpenCV or PIL: EXR, Radiance HDR and PNG, read and
+written.
 
-The port's counterpart of ignis_tpu/utils/image.py, which reads through
+The port's counterpart of ignis_tpu/utils/image.py, which goes through
 OpenCV. Here PNG is decoded with numpy and zlib (8 or 16 bits, gray, gray
-with alpha, RGB or RGBA, non-interlaced, the five row filters) and EXR by
-the port's own reader; any other format raises. LDR input is sRGB-decoded
-to linear unless `linear`; EXR is linear. Images come back as float32
-[h, w, 3] RGB with row 0 at the top.
+with alpha, RGB or RGBA, non-interlaced, the five row filters) and
+encoded as 8-bit RGB with filter 0 (`encode_png`); EXR is read by the
+port's own reader and written as scanline ZIP (`_write_exr_channels`,
+also `write_exr_multilayer`'s layers and ig* attributes); Radiance .hdr
+is read with flat or run-length-encoded scanlines and written flat, in
+the RGBE rounding of the rgbe.c that OpenCV uses. JPEG, BMP and TGA are
+not ported. LDR input is sRGB-decoded to linear unless `linear`; EXR and
+HDR are linear; LDR output is sRGB-encoded with +0.5 rounding, as the
+JAX writer's. Images are float32 [h, w, 3] RGB with row 0 at the top.
 """
 from __future__ import annotations
 
@@ -24,6 +29,18 @@ def srgb_to_linear(x: np.ndarray) -> np.ndarray:
     return np.where(x <= 0.04045, x / 12.92, ((x + 0.055) / 1.055) ** 2.4)
 
 
+def linear_to_srgb(x: np.ndarray) -> np.ndarray:
+    x = np.clip(x, 0.0, 1.0)
+    return np.where(x <= 0.0031308, x * 12.92, 1.055 * x ** (1 / 2.4) - 0.055)
+
+
+def _unsupported(path: Path, what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"image format '{path.suffix.lower()}' ({path.name}) is not ported: "
+        f"the port {what} EXR, HDR and PNG (JPEG, BMP and TGA need codecs "
+        "of their own; ROADMAP queue 1, item 17)")
+
+
 def load_image(path, linear: bool = False) -> np.ndarray:
     """Linear float32 [h, w, 3] RGB. `linear` skips the sRGB decode of LDR
     data images (normal maps; ImagePattern's 'linear' flag)."""
@@ -32,14 +49,124 @@ def load_image(path, linear: bool = False) -> np.ndarray:
     if suffix == ".exr":
         from .exr import load_exr_rgb
         return np.ascontiguousarray(load_exr_rgb(path), np.float32)
+    if suffix == ".hdr":
+        return read_hdr(path)
     if suffix == ".png":
         img = read_png(path)
         if not linear:
             img = srgb_to_linear(img)
         return np.ascontiguousarray(img, np.float32)
-    raise NotImplementedError(
-        f"image format '{suffix}' ({path.name}) is not ported yet: the port "
-        "reads EXR and PNG (ROADMAP queue 1, item 17)")
+    raise _unsupported(path, "reads")
+
+
+def save_image(path, img):
+    """Save linear float32 [h, w, 3] RGB: EXR (ZIP) and HDR keep it
+    linear, PNG is 8-bit sRGB."""
+    path = Path(path)
+    img = np.asarray(img, np.float32)
+    suffix = path.suffix.lower()
+    if suffix == ".exr":
+        _write_exr_fallback(path, img)
+    elif suffix == ".hdr":
+        write_hdr(path, img)
+    elif suffix == ".png":
+        ldr = (linear_to_srgb(img) * 255.0 + 0.5).astype(np.uint8)
+        path.write_bytes(encode_png(ldr))
+    else:
+        raise _unsupported(path, "writes")
+
+
+def _png_chunk(ctype: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + ctype + body
+            + struct.pack(">I", zlib.crc32(ctype + body) & 0xFFFFFFFF))
+
+
+def encode_png(rgb) -> bytes:
+    """An 8-bit RGB PNG of uint8 [h, w, 3] (filter 0 on every row)."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_png: expected [h, w, 3], got {rgb.shape}")
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           rgb.reshape(h, w * 3)], axis=1)
+    return (_PNG_MAGIC
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
+                                              0))
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+            + _png_chunk(b"IEND", b""))
+
+
+def _rgbe(img: np.ndarray) -> np.ndarray:
+    """float32 [h, w, 3] -> uint8 [h, w, 4] RGBE (rgbe.c's float2rgbe:
+    mantissas truncated after scaling by 256 / max)."""
+    img = np.maximum(np.asarray(img, np.float32), 0.0)
+    v = img.max(axis=-1)
+    m, e = np.frexp(v)
+    ok = v >= 1e-32
+    scale = np.where(ok, m * 256.0 / np.where(ok, v, 1.0), 0.0)
+    out = np.zeros(img.shape[:2] + (4,), np.uint8)
+    out[..., :3] = (img * scale[..., None].astype(np.float32)).astype(
+        np.uint8)
+    out[..., 3] = np.where(ok, e + 128, 0).astype(np.uint8)
+    return out
+
+
+def write_hdr(path, img):
+    """Radiance RGBE file, flat scanlines, row 0 at the top."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape[:2]
+    head = (f"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y {h} +X {w}\n"
+            ).encode()
+    Path(path).write_bytes(head + _rgbe(img[..., :3]).tobytes())
+
+
+def _rle_scanline(data: bytes, pos: int, w: int):
+    """One run-length-encoded RGBE scanline at data[pos:] -> ([w, 4], end)."""
+    line = np.empty((4, w), np.uint8)
+    for c in range(4):
+        x = 0
+        while x < w:
+            n = data[pos]
+            run = n > 128           # n - 128 copies of one byte
+            n = n - 128 if run else n   # else n literal bytes
+            if n == 0 or x + n > w:
+                raise ValueError("HDR: bad scanline run")
+            if run:
+                line[c, x:x + n] = data[pos + 1]
+                pos += 2
+            else:
+                line[c, x:x + n] = np.frombuffer(data, np.uint8, n, pos + 1)
+                pos += 1 + n
+            x += n
+    return line.T, pos
+
+
+def read_hdr(path) -> np.ndarray:
+    """A Radiance .hdr file (flat or RLE scanlines, -Y h +X w) as float32
+    [h, w, 3] (rgbe.c's rgbe2float: m * 2^(e - 136))."""
+    data = Path(path).read_bytes()
+    if not data.startswith(b"#?"):
+        raise ValueError(f"{path}: not a Radiance HDR file")
+    pos = data.index(b"\n\n") + 2
+    end = data.index(b"\n", pos)
+    dims = data[pos:end].split()
+    pos = end + 1
+    if len(dims) != 4 or dims[0] != b"-Y" or dims[2] != b"+X":
+        raise NotImplementedError(
+            f"{path}: HDR orientation {data[pos:end]!r} is not ported "
+            "(only -Y h +X w)")
+    h, w = int(dims[1]), int(dims[3])
+    rgbe = np.empty((h, w, 4), np.uint8)
+    for y in range(h):
+        if (8 <= w < 0x8000 and data[pos] == 2 and data[pos + 1] == 2
+                and (data[pos + 2] << 8 | data[pos + 3]) == w):
+            rgbe[y], pos = _rle_scanline(data, pos + 4, w)
+        else:
+            rgbe[y] = np.frombuffer(data, np.uint8, w * 4, pos).reshape(w, 4)
+            pos += w * 4
+    e = rgbe[..., 3].astype(np.int32)
+    f = np.where(e > 0, np.ldexp(np.float32(1.0), e - 136), 0.0)
+    return np.ascontiguousarray(rgbe[..., :3] * f[..., None], np.float32)
 
 
 def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -115,6 +242,44 @@ def read_png(path) -> np.ndarray:
     return np.ascontiguousarray(img[..., :3])
 
 
+def write_exr_multilayer(path, layers, metadata=None):
+    """Scanline ZIP EXR with several RGB layers and ig* attributes (as the
+    JAX writer's: the default layer's channels R/G/B, an AOV layer's
+    Name.R/Name.G/Name.B, sorted).
+
+    layers: dict name -> [h, w, 3] or [h, w] float array ("" = default)
+    metadata: dict name -> str | int | float | (x, y, z)
+    """
+    first = next(iter(layers.values()))
+    h, w = first.shape[0], first.shape[1]
+    channels = []
+    for lname, img in layers.items():
+        img = np.asarray(img, np.float32)
+        if img.ndim == 2:
+            img = np.stack([img] * 3, axis=-1)
+        prefix = f"{lname}." if lname else ""
+        channels += [(prefix + "B", img[..., 2]), (prefix + "G", img[..., 1]),
+                     (prefix + "R", img[..., 0])]
+    channels.sort(key=lambda c: c[0])  # EXR requires sorted channel names
+    meta_attrs = b""
+    for name, value in (metadata or {}).items():
+        if isinstance(value, str):
+            meta_attrs += _attr(name, "string", value.encode())
+        elif isinstance(value, (bool, int, np.integer)):
+            meta_attrs += _attr(name, "int", struct.pack("<i", int(value)))
+        elif isinstance(value, (float, np.floating)):
+            meta_attrs += _attr(name, "float", struct.pack("<f", float(value)))
+        elif isinstance(value, (tuple, list, np.ndarray)) and len(value) == 3:
+            meta_attrs += _attr(name, "v3f", struct.pack(
+                "<fff", *[float(x) for x in value]))
+    _write_exr_channels(path, w, h, channels, meta_attrs)
+
+
+def _attr(name, type_, data):
+    return (name.encode() + b"\0" + type_.encode() + b"\0"
+            + struct.pack("<I", len(data)) + data)
+
+
 def _write_exr_fallback(path, img: np.ndarray):
     """Scanline ZIP-compressed EXR writer, float32 RGB (as the JAX
     package's)."""
@@ -125,25 +290,20 @@ def _write_exr_fallback(path, img: np.ndarray):
 
 
 def _write_exr_channels(path, w, h, channels, extra_attrs):
-
-    def attr(name, type_, data):
-        return (name.encode() + b"\0" + type_.encode() + b"\0"
-                + struct.pack("<I", len(data)) + data)
-
     chlist = b""
     for name, _ in channels:
         chlist += name.encode() + b"\0" + struct.pack("<iiii", 2, 0, 1, 1)
     chlist += b"\0"
-    header = (attr("channels", "chlist", chlist)
-              + attr("compression", "compression", bytes([3]))  # ZIP
-              + attr("dataWindow", "box2i",
+    header = (_attr("channels", "chlist", chlist)
+              + _attr("compression", "compression", bytes([3]))  # ZIP
+              + _attr("dataWindow", "box2i",
                      struct.pack("<iiii", 0, 0, w - 1, h - 1))
-              + attr("displayWindow", "box2i",
+              + _attr("displayWindow", "box2i",
                      struct.pack("<iiii", 0, 0, w - 1, h - 1))
-              + attr("lineOrder", "lineOrder", bytes([0]))
-              + attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
-              + attr("screenWindowCenter", "v2f", struct.pack("<ff", 0, 0))
-              + attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
+              + _attr("lineOrder", "lineOrder", bytes([0]))
+              + _attr("pixelAspectRatio", "float", struct.pack("<f", 1.0))
+              + _attr("screenWindowCenter", "v2f", struct.pack("<ff", 0, 0))
+              + _attr("screenWindowWidth", "float", struct.pack("<f", 1.0))
               + extra_attrs + b"\0")
 
     # ZIP compression groups 16 scanlines a block

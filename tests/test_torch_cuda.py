@@ -14,7 +14,10 @@ and its gradient on the card against the CPU, instanced renders against
 flattened ones, every other technique on the card against the CPU, and
 the scene-language slice (S9's launches and Dupuy-Jakob K3 gathers,
 setParameter without a rebuild, skies, a PExpr medium and the bake on the
-card against the CPU). They skip without a card. The file imports no JAX, so it runs on the
+card against the CPU), and the frontends of phase 10 (the CLI against an
+in-process film, post-processing, trace() and acquireStats against the
+CPU, a checkpoint resume, the headless viewer, igutil and the mesh
+cache). They skip without a card. The file imports no JAX, so it runs on the
 card's machine: `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 import json
 
@@ -422,3 +425,63 @@ def test_bake_on_card_matches_cpu(device):
     b = bake_texture2d(chip_smoke.S9_FLOOR, 64, 32, parameters=params,
                        device="cpu")
     np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+
+
+def _s1(device, size):
+    return ignis_tpu_torch.loadFromString(json.dumps(
+        {**chip_smoke.S1_GLASS_ICO7, "film": {"size": [size, size]}}),
+        device=device, spi=chip_smoke.SPI)
+
+
+def test_cli_on_card_matches_in_process(device, tmp_path):
+    """Phase 10's CLI runs on S1: exit 0, the summary and JSON lines, the
+    EXR bit-equal to the in-process film, the denoised PNG's bytes."""
+    out = chip_smoke.phase_cli(device, tmp_path, 0.0)
+    assert out["launches_per_step"]["K1"] > 0
+    assert len(out["runs"]["exr"]["msamples_per_s"]) == 3
+
+
+def test_post_processing_on_card_matches_cpu(device):
+    """Phase 10's tonemap, image_info, denoisers and glare on S1's film
+    and AOVs at 512x512 (the 64x64 glare image, every 8th pixel, needs
+    that film for a glare source), card against CPU."""
+    rt = _s1(device, 512)
+    rt.step()
+    out = chip_smoke.phase_post(device, rt)
+    assert all(v > 0 for k, v in out.items() if k.endswith("_ms"))
+
+
+def test_trace_and_stats_on_card_match_cpu(device):
+    """Phase 10's trace() of S1's 262,144 pixel-centre rays (the first
+    2,048 against the CPU's) and acquireStats at 64x64 against the CPU."""
+    out = chip_smoke.phase_trace_and_stats(device, _s1(device, 512))
+    assert out["launches"]["K1"] > 0 and out["stats"]["Iteration"] > 0
+
+
+def test_checkpoint_on_card_is_bit_equal(device, tmp_path):
+    assert chip_smoke.phase_checkpoint(device, _s1(device, 64),
+                                       tmp_path)["bit_equal"]
+
+
+def test_viewer_on_card(device, tmp_path):
+    """Phase 10's headless viewer on S2 at 64x64 (K2)."""
+    rt = ignis_tpu_torch.loadFromString(json.dumps(
+        {**chip_smoke.S2_GRAFT_ENTRY, "film": {"size": [64, 64]}}),
+        device=device, spi=chip_smoke.SPI)
+    out = chip_smoke.phase_viewer(device, rt, tmp_path)
+    assert out["frames"] == 4 and out["launches"]["K2"] > 0
+
+
+def test_igutil_on_card(device, tmp_path):
+    """Phase 10's igutil calls on an EXR of S1's film at 64x64."""
+    from ignis_tpu_torch.utils.image import save_image
+    rt = _s1(device, 64)
+    rt.step()
+    save_image(tmp_path / "s1.exr", rt.framebuffer(normalized=True).cpu())
+    assert chip_smoke.phase_igutil(tmp_path)["hdr_max_abs_err"] >= 0
+
+
+def test_mesh_cache_on_card(device, tmp_path):
+    """Phase 10's cold and warm S6 loads through the mesh cache."""
+    out = chip_smoke.phase_mesh_cache(tmp_path)
+    assert out["cold_s"] > 0 and out["warm_s"] > 0

@@ -274,6 +274,8 @@ def test_port_stands_alone_without_jax_package(tmp_path):
         "assert (pkg / 'data' / 'hosek_rgb.npz').exists()\n"
         "assert not any(m == 'ignis_tpu' or m.startswith('ignis_tpu.') "
         "for m in sys.modules)\n"
+        "from ignis_tpu_torch.utils.image import save_image\n"
+        "save_image('img.exr', img.numpy())\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          capture_output=True, text=True, timeout=300)
@@ -281,6 +283,19 @@ def test_port_stands_alone_without_jax_package(tmp_path):
     assert out.stdout.strip() == "ok"
     assert list((tmp_path / "build" / "ignis_tpu_torch").glob(
         "bvh_builder_*.so"))
+    # the frontends in the same copy: the CLI's help, igutil info on the
+    # EXR just written, with JAX and ignis_tpu unimportable
+    guard = ("import sys, runpy; sys.modules['jax'] = None; "
+             "sys.modules['ignis_tpu'] = None; sys.argv = sys.argv[1:]; "
+             "runpy.run_module(sys.argv[0], run_name='__main__')")
+    for argv, want in ((["ignis_tpu_torch.cli", "--help"], "--target"),
+                       (["ignis_tpu_torch.util_cli", "info", "img.exr",
+                         "--target", "cpu"], "size: 16x16")):
+        out = subprocess.run([sys.executable, "-c", guard, *argv],
+                             cwd=tmp_path, capture_output=True, text=True,
+                             timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert want in out.stdout
 
 
 def _with(key, i, obj):
@@ -344,15 +359,40 @@ def test_cuda_device_raises_without_a_card():
 @pytest.mark.parametrize("entry", ["loadFromString", "loadFromFile",
                                    "Runtime.load_from_string",
                                    "Runtime.load_from_file",
-                                   "bake_texture2d", "bake_texture_average"])
-def test_entry_points_default_to_the_card(entry, tmp_path):
-    """With no `device`, every entry point (the loaders and the bakes) asks
-    for the CUDA card: without one it raises, and never runs on the CPU."""
+                                   "bake_texture2d", "bake_texture_average",
+                                   "ViewerState", "cli", "trace_cli",
+                                   "util_cli", "view"])
+def test_entry_points_default_to_the_card(entry, tmp_path, capsys):
+    """With no `device`, every entry point (the loaders, the bakes and a
+    ViewerState's runtime) asks for the CUDA card: without one it raises,
+    and never runs on the CPU. The frontends without --target exit 2 with
+    a message and write nothing."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
+    from ignis_tpu_torch import cli, trace_cli, util_cli, view
     text = json.dumps(_SCENE)
     scene_file = tmp_path / "scene.json"
     scene_file.write_text(text)
+    rays = tmp_path / "rays.txt"
+    rays.write_text("0 0 -2 0 0 1\n")
+    image = tmp_path / "img.exr"
+    from ignis_tpu_torch.utils.image import save_image
+    save_image(image, np.ones((4, 4, 3), np.float32))
+    frontends = {
+        "cli": lambda: cli.main([str(scene_file), "-o",
+                                 str(tmp_path / "out.exr")]),
+        "trace_cli": lambda: trace_cli.main([str(scene_file), "-i",
+                                             str(rays), "-o",
+                                             str(tmp_path / "out.txt")]),
+        "util_cli": lambda: util_cli.main(["info", str(image)]),
+        "view": lambda: view.main([str(scene_file), "--term"]),
+    }
+    if entry in frontends:
+        assert frontends[entry]() == 2
+        assert "needs a CUDA device" in capsys.readouterr().err
+        assert sorted(p.name for p in tmp_path.iterdir()) == \
+            ["img.exr", "rays.txt", "scene.json"]
+        return
     load = {"loadFromString": lambda: ignis_tpu_torch.loadFromString(text),
             "loadFromFile": lambda: ignis_tpu_torch.loadFromFile(scene_file),
             "Runtime.load_from_string":
@@ -362,6 +402,9 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
             "bake_texture2d": lambda: bake.bake_texture2d("uv.x", 4, 4),
             "bake_texture_average":
                 lambda: bake.bake_texture_average("uv.x", res=4),
+            "ViewerState":
+                lambda: view.ViewerState(ignis_tpu_torch.loadFromFile(
+                    scene_file)),
             }[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load()
