@@ -64,7 +64,10 @@ printing its own lines; any failure exits non-zero:
 8. instancing and the other techniques: S7 (`S7_SCENE`, 1,024 instances
    of one 5,120-triangle icosphere through loadFromString(instancing=
    True): the groups' bytes on the card, forward steps with launches and
-   host syncs a step and a profiled step, one albedo train step), the
+   host syncs a step and a profiled step, one albedo train step, one
+   geometry-gradient step w.r.t. the shared soup and w2l with its MT
+   replay launches, time and peak memory), the instanced geometry
+   gradient of _grid_scene(8) on the card against the CPU's, the
    instanced render against the flattened one on _grid_scene(8) with the
    local soup through K1 and through K2; ao, debug, wireframe,
    lightvisibility, camera_check and env_check on S1's arrays, aept on
@@ -98,6 +101,16 @@ printing its own lines; any failure exits non-zero:
    orbit and a tonemap event, PNGs through read_png); igutil info,
    convert and glare on the CLI's EXR; S6 loaded cold and warm through
    the mesh cache, bit-equal;
+11. the multi-GPU layer (`phase_multi_gpu`, on S1): a one-rank NCCL group
+   from parallel/distributed.initialize, its render_distributed film
+   bit-equal to Runtime.step()'s and its train_step_distributed within
+   rtol 1e-5 of train_step, each timed (Msamples/s beside phase 5's S1,
+   launches, host syncs); a one-process mesh of 4 shards on the card,
+   render_iteration_sharded bit-equal to the uncompacted render and
+   render_iteration_sharded_compact within rtol 2e-4 / atol 2e-5 of
+   step()'s film, each timed with its host syncs; S1's scene under ao
+   sharded over the same mesh, bit-equal to render_iteration's film;
+   scaling_report's world-size-1 line;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -1849,22 +1862,32 @@ def phase_geometry_profile(device, rt):
     time in it, beside K1's and K3's."""
     import torch
     from ignis_tpu_torch import loss_fn
-    from ignis_tpu_torch.render.profile import profile_step
     s = rt.settings
     target = torch.zeros((s.height, s.width, 3), device=device)
-    names = {"MT": "mt_replay_bwd_kernel", "K1": "bvh_walk_kernel",
-             "K3": "gather_rows_kernel", "K3s": "scatter_add_rows_kernel"}
 
     def step():
         scene, leaves = geometry_leaves(rt.scene)
         loss = loss_fn({"base": scene.materials.base}, scene, s, target, 0, 0)
         torch.autograd.grad(loss, leaves)
-    p = profile_step(step, names)
-    print(f"  profiled geometry-gradient step {p['wall_s']:.4f} s, device "
-          f"ops {p['device_ops']}, device busy {p['device_busy_us']:.1f} us "
-          f"(share {p['busy_share']:.4f}), "
-          + ", ".join(f"{k} {p[k + '_us']:.1f} us" for k in names))
-    check(p["MT_us"] > 0, "the MT replay ran in the profiled step")
+    return profile_geometry_step("profiled geometry-gradient step", step)
+
+
+GEOMETRY_PROFILE_NAMES = {"MT": "mt_replay_bwd_kernel",
+                          "K1": "bvh_walk_kernel", "K3": "gather_rows_kernel",
+                          "K3s": "scatter_add_rows_kernel"}
+
+
+def profile_geometry_step(what, step):
+    """One call of `step` (a geometry-gradient step) under torch.profiler:
+    the MT replay's summed device time in it, beside K1's and K3's."""
+    from ignis_tpu_torch.render.profile import profile_step
+    p = profile_step(step, GEOMETRY_PROFILE_NAMES)
+    print(f"  {what} {p['wall_s']:.4f} s, device ops {p['device_ops']}, "
+          f"device busy {p['device_busy_us']:.1f} us (share "
+          f"{p['busy_share']:.4f}), "
+          + ", ".join(f"{k} {p[k + '_us']:.1f} us"
+                      for k in GEOMETRY_PROFILE_NAMES))
+    check(p["MT_us"] > 0, f"{what}: the MT replay ran")
     return p
 
 
@@ -2403,14 +2426,113 @@ def phase_instanced(device):
           and used["K3_scatter_add_rows"] > 0 and used["MT_replay_bwd"] == 0
           and plain_calls() == 0,
           f"{S7_NAME}: train step finite through K1 and K3's scatter, no MT "
-          f"replay (instanced geometry held fixed), no plain version")
+          f"replay (no ray follows the albedo), no plain version")
     out["train"] = {"msamples_per_s": msps, "seconds": sec,
                     "peak_gib": peak, "launches": used, "host_syncs": syncs}
+    out["geometry"] = instanced_geometry_step(device, rt)
     del rt
+    out["geometry_card_vs_cpu"] = instanced_geometry_card_vs_cpu(device)
 
     out["flattened"] = {sub: instanced_against_flattened(sub)
                         for sub in (4, 2)}
     return out
+
+
+def instanced_geometry_grad(rt):
+    """(loss, gradients) of mean(image^2) at iteration 0 w.r.t. the shared
+    local soup (v0, e1, e2: 9 arrays) and w2l of rt's one instanced group,
+    through the differentiable cascade (remat)."""
+    import torch
+    from ignis_tpu_torch.core.vec import Vec3
+    from ignis_tpu_torch.ops.intersect import TriSoup
+    from ignis_tpu_torch.render.session import render_iteration
+    (geo,) = rt.scene.instances
+    soup = TriSoup(*[Vec3(*[c.detach().clone().requires_grad_() for c in v])
+                     for v in geo.soup])
+    w2l = geo.w2l.detach().clone().requires_grad_()
+    scene = rt.scene._replace(instances=(geo._replace(soup=soup, w2l=w2l),))
+    img = render_iteration(scene, dataclasses.replace(rt.settings,
+                                                      remat=True), 0, 0)
+    loss = torch.mean(img ** 2)
+    leaves = [c for v in soup for c in v] + [w2l]
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def instanced_geometry_step(device, rt):
+    """One S7 geometry-gradient step after a warm-up: the loss of
+    phase_train (black target) w.r.t. the shared local soup and the 1,024
+    w2l transforms, through each instanced closest hit's fixed-winner
+    replay (the MT replay kernel) and K3's scatter-add into the group's
+    attribute and transform tables; launches, host syncs, time and peak
+    memory; then one more step under torch.profiler."""
+    import torch
+    instanced_geometry_grad(rt)                        # warm-up
+    torch.cuda.synchronize()
+    reset_all_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    (loss, grads), syncs = count_syncs(lambda: instanced_geometry_grad(rt))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    used = launches()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    s = rt.settings
+    msps = s.width * s.height * s.spi / sec / 1e6
+    soup_g = torch.stack(grads[:9])
+    print(f"  {S7_NAME}: geometry gradient step (soup and w2l) "
+          f"{msps:.4f} Msamples/s fwd+bwd ({sec:.4f} s), peak memory "
+          f"{peak:.3f} GiB, loss {float(loss):.6f}, launches {used}, host "
+          f"syncs {syncs}, max |d soup| {float(soup_g.abs().max()):.6g}, "
+          f"max |d w2l| {float(grads[9].abs().max()):.6g}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads)
+          and bool((soup_g != 0).any()) and bool((grads[9] != 0).any()),
+          f"{S7_NAME}: geometry gradient finite, nonzero on the soup and "
+          f"on w2l")
+    check(used["MT_replay_bwd"] > 0 and used["K1"] > 0
+          and used["K3_scatter_add_rows"] > 0 and plain_calls() == 0,
+          f"{S7_NAME}: the geometry step launches the MT replay "
+          f"({used['MT_replay_bwd']}), K1 and K3's scatter, no plain "
+          f"version")
+    profile = profile_geometry_step(f"{S7_NAME}: profiled geometry step",
+                                    lambda: instanced_geometry_grad(rt))
+    return {"msamples_per_s": msps, "seconds": sec, "peak_gib": peak,
+            "loss": float(loss), "launches": used, "host_syncs": syncs,
+            "profile": profile}
+
+
+def instanced_geometry_card_vs_cpu(device):
+    """_grid_scene(8) (64 instances of a 320-triangle icosphere, the local
+    soup through K2) at 64x64, spi 1: its instanced geometry gradient
+    (soup and w2l) on the card against the CPU's, within rtol 1e-3 plus
+    1e-3 of each array's largest entry (float sums in other orders; the
+    replay's soup sums are atomic on the card)."""
+    import ignis_tpu_torch
+    doc = json.dumps(grid_scene(8, size=64))
+    grads = {}
+    for dev in (device, "cpu"):
+        rt = ignis_tpu_torch.loadFromString(doc, device=dev, spi=1,
+                                            instancing=True)
+        reset_all_counts()
+        grads[str(dev)] = [g.cpu().numpy()
+                           for g in instanced_geometry_grad(rt)[1]]
+        if dev == device:
+            used = launches()
+    gpu, cpu = grads[str(device)], grads["cpu"]
+    errs = [float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+            for a, b in zip(gpu, cpu)]
+    print(f"  grid_scene(8) 64x64 instanced geometry gradient, card against "
+          f"CPU: largest difference over each array's largest entry "
+          f"{max(errs):.3g} (soup {max(errs[:9]):.3g}, w2l {errs[9]:.3g}); "
+          f"card launches {used}")
+    check(all(np.isfinite(a).all() and np.abs(b).max() > 0
+              and np.allclose(a, b, rtol=1e-3,
+                              atol=1e-3 * np.abs(b).max())
+              for a, b in zip(gpu, cpu)),
+          "grid_scene(8): instanced geometry gradient on the card within "
+          "rtol 1e-3 (+1e-3 of the largest entry) of the CPU's")
+    check(used["MT_replay_bwd"] > 0 and used["K2"] > 0,
+          "grid_scene(8): the card's gradient through K2 and the MT replay")
+    return {"rel_err": errs, "launches": used}
 
 
 def instanced_against_flattened(subdivisions, size=512):
@@ -3230,6 +3352,142 @@ def phase_frontends(device, runtimes, per_scene, build_dir):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the multi-GPU layer
+# ---------------------------------------------------------------------------
+
+SHARDS = 4            # the one-process mesh's shards, all on the card
+
+
+def timed_call(fn):
+    """(fn()'s result, seconds, host syncs, launches, plain calls) after
+    a warm-up call, counts reset just before the timed call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out, syncs = count_syncs(fn)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, syncs, launches(), plain_calls()
+
+
+def phase_multi_gpu(device, s1, s1_msps, smi):
+    """Phase 11: parallel/distributed.py and parallel/mesh.py on S1.
+
+    A one-rank NCCL group (`initialize` at a free localhost port): the
+    film of `render_distributed` against Runtime.step()'s bit for bit, and
+    `train_step_distributed` against `train_step` (loss and new albedo
+    within rtol 1e-5), each timed after a warm-up with its launches (K1
+    and K3, no plain version) and host syncs. Then, the group destroyed,
+    a one-process mesh of SHARDS shards on the card:
+    `render_iteration_sharded` against the uncompacted render_lanes film
+    bit for bit, `render_iteration_sharded_compact` against step()'s film
+    within rtol 2e-4 / atol 2e-5 (tests/test_parallel.py:143), both timed
+    with their host syncs; S1's scene under ao through
+    `render_iteration_sharded` against render_iteration bit for bit (the
+    shards dispatch by technique); and scaling_report's line for world
+    size 1."""
+    import dataclasses
+    import torch
+    import torch.distributed as tdist
+    from ignis_tpu_torch import train_step
+    from ignis_tpu_torch.parallel import distributed as dist
+    from ignis_tpu_torch.parallel import mesh as pmesh
+    from ignis_tpu_torch.render.session import _pixels, render_iteration
+    from ignis_tpu_torch.techniques.path import render_lanes
+    s = s1.settings
+    frame = s1.FrameCount
+    n_samples = s.width * s.height * s.spi
+    out = {"nvidia_smi": smi}
+
+    def report(what, sec, syncs, used, plain, train=False):
+        msps = n_samples / sec / 1e6
+        print(f"  {what}: {msps:.4f} Msamples/s{' fwd+bwd' if train else ''}"
+              f" ({sec:.4f} s; phase 5's S1 {s1_msps:.4f}), host syncs "
+              f"{syncs}, launches {used} [{smi}]")
+        check(used["K1"] > 0 and used["K3_gather_rows"] > 0 and plain == 0,
+              f"{what}: K1 and K3 launched, no plain version ({plain})")
+        out[what] = {"msamples_per_s": msps, "seconds": sec,
+                     "host_syncs": syncs, "launches": used}
+
+    check(dist.initialize(coordinator=f"127.0.0.1:{dist.free_port()}",
+                          num_processes=1, process_id=0),
+          "initialize formed a one-rank process group")
+    check(tdist.get_backend() == "nccl", f"the group's backend is nccl "
+          f"({tdist.get_backend()})")
+    mesh = dist.global_mesh()
+    check(mesh.devices == (device,) and mesh.grouped
+          and mesh.n_shards == 1, f"global_mesh: {mesh}")
+    s1.reset()
+    s1.step()
+    want = s1.framebuffer(normalized=True)
+    film, sec, syncs, used, plain = timed_call(
+        lambda: dist.render_distributed(s1.scene, s, mesh, 0, frame))
+    report("S1 render_distributed, one NCCL rank", sec, syncs, used, plain)
+    check(np.array_equal(film, want.cpu().numpy()),
+          "S1: render_distributed's film equals Runtime.step()'s bit for "
+          "bit")
+    target = torch.zeros((s.height, s.width, 3), device=device)
+    loss1, one = train_step(s1.scene, s, target, 0, frame, 1e-2)
+    (loss, new), sec, syncs, used, plain = timed_call(
+        lambda: dist.train_step_distributed(s1.scene, s, target, 0, frame,
+                                            1e-2, mesh))
+    report("S1 train_step_distributed, one NCCL rank", sec, syncs, used,
+           plain, train=True)
+    base = np.stack([c.cpu().numpy() for c in new.materials.base])
+    base1 = np.stack([c.cpu().numpy() for c in one.materials.base])
+    print(f"    loss {loss:.8f} / train_step {float(loss1):.8f}, new albedo "
+          f"largest difference {float(np.abs(base - base1).max()):.3g}")
+    check(np.isclose(loss, float(loss1), rtol=1e-5, atol=0)
+          and np.allclose(base, base1, rtol=1e-5, atol=0)
+          and used["K3_scatter_add_rows"] > 0,
+          "S1: train_step_distributed's loss and new albedo within rtol "
+          "1e-5 of train_step's, through K3's scatter")
+    dist.shutdown(mesh)
+    check(not tdist.is_initialized(), "the process group is destroyed")
+
+    m4 = pmesh.make_mesh(devices=[device] * SHARDS)
+    x, y = _pixels(s, device)
+    ref = torch.stack(list(render_lanes(s1.scene, s, x, y, 0, frame,
+                                        compact=False)), -1).reshape(
+        s.height, s.width, 3) * (1.0 / s.spi)
+    plain_film, sec, syncs, used, plain = timed_call(
+        lambda: pmesh.render_iteration_sharded(s1.scene, s, 0, frame, m4))
+    report(f"S1 render_iteration_sharded, {SHARDS} shards on one card", sec,
+           syncs, used, plain)
+    check(torch.equal(plain_film, ref), f"S1: {SHARDS}-shard uncompacted "
+          f"film equals render_lanes(compact=False)'s bit for bit")
+    compact, sec, syncs, used, plain = timed_call(
+        lambda: pmesh.render_iteration_sharded_compact(s1.scene, s, 0, frame,
+                                                       m4))
+    report(f"S1 render_iteration_sharded_compact, {SHARDS} shards on one "
+           f"card", sec, syncs, used, plain)
+    diff = float((compact - want).abs().max())
+    print(f"    compacted {SHARDS}-shard film against step()'s: largest "
+          f"difference {diff:.3g}, bit-equal "
+          f"{bool(torch.equal(compact, want))}")
+    check(torch.allclose(compact, want, rtol=2e-4, atol=2e-5),
+          f"S1: {SHARDS}-shard compacted film within rtol 2e-4 / atol 2e-5 "
+          f"of step()'s")
+    out["compact_max_diff"] = diff
+    ao = dataclasses.replace(s, technique="ao")
+    ao_film, sec, syncs, used, plain = timed_call(
+        lambda: pmesh.render_iteration_sharded(s1.scene, ao, 0, frame, m4))
+    report(f"S1 ao render_iteration_sharded, {SHARDS} shards on one card",
+           sec, syncs, used, plain)
+    check(torch.equal(ao_film, render_iteration(s1.scene, ao, 0, frame)),
+          f"S1 ao: {SHARDS}-shard film equals render_iteration's bit for "
+          f"bit")
+    rep = dist.scaling_report(lambda: s1, shard_counts=(1, SHARDS), iters=2)
+    print(f"  scaling_report: {json.dumps(rep)} [{smi}]")
+    check(rep.get("world_sizes") == list(range(1, torch.cuda.device_count()
+                                               + 1)),
+          "scaling_report names the world sizes this machine has")
+    out["scaling_report"] = rep
+    return out
+
+
 def main() -> int:
     import argparse
     import torch
@@ -3357,6 +3615,12 @@ def main() -> int:
           f"({time.perf_counter() - t_start:.1f} s in)")
     frontends = phase_frontends(device, runtimes, per_scene, ROOT / "build")
 
+    print(f"== phase 11: the multi-GPU layer "
+          f"({time.perf_counter() - t_start:.1f} s in)")
+    multi_gpu = phase_multi_gpu(
+        device, runtimes["S1_glass_ico7"],
+        per_scene["S1_glass_ico7"]["msamples_per_s"], smi)
+
     def timed(t):
         ms, plain, bms, by = t
         return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
@@ -3418,7 +3682,7 @@ def main() -> int:
              "geometry_profile": geometry_profile,
              "instancing": instancing, "techniques": techniques,
              "techniques_reference": techniques_reference, "s9": s9,
-             "frontends": frontends}, indent=1))
+             "frontends": frontends, "multi_gpu": multi_gpu}, indent=1))
     print(json.dumps({"scenes": per_scene, "train": train, "sigma": sigma,
                       "geometry_profile_us": {
                           k: v for k, v in geometry_profile.items()
@@ -3428,6 +3692,7 @@ def main() -> int:
                       "techniques_reference": techniques_reference}))
     print(json.dumps({"s9": _no_top(s9)}))
     print(json.dumps({"frontends": frontends}))
+    print(json.dumps({"multi_gpu": multi_gpu}))
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -20,13 +20,18 @@ attributes, materials, photons and instance tables through K3 (row
 gather: ops/gather.py), and the light tracer's splat and aept's
 histograms through K3's scatter-add; on the CPU each takes its plain
 torch version. `render_iteration` with settings.remat is differentiable
-in the scene's tensors (materials, triangle soup and attributes): closest
-hits through the fixed-winner backward kernel (ops/mt_replay.py),
-attributes through K3's scatter-add. `loss_fn` and `train_step` are the
-one-device training step. The Runtime also traces ray lists
+in the scene's tensors (materials, triangle soup and attributes, an
+instanced group's shared soup and transforms): closest hits through the
+fixed-winner backward kernel (ops/mt_replay.py), attributes through K3's
+scatter-add. `loss_fn` and `train_step` are the one-device training
+step; parallel/ shards the film's lanes over devices in one process or
+over a torch.distributed group (nccl on the card; parallel/mesh.py,
+parallel/distributed.py). The Runtime also traces ray lists
 (`trace`), counts rays (`acquireStats`), writes multilayer EXRs,
 denoises (render/denoise.py), tonemaps (render/tonemap.py), checkpoints,
-profiles and runs user passes; render/glare.py computes glare metrics.
+profiles and runs user passes; render/glare.py computes glare metrics;
+utils/image.py reads and writes EXR, HDR, PNG, JPEG, BMP and TGA without
+OpenCV.
 The frontends: `python -m ignis_tpu_torch.cli scene.json -o out.exr`
 (igcli), `.trace_cli` (igtrace), `.util_cli info|convert|glare|inspect`
 (igutil) and `.view` (igview, a local web page); each runs on the card

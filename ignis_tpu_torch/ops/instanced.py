@@ -38,9 +38,21 @@ local attributes through K3 from the group's [T, 24] attribute table and
 the instance's normal matrix and entity id through K3 from its [I, 12]
 instance table.
 
-The trace is held fixed under reverse mode (no geometry gradient of
-instanced shapes: ROADMAP); gradients of the materials flow through
-instanced hits as through any other.
+The forward above picks each ray's winner with no gradient. When grad
+mode is on and the shared soup, the transforms or the rays require
+grad, the closest hit is also recorded for reverse mode
+(`_differentiable_hit`): each ray's winning instance and local triangle
+come from the fold, its local ray is rebuilt with autograd from the
+instance's w2l (a K3 gather of a live [I, 12] table, so the transform
+gradients come back through K3's scatter-add), and Moeller-Trumbore is
+replayed at that fixed winner through ops/mt_replay.ClosestHit (the MT
+replay kernel on the card, its plain version on the CPU). t is the same
+in local and world space, so t, u and v carry gradients to the soup, to
+w2l and to the world ray, as the JAX package's `_local_rays` and dense
+sweep do. Rays that miss get none; any hit stays detached. The group's
+attribute table is built from the live soup, normals and uvs when they
+require grad, so that `instanced_surface`'s K3 gather scatter-adds into
+them.
 """
 from __future__ import annotations
 
@@ -49,7 +61,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.vec import Vec2, Vec3
-from . import bvh_cuda, isect_cuda
+from . import bvh_cuda, isect_cuda, mt_replay
 from . import gather as gatherlib
 from .bvh import BVHArrays
 from .intersect import FLT_MAX, Hit, Rays, TriSoup
@@ -113,18 +125,27 @@ def _morton(p: torch.Tensor) -> torch.Tensor:
     return spread(g[:, 0]) | (spread(g[:, 1]) << 1) | (spread(g[:, 2]) << 2)
 
 
-@torch.no_grad()
 def group_tables(geo: InstancedGeo) -> GroupTables:
-    """The tables of one group (plain torch on the group's device,
-    detached: the instanced geometry carries no gradient)."""
-    soup = TriSoup(*[Vec3(*[c.detach() for c in v]) for v in geo.soup])
-    packed = (bvh_cuda.pack_tris(soup) if geo.bvh is not None
-              else isect_cuda.pack_soup(soup))
-    attr = gatherlib.stack_cols([*soup.e1, *soup.e2, *geo.n0, *geo.n1,
-                                 *geo.n2, *geo.uv0, *geo.uv1, *geo.uv2])
+    """The tables of one group (plain torch on the group's device). The
+    attribute and instance tables record for reverse mode when grad mode
+    is on and their columns require grad; the kernels' tables never
+    do."""
     n_inst = geo.n_instances
+    attr = gatherlib.stack_cols([*geo.soup.e1, *geo.soup.e2, *geo.n0,
+                                 *geo.n1, *geo.n2, *geo.uv0, *geo.uv1,
+                                 *geo.uv2])
     inst = gatherlib.stack_cols([*geo.nrm_mat.reshape(n_inst, 9).t(),
                                  geo.ent.to(torch.float32)])
+    return GroupTables(attr=attr, inst=inst, **_trace_tables(geo))
+
+
+@torch.no_grad()
+def _trace_tables(geo: InstancedGeo):
+    """group_tables' packed soup, transform table, cluster members and
+    boxes, made with no gradient."""
+    packed = (bvh_cuda.pack_tris(geo.soup) if geo.bvh is not None
+              else isect_cuda.pack_soup(geo.soup))
+    n_inst = geo.n_instances
     xform = gatherlib.stack_cols([*geo.w2l.reshape(n_inst, 12).t(),
                                   *geo.aabb_min.t(), *geo.aabb_max.t(),
                                   geo.shadow_visible.to(torch.float32)])
@@ -143,7 +164,8 @@ def group_tables(geo: InstancedGeo) -> GroupTables:
     # slab test keeps
     pad = 1e-4 * (hi - lo).amax(1, keepdim=True) + 1e-6 * torch.maximum(
         lo.abs(), hi.abs()).amax(1, keepdim=True)
-    return GroupTables(packed, attr, inst, xform, members, lo - pad, hi + pad)
+    return {"packed": packed, "xform": xform, "members": members,
+            "box_lo": lo - pad, "box_hi": hi + pad}
 
 
 def _inv(d):
@@ -236,17 +258,31 @@ def _local_trace(local: Rays, geo: InstancedGeo, tabs: GroupTables,
                torch.zeros(q).index_copy_(0, live, h.v))
 
 
-@torch.no_grad()
 def intersect_instanced(rays: Rays, geo: InstancedGeo, prim_base: int,
                         any_hit: bool = False, tabs: GroupTables = None):
     """Closest hit over all instances of `geo` (a Hit whose prim is
     prim_base + inst * T + local prim, -1 on a miss), or with `any_hit`
     the bool occlusion by its shadow-visible instances. `tabs` is
-    group_tables(geo), made here when not given."""
+    group_tables(geo), made here when not given. The closest hit is
+    differentiable in the soup, w2l and the rays' org and dir when one of
+    them requires grad (`_differentiable_hit`)."""
     if tabs is None:
         tabs = group_tables(geo)
-    rays = Rays(*[Vec3(*[c.detach() for c in v]) if isinstance(v, Vec3)
-                  else v.detach() for v in rays])
+    hit = _fixed_hit(rays, geo, prim_base, any_hit, tabs)
+    if any_hit or not _wants_grad(rays, geo):
+        return hit
+    return _differentiable_hit(rays, geo, prim_base, hit)
+
+
+def _wants_grad(rays: Rays, geo: InstancedGeo) -> bool:
+    return mt_replay.wants_grad(rays, geo.soup) or (
+        torch.is_grad_enabled() and geo.w2l.requires_grad)
+
+
+@torch.no_grad()
+def _fixed_hit(rays: Rays, geo: InstancedGeo, prim_base: int,
+               any_hit: bool, tabs: GroupTables):
+    """intersect_instanced's forward: the winners, with no gradient."""
     n = rays.tmin.shape[0]
     device = rays.tmin.device
     ray_q, inst, local = _candidates(rays, geo, tabs, any_hit)
@@ -271,6 +307,32 @@ def intersect_instanced(rays: Rays, geo: InstancedGeo, prim_base: int,
     return Hit(torch.where(hit, t, FLT_MAX),
                torch.where(hit, best & 0xFFFFFFFF, -1).to(torch.int32),
                uv[:, 0].contiguous(), uv[:, 1].contiguous())
+
+
+def _differentiable_hit(rays: Rays, geo: InstancedGeo, prim_base: int,
+                        hit: Hit) -> Hit:
+    """`hit` (the fixed winners) recorded for reverse mode: each ray's
+    local ray at its winning instance, o' = A o + b and d' = A d (d'
+    unnormalised, as the JAX package's _local_rays), rebuilt with autograd
+    from a K3 gather of the live w2l table, then Moeller-Trumbore replayed
+    at the winning local triangle (mt_replay.ClosestHit). The values are
+    hit's; rays that miss get no gradient."""
+    T = geo.tris_per_instance
+    local = (hit.prim - prim_base).clamp(min=0)
+    inst = torch.clamp(local // T, 0, geo.n_instances - 1).to(torch.int32)
+    lp = torch.where(hit.prim >= 0, local % T, -1).to(torch.int32)
+    w2l = gatherlib.stack_cols(geo.w2l.reshape(geo.n_instances, 12).t())
+    m = gatherlib.gather_block(inst, w2l, 12).unbind(0)
+    o = Vec3(*[m[4 * r] * rays.org.x + m[4 * r + 1] * rays.org.y
+               + m[4 * r + 2] * rays.org.z + m[4 * r + 3] for r in range(3)])
+    d = Vec3(*[m[4 * r] * rays.dir.x + m[4 * r + 1] * rays.dir.y
+               + m[4 * r + 2] * rays.dir.z for r in range(3)])
+    # fresh tensors: the autograd.Function takes its outputs over
+    fixed = Hit(hit.t.clone(), lp, hit.u.clone(), hit.v.clone())
+    t, _, u, v = mt_replay.closest_hit(lambda r, s: fixed,
+                                       Rays(o, d, rays.tmin, rays.tmax),
+                                       geo.soup)
+    return Hit(t, hit.prim, u, v)
 
 
 def instanced_surface(geo: InstancedGeo, tabs: GroupTables, prim_local):

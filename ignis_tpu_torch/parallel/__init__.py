@@ -1,5 +1,10 @@
-"""Training on the port: the differentiable-rendering loss and train step
-(mesh.py; one device)."""
-from .mesh import loss_fn, train_step
+"""Training and sharding on the port: the differentiable-rendering loss
+and train step, and the film's lanes sharded over devices or processes
+(mesh.py; distributed.py on torch.distributed)."""
+from .mesh import (RayMesh, loss_fn, make_mesh, render_iteration_sharded,
+                   render_iteration_sharded_compact, train_step,
+                   train_step_sharded)
 
-__all__ = ["loss_fn", "train_step"]
+__all__ = ["RayMesh", "loss_fn", "make_mesh", "render_iteration_sharded",
+           "render_iteration_sharded_compact", "train_step",
+           "train_step_sharded"]

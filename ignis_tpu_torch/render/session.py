@@ -114,27 +114,40 @@ def render_iteration(scene: SceneData, settings: RenderSettings,
     ignis_tpu/render/session.py:227): differentiable in the scene's
     tensors that require grad. aept uses `guiding` (aept_guiding), and
     learns it first when none is given."""
+    x, y = _pixels(settings, scene.device)
+    return _image(render_technique_lanes(scene, settings, x, y, iteration,
+                                         frame, guiding), settings)
+
+
+def render_technique_lanes(scene: SceneData, settings: RenderSettings, x, y,
+                           iteration: int, frame: int, guiding=None,
+                           compact=None) -> Color:
+    """render_iteration's work for the lanes (pixels) x, y, by the
+    settings' technique: each lane's radiance summed over settings.spi
+    samples, in x's lane order; for lt, the whole [h*w] film that these
+    lanes' light paths splat into. path and volpath compact when
+    `compact` says so (by default as render_iteration does: with
+    settings.remat or a film of _COMPACTION_MIN_LANES lanes or more).
+    ppm's photon pass and aept's learning iterations (when no `guiding`
+    is given) cover the whole scene and film whatever the lanes."""
     w, h = settings.width, settings.height
-    device = scene.device
-    x, y = _pixels(settings, device)
     tech = canonical(settings.technique)
     eval_texture = make_texture_evaluator(settings.texture_descs,
                                           scene.textures)
     if tech in ("path", "volpath"):
-        return _image(render_lanes(
-            scene, settings, x, y, iteration, frame,
-            compact=settings.remat or w * h >= _COMPACTION_MIN_LANES,
-            remat=settings.remat, eval_texture=eval_texture), settings)
+        if compact is None:
+            compact = settings.remat or w * h >= _COMPACTION_MIN_LANES
+        return render_lanes(scene, settings, x, y, iteration, frame,
+                            compact=compact, remat=settings.remat,
+                            eval_texture=eval_texture)
     tabs = render_tables(scene, settings, eval_texture)
     fn = dispatch_technique(tech)
     if tech in ("lt", "ppm"):
-        return _image(fn(scene, settings, x, y, iteration, frame, tabs),
-                      settings)
+        return fn(scene, settings, x, y, iteration, frame, tabs)
     if tech == "aept":
         if guiding is None:
             guiding = aept_guiding(scene, settings, frame, tabs)
-        return _image(fn(scene, settings, x, y, iteration, frame, guiding,
-                         tabs), settings)
+        return fn(scene, settings, x, y, iteration, frame, guiding, tabs)
     acc = None
     for s in range(settings.spi):
         state = rnglib.seed(s, iteration, frame, x, y, settings.seed)
@@ -142,9 +155,12 @@ def render_iteration(scene: SceneData, settings: RenderSettings,
             settings.pixel_sampler, state, iteration * settings.spi + s, x, y)
         rays = cameralib.generate_rays(scene.camera, settings, x, y, rx, ry,
                                        rng_state=state)
-        color = fn(scene, settings, rays, state, tabs)
+        # camera_check compares each lane's pixel with its reprojection
+        color = (fn(scene, settings, rays, state, tabs, pixel=y * w + x)
+                 if tech == "camera_check"
+                 else fn(scene, settings, rays, state, tabs))
         acc = color if acc is None else acc + color
-    return _image(acc, settings)
+    return acc
 
 
 def _ckpt_path(path) -> str:

@@ -177,17 +177,20 @@ def env_check_trace(scene: SceneData, settings: RenderSettings, rays: Rays,
 
 
 def camera_check_trace(scene: SceneData, settings: RenderSettings,
-                       rays: Rays, rng_state, tabs: RenderTables) -> Color:
+                       rays: Rays, rng_state, tabs: RenderTables,
+                       pixel=None) -> Color:
     """Reproject the first hit through the camera: green where the point
     lands on its own pixel and sees the camera, shading to red with the
-    reprojection error (internal/camera_check.art). Lanes are pixels in
-    row-major order."""
+    reprojection error (internal/camera_check.art). `pixel` is each
+    lane's row-major pixel index; by default the lanes are the whole
+    film's pixels in row-major order."""
     hit, surf = _hit_surface(scene, rays, tabs)
     n = rays.tmin.shape[0]
     valid_p, pix, cam_dir, _ = cameralib.sample_pixel(scene.camera, settings,
                                                       surf.point)
     w, h = settings.width, settings.height
-    lane = torch.arange(n, dtype=torch.int32, device=rays.tmin.device)
+    lane = (torch.arange(n, dtype=torch.int32, device=rays.tmin.device)
+            if pixel is None else pixel.to(torch.int32))
     fac = ((1.0 - torch.abs(lane % w - pix % w).to(torch.float32) / w)
            * (1.0 - torch.abs(lane // w - pix // w).to(torch.float32) / h))
     fac = torch.clamp(fac, 0.0, 1.0)

@@ -1,17 +1,21 @@
-"""Image IO without OpenCV or PIL: EXR, Radiance HDR and PNG, read and
-written.
+"""Image IO without OpenCV or PIL: EXR, Radiance HDR, PNG, JPEG, BMP and
+TGA, read and written.
 
 The port's counterpart of ignis_tpu/utils/image.py, which goes through
-OpenCV. Here PNG is decoded with numpy and zlib (8 or 16 bits, gray, gray
-with alpha, RGB or RGBA, non-interlaced, the five row filters) and
-encoded as 8-bit RGB with filter 0 (`encode_png`); EXR is read by the
-port's own reader and written as scanline ZIP (`_write_exr_channels`,
-also `write_exr_multilayer`'s layers and ig* attributes); Radiance .hdr
-is read with flat or run-length-encoded scanlines and written flat, in
-the RGBE rounding of the rgbe.c that OpenCV uses. JPEG, BMP and TGA are
-not ported. LDR input is sRGB-decoded to linear unless `linear`; EXR and
-HDR are linear; LDR output is sRGB-encoded with +0.5 rounding, as the
-JAX writer's. Images are float32 [h, w, 3] RGB with row 0 at the top.
+OpenCV. Here PNG is decoded with numpy and zlib (1-16 bits, gray, gray
+with alpha, RGB, RGBA or palette, the five row filters, Adam7
+interlacing) and encoded as 8-bit RGB with filter 0 (`encode_png`); JPEG
+goes through utils/jpeg.py (baseline, decoded as libjpeg decodes it;
+written as baseline 4:2:0 at quality 95, cv2's default); BMP is read
+uncompressed at 24 or 32 bits and written at 24; TGA is read as
+uncompressed or run-length-encoded truecolour and written run-length
+encoded; EXR is read by the port's own reader and written as scanline ZIP
+(`_write_exr_channels`, also `write_exr_multilayer`'s layers and ig*
+attributes); Radiance .hdr is read with flat or run-length-encoded
+scanlines and written flat, in the RGBE rounding of the rgbe.c that
+OpenCV uses. LDR input is sRGB-decoded to linear unless `linear`; EXR and
+HDR are linear; LDR output is sRGB-encoded with +0.5 rounding, as the JAX
+writer's. Images are float32 [h, w, 3] RGB with row 0 at the top.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from pathlib import Path
 import numpy as np
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}   # colour type -> samples
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}   # colour type -> samples
 
 
 def srgb_to_linear(x: np.ndarray) -> np.ndarray:
@@ -34,11 +38,33 @@ def linear_to_srgb(x: np.ndarray) -> np.ndarray:
     return np.where(x <= 0.0031308, x * 12.92, 1.055 * x ** (1 / 2.4) - 0.055)
 
 
+LDR_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp", ".tga")
+
+
 def _unsupported(path: Path, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"image format '{path.suffix.lower()}' ({path.name}) is not ported: "
-        f"the port {what} EXR, HDR and PNG (JPEG, BMP and TGA need codecs "
-        "of their own; ROADMAP queue 1, item 17)")
+        f"the port {what} EXR, HDR, PNG, JPEG, BMP and TGA")
+
+
+def read_ldr(path) -> np.ndarray:
+    """An 8-bit (or 16-bit PNG) file as float32 [h, w, 3] in [0, 1]
+    (sRGB-encoded values), by its suffix."""
+    path = Path(path)
+    suffix = path.suffix.lower()
+    if suffix == ".png":
+        return read_png(path)
+    data = path.read_bytes()
+    if suffix in (".jpg", ".jpeg"):
+        from .jpeg import decode_jpeg
+        rgb = decode_jpeg(data)
+    elif suffix == ".bmp":
+        rgb = decode_bmp(data)
+    elif suffix == ".tga":
+        rgb = decode_tga(data)
+    else:
+        raise _unsupported(path, "reads")
+    return rgb.astype(np.float32) / 255.0
 
 
 def load_image(path, linear: bool = False) -> np.ndarray:
@@ -51,17 +77,17 @@ def load_image(path, linear: bool = False) -> np.ndarray:
         return np.ascontiguousarray(load_exr_rgb(path), np.float32)
     if suffix == ".hdr":
         return read_hdr(path)
-    if suffix == ".png":
-        img = read_png(path)
-        if not linear:
-            img = srgb_to_linear(img)
-        return np.ascontiguousarray(img, np.float32)
-    raise _unsupported(path, "reads")
+    if suffix not in LDR_SUFFIXES:
+        raise _unsupported(path, "reads")
+    img = read_ldr(path)
+    if not linear:
+        img = srgb_to_linear(img)
+    return np.ascontiguousarray(img, np.float32)
 
 
 def save_image(path, img):
     """Save linear float32 [h, w, 3] RGB: EXR (ZIP) and HDR keep it
-    linear, PNG is 8-bit sRGB."""
+    linear; PNG, JPEG, BMP and TGA are 8-bit sRGB."""
     path = Path(path)
     img = np.asarray(img, np.float32)
     suffix = path.suffix.lower()
@@ -69,11 +95,155 @@ def save_image(path, img):
         _write_exr_fallback(path, img)
     elif suffix == ".hdr":
         write_hdr(path, img)
-    elif suffix == ".png":
+    elif suffix in LDR_SUFFIXES:
         ldr = (linear_to_srgb(img) * 255.0 + 0.5).astype(np.uint8)
-        path.write_bytes(encode_png(ldr))
+        if suffix == ".png":
+            data = encode_png(ldr)
+        elif suffix == ".bmp":
+            data = encode_bmp(ldr)
+        elif suffix == ".tga":
+            data = encode_tga(ldr)
+        else:
+            from .jpeg import encode_jpeg
+            data = encode_jpeg(ldr)
+        path.write_bytes(data)
     else:
         raise _unsupported(path, "writes")
+
+
+def _rgb8(rgb) -> np.ndarray:
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected uint8 [h, w, 3], got {rgb.shape}")
+    return rgb
+
+
+def decode_bmp(data: bytes) -> np.ndarray:
+    """An uncompressed 24- or 32-bit BMP (BI_RGB, or BI_BITFIELDS with
+    byte-aligned masks), bottom-up or top-down, as uint8 [h, w, 3] RGB."""
+    if data[:2] != b"BM" or len(data) < 30:
+        raise ValueError("not a BMP file")
+    offset, hsize = struct.unpack("<II", data[10:18])
+    if hsize < 40:
+        raise NotImplementedError(f"BMP: {hsize}-byte OS/2 header is not "
+                                  "ported")
+    w, h, _, bpp, comp = struct.unpack("<iiHHI", data[18:34])
+    masks = None
+    if comp == 3 and bpp == 32:      # the masks follow the 40-byte fields
+        masks = struct.unpack("<III", data[54:66])
+    elif comp != 0 or bpp not in (24, 32):
+        raise NotImplementedError(
+            f"BMP: {bpp} bits, compression {comp} is not ported (24- and "
+            "32-bit uncompressed only)")
+    top_down, h = h < 0, abs(h)
+    stride = (w * bpp // 8 + 3) & ~3
+    if len(data) < offset + stride * h:
+        raise ValueError("BMP: truncated pixel data")
+    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
+    px = rows[:, :w * bpp // 8].reshape(h, w, bpp // 8)
+    if masks is None:
+        rgb = px[..., 2::-1]
+    else:
+        word = px.view("<u4")[..., 0]
+        chans = []
+        for m in masks:
+            shift = (m & -m).bit_length() - 1
+            if m >> shift != 0xFF:
+                raise NotImplementedError(f"BMP: channel mask {m:#x} is "
+                                          "not ported")
+            chans.append((word >> shift) & 0xFF)
+        rgb = np.stack(chans, -1).astype(np.uint8)
+    return np.ascontiguousarray(rgb if top_down else rgb[::-1])
+
+
+def encode_bmp(rgb) -> bytes:
+    """A 24-bit bottom-up BI_RGB BMP of uint8 [h, w, 3]."""
+    rgb = _rgb8(rgb)
+    h, w, _ = rgb.shape
+    stride = (3 * w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    head = struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835,
+                       2835, 0, 0)
+    return head + info + rows.tobytes()
+
+
+def decode_tga(data: bytes) -> np.ndarray:
+    """An uncompressed (type 2) or run-length-encoded (type 10) 24- or
+    32-bit truecolour TGA as uint8 [h, w, 3] RGB."""
+    if len(data) < 18:
+        raise ValueError("not a TGA file")
+    (id_len, cmap_type, kind, _, cmap_len, cmap_bits, _, _, w, h, bpp,
+     desc) = struct.unpack("<BBBHHBHHHHBB", data[:18])
+    if kind not in (2, 10) or bpp not in (24, 32):
+        raise NotImplementedError(
+            f"TGA: image type {kind}, {bpp} bits is not ported (truecolour "
+            "24 or 32 bits, raw or run-length encoded)")
+    pos = 18 + id_len + (cmap_len * ((cmap_bits + 7) // 8) if cmap_type
+                         else 0)
+    bp = bpp // 8
+    n = w * h
+    if kind == 2:
+        if len(data) < pos + n * bp:
+            raise ValueError("TGA: truncated pixel data")
+        px = np.frombuffer(data, np.uint8, n * bp, pos)
+    else:
+        out = bytearray()
+        while len(out) < n * bp:
+            if pos >= len(data):
+                raise ValueError("TGA: truncated run-length data")
+            head = data[pos]
+            count = (head & 0x7F) + 1
+            if head & 0x80:
+                out += data[pos + 1:pos + 1 + bp] * count
+                pos += 1 + bp
+            else:
+                out += data[pos + 1:pos + 1 + count * bp]
+                pos += 1 + count * bp
+        px = np.frombuffer(bytes(out[:n * bp]), np.uint8)
+    img = px.reshape(h, w, bp)[..., 2::-1]
+    if not desc & 0x20:        # bottom-left origin
+        img = img[::-1]
+    if desc & 0x10:            # right-to-left
+        img = img[:, ::-1]
+    return np.ascontiguousarray(img)
+
+
+def encode_tga(rgb) -> bytes:
+    """A run-length-encoded 24-bit truecolour TGA (type 10, top-left
+    origin) of uint8 [h, w, 3]; runs and raw packets stop at row ends."""
+    rgb = _rgb8(rgb)
+    h, w, _ = rgb.shape
+    bgr = rgb[..., ::-1]
+    out = bytearray(struct.pack("<BBBHHBHHHHBB", 0, 0, 10, 0, 0, 0, 0, 0, w,
+                                h, 24, 0x20))
+    for row in bgr:
+        # start of each run of equal pixels
+        new = np.ones(w, bool)
+        new[1:] = (row[1:] != row[:-1]).any(-1)
+        starts = np.flatnonzero(new).tolist() + [w]
+        raw = []      # the single pixels since the last run
+        for a, b in zip(starts[:-1], starts[1:]):
+            if b - a == 1:
+                raw.append(a)
+                continue
+            _flush_raw(out, row, raw)
+            raw = []
+            for c0 in range(a, b, 128):
+                out.append(0x80 | (min(128, b - c0) - 1))
+                out += row[c0].tobytes()
+        _flush_raw(out, row, raw)
+    return bytes(out)
+
+
+def _flush_raw(out: bytearray, row, raw) -> None:
+    """Raw packets (up to 128 pixels each) of the consecutive pixels in
+    `raw`."""
+    for c0 in range(0, len(raw), 128):
+        idx = raw[c0:c0 + 128]
+        out.append(len(idx) - 1)
+        out += row[idx[0]:idx[-1] + 1].tobytes()
 
 
 def _png_chunk(ctype: bytes, body: bytes) -> bytes:
@@ -206,18 +376,44 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+# Adam7: each pass's (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_samples(raw: bytes, w: int, h: int, depth: int, ch: int):
+    """Unfilter one (sub)image of raw PNG rows: [h, w, ch] samples (uint8,
+    or uint16 at depth 16) and the bytes it used."""
+    bits = w * ch * depth
+    stride = (bits + 7) // 8
+    used = h * (stride + 1)
+    rows = _unfilter(raw[:used], h, stride, max(1, ch * depth // 8))
+    if depth == 16:
+        return rows.view(">u2").reshape(h, w, ch).astype(np.uint16), used
+    if depth == 8:
+        return rows.reshape(h, w, ch), used
+    packed = np.unpackbits(rows, axis=1)[:, :bits].reshape(h, w * ch, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    vals = (packed * weights).sum(-1, dtype=np.uint8)
+    return vals.reshape(h, w, ch), used
+
+
 def read_png(path) -> np.ndarray:
-    """A PNG as float32 [h, w, 3] in [0, 1] (sRGB-encoded values)."""
+    """A PNG as float32 [h, w, 3] in [0, 1] (sRGB-encoded values). Palette
+    images take their PLTE colours; gray below 8 bits is scaled to 8 bits
+    as libpng expands it; alpha is dropped."""
     data = Path(path).read_bytes()
     if data[:8] != _PNG_MAGIC:
         raise ValueError(f"{path}: not a PNG file")
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, plte = 8, [], None, None
     while pos < len(data):
         n, ctype = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
         pos += 12 + n
         if ctype == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(body)
         elif ctype == b"IEND":
@@ -225,19 +421,36 @@ def read_png(path) -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, color, _, _, interlace = hdr
-    if color not in _PNG_CHANNELS or depth not in (8, 16) or interlace:
+    ch = _PNG_CHANNELS.get(color)
+    if ch is None or depth not in (1, 2, 4, 8, 16) or interlace > 1 or (
+            ch > 1 and depth < 8 and color != 3) or (
+            color == 3 and (depth > 8 or plte is None)):
         raise NotImplementedError(
-            f"{path}: PNG colour type {color}, {depth} bits, interlace "
-            f"{interlace} is not ported (8/16-bit gray, gray+alpha, RGB or "
-            "RGBA, not interlaced)")
-    ch = _PNG_CHANNELS[color]
-    bpp = ch * depth // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
-    if depth == 16:
-        img = rows.view(">u2").reshape(h, w, ch).astype(np.float32) / 65535.0
+            f"{path}: PNG colour type {color} at {depth} bits, interlace "
+            f"{interlace} is not a valid PNG")
+    raw = zlib.decompress(b"".join(idat))
+    if interlace:
+        dt = np.uint16 if depth == 16 else np.uint8
+        smp = np.zeros((h, w, ch), dt)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            sub, used = _png_samples(raw[pos:], pw, ph, depth, ch)
+            smp[y0::dy, x0::dx] = sub
+            pos += used
     else:
-        img = rows.reshape(h, w, ch).astype(np.float32) / 255.0
-    if ch <= 2:
+        smp, _ = _png_samples(raw, w, h, depth, ch)
+    if color == 3:
+        img = plte[np.minimum(smp[..., 0], len(plte) - 1)].astype(
+            np.float32) / 255.0
+    elif depth == 16:
+        img = smp.astype(np.float32) / 65535.0
+    else:
+        scale = 255 // ((1 << depth) - 1)      # libpng's gray expansion
+        img = (smp.astype(np.uint8) * scale).astype(np.float32) / 255.0
+    if img.shape[-1] <= 2:
         img = np.repeat(img[..., :1], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])
 

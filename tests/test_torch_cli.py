@@ -189,7 +189,9 @@ def test_util_glare_matches_jax(tmp_path, capsys):
 def test_util_convert_images(hdr_file, tmp_path, capsys):
     """EXR -> PNG (exposure, offset) as the JAX tool's bytes decode, and
     EXR -> HDR -> EXR within RGBE's precision; both tools' HDRs decode
-    alike."""
+    alike; EXR -> JPEG, which this test once held to NotImplementedError,
+    within 0.5 dB PSNR of the JAX tool's (OpenCV's) JPEG against the
+    exact 8-bit PNG."""
     import cv2
     for tool, tag in ((util_cli, "p"), (jax_util_cli, "j")):
         assert tool.main(["convert", str(hdr_file),
@@ -209,8 +211,16 @@ def test_util_convert_images(hdr_file, tmp_path, capsys):
                                                              keepdims=True))
     np.testing.assert_array_equal(load_image(tmp_path / "p.hdr")[3:],
                                   load_image(tmp_path / "j.hdr")[3:])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        util_cli.main(["convert", str(hdr_file), str(tmp_path / "x.jpg")])
+    for out in ("x.jpg", "x.png"):
+        assert util_cli.main(["convert", str(hdr_file),
+                              str(tmp_path / out)]) == 0
+    assert jax_util_cli.main(["convert", str(hdr_file),
+                              str(tmp_path / "jx.jpg")]) == 0
+    ours = cv2.imread(str(tmp_path / "x.jpg")).astype(np.float64)
+    theirs = cv2.imread(str(tmp_path / "jx.jpg")).astype(np.float64)
+    exact = cv2.imread(str(tmp_path / "x.png")).astype(np.float64)
+    mse = [np.mean((a - exact) ** 2) for a in (ours, theirs)]
+    assert 10 * np.log10(mse[1] / max(mse[0], 1e-12)) >= -0.5, mse
     assert util_cli.main(["convert", str(tmp_path / "s.txt"),
                           str(tmp_path / "x.exr")]) == 1
 

@@ -17,7 +17,9 @@ setParameter without a rebuild, skies, a PExpr medium and the bake on the
 card against the CPU), and the frontends of phase 10 (the CLI against an
 in-process film, post-processing, trace() and acquireStats against the
 CPU, a checkpoint resume, the headless viewer, igutil and the mesh
-cache). They skip without a card. The file imports no JAX, so it runs on the
+cache), the instanced geometry gradient on the card against the CPU,
+and the multi-GPU layer of phase 11 (a one-rank NCCL group and a
+one-process mesh of 4 shards on S1). They skip without a card. The file imports no JAX, so it runs on the
 card's machine: `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 import json
 
@@ -355,6 +357,13 @@ def test_instanced_matches_flattened_on_card(device, subdivisions):
     assert out["q99"] < 0.05 and out["mean_rel"] < 0.01
 
 
+def test_instanced_geometry_gradient_on_card_matches_cpu(device):
+    """Phase 8's check: _grid_scene(8)'s gradient w.r.t. the shared soup
+    and w2l on the card (K2 and the MT replay) against the CPU's."""
+    out = chip_smoke.instanced_geometry_card_vs_cpu(device)
+    assert out["launches"]["MT_replay_bwd"] > 0
+
+
 @pytest.mark.parametrize("name", chip_smoke.REFERENCE_CASES)
 def test_technique_on_card_matches_cpu(device, name, tmp_path):
     """Each technique and the instanced render on the card against the
@@ -485,3 +494,14 @@ def test_mesh_cache_on_card(device, tmp_path):
     """Phase 10's cold and warm S6 loads through the mesh cache."""
     out = chip_smoke.phase_mesh_cache(tmp_path)
     assert out["cold_s"] > 0 and out["warm_s"] > 0
+
+
+def test_multi_gpu_phase_on_card(device):
+    """Phase 11 on S1 at 128x128: the one-rank NCCL group's film bit-equal
+    to step()'s and its train step within rtol 1e-5 of train_step's; 4
+    shards on the card, uncompacted bit-equal, compacted within the
+    bar."""
+    card = torch.device("cuda", 0)      # the mesh names the card's index
+    out = chip_smoke.phase_multi_gpu(card, _s1(card, 128), 0.0,
+                                     chip_smoke.nvidia_smi_line())
+    assert out["scaling_report"]["world_sizes"][0] == 1

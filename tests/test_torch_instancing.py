@@ -12,6 +12,7 @@ flattened scene; and the albedo gradient through instanced hits.
 The JAX package pads a group's local soup to a multiple of 256 triangles
 (TPU chunks); the port does not, so a hit's (instance, local triangle)
 is compared, not its encoded prim."""
+import dataclasses
 import json
 
 import jax
@@ -25,8 +26,8 @@ import ignis_tpu_torch
 from ignis_tpu.render.session import render_iteration as jax_iteration
 from ignis_tpu_torch.bridge import from_reference
 from ignis_tpu_torch.core.vec import Vec3
-from ignis_tpu_torch.ops import bvh_cuda, gather, isect_cuda
-from ignis_tpu_torch.ops.intersect import Hit, Rays
+from ignis_tpu_torch.ops import bvh_cuda, gather, isect_cuda, mt_replay
+from ignis_tpu_torch.ops.intersect import Hit, Rays, TriSoup
 from ignis_tpu_torch.render.session import render_iteration
 from ignis_tpu_torch.techniques import path
 
@@ -333,3 +334,198 @@ def test_albedo_gradient_through_instanced_hits():
         (grads[1] != 0).any())
     np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(),
                                rtol=1e-3, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# the instanced geometry gradient
+# ---------------------------------------------------------------------------
+
+def _leaf_soup(soup):
+    return TriSoup(*[Vec3(*[c.detach().clone().requires_grad_() for c in v])
+                     for v in soup])
+
+
+def _small_grid():
+    """_grid_scene(2) with its icosphere at subdivisions 1 (80 triangles),
+    32x32, spi 1: 4 instances, and a flattened soup of 320 triangles, under
+    the BVH threshold, so it keeps the entities' order."""
+    sc = _grid_scene(2)
+    sc["shapes"][0]["subdivisions"] = 1
+    sc["film"]["size"] = [32, 32]
+    return json.dumps(sc)
+
+
+def _local_to_world(geo):
+    """Each instance's local->world linear map L (float64 [I, 3, 3]) and
+    offset c, inverted from w2l."""
+    a = geo.w2l[:, :, :3].double()
+    lin = torch.linalg.inv(a)
+    return lin, -(lin @ geo.w2l[:, :, 3:].double())[..., 0]
+
+
+def _soup_grad(scene, settings, soup_leaves, with_soup):
+    img = render_iteration(with_soup(scene, soup_leaves), settings, 0, 0)
+    loss = torch.mean(img.double() ** 2)
+    return torch.autograd.grad(loss, [c for v in soup_leaves for c in v])
+
+
+def _with_group_soup(scene, soup):
+    (g,) = scene.instances
+    return scene._replace(instances=(g._replace(soup=soup),))
+
+
+def test_instanced_soup_gradient_matches_flattened():
+    """The gradient of a 32x32 L2 loss w.r.t. the shared local soup (v0,
+    e1, e2) equals the sum, over the 4 instances, of the flattened scene's
+    gradients w.r.t. each world copy, pulled back through that instance's
+    local->world linear map (L^T g): within 5e-5 of the largest entry
+    (float32 sums over the lanes in two orders), on a soup the flattened
+    scene's own to one ulp. Both renders replay each
+    bounce's closest hit (MT replay, plain version here)."""
+    doc = _small_grid()
+    flat, inst = _flat_and_instanced(doc, spi=1)
+    (geo,) = inst.scene.instances
+    lin, off = _local_to_world(geo)
+    n_inst, t_local = geo.n_instances, geo.tris_per_instance
+    assert flat.scene.bvh is None and n_inst == 4
+    for name, affine in (("v0", True), ("e1", False), ("e2", False)):
+        local = torch.stack(list(getattr(geo.soup, name)), -1).double()
+        world = torch.einsum("iab,tb->ita", lin, local)
+        if affine:
+            world = world + off[:, None, :]
+        np.testing.assert_allclose(
+            world.reshape(-1, 3).float().numpy(),
+            torch.stack(list(getattr(flat.scene.tris, name)), -1).numpy(),
+            rtol=0, atol=2.5e-7)
+    settings = dataclasses.replace(inst.settings, remat=True)
+    mt_replay.reset_counts()
+    g_inst = _soup_grad(inst.scene, settings, _leaf_soup(geo.soup),
+                        _with_group_soup)
+    assert mt_replay.counts["plain_calls"] == settings.max_depth
+    g_flat = _soup_grad(flat.scene, settings, _leaf_soup(flat.scene.tris),
+                        lambda sc, s: sc._replace(tris=s))
+    for k, name in enumerate(("v0", "e1", "e2")):
+        got = torch.stack(g_inst[3 * k:3 * k + 3], -1).double()
+        gw = torch.stack(g_flat[3 * k:3 * k + 3], -1).double()
+        want = torch.einsum("iab,ita->tb", lin,
+                            gw.reshape(n_inst, t_local, 3))
+        assert bool(torch.isfinite(got).all()) and (got != 0).sum() > 20
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=5e-5 * float(want.abs().max()),
+                                   err_msg=name)
+
+
+def test_instanced_soup_gradient_matches_central_differences():
+    """The same gradient against the port's central differences of the
+    image loss on its two largest entries (eps 5e-3, rtol 0.1, as the flat
+    soup's normal gradient): moving one local vertex moves it in every
+    instance."""
+    _, inst = _flat_and_instanced(_small_grid(), spi=1)
+    (geo,) = inst.scene.instances
+    settings = dataclasses.replace(inst.settings, remat=True)
+    grad = np.stack([g.numpy() for g in _soup_grad(
+        inst.scene, settings, _leaf_soup(geo.soup), _with_group_soup)])
+    p0 = np.stack([c.numpy() for v in geo.soup for c in v])
+
+    def loss_of(p):
+        soup = TriSoup(*[Vec3(*[torch.from_numpy(p[3 * i + j].copy())
+                                for j in range(3)]) for i in range(3)])
+        with torch.no_grad():
+            img = render_iteration(_with_group_soup(inst.scene, soup),
+                                   settings, 0, 0)
+        return float(torch.mean(img.double() ** 2))
+    flat_g = np.abs(grad).reshape(-1)
+    for i in np.argsort(-flat_g)[:2]:
+        idx = np.unravel_index(int(i), grad.shape)
+        hi, lo = p0.copy(), p0.copy()
+        hi[idx] += 5e-3
+        lo[idx] -= 5e-3
+        fd = (loss_of(hi) - loss_of(lo)) / 1e-2
+        np.testing.assert_allclose(grad[idx], fd, rtol=0.1, atol=1e-6)
+
+
+def test_instanced_trace_vjp_matches_jax(grid8):
+    """The VJP of the instanced closest hit's (t, u, v) at random
+    cotangents, on the ~2,000 of _rays' 8,192 rays that hit an instance,
+    w.r.t. the local soup, w2l and the rays' org and dir, against jax.vjp
+    of ignis_tpu.ops.instanced.intersect_instanced (its soup's padding
+    rows cut): finite on both sides, and within rtol 1e-4 plus 1e-4 of
+    the array's largest entry on 99% of the entries and within 1e-3 of it
+    on all. A few grazing hits part further: the forward u already
+    differs by up to 1e-3 there (test_instanced_trace_matches_jax), since
+    XLA contracts some products into FMAs."""
+    from ignis_tpu.ops import instanced as jinst
+    from ignis_tpu_torch.ops import instanced as inst
+    rt, scene, _ = grid8
+    (geo,), (jgeo,) = scene.instances, rt.scene.instances
+    base = scene.tris.v0.x.shape[0] + scene.spheres.radius.shape[0]
+    rays = _rays(scene)
+    sel = torch.nonzero(inst.intersect_instanced(rays, geo, base).prim
+                        >= 0).squeeze(1)
+    rays = Rays(*[Vec3(*[c[sel] for c in v]) if isinstance(v, Vec3)
+                  else v[sel] for v in rays])
+    rng = np.random.default_rng(11)
+    cts = [rng.normal(size=sel.shape[0]).astype(np.float32)
+           for _ in range(3)]
+    soup = _leaf_soup(geo.soup)
+    w2l = geo.w2l.clone().requires_grad_()
+    org, d = (Vec3(*[c.clone().requires_grad_() for c in v])
+              for v in (rays.org, rays.dir))
+    mt_replay.reset_counts()
+    h = inst.intersect_instanced(Rays(org, d, rays.tmin, rays.tmax),
+                                 geo._replace(soup=soup, w2l=w2l), base)
+    loss = sum((torch.from_numpy(c) * x).sum()
+               for c, x in zip(cts, (h.t, h.u, h.v)))
+    got = torch.autograd.grad(loss, [*[c for v in soup for c in v], w2l,
+                                     *org, *d])
+    assert mt_replay.counts["plain_calls"] == 1
+
+    jr = _jax_rays(rays)
+
+    def trace(soup_, w2l_, o, d_):
+        hh = jinst.intersect_instanced(jr._replace(org=o, dir=d_),
+                                       jgeo._replace(soup=soup_, w2l=w2l_),
+                                       base)
+        return hh.t, hh.u, hh.v
+    _, vjp = jax.vjp(trace, jgeo.soup, jgeo.w2l, jr.org, jr.dir)
+    jsoup, jw2l, jo, jd = vjp(tuple(jnp.asarray(c) for c in cts))
+    t_local = geo.tris_per_instance
+    want = [np.asarray(c)[:t_local] for v in jsoup for c in v] + [
+        np.asarray(jw2l)] + [np.asarray(c) for v in (jo, jd) for c in v]
+    names = [f"{a}.{c}" for a in ("v0", "e1", "e2") for c in "xyz"] + [
+        "w2l"] + [f"{a}.{c}" for a in ("org", "dir") for c in "xyz"]
+    for name, a, b in zip(names, got, want):
+        a = a.numpy()
+        assert np.isfinite(b).all() and np.isfinite(a).all(), name
+        scale = float(np.abs(b).max())
+        assert scale > 0, name
+        err = np.abs(a - b)
+        assert (err <= 1e-4 * np.abs(b) + 1e-4 * scale).mean() >= 0.99, name
+        assert err.max() <= 1e-3 * scale, name
+
+
+def test_forward_without_grad_records_no_replay():
+    """With grad mode on and nothing that moves a ray requiring grad (no
+    leaf at all, then the albedo), the instanced closest hit replays
+    nothing and returns the forward's own t, u and v; with the soup
+    requiring grad it returns the same values, recorded."""
+    from ignis_tpu_torch.ops import instanced as inst
+    _, rt = _flat_and_instanced(_small_grid(), spi=1)
+    (geo,) = rt.scene.instances
+    rays = _rays(rt.scene, n_side=32)
+    base = rt.scene.tris.v0.x.shape[0] + rt.scene.spheres.radius.shape[0]
+    mt_replay.reset_counts()
+    plain = inst.intersect_instanced(rays, geo, base)
+    settings = dataclasses.replace(rt.settings, remat=True)
+    leaf = type(rt.scene.materials.base)(*[
+        c.clone().requires_grad_() for c in rt.scene.materials.base])
+    img = render_iteration(rt.scene._replace(
+        materials=rt.scene.materials._replace(base=leaf)), settings, 0, 0)
+    torch.autograd.grad(img.sum(), list(leaf))
+    assert mt_replay.counts["plain_calls"] == 0
+    assert not plain.t.requires_grad
+    rec = inst.intersect_instanced(rays, geo._replace(
+        soup=_leaf_soup(geo.soup)), base)
+    assert rec.t.requires_grad and rec.u.requires_grad
+    for a, b in zip(rec, plain):
+        np.testing.assert_array_equal(a.detach().numpy(), b.numpy())

@@ -287,12 +287,24 @@ def test_png_loader_matches_jax(depth, color_type, tmp_path, jax_image):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
 
 
-def test_other_formats_raise(tmp_path):
+def test_other_formats_raise(tmp_path, jax_image):
+    """A JPEG texture, which this test once held to NotImplementedError,
+    loads as the JAX loader loads it (within 1/255 before the sRGB
+    decode); a truncated JPEG and a format neither package reads raise."""
+    import cv2
     from ignis_tpu_torch.utils.image import load_image
+    rgb = np.random.RandomState(2).randint(0, 256, (16, 24, 3)).astype(
+        np.uint8)
     p = tmp_path / "x.jpg"
+    assert cv2.imwrite(str(p), rgb)
+    np.testing.assert_allclose(load_image(p, linear=True),
+                               jax_image.load_image(p, linear=True),
+                               rtol=0, atol=1.0 / 255.0)
     p.write_bytes(b"\xff\xd8\xff")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="truncated"):
         load_image(p)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        load_image(tmp_path / "x.webp")
 
 
 def test_substitute_env_matches_jax(tmp_path):
