@@ -22,8 +22,11 @@ printing its own lines; any failure exits non-zero:
    (`crossing_sets`: the first and second closest hits along the shadow
    segments to its point light);
 5. render S1-S6 at 512x512 through `loadFromString` (its default device,
-   the card) and `Runtime.step()`, with every kernel's launch count reset
-   just before and read just after; no plain version may run; then one more
+   the card) and `Runtime.step()`, which replays the cascade's CUDA graphs
+   (techniques/cascade.py; the first step captures them), with every
+   kernel's launch count reset just before and read just after (a replay
+   adds the launches its graphs recorded); no plain version may run;
+   then one more
    step of each under torch.profiler (render/profile.py): device time,
    busy share and top device consumers of that step. S5 (`s5_scene`) is
    the materials-and-lights scene: every analytic BSDF kind of the slice,
@@ -111,6 +114,20 @@ printing its own lines; any failure exits non-zero:
    step()'s film, each timed with its host syncs; S1's scene under ao
    sharded over the same mesh, bit-equal to render_iteration's film;
    scaling_report's world-size-1 line;
+12. the captured step (`phase_captured`): for S1-S6 (S6 volpath) and
+   S9 at 512x512, the runtimes of phases 5 and 9 (whose first steps
+   captured the cascade's CUDA graphs) reset, their films of iterations
+   0 and 1 bit-equal to eager render_iteration's (render_lanes); eager
+   and captured beside each other: Msamples/s, host syncs a step (and the
+   captured step's flag waits behind the device), K1/K2/K3 launches a
+   step counted through the replays, bounce evaluations a step, the
+   first step's seconds, capture time and peak memory; stage 0's bounce
+   graph dumped (DOT) with a kernel node for each launch its capture
+   counted and K1's counter memsets; on S9, setParameter('tint') and a
+   camera move after the capture, each bit-equal to the eager film with
+   no rebuild and no new capture. S7
+   (instanced), S8 (lt, ppm), the other techniques, the train steps and
+   the sharded paths stay eager (phases 7, 8, 11 print which);
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -1286,7 +1303,9 @@ def plain_calls() -> int:
 
 
 def phase_render(device, runtimes):
-    """Render S1-S5 on the card; launch counts reset just before."""
+    """Render S1-S6 on the card through Runtime.step(), which replays the
+    cascade's CUDA graphs (its first step captures them); launch counts
+    reset just before, counted through the replays."""
     import torch
     from ignis_tpu_torch.ops import bvh_cuda, gather, isect_cuda
     bvh_cuda.reset_overflow(device)
@@ -1296,8 +1315,8 @@ def phase_render(device, runtimes):
         kernel = KERNEL_OF[name]
         k1_0, k2_0 = bvh_cuda.counts["launches"], isect_cuda.counts["launches"]
         k3_0 = gather.gather_counts["launches"]
-        rt.step()                               # warm-up
-        torch.cuda.synchronize()
+        check(rt.captured, f"{name}: Runtime.step() replays CUDA graphs")
+        first = first_step(rt)                  # warm-up and capture
         t0 = time.perf_counter()
         for _ in range(3):
             rt.step()
@@ -1310,9 +1329,10 @@ def phase_render(device, runtimes):
         k1 = bvh_cuda.counts["launches"] - k1_0
         k2 = isect_cuda.counts["launches"] - k2_0
         k3 = gather.gather_counts["launches"] - k3_0
-        print(f"  {name}: {msps:.4f} Msamples/s ({sec:.3f} s for 3 steps), "
-              f"image mean {mean:.6f}, K1 launches {k1}, K2 launches {k2}, "
-              f"K3 gather launches {k3}")
+        print(f"  {name}: {msps:.4f} Msamples/s ({sec:.3f} s for 3 "
+              f"captured steps; first step's capture "
+              f"{rt.capture_seconds:.3f} s), image mean {mean:.6f}, K1 "
+              f"launches {k1}, K2 launches {k2}, K3 gather launches {k3}")
         check(tuple(img.shape) == (s.height, s.width, 3),
               f"{name}: image shape {tuple(img.shape)}")
         check(bool(torch.isfinite(img).all()), f"{name}: image finite")
@@ -1321,7 +1341,9 @@ def phase_render(device, runtimes):
         check(launched > 0 and k3 > 0, f"{name}: {kernel} launched "
               f"{launched} times, K3 gather {k3} times")
         per_scene[name] = {"msamples_per_s": msps, "seconds_3_steps": sec,
-                           "mean": mean, "K1": k1, "K2": k2, "K3": k3}
+                           "mean": mean, "K1": k1, "K2": k2, "K3": k3,
+                           "capture_s": rt.capture_seconds,
+                           "first_step": first}
     counts = launches()
     check(counts["K3_gather_rows"] > 0, f"K3 gather_rows launched "
           f"{counts['K3_gather_rows']} times")
@@ -2299,6 +2321,23 @@ def aept_scene(env_file, size=512, subdivisions=7):
     return sc
 
 
+def first_step(rt):
+    """rt's first step (for a captured runtime: the warm-up run and the
+    capture), timed, with its peak memory above what was allocated before
+    it."""
+    import torch
+    device = rt.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    rt.step()
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0,
+            "peak_gib": (torch.cuda.max_memory_allocated(device) - base)
+            / 2**30}
+
+
 def count_syncs(fn):
     """(fn()'s result, the host syncs it made), counted by torch's CUDA
     sync debug mode, which warns at every synchronizing call (an alive
@@ -2322,8 +2361,7 @@ def measure_steps(name, rt, need, steps=1, profile=True):
     path must launch; no plain version may run."""
     import torch
     from ignis_tpu_torch.render.profile import profile_step
-    rt.step()
-    torch.cuda.synchronize()
+    first = first_step(rt)
     reset_all_counts()
     t0 = time.perf_counter()
     _, syncs = count_syncs(lambda: [rt.step() for _ in range(steps)])
@@ -2338,7 +2376,8 @@ def measure_steps(name, rt, need, steps=1, profile=True):
     per = {k: v / steps for k, v in used.items()}
     print(f"  {name}: {msps:.4f} Msamples/s ({sec:.3f} s for {steps} "
           f"step(s)), image mean {mean:.6f}, a step: launches {per}, host "
-          f"syncs {syncs / steps:g}")
+          f"syncs {syncs / steps:g}, "
+          f"{'captured (CUDA graphs)' if rt.captured else 'eager'}")
     check(tuple(img.shape) == (s.height, s.width, 3)
           and bool(torch.isfinite(img).all()) and mean > 0,
           f"{name}: image finite and not black")
@@ -2347,7 +2386,8 @@ def measure_steps(name, rt, need, steps=1, profile=True):
     check(plain == 0, f"{name}: no plain version called ({plain})")
     out = {"msamples_per_s": msps, "seconds": sec, "steps": steps,
            "mean": mean, "launches_per_step": per,
-           "host_syncs_per_step": syncs / steps}
+           "host_syncs_per_step": syncs / steps, "captured": rt.captured,
+           "first_step": first}
     if profile:
         p = profile_step(rt.step, PROFILE_NAMES)
         print(f"    profiled step {p['wall_s']:.4f} s, device ops "
@@ -2713,12 +2753,15 @@ def tensor_bytes(obj) -> int:
 
 def record_dj_gathers(rt):
     """(rows, table, k) of every K3 gather of the Dupuy-Jakob corner fetch
-    in one step of rt: record_k3_calls' gathers from the scene's
+    in one eager step of rt: record_k3_calls' gathers from the scene's
     Dupuy-Jakob gather table."""
     from ignis_tpu_torch.models.djmeasured import DJData
+    from ignis_tpu_torch.render.session import render_iteration
     tables = {m.table.data_ptr() for m in rt.scene.measured
               if isinstance(m, DJData)}
-    gathers, _ = record_k3_calls(rt.step)
+    # an eager step: a captured one calls no wrapper, it replays the graphs
+    gathers, _ = record_k3_calls(lambda: render_iteration(
+        rt.scene, rt.settings, rt.iteration_count, 0))
     return [g for g in gathers if g[1].data_ptr() in tables]
 
 
@@ -2923,7 +2966,8 @@ def phase_s9(device, build_dir):
     ref["bake"] = err
     return {"load_s": load_s, "triangles": n,
             "measured_bytes": dict(zip(kinds, mbytes)), "forward": fwd,
-            "dj_k3": dj, "tint": tint, "train": train, "reference": ref}
+            "dj_k3": dj, "tint": tint, "train": train, "reference": ref,
+            "runtime": rt}
 
 
 # ---------------------------------------------------------------------------
@@ -3488,6 +3532,297 @@ def phase_multi_gpu(device, s1, s1_msps, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the captured step
+# ---------------------------------------------------------------------------
+
+CAPTURED_TIMED_STEPS = 3   # captured steps timed after the comparisons
+
+
+def counting_bounces(counter):
+    """Wrap path.technique_fns so that every bounce the eager cascade
+    (render_lanes) runs adds one to counter[0]; returns the original."""
+    from ignis_tpu_torch.techniques import path
+    real = path.technique_fns
+
+    def fns(settings):
+        initial, make = real(settings)
+
+        def counted_make(*a, **kw):
+            bounce = make(*a, **kw)
+
+            def counted(st):
+                counter[0] += 1
+                return bounce(st)
+            return counted
+        return initial, counted_make
+    path.technique_fns = fns
+    return real
+
+
+def eager_step(scene, settings, iteration, device):
+    """One eager render_iteration (render_lanes, its tables made anew, as
+    Runtime.step() ran before the capture) with its seconds, host syncs,
+    launches, bounces and peak memory above what was allocated before
+    it."""
+    import torch
+    from ignis_tpu_torch.render.session import render_iteration
+    from ignis_tpu_torch.techniques import path
+    counter = [0]
+    real = counting_bounces(counter)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    try:
+        img, syncs = count_syncs(lambda: render_iteration(
+            scene, settings, iteration, 0))
+        torch.cuda.synchronize()
+    finally:
+        path.technique_fns = real
+    return img, {"seconds": time.perf_counter() - t0, "host_syncs": syncs,
+                 "launches": launches(), "bounce_evaluations": counter[0],
+                 "peak_bytes": torch.cuda.max_memory_allocated(device)
+                 - base}
+
+
+def captured_step(rt, device):
+    """One Runtime.step() of a captured runtime with its seconds, host
+    syncs (torch's sync debug mode), host waits for a flag (one a bounce
+    evaluation), launches counted through the replays, bounce evaluations
+    and peak memory above what was allocated before it (a replay
+    allocates nothing from the caching allocator: its temporaries live
+    in the graphs' pool, graph_pool_bytes)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    _, syncs = count_syncs(rt.step)
+    torch.cuda.synchronize()
+    last = rt.program.last
+    return {"seconds": time.perf_counter() - t0, "host_syncs": syncs,
+            "host_waits": last.evaluations, "launches": launches(),
+            "bounce_evaluations": last.evaluations,
+            "bounces": list(last.bounces),
+            "peak_bytes": torch.cuda.max_memory_allocated(device) - base}
+
+
+def _kernels(used):
+    return {k: used[k] for k in ("K1", "K2", "K3_gather_rows")}
+
+
+GRAPH_NODE_KERNELS = {"K1": "bvh_walk_kernel", "K2": "isect_dense_kernel",
+                      "K3_gather_rows": "gather_rows_kernel"}
+
+
+def graph_nodes(prog, key, dot_path):
+    """Capture program `key` of a CascadeProgram once more with the CUDA
+    graph's debug mode on, dump the graph as DOT and count its nodes: each
+    kernel's launch nodes by name, the memset nodes and all nodes; beside
+    them the launches the wrappers counted while it was captured."""
+    import torch
+    from ignis_tpu_torch.ops import cuda_build
+    g = torch.cuda.CUDAGraph(keep_graph=True)   # kept for debug_dump
+    g.enable_debug_mode()
+    before = cuda_build.launch_snapshot()
+    names = list(all_counts())
+    try:
+        with torch.no_grad(), torch.cuda.graph(
+                g, capture_error_mode="thread_local"):
+            prog._program(key)
+    finally:
+        delta = cuda_build.launches_since(before)
+        cuda_build.add_launches(delta, -1)
+    counted = dict(zip(names, [delta[cuda_build.COUNTERS.index(c)]
+                               for c in all_counts().values()]))
+    g.debug_dump(str(dot_path))
+    del g
+    # a node's statement runs from its `..node_N"[` line to the next node,
+    # edge or subgraph line (a verbose label may span lines)
+    blocks, cur = [], None
+    for ln in Path(dot_path).read_text().splitlines():
+        if re.match(r'^\s*"?[\w.]*node_\d+"?\s*\[', ln):
+            cur = [ln]
+            blocks.append(cur)
+        elif "->" in ln or ln.strip().startswith(("}", "subgraph")):
+            cur = None
+        elif cur is not None:
+            cur.append(ln)
+    stmts = [" ".join(b) for b in blocks]
+    nodes = {k: sum(kname in st for st in stmts)
+             for k, kname in GRAPH_NODE_KERNELS.items()}
+    nodes["memset"] = sum("MEMSET" in st.upper() for st in stmts)
+    nodes["all"] = len(stmts)
+    return nodes, counted
+
+
+def graph_pool_bytes(prog):
+    """Bytes the caching allocator holds in the memory pool of a captured
+    CascadeProgram's graphs (its segments in torch's memory snapshot)."""
+    import torch
+    pool = tuple(prog.pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory._snapshot()[
+        "segments"] if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def captured_against_eager(name, rt, device, first=None):
+    """rt (a captured Runtime) reset and stepped: its films of iterations 0
+    and 1 against eager render_iteration's bit for bit, then
+    CAPTURED_TIMED_STEPS captured steps timed, and stage 0's bounce graph
+    against the launches its capture counted. `first` is the seconds and
+    peak memory of rt's first (capturing) step where an earlier phase took
+    it; for a runtime that has not stepped, its first step here captures.
+    Returns the numbers, eager and captured beside each other."""
+    import torch
+    scene, s = rt.scene, rt.settings
+    check(rt.captured, f"{name}: Runtime.step() replays CUDA graphs")
+    rt.reset()
+    capturing = rt.program is None
+    cap_steps = [captured_step(rt, device)]
+    if capturing:
+        first = {"seconds": cap_steps[0]["seconds"],
+                 "peak_gib": cap_steps[0]["peak_bytes"] / 2**30}
+    check(rt.program is not None and rt.program.captured,
+          f"{name}: the first step captured the cascade")
+    eager = []
+    e0, st = eager_step(scene, s, 0, device)
+    eager.append(st)
+    check(torch.equal(rt.framebuffer(), e0), f"{name}: captured film of "
+          f"iteration 0 bit-equal to eager's")
+    cap_steps.append(captured_step(rt, device))
+    e1, st = eager_step(scene, s, 1, device)
+    eager.append(st)
+    check(torch.equal(rt.framebuffer(), e0 + e1),
+          f"{name}: captured film of iterations 0-1 bit-equal to eager's")
+    t0 = time.perf_counter()
+    timed = [captured_step(rt, device) for _ in range(CAPTURED_TIMED_STEPS)]
+    sec = time.perf_counter() - t0
+    img = rt.framebuffer(normalized=True)
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+          f"{name}: captured film finite and not black")
+    samples = s.width * s.height * s.spi
+    e_sec = sum(e["seconds"] for e in eager)
+    one = cap_steps[1]      # iteration 1, as eager[1]
+    out = {
+        "eager": {"msamples_per_s": len(eager) * samples / e_sec / 1e6,
+                  "seconds": [e["seconds"] for e in eager],
+                  "host_syncs_per_step": eager[1]["host_syncs"],
+                  "launches_per_step": _kernels(eager[1]["launches"]),
+                  "bounce_evaluations_per_step":
+                      eager[1]["bounce_evaluations"],
+                  "peak_gib": max(e["peak_bytes"] for e in eager) / 2**30},
+        "captured": {
+            "msamples_per_s": len(timed) * samples / sec / 1e6,
+            "seconds": [c["seconds"] for c in timed],
+            "host_syncs_per_step": one["host_syncs"],
+            "host_waits_per_step": one["host_waits"],
+            "launches_per_step": _kernels(one["launches"]),
+            "bounce_evaluations_per_step": one["bounce_evaluations"],
+            "bounces_by_stage": one["bounces"],
+            "timed_host_syncs": [c["host_syncs"] for c in timed],
+            "first_step_s": first and first["seconds"],
+            "capture_s": rt.capture_seconds,
+            "graphs": 1 + 2 * len(one["bounces"]),
+            "peak_gib_first_step": first and first["peak_gib"],
+            "peak_gib": max(c["peak_bytes"] for c in timed) / 2**30,
+            "graph_pool_gib": graph_pool_bytes(rt.program) / 2**30},
+        "bit_equal_iterations": [0, 1]}
+    e, c = out["eager"], out["captured"]
+    dot = ROOT / "build" / f"graph_{name}.dot"
+    nodes, counted = graph_nodes(rt.program, ("bounce", 0), dot)
+    out["bounce_graph_nodes"] = nodes
+    print(f"  {name}: stage 0's bounce graph: {nodes['all']} nodes, kernel "
+          f"nodes K1 {nodes['K1']}, K2 {nodes['K2']}, K3 "
+          f"{nodes['K3_gather_rows']}, memsets {nodes['memset']}; "
+          f"launches its capture counted {counted}")
+    ok = (all(nodes[k] == counted[k] for k in GRAPH_NODE_KERNELS)
+          and nodes["memset"] >= counted["K1"] and nodes["all"] > 0)
+    if not ok:
+        print("\n".join(dot.read_text().splitlines()[:40]))
+    check(ok, f"{name}: the bounce graph holds a node for each kernel "
+          f"launch the wrappers counted, and K1's counter memsets")
+    # iteration 1, eager and captured: the same bounces, and one gated-off
+    # bounce a stage more, whose kernels the replays launch too
+    check(all(v > 0 for k, v in c["launches_per_step"].items()
+              if e["launches_per_step"][k] > 0)
+          and plain_calls() == 0,
+          f"{name}: every kernel of the eager step launched in the "
+          f"replays, no plain version")
+    check(sum(c["bounces_by_stage"]) == e["bounce_evaluations_per_step"]
+          and c["bounce_evaluations_per_step"]
+          == sum(c["bounces_by_stage"]) + len(c["bounces_by_stage"]),
+          f"{name}: the eager step's bounces, and one gated-off bounce a "
+          f"stage")
+    first_s = "not measured" if first is None else (
+        f"{first['seconds']:.3f} s (peak {first['peak_gib']:.3f} GiB)")
+    print(f"  {name}: Msamples/s eager {e['msamples_per_s']:.4f} / captured "
+          f"{c['msamples_per_s']:.4f}; host syncs a step "
+          f"{e['host_syncs_per_step']} / {c['host_syncs_per_step']} "
+          f"(+{c['host_waits_per_step']} flag waits behind the device); "
+          f"launches a step K1, K2, K3 "
+          f"{list(e['launches_per_step'].values())} / "
+          f"{list(c['launches_per_step'].values())}; bounce evaluations "
+          f"{e['bounce_evaluations_per_step']} / "
+          f"{c['bounce_evaluations_per_step']} (stages "
+          f"{c['bounces_by_stage']}); capture {c['capture_s']:.3f} s, "
+          f"{c['graphs']} graphs, first step {first_s}; peak above the "
+          f"step's start {e['peak_gib']:.3f} / {c['peak_gib']:.3f} GiB, "
+          f"the graphs' pool {c['graph_pool_gib']:.3f} GiB")
+    return out
+
+
+def captured_parameter_and_camera(name, rt):
+    """On a captured runtime: setParameter('tint') (a registry parameter)
+    and then a camera move, each followed by a step whose film equals the
+    eager film of the changed scene bit for bit, with no rebuild and no
+    new capture."""
+    import torch
+    from ignis_tpu_torch.render.session import render_iteration
+    prog, rebuilds = rt.program, rt.rebuilds
+    reg = rt.scene.registry["tint"]
+    rt.setParameter("tint", float(reg) * 0.5)
+    rt.reset()
+    rt.step()
+    want = render_iteration(rt.scene, rt.settings, 0, 0)
+    check(torch.equal(rt.framebuffer(), want) and rt.rebuilds == rebuilds
+          and rt.scene.registry["tint"] is reg and rt.program is prog,
+          f"{name}: setParameter('tint') after the capture bit-equal to the "
+          f"eager film, no rebuild, no new capture")
+    cam = rt.scene.camera
+    eye = [float(v) for v in cam.eye]
+    rt.setCameraOrientation([eye[0] + 0.2, eye[1] + 0.1, eye[2]],
+                            [float(v) for v in cam.dir],
+                            [float(v) for v in cam.up])
+    rt.reset()
+    rt.step()
+    want = render_iteration(rt.scene, rt.settings, 0, 0)
+    check(torch.equal(rt.framebuffer(), want) and rt.rebuilds == rebuilds
+          and rt.program is prog,
+          f"{name}: a camera move after the capture bit-equal to the eager "
+          f"film, no new capture")
+    print(f"  {name}: setParameter('tint') and a camera move after the "
+          f"capture: bit-equal to eager, rebuilds {rt.rebuilds}")
+    return True
+
+
+def phase_captured(device, runtimes, firsts):
+    """Phase 12: Runtime.step() as captured CUDA graphs
+    (techniques/cascade.py) on the runtimes of phases 5 and 9 (S1-S6, S6
+    volpath, and S9 at 512x512), each against the eager render bit for
+    bit over two iterations (`firsts`: each one's first, capturing step);
+    on S9, setParameter('tint') and a camera move after the capture."""
+    out = {}
+    for name, rt in runtimes.items():
+        out[name] = captured_against_eager(name, rt, device,
+                                           firsts.get(name))
+    out[S9_NAME]["tint_and_camera_bit_equal"] = (
+        captured_parameter_and_camera(S9_NAME, runtimes[S9_NAME]))
+    return out
+
+
 def main() -> int:
     import argparse
     import torch
@@ -3610,6 +3945,7 @@ def main() -> int:
     print(f"== phase 9: the scene-language slice, S9 "
           f"({time.perf_counter() - t_start:.1f} s in)")
     s9 = phase_s9(device, ROOT / "build")
+    s9_rt = s9.pop("runtime")
 
     print(f"== phase 10: the frontends and post-processing "
           f"({time.perf_counter() - t_start:.1f} s in)")
@@ -3620,6 +3956,13 @@ def main() -> int:
     multi_gpu = phase_multi_gpu(
         device, runtimes["S1_glass_ico7"],
         per_scene["S1_glass_ico7"]["msamples_per_s"], smi)
+
+    print(f"== phase 12: the captured step "
+          f"({time.perf_counter() - t_start:.1f} s in)")
+    captured = phase_captured(
+        device, {**runtimes, S9_NAME: s9_rt},
+        {**{k: v["first_step"] for k, v in per_scene.items()},
+         S9_NAME: s9["forward"]["first_step"]})
 
     def timed(t):
         ms, plain, bms, by = t
@@ -3682,7 +4025,8 @@ def main() -> int:
              "geometry_profile": geometry_profile,
              "instancing": instancing, "techniques": techniques,
              "techniques_reference": techniques_reference, "s9": s9,
-             "frontends": frontends, "multi_gpu": multi_gpu}, indent=1))
+             "frontends": frontends, "multi_gpu": multi_gpu,
+             "captured": captured}, indent=1))
     print(json.dumps({"scenes": per_scene, "train": train, "sigma": sigma,
                       "geometry_profile_us": {
                           k: v for k, v in geometry_profile.items()
@@ -3693,6 +4037,7 @@ def main() -> int:
     print(json.dumps({"s9": _no_top(s9)}))
     print(json.dumps({"frontends": frontends}))
     print(json.dumps({"multi_gpu": multi_gpu}))
+    print(json.dumps({"captured": captured}))
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -33,7 +33,7 @@ def _radical_inverse_2(i):
 def _radical_inverse_3(i):
     x = as_u32(i).to(torch.float32)
     inv = torch.zeros_like(x)
-    f = torch.tensor(1.0 / 3.0, dtype=torch.float32, device=x.device)
+    f = x.new_full((), 1.0 / 3.0)
     base_inv = f
     for _ in range(20):
         d = torch.remainder(x, 3.0)
@@ -44,9 +44,13 @@ def _radical_inverse_3(i):
 
 
 def sample_pixel_offsets(kind: str, rng_state, sample_index, x, y):
-    """Returns (rng_state, (sx, sy)) jitter offsets in [0,1)^2."""
+    """Returns (rng_state, (sx, sy)) jitter offsets in [0,1)^2.
+    `sample_index` is an int or an integer tensor (a 0-d one broadcasts
+    over the lanes): both give the same bits."""
     if kind == "halton":
         idx = as_u32(sample_index)
+        if not isinstance(idx, torch.Tensor):
+            idx = torch.full((), idx, dtype=torch.int64, device=x.device)
         rot = rnglib.seed(0, 0, 0, x, y, 0x9e3779b9)
         _, (r0, r1) = rnglib.next_f32_n(rot, 2)
         sx = torch.remainder(_radical_inverse_2(idx) + r0, 1.0)

@@ -478,10 +478,13 @@ def select_light(settings, lights: Lights, u, pos: Vec3 = None,
         pick_inf = u < ratio
         u_inf = torch.clamp(u / ratio, 0.0, 1.0 - 1e-7)
         u_fin = torch.clamp((u - ratio) / (1.0 - ratio), 0.0, 1.0 - 1e-7)
-        inf_rows = torch.tensor(settings.infinite_light_rows,
-                                dtype=torch.int32, device=u.device)
-        i_idx = inf_rows[torch.clamp((u_inf * n_inf).to(torch.int64), 0,
-                                     n_inf - 1)]
+        # the k-th infinite row, picked by where over the settings' rows
+        # (no host-to-device copy, so a CUDA graph can hold it)
+        k = torch.clamp((u_inf * n_inf).to(torch.int64), 0, n_inf - 1)
+        rows = settings.infinite_light_rows
+        i_idx = torch.full_like(k, rows[0], dtype=torch.int32)
+        for j, r in enumerate(rows[1:], 1):
+            i_idx = torch.where(k == j, r, i_idx)
         h_idx, h_pdf = select_hierarchy(lights, u_fin, pos, depth)
         return (torch.where(pick_inf, i_idx, h_idx.to(torch.int32)),
                 torch.where(pick_inf, ratio / n_inf, h_pdf * (1.0 - ratio)))

@@ -8,6 +8,14 @@ ctypes; the host-side BVH builder (native/) goes through the same
 `compile_and_load` with g++. A library is keyed by a hash of its source,
 compiler, flags and host architecture. Nothing here runs at import time,
 and a failed build or launch raises.
+
+A launch goes to the current stream and its wrapper keeps no pointer past
+the call, so a CUDA graph captures it as a kernel node (K1's counter reset
+as a memset node); the library load and the wrappers' caches (K1's node
+records and counters) are made by a warm-up run before any capture
+(techniques/cascade.py). A wrapper counts a launch when it makes one, so
+a graph's capture counts the launches it records (`launch_snapshot`,
+`launches_since`) and each replay adds them (`add_launches`).
 """
 from __future__ import annotations
 
@@ -38,14 +46,37 @@ _LIBS: dict = {}
 BUILD_LOG: dict = {}   # library name -> (seconds, compiler output)
 
 
+COUNTERS: list = []   # every wrapper's Counts, in the order they were made
+
+
 class Counts(dict):
     """A kernel wrapper's counters: kernel launches and plain-version calls."""
 
     def __init__(self):
         super().__init__(launches=0, plain_calls=0)
+        COUNTERS.append(self)
 
     def reset(self) -> None:
         self.update(launches=0, plain_calls=0)
+
+
+def launch_snapshot() -> tuple:
+    """Every wrapper's launch count, in COUNTERS order."""
+    return tuple(c["launches"] for c in COUNTERS)
+
+
+def launches_since(before: tuple) -> tuple:
+    """The launches each wrapper counted since launch_snapshot() gave
+    `before`."""
+    return tuple(c["launches"] - b for c, b in zip(COUNTERS, before))
+
+
+def add_launches(delta: tuple, times: int = 1) -> None:
+    """Add `times` x `delta` (a launches_since result) to the counts: a CUDA
+    graph's replay launches the kernels its capture recorded, and its
+    capture launched none."""
+    for c, d in zip(COUNTERS, delta):
+        c["launches"] += times * d
 
 
 def _nvcc() -> str:

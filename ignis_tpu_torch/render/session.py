@@ -40,9 +40,23 @@ iteration), the reference API's properties and a context manager.
 `step()` times itself in `stats` ("Iteration+Compile" for the first
 step, then "Iteration") with CUDA events on the card, so it adds no host
 sync.
+
+The Runtime keeps the render's tables (`render_tables`) between steps
+(made anew each step only under settings.remat), and on a CUDA device it
+runs a path or volpath scene without instances and without remat by
+replaying CUDA graphs of the cascade (techniques/cascade.py), the
+counterpart of the JAX Runtime's jitted iteration (_compiled_iteration,
+ignis_tpu/render/session.py:49-63): the first step runs the cascade's
+programs once eagerly and captures them, each later step fills the
+iteration, frame and camera and replays. `uses_graphs` decides this from
+the scene and settings before any capture and `Runtime.captured` reports
+it; the films equal the eager render's bit for bit. A registry
+parameter and a camera change need no new capture; a rebuild drops the
+tables and the graphs.
 """
 from __future__ import annotations
 
+import time
 from pathlib import Path
 
 import numpy as np
@@ -52,11 +66,11 @@ from ..core import rng as rnglib
 from ..core.sampler import sample_pixel_offsets
 from ..core.vec import Color, Vec3
 from ..models import camera as cameralib
-from ..models.texture import make_texture_evaluator
 from ..scene.build import build_scene
 from ..scene.parser import load_from_file, load_from_string
 from ..scenedata import RenderSettings, SceneData
 from ..techniques import canonical, dispatch_technique
+from ..techniques.cascade import CascadeProgram
 from ..ops.intersect import Rays
 from ..techniques.path import (check_settings, render_lanes,
                                render_lanes_stats, render_tables, trace_rays)
@@ -106,22 +120,41 @@ def aept_guiding(scene: SceneData, settings: RenderSettings, frame: int,
 
 
 def render_iteration(scene: SceneData, settings: RenderSettings,
-                     iteration: int, frame: int,
-                     guiding=None) -> torch.Tensor:
+                     iteration: int, frame: int, guiding=None,
+                     tabs=None) -> torch.Tensor:
     """One iteration: [h, w, 3] mean radiance over settings.spi samples,
     by the settings' technique. With settings.remat, path and volpath take
     the differentiable cascade at every film size (as
     ignis_tpu/render/session.py:227): differentiable in the scene's
     tensors that require grad. aept uses `guiding` (aept_guiding), and
-    learns it first when none is given."""
+    learns it first when none is given. `tabs` are the render's tables
+    (render_tables), made here when not given."""
     x, y = _pixels(settings, scene.device)
     return _image(render_technique_lanes(scene, settings, x, y, iteration,
-                                         frame, guiding), settings)
+                                         frame, guiding, tabs=tabs),
+                  settings)
+
+
+def compact_lanes(settings: RenderSettings) -> bool:
+    """Whether path and volpath compact: with settings.remat, or for a film
+    of _COMPACTION_MIN_LANES lanes or more."""
+    return (settings.remat
+            or settings.width * settings.height >= _COMPACTION_MIN_LANES)
+
+
+def uses_graphs(scene: SceneData, settings: RenderSettings) -> bool:
+    """The dispatch rule of Runtime.step(), decided by the scene and the
+    settings before any capture: CUDA graphs (techniques/cascade.py) for a
+    path or volpath scene on a CUDA device without instances and without
+    settings.remat; the eager render for every other."""
+    return (scene.device.type == "cuda"
+            and canonical(settings.technique) in ("path", "volpath")
+            and scene.instances is None and not settings.remat)
 
 
 def render_technique_lanes(scene: SceneData, settings: RenderSettings, x, y,
                            iteration: int, frame: int, guiding=None,
-                           compact=None) -> Color:
+                           compact=None, tabs=None) -> Color:
     """render_iteration's work for the lanes (pixels) x, y, by the
     settings' technique: each lane's radiance summed over settings.spi
     samples, in x's lane order; for lt, the whole [h*w] film that these
@@ -129,18 +162,17 @@ def render_technique_lanes(scene: SceneData, settings: RenderSettings, x, y,
     `compact` says so (by default as render_iteration does: with
     settings.remat or a film of _COMPACTION_MIN_LANES lanes or more).
     ppm's photon pass and aept's learning iterations (when no `guiding`
-    is given) cover the whole scene and film whatever the lanes."""
-    w, h = settings.width, settings.height
+    is given) cover the whole scene and film whatever the lanes. `tabs`
+    as in render_iteration."""
+    w = settings.width
     tech = canonical(settings.technique)
-    eval_texture = make_texture_evaluator(settings.texture_descs,
-                                          scene.textures)
+    if tabs is None:
+        tabs = render_tables(scene, settings)
     if tech in ("path", "volpath"):
         if compact is None:
-            compact = settings.remat or w * h >= _COMPACTION_MIN_LANES
+            compact = compact_lanes(settings)
         return render_lanes(scene, settings, x, y, iteration, frame,
-                            compact=compact, remat=settings.remat,
-                            eval_texture=eval_texture)
-    tabs = render_tables(scene, settings, eval_texture)
+                            compact=compact, remat=settings.remat, tabs=tabs)
     fn = dispatch_technique(tech)
     if tech in ("lt", "ppm"):
         return fn(scene, settings, x, y, iteration, frame, tabs)
@@ -215,6 +247,10 @@ class Runtime:
         self._profiling = None
         self.rebuilds = 0
         self.stats = Statistics()
+        self._tables = None       # render_tables, kept until a rebuild
+        self._program = None      # the captured cascade (CascadeProgram)
+        self.captured = uses_graphs(scene, settings)
+        self.capture_seconds = None
 
     @staticmethod
     def _load(sc, device, overrides) -> "Runtime":
@@ -313,7 +349,46 @@ class Runtime:
         self.scene, self.settings = built.data, built.settings
         self.warnings = list(built.warnings)
         self._aept_guiding = None
+        self._tables = None
+        self._program = None
+        self.captured = uses_graphs(self.scene, self.settings)
         self.rebuilds += 1
+
+    def _step_tables(self):
+        """The render's tables, made once and kept until a rebuild; with
+        settings.remat made anew each step, since they carry the step's
+        gradient."""
+        if self.settings.remat:
+            return None
+        if self._tables is None:
+            self._tables = render_tables(self.scene, self.settings)
+        return self._tables
+
+    def _captured_iteration(self) -> torch.Tensor:
+        """One iteration by replaying the cascade's CUDA graphs; the first
+        call makes the program, runs it once eagerly (the warm-up) and
+        captures it. The camera is copied into the program before each
+        run, so a camera change needs no capture."""
+        if self._program is None:
+            t0 = time.perf_counter()
+            x, y = _pixels(self.settings, self.device)
+            prog = CascadeProgram(self.scene, self.settings,
+                                  self._step_tables(), x, y,
+                                  compact_lanes(self.settings))
+            prog.run(self._iteration, self._frame)
+            prog.capture()
+            self._program = prog
+            self.capture_seconds = time.perf_counter() - t0
+        self._program.set_camera(self.scene.camera)
+        return _image(self._program.run(self._iteration, self._frame),
+                      self.settings)
+
+    @property
+    def program(self):
+        """The captured cascade (techniques/cascade.CascadeProgram) once a
+        captured step has run, else None; `program.last` counts the last
+        step's bounces by stage and its bounce evaluations."""
+        return self._program
 
     # -- properties -----------------------------------------------------
     @property
@@ -355,14 +430,19 @@ class Runtime:
         self._refresh_parameters()
         section = "Iteration" if self._iteration > 0 else "Iteration+Compile"
         with self.stats.section(section, self.device):
-            guiding = None
-            if canonical(self.settings.technique) == "aept":
-                if self._aept_guiding is None:
-                    self._aept_guiding = aept_guiding(
-                        self.scene, self.settings, self._frame)
-                guiding = self._aept_guiding
-            img = render_iteration(self.scene, self.settings,
-                                   self._iteration, self._frame, guiding)
+            if self.captured:
+                img = self._captured_iteration()
+            else:
+                tabs = self._step_tables()
+                guiding = None
+                if canonical(self.settings.technique) == "aept":
+                    if self._aept_guiding is None:
+                        self._aept_guiding = aept_guiding(
+                            self.scene, self.settings, self._frame, tabs)
+                    guiding = self._aept_guiding
+                img = render_iteration(self.scene, self.settings,
+                                       self._iteration, self._frame, guiding,
+                                       tabs)
             self._film = img if self._film is None else self._film + img
         self._iteration += 1
         self._sample_count += self.settings.spi

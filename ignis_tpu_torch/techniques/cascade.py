@@ -1,0 +1,303 @@
+"""The compacting cascade over fixed buffers, replayed as CUDA graphs.
+
+The port's counterpart of ignis_tpu's jitted cascade: cascade_lane_fn
+(ignis_tpu/techniques/path.py:944-1026) under _compiled_iteration
+(ignis_tpu/render/session.py:49-63), one device program a settings with
+no host sync. `CascadeProgram` runs the stages of path.render_lanes
+(compacting or not; path or volpath through technique_fns) as a fixed
+sequence of programs over tensors allocated once:
+
+- `start`: each lane's first camera sample into stage 0's state, the
+  film zeroed, the budget set to spi * max_depth;
+- `bounce(s)`: one gated bounce of stage s. It reads the flag `go` that
+  the program before it published, writes where(go, bounce(state),
+  state) into the stage's buffers and adds go to the stage's bounce
+  count `it`. A gated-off bounce leaves every buffer as it was; its lanes
+  enter the bounce dead, so the kernels cull all its rays;
+- `finish(s)`: folds the stage's radiance into the film by original lane
+  id, subtracts `it` from the budget and compacts the survivors (the
+  stable argsort of ~alive) into stage s+1's buffers.
+
+Each program ends by publishing go = (it < budget) & (alive > min_alive),
+the test of render_lanes's stage loop, on the device. The iteration and
+frame are 0-d int64 tensors filled before a run and the camera is the
+program's own copy (`set_camera`), so one capture serves every step; the
+live registry's tensors are read where they live.
+
+`run` queues the programs and reads each flag behind the device: the
+flag that gates bounce k is copied to (pinned) host memory behind an
+event, and the host waits for it only once bounce k is queued. So the
+card never waits for the host, and each stage ends with one gated-off
+bounce. On the CPU the programs run as they are, through the same runner;
+on the card `capture` records each program once as a CUDA graph, all in
+one memory pool, after a warm-up run, and `run` replays them, adding the
+kernel launches each graph recorded to the wrappers' counts. The film
+equals render_lanes's bit for bit.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
+
+import torch
+
+from ..core.vec import Color
+from ..ops import cuda_build
+from ..scenedata import RenderSettings, SceneData, tree_map
+from . import path as pathlib
+from .path import (SHRINK, RenderTables, bucket_chain, start_state,
+                   technique_fns)
+
+
+def leaves(tree) -> list:
+    """The tensor leaves of nested NamedTuples, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in tree for t in leaves(v)]
+
+
+class Stage(NamedTuple):
+    """One cascade stage's buffers: the technique's state ([size] leaves),
+    each lane's pixel and original lane id (its film column)."""
+    st: tuple
+    px: torch.Tensor
+    py: torch.Tensor
+    l0: torch.Tensor
+    min_alive: int      # the stage ends at this many alive lanes or fewer
+
+
+class RunStats(NamedTuple):
+    """What one run did, counted on the host: the bounces each stage ran
+    (the flags read true) and the bounce programs queued, gated-off ones
+    included. The host waits for one flag a queued bounce."""
+    bounces: tuple
+    evaluations: int
+
+
+class _Flags:
+    """A ring of `go` flags copied to host memory (pinned on the card),
+    each behind an event."""
+
+    def __init__(self, n: int, device: torch.device):
+        cuda = device.type == "cuda"
+        self.host = torch.zeros(n, dtype=torch.bool, pin_memory=cuda)
+        self.events = ([torch.cuda.Event() for _ in range(n)] if cuda
+                       else None)
+        self.used = 0
+
+    def push(self, go: torch.Tensor) -> int:
+        """Queue a copy of `go`; returns its slot."""
+        j = self.used
+        self.used += 1
+        self.host[j].copy_(go, non_blocking=True)
+        if self.events is not None:
+            self.events[j].record()
+        return j
+
+    def read(self, j: int) -> bool:
+        """The flag in slot j, once its copy has landed."""
+        if self.events is not None:
+            self.events[j].synchronize()
+        return bool(self.host[j])
+
+
+def _on(device: torch.device):
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+class CascadeProgram:
+    """render_lanes's cascade for the lanes (pixels) x, y of one scene and
+    settings over buffers allocated here; `tabs` are the render's tables,
+    read by every run. `compact` as in render_lanes."""
+
+    def __init__(self, scene: SceneData, settings: RenderSettings,
+                 tabs: RenderTables, x, y, compact: bool = True):
+        dev = x.device
+        self.device = dev
+        self.scene = scene._replace(camera=tree_map(torch.clone,
+                                                    scene.camera))
+        self.settings, self.tabs = settings, tabs
+        self.x, self.y = x, y
+        n = x.shape[0]
+        sizes = bucket_chain(n, pathlib.MIN_BUCKET) if compact else [n]
+        self.initial, make = technique_fns(settings)
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.iteration = torch.zeros((), **i64)
+        self.frame = torch.zeros((), **i64)
+        self.it = torch.zeros((), **i64)
+        self.budget = torch.zeros((), **i64)
+        self.go = torch.zeros((), dtype=torch.bool, device=dev)
+        self.film = torch.zeros((3, n), dtype=torch.float32, device=dev)
+        # each stage's bounces and the budget left after it
+        self.stage_it = torch.zeros(len(sizes), **i64)
+        self.stage_budget = torch.zeros(len(sizes), **i64)
+        with torch.no_grad(), _on(dev):
+            st0 = start_state(self.scene, settings, x, y, self.iteration,
+                              self.frame, self.initial)
+        self.stages = []
+        for s, size in enumerate(sizes):
+            if s == 0:
+                px, py, l0 = x, y, torch.arange(n, device=dev)
+            else:
+                px, py = x.new_empty(size), y.new_empty(size)
+                l0 = torch.empty(size, **i64)
+            st = tree_map(lambda a, size=size: a.new_empty(
+                (size,) + tuple(a.shape[1:])), st0)
+            last = s == len(sizes) - 1
+            self.stages.append(Stage(st, px, py, l0,
+                                     0 if last else size // SHRINK))
+        self.bounce_fns = [make(self.scene, settings, tabs,
+                                (g.px, g.py, self.iteration, self.frame))
+                           for g in self.stages]
+        self._flags = _Flags(settings.spi * settings.max_depth
+                             + 2 * len(sizes) + 1, dev)
+        self._graphs = None
+        self.pool = None        # the graphs' memory pool, once captured
+        self.last = None
+
+    @property
+    def captured(self) -> bool:
+        return self._graphs is not None
+
+    def set_camera(self, cam) -> None:
+        """Copy `cam` (CameraData) into the program's camera."""
+        with torch.no_grad():
+            for d, s in zip(leaves(self.scene.camera), leaves(cam)):
+                if d is not s:
+                    d.copy_(s)
+
+    # -- the programs ---------------------------------------------------
+    @staticmethod
+    def _write(bufs, vals, go=None) -> None:
+        """Copy the state `vals` into the buffers `bufs`; with `go`, only
+        where go holds. Every value is made before any buffer is written,
+        so a value that aliases another buffer reads its old contents."""
+        pairs = list(zip(leaves(bufs), leaves(vals)))
+        for b, v in pairs:
+            if v.dtype != b.dtype or v.shape != b.shape:
+                raise RuntimeError(f"cascade: a state leaf of {v.dtype} "
+                                   f"{tuple(v.shape)} for a buffer of "
+                                   f"{b.dtype} {tuple(b.shape)}")
+        if go is not None:
+            pairs = [(b, v if v is b else torch.where(go, v, b))
+                     for b, v in pairs]
+        for b, v in pairs:
+            if v is not b:
+                b.copy_(v)
+
+    def _publish(self, s: int) -> None:
+        g = self.stages[s]
+        self.go.copy_((self.it < self.budget)
+                      & (g.st.alive.sum() > g.min_alive))
+
+    def _start(self) -> None:
+        st0 = start_state(self.scene, self.settings, self.x, self.y,
+                          self.iteration, self.frame, self.initial)
+        self._write(self.stages[0].st, st0)
+        self.film.zero_()
+        self.budget.fill_(self.settings.spi * self.settings.max_depth)
+        self.it.zero_()
+        self._publish(0)
+
+    def _bounce(self, s: int) -> None:
+        g = self.stages[s]
+        go = self.go
+        new = self.bounce_fns[s](g.st._replace(alive=g.st.alive & go))
+        self._write(g.st, new, go)
+        self.it.add_(go.to(torch.int64))
+        self._publish(s)
+
+    def _finish(self, s: int) -> None:
+        g = self.stages[s]
+        self.film.index_add_(1, g.l0, torch.stack(tuple(g.st.result)))
+        self.budget.sub_(self.it)
+        self.stage_it[s].copy_(self.it)
+        self.stage_budget[s].copy_(self.budget)
+        self.it.zero_()
+        if s + 1 == len(self.stages):
+            return
+        nxt = self.stages[s + 1]
+        order = torch.argsort((~g.st.alive).to(torch.int8),
+                              stable=True)[:nxt.l0.shape[0]]
+        for b, v in zip(leaves(nxt.st) + [nxt.px, nxt.py, nxt.l0],
+                        leaves(g.st) + [g.px, g.py, g.l0]):
+            torch.index_select(v, 0, order, out=b)
+        for c in nxt.st.result:
+            c.zero_()
+        self._publish(s + 1)
+
+    def _program(self, key) -> None:
+        kind, s = key
+        if kind == "start":
+            self._start()
+        elif kind == "bounce":
+            self._bounce(s)
+        else:
+            self._finish(s)
+
+    def _call(self, key) -> None:
+        if self._graphs is None:
+            self._program(key)
+            return
+        graph, delta = self._graphs[key]
+        graph.replay()
+        cuda_build.add_launches(delta)
+
+    # -- running and capturing ------------------------------------------
+    def run(self, iteration: int, frame: int) -> Color:
+        """One iteration: the film's [n] radiance sums over settings.spi
+        samples, as views of the program's film (valid until the next
+        run)."""
+        with torch.no_grad(), _on(self.device):
+            self.iteration.fill_(int(iteration))
+            self.frame.fill_(int(frame))
+            self._call(("start", 0))
+            flags = self._flags
+            flags.used = 0
+            bounces, evals = [], 0
+            for s in range(len(self.stages)):
+                gate = flags.push(self.go)
+                k = 0
+                while True:
+                    self._call(("bounce", s))
+                    evals += 1
+                    nxt = flags.push(self.go)
+                    if not flags.read(gate):
+                        break
+                    k += 1
+                    gate = nxt
+                bounces.append(k)
+                self._call(("finish", s))
+        self.last = RunStats(tuple(bounces), evals)
+        return Color(*self.film.unbind(0))
+
+    def capture(self) -> None:
+        """Record every program as a CUDA graph, all in one memory pool.
+        Call it after a warm-up run, which loads the kernels and makes
+        their caches; a capture that fails raises."""
+        if self.device.type != "cuda":
+            raise ValueError("cascade: CUDA graphs need a CUDA device")
+        keys = [("start", 0)] + [(kind, s) for s in range(len(self.stages))
+                                 for kind in ("bounce", "finish")]
+        graphs = {}
+        with torch.no_grad(), _on(self.device):
+            pool = torch.cuda.graph_pool_handle()
+            for key in keys:
+                g = torch.cuda.CUDAGraph()
+                before = cuda_build.launch_snapshot()
+                try:
+                    # thread_local: a viewer's other threads may use
+                    # the card while its render thread captures
+                    with torch.cuda.graph(
+                            g, pool=pool,
+                            capture_error_mode="thread_local"):
+                        self._program(key)
+                finally:
+                    # the capture launched nothing; each replay will
+                    delta = cuda_build.launches_since(before)
+                    cuda_build.add_launches(delta, -1)
+                graphs[key] = (g, delta)
+            torch.cuda.synchronize(self.device)
+        self._graphs = graphs
+        self.pool = pool

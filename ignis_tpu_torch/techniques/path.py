@@ -835,7 +835,8 @@ def regenerate(scene: SceneData, settings: RenderSettings, regen, state,
                cont):
     """(lanes that restart, their sample counters, their camera rays, their
     random states): lanes whose path ended with samples of their pixel
-    left restart the next one."""
+    left restart the next one. The iteration and frame in `regen` are ints
+    or 0-d int64 tensors, as in start_state."""
     x, y, iteration, frame_id = regen
     do_regen = state.alive & ~cont & (state.sample + 1 < settings.spi)
     new_sample = torch.where(do_regen, state.sample + 1, state.sample)
@@ -978,9 +979,10 @@ def initial_state(rays: Rays, rng_state) -> PathState:
 
 
 def start_state(scene: SceneData, settings: RenderSettings, x, y,
-                iteration: int, frame: int, initial=initial_state):
+                iteration, frame, initial=initial_state):
     """Camera rays of every lane's first sample, in the state `initial`
-    makes of them."""
+    makes of them. `iteration` and `frame` are ints or 0-d int64 tensors
+    (a CUDA graph's inputs): both give the same bits."""
     st0 = rnglib.seed(torch.zeros_like(x), iteration, frame, x, y,
                       settings.seed)
     st0, (rx, ry) = sample_pixel_offsets(settings.pixel_sampler, st0,
@@ -1053,7 +1055,7 @@ def bucket_chain(n: int, min_bucket: int):
 
 def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
                  iteration: int, frame: int, compact: bool = True,
-                 remat: bool = False, eval_texture=None) -> Color:
+                 remat: bool = False, tabs: RenderTables = None) -> Color:
     """Render settings.spi samples for every lane (pixel (x, y)); returns
     the per-lane radiance summed over the samples, in x's lane order.
 
@@ -1073,14 +1075,15 @@ def render_lanes(scene: SceneData, settings: RenderSettings, x, y,
     repeats the same decisions.
 
     The technique's bounce (path or volpath, technique_fns) runs in
-    either. `eval_texture` is the scene's texture evaluator (made here
-    when not given); the render's tables are made once here
-    (render_tables)."""
+    either. The render's tables are `tabs`, or made once here
+    (render_tables). techniques/cascade.py runs the same stages over
+    fixed buffers, as CUDA graphs on the card."""
     n = x.shape[0]
     device = x.device
     sizes = bucket_chain(n, MIN_BUCKET) if compact else [n]
     initial, make = technique_fns(settings)
-    tabs = render_tables(scene, settings, eval_texture)
+    if tabs is None:
+        tabs = render_tables(scene, settings)
     st = start_state(scene, settings, x, y, iteration, frame, initial)
     film = torch.zeros((3, n), dtype=torch.float32, device=device)
     budget = settings.spi * settings.max_depth

@@ -18,8 +18,11 @@ card against the CPU), and the frontends of phase 10 (the CLI against an
 in-process film, post-processing, trace() and acquireStats against the
 CPU, a checkpoint resume, the headless viewer, igutil and the mesh
 cache), the instanced geometry gradient on the card against the CPU,
-and the multi-GPU layer of phase 11 (a one-rank NCCL group and a
-one-process mesh of 4 shards on S1). They skip without a card. The file imports no JAX, so it runs on the
+the multi-GPU layer of phase 11 (a one-rank NCCL group and a
+one-process mesh of 4 shards on S1), and the captured step of phase 12
+(CUDA graphs of the cascade bit-equal to the eager render, and S9's
+registry parameter and camera move after the capture). They skip without
+a card. The file imports no JAX, so it runs on the
 card's machine: `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 import json
 
@@ -505,3 +508,43 @@ def test_multi_gpu_phase_on_card(device):
     out = chip_smoke.phase_multi_gpu(card, _s1(card, 128), 0.0,
                                      chip_smoke.nvidia_smi_line())
     assert out["scaling_report"]["world_sizes"][0] == 1
+
+
+@pytest.mark.parametrize("which", ["S1", "S2", "S4", "S6"])
+def test_captured_step_matches_eager(device, which, tmp_path):
+    """Phase 12 at 128x128 (two cascade stages): a fresh Runtime's first
+    step captures the cascade's CUDA graphs, and its films of iterations 0
+    and 1 equal the eager render's bit for bit, with K1/K2/K3 launches
+    counted through the replays and one gated-off bounce a stage (S1 at
+    icosphere subdivisions 5 through K1; S6 volpath with its ball at
+    subdivisions 2, under the BVH threshold, through K2)."""
+    if which == "S1":
+        rt = _s1(device, 128)
+    elif which == "S6":
+        rt = ignis_tpu_torch.loadFromString(json.dumps(chip_smoke.s6_scene(
+            tmp_path, subdivisions=2, size=128)), device=device,
+            spi=chip_smoke.SPI)
+    else:
+        sc = {"S2": chip_smoke.S2_GRAFT_ENTRY,
+              "S4": chip_smoke.S4_GLASS_ICO2}[which]
+        rt = ignis_tpu_torch.loadFromString(json.dumps(_small(sc)),
+                                            device=device, spi=chip_smoke.SPI)
+    out = chip_smoke.captured_against_eager(which, rt, device)
+    assert rt.captured and len(out["captured"]["bounces_by_stage"]) == 2
+    kernel = "K1" if rt.scene.bvh is not None else "K2"
+    assert out["captured"]["launches_per_step"][kernel] > 0
+    assert out["captured"]["host_syncs_per_step"] == 0
+    assert out["captured"]["graph_pool_gib"] > 0
+
+
+def test_captured_s9_parameter_and_camera(device, tmp_path):
+    """Phase 12's S9 checks at 128x128, its balls at subdivisions 3:
+    captured against eager over two iterations, then setParameter('tint')
+    and a camera move after the capture, each bit-equal to the eager film
+    of the changed scene with no rebuild."""
+    rt = ignis_tpu_torch.loadFromString(json.dumps(chip_smoke.s9_scene(
+        tmp_path, subdivisions=3, size=128)), device=device,
+        spi=chip_smoke.SPI)
+    out = chip_smoke.captured_against_eager(chip_smoke.S9_NAME, rt, device)
+    assert out["captured"]["host_syncs_per_step"] == 0
+    assert chip_smoke.captured_parameter_and_camera(chip_smoke.S9_NAME, rt)
