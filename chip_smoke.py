@@ -47,9 +47,10 @@ printing its own lines; any failure exits non-zero:
    cotangents on the misses, every lane on one row, cotangents holding
    NaN, -0.0 and inf) and the MT replay against its plain version, with
    times (K3 on the random rows, the replay on S1's contended rays and on
-   a random soup); `train_step` (albedo) on S1-S6 at 512x512, a
+   a random soup); `train_step` (albedo) on S1-S6 at 512x512 (the
+   captured train step of phase 13: the first step captures), a
    roughness gradient on S5 (max_depth 4) and a geometry gradient on S1
-   and S2, counts
+   and S2 (both eager, through loss_fn), counts
    reset before and read after; one profiled train step per scene, in
    which torch's indexing_backward_kernel must take under 1% of the
    device time, and one profiled S1 geometry-gradient step; K3 on S5's
@@ -106,8 +107,9 @@ printing its own lines; any failure exits non-zero:
    the mesh cache, bit-equal;
 11. the multi-GPU layer (`phase_multi_gpu`, on S1): a one-rank NCCL group
    from parallel/distributed.initialize, its render_distributed film
-   bit-equal to Runtime.step()'s and its train_step_distributed within
-   rtol 1e-5 of train_step, each timed (Msamples/s beside phase 5's S1,
+   bit-equal to Runtime.step()'s and its train_step_distributed (eager)
+   within rtol 1e-5 of train_step (captured), each timed (Msamples/s
+   beside phase 5's S1,
    launches, host syncs); a one-process mesh of 4 shards on the card,
    render_iteration_sharded bit-equal to the uncompacted render and
    render_iteration_sharded_compact within rtol 2e-4 / atol 2e-5 of
@@ -126,8 +128,20 @@ printing its own lines; any failure exits non-zero:
    counted and K1's counter memsets; on S9, setParameter('tint') and a
    camera move after the capture, each bit-equal to the eager film with
    no rebuild and no new capture. S7
-   (instanced), S8 (lt, ppm), the other techniques, the train steps and
-   the sharded paths stay eager (phases 7, 8, 11 print which);
+   (instanced), S8 (lt, ppm), the other techniques and the sharded paths
+   stay eager (phases 8 and 11 print which);
+13. the captured train step (`phase_captured_train`): for S1-S6 (S6
+   volpath) and S9 at 512x512, two eager train steps' work
+   (`eager_albedo_step`: loss_fn and autograd) beside train_step, which
+   builds and captures the scene's TrainProgram (CUDA graphs of the
+   differentiable cascade, parallel/mesh.py) and replays it: the loss
+   bit-equal to eager's, the albedo gradient within rtol 1e-4 / atol
+   1e-5 * max|g| of eager's with the two eager gradients' difference
+   beside it, Msamples/s eager and captured, host syncs (0) and the
+   forward's flag waits, K1/K2, K3 and K3-scatter launches through the
+   replays (no MT replay, no plain version), capture seconds, the
+   checkpoint slots' bytes, the graphs' pool and the peaks, and one
+   profiled captured train step;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -1740,14 +1754,17 @@ S5_ROUGHNESS_DEPTH = 4
 
 
 def phase_train(device, runtimes):
-    """One-GPU train step (SGD on the albedo, target black) on S1-S5 at
+    """One-GPU train step (SGD on the albedo, target black) on S1-S6 at
     512x512, spi 4: TRAIN_STEPS steps, Msamples/s of the faster timed
-    step (the first is a warm-up) beside both times, peak memory; counts
-    reset before and read after; then the roughness gradient of the same
-    loss on S5 (at S5_ROUGHNESS_DEPTH) and a geometry gradient on S1 and
-    S2."""
+    step (the first is a warm-up, and for a captured step, the capture)
+    beside both times, peak memory; counts reset before and read after;
+    one more step of each scene under torch.profiler
+    (`profile_train_step`, out[name]["profile"]), on the same program;
+    then the roughness gradient of the same loss on S5 (at
+    S5_ROUGHNESS_DEPTH) and a geometry gradient on S1 and S2."""
     import torch
     from ignis_tpu_torch import loss_fn, train_step
+    from ignis_tpu_torch.render.session import uses_train_graphs
     lr = 1e-2
     reset_all_counts()
     out = {}
@@ -1771,8 +1788,11 @@ def phase_train(device, runtimes):
         grad = (base - torch.stack(list(new_scene.materials.base))) / lr
         after = launches()
         used = {k: after[k] - before[k] for k in after}
+        captured = uses_train_graphs(rt.scene, s)
         print(f"  {name}: train step {msps:.4f} Msamples/s fwd+bwd (faster "
-              f"{sec:.4f} s of {[round(x, 4) for x in secs[1:]]}), peak "
+              f"{sec:.4f} s of {[round(x, 4) for x in secs[1:]]}; "
+              f"{'captured, the first step captured' if captured else 'eager'}"
+              f" in {secs[0]:.4f} s), peak "
               f"memory {max(peaks) / 2**30:.3f} GiB, loss {float(loss):.6f},"
               f" launches {used}")
         check(bool(torch.isfinite(loss)), f"{name}: loss finite")
@@ -1785,7 +1805,8 @@ def phase_train(device, runtimes):
               f"replay not (the albedo moves no ray)")
         out[name] = {"msamples_per_s": msps, "step_s": secs,
                      "peak_gib": max(peaks) / 2**30, "loss": float(loss),
-                     "launches": used}
+                     "launches": used, "captured": captured,
+                     "profile": profile_train_step(name, rt, device)}
     check(plain_calls() == 0, f"no plain version called in the train steps "
           f"({plain_calls()})")
 
@@ -1850,8 +1871,11 @@ def phase_train(device, runtimes):
     return launches(), out
 
 
-def phase_train_profile(device, runtimes):
-    """One train step per scene under torch.profiler."""
+def profile_train_step(name, rt, device):
+    """One train step of `rt` (albedo, black target) under torch.profiler:
+    its device ops, busy time and share, the device time of K1, K2, K3,
+    its scatter and the MT replay, and torch's indexing_backward_kernel
+    under 1% of the device time."""
     import torch
     from ignis_tpu_torch import train_step
     from ignis_tpu_torch.render.profile import profile_step
@@ -1859,23 +1883,20 @@ def phase_train_profile(device, runtimes):
              "K3": "gather_rows_kernel", "K3s": "scatter_add_rows_kernel",
              "MT": "mt_replay_bwd_kernel",
              "index_put": "indexing_backward_kernel"}
-    out = {}
-    for name, rt in runtimes.items():
-        s = rt.settings
-        target = torch.zeros((s.height, s.width, 3), device=device)
-        p = profile_step(lambda: train_step(rt.scene, s, target, 0, 0, 1e-2),
-                         names)
-        print(f"  {name}: profiled train step {p['wall_s']:.4f} s, device "
-              f"ops {p['device_ops']}, device busy {p['device_busy_us']:.1f}"
-              f" us (share {p['busy_share']:.4f}), "
-              + ", ".join(f"{k} {p[k + '_us']:.1f} us" for k in names))
-        for kname, count, us in p["top"]:
-            print(f"    {us:10.1f} us {count:6d}x {kname}")
-        share = p["index_put_us"] / max(p["device_sum_us"], 1e-9)
-        check(share < 0.01, f"{name}: indexing_backward_kernel takes "
-              f"{share:.4%} of the profiled train step's device time (< 1%)")
-        out[name] = p
-    return out
+    s = rt.settings
+    target = torch.zeros((s.height, s.width, 3), device=device)
+    p = profile_step(lambda: train_step(rt.scene, s, target, 0, 0, 1e-2),
+                     names)
+    print(f"  {name}: profiled train step {p['wall_s']:.4f} s, device "
+          f"ops {p['device_ops']}, device busy {p['device_busy_us']:.1f}"
+          f" us (share {p['busy_share']:.4f}), "
+          + ", ".join(f"{k} {p[k + '_us']:.1f} us" for k in names))
+    for kname, count, us in p["top"]:
+        print(f"    {us:10.1f} us {count:6d}x {kname}")
+    share = p["index_put_us"] / max(p["device_sum_us"], 1e-9)
+    check(share < 0.01, f"{name}: indexing_backward_kernel takes "
+          f"{share:.4%} of the profiled train step's device time (< 1%)")
+    return p
 
 
 def phase_geometry_profile(device, rt):
@@ -2905,7 +2926,8 @@ def phase_s9(device, build_dir):
         list(new_scene.materials.base))
     msps = s.width * s.height * s.spi / min(secs[1:]) / 1e6
     print(f"  {S9_NAME}: train step {msps:.4f} Msamples/s fwd+bwd (faster of "
-          f"{[round(x, 4) for x in secs[1:]]} s), peak memory "
+          f"{[round(x, 4) for x in secs[1:]]} s; the first step "
+          f"{secs[0]:.4f} s, captured), peak memory "
           f"{max(peaks) / 2**30:.3f} GiB, loss {float(loss):.6f}, launches "
           f"{used}")
     check(bool(torch.isfinite(loss)) and bool(torch.isfinite(grad).all())
@@ -3438,7 +3460,8 @@ def phase_multi_gpu(device, s1, s1_msps, smi):
     from ignis_tpu_torch import train_step
     from ignis_tpu_torch.parallel import distributed as dist
     from ignis_tpu_torch.parallel import mesh as pmesh
-    from ignis_tpu_torch.render.session import _pixels, render_iteration
+    from ignis_tpu_torch.render.session import (_pixels, render_iteration,
+                                                uses_train_graphs)
     from ignis_tpu_torch.techniques.path import render_lanes
     s = s1.settings
     frame = s1.FrameCount
@@ -3473,6 +3496,10 @@ def phase_multi_gpu(device, s1, s1_msps, smi):
           "S1: render_distributed's film equals Runtime.step()'s bit for "
           "bit")
     target = torch.zeros((s.height, s.width, 3), device=device)
+    # train_step replays the captured train step's graphs on the card
+    # (phase 13); the sharded step stays eager
+    step_kind = ("captured" if uses_train_graphs(s1.scene, s)
+                 else "eager")
     loss1, one = train_step(s1.scene, s, target, 0, frame, 1e-2)
     (loss, new), sec, syncs, used, plain = timed_call(
         lambda: dist.train_step_distributed(s1.scene, s, target, 0, frame,
@@ -3481,13 +3508,15 @@ def phase_multi_gpu(device, s1, s1_msps, smi):
            plain, train=True)
     base = np.stack([c.cpu().numpy() for c in new.materials.base])
     base1 = np.stack([c.cpu().numpy() for c in one.materials.base])
-    print(f"    loss {loss:.8f} / train_step {float(loss1):.8f}, new albedo "
-          f"largest difference {float(np.abs(base - base1).max()):.3g}")
+    print(f"    loss {loss:.8f} / train_step ({step_kind}) "
+          f"{float(loss1):.8f}, new albedo largest difference "
+          f"{float(np.abs(base - base1).max()):.3g}")
     check(np.isclose(loss, float(loss1), rtol=1e-5, atol=0)
           and np.allclose(base, base1, rtol=1e-5, atol=0)
           and used["K3_scatter_add_rows"] > 0,
-          "S1: train_step_distributed's loss and new albedo within rtol "
-          "1e-5 of train_step's, through K3's scatter")
+          f"S1: train_step_distributed's loss and new albedo within rtol "
+          f"1e-5 of train_step's ({step_kind}), through K3's scatter")
+    out["train_step_compared"] = step_kind
     dist.shutdown(mesh)
     check(not tdist.is_initialized(), "the process group is destroyed")
 
@@ -3823,6 +3852,188 @@ def phase_captured(device, runtimes, firsts):
     return out
 
 
+CAPTURED_TRAIN_STEPS = 3    # captured train steps timed after the checks
+GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5   # phase 13's gradient bar (atol x max|g|)
+
+
+def eager_albedo_step(scene, settings, target, device):
+    """train_step_eager's work at iteration 0 (loss_fn through
+    render_lanes(remat=True), then autograd.grad w.r.t. materials.base):
+    (loss, [3, M] gradient, its seconds, host syncs, launches and peak
+    memory above what was allocated before it)."""
+    import torch
+    from ignis_tpu_torch.core.vec import Color
+    from ignis_tpu_torch.parallel.mesh import loss_fn
+
+    def step():
+        base = Color(*[c.detach().requires_grad_()
+                       for c in scene.materials.base])
+        loss = loss_fn({"base": base}, scene, settings, target, 0, 0)
+        return loss.detach(), torch.stack(torch.autograd.grad(loss,
+                                                              list(base)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.memory_allocated(device)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    (loss, grad), syncs = count_syncs(step)
+    torch.cuda.synchronize()
+    return loss, grad, {
+        "seconds": time.perf_counter() - t0, "host_syncs": syncs,
+        "launches": launches(), "plain_calls": plain_calls(),
+        "peak_bytes": torch.cuda.max_memory_allocated(device) - start}
+
+
+def captured_train_step(rt, target, device):
+    """One train_step of rt's scene at iteration 0 (lr 1e-2), which
+    replays the kept TrainProgram's graphs (or builds and captures one):
+    (loss, [3, M] gradient, its seconds, host syncs, the forward's flag
+    waits behind the device, the bounce VJPs replayed, launches counted
+    through the replays and peak memory above what was allocated before
+    it; a replay allocates nothing from the caching allocator)."""
+    import torch
+    from ignis_tpu_torch import train_step
+    from ignis_tpu_torch.parallel.mesh import train_program
+    s = rt.settings
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.memory_allocated(device)
+    reset_all_counts()
+    t0 = time.perf_counter()
+    (loss, _), syncs = count_syncs(
+        lambda: train_step(rt.scene, s, target, 0, 0, 1e-2))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    prog = train_program(rt.scene, s)
+    last = prog.program.last
+    return loss, torch.stack(list(prog.program.base_grad())), {
+        "seconds": sec, "host_syncs": syncs,
+        "host_waits": last.evaluations, "vjps": sum(last.bounces),
+        "bounces": list(last.bounces), "launches": launches(),
+        "plain_calls": plain_calls(),
+        "peak_bytes": torch.cuda.max_memory_allocated(device) - start}
+
+
+def grad_bar_use(got, want):
+    """(max |got - want|, the largest share of phase 13's bar, |d| /
+    (GRAD_ATOL * max|want| + GRAD_RTOL * |want|), over the entries)."""
+    import torch
+    err = (got - want).abs()
+    bar = GRAD_ATOL * want.abs().max() + GRAD_RTOL * want.abs()
+    return float(err.max()), float((err / bar).max())
+
+
+def captured_train_against_eager(name, rt, device):
+    """Phase 13 on one runtime: two eager train steps' work
+    (`eager_albedo_step`), then train_step, which builds and captures the
+    scene's TrainProgram (the kept programs dropped first) and replays it:
+    the captured loss bit-equal to eager's, the captured gradient within
+    rtol GRAD_RTOL / atol GRAD_ATOL * max|g| of eager's, with the two
+    eager gradients' difference beside it; CAPTURED_TRAIN_STEPS captured
+    steps timed (Msamples/s of the faster eager step and of the fastest
+    captured one, as phase 7 takes the faster of its steps); host syncs, flag waits and launches through the replays
+    (K1 or K2, K3 and its scatter; no MT replay, no plain version); the
+    capture's seconds, the checkpoint slots' bytes, the graphs' pool, the
+    peaks; and one profiled captured step."""
+    import torch
+    from ignis_tpu_torch.parallel.mesh import release_programs, train_program
+    from ignis_tpu_torch.render.session import uses_train_graphs
+    s = rt.settings
+    check(uses_train_graphs(rt.scene, s),
+          f"{name}: train_step replays CUDA graphs")
+    target = torch.zeros((s.height, s.width, 3), device=device)
+    e_loss, e_grad, e1 = eager_albedo_step(rt.scene, s, target, device)
+    e_loss2, e_grad2, e2 = eager_albedo_step(rt.scene, s, target, device)
+    release_programs()
+    _, _, first = captured_train_step(rt, target, device)
+    prog = train_program(rt.scene, s)
+    check(prog.program.captured, f"{name}: the first train step captured "
+          f"the differentiable cascade")
+    c_loss, c_grad, one = captured_train_step(rt, target, device)
+    timed = [captured_train_step(rt, target, device)[2]
+             for _ in range(CAPTURED_TRAIN_STEPS)]
+    prof = profile_train_step(name, rt, device)
+    samples = s.width * s.height * s.spi
+    c_err, c_use = grad_bar_use(c_grad, e_grad)
+    e_err, e_use = grad_bar_use(e_grad2, e_grad)
+    kernel = "K1" if rt.scene.bvh is not None else "K2"
+    used = one["launches"]
+    out = {
+        "eager": {"msamples_per_s": samples / min(e1["seconds"],
+                                                  e2["seconds"]) / 1e6,
+                  "seconds": [e1["seconds"], e2["seconds"]],
+                  "host_syncs_per_step": e1["host_syncs"],
+                  "launches_per_step": e1["launches"],
+                  "peak_gib": max(e1["peak_bytes"], e2["peak_bytes"])
+                  / 2**30},
+        "captured": {
+            "msamples_per_s": samples
+            / min(t["seconds"] for t in timed) / 1e6,
+            "seconds": [t["seconds"] for t in timed],
+            "host_syncs_per_step": one["host_syncs"],
+            "host_waits_per_step": one["host_waits"],
+            "timed_host_syncs": [t["host_syncs"] for t in timed],
+            "bounces_by_stage": one["bounces"],
+            "vjps_per_step": one["vjps"],
+            "launches_per_step": used,
+            "first_step_s": first["seconds"],
+            "capture_s": prog.capture_seconds,
+            "graphs": len(prog.program._keys()),
+            "slot_gib": prog.program.slot_bytes / 2**30,
+            "graph_pool_gib": graph_pool_bytes(prog.program) / 2**30,
+            "peak_gib_first_step": first["peak_bytes"] / 2**30,
+            "peak_gib": max(t["peak_bytes"] for t in timed) / 2**30},
+        "loss": float(c_loss), "loss_bit_equal": bool(torch.equal(c_loss,
+                                                                  e_loss)),
+        "grad_max_abs": float(e_grad.abs().max()),
+        "grad_err": c_err, "grad_bar_use": c_use,
+        "eager_eager_err": e_err, "eager_eager_bar_use": e_use,
+        "profile": {k: v for k, v in prof.items() if k != "top"}}
+    c, e = out["captured"], out["eager"]
+    print(f"  {name}: loss captured {float(c_loss):.9g} / eager "
+          f"{float(e_loss):.9g} (bit-equal {out['loss_bit_equal']}); "
+          f"gradient max|g| {out['grad_max_abs']:.6g}, captured - eager "
+          f"{c_err:.3g} ({c_use:.4f} of the bar), eager - eager {e_err:.3g} "
+          f"({e_use:.4f} of the bar)")
+    print(f"  {name}: Msamples/s fwd+bwd eager {e['msamples_per_s']:.4f} / "
+          f"captured {c['msamples_per_s']:.4f}; host syncs a step "
+          f"{e['host_syncs_per_step']} / {c['host_syncs_per_step']} "
+          f"(+{c['host_waits_per_step']} flag waits in the forward, "
+          f"{c['vjps_per_step']} bounce VJPs with none); launches a step "
+          f"eager {_kernels(e['launches_per_step'])} / captured {used}; "
+          f"stages {c['bounces_by_stage']}; first step {c['first_step_s']:.3f}"
+          f" s (capture {c['capture_s']:.3f} s, {c['graphs']} graphs); "
+          f"slots {c['slot_gib']:.3f} GiB, pool {c['graph_pool_gib']:.3f} "
+          f"GiB; peak above the step's start eager {e['peak_gib']:.3f} / "
+          f"first step {c['peak_gib_first_step']:.3f} / replay "
+          f"{c['peak_gib']:.3f} GiB")
+    check(out["loss_bit_equal"] and bool(torch.equal(e_loss, e_loss2)),
+          f"{name}: captured loss bit-equal to the eager step's (and the "
+          f"two eager losses to each other)")
+    check(c_use <= 1.0, f"{name}: captured gradient within rtol "
+          f"{GRAD_RTOL} / atol {GRAD_ATOL} * max|g| of eager's "
+          f"({c_use:.4f} of the bar)")
+    check(all(t == 0 for t in c["timed_host_syncs"])
+          and c["host_syncs_per_step"] == 0,
+          f"{name}: no host sync in a captured train step")
+    check(used[kernel] > 0 and used["K3_gather_rows"] > 0
+          and used["K3_scatter_add_rows"] > 0 and used["MT_replay_bwd"] == 0
+          and one["plain_calls"] == 0,
+          f"{name}: {kernel}, K3 and its scatter launched through the "
+          f"replays, no MT replay, no plain version")
+    return out
+
+
+def phase_captured_train(device, runtimes):
+    """Phase 13: train_step as CUDA graphs of the differentiable cascade
+    (parallel/mesh.TrainProgram) on S1-S6 (S6 volpath) and S9 at 512x512,
+    each against the eager train step."""
+    out = {}
+    for name, rt in runtimes.items():
+        out[name] = captured_train_against_eager(name, rt, device)
+    return out
+
+
 def main() -> int:
     import argparse
     import torch
@@ -3923,7 +4134,7 @@ def main() -> int:
     grad_errs, grad_times = phase_grad_kernels(
         device, runtimes["S1_glass_ico7"], k1_rays)
     grad_counts, train = phase_train(device, runtimes)
-    train_profile = phase_train_profile(device, runtimes)
+    train_profile = {name: row.pop("profile") for name, row in train.items()}
     geometry_profile = phase_geometry_profile(device,
                                               runtimes["S1_glass_ico7"])
     k3_recorded = phase_k3_recorded(device, runtimes)
@@ -3963,6 +4174,11 @@ def main() -> int:
         device, {**runtimes, S9_NAME: s9_rt},
         {**{k: v["first_step"] for k, v in per_scene.items()},
          S9_NAME: s9["forward"]["first_step"]})
+
+    print(f"== phase 13: the captured train step "
+          f"({time.perf_counter() - t_start:.1f} s in)")
+    captured_train = phase_captured_train(
+        device, {**runtimes, S9_NAME: s9_rt})
 
     def timed(t):
         ms, plain, bms, by = t
@@ -4026,7 +4242,8 @@ def main() -> int:
              "instancing": instancing, "techniques": techniques,
              "techniques_reference": techniques_reference, "s9": s9,
              "frontends": frontends, "multi_gpu": multi_gpu,
-             "captured": captured}, indent=1))
+             "captured": captured, "captured_train": captured_train},
+            indent=1))
     print(json.dumps({"scenes": per_scene, "train": train, "sigma": sigma,
                       "geometry_profile_us": {
                           k: v for k, v in geometry_profile.items()
@@ -4038,6 +4255,7 @@ def main() -> int:
     print(json.dumps({"frontends": frontends}))
     print(json.dumps({"multi_gpu": multi_gpu}))
     print(json.dumps({"captured": captured}))
+    print(json.dumps({"captured_train": captured_train}))
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

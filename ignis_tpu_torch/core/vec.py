@@ -86,16 +86,19 @@ def safe_div(a, b):
     mode a lane whose cotangent is 0 gets no gradient (_SafeDiv)."""
     if torch.is_grad_enabled() and any(
             isinstance(x, torch.Tensor) and x.requires_grad for x in (a, b)):
-        a, b = torch.broadcast_tensors(torch.as_tensor(a, dtype=torch.float32,
-                                                       device=_dev(a, b)),
-                                       torch.as_tensor(b, dtype=torch.float32,
-                                                       device=_dev(a, b)))
+        dev = (a if isinstance(a, torch.Tensor) else b).device
+        a, b = torch.broadcast_tensors(_f32_on(a, dev), _f32_on(b, dev))
         return _SafeDiv.apply(a, b)
     return _safe_div(a, b)
 
 
-def _dev(a, b):
-    return (a if isinstance(a, torch.Tensor) else b).device
+def _f32_on(x, device) -> torch.Tensor:
+    """x as an f32 tensor on `device`; a Python number by a fill there,
+    not a copy from host memory (which would sync the host, and which a
+    CUDA graph cannot capture)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype=torch.float32, device=device)
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def normalize(a: Vec3) -> Vec3:

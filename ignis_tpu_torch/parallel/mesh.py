@@ -4,7 +4,19 @@ sharded over several devices or processes.
 Port of ignis_tpu/parallel/mesh.py. `loss_fn` is the L2 image loss
 w.r.t. the material albedo table, rendered through the differentiable
 cascade (settings.remat), and `train_step` one SGD step on
-`materials.base` on one device.
+`materials.base` on one device. On a CUDA device a path or volpath scene
+without instances (render/session.uses_train_graphs) takes the step by
+replaying CUDA graphs of the differentiable cascade (`TrainProgram`,
+techniques/cascade.DiffCascadeProgram): the counterpart of jitting
+value_and_grad of the JAX loss_fn (train_step_sharded under jax.jit,
+ignis_tpu/parallel/mesh.py:154-170). Its loss equals the eager step's
+(`train_step_eager`) bit for bit, its albedo gradient up to the order of
+K3's scatter atomics. A program is kept for one device and reused while
+the settings are equal and every scene tensor but materials.base is the
+same tensor, unmodified (`TrainProgram.serves`), so the loop `loss, scene
+= train_step(scene, ...)` captures once and then copies the albedo, the
+target, the iteration and the frame in. `loss_fn`, `train_step_sharded`
+and the distributed step stay eager.
 
 The sharded functions split the film's h*w lanes, in row-major pixel
 order (render/session._pixels), into n_shards contiguous slices of equal
@@ -25,16 +37,20 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from ..core.vec import Color
-from ..render.session import (_pixels, render_iteration,
-                              render_technique_lanes, resolve_device)
-from ..scenedata import RenderSettings, SceneData
+from ..render.session import (_image, _pixels, render_iteration,
+                              render_technique_lanes, resolve_device,
+                              uses_train_graphs)
+from ..scenedata import RenderSettings, SceneData, tree_map
 from ..techniques import canonical
+from ..techniques.cascade import DiffCascadeProgram
+from ..techniques.path import render_tables
 
 
 class RayMesh(NamedTuple):
@@ -174,6 +190,10 @@ def _remat(settings: RenderSettings) -> RenderSettings:
             else dataclasses.replace(settings, remat=True))
 
 
+def _l2(img: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean((img - target) ** 2)
+
+
 def loss_fn(diff_materials, scene: SceneData, settings: RenderSettings,
             target: torch.Tensor, iteration: int, frame: int) -> torch.Tensor:
     """mean((image - target)^2) with materials.base = diff_materials["base"]
@@ -181,20 +201,128 @@ def loss_fn(diff_materials, scene: SceneData, settings: RenderSettings,
     cascade (remat)."""
     img = render_iteration(with_base(scene, diff_materials["base"]),
                            _remat(settings), iteration, frame)
-    return torch.mean((img - target) ** 2)
+    return _l2(img, target)
 
 
 def _sgd(base: Color, grads, lr: float) -> Color:
     return Color(*[(p - lr * g).detach() for p, g in zip(base, grads)])
 
 
-def train_step(scene: SceneData, settings: RenderSettings,
-               target: torch.Tensor, iteration: int, frame: int, lr: float):
-    """One SGD step on materials.base; returns (loss, new scene)."""
+def train_step_eager(scene: SceneData, settings: RenderSettings,
+                     target: torch.Tensor, iteration: int, frame: int,
+                     lr: float):
+    """train_step through loss_fn and autograd, op by op: (loss, new
+    scene)."""
     base = Color(*[c.detach().requires_grad_() for c in scene.materials.base])
     loss = loss_fn({"base": base}, scene, settings, target, iteration, frame)
     grads = torch.autograd.grad(loss, list(base))
     return loss.detach(), with_base(scene, _sgd(base, grads, lr))
+
+
+def _fixed_leaves(scene: SceneData) -> list:
+    """Every tensor leaf of `scene` but materials.base."""
+    out = []
+    tree_map(out.append, with_base(scene, None))
+    return out
+
+
+class TrainProgram:
+    """train_step's program for one scene and settings (taken with remat)
+    on the scene's device: the render's tables, made once (scene_info
+    included) with materials.base requiring grad, and the differentiable
+    cascade (DiffCascadeProgram) with its albedo, target, iteration and
+    frame buffers. On the card the first `step` runs the programs once
+    eagerly under torch's sync debug mode "error" (a host sync in any of
+    them raises) and captures them as CUDA graphs, and every step replays
+    them; on the CPU they run as they are. A failed capture raises."""
+
+    def __init__(self, scene: SceneData, settings: RenderSettings):
+        settings = _remat(settings)
+        dev = scene.device
+        self.settings = settings
+        self.device = dev
+        self._fixed = [(t, t._version) for t in _fixed_leaves(scene)]
+        base = scene.materials.base
+        grad_base = Color(*[c.detach().requires_grad_() for c in base])
+        tabs = render_tables(with_base(scene, grad_base), settings)
+        target = torch.zeros((settings.height, settings.width, 3),
+                             dtype=torch.float32, device=dev)
+        self.target = target
+        x, y = _pixels(settings, dev)
+        self.program = DiffCascadeProgram(
+            scene, settings, tabs, x, y, base,
+            lambda film: _l2(_image(film, settings), target))
+        self.capture_seconds = None
+
+    def serves(self, scene: SceneData, settings: RenderSettings) -> bool:
+        """The reuse rule: equal settings, and every scene tensor but
+        materials.base the same tensor as at build with the same
+        `_version` (an in-place edit bumps it)."""
+        now = _fixed_leaves(scene)
+        return (_remat(settings) == self.settings
+                and len(now) == len(self._fixed)
+                and all(t is u and v == u._version
+                        for (t, v), u in zip(self._fixed, now)))
+
+    def _run(self, iteration: int, frame: int) -> None:
+        self.program.run(iteration, frame)
+        self.program.backward()
+
+    def step(self, base: Color, target: torch.Tensor, iteration: int,
+             frame: int):
+        """(loss, gradient w.r.t. materials.base) of loss_fn at `base`,
+        as fresh tensors."""
+        self.program.set_base(base)
+        with torch.no_grad():
+            self.target.copy_(target)
+        if self.device.type == "cuda" and not self.program.captured:
+            t0 = time.perf_counter()
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                self._run(iteration, frame)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            self.program.capture()
+            self.capture_seconds = time.perf_counter() - t0
+        self._run(iteration, frame)
+        return self.program.loss.clone(), self.program.base_grad()
+
+
+_PROGRAMS: dict = {}   # device -> the TrainProgram kept for it
+
+
+def train_program(scene: SceneData, settings: RenderSettings) -> TrainProgram:
+    """The TrainProgram of scene.device if it serves `scene` and
+    `settings`, else a new one, which replaces it (at most one a
+    device)."""
+    dev = scene.device
+    prog = _PROGRAMS.get(dev)
+    if prog is not None and prog.serves(scene, settings):
+        return prog
+    _PROGRAMS.pop(dev, None)
+    del prog            # free the old graphs before the new tables
+    _PROGRAMS[dev] = TrainProgram(scene, settings)
+    return _PROGRAMS[dev]
+
+
+def release_programs() -> None:
+    """Drop the kept TrainPrograms: their graphs, pools and slots."""
+    _PROGRAMS.clear()
+
+
+def train_step(scene: SceneData, settings: RenderSettings,
+               target: torch.Tensor, iteration: int, frame: int, lr: float):
+    """One SGD step on materials.base; returns (loss, new scene). Replays
+    the kept TrainProgram's CUDA graphs where uses_train_graphs says so,
+    else runs train_step_eager."""
+    if not uses_train_graphs(scene, settings):
+        return train_step_eager(scene, settings, target, iteration, frame,
+                                lr)
+    loss, grads = train_program(scene, settings).step(
+        scene.materials.base, target, iteration, frame)
+    base = Color(*[c.detach() for c in scene.materials.base])
+    return loss, with_base(scene, _sgd(base, grads, lr))
 
 
 def train_step_sharded(scene: SceneData, settings: RenderSettings,

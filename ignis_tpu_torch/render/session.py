@@ -152,6 +152,17 @@ def uses_graphs(scene: SceneData, settings: RenderSettings) -> bool:
             and scene.instances is None and not settings.remat)
 
 
+def uses_train_graphs(scene: SceneData, settings: RenderSettings) -> bool:
+    """The dispatch rule of parallel/mesh.train_step, decided by the scene
+    and the settings before any capture: CUDA graphs of the differentiable
+    cascade (techniques/cascade.DiffCascadeProgram) for a path or volpath
+    scene on a CUDA device without instances (the train step takes remat
+    whatever the settings say); the eager train step for every other."""
+    return (scene.device.type == "cuda"
+            and canonical(settings.technique) in ("path", "volpath")
+            and scene.instances is None)
+
+
 def render_technique_lanes(scene: SceneData, settings: RenderSettings, x, y,
                            iteration: int, frame: int, guiding=None,
                            compact=None, tabs=None) -> Color:

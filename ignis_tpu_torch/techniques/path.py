@@ -70,6 +70,7 @@ ATTR_COLS = 22   # the hit attributes in attr_table
 MAT_COLS = 23
 TEX_COLS = ("base_tex", "extra_tex", "p0_tex", "p1_tex", "bump_kind",
             "bump_tex", "bump_strength")
+BASE_COLS = (1, 2, 3)  # materials.base's r, g, b in material_table
 MIN_BUCKET = 4096
 SHRINK = 4       # bucket shrink factor per cascade stage
 DIFF_CHUNK = 8   # bounces per checkpointed chunk of the differentiable render
@@ -286,22 +287,24 @@ def shading_frame(surf: Surface) -> Frame:
     return Frame(vselect(ok, t, fr.t), vselect(ok, b, fr.b), ns)
 
 
-def material_columns(scene: SceneData) -> list:
+def material_columns(scene: SceneData, base: Color = None) -> list:
     """The Materials columns in material_table's order: kind, base,
     extra, extra2 (rgb each), p0-p3 and q0-q8 (MAT_COLS of them, in
-    MatParams' order), then TEX_COLS."""
+    MatParams' order), then TEX_COLS. `base` stands for materials.base
+    where given."""
     m = scene.materials
-    return ([m.kind, *m.base, *m.extra, *m.extra2, m.p0, m.p1, m.p2, m.p3,
+    base = m.base if base is None else base
+    return ([m.kind, *base, *m.extra, *m.extra2, m.p0, m.p1, m.p2, m.p3,
              m.q0, m.q1, m.q2, m.q3, m.q4, m.q5, m.q6, m.q7, m.q8]
             + [getattr(m, c) for c in TEX_COLS])
 
 
-def material_table(scene: SceneData) -> torch.Tensor:
-    """The [M, 32] f32 table of material_columns, padded with two zero
-    columns (gatherlib.stack_cols). Made once per render; a leaf that
-    requires grad gets its gradient through K3's scatter into this
-    table."""
-    return gatherlib.stack_cols(material_columns(scene))
+def material_table(scene: SceneData, base: Color = None) -> torch.Tensor:
+    """The [M, 32] f32 table of material_columns (of `base` in place of
+    materials.base where given), padded with two zero columns
+    (gatherlib.stack_cols). Made once per render; a leaf that requires
+    grad gets its gradient through K3's scatter into this table."""
+    return gatherlib.stack_cols(material_columns(scene, base))
 
 
 def _ids(col):
@@ -964,6 +967,41 @@ def make_bounce(scene: SceneData, settings: RenderSettings,
             sample=new_sample)
 
     return bounce
+
+
+def leaves(tree) -> list:
+    """The tensor leaves of nested NamedTuples, in field order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in tree for t in leaves(v)]
+
+
+def with_leaves(tree, flat):
+    """`tree` with its tensor leaves replaced by `flat`, in leaves()'s
+    order."""
+    it = iter(flat)
+    return tree_map(lambda _: next(it), tree)
+
+
+def grad_carriers(bounce, st) -> tuple:
+    """Which leaves of the state `st` (in leaves()'s order) carry a
+    gradient from one bounce to the next, by eager autograd's own rule:
+    with no leaf of st requiring grad, run `bounce` (whose tables hold the
+    tensors the gradient starts from, requiring grad) and mark the output
+    leaves that require grad; run it again with the marked input leaves
+    requiring grad, until the marks stand. Leaves that never carry one
+    (the rays' origin and direction under an albedo gradient) stay off
+    the tape, as in render_lanes(remat=True)."""
+    flat = leaves(st)
+    carry = [False] * len(flat)
+    while True:
+        ins = [a.detach().requires_grad_(c) for a, c in zip(flat, carry)]
+        with torch.enable_grad():
+            out = leaves(bounce(with_leaves(st, ins)))
+        marks = [c or o.requires_grad for c, o in zip(carry, out)]
+        if marks == carry:
+            return tuple(carry)
+        carry = marks
 
 
 def initial_state(rays: Rays, rng_state) -> PathState:

@@ -21,8 +21,9 @@ cache), the instanced geometry gradient on the card against the CPU,
 the multi-GPU layer of phase 11 (a one-rank NCCL group and a
 one-process mesh of 4 shards on S1), and the captured step of phase 12
 (CUDA graphs of the cascade bit-equal to the eager render, and S9's
-registry parameter and camera move after the capture). They skip without
-a card. The file imports no JAX, so it runs on the
+registry parameter and camera move after the capture), and the captured
+train step of phase 13 (its loss bit-equal to the eager step's, its
+gradient within the bar). They skip without a card. The file imports no JAX, so it runs on the
 card's machine: `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 import json
 
@@ -548,3 +549,30 @@ def test_captured_s9_parameter_and_camera(device, tmp_path):
     out = chip_smoke.captured_against_eager(chip_smoke.S9_NAME, rt, device)
     assert out["captured"]["host_syncs_per_step"] == 0
     assert chip_smoke.captured_parameter_and_camera(chip_smoke.S9_NAME, rt)
+
+
+@pytest.mark.parametrize("which", ["S1", "S2", "S6"])
+def test_captured_train_step_matches_eager(device, which, tmp_path):
+    """Phase 13 at 128x128 (two cascade stages): train_step builds and
+    captures the differentiable cascade's CUDA graphs; its loss equals the
+    eager train step's bit for bit and its albedo gradient lies within
+    phase 13's bar (rtol 1e-4, atol 1e-5 * max|g|), with K1 or K2, K3 and
+    its scatter launched through the replays, no MT replay and no host
+    sync (S1 through K1, S2 through K2, S6 volpath with its ball at
+    subdivisions 2 through K2)."""
+    if which == "S1":
+        rt = _s1(device, 128)
+    elif which == "S6":
+        rt = ignis_tpu_torch.loadFromString(json.dumps(chip_smoke.s6_scene(
+            tmp_path, subdivisions=2, size=128)), device=device,
+            spi=chip_smoke.SPI)
+    else:
+        rt = ignis_tpu_torch.loadFromString(
+            json.dumps(_small(chip_smoke.S2_GRAFT_ENTRY)), device=device,
+            spi=chip_smoke.SPI)
+    out = chip_smoke.captured_train_against_eager(which, rt, device)
+    assert out["loss_bit_equal"] and out["grad_bar_use"] <= 1.0
+    assert out["captured"]["host_syncs_per_step"] == 0
+    assert len(out["captured"]["bounces_by_stage"]) == 2
+    assert out["captured"]["launches_per_step"]["MT_replay_bwd"] == 0
+
