@@ -3589,11 +3589,11 @@ def counting_bounces(counter):
     return real
 
 
-def eager_step(scene, settings, iteration, device):
+def eager_step(scene, settings, iteration, device, guiding=None):
     """One eager render_iteration (render_lanes, its tables made anew, as
-    Runtime.step() ran before the capture) with its seconds, host syncs,
-    launches, bounces and peak memory above what was allocated before
-    it."""
+    Runtime.step() ran before the capture; aept under `guiding`) with its
+    seconds, host syncs, launches, bounces (the cascade's) and peak memory
+    above what was allocated before it."""
     import torch
     from ignis_tpu_torch.render.session import render_iteration
     from ignis_tpu_torch.techniques import path
@@ -3606,7 +3606,7 @@ def eager_step(scene, settings, iteration, device):
     t0 = time.perf_counter()
     try:
         img, syncs = count_syncs(lambda: render_iteration(
-            scene, settings, iteration, 0))
+            scene, settings, iteration, 0, guiding))
         torch.cuda.synchronize()
     finally:
         path.technique_fns = real
@@ -3619,7 +3619,8 @@ def eager_step(scene, settings, iteration, device):
 def captured_step(rt, device):
     """One Runtime.step() of a captured runtime with its seconds, host
     syncs (torch's sync debug mode), host waits for a flag (one a bounce
-    evaluation), launches counted through the replays, bounce evaluations
+    evaluation, and one for the step's pair overflow in an instanced
+    scene), launches counted through the replays, bounce evaluations
     and peak memory above what was allocated before it (a replay
     allocates nothing from the caching allocator: its temporaries live
     in the graphs' pool, graph_pool_bytes)."""
@@ -3633,14 +3634,16 @@ def captured_step(rt, device):
     torch.cuda.synchronize()
     last = rt.program.last
     return {"seconds": time.perf_counter() - t0, "host_syncs": syncs,
-            "host_waits": last.evaluations, "launches": launches(),
+            "host_waits": last.evaluations + bool(rt.program.pairs),
+            "launches": launches(),
             "bounce_evaluations": last.evaluations,
             "bounces": list(last.bounces),
             "peak_bytes": torch.cuda.max_memory_allocated(device) - base}
 
 
 def _kernels(used):
-    return {k: used[k] for k in ("K1", "K2", "K3_gather_rows")}
+    return {k: used[k] for k in ("K1", "K2", "K3_gather_rows",
+                                 "K3_scatter_add_rows")}
 
 
 GRAPH_NODE_KERNELS = {"K1": "bvh_walk_kernel", "K2": "isect_dense_kernel",
@@ -3791,7 +3794,7 @@ def captured_against_eager(name, rt, device, first=None):
           f"{c['msamples_per_s']:.4f}; host syncs a step "
           f"{e['host_syncs_per_step']} / {c['host_syncs_per_step']} "
           f"(+{c['host_waits_per_step']} flag waits behind the device); "
-          f"launches a step K1, K2, K3 "
+          f"launches a step K1, K2, K3, K3 scatter "
           f"{list(e['launches_per_step'].values())} / "
           f"{list(c['launches_per_step'].values())}; bounce evaluations "
           f"{e['bounce_evaluations_per_step']} / "
@@ -4034,6 +4037,196 @@ def phase_captured_train(device, runtimes):
     return out
 
 
+EAGER_FLOOR = 1e-6          # lt's bar: + this share of the film's largest
+
+
+def pair_budgets(prog):
+    """Each instanced group's pair capacity, its candidate bytes and the
+    largest pair count of the sizing run, of a captured program."""
+    return [{"pair_cap": p.cap, "bytes": p.nbytes, "sizing_pairs": p.largest}
+            for p in prog.pairs]
+
+
+def technique_captured_against_eager(name, rt, device, spread=False,
+                                     profile=False):
+    """Phase 14 on one runtime of any technique (a captured Runtime): reset
+    and stepped, its films of iterations 0 and 1 against eager
+    render_iteration's (aept under the runtime's guiding), bit for bit,
+    or with `spread` (lt, whose splat adds by atomics) within twice the
+    largest difference of two eager films of iteration 0 plus
+    EAGER_FLOOR of the film's largest value; CAPTURED_TIMED_STEPS captured
+    steps timed, beside the two eager steps; host syncs, flag waits,
+    launches through the replays, the capture's seconds, the graphs'
+    pool, an instanced scene's pair capacities and overflows; with
+    `profile`, one profiled captured step."""
+    import torch
+    from ignis_tpu_torch.render.profile import profile_step
+    s = rt.settings
+    check(rt.captured, f"{name}: Runtime.step() replays CUDA graphs")
+    rt.reset()
+    cap0 = captured_step(rt, device)          # captures when new
+    prog = rt.program
+    check(prog is not None and prog.captured,
+          f"{name}: the first step captured the program")
+    guiding = rt._aept_guiding
+    c0 = rt.framebuffer()
+    e0, est0 = eager_step(rt.scene, s, 0, device, guiding)
+    cap1 = captured_step(rt, device)
+    c1 = rt.framebuffer() - c0
+    e1, est1 = eager_step(rt.scene, s, 1, device, guiding)
+    out = {"bit_equal": None}
+    if spread:
+        e0b, _ = eager_step(rt.scene, s, 0, device, guiding)
+        ee = float((e0b - e0).abs().max())
+        ce = max(float((c0 - e0).abs().max()), float((c1 - e1).abs().max()))
+        bar = 2.0 * ee + EAGER_FLOOR * float(e0.abs().max())
+        out.update(eager_eager_err=ee, captured_eager_err=ce, bar=bar)
+        print(f"  {name}: captured - eager {ce:.4g}, eager - eager {ee:.4g}"
+              f" (bar {bar:.4g})")
+        check(ce <= bar, f"{name}: captured films within the eager-to-eager"
+              f" spread ({ce:.4g} <= {bar:.4g})")
+    else:
+        out["bit_equal"] = bool(torch.equal(c0, e0) and torch.equal(
+            rt.framebuffer(), e0 + e1))
+        check(out["bit_equal"], f"{name}: captured films of iterations 0 "
+              f"and 1 bit-equal to eager's")
+    t0 = time.perf_counter()
+    timed = [captured_step(rt, device)
+             for _ in range(CAPTURED_TIMED_STEPS)]
+    sec = time.perf_counter() - t0
+    img = rt.framebuffer(normalized=True)
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+          f"{name}: captured film finite and not black")
+    samples = s.width * s.height * s.spi
+    e_used, c_used = _kernels(est1["launches"]), _kernels(cap1["launches"])
+    out.update({
+        "eager": {"msamples_per_s": 2 * samples
+                  / (est0["seconds"] + est1["seconds"]) / 1e6,
+                  "seconds": [est0["seconds"], est1["seconds"]],
+                  "host_syncs_per_step": est1["host_syncs"],
+                  "launches_per_step": e_used,
+                  "peak_gib": max(est0["peak_bytes"], est1["peak_bytes"])
+                  / 2**30},
+        "captured": {
+            "msamples_per_s": len(timed) * samples / sec / 1e6,
+            "seconds": [c["seconds"] for c in timed],
+            "host_syncs_per_step": cap1["host_syncs"],
+            "timed_host_syncs": [c["host_syncs"] for c in timed],
+            "host_waits_per_step": cap1["host_waits"],
+            "bounces_by_loop": cap1["bounces"],
+            "launches_per_step": c_used,
+            "first_step_s": cap0["seconds"],
+            "capture_s": rt.capture_seconds,
+            "graphs": len(prog._keys()),
+            "recaptures": prog.recaptures,
+            "pairs": pair_budgets(prog),
+            "peak_gib_first_step": cap0["peak_bytes"] / 2**30,
+            "peak_gib": max(c["peak_bytes"] for c in timed) / 2**30,
+            "graph_pool_gib": graph_pool_bytes(prog) / 2**30}})
+    e, c = out["eager"], out["captured"]
+    print(f"  {name}: Msamples/s eager {e['msamples_per_s']:.4f} / captured "
+          f"{c['msamples_per_s']:.4f}; host syncs a step "
+          f"{e['host_syncs_per_step']} / {c['host_syncs_per_step']} "
+          f"(+{c['host_waits_per_step']} flag waits behind the device); "
+          f"launches a step K1, K2, K3, K3 scatter "
+          f"{list(e_used.values())} / {list(c_used.values())}; loops "
+          f"{c['bounces_by_loop']}; capture {c['capture_s']:.3f} s "
+          f"({c['graphs']} graphs; first step {c['first_step_s']:.3f} s), "
+          f"pool {c['graph_pool_gib']:.3f} GiB; peak eager "
+          f"{e['peak_gib']:.3f} / first step {c['peak_gib_first_step']:.3f}"
+          f" / replay {c['peak_gib']:.3f} GiB"
+          + (f"; pairs {c['pairs']}, recaptures {c['recaptures']}"
+             if c["pairs"] else ""))
+    check(all(t == 0 for t in c["timed_host_syncs"])
+          and c["host_syncs_per_step"] == 0,
+          f"{name}: no host sync in a captured step")
+    check(all(c_used[k] > 0 for k, v in e_used.items() if v > 0)
+          and sum(c_used.values()) > 0 and plain_calls() == 0,
+          f"{name}: every kernel of the eager step launched through the "
+          f"replays, no plain version")
+    check(all(p["pair_cap"] >= p["sizing_pairs"] for p in c["pairs"])
+          and prog.recaptures == 0,
+          f"{name}: no pair overflow at the chosen capacities")
+    if profile:
+        p = profile_step(rt.step, PROFILE_NAMES)
+        print(f"    profiled captured step {p['wall_s']:.4f} s, device ops "
+              f"{p['device_ops']}, device busy {p['device_busy_us']:.1f} us "
+              f"(share {p['busy_share']:.4f}), K1 {p['K1_us']:.1f} us, K2 "
+              f"{p['K2_us']:.1f} us, K3 {p['K3_us']:.1f} us, K3 scatter "
+              f"{p['K3_scatter_us']:.1f} us")
+        out["profile"] = {k: v for k, v in p.items() if k != "top"}
+    return out
+
+
+def forced_overflow(name, rt, device):
+    """A captured instanced runtime captured again with its group
+    capacities cut to a quarter of the sizing run's pairs, then stepped:
+    the replays overflow, the step's overflow flag is read, the
+    capacities raised and the graphs captured again (once more for each
+    overflow of a rerun, whose truncated traces may have counted fewer
+    pairs than the true step has), and the film equals the eager film of
+    that iteration bit for bit (no overflowed image reaches it)."""
+    import torch
+    prog = rt.program
+    caps = [p.cap for p in prog.pairs]
+    for p in prog.pairs:
+        p.cap = max(1, p.largest // 4)
+    rt.reset()
+    prog.capture(0, 0)
+    before = prog.recaptures
+    rt.step()
+    want, _ = eager_step(rt.scene, rt.settings, 0, device)
+    ok = torch.equal(rt.framebuffer(), want)
+    again = prog.recaptures - before
+    print(f"  {name}: forced overflow at a quarter of the sizing pairs: "
+          f"{again} recapture(s), capacities {caps} -> "
+          f"{[p.cap for p in prog.pairs]}, film bit-equal to eager {ok}")
+    check(again >= 1 and ok and all(p.cap >= p.largest
+                                    for p in prog.pairs),
+          f"{name}: a forced overflow ends in a recapture and the eager "
+          f"film")
+    return {"recaptures": again, "bit_equal": ok,
+            "caps": [p.cap for p in prog.pairs]}
+
+
+def phase_rest_captured(device, s1, env):
+    """Phase 14, the rest of the compiled iteration: on S7 the captured
+    forward against eager (bit for bit, its pair capacities, a profiled
+    step, a forced overflow) and the captured albedo train step against
+    eager (phase 13's checks); the six simple techniques on S1's arrays,
+    aept's guided pass on S1 under S5's substitute env and S8 under ppm
+    (profiled), each bit-equal to eager; S8 under lt within the
+    eager-to-eager spread."""
+    import dataclasses
+    import ignis_tpu_torch
+    from ignis_tpu_torch.render.session import Runtime
+    out = {}
+    rt = ignis_tpu_torch.loadFromString(json.dumps(S7_SCENE), spi=SPI,
+                                        instancing=True)
+    out[S7_NAME] = technique_captured_against_eager(S7_NAME, rt, device,
+                                                    profile=True)
+    out[S7_NAME]["forced_overflow"] = forced_overflow(S7_NAME, rt, device)
+    out[S7_NAME + " train"] = captured_train_against_eager(
+        S7_NAME + " train", rt, device)
+    del rt
+    for tech in SIMPLE_TECHNIQUES:
+        rt = Runtime(s1.scene, dataclasses.replace(s1.settings,
+                                                   technique=tech))
+        out[f"S1 {tech}"] = technique_captured_against_eager(
+            f"S1 {tech}", rt, device)
+    rt = ignis_tpu_torch.loadFromString(json.dumps(aept_scene(env)),
+                                        spi=SPI)
+    out["S1 aept"] = technique_captured_against_eager("S1 aept", rt, device)
+    for tech in ("ppm", "lt"):
+        sc = json.loads(json.dumps(S8_BOX))
+        sc["technique"]["type"] = tech
+        rt = ignis_tpu_torch.loadFromString(json.dumps(sc), spi=SPI)
+        out[f"{S8_NAME} {tech}"] = technique_captured_against_eager(
+            f"{S8_NAME} {tech}", rt, device, spread=tech == "lt",
+            profile=tech == "ppm")
+    return out
+
+
 def main() -> int:
     import argparse
     import torch
@@ -4180,6 +4373,11 @@ def main() -> int:
     captured_train = phase_captured_train(
         device, {**runtimes, S9_NAME: s9_rt})
 
+    print(f"== phase 14: the rest of the compiled iteration "
+          f"({time.perf_counter() - t_start:.1f} s in)")
+    rest_captured = phase_rest_captured(device, runtimes["S1_glass_ico7"],
+                                        env)
+
     def timed(t):
         ms, plain, bms, by = t
         return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
@@ -4242,7 +4440,8 @@ def main() -> int:
              "instancing": instancing, "techniques": techniques,
              "techniques_reference": techniques_reference, "s9": s9,
              "frontends": frontends, "multi_gpu": multi_gpu,
-             "captured": captured, "captured_train": captured_train},
+             "captured": captured, "captured_train": captured_train,
+             "rest_captured": rest_captured},
             indent=1))
     print(json.dumps({"scenes": per_scene, "train": train, "sigma": sigma,
                       "geometry_profile_us": {
@@ -4256,6 +4455,7 @@ def main() -> int:
     print(json.dumps({"multi_gpu": multi_gpu}))
     print(json.dumps({"captured": captured}))
     print(json.dumps({"captured_train": captured_train}))
+    print(json.dumps({"rest_captured": rest_captured}))
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -12,12 +12,18 @@ runs a bounded number of launches whatever its instance count:
    of their box centres (`group_tables`, once per render), and every ray
    is slab-tested against every cluster's box, in chunks of clusters,
    into one [clusters, N] mask;
-2. the passing (cluster, ray) pairs are compacted (`torch.nonzero`: the
-   one host sync of an instanced trace) and expanded to the cluster's
-   instances: CLUSTER candidate pairs each, the pair's ray and instance
-   fetched through K3 (an [N, 8] ray table, an [I, 20] transform table);
-   a candidate whose ray misses its instance's world box (the JAX
-   package's slab test) becomes a dead lane (tmax < tmin);
+2. the passing (cluster, ray) pairs are compacted and expanded to the
+   cluster's instances: CLUSTER candidate pairs each, the pair's ray and
+   instance fetched through K3 (an [N, 8] ray table, an [I, 20] transform
+   table); a candidate whose ray misses its instance's world box (the JAX
+   package's slab test) becomes a dead lane (tmax < tmin). The eager
+   trace compacts with `torch.nonzero`, its one host sync. A captured
+   program's trace (techniques/program.py) compacts into the `cap` slots
+   of the group's PairBudget with `torch.nonzero_static`, in the same
+   row-major order and with no host sync: the slots past the count are
+   dead candidates, which the kernels cull at once, and the count is
+   folded into the budget's `seen` on the device, where the program reads
+   an overflow (`seen > cap`) behind the step;
 3. each candidate ray moves into its instance's local space with d
    unnormalised, so that local t equals world t, and all candidates go
    through the local soup's kernel as one ray batch: K1 over the group's
@@ -102,12 +108,35 @@ class InstancedGeo(NamedTuple):
         return self.soup.v0.x.shape[0]
 
 
+class PairBudget:
+    """The (cluster, ray) pair capacity of one group's traces in a captured
+    program. With `cap` None the trace compacts with torch.nonzero and
+    keeps the largest pair count it saw in `largest` (the program's
+    sizing run); with `cap` set it compacts into cap slots with no host
+    sync and folds its count into `seen`, a 0-d int64 on the device that
+    the program zeroes before each step and reads behind it."""
+
+    def __init__(self, device):
+        self.cap = None
+        self.largest = 0
+        self.seen = torch.zeros((), dtype=torch.int64, device=device)
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of a trace's main candidate buffers at this capacity:
+        a candidate's 8 ray columns, 19 transform columns, 7 local-ray
+        columns and 4 kernel results (f32), its int32 ray id and int64
+        instance id."""
+        return 0 if self.cap is None else self.cap * CLUSTER * (38 * 4 + 12)
+
+
 class GroupTables(NamedTuple):
     """What a render makes once per group: the local soup packed for its
     kernel (K1's rows with a BVH, K2's tiles without), the [T, 24]
     attribute table, the [I, 12] instance table, the [I, 20] transform
     table, the clusters' members ([C, CLUSTER] int32, -1 padding) and
-    padded boxes ([C, 3] each)."""
+    padded boxes ([C, 3] each); and, in a captured program's tables, the
+    group's PairBudget (None: the eager trace)."""
     packed: object
     attr: torch.Tensor
     inst: torch.Tensor
@@ -115,6 +144,7 @@ class GroupTables(NamedTuple):
     members: torch.Tensor
     box_lo: torch.Tensor
     box_hi: torch.Tensor
+    pairs: Optional[PairBudget] = None
 
 
 def _morton(p: torch.Tensor) -> torch.Tensor:
@@ -186,7 +216,10 @@ def _slab(org, inv, tmin, tmax, lo, hi):
 
 def _cluster_pairs(rays: Rays, tabs: GroupTables):
     """(cluster, ray) index pairs whose ray meets the cluster's box, as
-    int64 [P] each: the trace's one host sync."""
+    int64 [P] each, and which of them are pairs (None: all). Eager
+    (tabs.pairs None or unsized): P is the count, found by torch.nonzero,
+    the trace's one host sync. In a captured program: P is the budget's
+    cap (_fixed_pairs)."""
     n = rays.tmin.shape[0]
     inv = [_inv(d) for d in rays.dir]
     n_cl = tabs.members.shape[0]
@@ -197,8 +230,32 @@ def _cluster_pairs(rays: Rays, tabs: GroupTables):
         lo = [tabs.box_lo[c0:c1, a, None] for a in range(3)]
         hi = [tabs.box_hi[c0:c1, a, None] for a in range(3)]
         mask[c0:c1] = _slab(rays.org, inv, rays.tmin, rays.tmax, lo, hi)
+    pairs = tabs.pairs
+    if pairs is not None and pairs.cap is not None:
+        return _fixed_pairs(mask, pairs)
     cl, ray = torch.nonzero(mask, as_tuple=True)
-    return cl, ray
+    if pairs is not None:
+        pairs.largest = max(pairs.largest, cl.shape[0])
+    return cl, ray, None
+
+
+def _fixed_pairs(mask: torch.Tensor, pairs: PairBudget):
+    """The first pairs.cap set entries of the [C, N] mask in row-major
+    order (torch.nonzero's), as cluster and ray indices, and which slots
+    hold one; the mask's count is folded into pairs.seen. No host sync."""
+    n = mask.shape[1]
+    flat = mask.reshape(-1)
+    idx = torch.nonzero_static(flat, size=pairs.cap,
+                               fill_value=-1).squeeze(1)
+    pairs.seen.copy_(torch.maximum(pairs.seen, flat.sum()))
+    live = idx >= 0
+    # a free slot points at ray (slot mod n) of cluster 0: its dead
+    # candidates fold neutral values (no hit, no occlusion, zero u and v)
+    # into rays spread over the batch, where all at ray 0 would serialise
+    # the folds' atomics on one address
+    slot = torch.arange(pairs.cap, device=idx.device)
+    idx = torch.where(live, idx, slot % n)
+    return idx // n, idx % n, live
 
 
 def _candidates(rays: Rays, geo: InstancedGeo, tabs: GroupTables,
@@ -206,11 +263,13 @@ def _candidates(rays: Rays, geo: InstancedGeo, tabs: GroupTables,
     """The candidate (instance, ray) lanes of a trace: (ray index [Q]
     int32, instance index [Q] int64, local rays [Q] whose dead lanes
     missed their instance's box or are no candidate)."""
-    cl, ray = _cluster_pairs(rays, tabs)
+    cl, ray, live = _cluster_pairs(rays, tabs)
     q = cl.shape[0] * CLUSTER
     ray_q = ray.to(torch.int32).repeat_interleave(CLUSTER)
     inst = tabs.members[cl].reshape(q)
     ok = inst >= 0
+    if live is not None:
+        ok = ok & live.repeat_interleave(CLUSTER)
     inst = inst.clamp(min=0)
     rtab = gatherlib.stack_cols([*rays.org, *rays.dir, rays.tmin, rays.tmax])
     ox, oy, oz, dx, dy, dz, tmin, tmax = gatherlib.gather_block(

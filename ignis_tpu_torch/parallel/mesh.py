@@ -4,8 +4,8 @@ sharded over several devices or processes.
 Port of ignis_tpu/parallel/mesh.py. `loss_fn` is the L2 image loss
 w.r.t. the material albedo table, rendered through the differentiable
 cascade (settings.remat), and `train_step` one SGD step on
-`materials.base` on one device. On a CUDA device a path or volpath scene
-without instances (render/session.uses_train_graphs) takes the step by
+`materials.base` on one device. On a CUDA device a path or volpath scene,
+instanced or not (render/session.uses_train_graphs), takes the step by
 replaying CUDA graphs of the differentiable cascade (`TrainProgram`,
 techniques/cascade.DiffCascadeProgram): the counterpart of jitting
 value_and_grad of the JAX loss_fn (train_step_sharded under jax.jit,
@@ -231,10 +231,11 @@ class TrainProgram:
     on the scene's device: the render's tables, made once (scene_info
     included) with materials.base requiring grad, and the differentiable
     cascade (DiffCascadeProgram) with its albedo, target, iteration and
-    frame buffers. On the card the first `step` runs the programs once
-    eagerly under torch's sync debug mode "error" (a host sync in any of
-    them raises) and captures them as CUDA graphs, and every step replays
-    them; on the CPU they run as they are. A failed capture raises."""
+    frame buffers. On the card the first `step` captures the programs as
+    CUDA graphs (Program.capture: a sizing run for instanced groups, then
+    one eager run under torch's sync debug mode "error", in which a host
+    sync in any program raises), and every step replays them; on the CPU
+    they run as they are. A failed capture raises."""
 
     def __init__(self, scene: SceneData, settings: RenderSettings):
         settings = _remat(settings)
@@ -264,28 +265,20 @@ class TrainProgram:
                 and all(t is u and v == u._version
                         for (t, v), u in zip(self._fixed, now)))
 
-    def _run(self, iteration: int, frame: int) -> None:
-        self.program.run(iteration, frame)
-        self.program.backward()
-
     def step(self, base: Color, target: torch.Tensor, iteration: int,
              frame: int):
         """(loss, gradient w.r.t. materials.base) of loss_fn at `base`,
-        as fresh tensors."""
+        as fresh tensors, from a step whose instanced traces fitted their
+        pair capacities (DiffCascadeProgram.train runs an overflowed step
+        again, so no gradient of one reaches the SGD update)."""
         self.program.set_base(base)
         with torch.no_grad():
             self.target.copy_(target)
         if self.device.type == "cuda" and not self.program.captured:
             t0 = time.perf_counter()
-            mode = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                self._run(iteration, frame)
-            finally:
-                torch.cuda.set_sync_debug_mode(mode)
-            self.program.capture()
+            self.program.capture(iteration, frame)
             self.capture_seconds = time.perf_counter() - t0
-        self._run(iteration, frame)
+        self.program.train(iteration, frame)
         return self.program.loss.clone(), self.program.base_grad()
 
 

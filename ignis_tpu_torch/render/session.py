@@ -43,16 +43,24 @@ sync.
 
 The Runtime keeps the render's tables (`render_tables`) between steps
 (made anew each step only under settings.remat), and on a CUDA device it
-runs a path or volpath scene without instances and without remat by
-replaying CUDA graphs of the cascade (techniques/cascade.py), the
-counterpart of the JAX Runtime's jitted iteration (_compiled_iteration,
-ignis_tpu/render/session.py:49-63): the first step runs the cascade's
-programs once eagerly and captures them, each later step fills the
-iteration, frame and camera and replays. `uses_graphs` decides this from
-the scene and settings before any capture and `Runtime.captured` reports
-it; the films equal the eager render's bit for bit. A registry
-parameter and a camera change need no new capture; a rebuild drops the
-tables and the graphs.
+runs every technique without remat, instanced scenes included, by
+replaying CUDA graphs of the technique's program (`make_program`: the
+cascade of techniques/cascade.py for path and volpath, simple.
+SimpleProgram, a program.LoopProgram for lt and aept's guided pass,
+ppm.PPMProgram), the counterpart of the JAX Runtime's jitted iteration
+(_compiled_iteration, ignis_tpu/render/session.py:49-63): the first step
+captures the programs (techniques/program.py: an eager sizing run of
+the instanced pairs, one eager run under torch's sync debug mode
+"error", then the graphs, all in the Runtime's one pool), each later
+step fills
+the iteration, frame and camera and replays. aept's learning iterations
+and guiding run once, eagerly, before its capture. `uses_graphs` decides
+this from the scene and settings before any capture and
+`Runtime.captured` reports it; the films equal the eager render's bit
+for bit (lt's up to the order of its splat's atomics on the card). A
+registry parameter and a camera change need no new capture; a rebuild
+drops the tables and the graphs, and a new guiding (aept after reset())
+drops the graphs.
 """
 from __future__ import annotations
 
@@ -63,13 +71,12 @@ import numpy as np
 import torch
 
 from ..core import rng as rnglib
-from ..core.sampler import sample_pixel_offsets
 from ..core.vec import Color, Vec3
 from ..models import camera as cameralib
 from ..scene.build import build_scene
 from ..scene.parser import load_from_file, load_from_string
 from ..scenedata import RenderSettings, SceneData
-from ..techniques import canonical, dispatch_technique
+from ..techniques import SIMPLE, canonical, dispatch_technique
 from ..techniques.cascade import CascadeProgram
 from ..ops.intersect import Rays
 from ..techniques.path import (check_settings, render_lanes,
@@ -144,23 +151,55 @@ def compact_lanes(settings: RenderSettings) -> bool:
 
 def uses_graphs(scene: SceneData, settings: RenderSettings) -> bool:
     """The dispatch rule of Runtime.step(), decided by the scene and the
-    settings before any capture: CUDA graphs (techniques/cascade.py) for a
-    path or volpath scene on a CUDA device without instances and without
-    settings.remat; the eager render for every other."""
-    return (scene.device.type == "cuda"
-            and canonical(settings.technique) in ("path", "volpath")
-            and scene.instances is None and not settings.remat)
+    settings before any capture: CUDA graphs of the technique's program
+    (make_program) on a CUDA device without settings.remat, whatever the
+    technique and whether or not the scene has instances; the eager
+    render on the CPU and under remat."""
+    return scene.device.type == "cuda" and not settings.remat
 
 
 def uses_train_graphs(scene: SceneData, settings: RenderSettings) -> bool:
     """The dispatch rule of parallel/mesh.train_step, decided by the scene
     and the settings before any capture: CUDA graphs of the differentiable
     cascade (techniques/cascade.DiffCascadeProgram) for a path or volpath
-    scene on a CUDA device without instances (the train step takes remat
+    scene on a CUDA device, instanced or not (the train step takes remat
     whatever the settings say); the eager train step for every other."""
     return (scene.device.type == "cuda"
-            and canonical(settings.technique) in ("path", "volpath")
-            and scene.instances is None)
+            and canonical(settings.technique) in ("path", "volpath"))
+
+
+def make_program(scene: SceneData, settings: RenderSettings, tabs, x, y,
+                 guiding=None, pool=None):
+    """The captured program of the settings' technique for the lanes
+    (pixels) x, y over the render's tables `tabs`: the cascade
+    (compacting as compact_lanes says) for path and volpath, one program
+    of settings.spi camera samples for the simple techniques, a gated loop
+    for lt and for aept's guided pass (under `guiding`), ppm's photon
+    loop, grid and camera loop. `pool` is the CUDA graph pool to capture
+    into."""
+    tech = canonical(settings.technique)
+    if tech in ("path", "volpath"):
+        return CascadeProgram(scene, settings, tabs, x, y,
+                              compact_lanes(settings), pool=pool)
+    if tech in SIMPLE:
+        from ..techniques.simple import SimpleProgram
+        return SimpleProgram(scene, settings, tabs, x, y, pool=pool)
+    if tech == "ppm":
+        from ..techniques.ppm import PPMProgram
+        return PPMProgram(scene, settings, tabs, x, y, pool=pool)
+    from ..techniques.program import LoopProgram
+    if tech == "lt":
+        from ..techniques.lighttracer import lt_fns
+
+        def fns(sc, tb, it, fr):
+            return lt_fns(sc, settings, tb, x, y, it, fr)
+    else:
+        from ..techniques.aept import sample_fns
+
+        def fns(sc, tb, it, fr):
+            return sample_fns(sc, settings, tb, x, y, it, fr, guiding)
+    return LoopProgram(scene, settings, tabs, fns,
+                       settings.spi * settings.max_depth, pool=pool)
 
 
 def render_technique_lanes(scene: SceneData, settings: RenderSettings, x, y,
@@ -175,7 +214,6 @@ def render_technique_lanes(scene: SceneData, settings: RenderSettings, x, y,
     ppm's photon pass and aept's learning iterations (when no `guiding`
     is given) cover the whole scene and film whatever the lanes. `tabs`
     as in render_iteration."""
-    w = settings.width
     tech = canonical(settings.technique)
     if tabs is None:
         tabs = render_tables(scene, settings)
@@ -184,26 +222,15 @@ def render_technique_lanes(scene: SceneData, settings: RenderSettings, x, y,
             compact = compact_lanes(settings)
         return render_lanes(scene, settings, x, y, iteration, frame,
                             compact=compact, remat=settings.remat, tabs=tabs)
+    if tech in SIMPLE:
+        from ..techniques.simple import sample_lanes
+        return sample_lanes(scene, settings, tabs, x, y, iteration, frame)
     fn = dispatch_technique(tech)
     if tech in ("lt", "ppm"):
         return fn(scene, settings, x, y, iteration, frame, tabs)
-    if tech == "aept":
-        if guiding is None:
-            guiding = aept_guiding(scene, settings, frame, tabs)
-        return fn(scene, settings, x, y, iteration, frame, guiding, tabs)
-    acc = None
-    for s in range(settings.spi):
-        state = rnglib.seed(s, iteration, frame, x, y, settings.seed)
-        state, (rx, ry) = sample_pixel_offsets(
-            settings.pixel_sampler, state, iteration * settings.spi + s, x, y)
-        rays = cameralib.generate_rays(scene.camera, settings, x, y, rx, ry,
-                                       rng_state=state)
-        # camera_check compares each lane's pixel with its reprojection
-        color = (fn(scene, settings, rays, state, tabs, pixel=y * w + x)
-                 if tech == "camera_check"
-                 else fn(scene, settings, rays, state, tabs))
-        acc = color if acc is None else acc + color
-    return acc
+    if guiding is None:
+        guiding = aept_guiding(scene, settings, frame, tabs)
+    return fn(scene, settings, x, y, iteration, frame, guiding, tabs)
 
 
 def _ckpt_path(path) -> str:
@@ -259,7 +286,8 @@ class Runtime:
         self.rebuilds = 0
         self.stats = Statistics()
         self._tables = None       # render_tables, kept until a rebuild
-        self._program = None      # the captured cascade (CascadeProgram)
+        self._program = None      # the captured program (make_program)
+        self._pool = None         # the CUDA graph pool of its programs
         self.captured = uses_graphs(scene, settings)
         self.capture_seconds = None
 
@@ -375,19 +403,32 @@ class Runtime:
             self._tables = render_tables(self.scene, self.settings)
         return self._tables
 
+    def _guiding(self, tabs):
+        """aept's guiding, learnt at the first step after a load, rebuild
+        or reset and kept; None for the other techniques."""
+        if canonical(self.settings.technique) != "aept":
+            return None
+        if self._aept_guiding is None:
+            self._aept_guiding = aept_guiding(self.scene, self.settings,
+                                              self._frame, tabs)
+        return self._aept_guiding
+
     def _captured_iteration(self) -> torch.Tensor:
-        """One iteration by replaying the cascade's CUDA graphs; the first
-        call makes the program, runs it once eagerly (the warm-up) and
-        captures it. The camera is copied into the program before each
-        run, so a camera change needs no capture."""
+        """One iteration by replaying the technique's CUDA graphs; the
+        first call makes the program (after aept's learning) and captures
+        it (Program.capture: the sizing run of an instanced scene, the
+        warm-up and the graphs, in the Runtime's pool). The camera is copied into the program
+        before each run, so a camera change needs no capture."""
         if self._program is None:
+            tabs = self._step_tables()
+            guiding = self._guiding(tabs)
             t0 = time.perf_counter()
             x, y = _pixels(self.settings, self.device)
-            prog = CascadeProgram(self.scene, self.settings,
-                                  self._step_tables(), x, y,
-                                  compact_lanes(self.settings))
-            prog.run(self._iteration, self._frame)
-            prog.capture()
+            prog = make_program(self.scene, self.settings, tabs, x, y,
+                                guiding, self._pool)
+            if self.device.type == "cuda":
+                prog.capture(self._iteration, self._frame)
+                self._pool = prog.pool
             self._program = prog
             self.capture_seconds = time.perf_counter() - t0
         self._program.set_camera(self.scene.camera)
@@ -396,9 +437,11 @@ class Runtime:
 
     @property
     def program(self):
-        """The captured cascade (techniques/cascade.CascadeProgram) once a
-        captured step has run, else None; `program.last` counts the last
-        step's bounces by stage and its bounce evaluations."""
+        """The captured program (make_program) once a captured step has
+        run, else None; `program.last` counts the last step's bounces by
+        gated loop (the cascade's by stage) and its bounce evaluations,
+        `program.pairs` holds the instanced groups' pair capacities and
+        `program.recaptures` the captures redone after an overflow."""
         return self._program
 
     # -- properties -----------------------------------------------------
@@ -445,15 +488,9 @@ class Runtime:
                 img = self._captured_iteration()
             else:
                 tabs = self._step_tables()
-                guiding = None
-                if canonical(self.settings.technique) == "aept":
-                    if self._aept_guiding is None:
-                        self._aept_guiding = aept_guiding(
-                            self.scene, self.settings, self._frame, tabs)
-                    guiding = self._aept_guiding
                 img = render_iteration(self.scene, self.settings,
-                                       self._iteration, self._frame, guiding,
-                                       tabs)
+                                       self._iteration, self._frame,
+                                       self._guiding(tabs), tabs)
             self._film = img if self._film is None else self._film + img
         self._iteration += 1
         self._sample_count += self.settings.spi
@@ -540,7 +577,11 @@ class Runtime:
         self._film = None
         self._iteration = 0
         self._sample_count = 0
-        self._aept_guiding = None
+        if self._aept_guiding is not None:
+            # the guided pass's graphs read the guiding: a new one needs
+            # a new capture
+            self._aept_guiding = None
+            self._program = None
 
     def clearFramebuffer(self, aov: str = "") -> None:
         self.reset()

@@ -19,8 +19,10 @@ AdaptiveEnvPathTechnique.cpp):
    steps (core/cdf._count_less), with no host sync.
 
 No NEE (the scene loader turns it off for aept by default, as
-AdaptiveEnvPathTechnique.cpp:18). The loops read `any(alive)` on the
-host once a bounce.
+AdaptiveEnvPathTechnique.cpp:18). The eager loops read `any(alive)` on
+the host once a bounce (program.run_loop); a captured step's guided pass
+gates its bounces on the device (program.LoopProgram over `sample_fns`),
+after the learning iterations and build_guiding ran once, eagerly.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from ..scenedata import RenderSettings, SceneData
 from .path import (OFFSET, RenderTables, _cadd_where, _handle_color,
                    infinite_emissions, regenerate,
                    render_tables, shade_hit, start_state, trace_scene)
+from .program import run_loop
 
 GRID_X, GRID_Y = 50, 100    # adaptive_env_pathtracer.art:16-17
 TILE_X, TILE_Y = 32, 16     # :18-19
@@ -294,6 +297,17 @@ def sample_trace(scene: SceneData, settings: RenderSettings, x, y,
     settings.spi samples."""
     if tabs is None:
         tabs = render_tables(scene, settings)
+    start, bounce, result = sample_fns(scene, settings, tabs, x, y,
+                                       iteration, frame, guiding)
+    return result(run_loop(start(), bounce,
+                           settings.spi * settings.max_depth))
+
+
+def sample_fns(scene: SceneData, settings: RenderSettings,
+               tabs: RenderTables, x, y, iteration, frame, guiding: Guiding):
+    """The guided pass's loop for the lanes x, y: (start() -> _SampState,
+    bounce, result), reading `guiding` where it lives. The iteration and
+    frame are ints or 0-d int64 tensors."""
     cam = scene.camera.eye
 
     def initial(rays, rng_state):
@@ -302,7 +316,12 @@ def sample_trace(scene: SceneData, settings: RenderSettings, x, y,
             rays, rng_state, inv_pdf=torch.zeros_like(like),
             result=black_like(like)))
 
-    st = start_state(scene, settings, x, y, iteration, frame, initial)
+    def start() -> _SampState:
+        return start_state(scene, settings, x, y, iteration, frame, initial)
+
+    def result(state: _SampState) -> Color:
+        return state.result
+
     regen = (x, y, iteration, frame)
 
     def bounce(state: _SampState) -> _SampState:
@@ -385,8 +404,4 @@ def sample_trace(scene: SceneData, settings: RenderSettings, x, y,
             depth=torch.where(do_regen, 1, state.depth + 1),
             sample=new_sample)
 
-    it = 0
-    while it < settings.spi * settings.max_depth and bool(st.alive.any()):
-        st = bounce(st)
-        it += 1
-    return st.result
+    return start, bounce, result

@@ -24,15 +24,13 @@ frame are 0-d int64 tensors filled before a run and the camera is the
 program's own copy (`set_camera`), so one capture serves every step; the
 live registry's tensors are read where they live.
 
-`run` queues the programs and reads each flag behind the device: the
-flag that gates bounce k is copied to (pinned) host memory behind an
-event, and the host waits for it only once bounce k is queued. So the
-card never waits for the host, and each stage ends with one gated-off
-bounce. On the CPU the programs run as they are, through the same runner;
-on the card `capture` records each program once as a CUDA graph, all in
-one memory pool, after a warm-up run, and `run` replays them, adding the
-kernel launches each graph recorded to the wrappers' counts. The film
-equals render_lanes's bit for bit.
+The runner is techniques/program.Program's, which every captured program
+shares: `run` queues the programs and reads each flag behind the device,
+so each stage ends with one gated-off bounce; on the card `capture`
+records each program once as a CUDA graph after a warm-up run, and `run`
+replays them. An instanced scene's traces compact into fixed pair
+buffers (program.py, ops/instanced.PairBudget). The film equals
+render_lanes's bit for bit.
 
 `DiffCascadeProgram` adds the reverse mode of render_lanes(remat=True)
 for the albedo (the counterpart of path_trace_cascade_diff under
@@ -44,17 +42,16 @@ parallel/mesh.TrainProgram runs it for train_step.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import torch
 
 from ..core.vec import Color
-from ..ops import cuda_build
 from ..scenedata import RenderSettings, SceneData, tree_map
 from . import path as pathlib
 from .path import (SHRINK, RenderTables, bucket_chain, leaves, start_state,
                    technique_fns, with_leaves)
+from .program import Program, _on
 
 
 class Stage(NamedTuple):
@@ -67,68 +64,23 @@ class Stage(NamedTuple):
     min_alive: int      # the stage ends at this many alive lanes or fewer
 
 
-class RunStats(NamedTuple):
-    """What one run did, counted on the host: the bounces each stage ran
-    (the flags read true) and the bounce programs queued, gated-off ones
-    included. The host waits for one flag a queued bounce."""
-    bounces: tuple
-    evaluations: int
-
-
-class _Flags:
-    """A ring of `go` flags copied to host memory (pinned on the card),
-    each behind an event."""
-
-    def __init__(self, n: int, device: torch.device):
-        cuda = device.type == "cuda"
-        self.host = torch.zeros(n, dtype=torch.bool, pin_memory=cuda)
-        self.events = ([torch.cuda.Event() for _ in range(n)] if cuda
-                       else None)
-        self.used = 0
-
-    def push(self, go: torch.Tensor) -> int:
-        """Queue a copy of `go`; returns its slot."""
-        j = self.used
-        self.used += 1
-        self.host[j].copy_(go, non_blocking=True)
-        if self.events is not None:
-            self.events[j].record()
-        return j
-
-    def read(self, j: int) -> bool:
-        """The flag in slot j, once its copy has landed."""
-        if self.events is not None:
-            self.events[j].synchronize()
-        return bool(self.host[j])
-
-
-def _on(device: torch.device):
-    return (torch.cuda.device(device) if device.type == "cuda"
-            else contextlib.nullcontext())
-
-
-class CascadeProgram:
+class CascadeProgram(Program):
     """render_lanes's cascade for the lanes (pixels) x, y of one scene and
     settings over buffers allocated here; `tabs` are the render's tables,
-    read by every run. `compact` as in render_lanes."""
+    read by every run. `compact` as in render_lanes; `pool` as Program's."""
 
     def __init__(self, scene: SceneData, settings: RenderSettings,
-                 tabs: RenderTables, x, y, compact: bool = True):
-        dev = x.device
-        self.device = dev
-        self.scene = scene._replace(camera=tree_map(torch.clone,
-                                                    scene.camera))
-        self.settings, self.tabs = settings, tabs
-        self.x, self.y = x, y
+                 tabs: RenderTables, x, y, compact: bool = True, pool=None):
         n = x.shape[0]
         sizes = bucket_chain(n, pathlib.MIN_BUCKET) if compact else [n]
+        super().__init__(scene, settings, tabs,
+                         settings.spi * settings.max_depth + 2 * len(sizes),
+                         pool)
+        dev = self.device
+        self.x, self.y = x, y
         self.initial, make = technique_fns(settings)
         i64 = dict(dtype=torch.int64, device=dev)
-        self.iteration = torch.zeros((), **i64)
-        self.frame = torch.zeros((), **i64)
-        self.it = torch.zeros((), **i64)
         self.budget = torch.zeros((), **i64)
-        self.go = torch.zeros((), dtype=torch.bool, device=dev)
         self.film = torch.zeros((3, n), dtype=torch.float32, device=dev)
         # each stage's bounces and the budget left after it
         self.stage_it = torch.zeros(len(sizes), **i64)
@@ -150,45 +102,11 @@ class CascadeProgram:
             last = s == len(sizes) - 1
             self.stages.append(Stage(st, px, py, l0,
                                      0 if last else size // SHRINK))
-        self.bounce_fns = [make(self.scene, settings, tabs,
+        self.bounce_fns = [make(self.scene, settings, self.tabs,
                                 (g.px, g.py, self.iteration, self.frame))
                            for g in self.stages]
-        self._flags = _Flags(settings.spi * settings.max_depth
-                             + 2 * len(sizes) + 1, dev)
-        self._graphs = None
-        self.pool = None        # the graphs' memory pool, once captured
-        self.last = None
-
-    @property
-    def captured(self) -> bool:
-        return self._graphs is not None
-
-    def set_camera(self, cam) -> None:
-        """Copy `cam` (CameraData) into the program's camera."""
-        with torch.no_grad():
-            for d, s in zip(leaves(self.scene.camera), leaves(cam)):
-                if d is not s:
-                    d.copy_(s)
 
     # -- the programs ---------------------------------------------------
-    @staticmethod
-    def _write(bufs, vals, go=None) -> None:
-        """Copy the state `vals` into the buffers `bufs`; with `go`, only
-        where go holds. Every value is made before any buffer is written,
-        so a value that aliases another buffer reads its old contents."""
-        pairs = list(zip(leaves(bufs), leaves(vals)))
-        for b, v in pairs:
-            if v.dtype != b.dtype or v.shape != b.shape:
-                raise RuntimeError(f"cascade: a state leaf of {v.dtype} "
-                                   f"{tuple(v.shape)} for a buffer of "
-                                   f"{b.dtype} {tuple(b.shape)}")
-        if go is not None:
-            pairs = [(b, v if v is b else torch.where(go, v, b))
-                     for b, v in pairs]
-        for b, v in pairs:
-            if v is not b:
-                b.copy_(v)
-
     def _publish(self, s: int) -> None:
         g = self.stages[s]
         self.go.copy_((self.it < self.budget)
@@ -240,74 +158,19 @@ class CascadeProgram:
         else:
             self._finish(s)
 
-    def _call(self, key) -> None:
-        if self._graphs is None:
-            self._program(key)
-            return
-        graph, delta = self._graphs[key]
-        graph.replay()
-        cuda_build.add_launches(delta)
-
-    # -- running and capturing ------------------------------------------
-    def run(self, iteration: int, frame: int) -> Color:
+    def _sequence(self) -> Color:
         """One iteration: the film's [n] radiance sums over settings.spi
-        samples, as views of the program's film (valid until the next
-        run)."""
-        with torch.no_grad(), _on(self.device):
-            self.iteration.fill_(int(iteration))
-            self.frame.fill_(int(frame))
-            self._call(("start", 0))
-            flags = self._flags
-            flags.used = 0
-            bounces, evals = [], 0
-            for s in range(len(self.stages)):
-                gate = flags.push(self.go)
-                k = 0
-                while True:
-                    self._call(("bounce", s))
-                    evals += 1
-                    nxt = flags.push(self.go)
-                    if not flags.read(gate):
-                        break
-                    k += 1
-                    gate = nxt
-                bounces.append(k)
-                self._call(("finish", s))
-        self.last = RunStats(tuple(bounces), evals)
+        samples, as views of the program's film."""
+        self._call(("start", 0))
+        for s in range(len(self.stages)):
+            self._loop(("bounce", s))
+            self._call(("finish", s))
         return Color(*self.film.unbind(0))
 
     def _keys(self) -> list:
         """Every program, in the order they are captured."""
         return [("start", 0)] + [(kind, s) for s in range(len(self.stages))
                                  for kind in ("bounce", "finish")]
-
-    def capture(self) -> None:
-        """Record every program as a CUDA graph, all in one memory pool.
-        Call it after a warm-up run, which loads the kernels and makes
-        their caches; a capture that fails raises."""
-        if self.device.type != "cuda":
-            raise ValueError("cascade: CUDA graphs need a CUDA device")
-        graphs = {}
-        with torch.no_grad(), _on(self.device):
-            pool = torch.cuda.graph_pool_handle()
-            for key in self._keys():
-                g = torch.cuda.CUDAGraph()
-                before = cuda_build.launch_snapshot()
-                try:
-                    # thread_local: a viewer's other threads may use
-                    # the card while its render thread captures
-                    with torch.cuda.graph(
-                            g, pool=pool,
-                            capture_error_mode="thread_local"):
-                        self._program(key)
-                finally:
-                    # the capture launched nothing; each replay will
-                    delta = cuda_build.launches_since(before)
-                    cuda_build.add_launches(delta, -1)
-                graphs[key] = (g, delta)
-            torch.cuda.synchronize(self.device)
-        self._graphs = graphs
-        self.pool = pool
 
 
 class DiffCascadeProgram(CascadeProgram):
@@ -325,8 +188,9 @@ class DiffCascadeProgram(CascadeProgram):
     bounce counter `it` (spi * max_depth + 1 slots a stage: a gated-off
     bounce saves into slot `it` without advancing it), each compaction's
     order kept, and the material table made at `start` from the albedo
-    buffers. The host knows each stage's bounce count after the forward
-    (`last.bounces`), so `backward` waits for no flag:
+    buffers. The host knows each stage's bounce count after the forward,
+    so the backward (`train` queues it after the forward) waits for no
+    flag:
     - `loss`: the loss and its gradient w.r.t. the film;
     - `adjoint(s)`, for each stage from the last: the fold's adjoint
       (the film's gradient at the stage's original lane ids) into the
@@ -346,7 +210,7 @@ class DiffCascadeProgram(CascadeProgram):
     so the graphs share one pool."""
 
     def __init__(self, scene: SceneData, settings: RenderSettings,
-                 tabs: RenderTables, x, y, base: Color, loss_of):
+                 tabs: RenderTables, x, y, base: Color, loss_of, pool=None):
         dev = x.device
         with torch.no_grad():
             self.base = Color(*[c.detach().to(dev, torch.float32).clone()
@@ -355,10 +219,12 @@ class DiffCascadeProgram(CascadeProgram):
         # a leaf on the same storage: the table the bounce VJPs read
         self.mtab_g = self.mtab.detach().requires_grad_()
         super().__init__(scene, settings, tabs._replace(mat=self.mtab), x, y,
-                         compact=True)
+                         compact=True, pool=pool)
         self.loss_of = loss_of
         make = technique_fns(settings)[1]
-        vjp_tabs = tabs._replace(mat=self.mtab_g)
+        # the forward's tables (its groups' pair budgets) with the table
+        # that requires grad
+        vjp_tabs = self.tabs._replace(mat=self.mtab_g)
         self.vjp_fns = [make(self.scene, settings, vjp_tabs,
                              (g.px, g.py, self.iteration, self.frame))
                         for g in self.stages]
@@ -474,13 +340,25 @@ class DiffCascadeProgram(CascadeProgram):
             (kind, s) for s in range(len(self.stages))
             for kind in ("adjoint", "vjp")]
 
-    def backward(self) -> None:
-        """The backward of the last run: the loss program, then each
-        stage's adjoint and one bounce VJP a bounce it ran, last stage
-        first. No flag is read: every count is known."""
-        with torch.no_grad(), _on(self.device):
-            self._call(("loss", 0))
-            for s in reversed(range(len(self.stages))):
-                self._call(("adjoint", s))
-                for _ in range(self.last.bounces[s]):
-                    self._call(("vjp", s))
+    def _backward(self, bounces) -> None:
+        """Queue the backward of a forward that ran `bounces` (by stage):
+        the loss program, then each stage's adjoint and one bounce VJP a
+        bounce it ran, last stage first. No flag is read: every count is
+        known."""
+        self._call(("loss", 0))
+        for s in reversed(range(len(self.stages))):
+            self._call(("adjoint", s))
+            for _ in range(bounces[s]):
+                self._call(("vjp", s))
+
+    def _full_sequence(self) -> Color:
+        film = self._sequence()
+        self._backward(self._bounces)
+        return film
+
+    def train(self, iteration: int, frame: int) -> None:
+        """One train step, forward and backward, into `loss` and
+        `base_grad()`. A step whose traces overflowed a group's pair
+        capacity is run again once the capacity is raised, so what the
+        caller reads is always a step without an overflow."""
+        self._execute(self._full_sequence, iteration, frame)

@@ -9,8 +9,9 @@ traced settings.spi paths. The splat, `.at[pix].add` in the JAX package,
 is K3's scatter-add onto an [h*w, 4] film (ops/gather.scatter_add_rows):
 the lanes that connect nowhere add zero at pixel 0, which the kernel
 skips. The loop runs at most spi * max_depth bounces and ends once no
-lane is alive, read on the host once a bounce (the JAX while_loop's
-`any(alive)`).
+lane is alive (the JAX while_loop's `any(alive)`): eagerly read on the
+host once a bounce (program.run_loop), or gated on the device in a
+captured program (program.LoopProgram over `lt_fns`).
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from ..ops.intersect import FLT_MAX, Rays
 from ..scenedata import RenderSettings, SceneData
 from .path import (OFFSET, RenderTables, _handle_color, occluded_scene,
                    render_tables, shade_hit, trace_scene)
+from .program import run_loop
 
 
 class LTState(NamedTuple):
@@ -40,6 +42,7 @@ class LTState(NamedTuple):
     depth: torch.Tensor
     sample: torch.Tensor
     alive: torch.Tensor
+    film: torch.Tensor      # [h*w, 4] the splats so far
 
 
 def _emit(scene: SceneData, settings: RenderSettings, tabs: RenderTables, x,
@@ -67,21 +70,40 @@ def lt_trace_film(scene: SceneData, settings: RenderSettings, x, y,
     not given)."""
     if tabs is None:
         tabs = render_tables(scene, settings)
+    start, bounce, result = lt_fns(scene, settings, tabs, x, y, iteration,
+                                   frame)
+    return result(run_loop(start(), bounce,
+                           settings.spi * settings.max_depth))
+
+
+def lt_fns(scene: SceneData, settings: RenderSettings, tabs: RenderTables,
+           x, y, iteration, frame):
+    """The light tracer's loop for the lanes x, y: (start() -> LTState,
+    bounce(LTState) -> LTState, result(LTState) -> the film's Color).
+    `iteration` and `frame` are ints or 0-d int64 tensors."""
     n = x.shape[0]
     n_pix = settings.width * settings.height
     device = x.device
     cam = scene.camera
-    zero_i = torch.zeros_like(x, dtype=torch.int32)
-    rng0, pos0, dir0, tmin0, rad0 = _emit(scene, settings, tabs, x, y,
-                                          zero_i, iteration, frame)
-    st = LTState(org=pos0, dir=dir0, tmin=tmin0, rng=rng0, contrib=rad0,
-                 eta=torch.ones(n, device=device),
-                 depth=torch.ones(n, dtype=torch.int32, device=device),
-                 sample=zero_i, alive=torch.ones(n, dtype=torch.bool,
-                                                 device=device))
-    film = torch.zeros((n_pix, 4), dtype=torch.float32, device=device)
 
-    def bounce(state: LTState, film):
+    def start() -> LTState:
+        zero_i = torch.zeros_like(x, dtype=torch.int32)
+        rng0, pos0, dir0, tmin0, rad0 = _emit(scene, settings, tabs, x, y,
+                                              zero_i, iteration, frame)
+        return LTState(
+            org=pos0, dir=dir0, tmin=tmin0, rng=rng0, contrib=rad0,
+            eta=torch.ones(n, device=device),
+            depth=torch.ones(n, dtype=torch.int32, device=device),
+            sample=zero_i,
+            alive=torch.ones(n, dtype=torch.bool, device=device),
+            film=torch.zeros((n_pix, 4), dtype=torch.float32,
+                             device=device))
+
+    def result(state: LTState) -> Color:
+        film = state.film
+        return Color(film[:, 0], film[:, 1], film[:, 2])
+
+    def bounce(state: LTState) -> LTState:
         rays_b = Rays(state.org, state.dir, state.tmin,
                       torch.where(state.alive, FLT_MAX, -1.0))
         hit = trace_scene(scene, rays_b, tabs.packed, tabs.inst)
@@ -110,7 +132,7 @@ def lt_trace_film(scene: SceneData, settings: RenderSettings, x, y,
                      torch.where(want, 1.0 - float(OFFSET), -1.0))
         ok = want & ~occluded_scene(scene, srays, tabs.packed, tabs.inst)
         splat = torch.stack([torch.where(ok, c, 0.0) for c in contrib])
-        film = film + gatherlib.scatter_add_rows(
+        film = state.film + gatherlib.scatter_add_rows(
             torch.where(ok, pix, 0).to(torch.int32), splat, n_pix, 4)
 
         # ---- adjoint bounce --------------------------------------------
@@ -141,10 +163,6 @@ def lt_trace_film(scene: SceneData, settings: RenderSettings, x, y,
                             torch.where(cont, state.eta * bs.eta,
                                         state.eta)),
             depth=torch.where(do_regen, 1, state.depth + 1),
-            sample=new_sample, alive=cont | do_regen), film
+            sample=new_sample, alive=cont | do_regen, film=film)
 
-    it = 0
-    while it < settings.spi * settings.max_depth and bool(st.alive.any()):
-        st, film = bounce(st, film)
-        it += 1
-    return Color(film[:, 0], film[:, 1], film[:, 2])
+    return start, bounce, result

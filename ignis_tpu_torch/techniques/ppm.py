@@ -20,7 +20,10 @@ PhotonMappingTechnique.cpp):
 - The radius schedule r_i = r0 prod_{k<i} (k+1.8)/(k+2) in closed form
   through lgamma.
 
-Both loops read `any(alive)` on the host once a bounce.
+Both loops test `any(alive)` once a bounce: on the host in the eager
+render (program.run_loop), on the device in the captured one
+(`PPMProgram`: a gated photon loop, the grid and radius as one program,
+a gated camera loop; techniques/program.py).
 """
 from __future__ import annotations
 
@@ -33,11 +36,12 @@ from ..core.vec import (Color, Vec3, black_like, color_max_component,
                         cselect, dot, safe_div, vselect, white_like)
 from ..ops import gather as gatherlib
 from ..ops.intersect import FLT_MAX, Rays
-from ..scenedata import RenderSettings, SceneData
+from ..scenedata import RenderSettings, SceneData, tree_map
 from .lighttracer import _emit
 from .path import (OFFSET, RenderTables, _cadd_where, _handle_color,
                    infinite_emissions, regenerate, render_tables, shade_hit,
                    start_state, trace_scene)
+from .program import Program, _on, run_loop
 
 TAN_1_DEG = 0.017455064   # photonmapper.art:271 (primary-footprint radius)
 CONTRACT = 0.8            # radius contraction ratio (photonmapper.art:244)
@@ -83,20 +87,30 @@ def trace_photons(scene: SceneData, settings: RenderSettings, iteration: int,
                   frame: int, tabs: RenderTables) -> PhotonMap:
     """settings.photon_count photons (make_ppm_light_renderer); each lane
     deposits at most one, at its first non-delta surface."""
+    start, bounce = photon_fns(scene, settings, tabs, iteration, frame)
+    return run_loop(start(), bounce, settings.max_light_depth).pmap
+
+
+def photon_fns(scene: SceneData, settings: RenderSettings,
+               tabs: RenderTables, iteration, frame):
+    """The photon pass's loop: (start() -> _PhotonState, bounce). The
+    iteration and frame are ints or 0-d int64 tensors."""
     P = settings.photon_count
     device = scene.device
-    x = torch.arange(P, dtype=torch.int32, device=device)
-    y = torch.zeros_like(x)
-    rng0, pos0, dir0, tmin0, rad0 = _emit(scene, settings, tabs, x, y, y,
-                                          iteration, frame)
-    z = torch.zeros(P, device=device)
-    st = _PhotonState(
-        org=pos0, dir=dir0, tmin=tmin0, rng=rng0, contrib=rad0,
-        depth=torch.ones(P, dtype=torch.int32, device=device),
-        alive=torch.ones(P, dtype=torch.bool, device=device),
-        pmap=PhotonMap(Vec3(z, z, z), Vec3(z, z, torch.ones_like(z)),
-                       Color(z, z, z), torch.zeros_like(x),
-                       torch.zeros(P, dtype=torch.bool, device=device)))
+
+    def start() -> _PhotonState:
+        x = torch.arange(P, dtype=torch.int32, device=device)
+        y = torch.zeros_like(x)
+        rng0, pos0, dir0, tmin0, rad0 = _emit(scene, settings, tabs, x, y,
+                                              y, iteration, frame)
+        z = torch.zeros(P, device=device)
+        return _PhotonState(
+            org=pos0, dir=dir0, tmin=tmin0, rng=rng0, contrib=rad0,
+            depth=torch.ones(P, dtype=torch.int32, device=device),
+            alive=torch.ones(P, dtype=torch.bool, device=device),
+            pmap=PhotonMap(Vec3(z, z, z), Vec3(z, z, torch.ones_like(z)),
+                           Color(z, z, z), torch.zeros_like(x),
+                           torch.zeros(P, dtype=torch.bool, device=device)))
 
     def bounce(state: _PhotonState) -> _PhotonState:
         rays = Rays(state.org, state.dir, state.tmin,
@@ -132,11 +146,7 @@ def trace_photons(scene: SceneData, settings: RenderSettings, iteration: int,
             contrib=cselect(cont, new_contrib, state.contrib),
             depth=state.depth + 1, alive=cont, pmap=pm)
 
-    it = 0
-    while it < settings.max_light_depth and bool(st.alive.any()):
-        st = bounce(st)
-        it += 1
-    return st.pmap
+    return start, bounce
 
 
 def build_photon_grid(photons: PhotonMap, scene: SceneData,
@@ -166,12 +176,15 @@ def build_photon_grid(photons: PhotonMap, scene: SceneData,
 
 
 def compute_radius(settings: RenderSettings, scene: SceneData,
-                   iteration: int) -> torch.Tensor:
+                   iteration) -> torch.Tensor:
     """ppm_compute_radius in closed form: prod_{i<n} (i+1+c)/(i+2) =
-    Gamma(n+1+c) / (Gamma(1+c) Gamma(n+2))."""
+    Gamma(n+1+c) / (Gamma(1+c) Gamma(n+2)). `iteration` is an int or a
+    0-d int64 tensor on the scene's device (no host copy either way)."""
     r0 = settings.merge_radius * 2.0 * scene.scene_radius
-    nf = torch.tensor(float(iteration), dtype=torch.float32,
-                      device=r0.device)
+    if not isinstance(iteration, torch.Tensor):
+        iteration = torch.full((), iteration, dtype=torch.int64,
+                               device=r0.device)
+    nf = iteration.to(torch.float32)
     shrink = torch.exp(torch.lgamma(nf + 1.0 + CONTRACT)
                        - torch.lgamma(torch.full_like(nf, 1.0 + CONTRACT))
                        - torch.lgamma(nf + 2.0))
@@ -291,8 +304,22 @@ def ppm_trace_progressive(scene: SceneData, settings: RenderSettings, x, y,
                           radius_it, tabs: RenderTables) -> Color:
     """The camera pass (make_ppm_path_renderer) with persistent-lane
     regeneration: per-lane radiance summed over settings.spi samples."""
-    st = start_state(scene, settings, x, y, iteration, frame, _cam_initial)
+    start, bounce = camera_fns(scene, settings, tabs, x, y, iteration, frame,
+                               grid, radius_it)
+    return run_loop(start(), bounce,
+                    settings.spi * settings.max_depth).result
+
+
+def camera_fns(scene: SceneData, settings: RenderSettings,
+               tabs: RenderTables, x, y, iteration, frame, grid: PhotonGrid,
+               radius_it):
+    """The camera pass's loop for the lanes x, y: (start() -> _CamState,
+    bounce), reading `grid` and `radius_it` where they live."""
     regen = (x, y, iteration, frame)
+
+    def start() -> _CamState:
+        return start_state(scene, settings, x, y, iteration, frame,
+                           _cam_initial)
 
     def bounce(state: _CamState) -> _CamState:
         rays_b = Rays(state.org, state.dir, state.tmin,
@@ -367,11 +394,7 @@ def ppm_trace_progressive(scene: SceneData, settings: RenderSettings, x, y,
             depth=torch.where(do_regen, 1, state.depth + 1),
             sample=new_sample)
 
-    it = 0
-    while it < settings.spi * settings.max_depth and bool(st.alive.any()):
-        st = bounce(st)
-        it += 1
-    return st.result
+    return start, bounce
 
 
 def ppm_render(scene: SceneData, settings: RenderSettings, x, y,
@@ -385,3 +408,60 @@ def ppm_render(scene: SceneData, settings: RenderSettings, x, y,
     radius_it = compute_radius(settings, scene, iteration)
     return ppm_trace_progressive(scene, settings, x, y, iteration, frame,
                                  grid, radius_it, tabs)
+
+
+class PPMProgram(Program):
+    """ppm_render for the lanes x, y as captured programs: `photon_start`
+    and a gated `photon_bounce` (at most max_light_depth), `grid` (the
+    photon grid's stable sort, K3 gather and searchsorted, and the radius
+    of the program's iteration, into fixed buffers), `camera_start` and a
+    gated `camera_bounce` (at most spi * max_depth) that reads them."""
+
+    def __init__(self, scene: SceneData, settings: RenderSettings,
+                 tabs: RenderTables, x, y, pool=None):
+        self.limits = (settings.max_light_depth,
+                       settings.spi * settings.max_depth)
+        super().__init__(scene, settings, tabs, sum(self.limits) + 4, pool)
+        sc, tb = self.scene, self.tabs
+        self.photon_start, self.photon_bounce = photon_fns(
+            sc, settings, tb, self.iteration, self.frame)
+        with torch.no_grad(), _on(self.device):
+            ph = self.photon_start()
+            grid = build_photon_grid(ph.pmap, sc, settings)
+            radius = compute_radius(settings, sc, self.iteration)
+        self.ph = tree_map(torch.empty_like, ph)
+        self.grid = tree_map(torch.empty_like, grid)
+        self.radius = torch.empty_like(radius)
+        self.camera_start, self.camera_bounce = camera_fns(
+            sc, settings, tb, x, y, self.iteration, self.frame, self.grid,
+            self.radius)
+        with torch.no_grad(), _on(self.device):
+            self.cam = tree_map(torch.empty_like, self.camera_start())
+
+    def _keys(self) -> list:
+        return [("photon_start", 0), ("photon_bounce", 0), ("grid", 0),
+                ("camera_start", 0), ("camera_bounce", 0)]
+
+    def _program(self, key) -> None:
+        kind = key[0]
+        if kind == "photon_start":
+            self._start_loop(self.ph, self.photon_start(), self.limits[0])
+        elif kind == "photon_bounce":
+            self._gated(self.ph, self.photon_bounce, self.limits[0])
+        elif kind == "grid":
+            self._write(self.grid, build_photon_grid(self.ph.pmap, self.scene,
+                                                     self.settings))
+            self.radius.copy_(compute_radius(self.settings, self.scene,
+                                             self.iteration))
+        elif kind == "camera_start":
+            self._start_loop(self.cam, self.camera_start(), self.limits[1])
+        else:
+            self._gated(self.cam, self.camera_bounce, self.limits[1])
+
+    def _sequence(self) -> Color:
+        self._call(("photon_start", 0))
+        self._loop(("photon_bounce", 0))
+        self._call(("grid", 0))
+        self._call(("camera_start", 0))
+        self._loop(("camera_bounce", 0))
+        return self.cam.result

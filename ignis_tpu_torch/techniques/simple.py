@@ -6,7 +6,10 @@ every lane: one closest hit (K1/K2, instanced groups included), the hit
 attributes through K3 and, where the view needs them, the material
 through K3 and one shadow any hit. Every function takes the render's
 tables (path.RenderTables, made once per iteration) where the JAX one
-takes the texture evaluator.
+takes the texture evaluator. `sample_lanes` is an iteration of one of
+them (settings.spi camera samples a lane, the JAX per-sample loop,
+ignis_tpu/render/session.py:273-294); `SimpleProgram` is that iteration
+as one captured program (techniques/program.py).
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 
 from ..core import rng as rnglib
 from ..core.frame import make_frame
+from ..core.sampler import sample_pixel_offsets
 from ..core.vec import Color, Vec3, black_like, cselect, vselect
 from ..core.warp import sample_cosine_hemisphere
 from ..models import bsdf as bsdflib
@@ -21,9 +25,11 @@ from ..models import camera as cameralib
 from ..models import light as lightlib
 from ..ops.intersect import FLT_MAX, Rays
 from ..scenedata import RenderSettings, SceneData
+from . import canonical
 from .path import (OFFSET, RenderTables, compute_surface, gather_material,
                    infinite_emissions, light_texture, make_surface_ctx,
                    occluded_scene, trace_scene)
+from .program import Program
 
 
 def _hit_surface(scene, rays, tabs):
@@ -224,3 +230,52 @@ def info_buffer(scene: SceneData, settings: RenderSettings, rays: Rays,
 TRACES = {"ao": ao_trace, "debug": debug_trace, "wireframe": wireframe_trace,
           "lightvisibility": light_visibility_trace,
           "camera_check": camera_check_trace, "env_check": env_check_trace}
+
+
+def sample_lanes(scene: SceneData, settings: RenderSettings,
+                 tabs: RenderTables, x, y, iteration, frame) -> Color:
+    """One iteration of the settings' simple technique for the lanes
+    (pixels) x, y: each lane's colour summed over settings.spi camera
+    samples; camera_check gets each lane's pixel id. `iteration` and
+    `frame` are ints or 0-d int64 tensors (a CUDA graph's inputs)."""
+    tech = canonical(settings.technique)
+    fn = TRACES[tech]
+    acc = None
+    for s in range(settings.spi):
+        state = rnglib.seed(s, iteration, frame, x, y, settings.seed)
+        state, (rx, ry) = sample_pixel_offsets(
+            settings.pixel_sampler, state, iteration * settings.spi + s, x, y)
+        rays = cameralib.generate_rays(scene.camera, settings, x, y, rx, ry,
+                                       rng_state=state)
+        # camera_check compares each lane's pixel with its reprojection
+        color = (fn(scene, settings, rays, state, tabs,
+                    pixel=y * settings.width + x)
+                 if tech == "camera_check"
+                 else fn(scene, settings, rays, state, tabs))
+        acc = color if acc is None else acc + color
+    return acc
+
+
+class SimpleProgram(Program):
+    """sample_lanes for the lanes x, y as one program ("shade") over a
+    [3, n] result buffer: a step is one replay and reads no flag (but the
+    instanced pairs' overflow flag)."""
+
+    def __init__(self, scene: SceneData, settings: RenderSettings,
+                 tabs: RenderTables, x, y, pool=None):
+        super().__init__(scene, settings, tabs, 0, pool)
+        self.x, self.y = x, y
+        self.out = torch.zeros((3, x.shape[0]), dtype=torch.float32,
+                               device=self.device)
+
+    def _keys(self) -> list:
+        return [("shade", 0)]
+
+    def _program(self, key) -> None:
+        self.out.copy_(torch.stack(tuple(sample_lanes(
+            self.scene, self.settings, self.tabs, self.x, self.y,
+            self.iteration, self.frame))))
+
+    def _sequence(self) -> Color:
+        self._call(("shade", 0))
+        return Color(*self.out.unbind(0))

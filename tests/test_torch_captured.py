@@ -4,7 +4,8 @@ bit (path and volpath, several iterations and frames, three cascade
 stages), each stage's bounce count and budget against eager's, the
 iteration and frame as tensors against ints under every pixel sampler,
 the gated film against the JAX package's render, the Runtime's table
-cache and its invalidation, and the dispatch rule of Runtime.step().
+cache and its invalidation, and the dispatch rule of Runtime.step()
+(techniques/program.py's runner, which every captured program shares).
 The same programs run as CUDA graphs on the card (chip_smoke.py phase
 12, tests/test_torch_cuda.py)."""
 import dataclasses
@@ -23,7 +24,7 @@ from ignis_tpu_torch.bridge import from_reference
 from ignis_tpu_torch.render import session
 from ignis_tpu_torch.render.session import (_image, _pixels,
                                             render_iteration, uses_graphs)
-from ignis_tpu_torch.techniques import cascade, path
+from ignis_tpu_torch.techniques import cascade, path, program
 from ignis_tpu_torch.techniques.cascade import CascadeProgram, leaves
 from ignis_tpu_torch.techniques.path import (render_lanes, render_tables,
                                              start_state)
@@ -242,9 +243,9 @@ def test_runtime_program_path_on_cpu(monkeypatch):
 
 
 def test_dispatch_rule():
-    """Runtime.step() takes the graphs for path and volpath on a CUDA
-    device, and the eager render for an instanced scene, under remat, for
-    the other techniques and on the CPU; the Runtime says which."""
+    """Runtime.step() takes the graphs on a CUDA device for every
+    technique, instanced scenes included, and the eager render under
+    remat and on the CPU; the Runtime says which."""
     rt = ignis_tpu_torch.loadFromString(json.dumps(_at(_SCENE, 32)),
                                         device="cpu")
     assert not rt.captured
@@ -254,20 +255,20 @@ def test_dispatch_rule():
     assert uses_graphs(card, dataclasses.replace(s, technique="volpath"))
     assert not uses_graphs(card, dataclasses.replace(s, remat=True))
     for tech in ("ao", "lt", "ppm", "aept"):
-        assert not uses_graphs(card, dataclasses.replace(s, technique=tech))
+        assert uses_graphs(card, dataclasses.replace(s, technique=tech))
     inst = ignis_tpu_torch.loadFromString(json.dumps(_grid_scene(2)),
                                           device="cpu", instancing=True)
     assert inst.scene.instances is not None and not inst.captured
-    assert not uses_graphs(SimpleNamespace(device=torch.device("cuda"),
-                                           instances=inst.scene.instances),
-                           inst.settings)
+    assert uses_graphs(SimpleNamespace(device=torch.device("cuda"),
+                                       instances=inst.scene.instances),
+                       inst.settings)
     assert session.uses_graphs is uses_graphs
 
 
 def test_flags_ring_reads_behind():
     """The runner's flag ring on the CPU: each push copies the flag at
     that moment, and reads return them in order."""
-    flags = cascade._Flags(4, torch.device("cpu"))
+    flags = program._Flags(4, torch.device("cpu"))
     go = torch.tensor(True)
     a = flags.push(go)
     go.fill_(False)

@@ -240,7 +240,7 @@ DISPATCH = [  # (device, technique, instances, remat) -> program
     (CARD, "path", None, False, True),
     (CARD, "volpath", None, False, True),
     (CARD, "path", None, True, True),
-    (CARD, "path", "instances", False, False),
+    (CARD, "path", "instances", False, True),
     (torch.device("cpu"), "path", None, False, False),
     (torch.device("cpu"), "volpath", None, False, False),
     (CARD, "ao", None, False, False),
@@ -252,9 +252,9 @@ DISPATCH = [  # (device, technique, instances, remat) -> program
 
 @pytest.mark.parametrize("device,technique,instances,remat,want", DISPATCH)
 def test_dispatch_rule(device, technique, instances, remat, want):
-    """train_step replays the graphs for path and volpath on a CUDA device
-    without instances, whatever settings.remat says (the step takes remat
-    anyway); every other case takes the eager step."""
+    """train_step replays the graphs for path and volpath on a CUDA device,
+    instanced scenes included, whatever settings.remat says (the step
+    takes remat anyway); every other case takes the eager step."""
     _, settings, _ = _load("small_k2", spi=1)
     s = dataclasses.replace(settings, technique=technique, remat=remat)
     scene = SimpleNamespace(device=device, instances=instances)

@@ -21,9 +21,11 @@ cache), the instanced geometry gradient on the card against the CPU,
 the multi-GPU layer of phase 11 (a one-rank NCCL group and a
 one-process mesh of 4 shards on S1), and the captured step of phase 12
 (CUDA graphs of the cascade bit-equal to the eager render, and S9's
-registry parameter and camera move after the capture), and the captured
+registry parameter and camera move after the capture), the captured
 train step of phase 13 (its loss bit-equal to the eager step's, its
-gradient within the bar). They skip without a card. The file imports no JAX, so it runs on the
+gradient within the bar), and phase 14's captured instanced scenes and
+other techniques (bit-equal to eager, lt within the eager-to-eager
+spread; a forced pair overflow). They skip without a card. The file imports no JAX, so it runs on the
 card's machine: `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 import json
 
@@ -576,3 +578,64 @@ def test_captured_train_step_matches_eager(device, which, tmp_path):
     assert len(out["captured"]["bounces_by_stage"]) == 2
     assert out["captured"]["launches_per_step"]["MT_replay_bwd"] == 0
 
+
+
+def _grid(device, size=128):
+    """chip_smoke's grid_scene(8) at subdivisions 4 (64 instances of a
+    5,120-triangle mesh, the local soup through K1), instanced."""
+    return ignis_tpu_torch.loadFromString(json.dumps(chip_smoke.grid_scene(
+        8, subdivisions=4, size=size)), device=device, spi=chip_smoke.SPI,
+        instancing=True)
+
+
+def test_rest_captured_instanced_forward(device):
+    """Phase 14's S7 checks on the 64-instance grid at 128x128: the
+    captured forward's films of iterations 0 and 1 bit-equal to eager's,
+    no host sync, one overflow flag beside the bounce flags, no overflow
+    at the chosen capacity; then a capacity forced under the pair count
+    ends in a recapture and the eager film."""
+    rt = _grid(device)
+    out = chip_smoke.technique_captured_against_eager("grid8", rt, device)
+    assert out["bit_equal"] and out["captured"]["host_syncs_per_step"] == 0
+    assert out["captured"]["pairs"][0]["pair_cap"] % 1024 == 0
+    assert out["captured"]["launches_per_step"]["K1"] > 0
+    over = chip_smoke.forced_overflow("grid8", rt, device)
+    assert over["recaptures"] >= 1 and over["bit_equal"]
+
+
+def test_rest_captured_instanced_train_step(device):
+    """Phase 14's S7 train step on the 64-instance grid at 128x128: the
+    captured loss bit-equal to the eager step's, the gradient within
+    phase 13's bar, no MT replay, no host sync."""
+    out = chip_smoke.captured_train_against_eager("grid8 train",
+                                                  _grid(device), device)
+    assert out["loss_bit_equal"] and out["grad_bar_use"] <= 1.0
+    assert out["captured"]["host_syncs_per_step"] == 0
+    assert out["captured"]["launches_per_step"]["MT_replay_bwd"] == 0
+
+
+@pytest.mark.parametrize("tech", chip_smoke.SIMPLE_TECHNIQUES
+                         + ("aept", "ppm", "lt"))
+def test_rest_captured_technique(device, tech, tmp_path):
+    """Phase 14's techniques at 128x128: the simple ones on S1's scene at
+    icosphere subdivisions 3, aept on it under a 256x128 substitute env,
+    S8 under ppm (50,000 photons) and lt; each captured film bit-equal to
+    eager's (lt within the eager-to-eager spread), no host sync, the
+    eager step's kernels launched through the replays."""
+    from ignis_tpu_torch.utils.envgen import ensure_substitute_env
+    if tech in chip_smoke.SIMPLE_TECHNIQUES:
+        sc, kw = chip_smoke._ico3(chip_smoke.S1_GLASS_ICO7), {
+            "technique": tech}
+    elif tech == "aept":
+        env = ensure_substitute_env(tmp_path, 256, 128)
+        sc, kw = chip_smoke.aept_scene(env, 128, subdivisions=3), {}
+    else:
+        sc, kw = chip_smoke.S8_BOX, {"technique": tech, "photons": 50000}
+    sc = json.loads(json.dumps(sc))
+    sc["film"] = {"size": [128, 128]}
+    rt = ignis_tpu_torch.loadFromString(json.dumps(sc), device=device,
+                                        spi=chip_smoke.SPI, **kw)
+    out = chip_smoke.technique_captured_against_eager(
+        tech, rt, device, spread=tech == "lt")
+    assert out["captured"]["host_syncs_per_step"] == 0
+    assert tech == "lt" or out["bit_equal"]
