@@ -105,17 +105,16 @@ printing its own lines; any failure exits non-zero:
    orbit and a tonemap event, PNGs through read_png); igutil info,
    convert and glare on the CLI's EXR; S6 loaded cold and warm through
    the mesh cache, bit-equal;
-11. the multi-GPU layer (`phase_multi_gpu`, on S1): a one-rank NCCL group
-   from parallel/distributed.initialize, its render_distributed film
-   bit-equal to Runtime.step()'s and its train_step_distributed (eager)
-   within rtol 1e-5 of train_step (captured), each timed (Msamples/s
-   beside phase 5's S1,
-   launches, host syncs); a one-process mesh of 4 shards on the card,
-   render_iteration_sharded bit-equal to the uncompacted render and
-   render_iteration_sharded_compact within rtol 2e-4 / atol 2e-5 of
-   step()'s film, each timed with its host syncs; S1's scene under ao
-   sharded over the same mesh, bit-equal to render_iteration's film;
-   scaling_report's world-size-1 line;
+11. the multi-GPU layer's eager route (`phase_multi_gpu`, on S1, through
+   mesh.render_sharded_eager and train_step_sharded_eager directly): a
+   one-rank NCCL group from parallel/distributed.initialize, its sharded
+   film bit-equal to Runtime.step()'s and its sharded train step within
+   rtol 1e-5 of train_step (captured), each timed (Msamples/s beside
+   phase 5's S1, launches, host syncs); a one-process mesh of 4 shards
+   on the card, the uncompacted film bit-equal to the uncompacted render
+   and the compacted one within rtol 2e-4 / atol 2e-5 of step()'s film,
+   each timed with its host syncs; S1's scene under ao sharded over the
+   same mesh, bit-equal to render_iteration's film;
 12. the captured step (`phase_captured`): for S1-S6 (S6 volpath) and
    S9 at 512x512, the runtimes of phases 5 and 9 (whose first steps
    captured the cascade's CUDA graphs) reset, their films of iterations
@@ -142,6 +141,24 @@ printing its own lines; any failure exits non-zero:
    replays (no MT replay, no plain version), capture seconds, the
    checkpoint slots' bytes, the graphs' pool and the peaks, and one
    profiled captured train step;
+14. the rest of the compiled iteration (`phase_rest_captured`): S7
+   (instanced) forward and train step, the simple techniques, aept, S8
+   under ppm and lt, captured against eager;
+15. the rest of the jitted surface (`phase_captured_parallel`, on S1):
+   under a one-rank NCCL group render_distributed's captured film of
+   iterations 0 and 1 bit-equal to the eager sharded film and to
+   Runtime.step()'s, train_step_distributed's loss bit-equal to the
+   eager sharded step's and its gradient within rtol 1e-4 / atol 1e-5 *
+   max|g| (beside the eager-to-eager difference), both timed beside
+   phase 11's eager rates; a one-process mesh of 4 shards: the captured
+   uncompacted film bit-equal to the one-shard film, the compacted one
+   bit-equal to the eager film of the same mesh, scaling_report's
+   efficiency, a second call that captures nothing; trace() of 262,144
+   S1 rays at spp 4 bit-equal to the eager trace, timed, one capture a
+   bucket and none on a repeat, ao's trace too; acquireStats at 512x512
+   equal to the eager counts with no host sync before its one read;
+   aept's captured learning within the eager-to-eager spread and its
+   first step timed;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -3002,6 +3019,9 @@ SUMMARY_LINE = re.compile(r"^# ([\d.]+)/([\d.]+)/([\d.]+) \(([\d.]+)/"
 TRACE_RAYS = 262144               # S1's pixel centres, in a seeded order
 TRACE_CPU_RAYS = 2048             # the first of them, traced on the CPU too
 TRACE_SPP = 4
+LONG_LEARNING = 4                 # phase 15: aept's longer learning pass
+TRACE_SAME = 200000               # phase 15: a second call in the same bucket
+TRACE_MORE = 300000               # and one in the next
 # S1's film is dim (E_v ~40 lx, below glare.art's 100 lx floor, and its
 # brightest pixels under 5x the average): scaled 10x with a 1.5x source
 # threshold, it has a glare source and every metric
@@ -3205,17 +3225,17 @@ def pixel_centre_rays(rt, n, seed=29):
 
 def phase_trace_and_stats(device, s1):
     """trace() of 262,144 pixel-centre rays of S1 at spp 4 on the card
-    (timed, K1 and K3 launches counted), its first 2,048 rays against the
-    CPU's trace of them (the same streams: ray i is keyed by i), by the
-    render-parity bar; and acquireStats of S1 at 64x64 on the card equal
-    to the CPU's."""
+    (timed after a warm-up call of the same rays, which captures their
+    bucket's program; K1 and K3 launches counted), its first
+    2,048 rays against the CPU's trace of them at the same iteration (the
+    same streams: ray i is keyed by i), by the render-parity bar; and
+    acquireStats of S1 at 64x64 on the card equal to the CPU's."""
     import torch
     import ignis_tpu_torch
     from ignis_tpu_torch.render.session import Runtime
     rays = pixel_centre_rays(s1, TRACE_RAYS)
     card = Runtime(s1.scene, s1.settings)
-    card.trace(rays[:1024], spp=1)           # warm-up
-    card = Runtime(s1.scene, s1.settings)
+    card.trace(rays, spp=1)                  # warm-up: iteration 0
     torch.cuda.synchronize()
     reset_all_counts()
     t0 = time.perf_counter()
@@ -3230,6 +3250,7 @@ def phase_trace_and_stats(device, s1):
     cpu = ignis_tpu_torch.loadFromString(json.dumps(small), device="cpu",
                                          spi=SPI)
     q_cpu = cpu.acquireStats()
+    cpu.trace(rays[:1], spp=1)               # to iteration 1, as the card
     want = cpu.trace(rays[:TRACE_CPU_RAYS], spp=TRACE_SPP)
     head = got[:TRACE_CPU_RAYS]
     close = float(np.isclose(head, want, rtol=1e-3, atol=1e-4).all(-1)
@@ -3439,21 +3460,22 @@ def timed_call(fn):
 
 
 def phase_multi_gpu(device, s1, s1_msps, smi):
-    """Phase 11: parallel/distributed.py and parallel/mesh.py on S1.
+    """Phase 11: parallel/distributed.py and parallel/mesh.py on S1, the
+    eager route (mesh.render_sharded_eager, train_step_sharded_eager,
+    called directly; phase 15 drives the public entry points, which
+    replay the shard programs on the card).
 
     A one-rank NCCL group (`initialize` at a free localhost port): the
-    film of `render_distributed` against Runtime.step()'s bit for bit, and
-    `train_step_distributed` against `train_step` (loss and new albedo
-    within rtol 1e-5), each timed after a warm-up with its launches (K1
-    and K3, no plain version) and host syncs. Then, the group destroyed,
-    a one-process mesh of SHARDS shards on the card:
-    `render_iteration_sharded` against the uncompacted render_lanes film
-    bit for bit, `render_iteration_sharded_compact` against step()'s film
-    within rtol 2e-4 / atol 2e-5 (tests/test_parallel.py:143), both timed
-    with their host syncs; S1's scene under ao through
-    `render_iteration_sharded` against render_iteration bit for bit (the
-    shards dispatch by technique); and scaling_report's line for world
-    size 1."""
+    sharded film against Runtime.step()'s bit for bit, and the sharded
+    train step against `train_step` (loss and new albedo within rtol
+    1e-5), each timed after a warm-up with its launches (K1 and K3, no
+    plain version) and host syncs. Then, the group destroyed, a
+    one-process mesh of SHARDS shards on the card: the uncompacted film
+    against the uncompacted render_lanes film bit for bit, the compacted
+    one against step()'s film within rtol 2e-4 / atol 2e-5
+    (tests/test_parallel.py:143), both timed with their host syncs; S1's
+    scene under ao through the uncompacted shards against
+    render_iteration bit for bit (the shards dispatch by technique)."""
     import dataclasses
     import torch
     import torch.distributed as tdist
@@ -3490,21 +3512,23 @@ def phase_multi_gpu(device, s1, s1_msps, smi):
     s1.step()
     want = s1.framebuffer(normalized=True)
     film, sec, syncs, used, plain = timed_call(
-        lambda: dist.render_distributed(s1.scene, s, mesh, 0, frame))
-    report("S1 render_distributed, one NCCL rank", sec, syncs, used, plain)
+        lambda: pmesh.render_sharded_eager(s1.scene, s, 0, frame, mesh,
+                                           True).cpu().numpy())
+    report("S1 render, one NCCL rank, eager", sec, syncs, used, plain)
     check(np.array_equal(film, want.cpu().numpy()),
-          "S1: render_distributed's film equals Runtime.step()'s bit for "
+          "S1: the eager sharded film equals Runtime.step()'s bit for "
           "bit")
     target = torch.zeros((s.height, s.width, 3), device=device)
     # train_step replays the captured train step's graphs on the card
-    # (phase 13); the sharded step stays eager
+    # (phase 13); this phase's sharded step is the eager route
     step_kind = ("captured" if uses_train_graphs(s1.scene, s)
                  else "eager")
     loss1, one = train_step(s1.scene, s, target, 0, frame, 1e-2)
     (loss, new), sec, syncs, used, plain = timed_call(
-        lambda: dist.train_step_distributed(s1.scene, s, target, 0, frame,
-                                            1e-2, mesh))
-    report("S1 train_step_distributed, one NCCL rank", sec, syncs, used,
+        lambda: pmesh.train_step_sharded_eager(s1.scene, s, target, 0, frame,
+                                               1e-2, mesh))
+    loss = float(loss)
+    report("S1 train step, one NCCL rank, eager", sec, syncs, used,
            plain, train=True)
     base = np.stack([c.cpu().numpy() for c in new.materials.base])
     base1 = np.stack([c.cpu().numpy() for c in one.materials.base])
@@ -3514,7 +3538,7 @@ def phase_multi_gpu(device, s1, s1_msps, smi):
     check(np.isclose(loss, float(loss1), rtol=1e-5, atol=0)
           and np.allclose(base, base1, rtol=1e-5, atol=0)
           and used["K3_scatter_add_rows"] > 0,
-          f"S1: train_step_distributed's loss and new albedo within rtol "
+          f"S1: the eager sharded step's loss and new albedo within rtol "
           f"1e-5 of train_step's ({step_kind}), through K3's scatter")
     out["train_step_compared"] = step_kind
     dist.shutdown(mesh)
@@ -3526,16 +3550,15 @@ def phase_multi_gpu(device, s1, s1_msps, smi):
                                         compact=False)), -1).reshape(
         s.height, s.width, 3) * (1.0 / s.spi)
     plain_film, sec, syncs, used, plain = timed_call(
-        lambda: pmesh.render_iteration_sharded(s1.scene, s, 0, frame, m4))
-    report(f"S1 render_iteration_sharded, {SHARDS} shards on one card", sec,
+        lambda: pmesh.render_sharded_eager(s1.scene, s, 0, frame, m4, False))
+    report(f"S1 uncompacted, {SHARDS} shards on one card, eager", sec,
            syncs, used, plain)
     check(torch.equal(plain_film, ref), f"S1: {SHARDS}-shard uncompacted "
           f"film equals render_lanes(compact=False)'s bit for bit")
     compact, sec, syncs, used, plain = timed_call(
-        lambda: pmesh.render_iteration_sharded_compact(s1.scene, s, 0, frame,
-                                                       m4))
-    report(f"S1 render_iteration_sharded_compact, {SHARDS} shards on one "
-           f"card", sec, syncs, used, plain)
+        lambda: pmesh.render_sharded_eager(s1.scene, s, 0, frame, m4, True))
+    report(f"S1 compacted, {SHARDS} shards on one card, eager", sec, syncs,
+           used, plain)
     diff = float((compact - want).abs().max())
     print(f"    compacted {SHARDS}-shard film against step()'s: largest "
           f"difference {diff:.3g}, bit-equal "
@@ -3546,18 +3569,12 @@ def phase_multi_gpu(device, s1, s1_msps, smi):
     out["compact_max_diff"] = diff
     ao = dataclasses.replace(s, technique="ao")
     ao_film, sec, syncs, used, plain = timed_call(
-        lambda: pmesh.render_iteration_sharded(s1.scene, ao, 0, frame, m4))
-    report(f"S1 ao render_iteration_sharded, {SHARDS} shards on one card",
+        lambda: pmesh.render_sharded_eager(s1.scene, ao, 0, frame, m4, False))
+    report(f"S1 ao uncompacted, {SHARDS} shards on one card, eager",
            sec, syncs, used, plain)
     check(torch.equal(ao_film, render_iteration(s1.scene, ao, 0, frame)),
           f"S1 ao: {SHARDS}-shard film equals render_iteration's bit for "
           f"bit")
-    rep = dist.scaling_report(lambda: s1, shard_counts=(1, SHARDS), iters=2)
-    print(f"  scaling_report: {json.dumps(rep)} [{smi}]")
-    check(rep.get("world_sizes") == list(range(1, torch.cuda.device_count()
-                                               + 1)),
-          "scaling_report names the world sizes this machine has")
-    out["scaling_report"] = rep
     return out
 
 
@@ -4227,6 +4244,339 @@ def phase_rest_captured(device, s1, env):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the rest of the jitted surface
+# ---------------------------------------------------------------------------
+
+def captured_call(fn, programs):
+    """A captured call (no warm-up: the caller made one): (fn()'s result,
+    its seconds, host syncs, flag waits behind the device (one a bounce
+    evaluation of each program it ran), launches through the replays,
+    plain calls), the counts reset just before it."""
+    import torch
+    torch.cuda.synchronize()
+    reset_all_counts()
+    t0 = time.perf_counter()
+    out, syncs = count_syncs(fn)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    waits = sum(p.last.evaluations + bool(p.pairs) for p in programs())
+    return out, {"seconds": sec, "host_syncs": syncs, "host_waits": waits,
+                 "launches": _kernels(launches()),
+                 "plain_calls": plain_calls()}
+
+
+def _line(what, row, n, unit="Msamples/s", scale=1e6, beside=""):
+    rate = n / row["seconds"] / scale
+    row["rate"] = rate
+    print(f"  {what}: {rate:.4f} {unit} ({row['seconds']:.4f} s{beside}), "
+          f"host syncs {row['host_syncs']} (+{row['host_waits']} flag "
+          f"waits), launches K1, K2, K3, K3 scatter "
+          f"{list(row['launches'].values())}")
+    check(row["plain_calls"] == 0 and row["launches"]["K3_gather_rows"] > 0
+          and row["launches"]["K1"] + row["launches"]["K2"] > 0,
+          f"{what}: K1/K2 and K3 launched through the replays, no plain "
+          f"version")
+    return row
+
+
+def phase_captured_parallel(device, s1, env, s1_msps, eager11, smi,
+                            trace_rays=TRACE_RAYS, aept_size=512):
+    """Phase 15 on S1 (512x512, spi 4): the sharded and distributed render
+    and train step, trace(), acquireStats and aept's learning as captured
+    programs, each against its eager route on the same inputs (see the
+    module docstring, item 15); every captured call timed with its host
+    syncs, flag waits and launches through the replays. `eager11` is
+    phase 11's output (its eager rates); `trace_rays` pixel-centre rays
+    are traced (TRACE_SAME and TRACE_MORE scaled with them), aept runs at
+    aept_size."""
+    import dataclasses
+    import torch
+    import torch.distributed as tdist
+    import ignis_tpu_torch
+    from ignis_tpu_torch.parallel import distributed as dist
+    from ignis_tpu_torch.parallel import mesh as pmesh
+    from ignis_tpu_torch.render.session import (Runtime, _pixels,
+                                                aept_guiding, render_tables)
+    from ignis_tpu_torch.techniques.path import render_lanes_stats
+    s = s1.settings
+    frame = s1.FrameCount
+    n_samples = s.width * s.height * s.spi
+    out = {"nvidia_smi": smi}
+    pmesh.release_programs()
+
+    def shard_progs(key):
+        return lambda: pmesh.shard_programs(key).programs
+
+    # -- 1. a one-rank NCCL group ----------------------------------------
+    check(dist.initialize(coordinator=f"127.0.0.1:{dist.free_port()}",
+                          num_processes=1, process_id=0),
+          "initialize formed a one-rank process group")
+    mesh = dist.global_mesh()
+    s1.reset()
+    s1.step()
+    f0 = s1.framebuffer()
+    s1.step()
+    f01 = s1.framebuffer()
+    t0 = time.perf_counter()
+    c0 = dist.render_distributed(s1.scene, s, mesh, 0, frame)   # captures
+    first = time.perf_counter() - t0
+    key = ("render", True, mesh)
+    kept = pmesh.shard_programs(key)
+    check(kept is not None and all(p.captured for p in kept.programs),
+          "render_distributed captured its shard program")
+    c1, row = captured_call(
+        lambda: dist.render_distributed(s1.scene, s, mesh, 1, frame),
+        shard_progs(key))
+    check(pmesh.shard_programs(key) is kept, "render_distributed's second "
+          "call reused the kept program")
+    e0 = pmesh.render_sharded_eager(s1.scene, s, 0, frame, mesh, True)
+    e1 = pmesh.render_sharded_eager(s1.scene, s, 1, frame, mesh, True)
+    check(np.array_equal(c0, e0.cpu().numpy())
+          and np.array_equal(c1, e1.cpu().numpy()),
+          "render_distributed's captured films of iterations 0 and 1 "
+          "bit-equal to the eager sharded films")
+    check(np.array_equal(c0, f0.cpu().numpy())
+          and np.array_equal(f0.cpu().numpy() + c1, f01.cpu().numpy()),
+          "render_distributed's captured films bit-equal to step()'s")
+    eager_r = eager11["S1 render, one NCCL rank, eager"]["msamples_per_s"]
+    row.update(first_call_s=first, capture_s=kept.capture_seconds,
+               pool_gib=graph_pool_bytes(kept.programs[0]) / 2**30)
+    out["render_distributed"] = _line(
+        "S1 render_distributed, one NCCL rank, captured", row, n_samples,
+        beside=f"; eager {eager_r:.4f} (phase 11), step() {s1_msps:.4f} "
+        f"(phase 5); first call {first:.3f} s, capture "
+        f"{kept.capture_seconds:.3f} s, pool {row['pool_gib']:.3f} GiB "
+        f"[{smi}]")
+
+    target = torch.zeros((s.height, s.width, 3), device=device)
+    rs = dataclasses.replace(s, remat=True)
+    flat = target.reshape(-1, 3)
+    e_parts = [pmesh._eager_shares(s1.scene, rs, flat, 0, frame, mesh)[0]
+               for _ in range(2)]
+    old = torch.stack([c.detach() for c in s1.scene.materials.base])
+    lr = 1e-2
+    t0 = time.perf_counter()
+    loss_c, _ = dist.train_step_distributed(s1.scene, s, target, 0, frame,
+                                            lr, mesh)   # captures
+    first = time.perf_counter() - t0
+    tkey = ("train", True, mesh)
+    tkept = pmesh.shard_programs(tkey)
+    (loss_c2, new_c), trow = captured_call(
+        lambda: dist.train_step_distributed(s1.scene, s, target, 0, frame,
+                                            lr, mesh),
+        lambda: [p.program for _, _, p in tkept.shards])
+    check(pmesh.shard_programs(tkey) is tkept, "train_step_distributed's "
+          "second call reused the kept program")
+    g_c = torch.stack(list(tkept.shards[0][2].program.base_grad()))
+    m = old.shape[1]
+    g_e, g_e2 = (p[1:].reshape(3, m) for p in e_parts)
+    loss_e = float(e_parts[0][0])
+    err, use = grad_bar_use(g_c, g_e)
+    ee, ee_use = grad_bar_use(g_e2, g_e)
+    want_new = old - lr * g_c
+    got_new = torch.stack(list(new_c.materials.base))
+    check(loss_c == loss_e and loss_c2 == loss_e,
+          f"train_step_distributed's captured loss {loss_c!r} bit-equal to "
+          f"the eager sharded step's {loss_e!r}")
+    check(use <= 1.0 and torch.equal(got_new, want_new),
+          f"train_step_distributed's gradient within rtol {GRAD_RTOL} / "
+          f"atol {GRAD_ATOL} * max|g| of eager's (bar use {use:.4f}, "
+          f"eager-eager {ee_use:.4f}), its new albedo base - lr * g")
+    eager_t = eager11["S1 train step, one NCCL rank, eager"][
+        "msamples_per_s"]
+    trow.update(first_call_s=first, capture_s=tkept.capture_seconds,
+                vjps=sum(sum(p.program.last.bounces)
+                         for _, _, p in tkept.shards),
+                grad_err=err, grad_bar_use=use, eager_eager_err=ee,
+                eager_eager_bar_use=ee_use, loss=loss_c)
+    out["train_step_distributed"] = _line(
+        "S1 train_step_distributed, one NCCL rank, captured (fwd+bwd)", trow,
+        n_samples, beside=f"; eager {eager_t:.4f} (phase 11); first call "
+        f"{first:.3f} s, capture {tkept.capture_seconds:.3f} s; gradient "
+        f"bar use {use:.4f}, eager-eager {ee_use:.4f} [{smi}]")
+    dist.shutdown(mesh)
+    check(not tdist.is_initialized(), "the process group is destroyed")
+    pmesh.release_programs()
+
+    # -- 2. a one-process mesh of SHARDS shards on the card ---------------
+    m1 = pmesh.make_mesh(devices=[device])
+    m4 = pmesh.make_mesh(devices=[device] * SHARDS)
+    one = pmesh.render_iteration_sharded(s1.scene, s, 0, frame, m1)
+    pmesh.render_iteration_sharded(s1.scene, s, 0, frame, m4)   # captures
+    ukey = ("render", False, m4)
+    ukept = pmesh.shard_programs(ukey)
+    plain4, urow = captured_call(
+        lambda: pmesh.render_iteration_sharded(s1.scene, s, 0, frame, m4),
+        shard_progs(ukey))
+    check(torch.equal(plain4, one), f"{SHARDS}-shard captured uncompacted "
+          f"film bit-equal to the one-shard film")
+    pmesh.release_programs()
+    pmesh.render_iteration_sharded_compact(s1.scene, s, 0, frame, m4)
+    ckey = ("render", True, m4)
+    ckept = pmesh.shard_programs(ckey)
+    comp4, crow = captured_call(
+        lambda: pmesh.render_iteration_sharded_compact(s1.scene, s, 0, frame,
+                                                       m4),
+        shard_progs(ckey))
+    check(pmesh.shard_programs(ckey) is ckept
+          and all(p.recaptures == 0 for p in ckept.programs),
+          f"{SHARDS}-shard compacted render: a second call with the same "
+          f"scene captured nothing")
+    eager4 = pmesh.render_sharded_eager(s1.scene, s, 0, frame, m4, True)
+    step0 = f0
+    diff = float((comp4 - step0).abs().max())
+    check(torch.equal(comp4, eager4), f"{SHARDS}-shard captured compacted "
+          f"film bit-equal to the eager film of the same mesh")
+    check(torch.allclose(comp4, step0, rtol=2e-4, atol=2e-5),
+          f"{SHARDS}-shard captured compacted film within rtol 2e-4 / atol "
+          f"2e-5 of step()'s ({diff:.3g})")
+    eu = eager11[f"S1 uncompacted, {SHARDS} shards on one card, eager"]
+    ec = eager11[f"S1 compacted, {SHARDS} shards on one card, eager"]
+    out["uncompacted_4"] = _line(
+        f"S1 render_iteration_sharded, {SHARDS} shards, captured", urow,
+        n_samples, beside=f"; eager {eu['msamples_per_s']:.4f} (phase 11); "
+        f"capture {ukept.capture_seconds:.3f} s")
+    crow["max_diff_to_step"] = diff
+    out["compact_4"] = _line(
+        f"S1 render_iteration_sharded_compact, {SHARDS} shards, captured",
+        crow, n_samples, beside=f"; eager {ec['msamples_per_s']:.4f} "
+        f"(phase 11); capture {ckept.capture_seconds:.3f} s; against "
+        f"step()'s film {diff:.3g}")
+    rep = dist.scaling_report(lambda: s1, shard_counts=(1, SHARDS), iters=2)
+    eager_eff = ec["msamples_per_s"] / eager_r
+    print(f"  scaling_report: {json.dumps(rep)} (eager, phase 11's {SHARDS} "
+          f"shards against its one rank: {eager_eff:.4f}) [{smi}]")
+    rep["eager_efficiency"] = eager_eff
+    check(rep["route"] == "captured" and rep.get("world_sizes")
+          == list(range(1, torch.cuda.device_count() + 1)),
+          "scaling_report measured the captured shards and names the world "
+          "sizes this machine has")
+    out["scaling_report"] = rep
+    pmesh.release_programs()
+
+    # -- 3. trace() ------------------------------------------------------
+    rays = pixel_centre_rays(s1, trace_rays)
+    same = trace_rays * TRACE_SAME // TRACE_RAYS
+    more = trace_rays * TRACE_MORE // TRACE_RAYS
+    trace = {}
+    for tech in ("path", "ao"):
+        ts = dataclasses.replace(s, technique=tech)
+        eager_rt, rt = Runtime(s1.scene, ts), Runtime(s1.scene, ts)
+        eager_rt.captured = False
+        check(rt.captured, f"trace ({tech}): the Runtime takes the programs")
+        t0 = time.perf_counter()
+        got0 = rt.trace(rays, spp=TRACE_SPP)      # captures the bucket
+        first = time.perf_counter() - t0
+        prog = rt._trace_programs[trace_rays]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want0 = eager_rt.trace(rays, spp=TRACE_SPP)
+        eager_sec = time.perf_counter() - t0
+        got1, row = captured_call(lambda: rt.trace(rays, spp=TRACE_SPP),
+                                  lambda: [prog])
+        want1 = eager_rt.trace(rays, spp=TRACE_SPP)
+        check(np.array_equal(got0, want0) and np.array_equal(got1, want1),
+              f"trace ({tech}): the captured result of iterations 0 and 1 "
+              f"bit-equal per ray to the eager trace")
+        check(row["host_syncs"] == 1, f"trace ({tech}): one host sync, the "
+              f"result's read ({row['host_syncs']})")
+        rt.trace(rays[:same], spp=TRACE_SPP)
+        check(list(rt._trace_programs) == [trace_rays]
+              and rt._trace_programs[trace_rays] is prog
+              and prog.recaptures == 0,
+              f"trace ({tech}): {same} rays replayed the same bucket with "
+              f"no new capture")
+        rt.trace(rays[np.arange(more) % trace_rays], spp=TRACE_SPP)
+        check(sorted(rt._trace_programs) == [trace_rays, 2 * trace_rays],
+              f"trace ({tech}): {more} rays captured one more bucket")
+        check(np.isfinite(got1).all() and got1.shape == (trace_rays, 3),
+              f"trace ({tech}): finite [n, 3]")
+        row.update(first_call_s=first, capture_s=prog.capture_seconds,
+                   eager_rays_per_s=trace_rays / eager_sec)
+        trace[tech] = _line(
+            f"trace {tech} S1 {trace_rays} rays x spp {TRACE_SPP}, captured",
+            row, trace_rays, unit="rays/s", scale=1.0,
+            beside=f"; eager {trace_rays / eager_sec:.0f} rays/s; first "
+            f"call {first:.3f} s [{smi}]")
+        del rt, eager_rt
+    out["trace"] = trace
+
+    # -- 4. acquireStats at 512x512 --------------------------------------
+    rt = Runtime(s1.scene, s)
+    x, y = _pixels(s, device)
+    _, q_e = render_lanes_stats(s1.scene, s, x, y, 0, 0)
+    t0 = time.perf_counter()
+    q0 = rt.acquireStats()                        # captures
+    first = time.perf_counter() - t0
+    q1, row = captured_call(rt.acquireStats, lambda: [rt._stats_program])
+    q0.pop("OccupancyPct")
+    occupancy = q1.pop("OccupancyPct")
+    check(q0 == q_e and q1 == q_e, f"acquireStats of S1 at 512x512: "
+          f"captured {q1} equal to the eager counts {q_e}")
+    check(row["host_syncs"] == 1, f"acquireStats: one host sync, the "
+          f"counters' read ({row['host_syncs']})")
+    row.update(first_call_s=first, counts=q1, occupancy_pct=occupancy)
+    out["acquire_stats"] = _line("acquireStats S1 512x512, captured", row,
+                                 n_samples,
+                                 beside=f"; first call {first:.3f} s")
+    del rt
+
+    # -- 5. aept's learning ----------------------------------------------
+    art = ignis_tpu_torch.loadFromString(
+        json.dumps(aept_scene(env, size=aept_size)), spi=SPI)
+    tabs = render_tables(art.scene, art.settings)
+
+    def learn(settings, captured):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = aept_guiding(art.scene, settings, 0, tabs, captured=captured)
+        torch.cuda.synchronize()
+        return g, time.perf_counter() - t0
+    (g0, e_sec), (g1, _) = (learn(art.settings, False) for _ in range(2))
+    ge = [g0, g1]
+    reset_all_counts()
+    gc, learn_sec = learn(art.settings, True)
+    used = _kernels(launches())
+    # a learning pass of LONG_LEARNING iterations, eager and captured:
+    # the capture's warm-up is one eager iteration, repaid by the replays
+    long = dataclasses.replace(art.settings,
+                               learning_iterations=LONG_LEARNING)
+    (_, e_long), (_, c_long) = learn(long, False), learn(long, True)
+
+    def gdiff(a, b):
+        return max(float((u - v).abs().max()) for u, v in zip(a, b))
+    ee, ce = gdiff(ge[0], ge[1]), gdiff(gc, ge[0])
+    bar = 2.0 * ee + EAGER_FLOOR
+    print(f"  aept S1 guiding: captured - eager {ce:.4g}, eager - eager "
+          f"{ee:.4g} (bar {bar:.4g}); learning eager {e_sec:.3f} s, "
+          f"captured with its capture {learn_sec:.3f} s, launches "
+          f"{list(used.values())}; {LONG_LEARNING} learning iterations "
+          f"eager {e_long:.3f} s, captured {c_long:.3f} s [{smi}]")
+    check(ce <= bar and torch.equal(gc.count, ge[0].count),
+          f"aept: the captured learning's guiding within the eager-to-eager "
+          f"spread ({ce:.4g} <= {bar:.4g}), its counts equal")
+    check(used["K3_scatter_add_rows"] > 0 and plain_calls() == 0,
+          "aept's learning: the K3 scatter histograms launched in its "
+          "program")
+    fresh = ignis_tpu_torch.loadFromString(
+        json.dumps(aept_scene(env, size=aept_size)), spi=SPI)
+    fs = first_step(fresh)
+    img = fresh.framebuffer()
+    check(bool(torch.isfinite(img).all()) and float(img.mean()) > 0,
+          "aept: the first step's film finite and not black")
+    print(f"  aept S1 first step (captured learning, then the guided pass's "
+          f"capture): {fs['seconds']:.3f} s [{smi}]")
+    out["aept"] = {"guiding_captured_eager_err": ce,
+                   "guiding_eager_eager_err": ee, "bar": bar,
+                   "learning_s": learn_sec, "learning_eager_s": e_sec,
+                   "learning_launches": used,
+                   f"learning_{LONG_LEARNING}_eager_s": e_long,
+                   f"learning_{LONG_LEARNING}_captured_s": c_long,
+                   "first_step_s": fs["seconds"]}
+    return out
+
+
 def main() -> int:
     import argparse
     import torch
@@ -4378,6 +4728,12 @@ def main() -> int:
     rest_captured = phase_rest_captured(device, runtimes["S1_glass_ico7"],
                                         env)
 
+    print(f"== phase 15: the rest of the jitted surface "
+          f"({time.perf_counter() - t_start:.1f} s in)")
+    captured_parallel = phase_captured_parallel(
+        device, runtimes["S1_glass_ico7"], env,
+        per_scene["S1_glass_ico7"]["msamples_per_s"], multi_gpu, smi)
+
     def timed(t):
         ms, plain, bms, by = t
         return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
@@ -4429,7 +4785,19 @@ def main() -> int:
     by_name["K3_gather_rows"]["sets"]["S9 Dupuy-Jakob step"] = s9["dj_k3"]
     by_name["K3_gather_rows"]["max_abs_err"] = max(
         by_name["K3_gather_rows"]["max_abs_err"], s9["dj_k3"]["max_abs_err"])
+    phase15 = {what: row["launches"] for what, row in (
+        list(captured_parallel["trace"].items())
+        + [(k, captured_parallel[k]) for k in (
+            "render_distributed", "train_step_distributed", "uncompacted_4",
+            "compact_4", "acquire_stats")])}
+    phase15["aept learning"] = captured_parallel["aept"]["learning_launches"]
     for k in kernels:
+        if k["name"] in ("K1_bvh_walk", "K2_isect_dense"):
+            short = k["name"][:2]
+        else:
+            short = k["name"]
+        k["phase15_launches"] = {what: used.get(short, 0)
+                                 for what, used in phase15.items()}
         check(k["launches"] > 0, f"{k['name']} launched on the main path")
     if args.profile_json:
         Path(args.profile_json).parent.mkdir(parents=True, exist_ok=True)
@@ -4441,7 +4809,8 @@ def main() -> int:
              "techniques_reference": techniques_reference, "s9": s9,
              "frontends": frontends, "multi_gpu": multi_gpu,
              "captured": captured, "captured_train": captured_train,
-             "rest_captured": rest_captured},
+             "rest_captured": rest_captured,
+             "captured_parallel": captured_parallel},
             indent=1))
     print(json.dumps({"scenes": per_scene, "train": train, "sigma": sigma,
                       "geometry_profile_us": {
@@ -4456,6 +4825,7 @@ def main() -> int:
     print(json.dumps({"captured": captured}))
     print(json.dumps({"captured_train": captured_train}))
     print(json.dumps({"rest_captured": rest_captured}))
+    print(json.dumps({"captured_parallel": captured_parallel}))
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

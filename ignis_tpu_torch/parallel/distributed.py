@@ -7,7 +7,11 @@ RayMesh of this process's one device under it, and `render_distributed`
 / `train_step_distributed` run mesh.py's sharded render and train step:
 each rank renders its contiguous slice of the film's lanes, the slices
 are all-gathered, and the albedo gradients all-reduced, so every rank
-ends with the same film, loss and new albedo.
+ends with the same film, loss and new albedo. On the card each rank
+replays its kept shard programs (mesh.ShardRender / ShardTrain, CUDA
+graphs) and calls the collective once a step after the replays, outside
+the graphs: the counterpart of ignis_tpu's jitted render_distributed /
+train_step_distributed.
 
 Usage (per process):
 
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from ..render.session import resolve_device
+from ..render.session import resolve_device, uses_graphs
 from .mesh import (make_mesh, render_iteration_sharded_compact,
                    train_step_sharded)
 
@@ -95,7 +99,9 @@ def render_distributed(scene, settings, mesh, iteration: int,
                        frame: int) -> np.ndarray:
     """One render iteration with the lanes sharded over `mesh`: the full
     [h, w, 3] film as numpy, the same on every rank. Every rank calls it
-    with the same scene."""
+    with the same scene. Dispatched as
+    mesh.render_iteration_sharded_compact is (the kept shard programs on
+    the card)."""
     img = render_iteration_sharded_compact(scene, settings, iteration,
                                            frame, mesh)
     return img.cpu().numpy()
@@ -104,7 +110,9 @@ def render_distributed(scene, settings, mesh, iteration: int,
 def train_step_distributed(scene, settings, target, iteration: int,
                            frame: int, lr: float, mesh):
     """One albedo SGD step with the lanes sharded over `mesh`: (loss as a
-    float, the same on every rank; new scene)."""
+    float, the same on every rank; new scene). Dispatched as
+    mesh.train_step_sharded is (the kept shard programs for path and
+    volpath on the card)."""
     loss, new_scene = train_step_sharded(scene, settings,
                                          torch.as_tensor(target), iteration,
                                          frame, lr, mesh)
@@ -128,11 +136,15 @@ def scaling_report(build_runtime, shard_counts=(1, 4),
     """What scaling this machine can show, with no number it cannot.
 
     - `spmd_overhead`: the same film rendered on one-process meshes of
-      each count in `shard_counts`, every shard on the runtime's device.
-      The work is fixed and the device shared, so the ideal is flat wall
+      each count in `shard_counts`, every shard on the runtime's device,
+      through render_iteration_sharded_compact's route for the runtime
+      (`route`): on the card the kept shard programs' replays (their
+      capture is the warm-up call), on the CPU the eager shards. The
+      work is fixed and the device shared, so the ideal is flat wall
       time; `spmd_overhead_efficiency` = Msamples/s at the largest count
       over that at the smallest is what sharding costs: the per-shard
-      launches and alive-count syncs and the film's assembly.
+      replays and flag waits (eager: launches and alive-count syncs) and
+      the film's assembly.
     - `world_sizes`: the process-group sizes the machine can form on its
       cards (one process a card); with one card only world size 1.
 
@@ -141,7 +153,9 @@ def scaling_report(build_runtime, shard_counts=(1, 4),
     build_runtime() -> Runtime."""
     rt = build_runtime()
     device = rt.scene.device
-    out = {"device": str(device), "spmd_overhead": {}}
+    out = {"device": str(device), "spmd_overhead": {},
+           "route": ("captured" if uses_graphs(rt.scene, rt.settings)
+                     else "eager")}
     for k in shard_counts:
         mesh = make_mesh(devices=[device] * k)
         out["spmd_overhead"][k] = _msamples_per_s(

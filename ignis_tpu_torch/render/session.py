@@ -54,13 +54,17 @@ the instanced pairs, one eager run under torch's sync debug mode
 "error", then the graphs, all in the Runtime's one pool), each later
 step fills
 the iteration, frame and camera and replays. aept's learning iterations
-and guiding run once, eagerly, before its capture. `uses_graphs` decides
-this from the scene and settings before any capture and
-`Runtime.captured` reports it; the films equal the eager render's bit
-for bit (lt's up to the order of its splat's atomics on the card). A
-registry parameter and a camera change need no new capture; a rebuild
-drops the tables and the graphs, and a new guiding (aept after reset())
-drops the graphs.
+run once before its capture, as a gated program of their own
+(aept_guiding), whose graphs are dropped once the guiding is built.
+`trace()` replays a kept program.TraceProgram a ray-count bucket and
+`acquireStats()` a kept program of the instrumented iteration, both in
+the Runtime's pool. `uses_graphs` decides all of this from the scene and
+settings before any capture and `Runtime.captured` reports it; the films,
+traces and counts equal the eager route's bit for bit (lt's films up to
+the order of its splat's atomics on the card). A registry parameter and
+a camera change need no new capture; a rebuild drops the tables and
+every program, and a new guiding (aept after reset()) drops the step's
+graphs.
 """
 from __future__ import annotations
 
@@ -80,7 +84,9 @@ from ..techniques import SIMPLE, canonical, dispatch_technique
 from ..techniques.cascade import CascadeProgram
 from ..ops.intersect import Rays
 from ..techniques.path import (check_settings, render_lanes,
-                               render_lanes_stats, render_tables, trace_rays)
+                               render_lanes_stats, render_tables,
+                               stat_quantities, stats_fns, trace_rays)
+from ..techniques.program import LoopProgram, TraceProgram, trace_bucket
 from ..utils.logger import logger
 from ..utils.stats import Statistics
 
@@ -112,17 +118,38 @@ def _image(color: Color, settings: RenderSettings) -> torch.Tensor:
 
 
 def aept_guiding(scene: SceneData, settings: RenderSettings, frame: int,
-                 tabs=None):
+                 tabs=None, captured: bool = False):
     """aept's guiding CDFs from settings.learning_iterations learning
-    iterations (iterations 0, 1, ...)."""
+    iterations (iterations 0, 1, ...), their histograms summed in order.
+    With `captured` the iterations run as one gated program
+    (program.LoopProgram of aept.learn_fns, the iteration in a device
+    buffer), captured as CUDA graphs in a pool of its own on a CUDA device
+    and dropped with it once the guiding is built: the counterpart of
+    ignis_tpu's _compiled_aept_learn (ignis_tpu/render/session.py:116-128).
+    Without it, the eager aept.learn_trace (the CPU, remat)."""
     from ..techniques import aept
     if tabs is None:
         tabs = render_tables(scene, settings)
     x, y = _pixels(settings, scene.device)
+    learn = None
+    if captured and settings.learning_iterations > 0:
+        def fns(sc, tb, it, fr):
+            return aept.learn_fns(sc, settings, tb, x, y, it, fr)
+        learn = LoopProgram(scene, settings, tabs, fns,
+                            settings.spi * settings.max_depth)
+        if scene.device.type == "cuda":
+            learn.capture(0, frame)
     hs = hc = None
     for it in range(settings.learning_iterations):
-        s, c = aept.learn_trace(scene, settings, x, y, it, frame, tabs)
-        hs, hc = (s, c) if hs is None else (hs + s, hc + c)
+        if learn is None:
+            s, c = aept.learn_trace(scene, settings, x, y, it, frame, tabs)
+        else:
+            s, c = learn.run(it, frame)
+        if hs is None:
+            # a program's result is a view of its buffer
+            hs, hc = (s, c) if learn is None else (s.clone(), c.clone())
+        else:
+            hs, hc = hs + s, hc + c
     return aept.build_guiding(hs, hc)
 
 
@@ -150,44 +177,48 @@ def compact_lanes(settings: RenderSettings) -> bool:
 
 
 def uses_graphs(scene: SceneData, settings: RenderSettings) -> bool:
-    """The dispatch rule of Runtime.step(), decided by the scene and the
-    settings before any capture: CUDA graphs of the technique's program
-    (make_program) on a CUDA device without settings.remat, whatever the
-    technique and whether or not the scene has instances; the eager
-    render on the CPU and under remat."""
+    """The dispatch rule of Runtime.step(), trace(), acquireStats(), aept's
+    learning and the sharded renders (parallel/mesh.py), decided by the
+    scene and the settings before any capture: CUDA graphs of the
+    captured programs (make_program, program.TraceProgram, the stats and
+    learning loops, the shard programs) on a CUDA device without
+    settings.remat, whatever the technique and whether or not the scene
+    has instances; the eager route on the CPU and under remat."""
     return scene.device.type == "cuda" and not settings.remat
 
 
 def uses_train_graphs(scene: SceneData, settings: RenderSettings) -> bool:
-    """The dispatch rule of parallel/mesh.train_step, decided by the scene
-    and the settings before any capture: CUDA graphs of the differentiable
-    cascade (techniques/cascade.DiffCascadeProgram) for a path or volpath
-    scene on a CUDA device, instanced or not (the train step takes remat
-    whatever the settings say); the eager train step for every other."""
+    """The dispatch rule of parallel/mesh.train_step and
+    train_step_sharded, decided by the scene and the settings before any
+    capture: CUDA graphs of the differentiable cascade
+    (techniques/cascade.DiffCascadeProgram) for a path or volpath scene on
+    a CUDA device, instanced or not (the train step takes remat whatever
+    the settings say); the eager train step for every other."""
     return (scene.device.type == "cuda"
             and canonical(settings.technique) in ("path", "volpath"))
 
 
 def make_program(scene: SceneData, settings: RenderSettings, tabs, x, y,
-                 guiding=None, pool=None):
+                 guiding=None, pool=None, compact=None):
     """The captured program of the settings' technique for the lanes
     (pixels) x, y over the render's tables `tabs`: the cascade
-    (compacting as compact_lanes says) for path and volpath, one program
-    of settings.spi camera samples for the simple techniques, a gated loop
-    for lt and for aept's guided pass (under `guiding`), ppm's photon
-    loop, grid and camera loop. `pool` is the CUDA graph pool to capture
-    into."""
+    (compacting as `compact` says, by default as compact_lanes does) for
+    path and volpath, one program of settings.spi camera samples for the
+    simple techniques, a gated loop for lt and for aept's guided pass
+    (under `guiding`), ppm's photon loop, grid and camera loop. `pool` is
+    the CUDA graph pool to capture into."""
     tech = canonical(settings.technique)
     if tech in ("path", "volpath"):
-        return CascadeProgram(scene, settings, tabs, x, y,
-                              compact_lanes(settings), pool=pool)
+        if compact is None:
+            compact = compact_lanes(settings)
+        return CascadeProgram(scene, settings, tabs, x, y, compact,
+                              pool=pool)
     if tech in SIMPLE:
         from ..techniques.simple import SimpleProgram
         return SimpleProgram(scene, settings, tabs, x, y, pool=pool)
     if tech == "ppm":
         from ..techniques.ppm import PPMProgram
         return PPMProgram(scene, settings, tabs, x, y, pool=pool)
-    from ..techniques.program import LoopProgram
     if tech == "lt":
         from ..techniques.lighttracer import lt_fns
 
@@ -288,6 +319,8 @@ class Runtime:
         self._tables = None       # render_tables, kept until a rebuild
         self._program = None      # the captured program (make_program)
         self._pool = None         # the CUDA graph pool of its programs
+        self._trace_programs = {}  # trace()'s TraceProgram a bucket
+        self._stats_program = None  # acquireStats()'s LoopProgram
         self.captured = uses_graphs(scene, settings)
         self.capture_seconds = None
 
@@ -390,6 +423,8 @@ class Runtime:
         self._aept_guiding = None
         self._tables = None
         self._program = None
+        self._trace_programs = {}
+        self._stats_program = None
         self.captured = uses_graphs(self.scene, self.settings)
         self.rebuilds += 1
 
@@ -410,7 +445,8 @@ class Runtime:
             return None
         if self._aept_guiding is None:
             self._aept_guiding = aept_guiding(self.scene, self.settings,
-                                              self._frame, tabs)
+                                              self._frame, tabs,
+                                              self.captured)
         return self._aept_guiding
 
     def _captured_iteration(self) -> torch.Tensor:
@@ -498,18 +534,48 @@ class Runtime:
                                 * self.settings.height * self.settings.spi)
         return self
 
+    def _capture(self, prog) -> None:
+        """Capture `prog` into the Runtime's graph pool on a CUDA device
+        (at the current iteration and frame); nothing on the CPU."""
+        if self.device.type == "cuda":
+            prog.capture(self._iteration, self._frame)
+            self._pool = prog.pool
+
     def acquireStats(self) -> dict:
         """One instrumented iteration of the path technique (the
         reference's --stats; ignis_tpu's path_trace_progressive_stats),
         its quantities added to `stats`: BounceRay, ShadowRay, CameraRay,
         Iteration and the mean lane occupancy OccupancyPct. Leaves the
-        film and the counters alone; {} for other techniques."""
+        film and the counters alone; {} for other techniques. Where
+        `captured` (uses_graphs) says so, the iteration replays a kept
+        program (program.LoopProgram of path.stats_fns over every pixel,
+        its counters on the device, captured in the Runtime's pool at the
+        first call, dropped by a rebuild): the counterpart of ignis_tpu's
+        _compiled_stats_iteration (ignis_tpu/render/session.py:66-83),
+        read once after the replay. Else path.render_lanes_stats."""
         if canonical(self.settings.technique) != "path":
             return {}
         self._refresh_parameters()
         x, y = _pixels(self.settings, self.device)
-        _, q = render_lanes_stats(self.scene, self.settings, x, y,
-                                  self._iteration, self._frame)
+        if not self.captured:
+            _, q = render_lanes_stats(self.scene, self.settings, x, y,
+                                      self._iteration, self._frame,
+                                      self._step_tables())
+        else:
+            prog = self._stats_program
+            if prog is None:
+                settings = self.settings
+
+                def fns(sc, tb, it, fr):
+                    return stats_fns(sc, settings, tb, x, y, it, fr)
+                prog = LoopProgram(self.scene, settings, self._step_tables(),
+                                   fns, settings.spi * settings.max_depth,
+                                   self._pool)
+                self._capture(prog)
+                self._stats_program = prog
+            prog.set_camera(self.scene.camera)
+            _, counts = prog.run(self._iteration, self._frame)
+            q = stat_quantities(counts.tolist())
         lanes = self.settings.width * self.settings.height
         iters = max(q["Iteration"], 1)
         for k, v in q.items():
@@ -523,9 +589,18 @@ class Runtime:
         (origin, direction, tmin, tmax) or [n, 6]; a tmax <= 0 is 3e38.
         Returns [n, 3] radiance averaged over spp samples as numpy. Ray i
         of sample s takes the stream (s, iteration, frame, i, 0, seed),
-        as the JAX trace does, so no padding is needed; the iteration
-        counts up afterwards. lt, ppm and aept render films, not rays:
-        they raise ValueError."""
+        as the JAX trace does; the iteration counts up afterwards. lt, ppm
+        and aept render films, not rays: they raise ValueError.
+
+        Where `captured` (uses_graphs) says so, the rays go through the
+        kept program.TraceProgram of their bucket (program.trace_bucket:
+        the power of two of at least 1,024 that holds n), padded with dead
+        rays and captured in the Runtime's pool at the bucket's first call:
+        the counterpart of ignis_tpu's _compiled_trace (ignis_tpu/render/
+        session.py:86-113). A rebuild drops the programs; a registry
+        parameter needs no new capture. Else the eager loop of
+        path.trace_rays (path, volpath) or simple.TRACES, unpadded. Both
+        read the Runtime's kept tables and give the same bits."""
         tech = canonical(self.settings.technique)
         if tech in ("lt", "ppm", "aept"):
             raise ValueError(f"trace() does not support technique '{tech}'")
@@ -536,6 +611,36 @@ class Runtime:
         if spp < 1:
             raise ValueError(f"trace() needs spp >= 1, got {spp}")
         self._refresh_parameters()
+        tabs = self._step_tables() or render_tables(self.scene,
+                                                    self.settings)
+        if self.captured:
+            out = self._trace_program(rays, spp, tabs)
+        else:
+            out = self._trace_eager(rays, spp, tech, tabs)
+        self._iteration += 1
+        return out.cpu().numpy()
+
+    def _trace_program(self, rays, spp: int, tabs) -> torch.Tensor:
+        n = rays.shape[0]
+        full = np.empty((n, 8), np.float32)
+        full[:, :6] = rays[:, :6]
+        full[:, 6] = rays[:, 6] if rays.shape[1] > 6 else 0.0
+        tmax = rays[:, 7] if rays.shape[1] > 7 else np.float32(3.0e38)
+        full[:, 7] = np.where(tmax <= 0, np.float32(3.0e38), tmax)
+        n_pad = trace_bucket(n)
+        prog = self._trace_programs.get(n_pad)
+        if prog is None:
+            prog = TraceProgram(self.scene, self.settings, tabs, n_pad,
+                                self._pool)
+            self._trace_programs[n_pad] = prog
+        prog.load(full, spp)
+        if not prog.captured:
+            self._capture(prog)
+        prog.set_camera(self.scene.camera)
+        acc = prog.run(self._iteration, self._frame)[:, :n]
+        return acc.t() / float(spp)
+
+    def _trace_eager(self, rays, spp: int, tech: str, tabs) -> torch.Tensor:
         n = rays.shape[0]
         r = torch.from_numpy(rays).to(self.device)
         col = [r[:, k].contiguous() for k in range(rays.shape[1])]
@@ -546,7 +651,6 @@ class Runtime:
                    torch.where(tmax <= 0, 3.0e38, tmax))
         idx = torch.arange(n, device=self.device)
         zero = torch.zeros_like(idx)
-        tabs = render_tables(self.scene, self.settings)
         if tech in ("path", "volpath"):
             fn = trace_rays
         else:
@@ -559,9 +663,7 @@ class Runtime:
             c = fn(self.scene, self.settings, ray, state, tabs)
             c = torch.stack([c.r, c.g, c.b], dim=-1)
             acc = c if acc is None else acc + c
-        out = acc / float(spp)
-        self._iteration += 1
-        return out.cpu().numpy()
+        return acc / float(spp)
 
     def framebuffer(self, normalized: bool = False) -> torch.Tensor:
         """Accumulated film [h, w, 3] on the runtime's device; divided by

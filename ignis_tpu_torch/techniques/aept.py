@@ -20,9 +20,10 @@ AdaptiveEnvPathTechnique.cpp):
 
 No NEE (the scene loader turns it off for aept by default, as
 AdaptiveEnvPathTechnique.cpp:18). The eager loops read `any(alive)` on
-the host once a bounce (program.run_loop); a captured step's guided pass
-gates its bounces on the device (program.LoopProgram over `sample_fns`),
-after the learning iterations and build_guiding ran once, eagerly.
+the host once a bounce (program.run_loop); on the card the learning
+iterations (program.LoopProgram over `learn_fns`, the histogram in the
+state) and the guided pass (over `sample_fns`) gate their bounces on the
+device.
 """
 from __future__ import annotations
 
@@ -108,6 +109,7 @@ class _LearnState(NamedTuple):
     alive: torch.Tensor
     depth: torch.Tensor
     sample: torch.Tensor
+    hist: torch.Tensor      # [N_GRID * N_TILE, 4]: luminance sums, counts
 
 
 def _rr(settings, state, weight):
@@ -122,11 +124,26 @@ def _rr(settings, state, weight):
 def learn_trace(scene: SceneData, settings: RenderSettings, x, y,
                 iteration: int, frame: int, tabs: RenderTables = None):
     """One learning iteration: the (hist_sum, hist_cnt) increments, each
-    [N_GRID * N_TILE]."""
+    [N_GRID * N_TILE] (program.run_loop of learn_fns)."""
     if tabs is None:
         tabs = render_tables(scene, settings)
+    start, bounce, result = learn_fns(scene, settings, tabs, x, y,
+                                      iteration, frame)
+    return result(run_loop(start(), bounce,
+                           settings.spi * settings.max_depth))
+
+
+def learn_fns(scene: SceneData, settings: RenderSettings,
+              tabs: RenderTables, x, y, iteration, frame):
+    """A learning iteration's loop for the lanes x, y: (start() ->
+    _LearnState with its histogram zeroed, bounce, result(state) ->
+    (hist_sum, hist_cnt) views of the state's histogram). The histogram
+    lives in the state, so a gated program keeps it in its buffers. The
+    iteration and frame are ints or 0-d int64 tensors."""
     cam = scene.camera.eye
     n_bins = N_GRID * N_TILE
+    # every infinite row counts a record, a delta one with no luminance
+    any_inf = bool(tabs.info.infinite)
 
     def initial(rays, rng_state):
         like = rays.tmin
@@ -134,15 +151,20 @@ def learn_trace(scene: SceneData, settings: RenderSettings, x, y,
         zv = Vec3(z, z, torch.ones_like(like))
         return _LearnState(**_fresh_state(
             rays, rng_state, last_pos=zv, last_dir=zv,
-            has_rough=torch.zeros_like(like, dtype=torch.bool)))
+            has_rough=torch.zeros_like(like, dtype=torch.bool),
+            hist=torch.zeros((n_bins, 4), dtype=torch.float32,
+                             device=like.device)))
 
-    st = start_state(scene, settings, x, y, iteration, frame, initial)
+    def start() -> _LearnState:
+        return start_state(scene, settings, x, y, iteration, frame, initial)
+
+    def result(state: _LearnState):
+        return state.hist[:, 0], state.hist[:, 1]
+
     regen = (x, y, iteration, frame)
-    hist = torch.zeros((n_bins, 4), dtype=torch.float32, device=x.device)
-    # every infinite row counts a record, a delta one with no luminance
-    any_inf = bool(tabs.info.infinite)
 
-    def bounce(state: _LearnState, hist):
+    def bounce(state: _LearnState) -> _LearnState:
+        hist = state.hist
         rays_b = Rays(state.org, state.dir, state.tmin,
                       torch.where(state.alive, state.tmax, -1.0))
         hit = trace_scene(scene, rays_b, tabs.packed, tabs.inst)
@@ -192,13 +214,9 @@ def learn_trace(scene: SceneData, settings: RenderSettings, x, y,
                                   state.has_rough | (cont & smooth)),
             alive=cont | do_regen,
             depth=torch.where(do_regen, 1, state.depth + 1),
-            sample=new_sample), hist
+            sample=new_sample, hist=hist)
 
-    it = 0
-    while it < settings.spi * settings.max_depth and bool(st.alive.any()):
-        st, hist = bounce(st, hist)
-        it += 1
-    return hist[:, 0], hist[:, 1]
+    return start, bounce, result
 
 
 def build_guiding(hist_sum: torch.Tensor, hist_cnt: torch.Tensor) -> Guiding:

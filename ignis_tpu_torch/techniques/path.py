@@ -1039,48 +1039,99 @@ def technique_fns(settings: RenderSettings):
     return initial_state, make_bounce
 
 
+def trace_fns(scene: SceneData, settings: RenderSettings,
+              tabs: RenderTables, rays: Rays, rng_state):
+    """trace_rays's loop for the rays `rays` with the random states
+    `rng_state` (both read where they live, so a program's buffers serve):
+    (start() -> the technique's state, bounce, result(state) -> Color)."""
+    initial, make = technique_fns(settings)
+    bounce = make(scene, settings, tabs)
+
+    def start():
+        return initial(rays, rng_state)
+
+    def result(st) -> Color:
+        return st.result
+
+    return start, bounce, result
+
+
 def trace_rays(scene: SceneData, settings: RenderSettings, rays: Rays,
                rng_state, tabs: RenderTables) -> Color:
     """The rays traced to completion by the settings' technique (path or
     volpath), without regeneration: ignis_tpu's path_trace and
     volpath_trace (techniques/path.py:1109, volpath.py:325). Bounces run
-    until no lane is alive or max_depth is reached (one host read of the
-    alive flags a bounce); returns the per-ray radiance."""
-    initial, make = technique_fns(settings)
-    st = initial(rays, rng_state)
-    bounce = make(scene, settings, tabs)
-    b = 0
-    while b < settings.max_depth and bool(st.alive.any()):
-        st = bounce(st)
-        b += 1
-    return st.result
+    until no lane is alive or max_depth is reached (program.run_loop of
+    trace_fns: one host read of the alive flags a bounce); returns the
+    per-ray radiance."""
+    from .program import run_loop
+    start, bounce, result = trace_fns(scene, settings, tabs, rays, rng_state)
+    return result(run_loop(start(), bounce, settings.max_depth))
 
 
 STAT_NAMES = ("BounceRay", "ShadowRay", "CameraRay")
 
+# the instrumented iteration's loop state: PathState's fields and the
+# counters, int64 [4]: STAT_NAMES and the wavefront iterations
+StatsState = NamedTuple("StatsState", [
+    *PathState.__annotations__.items(), ("counts", torch.Tensor)])
+
+
+def stats_fns(scene: SceneData, settings: RenderSettings,
+              tabs: RenderTables, x, y, iteration, frame):
+    """render_lanes_stats's loop for the lanes x, y: (start() ->
+    StatsState, bounce, result(state) -> (radiance, counts)). The counters
+    live in the state, on the device: a bounce adds its BounceRay,
+    ShadowRay and CameraRay lanes (make_bounce's `stats`) and one
+    iteration. The iteration and frame are ints or 0-d int64 tensors."""
+    stats = {}
+    inner = make_bounce(scene, settings, tabs, (x, y, iteration, frame),
+                        stats)
+    n = x.shape[0]
+
+    def start() -> StatsState:
+        st = start_state(scene, settings, x, y, iteration, frame)
+        z = torch.zeros((), dtype=torch.int64, device=x.device)
+        # the first samples' camera rays (no host-to-device copy: a
+        # program's warm-up refuses one)
+        return StatsState(*st, torch.stack([z, z, z + n, z]))
+
+    def bounce(st: StatsState) -> StatsState:
+        for i, name in enumerate(STAT_NAMES):
+            stats[name] = st.counts[i]
+        new = inner(PathState(*st[:-1]))
+        return StatsState(*new, torch.stack(
+            [stats[name] for name in STAT_NAMES] + [st.counts[3] + 1]))
+
+    def result(st: StatsState):
+        return st.result, st.counts
+
+    return start, bounce, result
+
+
+def stat_quantities(counts) -> dict:
+    """The quantities of stats_fns's counters (a list of 4 ints)."""
+    return {**dict(zip(STAT_NAMES, counts[:3])), "Iteration": counts[3]}
+
 
 def render_lanes_stats(scene: SceneData, settings: RenderSettings, x, y,
-                       iteration: int, frame: int):
+                       iteration: int, frame: int,
+                       tabs: RenderTables = None):
     """One instrumented iteration of the path technique without compaction
     (ignis_tpu's path_trace_progressive_stats, techniques/path.py:855):
     (per-lane radiance summed over the samples, quantities). The
     quantities count BounceRay, ShadowRay and CameraRay lanes (CameraRay
-    from the first samples' n on) as device tensors, read once at the
-    end, and the wavefront iterations (Iteration)."""
-    n = x.shape[0]
-    tabs = render_tables(scene, settings)
-    st = start_state(scene, settings, x, y, iteration, frame)
-    stats = {name: torch.zeros((), dtype=torch.int64, device=x.device)
-             for name in STAT_NAMES}
-    stats["CameraRay"] = stats["CameraRay"] + n
-    bounce = make_bounce(scene, settings, tabs, (x, y, iteration, frame),
-                         stats)
-    it = 0
-    while it < settings.spi * settings.max_depth and bool(st.alive.any()):
-        st = bounce(st)
-        it += 1
-    counts = torch.stack([stats[name] for name in STAT_NAMES]).tolist()
-    return st.result, {**dict(zip(STAT_NAMES, counts)), "Iteration": it}
+    from the first samples' n on) and the wavefront iterations
+    (Iteration) as device counters, read once at the end; the loop is
+    program.run_loop of stats_fns. `tabs` are made here when not given."""
+    from .program import run_loop
+    if tabs is None:
+        tabs = render_tables(scene, settings)
+    start, bounce, result = stats_fns(scene, settings, tabs, x, y,
+                                      iteration, frame)
+    radiance, counts = result(run_loop(start(), bounce,
+                                       settings.spi * settings.max_depth))
+    return radiance, stat_quantities(counts.tolist())
 
 
 def bucket_chain(n: int, min_bucket: int):

@@ -41,6 +41,7 @@ to the count it saw times HEADROOM, the programs are captured again
 from __future__ import annotations
 
 import contextlib
+import gc
 import math
 import time
 from typing import NamedTuple
@@ -325,24 +326,38 @@ class Program:
                 torch.cuda.set_sync_debug_mode(mode)
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-            for key in self._keys():
-                g = torch.cuda.CUDAGraph()
-                before = cuda_build.launch_snapshot()
-                try:
-                    # thread_local: a viewer's other threads may use
-                    # the card while its render thread captures
-                    with torch.cuda.graph(
-                            g, pool=self.pool,
-                            capture_error_mode="thread_local"):
-                        self._program(key)
-                finally:
-                    # the capture launched nothing; each replay will
-                    delta = cuda_build.launches_since(before)
-                    cuda_build.add_launches(delta, -1)
-                graphs[key] = (g, delta)
+            # a CUDA graph that the cyclic collector frees while a capture
+            # runs destroys its executable then, which invalidates the
+            # capture: no collection until the graphs are recorded
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                for key in self._keys():
+                    graphs[key] = self._record(key)
+            finally:
+                if collecting:
+                    gc.enable()
             torch.cuda.synchronize(self.device)
         self._graphs = graphs
         self.capture_seconds = time.perf_counter() - t0
+
+
+    def _record(self, key):
+        """(program `key` recorded as a CUDA graph in the pool, the
+        launches its replay makes)."""
+        g = torch.cuda.CUDAGraph()
+        before = cuda_build.launch_snapshot()
+        try:
+            # thread_local: a viewer's other threads may use the card
+            # while its render thread captures
+            with torch.cuda.graph(g, pool=self.pool,
+                                  capture_error_mode="thread_local"):
+                self._program(key)
+        finally:
+            # the capture launched nothing; each replay will
+            delta = cuda_build.launches_since(before)
+            cuda_build.add_launches(delta, -1)
+        return g, delta
 
 
 class LoopProgram(Program):
@@ -386,3 +401,134 @@ def run_loop(st, bounce, limit: int):
         st = bounce(st)
         it += 1
     return st
+
+
+TRACE_MIN_BUCKET = 1024
+
+
+def trace_bucket(n: int) -> int:
+    """The ray-list program's bucket for n rays: the power of two of at
+    least TRACE_MIN_BUCKET that holds them (ignis_tpu/render/session.py:
+    701-704)."""
+    n_pad = TRACE_MIN_BUCKET
+    while n_pad < n:
+        n_pad *= 2
+    return n_pad
+
+
+class TraceProgram(Program):
+    """Runtime.trace's ray list as captured programs over `n_pad` lanes:
+    the counterpart of ignis_tpu's _compiled_trace (ignis_tpu/render/
+    session.py:86-113), one program a bucket (trace_bucket). The rays, the
+    sample index, the iteration and the frame live in device buffers that
+    `load` and the run fill before the programs run; lanes past the
+    list's n are dead rays (org 0, dir (0, 0, 1), tmin 0, tmax -1), and
+    since ray i of sample s keeps the stream (s, iteration, frame, i, 0,
+    seed), they change no real ray's result. Each sample is, for path and
+    volpath, a `start` (the sample's random states and first state), a
+    gated `bounce` (at most max_depth, flags read behind the device) and
+    `accum`; for the simple techniques one `shade` program. `accum` and
+    `shade` write the sample's radiance into `acc` for sample 0 and add it
+    for the others, in the eager loop's order, so the sum equals the eager
+    trace's bit for bit."""
+
+    def __init__(self, scene: SceneData, settings: RenderSettings,
+                 tabs: RenderTables, n_pad: int, pool=None):
+        from ..core import rng as rnglib
+        from ..core.vec import Vec3
+        from ..ops.intersect import Rays
+        from . import SIMPLE, canonical
+        super().__init__(scene, settings, tabs, settings.max_depth + 2, pool)
+        dev = self.device
+        self.n_pad = n_pad
+        self.spp = 1
+        cuda = dev.type == "cuda"
+        # rows: org xyz, dir xyz, tmin, tmax
+        self.host = torch.zeros((8, n_pad), dtype=torch.float32,
+                                pin_memory=cuda)
+        self.ray_buf = torch.zeros((8, n_pad), dtype=torch.float32,
+                                   device=dev)
+        r = self.ray_buf.unbind(0)
+        rays = Rays(Vec3(*r[0:3]), Vec3(*r[3:6]), r[6], r[7])
+        self.sample = torch.zeros((), dtype=torch.int64, device=dev)
+        self.rng = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+        self.acc = torch.zeros((3, n_pad), dtype=torch.float32, device=dev)
+        idx = torch.arange(n_pad, device=dev)
+        zero = torch.zeros_like(idx)
+        # the closures read the buffers, not self: a program in no
+        # reference cycle is freed as soon as it is dropped
+        sample, it, fr = self.sample, self.iteration, self.frame
+        scene, tabs = self.scene, self.tabs
+
+        def seed():
+            return rnglib.seed(sample, it, fr, idx, zero, settings.seed)
+        self._seed = seed
+        tech = canonical(settings.technique)
+        self.simple = tech in SIMPLE
+        if self.simple:
+            from .simple import TRACES
+            fn = TRACES[tech]
+
+            def shade():
+                return fn(scene, settings, rays, seed(), tabs)
+            self._shade = shade
+        else:
+            from .path import trace_fns
+            self.start, self.bounce, self.result_of = trace_fns(
+                self.scene, settings, self.tabs, rays, self.rng)
+            with torch.no_grad(), _on(dev):
+                self.st = tree_map(torch.empty_like, self.start())
+
+    def _add(self, c) -> None:
+        """acc = c for sample 0, acc + c after it."""
+        c = torch.stack(tuple(c))
+        self.acc.copy_(torch.where(self.sample == 0, c, self.acc + c))
+
+    def _keys(self) -> list:
+        if self.simple:
+            return [("shade", 0)]
+        return [("start", 0), ("bounce", 0), ("accum", 0)]
+
+    def _program(self, key) -> None:
+        kind = key[0]
+        if kind == "shade":
+            self._add(self._shade())
+        elif kind == "start":
+            self.rng.copy_(self._seed())
+            self._start_loop(self.st, self.start(), self.settings.max_depth)
+        elif kind == "bounce":
+            self._gated(self.st, self.bounce, self.settings.max_depth)
+        else:
+            self._add(self.result_of(self.st))
+
+    def _sequence(self) -> torch.Tensor:
+        for s in range(self.spp):
+            self.sample.fill_(s)
+            if self.simple:
+                self._call(("shade", 0))
+                continue
+            # each sample's loop reads its flags from the ring's start:
+            # every earlier flag it needs was read
+            self._flags.used = 0
+            self._call(("start", 0))
+            self._loop(("bounce", 0))
+            self._call(("accum", 0))
+        return self.acc
+
+    def load(self, rays, spp: int) -> int:
+        """Copy the ray list `rays` (numpy [n, 8] float32, tmax already
+        mapped) into the ray buffers through pinned memory, the lanes past
+        n dead, for a run of spp samples; returns n. `run` then returns
+        the [3, n_pad] radiance sums as a view of the program's buffer."""
+        n = rays.shape[0]
+        if n > self.n_pad:
+            raise ValueError(f"trace program: {n} rays for a bucket of "
+                             f"{self.n_pad}")
+        h = self.host.numpy()
+        h[:, n:] = 0.0
+        h[5, n:] = 1.0
+        h[7, n:] = -1.0
+        h[:, :n] = rays.T
+        self.ray_buf.copy_(self.host, non_blocking=True)
+        self.spp = spp
+        return n

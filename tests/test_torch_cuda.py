@@ -25,7 +25,9 @@ registry parameter and camera move after the capture), the captured
 train step of phase 13 (its loss bit-equal to the eager step's, its
 gradient within the bar), and phase 14's captured instanced scenes and
 other techniques (bit-equal to eager, lt within the eager-to-eager
-spread; a forced pair overflow). They skip without a card. The file imports no JAX, so it runs on the
+spread; a forced pair overflow), and phase 15's captured sharded and
+distributed render and train step, trace(), acquireStats and aept
+learning against their eager routes. They skip without a card. The file imports no JAX, so it runs on the
 card's machine: `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 import json
 
@@ -510,7 +512,7 @@ def test_multi_gpu_phase_on_card(device):
     card = torch.device("cuda", 0)      # the mesh names the card's index
     out = chip_smoke.phase_multi_gpu(card, _s1(card, 128), 0.0,
                                      chip_smoke.nvidia_smi_line())
-    assert out["scaling_report"]["world_sizes"][0] == 1
+    assert out["S1 render, one NCCL rank, eager"]["msamples_per_s"] > 0
 
 
 @pytest.mark.parametrize("which", ["S1", "S2", "S4", "S6"])
@@ -639,3 +641,26 @@ def test_rest_captured_technique(device, tech, tmp_path):
         tech, rt, device, spread=tech == "lt")
     assert out["captured"]["host_syncs_per_step"] == 0
     assert tech == "lt" or out["bit_equal"]
+
+
+def test_captured_parallel_phase_on_card(device, tmp_path):
+    """Phase 15 on S1 at 128x128 (aept at 64x64 under a 256x128 env): the
+    one-rank NCCL group's captured film bit-equal to the eager sharded
+    film and step()'s, its train loss bit-equal to the eager step's; 4
+    shards captured, uncompacted bit-equal to one shard, compacted to the
+    eager mesh's; trace() of 4,096 rays bit-equal to eager with one
+    capture a bucket; acquireStats equal to the eager counts; the
+    captured aept learning within the eager-to-eager spread."""
+    from ignis_tpu_torch.utils.envgen import ensure_substitute_env
+    card = torch.device("cuda", 0)
+    smi = chip_smoke.nvidia_smi_line()
+    s1 = _s1(card, 128)
+    s1.step()
+    eager = chip_smoke.phase_multi_gpu(card, s1, 0.0, smi)
+    env = ensure_substitute_env(tmp_path, 256, 128)
+    out = chip_smoke.phase_captured_parallel(card, s1, env, 0.0, eager, smi,
+                                             trace_rays=4096, aept_size=64)
+    assert out["render_distributed"]["host_syncs"] == 1
+    assert out["trace"]["path"]["host_syncs"] == 1
+    assert out["acquire_stats"]["counts"]["BounceRay"] > 0
+
