@@ -96,13 +96,21 @@ printing its own lines; any failure exits non-zero:
    (`python -m ignis_tpu_torch.cli build/s1.json --spp 8 --spi 4`) in two
    subprocesses, its EXR bit-equal to an in-process Runtime's film and
    its denoised PNG to the in-process denoised film's bytes, its
-   Msamples/s beside phase 5's; tonemap (7 methods), image_info, both
-   denoisers and compute_glare on S1's 512x512 film and AOVs, card
-   against CPU, timed; trace() of 262,144 pixel-centre rays of S1 at spp
+   Msamples/s beside phase 5's; the five jitted post-processing functions
+   (tonemap, image_info, both denoisers, the glare reductions) through
+   their captured programs (render/post_program.py) on S1's 512x512 film
+   and AOVs: the first call plain, the second capturing, 5 replays and a
+   second set of traced arguments each bit-equal to the plain function,
+   0 host syncs a replayed call, capture seconds, pool bytes, launches a
+   call and the replay's time beside the plain function's, and a capture
+   that syncs raising; then tonemap (7 methods), image_info, both
+   denoisers and compute_glare card against CPU, timed; trace() of
+   262,144 pixel-centre rays of S1 at spp
    4 (rays/s, K1 and K3 launches; its first 2,048 rays against the
    CPU's) and acquireStats of S1 at 64x64 equal to the CPU's; a
    checkpoint resumed bit-equal; a headless viewer on S2 (4 frames, an
-   orbit and a tonemap event, PNGs through read_png); igutil info,
+   orbit and a tonemap event, PNGs through read_png; its frame time and
+   its captured tonemap's time beside the plain function's); igutil info,
    convert and glare on the CLI's EXR; S6 loaded cold and warm through
    the mesh cache, bit-equal;
 11. the multi-GPU layer's eager route (`phase_multi_gpu`, on S1, through
@@ -159,6 +167,11 @@ printing its own lines; any failure exits non-zero:
    equal to the eager counts with no host sync before its one read;
    aept's captured learning within the eager-to-eager spread and its
    first step timed;
+16. the image files ignis_tpu reads through OpenCV (`phase_textures`):
+   the fixtures of tests/data/images (a progressive JPEG, a palette BMP,
+   a 16-bit LZW TIFF, a PPM, a PFM) decoded and held to cv2's pixels
+   (cv2_pixels.npz), and a scene textured with them rendered by one
+   captured step: finite, not black;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -3136,21 +3149,202 @@ def glare_f64(img, cam_dir=(0.0, 0.0, 1.0), cam_up=(0.0, 1.0, 0.0),
     return float((lum * omega * cos).sum()), float(omega[src].sum())
 
 
-def phase_post(device, rt):
-    """tonemap (7 methods), image_info, both denoisers and compute_glare
-    on S1's 512x512 film and AOVs, on the card against the same calls on
-    the CPU at the CPU tests' tolerances, each timed with cuda_ms.
-    Glare's metrics are held on every 8th pixel (64x64, the CPU test's
-    size): at 512x512 the float32 solid angles leave E_v and the source's
-    omega percents apart in each package, so there the card, the CPU and
-    a float64 evaluation are printed."""
-    import torch
+POST_REPLAYS = 5                  # phase 10: replays held to the plain result
+
+
+def post_cases(film, guides):
+    """The five functions ignis_tpu jits for post-processing, on `film`
+    and its AOV `guides`: name -> (the call through dispatch, the plain
+    function, the first and the second set of traced arguments, and the
+    key's (name, statics, inputs) for post_program.program_of)."""
     from ignis_tpu_torch.render import denoise, glare, tonemap
+    up = (0.0, 1.0, 0.0)
+
+    def reductions(fn):
+        return lambda cam_dir=(0.0, 0.0, 1.0), mul=GLARE_ARGS["mul"], \
+            vertical_illuminance=-1.0: fn(film, cam_dir, up, 60.0, mul,
+                                          GLARE_ARGS["scale"],
+                                          vertical_illuminance)
+    return {
+        "tonemap": (
+            lambda **kw: tonemap.tonemap(film, method=3, **kw),
+            lambda **kw: tonemap.tonemap_plain(film, method=3, **kw),
+            {}, {"exposure_factor": 2.0, "scale": 2.0},
+            ("tonemap", (3, True), [film])),
+        "image_info": (
+            lambda **kw: tuple(tonemap.image_info(film, **kw)),
+            lambda **kw: tuple(tonemap.image_info_plain(film, **kw)),
+            {}, {"scale": 2.0}, ("image_info", (64,), [film])),
+        "denoise_image": (
+            lambda **kw: denoise.denoise_image(film, *guides, **kw),
+            lambda **kw: denoise.denoise_image_plain(film, *guides, **kw),
+            {}, {"sigma_color": 0.3},
+            ("denoise_image", (4,), [film, *guides])),
+        "denoise_image_nlm": (
+            lambda **kw: denoise.denoise_image_nlm(film, *guides, **kw),
+            lambda **kw: denoise.denoise_image_nlm_plain(film, *guides,
+                                                         **kw),
+            {}, {"k": 0.6}, ("denoise_image_nlm", (5, 1), [film, *guides])),
+        "glare_reductions": (
+            reductions(glare._glare_reductions),
+            reductions(glare.glare_reductions_plain),
+            {}, {"cam_dir": (0.1, -0.2, 1.0), "mul": 3.0,
+                 "vertical_illuminance": 2500.0},
+            ("glare_reductions", (60.0,), [film])),
+    }
+
+
+def same(a, b) -> bool:
+    """torch.equal over a tensor or a tuple of tensors."""
+    import torch
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+def host_launches(fn):
+    """One call of fn() under torch.profiler: the host's launch calls by
+    runtime function (kernels, graphs, copies, fills) and the device
+    operations the call ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from ignis_tpu_torch.render.profile import device_spans
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = {e.key: e.count for e in prof.key_averages()
+             if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                                  "cudaGraphLaunch", "cudaMemcpyAsync",
+                                  "cudaMemsetAsync"))}
+    return {"host_calls": calls, "host_launches": sum(calls.values()),
+            "device_ops": len(device_spans(prof))}
+
+
+def post_program_run(name, case):
+    """One post-processing function through its program: the keeper
+    emptied, the first call (plain) and the second (the capture and a
+    replay), POST_REPLAYS replays with their host syncs counted, each
+    torch.equal to the plain function; then the second set of traced
+    arguments, equal to the plain function with those; times (host wall
+    of the first and second calls, cuda_ms of the replay and the plain
+    function), launches a call of each route, capture seconds and the
+    graph pool's bytes."""
+    import torch
+    from ignis_tpu_torch.render import post_program
+    call, plain, args_a, args_b, key = case
+    post_program.release_programs()
+    want_a, want_b = plain(**args_a), plain(**args_b)
+    check(not same(want_a, want_b), f"{name}: the second traced arguments "
+          f"change the plain result")
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+    first, first_ms = walled(lambda: call(**args_a))
+    check(post_program.program_of(*key) is None and same(first, want_a),
+          f"{name}: the first call runs the plain function")
+    second, second_ms = walled(lambda: call(**args_a))
+    prog = post_program.program_of(*key)
+    check(prog is not None and prog.graph is not None
+          and same(second, want_a),
+          f"{name}: the second call captures, and its replay equals the "
+          f"plain function")
+    syncs = []
+    for _ in range(POST_REPLAYS):
+        out, n = count_syncs(lambda: call(**args_a))
+        syncs.append(n)
+        check(same(out, want_a), f"{name}: a replay equals the plain "
+              f"function")
+    check(syncs == [0] * POST_REPLAYS, f"{name}: no host sync in a "
+          f"replayed call ({syncs})")
+    other, n_b = count_syncs(lambda: call(**args_b))
+    check(n_b == 0 and same(other, want_b) and prog.replays
+          == POST_REPLAYS + 2,
+          f"{name}: the second traced arguments {args_b} replay the same "
+          f"program, equal to the plain function with them")
+    row = {"first_ms": first_ms, "second_ms": second_ms,
+           "steady_ms": cuda_ms(lambda: call(**args_a), reps=5),
+           "plain_ms": cuda_ms(lambda: plain(**args_a), reps=3, warmup=1),
+           "capture_seconds": prog.capture_seconds,
+           "pool_bytes": graph_pool_bytes(prog), "replay_syncs": syncs,
+           "plain": host_launches(lambda: plain(**args_a)),
+           "replay": host_launches(lambda: call(**args_a))}
+    print(f"  {name}: plain {row['plain_ms']:.3f} ms, first {first_ms:.3f}"
+          f" ms, second (capture + replay) {second_ms:.3f} ms, steady "
+          f"{row['steady_ms']:.3f} ms (cuda_ms); capture "
+          f"{row['capture_seconds']:.3f} s, pool {row['pool_bytes']} B; "
+          f"host syncs a replayed call {syncs}; launches a call plain "
+          f"{row['plain']['host_launches']} (device ops "
+          f"{row['plain']['device_ops']}), replay "
+          f"{row['replay']['host_launches']} "
+          f"{row['replay']['host_calls']} (device ops "
+          f"{row['replay']['device_ops']})")
+    return row
+
+
+def post_capture_failure(device):
+    """A PostProgram whose body reads the device on the host raises at its
+    capture (the warm-up's sync debug mode "error"), and dispatch never
+    falls back: the key's second call raises too."""
+    import torch
+    from ignis_tpu_torch.render import post_program, tonemap
+    x = torch.rand(8, 8, 3, device=device)
+
+    def body(images, traced):
+        return (images[0] * float(images[0].sum()),)
+    prog = post_program.PostProgram(body, [x], [])
+    prog.load([x], [])
+    try:
+        prog.capture()
+        raised = False
+    except RuntimeError:
+        raised = True
+    check(raised and prog.graph is None, "post: a capture that syncs raises")
+    post_program.release_programs()
+    real = tonemap._tonemap_body
+    tonemap._tonemap_body = lambda img, m, g: body
+    try:
+        tonemap.tonemap(x, method=2)
+        try:
+            tonemap.tonemap(x, method=2)
+            raised = False
+        except RuntimeError:
+            raised = True
+    finally:
+        tonemap._tonemap_body = real
+        post_program.release_programs()
+    check(raised, "post: a failed capture raises through dispatch, no "
+          "fallback to the plain function")
+    return True
+
+
+def phase_post(device, rt):
+    """The five post-processing functions through their programs on S1's
+    512x512 film and AOVs (post_program_run, each against its plain
+    function bit for bit under two sets of traced arguments) and a
+    capture that fails; then tonemap (7 methods), image_info, both
+    denoisers and compute_glare on the card against the same calls on
+    the CPU at the CPU tests' tolerances. Glare's metrics are held on
+    every 8th pixel (64x64, the CPU test's size): at 512x512 the float32
+    solid angles leave E_v and the source's omega percents apart in each
+    package, so there the card, the CPU and a float64 evaluation are
+    printed."""
+    import torch
+    from ignis_tpu_torch.render import denoise, glare, post_program, tonemap
     film = rt.framebuffer(normalized=True)
     aovs = rt.render_aovs()
     guides = [aovs[k] for k in ("Normals", "Albedo", "Depth")]
+    programs = {name: post_program_run(name, case)
+                for name, case in post_cases(film, guides).items()}
+    out = {"programs": programs,
+           "capture_failure_raises": post_capture_failure(device)}
+    post_program.release_programs()
     cpu_film, cpu_guides = film.cpu(), [g.cpu() for g in guides]
-    out = {}
     for m in range(7):
         got = tonemap.tonemap(film, method=m).cpu().numpy()
         want = tonemap.tonemap(cpu_film, method=m).numpy()
@@ -3166,7 +3360,7 @@ def phase_post(device, rt):
         a, b = float(getattr(got, f)), float(getattr(want, f))
         check(math.isclose(a, b, rel_tol=1e-6, abs_tol=0.0),
               f"image_info {f}: card {a:.7g} vs CPU {b:.7g} (rtol 1e-6)")
-    out["image_info_ms"] = cuda_ms(lambda: tonemap.image_info(film), reps=5)
+    out["image_info_ms"] = programs["image_info"]["steady_ms"]
     for name, fn in (("denoise_image", denoise.denoise_image),
                      ("denoise_image_nlm", denoise.denoise_image_nlm)):
         got = fn(film, *guides).cpu().numpy()
@@ -3174,8 +3368,8 @@ def phase_post(device, rt):
         err = float(np.abs(got - want).max())
         check(np.allclose(got, want, rtol=1e-5, atol=1e-7),
               f"{name}: card vs CPU within rtol 1e-5 (max |diff| {err:.2e})")
-        out[f"{name}_ms"] = cuda_ms(lambda fn=fn: fn(film, *guides), reps=3,
-                                    warmup=1)
+        out[f"{name}_ms"] = programs[name]["steady_ms"]
+        out[f"{name}_plain_ms"] = programs[name]["plain_ms"]
     small = film[::8, ::8].contiguous()
     got = glare.compute_glare(small, **GLARE_ARGS)
     want = glare.compute_glare(small.cpu(), **GLARE_ARGS)
@@ -3203,8 +3397,13 @@ def phase_post(device, rt):
     out["glare_512_spread"] = spread
     out["compute_glare_ms"] = cuda_ms(
         lambda: glare.compute_glare(film, **GLARE_ARGS), reps=5)
+    _, out["compute_glare_syncs"] = count_syncs(
+        lambda: glare.compute_glare(film, **GLARE_ARGS))
+    post_program.release_programs()
     print("  times at 512x512 (ms, cuda_ms): " + ", ".join(
-        f"{k[:-3]} {v:.3f}" for k, v in out.items() if k.endswith("_ms")))
+        f"{k[:-3]} {v:.3f}" for k, v in out.items() if k.endswith("_ms"))
+          + f"; compute_glare's host syncs (its reads) "
+          f"{out['compute_glare_syncs']}")
     return out
 
 
@@ -3353,15 +3552,54 @@ def phase_viewer(device, s2, build_dir):
     check(used["K2"] > 0 and plain_calls() == 0,
           f"viewer frames launch K2: {used}")
     rendered = state.frame_seq
+    tm = viewer_tonemap(rt)
     print(f"  viewer S2: {rendered} frames rendered in {sec:.2f} s, 4 read "
           f"(iterations {[st['iteration'] for st in stats]}, Msamples/s "
           f"{[st['msamples_per_s'] for st in stats]}), launches {used}, a "
-          f"frame {({k: v / rendered for k, v in used.items()})}")
+          f"frame {({k: v / rendered for k, v in used.items()})}; frame "
+          f"time {sec / rendered * 1e3:.1f} ms with the captured tonemap, "
+          f"which takes {tm['captured_ms']:.3f} ms with its host read "
+          f"against the plain function's {tm['plain_ms']:.3f} ms")
     return {"seconds": sec, "launches": used, "frames": len(frames),
             "frames_rendered": rendered,
+            "frame_ms": sec / rendered * 1e3, "tonemap": tm,
             "stats": [{k: st[k] for k in ("iteration", "frame",
                                           "msamples_per_s", "tonemap")}
                       for st in stats]}
+
+
+def viewer_tonemap(rt, reps=5):
+    """The viewer's tonemap of rt's film (reinhard, exposure 1, as after
+    phase_viewer's event) through Runtime.tonemap: its program captured
+    (by the render thread's frames or here), its uint8 frame equal to the
+    plain function's, and the host wall of each route with its read to
+    the host (median of `reps`)."""
+    import torch
+    from ignis_tpu_torch.render import post_program, tonemap
+    film = rt.framebuffer(normalized=True)
+
+    def plain():
+        out = tonemap.tonemap_plain(film, exposure_factor=2.0, method=1)
+        return (np.clip(out.cpu().numpy(), 0.0, 1.0) * 255).astype("uint8")
+
+    def walled(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    for _ in range(2):
+        got = rt.tonemap(method=1, exposure=1.0)
+    prog = post_program.program_of("tonemap", (1, True), [film])
+    check(prog is not None and prog.graph is not None
+          and np.array_equal(got, plain()),
+          "viewer: the tonemap replays a captured program, its frame equal "
+          "to the plain function's")
+    return {"captured_ms": walled(lambda: rt.tonemap(method=1,
+                                                      exposure=1.0)),
+            "plain_ms": walled(plain)}
 
 
 def phase_igutil(build_dir):
@@ -4577,6 +4815,90 @@ def phase_captured_parallel(device, s1, env, s1_msps, eager11, smi,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the image files ignis_tpu reads through OpenCV
+# ---------------------------------------------------------------------------
+
+IMAGE_FIXTURES = ROOT / "tests" / "data" / "images"
+
+
+def texture_scene(size=128):
+    """A row of rectangles facing the camera, one for each image fixture
+    of tests/data/images (scripts/make_image_fixtures.py: progressive
+    JPEG, palette BMP, 16-bit LZW TIFF, PPM, PFM), each a diffuse whose
+    reflectance is that image; a point light and a dim env, path at
+    depth 3."""
+    names = sorted(p.name for p in IMAGE_FIXTURES.iterdir()
+                   if p.suffix != ".npz")
+    n = len(names)
+    textures, bsdfs, shapes, ents = [], [], [], []
+    for i, name in enumerate(names):
+        textures.append({"type": "image", "name": f"t{i}",
+                         "filename": str(IMAGE_FIXTURES / name)})
+        bsdfs.append({"type": "diffuse", "name": f"m{i}",
+                      "reflectance": f"t{i}"})
+        shapes.append({"type": "rectangle", "name": f"r{i}", "width": 0.6,
+                       "height": 0.6, "flip_normals": True})
+        ents.append({"name": f"r{i}", "shape": f"r{i}", "bsdf": f"m{i}",
+                     "transform": [{"translate": [0.7 * (i - (n - 1) / 2),
+                                                  0, 0]}]})
+    return {"technique": {"type": "path", "max_depth": 3},
+            "camera": {"type": "perspective", "fov": 60,
+                       "transform": [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, -3]},
+            "film": {"size": [size, size]},
+            "textures": textures, "bsdfs": bsdfs, "shapes": shapes,
+            "entities": ents,
+            "lights": [{"type": "point", "name": "P",
+                        "position": [0, 1, -2.5], "intensity": [8, 8, 8]},
+                       {"type": "env", "name": "E",
+                        "radiance": [0.3, 0.3, 0.3]}]}
+
+
+def phase_textures(device):
+    """Each image fixture decoded on the card's host and held to
+    cv2_pixels.npz at the CPU tests' bars (the progressive JPEG within 1
+    level, the others exactly); then texture_scene loaded onto the card
+    and one captured step rendered: finite, not black, no texture
+    refused."""
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch.utils.image import decode_samples
+    want = np.load(IMAGE_FIXTURES / "cv2_pixels.npz")
+    decoded = {}
+    for name in sorted(want.files):
+        t0 = time.perf_counter()
+        got = decode_samples(IMAGE_FIXTURES / name)
+        sec = time.perf_counter() - t0
+        err = float(np.abs(got.astype(np.float64) - want[name]).max())
+        bar = 1.0 if name.endswith(".jpg") else 0.0
+        check(got.dtype == want[name].dtype and got.shape == want[name].shape
+              and err <= bar, f"{name}: decoded {got.shape} {got.dtype} "
+              f"within {bar:g} of cv2's pixels (max |diff| {err:g})")
+        decoded[name] = {"shape": list(got.shape), "dtype": str(got.dtype),
+                         "max_abs_err": err, "seconds": sec}
+    t0 = time.perf_counter()
+    rt = ignis_tpu_torch.loadFromString(json.dumps(texture_scene()), spi=SPI)
+    load_s = time.perf_counter() - t0
+    check(rt.scene.device.type == "cuda" and rt.captured
+          and rt.warnings == [],
+          f"texture scene: loaded onto {device}, captured, no texture "
+          f"refused ({rt.warnings})")
+    reset_all_counts()
+    first = first_step(rt)
+    used = launches()
+    film = rt.framebuffer(normalized=True)
+    mean = float(film.mean())
+    check(bool(torch.isfinite(film).all()) and mean > 0.0
+          and plain_calls() == 0 and sum(used.values()) > 0,
+          f"texture scene: one captured step, finite, mean {mean:.4g} > 0, "
+          f"launches {used}")
+    print(f"  fixtures decoded {decoded}; texture scene loaded in "
+          f"{load_s:.2f} s, first (capturing) step {first['seconds']:.2f} "
+          f"s, film mean {mean:.4f}, launches {used}")
+    return {"decoded": decoded, "load_seconds": load_s,
+            "first_step": first, "film_mean": mean, "launches": used}
+
+
 def main() -> int:
     import argparse
     import torch
@@ -4734,6 +5056,10 @@ def main() -> int:
         device, runtimes["S1_glass_ico7"], env,
         per_scene["S1_glass_ico7"]["msamples_per_s"], multi_gpu, smi)
 
+    print(f"== phase 16: the image files ignis_tpu reads through OpenCV "
+          f"({time.perf_counter() - t_start:.1f} s in)")
+    textures = phase_textures(device)
+
     def timed(t):
         ms, plain, bms, by = t
         return {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by}
@@ -4810,7 +5136,7 @@ def main() -> int:
              "frontends": frontends, "multi_gpu": multi_gpu,
              "captured": captured, "captured_train": captured_train,
              "rest_captured": rest_captured,
-             "captured_parallel": captured_parallel},
+             "captured_parallel": captured_parallel, "textures": textures},
             indent=1))
     print(json.dumps({"scenes": per_scene, "train": train, "sigma": sigma,
                       "geometry_profile_us": {
@@ -4826,6 +5152,7 @@ def main() -> int:
     print(json.dumps({"captured_train": captured_train}))
     print(json.dumps({"rest_captured": rest_captured}))
     print(json.dumps({"captured_parallel": captured_parallel}))
+    print(json.dumps({"textures": textures}))
     print(f"total wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,9 +5,10 @@ evalglare with a single glare source).
 Given a radiance image and the camera, computes the daylighting glare
 metrics: DGP (Wienold-Christoffersen), DGI and modified DGI, DGR and VCP,
 UGR and experimental UGR, UGP, with the Guth position index and automatic
-vertical illuminance. The per-pixel reductions are plain torch on the
-image's device (one host read of their twelve results); the metrics
-follow on the host, as in the JAX package.
+vertical illuminance. The per-pixel reductions run on the image's device
+(on the card a replayed CUDA graph a key, render/post_program.py;
+`glare_reductions_plain` op by op), then one host read of their results;
+the metrics follow on the host, as in the JAX package.
 
 Conventions (as the reference's):
 - luminance [cd/m^2] = 179 lm/W (illuminant-E white efficiency) * CIE
@@ -30,6 +31,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from . import post_program
 
 WHITE_EFFICIENCY = 179.0  # lm/W, illuminant E (reference core/color.art:78)
 
@@ -57,16 +60,9 @@ def _unit(v):
     return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
 
 
-def _basis(cam_dir, cam_up, device):
-    d = _unit(torch.as_tensor(cam_dir, dtype=torch.float32, device=device))
-    up = torch.as_tensor(cam_up, dtype=torch.float32, device=device)
-    return d, up
-
-
-def _pixel_dirs(cam_dir, cam_up, fov_deg, w, h, xs, ys):
+def _pixel_dirs(d, up, fov_deg, w, h, xs, ys):
     """Perspective pixel -> direction grid at continuous corner
-    coordinates (xs, ys) in [0, w] x [0, h]."""
-    d, up = _basis(cam_dir, cam_up, xs.device)
+    coordinates (xs, ys) in [0, w] x [0, h]; d the unit view direction."""
     r = _unit(torch.linalg.cross(d, up))
     u = torch.linalg.cross(r, d)
     tan_h = math.tan(math.radians(fov_deg) / 2.0)
@@ -77,98 +73,133 @@ def _pixel_dirs(cam_dir, cam_up, fov_deg, w, h, xs, ys):
     return _unit(v)
 
 
-def _glare_reductions(img, cam_dir, cam_up, fov_deg: float, mul, scale,
-                      e_v_override):
+def _glare_body(img, fov_deg: float):
+    """The per-pixel reductions as a body over (img,) and the traced
+    (cam_dir, cam_up, mul, scale, e_v_override): the [11] scalars of
+    `glare_reductions_plain` and the source map. The pixel grids are made
+    here, once."""
     h, w = img.shape[0], img.shape[1]
-    device = img.device
-    f32 = dict(dtype=torch.float32, device=device)
+    f32 = dict(dtype=torch.float32, device=img.device)
     xs = torch.arange(w + 1, **f32)[None, :].expand(h + 1, w + 1)
     ys = torch.arange(h + 1, **f32)[:, None].expand(h + 1, w + 1)
-    corners = _pixel_dirs(cam_dir, cam_up, fov_deg, w, h, xs, ys)
-
-    # per-pixel solid angle: the spherical excess of the 4 corner rays
-    r1 = corners[:-1, :-1]   # (x, y)
-    r2 = corners[1:, :-1]    # (x, y+1)
-    r3 = corners[1:, 1:]     # (x+1, y+1)
-    r4 = corners[:-1, 1:]    # (x+1, y)
-
-    def splane(a, b):
-        n = torch.linalg.cross(a, b - a)
-        l2 = torch.sum(n * n, dim=-1, keepdim=True)
-        return torch.where(l2 > 0, n / torch.sqrt(torch.clamp(l2, min=1e-30)),
-                           0.0)
-
-    n1 = splane(r1, r2)
-    n2 = splane(r2, r3)
-    n3 = splane(r3, r4)
-    n4 = splane(r4, r1)
-
-    def ang(a, b):
-        return math.pi - torch.abs(torch.arccos(torch.clamp(
-            torch.sum(a * b, dim=-1), -1.0, 1.0)))
-    omega = ang(n1, n2) + ang(n2, n3) + ang(n3, n4) + ang(n4, n1) \
-        - 2.0 * math.pi
-
-    # centre directions for the cosine and position-index terms
-    cd = _unit(0.25 * (r1 + r2 + r3 + r4))
-    d, up = _basis(cam_dir, cam_up, device)
-    hv = _unit(torch.linalg.cross(d, up))
-    vv = _unit(torch.linalg.cross(d, hv))
-
-    luma = (0.2126 * img[..., 0] + 0.7152 * img[..., 1]
-            + 0.0722 * img[..., 2])
-    lum = WHITE_EFFICIENCY * luma * scale
-
-    cos_f = torch.abs(torch.sum(cd * d, dim=-1))
-    total_omega = torch.sum(omega)
-    total_lum = torch.sum(lum * omega)
-    max_lum = torch.amax(lum)
-    e_v_auto = torch.sum(lum * omega * cos_f)
-    e_v = e_v_auto if e_v_override < 0 else torch.tensor(
-        float(e_v_override), **f32)
-
-    lum_avg = total_lum / total_omega
-    lum_source = lum_avg * mul
-
-    # glare-source aggregation (a single source, glare.art:145-171)
-    is_src = lum > lum_source
     xi = torch.arange(w, **f32)[None, :].expand(h, w)
     yi = torch.arange(h, **f32)[:, None].expand(h, w)
-    src_omega = torch.sum(torch.where(is_src, omega, 0.0))
-    src_lum_o = torch.sum(torch.where(is_src, lum * omega, 0.0))
-    src_x = torch.sum(torch.where(is_src, xi * omega, 0.0))
-    src_y = torch.sum(torch.where(is_src, yi * omega, 0.0))
 
-    # relative source-luminance map
-    max_diff = torch.clamp(max_lum - lum_source, min=1e-20)
-    source_map = torch.where(is_src, (lum - lum_source) / max_diff, 0.0)
+    def body(images, traced):
+        img = images[0]
+        cam_dir, up, mul, scale, e_v_override = traced
+        d = _unit(cam_dir)
+        corners = _pixel_dirs(d, up, fov_deg, w, h, xs, ys)
 
-    # position index at the source centroid (the Guth model; the
-    # reference's Iwata branch below the line of sight is dead after its
-    # own clamp, and its angles to the line of sight go unread)
-    so = torch.clamp(src_omega, min=1e-20)
-    gx = src_x / so
-    gy = src_y / so
-    gxi = torch.clamp(gx, 0.0, w - 1.0)
-    gyi = torch.clamp(gy, 0.0, h - 1.0)
-    gdir = _pixel_dirs(cam_dir, cam_up, fov_deg, w, h,
-                       torch.reshape(gxi + 0.5, (1, 1)),
-                       torch.reshape(gyi + 0.5, (1, 1)))[0, 0]
-    t = torch.dot(d, gdir)
-    sigma = torch.rad2deg(torch.abs(torch.arccos(torch.clamp(t, -1, 1))))
-    hvn = gdir / torch.clamp(t, min=1e-6) - gdir
-    hvn = hvn / torch.clamp(torch.linalg.vector_norm(hvn), min=1e-20)
-    tau = torch.rad2deg(torch.arccos(torch.clamp(torch.dot(vv, hvn), -1, 1)))
-    posindex = torch.exp(
-        (35.2 - 0.31889 * tau - 1.22 * torch.exp(-2 * tau / 9)) / 1000
-        * sigma + (21 + 0.26667 * tau - 0.002963 * tau * tau) / 100000
-        * sigma * sigma)
-    posindex = torch.clamp(posindex, max=16.0)
+        # per-pixel solid angle: the spherical excess of the 4 corner rays
+        r1 = corners[:-1, :-1]   # (x, y)
+        r2 = corners[1:, :-1]    # (x, y+1)
+        r3 = corners[1:, 1:]     # (x+1, y+1)
+        r4 = corners[:-1, 1:]    # (x+1, y)
 
-    scalars = torch.stack([total_omega, total_lum, max_lum, e_v, lum_avg,
-                           lum_source, src_omega, src_lum_o, gx, gy,
-                           posindex]).cpu().numpy()
-    return (*scalars, source_map.cpu().numpy())
+        def splane(a, b):
+            n = torch.linalg.cross(a, b - a)
+            l2 = torch.sum(n * n, dim=-1, keepdim=True)
+            return torch.where(l2 > 0,
+                               n / torch.sqrt(torch.clamp(l2, min=1e-30)),
+                               0.0)
+
+        n1 = splane(r1, r2)
+        n2 = splane(r2, r3)
+        n3 = splane(r3, r4)
+        n4 = splane(r4, r1)
+
+        def ang(a, b):
+            return math.pi - torch.abs(torch.arccos(torch.clamp(
+                torch.sum(a * b, dim=-1), -1.0, 1.0)))
+        omega = ang(n1, n2) + ang(n2, n3) + ang(n3, n4) + ang(n4, n1) \
+            - 2.0 * math.pi
+
+        # centre directions for the cosine and position-index terms
+        cd = _unit(0.25 * (r1 + r2 + r3 + r4))
+        hv = _unit(torch.linalg.cross(d, up))
+        vv = _unit(torch.linalg.cross(d, hv))
+
+        luma = (0.2126 * img[..., 0] + 0.7152 * img[..., 1]
+                + 0.0722 * img[..., 2])
+        lum = WHITE_EFFICIENCY * luma * scale
+
+        cos_f = torch.abs(torch.sum(cd * d, dim=-1))
+        total_omega = torch.sum(omega)
+        total_lum = torch.sum(lum * omega)
+        max_lum = torch.amax(lum)
+        e_v_auto = torch.sum(lum * omega * cos_f)
+        e_v = torch.where(e_v_override < 0, e_v_auto, e_v_override)
+
+        lum_avg = total_lum / total_omega
+        lum_source = lum_avg * mul
+
+        # glare-source aggregation (a single source, glare.art:145-171)
+        is_src = lum > lum_source
+        src_omega = torch.sum(torch.where(is_src, omega, 0.0))
+        src_lum_o = torch.sum(torch.where(is_src, lum * omega, 0.0))
+        src_x = torch.sum(torch.where(is_src, xi * omega, 0.0))
+        src_y = torch.sum(torch.where(is_src, yi * omega, 0.0))
+
+        # relative source-luminance map
+        max_diff = torch.clamp(max_lum - lum_source, min=1e-20)
+        source_map = torch.where(is_src, (lum - lum_source) / max_diff, 0.0)
+
+        # position index at the source centroid (the Guth model; the
+        # reference's Iwata branch below the line of sight is dead after
+        # its own clamp, and its angles to the line of sight go unread)
+        so = torch.clamp(src_omega, min=1e-20)
+        gx = src_x / so
+        gy = src_y / so
+        gxi = torch.clamp(gx, 0.0, w - 1.0)
+        gyi = torch.clamp(gy, 0.0, h - 1.0)
+        gdir = _pixel_dirs(d, up, fov_deg, w, h,
+                           torch.reshape(gxi + 0.5, (1, 1)),
+                           torch.reshape(gyi + 0.5, (1, 1)))[0, 0]
+        t = torch.dot(d, gdir)
+        sigma = torch.rad2deg(torch.abs(torch.arccos(torch.clamp(t, -1, 1))))
+        hvn = gdir / torch.clamp(t, min=1e-6) - gdir
+        hvn = hvn / torch.clamp(torch.linalg.vector_norm(hvn), min=1e-20)
+        tau = torch.rad2deg(torch.arccos(torch.clamp(torch.dot(vv, hvn), -1,
+                                                     1)))
+        posindex = torch.exp(
+            (35.2 - 0.31889 * tau - 1.22 * torch.exp(-2 * tau / 9)) / 1000
+            * sigma + (21 + 0.26667 * tau - 0.002963 * tau * tau) / 100000
+            * sigma * sigma)
+        posindex = torch.clamp(posindex, max=16.0)
+
+        scalars = torch.stack([total_omega, total_lum, max_lum, e_v,
+                               lum_avg, lum_source, src_omega, src_lum_o, gx,
+                               gy, posindex])
+        return scalars, source_map
+    return body
+
+
+def glare_reductions_plain(img, cam_dir, cam_up, fov_deg: float, mul, scale,
+                           e_v_override):
+    """The per-pixel reductions op by op (the CPU, autograd and a key's
+    first call): ([11] scalars, [h, w] source map) on the image's
+    device."""
+    img = torch.as_tensor(img, dtype=torch.float32)
+    traced = post_program.as_traced((cam_dir, cam_up, mul, scale,
+                                     e_v_override), img.device)
+    return _glare_body(img, fov_deg)([img], traced)
+
+
+def _glare_reductions(img, cam_dir, cam_up, fov_deg: float, mul, scale,
+                      e_v_override):
+    """glare_reductions_plain's results; on the card a replayed program
+    a key (render/post_program.py), its statics the image's size and
+    fov_deg as under the JAX package's jit."""
+    traced = (cam_dir, cam_up, mul, scale, e_v_override)
+    if not post_program.uses_program(img, *traced):
+        return glare_reductions_plain(img, *traced[:2], fov_deg,
+                                      *traced[2:])
+    return post_program.call(
+        "glare_reductions", (fov_deg,), [img], traced,
+        lambda: _glare_body(img, fov_deg),
+        lambda: glare_reductions_plain(img, *traced[:2], fov_deg,
+                                       *traced[2:]))
 
 
 def compute_glare(img, cam_dir=(0, 0, 1), cam_up=(0, 1, 0), fov_deg=60.0,
@@ -177,10 +208,13 @@ def compute_glare(img, cam_dir=(0, 0, 1), cam_up=(0, 1, 0), fov_deg=60.0,
     """Glare metrics of a radiance image ([h, w, 3] linear radiance, a
     tensor on the device to reduce on, or an array for the CPU)."""
     img = torch.as_tensor(img, dtype=torch.float32)
-    (total_omega, total_lum, max_lum, e_v, lum_avg, lum_source,
-     src_omega, src_lum_o, gx, gy, posi, source_map) = _glare_reductions(
+    scalars, source_map = _glare_reductions(
         img, cam_dir, cam_up, float(fov_deg), float(mul), float(scale),
         float(vertical_illuminance))
+    # the host's reads, after the reductions (outside any graph)
+    (total_omega, total_lum, max_lum, e_v, lum_avg, lum_source,
+     src_omega, src_lum_o, gx, gy, posi) = scalars.cpu().numpy()
+    source_map = source_map.cpu().numpy()
     total_omega, total_lum = float(total_omega), float(total_lum)
     max_lum, e_v = float(max_lum), float(e_v)
     lum_avg, lum_source = float(lum_avg), float(lum_source)

@@ -1,20 +1,24 @@
 """Image IO without OpenCV or PIL: EXR, Radiance HDR, PNG, JPEG, BMP and
-TGA, read and written.
+TGA read and written; TIFF, PNM, PFM and Sun raster read.
 
 The port's counterpart of ignis_tpu/utils/image.py, which goes through
 OpenCV. Here PNG is decoded with numpy and zlib (1-16 bits, gray, gray
 with alpha, RGB, RGBA or palette, the five row filters, Adam7
 interlacing) and encoded as 8-bit RGB with filter 0 (`encode_png`); JPEG
-goes through utils/jpeg.py (baseline, decoded as libjpeg decodes it;
-written as baseline 4:2:0 at quality 95, cv2's default); BMP is read
-uncompressed at 24 or 32 bits and written at 24; TGA is read as
+goes through utils/jpeg.py (baseline and progressive, decoded as libjpeg
+decodes it; written as baseline 4:2:0 at quality 95, cv2's default); BMP
+is read at every depth (palettes, RLE8 and RLE4, bit fields) and written
+at 24; TIFF goes through utils/tiff.py; PNM (P1-P6), PFM and Sun raster
+are read as OpenCV reads them; TGA is read as
 uncompressed or run-length-encoded truecolour and written run-length
 encoded; EXR is read by the port's own reader and written as scanline ZIP
 (`_write_exr_channels`, also `write_exr_multilayer`'s layers and ig*
 attributes); Radiance .hdr is read with flat or run-length-encoded
 scanlines and written flat, in the RGBE rounding of the rgbe.c that
-OpenCV uses. LDR input is sRGB-decoded to linear unless `linear`; EXR and
-HDR are linear; LDR output is sRGB-encoded with +0.5 rounding, as the JAX
+OpenCV uses. Integer input is scaled to [0, 1] (8-bit by 1/255, 16-bit
+by 1/65535) and sRGB-decoded to linear unless `linear`; EXR, HDR, PFM and
+float TIFF are linear; WebP, AVIF, GIF and JPEG 2000 raise
+NotImplementedError by name; LDR output is sRGB-encoded with +0.5 rounding, as the JAX
 writer's. Images are float32 [h, w, 3] RGB with row 0 at the top.
 """
 from __future__ import annotations
@@ -39,37 +43,72 @@ def linear_to_srgb(x: np.ndarray) -> np.ndarray:
 
 
 LDR_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp", ".tga")
+# suffixes read to samples (decode_samples), by decoder name
+_SAMPLE_SUFFIXES = {".jpg": "jpeg", ".jpeg": "jpeg", ".bmp": "bmp",
+                    ".tga": "tga", ".tif": "tiff", ".tiff": "tiff",
+                    ".pbm": "pnm", ".pgm": "pnm", ".ppm": "pnm",
+                    ".pnm": "pnm", ".pfm": "pfm", ".sr": "sun_raster",
+                    ".ras": "sun_raster"}
 
 
 def _unsupported(path: Path, what: str) -> NotImplementedError:
+    if what == "reads":
+        known = ("EXR, HDR, PNG, JPEG, BMP, TGA, TIFF, PNM, PFM and Sun "
+                 "raster")
+    else:
+        known = "EXR, HDR, PNG, JPEG, BMP and TGA"
     return NotImplementedError(
         f"image format '{path.suffix.lower()}' ({path.name}) is not ported: "
-        f"the port {what} EXR, HDR, PNG, JPEG, BMP and TGA")
+        f"the port {what} {known}")
+
+
+def decode_samples(path) -> np.ndarray:
+    """A JPEG, BMP, TGA, TIFF, PNM, PFM or Sun raster file's pixels as
+    [h, w, 3] RGB samples as OpenCV reads them: uint8, uint16 (16-bit
+    TIFF and PNM) or float32 (PFM, float TIFF); grey replicated, alpha
+    dropped."""
+    path = Path(path)
+    kind = _SAMPLE_SUFFIXES.get(path.suffix.lower())
+    if kind is None:
+        raise _unsupported(path, "reads")
+    data = path.read_bytes()
+    if kind == "jpeg":
+        from .jpeg import decode_jpeg
+        return decode_jpeg(data)
+    if kind == "tiff":
+        from .tiff import decode_tiff
+        return decode_tiff(data)
+    return {"bmp": decode_bmp, "tga": decode_tga, "pnm": decode_pnm,
+            "pfm": decode_pfm, "sun_raster": decode_sun_raster}[kind](data)
+
+
+def _normalised(samples: np.ndarray) -> np.ndarray:
+    """Integer samples to [0, 1] (8 bits / 255, 16 bits / 65535); float
+    samples as they are."""
+    if samples.dtype == np.uint8:
+        return samples.astype(np.float32) / np.float32(255.0)
+    if samples.dtype == np.uint16:
+        return samples.astype(np.float32) / np.float32(65535.0)
+    return samples.astype(np.float32)
 
 
 def read_ldr(path) -> np.ndarray:
-    """An 8-bit (or 16-bit PNG) file as float32 [h, w, 3] in [0, 1]
-    (sRGB-encoded values), by its suffix."""
+    """An integer-sample file as float32 [h, w, 3] in [0, 1]
+    (sRGB-encoded values), by its suffix: 8-bit samples / 255, 16-bit
+    ones (PNG, TIFF, PNM) / 65535."""
     path = Path(path)
-    suffix = path.suffix.lower()
-    if suffix == ".png":
+    if path.suffix.lower() == ".png":
         return read_png(path)
-    data = path.read_bytes()
-    if suffix in (".jpg", ".jpeg"):
-        from .jpeg import decode_jpeg
-        rgb = decode_jpeg(data)
-    elif suffix == ".bmp":
-        rgb = decode_bmp(data)
-    elif suffix == ".tga":
-        rgb = decode_tga(data)
-    else:
-        raise _unsupported(path, "reads")
-    return rgb.astype(np.float32) / 255.0
+    samples = decode_samples(path)
+    if samples.dtype == np.float32:
+        raise ValueError(f"{path}: float samples are not LDR data")
+    return _normalised(samples)
 
 
 def load_image(path, linear: bool = False) -> np.ndarray:
-    """Linear float32 [h, w, 3] RGB. `linear` skips the sRGB decode of LDR
-    data images (normal maps; ImagePattern's 'linear' flag)."""
+    """Linear float32 [h, w, 3] RGB. EXR, HDR, PFM and float TIFF are
+    linear; integer data is scaled to [0, 1] and sRGB-decoded unless
+    `linear` (normal maps; ImagePattern's 'linear' flag)."""
     path = Path(path)
     suffix = path.suffix.lower()
     if suffix == ".exr":
@@ -77,9 +116,13 @@ def load_image(path, linear: bool = False) -> np.ndarray:
         return np.ascontiguousarray(load_exr_rgb(path), np.float32)
     if suffix == ".hdr":
         return read_hdr(path)
-    if suffix not in LDR_SUFFIXES:
-        raise _unsupported(path, "reads")
-    img = read_ldr(path)
+    if suffix == ".png":
+        img = read_png(path)
+    else:
+        samples = decode_samples(path)
+        img = _normalised(samples)
+        if samples.dtype == np.float32:
+            return np.ascontiguousarray(img)
     if not linear:
         img = srgb_to_linear(img)
     return np.ascontiguousarray(img, np.float32)
@@ -118,9 +161,68 @@ def _rgb8(rgb) -> np.ndarray:
     return rgb
 
 
+def _channel(word, mask: int, bpp: int) -> np.ndarray:
+    """A BMP bit-field channel expanded to 8 bits as OpenCV expands it: a
+    16-bit file's field shifted up into the high bits (its 5-5-5 and 5-6-5
+    conversions), a 32-bit file's scaled by 255 / (2^width - 1) and
+    truncated."""
+    if mask == 0:
+        return np.zeros(word.shape, np.uint8)
+    shift = (mask & -mask).bit_length() - 1
+    width = (mask >> shift).bit_length()
+    if mask >> shift != (1 << width) - 1:
+        raise NotImplementedError(f"BMP: channel mask {mask:#x} is not "
+                                  "contiguous")
+    v = (word >> shift) & ((1 << width) - 1)
+    if bpp == 32:
+        v = v * 255 // ((1 << width) - 1)
+    else:
+        v = v << (8 - width) if width <= 8 else v >> (width - 8)
+    return v.astype(np.uint8)
+
+
+def _bmp_rle(data: bytes, pos: int, w: int, h: int, four: bool):
+    """RLE8 (or RLE4 when `four`) palette indices as [h, w] uint8, bottom
+    row first as stored; pixels a delta or an early end of line skips
+    keep index 0 (OpenCV fills them with the palette's first colour)."""
+    idx = np.zeros((h, w), np.uint8)
+    x = y = 0
+    n = len(data)
+    while pos + 1 < n and y < h:
+        count, val = data[pos], data[pos + 1]
+        pos += 2
+        if count:                          # a run of count pixels
+            px = ([val >> 4, val & 15] * count)[:count] if four else \
+                [val] * count
+            m = min(count, w - x)
+            idx[y, x:x + m] = px[:m]
+            x += count
+        elif val == 0:                     # end of line
+            x, y = 0, y + 1
+        elif val == 1:                     # end of bitmap
+            break
+        elif val == 2:                     # delta
+            x, y = x + data[pos], y + data[pos + 1]
+            pos += 2
+        else:                              # val literal pixels
+            nbytes = (val + 1) // 2 if four else val
+            raw = data[pos:pos + nbytes]
+            px = ([v for b in raw for v in (b >> 4, b & 15)][:val] if four
+                  else list(raw))
+            m = max(min(val, w - x), 0)
+            idx[y, x:x + m] = px[:m]
+            x += val
+            pos += nbytes + (nbytes & 1)   # to a 16-bit boundary
+    return idx
+
+
 def decode_bmp(data: bytes) -> np.ndarray:
-    """An uncompressed 24- or 32-bit BMP (BI_RGB, or BI_BITFIELDS with
-    byte-aligned masks), bottom-up or top-down, as uint8 [h, w, 3] RGB."""
+    """A BMP as uint8 [h, w, 3] RGB: 1-, 4- and 8-bit palettes (also RLE8
+    and RLE4), 16 bits (5-5-5, or BI_BITFIELDS masks of any width), 24
+    bits, and 32 bits (BGRx or BI_BITFIELDS masks of any width),
+    bottom-up or top-down. The masks of BI_BITFIELDS follow a 40-byte
+    header or lie in a longer one (OpenCV ignores them after a 40-byte
+    header and reads such a 32-bit file as BGRx)."""
     if data[:2] != b"BM" or len(data) < 30:
         raise ValueError("not a BMP file")
     offset, hsize = struct.unpack("<II", data[10:18])
@@ -128,32 +230,182 @@ def decode_bmp(data: bytes) -> np.ndarray:
         raise NotImplementedError(f"BMP: {hsize}-byte OS/2 header is not "
                                   "ported")
     w, h, _, bpp, comp = struct.unpack("<iiHHI", data[18:34])
-    masks = None
-    if comp == 3 and bpp == 32:      # the masks follow the 40-byte fields
-        masks = struct.unpack("<III", data[54:66])
-    elif comp != 0 or bpp not in (24, 32):
-        raise NotImplementedError(
-            f"BMP: {bpp} bits, compression {comp} is not ported (24- and "
-            "32-bit uncompressed only)")
+    colors = struct.unpack("<I", data[46:50])[0]
     top_down, h = h < 0, abs(h)
-    stride = (w * bpp // 8 + 3) & ~3
-    if len(data) < offset + stride * h:
-        raise ValueError("BMP: truncated pixel data")
-    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
-    px = rows[:, :w * bpp // 8].reshape(h, w, bpp // 8)
-    if masks is None:
-        rgb = px[..., 2::-1]
+    rle = {(1, 8): False, (2, 4): True}.get((comp, bpp))
+    if not (comp == 0 and bpp in (1, 4, 8, 16, 24, 32)
+            or comp == 3 and bpp in (16, 32) or rle is not None):
+        raise NotImplementedError(
+            f"BMP: {bpp} bits, compression {comp} is not ported")
+    if bpp <= 8:
+        n = colors or 1 << bpp
+        pal = np.frombuffer(data, np.uint8, 4 * n, 14 + hsize).reshape(n, 4)
+        pal = pal[:, 2::-1]
+        if rle is not None:
+            idx = _bmp_rle(data, offset, w, h, rle)
+        else:
+            stride = (w * bpp + 31) // 32 * 4
+            if len(data) < offset + stride * h:
+                raise ValueError("BMP: truncated pixel data")
+            rows = np.frombuffer(data, np.uint8, stride * h,
+                                 offset).reshape(h, stride)
+            idx = np.unpackbits(rows, axis=1).reshape(h, -1, bpp)
+            idx = (idx[:, :w] << np.arange(bpp - 1, -1, -1, dtype=np.uint8)
+                   ).sum(-1, dtype=np.uint8) if bpp < 8 else rows[:, :w]
+        rgb = pal[np.minimum(idx, n - 1)]
     else:
-        word = px.view("<u4")[..., 0]
-        chans = []
-        for m in masks:
-            shift = (m & -m).bit_length() - 1
-            if m >> shift != 0xFF:
-                raise NotImplementedError(f"BMP: channel mask {m:#x} is "
-                                          "not ported")
-            chans.append((word >> shift) & 0xFF)
-        rgb = np.stack(chans, -1).astype(np.uint8)
+        stride = (w * bpp // 8 + 3) & ~3
+        if len(data) < offset + stride * h:
+            raise ValueError("BMP: truncated pixel data")
+        rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(
+            h, stride)
+        px = rows[:, :w * bpp // 8].reshape(h, w, bpp // 8)
+        if bpp == 24 or bpp == 32 and comp == 0:
+            rgb = px[..., 2::-1]
+        else:
+            word = (px.view("<u2") if bpp == 16 else px.view("<u4"))[..., 0]
+            masks = (struct.unpack("<III", data[54:66]) if comp == 3
+                     else (0x7C00, 0x3E0, 0x1F))
+            rgb = np.stack([_channel(word.astype(np.int64), m, bpp)
+                            for m in masks], -1)
     return np.ascontiguousarray(rgb if top_down else rgb[::-1])
+
+
+def _pnm_tokens(data: bytes, count: int, pos: int = 2):
+    """`count` whitespace-separated header numbers from pos ('#' starts a
+    comment to the end of the line), and the position after the single
+    whitespace byte that ends the last."""
+    out = []
+    n = len(data)
+    while len(out) < count:
+        while pos < n and (data[pos] in b" \t\r\n" or data[pos] == 35):
+            if data[pos] == 35:
+                while pos < n and data[pos] not in b"\r\n":
+                    pos += 1
+            else:
+                pos += 1
+        end = pos
+        while end < n and data[end] in b"0123456789":
+            end += 1
+        if end == pos:
+            raise ValueError("PNM: bad header")
+        out.append(int(data[pos:end]))
+        pos = end
+    return out, pos + 1
+
+
+def decode_pnm(data: bytes) -> np.ndarray:
+    """A PBM, PGM or PPM (P1-P6) as [h, w, 3] RGB samples as OpenCV reads
+    them: 1 is black in a bitmap (0 / 255), an ASCII grey or colour file
+    with a maxval below 256 is scaled to 0-255 (i * 255 // maxval), a
+    binary one is not, and a maxval above 255 gives uint16 samples as
+    stored."""
+    if len(data) < 3 or data[:1] != b"P" or data[1:2] not in b"123456":
+        raise ValueError("not a PNM file")
+    kind = data[1] - 48
+    bitmap = kind in (1, 4)
+    (w, h, *rest), pos = _pnm_tokens(data, 2 if bitmap else 3)
+    maxval = 1 if bitmap else rest[0]
+    if not 0 < maxval < 65536:
+        raise ValueError(f"PNM: maxval {maxval}")
+    ch = 3 if kind in (3, 6) else 1
+    n = w * h * ch
+    if kind == 4:
+        stride = (w + 7) // 8
+        rows = np.frombuffer(data, np.uint8, stride * h, pos).reshape(h, -1)
+        v = np.unpackbits(rows, axis=1)[:, :w]
+    elif kind in (5, 6):
+        v = np.frombuffer(data, ">u2" if maxval > 255 else np.uint8, n, pos)
+    else:
+        body = data[pos - 1:]
+        if kind == 1:       # digits need no separators in a P1 body
+            v = np.frombuffer(bytes(b for b in body if b in b"01"),
+                              np.uint8) - 48
+        else:
+            v = np.array(_pnm_tokens(body, n, 0)[0], np.int64)
+        v = v[:n]
+    if bitmap:
+        v = np.where(np.asarray(v) != 0, 0, 255).astype(np.uint8)
+    elif kind in (2, 3) and maxval < 256:
+        v = (np.asarray(v, np.int64) * 255 // maxval).astype(np.uint8)
+    else:
+        v = np.asarray(v).astype(np.uint16 if maxval > 255 else np.uint8)
+    img = v.reshape(h, w, ch)
+    return np.ascontiguousarray(np.repeat(img, 3, -1) if ch == 1 else img)
+
+
+def decode_pfm(data: bytes) -> np.ndarray:
+    """A PFM ('PF' colour, 'Pf' grey) as float32 [h, w, 3]: little-endian
+    when the scale is negative, rows stored bottom-up, the samples times
+    the float32 1 / |scale|, as OpenCV reads them."""
+    if data[:2] not in (b"PF", b"Pf"):
+        raise ValueError("not a PFM file")
+    lines, pos = [], 2
+    while len(lines) < 3:
+        while data[pos] in b" \t\r\n":
+            pos += 1
+        end = pos
+        while data[end] not in b" \t\r\n":
+            end += 1
+        lines.append(data[pos:end])
+        pos = end
+    pos += 1
+    w, h, scale = int(lines[0]), int(lines[1]), float(lines[2])
+    ch = 3 if data[1:2] == b"F" else 1
+    v = np.frombuffer(data, "<f4" if scale < 0 else ">f4", w * h * ch, pos)
+    img = v.reshape(h, w, ch)[::-1].astype(np.float32)
+    if scale != 0:
+        img = img * np.float32(1.0 / abs(scale))
+    return np.ascontiguousarray(np.repeat(img, 3, -1) if ch == 1 else img)
+
+
+def decode_sun_raster(data: bytes) -> np.ndarray:
+    """A Sun raster as uint8 [h, w, 3] RGB: 1- and 8-bit with or without a
+    colour map (1 is black in a map-less bitmap, 8 bits map-less is
+    grey), 24 and 32 bits (BGR, or RGB in type 3; 32 bits lead with a pad
+    byte), raw (types 0, 1, 3) or byte-run encoded (type 2; 0x80 n v
+    repeats v n + 1 times, 0x80 0 is one 0x80). OpenCV reads the raw
+    24-bit, 32-bit and mapped files, not types 2 and 3."""
+    if len(data) < 32 or data[:4] != b"\x59\xa6\x6a\x95":
+        raise ValueError("not a Sun raster file")
+    _, w, h, depth, _, kind, maptype, maplen = struct.unpack(">8I",
+                                                             data[:32])
+    if depth not in (1, 8, 24, 32) or kind > 3 or maptype > 1:
+        raise NotImplementedError(f"Sun raster: depth {depth}, type {kind}, "
+                                  f"map type {maptype} is not ported")
+    pos = 32 + maplen
+    cmap = None
+    if maptype == 1 and maplen:
+        cmap = np.frombuffer(data, np.uint8, maplen, 32).reshape(3, -1).T
+    stride = ((w * depth + 7) // 8 + 1) & ~1
+    body = data[pos:]
+    if kind == 2:
+        out = bytearray()
+        i, n = 0, len(body)
+        while i < n and len(out) < stride * h:
+            b = body[i]
+            if b != 0x80:
+                out.append(b)
+                i += 1
+            elif body[i + 1] == 0:
+                out.append(0x80)
+                i += 2
+            else:
+                out += body[i + 2:i + 3] * (body[i + 1] + 1)
+                i += 3
+        body = bytes(out)
+    rows = np.frombuffer(body, np.uint8, stride * h).reshape(h, stride)
+    if depth in (1, 8):
+        idx = (np.unpackbits(rows, axis=1)[:, :w] if depth == 1
+               else rows[:, :w])
+        if cmap is not None:
+            return np.ascontiguousarray(cmap[np.minimum(idx, len(cmap) - 1)])
+        grey = (1 - idx) * 255 if depth == 1 else idx
+        return np.ascontiguousarray(np.repeat(grey.astype(np.uint8)[..., None],
+                                              3, -1))
+    px = rows[:, :w * depth // 8].reshape(h, w, depth // 8)[..., depth // 8
+                                                            - 3:]
+    return np.ascontiguousarray(px if kind == 3 else px[..., ::-1])
 
 
 def encode_bmp(rgb) -> bytes:

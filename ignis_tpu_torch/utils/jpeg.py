@@ -1,15 +1,20 @@
-"""Baseline JPEG in numpy: a decoder that follows libjpeg's integer
-pipeline, and a baseline 4:2:0 encoder.
+"""JPEG in numpy: a decoder that follows libjpeg's integer pipeline, and
+a baseline 4:2:0 encoder.
 
-The decoder reads baseline and extended sequential Huffman JPEGs (SOF0,
-SOF1) with 8-bit samples, one or three components, any sampling factors,
-interleaved or single-component scans and restart markers. To land where
+The decoder reads baseline, extended sequential and progressive Huffman
+JPEGs (SOF0, SOF1, SOF2) with 8-bit samples, one or three components, any
+sampling factors, interleaved or single-component scans and restart
+markers; a progressive file's scans (spectral selection and successive
+approximation, DC and AC, first and refinement) accumulate its
+coefficients as libjpeg's jdphuff.c does before the one inverse DCT. To
+land where
 libjpeg(-turbo), which OpenCV reads through, lands, each step is libjpeg's:
 Huffman decoding and dequantisation, the `jidctint` integer inverse DCT
 (CONST_BITS 13, PASS1_BITS 2), the "fancy" triangular h2v1, h1v2 and h2v2
 chroma upsampling of `jdsample` (the edge samples replicated), and the
-integer YCbCr->RGB tables of `jdcolor`. Progressive and arithmetic-coded
-files, 12-bit samples and CMYK raise NotImplementedError.
+integer YCbCr->RGB tables of `jdcolor`. Arithmetic-coded, lossless and
+hierarchical files, 12-bit samples, CMYK / YCCK and untransformed RGB
+raise NotImplementedError.
 
 The encoder writes baseline JFIF at 4:2:0 (colour) with the Annex K
 quantisation tables scaled to a quality as libjpeg scales them (95 by
@@ -67,6 +72,14 @@ class _Bits:
         self.pos += e & 0xFF
         return e >> 8
 
+    def bits(self, n: int) -> int:
+        """n (0-16) bits as an unsigned value."""
+        if n == 0:
+            return 0
+        v = self.peek16() >> (16 - n)
+        self.pos += n
+        return v
+
     def receive_extend(self, s: int) -> int:
         """s magnitude bits as a signed value (F.2.2.1's EXTEND)."""
         if s == 0:
@@ -107,16 +120,7 @@ def _decode_scan(data, pos, comps, scan, frame, dc_luts, ac_luts,
     ([rows, cols, 64] int32, natural order, not dequantised); returns the
     position of the next marker."""
     segs, end = _segments(data, pos)
-    hmax, vmax = frame["hmax"], frame["vmax"]
-    if len(scan) == 1:
-        c = comps[scan[0][0]]
-        units = [(c, 1, 1)]
-        rows, cols = c["brows"], c["bcols"]
-    else:
-        units = [(comps[ci], comps[ci]["h"], comps[ci]["v"])
-                 for ci, _, _ in scan]
-        rows = -(-frame["height"] // (8 * vmax))
-        cols = -(-frame["width"] // (8 * hmax))
+    rows, cols, units = _scan_units(comps, scan, frame)
     luts = [(dc_luts[td], ac_luts[ta]) for _, td, ta in scan]
     n_mcu = rows * cols
     per = restart or n_mcu
@@ -155,6 +159,135 @@ def _decode_scan(data, pos, comps, scan, frame, dc_luts, ac_luts,
     if mcu < n_mcu:
         raise ValueError("JPEG: scan ends before its last MCU")
     return end
+
+
+def _scan_units(comps, scan, frame):
+    """The scan's blocks as MCU rows x cols and, per component, (comp, h,
+    v): a single-component scan takes the component's own blocks, one an
+    MCU; an interleaved one whole MCUs."""
+    if len(scan) == 1:
+        c = comps[scan[0][0]]
+        return c["brows"], c["bcols"], [(c, 1, 1)]
+    rows = -(-frame["height"] // (8 * frame["vmax"]))
+    cols = -(-frame["width"] // (8 * frame["hmax"]))
+    return rows, cols, [(comps[ci], comps[ci]["h"], comps[ci]["v"])
+                        for ci, _, _ in scan]
+
+
+def _decode_progressive_scan(data, pos, comps, scan, frame, dc_luts,
+                             ac_luts, restart, spectral):
+    """Decode one progressive Huffman scan (T.81 G.1.2, as libjpeg's
+    jdphuff.c) into comps' coefficient arrays, which accumulate over the
+    scans: a DC first scan (the difference shifted up by Al), a DC
+    refinement (one bit a block), an AC first scan over Ss..Se (end-of-band
+    runs) or an AC refinement (correction bits on the nonzero
+    coefficients, new coefficients of +-2^Al). `spectral` is (Ss, Se, Ah,
+    Al). Returns the position of the next marker."""
+    ss, se, ah, al = spectral
+    if ss == 0 and se != 0 or ss > se or se > 63 or (ss and len(scan) > 1):
+        raise ValueError(f"JPEG: bad progressive scan Ss {ss} Se {se}")
+    segs, end = _segments(data, pos)
+    rows, cols, units = _scan_units(comps, scan, frame)
+    luts = [(dc_luts.get(td), ac_luts.get(ta)) for _, td, ta in scan]
+    n_mcu = rows * cols
+    per = restart or n_mcu
+    zz = ZIGZAG.tolist()
+    p1, m1 = 1 << al, -1 << al
+    mcu = 0
+    for seg in segs:
+        if mcu >= n_mcu:
+            break
+        bits = _Bits(seg)
+        pred = [0] * len(units)
+        eobrun = 0
+        for _ in range(min(per, n_mcu - mcu)):
+            my, mx = divmod(mcu, cols)
+            for u, ((c, hh, vv), (dcl, acl)) in enumerate(zip(units, luts)):
+                coef = c["coef"]
+                for by in range(vv):
+                    for bx in range(hh):
+                        blk = coef[my * vv + by, mx * hh + bx]
+                        if ss == 0:
+                            if ah == 0:
+                                pred[u] += bits.receive_extend(
+                                    bits.decode(dcl))
+                                blk[0] = pred[u] * p1
+                            elif bits.bits(1):
+                                blk[0] |= p1
+                            continue
+                        if ah == 0:
+                            if eobrun:
+                                eobrun -= 1
+                                continue
+                            k = ss
+                            while k <= se:
+                                rs = bits.decode(acl)
+                                r, s = rs >> 4, rs & 15
+                                if s:
+                                    k += r
+                                    if k > 63:
+                                        raise ValueError(
+                                            "JPEG: AC index past 63")
+                                    blk[zz[k]] = bits.receive_extend(s) * p1
+                                elif r == 15:
+                                    k += 15
+                                else:
+                                    eobrun = (1 << r) + bits.bits(r) - 1
+                                    break
+                                k += 1
+                            continue
+                        eobrun = _refine_ac(bits, acl, blk, ss, se, zz, p1,
+                                            m1, eobrun)
+            mcu += 1
+    if mcu < n_mcu:
+        raise ValueError("JPEG: scan ends before its last MCU")
+    return end
+
+
+def _refine_ac(bits, acl, blk, k, se, zz, p1, m1, eobrun) -> int:
+    """One block of an AC refinement scan over k..se (jdphuff.c's
+    decode_mcu_AC_refine); returns the end-of-band run left."""
+    def correct(z):
+        v = int(blk[z])
+        if bits.bits(1) and (v & p1) == 0:
+            blk[z] = v + (p1 if v >= 0 else m1)
+
+    if eobrun == 0:
+        while k <= se:
+            rs = bits.decode(acl)
+            r, s = rs >> 4, rs & 15
+            if s:
+                if s != 1:
+                    raise ValueError("JPEG: refinement coefficient of size "
+                                     f"{s}")
+                s = p1 if bits.bits(1) else m1
+            elif r != 15:
+                eobrun = (1 << r) + bits.bits(r)
+                break
+            # pass the nonzero coefficients (a correction bit each) and r
+            # zero ones
+            while k <= se:
+                z = zz[k]
+                if blk[z]:
+                    correct(z)
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            if s:
+                if k > 63:
+                    raise ValueError("JPEG: AC index past 63")
+                blk[zz[k]] = s
+            k += 1
+    if eobrun > 0:
+        while k <= se:
+            z = zz[k]
+            if blk[z]:
+                correct(z)
+            k += 1
+        eobrun -= 1
+    return eobrun
 
 
 # jidctint.c's fixed-point constants, FIX(x) = round(x * 2^13)
@@ -288,6 +421,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     pos, n = 2, len(data)
     quant, dc_luts, ac_luts = {}, {}, {}
     frame, comps, restart, adobe, scanned = None, None, 0, None, False
+    progressive = False
     while True:
         if pos + 1 >= n:
             if scanned:           # no EOI marker after the last scan
@@ -335,7 +469,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             restart = struct.unpack(">H", body[:2])[0]
         elif m == 0xEE and body[:5] == b"Adobe":
             adobe = body[11] if len(body) > 11 else None
-        elif m in (0xC0, 0xC1):                # baseline / extended
+        elif m in (0xC0, 0xC1, 0xC2):          # baseline, extended,
+            progressive = m == 0xC2            # progressive
             prec, h, w, nc = struct.unpack(">BHHB", body[:6])
             if prec != 8:
                 raise NotImplementedError(
@@ -360,18 +495,26 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 c["coef"] = np.zeros((mrows * c["v"], mcols * c["h"], 64),
                                      np.int32)
             frame = {"width": w, "height": h, "hmax": hmax, "vmax": vmax}
-        elif 0xC2 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
+        elif 0xC3 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
+            kind = ("arithmetic-coded" if m >= 0xC9 else
+                    "lossless" if m == 0xC3 else "hierarchical")
             raise NotImplementedError(
-                f"JPEG: SOF{m - 0xC0} (progressive, lossless or "
-                "arithmetic-coded) is not ported; baseline only")
+                f"JPEG: SOF{m - 0xC0} ({kind}) is not ported; baseline, "
+                "extended and progressive Huffman only")
         elif m == 0xDA:                        # SOS
             if frame is None:
                 raise ValueError("JPEG: scan before the frame header")
             ns = body[0]
             scan = [(body[1 + 2 * k], body[2 + 2 * k] >> 4,
                      body[2 + 2 * k] & 15) for k in range(ns)]
-            pos = _decode_scan(data, pos, comps, scan, frame, dc_luts,
-                               ac_luts, restart)
+            if progressive:
+                pos = _decode_progressive_scan(
+                    data, pos, comps, scan, frame, dc_luts, ac_luts,
+                    restart, (body[1 + 2 * ns], body[2 + 2 * ns],
+                              body[3 + 2 * ns] >> 4, body[3 + 2 * ns] & 15))
+            else:
+                pos = _decode_scan(data, pos, comps, scan, frame, dc_luts,
+                                   ac_luts, restart)
             scanned = True
     if frame is None:
         raise ValueError("JPEG: no frame header")

@@ -27,7 +27,8 @@ gradient within the bar), and phase 14's captured instanced scenes and
 other techniques (bit-equal to eager, lt within the eager-to-eager
 spread; a forced pair overflow), and phase 15's captured sharded and
 distributed render and train step, trace(), acquireStats and aept
-learning against their eager routes. They skip without a card. The file imports no JAX, so it runs on the
+learning against their eager routes, the post-processing programs and
+the image fixtures of phase 16. They skip without a card. The file imports no JAX, so it runs on the
 card's machine: `python -m pytest tests/test_torch_cuda.py -m cuda`."""
 import json
 
@@ -466,6 +467,30 @@ def test_post_processing_on_card_matches_cpu(device):
     rt.step()
     out = chip_smoke.phase_post(device, rt)
     assert all(v > 0 for k, v in out.items() if k.endswith("_ms"))
+
+
+def test_post_programs_on_card(device):
+    """Phase 10's post-processing programs on S1's 512x512 film and AOVs:
+    each of the five functions' first call plain, its capture and
+    replays bit-equal to the plain function under two sets of traced
+    arguments with no host sync; a capture that syncs raises."""
+    rt = _s1(device, 512)
+    rt.step()
+    film = rt.framebuffer(normalized=True)
+    aovs = rt.render_aovs()
+    guides = [aovs[k] for k in ("Normals", "Albedo", "Depth")]
+    for name, case in chip_smoke.post_cases(film, guides).items():
+        row = chip_smoke.post_program_run(name, case)
+        assert row["replay_syncs"] == [0] * chip_smoke.POST_REPLAYS
+        assert row["pool_bytes"] > 0
+    assert chip_smoke.post_capture_failure(device)
+
+
+def test_texture_phase_on_card(device):
+    """Phase 16: the image fixtures decoded to cv2's pixels, and the scene
+    textured with them rendered by one captured step on the card."""
+    out = chip_smoke.phase_textures(device)
+    assert out["film_mean"] > 0 and len(out["decoded"]) == 5
 
 
 def test_trace_and_stats_on_card_match_cpu(device):
