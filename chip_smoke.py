@@ -167,11 +167,15 @@ printing its own lines; any failure exits non-zero:
    equal to the eager counts with no host sync before its one read;
    aept's captured learning within the eager-to-eager spread and its
    first step timed;
-16. the image files ignis_tpu reads through OpenCV (`phase_textures`):
-   the fixtures of tests/data/images (a progressive JPEG, a palette BMP,
-   a 16-bit LZW TIFF, a PPM, a PFM) decoded and held to cv2's pixels
-   (cv2_pixels.npz), and a scene textured with them rendered by one
-   captured step: finite, not black;
+16. the image files ignis_tpu reads and writes through OpenCV
+   (`phase_textures`): the fixtures of tests/data/images (JPEGs, BMP,
+   TIFFs, PPM, PFM, GIFs, lossless and lossy WebPs, Radiance .pic, Sun
+   raster, a JPEG named .png) decoded and held to cv2's pixels
+   (cv2_pixels.npz); every save_image suffix written and read back; the
+   1024 x 1024 WebP and progressive JPEG decodes timed; and a scene
+   textured with the fixtures rendered by one captured step: finite, not
+   black, and bit-equal to the same scene textured with PNG (and EXR)
+   twins of the decoded pixels;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -4820,21 +4824,30 @@ def phase_captured_parallel(device, s1, env, s1_msps, eager11, smi,
 # ---------------------------------------------------------------------------
 
 IMAGE_FIXTURES = ROOT / "tests" / "data" / "images"
+TIMING_FIXTURES = ROOT / "tests" / "data" / "images_1024"
+# every suffix save_image writes from the 8-bit sRGB image; the lossy
+# ones (JPEG, GIF's fixed table, .pic's RGBE) are held below to bars of
+# their own
+WRITER_SUFFIXES = (".png", ".bmp", ".dib", ".tga", ".tif", ".tiff", ".ppm",
+                   ".pnm", ".pfm", ".sr", ".ras", ".webp", ".jpg", ".jpeg",
+                   ".jpe", ".gif", ".pic")
 
 
-def texture_scene(size=128):
+def texture_scene(size=128, files=None):
     """A row of rectangles facing the camera, one for each image fixture
-    of tests/data/images (scripts/make_image_fixtures.py: progressive
-    JPEG, palette BMP, 16-bit LZW TIFF, PPM, PFM), each a diffuse whose
-    reflectance is that image; a point light and a dim env, path at
-    depth 3."""
+    of tests/data/images (scripts/make_image_fixtures.py: JPEG, BMP,
+    TIFF, PPM, PFM, GIF, WebP, Radiance and Sun raster files of cv2 and
+    Pillow), each a diffuse whose reflectance is that image (or the file
+    `files` maps the fixture's name to); a point light and a dim env,
+    path at depth 3."""
     names = sorted(p.name for p in IMAGE_FIXTURES.iterdir()
                    if p.suffix != ".npz")
     n = len(names)
     textures, bsdfs, shapes, ents = [], [], [], []
     for i, name in enumerate(names):
+        path = (files or {}).get(name, IMAGE_FIXTURES / name)
         textures.append({"type": "image", "name": f"t{i}",
-                         "filename": str(IMAGE_FIXTURES / name)})
+                         "filename": str(path)})
         bsdfs.append({"type": "diffuse", "name": f"m{i}",
                       "reflectance": f"t{i}"})
         shapes.append({"type": "rectangle", "name": f"r{i}", "width": 0.6,
@@ -4854,17 +4867,83 @@ def texture_scene(size=128):
                         "radiance": [0.3, 0.3, 0.3]}]}
 
 
-def phase_textures(device):
+def writers_round_trip(src, out_dir):
+    """save_image of the linear image whose 8-bit sRGB encoding is `src`
+    (uint8 [h, w, 3]) under every writer suffix, each file read back by
+    decode_samples: the lossless formats give src (PFM its 0-255 floats),
+    GIF the fixed table's colours of the port's dithering, .pic src / 255
+    within RGBE's truncation (2^-7 below 1), JPEG (quality 95, 4:2:0) a
+    PSNR of at least 28 dB (31 dB on this noisy image)."""
+    from ignis_tpu_torch.utils import image as imagelib
+    from ignis_tpu_torch.utils.gif import TABLE_332, dither_332
+    lin = imagelib.srgb_to_linear(src / np.float32(255.0)).astype(np.float32)
+    out = {}
+    for suffix in WRITER_SUFFIXES:
+        p = out_dir / f"w{suffix}"
+        t0 = time.perf_counter()
+        imagelib.save_image(p, lin)
+        t1 = time.perf_counter()
+        back = imagelib.decode_samples(p)
+        t2 = time.perf_counter()
+        got = back.astype(np.float64)
+        if suffix in (".jpg", ".jpeg", ".jpe"):
+            psnr = float(10 * np.log10(255.0 ** 2 / np.mean(
+                (got - src) ** 2)))
+            ok, what = psnr >= 28.0, f"PSNR {psnr:.2f} dB >= 28"
+        elif suffix == ".pic":
+            err = float(np.abs(got - src / 255.0).max())
+            ok, what = err <= 2.0 ** -7, f"max |diff| {err:.3g} <= 2^-7"
+        elif suffix == ".gif":
+            ok = np.array_equal(back, TABLE_332[dither_332(src)])
+            what = "the fixed table's colours of dither_332"
+        else:
+            ok = back.shape == src.shape and np.array_equal(got, src)
+            what = "equal to the source pixels"
+        check(ok, f"save_image {suffix}: {p.stat().st_size} bytes, read "
+              f"back {what}")
+        out[suffix] = {"bytes": p.stat().st_size, "write_s": t1 - t0,
+                       "read_s": t2 - t1}
+    return out
+
+
+def decode_timing():
+    """Decode seconds of the 1024 x 1024 files of tests/data/images_1024
+    (cv2's quality-80 and lossless WebP and progressive JPEG of one
+    image), each held to the SHA-256 of cv2's pixels."""
+    import hashlib
+    from ignis_tpu_torch.utils.image import decode_samples
+    sums = json.loads((TIMING_FIXTURES / "cv2_sha256.json").read_text())
+    out = {}
+    for name in sorted(sums):
+        t0 = time.perf_counter()
+        px = decode_samples(TIMING_FIXTURES / name)
+        sec = time.perf_counter() - t0
+        check(hashlib.sha256(px.tobytes()).hexdigest() == sums[name],
+              f"{name}: decoded {px.shape} equal to cv2's pixels (SHA-256) "
+              f"in {sec:.3f} s")
+        out[name] = sec
+    return out
+
+
+def phase_textures(device, build_dir=None):
     """Each image fixture decoded on the card's host and held to
-    cv2_pixels.npz at the CPU tests' bars (the progressive JPEG within 1
-    level, the others exactly); then texture_scene loaded onto the card
-    and one captured step rendered: finite, not black, no texture
-    refused."""
+    cv2_pixels.npz at the CPU tests' bars (JPEGs within 1 level, the
+    others exactly); every save_image suffix written and read back
+    (writers_round_trip, on the pixels of cv2's lossless WebP fixture);
+    the 1024 x 1024 WebP and JPEG decodes timed (decode_timing); then
+    texture_scene loaded onto the card and one captured step rendered:
+    finite, not black, no texture refused, and its film bit-equal to
+    that of the same scene with each texture replaced by a PNG of its
+    decoded 8-bit pixels (16-bit and float textures: an EXR of the image
+    load_image gives)."""
     import torch
     import ignis_tpu_torch
-    from ignis_tpu_torch.utils.image import decode_samples
+    from ignis_tpu_torch.utils.image import (decode_samples, encode_png,
+                                             load_image, save_image)
+    build_dir = Path(build_dir or ROOT / "build") / "textures"
+    build_dir.mkdir(parents=True, exist_ok=True)
     want = np.load(IMAGE_FIXTURES / "cv2_pixels.npz")
-    decoded = {}
+    decoded, twins = {}, {}
     for name in sorted(want.files):
         t0 = time.perf_counter()
         got = decode_samples(IMAGE_FIXTURES / name)
@@ -4876,6 +4955,16 @@ def phase_textures(device):
               f"within {bar:g} of cv2's pixels (max |diff| {err:g})")
         decoded[name] = {"shape": list(got.shape), "dtype": str(got.dtype),
                          "max_abs_err": err, "seconds": sec}
+        if got.dtype == np.uint8:
+            twins[name] = build_dir / f"{name}.png"
+            twins[name].write_bytes(encode_png(got))
+        else:
+            twins[name] = build_dir / f"{name}.exr"
+            save_image(twins[name], load_image(IMAGE_FIXTURES / name))
+    writers = writers_round_trip(want["cv2_lossless.webp"], build_dir)
+    timing = decode_timing()
+    print(f"  1024 x 1024 decodes on the card's host: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in timing.items()))
     t0 = time.perf_counter()
     rt = ignis_tpu_torch.loadFromString(json.dumps(texture_scene()), spi=SPI)
     load_s = time.perf_counter() - t0
@@ -4892,11 +4981,19 @@ def phase_textures(device):
           and plain_calls() == 0 and sum(used.values()) > 0,
           f"texture scene: one captured step, finite, mean {mean:.4g} > 0, "
           f"launches {used}")
-    print(f"  fixtures decoded {decoded}; texture scene loaded in "
-          f"{load_s:.2f} s, first (capturing) step {first['seconds']:.2f} "
-          f"s, film mean {mean:.4f}, launches {used}")
-    return {"decoded": decoded, "load_seconds": load_s,
-            "first_step": first, "film_mean": mean, "launches": used}
+    twin = ignis_tpu_torch.loadFromString(
+        json.dumps(texture_scene(files=twins)), spi=SPI)
+    twin.step()
+    check(torch.equal(film, twin.framebuffer(normalized=True)),
+          "texture scene: film bit-equal to its PNG/EXR twin's")
+    print(f"  fixtures decoded {decoded}; writers {writers}; texture "
+          f"scene loaded in {load_s:.2f} s, first (capturing) step "
+          f"{first['seconds']:.2f} s, film mean {mean:.4f}, launches "
+          f"{used}")
+    return {"decoded": decoded, "writers": writers,
+            "decode_1024_s": timing, "load_seconds": load_s,
+            "first_step": first, "film_mean": mean, "launches": used,
+            "twin_bit_equal": True}
 
 
 def main() -> int:

@@ -1,25 +1,38 @@
-"""Image IO without OpenCV or PIL: EXR, Radiance HDR, PNG, JPEG, BMP and
-TGA read and written; TIFF, PNM, PFM and Sun raster read.
+"""Image IO without OpenCV or PIL: every file ignis_tpu reads or writes
+through OpenCV, read and written with numpy and zlib.
 
 The port's counterpart of ignis_tpu/utils/image.py, which goes through
-OpenCV. Here PNG is decoded with numpy and zlib (1-16 bits, gray, gray
-with alpha, RGB, RGBA or palette, the five row filters, Adam7
-interlacing) and encoded as 8-bit RGB with filter 0 (`encode_png`); JPEG
-goes through utils/jpeg.py (baseline and progressive, decoded as libjpeg
-decodes it; written as baseline 4:2:0 at quality 95, cv2's default); BMP
-is read at every depth (palettes, RLE8 and RLE4, bit fields) and written
-at 24; TIFF goes through utils/tiff.py; PNM (P1-P6), PFM and Sun raster
-are read as OpenCV reads them; TGA is read as
-uncompressed or run-length-encoded truecolour and written run-length
-encoded; EXR is read by the port's own reader and written as scanline ZIP
+OpenCV. As OpenCV does, a file is read by the decoder its content names
+(`sniff`: PNG, JPEG, BMP, TIFF, PNM, PFM, Sun raster, Radiance, GIF and
+WebP signatures), not by its suffix; EXR goes by its suffix, as in
+ignis_tpu, and TGA, which has no signature, by its suffix where no
+signature matches; a file no decoder claims raises IOError, as ignis_tpu
+raises for cv2.imread's None.
+
+Here PNG is decoded with numpy and zlib (1-16 bits, gray, gray with
+alpha, RGB, RGBA or palette, the five row filters, Adam7 interlacing)
+and encoded as 8-bit RGB with filter 0 (`encode_png`); JPEG goes through
+utils/jpeg.py (baseline and progressive, YCbCr, RGB and Adobe CMYK,
+decoded as libjpeg decodes it; written as baseline 4:2:0 at quality 95,
+cv2's default); BMP is read at every depth (palettes, RLE8 and RLE4, bit
+fields) and written at 24; TIFF goes through utils/tiff.py (written
+8-bit LZW with the predictor, as cv2 writes it); GIF through utils/gif.py
+and WebP through utils/webp.py (read as cv2 reads them, written as cv2's
+default writers write them: the fixed 3-3-2 GIF table with its
+dithering, lossless WebP); PNM (P1-P6), PFM and Sun raster are read as
+OpenCV reads them and written as cv2 writes them (binary P6, a
+little-endian PFM, a 24-bit raster); TGA is read as uncompressed or
+run-length-encoded truecolour and written run-length encoded; EXR is
+read by the port's own reader and written as scanline ZIP
 (`_write_exr_channels`, also `write_exr_multilayer`'s layers and ig*
-attributes); Radiance .hdr is read with flat or run-length-encoded
-scanlines and written flat, in the RGBE rounding of the rgbe.c that
-OpenCV uses. Integer input is scaled to [0, 1] (8-bit by 1/255, 16-bit
-by 1/65535) and sRGB-decoded to linear unless `linear`; EXR, HDR, PFM and
-float TIFF are linear; WebP, AVIF, GIF and JPEG 2000 raise
-NotImplementedError by name; LDR output is sRGB-encoded with +0.5 rounding, as the JAX
-writer's. Images are float32 [h, w, 3] RGB with row 0 at the top.
+attributes); Radiance .hdr and .pic are read with flat or
+run-length-encoded scanlines and written flat, in the RGBE rounding of
+the rgbe.c that OpenCV uses. Integer input is scaled to [0, 1] (8-bit by
+1/255, 16-bit by 1/65535) and sRGB-decoded to linear unless `linear`;
+EXR, HDR, PFM and float TIFF are linear; AVIF, JPEG 2000 and BigTIFF
+raise NotImplementedError by name. LDR output is sRGB-encoded with +0.5
+rounding, as the JAX writer's. Images are float32 [h, w, 3] RGB with row
+0 at the top.
 """
 from __future__ import annotations
 
@@ -42,44 +55,65 @@ def linear_to_srgb(x: np.ndarray) -> np.ndarray:
     return np.where(x <= 0.0031308, x * 12.92, 1.055 * x ** (1 / 2.4) - 0.055)
 
 
-LDR_SUFFIXES = (".png", ".jpg", ".jpeg", ".bmp", ".tga")
-# suffixes read to samples (decode_samples), by decoder name
-_SAMPLE_SUFFIXES = {".jpg": "jpeg", ".jpeg": "jpeg", ".bmp": "bmp",
-                    ".tga": "tga", ".tif": "tiff", ".tiff": "tiff",
-                    ".pbm": "pnm", ".pgm": "pnm", ".ppm": "pnm",
-                    ".pnm": "pnm", ".pfm": "pfm", ".sr": "sun_raster",
-                    ".ras": "sun_raster"}
+# OpenCV's signatures, as (prefix, decoder)
+_SIGNATURES = (
+    (_PNG_MAGIC, "png"), (b"\xff\xd8\xff", "jpeg"), (b"BM", "bmp"),
+    (b"II*\0", "tiff"), (b"MM\0*", "tiff"), (b"II+\0", "BigTIFF"),
+    (b"MM\0+", "BigTIFF"), (b"GIF87a", "gif"), (b"GIF89a", "gif"),
+    (b"#?RADIANCE", "hdr"), (b"#?RGBE", "hdr"),
+    (b"\x59\xa6\x6a\x95", "sun_raster"), (b"PF", "pfm"), (b"Pf", "pfm"),
+    (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
+    (b"\xff\x4f\xff\x51", "JPEG 2000"))
+# formats OpenCV reads that the port refuses by name
+_UNPORTED = ("BigTIFF", "AVIF", "JPEG 2000")
 
 
-def _unsupported(path: Path, what: str) -> NotImplementedError:
-    if what == "reads":
-        known = ("EXR, HDR, PNG, JPEG, BMP, TGA, TIFF, PNM, PFM and Sun "
-                 "raster")
-    else:
-        known = "EXR, HDR, PNG, JPEG, BMP and TGA"
-    return NotImplementedError(
-        f"image format '{path.suffix.lower()}' ({path.name}) is not ported: "
-        f"the port {what} {known}")
+def sniff(data: bytes):
+    """The decoder OpenCV would pick for a file's bytes, by its signature:
+    'png', 'jpeg', 'bmp', 'tiff', 'pnm', 'pfm', 'sun_raster', 'hdr',
+    'gif', 'webp', one of _UNPORTED's names, or None."""
+    for sig, kind in _SIGNATURES:
+        if data.startswith(sig):
+            return kind
+    if len(data) > 2 and data[:1] == b"P" and data[1] in b"123456":
+        return "pnm"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "webp"
+    if data[4:12] in (b"ftypavif", b"ftypavis"):
+        return "AVIF"
+    return None
 
 
 def decode_samples(path) -> np.ndarray:
-    """A JPEG, BMP, TGA, TIFF, PNM, PFM or Sun raster file's pixels as
-    [h, w, 3] RGB samples as OpenCV reads them: uint8, uint16 (16-bit
-    TIFF and PNM) or float32 (PFM, float TIFF); grey replicated, alpha
-    dropped."""
+    """A file's pixels as [h, w, 3] RGB samples as OpenCV reads them,
+    found by its content: uint8, uint16 (16-bit PNG, TIFF and PNM) or
+    float32 (PFM, float TIFF, Radiance); grey replicated, alpha dropped."""
     path = Path(path)
-    kind = _SAMPLE_SUFFIXES.get(path.suffix.lower())
-    if kind is None:
-        raise _unsupported(path, "reads")
     data = path.read_bytes()
+    kind = sniff(data)
+    if kind is None and path.suffix.lower() == ".tga":
+        kind = "tga"
+    if kind is None:
+        raise IOError(f"Cannot load image {path}")
+    if kind in _UNPORTED:
+        raise NotImplementedError(
+            f"image format {kind} ('{path.suffix.lower()}', {path.name}) is "
+            "not ported")
     if kind == "jpeg":
         from .jpeg import decode_jpeg
         return decode_jpeg(data)
     if kind == "tiff":
         from .tiff import decode_tiff
         return decode_tiff(data)
-    return {"bmp": decode_bmp, "tga": decode_tga, "pnm": decode_pnm,
-            "pfm": decode_pfm, "sun_raster": decode_sun_raster}[kind](data)
+    if kind == "gif":
+        from .gif import decode_gif
+        return decode_gif(data)
+    if kind == "webp":
+        from .webp import decode_webp
+        return decode_webp(data)
+    return {"png": decode_png, "bmp": decode_bmp, "tga": decode_tga,
+            "pnm": decode_pnm, "pfm": decode_pfm, "hdr": decode_hdr,
+            "sun_raster": decode_sun_raster}[kind](data)
 
 
 def _normalised(samples: np.ndarray) -> np.ndarray:
@@ -94,11 +128,8 @@ def _normalised(samples: np.ndarray) -> np.ndarray:
 
 def read_ldr(path) -> np.ndarray:
     """An integer-sample file as float32 [h, w, 3] in [0, 1]
-    (sRGB-encoded values), by its suffix: 8-bit samples / 255, 16-bit
-    ones (PNG, TIFF, PNM) / 65535."""
-    path = Path(path)
-    if path.suffix.lower() == ".png":
-        return read_png(path)
+    (sRGB-encoded values): 8-bit samples / 255, 16-bit ones (PNG, TIFF,
+    PNM) / 65535."""
     samples = decode_samples(path)
     if samples.dtype == np.float32:
         raise ValueError(f"{path}: float samples are not LDR data")
@@ -106,52 +137,97 @@ def read_ldr(path) -> np.ndarray:
 
 
 def load_image(path, linear: bool = False) -> np.ndarray:
-    """Linear float32 [h, w, 3] RGB. EXR, HDR, PFM and float TIFF are
-    linear; integer data is scaled to [0, 1] and sRGB-decoded unless
-    `linear` (normal maps; ImagePattern's 'linear' flag)."""
+    """Linear float32 [h, w, 3] RGB. EXR (by its suffix), HDR, PFM and
+    float TIFF are linear; integer data is scaled to [0, 1] and
+    sRGB-decoded unless `linear` (normal maps; ImagePattern's 'linear'
+    flag)."""
     path = Path(path)
-    suffix = path.suffix.lower()
-    if suffix == ".exr":
+    if path.suffix.lower() == ".exr":
         from .exr import load_exr_rgb
         return np.ascontiguousarray(load_exr_rgb(path), np.float32)
-    if suffix == ".hdr":
-        return read_hdr(path)
-    if suffix == ".png":
-        img = read_png(path)
-    else:
-        samples = decode_samples(path)
-        img = _normalised(samples)
-        if samples.dtype == np.float32:
-            return np.ascontiguousarray(img)
+    samples = decode_samples(path)
+    img = _normalised(samples)
+    if samples.dtype == np.float32:
+        return np.ascontiguousarray(img)
     if not linear:
         img = srgb_to_linear(img)
     return np.ascontiguousarray(img, np.float32)
 
 
+def encode_ppm(rgb) -> bytes:
+    """A binary PPM (P6, maxval 255) of uint8 [h, w, 3], as cv2 writes it."""
+    rgb = _rgb8(rgb)
+    h, w, _ = rgb.shape
+    return f"P6\n{w} {h}\n255\n".encode() + rgb.tobytes()
+
+
+def encode_pfm(img) -> bytes:
+    """A little-endian colour PFM (scale -1, rows bottom-up) of [h, w, 3]
+    samples as float32, as cv2 writes it."""
+    img = np.asarray(img, np.float32)
+    h, w, _ = img.shape
+    return f"PF\n{w} {h}\n-1\n".encode() + \
+        np.ascontiguousarray(img[::-1], "<f4").tobytes()
+
+
+def encode_sun_raster(rgb) -> bytes:
+    """A raw 24-bit Sun raster (type 1, BGR, rows padded to 16 bits) of
+    uint8 [h, w, 3], as cv2 writes it."""
+    rgb = _rgb8(rgb)
+    h, w, _ = rgb.shape
+    stride = (3 * w + 1) & ~1
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = rgb[..., ::-1].reshape(h, 3 * w)
+    return struct.pack(">8I", 0x59A66A95, w, h, 24, rows.size, 1, 0, 0) + \
+        rows.tobytes()
+
+
+def _ldr_writer(suffix: str):
+    """The encoder of 8-bit RGB for a suffix cv2.imwrite takes, or None."""
+    from .gif import encode_gif
+    from .jpeg import encode_jpeg
+    from .tiff import encode_tiff
+    from .webp import encode_webp
+    return {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg,
+            ".jpe": encode_jpeg, ".bmp": encode_bmp, ".dib": encode_bmp,
+            ".tga": encode_tga, ".tif": encode_tiff, ".tiff": encode_tiff,
+            ".ppm": encode_ppm, ".pnm": encode_ppm,
+            ".pfm": lambda ldr: encode_pfm(ldr.astype(np.float32)),
+            ".sr": encode_sun_raster, ".ras": encode_sun_raster,
+            # cv2's HDR writer scales 8-bit data by 1/255.0f
+            ".pic": lambda ldr: _hdr_bytes(
+                ldr.astype(np.float32) * np.float32(1.0 / 255.0)),
+            ".webp": encode_webp, ".gif": encode_gif}.get(suffix)
+
+
 def save_image(path, img):
-    """Save linear float32 [h, w, 3] RGB: EXR (ZIP) and HDR keep it
-    linear; PNG, JPEG, BMP and TGA are 8-bit sRGB."""
+    """Save linear float32 [h, w, 3] RGB by its suffix, as ignis_tpu hands
+    it to cv2.imwrite: EXR (ZIP) and HDR keep it linear; every other
+    format is written from the 8-bit sRGB image (PFM as its 0-255 values,
+    .pic scaled back to [0, 1], as cv2 writes an 8-bit image to them).
+    .pgm and .pbm, which cv2 writes of grey images only, raise ValueError;
+    AVIF and JPEG 2000 raise NotImplementedError."""
     path = Path(path)
     img = np.asarray(img, np.float32)
     suffix = path.suffix.lower()
     if suffix == ".exr":
         _write_exr_fallback(path, img)
-    elif suffix == ".hdr":
+        return
+    if suffix == ".hdr":
         write_hdr(path, img)
-    elif suffix in LDR_SUFFIXES:
-        ldr = (linear_to_srgb(img) * 255.0 + 0.5).astype(np.uint8)
-        if suffix == ".png":
-            data = encode_png(ldr)
-        elif suffix == ".bmp":
-            data = encode_bmp(ldr)
-        elif suffix == ".tga":
-            data = encode_tga(ldr)
-        else:
-            from .jpeg import encode_jpeg
-            data = encode_jpeg(ldr)
-        path.write_bytes(data)
-    else:
-        raise _unsupported(path, "writes")
+        return
+    if suffix in (".avif", ".jp2"):
+        raise NotImplementedError(
+            f"image format '{suffix}' ({path.name}) is not ported: the port "
+            "writes no AVIF or JPEG 2000")
+    if suffix in (".pgm", ".pbm"):
+        raise ValueError(f"{path.name}: '{suffix}' holds a grey image, "
+                         "and save_image writes colour")
+    encode = _ldr_writer(suffix)
+    if encode is None:
+        raise ValueError(f"{path.name}: no image writer for '{suffix}'")
+    ldr = (linear_to_srgb(img) * 255.0 + 0.5).astype(np.uint8)
+    path.write_bytes(encode(ldr))
 
 
 def _rgb8(rgb) -> np.ndarray:
@@ -533,13 +609,19 @@ def _rgbe(img: np.ndarray) -> np.ndarray:
     return out
 
 
-def write_hdr(path, img):
-    """Radiance RGBE file, flat scanlines, row 0 at the top."""
+def _hdr_bytes(img) -> bytes:
+    """A Radiance RGBE file of float [h, w, 3], flat scanlines, row 0 at
+    the top."""
     img = np.asarray(img, np.float32)
     h, w = img.shape[:2]
     head = (f"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y {h} +X {w}\n"
             ).encode()
-    Path(path).write_bytes(head + _rgbe(img[..., :3]).tobytes())
+    return head + _rgbe(img[..., :3]).tobytes()
+
+
+def write_hdr(path, img):
+    """Radiance RGBE file, flat scanlines, row 0 at the top."""
+    Path(path).write_bytes(_hdr_bytes(img))
 
 
 def _rle_scanline(data: bytes, pos: int, w: int):
@@ -563,20 +645,19 @@ def _rle_scanline(data: bytes, pos: int, w: int):
     return line.T, pos
 
 
-def read_hdr(path) -> np.ndarray:
-    """A Radiance .hdr file (flat or RLE scanlines, -Y h +X w) as float32
+def decode_hdr(data: bytes) -> np.ndarray:
+    """A Radiance file (flat or RLE scanlines, -Y h +X w) as float32
     [h, w, 3] (rgbe.c's rgbe2float: m * 2^(e - 136))."""
-    data = Path(path).read_bytes()
     if not data.startswith(b"#?"):
-        raise ValueError(f"{path}: not a Radiance HDR file")
+        raise ValueError("not a Radiance HDR file")
     pos = data.index(b"\n\n") + 2
     end = data.index(b"\n", pos)
     dims = data[pos:end].split()
     pos = end + 1
     if len(dims) != 4 or dims[0] != b"-Y" or dims[2] != b"+X":
         raise NotImplementedError(
-            f"{path}: HDR orientation {data[pos:end]!r} is not ported "
-            "(only -Y h +X w)")
+            f"HDR orientation {data[pos:end]!r} is not ported (only -Y h "
+            "+X w)")
     h, w = int(dims[1]), int(dims[3])
     rgbe = np.empty((h, w, 4), np.uint8)
     for y in range(h):
@@ -651,12 +732,16 @@ def _png_samples(raw: bytes, w: int, h: int, depth: int, ch: int):
 
 
 def read_png(path) -> np.ndarray:
-    """A PNG as float32 [h, w, 3] in [0, 1] (sRGB-encoded values). Palette
+    """A PNG as float32 [h, w, 3] in [0, 1] (sRGB-encoded values)."""
+    return _normalised(decode_png(Path(path).read_bytes()))
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """A PNG's samples as [h, w, 3] uint8 (uint16 at 16 bits). Palette
     images take their PLTE colours; gray below 8 bits is scaled to 8 bits
     as libpng expands it; alpha is dropped."""
-    data = Path(path).read_bytes()
     if data[:8] != _PNG_MAGIC:
-        raise ValueError(f"{path}: not a PNG file")
+        raise ValueError("not a PNG file")
     pos, idat, hdr, plte = 8, [], None, None
     while pos < len(data):
         n, ctype = struct.unpack(">I4s", data[pos:pos + 8])
@@ -671,14 +756,14 @@ def read_png(path) -> np.ndarray:
         elif ctype == b"IEND":
             break
     if hdr is None:
-        raise ValueError(f"{path}: no IHDR chunk")
+        raise ValueError("PNG: no IHDR chunk")
     w, h, depth, color, _, _, interlace = hdr
     ch = _PNG_CHANNELS.get(color)
     if ch is None or depth not in (1, 2, 4, 8, 16) or interlace > 1 or (
             ch > 1 and depth < 8 and color != 3) or (
             color == 3 and (depth > 8 or plte is None)):
         raise NotImplementedError(
-            f"{path}: PNG colour type {color} at {depth} bits, interlace "
+            f"PNG colour type {color} at {depth} bits, interlace "
             f"{interlace} is not a valid PNG")
     raw = zlib.decompress(b"".join(idat))
     if interlace:
@@ -695,13 +780,12 @@ def read_png(path) -> np.ndarray:
     else:
         smp, _ = _png_samples(raw, w, h, depth, ch)
     if color == 3:
-        img = plte[np.minimum(smp[..., 0], len(plte) - 1)].astype(
-            np.float32) / 255.0
+        img = plte[np.minimum(smp[..., 0], len(plte) - 1)]
     elif depth == 16:
-        img = smp.astype(np.float32) / 65535.0
+        img = smp
     else:
         scale = 255 // ((1 << depth) - 1)      # libpng's gray expansion
-        img = (smp.astype(np.uint8) * scale).astype(np.float32) / 255.0
+        img = (smp.astype(np.uint8) * scale).astype(np.uint8)
     if img.shape[-1] <= 2:
         img = np.repeat(img[..., :1], 3, axis=-1)
     return np.ascontiguousarray(img[..., :3])

@@ -13,8 +13,12 @@ Huffman decoding and dequantisation, the `jidctint` integer inverse DCT
 (CONST_BITS 13, PASS1_BITS 2), the "fancy" triangular h2v1, h1v2 and h2v2
 chroma upsampling of `jdsample` (the edge samples replicated), and the
 integer YCbCr->RGB tables of `jdcolor`. Arithmetic-coded, lossless and
-hierarchical files, 12-bit samples, CMYK / YCCK and untransformed RGB
-raise NotImplementedError.
+hierarchical files, 12-bit samples, YCCK, and four components without an
+Adobe marker raise NotImplementedError. Three components are YCbCr or,
+as libjpeg guesses (no JFIF marker and Adobe transform 0, or component
+ids 'R', 'G', 'B'), untransformed RGB; four components with Adobe
+transform 0 are Adobe's inverted CMYK, converted to RGB as OpenCV converts
+libjpeg's CMYK (R = K - (255 - C) * K / 256, truncated, and likewise).
 
 The encoder writes baseline JFIF at 4:2:0 (colour) with the Annex K
 quantisation tables scaled to a quality as libjpeg scales them (95 by
@@ -415,13 +419,13 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """A baseline JPEG as uint8 [h, w, 3] RGB (gray replicated)."""
+    """A JPEG as uint8 [h, w, 3] RGB (grey replicated, CMYK converted)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     pos, n = 2, len(data)
     quant, dc_luts, ac_luts = {}, {}, {}
     frame, comps, restart, adobe, scanned = None, None, 0, None, False
-    progressive = False
+    progressive = jfif = False
     while True:
         if pos + 1 >= n:
             if scanned:           # no EOI marker after the last scan
@@ -469,13 +473,23 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             restart = struct.unpack(">H", body[:2])[0]
         elif m == 0xEE and body[:5] == b"Adobe":
             adobe = body[11] if len(body) > 11 else None
+        elif m == 0xE0 and body[:5] == b"JFIF\0":
+            jfif = True
         elif m in (0xC0, 0xC1, 0xC2):          # baseline, extended,
             progressive = m == 0xC2            # progressive
             prec, h, w, nc = struct.unpack(">BHHB", body[:6])
             if prec != 8:
                 raise NotImplementedError(
                     f"JPEG: {prec}-bit samples are not ported")
-            if nc not in (1, 3) or h == 0:
+            if nc == 4 and adobe is None:
+                raise NotImplementedError(
+                    "JPEG: 4 components without an Adobe marker are not "
+                    "ported")
+            if nc == 4 and adobe != 0:
+                raise NotImplementedError(
+                    f"JPEG: YCCK colour (Adobe transform {adobe}, 4 "
+                    "components) is not ported")
+            if nc not in (1, 3, 4) or h == 0:
                 raise NotImplementedError(
                     f"JPEG: {nc} components (or a DNL height) are not "
                     "ported")
@@ -531,9 +545,14 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         planes.append(up[:frame["height"], :frame["width"]])
     if len(planes) == 1:
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, -1)
-    if adobe == 0:
-        raise NotImplementedError("JPEG: RGB (untransformed) colour is not "
-                                  "ported")
+    if len(planes) == 4:
+        k = planes[3]
+        return np.stack([k - (((255 - c) * k) >> 8) for c in planes[:3]],
+                        -1).astype(np.uint8)
+    ids = tuple(cid for cid, _ in sorted(comps.items(),
+                                         key=lambda kv: kv[1]["order"]))
+    if not jfif and (adobe == 0 or adobe is None and ids == (82, 71, 66)):
+        return np.stack(planes, -1).astype(np.uint8)
     return _ycc_to_rgb(*planes)
 
 

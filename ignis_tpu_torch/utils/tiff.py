@@ -1,5 +1,7 @@
 """Baseline TIFF in numpy: the decoder behind utils/image.py's `.tif` and
-`.tiff`, read as OpenCV (libtiff) reads them.
+`.tiff`, read as OpenCV (libtiff) reads them, and the writer of what
+OpenCV writes by default (`encode_tiff`: 8-bit RGB, little-endian, LZW
+with the horizontal predictor, in strips).
 
 One image (the first IFD), little- or big-endian, in strips or tiles,
 chunky samples: uncompressed, PackBits, LZW (MSB-first codes with the
@@ -181,3 +183,90 @@ def decode_tiff(data: bytes) -> np.ndarray:
     if spp < 3:
         raise NotImplementedError(f"TIFF: RGB with {spp} samples")
     return np.ascontiguousarray(img[..., :3])
+
+
+def _lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW as libtiff writes it: MSB-first codes from 9 bits, a clear
+    code first, the width growing one code early (as `_lzw` reads it), a
+    clear code when the table fills, the end code last."""
+    out = bytearray()
+    acc = nacc = 0
+    width, nxt = 9, 258
+    table: dict = {}
+
+    def put(code):
+        nonlocal acc, nacc
+        acc = acc << width | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append(acc >> nacc & 0xFF)
+        acc &= (1 << nacc) - 1
+
+    put(256)
+    cur = -1
+    for b in data:
+        if cur < 0:
+            cur = b
+            continue
+        code = table.get(cur << 8 | b)
+        if code is not None:
+            cur = code
+            continue
+        put(cur)
+        table[cur << 8 | b] = nxt
+        nxt += 1
+        if nxt == 4094:
+            put(256)
+            table.clear()
+            width, nxt = 9, 258
+        elif nxt > (1 << width) - 1:
+            width += 1
+        cur = b
+    if cur >= 0:
+        put(cur)
+        nxt += 1
+        if nxt > (1 << width) - 1 and width < 12:
+            width += 1
+    put(257)
+    if nacc:
+        out.append(acc << (8 - nacc) & 0xFF)
+    return bytes(out)
+
+
+def encode_tiff(rgb) -> bytes:
+    """A little-endian TIFF of uint8 [h, w, 3] RGB: LZW with the horizontal
+    predictor, strips of about 8 KB."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_tiff: expected [h, w, 3], got {rgb.shape}")
+    h, w, _ = rgb.shape
+    rows = max(1, 8192 // (3 * w))
+    diff = rgb.copy()
+    diff[:, 1:] -= rgb[:, :-1]                 # the predictor, mod 256
+    strips = [_lzw_encode(diff[y:y + rows].tobytes())
+              for y in range(0, h, rows)]
+    n = len(strips)
+    # header, IFD (12 tags), then the arrays the IFD points to, then strips
+    ifd_size = 2 + 12 * 12 + 4
+    extra = 8 + ifd_size
+    bps_at = extra
+    offs_at = bps_at + 6
+    counts_at = offs_at + 4 * n
+    data_at = counts_at + 4 * n
+    offsets = np.cumsum([data_at] + [len(s) for s in strips[:-1]])
+
+    def entry(tag, typ, count, value):
+        return struct.pack("<HHII", tag, typ, count, value)
+    ifd = struct.pack("<H", 12) + b"".join([
+        entry(256, 4, 1, w), entry(257, 4, 1, h),
+        entry(258, 3, 3, bps_at), entry(259, 3, 1, 5), entry(262, 3, 1, 2),
+        entry(273, 4, n, offs_at if n > 1 else int(offsets[0])),
+        entry(277, 3, 1, 3), entry(278, 4, 1, rows),
+        entry(279, 4, n, counts_at if n > 1 else len(strips[0])),
+        entry(284, 3, 1, 1), entry(317, 3, 1, 2), entry(339, 3, 1, 1)]) \
+        + b"\0\0\0\0"
+    arrays = struct.pack("<3H", 8, 8, 8) + np.asarray(
+        offsets, "<u4").tobytes() + np.asarray(
+        [len(s) for s in strips], "<u4").tobytes()
+    return b"II*\0" + struct.pack("<I", 8) + ifd + arrays + b"".join(strips)

@@ -1,0 +1,134 @@
+"""Hold the port's GIF and WebP codecs to OpenCV on random files.
+
+For a given number of seconds, make random images (noise, smooth waves,
+a flat colour, a checkerboard, a few-colour palette image, noise over a
+ramp; 1-89 pixels a side), write each with cv2 or Pillow (lossy WebP at
+any quality, cv2's lossless WebP, Pillow's lossless and lossy WebP at any
+method, with alpha a third of the time, Pillow's palette GIFs, interlaced
+or transparent) and compare the port's decode with cv2.imdecode; for
+cv2's GIF writer, compare cv2's read-back of the port's `encode_gif` with
+that of cv2's own file. Needs cv2 and Pillow. Run from the repository's
+root:
+
+    python scripts/torch_image_fuzz.py --seed 1 --seconds 60
+
+It prints each mismatch and one closing line of counts, and exits 1 if
+any file differed.
+"""
+import argparse
+import io
+import sys
+import time
+from pathlib import Path
+
+import cv2
+import numpy as np
+from PIL import Image
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from ignis_tpu_torch.utils import gif, webp  # noqa: E402
+
+FLAGS = cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH | cv2.IMREAD_ANYCOLOR
+
+
+def cv2_rgb(data: bytes):
+    img = cv2.imdecode(np.frombuffer(data, np.uint8), FLAGS)
+    if img is None:
+        return None
+    if img.ndim == 2:
+        img = np.repeat(img[..., None], 3, -1)
+    return np.ascontiguousarray(img[..., 2::-1])
+
+
+def random_image(rng, h, w) -> np.ndarray:
+    kind = rng.integers(0, 6)
+    yy, xx = np.mgrid[0:h, 0:w]
+    if kind == 0:
+        return rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    if kind == 1:
+        return np.stack([127 + 120 * np.sin(xx / (3 + 7 * rng.random()) + c)
+                         * np.cos(yy / (3 + 9 * rng.random()))
+                         for c in range(3)], -1).astype(np.uint8)
+    if kind == 2:
+        return np.full((h, w, 3), rng.integers(0, 256, 3), np.uint8)
+    if kind == 3:
+        a, b = rng.integers(1, 9, 2)
+        return ((xx // a + yy // b) % 2 * 255)[..., None].repeat(
+            3, -1).astype(np.uint8)
+    if kind == 4:
+        pal = rng.integers(0, 256, (rng.integers(1, 20), 3))
+        return pal[rng.integers(0, len(pal), (h, w))].astype(np.uint8)
+    return np.clip(rng.normal(128, 60, (h, w, 3)) + 2 * xx[..., None], 0,
+                   255).astype(np.uint8)
+
+
+def pil_bytes(im, fmt, **kw) -> bytes:
+    bio = io.BytesIO()
+    im.save(bio, fmt, **kw)
+    return bio.getvalue()
+
+
+def one_case(rng):
+    """(label, the file, the port's decoder) or, for the GIF writer,
+    (label, cv2's own file, the port's file)."""
+    h, w = (int(v) for v in rng.integers(1, 90, 2))
+    img = random_image(rng, h, w)
+    bgr = np.ascontiguousarray(img[..., ::-1])
+    kind = rng.integers(0, 6)
+    rgba = Image.fromarray(np.dstack([img, rng.integers(0, 256, (h, w),
+                                                        dtype=np.uint8)]))
+    im = rgba if rng.random() < 0.3 else Image.fromarray(img)
+    if kind == 0:
+        q = int(rng.integers(1, 101))
+        return (f"cv2 WebP q{q} {h}x{w}", cv2.imencode(
+            ".webp", bgr, [cv2.IMWRITE_WEBP_QUALITY, q])[1].tobytes(),
+            webp.decode_webp)
+    if kind == 1:
+        return (f"cv2 lossless WebP {h}x{w}",
+                cv2.imencode(".webp", bgr)[1].tobytes(), webp.decode_webp)
+    if kind in (2, 3):
+        kw = dict(quality=int(rng.integers(0, 101)),
+                  method=int(rng.integers(0, 7)), lossless=kind == 2)
+        return (f"Pillow WebP {kw} {im.mode} {h}x{w}",
+                pil_bytes(im, "WEBP", **kw), webp.decode_webp)
+    if kind == 4:
+        return (f"GIF writer {h}x{w}", cv2.imencode(".gif", bgr)[1].tobytes(),
+                gif.encode_gif(img))
+    kw = dict(interlace=bool(rng.integers(0, 2)))
+    if rng.random() < 0.5:
+        kw["transparency"] = int(rng.integers(0, 2))
+    pal = Image.fromarray(img).quantize(int(rng.integers(2, 257)))
+    return (f"Pillow GIF {kw} {h}x{w}", pil_bytes(pal, "GIF", **kw),
+            gif.decode_gif)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seconds", type=float, default=60.0)
+    args = ap.parse_args()
+    rng = np.random.default_rng(args.seed)
+    files = bad = 0
+    end = time.perf_counter() + args.seconds
+    while time.perf_counter() < end:
+        label, data, other = one_case(rng)
+        want = cv2_rgb(data)
+        if want is None:
+            continue
+        files += 1
+        try:       # a fuzz run reports every failure and goes on
+            got = cv2_rgb(other) if isinstance(other, bytes) else other(data)
+        except Exception as e:
+            bad += 1
+            print(f"mismatch: {label}: {e!r}")
+            continue
+        if got is None or got.shape != want.shape or \
+                not np.array_equal(got, want):
+            bad += 1
+            print(f"mismatch: {label}: pixels differ")
+    print(f"{files} files, {bad} differed from cv2")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

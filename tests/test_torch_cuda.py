@@ -486,11 +486,17 @@ def test_post_programs_on_card(device):
     assert chip_smoke.post_capture_failure(device)
 
 
-def test_texture_phase_on_card(device):
-    """Phase 16: the image fixtures decoded to cv2's pixels, and the scene
-    textured with them rendered by one captured step on the card."""
-    out = chip_smoke.phase_textures(device)
-    assert out["film_mean"] > 0 and len(out["decoded"]) == 5
+def test_texture_phase_on_card(device, tmp_path):
+    """Phase 16: the image fixtures decoded to cv2's pixels, every
+    save_image suffix round-tripped, the 1024 x 1024 decodes timed, and
+    the scene textured with the fixtures rendered by one captured step on
+    the card, bit-equal to its PNG/EXR twin."""
+    out = chip_smoke.phase_textures(device, tmp_path)
+    fixtures = [p for p in chip_smoke.IMAGE_FIXTURES.iterdir()
+                if p.suffix != ".npz"]
+    assert out["film_mean"] > 0 and out["twin_bit_equal"]
+    assert len(out["decoded"]) == len(fixtures)
+    assert sorted(out["writers"]) == sorted(chip_smoke.WRITER_SUFFIXES)
 
 
 def test_trace_and_stats_on_card_match_cpu(device):

@@ -290,7 +290,9 @@ def test_png_loader_matches_jax(depth, color_type, tmp_path, jax_image):
 def test_other_formats_raise(tmp_path, jax_image):
     """A JPEG texture, which this test once held to NotImplementedError,
     loads as the JAX loader loads it (within 1/255 before the sRGB
-    decode); a truncated JPEG and a format neither package reads raise."""
+    decode); a truncated JPEG, a format the port does not read (AVIF,
+    once here a WebP, which the port reads now) and bytes that neither
+    package reads raise."""
     import cv2
     from ignis_tpu_torch.utils.image import load_image
     rgb = np.random.RandomState(2).randint(0, 256, (16, 24, 3)).astype(
@@ -303,8 +305,14 @@ def test_other_formats_raise(tmp_path, jax_image):
     p.write_bytes(b"\xff\xd8\xff")
     with pytest.raises(ValueError, match="truncated"):
         load_image(p)
+    (tmp_path / "x.avif").write_bytes(cv2.imencode(".avif", rgb)[1])
     with pytest.raises(NotImplementedError, match="not ported"):
+        load_image(tmp_path / "x.avif")
+    (tmp_path / "x.webp").write_bytes(b"not an image")
+    with pytest.raises(IOError, match="Cannot load"):
         load_image(tmp_path / "x.webp")
+    with pytest.raises(IOError, match="Cannot load"):
+        jax_image.load_image(tmp_path / "x.webp")
 
 
 def test_substitute_env_matches_jax(tmp_path):
