@@ -169,13 +169,15 @@ printing its own lines; any failure exits non-zero:
    first step timed;
 16. the image files ignis_tpu reads and writes through OpenCV
    (`phase_textures`): the fixtures of tests/data/images (JPEGs, BMP,
-   TIFFs, PPM, PFM, GIFs, lossless and lossy WebPs, Radiance .pic, Sun
-   raster, a JPEG named .png) decoded and held to cv2's pixels
-   (cv2_pixels.npz); every save_image suffix written and read back; the
-   1024 x 1024 WebP and progressive JPEG decodes timed; and a scene
-   textured with the fixtures rendered by one captured step: finite, not
-   black, and bit-equal to the same scene textured with PNG (and EXR)
-   twins of the decoded pixels;
+   TIFFs, PPM, PFM, GIFs, lossless and lossy WebPs, JPEG 2000 files of
+   cv2 and Pillow, Radiance .pic, Sun raster, a JPEG named .png) decoded
+   and held to cv2's pixels (cv2_pixels.npz); every save_image suffix
+   written and read back (.jp2 within cv2's byte budget and PSNR); the
+   1024 x 1024 WebP, progressive JPEG and JPEG 2000 decodes timed, and a
+   512 x 512 .jp2 written and read back; and a scene textured with the
+   fixtures rendered by one captured step: finite, not black, and
+   bit-equal to the same scene textured with PNG (and EXR) twins of the
+   decoded pixels;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -4826,11 +4828,19 @@ def phase_captured_parallel(device, s1, env, s1_msps, eager11, smi,
 IMAGE_FIXTURES = ROOT / "tests" / "data" / "images"
 TIMING_FIXTURES = ROOT / "tests" / "data" / "images_1024"
 # every suffix save_image writes from the 8-bit sRGB image; the lossy
-# ones (JPEG, GIF's fixed table, .pic's RGBE) are held below to bars of
-# their own
+# ones (JPEG, GIF's fixed table, .pic's RGBE, JPEG 2000 at OpenCV's rate)
+# are held below to bars of their own
 WRITER_SUFFIXES = (".png", ".bmp", ".dib", ".tga", ".tif", ".tiff", ".ppm",
                    ".pnm", ".pfm", ".sr", ".ras", ".webp", ".jpg", ".jpeg",
-                   ".jpe", ".gif", ".pic")
+                   ".jpe", ".gif", ".pic", ".jp2")
+# the JPEG 2000 fixtures cut by the irreversible 9/7 (the others are
+# reversible and held exactly): held within 1 level of cv2's pixels
+IRREVERSIBLE_JP2 = ("pil_irreversible_layers.jp2",)
+# a .jp2 needs 32 pixels a side, more than cv2_lossless.webp has: the
+# writer's .jp2 round trip takes cv2_q80.webp's 40 x 52 pixels, held to
+# the PSNR of cv2's own file of them (scripts/make_image_fixtures.py)
+JP2_SOURCE = "cv2_q80.webp"
+JP2_PSNR = ROOT / "tests" / "data" / "jp2_psnr.json"
 
 
 def texture_scene(size=128, files=None):
@@ -4867,18 +4877,26 @@ def texture_scene(size=128, files=None):
                         "radiance": [0.3, 0.3, 0.3]}]}
 
 
-def writers_round_trip(src, out_dir):
+def writers_round_trip(src, out_dir, jp2_src=None):
     """save_image of the linear image whose 8-bit sRGB encoding is `src`
     (uint8 [h, w, 3]) under every writer suffix, each file read back by
     decode_samples: the lossless formats give src (PFM its 0-255 floats),
     GIF the fixed table's colours of the port's dithering, .pic src / 255
     within RGBE's truncation (2^-7 below 1), JPEG (quality 95, 4:2:0) a
-    PSNR of at least 28 dB (31 dB on this noisy image)."""
+    PSNR of at least 28 dB (31 dB on this noisy image). .jp2 writes
+    jp2_src (cv2_q80.webp's pixels where None): its code stream within
+    OpenCV's h * w * 3 / 4 bytes, its PSNR at least that of cv2's own
+    file of the same pixels (JP2_PSNR) less 0.5 dB."""
     from ignis_tpu_torch.utils import image as imagelib
     from ignis_tpu_torch.utils.gif import TABLE_332, dither_332
-    lin = imagelib.srgb_to_linear(src / np.float32(255.0)).astype(np.float32)
+    from ignis_tpu_torch.utils.jpeg2000 import codestream
+    if jp2_src is None:
+        jp2_src = np.load(IMAGE_FIXTURES / "cv2_pixels.npz")[JP2_SOURCE]
     out = {}
     for suffix in WRITER_SUFFIXES:
+        img = jp2_src if suffix == ".jp2" else src
+        lin = imagelib.srgb_to_linear(img / np.float32(255.0)).astype(
+            np.float32)
         p = out_dir / f"w{suffix}"
         t0 = time.perf_counter()
         imagelib.save_image(p, lin)
@@ -4886,30 +4904,42 @@ def writers_round_trip(src, out_dir):
         back = imagelib.decode_samples(p)
         t2 = time.perf_counter()
         got = back.astype(np.float64)
-        if suffix in (".jpg", ".jpeg", ".jpe"):
+        psnr = None
+        if suffix in (".jpg", ".jpeg", ".jpe", ".jp2"):
             psnr = float(10 * np.log10(255.0 ** 2 / np.mean(
-                (got - src) ** 2)))
+                (got - img) ** 2)))
+        if suffix in (".jpg", ".jpeg", ".jpe"):
             ok, what = psnr >= 28.0, f"PSNR {psnr:.2f} dB >= 28"
+        elif suffix == ".jp2":
+            bar = json.loads(JP2_PSNR.read_text())[JP2_SOURCE] - 0.5
+            h, w = img.shape[:2]
+            n = len(codestream(p.read_bytes())[0])
+            ok = psnr >= bar and n <= h * w * 3 // 4
+            what = (f"PSNR {psnr:.2f} dB >= {bar:.2f} (cv2's less 0.5), "
+                    f"code stream {n} <= {h * w * 3 // 4} bytes")
         elif suffix == ".pic":
-            err = float(np.abs(got - src / 255.0).max())
+            err = float(np.abs(got - img / 255.0).max())
             ok, what = err <= 2.0 ** -7, f"max |diff| {err:.3g} <= 2^-7"
         elif suffix == ".gif":
-            ok = np.array_equal(back, TABLE_332[dither_332(src)])
+            ok = np.array_equal(back, TABLE_332[dither_332(img)])
             what = "the fixed table's colours of dither_332"
         else:
-            ok = back.shape == src.shape and np.array_equal(got, src)
+            ok = back.shape == img.shape and np.array_equal(got, img)
             what = "equal to the source pixels"
         check(ok, f"save_image {suffix}: {p.stat().st_size} bytes, read "
               f"back {what}")
         out[suffix] = {"bytes": p.stat().st_size, "write_s": t1 - t0,
                        "read_s": t2 - t1}
+        if psnr is not None:
+            out[suffix]["psnr_db"] = psnr
     return out
 
 
-def decode_timing():
+def decode_timing(keep=None):
     """Decode seconds of the 1024 x 1024 files of tests/data/images_1024
-    (cv2's quality-80 and lossless WebP and progressive JPEG of one
-    image), each held to the SHA-256 of cv2's pixels."""
+    (cv2's quality-80 and lossless WebP, progressive JPEG and default
+    .jp2 of one image), each held to the SHA-256 of cv2's pixels; the
+    pixels go into `keep` where given."""
     import hashlib
     from ignis_tpu_torch.utils.image import decode_samples
     sums = json.loads((TIMING_FIXTURES / "cv2_sha256.json").read_text())
@@ -4922,15 +4952,44 @@ def decode_timing():
               f"{name}: decoded {px.shape} equal to cv2's pixels (SHA-256) "
               f"in {sec:.3f} s")
         out[name] = sec
+        if keep is not None:
+            keep[name] = px
     return out
+
+
+def jp2_writer_timing(out_dir, src=None, size=512):
+    """save_image of a size x size crop of the smooth timing image (src:
+    the lossless 1024 x 1024 .jp2's pixels, decoded here where None) as
+    .jp2, and its read back: both timed; the whole stream fits OpenCV's
+    rate, so the file is lossless and reads back to the crop."""
+    from ignis_tpu_torch.utils import image as imagelib
+    if src is None:
+        src = imagelib.decode_samples(TIMING_FIXTURES / "smooth_default.jp2")
+    crop = np.ascontiguousarray(src[:size, :size])
+    lin = imagelib.srgb_to_linear(crop / np.float32(255.0)).astype(
+        np.float32)
+    p = out_dir / f"timing_{size}.jp2"
+    t0 = time.perf_counter()
+    imagelib.save_image(p, lin)
+    t1 = time.perf_counter()
+    back = imagelib.decode_samples(p)
+    t2 = time.perf_counter()
+    check(np.array_equal(back, crop),
+          f"{size} x {size} .jp2: {p.stat().st_size} bytes written in "
+          f"{t1 - t0:.3f} s, read back equal to its source in "
+          f"{t2 - t1:.3f} s")
+    return {"bytes": p.stat().st_size, "write_s": t1 - t0,
+            "read_s": t2 - t1}
 
 
 def phase_textures(device, build_dir=None):
     """Each image fixture decoded on the card's host and held to
-    cv2_pixels.npz at the CPU tests' bars (JPEGs within 1 level, the
-    others exactly); every save_image suffix written and read back
-    (writers_round_trip, on the pixels of cv2's lossless WebP fixture);
-    the 1024 x 1024 WebP and JPEG decodes timed (decode_timing); then
+    cv2_pixels.npz (JPEGs and the irreversible JPEG 2000 within 1 level,
+    the others exactly); every save_image suffix written and read back
+    (writers_round_trip, on the pixels of cv2's lossless WebP fixture,
+    .jp2 on cv2_q80.webp's); the 1024 x 1024 WebP, JPEG and JPEG 2000
+    decodes timed (decode_timing) and a 512 x 512 .jp2 written and read
+    back (jp2_writer_timing); then
     texture_scene loaded onto the card and one captured step rendered:
     finite, not black, no texture refused, and its film bit-equal to
     that of the same scene with each texture replaced by a PNG of its
@@ -4949,7 +5008,8 @@ def phase_textures(device, build_dir=None):
         got = decode_samples(IMAGE_FIXTURES / name)
         sec = time.perf_counter() - t0
         err = float(np.abs(got.astype(np.float64) - want[name]).max())
-        bar = 1.0 if name.endswith(".jpg") else 0.0
+        bar = 1.0 if name.endswith(".jpg") or name in IRREVERSIBLE_JP2 \
+            else 0.0
         check(got.dtype == want[name].dtype and got.shape == want[name].shape
               and err <= bar, f"{name}: decoded {got.shape} {got.dtype} "
               f"within {bar:g} of cv2's pixels (max |diff| {err:g})")
@@ -4961,10 +5021,17 @@ def phase_textures(device, build_dir=None):
         else:
             twins[name] = build_dir / f"{name}.exr"
             save_image(twins[name], load_image(IMAGE_FIXTURES / name))
-    writers = writers_round_trip(want["cv2_lossless.webp"], build_dir)
-    timing = decode_timing()
+    writers = writers_round_trip(want["cv2_lossless.webp"], build_dir,
+                                 want[JP2_SOURCE])
+    pixels_1024 = {}
+    timing = decode_timing(pixels_1024)
     print(f"  1024 x 1024 decodes on the card's host: "
           + ", ".join(f"{k} {v:.3f} s" for k, v in timing.items()))
+    jp2_512 = jp2_writer_timing(build_dir,
+                                pixels_1024["smooth_default.jp2"])
+    print(f"  512 x 512 .jp2 on the card's host: written in "
+          f"{jp2_512['write_s']:.3f} s ({jp2_512['bytes']} bytes), read "
+          f"back in {jp2_512['read_s']:.3f} s")
     t0 = time.perf_counter()
     rt = ignis_tpu_torch.loadFromString(json.dumps(texture_scene()), spi=SPI)
     load_s = time.perf_counter() - t0
@@ -4991,7 +5058,8 @@ def phase_textures(device, build_dir=None):
           f"{first['seconds']:.2f} s, film mean {mean:.4f}, launches "
           f"{used}")
     return {"decoded": decoded, "writers": writers,
-            "decode_1024_s": timing, "load_seconds": load_s,
+            "decode_1024_s": timing, "jp2_512": jp2_512,
+            "load_seconds": load_s,
             "first_step": first, "film_mean": mean, "launches": used,
             "twin_bit_equal": True}
 

@@ -3,34 +3,39 @@ through OpenCV, read and written with numpy and zlib.
 
 The port's counterpart of ignis_tpu/utils/image.py, which goes through
 OpenCV. As OpenCV does, a file is read by the decoder its content names
-(`sniff`: PNG, JPEG, BMP, TIFF, PNM, PFM, Sun raster, Radiance, GIF and
-WebP signatures), not by its suffix; EXR goes by its suffix, as in
-ignis_tpu, and TGA, which has no signature, by its suffix where no
-signature matches; a file no decoder claims raises IOError, as ignis_tpu
-raises for cv2.imread's None.
+(`sniff`: PNG, JPEG, BMP, TIFF, PNM, PFM, Sun raster, Radiance, GIF,
+WebP and JPEG 2000 signatures), not by its suffix; EXR goes by its
+suffix, as in ignis_tpu, and TGA, which has no signature, by its suffix
+where no signature matches; a file no decoder claims raises IOError, as
+ignis_tpu raises for cv2.imread's None.
 
 Here PNG is decoded with numpy and zlib (1-16 bits, gray, gray with
 alpha, RGB, RGBA or palette, the five row filters, Adam7 interlacing)
 and encoded as 8-bit RGB with filter 0 (`encode_png`); JPEG goes through
 utils/jpeg.py (baseline and progressive, YCbCr, RGB and Adobe CMYK,
 decoded as libjpeg decodes it; written as baseline 4:2:0 at quality 95,
-cv2's default); BMP is read at every depth (palettes, RLE8 and RLE4, bit
-fields) and written at 24; TIFF goes through utils/tiff.py (written
-8-bit LZW with the predictor, as cv2 writes it); GIF through utils/gif.py
-and WebP through utils/webp.py (read as cv2 reads them, written as cv2's
-default writers write them: the fixed 3-3-2 GIF table with its
-dithering, lossless WebP); PNM (P1-P6), PFM and Sun raster are read as
-OpenCV reads them and written as cv2 writes them (binary P6, a
-little-endian PFM, a 24-bit raster); TGA is read as uncompressed or
-run-length-encoded truecolour and written run-length encoded; EXR is
-read by the port's own reader and written as scanline ZIP
+cv2's default); JPEG 2000 (.jp2 boxes or a raw code stream, every
+progression order, layers, tiles and precincts, the 5/3 and 9/7
+wavelets) through utils/jpeg2000.py and utils/ebcot.py, read as OpenCV
+reads it through OpenJPEG and written as cv2's default .jp2 writer
+writes it (lossless 5/3 cut to OpenCV's rate of 4); BMP is read at
+every depth (palettes, RLE8 and RLE4, bit fields) and written at 24;
+TIFF goes through utils/tiff.py (written 8-bit LZW with the predictor,
+as cv2 writes it); GIF through utils/gif.py and WebP through
+utils/webp.py (read as cv2 reads them, written as cv2's default writers
+write them: the fixed 3-3-2 GIF table with its dithering, lossless
+WebP); PNM (P1-P6), PFM and Sun raster are read as OpenCV reads them
+and written as cv2 writes them (binary P6, a little-endian PFM, a
+24-bit raster); TGA is read as uncompressed or run-length-encoded
+truecolour and written run-length encoded; EXR is read by the port's
+own reader and written as scanline ZIP
 (`_write_exr_channels`, also `write_exr_multilayer`'s layers and ig*
 attributes); Radiance .hdr and .pic are read with flat or
 run-length-encoded scanlines and written flat, in the RGBE rounding of
 the rgbe.c that OpenCV uses. Integer input is scaled to [0, 1] (8-bit by
 1/255, 16-bit by 1/65535) and sRGB-decoded to linear unless `linear`;
-EXR, HDR, PFM and float TIFF are linear; AVIF, JPEG 2000 and BigTIFF
-raise NotImplementedError by name. LDR output is sRGB-encoded with +0.5
+EXR, HDR, PFM and float TIFF are linear; AVIF and BigTIFF raise
+NotImplementedError by name. LDR output is sRGB-encoded with +0.5
 rounding, as the JAX writer's. Images are float32 [h, w, 3] RGB with row
 0 at the top.
 """
@@ -62,16 +67,17 @@ _SIGNATURES = (
     (b"MM\0+", "BigTIFF"), (b"GIF87a", "gif"), (b"GIF89a", "gif"),
     (b"#?RADIANCE", "hdr"), (b"#?RGBE", "hdr"),
     (b"\x59\xa6\x6a\x95", "sun_raster"), (b"PF", "pfm"), (b"Pf", "pfm"),
-    (b"\0\0\0\x0cjP  \r\n\x87\n", "JPEG 2000"),
-    (b"\xff\x4f\xff\x51", "JPEG 2000"))
+    (b"\0\0\0\x0cjP  \r\n\x87\n", "jpeg2000"),
+    (b"\xff\x4f\xff\x51", "jpeg2000"))
 # formats OpenCV reads that the port refuses by name
-_UNPORTED = ("BigTIFF", "AVIF", "JPEG 2000")
+_UNPORTED = ("BigTIFF", "AVIF")
 
 
 def sniff(data: bytes):
     """The decoder OpenCV would pick for a file's bytes, by its signature:
     'png', 'jpeg', 'bmp', 'tiff', 'pnm', 'pfm', 'sun_raster', 'hdr',
-    'gif', 'webp', one of _UNPORTED's names, or None."""
+    'gif', 'webp', 'jpeg2000' (a .jp2 file or a raw code stream), one of
+    _UNPORTED's names, or None."""
     for sig, kind in _SIGNATURES:
         if data.startswith(sig):
             return kind
@@ -86,8 +92,9 @@ def sniff(data: bytes):
 
 def decode_samples(path) -> np.ndarray:
     """A file's pixels as [h, w, 3] RGB samples as OpenCV reads them,
-    found by its content: uint8, uint16 (16-bit PNG, TIFF and PNM) or
-    float32 (PFM, float TIFF, Radiance); grey replicated, alpha dropped."""
+    found by its content: uint8, uint16 (16-bit PNG, TIFF, PNM and
+    9- to 16-bit JPEG 2000) or float32 (PFM, float TIFF, Radiance); grey
+    replicated, alpha dropped."""
     path = Path(path)
     data = path.read_bytes()
     kind = sniff(data)
@@ -111,6 +118,9 @@ def decode_samples(path) -> np.ndarray:
     if kind == "webp":
         from .webp import decode_webp
         return decode_webp(data)
+    if kind == "jpeg2000":
+        from .jpeg2000 import decode_jpeg2000
+        return decode_jpeg2000(data, path.name)
     return {"png": decode_png, "bmp": decode_bmp, "tga": decode_tga,
             "pnm": decode_pnm, "pfm": decode_pfm, "hdr": decode_hdr,
             "sun_raster": decode_sun_raster}[kind](data)
@@ -186,6 +196,7 @@ def _ldr_writer(suffix: str):
     """The encoder of 8-bit RGB for a suffix cv2.imwrite takes, or None."""
     from .gif import encode_gif
     from .jpeg import encode_jpeg
+    from .jpeg2000 import encode_jp2
     from .tiff import encode_tiff
     from .webp import encode_webp
     return {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg,
@@ -197,7 +208,8 @@ def _ldr_writer(suffix: str):
             # cv2's HDR writer scales 8-bit data by 1/255.0f
             ".pic": lambda ldr: _hdr_bytes(
                 ldr.astype(np.float32) * np.float32(1.0 / 255.0)),
-            ".webp": encode_webp, ".gif": encode_gif}.get(suffix)
+            ".webp": encode_webp, ".gif": encode_gif,
+            ".jp2": encode_jp2}.get(suffix)
 
 
 def save_image(path, img):
@@ -205,8 +217,11 @@ def save_image(path, img):
     it to cv2.imwrite: EXR (ZIP) and HDR keep it linear; every other
     format is written from the 8-bit sRGB image (PFM as its 0-255 values,
     .pic scaled back to [0, 1], as cv2 writes an 8-bit image to them).
-    .pgm and .pbm, which cv2 writes of grey images only, raise ValueError;
-    AVIF and JPEG 2000 raise NotImplementedError."""
+    .jp2 as cv2's default JPEG 2000 writer (utils/jpeg2000.py: lossless
+    5/3, cut to rate 4 by PCRD-opt). .pgm and .pbm, which cv2 writes of
+    grey images only, and a .jp2 below 32 pixels a side, which cv2 does
+    not write (ignis_tpu then leaves an unreadable 77-byte file), raise
+    ValueError; AVIF raises NotImplementedError."""
     path = Path(path)
     img = np.asarray(img, np.float32)
     suffix = path.suffix.lower()
@@ -216,13 +231,17 @@ def save_image(path, img):
     if suffix == ".hdr":
         write_hdr(path, img)
         return
-    if suffix in (".avif", ".jp2"):
+    if suffix == ".avif":
         raise NotImplementedError(
             f"image format '{suffix}' ({path.name}) is not ported: the port "
-            "writes no AVIF or JPEG 2000")
+            "writes no AVIF")
     if suffix in (".pgm", ".pbm"):
         raise ValueError(f"{path.name}: '{suffix}' holds a grey image, "
                          "and save_image writes colour")
+    if suffix == ".jp2" and min(img.shape[:2]) < 32:
+        raise ValueError(f"{path.name}: '.jp2' needs at least 32 pixels a "
+                         f"side (OpenCV writes no smaller JPEG 2000), got "
+                         f"{img.shape[1]} x {img.shape[0]}")
     encode = _ldr_writer(suffix)
     if encode is None:
         raise ValueError(f"{path.name}: no image writer for '{suffix}'")

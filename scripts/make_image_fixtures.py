@@ -17,12 +17,23 @@ fixed 3-3-2 table), lossless and quality-80 WebP, default 8-bit LZW
 TIFF, Radiance .pic and Sun raster; Pillow's interlaced 64-colour,
 transparent and animated GIFs, lossy WebP with alpha (VP8X + ALPH),
 lossless WebP with its transforms, CMYK JPEG and untransformed RGB JPEG;
-and a JPEG named .png, whose suffix lies about its content.
+and a JPEG named .png, whose suffix lies about its content. JPEG 2000
+(each at least 32 pixels a side): cv2's default .jp2 of a noisy image
+(rate 4 truncates it), lossless 16-bit and grey .jp2; Pillow's
+irreversible 9/7 with the colour transform, 3 quality layers and RPCL,
+a raw code stream of 32 x 32 tiles (the last ones partial) with 16 x 16
+code-blocks, 32 x 32 precincts, CPRL, 3 resolutions and PLT markers,
+and an RGBA .jp2 in PCRL. cv2 reads no JPEG 2000 with an image offset,
+so no fixture has one (tests/test_torch_jpeg2000.py holds offsets to
+Pillow's OpenJPEG decode).
 
 Beside them, tests/data/images_1024 holds the decode-timing files of
 chip_smoke.py's texture phase: one smooth 1024 x 1024 image as cv2's
-quality-80 and lossless WebP and progressive JPEG, with the SHA-256 of
-the pixels cv2 reads from each (`cv2_sha256.json`).
+quality-80 and lossless WebP, progressive JPEG and default .jp2
+(lossless: the whole stream fits rate 4), with the SHA-256 of the pixels
+cv2 reads from each (`cv2_sha256.json`). `jp2_psnr.json` holds the PSNR
+of cv2's default .jp2 of cv2_q80.webp's pixels against them, the bar of
+chip_smoke's .jp2 writer (less 0.5 dB).
 """
 import hashlib
 import io
@@ -55,6 +66,14 @@ def rgb8(h, w, seed):
     return smooth(h, w, seed).astype(np.uint8)
 
 
+def noisy8(h, w, seed):
+    """rgb8 with strong noise: more than OpenCV's JPEG 2000 rate of 4
+    holds."""
+    rng = np.random.default_rng(seed)
+    return np.clip(smooth(h, w, seed) + rng.normal(0, 40, (h, w, 3)), 0,
+                   255).astype(np.uint8)
+
+
 # OpenCV's files: name -> (image as RGB or grey, cv2.imwrite parameters)
 CV2_FIXTURES = {
     "progressive_420.jpg": lambda: (
@@ -76,6 +95,11 @@ CV2_FIXTURES = {
     "cv2_default_8bit.tiff": lambda: (rgb8(20, 26, 9), []),
     "cv2_rgbe.pic": lambda: (rgb8(18, 23, 10), []),
     "cv2_raster.sr": lambda: (rgb8(14, 19, 11), []),
+    "cv2_default.jp2": lambda: (noisy8(36, 44, 22), []),
+    "cv2_lossless_16bit.jp2": lambda: (
+        smooth(32, 34, 23, 65535.0).astype(np.uint16),
+        [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 1000]),
+    "cv2_grey.jp2": lambda: (noisy8(33, 40, 24)[..., 0], []),
 }
 
 
@@ -125,6 +149,19 @@ PIL_FIXTURES = {
                                  .convert("CMYK"), "JPEG", quality=90),
     "pil_rgb.jpg": lambda: _pil(Image.fromarray(rgb8(24, 40, 20)), "JPEG",
                                 quality=90, keep_rgb=True),
+    "pil_irreversible_layers.jp2": lambda: _pil(
+        Image.fromarray(rgb8(40, 48, 25)), "JPEG2000", irreversible=True,
+        mct=1, quality_mode="rates", quality_layers=[40, 20, 10],
+        progression="RPCL"),
+    "pil_tiles_precincts.j2k": lambda: _pil(
+        Image.fromarray(rgb8(45, 61, 26)), "JPEG2000", no_jp2=True,
+        tile_size=(32, 32), codeblock_size=(16, 16), precinct_size=(32, 32),
+        progression="CPRL", num_resolutions=3, plt=True),
+    "pil_rgba_pcrl.jp2": lambda: _pil(
+        Image.fromarray(np.dstack([rgb8(34, 38, 27),
+                                   rgb8(34, 38, 28)[..., 0]]), "RGBA"),
+        "JPEG2000", progression="PCRL", quality_mode="rates",
+        quality_layers=[8]),
     # a baseline JPEG under a PNG's name
     "jpeg_named.png": lambda: cv2.imencode(".jpg", rgb8(24, 32, 21))[1]
     .tobytes(),
@@ -167,13 +204,22 @@ def main() -> None:
     for name, params in (("smooth_q80.webp", [cv2.IMWRITE_WEBP_QUALITY, 80]),
                          ("smooth_lossless.webp", []),
                          ("smooth_progressive.jpg",
-                          [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])):
+                          [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]),
+                         ("smooth_default.jp2", [])):
         assert cv2.imwrite(str(TIMING / name), bgr, params), name
         sums[name] = hashlib.sha256(cv2_rgb(TIMING / name)
                                     .tobytes()).hexdigest()
         print(f"{name}: {(TIMING / name).stat().st_size} bytes")
     (TIMING / "cv2_sha256.json").write_text(json.dumps(sums, indent=1)
                                             + "\n")
+    src = pixels["cv2_q80.webp"]
+    ok, buf = cv2.imencode(".jp2", np.ascontiguousarray(src[..., ::-1]))
+    back = cv2.imdecode(buf, FLAGS)[..., ::-1].astype(np.float64)
+    psnr = 10 * np.log10(255.0 ** 2 / np.mean((back - src) ** 2))
+    (OUT.parent / "jp2_psnr.json").write_text(json.dumps(
+        {"cv2_q80.webp": psnr}, indent=1) + "\n")
+    print(f"cv2's .jp2 of cv2_q80.webp's pixels: {len(buf)} bytes, PSNR "
+          f"{psnr:.4f} dB")
 
 
 if __name__ == "__main__":

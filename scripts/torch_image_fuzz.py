@@ -1,14 +1,18 @@
-"""Hold the port's GIF and WebP codecs to OpenCV on random files.
+"""Hold the port's GIF, WebP and JPEG 2000 codecs to OpenCV on random
+files.
 
 For a given number of seconds, make random images (noise, smooth waves,
 a flat colour, a checkerboard, a few-colour palette image, noise over a
 ramp; 1-89 pixels a side), write each with cv2 or Pillow (lossy WebP at
 any quality, cv2's lossless WebP, Pillow's lossless and lossy WebP at any
 method, with alpha a third of the time, Pillow's palette GIFs, interlaced
-or transparent) and compare the port's decode with cv2.imdecode; for
-cv2's GIF writer, compare cv2's read-back of the port's `encode_gif` with
-that of cv2's own file. Needs cv2 and Pillow. Run from the repository's
-root:
+or transparent; cv2's default and lossless .jp2 of 8- or 16-bit images,
+Pillow's JPEG 2000 with random resolutions, code-block sizes,
+progression, 9/7, colour transform, quality layers, tiles, precincts,
+raw code stream and PLT, grey, RGB, RGBA or 16-bit) and compare the
+port's decode with cv2.imdecode; for cv2's GIF writer, compare cv2's
+read-back of the port's `encode_gif` with that of cv2's own file. Needs
+cv2 and Pillow. Run from the repository's root:
 
     python scripts/torch_image_fuzz.py --seed 1 --seconds 60
 
@@ -26,7 +30,7 @@ import numpy as np
 from PIL import Image
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from ignis_tpu_torch.utils import gif, webp  # noqa: E402
+from ignis_tpu_torch.utils import gif, jpeg2000, webp  # noqa: E402
 
 FLAGS = cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH | cv2.IMREAD_ANYCOLOR
 
@@ -74,7 +78,9 @@ def one_case(rng):
     h, w = (int(v) for v in rng.integers(1, 90, 2))
     img = random_image(rng, h, w)
     bgr = np.ascontiguousarray(img[..., ::-1])
-    kind = rng.integers(0, 6)
+    kind = rng.integers(0, 8)
+    if kind >= 6:
+        return jp2_case(rng, kind == 6)
     rgba = Image.fromarray(np.dstack([img, rng.integers(0, 256, (h, w),
                                                         dtype=np.uint8)]))
     im = rgba if rng.random() < 0.3 else Image.fromarray(img)
@@ -100,6 +106,70 @@ def one_case(rng):
     pal = Image.fromarray(img).quantize(int(rng.integers(2, 257)))
     return (f"Pillow GIF {kw} {h}x{w}", pil_bytes(pal, "GIF", **kw),
             gif.decode_gif)
+
+
+def jp2_case(rng, from_cv2):
+    """A random JPEG 2000 file of cv2's or Pillow's writer (at least 8
+    pixels a side; Pillow's 9/7 untiled and with every level at least 2
+    samples, where its OpenJPEG 2.5.4 would abort)."""
+    h, w = (int(v) for v in rng.integers(8, 90, 2))
+    img = random_image(rng, h, w)
+    deep = rng.random() < 0.25
+    if from_cv2:
+        h, w = max(h, 32), max(w, 32)
+        img = random_image(rng, h, w)
+        arr = img.astype(np.uint16) * 257 if deep else img
+        if rng.random() < 0.3:
+            arr = arr[..., 0]
+        params = [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000,
+                  int(rng.choice([1000, 1000, int(rng.integers(1, 1000))]))]
+        if rng.random() < 0.5:
+            params = []
+        data = cv2.imencode(".jp2", np.ascontiguousarray(arr[..., ::-1]
+                                                         if arr.ndim == 3
+                                                         else arr),
+                            params)[1].tobytes()
+        return f"cv2 .jp2 {params} {arr.shape} {arr.dtype}", data, \
+            jpeg2000.decode_jpeg2000
+    mode = str(rng.choice(["L", "RGB", "RGBA", "I;16"]))
+    arr = {"L": img[..., 0], "RGB": img,
+           "RGBA": np.dstack([img, img[..., 1] // 2]),
+           "I;16": img[..., 0].astype(np.uint16) * 257}[mode]
+    kw = {}
+    if rng.random() < 0.5:
+        kw["num_resolutions"] = int(rng.integers(1, 7))
+    if rng.random() < 0.5:
+        kw["codeblock_size"] = tuple(int(2 ** v)
+                                     for v in rng.integers(2, 7, 2))
+        if kw["codeblock_size"][0] * kw["codeblock_size"][1] > 4096:
+            kw["codeblock_size"] = (64, 64)
+    if rng.random() < 0.5:
+        kw["progression"] = str(rng.choice(jpeg2000.PROGRESSIONS))
+    if rng.random() < 0.3 and mode in ("RGB", "RGBA"):
+        kw["mct"] = int(rng.integers(0, 2))
+    if rng.random() < 0.4:
+        kw["quality_mode"] = "rates"
+        kw["quality_layers"] = sorted(
+            (float(rng.uniform(2, 80)) for _ in range(rng.integers(1, 4))),
+            reverse=True)
+    if rng.random() < 0.3:
+        kw["tile_size"] = tuple(int(v) for v in rng.integers(16, 64, 2))
+    if rng.random() < 0.3:
+        p = int(2 ** rng.integers(5, 8))
+        kw["precinct_size"] = (p, p)
+    if rng.random() < 0.4:
+        kw["irreversible"] = True
+        kw.pop("tile_size", None)
+        kw["num_resolutions"] = max(1, min(kw.get("num_resolutions", 6),
+                                           int(np.log2(min(h, w)))))
+    kw["no_jp2"] = bool(rng.random() < 0.2)
+    kw["plt"] = bool(rng.random() < 0.2)
+    try:
+        data = pil_bytes(Image.fromarray(arr), "JPEG2000", **kw)
+    except OSError:           # options Pillow's encoder refuses
+        return jp2_case(rng, from_cv2)
+    return f"Pillow JPEG 2000 {kw} {mode} {h}x{w}", data, \
+        jpeg2000.decode_jpeg2000
 
 
 def main() -> int:

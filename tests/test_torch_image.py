@@ -1000,23 +1000,20 @@ def test_unscaled_8bit_tiff_of_jax_reference(tmp_path):
 
 def _unported_file(kind):
     """(suffix, bytes) of a file the port refuses by name: cv2's AVIF, a
-    JPEG 2000 signature box, a BigTIFF header."""
+    BigTIFF header."""
     if kind == "avif":
         return ".avif", cv2.imencode(".avif", _full_range(8, 8, 1))[1] \
             .tobytes()
-    if kind == "jp2":
-        return ".jp2", b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(32)
     return ".tif", b"II+\0\x08\0\0\0" + bytes(32)
 
 
 @pytest.mark.parametrize("kind,name", [("avif", "AVIF"),
-                                       ("jp2", "JPEG 2000"),
                                        ("bigtiff", "BigTIFF")])
 def test_unported_formats_refused_by_name(tmp_path, kind, name):
-    """AVIF and JPEG 2000 (which cv2 reads here) and BigTIFF raise
-    NotImplementedError naming the format and the file's suffix, found
-    by the file's content; save_image refuses AVIF and JPEG 2000 by
-    name."""
+    """AVIF (which cv2 reads here) and BigTIFF raise NotImplementedError
+    naming the format and the file's suffix, found by the file's
+    content; save_image refuses AVIF by name. (JPEG 2000 is read and
+    written: tests/test_torch_jpeg2000.py.)"""
     suffix, data = _unported_file(kind)
     p = tmp_path / f"t{suffix}"
     p.write_bytes(data)
@@ -1085,7 +1082,7 @@ def test_texture_phase_parts_on_cpu(tmp_path):
     want = np.load(FIXTURES / "cv2_pixels.npz")
     out = chip_smoke.writers_round_trip(want["cv2_lossless.webp"], tmp_path)
     assert sorted(out) == sorted(chip_smoke.WRITER_SUFFIXES)
-    assert len(chip_smoke.decode_timing()) == 3
+    assert len(chip_smoke.decode_timing()) == 4
     twins = {}
     for name in want.files:
         px = imagelib.decode_samples(FIXTURES / name)
@@ -1110,9 +1107,17 @@ def test_texture_phase_parts_on_cpu(tmp_path):
 # ---------------------------------------------------------------------------
 
 def _signed_files():
-    """(bytes, the decoder sniff must name) for every signature."""
+    """(bytes, the decoder sniff must name) for every signature (JPEG
+    2000 at 32 pixels a side, cv2's least)."""
+    import io
+
+    from PIL import Image
     img = _full_range(6, 7, 21)
     bgr = img[..., ::-1].copy()
+    big = _full_range(33, 32, 23)
+    j2k = io.BytesIO()
+    Image.fromarray(_full_range(32, 33, 22)).save(j2k, "JPEG2000",
+                                                   no_jp2=True)
 
     def enc(ext, im=bgr, params=()):
         return cv2.imencode(ext, im, list(params))[1].tobytes()
@@ -1134,8 +1139,8 @@ def _signed_files():
         "gif87a": (b"GIF87a" + enc(".gif")[6:], "gif"),
         "gif89a": (enc(".gif"), "gif"), "webp": (enc(".webp"), "webp"),
         "avif": (enc(".avif"), "AVIF"),
-        "jp2": (b"\0\0\0\x0cjP  \r\n\x87\n" + bytes(8), "JPEG 2000"),
-        "j2k": (b"\xff\x4f\xff\x51" + bytes(8), "JPEG 2000"),
+        "jp2": (enc(".jp2", big), "jpeg2000"),
+        "j2k": (j2k.getvalue(), "jpeg2000"),
         "tga": (_tga(2, 2, 1, 24, 0x20, bytes(6)), None),
         "unknown": (b"P7\nWIDTH 1\n", None)}
 
@@ -1150,7 +1155,7 @@ def test_sniff_names_every_signature(tmp_path, case):
     assert imagelib.sniff(data) == kind
     p = tmp_path / "x.dat"
     p.write_bytes(data)
-    if kind in ("BigTIFF", "AVIF", "JPEG 2000"):
+    if kind in ("BigTIFF", "AVIF"):
         with pytest.raises(NotImplementedError, match=kind):
             imagelib.decode_samples(p)
     elif kind is None:
