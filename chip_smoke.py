@@ -169,12 +169,13 @@ printing its own lines; any failure exits non-zero:
    first step timed;
 16. the image files ignis_tpu reads and writes through OpenCV
    (`phase_textures`): the fixtures of tests/data/images (JPEGs, BMP,
-   TIFFs, PPM, PFM, GIFs, lossless and lossy WebPs, JPEG 2000 files of
-   cv2 and Pillow, Radiance .pic, Sun raster, a JPEG named .png) decoded
-   and held to cv2's pixels (cv2_pixels.npz); every save_image suffix
-   written and read back (.jp2 within cv2's byte budget and PSNR); the
-   1024 x 1024 WebP, progressive JPEG and JPEG 2000 decodes timed, and a
-   512 x 512 .jp2 written and read back; and a scene textured with the
+   TIFFs, PPM, PFM, GIFs, lossless and lossy WebPs, JPEG 2000 and AVIF
+   files of cv2 and Pillow, Radiance .pic, Sun raster, a JPEG named .png)
+   decoded and held to cv2's pixels (cv2_pixels.npz); every save_image
+   suffix written and read back (.jp2 within cv2's byte budget and PSNR);
+   the 1024 x 1024 WebP, progressive JPEG, JPEG 2000 and AVIF decodes
+   timed (the AVIF seconds on a line of their own), and a 512 x 512 .jp2
+   written and read back; and a scene textured with the
    fixtures rendered by one captured step: finite, not black, and
    bit-equal to the same scene textured with PNG (and EXR) twins of the
    decoded pixels;
@@ -4846,8 +4847,9 @@ JP2_PSNR = ROOT / "tests" / "data" / "jp2_psnr.json"
 def texture_scene(size=128, files=None):
     """A row of rectangles facing the camera, one for each image fixture
     of tests/data/images (scripts/make_image_fixtures.py: JPEG, BMP,
-    TIFF, PPM, PFM, GIF, WebP, Radiance and Sun raster files of cv2 and
-    Pillow), each a diffuse whose reflectance is that image (or the file
+    TIFF, PPM, PFM, GIF, WebP, JPEG 2000, AVIF, Radiance and Sun raster
+    files of cv2 and Pillow), each a diffuse whose reflectance is that
+    image (or the file
     `files` maps the fixture's name to); a point light and a dim env,
     path at depth 3."""
     names = sorted(p.name for p in IMAGE_FIXTURES.iterdir()
@@ -4937,9 +4939,9 @@ def writers_round_trip(src, out_dir, jp2_src=None):
 
 def decode_timing(keep=None):
     """Decode seconds of the 1024 x 1024 files of tests/data/images_1024
-    (cv2's quality-80 and lossless WebP, progressive JPEG and default
-    .jp2 of one image), each held to the SHA-256 of cv2's pixels; the
-    pixels go into `keep` where given."""
+    (cv2's quality-80 and lossless WebP, progressive JPEG, default .jp2
+    and default AVIF of one image), each held to the SHA-256 of cv2's
+    pixels; the pixels go into `keep` where given."""
     import hashlib
     from ignis_tpu_torch.utils.image import decode_samples
     sums = json.loads((TIMING_FIXTURES / "cv2_sha256.json").read_text())
@@ -4987,9 +4989,9 @@ def phase_textures(device, build_dir=None):
     cv2_pixels.npz (JPEGs and the irreversible JPEG 2000 within 1 level,
     the others exactly); every save_image suffix written and read back
     (writers_round_trip, on the pixels of cv2's lossless WebP fixture,
-    .jp2 on cv2_q80.webp's); the 1024 x 1024 WebP, JPEG and JPEG 2000
-    decodes timed (decode_timing) and a 512 x 512 .jp2 written and read
-    back (jp2_writer_timing); then
+    .jp2 on cv2_q80.webp's); the 1024 x 1024 WebP, JPEG, JPEG 2000 and
+    AVIF decodes timed (decode_timing) and a 512 x 512 .jp2 written and
+    read back (jp2_writer_timing); then
     texture_scene loaded onto the card and one captured step rendered:
     finite, not black, no texture refused, and its film bit-equal to
     that of the same scene with each texture replaced by a PNG of its
@@ -5027,6 +5029,9 @@ def phase_textures(device, build_dir=None):
     timing = decode_timing(pixels_1024)
     print(f"  1024 x 1024 decodes on the card's host: "
           + ", ".join(f"{k} {v:.3f} s" for k, v in timing.items()))
+    print(f"  AVIF decode on the card's host: smooth_default.avif "
+          f"(1024 x 1024, cv2's default) in "
+          f"{timing['smooth_default.avif']:.3f} s")
     jp2_512 = jp2_writer_timing(build_dir,
                                 pixels_1024["smooth_default.jp2"])
     print(f"  512 x 512 .jp2 on the card's host: written in "

@@ -1,0 +1,1830 @@
+"""An AV1 key-frame decoder: the bitstream of an AVIF image item, read as
+the AV1 specification (version 1.0.0 with errata) reads it, to exactly
+the planes libaom and dav1d decode.
+
+Read here: OBUs (temporal delimiter, sequence header with either
+`reduced_still_picture_header`, the operating points and `color_config`
+of every profile; a key or intra-only frame's header; tile groups,
+uniform and non-uniform tiles); quantisation (`delta_q_u/v`,
+`using_qmatrix`), segmentation, `delta_q` and `delta_lf`, the loop
+filter, CDEF and loop restoration parameters, `tx_mode`,
+`reduced_tx_set`, `allow_screen_content_tools` and `allow_intrabc`; the
+multi-symbol arithmetic decoder with CDF adaptation; the block syntax of
+64 x 64 and 128 x 128 superblocks (every partition, skip, `cdef_idx`,
+delta q and lf, segment ids, intra modes, angle deltas, CFL alphas,
+palettes with their colour cache and anti-diagonal colour contexts,
+filter intra, intra block copy, transform size and type) and the
+coefficients. Reconstruction and the loop filters are in av1_recon.py,
+the constant tables in av1_tables.py.
+
+Film grain is synthesised on the output (av1_grain.py). Refused by name
+(NotImplementedError naming the tool), as no writer here emits them:
+superres, large-scale tile, inter frames and a `show_existing_frame`
+header.
+"""
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+
+from . import av1_tables as T
+
+# block sizes: width and height in 4 x 4 units, and their log2
+BW4 = (1, 1, 2, 2, 2, 4, 4, 4, 8, 8, 8, 16, 16, 16, 32, 32, 1, 4, 2, 8, 4, 16)
+BH4 = (1, 2, 1, 2, 4, 2, 4, 8, 4, 8, 16, 8, 16, 32, 16, 32, 4, 1, 8, 2, 16, 4)
+BLOG2W = tuple(v.bit_length() - 1 for v in BW4)
+BLOG2H = tuple(v.bit_length() - 1 for v in BH4)
+_BSIZE = {(BW4[b], BH4[b]): b for b in range(22)}
+B4X4, B8X8, B64X64, B128X128 = 0, 3, 12, 15
+
+# transform sizes: width and height in pixels
+TXW = (4, 8, 16, 32, 64, 4, 8, 8, 16, 16, 32, 32, 64, 4, 16, 8, 32, 16, 64)
+TXH = (4, 8, 16, 32, 64, 8, 4, 16, 8, 32, 16, 64, 32, 16, 4, 32, 8, 64, 16)
+TXLW = tuple(v.bit_length() - 1 for v in TXW)
+TXLH = tuple(v.bit_length() - 1 for v in TXH)
+_TXSIZE = {(TXW[t], TXH[t]): t for t in range(19)}
+TX_4X4 = 0
+TX_SQR = tuple(_TXSIZE[(min(TXW[t], TXH[t]),) * 2] for t in range(19))
+TX_SQR_UP = tuple(_TXSIZE[(max(TXW[t], TXH[t]),) * 2] for t in range(19))
+TX_ADJ = tuple(_TXSIZE[(min(TXW[t], 32), min(TXH[t], 32))]
+               for t in range(19))
+SPLIT_TX = (0, 0, 1, 2, 3, 0, 0, 1, 1, 2, 2, 3, 3, 5, 6, 7, 8, 9, 10)
+MAX_TX_RECT = tuple(_TXSIZE[(min(4 * BW4[b], 64), min(4 * BH4[b], 64))]
+                    for b in range(22))
+
+
+def _depth(t):
+    d = 0
+    while t != TX_4X4:
+        t = SPLIT_TX[t]
+        d += 1
+    return d
+
+
+MAX_TX_DEPTH = tuple(min(_depth(MAX_TX_RECT[b]), 2) for b in range(22))
+TX_CAT = tuple(max(_depth(MAX_TX_RECT[b]) - 1, 0) for b in range(22))
+
+# prediction modes
+DC_PRED, V_PRED, H_PRED, D45, D135, D113, D157, D203, D67 = range(9)
+SMOOTH, SMOOTH_V, SMOOTH_H, PAETH, UV_CFL = 9, 10, 11, 12, 13
+INTRA_MODE_CTX = (0, 1, 2, 3, 4, 4, 4, 4, 3, 0, 1, 2, 0)
+FILTER_INTRA_DIR = (DC_PRED, V_PRED, H_PRED, D157, DC_PRED)
+
+# transform types and classes
+(DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST, FLIPADST_DCT, DCT_FLIPADST,
+ FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST, IDTX, V_DCT, H_DCT, V_ADST,
+ H_ADST, V_FLIPADST, H_FLIPADST) = range(16)
+CLASS_2D, CLASS_HORIZ, CLASS_VERT = 0, 1, 2
+TX_CLASS = tuple(CLASS_VERT if t in (V_DCT, V_ADST, V_FLIPADST) else
+                 CLASS_HORIZ if t in (H_DCT, H_ADST, H_FLIPADST) else
+                 CLASS_2D for t in range(16))
+INTRA_SET1 = (IDTX, DCT_DCT, V_DCT, H_DCT, ADST_ADST, ADST_DCT, DCT_ADST)
+INTRA_SET2 = (IDTX, DCT_DCT, ADST_ADST, ADST_DCT, DCT_ADST)
+INTER_SET1 = (IDTX, V_DCT, H_DCT, V_ADST, H_ADST, V_FLIPADST, H_FLIPADST,
+              DCT_DCT, ADST_DCT, DCT_ADST, FLIPADST_DCT, DCT_FLIPADST,
+              ADST_ADST, FLIPADST_FLIPADST, ADST_FLIPADST, FLIPADST_ADST)
+INTER_SET2 = (IDTX, V_DCT, H_DCT, DCT_DCT, ADST_DCT, DCT_ADST, FLIPADST_DCT,
+              DCT_FLIPADST, ADST_ADST, FLIPADST_FLIPADST, ADST_FLIPADST,
+              FLIPADST_ADST)
+INTER_SET3 = (IDTX, DCT_DCT)
+MODE_TO_TXFM = (DCT_DCT, ADST_DCT, DCT_ADST, DCT_DCT, ADST_ADST, ADST_DCT,
+                DCT_ADST, DCT_ADST, ADST_DCT, ADST_ADST, ADST_DCT, DCT_ADST,
+                ADST_ADST, DCT_DCT)
+(SET_DCTONLY, SET_INTRA_1, SET_INTRA_2, SET_INTER_1, SET_INTER_2,
+ SET_INTER_3) = range(6)
+_IN_SET = {SET_DCTONLY: (DCT_DCT,), SET_INTRA_1: INTRA_SET1,
+           SET_INTRA_2: INTRA_SET2, SET_INTER_1: INTER_SET1,
+           SET_INTER_2: INTER_SET2, SET_INTER_3: INTER_SET3}
+
+PALETTE_COLOR_CONTEXT = (-1, -1, 0, -1, -1, 4, 3, 2, 1)
+SEG_FEATURE_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
+SEG_FEATURE_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
+SEG_FEATURE_MAX = (255, 63, 63, 63, 63, 7, 0, 0)
+WIENER_MIN, WIENER_MAX, WIENER_K = (-5, -23, -17), (10, 8, 46), (1, 2, 3)
+WIENER_MID = (3, -7, 15)
+SGR_MIN, SGR_MAX, SGR_MID = (-96, -32), (31, 95), (-32, 31)
+RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE = range(4)
+REMAP_LR = (RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER,
+            RESTORE_SGRPROJ)
+
+
+def _cdfs(table):
+    """A nested table of CDFs in the specification's form (the first N - 1
+    cumulative values) as adaptable lists [c0 .. c(N-2), 32768, count]."""
+    if table and isinstance(table[0], int):
+        return list(table) + [32768, 0]
+    return [_cdfs(t) for t in table]
+
+
+_DEFAULTS = None
+_COEFF_CDFS = ("COEFF_BASE_EOB", "COEFF_BASE", "COEFF_BR", "EOB_PT_16",
+               "EOB_PT_32", "EOB_PT_64", "EOB_PT_128", "EOB_PT_256",
+               "EOB_PT_512", "EOB_PT_1024", "EOB_EXTRA", "TXB_SKIP",
+               "DC_SIGN")
+
+
+def _default_cdfs():
+    global _DEFAULTS
+    if _DEFAULTS is None:
+        names = ("KF_Y_MODE", "UV_MODE_CFL_NOT_ALLOWED", "UV_MODE_CFL_ALLOWED",
+                 "PARTITION", "INTRA_TX_SET1", "INTRA_TX_SET2",
+                 "INTER_TX_SET1", "INTER_TX_SET2", "INTER_TX_SET3",
+                 "CFL_SIGN", "CFL_ALPHA", "ANGLE_DELTA", "PALETTE_Y_SIZE",
+                 "PALETTE_UV_SIZE", "PALETTE_Y_COLOR", "PALETTE_UV_COLOR",
+                 "PALETTE_Y_MODE", "PALETTE_UV_MODE", "SKIP", "SEGMENT_ID",
+                 "TX_SIZE", "USE_FILTER_INTRA", "FILTER_INTRA_MODE",
+                 "DELTA_Q", "DELTA_LF", "INTRABC", "RESTORATION_TYPE",
+                 "USE_WIENER", "USE_SGRPROJ", "COEFF_BASE_EOB", "COEFF_BASE",
+                 "COEFF_BR", "EOB_PT_16", "EOB_PT_32", "EOB_PT_64",
+                 "EOB_PT_128", "EOB_PT_256", "EOB_PT_512", "EOB_PT_1024",
+                 "EOB_EXTRA", "TXB_SKIP", "DC_SIGN")
+        _DEFAULTS = {n: _cdfs(getattr(T, n)) for n in names}
+        _DEFAULTS["DELTA_LF_MULTI"] = [_cdfs(T.DELTA_LF) for _ in range(4)]
+        from .av1_mv import MV_CDFS
+        _DEFAULTS.update(MV_CDFS())
+    return _DEFAULTS
+
+
+class BitReader:
+    def __init__(self, data: bytes, pos: int = 0):
+        self.data, self.bitpos = data, pos * 8
+
+    def f(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            byte = self.data[self.bitpos >> 3] if (self.bitpos >> 3) < len(
+                self.data) else 0
+            v = (v << 1) | ((byte >> (7 - (self.bitpos & 7))) & 1)
+            self.bitpos += 1
+        return v
+
+    def su(self, n: int) -> int:
+        v = self.f(n)
+        return v - (1 << n) if v & (1 << (n - 1)) else v
+
+    def uvlc(self) -> int:
+        zeros = 0
+        while not self.f(1):
+            zeros += 1
+            if zeros >= 32:
+                return (1 << 32) - 1
+        return self.f(zeros) + (1 << zeros) - 1
+
+    def ns(self, n: int) -> int:
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.f(w - 1)
+        return v if v < m else (v << 1) - m + self.f(1)
+
+    def byte_align(self):
+        self.bitpos = (self.bitpos + 7) & ~7
+
+
+def leb128(data, pos):
+    v = 0
+    for i in range(8):
+        b = data[pos + i]
+        v |= (b & 0x7f) << (7 * i)
+        if not b & 0x80:
+            return v, pos + i + 1
+    return v, pos + 8
+
+
+class SymbolDecoder:
+    """The multi-symbol arithmetic decoder (spec 8.2). The window `dif`
+    holds the inverted bits of the stream (1s past its end) less what the
+    decoded intervals took, with `cnt` bits more than the spec's 15."""
+
+    def __init__(self, data, start, size, disable_update):
+        self.data, self.pos, self.end = data, start, start + size
+        self.update = not disable_update
+        self.dif, self.cnt = 0, -15
+        self._refill()
+        self.rng = 1 << 15
+
+    def _refill(self):
+        d, p, e = self.data, self.pos, self.end
+        chunk = d[p:p + 6] if p + 6 <= e else d[p:e] + b"\0" * (6 - max(
+            0, e - p))
+        self.pos = p + 6
+        self.dif = (self.dif << 48) | (~int.from_bytes(chunk, "big")
+                                       & 0xffffffffffff)
+        self.cnt += 48
+
+    def symbol(self, cdf) -> int:
+        n = len(cdf) - 1
+        rng = self.rng
+        c = self.cnt
+        top = self.dif >> c
+        r8 = rng >> 8
+        s = -1
+        cur = rng
+        while True:
+            s += 1
+            prev = cur
+            cur = ((r8 * ((32768 - cdf[s]) >> 6)) >> 1) + 4 * (n - s - 1)
+            if top >= cur:
+                break
+        rng = prev - cur
+        self.dif -= cur << c
+        bits = 16 - rng.bit_length()
+        self.rng = rng << bits
+        c -= bits
+        if c < 16:
+            self.cnt = c
+            self.dif &= (1 << (c + 16)) - 1
+            self._refill()
+        else:
+            self.cnt = c
+        if self.update:
+            cnt = cdf[n]
+            rate = 3 + (cnt > 15) + (cnt > 31) + (2 if n > 3 else n >> 1)
+            for i in range(n - 1):
+                if i < s:
+                    cdf[i] -= cdf[i] >> rate
+                else:
+                    cdf[i] += (32768 - cdf[i]) >> rate
+            if cnt < 32:
+                cdf[n] = cnt + 1
+        return s
+
+    def bool(self) -> int:
+        return self.symbol([16384, 32768, 0])
+
+    def literal(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            v = (v << 1) | self.bool()
+        return v
+
+    def ns(self, n: int) -> int:
+        w = n.bit_length()
+        m = (1 << w) - n
+        v = self.literal(w - 1)
+        return v if v < m else (v << 1) - m + self.literal(1)
+
+
+class Frame:
+    """The decoded image: `planes` (int32 [h, w] each, cropped), the bit
+    depth, subsampling and colour description."""
+
+
+class Block:
+    __slots__ = ("size", "skip", "is_inter", "y_mode", "uv_mode", "seg",
+                 "tx_size", "pal_size", "pal_colors", "delta_lf",
+                 "use_intrabc", "mv", "angle_y", "angle_uv", "cfl_u",
+                 "cfl_v", "filter_mode", "color_map_y", "color_map_uv",
+                 "pal_v", "row", "col", "lossless", "qindex", "avail",
+                 "var_tx")
+
+
+def _refuse(tool, name):
+    raise NotImplementedError(
+        f"AV1 {tool} is not ported ({name or 'AVIF file'}): no writer here "
+        "emits it")
+
+
+class Decoder:
+    """Parses one AV1 still image (its OBUs) into the frame header, the
+    mode info of every block and, in decode order, the transform blocks
+    that av1_recon.py reconstructs."""
+
+    def __init__(self, data: bytes, name: str = ""):
+        self.name = name
+        self.seq = None
+        self.frame_done = False
+        self.parse_obus(data)
+
+    # ---- OBUs -------------------------------------------------------------
+    def parse_obus(self, data):
+        pos = 0
+        while pos < len(data) and not self.frame_done:
+            h = data[pos]
+            kind = (h >> 3) & 15
+            ext, has_size = (h >> 2) & 1, (h >> 1) & 1
+            p = pos + 1 + ext
+            if has_size:
+                size, p = leb128(data, p)
+            else:
+                size = len(data) - p
+            end = p + size
+            if end > len(data):
+                raise IOError(f"AV1: truncated OBU ({self.name})")
+            if kind == 1:
+                self.sequence_header(BitReader(data, p))
+            elif kind in (3, 6):
+                if self.seq is None:
+                    raise IOError("AV1: frame before a sequence header")
+                br = BitReader(data, p)
+                self.frame_header(br)
+                if kind == 6:
+                    br.byte_align()
+                    self.tile_group(data, br.bitpos >> 3, end)
+            elif kind == 4:
+                self.tile_group(data, p, end)
+            elif kind == 8:
+                _refuse("large-scale tile (tile list OBU)", self.name)
+            pos = end
+        if not self.frame_done:
+            raise IOError(f"AV1: no complete frame ({self.name})")
+
+    def sequence_header(self, br):
+        s = {}
+        s["profile"] = br.f(3)
+        br.f(1)                                     # still_picture
+        s["reduced"] = br.f(1)
+        s["decoder_model"] = 0
+        s["equal_interval"] = 0
+        if s["reduced"]:
+            br.f(5)
+            s["op_idc"] = [0]
+            s["dm_op"] = [0]
+        else:
+            timing = br.f(1)
+            if timing:
+                br.f(32)
+                br.f(32)
+                s["equal_interval"] = br.f(1)
+                if s["equal_interval"]:
+                    br.uvlc()
+                s["decoder_model"] = br.f(1)
+                if s["decoder_model"]:
+                    s["buf_delay_len"] = br.f(5) + 1
+                    br.f(32)
+                    s["removal_len"] = br.f(5) + 1
+                    s["pres_len"] = br.f(5) + 1
+            idd = br.f(1)
+            n = br.f(5) + 1
+            s["op_idc"], s["dm_op"] = [], []
+            for _ in range(n):
+                s["op_idc"].append(br.f(12))
+                lvl = br.f(5)
+                if lvl > 7:
+                    br.f(1)
+                dm = 0
+                if s["decoder_model"]:
+                    dm = br.f(1)
+                    if dm:
+                        br.f(s["buf_delay_len"])
+                        br.f(s["buf_delay_len"])
+                        br.f(1)
+                s["dm_op"].append(dm)
+                if idd and br.f(1):
+                    br.f(4)
+        wb, hb = br.f(4) + 1, br.f(4) + 1
+        s["wbits"], s["hbits"] = wb, hb
+        s["max_w"], s["max_h"] = br.f(wb) + 1, br.f(hb) + 1
+        s["frame_ids"] = 0 if s["reduced"] else br.f(1)
+        if s["frame_ids"]:
+            s["delta_id_len"] = br.f(4) + 2
+            s["id_len"] = br.f(3) + 1 + s["delta_id_len"]
+        s["sb128"] = br.f(1)
+        s["filter_intra"] = br.f(1)
+        s["edge_filter"] = br.f(1)
+        s["order_hint_bits"] = 0
+        if s["reduced"]:
+            s["force_sct"], s["force_imv"] = 2, 2
+        else:
+            br.f(4)             # interintra, masked, warped, dual filter
+            order_hint = br.f(1)
+            if order_hint:
+                br.f(2)
+            if br.f(1):
+                s["force_sct"] = 2
+            else:
+                s["force_sct"] = br.f(1)
+            if s["force_sct"] > 0:
+                s["force_imv"] = 2 if br.f(1) else br.f(1)
+            else:
+                s["force_imv"] = 2
+            if order_hint:
+                s["order_hint_bits"] = br.f(3) + 1
+        s["superres"] = br.f(1)
+        s["cdef"] = br.f(1)
+        s["restoration"] = br.f(1)
+        # color_config
+        hbd = br.f(1)
+        if s["profile"] == 2 and hbd:
+            s["bd"] = 12 if br.f(1) else 10
+        else:
+            s["bd"] = 10 if hbd else 8
+        s["mono"] = 0 if s["profile"] == 1 else br.f(1)
+        if br.f(1):
+            s["cp"], s["tc"], s["mc"] = br.f(8), br.f(8), br.f(8)
+        else:
+            s["cp"] = s["tc"] = s["mc"] = 2
+        if s["mono"]:
+            s["full_range"] = br.f(1)
+            s["ssx"] = s["ssy"] = 1
+            s["sep_uv"] = 0
+        else:
+            if s["cp"] == 1 and s["tc"] == 13 and s["mc"] == 0:
+                s["full_range"] = 1
+                s["ssx"] = s["ssy"] = 0
+            else:
+                s["full_range"] = br.f(1)
+                if s["profile"] == 0:
+                    s["ssx"] = s["ssy"] = 1
+                elif s["profile"] == 1:
+                    s["ssx"] = s["ssy"] = 0
+                elif s["bd"] == 12:
+                    s["ssx"] = br.f(1)
+                    s["ssy"] = br.f(1) if s["ssx"] else 0
+                else:
+                    s["ssx"], s["ssy"] = 1, 0
+                if s["ssx"] and s["ssy"]:
+                    br.f(2)
+            s["sep_uv"] = br.f(1)
+        s["film_grain"] = br.f(1)
+        self.seq = s
+
+    def frame_header(self, br):
+        s = self.seq
+        if s["reduced"]:
+            frame_type, show_frame, showable = 0, 1, 0
+            error_res = 1
+        else:
+            if br.f(1):
+                _refuse("show_existing_frame", self.name)
+            frame_type = br.f(2)
+            show_frame = br.f(1)
+            if show_frame and s["decoder_model"] and not s["equal_interval"]:
+                br.f(s["pres_len"])
+            showable = 0 if show_frame else br.f(1)
+            error_res = 1 if (frame_type == 0 and show_frame) else br.f(1)
+        if frame_type not in (0, 2):
+            _refuse("inter frame", self.name)
+        self.disable_cdf_update = br.f(1)
+        if s["force_sct"] == 2:
+            self.sct = br.f(1)
+        else:
+            self.sct = s["force_sct"]
+        if self.sct and s["force_imv"] == 2:
+            br.f(1)
+        if s["frame_ids"]:
+            br.f(s["id_len"])
+        size_override = 0 if s["reduced"] else br.f(1)
+        br.f(s["order_hint_bits"])
+        if s["decoder_model"]:
+            if br.f(1):
+                for idc, dm in zip(s["op_idc"], s["dm_op"]):
+                    if dm and (idc == 0 or ((idc & 1) and (idc >> 8) & 1)):
+                        br.f(s["removal_len"])
+        refresh = 0xff
+        if not (frame_type == 0 and show_frame):
+            refresh = br.f(8)
+        if refresh != 0xff and error_res and s["order_hint_bits"]:
+            for _ in range(8):
+                br.f(s["order_hint_bits"])
+        # frame_size, superres, render_size
+        if size_override:
+            self.w = br.f(s["wbits"]) + 1
+            self.h = br.f(s["hbits"]) + 1
+        else:
+            self.w, self.h = s["max_w"], s["max_h"]
+        if s["superres"] and br.f(1):
+            _refuse("superres", self.name)
+        if br.f(1):
+            br.f(16)
+            br.f(16)
+        self.mi_cols = 2 * ((self.w + 7) >> 3)
+        self.mi_rows = 2 * ((self.h + 7) >> 3)
+        self.allow_intrabc = br.f(1) if self.sct else 0
+        if s["reduced"] or self.disable_cdf_update:
+            pass
+        else:
+            br.f(1)                         # disable_frame_end_update_cdf
+        self.tile_info(br)
+        # quantization_params
+        self.base_q = br.f(8)
+        self.dq = [[0, 0], [0, 0], [0, 0]]          # [plane][dc, ac]
+        self.dq[0][0] = self._delta_q(br)
+        if not s["mono"]:
+            diff_uv = br.f(1) if s["sep_uv"] else 0
+            self.dq[1][0] = self._delta_q(br)
+            self.dq[1][1] = self._delta_q(br)
+            if diff_uv:
+                self.dq[2][0] = self._delta_q(br)
+                self.dq[2][1] = self._delta_q(br)
+            else:
+                self.dq[2] = list(self.dq[1])
+        self.using_qm = br.f(1)
+        self.qm = [15, 15, 15]
+        if self.using_qm:
+            qy, qu = br.f(4), br.f(4)
+            qv = br.f(4) if s["sep_uv"] else qu
+            self.qm = [qy, qu, qv]
+        # segmentation
+        self.seg_enabled = br.f(1)
+        self.seg_feat = [[None] * 8 for _ in range(8)]
+        if self.seg_enabled:
+            for i in range(8):
+                for j in range(8):
+                    if br.f(1):
+                        bits, lim = SEG_FEATURE_BITS[j], SEG_FEATURE_MAX[j]
+                        if SEG_FEATURE_SIGNED[j]:
+                            v = max(-lim, min(lim, br.su(1 + bits)))
+                        else:
+                            v = max(0, min(lim, br.f(bits)))
+                        self.seg_feat[i][j] = v
+        self.seg_pre_skip, self.last_seg = 0, 0
+        for i in range(8):
+            for j in range(8):
+                if self.seg_feat[i][j] is not None:
+                    self.last_seg = i
+                    if j >= 5:
+                        self.seg_pre_skip = 1
+        # delta_q, delta_lf
+        self.delta_q_present = br.f(1) if self.base_q > 0 else 0
+        self.delta_q_res = br.f(2) if self.delta_q_present else 0
+        self.delta_lf_present = self.delta_lf_res = self.delta_lf_multi = 0
+        if self.delta_q_present:
+            if not self.allow_intrabc:
+                self.delta_lf_present = br.f(1)
+            if self.delta_lf_present:
+                self.delta_lf_res = br.f(2)
+                self.delta_lf_multi = br.f(1)
+        self.lossless = []
+        for sid in range(8):
+            q = self.qidx(sid, None)
+            self.lossless.append(
+                q == 0 and self.dq[0][0] == 0 and self.dq[1] == [0, 0]
+                and self.dq[2] == [0, 0])
+        self.coded_lossless = all(self.lossless)
+        self.seg_qm = [[15 if self.lossless[sid] or not self.using_qm
+                        else self.qm[p] for sid in range(8)]
+                       for p in range(3)]
+        # loop filter
+        self.lf_level = [0, 0, 0, 0]
+        self.lf_sharp = 0
+        self.lf_delta_enabled = 0
+        self.lf_ref_deltas = [1, 0, 0, 0, -1, 0, -1, -1]
+        self.lf_mode_deltas = [0, 0]
+        if not (self.coded_lossless or self.allow_intrabc):
+            self.lf_level[0], self.lf_level[1] = br.f(6), br.f(6)
+            if not s["mono"] and (self.lf_level[0] or self.lf_level[1]):
+                self.lf_level[2], self.lf_level[3] = br.f(6), br.f(6)
+            self.lf_sharp = br.f(3)
+            self.lf_delta_enabled = br.f(1)
+            if self.lf_delta_enabled and br.f(1):
+                for i in range(8):
+                    if br.f(1):
+                        self.lf_ref_deltas[i] = br.su(7)
+                for i in range(2):
+                    if br.f(1):
+                        self.lf_mode_deltas[i] = br.su(7)
+        # cdef
+        self.cdef_damping, self.cdef_bits = 3, 0
+        self.cdef_y = [(0, 0)]
+        self.cdef_uv = [(0, 0)]
+        self.cdef_on = bool(s["cdef"] and not self.coded_lossless
+                            and not self.allow_intrabc)
+        if self.cdef_on:
+            self.cdef_damping = br.f(2) + 3
+            self.cdef_bits = br.f(2)
+            self.cdef_y, self.cdef_uv = [], []
+            for _ in range(1 << self.cdef_bits):
+                pri, sec = br.f(4), br.f(2)
+                self.cdef_y.append((pri, sec + (sec == 3)))
+                if not s["mono"]:
+                    pri, sec = br.f(4), br.f(2)
+                    self.cdef_uv.append((pri, sec + (sec == 3)))
+                else:
+                    self.cdef_uv.append((0, 0))
+        # loop restoration
+        nplanes = 1 if s["mono"] else 3
+        self.lr_type = [RESTORE_NONE] * 3
+        self.lr_size = [256, 256, 256]
+        if s["restoration"] and not self.coded_lossless and \
+                not self.allow_intrabc:
+            chroma = False
+            for p in range(nplanes):
+                self.lr_type[p] = REMAP_LR[br.f(2)]
+                if p and self.lr_type[p] != RESTORE_NONE:
+                    chroma = True
+            if any(t != RESTORE_NONE for t in self.lr_type):
+                if s["sb128"]:
+                    shift = br.f(1) + 1
+                else:
+                    shift = br.f(1)
+                    if shift:
+                        shift += br.f(1)
+                self.lr_size[0] = 256 >> (2 - shift)
+                uv_shift = br.f(1) if (s["ssx"] and s["ssy"] and chroma) \
+                    else 0
+                self.lr_size[1] = self.lr_size[2] = self.lr_size[0] >> \
+                    uv_shift
+        # tx mode, reference mode, warped motion, reduced tx set
+        if self.coded_lossless:
+            self.tx_mode_select = 0
+        else:
+            self.tx_mode_select = br.f(1)
+        self.reduced_tx_set = br.f(1)
+        self.grain = None
+        if s["film_grain"] and (show_frame or showable) and br.f(1):
+            from .av1_grain import read_grain_params
+            self.grain = read_grain_params(br, s["mono"], s["ssx"], s["ssy"])
+
+    def _delta_q(self, br):
+        return br.su(7) if br.f(1) else 0
+
+    def tile_info(self, br):
+        s = self.seq
+        sb_shift = 5 if s["sb128"] else 4
+        sb_cols = (self.mi_cols + (1 << sb_shift) - 1) >> sb_shift
+        sb_rows = (self.mi_rows + (1 << sb_shift) - 1) >> sb_shift
+        sb_size = sb_shift + 2
+        max_w_sb = 4096 >> sb_size
+        max_area_sb = (4096 * 2304) >> (2 * sb_size)
+
+        def tile_log2(blk, target):
+            k = 0
+            while (blk << k) < target:
+                k += 1
+            return k
+        min_log2_cols = tile_log2(max_w_sb, sb_cols)
+        max_log2_cols = tile_log2(1, min(sb_cols, 64))
+        max_log2_rows = tile_log2(1, min(sb_rows, 64))
+        min_log2 = max(min_log2_cols, tile_log2(max_area_sb,
+                                                sb_rows * sb_cols))
+        cols, rows = [], []
+        if br.f(1):
+            cl = min_log2_cols
+            while cl < max_log2_cols and br.f(1):
+                cl += 1
+            w_sb = (sb_cols + (1 << cl) - 1) >> cl
+            cols = list(range(0, sb_cols, w_sb))
+            rl = max(min_log2 - cl, 0)
+            while rl < max_log2_rows and br.f(1):
+                rl += 1
+            h_sb = (sb_rows + (1 << rl) - 1) >> rl
+            rows = list(range(0, sb_rows, h_sb))
+            self.tile_cols_log2, self.tile_rows_log2 = cl, rl
+        else:
+            widest, start = 0, 0
+            while start < sb_cols:
+                cols.append(start)
+                size = br.ns(min(sb_cols - start, max_w_sb)) + 1
+                widest = max(widest, size)
+                start += size
+            if min_log2 > 0:
+                area = (sb_rows * sb_cols) >> (min_log2 + 1)
+            else:
+                area = sb_rows * sb_cols
+            max_h = max(area // widest, 1)
+            start = 0
+            while start < sb_rows:
+                rows.append(start)
+                start += br.ns(min(sb_rows - start, max_h)) + 1
+            self.tile_cols_log2 = tile_log2(1, len(cols))
+            self.tile_rows_log2 = tile_log2(1, len(rows))
+        self.col_starts = [c << sb_shift for c in cols] + [self.mi_cols]
+        self.row_starts = [r << sb_shift for r in rows] + [self.mi_rows]
+        self.tile_size_bytes = 4
+        if self.tile_cols_log2 or self.tile_rows_log2:
+            br.f(self.tile_rows_log2 + self.tile_cols_log2)
+            self.tile_size_bytes = br.f(2) + 1
+
+    def qidx(self, sid, current):
+        """get_qidx: the segment's qindex; `current` is CurrentQIndex, or
+        None to ignore delta q."""
+        data = self.seg_feat[sid][0] if self.seg_enabled else None
+        if data is not None:
+            q = (current if current is not None and self.delta_q_present
+                 else self.base_q) + data
+            return max(0, min(255, q))
+        if current is not None and self.delta_q_present:
+            return current
+        return self.base_q
+
+    # ---- tiles ------------------------------------------------------------
+    def tile_group(self, data, pos, end):
+        ntiles = (len(self.col_starts) - 1) * (len(self.row_starts) - 1)
+        br = BitReader(data, pos)
+        start, last = 0, ntiles - 1
+        if ntiles > 1 and br.f(1):
+            bits = self.tile_cols_log2 + self.tile_rows_log2
+            start, last = br.f(bits), br.f(bits)
+        br.byte_align()
+        pos = br.bitpos >> 3
+        if start == 0:
+            self.begin_frame()
+        ncols = len(self.col_starts) - 1
+        for t in range(start, last + 1):
+            if t == last:
+                size = end - pos
+            else:
+                size = int.from_bytes(data[pos:pos + self.tile_size_bytes],
+                                      "little") + 1
+                pos += self.tile_size_bytes
+            if pos + size > end:
+                raise IOError(f"AV1: truncated tile ({self.name})")
+            tr, tc = divmod(t, ncols)
+            TileDecoder(self, data, pos, size, self.row_starts[tr],
+                        self.row_starts[tr + 1], self.col_starts[tc],
+                        self.col_starts[tc + 1]).decode()
+            pos += size
+        if last == ntiles - 1:
+            self.frame_done = True
+
+    def begin_frame(self):
+        s = self.seq
+        self.nplanes = 1 if s["mono"] else 3
+        self.ssx, self.ssy = s["ssx"], s["ssy"]
+        self.bd = s["bd"]
+        self.mi = [[None] * self.mi_cols for _ in range(self.mi_rows)]
+        self.inter_tx = [[0] * self.mi_cols for _ in range(self.mi_rows)]
+        self.cdef_idx = {}
+        self.records = []
+        # loop filter transform sizes per plane, in 4 x 4 units of the plane
+        self.lf_tx = []
+        for p in range(self.nplanes):
+            sx, sy = (self.ssx, self.ssy) if p else (0, 0)
+            self.lf_tx.append(np.zeros(
+                ((self.mi_rows + sy) >> sy, (self.mi_cols + sx) >> sx),
+                np.int8))
+        self.lr_units = [{} for _ in range(3)]
+        q = self.base_q
+        self.qctx = 0 if q <= 20 else 1 if q <= 60 else 2 if q <= 120 else 3
+
+
+class TileDecoder:
+    def __init__(self, dec, data, pos, size, r0, r1, c0, c1):
+        self.d = dec
+        self.sd = SymbolDecoder(data, pos, size, dec.disable_cdf_update)
+        self.r0, self.r1, self.c0, self.c1 = r0, r1, c0, c1
+        qc = dec.qctx
+        self.cdf = {k: copy.deepcopy(v[qc] if k in _COEFF_CDFS else v)
+                    for k, v in _default_cdfs().items()}
+        np_ = dec.nplanes
+        cols = dec.mi_cols + 32
+        rows = dec.mi_rows + 32
+        self.above_level = [[0] * cols for _ in range(np_)]
+        self.above_dc = [[0] * cols for _ in range(np_)]
+        self.left_level = [[0] * rows for _ in range(np_)]
+        self.left_dc = [[0] * rows for _ in range(np_)]
+        self.delta_lf = [0, 0, 0, 0]
+        self.ref_sgr = [list(SGR_MID) for _ in range(3)]
+        self.ref_wiener = [[list(WIENER_MID), list(WIENER_MID)]
+                           for _ in range(3)]
+        self.current_q = dec.base_q
+        self.sb4 = 32 if dec.seq["sb128"] else 16
+        self.tx_types = {}           # luma TxTypes by (y4, x4)
+
+    def decode(self):
+        d = self.d
+        sb4 = self.sb4
+        bsize = B128X128 if sb4 == 32 else B64X64
+        for r in range(self.r0, self.r1, sb4):
+            for p in range(d.nplanes):
+                ll, ld = self.left_level[p], self.left_dc[p]
+                for i in range(len(ll)):
+                    ll[i] = 0
+                    ld[i] = 0
+            for c in range(self.c0, self.c1, sb4):
+                self.read_deltas = d.delta_q_present
+                for dr in (0, 16) if sb4 == 32 else (0,):
+                    for dc in (0, 16) if sb4 == 32 else (0,):
+                        d.cdef_idx[(r + dr, c + dc)] = -1
+                self.clear_decoded(r, c)
+                self.read_lr(r, c, bsize)
+                self.partition(r, c, bsize)
+
+    # BlockDecoded, per plane, indexed [y + 1][x + 1] in plane 4 x 4 units
+    def clear_decoded(self, r, c):
+        d = self.d
+        sb4 = self.sb4
+        self.decoded = []
+        self.sb_r, self.sb_c = r, c
+        for p in range(d.nplanes):
+            sx, sy = (d.ssx, d.ssy) if p else (0, 0)
+            w4 = (self.c1 - c) >> sx
+            h4 = (self.r1 - r) >> sy
+            n_y, n_x = (sb4 >> sy) + 2, (sb4 >> sx) + 2
+            g = [[0] * (n_x + 1) for _ in range(n_y + 1)]
+            for x in range(-1, n_x - 1):
+                g[0][x + 1] = 1 if x < w4 else 0
+            for y in range(0, n_y - 1):
+                g[y + 1][0] = 1 if y < h4 else 0
+            g[(sb4 >> sy) + 1][0] = 0
+            self.decoded.append(g)
+
+    def inside(self, r, c):
+        return self.c0 <= c < self.c1 and self.r0 <= r < self.r1
+
+    # ---- loop restoration units -------------------------------------------
+    def read_lr(self, r, c, bsize):
+        d = self.d
+        if d.allow_intrabc:
+            return
+        w, h = BW4[bsize], BH4[bsize]
+        for p in range(d.nplanes):
+            if d.lr_type[p] == RESTORE_NONE:
+                continue
+            sx, sy = (d.ssx, d.ssy) if p else (0, 0)
+            size = d.lr_size[p]
+            rows = max((((d.h + sy) >> sy) + (size >> 1)) // size, 1)
+            cols = max((((d.w + sx) >> sx) + (size >> 1)) // size, 1)
+            r_start = (r * (4 >> sy) + size - 1) // size
+            r_end = min(rows, ((r + h) * (4 >> sy) + size - 1) // size)
+            c_start = (c * (4 >> sx) + size - 1) // size
+            c_end = min(cols, ((c + w) * (4 >> sx) + size - 1) // size)
+            for ur in range(r_start, r_end):
+                for uc in range(c_start, c_end):
+                    self.read_lr_unit(p, ur, uc)
+
+    def read_lr_unit(self, p, ur, uc):
+        d, sd, cdf = self.d, self.sd, self.cdf
+        t = d.lr_type[p]
+        if t == RESTORE_WIENER:
+            rtype = RESTORE_WIENER if sd.symbol(cdf["USE_WIENER"]) else 0
+        elif t == RESTORE_SGRPROJ:
+            rtype = RESTORE_SGRPROJ if sd.symbol(cdf["USE_SGRPROJ"]) else 0
+        else:
+            rtype = sd.symbol(cdf["RESTORATION_TYPE"])
+        unit = (rtype,)
+        if rtype == RESTORE_WIENER:
+            coeffs = []
+            for pas in range(2):
+                first = 1 if p else 0
+                taps = [0, 0, 0]
+                for j in range(first, 3):
+                    v = self.subexp_ref(WIENER_MIN[j], WIENER_MAX[j] + 1,
+                                        WIENER_K[j],
+                                        self.ref_wiener[p][pas][j])
+                    taps[j] = v
+                    self.ref_wiener[p][pas][j] = v
+                coeffs.append(taps)
+            unit = (rtype, coeffs)
+        elif rtype == RESTORE_SGRPROJ:
+            s = sd.literal(4)
+            xqd = [0, 0]
+            for i in range(2):
+                radius = T.SGR_PARAMS[s][i * 2]
+                lo, hi = SGR_MIN[i], SGR_MAX[i]
+                if radius:
+                    v = self.subexp_ref(lo, hi + 1, 4, self.ref_sgr[p][i])
+                else:
+                    v = 0
+                    if i == 1:
+                        v = max(lo, min(hi, 128 - self.ref_sgr[p][0]))
+                xqd[i] = v
+                self.ref_sgr[p][i] = v
+            unit = (rtype, s, xqd)
+        d.lr_units[p][(ur, uc)] = unit
+
+    def subexp_ref(self, low, high, k, r):
+        mx = high - low
+        r -= low
+        sd = self.sd
+        i, mk = 0, 0
+        while True:
+            b2 = k + i - 1 if i else k
+            a = 1 << b2
+            if mx <= mk + 3 * a:
+                v = sd.ns(mx - mk) + mk
+                break
+            if sd.literal(1):
+                i += 1
+                mk += a
+            else:
+                v = sd.literal(b2) + mk
+                break
+
+        def recenter(r_, v_):
+            if v_ > 2 * r_:
+                return v_
+            if v_ & 1:
+                return r_ - ((v_ + 1) >> 1)
+            return r_ + (v_ >> 1)
+        if (r << 1) <= mx:
+            v = recenter(r, v)
+        else:
+            v = mx - 1 - recenter(mx - 1 - r, v)
+        return v + low
+
+    # ---- partitions -------------------------------------------------------
+    def partition(self, r, c, bsize):
+        d = self.d
+        if r >= d.mi_rows or c >= d.mi_cols:
+            return
+        n4 = BW4[bsize]
+        half = n4 >> 1
+        quarter = half >> 1
+        has_rows = (r + half) < d.mi_rows
+        has_cols = (c + half) < d.mi_cols
+        if bsize < B8X8:
+            part = 0
+        else:
+            bsl = BLOG2W[bsize]
+            above = left = 0
+            if self.inside(r - 1, c):
+                above = BLOG2W[d.mi[r - 1][c].size] < bsl
+            if self.inside(r, c - 1):
+                left = BLOG2H[d.mi[r][c - 1].size] < bsl
+            cdf = self.cdf["PARTITION"][(bsl - 1) * 4 + left * 2 + above]
+            if has_rows and has_cols:
+                part = self.sd.symbol(cdf)
+            elif has_cols or has_rows:
+                def prob(e):
+                    return cdf[e] - (cdf[e - 1] if e else 0)
+                # the probability of SPLIT gathered from the CDF as
+                # libaom gathers it
+                if not has_cols:
+                    elems = [1, 3, 4, 5, 6]
+                    if bsize != B128X128:
+                        elems.append(8)
+                else:
+                    elems = [2, 3, 4, 6, 7]
+                    if bsize != B128X128:
+                        elems.append(9)
+                psum = sum(prob(e) for e in elems)
+                bit = self.sd.symbol([32768 - psum, 32768, 0])
+                part = 3 if bit else (1 if has_cols else 2)
+            else:
+                part = 3
+        w, h = 4 * n4, 4 * n4
+        sub = {0: (w, h), 1: (w, h // 2), 2: (w // 2, h), 3: (w // 2, h // 2),
+               4: (w, h // 2), 5: (w, h // 2), 6: (w // 2, h),
+               7: (w // 2, h), 8: (w, h // 4), 9: (w // 4, h)}[part]
+        sub = _BSIZE[(sub[0] // 4, sub[1] // 4)]
+        split = _BSIZE[(n4 // 2, n4 // 2)] if n4 > 1 else bsize
+        blk = self.block
+        if part == 0:
+            blk(r, c, sub)
+        elif part == 1:
+            blk(r, c, sub)
+            if has_rows:
+                blk(r + half, c, sub)
+        elif part == 2:
+            blk(r, c, sub)
+            if has_cols:
+                blk(r, c + half, sub)
+        elif part == 3:
+            self.partition(r, c, sub)
+            self.partition(r, c + half, sub)
+            self.partition(r + half, c, sub)
+            self.partition(r + half, c + half, sub)
+        elif part == 4:
+            blk(r, c, split)
+            blk(r, c + half, split)
+            blk(r + half, c, sub)
+        elif part == 5:
+            blk(r, c, sub)
+            blk(r + half, c, split)
+            blk(r + half, c + half, split)
+        elif part == 6:
+            blk(r, c, split)
+            blk(r + half, c, split)
+            blk(r, c + half, sub)
+        elif part == 7:
+            blk(r, c, sub)
+            blk(r, c + half, split)
+            blk(r + half, c + half, split)
+        elif part == 8:
+            for k in range(4):
+                if k < 3 or r + quarter * 3 < d.mi_rows:
+                    blk(r + quarter * k, c, sub)
+        else:
+            for k in range(4):
+                if k < 3 or c + quarter * 3 < d.mi_cols:
+                    blk(r, c + quarter * k, sub)
+
+    # ---- blocks -------------------------------------------------------------
+    def block(self, r, c, bsize):
+        d, sd, cdf = self.d, self.sd, self.cdf
+        b = Block()
+        b.row, b.col, b.size = r, c, bsize
+        bw4, bh4 = BW4[bsize], BH4[bsize]
+        if bh4 == 1 and d.ssy and not (r & 1):
+            has_chroma = False
+        elif bw4 == 1 and d.ssx and not (c & 1):
+            has_chroma = False
+        else:
+            has_chroma = d.nplanes > 1
+        self.has_chroma = has_chroma
+        avail_u = self.inside(r - 1, c)
+        avail_l = self.inside(r, c - 1)
+        self.avail_u, self.avail_l = avail_u, avail_l
+        self.avail_uc, self.avail_lc = avail_u, avail_l
+        if has_chroma:
+            if d.ssy and bh4 == 1:
+                self.avail_uc = self.inside(r - 2, c)
+            if d.ssx and bw4 == 1:
+                self.avail_lc = self.inside(r, c - 2)
+        else:
+            self.avail_uc = self.avail_lc = False
+        b.avail = (avail_u, avail_l, self.avail_uc, self.avail_lc)
+        b.var_tx = None
+        above = d.mi[r - 1][c] if avail_u else None
+        left = d.mi[r][c - 1] if avail_l else None
+        # intra_frame_mode_info
+        b.seg = 0
+        b.skip = 0
+        if d.seg_pre_skip:
+            self.intra_segment_id(b, r, c, avail_u, avail_l)
+        if d.seg_pre_skip and d.seg_enabled and \
+                d.seg_feat[b.seg][6] is not None:
+            b.skip = 1
+        else:
+            ctx = (above.skip if above else 0) + (left.skip if left else 0)
+            b.skip = sd.symbol(cdf["SKIP"][ctx])
+        if not d.seg_pre_skip:
+            self.intra_segment_id(b, r, c, avail_u, avail_l)
+        b.lossless = d.lossless[b.seg]
+        self.read_cdef(b, r, c, bsize)
+        sb_size = B128X128 if self.sb4 == 32 else B64X64
+        if self.read_deltas and not (bsize == sb_size and b.skip):
+            self.read_delta_q()
+            self.read_delta_lf()
+        self.read_deltas = 0
+        b.qindex = self.current_q
+        b.delta_lf = tuple(self.delta_lf)
+        b.use_intrabc = sd.symbol(cdf["INTRABC"]) if d.allow_intrabc else 0
+        b.pal_size = (0, 0)
+        b.pal_colors = ((), ())
+        b.filter_mode = -1
+        b.angle_y = b.angle_uv = 0
+        b.cfl_u = b.cfl_v = 0
+        if b.use_intrabc:
+            b.is_inter = 1
+            b.y_mode = b.uv_mode = DC_PRED
+            from .av1_mv import intrabc_mv
+            b.mv = intrabc_mv(self, b, r, c)
+        else:
+            b.is_inter = 0
+            am = above.y_mode if above else DC_PRED
+            lm = left.y_mode if left else DC_PRED
+            b.y_mode = sd.symbol(cdf["KF_Y_MODE"][INTRA_MODE_CTX[am]][
+                INTRA_MODE_CTX[lm]])
+            if bsize >= B8X8 and V_PRED <= b.y_mode <= D67:
+                b.angle_y = sd.symbol(cdf["ANGLE_DELTA"][b.y_mode - 1]) - 3
+            b.uv_mode = DC_PRED
+            if has_chroma:
+                bw, bh = 4 * bw4, 4 * bh4
+                if b.lossless:
+                    sx, sy = d.ssx, d.ssy
+                    cfl_ok = _BSIZE.get((max(bw4 >> sx, 1),
+                                         max(bh4 >> sy, 1))) == B4X4
+                else:
+                    cfl_ok = max(bw, bh) <= 32
+                tab = cdf["UV_MODE_CFL_ALLOWED" if cfl_ok else
+                          "UV_MODE_CFL_NOT_ALLOWED"]
+                b.uv_mode = sd.symbol(tab[b.y_mode])
+                if b.uv_mode == UV_CFL:
+                    self.read_cfl(b)
+                if bsize >= B8X8 and V_PRED <= b.uv_mode <= D67:
+                    b.angle_uv = sd.symbol(
+                        cdf["ANGLE_DELTA"][b.uv_mode - 1]) - 3
+            if bsize >= B8X8 and bw4 <= 16 and bh4 <= 16 and d.sct:
+                self.palette_mode_info(b, r, c, above, left)
+            if d.seq["filter_intra"] and b.y_mode == DC_PRED and \
+                    b.pal_size[0] == 0 and max(bw4, bh4) <= 8:
+                if sd.symbol(cdf["USE_FILTER_INTRA"][bsize]):
+                    b.filter_mode = sd.symbol(cdf["FILTER_INTRA_MODE"])
+        # palette_tokens
+        b.color_map_y = b.color_map_uv = None
+        if b.pal_size[0] or b.pal_size[1]:
+            self.palette_tokens(b, r, c)
+        # read_block_tx_size
+        self.read_tx_size(b, r, c, above, left)
+        # store mode info
+        rows = d.mi
+        rmax = min(r + bh4, d.mi_rows)
+        cmax = min(c + bw4, d.mi_cols)
+        for y in range(r, rmax):
+            row = rows[y]
+            for x in range(c, cmax):
+                row[x] = b
+        if b.var_tx is None:
+            for y in range(r, rmax):
+                row = d.inter_tx[y]
+                for x in range(c, cmax):
+                    row[x] = b.tx_size
+        if b.skip:
+            self.reset_block_context(b)
+        self.residual(b)
+
+    def intra_segment_id(self, b, r, c, avail_u, avail_l):
+        d = self.d
+        if not d.seg_enabled:
+            b.seg = 0
+            return
+        mi = d.mi
+        prev_ul = mi[r - 1][c - 1].seg if avail_u and avail_l else -1
+        prev_u = mi[r - 1][c].seg if avail_u else -1
+        prev_l = mi[r][c - 1].seg if avail_l else -1
+        if prev_u == -1:
+            pred = 0 if prev_l == -1 else prev_l
+        elif prev_l == -1:
+            pred = prev_u
+        else:
+            pred = prev_u if prev_ul == prev_u else prev_l
+        if b.skip:
+            b.seg = pred
+            return
+        if prev_ul < 0:
+            ctx = 0
+        elif prev_ul == prev_u and prev_ul == prev_l:
+            ctx = 2
+        elif prev_ul == prev_u or prev_ul == prev_l or prev_u == prev_l:
+            ctx = 1
+        else:
+            ctx = 0
+        v = self.sd.symbol(self.cdf["SEGMENT_ID"][ctx])
+        mx = d.last_seg + 1
+        # neg_deinterleave
+        if not pred:
+            s = v
+        elif pred >= mx - 1:
+            s = mx - v - 1
+        elif 2 * pred < mx:
+            if v <= 2 * pred:
+                s = pred + ((v + 1) >> 1) if v & 1 else pred - (v >> 1)
+            else:
+                s = v
+        else:
+            if v <= 2 * (mx - pred - 1):
+                s = pred + ((v + 1) >> 1) if v & 1 else pred - (v >> 1)
+            else:
+                s = mx - (v + 1)
+        b.seg = max(0, min(d.last_seg, s))
+
+    def read_cdef(self, b, r, c, bsize):
+        d = self.d
+        if b.skip or d.coded_lossless or not d.seq["cdef"] or \
+                d.allow_intrabc:
+            return
+        r0, c0 = r & ~15, c & ~15
+        if d.cdef_idx.get((r0, c0), -1) == -1:
+            v = self.sd.literal(d.cdef_bits)
+            d.cdef_idx[(r0, c0)] = v
+            for y in range(r0, r0 + BH4[bsize], 16):
+                for x in range(c0, c0 + BW4[bsize], 16):
+                    d.cdef_idx[(y, x)] = v
+
+    def read_delta_q(self):
+        d, sd = self.d, self.sd
+        v = sd.symbol(self.cdf["DELTA_Q"])
+        if v == 3:
+            bits = sd.literal(3) + 1
+            v = sd.literal(bits) + (1 << bits) + 1
+        if v:
+            if sd.literal(1):
+                v = -v
+            self.current_q = max(1, min(255, self.current_q +
+                                        (v << d.delta_q_res)))
+
+    def read_delta_lf(self):
+        d, sd = self.d, self.sd
+        if not d.delta_lf_present:
+            return
+        n = 1
+        if d.delta_lf_multi:
+            n = 4 if d.nplanes > 1 else 2
+        for i in range(n):
+            cdf = self.cdf["DELTA_LF_MULTI"][i] if d.delta_lf_multi else \
+                self.cdf["DELTA_LF"]
+            v = sd.symbol(cdf)
+            if v == 3:
+                bits = sd.literal(3) + 1
+                v = sd.literal(bits) + (1 << bits) + 1
+            if v:
+                if sd.literal(1):
+                    v = -v
+                self.delta_lf[i] = max(-63, min(63, self.delta_lf[i] +
+                                                (v << d.delta_lf_res)))
+
+    def read_cfl(self, b):
+        sd, cdf = self.sd, self.cdf
+        signs = sd.symbol(cdf["CFL_SIGN"])
+        su, sv = (signs + 1) // 3, (signs + 1) % 3
+        if su:
+            a = sd.symbol(cdf["CFL_ALPHA"][(su - 1) * 3 + sv]) + 1
+            b.cfl_u = -a if su == 1 else a
+        if sv:
+            a = sd.symbol(cdf["CFL_ALPHA"][(sv - 1) * 3 + su]) + 1
+            b.cfl_v = -a if sv == 1 else a
+
+    # ---- palettes -----------------------------------------------------------
+    def palette_cache(self, b, r, c, plane, above, left):
+        above_n = left_n = 0
+        if (r * 4) % 64 and above is not None:
+            above_n = above.pal_size[plane]
+        if left is not None:
+            left_n = left.pal_size[plane]
+        ac = above.pal_colors[plane] if above_n else ()
+        lc = left.pal_colors[plane] if left_n else ()
+        ai = li = 0
+        cache = []
+        while ai < above_n and li < left_n:
+            a, l_ = ac[ai], lc[li]
+            if l_ < a:
+                if not cache or l_ != cache[-1]:
+                    cache.append(l_)
+                li += 1
+            else:
+                if not cache or a != cache[-1]:
+                    cache.append(a)
+                ai += 1
+                if l_ == a:
+                    li += 1
+        for v in list(ac[ai:above_n]) + list(lc[li:left_n]):
+            if not cache or v != cache[-1]:
+                cache.append(v)
+        return cache
+
+    def _palette_colors(self, b, r, c, plane, n, above, left):
+        d, sd = self.d, self.sd
+        bd = d.bd
+        cache = self.palette_cache(b, r, c, plane, above, left)
+        colors = []
+        for v in cache:
+            if len(colors) >= n:
+                break
+            if sd.literal(1):
+                colors.append(v)
+        if len(colors) < n:
+            colors.append(sd.literal(bd))
+        if len(colors) < n:
+            bits = bd - 3 + sd.literal(2)
+            while len(colors) < n:
+                delta = sd.literal(bits)
+                if plane == 0:
+                    delta += 1
+                v = min(colors[-1] + delta, (1 << bd) - 1)
+                colors.append(v)
+                rng = (1 << bd) - v - (1 if plane == 0 else 0)
+                bits = min(bits, max(rng - 1, 0).bit_length()
+                           if rng > 0 else 0)
+        return sorted(colors)
+
+    def palette_mode_info(self, b, r, c, above, left):
+        d, sd, cdf = self.d, self.sd, self.cdf
+        bctx = BLOG2W[b.size] + BLOG2H[b.size] - 2
+        ny = nuv = 0
+        ycol, ucol, vcol = (), (), ()
+        if b.y_mode == DC_PRED:
+            ctx = (1 if above is not None and above.pal_size[0] else 0) + \
+                  (1 if left is not None and left.pal_size[0] else 0)
+            if sd.symbol(cdf["PALETTE_Y_MODE"][bctx][ctx]):
+                ny = sd.symbol(cdf["PALETTE_Y_SIZE"][bctx]) + 2
+                ycol = tuple(self._palette_colors(b, r, c, 0, ny, above,
+                                                  left))
+        if self.has_chroma and b.uv_mode == DC_PRED:
+            if sd.symbol(cdf["PALETTE_UV_MODE"][1 if ny else 0]):
+                nuv = sd.symbol(cdf["PALETTE_UV_SIZE"][bctx]) + 2
+                ucol = tuple(self._palette_colors(b, r, c, 1, nuv, above,
+                                                  left))
+                bd = d.bd
+                if sd.literal(1):
+                    bits = bd - 4 + sd.literal(2)
+                    mx = 1 << bd
+                    v = [sd.literal(bd)]
+                    for _ in range(1, nuv):
+                        delta = sd.literal(bits)
+                        if delta and sd.literal(1):
+                            delta = -delta
+                        val = v[-1] + delta
+                        if val < 0:
+                            val += mx
+                        if val >= mx:
+                            val -= mx
+                        v.append(min(max(val, 0), mx - 1))
+                    vcol = tuple(v)
+                else:
+                    vcol = tuple(sd.literal(bd) for _ in range(nuv))
+        b.pal_size = (ny, nuv)
+        b.pal_colors = (ycol, ucol)
+        b.pal_v = vcol
+
+    def _color_map(self, n, bw, bh, onw, onh, plane_cdf):
+        sd = self.sd
+        cm = [[0] * bw for _ in range(bh)]
+        cm[0][0] = sd.ns(n)
+        cdfs = plane_cdf[n - 2]
+        for i in range(1, onh + onw - 1):
+            for j in range(min(i, onw - 1), max(0, i - onh + 1) - 1, -1):
+                r_, c_ = i - j, j
+                scores = [0] * 8
+                if c_ > 0:
+                    scores[cm[r_][c_ - 1]] += 2
+                if r_ > 0 and c_ > 0:
+                    scores[cm[r_ - 1][c_ - 1]] += 1
+                if r_ > 0:
+                    scores[cm[r_ - 1][c_]] += 2
+                order = list(range(8))
+                for k in range(3):
+                    mxs, mxi = scores[k], k
+                    for m in range(k + 1, n):
+                        if scores[m] > mxs:
+                            mxs, mxi = scores[m], m
+                    if mxi != k:
+                        mxs = scores[mxi]
+                        mo = order[mxi]
+                        for m in range(mxi, k, -1):
+                            scores[m] = scores[m - 1]
+                            order[m] = order[m - 1]
+                        scores[k] = mxs
+                        order[k] = mo
+                h = scores[0] + 2 * scores[1] + 2 * scores[2]
+                idx = sd.symbol(cdfs[PALETTE_COLOR_CONTEXT[h]])
+                cm[r_][c_] = order[idx]
+        for i in range(onh):
+            for j in range(onw, bw):
+                cm[i][j] = cm[i][onw - 1]
+        for i in range(onh, bh):
+            cm[i] = list(cm[onh - 1])
+        return cm
+
+    def palette_tokens(self, b, r, c):
+        d = self.d
+        bw, bh = 4 * BW4[b.size], 4 * BH4[b.size]
+        onh = min(bh, (d.mi_rows - r) * 4)
+        onw = min(bw, (d.mi_cols - c) * 4)
+        if b.pal_size[0]:
+            b.color_map_y = self._color_map(b.pal_size[0], bw, bh, onw, onh,
+                                            self.cdf["PALETTE_Y_COLOR"])
+        if b.pal_size[1]:
+            bw >>= d.ssx
+            bh >>= d.ssy
+            onw >>= d.ssx
+            onh >>= d.ssy
+            if bw < 4:
+                bw += 2
+                onw += 2
+            if bh < 4:
+                bh += 2
+                onh += 2
+            b.color_map_uv = self._color_map(b.pal_size[1], bw, bh, onw, onh,
+                                             self.cdf["PALETTE_UV_COLOR"])
+
+    # ---- transform size -----------------------------------------------------
+    def read_tx_size(self, b, r, c, above, left):
+        d = self.d
+        bsize = b.size
+        if b.lossless:
+            b.tx_size = TX_4X4
+            return
+        tx = MAX_TX_RECT[bsize]
+        if d.tx_mode_select and b.is_inter and not b.skip and bsize > B4X4:
+            from .av1_mv import read_var_tx_size
+            b.tx_size = read_var_tx_size(self, b, r, c)
+            return
+        if bsize > B4X4 and (not b.skip or not b.is_inter) and \
+                d.tx_mode_select:
+            mw, mh = TXW[tx], TXH[tx]
+            if above is None:
+                aw = 0
+            elif above.is_inter:
+                aw = 4 * BW4[above.size]
+            else:
+                aw = self.above_tx_w(r, c)
+            if left is None:
+                lh = 0
+            elif left.is_inter:
+                lh = 4 * BH4[left.size]
+            else:
+                lh = self.left_tx_h(r, c)
+            ctx = (aw >= mw) + (lh >= mh)
+            depth = self.sd.symbol(self.cdf["TX_SIZE"][TX_CAT[bsize]][ctx])
+            for _ in range(depth):
+                tx = SPLIT_TX[tx]
+        b.tx_size = tx
+
+    def above_tx_w(self, r, c):
+        a = self.d.mi[r - 1][c]
+        if a.skip and a.is_inter:
+            return 4 * BW4[a.size]
+        return TXW[self.d.inter_tx[r - 1][c]]
+
+    def left_tx_h(self, r, c):
+        a = self.d.mi[r][c - 1]
+        if a.skip and a.is_inter:
+            return 4 * BH4[a.size]
+        return TXH[self.d.inter_tx[r][c - 1]]
+
+    def reset_block_context(self, b):
+        d = self.d
+        bw4, bh4 = BW4[b.size], BH4[b.size]
+        for p in range(1 + 2 * self.has_chroma):
+            sx, sy = (d.ssx, d.ssy) if p else (0, 0)
+            al, ad = self.above_level[p], self.above_dc[p]
+            for i in range(b.col >> sx, (b.col + bw4) >> sx):
+                al[i] = 0
+                ad[i] = 0
+            ll, ld = self.left_level[p], self.left_dc[p]
+            for i in range(b.row >> sy, (b.row + bh4) >> sy):
+                ll[i] = 0
+                ld[i] = 0
+
+    # ---- residual -----------------------------------------------------------
+    def plane_tx_size(self, b, plane):
+        if plane == 0:
+            return b.tx_size
+        d = self.d
+        pw = max(BW4[b.size] >> d.ssx, 1)
+        ph = max(BH4[b.size] >> d.ssy, 1)
+        uv = MAX_TX_RECT[_BSIZE[(pw, ph)]]
+        if TXW[uv] == 64 or TXH[uv] == 64:
+            if TXW[uv] == 16:
+                return _TXSIZE[(16, 32)]
+            if TXH[uv] == 16:
+                return _TXSIZE[(32, 16)]
+            return _TXSIZE[(32, 32)]
+        return uv
+
+    def residual(self, b):
+        d = self.d
+        bw4, bh4 = BW4[b.size], BH4[b.size]
+        wchunks = max(1, bw4 >> 4)
+        hchunks = max(1, bh4 >> 4)
+        self.max_luma = (0, 0)
+        var_tx = b.var_tx is not None
+        for cy in range(hchunks):
+            for cx in range(wchunks):
+                for p in range(1 + 2 * self.has_chroma):
+                    tx = TX_4X4 if b.lossless else self.plane_tx_size(b, p)
+                    step_x, step_y = TXW[tx] >> 2, TXH[tx] >> 2
+                    sx, sy = (d.ssx, d.ssy) if p else (0, 0)
+                    pw4 = max(bw4 >> sx, 1)
+                    ph4 = max(bh4 >> sy, 1)
+                    base_x = (b.col >> sx) * 4
+                    base_y = (b.row >> sy) * 4
+                    if var_tx and p == 0:
+                        for (tx_, ox, oy) in b.var_tx:
+                            if (ox >> 4) == cx and (oy >> 4) == cy:
+                                self.transform_block(b, 0, base_x, base_y,
+                                                     tx_, ox, oy)
+                        continue
+                    y0 = (cy * 16) >> sy
+                    x0 = (cx * 16) >> sx
+                    for y in range(y0, min(ph4, y0 + (16 >> sy)), step_y):
+                        for x in range(x0, min(pw4, x0 + (16 >> sx)),
+                                       step_x):
+                            self.transform_block(b, p, base_x, base_y, tx,
+                                                 x, y)
+
+    def transform_block(self, b, plane, base_x, base_y, tx, x, y):
+        d = self.d
+        start_x, start_y = base_x + 4 * x, base_y + 4 * y
+        sx, sy = (d.ssx, d.ssy) if plane else (0, 0)
+        row = (start_y << sy) >> 2
+        col = (start_x << sx) >> 2
+        sb_r = row - self.sb_r
+        sb_c = col - self.sb_c
+        step_x, step_y = TXW[tx] >> 2, TXH[tx] >> 2
+        if start_x >= (d.mi_cols * 4) >> sx or \
+                start_y >= (d.mi_rows * 4) >> sy:
+            return
+        g = self.decoded[plane]
+        gy, gx = (sb_r >> sy) + 1, (sb_c >> sx) + 1
+        if not b.is_inter:
+            if plane == 0:
+                avail_l, avail_u = self.avail_l, self.avail_u
+            else:
+                avail_l, avail_u = self.avail_lc, self.avail_uc
+            have_left = avail_l or x > 0
+            have_above = avail_u or y > 0
+            gxr = gx + step_x
+            have_ar = g[gy - 1][gxr] if gxr < len(g[0]) else 0
+            gyb = gy + step_y
+            have_bl = g[gyb][gx - 1] if gyb < len(g) else 0
+            rec = [plane, start_x, start_y, tx, b, have_left, have_above,
+                   have_ar, have_bl, x, y, None, None]
+            if plane == 0:
+                self.max_luma = (start_x + step_x * 4, start_y + step_y * 4)
+            else:
+                rec[12] = self.max_luma
+        else:
+            rec = [plane, start_x, start_y, tx, b, 0, 0, 0, 0, x, y, None,
+                   None]
+        if not b.skip:
+            rec[11] = self.coeffs(b, plane, start_x, start_y, tx)
+        d.records.append(rec)
+        lf = d.lf_tx[plane]
+        lf[row >> sy:(row >> sy) + step_y, col >> sx:(col >> sx) + step_x] \
+            = tx
+        for i in range(step_y):
+            if gy + i < len(g):
+                gr = g[gy + i]
+                for j in range(step_x):
+                    if gx + j < len(gr):
+                        gr[gx + j] = 1
+
+    # ---- coefficients -------------------------------------------------------
+    def tx_set(self, b, tx):
+        sqr_up = TX_SQR_UP[tx]
+        if sqr_up > 3:
+            return SET_DCTONLY
+        if b.is_inter:
+            if self.d.reduced_tx_set or sqr_up == 3:
+                return SET_INTER_3
+            if TX_SQR[tx] == 2:
+                return SET_INTER_2
+            return SET_INTER_1
+        if sqr_up == 3:
+            return SET_DCTONLY
+        if self.d.reduced_tx_set:
+            return SET_INTRA_2
+        if TX_SQR[tx] == 2:
+            return SET_INTRA_2
+        return SET_INTRA_1
+
+    def read_tx_type(self, b, tx):
+        d = self.d
+        tset = self.tx_set(b, tx)
+        q = d.qidx(b.seg, None)
+        if tset > 0 and q > 0:
+            sd, cdf = self.sd, self.cdf
+            sqr = TX_SQR[tx]
+            if b.is_inter:
+                if tset == SET_INTER_1:
+                    return INTER_SET1[sd.symbol(cdf["INTER_TX_SET1"][sqr])]
+                if tset == SET_INTER_2:
+                    return INTER_SET2[sd.symbol(cdf["INTER_TX_SET2"][sqr])]
+                return INTER_SET3[sd.symbol(cdf["INTER_TX_SET3"][sqr])]
+            mode = FILTER_INTRA_DIR[b.filter_mode] if b.filter_mode >= 0 \
+                else b.y_mode
+            if tset == SET_INTRA_1:
+                return INTRA_SET1[sd.symbol(cdf["INTRA_TX_SET1"][sqr][mode])]
+            return INTRA_SET2[sd.symbol(cdf["INTRA_TX_SET2"][sqr][mode])]
+        return DCT_DCT
+
+    def plane_tx_type(self, b, plane, tx, luma_type):
+        if b.lossless or TX_SQR_UP[tx] > 3:
+            return DCT_DCT
+        if plane == 0:
+            return luma_type
+        t = luma_type if b.is_inter else MODE_TO_TXFM[b.uv_mode]
+        tset = self.tx_set(b, tx)
+        if t not in _IN_SET.get(tset, ()):
+            return DCT_DCT
+        return t
+
+    def coeffs(self, b, plane, x, y, tx):
+        """Reads one transform block's coefficients; returns (tx type,
+        {position: signed level}, dc quantiser, ac quantiser, qm level) or
+        None when all are zero."""
+        d, sd, cdf = self.d, self.sd, self.cdf
+        sx, sy = (d.ssx, d.ssy) if plane else (0, 0)
+        x4, y4 = x >> 2, y >> 2
+        w4, h4 = TXW[tx] >> 2, TXH[tx] >> 2
+        max_x4 = d.mi_cols >> sx
+        max_y4 = d.mi_rows >> sy
+        tx_ctx = (TX_SQR[tx] + TX_SQR_UP[tx] + 1) >> 1
+        ptype = 1 if plane else 0
+        al, ad = self.above_level[plane], self.above_dc[plane]
+        ll, ld = self.left_level[plane], self.left_dc[plane]
+        xe = min(x4 + w4, max_x4)
+        ye = min(y4 + h4, max_y4)
+        if plane == 0:
+            bw, bh = 4 * BW4[b.size], 4 * BH4[b.size]
+            if TXW[tx] == bw and TXH[tx] == bh:
+                ctx = 0
+            else:
+                top = max(al[x4:xe], default=0)
+                left = max(ll[y4:ye], default=0)
+                top, left = min(top, 255), min(left, 255)
+                if top == 0 and left == 0:
+                    ctx = 1
+                elif top == 0 or left == 0:
+                    ctx = 2 + (max(top, left) > 3)
+                elif max(top, left) <= 3:
+                    ctx = 4
+                elif min(top, left) <= 3:
+                    ctx = 5
+                else:
+                    ctx = 6
+        else:
+            above = any(al[x4:xe]) or any(ad[x4:xe])
+            left = any(ll[y4:ye]) or any(ld[y4:ye])
+            ctx = 7 + above + left
+            pw = max(BW4[b.size] >> d.ssx, 1) * 4
+            ph = max(BH4[b.size] >> d.ssy, 1) * 4
+            if pw * ph > TXW[tx] * TXH[tx]:
+                ctx += 3
+        all_zero = sd.symbol(cdf["TXB_SKIP"][tx_ctx][ctx])
+        if all_zero:
+            if plane == 0:
+                self.set_tx_types(b, x4, y4, w4, h4, DCT_DCT)
+            for i in range(x4, x4 + w4):
+                al[i] = 0
+                ad[i] = 0
+            for i in range(y4, y4 + h4):
+                ll[i] = 0
+                ld[i] = 0
+            return None
+        if plane == 0:
+            ltype = self.read_tx_type(b, tx)
+            self.set_tx_types(b, x4, y4, w4, h4, ltype)
+        else:
+            ltype = self.luma_tx_type_at(b, x, y) if b.is_inter else None
+        txtype = self.plane_tx_type(b, plane, tx, ltype)
+        cls = TX_CLASS[txtype]
+        info = _scan_info(tx, txtype)
+        scan, stride, ppos, base_off, br_off, nb_base, nb_br = info
+        adj = TX_ADJ[tx]
+        area = TXW[adj] * TXH[adj]
+        eob_multi = min(TXLW[tx], 5) + min(TXLH[tx], 5) - 4
+        ectx = 0 if cls == CLASS_2D else 1
+        eob_cdf = cdf[("EOB_PT_16", "EOB_PT_32", "EOB_PT_64", "EOB_PT_128",
+                       "EOB_PT_256", "EOB_PT_512", "EOB_PT_1024")[eob_multi]]
+        eob_pt = sd.symbol(eob_cdf[ptype][ectx]) + 1
+        eob = eob_pt if eob_pt < 2 else (1 << (eob_pt - 2)) + 1
+        shift = eob_pt - 3
+        if shift >= 0:
+            if sd.symbol(cdf["EOB_EXTRA"][tx_ctx][ptype][eob_pt - 3]):
+                eob += 1 << shift
+            for i in range(1, max(0, eob_pt - 2)):
+                if sd.literal(1):
+                    eob += 1 << (max(0, eob_pt - 2) - 1 - i)
+        lv = [0] * ((TXH[adj] + 4) * stride)
+        base_cdf = cdf["COEFF_BASE"][tx_ctx][ptype]
+        br_cdf = cdf["COEFF_BR"][min(tx_ctx, 3)][ptype]
+        eob_base = cdf["COEFF_BASE_EOB"][tx_ctx][ptype]
+        symbol = sd.symbol
+        for c in range(eob - 1, -1, -1):
+            pos = scan[c]
+            p = ppos[pos]
+            if c == eob - 1:
+                ectx2 = 0 if c == 0 else 1 if c <= area // 8 else \
+                    2 if c <= area // 4 else 3
+                level = symbol(eob_base[ectx2]) + 1
+            else:
+                a0, a1, a2, a3, a4 = nb_base
+                mag = (min(lv[p + a0], 3) + min(lv[p + a1], 3) +
+                       min(lv[p + a2], 3) + min(lv[p + a3], 3) +
+                       min(lv[p + a4], 3))
+                off = base_off[pos]
+                ctx = 0 if off < 0 else min((mag + 1) >> 1, 4) + off
+                level = symbol(base_cdf[ctx])
+            if level > 2:
+                b0, b1, b2 = nb_br
+                mag = (min(lv[p + b0], 15) + min(lv[p + b1], 15) +
+                       min(lv[p + b2], 15))
+                mag = min((mag + 1) >> 1, 6)
+                bcdf = br_cdf[mag + br_off[pos]]
+                for _ in range(4):
+                    k = symbol(bcdf)
+                    level += k
+                    if k < 3:
+                        break
+            lv[p] = level
+        out = {}
+        cul = 0
+        dc_cat = 0
+        for c in range(eob):
+            pos = scan[c]
+            level = lv[ppos[pos]]
+            if not level:
+                continue
+            if c == 0:
+                dsign = 0
+                for i in range(x4, xe):
+                    s_ = ad[i]
+                    dsign += -1 if s_ == 1 else 1 if s_ == 2 else 0
+                for i in range(y4, ye):
+                    s_ = ld[i]
+                    dsign += -1 if s_ == 1 else 1 if s_ == 2 else 0
+                dctx = 1 if dsign < 0 else 2 if dsign > 0 else 0
+                sign = symbol(cdf["DC_SIGN"][ptype][dctx])
+            else:
+                sign = sd.literal(1)
+            if level > 14:
+                length = 0
+                while True:
+                    length += 1
+                    if sd.literal(1):
+                        break
+                    if length > 32:
+                        raise IOError("AV1: bad Golomb code")
+                g = 1
+                for _ in range(length - 1):
+                    g = (g << 1) | sd.literal(1)
+                level = g + 14
+            if pos == 0:
+                dc_cat = 1 if sign else 2
+            level &= 0xfffff
+            cul += level
+            out[pos] = -level if sign else level
+        cul = min(63, cul)
+        for i in range(x4, x4 + w4):
+            al[i] = cul
+            ad[i] = dc_cat
+        for i in range(y4, y4 + h4):
+            ll[i] = cul
+            ld[i] = dc_cat
+        # dequantisation parameters
+        q = d.qidx(b.seg, b.qindex)
+        bi = (d.bd - 8) >> 1
+        dcq = T.DC_Q[bi][max(0, min(255, q + d.dq[plane][0]))]
+        acq = T.AC_Q[bi][max(0, min(255, q + d.dq[plane][1]))]
+        qm = d.seg_qm[plane][b.seg] if txtype < IDTX else 15
+        return (txtype, out, dcq, acq, qm)
+
+    def set_tx_types(self, b, x4, y4, w4, h4, t):
+        for j in range(h4):
+            for i in range(w4):
+                self.tx_types[(y4 + j, x4 + i)] = t
+
+    def luma_tx_type_at(self, b, x, y):
+        d = self.d
+        # the luma transform type at the chroma block's top-left 4 x 4
+        y4 = max(b.row, (y >> 2) << d.ssy)
+        x4 = max(b.col, (x >> 2) << d.ssx)
+        return self.tx_types.get((y4, x4), DCT_DCT)
+
+
+# ---- scans and coefficient contexts -------------------------------------
+def _default_scan(w, h):
+    out = []
+    if w == h:
+        for s in range(w + h - 1):
+            cells = [(r, s - r) for r in range(max(0, s - w + 1),
+                                              min(h, s + 1))]
+            if s % 2 == 0:
+                cells.reverse()
+            out += [r * w + c for r, c in cells]
+    elif w < h:
+        for s in range(w + h - 1):
+            out += [r * w + (s - r) for r in range(max(0, s - w + 1),
+                                                  min(h, s + 1))]
+    else:
+        for s in range(w + h - 1):
+            out += [r * w + (s - r) for r in range(min(h, s + 1) - 1,
+                                                  max(0, s - w + 1) - 1, -1)]
+    return out
+
+
+_SCAN_CACHE = {}
+
+
+def _base_ctx_offset(w, h, row, col):
+    if row == 0 and col == 0:
+        return -1
+    if w == h:
+        if row + col == 1:
+            return 1
+        return 6 if row + col <= 3 else 21
+    if w > h:
+        if col < 2:
+            return 16
+        return 6 if row + col <= 3 else 21
+    if row < 2:
+        return 11
+    return 6 if row + col <= 3 else 21
+
+
+def _scan_info(tx, txtype):
+    key = (tx, txtype)
+    info = _SCAN_CACHE.get(key)
+    if info is not None:
+        return info
+    adj = TX_ADJ[tx]
+    w, h = TXW[adj], TXH[adj]
+    cls = TX_CLASS[txtype]
+    n = w * h
+    if tx in (17, 18) or TX_SQR_UP[tx] == 4 or txtype == IDTX:
+        scan = _default_scan(w, h)
+    elif cls == CLASS_VERT:
+        scan = list(range(n))
+    elif cls == CLASS_HORIZ:
+        scan = [r * w + c for c in range(w) for r in range(h)]
+    else:
+        scan = _default_scan(w, h)
+    stride = w + 4
+    ppos = [(pos // w) * stride + pos % w for pos in range(n)]
+    if cls == CLASS_2D:
+        nb = ((0, 1), (1, 0), (1, 1), (0, 2), (2, 0))
+        nbr = ((0, 1), (1, 0), (1, 1))
+    elif cls == CLASS_HORIZ:
+        nb = ((0, 1), (1, 0), (0, 2), (0, 3), (0, 4))
+        nbr = ((0, 1), (1, 0), (0, 2))
+    else:
+        nb = ((0, 1), (1, 0), (2, 0), (3, 0), (4, 0))
+        nbr = ((0, 1), (1, 0), (2, 0))
+    nb_base = tuple(dr * stride + dc for dr, dc in nb)
+    nb_br = tuple(dr * stride + dc for dr, dc in nbr)
+    base_off, br_off = [], []
+    for pos in range(n):
+        row, col = divmod(pos, w)
+        if cls == CLASS_2D:
+            base_off.append(_base_ctx_offset(TXW[tx], TXH[tx], row, col))
+            br_off.append(0 if pos == 0 else 7 if row < 2 and col < 2
+                          else 14)
+        else:
+            idx = row if cls == CLASS_VERT else col
+            base_off.append(26 + 5 * min(idx, 2))
+            br_off.append(0 if pos == 0 else 7 if idx == 0 else 14)
+    info = (scan, stride, ppos, base_off, br_off, nb_base, nb_br)
+    _SCAN_CACHE[key] = info
+    return info
+
+
+def decode_av1(data: bytes, name: str = "") -> Frame:
+    """Decode an AV1 still image (a sequence of OBUs) to its planes."""
+    from .av1_recon import reconstruct
+    dec = Decoder(data, name)
+    return reconstruct(dec)

@@ -1,0 +1,308 @@
+"""AVIF read as OpenCV reads it: the HEIF container (ISO BMFF, MIAF), the
+AV1 image item decoded by utils/av1.py, and libavif's YUV to RGB
+conversion as libavif 1.4.2 makes it for cv2.imread (utils/yuv.py).
+
+What is read: `ftyp` brands `avif` and `avis`; `meta` with `hdlr`, `pitm`,
+`iloc` (versions 0-2, construction methods 0 and 1, several extents),
+`iinf`/`infe`, `iref` and `idat`; the item properties `av1C` and `colr`
+(nclx; an ICC profile is passed over, as cv2 ignores it) through `ipma`,
+and `auxC` of the items that refer to the primary one. The primary item
+is decoded, never an alpha (`auxl`) item; an animated `avis` file by its
+primary item, the first frame, as cv2 reads it. As cv2 does, `irot`,
+`imir` and `clap` are not applied, alpha is dropped and a monochrome
+image is its Y plane as it is. 8-bit files come back as uint8, 10- and
+12-bit files as uint16 at their own range (0-1023, 0-4095), as cv2
+returns them.
+
+An image sequence without a primary item, a grid (derived) primary
+item, a colour matrix other than BT.601 or the identity, and the AV1
+tools of utils/av1.py's list raise NotImplementedError naming them, as
+no writer here makes them. A file cv2 reads nothing from (a damaged
+one, or a grey image with an alpha item, which cv2 refuses as two
+channels) raises IOError.
+"""
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+
+class _Box:
+    __slots__ = ("type", "end", "body")
+
+    def __init__(self, type_, end, body):
+        self.type, self.end, self.body = type_, end, body
+
+
+def _boxes(data: bytes, start: int, end: int):
+    pos = start
+    while pos + 8 <= end:
+        size, kind = struct.unpack_from(">I4s", data, pos)
+        head = 8
+        if size == 1:
+            size = struct.unpack_from(">Q", data, pos + 8)[0]
+            head = 16
+        elif size == 0:
+            size = end - pos
+        if size < head or pos + size > end:
+            raise IOError("AVIF: truncated box")
+        yield _Box(kind.decode("latin-1"), pos + size, pos + head)
+        pos += size
+
+
+def _children(data, box, skip=0):
+    return list(_boxes(data, box.body + skip, box.end))
+
+
+def _uint(data, pos, n):
+    return int.from_bytes(data[pos:pos + n], "big") if n else 0
+
+
+def _parse_iloc(data, box):
+    version = data[box.body]
+    p = box.body + 4
+    sizes = data[p] << 8 | data[p + 1]
+    off_size, len_size = sizes >> 12, (sizes >> 8) & 15
+    base_size, idx_size = (sizes >> 4) & 15, sizes & 15
+    p += 2
+    if version < 2:
+        count = _uint(data, p, 2)
+        p += 2
+    else:
+        count = _uint(data, p, 4)
+        p += 4
+    items = {}
+    for _ in range(count):
+        n = 2 if version < 2 else 4
+        item = _uint(data, p, n)
+        p += n
+        method = 0
+        if version in (1, 2):
+            method = _uint(data, p, 2) & 15
+            p += 2
+        p += 2                                  # data_reference_index
+        base = _uint(data, p, base_size)
+        p += base_size
+        extents = []
+        n_ext = _uint(data, p, 2)
+        p += 2
+        for _ in range(n_ext):
+            if version in (1, 2) and idx_size:
+                p += idx_size
+            off = _uint(data, p, off_size)
+            p += off_size
+            length = _uint(data, p, len_size)
+            p += len_size
+            extents.append((base + off, length))
+        items[item] = (method, extents)
+    return items
+
+
+def _parse_meta(data, meta):
+    out = {"items": {}, "props": [], "assoc": {}, "refs": [], "pitm": None,
+           "idat": b"", "iloc": {}}
+    for box in _children(data, meta, 4):
+        b = box.body
+        if box.type == "pitm":
+            out["pitm"] = _uint(data, b + 4, 2 if data[b] == 0 else 4)
+        elif box.type == "iloc":
+            out["iloc"] = _parse_iloc(data, box)
+        elif box.type == "idat":
+            out["idat"] = data[b:box.end]
+        elif box.type == "iinf":
+            n = 2 if data[b] == 0 else 4
+            for infe in _boxes(data, b + 4 + n, box.end):
+                v, q = data[infe.body], infe.body + 4
+                if v < 2:
+                    continue
+                m = 2 if v == 2 else 4
+                item = _uint(data, q, m)
+                kind = data[q + m + 2:q + m + 6].decode("latin-1")
+                out["items"][item] = kind
+        elif box.type == "iref":
+            n = 2 if data[b] == 0 else 4
+            for ref in _boxes(data, b + 4, box.end):
+                q = ref.body
+                frm = _uint(data, q, n)
+                cnt = _uint(data, q + n, 2)
+                to = [_uint(data, q + n + 2 + k * n, n) for k in range(cnt)]
+                out["refs"].append((ref.type, frm, to))
+        elif box.type == "iprp":
+            for sub in _children(data, box):
+                if sub.type == "ipco":
+                    out["props"] = _children(data, sub)
+                elif sub.type == "ipma":
+                    v, flags = data[sub.body], _uint(data, sub.body + 1, 3)
+                    count = _uint(data, sub.body + 4, 4)
+                    q = sub.body + 8
+                    for _ in range(count):
+                        n = 2 if v < 1 else 4
+                        item = _uint(data, q, n)
+                        q += n
+                        cnt = data[q]
+                        q += 1
+                        idx = []
+                        for _ in range(cnt):
+                            if flags & 1:
+                                idx.append(_uint(data, q, 2) & 0x7fff)
+                                q += 2
+                            else:
+                                idx.append(data[q] & 0x7f)
+                                q += 1
+                        out["assoc"][item] = idx
+    return out
+
+
+def _item_data(data, meta, item):
+    if item not in meta["iloc"]:
+        raise IOError(f"AVIF: item {item} has no location")
+    method, extents = meta["iloc"][item]
+    if method not in (0, 1):
+        raise NotImplementedError(
+            f"AVIF: iloc construction method {method} is not ported")
+    src = data if method == 0 else meta["idat"]
+    parts = []
+    for off, length in extents:
+        if length == 0:
+            length = len(src) - off
+        if off + length > len(src):
+            raise IOError("AVIF: item data past the end of the file")
+        parts.append(src[off:off + length])
+    return b"".join(parts)
+
+
+def _is_alpha(data, meta, item):
+    """Whether an auxiliary item's auxC names an alpha plane."""
+    for idx in meta["assoc"].get(item, []):
+        if 1 <= idx <= len(meta["props"]):
+            prop = meta["props"][idx - 1]
+            if prop.type == "auxC":
+                urn = data[prop.body + 4:prop.end].split(b"\0")[0]
+                return urn in (b"urn:mpeg:mpegB:cicp:systems:auxiliary:alpha",
+                               b"urn:mpeg:hevc:2015:auxid:1")
+    return False
+
+
+def parse_avif(data: bytes) -> dict:
+    """The primary image's AV1 data (its av1C configuration OBUs first)
+    and properties: {'av1': bytes, 'nclx': (primaries, transfer, matrix,
+    full range) or None, 'alpha': whether an alpha item refers to it}."""
+    top = list(_boxes(data, 0, len(data)))
+    if not top or top[0].type != "ftyp":
+        raise IOError("AVIF: no ftyp box")
+    meta = next((b for b in top if b.type == "meta"), None)
+    moov = next((b for b in top if b.type == "moov"), None)
+    out = {"nclx": None, "alpha": False}
+    if meta is not None:
+        m = _parse_meta(data, meta)
+        item = m["pitm"]
+        if item is not None and m["items"].get(item) == "av01":
+            out["av1"] = _item_data(data, m, item)
+            out["alpha"] = any(kind == "auxl" and item in to and
+                               _is_alpha(data, m, frm)
+                               for kind, frm, to in m["refs"])
+            for idx in m["assoc"].get(item, []):
+                if not 1 <= idx <= len(m["props"]):
+                    continue
+                prop = m["props"][idx - 1]
+                b = prop.body
+                if prop.type == "av1C":
+                    out["av1"] = data[b + 4:prop.end] + out["av1"]
+                elif prop.type == "colr" and data[b:b + 4] == b"nclx":
+                    cp, tc, mc = struct.unpack_from(">HHH", data, b + 4)
+                    out["nclx"] = (cp, tc, mc, data[b + 10] >> 7)
+            return out
+        if item is not None and m["items"].get(item) is not None:
+            raise NotImplementedError(
+                f"AVIF: primary item of type '{m['items'][item]}' (a grid "
+                "or derived image) is not ported")
+    if moov is not None:
+        raise NotImplementedError(
+            "AVIF: an image sequence without a primary item is not ported: "
+            "no writer here makes one")
+    raise IOError("AVIF: no primary image item")
+
+
+def decode_avif(data: bytes, name: str = "") -> np.ndarray:
+    """The primary image as cv2.imread(IMREAD_UNCHANGED | ANYDEPTH |
+    ANYCOLOR) gives it, as [h, w, 3] RGB (grey replicated, alpha
+    dropped): uint8 for 8-bit files, uint16 at the file's own range
+    for 10- and 12-bit ones."""
+    return decode_avif_depth(data, name)[0]
+
+
+def decode_avif_depth(data: bytes, name: str = ""):
+    """(decode_avif's samples, the image's bit depth)."""
+    from .av1 import decode_av1
+    info = parse_avif(data)
+    frame = decode_av1(info["av1"], name)
+    nclx = info["nclx"]
+    if nclx is None:
+        nclx = (frame.color_primaries, frame.transfer, frame.matrix,
+                frame.full_range)
+    if frame.mono:
+        if info["alpha"]:
+            # cv2 would read two channels, and reads nothing
+            raise IOError(f"Cannot load image {name}: a grey AVIF with "
+                          "alpha, which OpenCV does not read")
+        y = frame.planes[0]
+        out = y.astype(np.uint8 if frame.bit_depth == 8 else np.uint16)
+        return np.repeat(out[..., None], 3, -1), frame.bit_depth
+    from .yuv import yuv_to_rgb
+    return yuv_to_rgb(frame.planes, frame.bit_depth, frame.ss_x,
+                      frame.ss_y, nclx[2], nclx[3]), frame.bit_depth
+
+
+def coding_tools(data: bytes) -> list:
+    """The AV1 coding tools a file switches on, read from its headers and
+    the mode info of its blocks: the evidence of the fixtures' tool table
+    (scripts/make_image_fixtures.py, tests/test_torch_avif.py)."""
+    from .av1 import TXH, TXW, UV_CFL, Decoder
+    info = parse_avif(data)
+    d = Decoder(info["av1"])
+    s = d.seq
+    fmt = "4:0:0" if s["mono"] else {(1, 1): "4:2:0", (1, 0): "4:2:2",
+                                      (0, 0): "4:4:4"}[(s["ssx"], s["ssy"])]
+    tools = {fmt, f"{d.bd}-bit", "full range" if s["full_range"]
+             else "limited range"}
+    flags = {"lossless": d.coded_lossless, "tx_mode_select":
+             d.tx_mode_select, "qm": d.using_qm, "delta_q":
+             d.delta_q_present, "delta_lf": d.delta_lf_present,
+             "segmentation": d.seg_enabled, "cdef": d.cdef_on and any(
+                 any(v) for v in d.cdef_y + d.cdef_uv),
+             "deblock": any(d.lf_level[:2]), "sharpness": d.lf_sharp > 0,
+             "sb128": s["sb128"], "screen_content": d.sct,
+             "allow_intrabc": d.allow_intrabc, "reduced_tx_set":
+             d.reduced_tx_set, "film_grain": d.grain is not None,
+             "tiles": len(d.col_starts) * len(d.row_starts) > 4,
+             "uv_delta_q": any(d.dq[1] + d.dq[2]),
+             "reduced_still_picture_header": s["reduced"],
+             "disable_cdf_update": d.disable_cdf_update,
+             "alpha": info["alpha"]}
+    tools |= {k for k, v in flags.items() if v}
+    for p, t in enumerate(d.lr_type):
+        if t:
+            kinds = {u[0] for u in d.lr_units[p].values()}
+            tools |= {{1: "lr_wiener", 2: "lr_sgrproj"}[k] for k in kinds
+                      if k}
+    blocks = {id(r[4]): r[4] for r in d.records}.values()
+    for b in blocks:
+        if b.pal_size[0] or b.pal_size[1]:
+            tools.add("palette")
+        if b.filter_mode >= 0:
+            tools.add("filter_intra")
+        if b.uv_mode == UV_CFL and not b.is_inter:
+            tools.add("cfl")
+        if b.use_intrabc:
+            tools.add("intrabc")
+        if b.angle_y or b.angle_uv:
+            tools.add("angle_delta")
+        if b.size in (13, 14, 15):
+            tools.add("128x128 blocks")
+    for r in d.records:
+        if max(TXW[r[3]], TXH[r[3]]) == 64 and r[11] is not None:
+            tools.add("tx64")
+    if data[8:12] == b"avis":
+        tools.add("avis")
+    return sorted(tools)

@@ -4,7 +4,7 @@ through OpenCV, read and written with numpy and zlib.
 The port's counterpart of ignis_tpu/utils/image.py, which goes through
 OpenCV. As OpenCV does, a file is read by the decoder its content names
 (`sniff`: PNG, JPEG, BMP, TIFF, PNM, PFM, Sun raster, Radiance, GIF,
-WebP and JPEG 2000 signatures), not by its suffix; EXR goes by its
+WebP, JPEG 2000 and AVIF signatures), not by its suffix; EXR goes by its
 suffix, as in ignis_tpu, and TGA, which has no signature, by its suffix
 where no signature matches; a file no decoder claims raises IOError, as
 ignis_tpu raises for cv2.imread's None.
@@ -24,7 +24,10 @@ TIFF goes through utils/tiff.py (written 8-bit LZW with the predictor,
 as cv2 writes it); GIF through utils/gif.py and WebP through
 utils/webp.py (read as cv2 reads them, written as cv2's default writers
 write them: the fixed 3-3-2 GIF table with its dithering, lossless
-WebP); PNM (P1-P6), PFM and Sun raster are read as OpenCV reads them
+WebP); AVIF through utils/avif.py and utils/av1.py (the HEIF container
+and an AV1 key-frame decoder, with libavif's YUV to RGB as cv2 gets it:
+8-bit files as uint8, 10- and 12-bit ones as uint16 at their own range);
+PNM (P1-P6), PFM and Sun raster are read as OpenCV reads them
 and written as cv2 writes them (binary P6, a little-endian PFM, a
 24-bit raster); TGA is read as uncompressed or run-length-encoded
 truecolour and written run-length encoded; EXR is read by the port's
@@ -33,8 +36,9 @@ own reader and written as scanline ZIP
 attributes); Radiance .hdr and .pic are read with flat or
 run-length-encoded scanlines and written flat, in the RGBE rounding of
 the rgbe.c that OpenCV uses. Integer input is scaled to [0, 1] (8-bit by
-1/255, 16-bit by 1/65535) and sRGB-decoded to linear unless `linear`;
-EXR, HDR, PFM and float TIFF are linear; AVIF and BigTIFF raise
+1/255, 16-bit by 1/65535, AVIF by its bit depth: 1/1023 for 10 bits,
+1/4095 for 12) and sRGB-decoded to linear unless `linear`; EXR, HDR, PFM
+and float TIFF are linear; BigTIFF, and writing AVIF, raise
 NotImplementedError by name. LDR output is sRGB-encoded with +0.5
 rounding, as the JAX writer's. Images are float32 [h, w, 3] RGB with row
 0 at the top.
@@ -70,14 +74,14 @@ _SIGNATURES = (
     (b"\0\0\0\x0cjP  \r\n\x87\n", "jpeg2000"),
     (b"\xff\x4f\xff\x51", "jpeg2000"))
 # formats OpenCV reads that the port refuses by name
-_UNPORTED = ("BigTIFF", "AVIF")
+_UNPORTED = ("BigTIFF",)
 
 
 def sniff(data: bytes):
     """The decoder OpenCV would pick for a file's bytes, by its signature:
     'png', 'jpeg', 'bmp', 'tiff', 'pnm', 'pfm', 'sun_raster', 'hdr',
-    'gif', 'webp', 'jpeg2000' (a .jp2 file or a raw code stream), one of
-    _UNPORTED's names, or None."""
+    'gif', 'webp', 'jpeg2000' (a .jp2 file or a raw code stream), 'avif',
+    one of _UNPORTED's names, or None."""
     for sig, kind in _SIGNATURES:
         if data.startswith(sig):
             return kind
@@ -86,15 +90,22 @@ def sniff(data: bytes):
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "webp"
     if data[4:12] in (b"ftypavif", b"ftypavis"):
-        return "AVIF"
+        return "avif"
     return None
 
 
 def decode_samples(path) -> np.ndarray:
     """A file's pixels as [h, w, 3] RGB samples as OpenCV reads them,
-    found by its content: uint8, uint16 (16-bit PNG, TIFF, PNM and
-    9- to 16-bit JPEG 2000) or float32 (PFM, float TIFF, Radiance); grey
-    replicated, alpha dropped."""
+    found by its content: uint8, uint16 (16-bit PNG, TIFF, PNM, 9- to
+    16-bit JPEG 2000, and 10- and 12-bit AVIF at their own range) or
+    float32 (PFM, float TIFF, Radiance); grey replicated, alpha dropped."""
+    return _decode(path)[0]
+
+
+def _decode(path):
+    """(decode_samples' samples, the largest value an integer sample of
+    the file can take where that is not its dtype's: 2^depth - 1 for
+    AVIF, else None)."""
     path = Path(path)
     data = path.read_bytes()
     kind = sniff(data)
@@ -106,29 +117,36 @@ def decode_samples(path) -> np.ndarray:
         raise NotImplementedError(
             f"image format {kind} ('{path.suffix.lower()}', {path.name}) is "
             "not ported")
+    if kind == "avif":
+        from .avif import decode_avif_depth
+        samples, depth = decode_avif_depth(data, path.name)
+        return samples, (1 << depth) - 1
     if kind == "jpeg":
         from .jpeg import decode_jpeg
-        return decode_jpeg(data)
+        return decode_jpeg(data), None
     if kind == "tiff":
         from .tiff import decode_tiff
-        return decode_tiff(data)
+        return decode_tiff(data), None
     if kind == "gif":
         from .gif import decode_gif
-        return decode_gif(data)
+        return decode_gif(data), None
     if kind == "webp":
         from .webp import decode_webp
-        return decode_webp(data)
+        return decode_webp(data), None
     if kind == "jpeg2000":
         from .jpeg2000 import decode_jpeg2000
-        return decode_jpeg2000(data, path.name)
+        return decode_jpeg2000(data, path.name), None
     return {"png": decode_png, "bmp": decode_bmp, "tga": decode_tga,
             "pnm": decode_pnm, "pfm": decode_pfm, "hdr": decode_hdr,
-            "sun_raster": decode_sun_raster}[kind](data)
+            "sun_raster": decode_sun_raster}[kind](data), None
 
 
-def _normalised(samples: np.ndarray) -> np.ndarray:
-    """Integer samples to [0, 1] (8 bits / 255, 16 bits / 65535); float
-    samples as they are."""
+def _normalised(samples: np.ndarray, maxval=None) -> np.ndarray:
+    """Integer samples to [0, 1] (8 bits / 255, 16 bits / 65535, or /
+    `maxval` where the file's depth is not its dtype's); float samples as
+    they are."""
+    if maxval is not None:
+        return samples.astype(np.float32) / np.float32(maxval)
     if samples.dtype == np.uint8:
         return samples.astype(np.float32) / np.float32(255.0)
     if samples.dtype == np.uint16:
@@ -139,11 +157,11 @@ def _normalised(samples: np.ndarray) -> np.ndarray:
 def read_ldr(path) -> np.ndarray:
     """An integer-sample file as float32 [h, w, 3] in [0, 1]
     (sRGB-encoded values): 8-bit samples / 255, 16-bit ones (PNG, TIFF,
-    PNM) / 65535."""
-    samples = decode_samples(path)
+    PNM) / 65535, AVIF's by its bit depth."""
+    samples, maxval = _decode(path)
     if samples.dtype == np.float32:
         raise ValueError(f"{path}: float samples are not LDR data")
-    return _normalised(samples)
+    return _normalised(samples, maxval)
 
 
 def load_image(path, linear: bool = False) -> np.ndarray:
@@ -155,8 +173,8 @@ def load_image(path, linear: bool = False) -> np.ndarray:
     if path.suffix.lower() == ".exr":
         from .exr import load_exr_rgb
         return np.ascontiguousarray(load_exr_rgb(path), np.float32)
-    samples = decode_samples(path)
-    img = _normalised(samples)
+    samples, maxval = _decode(path)
+    img = _normalised(samples, maxval)
     if samples.dtype == np.float32:
         return np.ascontiguousarray(img)
     if not linear:

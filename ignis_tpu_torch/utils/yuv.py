@@ -1,0 +1,146 @@
+"""libavif's YUV to RGB as cv2.imread gets it (libavif 1.4.2 with its
+static libyuv): 8-bit BT.601 images go through libyuv's fixed-point
+YuvPixel (kYuvJPEGConstants in full range, kYuvI601Constants in limited;
+chroma upsampled by libyuv's bilinear ScaleRowUp2 rows for 4:2:0 and
+4:2:2); the identity matrix and 10- and 12-bit images go through
+libavif's built-in float path (bilinear 9/3/3/1 chroma upsampling in
+float32), rounded as libavif rounds. The writers here mark every colour
+image BT.601 (matrix_coefficients 6) or, lossless, the identity (0);
+other matrices are refused by name.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+# libyuv's BT.601 YuvConstants (YG, YB, UB, UG, VG, VR), by full range
+_LIBYUV = {1: (16320, 32, 113, 22, 46, 90),          # kYuvJPEGConstants
+           0: (18997, -1160, 128, 25, 52, 102)}      # kYuvI601Constants
+# libavif's BT.601 (kr, kb), for matrix_coefficients 5 (BT.470BG) and 6
+_KR, _KB = 0.299, 0.114
+
+
+def _up2_index(width):
+    """The two chroma columns (nearer, farther) that libyuv's ScaleRowUp2
+    (with its Any wrapper's edges) blends 3:1 for each output column; the
+    first and the last column take their own chroma column alone (the last
+    one also at an odd width)."""
+    k = np.arange(width)
+    near = np.where(k % 2 == 1, (k - 1) // 2, k // 2)
+    far = np.where(k % 2 == 1, (k + 1) // 2, np.maximum(k // 2 - 1, 0))
+    near[-1] = far[-1] = (width - 1) // 2
+    return near, far
+
+
+def _libyuv_chroma(c, width, height, ssx, ssy):
+    """Chroma upsampled to [height, width] as libyuv's *MatrixFilter
+    functions (kFilterBilinear) do it."""
+    c = c.astype(np.int32)
+    if not ssx:
+        return c[:height, :width]
+    near, far = _up2_index(width)
+    # per chroma row: horizontal weights 3 (near) and 1 (far), x 4
+    h4 = 3 * c[:, near] + c[:, far]
+    if not ssy:
+        return (h4 + 2) >> 2
+    out = np.empty((height, width), np.int32)
+    out[0] = (4 * h4[0] + 8) >> 4
+    j = 1
+    r = 0
+    while j + 1 < height:
+        s, t = h4[r], h4[min(r + 1, h4.shape[0] - 1)]
+        out[j] = (3 * s + t + 8) >> 4
+        out[j + 1] = (s + 3 * t + 8) >> 4
+        j += 2
+        r += 1
+    if j < height:
+        out[j] = (4 * h4[r] + 8) >> 4
+    return out
+
+
+def _libyuv_rgb(y, u, v, consts):
+    yg, yb, ub, ug, vg, vr = consts
+    bb = ub * 128 - yb
+    bg = ug * 128 + vg * 128 + yb
+    br = vr * 128 - yb
+    y1 = ((y.astype(np.int64) * 0x0101 * yg) & 0xffffffff) >> 16
+    u = u.astype(np.int64)
+    v = v.astype(np.int64)
+    b = (y1 + u * ub - bb) >> 6
+    g = (y1 + bg - (u * ug + v * vg)) >> 6
+    r = (y1 + v * vr - br) >> 6
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def _float_rgb(planes, bd, ssx, ssy, matrix, full):
+    f32 = np.float32
+    y = planes[0].astype(np.int64)
+    h, w = y.shape
+    mx = (1 << bd) - 1
+    identity = matrix == 0
+    if full:
+        bias_y, range_y = f32(0), f32(mx)
+        bias_uv, range_uv = f32(1 << (bd - 1)), f32(mx)
+    else:
+        bias_y, range_y = f32(16 << (bd - 8)), f32(219 << (bd - 8))
+        bias_uv, range_uv = f32(1 << (bd - 1)), f32(224 << (bd - 8))
+    if identity:
+        bias_uv, range_uv = bias_y, range_y
+    cp = np.arange(1 << bd, dtype=np.float32)
+    tab_y = (cp - bias_y) / range_y
+    tab_uv = (cp - bias_uv) / range_uv
+    Y = tab_y[np.minimum(y, mx)]
+    ch = []
+    for c in planes[1:]:
+        c = np.minimum(c.astype(np.int64), mx)
+        if not ssx and not ssy:
+            ch.append(tab_uv[c])
+            continue
+        i = np.arange(w)
+        j = np.arange(h)
+        ui, uj = i >> ssx, j >> ssy
+        if ssx:
+            adj_i = np.where((i == 0) | ((i == w - 1) & (i % 2 != 0)), ui,
+                             np.where(i % 2 != 0, ui + 1, ui - 1))
+        else:
+            adj_i = ui
+        if ssy:
+            adj_j = np.where((j == 0) | ((j == h - 1) & (j % 2 != 0)), uj,
+                             np.where(j % 2 != 0, uj + 1, uj - 1))
+        else:
+            adj_j = uj
+        a = tab_uv[c[uj[:, None], ui[None, :]]] * f32(9.0 / 16.0)
+        b = tab_uv[c[uj[:, None], adj_i[None, :]]] * f32(3.0 / 16.0)
+        cc = tab_uv[c[adj_j[:, None], ui[None, :]]] * f32(3.0 / 16.0)
+        d = tab_uv[c[adj_j[:, None], adj_i[None, :]]] * f32(1.0 / 16.0)
+        ch.append(((a + b) + cc) + d)
+    cb, cr = ch
+    if identity:
+        R, G, B = cr, Y, cb
+    else:
+        kr, kb = f32(_KR), f32(_KB)
+        kg = f32(1.0) - kr - kb
+        R = Y + (f32(2) * (f32(1) - kr)) * cr
+        B = Y + (f32(2) * (f32(1) - kb)) * cb
+        G = Y - ((f32(2) * (((kr * (f32(1) - kr)) * cr) +
+                           ((kb * (f32(1) - kb)) * cb))) / kg)
+    out = []
+    for v in (R, G, B):
+        v = np.clip(v, f32(0), f32(1))
+        out.append((f32(0.5) + v * f32(mx)).astype(np.int64))
+    return np.stack(out, -1).astype(np.uint8 if bd == 8 else np.uint16)
+
+
+def yuv_to_rgb(planes, bd, ssx, ssy, matrix, full) -> np.ndarray:
+    """RGB [h, w, 3] (uint8 for 8 bits, else uint16 at the image's own
+    depth) of decoded Y, U, V planes, as libavif converts them for cv2."""
+    if matrix not in (0, 5, 6):
+        raise NotImplementedError(
+            f"AVIF colour matrix (matrix_coefficients {matrix}) is not "
+            "ported: no writer here makes one")
+    if bd == 8 and matrix:
+        y = planes[0]
+        h, w = y.shape
+        u = _libyuv_chroma(planes[1], w, h, ssx, ssy)
+        v = _libyuv_chroma(planes[2], w, h, ssx, ssy)
+        return _libyuv_rgb(y, u, v, _LIBYUV[int(full)])
+    return _float_rgb(planes, bd, ssx, ssy, matrix, full)

@@ -27,22 +27,42 @@ and an RGBA .jp2 in PCRL. cv2 reads no JPEG 2000 with an image offset,
 so no fixture has one (tests/test_torch_jpeg2000.py holds offsets to
 Pillow's OpenJPEG decode).
 
+AVIF (each a few KB, some of odd size; tests/data/avif_tools.json lists
+the AV1
+coding tools each file switches on, read from its own headers and blocks
+by utils/avif.py's coding_tools): cv2's default (quality 95, 4:2:0 with
+quantiser matrices, CDEF and deblocking), quality 0 at speed 10,
+quality 50 at speed 0, lossless (quality 100: 4:4:4 under the identity
+matrix), grey, 10- and 12-bit colour and 10-bit grey, and a screen-like
+image (palette and intra block copy); Pillow's 4:2:0 in limited range,
+4:2:2, 4:4:4 at speed 0, 4:0:0, 2 x 2 tiles, RGBA (an alpha item), an
+animated `avis`, an EXIF-rotated file (irot and imir, which cv2 does not
+apply), and one file per libaom switch: palette and intra block copy
+(`tune-content=screen`), filter intra, CFL, loop restoration (Wiener
+and self-guided), quantiser matrices, `deltaq-mode` (delta q),
+`delta-lf-mode` (delta lf), chroma delta q, 64-point transforms,
+sharpness, 128 x 128 superblocks and film grain.
+
 Beside them, tests/data/images_1024 holds the decode-timing files of
 chip_smoke.py's texture phase: one smooth 1024 x 1024 image as cv2's
-quality-80 and lossless WebP, progressive JPEG and default .jp2
-(lossless: the whole stream fits rate 4), with the SHA-256 of the pixels
-cv2 reads from each (`cv2_sha256.json`). `jp2_psnr.json` holds the PSNR
+quality-80 and lossless WebP, progressive JPEG, default .jp2
+(lossless: the whole stream fits rate 4) and default AVIF, with the
+SHA-256 of the pixels cv2 reads from each (`cv2_sha256.json`). `jp2_psnr.json` holds the PSNR
 of cv2's default .jp2 of cv2_q80.webp's pixels against them, the bar of
 chip_smoke's .jp2 writer (less 0.5 dB).
 """
 import hashlib
 import io
 import json
+import sys
 from pathlib import Path
 
 import cv2
 import numpy as np
 from PIL import Image
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+from ignis_tpu_torch.utils.avif import coding_tools  # noqa: E402
 
 DATA = Path(__file__).resolve().parent.parent / "tests" / "data"
 OUT = DATA / "images"
@@ -100,6 +120,120 @@ CV2_FIXTURES = {
         smooth(32, 34, 23, 65535.0).astype(np.uint16),
         [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 1000]),
     "cv2_grey.jp2": lambda: (noisy8(33, 40, 24)[..., 0], []),
+}
+
+
+def smooth16(h, w, seed, depth):
+    """smooth() as uint16 at `depth` bits (0 to 2^depth - 1, as cv2 takes
+    a 10- or 12-bit image for IMWRITE_AVIF_DEPTH)."""
+    return smooth(h, w, seed, (1 << depth) - 1).astype(np.uint16)
+
+
+def screen(h, w, seed):
+    """Dark glyphs from a set of twelve random 8 x 6 masks on white: text
+    that encoders code with palettes and intra block copy."""
+    rng = np.random.default_rng(seed)
+    glyphs = [rng.random((8, 6)) < 0.4 for _ in range(12)]
+    img = np.full((h, w, 3), 255, np.uint8)
+    for y in range(2, h - 9, 10):
+        for x in range(2, w - 7, 7):
+            img[y:y + 8, x:x + 6][glyphs[rng.integers(0, 12)]] = (20, 20, 20)
+    return img
+
+
+def _avif(**params):
+    return [v for k, v in params.items() for v in
+            (getattr(cv2, f"IMWRITE_AVIF_{k.upper()}"), v)]
+
+
+# OpenCV's AVIF files: name -> (image as RGB or grey, parameters)
+CV2_AVIF = {
+    "cv2_default.avif": lambda: (rgb8(37, 45, 30), []),
+    "cv2_q0_speed10.avif": lambda: (rgb8(24, 33, 31),
+                                    _avif(quality=0, speed=10)),
+    "cv2_q50_speed0.avif": lambda: (noisy8(29, 41, 32),
+                                    _avif(quality=50, speed=0)),
+    "cv2_lossless.avif": lambda: (rgb8(21, 27, 33), _avif(quality=100)),
+    "cv2_grey.avif": lambda: (smooth(23, 31, 34)[..., 1].astype(np.uint8),
+                              []),
+    "cv2_10bit.avif": lambda: (smooth16(27, 35, 35, 10),
+                               _avif(depth=10, quality=90)),
+    "cv2_12bit.avif": lambda: (smooth16(25, 31, 36, 12),
+                               _avif(depth=12, quality=80)),
+    "cv2_grey_10bit.avif": lambda: (smooth16(19, 29, 37, 10)[..., 0],
+                                    _avif(depth=10)),
+    "cv2_screen.avif": lambda: (screen(80, 112, 38), []),
+}
+
+
+def _pil_avif(img, mode="RGB", **kw) -> bytes:
+    return _pil(Image.fromarray(img, mode), "AVIF", **kw)
+
+
+def _screen_switch(name, speed):
+    return lambda: _pil_avif(screen(96, 160, 39), quality=80, speed=speed,
+                             advanced=[("tune-content", "screen"),
+                                       (f"enable-{name}", "1")])
+
+
+def _rotated_avif() -> bytes:
+    exif = Image.Exif()
+    exif[0x0112] = 7                 # transposed: irot and imir
+    return _pil_avif(rgb8(19, 29, 50), exif=exif.tobytes())
+
+
+# Pillow's AVIF files: name -> bytes
+PIL_AVIF = {
+    "pil_420_limited.avif": lambda: _pil_avif(rgb8(26, 37, 51), quality=70,
+                                              range="limited"),
+    "pil_422.avif": lambda: _pil_avif(rgb8(22, 35, 52), quality=60,
+                                      subsampling="4:2:2"),
+    "pil_444_speed0.avif": lambda: _pil_avif(noisy8(21, 23, 53), quality=50,
+                                             speed=0, subsampling="4:4:4"),
+    "pil_400.avif": lambda: _pil_avif(rgb8(23, 26, 54), quality=60,
+                                      subsampling="4:0:0"),
+    "pil_tiles.avif": lambda: _pil_avif(rgb8(136, 136, 49), quality=30,
+                                        speed=8, tile_rows=1, tile_cols=1),
+    "pil_rgba.avif": lambda: _pil_avif(
+        np.dstack([rgb8(24, 33, 55), rgb8(24, 33, 56)[..., 0]]), "RGBA",
+        quality=60),
+    "pil_animated.avif": lambda: _pil(
+        Image.fromarray(rgb8(22, 28, 57)), "AVIF", save_all=True,
+        append_images=[Image.fromarray(rgb8(22, 28, 58 + k))
+                       for k in range(2)], duration=100, quality=60),
+    "pil_exif_rotated.avif": _rotated_avif,
+    "pil_palette.avif": _screen_switch("palette", 2),
+    "pil_intrabc.avif": _screen_switch("intrabc", 6),
+    "pil_filter_intra.avif": lambda: _pil_avif(
+        rgb8(40, 47, 46), quality=30, speed=3,
+        advanced=[("enable-filter-intra", "1")]),
+    "pil_cfl.avif": lambda: _pil_avif(rgb8(40, 47, 47), quality=50, speed=6,
+                                      advanced=[("enable-cfl-intra", "1")]),
+    "pil_restoration.avif": lambda: _pil_avif(
+        rgb8(72, 81, 40), quality=80, speed=2,
+        advanced=[("enable-restoration", "1")]),
+    "pil_qm.avif": lambda: _pil_avif(rgb8(40, 47, 45), quality=50, speed=6,
+                                     advanced=[("enable-qm", "1")]),
+    "pil_deltaq.avif": lambda: _pil_avif(rgb8(64, 80, 41), quality=30,
+                                         speed=6,
+                                         advanced=[("deltaq-mode", "2")]),
+    "pil_delta_lf.avif": lambda: _pil_avif(
+        rgb8(64, 80, 41), quality=85, speed=6,
+        advanced=[("deltaq-mode", "3"), ("delta-lf-mode", "1")]),
+    "pil_chroma_deltaq.avif": lambda: _pil_avif(
+        rgb8(40, 47, 42), quality=50, speed=6,
+        advanced=[("enable-chroma-deltaq", "1")]),
+    "pil_tx64.avif": lambda: _pil_avif(rgb8(72, 81, 41), quality=20, speed=4,
+                                       advanced=[("enable-tx64", "1")]),
+    "pil_sharpness.avif": lambda: _pil_avif(rgb8(40, 47, 48), quality=50,
+                                            speed=6,
+                                            advanced=[("sharpness", "7")]),
+    "pil_sb128.avif": lambda: _pil_avif(rgb8(72, 136, 44), quality=20,
+                                        speed=6, advanced=[("sb-size",
+                                                            "128")]),
+    "pil_film_grain.avif": lambda: _pil_avif(
+        rgb8(38, 45, 59), quality=60, speed=6,
+        advanced=[("film-grain-test", "10")]),
 }
 
 
@@ -193,7 +327,20 @@ def main() -> None:
         assert cv2.imwrite(str(OUT / name), img, params), name
     for name, make in PIL_FIXTURES.items():
         (OUT / name).write_bytes(make())
-    for name in list(CV2_FIXTURES) + list(PIL_FIXTURES):
+    for name, make in CV2_AVIF.items():
+        img, params = make()
+        if img.ndim == 3:
+            img = np.ascontiguousarray(img[..., ::-1])
+        assert cv2.imwrite(str(OUT / name), img, params), name
+    for name, make in PIL_AVIF.items():
+        (OUT / name).write_bytes(make())
+    tools = {}
+    for name in list(CV2_AVIF) + list(PIL_AVIF):
+        tools[name] = coding_tools((OUT / name).read_bytes())
+        print(f"{name}: {', '.join(tools[name])}")
+    (DATA / "avif_tools.json").write_text(json.dumps(tools, indent=1) + "\n")
+    for name in (list(CV2_FIXTURES) + list(PIL_FIXTURES) + list(CV2_AVIF)
+                 + list(PIL_AVIF)):
         pixels[name] = cv2_rgb(OUT / name)
         print(f"{name}: {(OUT / name).stat().st_size} bytes, "
               f"{pixels[name].shape} {pixels[name].dtype}")
@@ -205,7 +352,8 @@ def main() -> None:
                          ("smooth_lossless.webp", []),
                          ("smooth_progressive.jpg",
                           [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]),
-                         ("smooth_default.jp2", [])):
+                         ("smooth_default.jp2", []),
+                         ("smooth_default.avif", [])):
         assert cv2.imwrite(str(TIMING / name), bgr, params), name
         sums[name] = hashlib.sha256(cv2_rgb(TIMING / name)
                                     .tobytes()).hexdigest()

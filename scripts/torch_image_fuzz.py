@@ -1,5 +1,5 @@
-"""Hold the port's GIF, WebP and JPEG 2000 codecs to OpenCV on random
-files.
+"""Hold the port's GIF, WebP, JPEG 2000 and AVIF codecs to OpenCV on
+random files.
 
 For a given number of seconds, make random images (noise, smooth waves,
 a flat colour, a checkerboard, a few-colour palette image, noise over a
@@ -9,9 +9,13 @@ method, with alpha a third of the time, Pillow's palette GIFs, interlaced
 or transparent; cv2's default and lossless .jp2 of 8- or 16-bit images,
 Pillow's JPEG 2000 with random resolutions, code-block sizes,
 progression, 9/7, colour transform, quality layers, tiles, precincts,
-raw code stream and PLT, grey, RGB, RGBA or 16-bit) and compare the
-port's decode with cv2.imdecode; for cv2's GIF writer, compare cv2's
-read-back of the port's `encode_gif` with that of cv2's own file. Needs
+raw code stream and PLT, grey, RGB, RGBA or 16-bit; cv2's AVIF at any
+quality, speed and bit depth (8, 10, 12), colour or grey, and Pillow's
+at any quality, speed, subsampling, range, tiles and libaom switch, with
+alpha a fifth of the time) and compare the port's decode with
+cv2.imdecode; where cv2 reads no AVIF (a grey one with alpha) the port
+must raise IOError. For cv2's GIF writer, compare cv2's read-back of the
+port's `encode_gif` with that of cv2's own file. Needs
 cv2 and Pillow. Run from the repository's root:
 
     python scripts/torch_image_fuzz.py --seed 1 --seconds 60
@@ -30,7 +34,7 @@ import numpy as np
 from PIL import Image
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from ignis_tpu_torch.utils import gif, jpeg2000, webp  # noqa: E402
+from ignis_tpu_torch.utils import avif, gif, jpeg2000, webp  # noqa: E402
 
 FLAGS = cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH | cv2.IMREAD_ANYCOLOR
 
@@ -78,7 +82,9 @@ def one_case(rng):
     h, w = (int(v) for v in rng.integers(1, 90, 2))
     img = random_image(rng, h, w)
     bgr = np.ascontiguousarray(img[..., ::-1])
-    kind = rng.integers(0, 8)
+    kind = rng.integers(0, 10)
+    if kind >= 8:
+        return avif_case(rng, kind == 8, h, w, img)
     if kind >= 6:
         return jp2_case(rng, kind == 6)
     rgba = Image.fromarray(np.dstack([img, rng.integers(0, 256, (h, w),
@@ -106,6 +112,56 @@ def one_case(rng):
     pal = Image.fromarray(img).quantize(int(rng.integers(2, 257)))
     return (f"Pillow GIF {kw} {h}x{w}", pil_bytes(pal, "GIF", **kw),
             gif.decode_gif)
+
+
+# libaom switches Pillow passes on (`advanced`); film grain at any of
+# libaom's 16 test vectors
+AVIF_SWITCHES = [
+    ("tune-content", "screen"), ("enable-palette", "1"),
+    ("enable-intrabc", "1"), ("enable-filter-intra", "1"),
+    ("enable-cfl-intra", "1"), ("enable-restoration", "1"),
+    ("enable-qm", "1"), ("deltaq-mode", "2"), ("deltaq-mode", "3"),
+    ("delta-lf-mode", "1"), ("enable-chroma-deltaq", "1"),
+    ("enable-tx64", "1"), ("sharpness", "7"), ("sb-size", "128"),
+    ("reduced-tx-type-set", "1"), ("enable-cdef", "0"),
+    ("cdf-update-mode", "0")]
+
+
+def avif_case(rng, from_cv2, h, w, img):
+    if from_cv2:
+        depth = int(rng.choice([8, 8, 10, 12]))
+        src = img[..., 0] if rng.random() < 0.2 else img[..., ::-1]
+        if depth > 8:
+            src = (src.astype(np.uint16) << (depth - 8)) | \
+                (src.astype(np.uint16) >> (16 - depth))
+        params = [cv2.IMWRITE_AVIF_QUALITY, int(rng.integers(0, 101)),
+                  cv2.IMWRITE_AVIF_SPEED, int(rng.integers(0, 11)),
+                  cv2.IMWRITE_AVIF_DEPTH, depth]
+        return (f"cv2 AVIF {params[1::2]} {src.shape}",
+                cv2.imencode(".avif", np.ascontiguousarray(src),
+                             params)[1].tobytes(), avif.decode_avif)
+    kw = dict(quality=int(rng.integers(0, 101)),
+              speed=int(rng.integers(0, 11)),
+              subsampling=str(rng.choice(["4:2:0", "4:2:2", "4:4:4",
+                                          "4:0:0"])),
+              range=str(rng.choice(["full", "limited"])))
+    if rng.random() < 0.3:
+        kw["tile_rows"], kw["tile_cols"] = (int(v) for v in
+                                            rng.integers(0, 3, 2))
+    if rng.random() < 0.6:
+        picks = rng.choice(len(AVIF_SWITCHES), int(rng.integers(1, 4)),
+                           replace=False)
+        kw["advanced"] = [AVIF_SWITCHES[i] for i in picks]
+        if rng.random() < 0.15:
+            kw["advanced"].append(("film-grain-test",
+                                   str(int(rng.integers(1, 17)))))
+    im = Image.fromarray(np.dstack([img, img[..., 1]]), "RGBA") \
+        if rng.random() < 0.2 else Image.fromarray(img)
+    try:
+        data = pil_bytes(im, "AVIF", **kw)
+    except (OSError, ValueError):      # switches libaom refuses together
+        return avif_case(rng, from_cv2, h, w, img)
+    return f"Pillow AVIF {kw} {im.mode} {h}x{w}", data, avif.decode_avif
 
 
 def jp2_case(rng, from_cv2):
@@ -178,11 +234,21 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=60.0)
     args = ap.parse_args()
     rng = np.random.default_rng(args.seed)
-    files = bad = 0
+    files = bad = avifs = 0
     end = time.perf_counter() + args.seconds
     while time.perf_counter() < end:
         label, data, other = one_case(rng)
         want = cv2_rgb(data)
+        avifs += other is avif.decode_avif
+        if want is None and other is avif.decode_avif:
+            files += 1
+            try:       # cv2 reads nothing: neither may the port
+                other(data)
+            except IOError:
+                continue
+            bad += 1
+            print(f"mismatch: {label}: read where cv2 reads nothing")
+            continue
         if want is None:
             continue
         files += 1
@@ -196,7 +262,7 @@ def main() -> int:
                 not np.array_equal(got, want):
             bad += 1
             print(f"mismatch: {label}: pixels differ")
-    print(f"{files} files, {bad} differed from cv2")
+    print(f"{files} files ({avifs} AVIF), {bad} differed from cv2")
     return 1 if bad else 0
 
 

@@ -999,8 +999,8 @@ def test_unscaled_8bit_tiff_of_jax_reference(tmp_path):
 
 
 def _unported_file(kind):
-    """(suffix, bytes) of a file the port refuses by name: cv2's AVIF, a
-    BigTIFF header."""
+    """(suffix, bytes) of a file this test holds to its refusal: cv2's
+    AVIF (read now; only writing it is refused), a BigTIFF header."""
     if kind == "avif":
         return ".avif", cv2.imencode(".avif", _full_range(8, 8, 1))[1] \
             .tobytes()
@@ -1010,19 +1010,27 @@ def _unported_file(kind):
 @pytest.mark.parametrize("kind,name", [("avif", "AVIF"),
                                        ("bigtiff", "BigTIFF")])
 def test_unported_formats_refused_by_name(tmp_path, kind, name):
-    """AVIF (which cv2 reads here) and BigTIFF raise NotImplementedError
-    naming the format and the file's suffix, found by the file's
-    content; save_image refuses AVIF by name. (JPEG 2000 is read and
+    """BigTIFF raises NotImplementedError naming the format and the
+    file's suffix, found by the file's content. AVIF, once refused here
+    too, is read now as cv2 reads it (tests/test_torch_avif.py), and
+    save_image still refuses to write it by name. (JPEG 2000 is read and
     written: tests/test_torch_jpeg2000.py.)"""
     suffix, data = _unported_file(kind)
     p = tmp_path / f"t{suffix}"
     p.write_bytes(data)
+    if kind == "avif":
+        assert imagelib.sniff(data) == "avif"
+        want = _cv2_rgb(data)
+        np.testing.assert_array_equal(imagelib.decode_samples(p), want)
+        np.testing.assert_array_equal(
+            imagelib.load_image(p, linear=True),
+            want.astype(np.float32) / np.float32(255.0))
+        with pytest.raises(NotImplementedError, match=f"'{suffix}'"):
+            imagelib.save_image(p, np.zeros((4, 4, 3), np.float32))
+        return
     assert imagelib.sniff(data) == name
     with pytest.raises(NotImplementedError, match=f"{name} \\('{suffix}'"):
         imagelib.load_image(p)
-    if kind != "bigtiff":
-        with pytest.raises(NotImplementedError, match=f"'{suffix}'"):
-            imagelib.save_image(p, np.zeros((4, 4, 3), np.float32))
 
 
 FIXTURES = Path(__file__).resolve().parent / "data" / "images"
@@ -1069,7 +1077,8 @@ def test_texture_scene_of_fixtures_renders_on_cpu():
 def test_texture_phase_parts_on_cpu(tmp_path):
     """Phase 16's host parts on the CPU: every save_image suffix written
     and read back (chip_smoke.writers_round_trip), the 1024 x 1024 files
-    decoded to cv2's pixels by their SHA-256 (decode_timing), and the
+    (WebP, JPEG, JPEG 2000, AVIF) decoded to cv2's pixels by their
+    SHA-256 (decode_timing), and the
     texture scene's film bit-equal to that of its twin whose textures are
     PNGs of the decoded 8-bit pixels and EXRs of the 16-bit and float
     ones, as phase_textures renders both on the card."""
@@ -1082,7 +1091,7 @@ def test_texture_phase_parts_on_cpu(tmp_path):
     want = np.load(FIXTURES / "cv2_pixels.npz")
     out = chip_smoke.writers_round_trip(want["cv2_lossless.webp"], tmp_path)
     assert sorted(out) == sorted(chip_smoke.WRITER_SUFFIXES)
-    assert len(chip_smoke.decode_timing()) == 4
+    assert len(chip_smoke.decode_timing()) == 5
     twins = {}
     for name in want.files:
         px = imagelib.decode_samples(FIXTURES / name)
@@ -1138,7 +1147,7 @@ def _signed_files():
         "rgbe": (b"#?RGBE\n\n-Y 1 +X 1\n\x80\x80\x80\x81", "hdr"),
         "gif87a": (b"GIF87a" + enc(".gif")[6:], "gif"),
         "gif89a": (enc(".gif"), "gif"), "webp": (enc(".webp"), "webp"),
-        "avif": (enc(".avif"), "AVIF"),
+        "avif": (enc(".avif"), "avif"),
         "jp2": (enc(".jp2", big), "jpeg2000"),
         "j2k": (j2k.getvalue(), "jpeg2000"),
         "tga": (_tga(2, 2, 1, 24, 0x20, bytes(6)), None),
@@ -1155,7 +1164,7 @@ def test_sniff_names_every_signature(tmp_path, case):
     assert imagelib.sniff(data) == kind
     p = tmp_path / "x.dat"
     p.write_bytes(data)
-    if kind in ("BigTIFF", "AVIF"):
+    if kind == "BigTIFF":
         with pytest.raises(NotImplementedError, match=kind):
             imagelib.decode_samples(p)
     elif kind is None:

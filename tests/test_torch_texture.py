@@ -290,8 +290,9 @@ def test_png_loader_matches_jax(depth, color_type, tmp_path, jax_image):
 def test_other_formats_raise(tmp_path, jax_image):
     """A JPEG texture, which this test once held to NotImplementedError,
     loads as the JAX loader loads it (within 1/255 before the sRGB
-    decode); a truncated JPEG, a format the port does not read (AVIF,
-    once here a WebP, which the port reads now) and bytes that neither
+    decode), and an AVIF one, once refused here too, as cv2 reads it; a
+    truncated JPEG, a format the port does not read (BigTIFF, once here a
+    WebP and an AVIF, which the port reads now) and bytes that neither
     package reads raise."""
     import cv2
     from ignis_tpu_torch.utils.image import load_image
@@ -305,9 +306,15 @@ def test_other_formats_raise(tmp_path, jax_image):
     p.write_bytes(b"\xff\xd8\xff")
     with pytest.raises(ValueError, match="truncated"):
         load_image(p)
-    (tmp_path / "x.avif").write_bytes(cv2.imencode(".avif", rgb)[1])
+    data = cv2.imencode(".avif", rgb)[1]
+    (tmp_path / "x.avif").write_bytes(data)
+    want = cv2.imdecode(data, cv2.IMREAD_UNCHANGED)[..., ::-1]
+    np.testing.assert_array_equal(load_image(tmp_path / "x.avif",
+                                             linear=True),
+                                  want.astype(np.float32) / np.float32(255))
+    (tmp_path / "x.tif").write_bytes(b"II+\0\x08\0\0\0" + bytes(32))
     with pytest.raises(NotImplementedError, match="not ported"):
-        load_image(tmp_path / "x.avif")
+        load_image(tmp_path / "x.tif")
     (tmp_path / "x.webp").write_bytes(b"not an image")
     with pytest.raises(IOError, match="Cannot load"):
         load_image(tmp_path / "x.webp")
