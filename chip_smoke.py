@@ -172,13 +172,16 @@ printing its own lines; any failure exits non-zero:
    TIFFs, PPM, PFM, GIFs, lossless and lossy WebPs, JPEG 2000 and AVIF
    files of cv2 and Pillow, Radiance .pic, Sun raster, a JPEG named .png)
    decoded and held to cv2's pixels (cv2_pixels.npz); every save_image
-   suffix written and read back (.jp2 within cv2's byte budget and PSNR);
-   the 1024 x 1024 WebP, progressive JPEG, JPEG 2000 and AVIF decodes
-   timed (the AVIF seconds on a line of their own), and a 512 x 512 .jp2
-   written and read back; and a scene textured with the
-   fixtures rendered by one captured step: finite, not black, and
-   bit-equal to the same scene textured with PNG (and EXR) twins of the
-   decoded pixels;
+   suffix written and read back (.jp2 within cv2's byte budget and PSNR,
+   .avif within cv2's bars of tests/data/avif_bars.json: base_q_idx 148,
+   PSNR less 0.5 dB, twice the AV1 payload); the 1024 x 1024 WebP,
+   progressive JPEG, JPEG 2000 and AVIF decodes timed (the AVIF seconds on
+   a line of their own), a 512 x 512 .jp2 and .avif written and read back
+   (the .avif held to cv2's bars for it, its write seconds on a line of
+   their own); S1's film of one captured step saved as .avif and read
+   back; and a scene textured with the fixtures and that film rendered by
+   one captured step: finite, not black, and bit-equal to the same scene
+   textured with PNG (and EXR) twins of the decoded pixels;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -4833,7 +4836,7 @@ TIMING_FIXTURES = ROOT / "tests" / "data" / "images_1024"
 # are held below to bars of their own
 WRITER_SUFFIXES = (".png", ".bmp", ".dib", ".tga", ".tif", ".tiff", ".ppm",
                    ".pnm", ".pfm", ".sr", ".ras", ".webp", ".jpg", ".jpeg",
-                   ".jpe", ".gif", ".pic", ".jp2")
+                   ".jpe", ".gif", ".pic", ".jp2", ".avif")
 # the JPEG 2000 fixtures cut by the irreversible 9/7 (the others are
 # reversible and held exactly): held within 1 level of cv2's pixels
 IRREVERSIBLE_JP2 = ("pil_irreversible_layers.jp2",)
@@ -4842,18 +4845,44 @@ IRREVERSIBLE_JP2 = ("pil_irreversible_layers.jp2",)
 # the PSNR of cv2's own file of them (scripts/make_image_fixtures.py)
 JP2_SOURCE = "cv2_q80.webp"
 JP2_PSNR = ROOT / "tests" / "data" / "jp2_psnr.json"
+# cv2's default AVIF of each source of the AVIF writer's bars (PSNR, AV1
+# payload bytes, base_q_idx; scripts/make_image_fixtures.py): the port's
+# file reaches that PSNR less 0.5 dB within twice the payload, at 148
+AVIF_BARS = ROOT / "tests" / "data" / "avif_bars.json"
+AVIF_SOURCE = "cv2_lossless.webp"
+AVIF_CROP = "smooth_lossless.webp[:512, :512]"
 
 
-def texture_scene(size=128, files=None):
+def avif_against_bars(path, src, name):
+    """The port's .avif at `path` of the pixels `src` held to cv2's figures
+    for the source `name` (AVIF_BARS): (ok, what, PSNR, payload bytes)."""
+    from ignis_tpu_torch.utils.av1 import Decoder
+    from ignis_tpu_torch.utils.avif import decode_avif, parse_avif
+    bar = json.loads(AVIF_BARS.read_text())[name]
+    data = path.read_bytes()
+    item = parse_avif(data)["av1"]
+    q = Decoder(item).base_q
+    back = decode_avif(data).astype(np.float64)
+    psnr = float(10 * np.log10(255.0 ** 2 / np.mean((back - src) ** 2)))
+    ok = (back.shape == src.shape and q == bar["base_q_idx"] == 148
+          and psnr >= bar["psnr_db"] - 0.5
+          and len(item) <= 2 * bar["payload_bytes"])
+    what = (f"base_q_idx {q}, PSNR {psnr:.3f} dB >= {bar['psnr_db'] - 0.5:.3f}"
+            f" (cv2's less 0.5), AV1 payload {len(item)} <= "
+            f"{2 * bar['payload_bytes']} bytes (twice cv2's)")
+    return ok, what, psnr, len(item)
+
+
+def texture_scene(size=128, files=None, extra=()):
     """A row of rectangles facing the camera, one for each image fixture
     of tests/data/images (scripts/make_image_fixtures.py: JPEG, BMP,
     TIFF, PPM, PFM, GIF, WebP, JPEG 2000, AVIF, Radiance and Sun raster
-    files of cv2 and Pillow), each a diffuse whose reflectance is that
-    image (or the file
-    `files` maps the fixture's name to); a point light and a dim env,
-    path at depth 3."""
+    files of cv2 and Pillow) and each name of `extra` (a file `files`
+    gives), each a diffuse whose reflectance is that image (or the file
+    `files` maps the name to); a point light and a dim env, path at
+    depth 3."""
     names = sorted(p.name for p in IMAGE_FIXTURES.iterdir()
-                   if p.suffix != ".npz")
+                   if p.suffix != ".npz") + list(extra)
     n = len(names)
     textures, bsdfs, shapes, ents = [], [], [], []
     for i, name in enumerate(names):
@@ -4881,11 +4910,13 @@ def texture_scene(size=128, files=None):
 
 def writers_round_trip(src, out_dir, jp2_src=None):
     """save_image of the linear image whose 8-bit sRGB encoding is `src`
-    (uint8 [h, w, 3]) under every writer suffix, each file read back by
-    decode_samples: the lossless formats give src (PFM its 0-255 floats),
-    GIF the fixed table's colours of the port's dithering, .pic src / 255
-    within RGBE's truncation (2^-7 below 1), JPEG (quality 95, 4:2:0) a
-    PSNR of at least 28 dB (31 dB on this noisy image). .jp2 writes
+    (uint8 [h, w, 3], cv2_lossless.webp's pixels) under every writer
+    suffix, each file read back by decode_samples: the lossless formats
+    give src (PFM its 0-255 floats), GIF the fixed table's colours of the
+    port's dithering, .pic src / 255 within RGBE's truncation (2^-7
+    below 1), JPEG (quality 95, 4:2:0) a PSNR of at least 28 dB (31 dB on
+    this noisy image), AVIF cv2's bars for these pixels (AVIF_BARS:
+    base_q_idx 148, PSNR less 0.5 dB, twice the payload). .jp2 writes
     jp2_src (cv2_q80.webp's pixels where None): its code stream within
     OpenCV's h * w * 3 / 4 bytes, its PSNR at least that of cv2's own
     file of the same pixels (JP2_PSNR) less 0.5 dB."""
@@ -4919,6 +4950,8 @@ def writers_round_trip(src, out_dir, jp2_src=None):
             ok = psnr >= bar and n <= h * w * 3 // 4
             what = (f"PSNR {psnr:.2f} dB >= {bar:.2f} (cv2's less 0.5), "
                     f"code stream {n} <= {h * w * 3 // 4} bytes")
+        elif suffix == ".avif":
+            ok, what, psnr, _ = avif_against_bars(p, img, AVIF_SOURCE)
         elif suffix == ".pic":
             err = float(np.abs(got - img / 255.0).max())
             ok, what = err <= 2.0 ** -7, f"max |diff| {err:.3g} <= 2^-7"
@@ -4984,14 +5017,69 @@ def jp2_writer_timing(out_dir, src=None, size=512):
             "read_s": t2 - t1}
 
 
-def phase_textures(device, build_dir=None):
+def avif_writer_timing(out_dir, src):
+    """save_image of the 512 x 512 crop of the smooth timing image (src:
+    smooth_lossless.webp's pixels) as .avif, and its read back: both
+    timed, the file held to cv2's bars for the crop (AVIF_CROP)."""
+    from ignis_tpu_torch.utils import image as imagelib
+    size = 512
+    crop = np.ascontiguousarray(src[:size, :size])
+    lin = imagelib.srgb_to_linear(crop / np.float32(255.0)).astype(
+        np.float32)
+    p = out_dir / f"timing_{size}.avif"
+    t0 = time.perf_counter()
+    imagelib.save_image(p, lin)
+    t1 = time.perf_counter()
+    imagelib.decode_samples(p)
+    t2 = time.perf_counter()
+    ok, what, psnr, payload = avif_against_bars(p, crop, AVIF_CROP)
+    check(ok, f"{size} x {size} .avif: {p.stat().st_size} bytes written in "
+          f"{t1 - t0:.2f} s, read back in {t2 - t1:.3f} s: {what}")
+    return {"bytes": p.stat().st_size, "payload_bytes": payload,
+            "psnr_db": psnr, "write_s": t1 - t0, "read_s": t2 - t1}
+
+
+def film_as_avif(rt, out_dir):
+    """One captured step of `rt` (S1), its film saved as .avif by
+    save_image and read back by load_image: finite, the shape of the film,
+    its 8-bit pixels at a PSNR of at least 20 dB against the film's own
+    sRGB encoding (a sanity bar: cv2 has no figure for this film). Returns
+    the file, its decoded pixels and the figures."""
+    from ignis_tpu_torch.utils.image import (decode_samples, linear_to_srgb,
+                                             load_image, save_image)
+    check(rt.captured, "S1: its step is captured")
+    rt.step()
+    film = rt.framebuffer(normalized=True).cpu().numpy()
+    path = out_dir / "s1_film.avif"
+    t0 = time.perf_counter()
+    save_image(path, film)
+    t1 = time.perf_counter()
+    px = decode_samples(path)
+    lin = load_image(path)
+    t2 = time.perf_counter()
+    ldr = (linear_to_srgb(film) * 255.0 + 0.5).astype(np.uint8)
+    psnr = float(10 * np.log10(255.0 ** 2 / max(np.mean(
+        (px.astype(np.float64) - ldr) ** 2), 1e-12)))
+    check(px.shape == ldr.shape and bool(np.isfinite(lin).all())
+          and psnr >= 20.0,
+          f"S1's {film.shape[1]} x {film.shape[0]} film saved as .avif "
+          f"({path.stat().st_size} bytes) in {t1 - t0:.2f} s, read back by "
+          f"load_image in {t2 - t1:.3f} s: PSNR {psnr:.2f} dB >= 20 against "
+          f"its 8-bit sRGB")
+    return path, px, {"bytes": path.stat().st_size, "psnr_db": psnr,
+                      "write_s": t1 - t0, "read_s": t2 - t1}
+
+
+def phase_textures(device, build_dir=None, s1=None):
     """Each image fixture decoded on the card's host and held to
     cv2_pixels.npz (JPEGs and the irreversible JPEG 2000 within 1 level,
     the others exactly); every save_image suffix written and read back
     (writers_round_trip, on the pixels of cv2's lossless WebP fixture,
     .jp2 on cv2_q80.webp's); the 1024 x 1024 WebP, JPEG, JPEG 2000 and
-    AVIF decodes timed (decode_timing) and a 512 x 512 .jp2 written and
-    read back (jp2_writer_timing); then
+    AVIF decodes timed (decode_timing), a 512 x 512 .jp2 and .avif written
+    and read back (jp2_writer_timing, avif_writer_timing), and, given `s1`
+    (S1's runtime), one captured step of it whose film is saved as .avif
+    and read back (film_as_avif) to texture one more rectangle; then
     texture_scene loaded onto the card and one captured step rendered:
     finite, not black, no texture refused, and its film bit-equal to
     that of the same scene with each texture replaced by a PNG of its
@@ -5037,8 +5125,27 @@ def phase_textures(device, build_dir=None):
     print(f"  512 x 512 .jp2 on the card's host: written in "
           f"{jp2_512['write_s']:.3f} s ({jp2_512['bytes']} bytes), read "
           f"back in {jp2_512['read_s']:.3f} s")
+    avif_512 = avif_writer_timing(build_dir,
+                                  pixels_1024["smooth_lossless.webp"])
+    cv2_512 = json.loads(AVIF_BARS.read_text())[AVIF_CROP]
+    print(f"  512 x 512 .avif on the card's host: written in "
+          f"{avif_512['write_s']:.2f} s ({avif_512['bytes']} bytes, "
+          f"{avif_512['psnr_db']:.3f} dB; cv2's: {cv2_512['file_bytes']} "
+          f"bytes, {cv2_512['psnr_db']:.3f} dB), read back in "
+          f"{avif_512['read_s']:.3f} s")
+    extra, film_avif = [], None
+    if s1 is not None:
+        path, px, film_avif = film_as_avif(s1, build_dir)
+        extra = [path.name]
+        twins[path.name] = build_dir / f"{path.name}.png"
+        twins[path.name].write_bytes(encode_png(px))
+        print(f"  S1's film as .avif on the card's host: written in "
+              f"{film_avif['write_s']:.2f} s ({film_avif['bytes']} bytes, "
+              f"{film_avif['psnr_db']:.2f} dB against its 8-bit sRGB)")
+    files = {name: build_dir / name for name in extra}
     t0 = time.perf_counter()
-    rt = ignis_tpu_torch.loadFromString(json.dumps(texture_scene()), spi=SPI)
+    rt = ignis_tpu_torch.loadFromString(json.dumps(texture_scene(
+        files=files, extra=extra)), spi=SPI)
     load_s = time.perf_counter() - t0
     check(rt.scene.device.type == "cuda" and rt.captured
           and rt.warnings == [],
@@ -5054,7 +5161,7 @@ def phase_textures(device, build_dir=None):
           f"texture scene: one captured step, finite, mean {mean:.4g} > 0, "
           f"launches {used}")
     twin = ignis_tpu_torch.loadFromString(
-        json.dumps(texture_scene(files=twins)), spi=SPI)
+        json.dumps(texture_scene(files=twins, extra=extra)), spi=SPI)
     twin.step()
     check(torch.equal(film, twin.framebuffer(normalized=True)),
           "texture scene: film bit-equal to its PNG/EXR twin's")
@@ -5064,6 +5171,7 @@ def phase_textures(device, build_dir=None):
           f"{used}")
     return {"decoded": decoded, "writers": writers,
             "decode_1024_s": timing, "jp2_512": jp2_512,
+            "avif_512": avif_512, "s1_film_avif": film_avif,
             "load_seconds": load_s,
             "first_step": first, "film_mean": mean, "launches": used,
             "twin_bit_equal": True}
@@ -5228,7 +5336,7 @@ def main() -> int:
 
     print(f"== phase 16: the image files ignis_tpu reads through OpenCV "
           f"({time.perf_counter() - t_start:.1f} s in)")
-    textures = phase_textures(device)
+    textures = phase_textures(device, s1=runtimes["S1_glass_ico7"])
 
     def timed(t):
         ms, plain, bms, by = t

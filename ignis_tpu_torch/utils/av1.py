@@ -194,7 +194,11 @@ def leb128(data, pos):
 class SymbolDecoder:
     """The multi-symbol arithmetic decoder (spec 8.2). The window `dif`
     holds the inverted bits of the stream (1s past its end) less what the
-    decoded intervals took, with `cnt` bits more than the spec's 15."""
+    decoded intervals took, with `cnt` bits more than the spec's 15.
+
+    Every read takes a `want`, the value an encoder writes there
+    (av1_enc.py drives the parse with SymbolEncoder and SymbolCounter,
+    which answer each read with it); a decoder passes it by."""
 
     def __init__(self, data, start, size, disable_update):
         self.data, self.pos, self.end = data, start, start + size
@@ -212,7 +216,7 @@ class SymbolDecoder:
                                        & 0xffffffffffff)
         self.cnt += 48
 
-    def symbol(self, cdf) -> int:
+    def symbol(self, cdf, want=None) -> int:
         n = len(cdf) - 1
         rng = self.rng
         c = self.cnt
@@ -238,31 +242,215 @@ class SymbolDecoder:
         else:
             self.cnt = c
         if self.update:
-            cnt = cdf[n]
-            rate = 3 + (cnt > 15) + (cnt > 31) + (2 if n > 3 else n >> 1)
-            for i in range(n - 1):
-                if i < s:
-                    cdf[i] -= cdf[i] >> rate
-                else:
-                    cdf[i] += (32768 - cdf[i]) >> rate
-            if cnt < 32:
-                cdf[n] = cnt + 1
+            adapt(cdf, s)
         return s
 
-    def bool(self) -> int:
+    def bool(self, want=None) -> int:
         return self.symbol([16384, 32768, 0])
 
-    def literal(self, n: int) -> int:
+    def literal(self, n: int, want=None) -> int:
         v = 0
         for _ in range(n):
             v = (v << 1) | self.bool()
         return v
 
-    def ns(self, n: int) -> int:
+    def ns(self, n: int, want=None) -> int:
         w = n.bit_length()
         m = (1 << w) - n
         v = self.literal(w - 1)
         return v if v < m else (v << 1) - m + self.literal(1)
+
+
+def adapt(cdf, s):
+    """The CDF update after symbol `s` (spec 8.2.6), with its counter."""
+    n = len(cdf) - 1
+    cnt = cdf[n]
+    rate = 3 + (cnt > 15) + (cnt > 31) + (2 if n > 3 else n >> 1)
+    for i in range(n - 1):
+        if i < s:
+            cdf[i] -= cdf[i] >> rate
+        else:
+            cdf[i] += (32768 - cdf[i]) >> rate
+    if cnt < 32:
+        cdf[n] = cnt + 1
+
+
+class SymbolEncoder:
+    """libaom's multi-symbol arithmetic encoder (od_ec_encode_q15 with the
+    16-bit pre-carry buffer, od_ec_enc_done's shortest tail and its carry
+    propagation): the exact inverse of SymbolDecoder, with the same CDF
+    adaptation. Each read of the parse writes its `want`."""
+
+    def __init__(self, disable_update=False):
+        self.update = not disable_update
+        self.low, self.rng, self.cnt = 0, 0x8000, -9
+        self.precarry = []
+
+    def symbol(self, cdf, want) -> int:
+        s = want
+        n = len(cdf) - 1
+        r = self.rng
+        low = self.low
+        r8 = r >> 8
+        v = ((r8 * ((32768 - cdf[s]) >> 6)) >> 1) + 4 * (n - s - 1)
+        if s > 0:
+            u = ((r8 * ((32768 - cdf[s - 1]) >> 6)) >> 1) + 4 * (n - s)
+            low += r - u
+            r = u - v
+        else:
+            r -= v
+        d = 16 - r.bit_length()
+        c = self.cnt
+        s_ = c + d
+        if s_ >= 0:
+            c += 16
+            m = (1 << c) - 1
+            if s_ >= 8:
+                self.precarry.append(low >> c)
+                low &= m
+                c -= 8
+                m >>= 8
+            self.precarry.append(low >> c)
+            s_ = c + d - 24
+            low &= m
+        self.low, self.rng, self.cnt = low << d, r << d, s_
+        if self.update:
+            adapt(cdf, s)
+        return s
+
+    def bool(self, want) -> int:
+        return self.symbol([16384, 32768, 0], want)
+
+    def literal(self, n: int, want) -> int:
+        for i in range(n - 1, -1, -1):
+            self.bool((want >> i) & 1)
+        return want
+
+    def ns(self, n: int, want) -> int:
+        w = n.bit_length()
+        m = (1 << w) - n
+        if want < m:
+            self.literal(w - 1, want)
+        else:
+            self.literal(w - 1, (want + m) >> 1)
+            self.literal(1, (want + m) & 1)
+        return want
+
+    def done(self) -> bytes:
+        """The coded bytes: the fewest that decode every symbol written,
+        whatever follows them."""
+        low, c = self.low, self.cnt
+        buf = list(self.precarry)
+        m = 0x3fff
+        e = ((low + m) & ~m) | (m + 1)
+        s = c + 10
+        if s > 0:
+            n = (1 << (c + 16)) - 1
+            while True:
+                buf.append(e >> (c + 16))
+                e &= n
+                s -= 8
+                c -= 8
+                n >>= 8
+                if s <= 0:
+                    break
+        out = bytearray(len(buf))
+        carry = 0
+        for i in range(len(buf) - 1, -1, -1):
+            carry += buf[i]
+            out[i] = carry & 0xff
+            carry >>= 8
+        return bytes(out)
+
+
+_COST = None
+
+
+def symbol_costs():
+    """-log2(p / 32768) in bits for every 15-bit probability p."""
+    global _COST
+    if _COST is None:
+        p = np.arange(32769, dtype=np.float64)
+        p[0] = 0.5
+        _COST = (15.0 - np.log2(p)).tolist()
+    return _COST
+
+
+class SymbolCounter:
+    """Answers the parse's reads like SymbolEncoder but only adds up their
+    cost in bits (`bits`), from the CDFs as they stand: it adapts none, so
+    a rate-distortion search can try a block many times over."""
+
+    def __init__(self):
+        self.bits = 0.0
+        self.cost = symbol_costs()
+
+    def symbol(self, cdf, want) -> int:
+        lo = cdf[want - 1] if want else 0
+        self.bits += self.cost[cdf[want] - lo]
+        return want
+
+    def bool(self, want) -> int:
+        self.bits += 1.0
+        return want
+
+    def literal(self, n: int, want) -> int:
+        self.bits += n
+        return want
+
+    def ns(self, n: int, want) -> int:
+        w = n.bit_length()
+        self.bits += w - 1 + (want >= (1 << w) - n)
+        return want
+
+
+class BitWriter:
+    """The header bit writer: f(n) and su(n) of the specification, MSB
+    first, with trailing_bits and byte_alignment."""
+
+    def __init__(self):
+        self.bits = []
+
+    def f(self, n: int, v: int):
+        v = int(v)
+        if v < 0 or v >> n:
+            raise ValueError(f"AV1 header: {v} does not fit {n} bits")
+        self.bits += [(v >> i) & 1 for i in range(n - 1, -1, -1)]
+
+    def su(self, n: int, v: int):
+        self.f(n, v & ((1 << n) - 1))
+
+    def ns(self, n: int, v: int):
+        w = n.bit_length()
+        m = (1 << w) - n
+        if v < m:
+            self.f(w - 1, v)
+        else:
+            self.f(w - 1, (v + m) >> 1)
+            self.f(1, (v + m) & 1)
+
+    def trailing_bits(self):
+        self.bits.append(1)
+        self.byte_align()
+
+    def byte_align(self):
+        self.bits += [0] * (-len(self.bits) % 8)
+
+    def bytes(self) -> bytes:
+        if len(self.bits) % 8:
+            raise ValueError("AV1 header: not byte aligned")
+        arr = np.array(self.bits, np.uint8)
+        return np.packbits(arr).tobytes()
+
+
+def leb128_bytes(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7f
+        v >>= 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
 
 
 class Frame:
@@ -721,9 +909,9 @@ class Decoder:
             if pos + size > end:
                 raise IOError(f"AV1: truncated tile ({self.name})")
             tr, tc = divmod(t, ncols)
-            TileDecoder(self, data, pos, size, self.row_starts[tr],
-                        self.row_starts[tr + 1], self.col_starts[tc],
-                        self.col_starts[tc + 1]).decode()
+            sd = SymbolDecoder(data, pos, size, self.disable_cdf_update)
+            TileDecoder(self, sd, self.row_starts[tr], self.row_starts[tr + 1],
+                        self.col_starts[tc], self.col_starts[tc + 1]).decode()
             pos += size
         if last == ntiles - 1:
             self.frame_done = True
@@ -750,9 +938,18 @@ class Decoder:
 
 
 class TileDecoder:
-    def __init__(self, dec, data, pos, size, r0, r1, c0, c1):
+    """The tile syntax, read through `sd`. An encoder drives the same
+    parse (av1_enc.TileEncoder): `parts` and `plans` then hold the
+    partition of each node and the mode info of each block that it has
+    chosen, `cplan` the levels of the transform block at hand, and each
+    read is handed the value to write; the hooks `before_coeffs` and
+    `after_coeffs` let it predict and reconstruct in decode order."""
+
+    parts = plans = cplan = None
+
+    def __init__(self, dec, sd, r0, r1, c0, c1):
         self.d = dec
-        self.sd = SymbolDecoder(data, pos, size, dec.disable_cdf_update)
+        self.sd = sd
         self.r0, self.r1, self.c0, self.c1 = r0, r1, c0, c1
         qc = dec.qctx
         self.cdf = {k: copy.deepcopy(v[qc] if k in _COEFF_CDFS else v)
@@ -783,13 +980,17 @@ class TileDecoder:
                     ll[i] = 0
                     ld[i] = 0
             for c in range(self.c0, self.c1, sb4):
-                self.read_deltas = d.delta_q_present
-                for dr in (0, 16) if sb4 == 32 else (0,):
-                    for dc in (0, 16) if sb4 == 32 else (0,):
-                        d.cdef_idx[(r + dr, c + dc)] = -1
-                self.clear_decoded(r, c)
-                self.read_lr(r, c, bsize)
-                self.partition(r, c, bsize)
+                self.superblock(r, c, bsize)
+
+    def superblock(self, r, c, bsize):
+        d = self.d
+        self.read_deltas = d.delta_q_present
+        for dr in (0, 16) if self.sb4 == 32 else (0,):
+            for dc in (0, 16) if self.sb4 == 32 else (0,):
+                d.cdef_idx[(r + dr, c + dc)] = -1
+        self.clear_decoded(r, c)
+        self.read_lr(r, c, bsize)
+        self.partition(r, c, bsize)
 
     # BlockDecoded, per plane, indexed [y + 1][x + 1] in plane 4 x 4 units
     def clear_decoded(self, r, c):
@@ -914,36 +1115,7 @@ class TileDecoder:
         quarter = half >> 1
         has_rows = (r + half) < d.mi_rows
         has_cols = (c + half) < d.mi_cols
-        if bsize < B8X8:
-            part = 0
-        else:
-            bsl = BLOG2W[bsize]
-            above = left = 0
-            if self.inside(r - 1, c):
-                above = BLOG2W[d.mi[r - 1][c].size] < bsl
-            if self.inside(r, c - 1):
-                left = BLOG2H[d.mi[r][c - 1].size] < bsl
-            cdf = self.cdf["PARTITION"][(bsl - 1) * 4 + left * 2 + above]
-            if has_rows and has_cols:
-                part = self.sd.symbol(cdf)
-            elif has_cols or has_rows:
-                def prob(e):
-                    return cdf[e] - (cdf[e - 1] if e else 0)
-                # the probability of SPLIT gathered from the CDF as
-                # libaom gathers it
-                if not has_cols:
-                    elems = [1, 3, 4, 5, 6]
-                    if bsize != B128X128:
-                        elems.append(8)
-                else:
-                    elems = [2, 3, 4, 6, 7]
-                    if bsize != B128X128:
-                        elems.append(9)
-                psum = sum(prob(e) for e in elems)
-                bit = self.sd.symbol([32768 - psum, 32768, 0])
-                part = 3 if bit else (1 if has_cols else 2)
-            else:
-                part = 3
+        part = self.read_partition(r, c, bsize)
         w, h = 4 * n4, 4 * n4
         sub = {0: (w, h), 1: (w, h // 2), 2: (w // 2, h), 3: (w // 2, h // 2),
                4: (w, h // 2), 5: (w, h // 2), 6: (w // 2, h),
@@ -991,31 +1163,56 @@ class TileDecoder:
                 if k < 3 or c + quarter * 3 < d.mi_cols:
                     blk(r, c + quarter * k, sub)
 
+    def read_partition(self, r, c, bsize):
+        """The partition of the node at (r, c): its symbol, or what the
+        frame's edges leave of it."""
+        d = self.d
+        half = BW4[bsize] >> 1
+        has_rows = (r + half) < d.mi_rows
+        has_cols = (c + half) < d.mi_cols
+        if bsize < B8X8:
+            part = 0
+        else:
+            bsl = BLOG2W[bsize]
+            above = left = 0
+            if self.inside(r - 1, c):
+                above = BLOG2W[d.mi[r - 1][c].size] < bsl
+            if self.inside(r, c - 1):
+                left = BLOG2H[d.mi[r][c - 1].size] < bsl
+            cdf = self.cdf["PARTITION"][(bsl - 1) * 4 + left * 2 + above]
+            want = None if self.parts is None else self.parts[(r, c, bsize)]
+            if has_rows and has_cols:
+                part = self.sd.symbol(cdf, want)
+            elif has_cols or has_rows:
+                def prob(e):
+                    return cdf[e] - (cdf[e - 1] if e else 0)
+                # the probability of SPLIT gathered from the CDF as
+                # libaom gathers it
+                if not has_cols:
+                    elems = [1, 3, 4, 5, 6]
+                    if bsize != B128X128:
+                        elems.append(8)
+                else:
+                    elems = [2, 3, 4, 6, 7]
+                    if bsize != B128X128:
+                        elems.append(9)
+                psum = sum(prob(e) for e in elems)
+                bit = self.sd.symbol([32768 - psum, 32768, 0],
+                                     None if want is None else int(want == 3))
+                part = 3 if bit else (1 if has_cols else 2)
+            else:
+                part = 3
+        return part
+
     # ---- blocks -------------------------------------------------------------
     def block(self, r, c, bsize):
         d, sd, cdf = self.d, self.sd, self.cdf
+        p = None if self.plans is None else self.plans[(r, c, bsize)]
         b = Block()
         b.row, b.col, b.size = r, c, bsize
         bw4, bh4 = BW4[bsize], BH4[bsize]
-        if bh4 == 1 and d.ssy and not (r & 1):
-            has_chroma = False
-        elif bw4 == 1 and d.ssx and not (c & 1):
-            has_chroma = False
-        else:
-            has_chroma = d.nplanes > 1
-        self.has_chroma = has_chroma
-        avail_u = self.inside(r - 1, c)
-        avail_l = self.inside(r, c - 1)
-        self.avail_u, self.avail_l = avail_u, avail_l
-        self.avail_uc, self.avail_lc = avail_u, avail_l
-        if has_chroma:
-            if d.ssy and bh4 == 1:
-                self.avail_uc = self.inside(r - 2, c)
-            if d.ssx and bw4 == 1:
-                self.avail_lc = self.inside(r, c - 2)
-        else:
-            self.avail_uc = self.avail_lc = False
-        b.avail = (avail_u, avail_l, self.avail_uc, self.avail_lc)
+        has_chroma = self.set_avail(b)
+        avail_u, avail_l = b.avail[:2]
         b.var_tx = None
         above = d.mi[r - 1][c] if avail_u else None
         left = d.mi[r][c - 1] if avail_l else None
@@ -1029,7 +1226,7 @@ class TileDecoder:
             b.skip = 1
         else:
             ctx = (above.skip if above else 0) + (left.skip if left else 0)
-            b.skip = sd.symbol(cdf["SKIP"][ctx])
+            b.skip = sd.symbol(cdf["SKIP"][ctx], p and p.skip)
         if not d.seg_pre_skip:
             self.intra_segment_id(b, r, c, avail_u, avail_l)
         b.lossless = d.lossless[b.seg]
@@ -1054,35 +1251,28 @@ class TileDecoder:
             b.mv = intrabc_mv(self, b, r, c)
         else:
             b.is_inter = 0
-            am = above.y_mode if above else DC_PRED
-            lm = left.y_mode if left else DC_PRED
-            b.y_mode = sd.symbol(cdf["KF_Y_MODE"][INTRA_MODE_CTX[am]][
-                INTRA_MODE_CTX[lm]])
+            b.y_mode = sd.symbol(self.y_mode_cdf(above, left),
+                                 p and p.y_mode)
             if bsize >= B8X8 and V_PRED <= b.y_mode <= D67:
-                b.angle_y = sd.symbol(cdf["ANGLE_DELTA"][b.y_mode - 1]) - 3
+                b.angle_y = sd.symbol(cdf["ANGLE_DELTA"][b.y_mode - 1],
+                                      p and p.angle_y + 3) - 3
             b.uv_mode = DC_PRED
             if has_chroma:
-                bw, bh = 4 * bw4, 4 * bh4
-                if b.lossless:
-                    sx, sy = d.ssx, d.ssy
-                    cfl_ok = _BSIZE.get((max(bw4 >> sx, 1),
-                                         max(bh4 >> sy, 1))) == B4X4
-                else:
-                    cfl_ok = max(bw, bh) <= 32
-                tab = cdf["UV_MODE_CFL_ALLOWED" if cfl_ok else
-                          "UV_MODE_CFL_NOT_ALLOWED"]
-                b.uv_mode = sd.symbol(tab[b.y_mode])
+                b.uv_mode = sd.symbol(self.uv_mode_cdf(b), p and p.uv_mode)
                 if b.uv_mode == UV_CFL:
-                    self.read_cfl(b)
+                    self.read_cfl(b, p)
                 if bsize >= B8X8 and V_PRED <= b.uv_mode <= D67:
                     b.angle_uv = sd.symbol(
-                        cdf["ANGLE_DELTA"][b.uv_mode - 1]) - 3
+                        cdf["ANGLE_DELTA"][b.uv_mode - 1],
+                        p and p.angle_uv + 3) - 3
             if bsize >= B8X8 and bw4 <= 16 and bh4 <= 16 and d.sct:
                 self.palette_mode_info(b, r, c, above, left)
             if d.seq["filter_intra"] and b.y_mode == DC_PRED and \
                     b.pal_size[0] == 0 and max(bw4, bh4) <= 8:
-                if sd.symbol(cdf["USE_FILTER_INTRA"][bsize]):
-                    b.filter_mode = sd.symbol(cdf["FILTER_INTRA_MODE"])
+                if sd.symbol(cdf["USE_FILTER_INTRA"][bsize],
+                             p and int(p.filter_mode >= 0)):
+                    b.filter_mode = sd.symbol(cdf["FILTER_INTRA_MODE"],
+                                              p and p.filter_mode)
         # palette_tokens
         b.color_map_y = b.color_map_uv = None
         if b.pal_size[0] or b.pal_size[1]:
@@ -1105,6 +1295,53 @@ class TileDecoder:
         if b.skip:
             self.reset_block_context(b)
         self.residual(b)
+
+    def set_avail(self, b):
+        """Sets `has_chroma` and the neighbours' availability (the tile's
+        own) of the block at b.row, b.col for its luma and chroma; returns
+        has_chroma."""
+        d = self.d
+        r, c = b.row, b.col
+        bw4, bh4 = BW4[b.size], BH4[b.size]
+        if bh4 == 1 and d.ssy and not (r & 1):
+            has_chroma = False
+        elif bw4 == 1 and d.ssx and not (c & 1):
+            has_chroma = False
+        else:
+            has_chroma = d.nplanes > 1
+        self.has_chroma = has_chroma
+        avail_u = self.inside(r - 1, c)
+        avail_l = self.inside(r, c - 1)
+        self.avail_u, self.avail_l = avail_u, avail_l
+        self.avail_uc, self.avail_lc = avail_u, avail_l
+        if has_chroma:
+            if d.ssy and bh4 == 1:
+                self.avail_uc = self.inside(r - 2, c)
+            if d.ssx and bw4 == 1:
+                self.avail_lc = self.inside(r, c - 2)
+        else:
+            self.avail_uc = self.avail_lc = False
+        b.avail = (avail_u, avail_l, self.avail_uc, self.avail_lc)
+        return has_chroma
+
+    def y_mode_cdf(self, above, left):
+        """The key frame's luma mode CDF under the modes above and left."""
+        am = above.y_mode if above else DC_PRED
+        lm = left.y_mode if left else DC_PRED
+        return self.cdf["KF_Y_MODE"][INTRA_MODE_CTX[am]][INTRA_MODE_CTX[lm]]
+
+    def uv_mode_cdf(self, b):
+        """The chroma mode CDF of a block under its luma mode."""
+        return self.cdf["UV_MODE_CFL_ALLOWED" if self.cfl_allowed(b) else
+                        "UV_MODE_CFL_NOT_ALLOWED"][b.y_mode]
+
+    def cfl_allowed(self, b):
+        d = self.d
+        bw4, bh4 = BW4[b.size], BH4[b.size]
+        if d.lossless[b.seg]:
+            return _BSIZE.get((max(bw4 >> d.ssx, 1),
+                               max(bh4 >> d.ssy, 1))) == B4X4
+        return max(bw4, bh4) <= 8
 
     def intra_segment_id(self, b, r, c, avail_u, avail_l):
         d = self.d
@@ -1158,26 +1395,24 @@ class TileDecoder:
             return
         r0, c0 = r & ~15, c & ~15
         if d.cdef_idx.get((r0, c0), -1) == -1:
-            v = self.sd.literal(d.cdef_bits)
+            v = self.sd.literal(d.cdef_bits, None if self.plans is None
+                                else 0)
             d.cdef_idx[(r0, c0)] = v
             for y in range(r0, r0 + BH4[bsize], 16):
                 for x in range(c0, c0 + BW4[bsize], 16):
                     d.cdef_idx[(y, x)] = v
 
     def read_delta_q(self):
-        d, sd = self.d, self.sd
-        v = sd.symbol(self.cdf["DELTA_Q"])
-        if v == 3:
-            bits = sd.literal(3) + 1
-            v = sd.literal(bits) + (1 << bits) + 1
+        d = self.d
+        want = None if self.plans is None else \
+            (self.plan_q - self.current_q) >> d.delta_q_res
+        v = self.read_delta(self.cdf["DELTA_Q"], want)
         if v:
-            if sd.literal(1):
-                v = -v
             self.current_q = max(1, min(255, self.current_q +
                                         (v << d.delta_q_res)))
 
     def read_delta_lf(self):
-        d, sd = self.d, self.sd
+        d = self.d
         if not d.delta_lf_present:
             return
         n = 1
@@ -1186,25 +1421,42 @@ class TileDecoder:
         for i in range(n):
             cdf = self.cdf["DELTA_LF_MULTI"][i] if d.delta_lf_multi else \
                 self.cdf["DELTA_LF"]
-            v = sd.symbol(cdf)
-            if v == 3:
-                bits = sd.literal(3) + 1
-                v = sd.literal(bits) + (1 << bits) + 1
+            v = self.read_delta(cdf, None if self.plans is None else 0)
             if v:
-                if sd.literal(1):
-                    v = -v
                 self.delta_lf[i] = max(-63, min(63, self.delta_lf[i] +
                                                 (v << d.delta_lf_res)))
 
-    def read_cfl(self, b):
+    def read_delta(self, cdf, want):
+        """A signed delta (delta_q_abs or delta_lf_abs, its remaining
+        bits and sign)."""
+        sd = self.sd
+        a = None if want is None else abs(want)
+        v = sd.symbol(cdf, None if a is None else min(a, 3))
+        if v == 3:
+            bits = None if a is None else (a - 1).bit_length() - 1
+            bits = sd.literal(3, None if a is None else bits - 1) + 1
+            v = sd.literal(bits, None if a is None else
+                           a - 1 - (1 << bits)) + (1 << bits) + 1
+        if v and sd.literal(1, None if a is None else int(want < 0)):
+            v = -v
+        return v
+
+    def read_cfl(self, b, p=None):
         sd, cdf = self.sd, self.cdf
-        signs = sd.symbol(cdf["CFL_SIGN"])
+        want = None
+        if p is not None:
+            su, sv = ((0 if a == 0 else 1 if a < 0 else 2)
+                      for a in (p.cfl_u, p.cfl_v))
+            want = su * 3 + sv - 1
+        signs = sd.symbol(cdf["CFL_SIGN"], want)
         su, sv = (signs + 1) // 3, (signs + 1) % 3
         if su:
-            a = sd.symbol(cdf["CFL_ALPHA"][(su - 1) * 3 + sv]) + 1
+            a = sd.symbol(cdf["CFL_ALPHA"][(su - 1) * 3 + sv],
+                          p and abs(p.cfl_u) - 1) + 1
             b.cfl_u = -a if su == 1 else a
         if sv:
-            a = sd.symbol(cdf["CFL_ALPHA"][(sv - 1) * 3 + su]) + 1
+            a = sd.symbol(cdf["CFL_ALPHA"][(sv - 1) * 3 + su],
+                          p and abs(p.cfl_v) - 1) + 1
             b.cfl_v = -a if sv == 1 else a
 
     # ---- palettes -----------------------------------------------------------
@@ -1472,27 +1724,14 @@ class TileDecoder:
         sx, sy = (d.ssx, d.ssy) if plane else (0, 0)
         row = (start_y << sy) >> 2
         col = (start_x << sx) >> 2
-        sb_r = row - self.sb_r
-        sb_c = col - self.sb_c
         step_x, step_y = TXW[tx] >> 2, TXH[tx] >> 2
         if start_x >= (d.mi_cols * 4) >> sx or \
                 start_y >= (d.mi_rows * 4) >> sy:
             return
         g = self.decoded[plane]
-        gy, gx = (sb_r >> sy) + 1, (sb_c >> sx) + 1
+        gy, gx = ((row - self.sb_r) >> sy) + 1, ((col - self.sb_c) >> sx) + 1
         if not b.is_inter:
-            if plane == 0:
-                avail_l, avail_u = self.avail_l, self.avail_u
-            else:
-                avail_l, avail_u = self.avail_lc, self.avail_uc
-            have_left = avail_l or x > 0
-            have_above = avail_u or y > 0
-            gxr = gx + step_x
-            have_ar = g[gy - 1][gxr] if gxr < len(g[0]) else 0
-            gyb = gy + step_y
-            have_bl = g[gyb][gx - 1] if gyb < len(g) else 0
-            rec = [plane, start_x, start_y, tx, b, have_left, have_above,
-                   have_ar, have_bl, x, y, None, None]
+            rec = self.intra_rec(b, plane, start_x, start_y, tx, x, y)
             if plane == 0:
                 self.max_luma = (start_x + step_x * 4, start_y + step_y * 4)
             else:
@@ -1500,8 +1739,10 @@ class TileDecoder:
         else:
             rec = [plane, start_x, start_y, tx, b, 0, 0, 0, 0, x, y, None,
                    None]
+        self.before_coeffs(rec)
         if not b.skip:
             rec[11] = self.coeffs(b, plane, start_x, start_y, tx)
+        self.after_coeffs(rec)
         d.records.append(rec)
         lf = d.lf_tx[plane]
         lf[row >> sy:(row >> sy) + step_y, col >> sx:(col >> sx) + step_x] \
@@ -1512,6 +1753,35 @@ class TileDecoder:
                 for j in range(step_x):
                     if gx + j < len(gr):
                         gr[gx + j] = 1
+
+    def intra_rec(self, b, plane, start_x, start_y, tx, x, y):
+        """The record of an intra transform block at (start_x, start_y) of
+        its plane, (x, y) 4 x 4 units into its block: [plane, x, y, tx,
+        block, have left, have above, have above right, have below left,
+        x, y, coefficients, luma extent]."""
+        d = self.d
+        sx, sy = (d.ssx, d.ssy) if plane else (0, 0)
+        row = (start_y << sy) >> 2
+        col = (start_x << sx) >> 2
+        step_x, step_y = TXW[tx] >> 2, TXH[tx] >> 2
+        g = self.decoded[plane]
+        gy, gx = ((row - self.sb_r) >> sy) + 1, ((col - self.sb_c) >> sx) + 1
+        if plane == 0:
+            avail_l, avail_u = self.avail_l, self.avail_u
+        else:
+            avail_l, avail_u = self.avail_lc, self.avail_uc
+        gxr = gx + step_x
+        have_ar = g[gy - 1][gxr] if gxr < len(g[0]) else 0
+        gyb = gy + step_y
+        have_bl = g[gyb][gx - 1] if gyb < len(g) else 0
+        return [plane, start_x, start_y, tx, b, avail_l or x > 0,
+                avail_u or y > 0, have_ar, have_bl, x, y, None, None]
+
+    def before_coeffs(self, rec):
+        pass
+
+    def after_coeffs(self, rec):
+        pass
 
     # ---- coefficients -------------------------------------------------------
     def tx_set(self, b, tx):
@@ -1532,7 +1802,7 @@ class TileDecoder:
             return SET_INTRA_2
         return SET_INTRA_1
 
-    def read_tx_type(self, b, tx):
+    def read_tx_type(self, b, tx, want=None):
         d = self.d
         tset = self.tx_set(b, tx)
         q = d.qidx(b.seg, None)
@@ -1548,8 +1818,12 @@ class TileDecoder:
             mode = FILTER_INTRA_DIR[b.filter_mode] if b.filter_mode >= 0 \
                 else b.y_mode
             if tset == SET_INTRA_1:
-                return INTRA_SET1[sd.symbol(cdf["INTRA_TX_SET1"][sqr][mode])]
-            return INTRA_SET2[sd.symbol(cdf["INTRA_TX_SET2"][sqr][mode])]
+                return INTRA_SET1[sd.symbol(
+                    cdf["INTRA_TX_SET1"][sqr][mode],
+                    None if want is None else INTRA_SET1.index(want))]
+            return INTRA_SET2[sd.symbol(
+                cdf["INTRA_TX_SET2"][sqr][mode],
+                None if want is None else INTRA_SET2.index(want))]
         return DCT_DCT
 
     def plane_tx_type(self, b, plane, tx, luma_type):
@@ -1566,8 +1840,11 @@ class TileDecoder:
     def coeffs(self, b, plane, x, y, tx):
         """Reads one transform block's coefficients; returns (tx type,
         {position: signed level}, dc quantiser, ac quantiser, qm level) or
-        None when all are zero."""
+        None when all are zero. An encoder's `cplan` is (tx type, signed
+        levels by position, end of block)."""
         d, sd, cdf = self.d, self.sd, self.cdf
+        cp = self.cplan
+        A = None if cp is None else [abs(v) for v in cp[1]]
         sx, sy = (d.ssx, d.ssy) if plane else (0, 0)
         x4, y4 = x >> 2, y >> 2
         w4, h4 = TXW[tx] >> 2, TXH[tx] >> 2
@@ -1605,7 +1882,8 @@ class TileDecoder:
             ph = max(BH4[b.size] >> d.ssy, 1) * 4
             if pw * ph > TXW[tx] * TXH[tx]:
                 ctx += 3
-        all_zero = sd.symbol(cdf["TXB_SKIP"][tx_ctx][ctx])
+        all_zero = sd.symbol(cdf["TXB_SKIP"][tx_ctx][ctx],
+                             None if cp is None else int(cp[2] == 0))
         if all_zero:
             if plane == 0:
                 self.set_tx_types(b, x4, y4, w4, h4, DCT_DCT)
@@ -1617,7 +1895,7 @@ class TileDecoder:
                 ld[i] = 0
             return None
         if plane == 0:
-            ltype = self.read_tx_type(b, tx)
+            ltype = self.read_tx_type(b, tx, None if cp is None else cp[0])
             self.set_tx_types(b, x4, y4, w4, h4, ltype)
         else:
             ltype = self.luma_tx_type_at(b, x, y) if b.is_inter else None
@@ -1631,47 +1909,57 @@ class TileDecoder:
         ectx = 0 if cls == CLASS_2D else 1
         eob_cdf = cdf[("EOB_PT_16", "EOB_PT_32", "EOB_PT_64", "EOB_PT_128",
                        "EOB_PT_256", "EOB_PT_512", "EOB_PT_1024")[eob_multi]]
-        eob_pt = sd.symbol(eob_cdf[ptype][ectx]) + 1
+        if cp is not None:
+            want = cp[2]
+            want_pt = want if want < 3 else (want - 1).bit_length() + 1
+            extra = want - (1 << (want_pt - 2)) - 1 if want_pt > 2 else 0
+        eob_pt = sd.symbol(eob_cdf[ptype][ectx], None if cp is None else
+                           want_pt - 1) + 1
         eob = eob_pt if eob_pt < 2 else (1 << (eob_pt - 2)) + 1
         shift = eob_pt - 3
         if shift >= 0:
-            if sd.symbol(cdf["EOB_EXTRA"][tx_ctx][ptype][eob_pt - 3]):
+            if sd.symbol(cdf["EOB_EXTRA"][tx_ctx][ptype][eob_pt - 3],
+                         None if cp is None else (extra >> shift) & 1):
                 eob += 1 << shift
             for i in range(1, max(0, eob_pt - 2)):
-                if sd.literal(1):
-                    eob += 1 << (max(0, eob_pt - 2) - 1 - i)
+                k = max(0, eob_pt - 2) - 1 - i
+                if sd.literal(1, None if cp is None else (extra >> k) & 1):
+                    eob += 1 << k
         lv = [0] * ((TXH[adj] + 4) * stride)
+        l3 = list(lv)                       # the levels capped at 3
         base_cdf = cdf["COEFF_BASE"][tx_ctx][ptype]
         br_cdf = cdf["COEFF_BR"][min(tx_ctx, 3)][ptype]
         eob_base = cdf["COEFF_BASE_EOB"][tx_ctx][ptype]
         symbol = sd.symbol
+        a0, a1, a2, a3, a4 = nb_base
+        b0, b1, b2 = nb_br
         for c in range(eob - 1, -1, -1):
             pos = scan[c]
             p = ppos[pos]
+            a = None if A is None else A[pos]
             if c == eob - 1:
                 ectx2 = 0 if c == 0 else 1 if c <= area // 8 else \
                     2 if c <= area // 4 else 3
-                level = symbol(eob_base[ectx2]) + 1
+                level = symbol(eob_base[ectx2], a and min(a, 3) - 1) + 1
             else:
-                a0, a1, a2, a3, a4 = nb_base
-                mag = (min(lv[p + a0], 3) + min(lv[p + a1], 3) +
-                       min(lv[p + a2], 3) + min(lv[p + a3], 3) +
-                       min(lv[p + a4], 3))
                 off = base_off[pos]
-                ctx = 0 if off < 0 else min((mag + 1) >> 1, 4) + off
-                level = symbol(base_cdf[ctx])
+                ctx = 0 if off < 0 else _HALF4[
+                    l3[p + a0] + l3[p + a1] + l3[p + a2] + l3[p + a3] +
+                    l3[p + a4]] + off
+                level = symbol(base_cdf[ctx], None if a is None else
+                               min(a, 3))
             if level > 2:
-                b0, b1, b2 = nb_br
-                mag = (min(lv[p + b0], 15) + min(lv[p + b1], 15) +
-                       min(lv[p + b2], 15))
-                mag = min((mag + 1) >> 1, 6)
-                bcdf = br_cdf[mag + br_off[pos]]
+                # levels here are at most 15, the cap of their context
+                bcdf = br_cdf[_HALF6[lv[p + b0] + lv[p + b1] + lv[p + b2]]
+                              + br_off[pos]]
                 for _ in range(4):
-                    k = symbol(bcdf)
+                    k = symbol(bcdf, None if a is None else
+                               min(a - level, 3))
                     level += k
                     if k < 3:
                         break
             lv[p] = level
+            l3[p] = level if level < 3 else 3
         out = {}
         cul = 0
         dc_cat = 0
@@ -1680,6 +1968,7 @@ class TileDecoder:
             level = lv[ppos[pos]]
             if not level:
                 continue
+            want = None if cp is None else int(cp[1][pos] < 0)
             if c == 0:
                 dsign = 0
                 for i in range(x4, xe):
@@ -1689,20 +1978,24 @@ class TileDecoder:
                     s_ = ld[i]
                     dsign += -1 if s_ == 1 else 1 if s_ == 2 else 0
                 dctx = 1 if dsign < 0 else 2 if dsign > 0 else 0
-                sign = symbol(cdf["DC_SIGN"][ptype][dctx])
+                sign = symbol(cdf["DC_SIGN"][ptype][dctx], want)
             else:
-                sign = sd.literal(1)
+                sign = sd.literal(1, want)
             if level > 14:
+                gw = None if A is None else A[pos] - 14
+                glen = None if A is None else gw.bit_length()
                 length = 0
                 while True:
                     length += 1
-                    if sd.literal(1):
+                    if sd.literal(1, None if A is None else
+                                  int(length == glen)):
                         break
                     if length > 32:
                         raise IOError("AV1: bad Golomb code")
                 g = 1
-                for _ in range(length - 1):
-                    g = (g << 1) | sd.literal(1)
+                for i in range(length - 1):
+                    g = (g << 1) | sd.literal(1, None if A is None else (
+                        gw >> (length - 2 - i)) & 1)
                 level = g + 14
             if pos == 0:
                 dc_cat = 1 if sign else 2
@@ -1738,6 +2031,9 @@ class TileDecoder:
 
 
 # ---- scans and coefficient contexts -------------------------------------
+# Min((mag + 1) >> 1, 4) and Min((mag + 1) >> 1, 6) of the level contexts
+_HALF4 = tuple(min((m + 1) >> 1, 4) for m in range(16))
+_HALF6 = tuple(min((m + 1) >> 1, 6) for m in range(46))
 def _default_scan(w, h):
     out = []
     if w == h:

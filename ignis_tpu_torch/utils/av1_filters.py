@@ -53,7 +53,8 @@ def _levels(dec, plane, pas, seg, dlf):
     return lvl
 
 
-def deblock(dec, planes):
+def deblock(dec, planes, only=None):
+    """Deblocks `planes` in place (those of `only`, when given)."""
     size, skip, inter, seg, dlf = _mi_arrays(dec)
     bw = np.array(BW4, np.int32)[size] * 4
     bh = np.array(BH4, np.int32)[size] * 4
@@ -61,7 +62,8 @@ def deblock(dec, planes):
     sharp = dec.lf_sharp
     shift = 2 if sharp > 4 else 1 if sharp > 0 else 0
     for p in range(dec.nplanes):
-        if p and not dec.lf_level[1 + p]:
+        if p and not dec.lf_level[1 + p] or only is not None and \
+                p not in only:
             continue
         sx, sy = (dec.ssx, dec.ssy) if p else (0, 0)
         lf = dec.lf_tx[p].astype(np.int32)
@@ -255,7 +257,9 @@ def _floor_log2(v):
     return np.floor(np.log2(v)).astype(np.int64)
 
 
-def cdef(dec, planes):
+def cdef(dec, planes, only=None):
+    """The CDEF-filtered planes (those of `only`, when given; the others
+    as they were)."""
     size, skip, inter, seg, dlf = _mi_arrays(dec)
     bd = dec.bd
     cs = bd - 8
@@ -279,6 +283,8 @@ def cdef(dec, planes):
     ystr = np.array(dec.cdef_y, np.int64)[idx]
     uvstr = np.array(dec.cdef_uv, np.int64)[idx]
     for p in range(dec.nplanes):
+        if only is not None and p not in only:
+            continue
         sx, sy = (dec.ssx, dec.ssy) if p else (0, 0)
         if p == 0:
             pri, sec = ystr[:, 0] << cs, ystr[:, 1] << cs

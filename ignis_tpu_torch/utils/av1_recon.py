@@ -285,59 +285,68 @@ def batch_residuals(dec):
     the frame, grouped by size, type and losslessness; the residuals land
     in each record's slot 11 as int32 [h, w]."""
     groups = {}
-    qm = None
     for rec in dec.records:
         res = rec[11]
         if res is None:
             continue
-        txtype = res[0]
-        tx = rec[3]
-        b = rec[4]
-        groups.setdefault((tx, txtype, b.lossless), []).append(rec)
-    bd = dec.bd
-    lim = 1 << (7 + bd)
+        groups.setdefault((rec[3], res[0], rec[4].lossless), []).append(rec)
     for (tx, txtype, lossless), recs in groups.items():
-        adj = TX_ADJ[tx]
-        aw, ah = TXW[adj], TXH[adj]
-        h, w = TXH[tx], TXW[tx]
-        shift = (w * h > 256) + (w * h > 1024)
-        coef = np.zeros((len(recs), h, w), np.int64)
-        for k, rec in enumerate(recs):
-            _, out, dcq, acq, qml = rec[11]
-            mat = None
-            if qml < 15:
-                if qm is None:
-                    qm = T.quantizer_matrix()
-                mat = qm[qml, 1 if rec[0] else 0, QM_OFFSET[adj]:]
-            blk = coef[k]
-            for pos, lev in out.items():
-                q = dcq if pos == 0 else acq
-                if mat is not None:
-                    q = (q * int(mat[pos]) + 16) >> 5
-                a = abs(lev)
-                v = ((a * q) & 0xffffff) >> shift
-                if lev < 0:
-                    v = -v
-                v = -lim if v < -lim else lim - 1 if v >= lim else v
-                blk[pos // aw, pos % aw] = v
-        resid = inverse_transform(coef, tx, txtype, lossless, bd)
+        resid = residuals([rec[11] for rec in recs], [rec[0] for rec in recs],
+                          tx, lossless, dec.bd)
         for k, rec in enumerate(recs):
             rec[11] = resid[k].astype(np.int32)
+
+
+_QM = []
+
+
+def qm_table() -> np.ndarray:
+    """av1_tables.quantizer_matrix(), unpacked once."""
+    if not _QM:
+        _QM.append(T.quantizer_matrix())
+    return _QM[0]
+
+
+def residuals(coefs, planes, tx, lossless, bd):
+    """int64 [B, h, w] residuals of B transform blocks of one size and
+    type: `coefs` their (tx type, {position: level}, dc quantiser, ac
+    quantiser, qm level) as TileDecoder.coeffs reads them, `planes`
+    their planes."""
+    adj = TX_ADJ[tx]
+    aw = TXW[adj]
+    h, w = TXH[tx], TXW[tx]
+    shift = (w * h > 256) + (w * h > 1024)
+    lim = 1 << (7 + bd)
+    coef = np.zeros((len(coefs), h, w), np.int64)
+    for k, (txtype, out, dcq, acq, qml) in enumerate(coefs):
+        mat = None
+        if qml < 15:
+            mat = qm_table()[qml, 1 if planes[k] else 0, QM_OFFSET[adj]:]
+        blk = coef[k]
+        for pos, lev in out.items():
+            q = dcq if pos == 0 else acq
+            if mat is not None:
+                q = (q * int(mat[pos]) + 16) >> 5
+            a = abs(lev)
+            v = ((a * q) & 0xffffff) >> shift
+            if lev < 0:
+                v = -v
+            v = -lim if v < -lim else lim - 1 if v >= lim else v
+            blk[pos // aw, pos % aw] = v
+    return inverse_transform(coef, tx, coefs[0][0], lossless, bd)
 
 
 # ---- intra prediction -----------------------------------------------------
 def _edge_filter(buf, off, sz, strength):
     """Filters buf[off - 1 .. off + sz - 2] (AboveRow/LeftCol[-1 ..])."""
-    if not strength:
+    if not strength or sz < 2:
         return
     edge = buf[off - 1:off - 1 + sz]
+    # the taps read the edge clamped at both ends: pad it by two
+    e = np.array(edge[:1] * 2 + edge + edge[-1:] * 2, np.int64)
     k = EDGE_KERNEL[strength - 1]
-    for i in range(1, sz):
-        s = 0
-        for j in range(5):
-            idx = min(max(i - 2 + j, 0), sz - 1)
-            s += k[j] * edge[idx]
-        buf[off + i - 1] = (s + 8) >> 4
+    s = sum(k[j] * e[1 + j:sz + j] for j in range(5))
+    buf[off:off + sz - 1] = ((s + 8) >> 4).tolist()
 
 
 def _upsample(buf, off, num, mx):

@@ -254,6 +254,59 @@ def decode_avif_depth(data: bytes, name: str = ""):
                       frame.ss_y, nclx[2], nclx[3]), frame.bit_depth
 
 
+def _box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def _full_box(kind: bytes, version: int, body: bytes) -> bytes:
+    return _box(kind, bytes([version, 0, 0, 0]) + body)
+
+
+def heif_image(av1: bytes, seq_obu: bytes, w: int, h: int) -> bytes:
+    """An AVIF still image of one 8-bit 4:2:0 AV1 item (`av1` its OBUs,
+    `seq_obu` their sequence header), boxes laid out as cv2.imwrite lays
+    them out: ftyp (avif; avif mif1 miaf MA1B), meta (hdlr pict, pitm,
+    iloc, iinf/infe av01 'Color', iprp: ipco with ispe, pixi, av1C and
+    colr nclx 1/13/6 full range, then ipma), mdat."""
+    from .av1 import BitReader, leb128
+    _, p = leb128(seq_obu, 1)
+    level = BitReader(seq_obu, p).f(10) & 31
+    ftyp = _box(b"ftyp", b"avif" + bytes(4) + b"avifmif1miafMA1B")
+    ipco = _box(b"ipco", _full_box(b"ispe", 0, struct.pack(">II", w, h)) +
+                _full_box(b"pixi", 0, bytes([3, 8, 8, 8])) +
+                _box(b"av1C", bytes([0x81, level, 0x0c, 0])) +
+                _box(b"colr", b"nclx" + struct.pack(">HHHB", 1, 13, 6,
+                                                    0x80)))
+    ipma = _full_box(b"ipma", 0, struct.pack(">IHB", 1, 1, 4) +
+                     bytes([0x01, 0x02, 0x83, 0x04]))
+    infe = _full_box(b"infe", 2, struct.pack(">HH", 1, 0) + b"av01Color\0")
+
+    def meta(offset):
+        return _full_box(b"meta", 0, _full_box(
+            b"hdlr", 0, bytes(4) + b"pict" + bytes(13)) +
+            _full_box(b"pitm", 0, struct.pack(">H", 1)) +
+            _full_box(b"iloc", 0, struct.pack(">BBHHHHII", 0x44, 0, 1, 1, 0,
+                                              1, offset, len(av1))) +
+            _full_box(b"iinf", 0, struct.pack(">H", 1) + infe) +
+            _box(b"iprp", ipco + ipma))
+    offset = len(ftyp) + len(meta(0)) + 8
+    return ftyp + meta(offset) + _box(b"mdat", av1)
+
+
+def encode_avif(rgb: np.ndarray) -> bytes:
+    """uint8 [h, w, 3] RGB as cv2.imwrite writes it to .avif by default
+    (utils/av1_enc.py: 4:2:0 at base_q_idx 148 with cv2's quantiser
+    matrices, delta q, deblocking and CDEF)."""
+    from .av1_enc import encode_yuv420
+    from .yuv import rgb_to_yuv420
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    if rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"expected uint8 [h, w, 3], got {rgb.shape}")
+    h, w = rgb.shape[:2]
+    enc = encode_yuv420(*rgb_to_yuv420(rgb))
+    return heif_image(enc.obus, enc.seq, w, h)
+
+
 def coding_tools(data: bytes) -> list:
     """The AV1 coding tools a file switches on, read from its headers and
     the mode info of its blocks: the evidence of the fixtures' tool table

@@ -38,10 +38,10 @@ run-length-encoded scanlines and written flat, in the RGBE rounding of
 the rgbe.c that OpenCV uses. Integer input is scaled to [0, 1] (8-bit by
 1/255, 16-bit by 1/65535, AVIF by its bit depth: 1/1023 for 10 bits,
 1/4095 for 12) and sRGB-decoded to linear unless `linear`; EXR, HDR, PFM
-and float TIFF are linear; BigTIFF, and writing AVIF, raise
-NotImplementedError by name. LDR output is sRGB-encoded with +0.5
-rounding, as the JAX writer's. Images are float32 [h, w, 3] RGB with row
-0 at the top.
+and float TIFF are linear; BigTIFF raises NotImplementedError by name.
+AVIF is written as cv2's default writer writes it (utils/av1_enc.py).
+LDR output is sRGB-encoded with +0.5 rounding, as the JAX writer's.
+Images are float32 [h, w, 3] RGB with row 0 at the top.
 """
 from __future__ import annotations
 
@@ -214,6 +214,7 @@ def _ldr_writer(suffix: str):
     """The encoder of 8-bit RGB for a suffix cv2.imwrite takes, or None."""
     from .gif import encode_gif
     from .jpeg import encode_jpeg
+    from .avif import encode_avif
     from .jpeg2000 import encode_jp2
     from .tiff import encode_tiff
     from .webp import encode_webp
@@ -227,7 +228,7 @@ def _ldr_writer(suffix: str):
             ".pic": lambda ldr: _hdr_bytes(
                 ldr.astype(np.float32) * np.float32(1.0 / 255.0)),
             ".webp": encode_webp, ".gif": encode_gif,
-            ".jp2": encode_jp2}.get(suffix)
+            ".jp2": encode_jp2, ".avif": encode_avif}.get(suffix)
 
 
 def save_image(path, img):
@@ -239,7 +240,9 @@ def save_image(path, img):
     5/3, cut to rate 4 by PCRD-opt). .pgm and .pbm, which cv2 writes of
     grey images only, and a .jp2 below 32 pixels a side, which cv2 does
     not write (ignis_tpu then leaves an unreadable 77-byte file), raise
-    ValueError; AVIF raises NotImplementedError."""
+    ValueError. .avif as cv2's default AVIF writer writes it
+    (utils/avif.py over utils/av1_enc.py: 4:2:0, base_q_idx 148 with
+    delta q, quantiser matrices, deblocking and CDEF)."""
     path = Path(path)
     img = np.asarray(img, np.float32)
     suffix = path.suffix.lower()
@@ -249,10 +252,6 @@ def save_image(path, img):
     if suffix == ".hdr":
         write_hdr(path, img)
         return
-    if suffix == ".avif":
-        raise NotImplementedError(
-            f"image format '{suffix}' ({path.name}) is not ported: the port "
-            "writes no AVIF")
     if suffix in (".pgm", ".pbm"):
         raise ValueError(f"{path.name}: '{suffix}' holds a grey image, "
                          "and save_image writes colour")

@@ -1,5 +1,12 @@
-"""libavif's YUV to RGB as cv2.imread gets it (libavif 1.4.2 with its
-static libyuv): 8-bit BT.601 images go through libyuv's fixed-point
+"""libavif's YUV to RGB as cv2.imread gets it, and its RGB to YUV as
+cv2.imwrite makes it (libavif 1.4.2 with its static libyuv).
+
+RGB to YUV (`rgb_to_yuv420`): 8-bit full-range BT.601 4:2:0, libyuv's
+J420 rows in their fixed point, each 2 x 2 block's chroma from the
+rounded average of its two rounded column averages (odd widths and
+heights average the last column or row with itself).
+
+YUV to RGB: 8-bit BT.601 images go through libyuv's fixed-point
 YuvPixel (kYuvJPEGConstants in full range, kYuvI601Constants in limited;
 chroma upsampled by libyuv's bilinear ScaleRowUp2 rows for 4:2:0 and
 4:2:2); the identity matrix and 10- and 12-bit images go through
@@ -69,6 +76,25 @@ def _libyuv_rgb(y, u, v, consts):
     g = (y1 + bg - (u * ug + v * vg)) >> 6
     r = (y1 + v * vr - br) >> 6
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def rgb_to_yuv420(rgb: np.ndarray):
+    """Y [h, w] and U, V [(h + 1) // 2, (w + 1) // 2] (int32) of uint8
+    RGB [h, w, 3], as libyuv's RGB to J420 makes them."""
+    rgb = rgb.astype(np.int32)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = (77 * r + 150 * g + 29 * b + 128) >> 8
+    h, w = r.shape
+
+    def avg(c):
+        c = np.pad(c, ((0, h & 1), (0, w & 1)), mode="edge")
+        left = (c[0::2, 0::2] + c[1::2, 0::2] + 1) >> 1
+        right = (c[0::2, 1::2] + c[1::2, 1::2] + 1) >> 1
+        return (left + right + 1) >> 1
+    ra, ga, ba = avg(r), avg(g), avg(b)
+    u = (128 * ba - 85 * ga - 43 * ra + 0x8000) >> 8
+    v = (128 * ra - 107 * ga - 21 * ba + 0x8000) >> 8
+    return y, u, v
 
 
 def _float_rgb(planes, bd, ssx, ssy, matrix, full):

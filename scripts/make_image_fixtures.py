@@ -30,8 +30,9 @@ Pillow's OpenJPEG decode).
 AVIF (each a few KB, some of odd size; tests/data/avif_tools.json lists
 the AV1
 coding tools each file switches on, read from its own headers and blocks
-by utils/avif.py's coding_tools): cv2's default (quality 95, 4:2:0 with
-quantiser matrices, CDEF and deblocking), quality 0 at speed 10,
+by utils/avif.py's coding_tools): cv2's default (no parameters:
+base_q_idx 148 with delta q per superblock, 4:2:0 with quantiser
+matrices, CDEF and deblocking), quality 0 at speed 10,
 quality 50 at speed 0, lossless (quality 100: 4:4:4 under the identity
 matrix), grey, 10- and 12-bit colour and 10-bit grey, and a screen-like
 image (palette and intra block copy); Pillow's 4:2:0 in limited range,
@@ -49,7 +50,11 @@ quality-80 and lossless WebP, progressive JPEG, default .jp2
 (lossless: the whole stream fits rate 4) and default AVIF, with the
 SHA-256 of the pixels cv2 reads from each (`cv2_sha256.json`). `jp2_psnr.json` holds the PSNR
 of cv2's default .jp2 of cv2_q80.webp's pixels against them, the bar of
-chip_smoke's .jp2 writer (less 0.5 dB).
+chip_smoke's .jp2 writer (less 0.5 dB). `avif_bars.json` holds, for each
+source of the AVIF writer's bars (`avif_sources`), the PSNR, file and AV1
+payload bytes and base_q_idx of cv2's default AVIF of it: the port's
+file must reach that PSNR less 0.5 dB within twice the payload
+(tests/test_torch_avif_writer.py, chip_smoke.py's texture phase).
 """
 import hashlib
 import io
@@ -368,6 +373,42 @@ def main() -> None:
         {"cv2_q80.webp": psnr}, indent=1) + "\n")
     print(f"cv2's .jp2 of cv2_q80.webp's pixels: {len(buf)} bytes, PSNR "
           f"{psnr:.4f} dB")
+    (DATA / "avif_bars.json").write_text(json.dumps(
+        avif_bars(pixels), indent=1) + "\n")
+
+
+def avif_sources(pixels) -> dict:
+    """The sources of the AVIF writer's bars: in-repo pixels of small
+    fixtures, one more small image, and the smooth timing image whole and
+    as its top-left 512 x 512 crop."""
+    smooth = timing_image()
+    return {"cv2_lossless.webp": pixels["cv2_lossless.webp"],
+            "cv2_q80.webp": pixels["cv2_q80.webp"],
+            "rgb8(37, 45, 30)": rgb8(37, 45, 30),
+            "smooth_lossless.webp[:512, :512]": smooth[:512, :512],
+            "smooth_lossless.webp": smooth}
+
+
+def avif_bars(pixels) -> dict:
+    """cv2's default AVIF (cv2.imwrite with no parameters, as ignis_tpu's
+    save_image calls it) of each source: the PSNR of what cv2 reads back
+    against the source, the file's and the AV1 item's bytes, and the
+    frame header's base_q_idx."""
+    from ignis_tpu_torch.utils.av1 import Decoder
+    from ignis_tpu_torch.utils.avif import parse_avif
+    out = {}
+    for name, src in avif_sources(pixels).items():
+        ok, buf = cv2.imencode(".avif", np.ascontiguousarray(src[..., ::-1]))
+        assert ok, name
+        back = cv2.imdecode(buf, FLAGS)[..., ::-1].astype(np.float64)
+        item = parse_avif(buf.tobytes())["av1"]
+        out[name] = {"shape": list(src.shape),
+                     "psnr_db": float(10 * np.log10(255.0 ** 2 / np.mean(
+                         (back - src) ** 2))),
+                     "file_bytes": len(buf), "payload_bytes": len(item),
+                     "base_q_idx": Decoder(item).base_q}
+        print(f"cv2's AVIF of {name}: {out[name]}")
+    return out
 
 
 if __name__ == "__main__":

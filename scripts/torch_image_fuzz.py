@@ -12,11 +12,12 @@ progression, 9/7, colour transform, quality layers, tiles, precincts,
 raw code stream and PLT, grey, RGB, RGBA or 16-bit; cv2's AVIF at any
 quality, speed and bit depth (8, 10, 12), colour or grey, and Pillow's
 at any quality, speed, subsampling, range, tiles and libaom switch, with
-alpha a fifth of the time) and compare the port's decode with
-cv2.imdecode; where cv2 reads no AVIF (a grey one with alpha) the port
-must raise IOError. For cv2's GIF writer, compare cv2's read-back of the
-port's `encode_gif` with that of cv2's own file. Needs
-cv2 and Pillow. Run from the repository's root:
+alpha a fifth of the time; and the port's own AVIF writer,
+avif.encode_avif) and compare the port's decode with cv2.imdecode; where
+cv2 reads no AVIF (a grey one with alpha) the port must raise IOError.
+For cv2's GIF writer, compare cv2's read-back of the port's `encode_gif`
+with that of cv2's own file. Needs cv2 and Pillow. Run from the
+repository's root:
 
     python scripts/torch_image_fuzz.py --seed 1 --seconds 60
 
@@ -82,7 +83,10 @@ def one_case(rng):
     h, w = (int(v) for v in rng.integers(1, 90, 2))
     img = random_image(rng, h, w)
     bgr = np.ascontiguousarray(img[..., ::-1])
-    kind = rng.integers(0, 10)
+    kind = rng.integers(0, 11)
+    if kind == 10:
+        return (f"AVIF writer {h}x{w}", avif.encode_avif(img),
+                avif.decode_avif)
     if kind >= 8:
         return avif_case(rng, kind == 8, h, w, img)
     if kind >= 6:
@@ -234,10 +238,11 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=60.0)
     args = ap.parse_args()
     rng = np.random.default_rng(args.seed)
-    files = bad = avifs = 0
+    files = bad = avifs = written = 0
     end = time.perf_counter() + args.seconds
     while time.perf_counter() < end:
         label, data, other = one_case(rng)
+        written += label.startswith("AVIF writer")
         want = cv2_rgb(data)
         avifs += other is avif.decode_avif
         if want is None and other is avif.decode_avif:
@@ -262,7 +267,8 @@ def main() -> int:
                 not np.array_equal(got, want):
             bad += 1
             print(f"mismatch: {label}: pixels differ")
-    print(f"{files} files ({avifs} AVIF), {bad} differed from cv2")
+    print(f"{files} files ({avifs} AVIF, {written} of them from the port's "
+          f"AVIF writer), {bad} differed from cv2")
     return 1 if bad else 0
 
 

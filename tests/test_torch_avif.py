@@ -388,10 +388,20 @@ def test_unported_container_features_refused_by_name(what, data):
 
 
 def test_save_avif_still_refused(tmp_path):
-    """Writing AVIF is not ported: save_image names '.avif'."""
-    with pytest.raises(NotImplementedError, match="'.avif'"):
-        imagelib.save_image(tmp_path / "x.avif",
-                            np.zeros((8, 8, 3), np.float32))
+    """save_image refused '.avif' until the port had a writer; it now
+    writes it as cv2 does (tests/test_torch_avif_writer.py): an 8 x 8
+    image reads back through cv2 and the port to the same pixels, and
+    load_image gives them scaled and sRGB-decoded."""
+    img = np.linspace(0, 1, 8 * 8 * 3, dtype=np.float32).reshape(8, 8, 3)
+    path = tmp_path / "x.avif"
+    imagelib.save_image(path, img)
+    data = path.read_bytes()
+    assert data[4:12] == b"ftypavif"
+    port = avif.decode_avif(data)
+    np.testing.assert_array_equal(_cv2_rgb(data), port)
+    np.testing.assert_allclose(
+        imagelib.load_image(path),
+        imagelib.srgb_to_linear(port / np.float32(255.0)), rtol=1e-6)
 
 
 def _adapt(cdf, s):

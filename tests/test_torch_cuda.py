@@ -488,15 +488,19 @@ def test_post_programs_on_card(device):
 
 def test_texture_phase_on_card(device, tmp_path):
     """Phase 16: the image fixtures decoded to cv2's pixels, every
-    save_image suffix round-tripped, the 1024 x 1024 decodes timed, and
-    the scene textured with the fixtures rendered by one captured step on
-    the card, bit-equal to its PNG/EXR twin."""
-    out = chip_smoke.phase_textures(device, tmp_path)
+    save_image suffix round-tripped (.avif within cv2's bars), the
+    1024 x 1024 decodes timed, the 512 x 512 .jp2 and .avif written, a
+    128 x 128 S1's captured film saved as .avif, and the scene textured
+    with the fixtures and that film rendered by one captured step on the
+    card, bit-equal to its PNG/EXR twin."""
+    out = chip_smoke.phase_textures(device, tmp_path, s1=_s1(device, 128))
     fixtures = [p for p in chip_smoke.IMAGE_FIXTURES.iterdir()
                 if p.suffix != ".npz"]
     assert out["film_mean"] > 0 and out["twin_bit_equal"]
     assert len(out["decoded"]) == len(fixtures)
     assert sorted(out["writers"]) == sorted(chip_smoke.WRITER_SUFFIXES)
+    assert out["avif_512"]["write_s"] > 0
+    assert out["s1_film_avif"]["psnr_db"] >= 20.0
 
 
 def test_trace_and_stats_on_card_match_cpu(device):

@@ -1000,7 +1000,7 @@ def test_unscaled_8bit_tiff_of_jax_reference(tmp_path):
 
 def _unported_file(kind):
     """(suffix, bytes) of a file this test holds to its refusal: cv2's
-    AVIF (read now; only writing it is refused), a BigTIFF header."""
+    AVIF (read and written now), a BigTIFF header."""
     if kind == "avif":
         return ".avif", cv2.imencode(".avif", _full_range(8, 8, 1))[1] \
             .tobytes()
@@ -1013,8 +1013,9 @@ def test_unported_formats_refused_by_name(tmp_path, kind, name):
     """BigTIFF raises NotImplementedError naming the format and the
     file's suffix, found by the file's content. AVIF, once refused here
     too, is read now as cv2 reads it (tests/test_torch_avif.py), and
-    save_image still refuses to write it by name. (JPEG 2000 is read and
-    written: tests/test_torch_jpeg2000.py.)"""
+    save_image, which refused to write it by name, writes it as cv2 does
+    (tests/test_torch_avif_writer.py): the file reads back through cv2.
+    (JPEG 2000 is read and written: tests/test_torch_jpeg2000.py.)"""
     suffix, data = _unported_file(kind)
     p = tmp_path / f"t{suffix}"
     p.write_bytes(data)
@@ -1025,8 +1026,10 @@ def test_unported_formats_refused_by_name(tmp_path, kind, name):
         np.testing.assert_array_equal(
             imagelib.load_image(p, linear=True),
             want.astype(np.float32) / np.float32(255.0))
-        with pytest.raises(NotImplementedError, match=f"'{suffix}'"):
-            imagelib.save_image(p, np.zeros((4, 4, 3), np.float32))
+        imagelib.save_image(p, np.zeros((4, 4, 3), np.float32))
+        written = p.read_bytes()
+        np.testing.assert_array_equal(imagelib.decode_samples(p),
+                                      _cv2_rgb(written))
         return
     assert imagelib.sniff(data) == name
     with pytest.raises(NotImplementedError, match=f"{name} \\('{suffix}'"):
