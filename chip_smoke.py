@@ -168,17 +168,20 @@ printing its own lines; any failure exits non-zero:
    aept's captured learning within the eager-to-eager spread and its
    first step timed;
 16. the image files ignis_tpu reads and writes through OpenCV
-   (`phase_textures`): the fixtures of tests/data/images (JPEGs, BMP,
-   TIFFs, PPM, PFM, GIFs, lossless and lossy WebPs, JPEG 2000 and AVIF
-   files of cv2 and Pillow, Radiance .pic, Sun raster, a JPEG named .png)
+   (`phase_textures`): the fixtures of tests/data/images (JPEGs, BMPs
+   with OS/2's, TIFFs of every sample type, layout and codec, PPM, PAMs,
+   PFM, GIFs, lossless and lossy WebPs, JPEG 2000 and AVIF files of cv2
+   and Pillow with every colour matrix, Radiance .pic, Sun raster, a
+   JPEG named .png)
    decoded and held to cv2's pixels (cv2_pixels.npz); every save_image
    suffix written and read back (.jp2 within cv2's byte budget and PSNR,
    .avif within cv2's bars of tests/data/avif_bars.json: base_q_idx 148,
    PSNR less 0.5 dB, twice the AV1 payload); the 1024 x 1024 WebP,
    progressive JPEG, JPEG 2000 and AVIF decodes timed (the AVIF seconds on
-   a line of their own), a 512 x 512 .jp2 and .avif written and read back
-   (the .avif held to cv2's bars for it, its write seconds on a line of
-   their own); S1's film of one captured step saved as .avif and read
+   a line of their own), a 512 x 512 .jp2 and .avif and a 4,160 x 16
+   .avif (two AV1 tiles) written and read back (each .avif held to cv2's
+   bars and tile layout for it, its write seconds on a line of their
+   own); S1's film of one captured step saved as .avif and read
    back; and a scene textured with the fixtures and that film rendered by
    one captured step: finite, not black, and bit-equal to the same scene
    textured with PNG (and EXR) twins of the decoded pixels;
@@ -4835,8 +4838,8 @@ TIMING_FIXTURES = ROOT / "tests" / "data" / "images_1024"
 # ones (JPEG, GIF's fixed table, .pic's RGBE, JPEG 2000 at OpenCV's rate)
 # are held below to bars of their own
 WRITER_SUFFIXES = (".png", ".bmp", ".dib", ".tga", ".tif", ".tiff", ".ppm",
-                   ".pnm", ".pfm", ".sr", ".ras", ".webp", ".jpg", ".jpeg",
-                   ".jpe", ".gif", ".pic", ".jp2", ".avif")
+                   ".pnm", ".pam", ".pfm", ".sr", ".ras", ".webp", ".jpg",
+                   ".jpeg", ".jpe", ".gif", ".pic", ".jp2", ".avif")
 # the JPEG 2000 fixtures cut by the irreversible 9/7 (the others are
 # reversible and held exactly): held within 1 level of cv2's pixels
 IRREVERSIBLE_JP2 = ("pil_irreversible_layers.jp2",)
@@ -4851,25 +4854,44 @@ JP2_PSNR = ROOT / "tests" / "data" / "jp2_psnr.json"
 AVIF_BARS = ROOT / "tests" / "data" / "avif_bars.json"
 AVIF_SOURCE = "cv2_lossless.webp"
 AVIF_CROP = "smooth_lossless.webp[:512, :512]"
+# a source wider than one AV1 tile (4,096 pixels a row): cv2's file of it
+# has two tile columns, and so must the port's (AVIF_BARS holds cv2's
+# tile_cols_log2 and tile_rows_log2 beside its figures)
+WIDE_AVIF = "smooth(16, 4160)"
+
+
+def wide_source(h=16, w=4160):
+    """uint8 [h, w, 3]: the smooth waves of the 1024 x 1024 timing image
+    (tests/data/images_1024) drawn h x w, the AVIF writer's source past one
+    tile."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    return np.stack([127 + 120 * np.sin(xx / (40.0 + 9 * c) + c)
+                     * np.cos(yy / (55.0 - 7 * c)) for c in range(3)],
+                    -1).astype(np.uint8)
 
 
 def avif_against_bars(path, src, name):
     """The port's .avif at `path` of the pixels `src` held to cv2's figures
-    for the source `name` (AVIF_BARS): (ok, what, PSNR, payload bytes)."""
+    for the source `name` (AVIF_BARS): (ok, what, PSNR, payload bytes).
+    The tile layout (tile_cols_log2, tile_rows_log2) is cv2's too."""
     from ignis_tpu_torch.utils.av1 import Decoder
     from ignis_tpu_torch.utils.avif import decode_avif, parse_avif
     bar = json.loads(AVIF_BARS.read_text())[name]
     data = path.read_bytes()
     item = parse_avif(data)["av1"]
-    q = Decoder(item).base_q
+    d = Decoder(item)
+    q, tiles = d.base_q, (d.tile_cols_log2, d.tile_rows_log2)
     back = decode_avif(data).astype(np.float64)
     psnr = float(10 * np.log10(255.0 ** 2 / np.mean((back - src) ** 2)))
     ok = (back.shape == src.shape and q == bar["base_q_idx"] == 148
           and psnr >= bar["psnr_db"] - 0.5
-          and len(item) <= 2 * bar["payload_bytes"])
+          and len(item) <= 2 * bar["payload_bytes"]
+          and tiles == (bar["tile_cols_log2"], bar["tile_rows_log2"]))
     what = (f"base_q_idx {q}, PSNR {psnr:.3f} dB >= {bar['psnr_db'] - 0.5:.3f}"
             f" (cv2's less 0.5), AV1 payload {len(item)} <= "
-            f"{2 * bar['payload_bytes']} bytes (twice cv2's)")
+            f"{2 * bar['payload_bytes']} bytes (twice cv2's), tile layout "
+            f"{tiles} (cv2's {bar['tile_cols_log2']}, "
+            f"{bar['tile_rows_log2']})")
     return ok, what, psnr, len(item)
 
 
@@ -5039,6 +5061,27 @@ def avif_writer_timing(out_dir, src):
             "psnr_db": psnr, "write_s": t1 - t0, "read_s": t2 - t1}
 
 
+def wide_avif_timing(out_dir):
+    """save_image of wide_source() (4,160 x 16, two AV1 tile columns) as
+    .avif and its read back: both timed, the file held to cv2's bars and
+    tile layout for it (WIDE_AVIF)."""
+    from ignis_tpu_torch.utils import image as imagelib
+    src = wide_source()
+    lin = imagelib.srgb_to_linear(src / np.float32(255.0)).astype(np.float32)
+    p = out_dir / "wide.avif"
+    t0 = time.perf_counter()
+    imagelib.save_image(p, lin)
+    t1 = time.perf_counter()
+    imagelib.decode_samples(p)
+    t2 = time.perf_counter()
+    ok, what, psnr, payload = avif_against_bars(p, src, WIDE_AVIF)
+    check(ok, f"{src.shape[1]} x {src.shape[0]} .avif: {p.stat().st_size} "
+          f"bytes written in {t1 - t0:.2f} s, read back in {t2 - t1:.3f} s: "
+          f"{what}")
+    return {"bytes": p.stat().st_size, "payload_bytes": payload,
+            "psnr_db": psnr, "write_s": t1 - t0, "read_s": t2 - t1}
+
+
 def film_as_avif(rt, out_dir):
     """One captured step of `rt` (S1), its film saved as .avif by
     save_image and read back by load_image: finite, the shape of the film,
@@ -5076,8 +5119,9 @@ def phase_textures(device, build_dir=None, s1=None):
     the others exactly); every save_image suffix written and read back
     (writers_round_trip, on the pixels of cv2's lossless WebP fixture,
     .jp2 on cv2_q80.webp's); the 1024 x 1024 WebP, JPEG, JPEG 2000 and
-    AVIF decodes timed (decode_timing), a 512 x 512 .jp2 and .avif written
-    and read back (jp2_writer_timing, avif_writer_timing), and, given `s1`
+    AVIF decodes timed (decode_timing), a 512 x 512 .jp2 and .avif and a
+    4,160 x 16 .avif (two tiles) written and read back (jp2_writer_timing,
+    avif_writer_timing, wide_avif_timing), and, given `s1`
     (S1's runtime), one captured step of it whose film is saved as .avif
     and read back (film_as_avif) to texture one more rectangle; then
     texture_scene loaded onto the card and one captured step rendered:
@@ -5133,6 +5177,13 @@ def phase_textures(device, build_dir=None, s1=None):
           f"{avif_512['psnr_db']:.3f} dB; cv2's: {cv2_512['file_bytes']} "
           f"bytes, {cv2_512['psnr_db']:.3f} dB), read back in "
           f"{avif_512['read_s']:.3f} s")
+    avif_wide = wide_avif_timing(build_dir)
+    cv2_wide = json.loads(AVIF_BARS.read_text())[WIDE_AVIF]
+    print(f"  4160 x 16 .avif on the card's host: written in "
+          f"{avif_wide['write_s']:.2f} s ({avif_wide['bytes']} bytes, "
+          f"{avif_wide['psnr_db']:.3f} dB, two tiles; cv2's: "
+          f"{cv2_wide['file_bytes']} bytes, {cv2_wide['psnr_db']:.3f} dB), "
+          f"read back in {avif_wide['read_s']:.3f} s")
     extra, film_avif = [], None
     if s1 is not None:
         path, px, film_avif = film_as_avif(s1, build_dir)
@@ -5171,7 +5222,8 @@ def phase_textures(device, build_dir=None, s1=None):
           f"{used}")
     return {"decoded": decoded, "writers": writers,
             "decode_1024_s": timing, "jp2_512": jp2_512,
-            "avif_512": avif_512, "s1_film_avif": film_avif,
+            "avif_512": avif_512, "avif_wide": avif_wide,
+            "s1_film_avif": film_avif,
             "load_seconds": load_s,
             "first_step": first, "film_mean": mean, "launches": used,
             "twin_bit_equal": True}

@@ -870,8 +870,10 @@ class Decoder:
         self.col_starts = [c << sb_shift for c in cols] + [self.mi_cols]
         self.row_starts = [r << sb_shift for r in rows] + [self.mi_rows]
         self.tile_size_bytes = 4
+        self.context_update_tile_id = 0
         if self.tile_cols_log2 or self.tile_rows_log2:
-            br.f(self.tile_rows_log2 + self.tile_cols_log2)
+            self.context_update_tile_id = br.f(self.tile_rows_log2
+                                               + self.tile_cols_log2)
             self.tile_size_bytes = br.f(2) + 1
 
     def qidx(self, sid, current):

@@ -9,11 +9,16 @@ base_q_idx 148, the chroma DC and AC delta q of -16, quantiser matrices
 at level 8, delta q per 64 x 64 superblock (delta_q_res 2; none where
 every superblock keeps base_q_idx, as libaom leaves it), the largest
 transform of each block (so the partition chooses the transform size),
-one tile; then its deblocking levels (sharpness
-1) and its one CDEF strength, chosen after the tile by the squared error
-of the filtered frame against the source.
+uniform tiles in libaom's least layout (`tile_layout`: one tile up to
+4,032 pixels a row and 2,304 superblocks), each coded with its own
+symbol coder from the default CDFs and contexts, as the decoder resets
+them a tile, their sizes in as few bytes as the largest needs and the
+largest tile named for the context update, as libaom writes them; then
+its deblocking levels (sharpness 1) and its one CDEF strength, chosen
+after the tiles by the squared error of the filtered frame against the
+source.
 
-The tile is written by av1.TileDecoder's own parse: TileEncoder answers
+Each tile is written by av1.TileDecoder's own parse: TileEncoder answers
 each of its reads with the encoder's decision (SymbolEncoder writes it,
 SymbolCounter only adds up its cost), so the syntax, its contexts and its
 CDF adaptation exist once. Each superblock is searched first: partitions
@@ -120,28 +125,54 @@ def _tile_log2(blk, target):
     return k
 
 
+def _superblocks(w: int, h: int):
+    """The 64 x 64 superblock columns and rows of a w x h frame."""
+    mi_cols, mi_rows = 2 * ((w + 7) >> 3), 2 * ((h + 7) >> 3)
+    return (mi_cols + 15) >> 4, (mi_rows + 15) >> 4
+
+
+def tile_layout(w: int, h: int):
+    """(tile_cols_log2, tile_rows_log2) of uniform tiles as libaom lays
+    them out for cv2: AV1's least (tiles of at most 4,096 pixels a row and
+    4,096 x 2,304 pixels), but with libaom's count of the columns, which
+    takes one more where the superblock columns are exactly 64 x 2^k
+    (two tiles at 4,096 pixels a row); the rows take what the area limit
+    still needs."""
+    sb_cols, sb_rows = _superblocks(w, h)
+    cols = 0
+    while (64 << cols) <= sb_cols:
+        cols += 1
+    cols = min(cols, _tile_log2(1, min(sb_cols, 64)))
+    least = max(_tile_log2(64, sb_cols), _tile_log2(2304, sb_rows * sb_cols))
+    return cols, max(least - cols, 0)
+
+
 def frame_header(w: int, h: int, lf, cdef_y, cdef_uv,
-                 delta_q: int = 1) -> bytes:
-    """The key frame header's bits, byte aligned: one tile, cv2's
-    quantiser fields, delta q (when `delta_q`), the deblocking levels `lf`
-    (4), one CDEF strength per plane kind ((primary, secondary) of 0-15,
-    0-4)."""
+                 delta_q: int = 1, context_tile: int = 0,
+                 tile_bytes: int = 4) -> bytes:
+    """The key frame header's bits, byte aligned: the tiles of
+    `tile_layout` (with more than one, `context_tile` for the context
+    update and `tile_bytes` a tile size), cv2's quantiser fields, delta q
+    (when `delta_q`), the deblocking levels `lf` (4), one CDEF strength
+    per plane kind ((primary, secondary) of 0-15, 0-4)."""
     bw = BitWriter()
     bw.f(1, 0)                      # disable_cdf_update
     bw.f(1, 0)                      # allow_screen_content_tools
     bw.f(1, 0)                      # render_and_frame_size_different
-    mi_cols, mi_rows = 2 * ((w + 7) >> 3), 2 * ((h + 7) >> 3)
-    sb_cols, sb_rows = (mi_cols + 15) >> 4, (mi_rows + 15) >> 4
-    if _tile_log2(64, sb_cols) or _tile_log2(2304, sb_rows * sb_cols):
-        raise NotImplementedError(
-            f"AVIF of {w} x {h}: AV1 needs more than one tile for it, and the "
-            "port's writer codes one tile (as cv2 does up to 4096 pixels a "
-            "row and 9,437,184 pixels)")
+    sb_cols, sb_rows = _superblocks(w, h)
+    cols, rows = tile_layout(w, h)
     bw.f(1, 1)                      # uniform_tile_spacing_flag
-    if _tile_log2(1, min(sb_cols, 64)) > 0:
-        bw.f(1, 0)                  # increment_tile_cols_log2
-    if _tile_log2(1, min(sb_rows, 64)) > 0:
-        bw.f(1, 0)                  # increment_tile_rows_log2
+    k = _tile_log2(64, sb_cols)     # increment_tile_cols_log2 up to cols
+    while k < _tile_log2(1, min(sb_cols, 64)):
+        bw.f(1, int(k < cols))
+        if k == cols:
+            break
+        k += 1
+    if rows < _tile_log2(1, min(sb_rows, 64)):
+        bw.f(1, 0)                  # increment_tile_rows_log2: the least
+    if cols or rows:
+        bw.f(cols + rows, context_tile)
+        bw.f(2, tile_bytes - 1)     # tile_size_bytes_minus_1
     bw.f(8, BASE_Q)
     bw.f(1, 0)                      # DeltaQYDc
     for _ in range(2):              # DeltaQUDc, DeltaQUAc
@@ -254,28 +285,37 @@ def _satd(diff: np.ndarray) -> float:
     return float(np.abs(_HADAMARD @ t @ _HADAMARD.T).sum()) / 4.0
 
 
-class TileEncoder(TileDecoder):
-    """Codes the one tile of frame state `d` from source planes `src`
-    (int32, cropped) and superblock q's `sb_q` {(r4, c4): q}."""
+def padded_source(rc, planes):
+    """The source planes (int32, cropped) in buffers of the
+    reconstruction's size, edges replicated, and their visible sizes."""
+    src, vis = [], []
+    for p, plane in enumerate(planes):
+        buf = np.zeros_like(rc.planes[p])
+        ph, pw = plane.shape
+        buf[:ph, :pw] = plane
+        buf[:ph, pw:] = plane[:, -1:]
+        buf[ph:, :] = buf[ph - 1:ph, :]
+        src.append(buf)
+        vis.append((ph, pw))
+    return src, vis
 
-    def __init__(self, d, src, sb_q):
-        super().__init__(d, SymbolCounter(), 0, d.mi_rows, 0, d.mi_cols)
+
+class TileEncoder(TileDecoder):
+    """Codes the tile of frame state `d` over 4 x 4 rows r0-r1 and
+    columns c0-c1 into the frame's reconstruction `rc`, from the padded
+    source planes `src` (`padded_source`: planes, visible sizes) and
+    superblock q's `sb_q` {(r4, c4): q}, with a symbol coder and the
+    contexts of its own."""
+
+    def __init__(self, d, rc, source, sb_q, r0, r1, c0, c1):
+        super().__init__(d, SymbolCounter(), r0, r1, c0, c1)
         d.records = _NoRecords()
         self.counter = self.sd
         self.writer = SymbolEncoder(d.disable_cdf_update)
-        self.rc = Recon(d)
+        self.rc = rc
         self.parts, self.plans = {}, {}
         self.sb_q = sb_q
-        self.src = []
-        self.vis = []
-        for p, plane in enumerate(src):
-            buf = np.zeros_like(self.rc.planes[p])
-            ph, pw = plane.shape
-            buf[:ph, :pw] = plane
-            buf[:ph, pw:] = plane[:, -1:]
-            buf[ph:, :] = buf[ph - 1:ph, :]
-            self.src.append(buf)
-            self.vis.append((ph, pw))
+        self.src, self.vis = source
         self.dist = 0.0
         self.nonzero = 0
         self.searching = False
@@ -749,6 +789,23 @@ class Encoded:
     reconstruction every decoder reads from it (int32 Y, U, V, cropped)."""
 
 
+def tile_group(tiles) -> tuple:
+    """(the tile group's bytes after the frame header, tile_size_bytes,
+    the largest tile's index) as libaom writes them: with more than one
+    tile, tile_start_and_end_present_flag 0 and each tile but the last
+    led by its size less one in the fewest bytes the largest tile's size
+    needs."""
+    if len(tiles) == 1:
+        return tiles[0], 4, 0
+    largest = max(len(t) for t in tiles)
+    size_bytes = max(1, (largest.bit_length() + 7) // 8)
+    out = bytearray([0])            # the flag, then byte alignment
+    for t in tiles[:-1]:
+        out += (len(t) - 1).to_bytes(size_bytes, "little") + t
+    out += tiles[-1]
+    return bytes(out), size_bytes, [len(t) for t in tiles].index(largest)
+
+
 def encode_yuv420(y, u, v) -> Encoded:
     """Codes 8-bit Y [h, w], U and V [(h + 1) // 2, (w + 1) // 2]."""
     h, w = y.shape
@@ -761,16 +818,20 @@ def encode_yuv420(y, u, v) -> Encoded:
     delta_q = int(any(q != BASE_Q for q in sb_q.values()))
     d = frame_state(seq, frame_header(w, h, (0, 0, 0, 0), (0, 0), (0, 0),
                                       delta_q))
-    src = [np.asarray(p, np.int32) for p in (y, u, v)]
-    te = TileEncoder(d, src, sb_q)
-    tile = te.encode()
-    vis = te.vis
-    recon = [p for p in te.rc.planes]
-    planes = choose_filters(d, recon, te.src, vis)
+    rc = Recon(d)
+    source = padded_source(rc, [np.asarray(p, np.int32) for p in (y, u, v)])
+    tiles = []
+    for r0, r1 in zip(d.row_starts, d.row_starts[1:]):
+        for c0, c1 in zip(d.col_starts, d.col_starts[1:]):
+            tiles.append(TileEncoder(d, rc, source, sb_q, r0, r1, c0,
+                                     c1).encode())
+    src, vis = source
+    planes = choose_filters(d, list(rc.planes), src, vis)
+    body, size_bytes, largest = tile_group(tiles)
     hdr = frame_header(w, h, d.lf_level, d.cdef_y[0], d.cdef_uv[0],
-                       delta_q)
+                       delta_q, largest, size_bytes)
     out = Encoded()
     out.seq = _obu(1, seq)
-    out.obus = _obu(2, b"") + out.seq + _obu(6, hdr + tile)
+    out.obus = _obu(2, b"") + out.seq + _obu(6, hdr + body)
     out.planes = [p[:ph, :pw].copy() for p, (ph, pw) in zip(planes, vis)]
     return out

@@ -14,12 +14,16 @@ image is its Y plane as it is. 8-bit files come back as uint8, 10- and
 12-bit files as uint16 at their own range (0-1023, 0-4095), as cv2
 returns them.
 
-An image sequence without a primary item, a grid (derived) primary
-item, a colour matrix other than BT.601 or the identity, and the AV1
-tools of utils/av1.py's list raise NotImplementedError naming them, as
-no writer here makes them. A file cv2 reads nothing from (a damaged
-one, or a grey image with an alpha item, which cv2 refuses as two
-channels) raises IOError.
+Every colour matrix libavif converts for cv2 is read (utils/yuv.py:
+BT.709, BT.601, FCC, SMPTE 240, YCgCo, BT.2020, chroma-derived from the
+primaries, the identity, and the matrices without a table of their own);
+the colour description is the nclx box's, else the AV1 sequence
+header's. An image sequence without a primary item, a grid (derived)
+primary item, and the AV1 tools of utils/av1.py's list raise
+NotImplementedError naming them, as no writer here makes them. A file cv2
+reads nothing from (a damaged one, a grey image with an alpha item, which
+cv2 refuses as two channels, or a colour matrix libavif converts nothing
+of) raises IOError.
 """
 from __future__ import annotations
 
@@ -251,7 +255,7 @@ def decode_avif_depth(data: bytes, name: str = ""):
         return np.repeat(out[..., None], 3, -1), frame.bit_depth
     from .yuv import yuv_to_rgb
     return yuv_to_rgb(frame.planes, frame.bit_depth, frame.ss_x,
-                      frame.ss_y, nclx[2], nclx[3]), frame.bit_depth
+                      frame.ss_y, nclx[2], nclx[3], nclx[0]), frame.bit_depth
 
 
 def _box(kind: bytes, body: bytes) -> bytes:

@@ -3,11 +3,12 @@ through OpenCV, read and written with numpy and zlib.
 
 The port's counterpart of ignis_tpu/utils/image.py, which goes through
 OpenCV. As OpenCV does, a file is read by the decoder its content names
-(`sniff`: PNG, JPEG, BMP, TIFF, PNM, PFM, Sun raster, Radiance, GIF,
-WebP, JPEG 2000 and AVIF signatures), not by its suffix; EXR goes by its
-suffix, as in ignis_tpu, and TGA, which has no signature, by its suffix
-where no signature matches; a file no decoder claims raises IOError, as
-ignis_tpu raises for cv2.imread's None.
+(`sniff`: PNG, JPEG, BMP, TIFF and BigTIFF, PNM, PAM, PFM, Sun raster,
+Radiance, GIF, WebP, JPEG 2000 and AVIF signatures), not by its suffix;
+EXR goes by its suffix, as in ignis_tpu, and TGA, which has no
+signature, by its suffix where no signature matches; a file no decoder
+claims raises IOError, as ignis_tpu raises for cv2.imread's None, and so
+does a file OpenCV reads nothing of where a decoder here knows it.
 
 Here PNG is decoded with numpy and zlib (1-16 bits, gray, gray with
 alpha, RGB, RGBA or palette, the five row filters, Adam7 interlacing)
@@ -19,27 +20,31 @@ progression order, layers, tiles and precincts, the 5/3 and 9/7
 wavelets) through utils/jpeg2000.py and utils/ebcot.py, read as OpenCV
 reads it through OpenJPEG and written as cv2's default .jp2 writer
 writes it (lossless 5/3 cut to OpenCV's rate of 4); BMP is read at
-every depth (palettes, RLE8 and RLE4, bit fields) and written at 24;
-TIFF goes through utils/tiff.py (written 8-bit LZW with the predictor,
-as cv2 writes it); GIF through utils/gif.py and WebP through
+every depth (palettes, RLE8 and RLE4, bit fields, OS/2's 12-byte header,
+which OpenCV reads grey) and written at 24; TIFF goes through
+utils/tiff.py (classic and BigTIFF, every sample type OpenCV reads,
+bilevel, CMYK, JPEG-compressed, planar; written 8-bit LZW with the
+predictor, as cv2 writes it); GIF through utils/gif.py and WebP through
 utils/webp.py (read as cv2 reads them, written as cv2's default writers
 write them: the fixed 3-3-2 GIF table with its dithering, lossless
 WebP); AVIF through utils/avif.py and utils/av1.py (the HEIF container
-and an AV1 key-frame decoder, with libavif's YUV to RGB as cv2 gets it:
-8-bit files as uint8, 10- and 12-bit ones as uint16 at their own range);
-PNM (P1-P6), PFM and Sun raster are read as OpenCV reads them
-and written as cv2 writes them (binary P6, a little-endian PFM, a
-24-bit raster); TGA is read as uncompressed or run-length-encoded
-truecolour and written run-length encoded; EXR is read by the port's
-own reader and written as scanline ZIP
+and an AV1 key-frame decoder, with libavif's YUV to RGB as cv2 gets it
+under every colour matrix it converts: 8-bit files as uint8, 10- and
+12-bit ones as uint16 at their own range); PNM (P1-P6), PAM (P7), PFM
+and Sun raster are read as OpenCV reads them and written as cv2 writes
+them (binary P6, P7 of depth 3, a little-endian PFM, a 24-bit raster);
+TGA is read as uncompressed or run-length-encoded truecolour and written
+run-length encoded; EXR is read by the port's own reader and written as
+scanline ZIP
 (`_write_exr_channels`, also `write_exr_multilayer`'s layers and ig*
 attributes); Radiance .hdr and .pic are read with flat or
 run-length-encoded scanlines and written flat, in the RGBE rounding of
-the rgbe.c that OpenCV uses. Integer input is scaled to [0, 1] (8-bit by
-1/255, 16-bit by 1/65535, AVIF by its bit depth: 1/1023 for 10 bits,
-1/4095 for 12) and sRGB-decoded to linear unless `linear`; EXR, HDR, PFM
-and float TIFF are linear; BigTIFF raises NotImplementedError by name.
-AVIF is written as cv2's default writer writes it (utils/av1_enc.py).
+the rgbe.c that OpenCV uses. 8- and 16-bit input is scaled to [0, 1]
+(8-bit by 1/255, 16-bit by 1/65535, AVIF by its bit depth: 1/1023 for 10
+bits, 1/4095 for 12) and sRGB-decoded to linear unless `linear`; EXR,
+HDR, PFM, float TIFF and a TIFF's signed and 32-bit integers are linear,
+their values as they are. AVIF is written as cv2's default writer writes
+it (utils/av1_enc.py, in tiles past 4,032 pixels a row).
 LDR output is sRGB-encoded with +0.5 rounding, as the JAX writer's.
 Images are float32 [h, w, 3] RGB with row 0 at the top.
 """
@@ -67,26 +72,27 @@ def linear_to_srgb(x: np.ndarray) -> np.ndarray:
 # OpenCV's signatures, as (prefix, decoder)
 _SIGNATURES = (
     (_PNG_MAGIC, "png"), (b"\xff\xd8\xff", "jpeg"), (b"BM", "bmp"),
-    (b"II*\0", "tiff"), (b"MM\0*", "tiff"), (b"II+\0", "BigTIFF"),
-    (b"MM\0+", "BigTIFF"), (b"GIF87a", "gif"), (b"GIF89a", "gif"),
+    (b"II*\0", "tiff"), (b"MM\0*", "tiff"), (b"II+\0", "tiff"),
+    (b"MM\0+", "tiff"), (b"GIF87a", "gif"), (b"GIF89a", "gif"),
     (b"#?RADIANCE", "hdr"), (b"#?RGBE", "hdr"),
     (b"\x59\xa6\x6a\x95", "sun_raster"), (b"PF", "pfm"), (b"Pf", "pfm"),
     (b"\0\0\0\x0cjP  \r\n\x87\n", "jpeg2000"),
     (b"\xff\x4f\xff\x51", "jpeg2000"))
-# formats OpenCV reads that the port refuses by name
-_UNPORTED = ("BigTIFF",)
+_SPACE = b" \t\n\v\f\r"
 
 
 def sniff(data: bytes):
     """The decoder OpenCV would pick for a file's bytes, by its signature:
-    'png', 'jpeg', 'bmp', 'tiff', 'pnm', 'pfm', 'sun_raster', 'hdr',
-    'gif', 'webp', 'jpeg2000' (a .jp2 file or a raw code stream), 'avif',
-    one of _UNPORTED's names, or None."""
+    'png', 'jpeg', 'bmp', 'tiff' (BigTIFF too), 'pnm', 'pam', 'pfm',
+    'sun_raster', 'hdr', 'gif', 'webp', 'jpeg2000' (a .jp2 file or a raw
+    code stream), 'avif', or None."""
     for sig, kind in _SIGNATURES:
         if data.startswith(sig):
             return kind
     if len(data) > 2 and data[:1] == b"P" and data[1] in b"123456":
         return "pnm"
+    if len(data) > 2 and data[:2] == b"P7" and data[2] in _SPACE:
+        return "pam"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "webp"
     if data[4:12] in (b"ftypavif", b"ftypavis"):
@@ -96,9 +102,10 @@ def sniff(data: bytes):
 
 def decode_samples(path) -> np.ndarray:
     """A file's pixels as [h, w, 3] RGB samples as OpenCV reads them,
-    found by its content: uint8, uint16 (16-bit PNG, TIFF, PNM, 9- to
-    16-bit JPEG 2000, and 10- and 12-bit AVIF at their own range) or
-    float32 (PFM, float TIFF, Radiance); grey replicated, alpha dropped."""
+    found by its content: uint8, uint16 (16-bit PNG, TIFF, PNM, PAM, 9-
+    to 16-bit JPEG 2000, and 10- and 12-bit AVIF at their own range),
+    float32 (PFM, float TIFF, Radiance), or a TIFF's uint32, int8, int16,
+    int32 or float64; grey replicated, alpha dropped."""
     return _decode(path)[0]
 
 
@@ -113,10 +120,6 @@ def _decode(path):
         kind = "tga"
     if kind is None:
         raise IOError(f"Cannot load image {path}")
-    if kind in _UNPORTED:
-        raise NotImplementedError(
-            f"image format {kind} ('{path.suffix.lower()}', {path.name}) is "
-            "not ported")
     if kind == "avif":
         from .avif import decode_avif_depth
         samples, depth = decode_avif_depth(data, path.name)
@@ -137,14 +140,22 @@ def _decode(path):
         from .jpeg2000 import decode_jpeg2000
         return decode_jpeg2000(data, path.name), None
     return {"png": decode_png, "bmp": decode_bmp, "tga": decode_tga,
-            "pnm": decode_pnm, "pfm": decode_pfm, "hdr": decode_hdr,
+            "pnm": decode_pnm, "pam": decode_pam, "pfm": decode_pfm,
+            "hdr": decode_hdr,
             "sun_raster": decode_sun_raster}[kind](data), None
+
+
+def _scaled(samples: np.ndarray) -> bool:
+    """Whether samples are LDR data scaled to [0, 1]: unsigned 8 and 16
+    bits. Float samples, and a TIFF's signed and 32-bit integers, are
+    taken as they are, as ignis_tpu takes them."""
+    return samples.dtype in (np.uint8, np.uint16)
 
 
 def _normalised(samples: np.ndarray, maxval=None) -> np.ndarray:
     """Integer samples to [0, 1] (8 bits / 255, 16 bits / 65535, or /
-    `maxval` where the file's depth is not its dtype's); float samples as
-    they are."""
+    `maxval` where the file's depth is not its dtype's); other samples
+    (`_scaled`) as float32 as they are."""
     if maxval is not None:
         return samples.astype(np.float32) / np.float32(maxval)
     if samples.dtype == np.uint8:
@@ -159,23 +170,25 @@ def read_ldr(path) -> np.ndarray:
     (sRGB-encoded values): 8-bit samples / 255, 16-bit ones (PNG, TIFF,
     PNM) / 65535, AVIF's by its bit depth."""
     samples, maxval = _decode(path)
-    if samples.dtype == np.float32:
-        raise ValueError(f"{path}: float samples are not LDR data")
+    if not _scaled(samples):
+        raise ValueError(f"{path}: {samples.dtype} samples are not LDR "
+                         "data")
     return _normalised(samples, maxval)
 
 
 def load_image(path, linear: bool = False) -> np.ndarray:
     """Linear float32 [h, w, 3] RGB. EXR (by its suffix), HDR, PFM and
-    float TIFF are linear; integer data is scaled to [0, 1] and
-    sRGB-decoded unless `linear` (normal maps; ImagePattern's 'linear'
-    flag)."""
+    float TIFF are linear, and so are a TIFF's signed and 32-bit integers
+    (their values as they are, as ignis_tpu takes them); 8- and 16-bit
+    data is scaled to [0, 1] and sRGB-decoded unless `linear` (normal
+    maps; ImagePattern's 'linear' flag)."""
     path = Path(path)
     if path.suffix.lower() == ".exr":
         from .exr import load_exr_rgb
         return np.ascontiguousarray(load_exr_rgb(path), np.float32)
     samples, maxval = _decode(path)
     img = _normalised(samples, maxval)
-    if samples.dtype == np.float32:
+    if not _scaled(samples):
         return np.ascontiguousarray(img)
     if not linear:
         img = srgb_to_linear(img)
@@ -187,6 +200,16 @@ def encode_ppm(rgb) -> bytes:
     rgb = _rgb8(rgb)
     h, w, _ = rgb.shape
     return f"P6\n{w} {h}\n255\n".encode() + rgb.tobytes()
+
+
+def encode_pam(rgb) -> bytes:
+    """A PAM (P7, depth 3, maxval 255, no TUPLTYPE) of uint8 [h, w, 3], as
+    cv2 writes an image ignis_tpu hands it: the samples in OpenCV's BGR
+    order."""
+    rgb = _rgb8(rgb)
+    h, w, _ = rgb.shape
+    return (f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH 3\nMAXVAL 255\nENDHDR\n"
+            .encode() + np.ascontiguousarray(rgb[..., ::-1]).tobytes())
 
 
 def encode_pfm(img) -> bytes:
@@ -221,7 +244,7 @@ def _ldr_writer(suffix: str):
     return {".png": encode_png, ".jpg": encode_jpeg, ".jpeg": encode_jpeg,
             ".jpe": encode_jpeg, ".bmp": encode_bmp, ".dib": encode_bmp,
             ".tga": encode_tga, ".tif": encode_tiff, ".tiff": encode_tiff,
-            ".ppm": encode_ppm, ".pnm": encode_ppm,
+            ".ppm": encode_ppm, ".pnm": encode_ppm, ".pam": encode_pam,
             ".pfm": lambda ldr: encode_pfm(ldr.astype(np.float32)),
             ".sr": encode_sun_raster, ".ras": encode_sun_raster,
             # cv2's HDR writer scales 8-bit data by 1/255.0f
@@ -242,7 +265,8 @@ def save_image(path, img):
     not write (ignis_tpu then leaves an unreadable 77-byte file), raise
     ValueError. .avif as cv2's default AVIF writer writes it
     (utils/avif.py over utils/av1_enc.py: 4:2:0, base_q_idx 148 with
-    delta q, quantiser matrices, deblocking and CDEF)."""
+    delta q, quantiser matrices, deblocking and CDEF, libaom's tiles);
+    .pam as cv2 writes it (`encode_pam`)."""
     path = Path(path)
     img = np.asarray(img, np.float32)
     suffix = path.suffix.lower()
@@ -334,15 +358,27 @@ def decode_bmp(data: bytes) -> np.ndarray:
     bits, and 32 bits (BGRx or BI_BITFIELDS masks of any width),
     bottom-up or top-down. The masks of BI_BITFIELDS follow a 40-byte
     header or lie in a longer one (OpenCV ignores them after a 40-byte
-    header and reads such a 32-bit file as BGRx)."""
-    if data[:2] != b"BM" or len(data) < 30:
+    header and reads such a 32-bit file as BGRx). An OS/2 file (the
+    12-byte header: 16-bit width and height, a full palette of 3-byte
+    entries; 1, 4, 8, 24 or 32 bits) comes back grey, as OpenCV reads it
+    under ignis_tpu's flags (`opencv_grey`); a header OpenCV does not read
+    raises IOError."""
+    if data[:2] != b"BM" or len(data) < 26:
         raise ValueError("not a BMP file")
     offset, hsize = struct.unpack("<II", data[10:18])
-    if hsize < 40:
-        raise NotImplementedError(f"BMP: {hsize}-byte OS/2 header is not "
-                                  "ported")
-    w, h, _, bpp, comp = struct.unpack("<iiHHI", data[18:34])
-    colors = struct.unpack("<I", data[46:50])[0]
+    os2 = hsize == 12               # OS/2's BITMAPCOREHEADER
+    if os2:
+        w, h, _, bpp = struct.unpack("<HHHH", data[18:26])
+        comp = colors = 0
+        if w == 0 or h == 0 or bpp not in (1, 4, 8, 24, 32):
+            raise IOError(f"BMP: OpenCV reads no {w} x {h} OS/2 file of "
+                          f"{bpp} bits")
+    elif hsize < 36 or len(data) < 50:
+        raise IOError(f"BMP: OpenCV reads no file with a {hsize}-byte "
+                      "header")
+    else:
+        w, h, _, bpp, comp = struct.unpack("<iiHHI", data[18:34])
+        colors = struct.unpack("<I", data[46:50])[0]
     top_down, h = h < 0, abs(h)
     rle = {(1, 8): False, (2, 4): True}.get((comp, bpp))
     if not (comp == 0 and bpp in (1, 4, 8, 16, 24, 32)
@@ -351,8 +387,11 @@ def decode_bmp(data: bytes) -> np.ndarray:
             f"BMP: {bpp} bits, compression {comp} is not ported")
     if bpp <= 8:
         n = colors or 1 << bpp
-        pal = np.frombuffer(data, np.uint8, 4 * n, 14 + hsize).reshape(n, 4)
-        pal = pal[:, 2::-1]
+        entry = 3 if os2 else 4
+        if len(data) < 14 + hsize + entry * n:
+            raise IOError("BMP: truncated palette")
+        pal = np.frombuffer(data, np.uint8, entry * n, 14 + hsize).reshape(
+            n, entry)[:, 2::-1]
         if rle is not None:
             idx = _bmp_rle(data, offset, w, h, rle)
         else:
@@ -380,7 +419,19 @@ def decode_bmp(data: bytes) -> np.ndarray:
                      else (0x7C00, 0x3E0, 0x1F))
             rgb = np.stack([_channel(word.astype(np.int64), m, bpp)
                             for m in masks], -1)
-    return np.ascontiguousarray(rgb if top_down else rgb[::-1])
+    rgb = rgb if top_down else rgb[::-1]
+    return opencv_grey(rgb) if os2 else np.ascontiguousarray(rgb)
+
+
+def opencv_grey(rgb: np.ndarray) -> np.ndarray:
+    """OpenCV's colour-to-grey of uint8 RGB (14-bit fixed point: 0.299 R
+    + 0.587 G + 0.114 B, rounded), replicated to [h, w, 3]: what OpenCV
+    returns for files it reads as grey whatever their colours (an OS/2
+    BMP, a 1-bit palette TIFF)."""
+    c = rgb.astype(np.int32)
+    y = (c[..., 0] * 4899 + c[..., 1] * 9617 + c[..., 2] * 1868 + 8192) >> 14
+    return np.ascontiguousarray(np.repeat(y.astype(np.uint8)[..., None], 3,
+                                          -1))
 
 
 def _pnm_tokens(data: bytes, count: int, pos: int = 2):
@@ -444,6 +495,108 @@ def decode_pnm(data: bytes) -> np.ndarray:
         v = np.asarray(v).astype(np.uint16 if maxval > 255 else np.uint8)
     img = v.reshape(h, w, ch)
     return np.ascontiguousarray(np.repeat(img, 3, -1) if ch == 1 else img)
+
+
+# PAM's TUPLTYPEs that OpenCV reads -> their depth
+_PAM_TUPLES = {b"BLACKANDWHITE": 1, b"GRAYSCALE": 1, b"GRAYSCALE_ALPHA": 2,
+               b"RGB": 3, b"RGB_ALPHA": 4}
+_PAM_FIELDS = (b"WIDTH", b"HEIGHT", b"DEPTH", b"MAXVAL", b"TUPLTYPE",
+               b"ENDHDR")
+
+
+def _pam_line(data: bytes, pos: int):
+    """One header line from pos as OpenCV's ReadPAMHeaderLine reads it:
+    (identifier, value, the position after it); None for a comment.
+    An identifier is at most 8 bytes and ends at a whitespace byte; a
+    line break there ends the line (ENDHDR's pixels start right after
+    that one byte); else the value runs from the next non-space byte to
+    the line's end, trailing whitespace dropped."""
+    n = len(data)
+    while pos < n and data[pos] in _SPACE:
+        pos += 1
+    if pos >= n:
+        raise IOError("PAM: the header has no ENDHDR")
+    if data[pos] == 35:                        # '#': to the line's end
+        while pos < n and data[pos] not in b"\r\n":
+            pos += 1
+        return None, None, pos + 1
+    end = pos
+    while end < n and end - pos < 8 and data[end] not in _SPACE:
+        end += 1
+    if end >= n or data[end] not in _SPACE or data[pos:end] not in \
+            _PAM_FIELDS:
+        raise IOError(f"PAM: bad header field {data[pos:end + 1]!r}")
+    ident, pos = data[pos:end], end + 1
+    if data[end] in b"\r\n":
+        return ident, b"", pos
+    while pos < n and data[pos] in _SPACE:
+        pos += 1
+    end = pos
+    while end < n and data[end] not in b"\r\n":
+        end += 1
+    if end >= n:
+        raise IOError("PAM: the header ends in a field")
+    return ident, data[pos:end].rstrip(_SPACE), end + 1
+
+
+def decode_pam(data: bytes) -> np.ndarray:
+    """A PAM (P7) as [h, w, 3] samples as OpenCV reads them: WIDTH,
+    HEIGHT, DEPTH (1-4), MAXVAL (0-65535) and TUPLTYPE (BLACKANDWHITE,
+    GRAYSCALE, GRAYSCALE_ALPHA, RGB, RGB_ALPHA; without one, a depth of 1
+    below maxval 256 or of 3 below 256), comments. Samples are as stored
+    (uint8, or big-endian uint16 above maxval 255), their first three
+    taken in OpenCV's BGR order; at maxval 1 a grey row's bytes are read
+    as bits, most significant first, 1 as 255, as OpenCV reads them.
+    Grey is replicated and alpha dropped. A header or a file OpenCV
+    refuses raises IOError."""
+    if len(data) < 3 or data[:2] != b"P7" or data[2] not in b"\r\n":
+        raise IOError("not a PAM file")
+    fields, tupl, pos = {}, None, 3
+    while True:
+        ident, value, pos = _pam_line(data, pos)
+        if ident is None:
+            continue
+        if ident == b"ENDHDR":
+            break
+        if ident == b"TUPLTYPE":
+            if value not in _PAM_TUPLES:
+                raise IOError(f"PAM: TUPLTYPE {value!r}")
+            tupl = value
+            continue
+        digits = value[1:] if value[:1] == b"-" else value
+        if not digits.isdigit() and digits or ident in fields:
+            raise IOError(f"PAM: {ident.decode()} {value!r}")
+        fields[ident] = int(value or b"0")
+    if len(fields) != 4:
+        raise IOError("PAM: WIDTH, HEIGHT, DEPTH and MAXVAL are required")
+    w, h, depth, maxval = (fields[k] for k in _PAM_FIELDS[:4])
+    if w <= 0 or h <= 0 or not 1 <= depth <= 4 or not 0 <= maxval < 65536:
+        raise IOError(f"PAM: {w} x {h}, depth {depth}, maxval {maxval}")
+    if tupl is None and not (depth in (1, 3) and maxval < 256):
+        raise IOError(f"PAM: no TUPLTYPE for depth {depth}, maxval "
+                      f"{maxval}")
+    if tupl is not None and _PAM_TUPLES[tupl] != depth:
+        raise IOError(f"PAM: TUPLTYPE {tupl.decode()} at depth {depth}")
+    if maxval == 1 and depth > 1:
+        if depth == 2:
+            raise IOError("PAM: OpenCV reads no 2 samples of maxval 1")
+        raise NotImplementedError(f"PAM: depth {depth} at maxval 1 is not "
+                                  "ported")
+    size = 2 if maxval > 255 else 1
+    stride = w * depth * size
+    if len(data) < pos + stride * h:
+        raise IOError("PAM: truncated pixel data")
+    if maxval == 1:                            # bits of each row's bytes
+        rows = np.frombuffer(data, np.uint8, stride * h, pos).reshape(h, w)
+        bits = np.unpackbits(rows, axis=1)[:, :w]
+        return np.ascontiguousarray(np.repeat((bits * 255)[..., None], 3,
+                                              -1))
+    img = np.frombuffer(data, ">u2" if size == 2 else np.uint8, w * h * depth,
+                        pos).reshape(h, w, depth).astype(
+        np.uint16 if size == 2 else np.uint8)
+    if depth < 3:
+        return np.ascontiguousarray(np.repeat(img[..., :1], 3, -1))
+    return np.ascontiguousarray(img[..., 2::-1])
 
 
 def decode_pfm(data: bytes) -> np.ndarray:

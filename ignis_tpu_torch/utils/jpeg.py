@@ -418,8 +418,29 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """A JPEG as uint8 [h, w, 3] RGB (grey replicated, CMYK converted)."""
+def frame_components(data: bytes):
+    """The number of components of a JPEG's first frame header, or None
+    where no frame header is found."""
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        m = data[pos + 1]
+        if m == 0xFF:
+            pos += 1
+            continue
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if m in (0xC0, 0xC1, 0xC2) or 0xC3 <= m <= 0xCF and m not in (
+                0xC4, 0xC8, 0xCC):
+            return data[pos + 9] if pos + 9 < len(data) else None
+        if m == 0xDA:
+            return None
+        pos += 2 + length
+    return None
+
+
+def decode_jpeg(data: bytes, colour: str | None = None) -> np.ndarray:
+    """A JPEG as uint8 [h, w, 3] RGB (grey replicated, CMYK converted).
+    Three components are YCbCr or RGB as libjpeg guesses, or as `colour`
+    says ('ycc' or 'rgb': a TIFF's photometric interpretation)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     pos, n = 2, len(data)
@@ -551,7 +572,8 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                         -1).astype(np.uint8)
     ids = tuple(cid for cid, _ in sorted(comps.items(),
                                          key=lambda kv: kv[1]["order"]))
-    if not jfif and (adobe == 0 or adobe is None and ids == (82, 71, 66)):
+    rgb = not jfif and (adobe == 0 or adobe is None and ids == (82, 71, 66))
+    if colour == "rgb" or rgb and colour != "ycc":
         return np.stack(planes, -1).astype(np.uint8)
     return _ycc_to_rgb(*planes)
 

@@ -6,24 +6,79 @@ J420 rows in their fixed point, each 2 x 2 block's chroma from the
 rounded average of its two rounded column averages (odd widths and
 heights average the last column or row with itself).
 
-YUV to RGB: 8-bit BT.601 images go through libyuv's fixed-point
-YuvPixel (kYuvJPEGConstants in full range, kYuvI601Constants in limited;
-chroma upsampled by libyuv's bilinear ScaleRowUp2 rows for 4:2:0 and
-4:2:2); the identity matrix and 10- and 12-bit images go through
-libavif's built-in float path (bilinear 9/3/3/1 chroma upsampling in
-float32), rounded as libavif rounds. The writers here mark every colour
-image BT.601 (matrix_coefficients 6) or, lossless, the identity (0);
-other matrices are refused by name.
+YUV to RGB, by the nclx matrix_coefficients (MC) and colour primaries:
+8-bit images whose matrix libyuv has constants for go through libyuv's
+fixed-point YuvPixel (chroma upsampled by libyuv's bilinear ScaleRowUp2
+rows for 4:2:0 and 4:2:2): BT.709 (MC 1), BT.601 (MC 2, 5, 6), BT.2020
+(MC 9), and MC 12 (chroma-derived) where the primaries are BT.709,
+BT.601 or BT.2020, each in full and limited range (`_LIBYUV`). Every
+other matrix, and 10- and 12-bit images, go through libavif's built-in
+float path (bilinear 9/3/3/1 chroma upsampling in float32), rounded as
+libavif rounds: the identity (MC 0, 4:4:4 only), YCgCo (MC 8, full range
+only), and Kr, Kb from libavif's table (MC 1, 4, 5, 6, 7, 9), from the
+primaries (MC 12) or BT.601's (any other MC cv2 reads: 2 and 15). The
+matrices libavif refuses (3, 10, 11, 13, 14, 16 and up, the identity
+with subsampled chroma, YCgCo in limited range) raise IOError, as cv2
+reads nothing of them. The writers here mark every colour image BT.601
+(matrix_coefficients 6) or, lossless, the identity (0).
 """
 from __future__ import annotations
 
 import numpy as np
 
-# libyuv's BT.601 YuvConstants (YG, YB, UB, UG, VG, VR), by full range
-_LIBYUV = {1: (16320, 32, 113, 22, 46, 90),          # kYuvJPEGConstants
-           0: (18997, -1160, 128, 25, 52, 102)}      # kYuvI601Constants
-# libavif's BT.601 (kr, kb), for matrix_coefficients 5 (BT.470BG) and 6
-_KR, _KB = 0.299, 0.114
+# libyuv's YuvConstants (YG, YB, UB, UG, VG, VR), by (matrix, full range)
+_LIBYUV = {(601, 1): (16320, 32, 113, 22, 46, 90),       # kYuvJPEGConstants
+           (601, 0): (18997, -1160, 128, 25, 52, 102),   # kYuvI601Constants
+           (709, 1): (16320, 32, 119, 12, 30, 101),      # kYuvF709Constants
+           (709, 0): (18997, -1160, 128, 14, 34, 115),   # kYuvH709Constants
+           (2020, 1): (16320, 32, 120, 11, 37, 94),      # kYuvV2020Constants
+           (2020, 0): (19003, -1160, 128, 12, 42, 107)}  # kYuv2020Constants
+# the libyuv matrix of each MC libavif hands libyuv, and of each primaries
+# for MC 12 (chroma-derived)
+_LIBYUV_MC = {1: 709, 2: 601, 5: 601, 6: 601, 9: 2020}
+_LIBYUV_CP = {1: 709, 2: 709, 5: 601, 6: 601, 9: 2020}
+# libavif's (Kr, Kb) by matrix_coefficients; BT.601's for the others
+_KRKB = {1: (0.2126, 0.0722), 4: (0.30, 0.11), 5: (0.299, 0.114),
+         6: (0.299, 0.114), 7: (0.212, 0.087), 9: (0.2627, 0.0593)}
+# libavif's colour primaries (rx, ry, gx, gy, bx, by, wx, wy); BT.709's
+# for the others
+_PRIMARIES = {
+    1: (0.64, 0.33, 0.30, 0.60, 0.15, 0.06, 0.3127, 0.3290),
+    4: (0.67, 0.33, 0.21, 0.71, 0.14, 0.08, 0.310, 0.316),
+    5: (0.64, 0.33, 0.29, 0.60, 0.15, 0.06, 0.3127, 0.3290),
+    6: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    7: (0.630, 0.340, 0.310, 0.595, 0.155, 0.070, 0.3127, 0.3290),
+    8: (0.681, 0.319, 0.243, 0.692, 0.145, 0.049, 0.310, 0.316),
+    9: (0.708, 0.292, 0.170, 0.797, 0.131, 0.046, 0.3127, 0.3290),
+    10: (1.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.3333, 0.3333),
+    11: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.314, 0.351),
+    12: (0.680, 0.320, 0.265, 0.690, 0.150, 0.060, 0.3127, 0.3290),
+    22: (0.630, 0.340, 0.295, 0.605, 0.155, 0.077, 0.3127, 0.3290)}
+# the matrices cv2 reads a colour image of
+_READ = (0, 1, 2, 4, 5, 6, 7, 8, 9, 12, 15)
+
+
+def _krkb(matrix, primaries):
+    """libavif's float32 (Kr, Kb) of a matrix: its table's, the
+    chroma-derived ones of the primaries (MC 12: H.273's equations 32-37
+    in float32, as avifColorPrimariesComputeYCoeffs computes them), or
+    BT.601's."""
+    f32 = np.float32
+    if matrix != 12:
+        kr, kb = _KRKB.get(matrix, (0.299, 0.114))
+        return f32(kr), f32(kb)
+    rx, ry, gx, gy, bx, by, wx, wy = (f32(v) for v in _PRIMARIES.get(
+        primaries, _PRIMARIES[1]))
+    one = f32(1)
+    rz, gz, bz, wz = (one - (rx + ry), one - (gx + gy), one - (bx + by),
+                      one - (wx + wy))
+    den = wy * (rx * (gy * bz - by * gz) + gx * (by * rz - ry * bz)
+                + bx * (ry * gz - gy * rz))
+    kr = (ry * (wx * (gy * bz - by * gz) + wy * (bx * gz - gx * bz)
+                + wz * (gx * by - bx * gy))) / den
+    kb = (by * (wx * (ry * gz - gy * rz) + wy * (gx * rz - rx * gz)
+                + wz * (rx * gy - gx * ry))) / den
+    return f32(kr), f32(kb)
 
 
 def _up2_index(width):
@@ -97,7 +152,7 @@ def rgb_to_yuv420(rgb: np.ndarray):
     return y, u, v
 
 
-def _float_rgb(planes, bd, ssx, ssy, matrix, full):
+def _float_rgb(planes, bd, ssx, ssy, matrix, full, primaries):
     f32 = np.float32
     y = planes[0].astype(np.int64)
     h, w = y.shape
@@ -142,8 +197,11 @@ def _float_rgb(planes, bd, ssx, ssy, matrix, full):
     cb, cr = ch
     if identity:
         R, G, B = cr, Y, cb
+    elif matrix == 8:                          # YCgCo: Cg in U, Co in V
+        t = Y - cb
+        R, G, B = t + cr, Y + cb, t - cr
     else:
-        kr, kb = f32(_KR), f32(_KB)
+        kr, kb = _krkb(matrix, primaries)
         kg = f32(1.0) - kr - kb
         R = Y + (f32(2) * (f32(1) - kr)) * cr
         B = Y + (f32(2) * (f32(1) - kb)) * cb
@@ -156,17 +214,24 @@ def _float_rgb(planes, bd, ssx, ssy, matrix, full):
     return np.stack(out, -1).astype(np.uint8 if bd == 8 else np.uint16)
 
 
-def yuv_to_rgb(planes, bd, ssx, ssy, matrix, full) -> np.ndarray:
+def yuv_to_rgb(planes, bd, ssx, ssy, matrix, full, primaries=1) -> np.ndarray:
     """RGB [h, w, 3] (uint8 for 8 bits, else uint16 at the image's own
-    depth) of decoded Y, U, V planes, as libavif converts them for cv2."""
-    if matrix not in (0, 5, 6):
-        raise NotImplementedError(
-            f"AVIF colour matrix (matrix_coefficients {matrix}) is not "
-            "ported: no writer here makes one")
-    if bd == 8 and matrix:
+    depth) of decoded Y, U, V planes, as libavif converts them for cv2
+    under the nclx matrix_coefficients `matrix` and colour `primaries`;
+    IOError where libavif converts nothing."""
+    if matrix not in _READ or matrix == 0 and (ssx or ssy) \
+            or matrix == 8 and not full:
+        kind = "full" if full else "limited"
+        raise IOError(
+            f"AVIF: libavif converts no image of colour matrix "
+            f"(matrix_coefficients) {matrix} at {kind} range, chroma "
+            f"subsampled {ssx}, {ssy}: OpenCV reads nothing")
+    lib = _LIBYUV_CP.get(primaries) if matrix == 12 else _LIBYUV_MC.get(
+        matrix)
+    if bd == 8 and lib is not None:
         y = planes[0]
         h, w = y.shape
         u = _libyuv_chroma(planes[1], w, h, ssx, ssy)
         v = _libyuv_chroma(planes[2], w, h, ssx, ssy)
-        return _libyuv_rgb(y, u, v, _LIBYUV[int(full)])
-    return _float_rgb(planes, bd, ssx, ssy, matrix, full)
+        return _libyuv_rgb(y, u, v, _LIBYUV[(lib, int(full))])
+    return _float_rgb(planes, bd, ssx, ssy, matrix, full, primaries)

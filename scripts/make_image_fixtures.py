@@ -59,7 +59,9 @@ file must reach that PSNR less 0.5 dB within twice the payload
 import hashlib
 import io
 import json
+import struct
 import sys
+import zlib
 from pathlib import Path
 
 import cv2
@@ -68,6 +70,7 @@ from PIL import Image
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from ignis_tpu_torch.utils.avif import coding_tools  # noqa: E402
+from ignis_tpu_torch.utils.jpeg import encode_jpeg  # noqa: E402
 
 DATA = Path(__file__).resolve().parent.parent / "tests" / "data"
 OUT = DATA / "images"
@@ -99,6 +102,229 @@ def noisy8(h, w, seed):
                    255).astype(np.uint8)
 
 
+# ---- files encoded here from their specifications -----------------------
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW as libtiff writes it: MSB-first codes from 9 bits, a clear
+    code first, the width growing when the next code would not fit (the
+    decoder's early change), a clear code when the table fills, EOI."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code, width):
+        nonlocal acc, nacc
+        acc, nacc = acc << width | code, nacc + width
+        while nacc >= 8:
+            nacc -= 8
+            out.append(acc >> nacc & 0xFF)
+        acc &= (1 << nacc) - 1
+
+    table = {bytes([i]): i for i in range(256)}
+    width, nxt = 9, 258
+    put(256, width)
+    cur = b""
+    for b in data:
+        nxt_str = cur + bytes([b])
+        if nxt_str in table:
+            cur = nxt_str
+            continue
+        put(table[cur], width)
+        table[nxt_str] = nxt
+        nxt += 1
+        if nxt == 4094:
+            put(256, width)
+            table = {bytes([i]): i for i in range(256)}
+            width, nxt = 9, 258
+        elif nxt > (1 << width) - 1:
+            width += 1
+        cur = bytes([b])
+    if cur:
+        put(table[cur], width)
+        nxt += 1
+        if nxt > (1 << width) - 1 and width < 12:
+            width += 1
+    put(257, width)
+    if nacc:
+        put(0, 8 - nacc)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: repeat runs of 2-128 bytes, literal runs up to 128."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and data[j] == data[i] and j - i < 128:
+            j += 1
+        if j - i >= 2:
+            out += bytes([257 - (j - i)]) + data[i:i + 1]
+            i = j
+            continue
+        k = i + 1
+        while k < n and k - i < 128 and not (k + 1 < n
+                                             and data[k] == data[k + 1]):
+            k += 1
+        out += bytes([k - i - 1]) + data[i:k]
+        i = k
+    return bytes(out)
+
+
+_TIFF_PACK = {3: "H", 4: "I", 7: "B", 16: "Q"}
+
+
+def tiff_file(samples, order="<", tile=None, comp=1, predictor=1,
+              photo=None, cmap=None, rows_per_strip=None, planar=False,
+              big=False, bits=None, tags=(), encode=None):
+    """A TIFF of [h, w, spp] samples (uint8 to uint32, int8 to int32,
+    float32, float64) from the TIFF 6.0 specification, or from BigTIFF's
+    (`big`: version 43, 20-byte entries, LONG8 offsets): byte order,
+    strips or tiles, chunky or planar samples, compression 1, 5, 8 or
+    32773 (or another with `encode`, which codes a chunk's [rows, cols,
+    samples]), predictor 2, `bits` of 1, 2 or 4 (samples packed MSB first,
+    rows padded to a byte), palette (photometric 3 and a colour map), and
+    `tags`, more (tag, type, values)."""
+    h, w, spp = samples.shape
+    dt = samples.dtype
+    nbits = bits or dt.itemsize * 8
+    photo = photo if photo is not None else (2 if spp >= 3 else 1)
+    planes = ([samples[..., k:k + 1] for k in range(spp)] if planar
+              else [samples])
+    chunks = []
+    for plane in planes:
+        if tile:
+            tw, th = tile
+            for y0 in range(0, h, th):
+                for x0 in range(0, w, tw):
+                    c = np.zeros((th, tw, plane.shape[2]), dt)
+                    part = plane[y0:y0 + th, x0:x0 + tw]
+                    c[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(c)
+        else:
+            rps = rows_per_strip or h
+            chunks += [plane[y0:y0 + rps] for y0 in range(0, h, rps)]
+    enc = []
+    for c in chunks:
+        if encode is not None:
+            enc.append(encode(c))
+            continue
+        c = c.copy()
+        if predictor == 2:          # on the bits, as unsigned integers
+            u = c.view(f"u{dt.itemsize}")
+            u[:, 1:] = u[:, 1:] - u[:, :-1]
+        if predictor == 3:          # byte planes, most significant first
+            rows, cols, n = c.shape
+            b = c.astype(">" + dt.str[1:]).view(np.uint8).reshape(
+                rows, cols, n, dt.itemsize).transpose(0, 3, 1, 2).reshape(
+                    rows, -1).copy()
+            b[:, n:] = b[:, n:] - b[:, :-n]
+            enc.append({5: lzw_encode, 8: zlib.compress}[comp](b.tobytes()))
+            continue
+        if bits:
+            b = np.unpackbits(c.astype(np.uint8)[..., None], axis=-1)[
+                ..., 8 - bits:]
+            raw = np.packbits(b.reshape(c.shape[0], -1), axis=1).tobytes()
+        else:
+            raw = c.astype(dt.newbyteorder(order)).tobytes()
+        raw = {1: lambda r: r, 5: lzw_encode, 8: zlib.compress,
+               32773: packbits}[comp](raw)
+        enc.append(raw)
+    kind = {"u": 1, "i": 2, "f": 3}[dt.kind]
+    off_type = 16 if big else 4
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [nbits] * spp),
+            (259, 3, [comp]), (262, 3, [photo]), (277, 3, [spp]),
+            (284, 3, [2 if planar else 1]), (339, 3, [kind] * spp)] + list(
+                tags)
+    if tile:
+        tags += [(322, 3, [tile[0]]), (323, 3, [tile[1]]),
+                 (324, off_type, None), (325, 4, [len(e) for e in enc])]
+    else:
+        tags += [(273, off_type, None), (278, 4, [rows_per_strip or h]),
+                 (279, 4, [len(e) for e in enc])]
+    if predictor != 1:
+        tags.append((317, 3, [predictor]))
+    if cmap is not None:
+        tags.append((320, 3, list(cmap.T.reshape(-1))))
+    tags.sort(key=lambda t: t[0])
+    inline, entry = (8, 20) if big else (4, 12)
+
+    def payload(typ, vals):
+        return struct.pack(order + _TIFF_PACK[typ] * len(vals),
+                           *[int(v) for v in vals])
+    extra_at = (16 + 8 + entry * len(tags) + 8 if big
+                else 8 + 2 + entry * len(tags) + 4)
+    extra_len = 0
+    for _, typ, vals in tags:
+        n = len(enc) if vals is None else len(vals)
+        size = struct.calcsize(_TIFF_PACK[typ]) * n
+        extra_len += size if size > inline else 0
+    offsets = list(np.cumsum([extra_at + extra_len]
+                             + [len(e) for e in enc[:-1]]))
+    ifd = struct.pack(order + ("Q" if big else "H"), len(tags))
+    extra = b""
+    for tag, typ, vals in tags:
+        vals = offsets if vals is None else vals
+        data = payload(typ, vals)
+        head = struct.pack(order + ("HHQ" if big else "HHI"), tag, typ,
+                           len(vals))
+        if len(data) <= inline:
+            ifd += head + data.ljust(inline, b"\0")
+        else:
+            ifd += head + struct.pack(order + ("Q" if big else "I"),
+                                      extra_at + len(extra))
+            extra += data
+    if big:
+        magic = (b"II+\0" if order == "<" else b"MM\0+") + struct.pack(
+            order + "HHQ", 8, 0, 16)
+        return magic + ifd + b"\0" * 8 + extra + b"".join(enc)
+    magic = b"II*\0" if order == "<" else b"MM\0*"
+    return (magic + struct.pack(order + "I", 8) + ifd + b"\0" * 4 + extra
+            + b"".join(enc))
+
+
+def os2_bmp(pixels, bpp, palette=None) -> bytes:
+    """An OS/2 BMP (the 12-byte BITMAPCOREHEADER: 16-bit width and height,
+    a palette of 3-byte BGR entries) of [h, w] palette indices at 1, 4 or
+    8 bits with an [n, 3] RGB palette, or of [h, w, 3] RGB at 24 bits;
+    rows bottom-up, each padded to 4 bytes."""
+    h, w = pixels.shape[:2]
+    stride = (w * bpp + 31) // 32 * 4
+    rows = b""
+    for row in pixels[::-1]:
+        if bpp == 24:
+            raw = row[:, ::-1].tobytes()
+        else:
+            bits = ((row[:, None] >> np.arange(bpp - 1, -1, -1)) & 1)
+            raw = np.packbits(bits.astype(np.uint8).reshape(-1)).tobytes()
+        rows += raw.ljust(stride, b"\0")
+    pal = b"" if palette is None else np.ascontiguousarray(
+        palette[:, ::-1], np.uint8).tobytes()
+    off = 14 + 12 + len(pal)
+    return (struct.pack("<2sIHHI", b"BM", off + len(rows), 0, 0, off)
+            + struct.pack("<IHHHH", 12, w, h, 1, bpp) + pal + rows)
+
+
+def pam_file(samples, maxval, tupltype=None) -> bytes:
+    """A PAM (P7) of [h, w, depth] samples (big-endian 16 bits above maxval
+    255), with a comment line and TUPLTYPE where given."""
+    h, w, depth = samples.shape
+    head = (f"P7\n# made from the PAM specification\nWIDTH {w}\nHEIGHT {h}"
+            f"\nDEPTH {depth}\nMAXVAL {maxval}\n")
+    if tupltype:
+        head += f"TUPLTYPE {tupltype}\n"
+    body = samples.astype(">u2" if maxval > 255 else np.uint8).tobytes()
+    return (head + "ENDHDR\n").encode() + body
+
+
+def with_nclx(data: bytes, matrix: int, primaries=None) -> bytes:
+    """An AVIF file with its colr box's nclx matrix_coefficients (and
+    colour_primaries, where given) rewritten."""
+    out = bytearray(data)
+    at = out.index(b"colrnclx") + 8
+    if primaries is not None:
+        out[at:at + 2] = primaries.to_bytes(2, "big")
+    out[at + 4:at + 6] = matrix.to_bytes(2, "big")
+    return bytes(out)
+
+
 # OpenCV's files: name -> (image as RGB or grey, cv2.imwrite parameters)
 CV2_FIXTURES = {
     "progressive_420.jpg": lambda: (
@@ -125,6 +351,18 @@ CV2_FIXTURES = {
         smooth(32, 34, 23, 65535.0).astype(np.uint16),
         [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 1000]),
     "cv2_grey.jp2": lambda: (noisy8(33, 40, 24)[..., 0], []),
+    # cv2.imwrite of other sample types: LZW with the horizontal predictor
+    # (float64 uncompressed), a few samples below zero
+    "cv2_int8.tif": lambda: ((smooth(21, 26, 61, 140.0) - 20).astype(
+        np.int8), []),
+    "cv2_int16.tif": lambda: ((smooth(19, 27, 62, 30000.0) - 3000).astype(
+        np.int16), []),
+    "cv2_int32.tif": lambda: ((smooth(23, 22, 63, 2e6) - 2e5).astype(
+        np.int32), []),
+    "cv2_uint32.tif": lambda: (smooth(17, 25, 64, 3e6).astype(np.uint32),
+                               []),
+    "cv2_float64.tif": lambda: (smooth(20, 21, 65, 4.0), []),
+    "cv2_default.pam": lambda: (rgb8(11, 13, 66), []),
 }
 
 
@@ -242,6 +480,19 @@ PIL_AVIF = {
 }
 
 
+# cv2's and Pillow's AVIF files with their nclx colour matrix (and
+# primaries) rewritten: name -> (file, matrix_coefficients, primaries)
+MATRIX_AVIF = {
+    **{f"cv2_default_mc{m}.avif": ("cv2_default.avif", m, None)
+       for m in (1, 2, 4, 7, 8, 9, 12, 15)},
+    **{f"cv2_10bit_mc{m}.avif": ("cv2_10bit.avif", m, None)
+       for m in (1, 4, 7, 8, 9, 12, 15)},
+    "cv2_10bit_mc12_cp9.avif": ("cv2_10bit.avif", 12, 9),
+    "pil_444_mc8.avif": ("pil_444_speed0.avif", 8, None),
+    "pil_444_mc12_cp9.avif": ("pil_444_speed0.avif", 12, 9),
+}
+
+
 def _pil(img, fmt, **kw) -> bytes:
     bio = io.BytesIO()
     img.save(bio, fmt, **kw)
@@ -304,13 +555,61 @@ PIL_FIXTURES = {
     # a baseline JPEG under a PNG's name
     "jpeg_named.png": lambda: cv2.imencode(".jpg", rgb8(24, 32, 21))[1]
     .tobytes(),
+    "pil_bilevel.tif": lambda: _pil(Image.fromarray(
+        smooth(27, 35, 67)[..., 0] > 128), "TIFF", compression="packbits"),
+    "pil_cmyk.tif": lambda: _pil(Image.fromarray(rgb8(22, 29, 68))
+                                 .convert("CMYK"), "TIFF",
+                                 compression="tiff_lzw"),
+    "pil_jpeg.tif": lambda: _pil(Image.fromarray(rgb8(30, 37, 69)), "TIFF",
+                                 compression="jpeg", quality=90),
+    "pil_jpeg_ycbcr.tif": lambda: _pil(Image.fromarray(rgb8(30, 37, 70))
+                                       .convert("YCbCr"), "TIFF",
+                                       compression="jpeg"),
+    "pil_int32.tif": lambda: _pil(Image.fromarray(
+        (smooth(19, 23, 71, 5e5)[..., 0] - 4e4).astype(np.int32)), "TIFF"),
+    "pil_bigtiff.tif": lambda: _pil(Image.fromarray(rgb8(21, 24, 72)),
+                                    "TIFF", big_tiff=True),
+}
+
+
+def _os2_palette() -> bytes:
+    """An 8-bit OS/2 BMP of rgb8's colours through Pillow's 256-colour
+    quantisation (its palette padded to 256 entries)."""
+    im = Image.fromarray(rgb8(25, 31, 76)).quantize(256)
+    pal = np.zeros((256, 3), np.uint8)
+    got = np.asarray(im.getpalette(), np.uint8).reshape(-1, 3)[:256]
+    pal[:len(got)] = got
+    return os2_bmp(np.asarray(im), 8, pal)
+
+
+# files encoded here from their specifications: name -> bytes
+HAND_FIXTURES = {
+    "planar_strips.tif": lambda: tiff_file(
+        rgb8(23, 29, 73), "<", None, 5, 2, planar=True, rows_per_strip=5),
+    "planar_tiles.tif": lambda: tiff_file(rgb8(35, 41, 74), ">", (16, 16),
+                                          8, planar=True),
+    # 4:2:0 YCbCr JPEG strips of 16 rows (the port's baseline writer)
+    "ycbcr_420_jpeg.tif": lambda: tiff_file(
+        rgb8(37, 45, 75), "<", None, 7, photo=6, rows_per_strip=16,
+        encode=lambda c: encode_jpeg(c, 90), tags=[(530, 3, [2, 2])]),
+    "os2_8bit.bmp": _os2_palette,
+    "os2_24bit.bmp": lambda: os2_bmp(rgb8(19, 26, 77), 24),
+    "rgb_alpha_16bit.pam": lambda: pam_file(np.dstack([
+        smooth(13, 17, 78, 65535.0), smooth(13, 17, 79, 65535.0)[..., :1]])
+        .astype(np.uint16), 65535, "RGB_ALPHA"),
+    "grayscale_alpha.pam": lambda: pam_file(
+        rgb8(15, 12, 80)[..., :2], 255, "GRAYSCALE_ALPHA"),
+    # one sample a byte, 0 or 1: OpenCV reads each row's bytes as bits
+    "blackandwhite.pam": lambda: pam_file(
+        (smooth(9, 14, 81)[..., :1] > 128).astype(np.uint8), 1,
+        "BLACKANDWHITE"),
 }
 
 
 def cv2_rgb(path) -> np.ndarray:
     img = cv2.imread(str(path), FLAGS)
-    if img.ndim == 2:
-        img = np.repeat(img[..., None], 3, -1)
+    if img.ndim == 2 or img.shape[2] == 2:     # grey, or grey and alpha
+        img = np.repeat(img.reshape(img.shape[:2] + (-1,))[..., :1], 3, -1)
     return np.ascontiguousarray(img[..., 2::-1])
 
 
@@ -339,13 +638,19 @@ def main() -> None:
         assert cv2.imwrite(str(OUT / name), img, params), name
     for name, make in PIL_AVIF.items():
         (OUT / name).write_bytes(make())
+    for name, make in HAND_FIXTURES.items():
+        (OUT / name).write_bytes(make())
+    for name, (src, matrix, primaries) in MATRIX_AVIF.items():
+        (OUT / name).write_bytes(with_nclx((OUT / src).read_bytes(), matrix,
+                                           primaries))
+    avif_names = list(CV2_AVIF) + list(PIL_AVIF) + list(MATRIX_AVIF)
     tools = {}
-    for name in list(CV2_AVIF) + list(PIL_AVIF):
+    for name in avif_names:
         tools[name] = coding_tools((OUT / name).read_bytes())
         print(f"{name}: {', '.join(tools[name])}")
     (DATA / "avif_tools.json").write_text(json.dumps(tools, indent=1) + "\n")
-    for name in (list(CV2_FIXTURES) + list(PIL_FIXTURES) + list(CV2_AVIF)
-                 + list(PIL_AVIF)):
+    for name in (list(CV2_FIXTURES) + list(PIL_FIXTURES)
+                 + list(HAND_FIXTURES) + avif_names):
         pixels[name] = cv2_rgb(OUT / name)
         print(f"{name}: {(OUT / name).stat().st_size} bytes, "
               f"{pixels[name].shape} {pixels[name].dtype}")
@@ -379,21 +684,24 @@ def main() -> None:
 
 def avif_sources(pixels) -> dict:
     """The sources of the AVIF writer's bars: in-repo pixels of small
-    fixtures, one more small image, and the smooth timing image whole and
-    as its top-left 512 x 512 crop."""
+    fixtures, one more small image, the smooth timing image whole and as
+    its top-left 512 x 512 crop, and its waves drawn 4,160 x 16 (two AV1
+    tile columns; chip_smoke.wide_source)."""
+    import chip_smoke
     smooth = timing_image()
     return {"cv2_lossless.webp": pixels["cv2_lossless.webp"],
             "cv2_q80.webp": pixels["cv2_q80.webp"],
             "rgb8(37, 45, 30)": rgb8(37, 45, 30),
             "smooth_lossless.webp[:512, :512]": smooth[:512, :512],
-            "smooth_lossless.webp": smooth}
+            "smooth_lossless.webp": smooth,
+            chip_smoke.WIDE_AVIF: chip_smoke.wide_source()}
 
 
 def avif_bars(pixels) -> dict:
     """cv2's default AVIF (cv2.imwrite with no parameters, as ignis_tpu's
     save_image calls it) of each source: the PSNR of what cv2 reads back
     against the source, the file's and the AV1 item's bytes, and the
-    frame header's base_q_idx."""
+    frame header's base_q_idx and tile layout."""
     from ignis_tpu_torch.utils.av1 import Decoder
     from ignis_tpu_torch.utils.avif import parse_avif
     out = {}
@@ -402,11 +710,14 @@ def avif_bars(pixels) -> dict:
         assert ok, name
         back = cv2.imdecode(buf, FLAGS)[..., ::-1].astype(np.float64)
         item = parse_avif(buf.tobytes())["av1"]
+        d = Decoder(item)
         out[name] = {"shape": list(src.shape),
                      "psnr_db": float(10 * np.log10(255.0 ** 2 / np.mean(
                          (back - src) ** 2))),
                      "file_bytes": len(buf), "payload_bytes": len(item),
-                     "base_q_idx": Decoder(item).base_q}
+                     "base_q_idx": d.base_q,
+                     "tile_cols_log2": d.tile_cols_log2,
+                     "tile_rows_log2": d.tile_rows_log2}
         print(f"cv2's AVIF of {name}: {out[name]}")
     return out
 

@@ -1,5 +1,5 @@
-"""Hold the port's GIF, WebP, JPEG 2000 and AVIF codecs to OpenCV on
-random files.
+"""Hold the port's GIF, WebP, JPEG 2000, AVIF, TIFF, PAM and OS/2 BMP
+codecs to OpenCV on random files.
 
 For a given number of seconds, make random images (noise, smooth waves,
 a flat colour, a checkerboard, a few-colour palette image, noise over a
@@ -12,9 +12,16 @@ progression, 9/7, colour transform, quality layers, tiles, precincts,
 raw code stream and PLT, grey, RGB, RGBA or 16-bit; cv2's AVIF at any
 quality, speed and bit depth (8, 10, 12), colour or grey, and Pillow's
 at any quality, speed, subsampling, range, tiles and libaom switch, with
-alpha a fifth of the time; and the port's own AVIF writer,
-avif.encode_avif) and compare the port's decode with cv2.imdecode; where
-cv2 reads no AVIF (a grey one with alpha) the port must raise IOError.
+alpha a fifth of the time, either under a random nclx colour matrix,
+primaries and range two times in five; and the port's own AVIF writer,
+avif.encode_avif; cv2's TIFF of any sample type, 1, 3 or 4 channels,
+codec and predictor, Pillow's bilevel, CMYK, JPEG, signed 32-bit and
+BigTIFF files, and TIFFs encoded here of any sample type, strips or
+tiles, chunky or (8-bit) planar, classic or BigTIFF; cv2's PAM of 1, 3
+or 4 channels at 8 or 16 bits; an OS/2 BMP of 1, 4, 8 or 24 bits) and
+compare the port's decode with cv2.imdecode; where cv2 reads no AVIF (a
+grey one with alpha, a matrix libavif converts nothing of), no PAM and
+no OS/2 BMP, the port must raise IOError.
 For cv2's GIF writer, compare cv2's read-back of the port's `encode_gif`
 with that of cv2's own file. Needs cv2 and Pillow. Run from the
 repository's root:
@@ -36,6 +43,9 @@ from PIL import Image
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from ignis_tpu_torch.utils import avif, gif, jpeg2000, webp  # noqa: E402
+from ignis_tpu_torch.utils import image as imagelib  # noqa: E402
+from ignis_tpu_torch.utils.tiff import decode_tiff  # noqa: E402
+from make_image_fixtures import os2_bmp, tiff_file, with_nclx  # noqa: E402
 
 FLAGS = cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH | cv2.IMREAD_ANYCOLOR
 
@@ -44,8 +54,8 @@ def cv2_rgb(data: bytes):
     img = cv2.imdecode(np.frombuffer(data, np.uint8), FLAGS)
     if img is None:
         return None
-    if img.ndim == 2:
-        img = np.repeat(img[..., None], 3, -1)
+    if img.ndim == 2 or img.shape[2] == 2:
+        img = np.repeat(img.reshape(img.shape[:2] + (-1,))[..., :1], 3, -1)
     return np.ascontiguousarray(img[..., 2::-1])
 
 
@@ -83,7 +93,11 @@ def one_case(rng):
     h, w = (int(v) for v in rng.integers(1, 90, 2))
     img = random_image(rng, h, w)
     bgr = np.ascontiguousarray(img[..., ::-1])
-    kind = rng.integers(0, 11)
+    kind = rng.integers(0, 13)
+    if kind == 12:
+        return pam_or_os2_case(rng, h, w, img)
+    if kind == 11:
+        return tiff_case(rng, h, w, img)
     if kind == 10:
         return (f"AVIF writer {h}x{w}", avif.encode_avif(img),
                 avif.decode_avif)
@@ -141,9 +155,12 @@ def avif_case(rng, from_cv2, h, w, img):
         params = [cv2.IMWRITE_AVIF_QUALITY, int(rng.integers(0, 101)),
                   cv2.IMWRITE_AVIF_SPEED, int(rng.integers(0, 11)),
                   cv2.IMWRITE_AVIF_DEPTH, depth]
-        return (f"cv2 AVIF {params[1::2]} {src.shape}",
-                cv2.imencode(".avif", np.ascontiguousarray(src),
-                             params)[1].tobytes(), avif.decode_avif)
+        label = f"cv2 AVIF {params[1::2]} {src.shape}"
+        data = cv2.imencode(".avif", np.ascontiguousarray(src),
+                            params)[1].tobytes()
+        if rng.random() < 0.4:
+            label, data = recoloured(rng, label, data)
+        return label, data, avif.decode_avif
     kw = dict(quality=int(rng.integers(0, 101)),
               speed=int(rng.integers(0, 11)),
               subsampling=str(rng.choice(["4:2:0", "4:2:2", "4:4:4",
@@ -165,7 +182,118 @@ def avif_case(rng, from_cv2, h, w, img):
         data = pil_bytes(im, "AVIF", **kw)
     except (OSError, ValueError):      # switches libaom refuses together
         return avif_case(rng, from_cv2, h, w, img)
-    return f"Pillow AVIF {kw} {im.mode} {h}x{w}", data, avif.decode_avif
+    label, data = f"Pillow AVIF {kw} {im.mode} {h}x{w}", data
+    if rng.random() < 0.4:
+        label, data = recoloured(rng, label, data)
+    return label, data, avif.decode_avif
+
+
+def recoloured(rng, label, data):
+    """The file under a random nclx matrix (0-17), primaries and range."""
+    matrix = int(rng.integers(0, 18))
+    primaries = int(rng.choice([1, 2, 4, 5, 6, 9, 10, 12, 22]))
+    out = bytearray(with_nclx(data, matrix, primaries))
+    at = out.index(b"colrnclx") + 14
+    full = int(rng.integers(0, 2))
+    out[at] = (full << 7) | (out[at] & 0x7F)
+    return (f"{label} as nclx {primaries}/{matrix} full {full}",
+            bytes(out))
+
+
+TIFF_TYPES = ("uint8", "uint16", "uint32", "int8", "int16", "int32",
+              "float32", "float64")
+
+
+def random_samples(img, dtype, channels):
+    """img's samples spread over a dtype (floats: about 0-4)."""
+    d = np.dtype(dtype)
+    v = img[..., :channels].astype(np.float64)
+    if d.kind == "f":
+        return (v / 64.0).astype(d)
+    info = np.iinfo(d)
+    span = float(info.max) - float(info.min)
+    return (info.min + v / 255.0 * span).astype(d)
+
+
+def tiff_case(rng, h, w, img):
+    """A random TIFF of cv2's writer, Pillow's, or encoded here."""
+    pick = rng.integers(0, 3)
+    if pick == 0:
+        dtype = str(rng.choice(TIFF_TYPES))
+        channels = int(rng.choice([1, 3, 4]))
+        arr = random_samples(img, dtype, channels)
+        comp = int(rng.choice([1, 5, 8, 32773]))
+        params = [cv2.IMWRITE_TIFF_COMPRESSION, comp]
+        if comp in (5, 8):
+            params += [cv2.IMWRITE_TIFF_PREDICTOR, int(rng.integers(1, 3))]
+        src = arr[..., 0] if channels == 1 else arr[..., ::-1]
+        ok, buf = cv2.imencode(".tif", np.ascontiguousarray(src), params)
+        return f"cv2 TIFF {dtype} {channels} {params} {h}x{w}", \
+            buf.tobytes(), decode_tiff
+    if pick == 1:
+        kind = str(rng.choice(["1", "CMYK", "jpeg", "I", "big"]))
+        kw, im = {}, Image.fromarray(img)
+        if kind == "1":
+            im = Image.fromarray(img[..., 0] > 127)
+            kw["compression"] = str(rng.choice(["raw", "packbits",
+                                                "tiff_lzw",
+                                                "tiff_adobe_deflate"]))
+        elif kind == "CMYK":
+            im = im.convert("CMYK")
+        elif kind == "jpeg":
+            if rng.random() < 0.3:
+                im = im.convert("YCbCr")
+            elif rng.random() < 0.3:
+                im = Image.fromarray(img[..., 0])
+            kw["compression"] = "jpeg"
+            kw["quality"] = int(rng.integers(5, 101))
+        elif kind == "I":
+            im = Image.fromarray(random_samples(img, "int32", 1)[..., 0])
+        else:
+            kw["big_tiff"] = True
+        return (f"Pillow TIFF {kind} {kw} {h}x{w}",
+                pil_bytes(im, "TIFF", **kw), decode_tiff)
+    dtype = str(rng.choice(TIFF_TYPES))
+    channels = int(rng.choice([1, 3, 4]))
+    arr = random_samples(img, dtype, channels)
+    comp = int(rng.choice([1, 5, 8, 32773]))
+    pred = 1
+    if comp in (5, 8):
+        pred = int(rng.choice([1, 2, 3] if dtype.startswith("float")
+                              else [1, 2]))
+    tile = None
+    if rng.random() < 0.4:
+        tile = tuple(int(16 * v) for v in rng.integers(1, 4, 2))
+    kw = dict(order=str(rng.choice(["<", ">"])), tile=tile, comp=comp,
+              predictor=pred, rows_per_strip=int(rng.integers(1, h + 1)),
+              planar=bool(arr.dtype.itemsize == 1 and channels > 1
+                          and rng.random() < 0.5),
+              big=bool(rng.random() < 0.3))
+    if comp == 1 and tile and arr.dtype.itemsize == 1:
+        kw["comp"] = 5            # OpenCV cannot read raw 8-bit tiles
+    return f"TIFF {dtype} {channels} {kw} {h}x{w}", tiff_file(arr, **kw), \
+        decode_tiff
+
+
+def pam_or_os2_case(rng, h, w, img):
+    """cv2's PAM of 1, 3 or 4 channels at 8 or 16 bits, or an OS/2 BMP."""
+    if rng.random() < 0.5:
+        channels = int(rng.choice([1, 3, 4]))
+        arr = img[..., :1] if channels == 1 else img
+        if channels == 4:
+            arr = np.dstack([img, img[..., 1]])
+        if rng.random() < 0.3:
+            arr = arr.astype(np.uint16) * 257
+        return f"cv2 PAM {arr.shape} {arr.dtype}", cv2.imencode(
+            ".pam", np.ascontiguousarray(arr))[1].tobytes(), \
+            imagelib.decode_pam
+    bpp = int(rng.choice([1, 4, 8, 24]))
+    if bpp == 24:
+        return f"OS/2 BMP 24 {h}x{w}", os2_bmp(img, 24), imagelib.decode_bmp
+    pal = rng.integers(0, 256, (1 << bpp, 3), dtype=np.uint8)
+    idx = rng.integers(0, 1 << bpp, (h, w), dtype=np.uint8)
+    return f"OS/2 BMP {bpp} {h}x{w}", os2_bmp(idx, bpp, pal), \
+        imagelib.decode_bmp
 
 
 def jp2_case(rng, from_cv2):
@@ -245,7 +373,8 @@ def main() -> int:
         written += label.startswith("AVIF writer")
         want = cv2_rgb(data)
         avifs += other is avif.decode_avif
-        if want is None and other is avif.decode_avif:
+        if want is None and other in (avif.decode_avif, imagelib.decode_pam,
+                                      imagelib.decode_bmp):
             files += 1
             try:       # cv2 reads nothing: neither may the port
                 other(data)

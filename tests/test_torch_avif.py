@@ -14,6 +14,7 @@ arithmetic decoder is held to a small encoder's round trip, the lossless
 Walsh-Hadamard transform to its forward transform's."""
 import io
 import json
+import sys
 from pathlib import Path
 
 import cv2
@@ -22,8 +23,11 @@ import pytest
 from PIL import Image
 
 from ignis_tpu.utils import image as jax_image
-from ignis_tpu_torch.utils import av1, av1_recon, avif
+from ignis_tpu_torch.utils import av1, av1_recon, avif, yuv
 from ignis_tpu_torch.utils import image as imagelib
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
+from make_image_fixtures import with_nclx  # noqa: E402
 
 FLAGS = cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH | cv2.IMREAD_ANYCOLOR
 FIXTURES = Path(__file__).resolve().parent / "data" / "images"
@@ -45,7 +49,14 @@ MADE_FOR = {
     "pil_qm.avif": "qm", "pil_deltaq.avif": "delta_q",
     "pil_delta_lf.avif": "delta_lf", "pil_chroma_deltaq.avif": "uv_delta_q",
     "pil_tx64.avif": "tx64", "pil_sharpness.avif": "sharpness",
-    "pil_sb128.avif": "sb128", "pil_film_grain.avif": "film_grain"}
+    "pil_sb128.avif": "sb128", "pil_film_grain.avif": "film_grain",
+    # cv2's and Pillow's files under other colour matrices (their colr box
+    # rewritten): the AV1 stream is the source file's
+    **{f"cv2_default_mc{m}.avif": "4:2:0" for m in (1, 2, 4, 7, 8, 9, 12,
+                                                     15)},
+    **{f"cv2_10bit_mc{m}.avif": "10-bit" for m in (1, 4, 7, 8, 9, 12, 15)},
+    "cv2_10bit_mc12_cp9.avif": "10-bit", "pil_444_mc8.avif": "4:4:4",
+    "pil_444_mc12_cp9.avif": "4:4:4"}
 
 
 def _cv2_rgb(data: bytes):
@@ -380,9 +391,14 @@ def _without_meta():
     ("colour matrix", lambda: _with_matrix(1)),
     ("image sequence without a primary item", _without_meta)])
 def test_unported_container_features_refused_by_name(what, data):
-    """A colour matrix other than BT.601 or the identity (here BT.709,
-    which cv2 would read) and an `avis` file without a primary item: no
-    writer here makes either, and the port names each."""
+    """An `avis` file without a primary item: no writer here makes one,
+    and the port names it. A colour matrix other than BT.601 or the
+    identity (here BT.709), once refused here too, is read now as cv2
+    reads it (test_colour_matrix_matches_cv2)."""
+    if what == "colour matrix":
+        np.testing.assert_array_equal(avif.decode_avif(data(), "x.avif"),
+                                      _cv2_rgb(data()))
+        return
     with pytest.raises(NotImplementedError, match=what):
         avif.decode_avif(data(), "x.avif")
 
@@ -525,3 +541,92 @@ def test_tables_hold_the_specifications_values():
     qm = T.quantizer_matrix()
     assert qm.shape == (15, 2, 3344) and qm[0, 0, :4].tolist() == \
         [32, 43, 73, 97]
+
+
+# ---- colour matrices -------------------------------------------------------
+# files of each kind whose colr box the matrix tests rewrite: 8-bit 4:2:0,
+# 10- and 12-bit 4:2:0, 8-bit 4:4:4 and 4:2:2, 8-bit limited range, the
+# identity's lossless 4:4:4, a noisy 8-bit file, and grey
+MATRIX_FILES = ["cv2_default.avif", "cv2_10bit.avif", "cv2_12bit.avif",
+                "pil_444_speed0.avif", "pil_422.avif",
+                "pil_420_limited.avif", "cv2_lossless.avif",
+                "cv2_q50_speed0.avif", "pil_400.avif"]
+# the primaries MC 12 (chroma-derived) is tried under: libyuv's three,
+# libavif's other tables, and ones it has no table for (BT.709's)
+PRIMARIES = (1, 2, 4, 5, 6, 7, 8, 9, 10, 11, 12, 22, 0, 3)
+_FRAMES = {}
+
+
+def _frame(name):
+    """The decoded AV1 frame of a fixture (decoded once)."""
+    if name not in _FRAMES:
+        data = (FIXTURES / name).read_bytes()
+        _FRAMES[name] = av1.decode_av1(avif.parse_avif(data)["av1"])
+    return _FRAMES[name]
+
+
+@pytest.mark.parametrize("matrix", range(18))
+@pytest.mark.parametrize("name", MATRIX_FILES)
+def test_colour_matrix_matches_cv2(name, matrix):
+    """Each file under matrix_coefficients 0-17, in full and limited
+    range (and MC 12 under each primaries): the port's conversion equals
+    cv2.imdecode of the same bytes sample for sample, dtype included
+    (libyuv's fixed point for 8-bit BT.709, BT.601 and BT.2020, libavif's
+    float path for FCC, SMPTE 240, YCgCo, the identity, chroma-derived
+    constants of other primaries, matrices without a table, and 10 and
+    12 bits); where cv2 reads nothing (MC 3, 10, 11, 13, 14, 16, 17, the
+    identity with subsampled chroma, YCgCo in limited range) the port
+    raises IOError. Grey files read under any matrix, as cv2 reads
+    them."""
+    good = (FIXTURES / name).read_bytes()
+    frame = _frame(name)
+    for full in (0, 1):
+        for cp in PRIMARIES if matrix == 12 else (1,):
+            data = bytearray(with_nclx(good, matrix, cp))
+            at = data.index(b"colrnclx") + 14
+            data[at] = (full << 7) | (data[at] & 0x7F)
+            want = _cv2_rgb(bytes(data))
+            if frame.mono:
+                got = avif.decode_avif(bytes(data))
+            elif want is None:
+                with pytest.raises(IOError):
+                    yuv.yuv_to_rgb(frame.planes, frame.bit_depth,
+                                   frame.ss_x, frame.ss_y, matrix, full, cp)
+                continue
+            else:
+                got = yuv.yuv_to_rgb(frame.planes, frame.bit_depth,
+                                     frame.ss_x, frame.ss_y, matrix, full,
+                                     cp)
+            assert got.dtype == want.dtype, (full, cp)
+            np.testing.assert_array_equal(got, want, err_msg=f"{full} {cp}")
+
+
+@pytest.mark.parametrize("matrix", [0, 3, 10, 11, 13, 14])
+def test_matrices_cv2_refuses_raise_ioerror_in_both(tmp_path, matrix):
+    """cv2_default.avif (4:2:0) under a matrix libavif converts nothing
+    of (the identity needs 4:4:4): the port's load_image raises IOError,
+    as ignis_tpu's does for cv2's None, on the same bytes."""
+    p = tmp_path / "x.avif"
+    p.write_bytes(with_nclx((FIXTURES / "cv2_default.avif").read_bytes(),
+                            matrix))
+    with pytest.raises(IOError):
+        imagelib.load_image(p)
+    with pytest.raises(IOError):
+        jax_image.load_image(str(p))
+
+
+@pytest.mark.parametrize("name", sorted(n for n in AVIF_FIXTURES
+                                        if "_mc" in n))
+def test_matrix_fixtures_load_as_jax(name):
+    """The colour-matrix fixtures: ignis_tpu's load_image gives the
+    port's samples as they are (it scales no .avif: the strict xfails
+    above), and the port's load_image scales them by the bit depth."""
+    got = imagelib.decode_samples(FIXTURES / name)
+    top = 1023 if "10bit" in name else 255
+    for lin in (False, True):
+        np.testing.assert_array_equal(
+            jax_image.load_image(str(FIXTURES / name), linear=lin),
+            got.astype(np.float32))
+    np.testing.assert_array_equal(
+        imagelib.load_image(FIXTURES / name, linear=True),
+        got.astype(np.float32) / np.float32(top))

@@ -130,8 +130,8 @@ def test_headers_read_back(w, h):
     """Every field the writer sets reads back through av1.Decoder's header
     parse: the size, level, colour description and tools of the sequence
     header; the quantiser, delta q, deblocking, CDEF and tx mode of the
-    frame header, with one tile (the most AV1 allows one tile: 4096
-    pixels a row)."""
+    frame header, with one tile up to 4,032 pixels a row and two at
+    4,096 (libaom's layout, test_tile_layout_equals_cv2s)."""
     seq = av1_enc.sequence_header(w, h)
     for lf, cy, cuv, dq in (((15, 15, 15, 15), (2, 1), (0, 0), 1),
                             ((0, 0, 0, 0), (0, 0), (3, 4), 0),
@@ -158,18 +158,21 @@ def test_headers_read_back(w, h):
             (5, 0, [cy], [cuv])
         assert d.lr_type == [0, 0, 0] and d.grain is None
         assert (d.tx_mode_select, d.reduced_tx_set) == (0, 0)
-        assert len(d.col_starts) == len(d.row_starts) == 2
+        assert (len(d.col_starts), len(d.row_starts)) == (
+            (3, 2) if w == 4096 else (2, 2))
         assert not d.seg_enabled and not d.coded_lossless
 
 
 @pytest.mark.parametrize("h,w", [(1, 1), (5, 7), (3, 65), (24, 33),
-                                 (240, 320), (512, 512), (130, 70), (37, 45)])
+                                 (240, 320), (512, 512), (130, 70), (37, 45),
+                                 (16, 4160)])
 def test_headers_equal_cv2s(h, w):
-    """Given cv2's own choices (deblocking, CDEF, delta q), the sequence
-    header OBU and the frame header are cv2's bytes, the level included
-    (on images where cv2 codes each block's largest transform, as the
-    writer does); the container of cv2's AV1 item is cv2's file byte for
-    byte."""
+    """Given cv2's own choices (deblocking, CDEF, delta q, and with tiles
+    the tile named for the context update and the bytes of a tile size),
+    the sequence header OBU and the frame header are cv2's bytes, the
+    level and the tile layout included (on images where cv2 codes each
+    block's largest transform, as the writer does); the container of
+    cv2's AV1 item is cv2's file byte for byte."""
     data = _cv2_avif(_noise(h, w, h * w) if h != 37 else rgb8(h, w, 30))
     item = avif.parse_avif(data)["av1"]
     d = av1.Decoder(item)
@@ -177,7 +180,8 @@ def test_headers_equal_cv2s(h, w):
     seq = av1_enc._obu(1, av1_enc.sequence_header(w, h))
     assert seq in item
     hdr = av1_enc.frame_header(w, h, d.lf_level, d.cdef_y[0], d.cdef_uv[0],
-                               d.delta_q_present)
+                               d.delta_q_present, d.context_update_tile_id,
+                               d.tile_size_bytes)
     at = item.index(b"\x32", item.index(seq) + len(seq))
     size, p = av1.leb128(item, at + 1)
     assert item[p:p + len(hdr)] == hdr
@@ -321,14 +325,114 @@ def test_bars_against_ignis_tpu(tmp_path, name):
 def test_writer_has_no_fallback():
     """The encoder's modules import neither OpenCV nor Pillow, write only
     base_q_idx 148 and refuse what is not 8-bit RGB rather than write
-    something else."""
+    something else; past 4,096 pixels a row, where AV1 needs two tile
+    columns, the header codes them (test_tiled_file_meets_cv2s_bars
+    writes such a file) rather than refusing the image."""
     for mod in (av1_enc, av1_fwd, avif, yuv):
         text = Path(mod.__file__).read_text()
         assert "import cv2" not in text and "import PIL" not in text
         assert "from PIL" not in text
     with pytest.raises(ValueError):
         avif.encode_avif(np.zeros((4, 4), np.uint8))
-    # past 4096 pixels a row, AV1 needs two tile columns: refused by name
-    with pytest.raises(NotImplementedError, match="tile"):
-        avif.encode_avif(np.zeros((8, 4100, 3), np.uint8))
+    seq = av1_enc.sequence_header(4100, 8)
+    d = av1_enc.frame_state(seq, av1_enc.frame_header(
+        4100, 8, (0, 0, 0, 0), (0, 0), (0, 0)))
+    assert (d.tile_cols_log2, d.tile_rows_log2) == (1, 0)
+    assert d.col_starts == [0, 528, 1026]
     assert av1_enc.BASE_Q == 148
+
+
+# ---- tiles -----------------------------------------------------------------
+# (h, w) of frames past one tile: 4,096 pixels a row (libaom's extra
+# column), wider, and above 9,437,184 pixels (AV1's area limit: 2,304
+# superblocks a tile)
+TILED = [(40, 4032), (40, 4096), (8, 4100), (16, 4160), (8, 8192),
+         (8, 12300), (2, 16384), (4352, 2240), (2400, 4096)]
+
+
+@pytest.mark.parametrize("h,w", TILED)
+def test_tile_layout_equals_cv2s(h, w):
+    """The writer's uniform tile layout is that of cv2's file of the same
+    size (libaom's: AV1's least, with one more column where the
+    superblock columns are exactly 64 x 2^k), read back from the frame
+    header it writes, with no NotImplementedError: above 9,437,184 pixels
+    too (4352 x 2240 takes AV1's least, two tile rows; 2400 x 4096 takes
+    two tile columns, as libaom lays it out)."""
+    src = np.zeros((h, w, 3), np.uint8)
+    src[:, ::7] = 200
+    item = avif.parse_avif(_cv2_avif(src))["av1"]
+    theirs = av1.Decoder.__new__(av1.Decoder)
+    theirs.name, theirs.seq, theirs.frame_done = "", None, False
+    pos, seq, frame = 0, None, None
+    while pos < len(item):
+        kind = (item[pos] >> 3) & 15
+        size, p = av1.leb128(item, pos + 1)
+        if kind == 1:
+            seq = item[p:p + size]
+        elif kind == 6:
+            frame = item[p:p + size]
+        pos = p + size
+    theirs.sequence_header(av1.BitReader(seq))
+    theirs.frame_header(av1.BitReader(frame))
+    want = (theirs.tile_cols_log2, theirs.tile_rows_log2)
+    assert av1_enc.tile_layout(w, h) == want
+    d = av1_enc.frame_state(av1_enc.sequence_header(w, h),
+                            av1_enc.frame_header(w, h, (0, 0, 0, 0), (0, 0),
+                                                 (0, 0)))
+    assert (d.tile_cols_log2, d.tile_rows_log2) == want
+    assert d.col_starts == theirs.col_starts
+    assert d.row_starts == theirs.row_starts
+
+
+def test_tile_group_sizes_as_libaom_writes_them():
+    """More than one tile: a zero tile_start_and_end_present_flag byte,
+    each tile but the last led by its size less one in the fewest bytes
+    its largest needs, and the index of the (first) largest tile; one
+    tile: its bytes alone."""
+    tiles = [b"a" * 300, b"b" * 256, b"c" * 300, b"d" * 7]
+    body, size_bytes, largest = av1_enc.tile_group(tiles)
+    assert (size_bytes, largest) == (2, 0)
+    assert body == (b"\0" + (299).to_bytes(2, "little") + tiles[0]
+                    + (255).to_bytes(2, "little") + tiles[1]
+                    + (299).to_bytes(2, "little") + tiles[2] + tiles[3])
+    assert av1_enc.tile_group([b"x" * 255, b"y" * 9])[1:] == (1, 0)
+    assert av1_enc.tile_group([b"z"]) == (b"z", 4, 0)
+
+
+def test_tiled_file_meets_cv2s_bars(tmp_path):
+    """save_image(.avif) of a 4,160 x 16 image (chip_smoke's wide source):
+    two tile columns, as cv2's file of it has; cv2 reads the file to the
+    port decoder's pixels and the decoder reads the AV1 item to the
+    encoder's reconstruction; it keeps cv2's bars (base_q_idx 148, a PSNR
+    of at least cv2's less 0.5 dB, an AV1 payload of at most twice
+    cv2's), and tests/data/avif_bars.json holds cv2's figures."""
+    import chip_smoke
+    src = chip_smoke.wide_source()
+    assert src.shape == (16, 4160, 3)
+    lin = imagelib.srgb_to_linear(src / np.float32(255.0)).astype(np.float32)
+    theirs, mine = tmp_path / "cv2.avif", tmp_path / "port.avif"
+    jax_image.save_image(theirs, lin)
+    imagelib.save_image(mine, lin)
+    a, b = theirs.read_bytes(), mine.read_bytes()
+    port = avif.decode_avif(b)
+    np.testing.assert_array_equal(_cv2_read(b), port)
+    pa, pb = avif.parse_avif(a)["av1"], avif.parse_avif(b)["av1"]
+    da, db = av1.Decoder(pa), av1.Decoder(pb)
+    assert (db.tile_cols_log2, db.tile_rows_log2) == (
+        da.tile_cols_log2, da.tile_rows_log2) == (1, 0)
+    enc = av1_enc.encode_yuv420(*yuv.rgb_to_yuv420(src))
+    assert enc.obus == pb
+    for got, want in zip(av1.decode_av1(pb).planes, enc.planes):
+        np.testing.assert_array_equal(got, want)
+    psnr_a, psnr_b = _psnr(_cv2_read(a), src), _psnr(port, src)
+    assert da.base_q == db.base_q == 148
+    assert psnr_b >= psnr_a - 0.5, (psnr_b, psnr_a)
+    assert len(pb) <= 2 * len(pa), (len(pb), len(pa))
+    bars = json.loads((DATA / "avif_bars.json").read_text())[
+        chip_smoke.WIDE_AVIF]
+    assert bars["payload_bytes"] == len(pa)
+    assert (bars["tile_cols_log2"], bars["tile_rows_log2"]) == (1, 0)
+    assert abs(bars["psnr_db"] - psnr_a) < 1e-9
+    ok, what, psnr, payload = chip_smoke.avif_against_bars(
+        mine, src, chip_smoke.WIDE_AVIF)
+    assert ok, what

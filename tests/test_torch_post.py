@@ -311,9 +311,20 @@ def test_save_image_exr_read_back_by_both_readers(tmp_path):
 # test: its file's suffix and the words its refusal names
 _UNPORTED_VARIANT = {
     ".jpg": (".jpg", "arithmetic"),
-    ".bmp": (".tif", "BigTIFF"),
+    ".bmp": (".tif", "compression 4"),
     ".tga": (".tga", "image type 1"),
 }
+
+
+def _group4_tiff() -> bytes:
+    """Pillow's CCITT Group 4 TIFF of a small bilevel image."""
+    import io
+
+    from PIL import Image
+    bio = io.BytesIO()
+    Image.fromarray(np.eye(8, dtype=bool)).save(bio, "TIFF",
+                                                compression="group4")
+    return bio.getvalue()
 
 
 @pytest.mark.parametrize("suffix", [".jpg", ".bmp", ".tga"])
@@ -323,10 +334,11 @@ def test_unported_formats_raise(tmp_path, suffix):
     and load_image reads it back, BMP and TGA exactly, JPEG (baseline
     4:2:0, quality 95) within 0.5 dB PSNR of the JAX writer's (OpenCV's)
     file of the same image. Only a variant the port does not decode still
-    raises NotImplementedError: an arithmetic-coded (SOF9) JPEG, a
-    BigTIFF, a colour-mapped TGA (progressive JPEGs, 8-bit palette BMPs,
-    WebP and AVIF files, the refused variants here once, are read now:
-    tests/test_torch_image.py, tests/test_torch_avif.py)."""
+    raises NotImplementedError: an arithmetic-coded (SOF9) JPEG, a CCITT
+    Group 4 TIFF, a colour-mapped TGA (progressive JPEGs, 8-bit palette
+    BMPs, WebP and AVIF files and BigTIFFs, the refused variants here
+    once, are read now: tests/test_torch_image.py,
+    tests/test_torch_avif.py)."""
     import cv2
     from ignis_tpu.utils import image as jax_image
     img = _ldr_image()
@@ -353,7 +365,7 @@ def test_unported_formats_raise(tmp_path, suffix):
             jax_image.save_image(str(tmp_path / "j.bmp"), img)
             np.testing.assert_array_equal(
                 imagelib.read_ldr(tmp_path / "j.bmp"), got)
-            data = b"II+\0\x08\0\0\0" + bytes(32)        # BigTIFF
+            data = _group4_tiff()
         else:
             data[2] = 1                            # colour-mapped
         variant = bytes(data)

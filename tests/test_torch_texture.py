@@ -291,9 +291,9 @@ def test_other_formats_raise(tmp_path, jax_image):
     """A JPEG texture, which this test once held to NotImplementedError,
     loads as the JAX loader loads it (within 1/255 before the sRGB
     decode), and an AVIF one, once refused here too, as cv2 reads it; a
-    truncated JPEG, a format the port does not read (BigTIFF, once here a
-    WebP and an AVIF, which the port reads now) and bytes that neither
-    package reads raise."""
+    truncated JPEG, a format the port does not read (a CCITT Group 4 TIFF,
+    once here a WebP, an AVIF and a BigTIFF, which the port reads now)
+    and bytes that neither package reads raise."""
     import cv2
     from ignis_tpu_torch.utils.image import load_image
     rgb = np.random.RandomState(2).randint(0, 256, (16, 24, 3)).astype(
@@ -312,7 +312,13 @@ def test_other_formats_raise(tmp_path, jax_image):
     np.testing.assert_array_equal(load_image(tmp_path / "x.avif",
                                              linear=True),
                                   want.astype(np.float32) / np.float32(255))
-    (tmp_path / "x.tif").write_bytes(b"II+\0\x08\0\0\0" + bytes(32))
+    import io
+
+    from PIL import Image
+    bio = io.BytesIO()
+    Image.fromarray(rgb[..., 0] > 128).save(bio, "TIFF",
+                                            compression="group4")
+    (tmp_path / "x.tif").write_bytes(bio.getvalue())
     with pytest.raises(NotImplementedError, match="not ported"):
         load_image(tmp_path / "x.tif")
     (tmp_path / "x.webp").write_bytes(b"not an image")
