@@ -4930,6 +4930,75 @@ def texture_scene(size=128, files=None, extra=()):
                         "radiance": [0.3, 0.3, 0.3]}]}
 
 
+# the 256 x 128 substitute environment map as cv2 writes it in SGI LogLuv
+# (scripts/make_image_fixtures.py): the HDR maps phase 16 lights with
+LOGLUV_ENVS = ("env_sgilog_256x128.tif", "env_sgilog24_256x128.tif")
+
+
+def logluv_env_scene(env_file, size=64):
+    """A diffuse ball on a floor lit by one environment map alone: an env
+    light whose radiance is the image `env_file` (scaled down, its sun
+    near 2e4), path at depth 3."""
+    return {"technique": {"type": "path", "max_depth": 3},
+            "camera": {"type": "perspective", "fov": 50,
+                       "transform": [1, 0, 0, 0, 0, 1, 0, 0.2, 0, 0, 1, -3]},
+            "film": {"size": [size, size]},
+            "textures": [{"type": "image", "name": "env",
+                          "filename": str(env_file)}],
+            "bsdfs": [{"type": "diffuse", "name": "grey",
+                       "reflectance": [0.6, 0.6, 0.6]}],
+            "shapes": [{"type": "icosphere", "name": "ball", "radius": 0.6,
+                        "subdivisions": 2},
+                       {"type": "rectangle", "name": "floor", "width": 6,
+                        "height": 6}],
+            "entities": [{"name": "ball", "shape": "ball", "bsdf": "grey"},
+                         {"name": "floor", "shape": "floor", "bsdf": "grey",
+                          "transform": [{"translate": [0, -0.6, 0]},
+                                        {"rotate": [-90, 0, 0]}]}],
+            "lights": [{"type": "env", "name": "sky", "radiance": "env",
+                        "scale": [0.01, 0.01, 0.01]}]}
+
+
+def logluv_env_step(device, out_dir, size=64):
+    """Each LogLuv environment map (LOGLUV_ENVS) decoded on the host and
+    timed, then logluv_env_scene loaded on `device` (where the env light
+    builds its CDF) and one step rendered, the first a captured one on
+    the card; its film held bit-equal to that of the same scene lit by an
+    EXR of the radiance load_image gives."""
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch.utils.image import (decode_samples, load_image,
+                                             save_image)
+    maps = {}
+    for name in LOGLUV_ENVS:
+        t0 = time.perf_counter()
+        px = decode_samples(IMAGE_FIXTURES / name)
+        decode_s = time.perf_counter() - t0
+        twin = Path(out_dir) / f"{name}.exr"
+        save_image(twin, load_image(IMAGE_FIXTURES / name))
+        films, used = [], None
+        for env in (IMAGE_FIXTURES / name, twin):
+            rt = ignis_tpu_torch.loadFromString(json.dumps(logluv_env_scene(
+                env, size)), device=device, spi=SPI)
+            reset_all_counts()
+            t0 = time.perf_counter()
+            rt.step()
+            if rt.scene.device.type == "cuda":
+                torch.cuda.synchronize()
+            step_s = time.perf_counter() - t0
+            used = used or launches()
+            films.append(rt.framebuffer(normalized=True))
+        film = films[0]
+        maps[name] = {
+            "decode_s": decode_s, "max": float(px.max()),
+            "device": str(rt.scene.device), "captured": bool(rt.captured),
+            "twin_step_s": step_s, "launches": used,
+            "film_mean": float(film.mean()),
+            "finite": bool(torch.isfinite(film).all()),
+            "bit_equal": bool(torch.equal(film, films[1]))}
+    return {"maps": maps}
+
+
 def writers_round_trip(src, out_dir, jp2_src=None):
     """save_image of the linear image whose 8-bit sRGB encoding is `src`
     (uint8 [h, w, 3], cv2_lossless.webp's pixels) under every writer
@@ -5216,6 +5285,17 @@ def phase_textures(device, build_dir=None, s1=None):
     twin.step()
     check(torch.equal(film, twin.framebuffer(normalized=True)),
           "texture scene: film bit-equal to its PNG/EXR twin's")
+    env = logluv_env_step(device, build_dir)
+    for name, row in env["maps"].items():
+        check(row["device"].startswith("cuda") and row["captured"]
+              and row["finite"] and row["film_mean"] > 0
+              and row["bit_equal"] and sum(row["launches"].values()) > 0,
+              f"{name}: the scene it lights alone rendered by one captured "
+              f"step on {row['device']}, film mean {row['film_mean']:.4g} > "
+              f"0, bit-equal to its EXR twin's, launches {row['launches']}")
+        print(f"  LogLuv environment map on the card's host: {name} "
+              f"decoded in {row['decode_s']:.4f} s (max radiance "
+              f"{row['max']:.6g})")
     print(f"  fixtures decoded {decoded}; writers {writers}; texture "
           f"scene loaded in {load_s:.2f} s, first (capturing) step "
           f"{first['seconds']:.2f} s, film mean {mean:.4f}, launches "
@@ -5226,7 +5306,7 @@ def phase_textures(device, build_dir=None, s1=None):
             "s1_film_avif": film_avif,
             "load_seconds": load_s,
             "first_step": first, "film_mean": mean, "launches": used,
-            "twin_bit_equal": True}
+            "twin_bit_equal": True, "logluv_env": env}
 
 
 def main() -> int:

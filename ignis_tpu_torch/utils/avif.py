@@ -18,8 +18,11 @@ Every colour matrix libavif converts for cv2 is read (utils/yuv.py:
 BT.709, BT.601, FCC, SMPTE 240, YCgCo, BT.2020, chroma-derived from the
 primaries, the identity, and the matrices without a table of their own);
 the colour description is the nclx box's, else the AV1 sequence
-header's. An image sequence without a primary item, a grid (derived)
-primary item, and the AV1 tools of utils/av1.py's list raise
+header's. A grid primary item (`grid`: its ImageGrid in `idat` or
+`mdat`, 16- or 32-bit sizes, `dimg` tiles) is its tiles' planes laid out
+and cut to the grid's size before the colour conversion, as libavif does.
+An image sequence without a primary item, another derived primary item
+(`iovl`, `tmap`), and the AV1 tools of utils/av1.py's list raise
 NotImplementedError naming them, as no writer here makes them. A file cv2
 reads nothing from (a damaged one, a grey image with an alpha item, which
 cv2 refuses as two channels, or a colour matrix libavif converts nothing
@@ -144,6 +147,9 @@ def _parse_meta(data, meta):
                         n = 2 if v < 1 else 4
                         item = _uint(data, q, n)
                         q += n
+                        if out["assoc"] and item <= max(out["assoc"]):
+                            raise IOError("AVIF: ipma item IDs do not rise "
+                                          "(libavif refuses the file)")
                         cnt = data[q]
                         q += 1
                         idx = []
@@ -188,10 +194,47 @@ def _is_alpha(data, meta, item):
     return False
 
 
+def _av1_item(data, m, item) -> bytes:
+    """An av01 item's data behind its av1C configuration OBUs."""
+    av1 = _item_data(data, m, item)
+    for idx in m["assoc"].get(item, []):
+        if 1 <= idx <= len(m["props"]):
+            prop = m["props"][idx - 1]
+            if prop.type == "av1C":
+                av1 = data[prop.body + 4:prop.end] + av1
+    return av1
+
+
+def _nclx(data, m, item):
+    """An item's colr nclx as (primaries, transfer, matrix, full range),
+    or None."""
+    for idx in m["assoc"].get(item, []):
+        if 1 <= idx <= len(m["props"]):
+            prop = m["props"][idx - 1]
+            b = prop.body
+            if prop.type == "colr" and data[b:b + 4] == b"nclx":
+                cp, tc, mc = struct.unpack_from(">HHH", data, b + 4)
+                return cp, tc, mc, data[b + 10] >> 7
+    return None
+
+
+def _image_grid(body: bytes):
+    """HEIF's ImageGrid: (rows, columns, output width, output height),
+    its sizes 16-bit, or 32-bit under flags bit 0."""
+    if len(body) < 8 or body[0] != 0:
+        raise IOError("AVIF: bad ImageGrid")
+    fmt = ">II" if body[1] & 1 else ">HH"
+    if len(body) < 4 + struct.calcsize(fmt):
+        raise IOError("AVIF: truncated ImageGrid")
+    return (body[2] + 1, body[3] + 1) + struct.unpack_from(fmt, body, 4)
+
+
 def parse_avif(data: bytes) -> dict:
     """The primary image's AV1 data (its av1C configuration OBUs first)
     and properties: {'av1': bytes, 'nclx': (primaries, transfer, matrix,
-    full range) or None, 'alpha': whether an alpha item refers to it}."""
+    full range) or None, 'alpha': whether an alpha item refers to it}; of
+    a grid primary item 'grid' (rows, columns, output width and height)
+    and 'tiles', each tile's AV1 data, in its `dimg` order, for 'av1'."""
     top = list(_boxes(data, 0, len(data)))
     if not top or top[0].type != "ftyp":
         raise IOError("AVIF: no ftyp box")
@@ -201,26 +244,32 @@ def parse_avif(data: bytes) -> dict:
     if meta is not None:
         m = _parse_meta(data, meta)
         item = m["pitm"]
-        if item is not None and m["items"].get(item) == "av01":
-            out["av1"] = _item_data(data, m, item)
-            out["alpha"] = any(kind == "auxl" and item in to and
+        kind = m["items"].get(item)
+        if kind in ("av01", "grid"):
+            out["alpha"] = any(ref == "auxl" and item in to and
                                _is_alpha(data, m, frm)
-                               for kind, frm, to in m["refs"])
-            for idx in m["assoc"].get(item, []):
-                if not 1 <= idx <= len(m["props"]):
-                    continue
-                prop = m["props"][idx - 1]
-                b = prop.body
-                if prop.type == "av1C":
-                    out["av1"] = data[b + 4:prop.end] + out["av1"]
-                elif prop.type == "colr" and data[b:b + 4] == b"nclx":
-                    cp, tc, mc = struct.unpack_from(">HHH", data, b + 4)
-                    out["nclx"] = (cp, tc, mc, data[b + 10] >> 7)
+                               for ref, frm, to in m["refs"])
+            out["nclx"] = _nclx(data, m, item)
+        if kind == "av01":
+            out["av1"] = _av1_item(data, m, item)
             return out
-        if item is not None and m["items"].get(item) is not None:
+        if kind == "grid":
+            out["grid"] = _image_grid(_item_data(data, m, item))
+            tiles = next((to for ref, frm, to in m["refs"]
+                          if ref == "dimg" and frm == item), [])
+            rows, cols = out["grid"][:2]
+            if len(tiles) != rows * cols or any(
+                    m["items"].get(t) != "av01" for t in tiles):
+                raise IOError(f"AVIF: a {rows} x {cols} grid of "
+                              f"{len(tiles)} tiles, or tiles not AV1")
+            out["tiles"] = [_av1_item(data, m, t) for t in tiles]
+            if out["nclx"] is None:
+                out["nclx"] = _nclx(data, m, tiles[0])
+            return out
+        if kind is not None:
             raise NotImplementedError(
-                f"AVIF: primary item of type '{m['items'][item]}' (a grid "
-                "or derived image) is not ported")
+                f"AVIF: primary item of type '{kind}' (a derived image) is "
+                "not ported")
     if moov is not None:
         raise NotImplementedError(
             "AVIF: an image sequence without a primary item is not ported: "
@@ -240,7 +289,8 @@ def decode_avif_depth(data: bytes, name: str = ""):
     """(decode_avif's samples, the image's bit depth)."""
     from .av1 import decode_av1
     info = parse_avif(data)
-    frame = decode_av1(info["av1"], name)
+    frame = (_grid_frame(info, name) if "grid" in info
+             else decode_av1(info["av1"], name))
     nclx = info["nclx"]
     if nclx is None:
         nclx = (frame.color_primaries, frame.transfer, frame.matrix,
@@ -256,6 +306,40 @@ def decode_avif_depth(data: bytes, name: str = ""):
     from .yuv import yuv_to_rgb
     return yuv_to_rgb(frame.planes, frame.bit_depth, frame.ss_x,
                       frame.ss_y, nclx[2], nclx[3], nclx[0]), frame.bit_depth
+
+
+def _grid_frame(info, name):
+    """The decoded frame of a grid: its tiles decoded and their planes
+    laid side by side, row by row, then cut to the output size, as
+    libavif lays them out before it converts the whole to RGB. libavif's
+    rules (MIAF 7.3.11.4.2): tiles of one size and format, at least 64
+    pixels a side, even where chroma is subsampled, as many as the output
+    needs and no more, the output even where subsampled."""
+    from .av1 import decode_av1
+    rows, cols, ow, oh = info["grid"]
+    tiles = [decode_av1(t, name) for t in info["tiles"]]
+    first = tiles[0]
+    th, tw = first.planes[0].shape
+    fmt = (first.bit_depth, first.mono, first.ss_x, first.ss_y)
+    if any((t.bit_depth, t.mono, t.ss_x, t.ss_y) != fmt
+           or t.planes[0].shape != (th, tw) for t in tiles) \
+            or tw < 64 or th < 64 or not (cols - 1) * tw < ow <= cols * tw \
+            or not (rows - 1) * th < oh <= rows * th \
+            or first.ss_x and (tw % 2 or ow % 2) \
+            or first.ss_y and (th % 2 or oh % 2):
+        raise IOError(f"Cannot load image {name}: a {rows} x {cols} AVIF "
+                      f"grid of {tw} x {th} tiles to {ow} x {oh}, which "
+                      "libavif refuses")
+    planes = []
+    for p in range(len(first.planes)):
+        sx, sy = (first.ss_x, first.ss_y) if p else (0, 0)
+        whole = np.concatenate([np.concatenate(
+            [t.planes[p] for t in tiles[r * cols:(r + 1) * cols]], 1)
+            for r in range(rows)], 0)
+        planes.append(np.ascontiguousarray(
+            whole[:(oh + sy) >> sy, :(ow + sx) >> sx]))
+    first.planes = planes
+    return first
 
 
 def _box(kind: bytes, body: bytes) -> bytes:
@@ -315,9 +399,21 @@ def coding_tools(data: bytes) -> list:
     """The AV1 coding tools a file switches on, read from its headers and
     the mode info of its blocks: the evidence of the fixtures' tool table
     (scripts/make_image_fixtures.py, tests/test_torch_avif.py)."""
-    from .av1 import TXH, TXW, UV_CFL, Decoder
     info = parse_avif(data)
-    d = Decoder(info["av1"])
+    if "grid" in info:          # a grid's tiles' tools, and 'grid'
+        tools = set().union(*(_item_tools(t, info["alpha"])
+                              for t in info["tiles"])) | {"grid"}
+    else:
+        tools = _item_tools(info["av1"], info["alpha"])
+    if data[8:12] == b"avis":
+        tools.add("avis")
+    return sorted(tools)
+
+
+def _item_tools(av1: bytes, alpha: bool) -> set:
+    """coding_tools of one AV1 item, as a set."""
+    from .av1 import TXH, TXW, UV_CFL, Decoder
+    d = Decoder(av1)
     s = d.seq
     fmt = "4:0:0" if s["mono"] else {(1, 1): "4:2:0", (1, 0): "4:2:2",
                                       (0, 0): "4:4:4"}[(s["ssx"], s["ssy"])]
@@ -336,7 +432,7 @@ def coding_tools(data: bytes) -> list:
              "uv_delta_q": any(d.dq[1] + d.dq[2]),
              "reduced_still_picture_header": s["reduced"],
              "disable_cdf_update": d.disable_cdf_update,
-             "alpha": info["alpha"]}
+             "alpha": alpha}
     tools |= {k for k, v in flags.items() if v}
     for p, t in enumerate(d.lr_type):
         if t:
@@ -360,6 +456,4 @@ def coding_tools(data: bytes) -> list:
     for r in d.records:
         if max(TXW[r[3]], TXH[r[3]]) == 64 and r[11] is not None:
             tools.add("tx64")
-    if data[8:12] == b"avis":
-        tools.add("avis")
-    return sorted(tools)
+    return tools

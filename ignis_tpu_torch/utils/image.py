@@ -300,20 +300,23 @@ def _rgb8(rgb) -> np.ndarray:
 def _channel(word, mask: int, bpp: int) -> np.ndarray:
     """A BMP bit-field channel expanded to 8 bits as OpenCV expands it: a
     16-bit file's field shifted up into the high bits (its 5-5-5 and 5-6-5
-    conversions), a 32-bit file's scaled by 255 / (2^width - 1) and
-    truncated."""
+    conversions), a 32-bit file's masked bits (contiguous or not) shifted
+    down to the mask's lowest and scaled in float32 by 255 / (mask >>
+    shift), truncated. A 16-bit mask with gaps, which OpenCV refuses,
+    raises IOError."""
     if mask == 0:
         return np.zeros(word.shape, np.uint8)
     shift = (mask & -mask).bit_length() - 1
-    width = (mask >> shift).bit_length()
-    if mask >> shift != (1 << width) - 1:
-        raise NotImplementedError(f"BMP: channel mask {mask:#x} is not "
-                                  "contiguous")
-    v = (word >> shift) & ((1 << width) - 1)
+    top = mask >> shift
     if bpp == 32:
-        v = v * 255 // ((1 << width) - 1)
-    else:
-        v = v << (8 - width) if width <= 8 else v >> (width - 8)
+        scale = np.float32(255.0) / np.float32(top)
+        v = ((word & mask) >> shift).astype(np.float32) * scale
+        return v.astype(np.int64).astype(np.uint8)
+    width = top.bit_length()
+    if top != (1 << width) - 1:
+        raise IOError(f"BMP: OpenCV reads no 16-bit channel mask {mask:#x}")
+    v = (word >> shift) & top
+    v = v << (8 - width) if width <= 8 else v >> (width - 8)
     return v.astype(np.uint8)
 
 
@@ -383,8 +386,8 @@ def decode_bmp(data: bytes) -> np.ndarray:
     rle = {(1, 8): False, (2, 4): True}.get((comp, bpp))
     if not (comp == 0 and bpp in (1, 4, 8, 16, 24, 32)
             or comp == 3 and bpp in (16, 32) or rle is not None):
-        raise NotImplementedError(
-            f"BMP: {bpp} bits, compression {comp} is not ported")
+        raise IOError(f"BMP: OpenCV reads no {bpp}-bit file of "
+                      f"compression {comp}")
     if bpp <= 8:
         n = colors or 1 << bpp
         entry = 3 if os2 else 4
@@ -411,12 +414,12 @@ def decode_bmp(data: bytes) -> np.ndarray:
         rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(
             h, stride)
         px = rows[:, :w * bpp // 8].reshape(h, w, bpp // 8)
-        if bpp == 24 or bpp == 32 and comp == 0:
-            rgb = px[..., 2::-1]
+        masks = (struct.unpack("<III", data[54:66]) if comp == 3
+                 else (0x7C00, 0x3E0, 0x1F))
+        if bpp == 24 or bpp == 32 and (comp == 0 or 0 in masks):
+            rgb = px[..., 2::-1]       # OpenCV reads BGRx without a mask
         else:
             word = (px.view("<u2") if bpp == 16 else px.view("<u4"))[..., 0]
-            masks = (struct.unpack("<III", data[54:66]) if comp == 3
-                     else (0x7C00, 0x3E0, 0x1F))
             rgb = np.stack([_channel(word.astype(np.int64), m, bpp)
                             for m in masks], -1)
     rgb = rgb if top_down else rgb[::-1]
@@ -545,9 +548,10 @@ def decode_pam(data: bytes) -> np.ndarray:
     GRAYSCALE, GRAYSCALE_ALPHA, RGB, RGB_ALPHA; without one, a depth of 1
     below maxval 256 or of 3 below 256), comments. Samples are as stored
     (uint8, or big-endian uint16 above maxval 255), their first three
-    taken in OpenCV's BGR order; at maxval 1 a grey row's bytes are read
-    as bits, most significant first, 1 as 255, as OpenCV reads them.
-    Grey is replicated and alpha dropped. A header or a file OpenCV
+    taken in OpenCV's BGR order; at maxval 1 (of one or three samples) a
+    row's bytes are read as bits, most significant first, its first w
+    bits the pixels' grey, 1 as 255, as OpenCV reads them. Grey is
+    replicated and alpha dropped. A header or a file OpenCV
     refuses raises IOError."""
     if len(data) < 3 or data[:2] != b"P7" or data[2] not in b"\r\n":
         raise IOError("not a PAM file")
@@ -577,17 +581,15 @@ def decode_pam(data: bytes) -> np.ndarray:
                       f"{maxval}")
     if tupl is not None and _PAM_TUPLES[tupl] != depth:
         raise IOError(f"PAM: TUPLTYPE {tupl.decode()} at depth {depth}")
-    if maxval == 1 and depth > 1:
-        if depth == 2:
-            raise IOError("PAM: OpenCV reads no 2 samples of maxval 1")
-        raise NotImplementedError(f"PAM: depth {depth} at maxval 1 is not "
-                                  "ported")
+    if maxval == 1 and depth in (2, 4):
+        raise IOError(f"PAM: OpenCV reads no {depth} samples of maxval 1")
     size = 2 if maxval > 255 else 1
     stride = w * depth * size
     if len(data) < pos + stride * h:
         raise IOError("PAM: truncated pixel data")
-    if maxval == 1:                            # bits of each row's bytes
-        rows = np.frombuffer(data, np.uint8, stride * h, pos).reshape(h, w)
+    if maxval == 1:            # the first w bits of each row's bytes
+        rows = np.frombuffer(data, np.uint8, stride * h, pos).reshape(
+            h, stride)
         bits = np.unpackbits(rows, axis=1)[:, :w]
         return np.ascontiguousarray(np.repeat((bits * 255)[..., None], 3,
                                               -1))
@@ -636,8 +638,8 @@ def decode_sun_raster(data: bytes) -> np.ndarray:
     _, w, h, depth, _, kind, maptype, maplen = struct.unpack(">8I",
                                                              data[:32])
     if depth not in (1, 8, 24, 32) or kind > 3 or maptype > 1:
-        raise NotImplementedError(f"Sun raster: depth {depth}, type {kind}, "
-                                  f"map type {maptype} is not ported")
+        raise IOError(f"Sun raster: OpenCV reads no depth {depth}, type "
+                      f"{kind}, map type {maptype}")
     pos = 32 + maplen
     cmap = None
     if maptype == 1 and maplen:
@@ -694,9 +696,10 @@ def decode_tga(data: bytes) -> np.ndarray:
     (id_len, cmap_type, kind, _, cmap_len, cmap_bits, _, _, w, h, bpp,
      desc) = struct.unpack("<BBBHHBHHHHBB", data[:18])
     if kind not in (2, 10) or bpp not in (24, 32):
-        raise NotImplementedError(
-            f"TGA: image type {kind}, {bpp} bits is not ported (truecolour "
-            "24 or 32 bits, raw or run-length encoded)")
+        # OpenCV has no TGA codec: ignis_tpu reads no TGA at all
+        raise IOError(f"TGA: image type {kind}, {bpp} bits is not read "
+                      "(truecolour 24 or 32 bits, raw or run-length "
+                      "encoded)")
     pos = 18 + id_len + (cmap_len * ((cmap_bits + 7) // 8) if cmap_type
                          else 0)
     bp = bpp // 8
@@ -841,12 +844,13 @@ def decode_hdr(data: bytes) -> np.ndarray:
         raise ValueError("not a Radiance HDR file")
     pos = data.index(b"\n\n") + 2
     end = data.index(b"\n", pos)
-    dims = data[pos:end].split()
+    line = data[pos:end]
+    dims = line.split()
     pos = end + 1
     if len(dims) != 4 or dims[0] != b"-Y" or dims[2] != b"+X":
-        raise NotImplementedError(
-            f"HDR orientation {data[pos:end]!r} is not ported (only -Y h "
-            "+X w)")
+        # OpenCV's rgbe.c reads only the standard orientation
+        raise IOError(f"HDR: OpenCV reads no resolution line {line!r} "
+                      "(only -Y h +X w)")
     h, w = int(dims[1]), int(dims[3])
     rgbe = np.empty((h, w, 4), np.uint8)
     for y in range(h):
@@ -951,7 +955,7 @@ def decode_png(data: bytes) -> np.ndarray:
     if ch is None or depth not in (1, 2, 4, 8, 16) or interlace > 1 or (
             ch > 1 and depth < 8 and color != 3) or (
             color == 3 and (depth > 8 or plte is None)):
-        raise NotImplementedError(
+        raise IOError(
             f"PNG colour type {color} at {depth} bits, interlace "
             f"{interlace} is not a valid PNG")
     raw = zlib.decompress(b"".join(idat))

@@ -12,13 +12,20 @@ libjpeg(-turbo), which OpenCV reads through, lands, each step is libjpeg's:
 Huffman decoding and dequantisation, the `jidctint` integer inverse DCT
 (CONST_BITS 13, PASS1_BITS 2), the "fancy" triangular h2v1, h1v2 and h2v2
 chroma upsampling of `jdsample` (the edge samples replicated), and the
-integer YCbCr->RGB tables of `jdcolor`. Arithmetic-coded, lossless and
-hierarchical files, 12-bit samples, YCCK, and four components without an
-Adobe marker raise NotImplementedError. Three components are YCbCr or,
+integer YCbCr->RGB tables of `jdcolor`. Arithmetic-coded sequential and
+progressive files (SOF9, SOF10) decode through utils/jpeg_arith.py into
+the same coefficients; lossless ones (SOF3, 8 bits: the seven
+predictors, point transform, restarts) as libjpeg-turbo's jdlossls.c,
+their three components untransformed. Three components are YCbCr or,
 as libjpeg guesses (no JFIF marker and Adobe transform 0, or component
-ids 'R', 'G', 'B'), untransformed RGB; four components with Adobe
-transform 0 are Adobe's inverted CMYK, converted to RGB as OpenCV converts
-libjpeg's CMYK (R = K - (255 - C) * K / 256, truncated, and likewise).
+ids 'R', 'G', 'B'), untransformed RGB; four components (Adobe transform
+0, or no Adobe marker) are Adobe's inverted CMYK, converted to RGB as
+OpenCV converts libjpeg's CMYK (R = K - (255 - C) * K / 256, truncated,
+and likewise), and YCCK (transform 2) is libjpeg's YCbCr to inverted
+CMYK first. What libjpeg-turbo reads nothing of for OpenCV (12- and
+16-bit frames, hierarchical ones, lossless YCbCr) raises IOError; a
+lossless arithmetic-coded frame (SOF11), which no writer here makes,
+NotImplementedError.
 
 The encoder writes baseline JFIF at 4:2:0 (colour) with the Annex K
 quantisation tables scaled to a quality as libjpeg scales them (95 by
@@ -163,6 +170,94 @@ def _decode_scan(data, pos, comps, scan, frame, dc_luts, ac_luts,
     if mcu < n_mcu:
         raise ValueError("JPEG: scan ends before its last MCU")
     return end
+
+
+def _decode_lossless_scan(data, pos, comps, scan, frame, dc_luts, restart,
+                          spectral):
+    """Decode one lossless Huffman scan (T.81 H.1, as libjpeg-turbo's
+    jdlhuff.c and jdpred.c) into comps' sample planes: each sample's
+    difference (DC-style categories; 16 is 32768 with no bits) added to
+    the prediction of its predictor Ss (1 Ra, 2 Rb, 3 Rc, 4 Ra + Rb - Rc,
+    5 Ra + (Rb - Rc) / 2, 6 Rb + (Ra - Rc) / 2, 7 (Ra + Rb) / 2) modulo
+    2^16. The first row of the scan and of each restart interval (a whole
+    number of MCU rows, as libjpeg-turbo requires) predicts from the left,
+    its first sample from 2^(P - Pt - 1); a row's first sample from above.
+    The result is shifted up by the point transform Pt (Al)."""
+    predictor, _, _, pt = spectral
+    if not 1 <= predictor <= 7:
+        raise IOError(f"JPEG: lossless predictor {predictor}")
+    segs, end = _segments(data, pos)
+    if len(scan) == 1:
+        c = comps[scan[0][0]]
+        rows, cols, units = c["brows"], c["bcols"], [(c, 1, 1)]
+    else:
+        rows = -(-frame["height"] // frame["vmax"])
+        cols = -(-frame["width"] // frame["hmax"])
+        units = [(comps[ci], comps[ci]["h"], comps[ci]["v"])
+                 for ci, _, _ in scan]
+    if restart and restart % cols:
+        raise IOError("JPEG: OpenCV reads no lossless file whose restart "
+                      "interval is no whole number of MCU rows")
+    luts = [dc_luts[td] for _, td, _ in scan]
+    n_mcu = rows * cols
+    per = restart or n_mcu
+    diffs = [np.zeros((rows * vv, cols * hh), np.int64) for _, hh, vv in units]
+    mcu = 0
+    for seg in segs:
+        if mcu >= n_mcu:
+            break
+        bits = _Bits(seg)
+        for _ in range(min(per, n_mcu - mcu)):
+            my, mx = divmod(mcu, cols)
+            for u, (_, hh, vv) in enumerate(units):
+                for by in range(vv):
+                    for bx in range(hh):
+                        s = bits.decode(luts[u])
+                        diffs[u][my * vv + by, mx * hh + bx] = (
+                            32768 if s == 16 else bits.receive_extend(s))
+            mcu += 1
+    if mcu < n_mcu:
+        raise ValueError("JPEG: scan ends before its last MCU")
+    first_rows = set(range(0, rows, (restart or n_mcu) // cols or rows))
+    for (c, hh, vv), diff in zip(units, diffs):
+        out = c["coef"]
+        for y in range(diff.shape[0]):
+            d = diff[y]
+            if y // vv in first_rows and y % vv == 0:
+                row = np.cumsum(d) + (1 << (7 - pt))
+            else:
+                row = _undifference(d, out[y - 1].astype(np.int64),
+                                    predictor)
+            out[y, :len(d)] = row & 0xFFFF
+    for c, _, _ in units:
+        c["coef"] = (c["coef"] << pt) & 0xFF
+    return end
+
+
+def _undifference(d, above, predictor):
+    """One row of lossless samples (before the modulo) from its
+    differences and the row above, under predictor 1-7."""
+    if predictor == 2:
+        return above + d
+    out = np.empty_like(d)
+    out[0] = above[0] + d[0]
+    if predictor == 1:
+        return np.cumsum(np.concatenate([out[:1], d[1:]]))
+    if predictor == 3:
+        out[1:] = above[:-1] + d[1:]
+        return out
+    if predictor in (4, 5):
+        step = above[1:] - above[:-1]
+        if predictor == 5:
+            step = step >> 1
+        return np.cumsum(np.concatenate([out[:1], step + d[1:]]))
+    ra = int(out[0]) & 0xFFFF
+    for x in range(1, len(d)):
+        rb, rc = int(above[x]), int(above[x - 1])
+        pred = rb + ((ra - rc) >> 1) if predictor == 6 else (ra + rb) >> 1
+        ra = (pred + int(d[x])) & 0xFFFF
+        out[x] = ra
+    return out
 
 
 def _scan_units(comps, scan, frame):
@@ -441,12 +536,21 @@ def decode_jpeg(data: bytes, colour: str | None = None) -> np.ndarray:
     """A JPEG as uint8 [h, w, 3] RGB (grey replicated, CMYK converted).
     Three components are YCbCr or RGB as libjpeg guesses, or as `colour`
     says ('ycc' or 'rgb': a TIFF's photometric interpretation)."""
+    return _reconstruct(parse_jpeg(data), colour)
+
+
+def parse_jpeg(data: bytes) -> dict:
+    """A JPEG's markers and entropy-coded scans, decoded: 'comps' (id ->
+    component: sampling, table, 'coef' [rows, cols, 64] quantised
+    coefficients in natural order, or a lossless file's [rows, cols]
+    samples), 'frame', 'quant', 'lossless', 'adobe', 'jfif'."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     pos, n = 2, len(data)
     quant, dc_luts, ac_luts = {}, {}, {}
     frame, comps, restart, adobe, scanned = None, None, 0, None, False
-    progressive = jfif = False
+    progressive = arith = lossless = jfif = False
+    cond = {}                  # DAC: table class and number -> value
     while True:
         if pos + 1 >= n:
             if scanned:           # no EOI marker after the last scan
@@ -496,24 +600,20 @@ def decode_jpeg(data: bytes, colour: str | None = None) -> np.ndarray:
             adobe = body[11] if len(body) > 11 else None
         elif m == 0xE0 and body[:5] == b"JFIF\0":
             jfif = True
-        elif m in (0xC0, 0xC1, 0xC2):          # baseline, extended,
-            progressive = m == 0xC2            # progressive
+        elif m in (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA):
+            # baseline, extended, progressive and lossless Huffman;
+            # extended and progressive arithmetic
+            progressive = m in (0xC2, 0xCA)
+            arith, lossless = m in (0xC9, 0xCA), m == 0xC3
             prec, h, w, nc = struct.unpack(">BHHB", body[:6])
             if prec != 8:
-                raise NotImplementedError(
-                    f"JPEG: {prec}-bit samples are not ported")
-            if nc == 4 and adobe is None:
-                raise NotImplementedError(
-                    "JPEG: 4 components without an Adobe marker are not "
-                    "ported")
-            if nc == 4 and adobe != 0:
-                raise NotImplementedError(
-                    f"JPEG: YCCK colour (Adobe transform {adobe}, 4 "
-                    "components) is not ported")
+                # libjpeg(-turbo) reads these only through its 12- and
+                # 16-bit interfaces, which OpenCV does not call
+                raise IOError(f"JPEG: OpenCV reads no {prec}-bit "
+                              f"{'lossless' if lossless else 'DCT'} file")
             if nc not in (1, 3, 4) or h == 0:
-                raise NotImplementedError(
-                    f"JPEG: {nc} components (or a DNL height) are not "
-                    "ported")
+                raise IOError(f"JPEG: OpenCV reads no file of {nc} "
+                              "components (or of a DNL height)")
             comps = {}
             for k in range(nc):
                 cid, hv, tq = body[6 + 3 * k:9 + 3 * k]
@@ -521,28 +621,43 @@ def decode_jpeg(data: bytes, colour: str | None = None) -> np.ndarray:
                               "order": k}
             hmax = max(c["h"] for c in comps.values())
             vmax = max(c["v"] for c in comps.values())
-            mrows, mcols = -(-h // (8 * vmax)), -(-w // (8 * hmax))
+            unit = 1 if lossless else 8      # a data unit's side
+            mrows, mcols = -(-h // (unit * vmax)), -(-w // (unit * hmax))
             for c in comps.values():
                 c["width"] = -(-w * c["h"] // hmax)
                 c["height"] = -(-h * c["v"] // vmax)
-                c["bcols"] = -(-c["width"] // 8)
-                c["brows"] = -(-c["height"] // 8)
-                c["coef"] = np.zeros((mrows * c["v"], mcols * c["h"], 64),
+                c["bcols"] = -(-c["width"] // unit)
+                c["brows"] = -(-c["height"] // unit)
+                c["coef"] = np.zeros((mrows * c["v"], mcols * c["h"])
+                                     + (() if lossless else (64,)),
                                      np.int32)
             frame = {"width": w, "height": h, "hmax": hmax, "vmax": vmax}
-        elif 0xC3 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
-            kind = ("arithmetic-coded" if m >= 0xC9 else
-                    "lossless" if m == 0xC3 else "hierarchical")
+        elif m == 0xCB:
             raise NotImplementedError(
-                f"JPEG: SOF{m - 0xC0} ({kind}) is not ported; baseline, "
-                "extended and progressive Huffman only")
+                "JPEG: SOF11 (lossless arithmetic-coded) is not ported")
+        elif 0xC5 <= m <= 0xCF and m not in (0xC8, 0xCC):
+            raise IOError(f"JPEG: OpenCV reads no hierarchical file "
+                          f"(SOF{m - 0xC0})")
+        elif m == 0xCC:                        # DAC
+            for i in range(0, len(body) - 1, 2):
+                cond[body[i]] = body[i + 1]
         elif m == 0xDA:                        # SOS
             if frame is None:
                 raise ValueError("JPEG: scan before the frame header")
             ns = body[0]
             scan = [(body[1 + 2 * k], body[2 + 2 * k] >> 4,
                      body[2 + 2 * k] & 15) for k in range(ns)]
-            if progressive:
+            spectral = (body[1 + 2 * ns], body[2 + 2 * ns],
+                        body[3 + 2 * ns] >> 4, body[3 + 2 * ns] & 15)
+            if lossless:
+                pos = _decode_lossless_scan(data, pos, comps, scan, frame,
+                                            dc_luts, restart, spectral)
+            elif arith:
+                from .jpeg_arith import decode_arith_scan
+                pos = decode_arith_scan(data, pos, comps, scan, frame,
+                                        restart, spectral, progressive,
+                                        cond)
+            elif progressive:
                 pos = _decode_progressive_scan(
                     data, pos, comps, scan, frame, dc_luts, ac_luts,
                     restart, (body[1 + 2 * ns], body[2 + 2 * ns],
@@ -553,26 +668,45 @@ def decode_jpeg(data: bytes, colour: str | None = None) -> np.ndarray:
             scanned = True
     if frame is None:
         raise ValueError("JPEG: no frame header")
+    return {"comps": comps, "frame": frame, "quant": quant,
+            "lossless": lossless, "adobe": adobe, "jfif": jfif}
+
+
+def _reconstruct(j: dict, colour) -> np.ndarray:
+    """uint8 [h, w, 3] RGB of parse_jpeg's result, libjpeg's way: the
+    inverse DCT, upsampling and colour conversion."""
+    comps, frame, quant = j["comps"], j["frame"], j["quant"]
+    lossless, adobe, jfif = j["lossless"], j["adobe"], j["jfif"]
     planes = []
     for c in sorted(comps.values(), key=lambda c: c["order"]):
-        if c["tq"] not in quant:
-            raise ValueError("JPEG: missing quantisation table")
-        blocks = idct_islow(c["coef"], quant[c["tq"]])
-        r, cc = blocks.shape[:2]
-        plane = blocks.transpose(0, 2, 1, 3).reshape(8 * r, 8 * cc)
-        plane = plane[:c["height"], :c["width"]]
+        if lossless:
+            plane = c["coef"][:c["height"], :c["width"]]
+        else:
+            if c["tq"] not in quant:
+                raise ValueError("JPEG: missing quantisation table")
+            blocks = idct_islow(c["coef"], quant[c["tq"]])
+            r, cc = blocks.shape[:2]
+            plane = blocks.transpose(0, 2, 1, 3).reshape(8 * r, 8 * cc)
+            plane = plane[:c["height"], :c["width"]]
         up = _upsample(plane, frame["hmax"] // c["h"],
                        frame["vmax"] // c["v"])
         planes.append(up[:frame["height"], :frame["width"]])
     if len(planes) == 1:
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, -1)
     if len(planes) == 4:
+        if adobe == 2:                  # YCCK: libjpeg's YCC to inverted
+            planes[:3] = [255 - p.astype(np.int32) for p in np.moveaxis(
+                _ycc_to_rgb(*planes[:3]), -1, 0)]
         k = planes[3]
         return np.stack([k - (((255 - c) * k) >> 8) for c in planes[:3]],
                         -1).astype(np.uint8)
     ids = tuple(cid for cid, _ in sorted(comps.items(),
                                          key=lambda kv: kv[1]["order"]))
-    rgb = not jfif and (adobe == 0 or adobe is None and ids == (82, 71, 66))
+    if lossless and (jfif or adobe):
+        # libjpeg-turbo converts no lossless YCbCr
+        raise IOError("JPEG: OpenCV reads no lossless YCbCr file")
+    rgb = lossless or not jfif and (adobe == 0 or adobe is None
+                                    and ids == (82, 71, 66))
     if colour == "rgb" or rgb and colour != "ycc":
         return np.stack(planes, -1).astype(np.uint8)
     return _ycc_to_rgb(*planes)

@@ -18,10 +18,22 @@ avif.encode_avif; cv2's TIFF of any sample type, 1, 3 or 4 channels,
 codec and predictor, Pillow's bilevel, CMYK, JPEG, signed 32-bit and
 BigTIFF files, and TIFFs encoded here of any sample type, strips or
 tiles, chunky or (8-bit) planar, classic or BigTIFF; cv2's PAM of 1, 3
-or 4 channels at 8 or 16 bits; an OS/2 BMP of 1, 4, 8 or 24 bits) and
-compare the port's decode with cv2.imdecode; where cv2 reads no AVIF (a
-grey one with alpha, a matrix libavif converts nothing of), no PAM and
-no OS/2 BMP, the port must raise IOError.
+or 4 channels at 8 or 16 bits; an OS/2 BMP of 1, 4, 8 or 24 bits; cv2's
+SGI LogLuv TIFF (SGILog or SGILog24) of random radiance or LogL of
+grey, and LogLuv TIFFs encoded here of random words, strips or tiles,
+either byte order; Pillow's CCITT TIFFs (Modified Huffman, word-aligned,
+T.4 1-D or 2-D with or without fill, T.6) of random bilevel images, in
+strips, FillOrder 1 or 2, white-is-zero or not; YCbCr TIFFs encoded here
+of any subsampling, codec, predictor, strips or tiles and
+ReferenceBlackWhite and YCbCrCoefficients; lossless JPEGs encoded here of
+any predictor, point transform, restart interval and component count;
+cv2's baseline JPEGs re-coded arithmetically, sequential or progressive,
+with restarts and DAC conditioning; AVIF grids of cv2's tiles of random
+size, count and output size) and compare the port's decode with
+cv2.imdecode (arithmetic JPEG within 1 level); where cv2 reads no AVIF (a
+grey one with alpha, a matrix libavif converts nothing of, a grid it
+refuses), no PAM, no OS/2 BMP, and none of the files of the last image
+slice, the port must raise IOError.
 For cv2's GIF writer, compare cv2's read-back of the port's `encode_gif`
 with that of cv2's own file. Needs cv2 and Pillow. Run from the
 repository's root:
@@ -46,6 +58,10 @@ from ignis_tpu_torch.utils import avif, gif, jpeg2000, webp  # noqa: E402
 from ignis_tpu_torch.utils import image as imagelib  # noqa: E402
 from ignis_tpu_torch.utils.tiff import decode_tiff  # noqa: E402
 from make_image_fixtures import os2_bmp, tiff_file, with_nclx  # noqa: E402
+from make_image_fixtures import (_pil_ccitt, arith_jpeg, avif_grid,  # noqa
+                                 logluv_tiff, lossless_jpeg, with_short_tag,
+                                 ycbcr_tiff)
+from ignis_tpu_torch.utils.jpeg import decode_jpeg  # noqa: E402
 
 FLAGS = cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH | cv2.IMREAD_ANYCOLOR
 
@@ -93,7 +109,9 @@ def one_case(rng):
     h, w = (int(v) for v in rng.integers(1, 90, 2))
     img = random_image(rng, h, w)
     bgr = np.ascontiguousarray(img[..., ::-1])
-    kind = rng.integers(0, 13)
+    kind = rng.integers(0, 19)
+    if kind >= 13:
+        return REST_CASES[kind - 13](rng, h, w, img)
     if kind == 12:
         return pam_or_os2_case(rng, h, w, img)
     if kind == 11:
@@ -360,21 +378,161 @@ def jp2_case(rng, from_cv2):
         jpeg2000.decode_jpeg2000
 
 
+# the decoders of the last image slice's cases: where cv2 reads nothing
+# of their files, the port must raise IOError
+def strict_tiff(data):
+    return decode_tiff(data)
+
+
+def strict_jpeg(data):
+    return decode_jpeg(data)
+
+
+def near_jpeg(data):
+    """decode_jpeg of an arithmetic-coded file: held within 1 level."""
+    return decode_jpeg(data)
+
+
+def strict_avif(data):
+    return avif.decode_avif(data)
+
+
+def logluv_case(rng, h, w, img):
+    """cv2's SGILog / SGILog24 of random radiance, cv2's LogL of grey, or
+    a LogLuv TIFF of random words encoded here."""
+    pick = rng.integers(0, 4)
+    if pick < 3:
+        hdr = (img.astype(np.float32) / 255 + 1e-3) * np.float32(
+            10.0 ** rng.uniform(-3, 4))
+        if pick == 2:
+            hdr = hdr[..., 1]
+        comp = 34677 if pick == 1 else 34676
+        return (f"cv2 LogLuv {comp} {'grey ' if pick == 2 else ''}{h}x{w}",
+                cv2.imencode(".tif", np.ascontiguousarray(
+                    hdr[..., ::-1] if hdr.ndim == 3 else hdr),
+                    [cv2.IMWRITE_TIFF_COMPRESSION, comp])[1].tobytes(),
+                strict_tiff)
+    bits = int(rng.choice([16, 24, 32]))
+    words = rng.integers(0, 1 << bits, (h, w), dtype=np.uint64).astype(
+        np.uint16 if bits == 16 else np.uint32)
+    if rng.random() < 0.5:
+        words[:, :w // 2] = words[:, :1]
+    tile = (16, 16) if rng.random() < 0.3 else None
+    rows = int(rng.integers(1, 9))
+    order = "<>"[int(rng.integers(0, 2))]
+    return (f"LogLuv {bits}-bit words {order} tile {tile} rows {rows} "
+            f"{h}x{w}", logluv_tiff(words, 34677 if bits == 24 else 34676,
+                                   order, tile, rows,
+                                   bool(rng.integers(0, 2))), strict_tiff)
+
+
+def ccitt_case(rng, h, w, img):
+    """Pillow's CCITT TIFF of a random bilevel image, any compression and
+    options, strips, fill order, photometric 0 or 1."""
+    comp, info = [("tiff_ccitt", {}), ("tiff_raw_16", {}), ("group3", {}),
+                  ("group3", {"t292": 1}), ("group3", {"t292": 5}),
+                  ("group4", {})][int(rng.integers(0, 6))]
+    info = dict(info, t278=int(rng.integers(1, h + 1)))
+    if rng.random() < 0.3:
+        info["t266"] = 2
+    wide = int(rng.choice([1, 1, 1, 40]))
+    bits = np.repeat(img[..., 1] > rng.integers(0, 256), wide, 1)
+    data = _pil_ccitt(bits, comp, **info)
+    photo = int(rng.integers(0, 2))
+    return (f"CCITT {comp} {info} photometric {photo} {h}x{w * wide}",
+            with_short_tag(data, 262, photo), strict_tiff)
+
+
+def ycbcr_case(rng, h, w, img):
+    """A YCbCr TIFF encoded here: any subsampling, codec, predictor,
+    strips or tiles, byte order, ReferenceBlackWhite and coefficients."""
+    hs, vs = [(1, 1), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (1, 2),
+              (2, 4)][int(rng.integers(0, 8))]
+    comp = int(rng.choice([1, 5, 8, 32773]))
+    pred = 2 if comp in (5, 8) and rng.random() < 0.5 else 1
+    tile = (16, 16) if comp != 1 and rng.random() < 0.3 else None
+    rows = None if tile else vs * int(rng.integers(1, 5))
+    tags = []
+    if rng.random() < 0.3:
+        tags.append((532, 5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240,
+                              1]))
+    if rng.random() < 0.3:
+        tags.append((529, 5, [2126, 10000, 7152, 10000, 722, 10000]))
+    return (f"YCbCr {hs}x{vs} comp {comp} pred {pred} tile {tile} rows "
+            f"{rows} {len(tags)} tags {h}x{w}",
+            ycbcr_tiff(img, hs, vs, comp, "<>"[int(rng.integers(0, 2))],
+                       tile, rows, pred, tags), strict_tiff)
+
+
+def lossless_case(rng, h, w, img):
+    """A lossless JPEG encoded here of 1 or 3 components."""
+    ch = int(rng.choice([1, 3]))
+    pred, pt = int(rng.integers(1, 8)), int(rng.choice([0, 0, 1, 4]))
+    rst = int(rng.choice([0, 0, 1, 3]))
+    return (f"lossless JPEG {ch} ch pred {pred} pt {pt} rst {rst} {h}x{w}",
+            lossless_jpeg(img[..., :ch], pred, pt, rst, None,
+                          bool(rng.integers(0, 2))), strict_jpeg)
+
+
+def arith_case(rng, h, w, img):
+    """cv2's baseline JPEG of any quality and sampling re-coded
+    arithmetically, sequential or progressive, restarts, DAC."""
+    params = [cv2.IMWRITE_JPEG_QUALITY, int(rng.integers(5, 101))]
+    if rng.random() < 0.5:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                   int(rng.choice([cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+                                   cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422]))]
+    src = img[..., 0] if rng.random() < 0.2 else img[..., ::-1]
+    base = cv2.imencode(".jpg", np.ascontiguousarray(src), params)[1]
+    prog, rst = bool(rng.integers(0, 2)), int(rng.choice([0, 0, 1, 5]))
+    dac = None
+    if rng.random() < 0.3:
+        dac = {0: int(rng.integers(0, 16)) | int(rng.integers(0, 16)) << 4,
+               16: int(rng.integers(1, 64))}
+        dac[0] = (dac[0] & 15) | max(dac[0] >> 4, dac[0] & 15) << 4
+    return (f"arithmetic JPEG {params} progressive {prog} rst {rst} dac "
+            f"{dac} {h}x{w}", arith_jpeg(base.tobytes(), prog, rst, dac),
+            near_jpeg)
+
+
+def grid_case(rng, h, w, img):
+    """An AVIF grid of cv2's tiles of 48-80 pixels, 1-3 by 1-3, cut to a
+    random size (sometimes one libavif refuses)."""
+    rows, cols = (int(v) for v in rng.integers(1, 4, 2))
+    tw, th = (int(v) for v in rng.choice([48, 64, 66, 65, 80], 2))
+    lossless = rng.random() < 0.3
+    params = [cv2.IMWRITE_AVIF_QUALITY, 100] if lossless else []
+    tiles = [cv2.imencode(".avif", np.ascontiguousarray(np.resize(
+        img, (th, tw, 3))[..., ::-1]), params)[1].tobytes()
+        for _ in range(rows * cols)]
+    ow = int(rng.integers(max((cols - 1) * tw, 1), cols * tw + 2))
+    oh = int(rng.integers(max((rows - 1) * th, 1), rows * th + 2))
+    return (f"AVIF grid {rows}x{cols} of {tw}x{th} to {ow}x{oh}",
+            avif_grid(tiles, rows, cols, ow, oh, bool(rng.integers(0, 2)),
+                      bool(rng.integers(0, 2))), strict_avif)
+
+
+REST_CASES = (logluv_case, ccitt_case, ycbcr_case, lossless_case,
+              arith_case, grid_case)
+STRICT = (strict_tiff, strict_jpeg, near_jpeg, strict_avif)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--seconds", type=float, default=60.0)
     args = ap.parse_args()
     rng = np.random.default_rng(args.seed)
-    files = bad = avifs = written = 0
+    files = bad = avifs = written = rest = 0
     end = time.perf_counter() + args.seconds
     while time.perf_counter() < end:
         label, data, other = one_case(rng)
         written += label.startswith("AVIF writer")
         want = cv2_rgb(data)
         avifs += other is avif.decode_avif
+        rest += other in STRICT
         if want is None and other in (avif.decode_avif, imagelib.decode_pam,
-                                      imagelib.decode_bmp):
+                                      imagelib.decode_bmp) + STRICT:
             files += 1
             try:       # cv2 reads nothing: neither may the port
                 other(data)
@@ -392,12 +550,17 @@ def main() -> int:
             bad += 1
             print(f"mismatch: {label}: {e!r}")
             continue
-        if got is None or got.shape != want.shape or \
-                not np.array_equal(got, want):
+        near = other is near_jpeg
+        if got is None or got.shape != want.shape or got.dtype != want.dtype \
+                and other in STRICT or not near and not np.array_equal(
+                    got, want) or near and np.abs(
+                        got.astype(np.int64) - want).max() > 1:
             bad += 1
             print(f"mismatch: {label}: pixels differ")
     print(f"{files} files ({avifs} AVIF, {written} of them from the port's "
-          f"AVIF writer), {bad} differed from cv2")
+          f"AVIF writer; {rest} of the last slice's kinds: LogLuv, CCITT, "
+          f"YCbCr, lossless and arithmetic JPEG, AVIF grids), {bad} "
+          f"differed from cv2")
     return 1 if bad else 0
 
 

@@ -56,7 +56,10 @@ MADE_FOR = {
                                                      15)},
     **{f"cv2_10bit_mc{m}.avif": "10-bit" for m in (1, 4, 7, 8, 9, 12, 15)},
     "cv2_10bit_mc12_cp9.avif": "10-bit", "pil_444_mc8.avif": "4:4:4",
-    "pil_444_mc12_cp9.avif": "4:4:4"}
+    "pil_444_mc12_cp9.avif": "4:4:4",
+    # grid primary items of cv2's 64 x 64 tiles (make_image_fixtures'
+    # avif_grid)
+    "grid_2x1.avif": "grid", "grid_2x2_crop.avif": "grid"}
 
 
 def _cv2_rgb(data: bytes):
@@ -389,13 +392,15 @@ def _without_meta():
 
 @pytest.mark.parametrize("what,data", [
     ("colour matrix", lambda: _with_matrix(1)),
-    ("image sequence without a primary item", _without_meta)])
+    ("image sequence without a primary item", _without_meta),
+    ("grid", lambda: (FIXTURES / "grid_2x1.avif").read_bytes())])
 def test_unported_container_features_refused_by_name(what, data):
     """An `avis` file without a primary item: no writer here makes one,
     and the port names it. A colour matrix other than BT.601 or the
     identity (here BT.709), once refused here too, is read now as cv2
-    reads it (test_colour_matrix_matches_cv2)."""
-    if what == "colour matrix":
+    reads it (test_colour_matrix_matches_cv2), and so is a grid primary
+    item, refused by name once (tests/test_torch_avif_grid.py)."""
+    if what in ("colour matrix", "grid"):
         np.testing.assert_array_equal(avif.decode_avif(data(), "x.avif"),
                                       _cv2_rgb(data()))
         return

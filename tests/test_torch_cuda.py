@@ -492,7 +492,9 @@ def test_texture_phase_on_card(device, tmp_path):
     1024 x 1024 decodes timed, the 512 x 512 .jp2 and .avif written, a
     128 x 128 S1's captured film saved as .avif, and the scene textured
     with the fixtures and that film rendered by one captured step on the
-    card, bit-equal to its PNG/EXR twin."""
+    card, bit-equal to its PNG/EXR twin; each LogLuv environment map
+    lighting a scene alone on the card, its captured step bit-equal to
+    that of an EXR twin of its radiance."""
     out = chip_smoke.phase_textures(device, tmp_path, s1=_s1(device, 128))
     fixtures = [p for p in chip_smoke.IMAGE_FIXTURES.iterdir()
                 if p.suffix != ".npz"]
@@ -501,6 +503,10 @@ def test_texture_phase_on_card(device, tmp_path):
     assert sorted(out["writers"]) == sorted(chip_smoke.WRITER_SUFFIXES)
     assert out["avif_512"]["write_s"] > 0
     assert out["s1_film_avif"]["psnr_db"] >= 20.0
+    envs = out["logluv_env"]["maps"]
+    assert sorted(envs) == sorted(chip_smoke.LOGLUV_ENVS)
+    assert all(r["bit_equal"] and r["captured"] and r["finite"]
+               for r in envs.values())
 
 
 def test_trace_and_stats_on_card_match_cpu(device):

@@ -346,29 +346,38 @@ def test_jpeg_writer_matches_cv2_quality(tmp_path):
 
 def test_progressive_jpeg_raises(tmp_path):
     """A progressive JPEG, which this test once held to NotImplementedError,
-    is read (equal to cv2 within 1 level); the variants the port still
-    does not decode are refused by name, not misread: the same file with
-    an arithmetic-coded (SOF9), lossless (SOF3) or 12-bit frame header, and
-    a four-component (CMYK) frame."""
+    is read (equal to cv2 within 1 level), and so are the variants it
+    once held so too: the same coefficients arithmetic-coded (SOF10) and
+    an 8-bit lossless file (SOF3) of the same pixels, as cv2 reads them.
+    A 12-bit frame, which cv2 reads nothing of, raises IOError as
+    ignis_tpu's load_image does; a lossless arithmetic-coded frame (SOF11),
+    which no writer here makes, is the JPEG refused by name."""
+    import sys
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent
+                           / "scripts"))
+    from make_image_fixtures import arith_jpeg, lossless_jpeg
     p = tmp_path / "p.jpg"
     assert cv2.imwrite(str(p), _photo(16, 16),
                        [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     data = p.read_bytes()
     ref = cv2.imread(str(p))[..., ::-1].astype(int)
     assert np.abs(decode_jpeg(data).astype(int) - ref).max() <= 1
+    for variant in (arith_jpeg(data, progressive=True),
+                    lossless_jpeg(_photo(16, 16), 1, ids=[82, 71, 66])):
+        assert np.abs(decode_jpeg(variant).astype(int)
+                      - _cv2_rgb(variant)).max() <= 1
     sof = data.index(b"\xff\xc2")
-    for marker, prec, match in ((0xC9, 8, "arithmetic"), (0xC3, 8, "lossless"),
-                                (0xC2, 12, "12-bit")):
+    for marker, prec, error in ((0xC2, 12, IOError),
+                                (0xCB, 8, NotImplementedError)):
         variant = bytearray(data)
         variant[sof + 1] = marker
         variant[sof + 4] = prec
         (tmp_path / "v.jpg").write_bytes(bytes(variant))
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(error, match="12-bit" if prec == 12 else "SOF11"):
             imagelib.load_image(tmp_path / "v.jpg")
-    variant = bytearray(data)
-    variant[sof + 9] = 4                     # components
-    with pytest.raises(NotImplementedError, match="4 components"):
-        decode_jpeg(bytes(variant))
+        if prec == 12:
+            with pytest.raises(IOError):
+                jax_image.load_image(str(tmp_path / "v.jpg"))
 
 
 # ---------------------------------------------------------------------------
@@ -1765,8 +1774,9 @@ def test_cmyk_and_rgb_jpeg_match_cv2(shape, variant):
     """Pillow's CMYK JPEGs (Adobe transform 0, four inverted components,
     4:4:4 or 4:2:0, baseline or progressive) and untransformed RGB JPEGs
     (keep_rgb): decode_jpeg within 1 level of cv2.imread (its CMYK ->
-    BGR conversion), and a YCCK frame (Adobe transform 2) refused by
-    name."""
+    BGR conversion); a YCCK frame (Adobe transform 2), which this test
+    once held to NotImplementedError, within 1 level too (libjpeg's YCC
+    to inverted CMYK, then cv2's conversion)."""
     from PIL import Image
     img = Image.fromarray(_photo(*shape, seed=len(variant)))
     kw = dict(quality=90, progressive=variant.endswith("progressive"))
@@ -1783,8 +1793,8 @@ def test_cmyk_and_rgb_jpeg_match_cv2(shape, variant):
         pos = data.index(b"\xff\xeeAdobe"[:2]) + 15
         assert data[pos] == 0
         ycck = data[:pos] + b"\x02" + data[pos + 1:]
-        with pytest.raises(NotImplementedError, match="YCCK"):
-            decode_jpeg(ycck)
+        assert np.abs(decode_jpeg(ycck).astype(int)
+                      - _cv2_rgb(ycck)).max() <= 1
 
 
 # ---------------------------------------------------------------------------
@@ -1989,12 +1999,25 @@ def test_pam_matches_cv2(tmp_path, case):
 
 
 def test_pam_rgb_at_maxval_1_refused_by_name():
-    """Three samples at maxval 1, which OpenCV reads to a white image
-    whatever the bytes, raise NotImplementedError naming the case."""
-    data = _pam(bytes(6), WIDTH=2, HEIGHT=1, DEPTH=3, MAXVAL=1,
-                TUPLTYPE="RGB")
-    assert _cv2_rgb(data) is not None
-    with pytest.raises(NotImplementedError, match="maxval 1"):
+    """Three samples at maxval 1, which this test once held to
+    NotImplementedError, read as OpenCV reads them: each row's first w
+    bits as the pixels' grey, whatever the rest of its bytes. Four
+    samples at maxval 1, which OpenCV reads nothing of, raise IOError (no
+    PAM is refused by name any more)."""
+    rng = np.random.default_rng(31)
+    for h, w in ((1, 2), (5, 9), (7, 17)):
+        for body in (rng.integers(0, 2, h * w * 3),
+                     rng.integers(0, 256, h * w * 3)):
+            data = _pam(body.astype(np.uint8).tobytes(), WIDTH=w, HEIGHT=h,
+                        DEPTH=3, MAXVAL=1, TUPLTYPE="RGB")
+            want = _cv2_rgb(data)
+            got = imagelib.decode_pam(data)
+            assert got.dtype == want.dtype == np.uint8
+            np.testing.assert_array_equal(got, want)
+    data = _pam(bytes(8), WIDTH=2, HEIGHT=1, DEPTH=4, MAXVAL=1,
+                TUPLTYPE="RGB_ALPHA")
+    assert _cv2_pam(data) is None
+    with pytest.raises(IOError, match="4 samples of maxval 1"):
         imagelib.decode_pam(data)
 
 
@@ -2402,12 +2425,15 @@ def test_bigtiff_matches_cv2(order, layout, compression):
 
 
 @pytest.mark.parametrize("case", ["group4", "group3", "ycbcr_raw",
-                                  "bad_bigtiff_header"])
+                                  "bad_bigtiff_header",
+                                  "thunderscan_palette"])
 def test_tiff_refusals(case):
-    """CCITT Group 4 and Group 3 (which cv2 reads: ROADMAP queue 1) and
-    YCbCr outside JPEG raise NotImplementedError naming the compression
-    or the photometric interpretation; a BigTIFF header of another byte
-    size, which is no TIFF, raises IOError."""
+    """CCITT Group 4 and Group 3 and YCbCr outside JPEG, which this test
+    once held to NotImplementedError, read as cv2 reads them
+    (tests/test_torch_ccitt.py, test_torch_tiff_rest.py); a BigTIFF header
+    of another byte size, which is no TIFF, raises IOError; the TIFF still
+    refused by name is a ThunderScan-coded (32809) 4-bit palette, which no
+    writer here makes."""
     from PIL import Image
     bits = _full_range(12, 17, 5)[..., 0] > 128
     if case == "bad_bigtiff_header":
@@ -2415,20 +2441,33 @@ def test_tiff_refusals(case):
         with pytest.raises(IOError):
             decode_tiff(data)
         return
+    if case == "thunderscan_palette":
+        data = _tiff(_full_range(8, 8, 1)[..., :1] >> 4, "<", None, 32809,
+                     photo=3, bits=4, cmap=np.zeros((16, 3), np.uint16),
+                     encode=lambda c: bytes(len(c)))
+        with pytest.raises(NotImplementedError, match="ThunderScan"):
+            decode_tiff(data)
+        return
     if case == "ycbcr_raw":
         data = _tiff(_full_range(8, 8, 1), "<", None, 1, photo=6,
                      tags=[(530, 3, [1, 1])])
-        match = "photometric 6"
     else:
-        data = _pil_tiff(Image.fromarray(bits),
-                         compression=case)
-        match = f"compression {4 if case == 'group4' else 3}"
-        assert _cv2_rgb(data) is not None
-    with pytest.raises(NotImplementedError, match=match):
-        decode_tiff(data)
+        data = _pil_tiff(Image.fromarray(bits), compression=case)
+    np.testing.assert_array_equal(decode_tiff(data), _cv2_rgb(data))
 
 
 NEW_FIXTURES = ["cv2_int8.tif", "cv2_int16.tif", "cv2_int32.tif",
+                "cv2_sgilog.tif", "cv2_sgilog24.tif", "cv2_logl.tif",
+                "env_sgilog_256x128.tif", "env_sgilog24_256x128.tif",
+                "sgilog_tiles_be.tif", "sgilog24_strips.tif",
+                "pil_ccitt_rle.tif", "pil_ccitt_rlew.tif", "pil_group3.tif",
+                "pil_group3_2d.tif", "pil_group4_wide.tif",
+                "group4_photo0_fill2.tif", "ycbcr_22_lzw.tif",
+                "ycbcr_41_refbw.tif", "ycbcr_44_tiles.tif",
+                "lossless_grey.jpg", "lossless_rgb_p7.jpg",
+                "arith_seq_420.jpg", "arith_prog_dac.jpg", "ycck.jpg",
+                "cmyk_no_adobe.jpg", "grid_2x1.avif", "grid_2x2_crop.avif",
+                "rgb_maxval1.pam", "lab_8bit.tif", "uint64_grey.tif",
                 "cv2_uint32.tif", "cv2_float64.tif", "cv2_default.pam",
                 "pil_bilevel.tif", "pil_cmyk.tif", "pil_jpeg.tif",
                 "pil_jpeg_ycbcr.tif", "pil_int32.tif", "pil_bigtiff.tif",
@@ -2440,14 +2479,16 @@ NEW_FIXTURES = ["cv2_int8.tif", "cv2_int16.tif", "cv2_int32.tif",
 
 @pytest.mark.parametrize("name", NEW_FIXTURES)
 def test_fixtures_load_as_jax(name):
-    """Each fixture of this slice (TIFF sample types, layouts and codecs,
-    PAMs, OS/2 BMPs): decode_samples gives cv2's pixels (dtype, shape,
-    values); load_image equals ignis_tpu's where ignis_tpu scales the
-    suffix (.bmp) or the samples are taken as they are (signed, 32-bit and
-    float), exactly; for the 8- and 16-bit .tif and .pam files, which
-    ignis_tpu returns unscaled (ROADMAP queue 3), its values are the
-    port's samples (of a grey-and-alpha PAM, ignis_tpu keeps both
-    channels, alpha first: ROADMAP queue 3)."""
+    """Each fixture of the last two image slices (TIFF sample types,
+    layouts and codecs, LogLuv, CCITT, YCbCr, CIELab, lossless,
+    arithmetic and YCCK JPEG, AVIF grids, PAMs, OS/2 BMPs): decode_samples
+    gives cv2's pixels (dtype, shape, values); load_image equals
+    ignis_tpu's where ignis_tpu scales the suffix (.bmp, .jpg) or the
+    samples are taken as they are (signed, 32- and 64-bit, float, LogLuv's
+    radiance and LogL's int8 tones), exactly; for the 8- and 16-bit .tif,
+    .pam and .avif files, which ignis_tpu returns unscaled (ROADMAP queue
+    3), its values are the port's samples (of a grey-and-alpha PAM,
+    ignis_tpu keeps both channels, alpha first: ROADMAP queue 3)."""
     want = np.load(FIXTURES / "cv2_pixels.npz")[name]
     got = imagelib.decode_samples(FIXTURES / name)
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -2456,7 +2497,8 @@ def test_fixtures_load_as_jax(name):
         assert ours.dtype == theirs.dtype == np.float32
         if theirs.shape[-1] == 2:
             theirs = np.repeat(theirs[..., 1:], 3, -1)
-        if name.endswith(".bmp") or got.dtype not in (np.uint8, np.uint16):
+        if name.endswith((".bmp", ".jpg")) or got.dtype not in (
+                np.uint8, np.uint16):
             np.testing.assert_array_equal(ours, theirs)
         else:
             np.testing.assert_array_equal(theirs, got.astype(np.float32))

@@ -308,12 +308,26 @@ def test_save_image_exr_read_back_by_both_readers(tmp_path):
 
 
 # a variant the port's codecs still do not read, by the suffix of the
-# test: its file's suffix and the words its refusal names
+# test: its file's suffix, the error and the words it names (the JPEG and
+# TIFF refused by name as no writer here makes them; TGA, which cv2 has
+# no codec for, IOError as ignis_tpu raises)
 _UNPORTED_VARIANT = {
-    ".jpg": (".jpg", "arithmetic"),
-    ".bmp": (".tif", "compression 4"),
-    ".tga": (".tga", "image type 1"),
+    ".jpg": (".jpg", NotImplementedError, "SOF11"),
+    ".bmp": (".tif", NotImplementedError, "ThunderScan"),
+    ".tga": (".tga", IOError, "image type 1"),
 }
+
+
+def _thunderscan_palette() -> bytes:
+    """A 4-bit palette TIFF under ThunderScan compression (32809)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent
+                           / "scripts"))
+    from make_image_fixtures import tiff_file
+    return tiff_file(np.zeros((4, 4, 1), np.uint8), comp=32809, photo=3,
+                     bits=4, cmap=np.zeros((16, 3), np.uint16),
+                     encode=lambda c: bytes(8))
 
 
 def _group4_tiff() -> bytes:
@@ -334,11 +348,12 @@ def test_unported_formats_raise(tmp_path, suffix):
     and load_image reads it back, BMP and TGA exactly, JPEG (baseline
     4:2:0, quality 95) within 0.5 dB PSNR of the JAX writer's (OpenCV's)
     file of the same image. Only a variant the port does not decode still
-    raises NotImplementedError: an arithmetic-coded (SOF9) JPEG, a CCITT
-    Group 4 TIFF, a colour-mapped TGA (progressive JPEGs, 8-bit palette
-    BMPs, WebP and AVIF files and BigTIFFs, the refused variants here
-    once, are read now: tests/test_torch_image.py,
-    tests/test_torch_avif.py)."""
+    raises: a lossless arithmetic-coded (SOF11) JPEG and a ThunderScan
+    4-bit palette TIFF by name (NotImplementedError), a colour-mapped TGA
+    IOError (progressive, arithmetic-coded and lossless JPEGs, 8-bit
+    palette BMPs, CCITT TIFFs, WebP and AVIF files and BigTIFFs, the
+    refused variants here once, are read now: tests/test_torch_image.py,
+    tests/test_torch_ccitt.py, tests/test_torch_avif.py)."""
     import cv2
     from ignis_tpu.utils import image as jax_image
     img = _ldr_image()
@@ -355,7 +370,7 @@ def test_unported_formats_raise(tmp_path, suffix):
                                            - ldr / 255.0) ** 2))
         assert psnr(got) >= psnr(theirs) - 0.5, (psnr(got), psnr(theirs))
         variant = bytearray(p.read_bytes())
-        variant[variant.index(b"\xff\xc0") + 1] = 0xC9   # SOF9
+        variant[variant.index(b"\xff\xc0") + 1] = 0xCB   # SOF11
     else:
         np.testing.assert_array_equal(got, ldr / np.float32(255.0))
         np.testing.assert_array_equal(imagelib.load_image(p),
@@ -365,11 +380,16 @@ def test_unported_formats_raise(tmp_path, suffix):
             jax_image.save_image(str(tmp_path / "j.bmp"), img)
             np.testing.assert_array_equal(
                 imagelib.read_ldr(tmp_path / "j.bmp"), got)
-            data = _group4_tiff()
+            (tmp_path / "g4.tif").write_bytes(_group4_tiff())
+            np.testing.assert_array_equal(
+                imagelib.decode_samples(tmp_path / "g4.tif"),
+                np.repeat(cv2.imread(str(tmp_path / "g4.tif"),
+                                     cv2.IMREAD_UNCHANGED)[..., None], 3, -1))
+            data = _thunderscan_palette()
         else:
             data[2] = 1                            # colour-mapped
         variant = bytes(data)
-    v_suffix, match = _UNPORTED_VARIANT[suffix]
+    v_suffix, error, match = _UNPORTED_VARIANT[suffix]
     (tmp_path / f"v{v_suffix}").write_bytes(bytes(variant))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         imagelib.load_image(tmp_path / f"v{v_suffix}")

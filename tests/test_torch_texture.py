@@ -290,10 +290,11 @@ def test_png_loader_matches_jax(depth, color_type, tmp_path, jax_image):
 def test_other_formats_raise(tmp_path, jax_image):
     """A JPEG texture, which this test once held to NotImplementedError,
     loads as the JAX loader loads it (within 1/255 before the sRGB
-    decode), and an AVIF one, once refused here too, as cv2 reads it; a
-    truncated JPEG, a format the port does not read (a CCITT Group 4 TIFF,
-    once here a WebP, an AVIF and a BigTIFF, which the port reads now)
-    and bytes that neither package reads raise."""
+    decode), and an AVIF one, once refused here too, as cv2 reads it, and
+    so a CCITT Group 4 TIFF, refused here once; a truncated JPEG, a format
+    the port does not read (a ThunderScan 4-bit palette TIFF, once here a
+    WebP, an AVIF, a BigTIFF and the Group 4 TIFF, which the port reads
+    now) and bytes that neither package reads raise."""
     import cv2
     from ignis_tpu_torch.utils.image import load_image
     rgb = np.random.RandomState(2).randint(0, 256, (16, 24, 3)).astype(
@@ -319,8 +320,20 @@ def test_other_formats_raise(tmp_path, jax_image):
     Image.fromarray(rgb[..., 0] > 128).save(bio, "TIFF",
                                             compression="group4")
     (tmp_path / "x.tif").write_bytes(bio.getvalue())
+    want = cv2.imread(str(tmp_path / "x.tif"), cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(
+        load_image(tmp_path / "x.tif", linear=True),
+        np.repeat(want[..., None], 3, -1) / np.float32(255))
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent
+                           / "scripts"))
+    from make_image_fixtures import tiff_file
+    (tmp_path / "t.tif").write_bytes(tiff_file(
+        np.zeros((4, 4, 1), np.uint8), comp=32809, photo=3, bits=4,
+        cmap=np.zeros((16, 3), np.uint16), encode=lambda c: bytes(8)))
     with pytest.raises(NotImplementedError, match="not ported"):
-        load_image(tmp_path / "x.tif")
+        load_image(tmp_path / "t.tif")
     (tmp_path / "x.webp").write_bytes(b"not an image")
     with pytest.raises(IOError, match="Cannot load"):
         load_image(tmp_path / "x.webp")
