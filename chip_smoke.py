@@ -184,7 +184,12 @@ printing its own lines; any failure exits non-zero:
    own); S1's film of one captured step saved as .avif and read
    back; and a scene textured with the fixtures and that film rendered by
    one captured step: finite, not black, and bit-equal to the same scene
-   textured with PNG (and EXR) twins of the decoded pixels;
+   textured with PNG (and EXR) twins of the decoded pixels; OpenJPEG's
+   64 x 64 .jp2 (bypass, termination on each pass, SOP / EPH, POC, PPT)
+   loaded through load_image as the texture of a small scene rendered by
+   one captured step, bit-equal to its PNG twin (its decode seconds and
+   launches on a line of their own), and the JPEG 2000 files cv2 reads
+   nothing of refused with IOError;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -4959,6 +4964,90 @@ def logluv_env_scene(env_file, size=64):
                         "scale": [0.01, 0.01, 0.01]}]}
 
 
+# OpenJPEG's 64 x 64 file with bypass and termination on each pass, SOP
+# and EPH, two POC volumes, three layers, tiles in tile-parts and PPT
+# markers (scripts/make_jp2_fixtures.py): the texture of a scene of its
+# own in phase 16; and the JPEG 2000 files cv2 reads nothing of
+JP2_TEXTURE = "opj_texture_64.jp2"
+UNREAD_FIXTURES = ROOT / "tests" / "data" / "images_unread"
+
+
+def jp2_texture_scene(texture, size=64):
+    """A rectangle facing the camera whose diffuse reflectance is the
+    image `texture`, under a point light and a dim env, path at depth
+    3."""
+    return {"technique": {"type": "path", "max_depth": 3},
+            "camera": {"type": "perspective", "fov": 50,
+                       "transform": [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, -3]},
+            "film": {"size": [size, size]},
+            "textures": [{"type": "image", "name": "tex",
+                          "filename": str(texture)}],
+            "bsdfs": [{"type": "diffuse", "name": "m",
+                       "reflectance": "tex"}],
+            "shapes": [{"type": "rectangle", "name": "r", "width": 2.4,
+                        "height": 2.4, "flip_normals": True}],
+            "entities": [{"name": "r", "shape": "r", "bsdf": "m"}],
+            "lights": [{"type": "point", "name": "P",
+                        "position": [0, 1, -2.5], "intensity": [8, 8, 8]},
+                       {"type": "env", "name": "E",
+                        "radiance": [0.3, 0.3, 0.3]}]}
+
+
+def jp2_texture_step(device, out_dir, size=64):
+    """JP2_TEXTURE decoded (decode_samples) and loaded (load_image) on
+    the host, each timed, then jp2_texture_scene loaded on `device` and
+    one step rendered, the first a captured one on the card; its film
+    held bit-equal to that of the same scene textured by a PNG of the
+    pixels decode_samples gave."""
+    import torch
+    import ignis_tpu_torch
+    from ignis_tpu_torch.utils.image import (decode_samples, encode_png,
+                                             load_image)
+    path = IMAGE_FIXTURES / JP2_TEXTURE
+    t0 = time.perf_counter()
+    px = decode_samples(path)
+    t1 = time.perf_counter()
+    img = load_image(path)
+    t2 = time.perf_counter()
+    twin = Path(out_dir) / f"{JP2_TEXTURE}.png"
+    twin.write_bytes(encode_png(px))
+    films, used = [], None
+    for tex in (path, twin):
+        rt = ignis_tpu_torch.loadFromString(json.dumps(jp2_texture_scene(
+            tex, size)), device=device, spi=SPI)
+        reset_all_counts()
+        t3 = time.perf_counter()
+        rt.step()
+        if rt.scene.device.type == "cuda":
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t3
+        used = used or launches()
+        films.append(rt.framebuffer(normalized=True))
+    film = films[0]
+    return {"decode_s": t1 - t0, "load_image_s": t2 - t1,
+            "shape": list(px.shape), "image_max": float(img.max()),
+            "device": str(rt.scene.device), "captured": bool(rt.captured),
+            "twin_step_s": step_s, "launches": used,
+            "film_mean": float(film.mean()),
+            "finite": bool(torch.isfinite(film).all()),
+            "bit_equal": bool(torch.equal(film, films[1]))}
+
+
+def unread_refusals():
+    """Each JPEG 2000 file cv2 reads nothing of (tests/data/images_unread:
+    subsampled, e-sYCC, CMYK, Part 2 transform, 17 and 4 bits) through
+    decode_samples: the IOError's message by file ('read' where none)."""
+    from ignis_tpu_torch.utils.image import decode_samples
+    out = {}
+    for p in sorted(UNREAD_FIXTURES.iterdir()):
+        try:
+            decode_samples(p)
+            out[p.name] = "read"
+        except IOError as e:
+            out[p.name] = str(e)
+    return out
+
+
 def logluv_env_step(device, out_dir, size=64):
     """Each LogLuv environment map (LOGLUV_ENVS) decoded on the host and
     timed, then logluv_env_scene loaded on `device` (where the env light
@@ -5296,6 +5385,30 @@ def phase_textures(device, build_dir=None, s1=None):
         print(f"  LogLuv environment map on the card's host: {name} "
               f"decoded in {row['decode_s']:.4f} s (max radiance "
               f"{row['max']:.6g})")
+    jp2 = jp2_texture_step(device, build_dir)
+    check(jp2["device"].startswith("cuda") and jp2["captured"]
+          and jp2["finite"] and jp2["film_mean"] > 0 and jp2["bit_equal"]
+          and jp2["launches"]["K2"] > 0
+          and jp2["launches"]["K3_gather_rows"] > 0
+          and jp2["launches"]["K1"] == 0,
+          f"{JP2_TEXTURE}: its scene rendered by one captured step on "
+          f"{jp2['device']}, film mean {jp2['film_mean']:.4g} > 0, "
+          f"bit-equal to its PNG twin's, K2 and K3 launched, K1 not (no "
+          f"BVH)")
+    print(f"  JPEG 2000 texture on the card's host: {JP2_TEXTURE} "
+          f"{jp2['shape']} decoded in {jp2['decode_s']:.4f} s, load_image "
+          f"{jp2['load_image_s']:.4f} s; its scene's captured step on "
+          f"{jp2['device']}: launches {jp2['launches']}")
+    opj = {k: v["seconds"] for k, v in decoded.items()
+           if k.startswith("opj_")}
+    print(f"  OpenJPEG's {len(opj)} fixtures decoded exactly on the card's "
+          f"host in {sum(opj.values()):.3f} s (slowest "
+          f"{max(opj, key=opj.get)} {max(opj.values()):.3f} s)")
+    unread = unread_refusals()
+    check(len(unread) == 6 and all(v.startswith("Cannot load image")
+                                   for v in unread.values()),
+          f"the {len(unread)} JPEG 2000 files cv2 reads nothing of raise "
+          f"IOError")
     print(f"  fixtures decoded {decoded}; writers {writers}; texture "
           f"scene loaded in {load_s:.2f} s, first (capturing) step "
           f"{first['seconds']:.2f} s, film mean {mean:.4f}, launches "
@@ -5306,7 +5419,8 @@ def phase_textures(device, build_dir=None, s1=None):
             "s1_film_avif": film_avif,
             "load_seconds": load_s,
             "first_step": first, "film_mean": mean, "launches": used,
-            "twin_bit_equal": True, "logluv_env": env}
+            "twin_bit_equal": True, "logluv_env": env, "jp2_texture": jp2,
+            "unread": unread}
 
 
 def main() -> int:

@@ -25,8 +25,21 @@ refinement moves it by 1 << p, so a truncated coefficient sits at the
 middle of its interval (`CodeBlocks.values` / 2 truncated is the
 reversible coefficient; times half the step size, the irreversible one).
 
-Code-block style 0 only (what OpenCV's and Pillow's writers produce);
-the caller refuses the other styles by name.
+A code-block's passes come in codeword segments (T.800 D.4, as
+OpenJPEG's tier-2 cuts them): the MQ decoder starts anew at each
+segment, its contexts kept. The decoder takes every Part 1 code-block
+style (T.800 Table A.19), as OpenJPEG's opj_t1_decode_cblk does:
+selective arithmetic coding bypass (the significance and refinement
+passes of a raw segment read bits with OpenJPEG's raw decoder, sign bits
+unpredicted), context reset after each MQ pass, termination on each
+pass (one pass a segment), the vertically causal context (a stripe's
+last row sees nothing of the stripe below), predictable termination
+(OpenJPEG only checks it), and the segmentation symbol (four uniform
+decisions after each clean-up pass). An RGN shift s (maxshift) decodes
+s more bit-planes and then divides by 2^s every coefficient of at least
+2^s in the doubled scale, as OpenJPEG does; whether a segment is raw is
+still decided from the planes without s, as OpenJPEG decides it. The
+encoder writes style 0 only.
 """
 from __future__ import annotations
 
@@ -82,29 +95,52 @@ SLOTS = N_CTX + 1
 
 class _MQDecoder:
     """MQ decoders of many lanes (T.800 C.3, OpenJPEG's opj_mqc_decode),
-    one stream a lane in one flat byte array, each stream followed by
-    0xFF 0xFF as OpenJPEG appends them, so a decoder that runs past its
-    data reads 1 bits."""
+    every codeword segment of every lane in one flat byte array, each
+    followed by 0xFF 0xFF as OpenJPEG appends them, so a decoder that runs
+    past its data reads 1 bits. streams: per lane the list of its
+    segments' bytes; each lane starts at its first. `offsets[i][j]` is
+    where lane i's segment j starts."""
 
     def __init__(self, streams):
-        lengths = np.array([len(s) for s in streams], np.int64)
-        start = np.concatenate([[0], np.cumsum(lengths + 2)[:-1]]).astype(
-            np.int64)
-        self.raw = b"".join(bytes(s) + b"\xff\xff" for s in streams) \
-            + b"\xff\xff"
+        self.offsets, chunks, pos = [], [], 0
+        for segs in streams:
+            offs = []
+            for seg in segs or [b""]:
+                offs.append(pos)
+                chunks.append(bytes(seg) + b"\xff\xff")
+                pos += len(seg) + 2
+            self.offsets.append(offs)
+        self.raw = b"".join(chunks) + b"\xff\xff"
         self.data = np.frombuffer(self.raw, np.uint8).astype(np.int64)
         n = len(streams)
-        self.bp = start
-        self.C = self.data[start] << 16
+        self.bp = np.zeros(n, np.int64)
+        self.C = np.zeros(n, np.int64)
         self.CT = np.zeros(n, np.int64)
-        _bytein(self, np.arange(n))
-        self.C <<= 7
-        self.CT -= 7
         self.A = np.full(n, 0x8000, np.int64)
         self.states = np.tile(INITIAL_STATES, (n, 1))
+        self.start(np.arange(n), np.array([o[0] for o in self.offsets],
+                                          np.int64), np.zeros(n, bool))
+
+    def start(self, j, at, raw):
+        """Lanes j begin a segment at byte `at`: the raw decoder
+        (opj_mqc_raw_init_dec: C and CT 0) where `raw`, else INITDEC
+        (T.800 C.3.5); the contexts stay."""
+        self.bp[j] = at
+        r, m = j[raw], j[~raw]
+        self.C[r] = self.CT[r] = 0
+        if len(m):
+            self.C[m] = self.data[self.bp[m]] << 16
+            self.CT[m] = 0
+            _bytein(self, m)
+            self.C[m] <<= 7
+            self.CT[m] -= 7
+            self.A[m] = 0x8000
 
     def lanes(self, idx):
         return _DecLanes(self, idx)
+
+    def raw_lanes(self, idx):
+        return _RawLanes(self, idx)
 
 
 def _bytein(r, j):
@@ -123,6 +159,7 @@ def _bytein(r, j):
 class _DecLanes:
     """The registers of the lanes of one pass, decoded together and
     written back by `close`."""
+    is_raw = False
 
     def __init__(self, mq: _MQDecoder, idx):
         self.mq, self.idx = mq, idx
@@ -190,6 +227,7 @@ class _ScalarDec:
     """Lane i's MQ decoder in Python integers, for the last few lanes of
     a pass: a decision costs microseconds here against a lockstep step's
     tens for any number of lanes. `close` writes the registers back."""
+    is_raw = False
 
     def __init__(self, lanes: _DecLanes, i):
         self.lanes, self.i = lanes, i
@@ -243,6 +281,66 @@ class _ScalarDec:
         lanes.A[i], lanes.C[i], lanes.CT[i], lanes.bp[i] = (
             self.A, self.C, self.CT, self.bp)
         lanes.st[i * SLOTS:(i + 1) * SLOTS] = self.st
+
+
+class _RawLanes:
+    """The raw (bypass) decoders of the lanes of one pass (OpenJPEG's
+    opj_mqc_raw_decode): C holds the last byte, CT its bits left; after
+    0xFF the next byte gives 7 bits, or, above 0x8F (a marker, or the
+    0xFF 0xFF after the segment), is not passed and 0xFF is read again.
+    The context is ignored."""
+    is_raw = True
+
+    def __init__(self, mq: _MQDecoder, idx):
+        self.mq, self.idx = mq, idx
+        self.C, self.CT, self.bp = mq.C[idx], mq.CT[idx], mq.bp[idx]
+        self.data = mq.data
+
+    def close(self):
+        mq, idx = self.mq, self.idx
+        mq.C[idx], mq.CT[idx], mq.bp[idx] = self.C, self.CT, self.bp
+
+    def code(self, ctx, on, want=None):
+        j = (on & (self.CT == 0)).nonzero()[0]
+        if len(j):
+            bp = self.bp[j]
+            b = self.data[bp]
+            ff = self.C[j] == 0xFF
+            stay = ff & (b > 0x8F)
+            self.C[j] = np.where(stay, 0xFF, b)
+            self.CT[j] = np.where(ff & ~stay, 7, 8)
+            self.bp[j] = bp + ~stay
+        self.CT = self.CT - on
+        return np.where(on, (self.C >> self.CT) & 1, 0)
+
+    def scalar(self, i):
+        return _ScalarRaw(self, i)
+
+
+class _ScalarRaw:
+    """Lane i's raw decoder in Python integers."""
+    is_raw = True
+
+    def __init__(self, lanes: _RawLanes, i):
+        self.lanes, self.i = lanes, i
+        self.C, self.CT = int(lanes.C[i]), int(lanes.CT[i])
+        self.bp = int(lanes.bp[i])
+        self.buf = lanes.mq.raw
+
+    def code(self, cx, want=None):
+        if self.CT == 0:
+            b = self.buf[self.bp]
+            if self.C == 0xFF and b > 0x8F:
+                self.CT = 8
+            else:
+                self.CT = 7 if self.C == 0xFF else 8
+                self.C, self.bp = b, self.bp + 1
+        self.CT -= 1
+        return (self.C >> self.CT) & 1
+
+    def close(self):
+        lanes, i = self.lanes, self.i
+        lanes.C[i], lanes.CT[i], lanes.bp[i] = self.C, self.CT, self.bp
 
 
 def mq_encode(ctx, sym, marks):
@@ -415,25 +513,29 @@ def _scan_order(h: int, w: int):
 
 
 class _Shapes:
-    """Per code-block shape: scan order, the scan positions of each
-    position's eight neighbours (n for none), and where a run-length
-    column starts, each padded to n positions; rows of flat tables by
-    shape id * n."""
+    """Per code-block shape (h, w, vertically causal): scan order, the
+    scan positions of each position's eight neighbours that learn of its
+    significance (n for none; under the vertically causal context a
+    stripe's first row tells the stripe above nothing), and where a
+    run-length column starts, each padded to n positions; rows of flat
+    tables by shape id * n."""
 
     def __init__(self, shapes, n):
         self.ids = {}
         nbr, rl, ys, xs = [], [], [], []
-        for hw in shapes:
-            if hw in self.ids:
+        for key in shapes:
+            if key in self.ids:
                 continue
-            self.ids[hw] = len(nbr)
-            h, w = hw
+            self.ids[key] = len(nbr)
+            h, w, vsc = key
             y, x = _scan_order(h, w)
             pos = np.full((h + 2, w + 2), n, np.int64)
             pos[y + 1, x + 1] = np.arange(len(y))
             t = np.full((n + 1, 8), n, np.int64)
             for k, (dy, dx) in enumerate(_DIRS):
                 t[:len(y), k] = pos[y + 1 + dy, x + 1 + dx]
+                if vsc and dy < 0:
+                    t[:len(y), k][y % 4 == 0] = n
             r = np.zeros(n + 1, bool)
             r[:len(y)] = ((y // 4) * 4 + 4 <= h) & (y % 4 == 0)
             nbr.append(t)
@@ -466,6 +568,13 @@ del _F
 # a pass hands its lanes to Python integers when this few are left
 TAIL = 64
 _CTX_L, _XOR_L = CTX_LUT.tolist(), XOR_LUT.tolist()
+# a raw sign bit is the sign itself
+_NO_XOR = np.zeros_like(XOR_LUT)
+_NO_XOR_L = _NO_XOR.tolist()
+# code-block styles (T.800 Table A.19): those the passes act on, and
+# termination on each pass, which tier-2's segments carry (predictable
+# termination changes nothing a decoder does)
+BYPASS, RESET, TERMALL, VCAUSAL, SEGSYM = 1, 2, 4, 8, 32
 _SP_OK_L, _QUIET_L = SP_OK.tolist(), QUIET.tolist()
 _SETS_L, _SIGNS_L = _SETS.tolist(), _SIGNS.tolist()
 
@@ -476,22 +585,35 @@ class CodeBlocks:
     shapes: (h, w) of each block; orient: its band (0 LL, 1 HL, 2 LH,
     3 HH); planes: its number of magnitude bit-planes (OpenJPEG's
     numbps: Mb less the zero bit-planes); passes: the coding passes to
-    run. After `decode` or `encode`, `block(i)` is block i's coefficients
-    in OpenJPEG's doubled scale as an [h, w] array."""
+    run; styles: its code-block style bits (decoding only; 0 where
+    None); shifts: its component's RGN shift (0 where None). After
+    `decode` or `encode`, `block(i)` is block i's coefficients in
+    OpenJPEG's doubled scale as an [h, w] array."""
 
-    def __init__(self, shapes, orient, planes, passes):
+    def __init__(self, shapes, orient, planes, passes, styles=None,
+                 shifts=None):
         self.L = len(shapes)
         self.hw = [tuple(int(v) for v in s) for s in shapes]
+        self.style = np.zeros(self.L, np.int64) if styles is None else \
+            np.asarray(styles, np.int64)
+        self.shift = np.zeros(self.L, np.int64) if shifts is None else \
+            np.asarray(shifts, np.int64)
         self.sizes = np.array([h * w for h, w in self.hw], np.int64)
         self.N = int(self.sizes.max()) if self.L else 0
         self.R = self.N + 2 * WINDOW
-        self.shapes = _Shapes(self.hw, self.N) if self.L else None
-        self.shape_id = np.array([self.shapes.ids[s] for s in self.hw],
+        keys = [(h, w, bool(st & VCAUSAL))
+                for (h, w), st in zip(self.hw, self.style)]
+        self.shapes = _Shapes(keys, self.N) if self.L else None
+        self.shape_id = np.array([self.shapes.ids[k] for k in keys],
                                  np.int64) if self.L else np.zeros(0, int)
         self.orient = np.asarray(orient, np.int64)
-        self.planes = np.asarray(planes, np.int64)
+        # the planes the passes run over (RGN's shift on top), and the
+        # planes that decide a raw segment (without it)
+        self.numbps = np.asarray(planes, np.int64)
+        self.planes = self.numbps + self.shift
         self.passes = np.minimum(np.asarray(passes, np.int64),
                                  np.maximum(3 * self.planes - 2, 0))
+        self.seg_start = self.raw_pass = None
         self.flags = np.full((self.L, self.R), PAD, np.int64)
         self.flags[np.arange(self.R)[None, :] < self.sizes[:, None]] = 0
         self.values = np.zeros((self.L, self.R), np.int64)
@@ -501,11 +623,39 @@ class CodeBlocks:
 
     # -- entry points ------------------------------------------------------
 
-    def decode(self, streams):
-        """Run the passes on each lane's byte stream (all its segments'
-        data, concatenated)."""
-        if self.L:
-            self._run(_MQDecoder(streams))
+    def decode(self, segs):
+        """Run the passes on each lane's codeword segments: per lane the
+        list of its (bytes, passes) segments. A segment is raw (bypass)
+        where it starts at a significance or refinement pass at most
+        numbps - 4 planes up (opj_t1_decode_cblk). Then RGN's shift is
+        undone."""
+        if not self.L:
+            return self
+        mq = _MQDecoder([[d for d, _ in lane] for lane in segs])
+        P = max(int(self.passes.max()), 1)
+        self.seg_start = np.full((self.L, P), -1, np.int64)
+        self.raw_pass = np.zeros((self.L, P), bool)
+        for i, lane in enumerate(segs):
+            k, top = 0, int(self.passes[i])
+            bypass = bool(self.style[i] & BYPASS)
+            for j, (_, n) in enumerate(lane):
+                if k >= top:
+                    break
+                raw = bypass and (k + 2) % 3 < 2 and \
+                    self.planes[i] - (k + 2) // 3 <= self.numbps[i] - 4
+                if j:
+                    self.seg_start[i, k] = mq.offsets[i][j]
+                self.raw_pass[i, k:k + n] = raw
+                k += n
+        self._run(mq)
+        sh = self.shift[:, None]
+        if sh.any():
+            V = self.values
+            mag = np.abs(V)
+            big = (sh > 0) & (mag >= (1 << sh))
+            self.values = np.where(big, np.where(V < 0, -(mag >> sh),
+                                                 mag >> sh), V)
+            self.V = self.values.reshape(-1)
         return self
 
     def encode(self, coeffs):
@@ -558,20 +708,44 @@ class CodeBlocks:
         P = int(self.passes.max()) if self.L else 0
         for k in range(P):
             idx = (self.passes > k).nonzero()[0]
-            plane = self.planes[idx] - 1 - (k + 2) // 3
             kind = (2 + k) % 3                 # 0 SP, 1 MR, 2 CU
-            lanes = coder.lanes(idx)
+            groups = [(idx, False)]
+            if self.seg_start is not None:
+                at = self.seg_start[idx, k]
+                new = at >= 0
+                if new.any():
+                    coder.start(idx[new], at[new], self.raw_pass[idx[new], k])
+                raw = self.raw_pass[idx, k]
+                if raw.any():
+                    groups = [(idx[~raw], False), (idx[raw], True)]
             if kind == 0:
                 self.flags[idx] &= ~PI
-                self._sigprop(idx, plane, lanes)
-            elif kind == 1:
-                self._refine(idx, plane, lanes)
-            else:
-                self._cleanup(idx, plane, lanes)
-            lanes.close()
+            for sub, raw in groups:
+                if len(sub):
+                    self._pass(coder, sub, kind, k, raw)
             if self.mag is not None:
                 err = self.mag[idx] - (np.abs(self.values[idx]) >> 1)
                 self.dist[idx, k + 1] = (err.astype(np.float64) ** 2).sum(1)
+
+    def _pass(self, coder, idx, kind, k, raw):
+        """Pass k of lanes idx: the pass, a clean-up's segmentation
+        symbol, and the contexts' reset after an MQ pass."""
+        plane = self.planes[idx] - 1 - (k + 2) // 3
+        lanes = coder.raw_lanes(idx) if raw else coder.lanes(idx)
+        if kind == 0:
+            self._sigprop(idx, plane, lanes)
+        elif kind == 1:
+            self._refine(idx, plane, lanes)
+        else:
+            self._cleanup(idx, plane, lanes)
+            seg = (self.style[idx] & SEGSYM) != 0
+            if seg.any():
+                for _ in range(4):
+                    lanes.code(CTX_UNI, seg)
+        lanes.close()
+        reset = (self.style[idx] & RESET) != 0
+        if not raw and reset.any():
+            coder.states[idx[reset]] = INITIAL_STATES
 
     def _significant(self, g, pos, sid, neg, plane):
         """Coefficients at flat positions g (scan positions pos of blocks
@@ -627,6 +801,7 @@ class CodeBlocks:
         live = ptr < size
         sign = np.zeros(n, bool)
         enc = self.mag is not None
+        xor = _NO_XOR if lanes.is_raw else XOR_LUT
         while True:
             if np.count_nonzero(live) <= TAIL:
                 for i in live.nonzero()[0]:
@@ -646,7 +821,7 @@ class CodeBlocks:
             ev = sign.nonzero()[0]
             if len(ev):
                 self._significant(g[ev], ptr[ev], sid[ev],
-                                  (d[ev] ^ XOR_LUT[f[ev]]).astype(bool),
+                                  (d[ev] ^ xor[f[ev]]).astype(bool),
                                   plane[ev])
             zero = live & ~sign & (d == 0)
             F[g[zero]] |= PI
@@ -783,12 +958,13 @@ class CodeBlocks:
         size = int(self.sizes[lane])
         key = int(self.orient[lane]) * 8192
         enc = M is not None
+        xor = _NO_XOR_L if sc.is_raw else _XOR_L
         while p < size:
             k = F[p] & KEY
             if sign:
                 d = sc.code(_CTX_L[M_SIGN * 32768 + k],
                             NEG[p] ^ _XOR_L[k] if enc else None)
-                self._sig_scalar(F, V, nbr[p], p, d ^ _XOR_L[k], plane)
+                self._sig_scalar(F, V, nbr[p], p, d ^ xor[k], plane)
                 sign = False
             else:
                 d = sc.code(_CTX_L[key + k], (M[p] >> plane) & 1 if enc
@@ -887,6 +1063,8 @@ class _Recorder:
 
 
 class _RecLanes:
+    is_raw = False
+
     def __init__(self, rec: _Recorder, idx):
         self.rec, self.idx = rec, idx
 
@@ -911,6 +1089,7 @@ class _RecLanes:
 
 class _ScalarRec:
     """Lane i's recorder in Python lists (the scalar finish of a pass)."""
+    is_raw = False
 
     def __init__(self, rec: _Recorder, lane):
         self.rec, self.lane = rec, lane

@@ -16,8 +16,10 @@ and encoded as 8-bit RGB with filter 0 (`encode_png`); JPEG goes through
 utils/jpeg.py (baseline and progressive, YCbCr, RGB and Adobe CMYK,
 decoded as libjpeg decodes it; written as baseline 4:2:0 at quality 95,
 cv2's default); JPEG 2000 (.jp2 boxes or a raw code stream, every
-progression order, layers, tiles and precincts, the 5/3 and 9/7
-wavelets) through utils/jpeg2000.py and utils/ebcot.py, read as OpenCV
+Part 1 feature OpenCV reads: progression orders and POC, layers, tiles,
+precincts, every code-block style, SOP/EPH, PPM/PPT, RGN, the 5/3 and
+9/7 wavelets, palettes and sYCC) through utils/jpeg2000.py and
+utils/ebcot.py, read as OpenCV
 reads it through OpenJPEG and written as cv2's default .jp2 writer
 writes it (lossless 5/3 cut to OpenCV's rate of 4); BMP is read at
 every depth (palettes, RLE8 and RLE4, bit fields, OS/2's 12-byte header,

@@ -2,24 +2,37 @@
 written as OpenCV's default .jp2 writer writes it.
 
 Reading (`decode_jpeg2000`): the JP2 boxes (signature, `ftyp`, `jp2h`
-with `ihdr` and `colr`, `jp2c`) or a raw codestream (ITU-T T.800); the
-main and tile-part headers (SIZ, COD, COC, QCD, QCC, COM, TLM, PLM, PLT,
-CRG, SOT, SOD, EOC; image, tile and tile-part offsets); tier-2: tag
-trees and packet headers (zero-length packets, inclusion, zero
-bit-planes, pass counts, Lblock) in all five progression orders over
-any precinct size; tier-1 in utils/ebcot.py; then dequantisation (no
-quantisation, or expounded or derived step sizes, with the guard bits),
-OpenJPEG's midpoint reconstruction of truncated coefficients, the inverse
-5/3 in integers and 9/7 in float32 with OpenJPEG's lifting order and
-constants, the inverse RCT and ICT, the DC level shift and the clamp and
-rounding to each component's precision.
+with `ihdr`, `colr`, `pclr` and `cmap`, `jp2c`) or a raw codestream
+(ITU-T T.800 Part 1); the main and tile-part headers (SIZ, COD, COC,
+QCD, QCC, RGN, POC, PPM, PPT, COM, TLM, PLM, PLT, CRG, SOT, SOD, EOC;
+image, tile and tile-part offsets); tier-2: tag trees and packet headers
+(zero-length packets, inclusion, zero bit-planes, pass counts, Lblock,
+one length per codeword segment as OpenJPEG's opj_t2_init_seg cuts the
+passes under bypass and termination on each pass), SOP segments before
+packets and EPH markers after their headers, headers packed in PPM or
+PPT markers, in all five progression orders over any precinct size or
+in the progression volumes of POC markers (main and tile-part headers,
+OpenJPEG's opj_pi iterators); tier-1 in utils/ebcot.py (every Part 1
+code-block style, RGN's maxshift); then dequantisation (no quantisation,
+or expounded or derived step sizes, with the guard bits), OpenJPEG's
+midpoint reconstruction of truncated coefficients, the inverse 5/3 in
+integers and 9/7 in float32 with OpenJPEG's lifting order and constants,
+the inverse RCT and ICT, the DC level shift and the clamp and rounding
+to each component's precision; a palette mapped as OpenJPEG's
+opj_jp2_apply_pclr maps it.
 
-OpenCV's view of the result (`decode_jpeg2000` returns it): 8-bit
-components as uint8, 9- to 16-bit ones as uint16; one component is grey,
-three RGB, four RGBA (alpha dropped, as the port drops it for every
-format); OpenCV refuses two components, signed components and an image
-offset, and so does the port (IOError, as ignis_tpu raises for
-cv2.imread's None).
+OpenCV's view of the result (`decode_jpeg2000` returns it): components
+of 8 bits (in the code stream) as uint8, 9 to 16 bits as uint16, each
+value cast (not clipped) to that type; one code-stream component is
+grey, three RGB, four RGBA (alpha dropped, as the port drops it for
+every format); a one-component image that a palette maps to colour is
+the grey of that colour (OpenCV's BGR2GRAY in 15-bit fixed point), and
+sYCC is turned to RGB by OpenCV's YUV2BGR (14-bit fixed point). OpenCV
+reads nothing of two components, signed components, an image offset,
+component subsampling, fewer than 8 or more than 16 bits, the colour
+spaces e-sYCC and CMYK, or a Part 2 component transform (OpenJPEG
+refuses those its own encoder writes), and the port raises IOError for
+each, as ignis_tpu raises for cv2.imread's None.
 
 Writing (`encode_jp2`), as cv2.imwrite writes an 8-bit RGB image by
 default: one tile, LRCP, one layer, no component transform, five
@@ -31,10 +44,8 @@ code stream takes at most h * w * 3 / 4 bytes, OpenCV's rate of 4, and
 an image whose whole stream fits stays lossless; SIZ, COD, QCD, COM,
 SOT, SOD and EOC in JP2 boxes with an sRGB `colr`.
 
-What no writer here makes is refused by name (NotImplementedError): the
-code-block styles other than 0, SOP and EPH, POC, PPM and PPT, RGN,
-component subsampling, HTJ2K (Part 15: CAP, or its Rsiz or code-block
-style bit), palettes and colour spaces other than sRGB and grey.
+HTJ2K (Part 15: CAP, CPF, or its Rsiz or code-block style bit) is refused
+by name (NotImplementedError): no encoder here writes it.
 """
 from __future__ import annotations
 
@@ -42,19 +53,17 @@ import struct
 
 import numpy as np
 
-from .ebcot import CodeBlocks
+from .ebcot import BYPASS, TERMALL, CodeBlocks
 
 JP2_SIGNATURE = b"\0\0\0\x0cjP  \r\n\x87\n"
 SOC = b"\xff\x4f\xff\x51"
 PROGRESSIONS = ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
-_STYLES = ((0x01, "selective arithmetic coding bypass"),
-           (0x02, "context reset"), (0x04, "termination on each pass"),
-           (0x08, "vertically causal context"),
-           (0x10, "predictable termination"), (0x20, "segmentation symbols"),
-           (0x40, "HTJ2K (Part 15) code-blocks"))
-_REFUSED_MARKERS = {0xFF50: "CAP (HTJ2K, Part 15)", 0xFF59: "CPF (Part 15)",
-                    0xFF5E: "RGN", 0xFF5F: "POC", 0xFF60: "PPM",
-                    0xFF61: "PPT"}
+_HT_STYLE = 0x40
+_REFUSED_MARKERS = {0xFF50: "CAP (HTJ2K, Part 15)", 0xFF59: "CPF (Part 15)"}
+# Part 2's multiple component transform: MCT, MCC, MCO and CBD
+_PART2_MARKERS = (0xFF74, 0xFF75, 0xFF77, 0xFF78)
+# the JP2 colour spaces OpenCV refuses (T.800 Table I.10: e-sYCC, CMYK)
+_UNREAD_SPACES = {24: "e-sYCC", 12: "CMYK"}
 
 
 # code-blocks decoded or encoded together, at most: bounds a run's
@@ -65,6 +74,11 @@ LANES = 1024
 
 def _refuse(what, name):
     raise NotImplementedError(f"JPEG 2000: {what} is not ported ({name})")
+
+
+def _unread(what, name):
+    raise IOError(f"Cannot load image {name}: {what}, which OpenCV reads "
+                  "nothing of")
 
 
 # ---------------------------------------------------------------------------
@@ -90,24 +104,64 @@ def _boxes(data: bytes, pos: int, end: int):
 
 def codestream(data: bytes, name="image"):
     """The code stream of a .jp2 file or a raw J2K stream, and the JP2
-    colour space (16 sRGB, 17 grey, None where the file names none)."""
+    colour space (the first `colr` box's enumerated space: 16 sRGB, 17
+    grey, 18 sYCC, ...; None where the file names none)."""
+    cs, space, _ = _jp2(data, name)
+    return cs, space
+
+
+def _jp2(data: bytes, name):
+    """(code stream, colour space, palette): the palette is None, or
+    (entries [n, channels] as read, [(component, mapping type, palette
+    column)] of `cmap`), as OpenJPEG's opj_jp2_read_pclr / read_cmap read
+    them; a `pclr` without a `cmap` is dropped, as OpenJPEG drops it."""
     if data.startswith(SOC):
-        return data, None
+        return data, None, None
     if not data.startswith(JP2_SIGNATURE):
         raise ValueError(f"{name}: not a JPEG 2000 file")
-    space = None
+    space = pclr = cmap = None
+    seen_colr = False
     for kind, a, b in _boxes(data, 0, len(data)):
         if kind == b"jp2h":
             for sub, c, d in _boxes(data, a, b):
-                if sub == b"colr":
-                    meth = data[c]
-                    if meth == 1:
+                if sub == b"colr" and not seen_colr:
+                    seen_colr = True
+                    if data[c] == 1:
                         space = struct.unpack(">I", data[c + 3:c + 7])[0]
-                elif sub in (b"pclr", b"cmap"):
-                    _refuse(f"a palette ('{sub.decode()}' box)", name)
+                elif sub == b"pclr":
+                    pclr = _read_pclr(data[c:d], name)
+                elif sub == b"cmap":
+                    if pclr is None or cmap is not None:
+                        _unread("a 'cmap' box without a 'pclr' box before "
+                                "it", name)
+                    body = data[c:d]
+                    if len(body) < 4 * pclr.shape[1]:
+                        _unread("a short 'cmap' box", name)
+                    cmap = [struct.unpack(">HBB", body[4 * i:4 * i + 4])
+                            for i in range(pclr.shape[1])]
         elif kind == b"jp2c":
-            return data[a:b], space
+            return data[a:b], space, None if cmap is None else (pclr, cmap)
     raise ValueError(f"{name}: no code stream (jp2c box)")
+
+
+def _read_pclr(body, name):
+    """The entries [n, channels] of a `pclr` box, each read unsigned in
+    its channel's whole bytes (at most 4)."""
+    if len(body) < 3:
+        _unread("a short 'pclr' box", name)
+    ne, npc = struct.unpack(">HB", body[:3])
+    if not 0 < ne <= 1024 or npc == 0:
+        _unread(f"a 'pclr' box of {ne} entries of {npc} channels", name)
+    nbytes = [min(((b & 0x7F) + 1 + 7) >> 3, 4) for b in body[3:3 + npc]]
+    pos = 3 + npc
+    if len(body) < pos + ne * sum(nbytes):
+        _unread("a short 'pclr' box", name)
+    out = np.zeros((ne, npc), np.int64)
+    for e in range(ne):
+        for ch, nb in enumerate(nbytes):
+            out[e, ch] = int.from_bytes(body[pos:pos + nb], "big")
+            pos += nb
+    return out
 
 
 class _Coding:
@@ -119,9 +173,8 @@ class _Coding:
         (self.levels, xcb, ycb, self.style,
          self.wavelet) = struct.unpack(">5B", body[pos:pos + 5])
         self.xcb, self.ycb = xcb + 2, ycb + 2
-        for bit, what in _STYLES:
-            if self.style & bit:
-                _refuse(f"the code-block style {what}", name)
+        if self.style & _HT_STYLE:
+            _refuse("the code-block style HTJ2K (Part 15) code-blocks", name)
         if self.xcb > 10 or self.ycb > 10 or self.xcb + self.ycb > 12:
             raise ValueError(f"{name}: code-block size 2^{self.xcb} x "
                              f"2^{self.ycb}")
@@ -162,13 +215,17 @@ class _Quant:
 
 def _styles():
     """A header's coding and quantisation markers (COD, COC by component,
-    QCD, QCC by component) and, for a tile, its tile-parts' data."""
-    return {"parts": [], "cod": None, "coc": {}, "qcd": None, "qcc": {}}
+    QCD, QCC by component), RGN shifts by component and POC volumes and,
+    for a tile, its tile-parts' data and PPT data by Zppt."""
+    return {"parts": [], "cod": None, "coc": {}, "qcd": None, "qcc": {},
+            "rgn": {}, "poc": [], "ppt": {}}
 
 
 class _Header:
-    """The main header's SIZ and markers (`main`), and each tile's
-    (`tiles`)."""
+    """The main header's SIZ and markers (`main`), each tile's (`tiles`),
+    the tiles in the order their last tile-part comes (`order`), and the
+    packet headers of PPM markers (`ppm`, None without PPM) with the
+    position up to which tiles have read them (`ppm_pos`)."""
 
     def __init__(self, cs: bytes, name):
         self.name = name
@@ -184,10 +241,11 @@ class _Header:
         for c in range(nc):
             s, dx, dy = siz[36 + 3 * c:39 + 3 * c]
             if dx != 1 or dy != 1:
-                _refuse(f"component subsampling ({dx} x {dy})", name)
+                _unread(f"component subsampling ({dx} x {dy})", name)
             self.comps.append(((s & 0x7F) + 1, bool(s & 0x80)))
         self.main = _styles()
         self.tiles = {}
+        ppm, order = [], []          # PPM data by Zppm; tiles of tile-parts
         pos = 4 + n
         tile = end = None
         while pos + 2 <= len(cs):
@@ -198,36 +256,97 @@ class _Header:
                 if not end:                  # to EOC
                     end = len(cs) - 2 * (cs[-2:] == b"\xff\xd9")
                 self.tiles[tile]["parts"].append(cs[pos + 2:end])
+                order.append(tile)
                 pos = end
                 continue
             length = struct.unpack(">H", cs[pos + 2:pos + 4])[0]
             body = cs[pos + 4:pos + 2 + length]
             if m in _REFUSED_MARKERS:
                 _refuse(f"the {_REFUSED_MARKERS[m]} marker", name)
+            if m in _PART2_MARKERS:
+                _unread("a Part 2 multiple component transform", name)
+            dest = self.main if tile is None else self.tiles[tile]
             if m == 0xFF90:                  # SOT
                 tile, psot = struct.unpack(">HI", body[:6])
                 end = pos + psot if psot else None
                 self.tiles.setdefault(tile, _styles())
             elif m in (0xFF52, 0xFF53, 0xFF5C, 0xFF5D):
-                self._coding_marker(m, body, self.main if tile is None
-                                    else self.tiles[tile])
+                self._coding_marker(m, body, dest)
+            elif m == 0xFF5E:                # RGN: Crgn, Srgn, SPrgn
+                k = 2 if len(self.comps) > 256 else 1
+                c = int.from_bytes(body[:k], "big")
+                if c >= len(self.comps):
+                    raise ValueError(f"{name}: RGN of component {c}")
+                dest["rgn"][c] = body[k + 1]
+            elif m == 0xFF5F:
+                dest["poc"].extend(self._poc(body))
+            elif m == 0xFF60:                # PPM: Zppm, Ippm
+                ppm.append((body[0], body[1:]))
+            elif m == 0xFF61:                # PPT: Zppt, Ippt
+                if ppm:
+                    _unread("PPT markers beside PPM markers", name)
+                if body[0] in dest["ppt"]:
+                    _unread(f"a second PPT marker of Zppt {body[0]}", name)
+                dest["ppt"][body[0]] = body[1:]
             pos += 2 + length
         if self.main["cod"] is None or self.main["qcd"] is None:
             raise ValueError(f"{name}: no COD or QCD in the main header")
+        self.order = list(dict.fromkeys(order[::-1]))[::-1]
+        self.ppm = self._ppm(ppm, len(order)) if ppm else None
+        self.ppm_pos = 0
+
+    def _poc(self, body):
+        """The progression volumes of a POC marker: (resolution start,
+        component start, layer end, resolution end, component end,
+        progression) each, the component end at most the components
+        (OpenJPEG's opj_j2k_read_poc; a one-byte end of 0 is 256)."""
+        k = 2 if len(self.comps) > 256 else 1
+        size = 5 + 2 * k
+        if not body or len(body) % size:
+            raise ValueError(f"{self.name}: a POC marker of {len(body)} "
+                             "bytes")
+        out = []
+        for i in range(0, len(body), size):
+            r0 = body[i]
+            c0 = int.from_bytes(body[i + 1:i + 1 + k], "big")
+            l1, r1 = struct.unpack(">HB", body[i + 1 + k:i + 4 + k])
+            c1 = int.from_bytes(body[i + 4 + k:i + 4 + 2 * k], "big")
+            prog = body[i + 4 + 2 * k]
+            if prog > 4:
+                raise ValueError(f"{self.name}: progression order {prog}")
+            out.append((r0, c0, l1, r1, (c1 or 256) if k == 1 else c1,
+                        prog))
+        return [(r0, c0, l1, r1, min(c1, len(self.comps)), prog)
+                for r0, c0, l1, r1, c1, prog in out]
+
+    def _ppm(self, ppm, parts):
+        """The packet headers of PPM markers as OpenJPEG's
+        opj_j2k_merge_ppm joins them: the Ippm in Zppm order, each
+        tile-part's Nppm-byte run after its 4-byte Nppm, the runs of all
+        tile-parts one stream that the tiles read on from each other."""
+        if len({z for z, _ in ppm}) < len(ppm):
+            _unread("two PPM markers of one Zppm", self.name)
+        data = b"".join(d for _, d in sorted(ppm, key=lambda x: x[0]))
+        out, pos = [], 0
+        while pos < len(data):
+            if pos + 4 > len(data):
+                _unread("a PPM marker without its Nppm", self.name)
+            n = struct.unpack(">I", data[pos:pos + 4])[0]
+            out.append(data[pos + 4:pos + 4 + n])
+            pos += 4 + n
+        if len(out) < parts:
+            _unread("PPM markers shorter than their tile-parts", self.name)
+        return b"".join(out)
 
     def _coding_marker(self, m, body, dest):
         wide = len(self.comps) > 256
         if m == 0xFF52:
             scod = body[0]
-            if scod & 2:
-                _refuse("SOP marker segments (COD)", self.name)
-            if scod & 4:
-                _refuse("EPH markers (COD)", self.name)
             prog, layers, mct = struct.unpack(">BHB", body[1:5])
             if prog > 4:
                 raise ValueError(f"{self.name}: progression order {prog}")
             dest["cod"] = (prog, layers, mct,
-                           _Coding(body, 5, scod & 1, self.name))
+                           _Coding(body, 5, scod & 1, self.name), scod)
         elif m == 0xFF53:
             c = struct.unpack(">H", body[:2])[0] if wide else body[0]
             k = 2 if wide else 1
@@ -243,7 +362,7 @@ class _Header:
         the precedence tile COC > tile COD > main COC > main COD (and
         likewise for QCC / QCD)."""
         tp, main = self.tiles.get(t) or _styles(), self.main
-        prog, layers, mct, cod = tp["cod"] or main["cod"]
+        prog, layers, mct, cod, _ = tp["cod"] or main["cod"]
         codings, quants = [], []
         for c in range(len(self.comps)):
             if c in tp["coc"]:
@@ -259,6 +378,24 @@ class _Header:
             else:
                 quants.append(main["qcc"].get(c, main["qcd"]))
         return prog, layers, mct, codings, quants
+
+    def packets(self, t):
+        """How tile t's packets are read: (SOP before each, EPH after
+        each header, its POC volumes (the main header's, then its own),
+        RGN shift per component, its packet headers where PPM or PPT
+        markers hold them, else None)."""
+        tp, main = self.tiles.get(t) or _styles(), self.main
+        scod = (tp["cod"] or main["cod"])[4]
+        shifts = [tp["rgn"].get(c, main["rgn"].get(c, 0))
+                  for c in range(len(self.comps))]
+        if self.ppm is not None:
+            heads = self.ppm[self.ppm_pos:]
+        elif tp["ppt"]:
+            heads = b"".join(tp["ppt"][z] for z in sorted(tp["ppt"]))
+        else:
+            heads = None
+        return (bool(scod & 2), bool(scod & 4), main["poc"] + tp["poc"],
+                shifts, heads)
 
 
 # ---------------------------------------------------------------------------
@@ -290,11 +427,15 @@ class _BitReader:
         return v
 
     def align(self):
-        """The end of a header: after 0xFF the stuffed byte is read."""
+        """The end of a header: after 0xFF the stuffed byte is read.
+        False where that byte is past the data (opj_bio_inalign fails)."""
+        ok = True
         if (self.buf & 0xFF) == 0xFF:
+            ok = self.pos < len(self.data)
             self.ct = 0
             self.bit()
         self.ct = 0
+        return ok
 
 
 class _TagTree:
@@ -391,15 +532,29 @@ def _ceildiv(a, b):
 
 class _Block:
     """A code-block: its band, position in the band's array, and what
-    the packets gave it."""
+    the packets gave it: codeword segments, each [most passes, passes,
+    bytes]."""
     __slots__ = ("band", "x0", "y0", "x1", "y1", "leaf", "included",
-                 "lblock", "planes", "passes", "chunks")
+                 "lblock", "planes", "passes", "segs")
 
     def __init__(self, band, x0, y0, x1, y1, leaf):
         self.band, self.leaf = band, leaf
         self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
         self.included, self.lblock, self.planes, self.passes = False, 3, 0, 0
-        self.chunks = []
+        self.segs = []
+
+
+def _max_passes(style, prev):
+    """The passes a new codeword segment holds (OpenJPEG's
+    opj_t2_init_seg; prev: the previous segment's, None for the first):
+    one under termination on each pass; under bypass 10 (the first: up to
+    the fourth plane's clean-up), then 2 (a raw significance and
+    refinement pair) and 1 (an MQ clean-up) in turn; else all (109)."""
+    if style & TERMALL:
+        return 1
+    if style & BYPASS:
+        return 10 if prev is None else (2 if prev in (1, 10) else 1)
+    return 109
 
 
 class _Band:
@@ -477,12 +632,23 @@ def _tile_component(tcx0, tcy0, tcx1, tcy1, cod: _Coding):
     return res
 
 
-def _packet_order(prog, layers, comps, tx0, ty0):
+def _packet_order(prog, layers, comps, tx0, ty0, pocs=()):
     """(layer, resolution, component, precinct) of every packet of a
     tile in progression order; comps: per component its resolutions.
     The position orders emit a precinct where OpenJPEG's walk over the
     canvas meets it: at its upper-left corner on the canvas, or at the
-    tile's edge for a precinct that starts before it."""
+    tile's edge for a precinct that starts before it. Under POC volumes
+    (resolution start, component start, layer end, resolution end,
+    component end, progression), each volume in turn from layer 0, a
+    packet that an earlier volume gave skipped (OpenJPEG's `include`)."""
+    if pocs:
+        seen, out = set(), []
+        for r0, c0, l1, r1, c1, p in pocs:
+            for pk in _packet_order(p, min(l1, layers), comps, tx0, ty0):
+                if r0 <= pk[1] < r1 and c0 <= pk[2] < c1 and pk not in seen:
+                    seen.add(pk)
+                    out.append(pk)
+        return out
     maxr = max(len(res) for res in comps)
     out = []
     if prog in (0, 1):
@@ -511,17 +677,33 @@ def _packet_order(prog, layers, comps, tx0, ty0):
     return out
 
 
-def _read_packets(data, order, comps, quants):
+def _read_packets(data, order, comps, quants, codings, sop=False,
+                  eph=False, heads=None, name="image"):
     """Parse the packets of a tile's data in order, giving each
-    code-block its passes and bytes; stops at the end of the data."""
-    pos = 0
+    code-block its codeword segments (their passes and bytes): an SOP
+    segment skipped before a packet where it stands, the header read from
+    the data or from `heads` (PPM / PPT), an EPH skipped after it. As in
+    OpenJPEG's opj_t2_read_packet_header and strict mode, the file is not
+    read where an EPH is missing (after any header), a length takes more
+    than 32 bits, a header that gives passes ends on 0xFF at the end of
+    its data, or a segment runs past the tile's data. Without `heads`,
+    stops at the end of the data (the rest of the packets read as
+    empty: under EPH, a missing EPH). Returns the bytes of `heads` read."""
+    pos = hpos = 0
     for l, r, c, k in order:
-        if pos >= len(data):
+        if heads is None and pos >= len(data):
+            if eph:
+                _unread("a packet header without its EPH marker", name)
             break
+        if sop and len(data) - pos >= 6 and data[pos:pos + 2] == b"\xff\x91":
+            pos += 6
+        src = data if heads is None else heads
         prc = comps[c][r]["precincts"][k]
-        br = _BitReader(data, pos)
+        br = _BitReader(src, pos if heads is None else hpos)
         got = []
-        if br.bit():
+        style = codings[c].style
+        present = br.bit()
+        if present:
             for band, blocks, cw, ch, incl, zbp in prc:
                 mb = quants[c].step(band.index)[0] + quants[c].guard - 1
                 for b in blocks:
@@ -540,14 +722,42 @@ def _read_packets(data, order, comps, quants):
                     n = _num_passes(br)
                     while br.bit():
                         b.lblock += 1
-                    length = br.bits(b.lblock + n.bit_length() - 1)
-                    b.passes += n
-                    got.append((b, length))
-        br.align()
-        pos = br.pos
-        for b, length in got:
-            b.chunks.append(data[pos:pos + length])
+                    segs = b.segs
+                    if not segs or segs[-1][1] == segs[-1][0]:
+                        segs.append([_max_passes(
+                            style, segs[-1][0] if segs else None), 0, b""])
+                    j = len(segs) - 1
+                    while True:
+                        take = min(segs[j][0] - segs[j][1], n)
+                        bits = b.lblock + take.bit_length() - 1
+                        if bits > 32:
+                            _unread(f"a {bits}-bit segment length", name)
+                        got.append((b, j, take, br.bits(bits)))
+                        n -= take
+                        if n <= 0:
+                            break
+                        segs.append([_max_passes(style, segs[j][0]), 0, b""])
+                        j += 1
+        if not br.align() and present:
+            _unread("a packet header cut at 0xFF", name)
+        hp = br.pos
+        if eph:
+            if len(src) - hp < 2 or src[hp:hp + 2] != b"\xff\x92":
+                _unread("a packet header without its EPH marker", name)
+            hp += 2
+        if heads is None:
+            pos = hp
+        else:
+            hpos = hp
+        for b, j, take, length in got:
+            if pos + length > len(data):
+                _unread("a code-block's segment past the end of its tile's "
+                        "data (OpenJPEG's strict mode)", name)
+            b.segs[j][2] += data[pos:pos + length]
+            b.segs[j][1] += take
+            b.passes += take
             pos += length
+    return hpos
 
 
 # ---------------------------------------------------------------------------
@@ -642,15 +852,19 @@ def _inverse_ict(y, u, v):
 
 def decode_components(data: bytes, name="image"):
     """Every component of a JPEG 2000 file as int32 [h, w] arrays (the
-    image area, offsets removed), with the header: (components, header,
-    JP2 colour space)."""
-    cs, space = codestream(data, name)
+    image area, offsets removed), with the header (its `palette` the JP2
+    palette, if any): (components, header, JP2 colour space)."""
+    cs, space, palette = _jp2(data, name)
     hd = _Header(cs, name)
+    hd.palette = palette
     W, H = hd.X - hd.X0, hd.Y - hd.Y0
     out = [np.zeros((H, W), np.int32) for _ in hd.comps]
     ntx = _ceildiv(hd.X - hd.XT0, hd.XT)
     nty = _ceildiv(hd.Y - hd.YT0, hd.YT)
-    for t in range(ntx * nty):
+    # as OpenJPEG decodes them: each tile once its last tile-part is read
+    # (PPM's headers are read on from tile to tile in this order)
+    tiles = [t for t in hd.order if t < ntx * nty]
+    for t in tiles + [t for t in range(ntx * nty) if t not in tiles]:
         p, q = t % ntx, t // ntx
         tx0 = max(hd.XT0 + p * hd.XT, hd.X0)
         ty0 = max(hd.YT0 + q * hd.YT, hd.Y0)
@@ -665,23 +879,48 @@ def decode_components(data: bytes, name="image"):
 def _decode_tile(hd: _Header, t, tx0, ty0, tx1, ty1):
     prog, layers, mct, codings, quants = hd.styles(t)
     if mct > 1:
-        _refuse("a Part 2 component transform", hd.name)
+        _unread("a Part 2 multiple component transform", hd.name)
+    sop, eph, pocs, shifts, heads = hd.packets(t)
     comps = [_tile_component(tx0, ty0, tx1, ty1, cod) for cod in codings]
     data = b"".join(hd.tiles[t]["parts"]) if t in hd.tiles else b""
-    _read_packets(data, _packet_order(prog, layers, comps, tx0, ty0), comps,
-                  quants)
+    order = _packet_order(prog, layers, comps, tx0, ty0, pocs)
+    if mct and len(comps) >= 3:
+        # OpenJPEG's opj_tcd_mct_decode refuses the transform (and the
+        # tile) where components 0-2 differ in resolutions, or in the
+        # highest one their packets reach
+        top = [max((r for _, r, cc, _ in order if cc == c), default=0)
+               for c in range(3)]
+        if len({len(comps[c]) for c in range(3)}) > 1 or len(set(top)) > 1:
+            _unread("a colour transform over components of different "
+                    "resolutions", hd.name)
+    used = _read_packets(data, order, comps, quants, codings, sop, eph,
+                         heads, hd.name)
+    if hd.ppm is not None:
+        hd.ppm_pos += used
     # tier-1: every code-block of the tile a lane, LANES at a time
-    blocks = [b for res in comps for rr in res for prc in rr["precincts"]
-              for part in prc for b in part[1] if b.passes]
+    blocks, comp_of = [], []
+    for c, res in enumerate(comps):
+        for rr in res:
+            for prc in rr["precincts"]:
+                for part in prc:
+                    for b in part[1]:
+                        if b.planes + shifts[c] >= 31:
+                            _unread(f"{b.planes + shifts[c]} bit-planes "
+                                    "in a code-block", hd.name)
+                        if b.passes:
+                            blocks.append(b)
+                            comp_of.append(c)
     coeffs = {id(band): np.zeros((max(band.y1 - band.y0, 0),
                                   max(band.x1 - band.x0, 0)), np.int64)
               for res in comps for rr in res for band in rr["bands"]}
     for k in range(0, len(blocks), LANES):
-        run = blocks[k:k + LANES]
+        run, cs = blocks[k:k + LANES], comp_of[k:k + LANES]
         cb = CodeBlocks([(b.y1 - b.y0, b.x1 - b.x0) for b in run],
                         [b.band.orient for b in run],
-                        [b.planes for b in run], [b.passes for b in run])
-        cb.decode([b"".join(b.chunks) for b in run])
+                        [b.planes for b in run], [b.passes for b in run],
+                        [codings[c].style for c in cs],
+                        [shifts[c] for c in cs])
+        cb.decode([[(bytes(d), n) for _, n, d in b.segs] for b in run])
         for i, b in enumerate(run):
             band = b.band
             coeffs[id(band)][b.y0 - band.y0:b.y1 - band.y0,
@@ -725,13 +964,64 @@ def _decode_tile(hd: _Header, t, tx0, ty0, tx1, ty1):
     return result
 
 
+def _apply_palette(comps, palette, name):
+    """The components after `pclr` and `cmap`, as OpenJPEG's
+    opj_jp2_check_color and opj_jp2_apply_pclr give them: a mapped
+    channel takes the entries of its palette column at the index clamped
+    to the entries, a direct one its component as it is. A one-component
+    image whose mapping leaves a column unused maps column i to channel
+    i (OpenJPEG's repair of such files)."""
+    entries, cmap = palette
+    npc = entries.shape[1]
+    used = [False] * npc
+    for i, (cmp, mtyp, pcol) in enumerate(cmap):
+        if cmp >= len(comps) or mtyp > 1 or pcol >= npc \
+                or (mtyp == 1 and (used[pcol] or pcol != i)) \
+                or (mtyp == 0 and pcol != 0):
+            _unread("a 'cmap' box that OpenJPEG refuses", name)
+        used[pcol] = True
+    if any(not used[i] and cmap[i][1] for i in range(len(cmap))):
+        _unread("a 'cmap' box that OpenJPEG refuses", name)
+    if len(comps) == 1 and not all(used):
+        cmap = [(cmp, 1, i) for i, (cmp, _, _) in enumerate(cmap)]
+    out = []
+    for i, (cmp, mtyp, pcol) in enumerate(cmap):
+        src = comps[cmp]
+        if mtyp == 0:
+            out.append(src.astype(np.int64))
+        else:
+            out.append(entries[np.clip(src, 0, len(entries) - 1), pcol])
+    return out
+
+
+def _descale(x, n):
+    """OpenCV's CV_DESCALE: x / 2^n rounded half up, in integers."""
+    return (x + (1 << (n - 1))) >> n
+
+
+def _grey(r, g, b):
+    """OpenCV's BGR2GRAY of integer samples (15-bit fixed point, the
+    coefficients of 0.299, 0.587 and 0.114)."""
+    return _descale(b * 3735 + g * 19235 + r * 9798, 15)
+
+
+def _yuv_to_rgb(y, u, v, top):
+    """OpenCV's YUV2BGR of integer samples of maximum `top` (14-bit fixed
+    point, U and V about top // 2 + 1), as (r, g, b) clamped to
+    [0, top]."""
+    d = top // 2 + 1
+    b = y + _descale((u - d) * 33292, 14)
+    g = y + _descale((u - d) * -6472 + (v - d) * -9519, 14)
+    r = y + _descale((v - d) * 18678, 14)
+    return [np.clip(x, 0, top) for x in (r, g, b)]
+
+
 def decode_jpeg2000(data: bytes, name="image") -> np.ndarray:
     """A .jp2 file or J2K code stream as OpenCV reads it: [h, w, 3] RGB
-    uint8 (components of 8 bits or fewer) or uint16 (9 to 16 bits), grey
-    replicated, alpha dropped."""
+    uint8 (8-bit components) or uint16 (9 to 16 bits), grey replicated,
+    alpha dropped; a palette's colours as their grey where the code
+    stream has one component; sYCC turned to RGB."""
     comps, hd, space = decode_components(data, name)
-    if space not in (None, 16, 17):
-        _refuse(f"the colour space {space}", name)
     n = len(comps)
     if n not in (1, 3, 4):
         raise IOError(f"Cannot load image {name}: OpenCV reads no JPEG 2000 "
@@ -743,10 +1033,26 @@ def decode_jpeg2000(data: bytes, name="image") -> np.ndarray:
         raise IOError(f"Cannot load image {name}: OpenCV reads no JPEG 2000 "
                       f"with an image offset ({hd.X0}, {hd.Y0})")
     prec = max(p for p, _ in hd.comps)
-    if prec > 16:
-        _refuse(f"{prec}-bit components", name)
+    if prec > 16 or prec < 8:
+        _unread(f"{prec}-bit components", name)
+    if space in _UNREAD_SPACES:
+        _unread(f"the colour space {_UNREAD_SPACES[space]}", name)
+    if hd.palette is not None:
+        comps = _apply_palette(comps, hd.palette, name)
     dtype = np.uint8 if prec <= 8 else np.uint16
-    img = np.stack(comps[:3] if n >= 3 else comps * 3, -1)
+    top = int(np.iinfo(dtype).max)
+    # OpenCV casts each value to its type (no clipping)
+    comps = [np.asarray(c).astype(dtype).astype(np.int64) for c in comps]
+    if n == 1:
+        if space not in (17, 18) and len(comps) >= 3:
+            comps = [_grey(*comps[:3])]
+        img = np.stack([comps[0]] * 3, -1)
+    elif len(comps) < 3:
+        img = np.stack([comps[0]] * 3, -1)
+    elif space == 18:
+        img = np.stack(_yuv_to_rgb(*comps[:3], top), -1)
+    else:
+        img = np.stack(comps[:3], -1)
     return np.ascontiguousarray(img.astype(dtype))
 
 

@@ -29,16 +29,23 @@ ReferenceBlackWhite and YCbCrCoefficients; lossless JPEGs encoded here of
 any predictor, point transform, restart interval and component count;
 cv2's baseline JPEGs re-coded arithmetically, sequential or progressive,
 with restarts and DAC conditioning; AVIF grids of cv2's tiles of random
-size, count and output size) and compare the port's decode with
+size, count and output size; OpenJPEG's own encoder through ctypes
+(scripts/make_jp2_fixtures.py) with any Part 1 code-block styles, SOP
+and EPH, quality layers, 9/7, colour transform, resolutions, code-block
+sizes, tiles and tile-parts, POC volumes, RGN, PPM or PPT rewrites,
+palettes, grey and 16-bit, sYCC, subsampled sYCC, e-sYCC and CMYK) and
+compare the port's decode with
 cv2.imdecode (arithmetic JPEG within 1 level); where cv2 reads no AVIF (a
 grey one with alpha, a matrix libavif converts nothing of, a grid it
-refuses), no PAM, no OS/2 BMP, and none of the files of the last image
-slice, the port must raise IOError.
+refuses), no PAM, no OS/2 BMP, none of the files of the last image
+slice and no file of OpenJPEG's encoder, the port must raise IOError.
 For cv2's GIF writer, compare cv2's read-back of the port's `encode_gif`
 with that of cv2's own file. Needs cv2 and Pillow. Run from the
 repository's root:
 
     python scripts/torch_image_fuzz.py --seed 1 --seconds 60
+
+(`--openjpeg`: OpenJPEG's files only.)
 
 It prints each mismatch and one closing line of counts, and exits 1 if
 any file differed.
@@ -62,6 +69,7 @@ from make_image_fixtures import (_pil_ccitt, arith_jpeg, avif_grid,  # noqa
                                  logluv_tiff, lossless_jpeg, with_short_tag,
                                  ycbcr_tiff)
 from ignis_tpu_torch.utils.jpeg import decode_jpeg  # noqa: E402
+import make_jp2_fixtures as opj  # noqa: E402
 
 FLAGS = cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH | cv2.IMREAD_ANYCOLOR
 
@@ -109,7 +117,7 @@ def one_case(rng):
     h, w = (int(v) for v in rng.integers(1, 90, 2))
     img = random_image(rng, h, w)
     bgr = np.ascontiguousarray(img[..., ::-1])
-    kind = rng.integers(0, 19)
+    kind = rng.integers(0, 20)
     if kind >= 13:
         return REST_CASES[kind - 13](rng, h, w, img)
     if kind == 12:
@@ -512,25 +520,150 @@ def grid_case(rng, h, w, img):
                       bool(rng.integers(0, 2))), strict_avif)
 
 
+def strict_jp2(data):
+    return jpeg2000.decode_jpeg2000(data)
+
+
+def forked(fn, *args, **kw):
+    """fn(*args, **kw)'s bytes, made in a child process: OpenJPEG's
+    encoder aborts on some options (assertions in its DWT and bit
+    writer), which would end the run. None where the child failed."""
+    import os
+    rd, wr = os.pipe()
+    pid = os.fork()
+    if pid == 0:
+        os.close(rd)
+        code = 1
+        try:
+            data = fn(*args, **kw)
+            with os.fdopen(wr, "wb") as f:
+                f.write(data)
+            code = 0
+        finally:
+            os._exit(code)
+    os.close(wr)
+    with os.fdopen(rd, "rb") as f:
+        data = f.read()
+    _, status = os.waitpid(pid, 0)
+    return data if status == 0 else None
+
+
+def opj_case(rng, h, w, img):
+    """A random file of OpenJPEG's own encoder (at least 8 pixels a
+    side): RGB, grey or 16-bit grey, sYCC (subsampled a third of the
+    time), e-sYCC or CMYK, or an 8-bit index under a palette; any Part 1
+    code-block styles, SOP / EPH, 1-3 quality layers, 9/7 and the colour
+    transform, resolutions, code-block sizes, tiles, tile-parts, RGN,
+    POC volumes split by resolution and component (the splits its
+    encoder writes whole, in tile-parts by layer), and an SOP+EPH file's
+    headers moved to PPM or PPT."""
+    h, w = max(h, 8), max(w, 8)
+    img = random_image(rng, h, w).astype(np.int32)
+    kind = rng.random()
+    if kind < 0.08:
+        pal = rng.integers(0, 256, (int(rng.integers(1, 257)), 3))
+        idx = rng.integers(0, min(len(pal) + 2, 256), (h, w))
+        data = forked(opj.palette_jp2, idx.astype(np.int32), 8, pal, 8)
+        if data is None:        # sizes OpenJPEG's encoder refuses
+            return opj_case(rng, h, w, img)
+        return f"OpenJPEG palette {len(pal)} {h}x{w}", data, strict_jp2
+    comps, space, prec, sub, size = opj.planes(img), opj.SRGB, 8, None, None
+    if kind < 0.25:
+        comps, space = comps[:1], opj.GREY
+        if rng.random() < 0.4:
+            comps, prec = [comps[0] * 257], 16
+    elif kind < 0.35:
+        space = opj.SYCC
+        if rng.random() < 0.3:
+            comps = [comps[0], comps[1][::2, ::2], comps[2][::2, ::2]]
+            sub, size = [(1, 1), (2, 2), (2, 2)], (h, w)
+    elif kind < 0.4:
+        space = opj.EYCC if rng.random() < 0.5 else opj.CMYK
+        if space == opj.CMYK:
+            comps = comps + [comps[0] // 2]
+    kw = dict(mode=int(rng.integers(0, 64)),
+              csty=int(rng.choice([0, 2, 4, 6, 6])),
+              numres=int(rng.integers(1, 1 + min(6, int(np.log2(min(h, w)))))),
+              cblk=tuple(int(2 ** v) for v in rng.integers(2, 7, 2)),
+              prog=int(rng.integers(0, 5)))
+    if kw["cblk"][0] * kw["cblk"][1] > 4096:
+        kw["cblk"] = (64, 64)
+    if rng.random() < 0.5:
+        kw["layers"] = tuple(sorted((float(rng.uniform(2, 60))
+                                     for _ in range(rng.integers(1, 3))),
+                                    reverse=True)) + (0.0,) * int(
+                                        rng.integers(0, 2))
+    if len(comps) >= 3 and sub is None and space == opj.SRGB:
+        kw["mct"] = int(rng.integers(0, 2))
+    if rng.random() < 0.3 and sub is None:
+        # untiled, every level at least 2 samples: OpenJPEG 2.5.4's 9/7
+        # encoder aborts on a level of one sample
+        kw["irreversible"] = True
+        kw["numres"] = max(1, min(kw["numres"],
+                                  int(np.log2(min(h, w))) - 1))
+    elif rng.random() < 0.3:
+        kw["tiles"] = tuple(int(v) for v in rng.integers(16, 64, 2))
+    if rng.random() < 0.3:
+        kw["roi"] = (int(rng.integers(0, len(comps))),
+                     int(rng.integers(1, 8)))
+    ntiles = 1
+    if "tiles" in kw:
+        ntiles = -(-w // kw["tiles"][0]) * -(-h // kw["tiles"][1])
+    if rng.random() < 0.3 and 3 * ntiles <= 32:
+        nl, nr = len(kw.get("layers", (0,))), kw["numres"]
+        r = int(rng.integers(0, nr + 1))
+        c = int(rng.integers(0, len(comps) + 1))
+        vols = [(0, 0, nl, r, len(comps), int(rng.integers(0, 5))),
+                (r, 0, nl, nr, c, int(rng.integers(0, 5))),
+                (r, c, nl, nr, len(comps), int(rng.integers(0, 5)))]
+        vols = [v for v in vols if v[0] < v[3] and v[1] < v[4]]
+        kw["pocs"] = [v + (t,) for t in range(1, ntiles + 1)
+                      for v in vols]
+        if rng.random() < 0.5:
+            kw["tileparts"] = "L"
+    elif rng.random() < 0.3:
+        kw["tileparts"] = str(rng.choice(["R", "L", "C"]))
+    data = forked(opj.encode, comps, space=space, prec=prec, sub=sub,
+                  size=size, **kw)
+    if data is None:            # options OpenJPEG's encoder refuses
+        return opj_case(rng, h, w, img)
+    pack = None
+    if kw["csty"] == 6 and rng.random() < 0.5:
+        try:
+            data, pack = opj.packed(data, str(rng.choice(["ppm", "ppt"]))), \
+                "packed"
+        except ValueError:      # a stream the encoder cut short
+            pass
+    return (f"OpenJPEG {kw} space {space} prec {prec} sub {sub} {pack} "
+            f"{h}x{w}", data, strict_jp2)
+
+
 REST_CASES = (logluv_case, ccitt_case, ycbcr_case, lossless_case,
-              arith_case, grid_case)
-STRICT = (strict_tiff, strict_jpeg, near_jpeg, strict_avif)
+              arith_case, grid_case, opj_case)
+STRICT = (strict_tiff, strict_jpeg, near_jpeg, strict_avif, strict_jp2)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--seconds", type=float, default=60.0)
+    ap.add_argument("--openjpeg", action="store_true",
+                    help="only files of OpenJPEG's own encoder")
     args = ap.parse_args()
     rng = np.random.default_rng(args.seed)
-    files = bad = avifs = written = rest = 0
+    files = bad = avifs = written = rest = opjs = 0
     end = time.perf_counter() + args.seconds
     while time.perf_counter() < end:
-        label, data, other = one_case(rng)
+        if args.openjpeg:
+            h, w = (int(v) for v in rng.integers(8, 90, 2))
+            label, data, other = opj_case(rng, h, w, None)
+        else:
+            label, data, other = one_case(rng)
         written += label.startswith("AVIF writer")
         want = cv2_rgb(data)
         avifs += other is avif.decode_avif
         rest += other in STRICT
+        opjs += other is strict_jp2
         if want is None and other in (avif.decode_avif, imagelib.decode_pam,
                                       imagelib.decode_bmp) + STRICT:
             files += 1
@@ -559,8 +692,8 @@ def main() -> int:
             print(f"mismatch: {label}: pixels differ")
     print(f"{files} files ({avifs} AVIF, {written} of them from the port's "
           f"AVIF writer; {rest} of the last slice's kinds: LogLuv, CCITT, "
-          f"YCbCr, lossless and arithmetic JPEG, AVIF grids), {bad} "
-          f"differed from cv2")
+          f"YCbCr, lossless and arithmetic JPEG, AVIF grids, OpenJPEG's "
+          f"files; {opjs} of OpenJPEG's), {bad} differed from cv2")
     return 1 if bad else 0
 
 

@@ -503,6 +503,10 @@ def test_texture_phase_on_card(device, tmp_path):
     assert sorted(out["writers"]) == sorted(chip_smoke.WRITER_SUFFIXES)
     assert out["avif_512"]["write_s"] > 0
     assert out["s1_film_avif"]["psnr_db"] >= 20.0
+    jp2 = out["jp2_texture"]
+    assert jp2["bit_equal"] and jp2["captured"] and jp2["finite"]
+    assert all(v.startswith("Cannot load image")
+               for v in out["unread"].values())
     envs = out["logluv_env"]["maps"]
     assert sorted(envs) == sorted(chip_smoke.LOGLUV_ENVS)
     assert all(r["bit_equal"] and r["captured"] and r["finite"]

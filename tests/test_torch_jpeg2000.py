@@ -92,11 +92,23 @@ def test_jpeg2000_fixture_matches_cv2(name):
 def test_jpeg2000_fixture_set():
     """The JPEG 2000 fixtures: cv2's default (cut by rate 4, its code
     stream within h * w * 3 / 4 bytes), lossless 16-bit and grey files,
-    and Pillow's 9/7 layered, tiled and RGBA files."""
+    Pillow's 9/7 layered, tiled and RGBA files, and OpenJPEG's own
+    (scripts/make_jp2_fixtures.py): every Part 1 code-block style, SOP,
+    EPH, POC, RGN, PPM, PPT, palettes and sYCC."""
     assert JP2_FIXTURES == sorted([
         "cv2_default.jp2", "cv2_lossless_16bit.jp2", "cv2_grey.jp2",
         "pil_irreversible_layers.jp2", "pil_tiles_precincts.j2k",
-        "pil_rgba_pcrl.jp2"])
+        "pil_rgba_pcrl.jp2",
+        "opj_style01.jp2", "opj_style02.jp2", "opj_style04.jp2",
+        "opj_style08.jp2", "opj_style10.jp2", "opj_style20.jp2",
+        "opj_style3f.jp2", "opj_bypass_termall_53.jp2",
+        "opj_bypass_termall_97.jp2", "opj_sop.jp2", "opj_eph.jp2",
+        "opj_sop_eph.jp2", "opj_poc.jp2", "opj_poc_tileparts.jp2",
+        "opj_rgn_comp0.jp2", "opj_rgn_all.jp2",
+        "opj_grey16_bypass_rgn.jp2", "opj_ppm.jp2", "opj_ppt.jp2",
+        "opj_palette8.jp2", "opj_palette16_index.jp2",
+        "opj_palette16_entries.jp2", "opj_sycc.jp2",
+        "opj_texture_64.jp2"])
     data = (FIXTURES / "cv2_default.jp2").read_bytes()
     src = np.load(FIXTURES / "cv2_pixels.npz")["cv2_default.jp2"]
     h, w = src.shape[:2]
@@ -218,14 +230,21 @@ def test_image_and_tile_offsets_match_openjpeg(kw):
         jpeg2000.decode_jpeg2000(data)
 
 
-@pytest.mark.parametrize("what", ["two_components", "signed", "precinct"])
+@pytest.mark.parametrize("what", ["two_components", "signed", "precinct",
+                                  "subsampling"])
 def test_files_cv2_does_not_read_raise_ioerror(what):
-    """A two-component (grey and alpha) file, a signed one and one with a
-    2^0 precinct above resolution 0 (Pillow's precinct_size=(16, 16)),
+    """A two-component (grey and alpha) file, a signed one, one with a
+    2^0 precinct above resolution 0 (Pillow's precinct_size=(16, 16)) and
+    cv2's own file with its second component's SIZ subsampling set to 2,
     which cv2 refuses: decode_jpeg2000 raises IOError, as ignis_tpu
     raises for cv2.imread's None."""
     img = _photo(33, 35, 9)
-    if what == "signed":
+    if what == "subsampling":
+        data = bytearray(cv2.imencode(".jp2", _photo(32, 32, 1))[1].tobytes())
+        cs = data.index(b"\xff\x4f\xff\x51")
+        data[cs + 4 + 38 + 1] = 2
+        data = bytes(data)
+    elif what == "signed":
         data = _pil(img[..., 0], signed=True)
     elif what == "precinct":
         data = _pil(img, precinct_size=(16, 16))
@@ -249,43 +268,30 @@ def _with_marker(data: bytes, marker: bytes) -> bytes:
 
 
 def _refused(what):
-    """A small file with one refused feature set."""
+    """A small file with one HTJ2K feature set."""
     data = bytearray(cv2.imencode(".jp2", _photo(32, 32, 1))[1].tobytes())
     cs = data.index(b"\xff\x4f\xff\x51")
     cod = data.index(b"\xff\x52", cs)
-    if what in ("SOP", "EPH"):
-        data[cod + 4] |= 2 if what == "SOP" else 4
-    elif what.startswith("style"):
+    if what.startswith("style"):
         data[cod + 12] |= int(what[5:], 16)
-    elif what == "subsampling":
-        data[cs + 4 + 38 + 1] = 2
     elif what == "Rsiz":
         data[cs + 6] |= 0x40
-    elif what == "palette":
-        jp2h = data.index(b"jp2h")
-        data[jp2h + 30:jp2h + 34] = b"pclr"
     else:
-        code = {"CAP": 0xFF50, "RGN": 0xFF5E, "POC": 0xFF5F,
-                "PPM": 0xFF60, "PPT": 0xFF61}[what]
+        code = {"CAP": 0xFF50, "CPF": 0xFF59}[what]
         return _with_marker(bytes(data), struct.pack(">HH", code, 4)
                             + b"\0\0")
     return bytes(data)
 
 
-REFUSED = {"SOP": "SOP", "EPH": "EPH", "style01": "bypass",
-           "style02": "reset", "style04": "termination on each pass",
-           "style08": "vertically causal", "style10": "predictable",
-           "style20": "segmentation", "style40": "HTJ2K",
-           "subsampling": "subsampling", "Rsiz": "HTJ2K", "CAP": "CAP",
-           "RGN": "RGN", "POC": "POC", "PPM": "PPM", "PPT": "PPT",
-           "palette": "palette"}
+REFUSED = {"style40": "HTJ2K", "Rsiz": "HTJ2K", "CAP": "CAP", "CPF": "CPF"}
 
 
 @pytest.mark.parametrize("what", sorted(REFUSED))
 def test_refused_features_raise_by_name(tmp_path, what):
-    """Each feature no writer here makes (code-block styles, SOP / EPH,
-    POC, PPM / PPT, RGN, subsampling, HTJ2K, palettes) raises
-    NotImplementedError naming it and the file, found by content."""
+    """HTJ2K (Part 15), which no encoder here writes: its code-block
+    style bit, its Rsiz bit and its CAP and CPF markers raise
+    NotImplementedError naming it and the file, found by content. Every
+    Part 1 feature is read (tests/test_torch_jpeg2000_rest.py)."""
     p = tmp_path / "refused.dat"
     p.write_bytes(_refused(what))
     with pytest.raises(NotImplementedError, match=REFUSED[what]):
@@ -312,7 +318,7 @@ def test_mq_coder_round_trip():
     streams, at = ebcot.mq_encode(ctx, sym, marks)
     assert np.all(np.diff(at, axis=1) >= 0)
     assert all(at[i, -1] <= len(s) for i, s in enumerate(streams))
-    dec = ebcot._MQDecoder(streams)
+    dec = ebcot._MQDecoder([[s] for s in streams])
     lanes = dec.lanes(np.arange(n))
     for t in range(T):
         on = ctx[:, t] >= 0
@@ -341,14 +347,16 @@ def test_tier1_round_trip_and_truncation(monkeypatch, tail):
     passes = [3 * p - 2 for p in planes]
     enc = ebcot.CodeBlocks(shapes, orient, planes, passes)
     streams, rates = enc.encode(coeffs)
-    dec = ebcot.CodeBlocks(shapes, orient, planes, passes).decode(streams)
+    dec = ebcot.CodeBlocks(shapes, orient, planes, passes).decode(
+        [[(s, p)] for s, p in zip(streams, passes)])
     for i, c in enumerate(coeffs):
         v = dec.block(i)
         np.testing.assert_array_equal(np.sign(v) * (np.abs(v) >> 1), c)
     for k in (1, 2, 6):
         ps = [min(k, p) for p in passes]
         cut = [s[:r[q - 1]] for s, r, q in zip(streams, rates, ps)]
-        d = ebcot.CodeBlocks(shapes, orient, planes, ps).decode(cut)
+        d = ebcot.CodeBlocks(shapes, orient, planes, ps).decode(
+            [[(s, p)] for s, p in zip(cut, ps)])
         for i, c in enumerate(coeffs):
             err = ((np.abs(c) - (np.abs(d.block(i)) >> 1)) ** 2).sum()
             assert err == enc.dist[i, ps[i]], (k, i)
