@@ -170,26 +170,28 @@ printing its own lines; any failure exits non-zero:
 16. the image files ignis_tpu reads and writes through OpenCV
    (`phase_textures`): the fixtures of tests/data/images (JPEGs, BMPs
    with OS/2's, TIFFs of every sample type, layout and codec, PPM, PAMs,
-   PFM, GIFs, lossless and lossy WebPs, JPEG 2000 and AVIF files of cv2
-   and Pillow with every colour matrix, Radiance .pic, Sun raster, a
-   JPEG named .png)
+   PFM, GIFs, lossless and lossy WebPs, JPEG 2000 (HTJ2K too) and AVIF
+   files of cv2, Pillow and the HT encoder with every colour matrix,
+   Radiance .pic, Sun raster, a JPEG named .png)
    decoded and held to cv2's pixels (cv2_pixels.npz); every save_image
    suffix written and read back (.jp2 within cv2's byte budget and PSNR,
    .avif within cv2's bars of tests/data/avif_bars.json: base_q_idx 148,
    PSNR less 0.5 dB, twice the AV1 payload); the 1024 x 1024 WebP,
    progressive JPEG, JPEG 2000 and AVIF decodes timed (the AVIF seconds on
-   a line of their own), a 512 x 512 .jp2 and .avif and a 4,160 x 16
-   .avif (two AV1 tiles) written and read back (each .avif held to cv2's
-   bars and tile layout for it, its write seconds on a line of their
-   own); S1's film of one captured step saved as .avif and read
-   back; and a scene textured with the fixtures and that film rendered by
-   one captured step: finite, not black, and bit-equal to the same scene
+   a line of their own), and a 1024 x 1024 lossy HTJ2K file's, a 512 x
+   512 .jp2, a 256 x 256 .avif and a 4,160 x 16 .avif (two AV1 tiles)
+   written and read back (each .avif held to cv2's bars and tile layout
+   for it, its write seconds on a line of their own); S1's film of one
+   captured step, cropped to 128 x 128, saved as .avif and read back; and
+   a scene textured with the fixtures and that film rendered by one
+   captured step: finite, not black, and bit-equal to the same scene
    textured with PNG (and EXR) twins of the decoded pixels; OpenJPEG's
    64 x 64 .jp2 (bypass, termination on each pass, SOP / EPH, POC, PPT)
-   loaded through load_image as the texture of a small scene rendered by
-   one captured step, bit-equal to its PNG twin (its decode seconds and
-   launches on a line of their own), and the JPEG 2000 files cv2 reads
-   nothing of refused with IOError;
+   and the HT encoder's (three passes over two layers, tiles, CAP, CPF)
+   each loaded through load_image as the texture of a small scene
+   rendered by one captured step, bit-equal to its PNG twin (its decode
+   seconds and launches on a line of their own), and the JPEG 2000 files
+   cv2 reads nothing of refused with IOError;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
 function, that call's time), the nvidia-smi line again, and as the last
@@ -4858,7 +4860,7 @@ JP2_PSNR = ROOT / "tests" / "data" / "jp2_psnr.json"
 # file reaches that PSNR less 0.5 dB within twice the payload, at 148
 AVIF_BARS = ROOT / "tests" / "data" / "avif_bars.json"
 AVIF_SOURCE = "cv2_lossless.webp"
-AVIF_CROP = "smooth_lossless.webp[:512, :512]"
+AVIF_CROP = "smooth_lossless.webp[:256, :256]"
 # a source wider than one AV1 tile (4,096 pixels a row): cv2's file of it
 # has two tile columns, and so must the port's (AVIF_BARS holds cv2's
 # tile_cols_log2 and tile_rows_log2 beside its figures)
@@ -4935,6 +4937,18 @@ def texture_scene(size=128, files=None, extra=()):
                         "radiance": [0.3, 0.3, 0.3]}]}
 
 
+# the 1024 x 1024 HTJ2K timing file (ht_decode_timing): its 9/7 step,
+# the least PSNR its decode must reach against its source, and the
+# SHA-256 of the file scripts/htj2k_encoder.py writes and of cv2's
+# pixels of it (cv2 5.0.0; the file is not in the repository)
+HT_1024_STEP = 0.2
+HT_1024_PSNR = 45.0
+HT_1024 = {"file_sha256": "9708a6cbf92096a7a29898f51045303edcc9eaa9527e5624a"
+                          "e0d6b7ab1ff98a0",
+           "cv2_sha256": "514f96dcf83046d6113ada8d1ddce5c379e78040532b5d3cc9"
+                         "8541009f33e874"}
+
+
 # the 256 x 128 substitute environment map as cv2 writes it in SGI LogLuv
 # (scripts/make_image_fixtures.py): the HDR maps phase 16 lights with
 LOGLUV_ENVS = ("env_sgilog_256x128.tif", "env_sgilog24_256x128.tif")
@@ -4969,6 +4983,10 @@ def logluv_env_scene(env_file, size=64):
 # markers (scripts/make_jp2_fixtures.py): the texture of a scene of its
 # own in phase 16; and the JPEG 2000 files cv2 reads nothing of
 JP2_TEXTURE = "opj_texture_64.jp2"
+# the hand-written HT encoder's 64 x 64 file (three passes over two
+# layers, 2 x 2 tiles, CAP and CPF; scripts/make_htj2k_fixtures.py): the
+# texture of the same scene in a second step
+HT_TEXTURE = "ht_texture_64.jp2"
 UNREAD_FIXTURES = ROOT / "tests" / "data" / "images_unread"
 
 
@@ -4993,23 +5011,24 @@ def jp2_texture_scene(texture, size=64):
                         "radiance": [0.3, 0.3, 0.3]}]}
 
 
-def jp2_texture_step(device, out_dir, size=64):
-    """JP2_TEXTURE decoded (decode_samples) and loaded (load_image) on
-    the host, each timed, then jp2_texture_scene loaded on `device` and
-    one step rendered, the first a captured one on the card; its film
-    held bit-equal to that of the same scene textured by a PNG of the
-    pixels decode_samples gave."""
+def jp2_texture_step(device, out_dir, size=64, name=JP2_TEXTURE):
+    """The JPEG 2000 texture `name` (JP2_TEXTURE, or HT_TEXTURE)
+    decoded (decode_samples) and loaded (load_image) on the host, each
+    timed, then jp2_texture_scene loaded on `device` and one step
+    rendered, the first a captured one on the card; its film held
+    bit-equal to that of the same scene textured by a PNG of the pixels
+    decode_samples gave."""
     import torch
     import ignis_tpu_torch
     from ignis_tpu_torch.utils.image import (decode_samples, encode_png,
                                              load_image)
-    path = IMAGE_FIXTURES / JP2_TEXTURE
+    path = IMAGE_FIXTURES / name
     t0 = time.perf_counter()
     px = decode_samples(path)
     t1 = time.perf_counter()
     img = load_image(path)
     t2 = time.perf_counter()
-    twin = Path(out_dir) / f"{JP2_TEXTURE}.png"
+    twin = Path(out_dir) / f"{name}.png"
     twin.write_bytes(encode_png(px))
     films, used = [], None
     for tex in (path, twin):
@@ -5035,8 +5054,9 @@ def jp2_texture_step(device, out_dir, size=64):
 
 def unread_refusals():
     """Each JPEG 2000 file cv2 reads nothing of (tests/data/images_unread:
-    subsampled, e-sYCC, CMYK, Part 2 transform, 17 and 4 bits) through
-    decode_samples: the IOError's message by file ('read' where none)."""
+    subsampled, e-sYCC, CMYK, Part 2 transform, 17 and 4 bits, and the HT
+    files of scripts/make_htj2k_fixtures.py) through decode_samples: the
+    IOError's message by file ('read' where none)."""
     from ignis_tpu_torch.utils.image import decode_samples
     out = {}
     for p in sorted(UNREAD_FIXTURES.iterdir()):
@@ -5197,12 +5217,49 @@ def jp2_writer_timing(out_dir, src=None, size=512):
             "read_s": t2 - t1}
 
 
+def ht_decode_timing(out_dir, src):
+    """A 1024 x 1024 lossy HTJ2K file of the smooth timing image (src:
+    smooth_lossless.webp's pixels: the 9/7 and the ICT, the cleanup pass
+    only, written by scripts/htj2k_encoder.py into out_dir, not kept in
+    the repository) decoded by decode_samples: timed, and held to its
+    source within HT_1024_PSNR dB; where the file is byte for byte the one
+    whose SHA-256 HT_1024 records, to the SHA-256 of cv2's pixels of it."""
+    import hashlib
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import htj2k_encoder
+    from ignis_tpu_torch.utils.image import decode_samples
+    t0 = time.perf_counter()
+    data = htj2k_encoder.encode(
+        [src[..., c].astype(np.int64) for c in range(3)], reversible=False,
+        mct=True, base_step=HT_1024_STEP, jp2=True)
+    enc_s = time.perf_counter() - t0
+    p = out_dir / "timing_1024_ht.jp2"
+    p.write_bytes(data)
+    t0 = time.perf_counter()
+    px = decode_samples(p)
+    sec = time.perf_counter() - t0
+    psnr = float(10 * np.log10(255.0 ** 2 / max(np.mean(
+        (px.astype(np.float64) - src) ** 2), 1e-12)))
+    same = hashlib.sha256(data).hexdigest() == HT_1024["file_sha256"]
+    exact = hashlib.sha256(px.tobytes()).hexdigest() == HT_1024["cv2_sha256"]
+    check(px.shape == src.shape and psnr >= HT_1024_PSNR
+          and (exact or not same),
+          f"1024 x 1024 HTJ2K ({len(data)} bytes, encoded in {enc_s:.2f} s"
+          f"): decoded in {sec:.3f} s, PSNR {psnr:.2f} dB >= "
+          f"{HT_1024_PSNR} against its source; "
+          + ("the recorded file, its pixels cv2's (SHA-256)" if same else
+             "not the recorded file (another numpy's float rounding?), so "
+             "not held to cv2's SHA-256"))
+    return {"bytes": len(data), "encode_s": enc_s, "decode_s": sec,
+            "psnr_db": psnr, "recorded_file": same, "cv2_exact": exact}
+
+
 def avif_writer_timing(out_dir, src):
-    """save_image of the 512 x 512 crop of the smooth timing image (src:
+    """save_image of the 256 x 256 crop of the smooth timing image (src:
     smooth_lossless.webp's pixels) as .avif, and its read back: both
     timed, the file held to cv2's bars for the crop (AVIF_CROP)."""
     from ignis_tpu_torch.utils import image as imagelib
-    size = 512
+    size = 256
     crop = np.ascontiguousarray(src[:size, :size])
     lin = imagelib.srgb_to_linear(crop / np.float32(255.0)).astype(
         np.float32)
@@ -5240,17 +5297,19 @@ def wide_avif_timing(out_dir):
             "psnr_db": psnr, "write_s": t1 - t0, "read_s": t2 - t1}
 
 
-def film_as_avif(rt, out_dir):
-    """One captured step of `rt` (S1), its film saved as .avif by
-    save_image and read back by load_image: finite, the shape of the film,
-    its 8-bit pixels at a PSNR of at least 20 dB against the film's own
-    sRGB encoding (a sanity bar: cv2 has no figure for this film). Returns
-    the file, its decoded pixels and the figures."""
+def film_as_avif(rt, out_dir, crop=128):
+    """One captured step of `rt` (S1), its film cropped to `crop` x `crop`
+    and saved as .avif by save_image and read back by load_image: finite,
+    the shape of the crop, its 8-bit pixels at a PSNR of at least 20 dB
+    against the crop's own sRGB encoding (a sanity bar: cv2 has no figure
+    for this film). Returns the file, its decoded pixels and the
+    figures."""
     from ignis_tpu_torch.utils.image import (decode_samples, linear_to_srgb,
                                              load_image, save_image)
     check(rt.captured, "S1: its step is captured")
     rt.step()
-    film = rt.framebuffer(normalized=True).cpu().numpy()
+    film = np.ascontiguousarray(
+        rt.framebuffer(normalized=True).cpu().numpy()[:crop, :crop])
     path = out_dir / "s1_film.avif"
     t0 = time.perf_counter()
     save_image(path, film)
@@ -5263,7 +5322,8 @@ def film_as_avif(rt, out_dir):
         (px.astype(np.float64) - ldr) ** 2), 1e-12)))
     check(px.shape == ldr.shape and bool(np.isfinite(lin).all())
           and psnr >= 20.0,
-          f"S1's {film.shape[1]} x {film.shape[0]} film saved as .avif "
+          f"S1's film cropped to {film.shape[1]} x {film.shape[0]} saved as "
+          f".avif "
           f"({path.stat().st_size} bytes) in {t1 - t0:.2f} s, read back by "
           f"load_image in {t2 - t1:.3f} s: PSNR {psnr:.2f} dB >= 20 against "
           f"its 8-bit sRGB")
@@ -5277,16 +5337,20 @@ def phase_textures(device, build_dir=None, s1=None):
     the others exactly); every save_image suffix written and read back
     (writers_round_trip, on the pixels of cv2's lossless WebP fixture,
     .jp2 on cv2_q80.webp's); the 1024 x 1024 WebP, JPEG, JPEG 2000 and
-    AVIF decodes timed (decode_timing), a 512 x 512 .jp2 and .avif and a
-    4,160 x 16 .avif (two tiles) written and read back (jp2_writer_timing,
-    avif_writer_timing, wide_avif_timing), and, given `s1`
-    (S1's runtime), one captured step of it whose film is saved as .avif
-    and read back (film_as_avif) to texture one more rectangle; then
+    AVIF decodes timed (decode_timing) and a 1024 x 1024 HTJ2K file's
+    (ht_decode_timing), a 512 x 512 .jp2, a 256 x 256 .avif and a 4,160 x
+    16 .avif (two tiles) written and read back (jp2_writer_timing,
+    avif_writer_timing, wide_avif_timing), and, given `s1` (S1's
+    runtime), one captured step of it whose film, cropped to 128 x 128, is
+    saved as .avif and read back (film_as_avif) to texture one more
+    rectangle; then
     texture_scene loaded onto the card and one captured step rendered:
     finite, not black, no texture refused, and its film bit-equal to
     that of the same scene with each texture replaced by a PNG of its
     decoded 8-bit pixels (16-bit and float textures: an EXR of the image
-    load_image gives)."""
+    load_image gives); the LogLuv environment step, the JPEG 2000 and
+    HTJ2K texture steps (jp2_texture_step), and the files cv2 reads
+    nothing of (unread_refusals)."""
     import torch
     import ignis_tpu_torch
     from ignis_tpu_torch.utils.image import (decode_samples, encode_png,
@@ -5327,14 +5391,20 @@ def phase_textures(device, build_dir=None, s1=None):
     print(f"  512 x 512 .jp2 on the card's host: written in "
           f"{jp2_512['write_s']:.3f} s ({jp2_512['bytes']} bytes), read "
           f"back in {jp2_512['read_s']:.3f} s")
-    avif_512 = avif_writer_timing(build_dir,
+    ht_1024 = ht_decode_timing(build_dir, pixels_1024["smooth_lossless.webp"])
+    print(f"  1024 x 1024 HTJ2K on the card's host: decoded in "
+          f"{ht_1024['decode_s']:.3f} s ({ht_1024['bytes']} bytes, "
+          f"{ht_1024['psnr_db']:.2f} dB; .jp2 beside it: "
+          f"{timing['smooth_default.jp2']:.3f} s), encoded by the fixture "
+          f"encoder in {ht_1024['encode_s']:.2f} s")
+    avif_256 = avif_writer_timing(build_dir,
                                   pixels_1024["smooth_lossless.webp"])
-    cv2_512 = json.loads(AVIF_BARS.read_text())[AVIF_CROP]
-    print(f"  512 x 512 .avif on the card's host: written in "
-          f"{avif_512['write_s']:.2f} s ({avif_512['bytes']} bytes, "
-          f"{avif_512['psnr_db']:.3f} dB; cv2's: {cv2_512['file_bytes']} "
-          f"bytes, {cv2_512['psnr_db']:.3f} dB), read back in "
-          f"{avif_512['read_s']:.3f} s")
+    cv2_256 = json.loads(AVIF_BARS.read_text())[AVIF_CROP]
+    print(f"  256 x 256 .avif on the card's host: written in "
+          f"{avif_256['write_s']:.2f} s ({avif_256['bytes']} bytes, "
+          f"{avif_256['psnr_db']:.3f} dB; cv2's: {cv2_256['file_bytes']} "
+          f"bytes, {cv2_256['psnr_db']:.3f} dB), read back in "
+          f"{avif_256['read_s']:.3f} s")
     avif_wide = wide_avif_timing(build_dir)
     cv2_wide = json.loads(AVIF_BARS.read_text())[WIDE_AVIF]
     print(f"  4160 x 16 .avif on the card's host: written in "
@@ -5348,7 +5418,8 @@ def phase_textures(device, build_dir=None, s1=None):
         extra = [path.name]
         twins[path.name] = build_dir / f"{path.name}.png"
         twins[path.name].write_bytes(encode_png(px))
-        print(f"  S1's film as .avif on the card's host: written in "
+        print(f"  S1's film (128 x 128 crop) as .avif on the card's host: "
+              f"written in "
               f"{film_avif['write_s']:.2f} s ({film_avif['bytes']} bytes, "
               f"{film_avif['psnr_db']:.2f} dB against its 8-bit sRGB)")
     files = {name: build_dir / name for name in extra}
@@ -5385,28 +5456,33 @@ def phase_textures(device, build_dir=None, s1=None):
         print(f"  LogLuv environment map on the card's host: {name} "
               f"decoded in {row['decode_s']:.4f} s (max radiance "
               f"{row['max']:.6g})")
-    jp2 = jp2_texture_step(device, build_dir)
-    check(jp2["device"].startswith("cuda") and jp2["captured"]
-          and jp2["finite"] and jp2["film_mean"] > 0 and jp2["bit_equal"]
-          and jp2["launches"]["K2"] > 0
-          and jp2["launches"]["K3_gather_rows"] > 0
-          and jp2["launches"]["K1"] == 0,
-          f"{JP2_TEXTURE}: its scene rendered by one captured step on "
-          f"{jp2['device']}, film mean {jp2['film_mean']:.4g} > 0, "
-          f"bit-equal to its PNG twin's, K2 and K3 launched, K1 not (no "
-          f"BVH)")
-    print(f"  JPEG 2000 texture on the card's host: {JP2_TEXTURE} "
-          f"{jp2['shape']} decoded in {jp2['decode_s']:.4f} s, load_image "
-          f"{jp2['load_image_s']:.4f} s; its scene's captured step on "
-          f"{jp2['device']}: launches {jp2['launches']}")
-    opj = {k: v["seconds"] for k, v in decoded.items()
-           if k.startswith("opj_")}
-    print(f"  OpenJPEG's {len(opj)} fixtures decoded exactly on the card's "
-          f"host in {sum(opj.values()):.3f} s (slowest "
-          f"{max(opj, key=opj.get)} {max(opj.values()):.3f} s)")
+    steps = {}
+    for name, what in ((JP2_TEXTURE, "JPEG 2000"), (HT_TEXTURE, "HTJ2K")):
+        jp2 = steps[name] = jp2_texture_step(device, build_dir, name=name)
+        check(jp2["device"].startswith("cuda") and jp2["captured"]
+              and jp2["finite"] and jp2["film_mean"] > 0
+              and jp2["bit_equal"] and jp2["launches"]["K2"] > 0
+              and jp2["launches"]["K3_gather_rows"] > 0
+              and jp2["launches"]["K1"] == 0,
+              f"{name}: its scene rendered by one captured step on "
+              f"{jp2['device']}, film mean {jp2['film_mean']:.4g} > 0, "
+              f"bit-equal to its PNG twin's, K2 and K3 launched, K1 not (no "
+              f"BVH)")
+        print(f"  {what} texture on the card's host: {name} "
+              f"{jp2['shape']} decoded in {jp2['decode_s']:.4f} s, "
+              f"load_image {jp2['load_image_s']:.4f} s; its scene's "
+              f"captured step on {jp2['device']}: film bit-equal to its PNG "
+              f"twin's: {jp2['bit_equal']}, launches {jp2['launches']}")
+    for prefix, who in (("opj_", "OpenJPEG's"), ("ht_", "The HT encoder's")):
+        got = {k: v["seconds"] for k, v in decoded.items()
+               if k.startswith(prefix)}
+        print(f"  {who} {len(got)} fixtures decoded exactly on the card's "
+              f"host in {sum(got.values()):.3f} s (slowest "
+              f"{max(got, key=got.get)} {max(got.values()):.3f} s)")
     unread = unread_refusals()
-    check(len(unread) == 6 and all(v.startswith("Cannot load image")
-                                   for v in unread.values()),
+    check(len(unread) == len(list(UNREAD_FIXTURES.iterdir()))
+          and all(v.startswith("Cannot load image")
+                  for v in unread.values()),
           f"the {len(unread)} JPEG 2000 files cv2 reads nothing of raise "
           f"IOError")
     print(f"  fixtures decoded {decoded}; writers {writers}; texture "
@@ -5414,12 +5490,14 @@ def phase_textures(device, build_dir=None, s1=None):
           f"{first['seconds']:.2f} s, film mean {mean:.4f}, launches "
           f"{used}")
     return {"decoded": decoded, "writers": writers,
-            "decode_1024_s": timing, "jp2_512": jp2_512,
-            "avif_512": avif_512, "avif_wide": avif_wide,
+            "decode_1024_s": timing, "jp2_512": jp2_512, "ht_1024": ht_1024,
+            "avif_256": avif_256, "avif_wide": avif_wide,
             "s1_film_avif": film_avif,
             "load_seconds": load_s,
             "first_step": first, "film_mean": mean, "launches": used,
-            "twin_bit_equal": True, "logluv_env": env, "jp2_texture": jp2,
+            "twin_bit_equal": True, "logluv_env": env,
+            "jp2_texture": steps[JP2_TEXTURE],
+            "ht_texture": steps[HT_TEXTURE],
             "unread": unread}
 
 

@@ -44,8 +44,15 @@ code stream takes at most h * w * 3 / 4 bytes, OpenCV's rate of 4, and
 an image whose whole stream fits stays lossless; SIZ, COD, QCD, COM,
 SOT, SOD and EOC in JP2 boxes with an sRGB `colr`.
 
-HTJ2K (Part 15: CAP, CPF, or its Rsiz or code-block style bit) is refused
-by name (NotImplementedError): no encoder here writes it.
+HTJ2K (ITU-T T.814, Part 15: code-block style 0x40) is read as OpenCV's
+OpenJPEG reads it: the HT block decoder in utils/htj2k.py, tier-2 as
+OpenJPEG's HT branch cuts the segments (the cleanup pass one segment,
+the passes after it another; a later packet's first pass still goes to
+the first segment unless the style's termination bit closes it), the
+CAP and CPF markers read (`read_cap`) and the Rsiz bit taken, and the
+rest shared with Part 1. OpenCV reads nothing of mixed mode (style
+0x80), and of an HT block with an RGN shift, more than three passes or
+a malformed cleanup segment (htj2k.Malformed): IOError for each.
 """
 from __future__ import annotations
 
@@ -53,13 +60,16 @@ import struct
 
 import numpy as np
 
+from . import htj2k
 from .ebcot import BYPASS, TERMALL, CodeBlocks
 
 JP2_SIGNATURE = b"\0\0\0\x0cjP  \r\n\x87\n"
 SOC = b"\xff\x4f\xff\x51"
 PROGRESSIONS = ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
-_HT_STYLE = 0x40
-_REFUSED_MARKERS = {0xFF50: "CAP (HTJ2K, Part 15)", 0xFF59: "CPF (Part 15)"}
+HT_STYLE = 0x40
+# Part 15's mixed mode: Part 1 and HT code-blocks in one component,
+# which OpenJPEG refuses
+_HT_MIXED = 0x80
 # Part 2's multiple component transform: MCT, MCC, MCO and CBD
 _PART2_MARKERS = (0xFF74, 0xFF75, 0xFF77, 0xFF78)
 # the JP2 colour spaces OpenCV refuses (T.800 Table I.10: e-sYCC, CMYK)
@@ -70,10 +80,6 @@ _UNREAD_SPACES = {24: "e-sYCC", 12: "CMYK"}
 # memory (a lane holds a few 4,096-entry int64 rows, and when encoding
 # its symbols, a byte each)
 LANES = 1024
-
-
-def _refuse(what, name):
-    raise NotImplementedError(f"JPEG 2000: {what} is not ported ({name})")
 
 
 def _unread(what, name):
@@ -164,6 +170,36 @@ def _read_pclr(body, name):
     return out
 
 
+# Ccap15's bits 15-14 (T.814 Table A.4): which code-blocks are HT
+_HT_SETS = {0: "HTONLY", 2: "HTDECLARED", 3: "MIXED"}
+
+
+def read_cap(body):
+    """A CAP marker's Pcap (a bit a Part, the MSB Part 1) and its Ccap
+    words by Part; for Part 15, the Ccap15 fields: which code-blocks are
+    HT (HTONLY, HTDECLARED or MIXED), several HT sets a block, RGN,
+    heterogeneous code-block styles, the irreversible path, and the 5-bit
+    MAGB field (the magnitude bound's code). A short marker gives what it
+    holds (OpenJPEG reads none of it)."""
+    out = {"pcap": None, "ccap": {}, "ht": None}
+    if len(body) < 4:
+        return out
+    pcap = struct.unpack(">I", body[:4])[0]
+    out["pcap"] = pcap
+    pos = 4
+    for part in range(1, 33):
+        if pcap >> (32 - part) & 1 and pos + 2 <= len(body):
+            out["ccap"][part] = struct.unpack(">H", body[pos:pos + 2])[0]
+            pos += 2
+    c = out["ccap"].get(15)
+    if c is not None:
+        out["ht"] = {"set": _HT_SETS.get(c >> 14, "reserved"),
+                     "multi_ht": bool(c >> 13 & 1), "rgn": bool(c >> 12 & 1),
+                     "heterogeneous": bool(c >> 11 & 1),
+                     "irreversible": bool(c >> 5 & 1), "magb": c & 0x1F}
+    return out
+
+
 class _Coding:
     """A component's coding style (COD / COC): decomposition levels,
     code-block size exponents, style, wavelet (1: reversible 5/3) and
@@ -173,8 +209,8 @@ class _Coding:
         (self.levels, xcb, ycb, self.style,
          self.wavelet) = struct.unpack(">5B", body[pos:pos + 5])
         self.xcb, self.ycb = xcb + 2, ycb + 2
-        if self.style & _HT_STYLE:
-            _refuse("the code-block style HTJ2K (Part 15) code-blocks", name)
+        if self.style & _HT_MIXED:
+            _unread("HTJ2K's mixed mode (code-block style 0x80)", name)
         if self.xcb > 10 or self.ycb > 10 or self.xcb + self.ycb > 12:
             raise ValueError(f"{name}: code-block size 2^{self.xcb} x "
                              f"2^{self.ycb}")
@@ -235,8 +271,6 @@ class _Header:
         siz = cs[6:4 + n]
         (rsiz, self.X, self.Y, self.X0, self.Y0, self.XT, self.YT, self.XT0,
          self.YT0, nc) = struct.unpack(">H8IH", siz[:36])
-        if rsiz & 0x4000:
-            _refuse("HTJ2K (Part 15, Rsiz)", name)
         self.comps = []
         for c in range(nc):
             s, dx, dy = siz[36 + 3 * c:39 + 3 * c]
@@ -245,6 +279,9 @@ class _Header:
             self.comps.append(((s & 0x7F) + 1, bool(s & 0x80)))
         self.main = _styles()
         self.tiles = {}
+        # Part 15's capabilities and profile, as read; OpenJPEG decodes
+        # by the code-block style alone, whatever they say
+        self.cap = self.cpf = None
         ppm, order = [], []          # PPM data by Zppm; tiles of tile-parts
         pos = 4 + n
         tile = end = None
@@ -261,10 +298,13 @@ class _Header:
                 continue
             length = struct.unpack(">H", cs[pos + 2:pos + 4])[0]
             body = cs[pos + 4:pos + 2 + length]
-            if m in _REFUSED_MARKERS:
-                _refuse(f"the {_REFUSED_MARKERS[m]} marker", name)
             if m in _PART2_MARKERS:
                 _unread("a Part 2 multiple component transform", name)
+            if m == 0xFF50:                  # CAP (Part 15)
+                self.cap = read_cap(body)
+            elif m == 0xFF59:                # CPF: Pcpf words
+                self.cpf = [struct.unpack(">H", body[i:i + 2])[0]
+                            for i in range(0, len(body) - 1, 2)]
             dest = self.main if tile is None else self.tiles[tile]
             if m == 0xFF90:                  # SOT
                 tile, psot = struct.unpack(">HI", body[:6])
@@ -463,7 +503,9 @@ class _TagTree:
             base = nxt
         self.parent = parent
         n = len(parent)
-        self.value = [1 << 30] * n
+        # OpenJPEG's opj_tgt_reset: a node not yet decoded holds 999, so a
+        # header read past its data (zero bits) ends at threshold 1,000
+        self.value = [999] * n
         self.low = [0] * n
         self.known = [False] * n
 
@@ -535,13 +577,13 @@ class _Block:
     the packets gave it: codeword segments, each [most passes, passes,
     bytes]."""
     __slots__ = ("band", "x0", "y0", "x1", "y1", "leaf", "included",
-                 "lblock", "planes", "passes", "segs")
+                 "lblock", "planes", "passes", "segs", "chunks")
 
     def __init__(self, band, x0, y0, x1, y1, leaf):
         self.band, self.leaf = band, leaf
         self.x0, self.y0, self.x1, self.y1 = x0, y0, x1, y1
         self.included, self.lblock, self.planes, self.passes = False, 3, 0, 0
-        self.segs = []
+        self.segs, self.chunks = [], []
 
 
 def _max_passes(style, prev):
@@ -728,7 +770,14 @@ def _read_packets(data, order, comps, quants, codings, sop=False,
                             style, segs[-1][0] if segs else None), 0, b""])
                     j = len(segs) - 1
                     while True:
-                        take = min(segs[j][0] - segs[j][1], n)
+                        if style & HT_STYLE:
+                            # OpenJPEG's HT branch: the first segment
+                            # takes one pass a packet, a later one the
+                            # rest (a later packet's first pass goes to
+                            # the first segment while it is not full)
+                            take = 1 if j == 0 else n
+                        else:
+                            take = min(segs[j][0] - segs[j][1], n)
                         bits = b.lblock + take.bit_length() - 1
                         if bits > 32:
                             _unread(f"a {bits}-bit segment length", name)
@@ -756,6 +805,7 @@ def _read_packets(data, order, comps, quants, codings, sop=False,
             b.segs[j][2] += data[pos:pos + length]
             b.segs[j][1] += take
             b.passes += take
+            b.chunks.append(data[pos:pos + length])
             pos += length
     return hpos
 
@@ -913,6 +963,42 @@ def _decode_tile(hd: _Header, t, tx0, ty0, tx1, ty1):
     coeffs = {id(band): np.zeros((max(band.y1 - band.y0, 0),
                                   max(band.x1 - band.x0, 0)), np.int64)
               for res in comps for rr in res for band in rr["bands"]}
+    ht = [b for b, c in zip(blocks, comp_of) if codings[c].style & HT_STYLE]
+    if ht:
+        # HT code-blocks (Part 15): every block of each HT component,
+        # the empty ones too, as OpenJPEG decodes them
+        specs = []
+        for c, res in enumerate(comps):
+            if not codings[c].style & HT_STYLE:
+                continue
+            for rr in res:
+                for prc in rr["precincts"]:
+                    for band, blks, *_ in prc:
+                        mb = quants[c].step(band.index)[0] \
+                            + quants[c].guard - 1
+                        for b in blks:
+                            specs.append((b, htj2k.Block(
+                                b"".join(b.chunks) if b.chunks else None,
+                                len(b.segs[0][2]) if b.segs else 0,
+                                len(b.segs[1][2]) if len(b.segs) > 1 else 0,
+                                sum(s[1] for s in b.segs[:2]),
+                                mb if b.included else 0, b.planes,
+                                b.y1 - b.y0, b.x1 - b.x0, codings[c].style,
+                                shifts[c])))
+        try:
+            for k in range(0, len(specs), LANES):
+                run = specs[k:k + LANES]
+                for (b, _), arr in zip(run, htj2k.decode_blocks(
+                        [s for _, s in run])):
+                    band = b.band
+                    coeffs[id(band)][b.y0 - band.y0:b.y1 - band.y0,
+                                     b.x0 - band.x0:b.x1 - band.x0] = arr
+        except htj2k.Malformed as e:
+            _unread(f"an HT code-block OpenJPEG refuses ({e})", hd.name)
+        keep = [i for i, c in enumerate(comp_of)
+                if not codings[c].style & HT_STYLE]
+        blocks = [blocks[i] for i in keep]
+        comp_of = [comp_of[i] for i in keep]
     for k in range(0, len(blocks), LANES):
         run, cs = blocks[k:k + LANES], comp_of[k:k + LANES]
         cb = CodeBlocks([(b.y1 - b.y0, b.x1 - b.x0) for b in run],

@@ -1422,14 +1422,15 @@ def main() -> None:
 def avif_sources(pixels) -> dict:
     """The sources of the AVIF writer's bars: in-repo pixels of small
     fixtures, one more small image, the smooth timing image whole and as
-    its top-left 512 x 512 crop, and its waves drawn 4,160 x 16 (two AV1
-    tile columns; chip_smoke.wide_source)."""
+    its top-left 512 x 512 and 256 x 256 crops, and its waves drawn
+    4,160 x 16 (two AV1 tile columns; chip_smoke.wide_source)."""
     import chip_smoke
     smooth = timing_image()
     return {"cv2_lossless.webp": pixels["cv2_lossless.webp"],
             "cv2_q80.webp": pixels["cv2_q80.webp"],
             "rgb8(37, 45, 30)": rgb8(37, 45, 30),
             "smooth_lossless.webp[:512, :512]": smooth[:512, :512],
+            "smooth_lossless.webp[:256, :256]": smooth[:256, :256],
             "smooth_lossless.webp": smooth,
             chip_smoke.WIDE_AVIF: chip_smoke.wide_source()}
 

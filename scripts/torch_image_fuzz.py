@@ -33,25 +33,31 @@ size, count and output size; OpenJPEG's own encoder through ctypes
 (scripts/make_jp2_fixtures.py) with any Part 1 code-block styles, SOP
 and EPH, quality layers, 9/7, colour transform, resolutions, code-block
 sizes, tiles and tile-parts, POC volumes, RGN, PPM or PPT rewrites,
-palettes, grey and 16-bit, sYCC, subsampled sYCC, e-sYCC and CMYK) and
+palettes, grey and 16-bit, sYCC, subsampled sYCC, e-sYCC and CMYK);
+HTJ2K files of the hand-written HT encoder (scripts/htj2k_encoder.py:
+grey, 16-bit or RGB, the 5/3 or 9/7, levels, code-block sizes, COC,
+precincts, tiles, progressions, 1-3 passes over layers, style bits, CAP,
+CPF, JP2 or JPH, and broken files cv2 reads nothing of) and
 compare the port's decode with
 cv2.imdecode (arithmetic JPEG within 1 level); where cv2 reads no AVIF (a
 grey one with alpha, a matrix libavif converts nothing of, a grid it
 refuses), no PAM, no OS/2 BMP, none of the files of the last image
-slice and no file of OpenJPEG's encoder, the port must raise IOError.
+slice and no file of OpenJPEG's or the HT encoder, the port must raise
+IOError.
 For cv2's GIF writer, compare cv2's read-back of the port's `encode_gif`
 with that of cv2's own file. Needs cv2 and Pillow. Run from the
 repository's root:
 
     python scripts/torch_image_fuzz.py --seed 1 --seconds 60
 
-(`--openjpeg`: OpenJPEG's files only.)
+(`--openjpeg`: OpenJPEG's files only; `--htj2k`: the HT encoder's.)
 
 It prints each mismatch and one closing line of counts, and exits 1 if
 any file differed.
 """
 import argparse
 import io
+import struct
 import sys
 import time
 from pathlib import Path
@@ -70,6 +76,7 @@ from make_image_fixtures import (_pil_ccitt, arith_jpeg, avif_grid,  # noqa
                                  ycbcr_tiff)
 from ignis_tpu_torch.utils.jpeg import decode_jpeg  # noqa: E402
 import make_jp2_fixtures as opj  # noqa: E402
+import htj2k_encoder as ht  # noqa: E402
 
 FLAGS = cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH | cv2.IMREAD_ANYCOLOR
 
@@ -117,7 +124,7 @@ def one_case(rng):
     h, w = (int(v) for v in rng.integers(1, 90, 2))
     img = random_image(rng, h, w)
     bgr = np.ascontiguousarray(img[..., ::-1])
-    kind = rng.integers(0, 20)
+    kind = rng.integers(0, 21)
     if kind >= 13:
         return REST_CASES[kind - 13](rng, h, w, img)
     if kind == 12:
@@ -638,8 +645,98 @@ def opj_case(rng, h, w, img):
             f"{h}x{w}", data, strict_jp2)
 
 
+def ht_case(rng, h, w, img):
+    """A random HTJ2K file of the hand-written HT encoder
+    (scripts/htj2k_encoder.py): grey (8 or 16 bits) or RGB (with or
+    without the RCT or ICT), the 5/3 or the 9/7, 0-5 levels, any
+    code-block size, a component's own through COC, precincts, tiles,
+    the five progressions, 1-3 passes from a random cleanup plane spread
+    over 1-3 layers (as T.814 or as OpenJPEG reads such packets), Part 1
+    style bits beside 0x40, CAP, CPF and the Rsiz bit or not, raw, JP2 or
+    JPH; one file in eight broken as the fixtures in images_unread are
+    (more than 3 passes, RGN, mixed mode, a bad Scup, an empty cleanup
+    segment), which cv2 reads nothing of."""
+    kind = rng.random()
+    bits = 8
+    if kind < 0.3:
+        comps = [img[..., 0].astype(np.int64)]
+        if rng.random() < 0.4:
+            bits = 16
+            comps = [comps[0] * 257 - rng.integers(0, 257, (h, w))
+                     .clip(0, comps[0] * 257)]
+    else:
+        comps = [img[..., c].astype(np.int64) for c in range(3)]
+    reversible = rng.random() < 0.6
+    levels = int(rng.integers(0, 6))
+
+    def coding():
+        xcb = int(rng.integers(2, 7))
+        ycb = int(rng.integers(2, min(11, 12 - xcb) + 1))
+        prec = None
+        if rng.random() < 0.3:
+            prec = [tuple(int(v) for v in rng.integers(0 if r == 0 else 1,
+                                                        9, 2))
+                    for r in range(levels + 1)]
+        return ht.Comp(levels, xcb, ycb, int(rng.choice([0, 0, 4, 8, 1,
+                                                         int(rng.integers(
+                                                             0, 64))])),
+                       prec)
+    cods = [coding()]
+    if len(comps) > 1 and rng.random() < 0.3:
+        cods = [coding() for _ in comps]
+    passes = int(rng.integers(1, 4))
+    plane = int(rng.integers(0, 4))
+    split = sorted(int(v) for v in rng.integers(0, 3, passes))
+    split = [v - split[0] for v in split]
+    broken = rng.random() < 0.125
+    hook, rgn = None, False
+    if broken:
+        what = int(rng.integers(0, 5))
+        if what == 0:
+            passes, split = 4, [0] * 4
+        elif what == 1:
+            rgn = True
+        elif what == 2:
+            cods = [ht.Comp(levels, 4, 4, 0x80)]
+        else:
+            def hook(c, orient, q, pl, segs, what=what):
+                d = bytearray(segs[0])
+                if what == 3:
+                    v = len(d) + int(rng.integers(1, 9))
+                    d[-1], d[-2] = v >> 4, (d[-2] & 0xF0) | (v & 0xF)
+                    return (bytes(d),) + tuple(segs[1:])
+                return (b"",) + tuple(segs[1:])
+    kw = dict(bits=bits, comps=cods, reversible=reversible,
+              mct=len(comps) == 3 and rng.random() < 0.7,
+              prog=int(rng.integers(0, 5)), layers=max(split) + 1,
+              base_step=float(rng.choice([0.5, 1.0, 2.0, 4.0])),
+              cap=rng.random() < 0.7, cpf=rng.random() < 0.3,
+              rsiz=rng.random() < 0.8, jp2=rng.random() < 0.5,
+              opj_layers=rng.random() < 0.5, block_hook=hook,
+              plan=lambda c, r, band, b, q, Mb: ht.BlockPlan(
+                  min(plane, Mb - 1), passes, split))
+    if kw["jp2"] and rng.random() < 0.3:
+        kw["brand"] = b"jph "
+    if rng.random() < 0.3:
+        kw["tiles"] = tuple(int(v) for v in rng.integers(8, 64, 2))
+    try:
+        data = ht.encode(comps, **kw)
+    except ValueError:          # a Scup past 4,079 bytes: draw again
+        return ht_case(rng, h, w, img)
+    if rgn:
+        at = data.index(b"\xff\x5c")
+        data = data[:at] + struct.pack(">HHBBB", 0xFF5E, 5, 0, 0, 2) + \
+            data[at:]
+    label = {k: v for k, v in kw.items() if k not in ("plan", "block_hook",
+                                                       "comps")}
+    return (f"HTJ2K {label} levels {levels} cods "
+            f"{[vars(c) for c in cods]} passes {passes} plane {plane} "
+            f"layers {split} broken {broken} {h}x{w}x{len(comps)}", data,
+            strict_jp2)
+
+
 REST_CASES = (logluv_case, ccitt_case, ycbcr_case, lossless_case,
-              arith_case, grid_case, opj_case)
+              arith_case, grid_case, opj_case, ht_case)
 STRICT = (strict_tiff, strict_jpeg, near_jpeg, strict_avif, strict_jp2)
 
 
@@ -649,21 +746,27 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=60.0)
     ap.add_argument("--openjpeg", action="store_true",
                     help="only files of OpenJPEG's own encoder")
+    ap.add_argument("--htj2k", action="store_true",
+                    help="only files of the hand-written HTJ2K encoder")
     args = ap.parse_args()
     rng = np.random.default_rng(args.seed)
-    files = bad = avifs = written = rest = opjs = 0
+    files = bad = avifs = written = rest = opjs = hts = 0
     end = time.perf_counter() + args.seconds
     while time.perf_counter() < end:
         if args.openjpeg:
             h, w = (int(v) for v in rng.integers(8, 90, 2))
             label, data, other = opj_case(rng, h, w, None)
+        elif args.htj2k:
+            h, w = (int(v) for v in rng.integers(1, 90, 2))
+            label, data, other = ht_case(rng, h, w, random_image(rng, h, w))
         else:
             label, data, other = one_case(rng)
         written += label.startswith("AVIF writer")
         want = cv2_rgb(data)
         avifs += other is avif.decode_avif
         rest += other in STRICT
-        opjs += other is strict_jp2
+        opjs += other is strict_jp2 and not label.startswith("HTJ2K")
+        hts += label.startswith("HTJ2K")
         if want is None and other in (avif.decode_avif, imagelib.decode_pam,
                                       imagelib.decode_bmp) + STRICT:
             files += 1
@@ -693,7 +796,8 @@ def main() -> int:
     print(f"{files} files ({avifs} AVIF, {written} of them from the port's "
           f"AVIF writer; {rest} of the last slice's kinds: LogLuv, CCITT, "
           f"YCbCr, lossless and arithmetic JPEG, AVIF grids, OpenJPEG's "
-          f"files; {opjs} of OpenJPEG's), {bad} differed from cv2")
+          f"files; {opjs} of OpenJPEG's, {hts} HTJ2K of the HT encoder), "
+          f"{bad} differed from cv2")
     return 1 if bad else 0
 
 

@@ -489,8 +489,9 @@ def test_post_programs_on_card(device):
 def test_texture_phase_on_card(device, tmp_path):
     """Phase 16: the image fixtures decoded to cv2's pixels, every
     save_image suffix round-tripped (.avif within cv2's bars), the
-    1024 x 1024 decodes timed, the 512 x 512 .jp2 and .avif written, a
-    128 x 128 S1's captured film saved as .avif, and the scene textured
+    1024 x 1024 decodes timed (and the 1024 x 1024 HTJ2K file's), the
+    512 x 512 .jp2 and 256 x 256 .avif written, a 128 x 128 S1's
+    captured film saved as .avif, and the scene textured
     with the fixtures and that film rendered by one captured step on the
     card, bit-equal to its PNG/EXR twin; each LogLuv environment map
     lighting a scene alone on the card, its captured step bit-equal to
@@ -501,10 +502,11 @@ def test_texture_phase_on_card(device, tmp_path):
     assert out["film_mean"] > 0 and out["twin_bit_equal"]
     assert len(out["decoded"]) == len(fixtures)
     assert sorted(out["writers"]) == sorted(chip_smoke.WRITER_SUFFIXES)
-    assert out["avif_512"]["write_s"] > 0
+    assert out["avif_256"]["write_s"] > 0
+    assert out["ht_1024"]["psnr_db"] >= chip_smoke.HT_1024_PSNR
     assert out["s1_film_avif"]["psnr_db"] >= 20.0
-    jp2 = out["jp2_texture"]
-    assert jp2["bit_equal"] and jp2["captured"] and jp2["finite"]
+    for jp2 in (out["jp2_texture"], out["ht_texture"]):
+        assert jp2["bit_equal"] and jp2["captured"] and jp2["finite"]
     assert all(v.startswith("Cannot load image")
                for v in out["unread"].values())
     envs = out["logluv_env"]["maps"]

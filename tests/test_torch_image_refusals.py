@@ -163,7 +163,6 @@ NAMED = {
     ("avif.py", "a derived image"),
     ("avif.py", "an image sequence without a primary item"),
     ("jpeg.py", "SOF11"),
-    ("jpeg2000.py", "is not ported"),         # HTJ2K (Part 15) via _refuse
     ("tiff.py", "ThunderScan"),
 }
 

@@ -94,7 +94,8 @@ def test_jpeg2000_fixture_set():
     stream within h * w * 3 / 4 bytes), lossless 16-bit and grey files,
     Pillow's 9/7 layered, tiled and RGBA files, and OpenJPEG's own
     (scripts/make_jp2_fixtures.py): every Part 1 code-block style, SOP,
-    EPH, POC, RGN, PPM, PPT, palettes and sYCC."""
+    EPH, POC, RGN, PPM, PPT, palettes and sYCC; and the HTJ2K files of
+    scripts/make_htj2k_fixtures.py (tests/test_torch_htj2k.py)."""
     assert JP2_FIXTURES == sorted([
         "cv2_default.jp2", "cv2_lossless_16bit.jp2", "cv2_grey.jp2",
         "pil_irreversible_layers.jp2", "pil_tiles_precincts.j2k",
@@ -108,7 +109,11 @@ def test_jpeg2000_fixture_set():
         "opj_grey16_bypass_rgn.jp2", "opj_ppm.jp2", "opj_ppt.jp2",
         "opj_palette8.jp2", "opj_palette16_index.jp2",
         "opj_palette16_entries.jp2", "opj_sycc.jp2",
-        "opj_texture_64.jp2"])
+        "opj_texture_64.jp2"] + [
+        "ht_grey8_53.j2k", "ht_rgb8_rct.jp2", "ht_rgb8_97.jp2",
+        "ht_sigprop.j2k", "ht_magref.j2k", "ht_layers_opj.j2k",
+        "ht_grey16.j2k", "ht_odd_tiles.jp2", "ht_sparse.j2k",
+        "ht_vlc_all.j2k", "ht_texture_64.jp2", "ht_empty_refinement.j2k"])
     data = (FIXTURES / "cv2_default.jp2").read_bytes()
     src = np.load(FIXTURES / "cv2_pixels.npz")["cv2_default.jp2"]
     h, w = src.shape[:2]
@@ -256,46 +261,6 @@ def test_files_cv2_does_not_read_raise_ioerror(what):
     assert _cv2_rgb(data) is None
     with pytest.raises(IOError, match="Cannot load image"):
         jpeg2000.decode_jpeg2000(data)
-
-
-def _with_marker(data: bytes, marker: bytes) -> bytes:
-    """data with a marker segment inserted after SIZ (its length after
-    the marker code)."""
-    cs_at = data.index(b"\xff\x4f\xff\x51")
-    siz_len = struct.unpack(">H", data[cs_at + 4:cs_at + 6])[0]
-    at = cs_at + 4 + siz_len
-    return data[:at] + marker + data[at:]
-
-
-def _refused(what):
-    """A small file with one HTJ2K feature set."""
-    data = bytearray(cv2.imencode(".jp2", _photo(32, 32, 1))[1].tobytes())
-    cs = data.index(b"\xff\x4f\xff\x51")
-    cod = data.index(b"\xff\x52", cs)
-    if what.startswith("style"):
-        data[cod + 12] |= int(what[5:], 16)
-    elif what == "Rsiz":
-        data[cs + 6] |= 0x40
-    else:
-        code = {"CAP": 0xFF50, "CPF": 0xFF59}[what]
-        return _with_marker(bytes(data), struct.pack(">HH", code, 4)
-                            + b"\0\0")
-    return bytes(data)
-
-
-REFUSED = {"style40": "HTJ2K", "Rsiz": "HTJ2K", "CAP": "CAP", "CPF": "CPF"}
-
-
-@pytest.mark.parametrize("what", sorted(REFUSED))
-def test_refused_features_raise_by_name(tmp_path, what):
-    """HTJ2K (Part 15), which no encoder here writes: its code-block
-    style bit, its Rsiz bit and its CAP and CPF markers raise
-    NotImplementedError naming it and the file, found by content. Every
-    Part 1 feature is read (tests/test_torch_jpeg2000_rest.py)."""
-    p = tmp_path / "refused.dat"
-    p.write_bytes(_refused(what))
-    with pytest.raises(NotImplementedError, match=REFUSED[what]):
-        imagelib.decode_samples(p)
 
 
 # ---------------------------------------------------------------------------
