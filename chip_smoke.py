@@ -138,7 +138,8 @@ printing its own lines; any failure exits non-zero:
    (instanced), S8 (lt, ppm), the other techniques and the sharded paths
    stay eager (phases 8 and 11 print which);
 13. the captured train step (`phase_captured_train`): for S1-S6 (S6
-   volpath) and S9 at 512x512, two eager train steps' work
+   volpath) and S9 at 512x512 (S5, S6 and S9 at max_depth 3,
+   PHASE13_DEPTH), two eager train steps' work
    (`eager_albedo_step`: loss_fn and autograd) beside train_step, which
    builds and captures the scene's TrainProgram (CUDA graphs of the
    differentiable cascade, parallel/mesh.py) and replays it: the loss
@@ -172,7 +173,8 @@ printing its own lines; any failure exits non-zero:
    with OS/2's, TIFFs of every sample type, layout and codec, PPM, PAMs,
    PFM, GIFs, lossless and lossy WebPs, JPEG 2000 (HTJ2K too) and AVIF
    files of cv2, Pillow and the HT encoder with every colour matrix,
-   Radiance .pic, Sun raster, a JPEG named .png)
+   AVIF superres, show_existing_frame, gain-map and track-only files,
+   ThunderScan TIFFs, Radiance .pic, Sun raster, a JPEG named .png)
    decoded and held to cv2's pixels (cv2_pixels.npz); every save_image
    suffix written and read back (.jp2 within cv2's byte budget and PSNR,
    .avif within cv2's bars of tests/data/avif_bars.json: base_q_idx 148,
@@ -187,10 +189,11 @@ printing its own lines; any failure exits non-zero:
    captured step: finite, not black, and bit-equal to the same scene
    textured with PNG (and EXR) twins of the decoded pixels; OpenJPEG's
    64 x 64 .jp2 (bypass, termination on each pass, SOP / EPH, POC, PPT)
-   and the HT encoder's (three passes over two layers, tiles, CAP, CPF)
-   each loaded through load_image as the texture of a small scene
-   rendered by one captured step, bit-equal to its PNG twin (its decode
-   seconds and launches on a line of their own), and the JPEG 2000 files
+   , the HT encoder's (three passes over two layers, tiles, CAP, CPF)
+   and the port's AV1 encoder's superres .avif (denominator 12, loop
+   restoration) each loaded through load_image as the texture of a small
+   scene rendered by one captured step, bit-equal to its PNG twin (its
+   decode seconds and launches on a line of their own), and the files
    cv2 reads nothing of refused with IOError;
 then the run's wall time, one JSON line of kernel results (each kernel's
 time beside its bound and, where one PyTorch call computes the same
@@ -4302,13 +4305,30 @@ def captured_train_against_eager(name, rt, device):
     return out
 
 
+# phase 13 runs S5, S6 and S9 at this max_depth (their scenes' is 8): the
+# same comparisons on shorter paths, which keeps the script well within
+# its time; phase 12 and the others keep every scene at full depth
+PHASE13_SHALLOW = (S5_NAME, S6_NAME, S9_NAME)
+PHASE13_DEPTH = 3
+
+
 def phase_captured_train(device, runtimes):
     """Phase 13: train_step as CUDA graphs of the differentiable cascade
     (parallel/mesh.TrainProgram) on S1-S6 (S6 volpath) and S9 at 512x512,
-    each against the eager train step."""
+    each against the eager train step; S5, S6 and S9 at max_depth
+    PHASE13_DEPTH (their settings restored after)."""
     out = {}
     for name, rt in runtimes.items():
-        out[name] = captured_train_against_eager(name, rt, device)
+        full = rt.settings
+        if name in PHASE13_SHALLOW:
+            rt.settings = dataclasses.replace(full, max_depth=PHASE13_DEPTH)
+        print(f"  {name}: max_depth {rt.settings.max_depth}")
+        try:
+            out[name] = captured_train_against_eager(name, rt, device)
+        finally:
+            rt.settings = full
+        out[name]["max_depth"] = (PHASE13_DEPTH if name in PHASE13_SHALLOW
+                                  else full.max_depth)
     return out
 
 
@@ -4987,6 +5007,10 @@ JP2_TEXTURE = "opj_texture_64.jp2"
 # layers, 2 x 2 tiles, CAP and CPF; scripts/make_htj2k_fixtures.py): the
 # texture of the same scene in a second step
 HT_TEXTURE = "ht_texture_64.jp2"
+# the port's AV1 encoder's 64 x 64 superres file (denominator 12, loop
+# restoration of switchable units; scripts/make_named_fixtures.py): the
+# texture of the same scene in a third step
+SR_TEXTURE = "sr_texture_64.avif"
 UNREAD_FIXTURES = ROOT / "tests" / "data" / "images_unread"
 
 
@@ -5012,7 +5036,7 @@ def jp2_texture_scene(texture, size=64):
 
 
 def jp2_texture_step(device, out_dir, size=64, name=JP2_TEXTURE):
-    """The JPEG 2000 texture `name` (JP2_TEXTURE, or HT_TEXTURE)
+    """The texture `name` (JP2_TEXTURE, HT_TEXTURE or SR_TEXTURE)
     decoded (decode_samples) and loaded (load_image) on the host, each
     timed, then jp2_texture_scene loaded on `device` and one step
     rendered, the first a captured one on the card; its film held
@@ -5053,10 +5077,15 @@ def jp2_texture_step(device, out_dir, size=64, name=JP2_TEXTURE):
 
 
 def unread_refusals():
-    """Each JPEG 2000 file cv2 reads nothing of (tests/data/images_unread:
-    subsampled, e-sYCC, CMYK, Part 2 transform, 17 and 4 bits, and the HT
-    files of scripts/make_htj2k_fixtures.py) through decode_samples: the
-    IOError's message by file ('read' where none)."""
+    """Each file cv2 reads nothing of (tests/data/images_unread: JPEG 2000
+    subsampled, e-sYCC, CMYK, Part 2 transform, 17 and 4 bits, the HT
+    files of scripts/make_htj2k_fixtures.py, and those of
+    scripts/make_named_fixtures.py: AV1 tile lists and inter frames with
+    nothing before them, narrow superres tiles, tmap and iovl primary
+    items, a tone map past cv2's signature window, iloc construction
+    method 2, a track under the avif brand, ThunderScan grey, SOF11)
+    through decode_samples: the IOError's message by file ('read' where
+    none)."""
     from ignis_tpu_torch.utils.image import decode_samples
     out = {}
     for p in sorted(UNREAD_FIXTURES.iterdir()):
@@ -5348,9 +5377,9 @@ def phase_textures(device, build_dir=None, s1=None):
     finite, not black, no texture refused, and its film bit-equal to
     that of the same scene with each texture replaced by a PNG of its
     decoded 8-bit pixels (16-bit and float textures: an EXR of the image
-    load_image gives); the LogLuv environment step, the JPEG 2000 and
-    HTJ2K texture steps (jp2_texture_step), and the files cv2 reads
-    nothing of (unread_refusals)."""
+    load_image gives); the LogLuv environment step, the JPEG 2000, HTJ2K
+    and AVIF superres texture steps (jp2_texture_step), and the files cv2
+    reads nothing of (unread_refusals)."""
     import torch
     import ignis_tpu_torch
     from ignis_tpu_torch.utils.image import (decode_samples, encode_png,
@@ -5457,7 +5486,8 @@ def phase_textures(device, build_dir=None, s1=None):
               f"decoded in {row['decode_s']:.4f} s (max radiance "
               f"{row['max']:.6g})")
     steps = {}
-    for name, what in ((JP2_TEXTURE, "JPEG 2000"), (HT_TEXTURE, "HTJ2K")):
+    for name, what in ((JP2_TEXTURE, "JPEG 2000"), (HT_TEXTURE, "HTJ2K"),
+                       (SR_TEXTURE, "AVIF superres")):
         jp2 = steps[name] = jp2_texture_step(device, build_dir, name=name)
         check(jp2["device"].startswith("cuda") and jp2["captured"]
               and jp2["finite"] and jp2["film_mean"] > 0
@@ -5473,7 +5503,9 @@ def phase_textures(device, build_dir=None, s1=None):
               f"load_image {jp2['load_image_s']:.4f} s; its scene's "
               f"captured step on {jp2['device']}: film bit-equal to its PNG "
               f"twin's: {jp2['bit_equal']}, launches {jp2['launches']}")
-    for prefix, who in (("opj_", "OpenJPEG's"), ("ht_", "The HT encoder's")):
+    for prefix, who in (("opj_", "OpenJPEG's"), ("ht_", "The HT encoder's"),
+                        (("sr_", "av1_", "gain_", "track_", "item_",
+                          "thunder_"), "The once-refused kinds'")):
         got = {k: v["seconds"] for k, v in decoded.items()
                if k.startswith(prefix)}
         print(f"  {who} {len(got)} fixtures decoded exactly on the card's "
@@ -5481,10 +5513,8 @@ def phase_textures(device, build_dir=None, s1=None):
               f"{max(got, key=got.get)} {max(got.values()):.3f} s)")
     unread = unread_refusals()
     check(len(unread) == len(list(UNREAD_FIXTURES.iterdir()))
-          and all(v.startswith("Cannot load image")
-                  for v in unread.values()),
-          f"the {len(unread)} JPEG 2000 files cv2 reads nothing of raise "
-          f"IOError")
+          and all(v != "read" for v in unread.values()),
+          f"the {len(unread)} files cv2 reads nothing of raise IOError")
     print(f"  fixtures decoded {decoded}; writers {writers}; texture "
           f"scene loaded in {load_s:.2f} s, first (capturing) step "
           f"{first['seconds']:.2f} s, film mean {mean:.4f}, launches "
@@ -5498,6 +5528,7 @@ def phase_textures(device, build_dir=None, s1=None):
             "twin_bit_equal": True, "logluv_env": env,
             "jp2_texture": steps[JP2_TEXTURE],
             "ht_texture": steps[HT_TEXTURE],
+            "sr_texture": steps[SR_TEXTURE],
             "unread": unread}
 
 

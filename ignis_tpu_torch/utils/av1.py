@@ -1,4 +1,4 @@
-"""An AV1 key-frame decoder: the bitstream of an AVIF image item, read as
+"""An AV1 intra-frame decoder: the bitstream of an AVIF image item, read as
 the AV1 specification (version 1.0.0 with errata) reads it, to exactly
 the planes libaom and dav1d decode.
 
@@ -17,10 +17,18 @@ filter intra, intra block copy, transform size and type) and the
 coefficients. Reconstruction and the loop filters are in av1_recon.py,
 the constant tables in av1_tables.py.
 
-Film grain is synthesised on the output (av1_grain.py). Refused by name
-(NotImplementedError naming the tool), as no writer here emits them:
-superres, large-scale tile, inter frames and a `show_existing_frame`
-header.
+Superres: the frame is coded at FrameWidth (at least Min(16,
+UpscaledWidth), as libaom keeps it) and upscaled before loop restoration
+(av1_filters.upscale). A temporal unit of several frames is read as
+libaom reads it: each frame reconstructed when the next header comes,
+kept in the reference slots its refresh_frame_flags name, the last frame
+shown the output (`show_existing_frame` shows a slot's frame with the
+film grain stored with it). Film grain is synthesised on the output
+(av1_grain.py). An inter frame after a frame to refer to, which cv2
+reads, is refused by name (NotImplementedError: an inter decoder is a
+slice of its own); one with nothing decoded before it, a tile list OBU
+(large-scale tile), and a superres tile column under 128 coded pixels
+raise IOError, as libaom reads nothing of them.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ BLOG2W = tuple(v.bit_length() - 1 for v in BW4)
 BLOG2H = tuple(v.bit_length() - 1 for v in BH4)
 _BSIZE = {(BW4[b], BH4[b]): b for b in range(22)}
 B4X4, B8X8, B64X64, B128X128 = 0, 3, 12, 15
+SUPERRES_NUM = 8
 
 # transform sizes: width and height in pixels
 TXW = (4, 8, 16, 32, 64, 4, 8, 8, 16, 16, 32, 32, 64, 4, 16, 8, 32, 16, 64)
@@ -467,12 +476,6 @@ class Block:
                  "var_tx")
 
 
-def _refuse(tool, name):
-    raise NotImplementedError(
-        f"AV1 {tool} is not ported ({name or 'AVIF file'}): no writer here "
-        "emits it")
-
-
 class Decoder:
     """Parses one AV1 still image (its OBUs) into the frame header, the
     mode info of every block and, in decode order, the transform blocks
@@ -482,12 +485,20 @@ class Decoder:
         self.name = name
         self.seq = None
         self.frame_done = False
+        # the reference slots: (pre-grain Frame, grain params, frame type)
+        self.slots = [None] * 8
+        self.output = None          # (Frame, grain params) shown last
+        self.showed_existing = False
         self.parse_obus(data)
 
     # ---- OBUs -------------------------------------------------------------
     def parse_obus(self, data):
+        """Every OBU of the temporal unit. A frame parsed in full waits
+        for its reconstruction until another frame header follows it
+        (finish_frame), so that the last frame shown is the output, as
+        libaom gives it."""
         pos = 0
-        while pos < len(data) and not self.frame_done:
+        while pos < len(data):
             h = data[pos]
             kind = (h >> 3) & 15
             ext, has_size = (h >> 2) & 1, (h >> 1) & 1
@@ -504,18 +515,35 @@ class Decoder:
             elif kind in (3, 6):
                 if self.seq is None:
                     raise IOError("AV1: frame before a sequence header")
+                if self.frame_done:
+                    self.finish_frame()
                 br = BitReader(data, p)
-                self.frame_header(br)
-                if kind == 6:
+                if self.frame_header(br) and kind == 6:
                     br.byte_align()
                     self.tile_group(data, br.bitpos >> 3, end)
             elif kind == 4:
+                if self.frame_done or not hasattr(self, "mi_cols"):
+                    raise IOError(f"AV1: a tile group outside a frame "
+                                  f"({self.name})")
                 self.tile_group(data, p, end)
             elif kind == 8:
-                _refuse("large-scale tile (tile list OBU)", self.name)
+                raise IOError(f"AV1: a tile list OBU, which libaom reads "
+                              f"only in large-scale tile mode ({self.name})")
             pos = end
-        if not self.frame_done:
+        if not self.frame_done and self.output is None:
             raise IOError(f"AV1: no complete frame ({self.name})")
+
+    def finish_frame(self):
+        """Reconstructs the frame parsed last, stores it in the slots its
+        refresh_frame_flags name, and makes it the output if shown."""
+        from .av1_recon import reconstruct
+        frame = reconstruct(self)
+        for i in range(8):
+            if self.refresh >> i & 1:
+                self.slots[i] = (frame, self.grain, self.frame_type)
+        if self.show_frame:
+            self.output = (frame, self.grain)
+        self.frame_done = False
 
     def sequence_header(self, br):
         s = {}
@@ -525,7 +553,7 @@ class Decoder:
         s["decoder_model"] = 0
         s["equal_interval"] = 0
         if s["reduced"]:
-            br.f(5)
+            s["level"] = br.f(5)
             s["op_idc"] = [0]
             s["dm_op"] = [0]
         else:
@@ -548,6 +576,7 @@ class Decoder:
             for _ in range(n):
                 s["op_idc"].append(br.f(12))
                 lvl = br.f(5)
+                s.setdefault("level", lvl)
                 if lvl > 7:
                     br.f(1)
                 dm = 0
@@ -628,13 +657,29 @@ class Decoder:
         self.seq = s
 
     def frame_header(self, br):
+        """Reads an uncompressed header; False where it shows an existing
+        frame (show_existing_frame: that slot's frame, with the film
+        grain stored with it, becomes the output; no tiles follow)."""
         s = self.seq
         if s["reduced"]:
             frame_type, show_frame, showable = 0, 1, 0
             error_res = 1
         else:
             if br.f(1):
-                _refuse("show_existing_frame", self.name)
+                idx = br.f(3)
+                if s["decoder_model"] and not s["equal_interval"]:
+                    br.f(s["pres_len"])
+                if s["frame_ids"]:
+                    br.f(s["id_len"])
+                if self.slots[idx] is None:
+                    raise IOError(f"AV1: show_existing_frame of an empty "
+                                  f"slot ({self.name})")
+                frame, grain, kind = self.slots[idx]
+                self.output = (frame, grain)
+                self.showed_existing = True
+                if kind == 0:               # a key frame refreshes all
+                    self.slots = [self.slots[idx]] * 8
+                return False
             frame_type = br.f(2)
             show_frame = br.f(1)
             if show_frame and s["decoder_model"] and not s["equal_interval"]:
@@ -642,7 +687,13 @@ class Decoder:
             showable = 0 if show_frame else br.f(1)
             error_res = 1 if (frame_type == 0 and show_frame) else br.f(1)
         if frame_type not in (0, 2):
-            _refuse("inter frame", self.name)
+            if not any(self.slots):
+                raise IOError(f"AV1: an inter frame with no frame decoded "
+                              f"before it to refer to ({self.name})")
+            raise NotImplementedError(
+                f"AV1 inter frame is not ported ({self.name or 'AVIF file'}"
+                "): OpenCV reads it, and an inter decoder is a slice of its "
+                "own")
         self.disable_cdf_update = br.f(1)
         if s["force_sct"] == 2:
             self.sct = br.f(1)
@@ -665,20 +716,28 @@ class Decoder:
         if refresh != 0xff and error_res and s["order_hint_bits"]:
             for _ in range(8):
                 br.f(s["order_hint_bits"])
-        # frame_size, superres, render_size
+        self.frame_type, self.show_frame, self.refresh = (
+            frame_type, show_frame, refresh)
+        # frame_size, superres_params, render_size
         if size_override:
             self.w = br.f(s["wbits"]) + 1
             self.h = br.f(s["hbits"]) + 1
         else:
             self.w, self.h = s["max_w"], s["max_h"]
+        self.up_w = self.w                  # UpscaledWidth
+        self.sr_denom = SUPERRES_NUM
         if s["superres"] and br.f(1):
-            _refuse("superres", self.name)
+            self.sr_denom = br.f(3) + 9     # SUPERRES_DENOM_MIN
+            # libaom keeps FrameWidth at least Min(16, UpscaledWidth)
+            self.w = max((self.up_w * SUPERRES_NUM + self.sr_denom // 2)
+                         // self.sr_denom, min(16, self.up_w))
         if br.f(1):
             br.f(16)
             br.f(16)
         self.mi_cols = 2 * ((self.w + 7) >> 3)
         self.mi_rows = 2 * ((self.h + 7) >> 3)
-        self.allow_intrabc = br.f(1) if self.sct else 0
+        self.allow_intrabc = br.f(1) if self.sct and \
+            self.up_w == self.w else 0
         if s["reduced"] or self.disable_cdf_update:
             pass
         else:
@@ -813,6 +872,7 @@ class Decoder:
         if s["film_grain"] and (show_frame or showable) and br.f(1):
             from .av1_grain import read_grain_params
             self.grain = read_grain_params(br, s["mono"], s["ssx"], s["ssy"])
+        return True
 
     def _delta_q(self, br):
         return br.su(7) if br.f(1) else 0
@@ -869,12 +929,23 @@ class Decoder:
             self.tile_rows_log2 = tile_log2(1, len(rows))
         self.col_starts = [c << sb_shift for c in cols] + [self.mi_cols]
         self.row_starts = [r << sb_shift for r in rows] + [self.mi_rows]
+        self.check_tile_widths()
         self.tile_size_bytes = 4
         self.context_update_tile_id = 0
         if self.tile_cols_log2 or self.tile_rows_log2:
             self.context_update_tile_id = br.f(self.tile_rows_log2
                                                + self.tile_cols_log2)
             self.tile_size_bytes = br.f(2) + 1
+
+    def check_tile_widths(self):
+        """libaom's av1_is_min_tile_width_satisfied: under superres each
+        tile column but the last at least 128 coded pixels wide."""
+        inner = [b - a for a, b in zip(self.col_starts[:-2],
+                                       self.col_starts[1:-1])]
+        if inner and self.up_w != self.w and min(inner) * 4 < 128:
+            raise IOError(f"AV1: a tile column under 128 coded pixels "
+                          f"with superres, which libaom refuses "
+                          f"({self.name})")
 
     def qidx(self, sid, current):
         """get_qidx: the segment's qindex; `current` is CurrentQIndex, or
@@ -947,7 +1018,7 @@ class TileDecoder:
     read is handed the value to write; the hooks `before_coeffs` and
     `after_coeffs` let it predict and reconstruct in decode order."""
 
-    parts = plans = cplan = None
+    parts = plans = cplan = lr_plan = None
 
     def __init__(self, dec, sd, r0, r1, c0, c1):
         self.d = dec
@@ -1028,24 +1099,34 @@ class TileDecoder:
             sx, sy = (d.ssx, d.ssy) if p else (0, 0)
             size = d.lr_size[p]
             rows = max((((d.h + sy) >> sy) + (size >> 1)) // size, 1)
-            cols = max((((d.w + sx) >> sx) + (size >> 1)) // size, 1)
+            cols = max((((d.up_w + sx) >> sx) + (size >> 1)) // size, 1)
             r_start = (r * (4 >> sy) + size - 1) // size
             r_end = min(rows, ((r + h) * (4 >> sy) + size - 1) // size)
-            c_start = (c * (4 >> sx) + size - 1) // size
-            c_end = min(cols, ((c + w) * (4 >> sx) + size - 1) // size)
+            # columns count in superres-upscaled units
+            num, den = (4 >> sx) * d.sr_denom, size * SUPERRES_NUM
+            c_start = (c * num + den - 1) // den
+            c_end = min(cols, ((c + w) * num + den - 1) // den)
             for ur in range(r_start, r_end):
                 for uc in range(c_start, c_end):
                     self.read_lr_unit(p, ur, uc)
 
     def read_lr_unit(self, p, ur, uc):
+        """One restoration unit; an encoder names the unit to write in
+        `lr_plan` {(plane, unit row, unit column): unit}."""
         d, sd, cdf = self.d, self.sd, self.cdf
         t = d.lr_type[p]
+        want = None if self.lr_plan is None else self.lr_plan[(p, ur, uc)]
+        wt = None if want is None else want[0]
         if t == RESTORE_WIENER:
-            rtype = RESTORE_WIENER if sd.symbol(cdf["USE_WIENER"]) else 0
+            rtype = RESTORE_WIENER if sd.symbol(
+                cdf["USE_WIENER"], None if wt is None else int(wt > 0)) \
+                else 0
         elif t == RESTORE_SGRPROJ:
-            rtype = RESTORE_SGRPROJ if sd.symbol(cdf["USE_SGRPROJ"]) else 0
+            rtype = RESTORE_SGRPROJ if sd.symbol(
+                cdf["USE_SGRPROJ"], None if wt is None else int(wt > 0)) \
+                else 0
         else:
-            rtype = sd.symbol(cdf["RESTORATION_TYPE"])
+            rtype = sd.symbol(cdf["RESTORATION_TYPE"], wt)
         unit = (rtype,)
         if rtype == RESTORE_WIENER:
             coeffs = []
@@ -1055,19 +1136,23 @@ class TileDecoder:
                 for j in range(first, 3):
                     v = self.subexp_ref(WIENER_MIN[j], WIENER_MAX[j] + 1,
                                         WIENER_K[j],
-                                        self.ref_wiener[p][pas][j])
+                                        self.ref_wiener[p][pas][j],
+                                        None if want is None
+                                        else want[1][pas][j])
                     taps[j] = v
                     self.ref_wiener[p][pas][j] = v
                 coeffs.append(taps)
             unit = (rtype, coeffs)
         elif rtype == RESTORE_SGRPROJ:
-            s = sd.literal(4)
+            s = sd.literal(4, None if want is None else want[1])
             xqd = [0, 0]
             for i in range(2):
                 radius = T.SGR_PARAMS[s][i * 2]
                 lo, hi = SGR_MIN[i], SGR_MAX[i]
                 if radius:
-                    v = self.subexp_ref(lo, hi + 1, 4, self.ref_sgr[p][i])
+                    v = self.subexp_ref(lo, hi + 1, 4, self.ref_sgr[p][i],
+                                        None if want is None
+                                        else want[2][i])
                 else:
                     v = 0
                     if i == 1:
@@ -1077,23 +1162,12 @@ class TileDecoder:
             unit = (rtype, s, xqd)
         d.lr_units[p][(ur, uc)] = unit
 
-    def subexp_ref(self, low, high, k, r):
+    def subexp_ref(self, low, high, k, r, want=None):
+        """decode_signed_subexp_with_ref_bool; `want` the value an
+        encoder writes."""
         mx = high - low
         r -= low
         sd = self.sd
-        i, mk = 0, 0
-        while True:
-            b2 = k + i - 1 if i else k
-            a = 1 << b2
-            if mx <= mk + 3 * a:
-                v = sd.ns(mx - mk) + mk
-                break
-            if sd.literal(1):
-                i += 1
-                mk += a
-            else:
-                v = sd.literal(b2) + mk
-                break
 
         def recenter(r_, v_):
             if v_ > 2 * r_:
@@ -1101,6 +1175,30 @@ class TileDecoder:
             if v_ & 1:
                 return r_ - ((v_ + 1) >> 1)
             return r_ + (v_ >> 1)
+
+        def unrecenter(r_, x):
+            if x > 2 * r_:
+                return x
+            return (x - r_) << 1 if x >= r_ else ((r_ - x) << 1) - 1
+        code = None
+        if want is not None:
+            x = want - low
+            code = unrecenter(r, x) if (r << 1) <= mx else \
+                unrecenter(mx - 1 - r, mx - 1 - x)
+        i, mk = 0, 0
+        while True:
+            b2 = k + i - 1 if i else k
+            a = 1 << b2
+            if mx <= mk + 3 * a:
+                v = sd.ns(mx - mk, None if code is None else code - mk) + mk
+                break
+            if sd.literal(1, None if code is None
+                          else int(code >= mk + a)):
+                i += 1
+                mk += a
+            else:
+                v = sd.literal(b2, None if code is None else code - mk) + mk
+                break
         if (r << 1) <= mx:
             v = recenter(r, v)
         else:
@@ -2122,7 +2220,18 @@ def _scan_info(tx, txtype):
 
 
 def decode_av1(data: bytes, name: str = "") -> Frame:
-    """Decode an AV1 still image (a sequence of OBUs) to its planes."""
-    from .av1_recon import reconstruct
+    """Decode an AV1 still image (a temporal unit of OBUs) to the planes
+    of the last frame it shows, its film grain applied."""
     dec = Decoder(data, name)
-    return reconstruct(dec)
+    if dec.frame_done:
+        dec.finish_frame()
+    if dec.output is None:
+        raise IOError(f"AV1: no frame shown ({name})")
+    frame, grain = dec.output
+    if grain is None:
+        return frame
+    from .av1_grain import apply_grain
+    out = copy.copy(frame)
+    out.planes = apply_grain(grain, frame.planes, frame.bit_depth,
+                             frame.ss_x, frame.ss_y, frame.matrix)
+    return out

@@ -85,35 +85,126 @@ def seq_level(w: int, h: int) -> int:
     return 31
 
 
-def sequence_header(w: int, h: int) -> bytes:
-    """The reduced still-picture sequence header OBU's payload."""
+class Options:
+    """What a stream switches on beyond cv2's default still picture (the
+    defaults): bit depth `bd` (8 or 10), chroma subsampling `ssx`, `ssy`
+    (4:2:0 or 4:4:4, profile 1), the superres denominator `superres`
+    (9-16; 8 codes the full width), loop restoration `lr` ({"types": the
+    three planes' frame restoration types, RESTORE_*; "shift":
+    lr_unit_shift; "uv_shift"; "seed": the seed of the units' random
+    parameters}), film grain `grain` (av1_grain's parameter dict, or
+    None), `tile_cols` (tile_cols_log2 in place of libaom's layout) and
+    `hidden` (a full sequence header, the key frame hidden but showable
+    in slot 0, then a frame header that shows it with
+    show_existing_frame)."""
+
+    def __init__(self, bd=8, ssx=1, ssy=1, superres=8, lr=None, grain=None,
+                 tile_cols=None, hidden=False):
+        self.bd, self.ssx, self.ssy = bd, ssx, ssy
+        self.superres, self.lr, self.grain = superres, lr, grain
+        self.tile_cols, self.hidden = tile_cols, hidden
+        self.reduced = not hidden
+
+
+DEFAULT = Options()
+
+
+def sequence_header(w: int, h: int, o: Options = DEFAULT) -> bytes:
+    """The sequence header OBU's payload of a w x h (upscaled) picture:
+    the reduced still-picture header, or with `o.hidden` the full one
+    (one operating point, no timing, order hints or frame ids; the
+    screen content tools chosen a frame)."""
     bw = BitWriter()
-    bw.f(3, 0)                      # seq_profile
-    bw.f(1, 1)                      # still_picture
-    bw.f(1, 1)                      # reduced_still_picture_header
-    bw.f(5, seq_level(w, h))
+    profile = 1 if (o.ssx, o.ssy) == (0, 0) else 0
+    bw.f(3, profile)                # seq_profile
+    bw.f(1, int(o.reduced))         # still_picture
+    bw.f(1, int(o.reduced))         # reduced_still_picture_header
+    if o.reduced:
+        bw.f(5, seq_level(w, h))
+    else:
+        bw.f(1, 0)                  # timing_info_present_flag
+        bw.f(1, 0)                  # initial_display_delay_present_flag
+        bw.f(5, 0)                  # operating_points_cnt_minus_1
+        bw.f(12, 0)                 # operating_point_idc
+        bw.f(5, seq_level(w, h))
     wb = max((w - 1).bit_length(), 1)
     hb = max((h - 1).bit_length(), 1)
     bw.f(4, wb - 1)
     bw.f(4, hb - 1)
     bw.f(wb, w - 1)
     bw.f(hb, h - 1)
+    if not o.reduced:
+        bw.f(1, 0)                  # frame_id_numbers_present_flag
     bw.f(1, 0)                      # use_128x128_superblock
     bw.f(1, 1)                      # enable_filter_intra
     bw.f(1, 1)                      # enable_intra_edge_filter
-    bw.f(1, 0)                      # enable_superres
+    if not o.reduced:
+        bw.f(4, 0)                  # interintra, masked, warped, dual
+        bw.f(1, 0)                  # enable_order_hint
+        bw.f(1, 1)                  # seq_choose_screen_content_tools
+        bw.f(1, 1)                  # seq_choose_integer_mv
+    bw.f(1, int(o.superres != 8))   # enable_superres
     bw.f(1, 1)                      # enable_cdef
-    bw.f(1, 0)                      # enable_restoration
-    bw.f(1, 0)                      # high_bitdepth
-    bw.f(1, 0)                      # mono_chrome
+    bw.f(1, int(o.lr is not None))  # enable_restoration
+    bw.f(1, int(o.bd > 8))          # high_bitdepth
+    if profile == 0:
+        bw.f(1, 0)                  # mono_chrome
     bw.f(1, 1)                      # color_description_present_flag
     bw.f(8, 1)                      # BT.709 primaries
     bw.f(8, 13)                     # sRGB transfer
     bw.f(8, 6)                      # BT.601 matrix
     bw.f(1, 1)                      # full range
-    bw.f(2, 0)                      # chroma_sample_position
+    if profile == 0:
+        bw.f(2, 0)                  # chroma_sample_position
     bw.f(1, 0)                      # separate_uv_delta_q
-    bw.f(1, 0)                      # film_grain_params_present
+    bw.f(1, int(o.grain is not None))   # film_grain_params_present
+    bw.trailing_bits()
+    return bw.bytes()
+
+
+def coded_width(w: int, denom: int) -> int:
+    """FrameWidth of an UpscaledWidth w at SuperresDenom `denom`, at
+    least Min(16, w) as libaom keeps it."""
+    return max((w * 8 + denom // 2) // denom, min(16, w))
+
+
+def write_grain_params(bw, g, mono, ssx, ssy):
+    """film_grain_params() after apply_grain of a key frame: the inverse
+    of av1_grain.read_grain_params."""
+    bw.f(16, g["seed"])
+    bw.f(4, len(g["y"]))
+    for pt in g["y"]:
+        bw.f(8, pt[0])
+        bw.f(8, pt[1])
+    if not mono:
+        bw.f(1, g["cfl"])
+    if not (mono or g["cfl"] or (ssx == 1 and ssy == 1 and not g["y"])):
+        for key in ("cb", "cr"):
+            bw.f(4, len(g[key]))
+            for pt in g[key]:
+                bw.f(8, pt[0])
+                bw.f(8, pt[1])
+    bw.f(2, g["scaling_shift"] - 8)
+    bw.f(2, g["lag"])
+    for key in ("ar_y", "ar_cb", "ar_cr"):
+        for v in g[key]:
+            bw.f(8, v + 128)
+    bw.f(2, g["ar_shift"] - 6)
+    bw.f(2, g["grain_scale_shift"])
+    for key in ("cb", "cr"):
+        if g[key]:
+            bw.f(8, g[key + "_mult"])
+            bw.f(8, g[key + "_luma_mult"])
+            bw.f(9, g[key + "_offset"])
+    bw.f(1, g["overlap"])
+    bw.f(1, g["clip"])
+
+
+def show_existing_header(slot: int = 0) -> bytes:
+    """The frame header OBU's payload that shows the frame in `slot`."""
+    bw = BitWriter()
+    bw.f(1, 1)                      # show_existing_frame
+    bw.f(3, slot)                   # frame_to_show_map_idx
     bw.trailing_bits()
     return bw.bytes()
 
@@ -149,18 +240,38 @@ def tile_layout(w: int, h: int):
 
 def frame_header(w: int, h: int, lf, cdef_y, cdef_uv,
                  delta_q: int = 1, context_tile: int = 0,
-                 tile_bytes: int = 4) -> bytes:
-    """The key frame header's bits, byte aligned: the tiles of
-    `tile_layout` (with more than one, `context_tile` for the context
-    update and `tile_bytes` a tile size), cv2's quantiser fields, delta q
-    (when `delta_q`), the deblocking levels `lf` (4), one CDEF strength
-    per plane kind ((primary, secondary) of 0-15, 0-4)."""
+                 tile_bytes: int = 4, o: Options = DEFAULT) -> bytes:
+    """The key frame header's bits, byte aligned, of a frame coded w
+    (FrameWidth) x h: the tiles of `tile_layout` (with more than one,
+    `context_tile` for the context update and `tile_bytes` a tile size),
+    cv2's quantiser fields, delta q (when `delta_q`), the deblocking
+    levels `lf` (4), one CDEF strength per plane kind ((primary,
+    secondary) of 0-15, 0-4); and what `o` switches on: superres, loop
+    restoration, film grain, a hidden frame."""
     bw = BitWriter()
+    if not o.reduced:
+        bw.f(1, 0)                  # show_existing_frame
+        bw.f(2, 0)                  # KEY_FRAME
+        bw.f(1, int(not o.hidden))  # show_frame
+        if o.hidden:
+            bw.f(1, 1)              # showable_frame
+            bw.f(1, 0)              # error_resilient_mode
     bw.f(1, 0)                      # disable_cdf_update
     bw.f(1, 0)                      # allow_screen_content_tools
+    if not o.reduced:
+        bw.f(1, 0)                  # frame_size_override_flag
+        if o.hidden:
+            bw.f(8, 1)              # refresh_frame_flags: slot 0
+    if o.superres != 8:
+        bw.f(1, 1)                  # use_superres
+        bw.f(3, o.superres - 9)     # coded_denom
     bw.f(1, 0)                      # render_and_frame_size_different
+    if not o.reduced:
+        bw.f(1, 1)                  # disable_frame_end_update_cdf
     sb_cols, sb_rows = _superblocks(w, h)
     cols, rows = tile_layout(w, h)
+    if o.tile_cols is not None:
+        cols = o.tile_cols
     bw.f(1, 1)                      # uniform_tile_spacing_flag
     k = _tile_log2(64, sb_cols)     # increment_tile_cols_log2 up to cols
     while k < _tile_log2(1, min(sb_cols, 64)):
@@ -199,8 +310,21 @@ def frame_header(w: int, h: int, lf, cdef_y, cdef_uv,
     for pri, sec in (cdef_y, cdef_uv):
         bw.f(4, pri)
         bw.f(2, 3 if sec == 4 else sec)
+    if o.lr is not None:
+        types = o.lr["types"]
+        for t in types:             # the inverse of REMAP_LR
+            bw.f(2, (0, 2, 3, 1)[t])
+        if any(types):
+            bw.f(1, int(o.lr["shift"] > 0))
+            if o.lr["shift"]:
+                bw.f(1, o.lr["shift"] - 1)
+            if o.ssx and o.ssy and any(types[1:]):
+                bw.f(1, o.lr["uv_shift"])
     bw.f(1, 0)                      # tx_mode_select: the largest
     bw.f(1, 0)                      # reduced_tx_set
+    if o.grain is not None:
+        bw.f(1, 1)                  # apply_grain
+        write_grain_params(bw, o.grain, 0, o.ssx, o.ssy)
     bw.byte_align()
     return bw.bytes()
 
@@ -214,6 +338,7 @@ def frame_state(seq: bytes, hdr: bytes) -> Decoder:
     them: what the tile syntax and the filters run against."""
     d = Decoder.__new__(Decoder)
     d.name, d.seq, d.frame_done = "", None, False
+    d.slots, d.output = [None] * 8, None
     d.sequence_header(BitReader(seq))
     d.frame_header(BitReader(hdr))
     d.begin_frame()
@@ -332,7 +457,7 @@ class TileEncoder(TileDecoder):
         then codes it for real through the decoder's own superblock."""
         d = self.d
         self.plan_q = self.sb_q[(r, c)]
-        q8 = T.AC_Q[0][self.plan_q] / 8.0
+        q8 = T.AC_Q[(d.bd - 8) >> 1][self.plan_q] / 8.0
         self.lam = LAMBDA * q8 * q8
         self.read_deltas = d.delta_q_present
         d.cdef_idx[(r, c)] = -1
@@ -468,7 +593,7 @@ class TileEncoder(TileDecoder):
         for y_mode in ys:
             attempt(Plan(y_mode, uv))
         if self.has_chroma and self.cfl_allowed_size(bsize) and \
-                not best[1].skip:
+                not best[1].skip and self.d.ssx and self.d.ssy:
             cfl = self.cfl_alphas(r, c, bsize, best[2])
             if cfl != (0, 0):
                 attempt(best[1].copy(uv_mode=UV_CFL, cfl_u=cfl[0],
@@ -635,7 +760,7 @@ class TileEncoder(TileDecoder):
         weight = CHROMA_WEIGHT if plane else 1.0
         for t in types:
             coef = forward_transform(resid, tx, t)
-            q = quantizers(tx, plane, b.qindex, d.dq[plane], qml, t)
+            q = quantizers(tx, plane, b.qindex, d.dq[plane], qml, t, d.bd)
             lev = quantize(coef, tx, q, ROUNDING)[0]
             scan = _scan_info(tx, t)[0]
             flat = lev.reshape(-1)
@@ -703,12 +828,13 @@ class TileEncoder(TileDecoder):
         if rec[11] is not None:
             if self.searching:
                 lev, q = self.chosen
-                res = inverse_estimate(dequantize(lev[None], tx, q), tx,
+                res = inverse_estimate(dequantize(lev[None], tx, q,
+                                                  self.d.bd), tx,
                                        rec[11][0])[0]
             else:
                 res = residuals([rec[11]], [plane], tx, False, self.d.bd)[0]
             v = buf[y:y + h, x:x + w] + res
-            np.clip(v, 0, 255, out=v)
+            np.clip(v, 0, (1 << self.d.bd) - 1, out=v)
             buf[y:y + h, x:x + w] = v
         if self.searching:
             ph, pw = self.vis[plane]
@@ -808,30 +934,100 @@ def tile_group(tiles) -> tuple:
 
 def encode_yuv420(y, u, v) -> Encoded:
     """Codes 8-bit Y [h, w], U and V [(h + 1) // 2, (w + 1) // 2]."""
-    h, w = y.shape
-    seq = sequence_header(w, h)
+    return encode_frame((y, u, v))
+
+
+def _downscale(plane: np.ndarray, width: int) -> np.ndarray:
+    """A plane resampled to `width` columns, linearly, rounded (the
+    superres encoder's source: any filter does, as only the decode is
+    normative)."""
+    n = plane.shape[1]
+    x = (np.arange(width) + 0.5) * n / width - 0.5
+    rows = [np.interp(x, np.arange(n), r) for r in plane.astype(np.float64)]
+    return np.rint(np.array(rows)).astype(np.int32)
+
+
+def lr_units(d, seed: int) -> dict:
+    """Random loop restoration units {(plane, unit row, unit column):
+    unit} for every unit of the frame state `d`, within each plane's
+    frame restoration type (the unit types RESTORE_NONE, _WIENER and
+    _SGRPROJ; Wiener taps and self-guided sets and weights in their
+    ranges)."""
+    from .av1 import (RESTORE_SGRPROJ, RESTORE_SWITCHABLE, RESTORE_WIENER,
+                      SGR_MAX, SGR_MIN, WIENER_MAX, WIENER_MIN)
+    rng = np.random.default_rng(seed)
+    plan = {}
+    for p in range(d.nplanes):
+        t = d.lr_type[p]
+        if not t:
+            continue
+        sx, sy = (d.ssx, d.ssy) if p else (0, 0)
+        size = d.lr_size[p]
+        rows = max((((d.h + sy) >> sy) + (size >> 1)) // size, 1)
+        cols = max((((d.up_w + sx) >> sx) + (size >> 1)) // size, 1)
+        for ur in range(rows):
+            for uc in range(cols):
+                kind = int(rng.integers(3)) if t == RESTORE_SWITCHABLE \
+                    else t * int(rng.integers(4) > 0)
+                if kind == RESTORE_WIENER:
+                    taps = [[0 if (p and j == 0) else int(rng.integers(
+                        WIENER_MIN[j], WIENER_MAX[j] + 1)) for j in range(3)]
+                        for _ in range(2)]
+                    plan[(p, ur, uc)] = (kind, taps)
+                elif kind == RESTORE_SGRPROJ:
+                    plan[(p, ur, uc)] = (kind, int(rng.integers(16)), [
+                        int(rng.integers(SGR_MIN[i], SGR_MAX[i] + 1))
+                        for i in range(2)])
+                else:
+                    plan[(p, ur, uc)] = (0,)
+    return plan
+
+
+def encode_frame(planes, o: Options = DEFAULT) -> Encoded:
+    """Codes the planes (Y [h, w], U and V at the subsampling of `o`, of
+    o.bd bits) as one key frame with what `o` switches on. With superres
+    the planes are resampled to the coded width first (`_downscale`), and
+    `planes` of the result are the decode at the full width."""
+    y = planes[0]
+    h, W = y.shape
+    w = coded_width(W, o.superres) if o.superres != 8 else W
+    src_planes = [np.asarray(pl, np.int32) for pl in planes]
+    if w != W:
+        src_planes = [_downscale(pl, (w + (o.ssx if i else 0)) >>
+                                 (o.ssx if i else 0))
+                      for i, pl in enumerate(src_planes)]
+    seq = sequence_header(W, h, o)
     sb_q = {}
     for r in range(0, 2 * ((h + 7) >> 3), 16):
         for c in range(0, 2 * ((w + 7) >> 3), 16):
-            sb_q[(r, c)] = sb_qindex(y, w, h, r, c)
+            sb_q[(r, c)] = sb_qindex(src_planes[0] >> (o.bd - 8), w, h, r,
+                                     c)
     # as libaom, no delta q where every superblock keeps base_q_idx
     delta_q = int(any(q != BASE_Q for q in sb_q.values()))
     d = frame_state(seq, frame_header(w, h, (0, 0, 0, 0), (0, 0), (0, 0),
-                                      delta_q))
+                                      delta_q, o=o))
+    plan = lr_units(d, o.lr["seed"]) if o.lr is not None else None
     rc = Recon(d)
-    source = padded_source(rc, [np.asarray(p, np.int32) for p in (y, u, v)])
+    source = padded_source(rc, src_planes)
     tiles = []
     for r0, r1 in zip(d.row_starts, d.row_starts[1:]):
         for c0, c1 in zip(d.col_starts, d.col_starts[1:]):
-            tiles.append(TileEncoder(d, rc, source, sb_q, r0, r1, c0,
-                                     c1).encode())
+            te = TileEncoder(d, rc, source, sb_q, r0, r1, c0, c1)
+            te.lr_plan = plan
+            tiles.append(te.encode())
     src, vis = source
     planes = choose_filters(d, list(rc.planes), src, vis)
     body, size_bytes, largest = tile_group(tiles)
     hdr = frame_header(w, h, d.lf_level, d.cdef_y[0], d.cdef_uv[0],
-                       delta_q, largest, size_bytes)
+                       delta_q, largest, size_bytes, o)
     out = Encoded()
     out.seq = _obu(1, seq)
     out.obus = _obu(2, b"") + out.seq + _obu(6, hdr + body)
-    out.planes = [p[:ph, :pw].copy() for p, (ph, pw) in zip(planes, vis)]
+    if o.hidden:
+        out.obus += _obu(3, show_existing_header(0))
+    if w != W or o.lr is not None or o.grain is not None or o.hidden:
+        from .av1 import decode_av1
+        out.planes = decode_av1(out.obus).planes
+    else:
+        out.planes = [p[:ph, :pw].copy() for p, (ph, pw) in zip(planes, vis)]
     return out

@@ -1,5 +1,6 @@
 """AV1's in-loop filters over whole planes with numpy: the deblocking
-filter (spec 7.14), CDEF (7.15) and loop restoration (7.17).
+filter (spec 7.14), CDEF (7.15), the superres upscaling (7.16) and loop
+restoration (7.17).
 
 Within one pass of the deblocking filter no two edges touch the same
 samples (a filter is never wider than the transforms on both of its
@@ -346,6 +347,49 @@ def _cdef_plane(src, dst, R, C, dirs, pri, sec, damp, sx, sy, dec, cs):
     dst[yy, xx] = np.clip(y, mn, mx)
 
 
+# ---- superres ---------------------------------------------------------------
+SCALE_BITS, EXTRA_BITS = 14, 8      # SUPERRES_SCALE_BITS, _EXTRA_BITS
+
+
+def upscale_params(down: int, up: int):
+    """(stepX, initialSubpelX) of 7.16 for a plane row of `down` samples
+    upscaled to `up`; C's truncating division."""
+    def div(a, b):
+        q = abs(a) // b
+        return q if a >= 0 else -q
+    step = ((down << SCALE_BITS) + up // 2) // up
+    err = up * step - (down << SCALE_BITS)
+    x0 = div(-((up - down) << (SCALE_BITS - 1)) + up // 2, up) + \
+        (1 << (EXTRA_BITS - 1)) - div(err, 2)
+    return step, x0 & ((1 << SCALE_BITS) - 1)
+
+
+def upscale(dec, planes):
+    """The planes upscaled to UpscaledWidth (7.16): each output sample
+    the 8-tap Upscale_Filter phase of its position, stepX apart from
+    initialSubpelX, over the coded samples clamped to the MI-aligned
+    width (columns past the frame's width read as decoded)."""
+    taps = np.array(T.UPSCALE_FILTER, np.int64)
+    mx = (1 << dec.bd) - 1
+    out = []
+    for p, buf in enumerate(planes):
+        sx = dec.ssx if p else 0
+        down = (dec.w + sx) >> sx
+        up = (dec.up_w + sx) >> sx
+        step, x0 = upscale_params(down, up)
+        pos = x0 + np.arange(up, dtype=np.int64) * step
+        first = (pos >> SCALE_BITS) - 1 - 3        # 8 taps from srcX - 3
+        phase = (pos & ((1 << SCALE_BITS) - 1)) >> EXTRA_BITS
+        last = ((dec.mi_cols * 4) >> sx) - 1
+        cols = np.clip(first[:, None] + np.arange(8)[None, :], 0, last)
+        src = buf[:, cols].astype(np.int64)          # [rows, up, 8]
+        v = (src * taps[phase][None]).sum(-1)
+        res = np.zeros((buf.shape[0], up + 160), np.int32)
+        res[:, :up] = np.clip((v + 64) >> 7, 0, mx)
+        out.append(res)
+    return out
+
+
 # ---- loop restoration -------------------------------------------------------
 def restore(dec, planes, deblocked):
     out = [p.copy() for p in planes]
@@ -355,7 +399,7 @@ def restore(dec, planes, deblocked):
             continue
         sx, sy = (dec.ssx, dec.ssy) if p else (0, 0)
         size = dec.lr_size[p]
-        pw, ph = (dec.w + sx) >> sx, (dec.h + sy) >> sy
+        pw, ph = (dec.up_w + sx) >> sx, (dec.h + sy) >> sy
         unit_rows = max((ph + (size >> 1)) // size, 1)
         unit_cols = max((pw + (size >> 1)) // size, 1)
         m = 0

@@ -707,7 +707,12 @@ class Recon:
 
 
 def reconstruct(dec) -> Frame:
-    from .av1_filters import cdef, deblock, restore
+    """The frame of `dec`'s parse before film grain: prediction and
+    residuals, deblocking and CDEF at the coded width, the superres
+    upscaling (7.16) of the CDEF output and of the deblocked planes that
+    loop restoration reads at its stripes' edges, loop restoration at the
+    upscaled width."""
+    from .av1_filters import cdef, deblock, restore, upscale
     rc = Recon(dec)
     rc.run()
     planes = rc.planes
@@ -717,6 +722,10 @@ def reconstruct(dec) -> Frame:
         t for t in dec.lr_type) else None
     if dec.cdef_on:
         planes = cdef(dec, planes)
+    if dec.up_w != dec.w:
+        planes = upscale(dec, planes)
+        if pre_cdef is not None:
+            pre_cdef = upscale(dec, pre_cdef)
     if pre_cdef is not None:
         planes = restore(dec, planes, pre_cdef)
     f = Frame()
@@ -730,9 +739,5 @@ def reconstruct(dec) -> Frame:
     for p in range(dec.nplanes):
         sx, sy = (dec.ssx, dec.ssy) if p else (0, 0)
         f.planes.append(planes[p][:(dec.h + sy) >> sy,
-                                  :(dec.w + sx) >> sx].copy())
-    if dec.grain is not None:
-        from .av1_grain import apply_grain
-        f.planes = apply_grain(dec.grain, f.planes, dec.bd, dec.ssx,
-                               dec.ssy, s["mc"])
+                                  :(dec.up_w + sx) >> sx].copy())
     return f

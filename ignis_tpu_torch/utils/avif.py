@@ -4,11 +4,14 @@ conversion as libavif 1.4.2 makes it for cv2.imread (utils/yuv.py).
 
 What is read: `ftyp` brands `avif` and `avis`; `meta` with `hdlr`, `pitm`,
 `iloc` (versions 0-2, construction methods 0 and 1, several extents),
-`iinf`/`infe`, `iref` and `idat`; the item properties `av1C` and `colr`
-(nclx; an ICC profile is passed over, as cv2 ignores it) through `ipma`,
-and `auxC` of the items that refer to the primary one. The primary item
-is decoded, never an alpha (`auxl`) item; an animated `avis` file by its
-primary item, the first frame, as cv2 reads it. As cv2 does, `irot`,
+`iinf`/`infe`, `iref`, `grpl` and `idat`; the item properties `av1C` and
+`colr` (nclx; an ICC profile is passed over, as cv2 ignores it) through
+`ipma`, and `auxC` of the items that refer to the primary one; an image
+sequence's `moov` (`trak`, `tref` auxl, `stsd` av01 with av1C and colr,
+`stsz`, `stco`/`co64`). As libavif picks its source: an `avis` major
+brand is read by its colour track's first sample (an alpha track
+ignored), an `avif` one by its primary item, never an alpha (`auxl`)
+item; a gain-mapped file (`tmap`) by its base image. As cv2 does, `irot`,
 `imir` and `clap` are not applied, alpha is dropped and a monochrome
 image is its Y plane as it is. 8-bit files come back as uint8, 10- and
 12-bit files as uint16 at their own range (0-1023, 0-4095), as cv2
@@ -21,12 +24,13 @@ the colour description is the nclx box's, else the AV1 sequence
 header's. A grid primary item (`grid`: its ImageGrid in `idat` or
 `mdat`, 16- or 32-bit sizes, `dimg` tiles) is its tiles' planes laid out
 and cut to the grid's size before the colour conversion, as libavif does.
-An image sequence without a primary item, another derived primary item
-(`iovl`, `tmap`), and the AV1 tools of utils/av1.py's list raise
-NotImplementedError naming them, as no writer here makes them. A file cv2
-reads nothing from (a damaged one, a grey image with an alpha item, which
-cv2 refuses as two channels, or a colour matrix libavif converts nothing
-of) raises IOError.
+A file cv2 reads nothing from raises IOError: a damaged one, a grey
+image with an alpha item (cv2 refuses two channels), a colour matrix
+libavif converts nothing of, a `tmap` or `iovl` primary item, iloc
+construction method 2 or field sizes other than 0, 4 and 8, an `avif`
+brand without `meta` or an `avis` one without `moov`, and item data that
+cv2's signature check (libavif parsing the first SIGNATURE bytes) reads
+past them (`_signature_reads`).
 """
 from __future__ import annotations
 
@@ -72,6 +76,11 @@ def _parse_iloc(data, box):
     sizes = data[p] << 8 | data[p + 1]
     off_size, len_size = sizes >> 12, (sizes >> 8) & 15
     base_size, idx_size = (sizes >> 4) & 15, sizes & 15
+    if version < 1:
+        idx_size = 0
+    if {off_size, len_size, base_size, idx_size} - {0, 4, 8}:
+        raise IOError("AVIF: an iloc field size other than 0, 4 or 8, "
+                      "which libavif refuses")
     p += 2
     if version < 2:
         count = _uint(data, p, 2)
@@ -102,13 +111,16 @@ def _parse_iloc(data, box):
             length = _uint(data, p, len_size)
             p += len_size
             extents.append((base + off, length))
+        if method not in (0, 1):
+            raise IOError(f"AVIF: iloc construction method {method}, "
+                          "which libavif refuses")
         items[item] = (method, extents)
     return items
 
 
 def _parse_meta(data, meta):
     out = {"items": {}, "props": [], "assoc": {}, "refs": [], "pitm": None,
-           "idat": b"", "iloc": {}}
+           "idat": b"", "iloc": {}, "groups": []}
     for box in _children(data, meta, 4):
         b = box.body
         if box.type == "pitm":
@@ -135,6 +147,11 @@ def _parse_meta(data, meta):
                 cnt = _uint(data, q + n, 2)
                 to = [_uint(data, q + n + 2 + k * n, n) for k in range(cnt)]
                 out["refs"].append((ref.type, frm, to))
+        elif box.type == "grpl":
+            for g in _children(data, box):
+                n = _uint(data, g.body + 8, 4)
+                out["groups"].append((g.type, [
+                    _uint(data, g.body + 12 + 4 * k, 4) for k in range(n)]))
         elif box.type == "iprp":
             for sub in _children(data, box):
                 if sub.type == "ipco":
@@ -168,9 +185,6 @@ def _item_data(data, meta, item):
     if item not in meta["iloc"]:
         raise IOError(f"AVIF: item {item} has no location")
     method, extents = meta["iloc"][item]
-    if method not in (0, 1):
-        raise NotImplementedError(
-            f"AVIF: iloc construction method {method} is not ported")
     src = data if method == 0 else meta["idat"]
     parts = []
     for off, length in extents:
@@ -229,52 +243,167 @@ def _image_grid(body: bytes):
     return (body[2] + 1, body[3] + 1) + struct.unpack_from(fmt, body, 4)
 
 
+def _find(data, box, kind, skip=0):
+    return next((b for b in _children(data, box, skip) if b.type == kind),
+                None)
+
+
+def _tracks(data, moov):
+    """The `av01` tracks of an image sequence, in file order: {'id',
+    'handler', 'auxl' (the tracks an auxl tref names), 'av1C' (the
+    sample entry's configuration OBUs), 'nclx', 'first' (the first
+    sample's bytes)}."""
+    out = []
+    for trak in _children(data, moov):
+        if trak.type != "trak":
+            continue
+        tkhd, mdia = _find(data, trak, "tkhd"), _find(data, trak, "mdia")
+        if tkhd is None or mdia is None:
+            continue
+        tid = _uint(data, tkhd.body + (20 if data[tkhd.body] == 1 else 12),
+                    4)
+        auxl = []
+        tref = _find(data, trak, "tref")
+        if tref is not None:
+            for ref in _children(data, tref):
+                if ref.type == "auxl":
+                    auxl += [_uint(data, q, 4) for q in range(
+                        ref.body, ref.end - 3, 4)]
+        hdlr = _find(data, mdia, "hdlr")
+        minf = _find(data, mdia, "minf")
+        stbl = minf and _find(data, minf, "stbl")
+        if hdlr is None or stbl is None:
+            continue
+        tables = {b.type: b for b in _children(data, stbl)}
+        stsd = tables.get("stsd")
+        entry = stsd and next(iter(_boxes(data, stsd.body + 8, stsd.end)),
+                              None)
+        if entry is None or entry.type != "av01":
+            continue
+        t = {"id": tid, "auxl": auxl, "av1C": b"", "nclx": None,
+             "handler": data[hdlr.body + 8:hdlr.body + 12].decode(
+                 "latin-1")}
+        for prop in _boxes(data, entry.body + 78, entry.end):
+            if prop.type == "av1C":
+                t["av1C"] = data[prop.body + 4:prop.end]
+            elif prop.type == "colr" and \
+                    data[prop.body:prop.body + 4] == b"nclx":
+                cp, tc, mc = struct.unpack_from(">HHH", data, prop.body + 4)
+                t["nclx"] = (cp, tc, mc, data[prop.body + 10] >> 7)
+        t["first"] = _first_sample(data, tables)
+        out.append(t)
+    return out
+
+
+def _first_sample(data, tables) -> bytes:
+    """The first sample's bytes, by stsz and the first chunk's offset
+    (stco or co64)."""
+    stsz = tables.get("stsz")
+    chunks = tables.get("stco") or tables.get("co64")
+    if stsz is None or chunks is None or \
+            _uint(data, chunks.body + 4, 4) == 0 or \
+            _uint(data, stsz.body + 8, 4) == 0:
+        raise IOError("AVIF: an image sequence without samples")
+    size = _uint(data, stsz.body + 4, 4) or _uint(data, stsz.body + 12, 4)
+    n = 8 if chunks.type == "co64" else 4
+    off = _uint(data, chunks.body + 8, n)
+    if off + size > len(data):
+        raise IOError("AVIF: a sample past the end of the file")
+    return data[off:off + size]
+
+
+# cv2 takes a file for AVIF only where libavif parses its first bytes
+# (avifDecoderParse of this many, OK or truncated: grfmt_avif.cpp)
+SIGNATURE = 500
+
+
+def _signature_reads(data, top, m, items):
+    """cv2's signature check: libavif reads the data of `items` (the
+    primary grid's ImageGrid; with the `tmap` brand, the tone map
+    metadata) while it parses the file's first SIGNATURE bytes, and
+    fails where such data starts past them in a box that starts at or
+    before their end; a read otherwise waits for more data (truncated
+    data, which cv2 accepts)."""
+    for item in items:
+        method, extents = m["iloc"].get(item, (0, []))
+        if method != 0 or not extents:
+            continue
+        off = extents[0][0]
+        box = next((b for b in top if b.body - 8 <= off < b.end), None)
+        if box is not None and box.body - 8 <= SIGNATURE < off:
+            raise IOError("AVIF: item data that cv2's signature check "
+                          f"reads past its first {SIGNATURE} bytes")
+
+
 def parse_avif(data: bytes) -> dict:
-    """The primary image's AV1 data (its av1C configuration OBUs first)
-    and properties: {'av1': bytes, 'nclx': (primaries, transfer, matrix,
-    full range) or None, 'alpha': whether an alpha item refers to it}; of
-    a grid primary item 'grid' (rows, columns, output width and height)
-    and 'tiles', each tile's AV1 data, in its `dimg` order, for 'av1'."""
+    """The AV1 data (its av1C configuration OBUs first) of the image
+    libavif decodes for cv2, and its properties: {'av1': bytes, 'nclx':
+    (primaries, transfer, matrix, full range) or None, 'alpha': whether
+    an alpha item or track refers to it}; of a grid primary item 'grid'
+    (rows, columns, output width and height) and 'tiles', each tile's AV1
+    data, in its `dimg` order, for 'av1'. libavif's source: an `avis`
+    major brand reads the sequence's colour track (its first sample), an
+    `avif` one the primary item, any other the track where there is
+    one."""
     top = list(_boxes(data, 0, len(data)))
     if not top or top[0].type != "ftyp":
         raise IOError("AVIF: no ftyp box")
+    f = top[0]
+    major = data[f.body:f.body + 4]
+    brands = {major} | {data[q:q + 4] for q in range(f.body + 8, f.end - 3,
+                                                      4)}
     meta = next((b for b in top if b.type == "meta"), None)
     moov = next((b for b in top if b.type == "moov"), None)
+    if b"avif" in brands and meta is None or \
+            b"avis" in brands and moov is None:
+        raise IOError("AVIF: an 'avif' brand without meta or an 'avis' "
+                      "brand without moov, which libavif refuses")
     out = {"nclx": None, "alpha": False}
-    if meta is not None:
-        m = _parse_meta(data, meta)
-        item = m["pitm"]
-        kind = m["items"].get(item)
-        if kind in ("av01", "grid"):
-            out["alpha"] = any(ref == "auxl" and item in to and
-                               _is_alpha(data, m, frm)
-                               for ref, frm, to in m["refs"])
-            out["nclx"] = _nclx(data, m, item)
-        if kind == "av01":
-            out["av1"] = _av1_item(data, m, item)
-            return out
-        if kind == "grid":
-            out["grid"] = _image_grid(_item_data(data, m, item))
-            tiles = next((to for ref, frm, to in m["refs"]
-                          if ref == "dimg" and frm == item), [])
-            rows, cols = out["grid"][:2]
-            if len(tiles) != rows * cols or any(
-                    m["items"].get(t) != "av01" for t in tiles):
-                raise IOError(f"AVIF: a {rows} x {cols} grid of "
-                              f"{len(tiles)} tiles, or tiles not AV1")
-            out["tiles"] = [_av1_item(data, m, t) for t in tiles]
-            if out["nclx"] is None:
-                out["nclx"] = _nclx(data, m, tiles[0])
-            return out
-        if kind is not None:
-            raise NotImplementedError(
-                f"AVIF: primary item of type '{kind}' (a derived image) is "
-                "not ported")
-    if moov is not None:
-        raise NotImplementedError(
-            "AVIF: an image sequence without a primary item is not ported: "
-            "no writer here makes one")
-    raise IOError("AVIF: no primary image item")
+    m = _parse_meta(data, meta) if meta is not None else None
+    if m is not None:
+        grid = [m["pitm"]] if m["items"].get(m["pitm"]) == "grid" else []
+        # the gain map libavif parses: a tmap in an altr group with the
+        # primary item, under the tmap brand
+        tmaps = [i for i, k in m["items"].items() if k == "tmap" and any(
+            kind == "altr" and i in ids and m["pitm"] in ids
+            for kind, ids in m["groups"])] if b"tmap" in brands else []
+        _signature_reads(data, top, m, grid + tmaps)
+    tracks = _tracks(data, moov) if moov is not None else []
+    colour = next((t for t in tracks if not t["auxl"]), None)
+    if major == b"avis" and colour is None:
+        raise IOError("AVIF: an 'avis' file without a colour track")
+    if colour is not None and major != b"avif":
+        out["av1"] = colour["av1C"] + colour["first"]
+        out["nclx"] = colour["nclx"]
+        out["alpha"] = any(colour["id"] in t["auxl"] for t in tracks)
+        return out
+    if m is None:
+        raise IOError("AVIF: no primary image item or colour track")
+    item = m["pitm"]
+    kind = m["items"].get(item)
+    if kind in ("av01", "grid"):
+        out["alpha"] = any(ref == "auxl" and item in to and
+                           _is_alpha(data, m, frm)
+                           for ref, frm, to in m["refs"])
+        out["nclx"] = _nclx(data, m, item)
+    if kind == "av01":
+        out["av1"] = _av1_item(data, m, item)
+        return out
+    if kind == "grid":
+        out["grid"] = _image_grid(_item_data(data, m, item))
+        tiles = next((to for ref, frm, to in m["refs"]
+                      if ref == "dimg" and frm == item), [])
+        rows, cols = out["grid"][:2]
+        if len(tiles) != rows * cols or any(
+                m["items"].get(t) != "av01" for t in tiles):
+            raise IOError(f"AVIF: a {rows} x {cols} grid of "
+                          f"{len(tiles)} tiles, or tiles not AV1")
+        out["tiles"] = [_av1_item(data, m, t) for t in tiles]
+        if out["nclx"] is None:
+            out["nclx"] = _nclx(data, m, tiles[0])
+        return out
+    raise IOError(f"AVIF: primary item of type '{kind}', which libavif "
+                  "decodes no colour image from")
 
 
 def decode_avif(data: bytes, name: str = "") -> np.ndarray:
@@ -351,18 +480,24 @@ def _full_box(kind: bytes, version: int, body: bytes) -> bytes:
 
 
 def heif_image(av1: bytes, seq_obu: bytes, w: int, h: int) -> bytes:
-    """An AVIF still image of one 8-bit 4:2:0 AV1 item (`av1` its OBUs,
-    `seq_obu` their sequence header), boxes laid out as cv2.imwrite lays
+    """An AVIF still image of one AV1 item (`av1` its OBUs, `seq_obu`
+    their sequence header, whose profile, level, bit depth and
+    subsampling av1C and pixi repeat), boxes laid out as cv2.imwrite lays
     them out: ftyp (avif; avif mif1 miaf MA1B), meta (hdlr pict, pitm,
     iloc, iinf/infe av01 'Color', iprp: ipco with ispe, pixi, av1C and
     colr nclx 1/13/6 full range, then ipma), mdat."""
-    from .av1 import BitReader, leb128
+    from .av1 import BitReader, Decoder, leb128
     _, p = leb128(seq_obu, 1)
-    level = BitReader(seq_obu, p).f(10) & 31
+    d = Decoder.__new__(Decoder)
+    d.sequence_header(BitReader(seq_obu, p))
+    s = d.seq
+    flags = ((s["bd"] > 8) << 6 | (s["bd"] == 12) << 5 | s["mono"] << 4
+             | s["ssx"] << 3 | s["ssy"] << 2)
     ftyp = _box(b"ftyp", b"avif" + bytes(4) + b"avifmif1miafMA1B")
     ipco = _box(b"ipco", _full_box(b"ispe", 0, struct.pack(">II", w, h)) +
-                _full_box(b"pixi", 0, bytes([3, 8, 8, 8])) +
-                _box(b"av1C", bytes([0x81, level, 0x0c, 0])) +
+                _full_box(b"pixi", 0, bytes([3] + [s["bd"]] * 3)) +
+                _box(b"av1C", bytes([0x81, s["profile"] << 5 | s["level"],
+                                     flags, 0])) +
                 _box(b"colr", b"nclx" + struct.pack(">HHHB", 1, 13, 6,
                                                     0x80)))
     ipma = _full_box(b"ipma", 0, struct.pack(">IHB", 1, 1, 4) +
@@ -407,6 +542,11 @@ def coding_tools(data: bytes) -> list:
         tools = _item_tools(info["av1"], info["alpha"])
     if data[8:12] == b"avis":
         tools.add("avis")
+    meta = next((b for b in _boxes(data, 0, len(data)) if b.type == "meta"),
+                None)
+    if meta is not None and "tmap" in _parse_meta(data, meta)[
+            "items"].values():
+        tools.add("gain_map")
     return sorted(tools)
 
 
@@ -432,6 +572,8 @@ def _item_tools(av1: bytes, alpha: bool) -> set:
              "uv_delta_q": any(d.dq[1] + d.dq[2]),
              "reduced_still_picture_header": s["reduced"],
              "disable_cdf_update": d.disable_cdf_update,
+             "superres": d.up_w != d.w,
+             "show_existing_frame": d.showed_existing,
              "alpha": alpha}
     tools |= {k for k, v in flags.items() if v}
     for p, t in enumerate(d.lr_type):

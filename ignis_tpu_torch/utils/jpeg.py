@@ -23,9 +23,9 @@ ids 'R', 'G', 'B'), untransformed RGB; four components (Adobe transform
 OpenCV converts libjpeg's CMYK (R = K - (255 - C) * K / 256, truncated,
 and likewise), and YCCK (transform 2) is libjpeg's YCbCr to inverted
 CMYK first. What libjpeg-turbo reads nothing of for OpenCV (12- and
-16-bit frames, hierarchical ones, lossless YCbCr) raises IOError; a
-lossless arithmetic-coded frame (SOF11), which no writer here makes,
-NotImplementedError.
+16-bit frames, hierarchical ones, lossless YCbCr, and lossless
+arithmetic-coded frames, SOF11, as it has no lossless arithmetic
+decoder) raises IOError.
 
 The encoder writes baseline JFIF at 4:2:0 (colour) with the Annex K
 quantisation tables scaled to a quality as libjpeg scales them (95 by
@@ -633,8 +633,8 @@ def parse_jpeg(data: bytes) -> dict:
                                      np.int32)
             frame = {"width": w, "height": h, "hmax": hmax, "vmax": vmax}
         elif m == 0xCB:
-            raise NotImplementedError(
-                "JPEG: SOF11 (lossless arithmetic-coded) is not ported")
+            raise IOError("JPEG: OpenCV reads no lossless arithmetic-coded "
+                          "file (SOF11): libjpeg-turbo decodes none")
         elif 0xC5 <= m <= 0xCF and m not in (0xC8, 0xCC):
             raise IOError(f"JPEG: OpenCV reads no hierarchical file "
                           f"(SOF{m - 0xC0})")

@@ -9,7 +9,8 @@ or tiles, chunky or planar samples (PlanarConfiguration 1 or 2):
 uncompressed, PackBits, LZW (MSB-first codes with the early change),
 Deflate, JPEG (compression 7, its JPEGTables tag before each chunk's
 stream, decoded by utils/jpeg.py), CCITT (compressions 2, 32771, 3 and
-4, utils/ccitt.py) or SGI LogLuv (34676, 34677, utils/logluv.py); LZW
+4, utils/ccitt.py), ThunderScan (32809, `_thunder`) or SGI LogLuv
+(34676, 34677, utils/logluv.py); LZW
 and Deflate with or without the horizontal predictor (2), or for float
 samples the floating-point predictor (3), which libtiff ignores in the
 other codecs. Samples: unsigned and signed 8, 16, 32 and 64 bits, float
@@ -27,8 +28,7 @@ reader converts it. Palette colours are the colour map's high bytes
 taken as 8-bit). A compression libtiff knows no codec for reads as
 OpenCV's zeroed buffer at 8 bits. What OpenCV reads nothing of (2-bit
 files, 4-bit grey, CMYK with alpha, the codecs OpenCV's libtiff is built
-without, ...) raises IOError; a ThunderScan 4-bit palette, which no
-writer here makes, raises NotImplementedError.
+without, ThunderScan of grey, ...) raises IOError.
 """
 from __future__ import annotations
 
@@ -171,6 +171,67 @@ def _inflate(raw: bytes, comp: int) -> bytes:
     if comp == 32773:
         return _packbits(raw)
     return raw
+
+
+# ThunderScan's deltas: 2-bit (code 2 skips) and 3-bit (code 4 skips)
+_THUNDER2 = (0, 1, None, -1)
+_THUNDER3 = (0, 1, 2, 3, None, -3, -2, -1)
+
+
+def _thunder(raw: bytes, rows: int, w: int) -> bytes:
+    """A ThunderScan strip of `rows` rows of w 4-bit pixels, as libtiff's
+    tif_thunder.c decodes it for OpenCV's RGBA reader (which reads a
+    tiled file's tiles as its zeroed buffer): each row from
+    pixel value 0, codes of 2 bits over 6 (a run of the last value, three
+    2-bit or two 3-bit deltas modulo 16, a raw value). A row that the
+    codes do not fill exactly stops the strip there (libtiff's "Not
+    enough" or "Too much data"), the rest left as the reader's zeroed
+    buffer: a run that overshoots the row writes nothing past an odd
+    start, deltas past its end nothing at all, and a row the strip's
+    codes end in keeps no half-filled last byte (as cv2 reads it)."""
+    stride = (w + 1) // 2
+    out = bytearray(rows * stride)
+    pos = 0
+    for r in range(rows):
+        px = []
+        last = 0
+        while pos < len(raw) and len(px) < w:
+            n = raw[pos]
+            pos += 1
+            kind = n >> 6
+            if kind == 0:
+                if len(px) + n <= w:
+                    px += [last] * n
+                else:
+                    if len(px) & 1 and n:
+                        px.append(last)
+                    _thunder_row(out, r * stride, px)
+                    return bytes(out)
+                continue
+            if kind == 1:
+                deltas = [_THUNDER2[(n >> s) & 3] for s in (4, 2, 0)]
+            elif kind == 2:
+                deltas = [_THUNDER3[(n >> s) & 7] for s in (3, 0)]
+            else:
+                deltas = [None]
+                last = n & 15
+                px.append(last)
+            for dv in deltas:
+                if dv is not None:
+                    last = (last + dv) & 15
+                    if len(px) < w:
+                        px.append(last)
+        if len(px) != w:
+            # a row the strip ends in: its last byte is not kept half full
+            _thunder_row(out, r * stride, px[:len(px) & ~1])
+            break
+        _thunder_row(out, r * stride, px)
+    return bytes(out)
+
+
+def _thunder_row(out: bytearray, at: int, px: list):
+    for i, v in enumerate(px):
+        out[at + (i >> 1)] |= v << (4 * (1 - (i & 1)))
 
 
 def _float_predictor(raw: bytes, rows: int, cw: int, spp: int, size: int):
@@ -475,11 +536,10 @@ def decode_tiff(data: bytes) -> np.ndarray:
         # no codec at all, at 8 bits; else it reads nothing
         raise IOError(f"TIFF: OpenCV reads no {bits}-bit file under "
                       f"compression {comp}")
-    if comp == 32809 and (photo, bits) == (3, 4):
-        raise NotImplementedError(
-            "TIFF: ThunderScan compression (32809) of a 4-bit palette is "
-            "not ported: no writer here makes one")
-    if comp in (32766, 32809):
+    if comp == 32809 and (photo, bits, spp) != (3, 4, 1):
+        raise IOError("TIFF: ThunderScan (32809) of other than a 4-bit "
+                      "palette, which OpenCV does not read")
+    if comp == 32766:
         raise IOError(f"TIFF: compression {comp} codes 2- or 4-bit grey, "
                       "which OpenCV does not read")
     if photo == 3 and 320 not in t:
@@ -543,6 +603,13 @@ def decode_tiff(data: bytes) -> np.ndarray:
                                  t.get(266, [1])[0])[..., None]
             img[y0:y0 + rows, x0:x0 + cw] = chunk
             continue
+        if comp == 32809:
+            if off + cnt > len(data):
+                raise IOError("TIFF: a ThunderScan strip past the end of "
+                              "the file, which OpenCV does not read")
+            if 322 in t:
+                continue     # libtiff decodes no tile: its zeroed buffer
+            raw = _thunder(raw, min(ch, h - y0), w)
         raw = _inflate(raw, comp)
         if bits < 8:
             chunk = _unpack_bits(raw, ch, cw, bits)

@@ -2,8 +2,9 @@
 tables, taken byte for byte from a libaom 3.14.1 shared library.
 
 The AV1 specification's default CDFs, quantiser lookups, quantiser
-matrices and filter taps are libaom's own arrays; this script reads them
-from the library's .rodata at the offsets of opencv-python 5.0.0's wheel
+matrices and filter taps (superres's Upscale_Filter too) are libaom's
+own arrays; this script reads them from the library's .rodata at the
+offsets of opencv-python 5.0.0's wheel
 (`opencv_python.libs/libaom-a0d22147.so.3.14.1`), checks each CDF's shape
 (falling inverse values, a closing 0 and a zero counter), and writes them
 in the specification's form. Nothing reads the library at run time.
@@ -144,6 +145,10 @@ def main(path):
     taps = np.frombuffer(lib, "i1", 5 * 8 * 8, 0x68e340).reshape(5, 8, 8)
     assert not taps[..., 7].any()
     lines.append(f"FILTER_INTRA_TAPS = {taps[..., :7].tolist()!r}")
+    up = np.frombuffer(lib, "<i2", 64 * 8, 0x68e800).reshape(64, 8)
+    assert (up.sum(1) == 128).all() and up[0, 3] == 128
+    lines.append("# superres: Upscale_Filter, 64 phases of 8 taps")
+    lines.append(f"UPSCALE_FILTER = {up.tolist()!r}")
     sgr = np.frombuffer(lib, "<i4", 64, 0x690680).reshape(16, 4)
     lines.append("# r0, s0, r1, s1 per set")
     lines.append(f"SGR_PARAMS = {sgr[:, [0, 2, 1, 3]].tolist()!r}")

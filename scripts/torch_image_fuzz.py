@@ -37,7 +37,12 @@ palettes, grey and 16-bit, sYCC, subsampled sYCC, e-sYCC and CMYK);
 HTJ2K files of the hand-written HT encoder (scripts/htj2k_encoder.py:
 grey, 16-bit or RGB, the 5/3 or 9/7, levels, code-block sizes, COC,
 precincts, tiles, progressions, 1-3 passes over layers, style bits, CAP,
-CPF, JP2 or JPH, and broken files cv2 reads nothing of) and
+CPF, JP2 or JPH, and broken files cv2 reads nothing of); the port's AV1
+encoder under superres, 4:4:4, 10 bits, loop restoration, film grain,
+two tile columns and show_existing_frame, HEIF layouts
+(scripts/make_avif_items.py: gain maps, overlays, iloc construction
+method 2, track-only sequences, items and tracks that differ),
+ThunderScan TIFFs of the hand-written encoder and SOF11 JPEGs; and
 compare the port's decode with
 cv2.imdecode (arithmetic JPEG within 1 level); where cv2 reads no AVIF (a
 grey one with alpha, a matrix libavif converts nothing of, a grid it
@@ -50,7 +55,8 @@ repository's root:
 
     python scripts/torch_image_fuzz.py --seed 1 --seconds 60
 
-(`--openjpeg`: OpenJPEG's files only; `--htj2k`: the HT encoder's.)
+(`--openjpeg`: OpenJPEG's files only; `--htj2k`: the HT encoder's;
+`--named`: the families of the files once refused by name.)
 
 It prints each mismatch and one closing line of counts, and exits 1 if
 any file differed.
@@ -77,6 +83,10 @@ from make_image_fixtures import (_pil_ccitt, arith_jpeg, avif_grid,  # noqa
 from ignis_tpu_torch.utils.jpeg import decode_jpeg  # noqa: E402
 import make_jp2_fixtures as opj  # noqa: E402
 import htj2k_encoder as ht  # noqa: E402
+import lossless_arith_encoder as sof11  # noqa: E402
+import make_avif_items as items  # noqa: E402
+import make_named_fixtures as named  # noqa: E402
+import thunderscan_encoder as thunder  # noqa: E402
 
 FLAGS = cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH | cv2.IMREAD_ANYCOLOR
 
@@ -124,7 +134,9 @@ def one_case(rng):
     h, w = (int(v) for v in rng.integers(1, 90, 2))
     img = random_image(rng, h, w)
     bgr = np.ascontiguousarray(img[..., ::-1])
-    kind = rng.integers(0, 21)
+    kind = rng.integers(0, 25)
+    if kind >= 21:
+        return NAMED_CASES[kind - 21](rng, h, w, img)
     if kind >= 13:
         return REST_CASES[kind - 13](rng, h, w, img)
     if kind == 12:
@@ -735,8 +747,127 @@ def ht_case(rng, h, w, img):
             strict_jp2)
 
 
+def superres_case(rng, h, w, img):
+    """The port's AV1 encoder at a random superres denominator (or none),
+    4:2:0 or 4:4:4, 8 or 10 bits, loop restoration of random types,
+    unit sizes and units, film grain, two tile columns, a hidden key
+    frame shown by show_existing_frame; now and then a tile list OBU
+    after the frame or an inter frame of Pillow's with nothing before
+    it."""
+    roll = rng.random()
+    if roll < 0.04:
+        return "AV1 tile list OBU", named.tile_list(), strict_avif
+    if roll < 0.08:
+        return "AV1 inter frame first", named.inter_first(), strict_avif
+    opts = {"superres": int(rng.choice([8] + list(range(9, 17))))}
+    if rng.random() < 0.3:
+        opts.update(ssx=0, ssy=0)
+    if rng.random() < 0.3:
+        opts["bd"] = 10
+    if rng.random() < 0.6:
+        opts["lr"] = named.lr([int(rng.integers(4)) for _ in range(3)],
+                              int(rng.integers(3)), int(rng.integers(2)),
+                              int(rng.integers(1 << 16)))
+    if opts.get("bd", 8) == 8 and rng.random() < 0.3:
+        opts["grain"] = named.grain_params(int(rng.integers(1 << 16)))
+    if rng.random() < 0.3:
+        opts["hidden"] = True
+    if opts["superres"] != 8 and rng.random() < 0.15:
+        h = int(rng.integers(8, 24))
+        w = (int(rng.integers(100, 200)) * opts["superres"]) // 8 + 1
+        opts["tile_cols"] = 1
+    label = f"AV1 {h}x{w} {sorted(opts)} denominator {opts['superres']}"
+    try:
+        stream = named.av1_stream(h, w, int(rng.integers(1 << 16)), **opts)
+    except IOError:             # a tile column libaom refuses, as cv2
+        return label, named._narrow_tiles(), strict_avif
+    return label, named.avif_of(stream), strict_avif
+
+
+def items_case(rng, h, w, img):
+    """HEIF layouts: a gain map (base or tmap primary, with or without
+    the altr group, the tmap brand and the metadata in idat), an overlay,
+    iloc construction method 2, a Pillow sequence without its meta
+    (brands with or without avif), a sequence whose primary item differs
+    from its first sample under a random major brand."""
+    h, w = max(h, 2), max(w, 2)
+    seed = int(rng.integers(1 << 16))
+    kind = int(rng.integers(5))
+    if kind == 0:
+        base = named.av1_stream(h, w, seed)
+        gain = named.av1_stream(max(h // 2, 1), max(w // 2, 1), seed + 1)
+        args = [bool(rng.integers(2)) for _ in range(3)]
+        pitm = "tmap" if rng.random() < 0.2 else "base"
+        return (f"gain map {pitm} {args} {h}x{w}",
+                items.gain_map(base, gain, w, h, pitm, *args), strict_avif)
+    if kind == 1:
+        ins = [named.av1_stream(int(rng.integers(1, 30)),
+                                int(rng.integers(1, 30)), seed + k)
+               for k in range(int(rng.integers(1, 4)))]
+        offs = [tuple(int(v) for v in rng.integers(-8, 40, 2)) for _ in ins]
+        return ("overlay", items.overlay(ins, (w, h), offs,
+                                         wide=bool(rng.integers(2))),
+                strict_avif)
+    if kind == 2:
+        return "iloc method 2", items.method2(*named.av1_stream(
+            h, w, seed)), strict_avif
+    seq = named.pil_sequence(int(rng.integers(2, 4)),
+                             "RGBA" if rng.random() < 0.3 else "RGB", seed,
+                             h, w)
+    if kind == 3:
+        brands = [(b"avis", b"msf1", b"iso8"), (b"avis",),
+                  (b"avis", b"avif")][int(rng.integers(3))]
+        return (f"track only {brands}", items.track_only(seq, brands),
+                strict_avif)
+    major = [b"avis", b"avif", b"mif1"][int(rng.integers(3))]
+    still = avif.parse_avif(named.pil_still(seed, h, w))["av1"]
+    return (f"item and track {major}", items.item_and_track(seq, still,
+                                                          major),
+            strict_avif)
+
+
+def thunderscan_case(rng, h, w, img):
+    """A ThunderScan TIFF of the hand-written encoder: random 4-bit
+    palette images (noise, ramps, flat stretches), random strip heights
+    and code choices, tiles now and then, a damaged byte or a cut strip
+    now and then."""
+    idx = (img[..., 0] >> 4).astype(np.uint8)
+    if rng.random() < 0.3:
+        idx = np.where(rng.random((h, w)) < 0.8, idx[:, :1], idx)
+    cmap = rng.integers(0, 1 << 16, (16, 3))
+    if rng.random() < 0.1:
+        data = tiff_file(idx[..., None], comp=32809, photo=3, cmap=cmap,
+                         bits=4, tile=(16, 16), encode=thunder.encode)
+    else:
+        data = thunder.thunder_tiff(idx, cmap, int(rng.integers(1, h + 1)),
+                                    rng if rng.random() < 0.5 else None)
+    data = bytearray(data)
+    if rng.random() < 0.2:
+        k = int(rng.integers(max(len(data) - 12, 8), len(data)))
+        data[k] = int(rng.integers(256))
+    if rng.random() < 0.1:
+        data = data[:-int(rng.integers(1, 4))]
+    return f"ThunderScan {h}x{w}", bytes(data), strict_tiff
+
+
+def sof11_case(rng, h, w, img):
+    """A lossless arithmetic-coded JPEG (SOF11) of any predictor, point
+    transform, restart interval, DAC and 1 or 3 components: cv2 reads
+    nothing of it."""
+    ch = int(rng.choice([1, 3]))
+    pred, pt = int(rng.integers(1, 8)), int(rng.choice([0, 1]))
+    rst = int(rng.choice([0, 0, 2]))
+    dac = (int(rng.integers(0, 3)), int(rng.integers(3, 6))) \
+        if rng.random() < 0.3 else None
+    h, w = min(h, 24), min(w, 24)
+    return (f"SOF11 {ch} ch pred {pred} pt {pt} rst {rst} dac {dac}",
+            sof11.sof11_jpeg(img[:h, :w, :ch], pred, pt, rst, dac),
+            strict_jpeg)
+
+
 REST_CASES = (logluv_case, ccitt_case, ycbcr_case, lossless_case,
               arith_case, grid_case, opj_case, ht_case)
+NAMED_CASES = (superres_case, items_case, thunderscan_case, sof11_case)
 STRICT = (strict_tiff, strict_jpeg, near_jpeg, strict_avif, strict_jp2)
 
 
@@ -748,9 +879,14 @@ def main() -> int:
                     help="only files of OpenJPEG's own encoder")
     ap.add_argument("--htj2k", action="store_true",
                     help="only files of the hand-written HTJ2K encoder")
+    ap.add_argument("--named", action="store_true",
+                    help="only the families of the files once refused by "
+                         "name: superres and show_existing_frame, HEIF "
+                         "items, ThunderScan, SOF11")
     args = ap.parse_args()
     rng = np.random.default_rng(args.seed)
     files = bad = avifs = written = rest = opjs = hts = 0
+    by_family = {f.__name__: 0 for f in NAMED_CASES}
     end = time.perf_counter() + args.seconds
     while time.perf_counter() < end:
         if args.openjpeg:
@@ -759,6 +895,11 @@ def main() -> int:
         elif args.htj2k:
             h, w = (int(v) for v in rng.integers(1, 90, 2))
             label, data, other = ht_case(rng, h, w, random_image(rng, h, w))
+        elif args.named:
+            h, w = (int(v) for v in rng.integers(1, 65, 2))
+            case = NAMED_CASES[int(rng.integers(len(NAMED_CASES)))]
+            by_family[case.__name__] += 1
+            label, data, other = case(rng, h, w, random_image(rng, h, w))
         else:
             label, data, other = one_case(rng)
         written += label.startswith("AVIF writer")
@@ -793,6 +934,10 @@ def main() -> int:
                         got.astype(np.int64) - want).max() > 1:
             bad += 1
             print(f"mismatch: {label}: pixels differ")
+    if args.named:
+        print(f"{files} files of the once-refused kinds (drawn by family: "
+              f"{by_family}), {bad} differed from cv2")
+        return 1 if bad else 0
     print(f"{files} files ({avifs} AVIF, {written} of them from the port's "
           f"AVIF writer; {rest} of the last slice's kinds: LogLuv, CCITT, "
           f"YCbCr, lossless and arithmetic JPEG, AVIF grids, OpenJPEG's "

@@ -59,7 +59,19 @@ MADE_FOR = {
     "pil_444_mc12_cp9.avif": "4:4:4",
     # grid primary items of cv2's 64 x 64 tiles (make_image_fixtures'
     # avif_grid)
-    "grid_2x1.avif": "grid", "grid_2x2_crop.avif": "grid"}
+    "grid_2x1.avif": "grid", "grid_2x2_crop.avif": "grid",
+    # the port's own encoder's superres and show_existing_frame streams,
+    # and HEIF layouts around them and Pillow's sequences
+    # (scripts/make_named_fixtures.py)
+    **{n: "superres" for n in (
+        "sr_d9_odd.avif", "sr_d12_444.avif", "sr_d16_10bit.avif",
+        "sr_two_tiles.avif", "sr_lr_wiener.avif", "sr_lr_sgrproj.avif",
+        "sr_lr_switchable.avif", "sr_grain.avif", "sr_texture_64.avif")},
+    "av1_show_existing.avif": "show_existing_frame",
+    "av1_show_existing_grain.avif": "show_existing_frame",
+    "gain_map_base.avif": "gain_map", "gain_map_brand.avif": "gain_map",
+    "track_only.avif": "avis", "track_only_alpha.avif": "avis",
+    "item_and_track.avif": "avis"}
 
 
 def _cv2_rgb(data: bytes):
@@ -369,11 +381,18 @@ def _frame_header(show_existing=0, frame_type=0, superres=0):
     ("show_existing_frame", lambda: _sequence_header() + _frame_header(
         show_existing=1))])
 def test_unported_tools_refused_by_name(tool, data):
-    """AV1 tools that no writer here emits (Pillow refuses libaom's
-    superres and large-scale-tile switches; cv2 has none) raise
-    NotImplementedError naming the tool and the file."""
-    with pytest.raises(NotImplementedError, match=f"{tool}.*x.avif"):
-        av1.decode_av1(data(), "x.avif")
+    """AV1 tools once refused by name, in streams of headers alone. Since
+    superres and show_existing_frame are read (tests/
+    test_torch_avif_superres.py), and a tile list OBU and an inter frame
+    with nothing before it to refer to raise IOError, each of these
+    streams raises IOError naming the file, as cv2 reads nothing of it;
+    an inter frame after a key frame, which cv2 reads, is the one tool
+    still refused by name (test_inter_frame_after_a_key_frame_refused)."""
+    item = data()
+    wrapped = avif.heif_image(item, item[:2 + item[1]], 16, 16)
+    assert _cv2_rgb(wrapped) is None
+    with pytest.raises(IOError, match="x.avif"):
+        av1.decode_av1(item, "x.avif")
 
 
 def _with_matrix(mc):
@@ -395,17 +414,20 @@ def _without_meta():
     ("image sequence without a primary item", _without_meta),
     ("grid", lambda: (FIXTURES / "grid_2x1.avif").read_bytes())])
 def test_unported_container_features_refused_by_name(what, data):
-    """An `avis` file without a primary item: no writer here makes one,
-    and the port names it. A colour matrix other than BT.601 or the
-    identity (here BT.709), once refused here too, is read now as cv2
-    reads it (test_colour_matrix_matches_cv2), and so is a grid primary
-    item, refused by name once (tests/test_torch_avif_grid.py)."""
-    if what in ("colour matrix", "grid"):
-        np.testing.assert_array_equal(avif.decode_avif(data(), "x.avif"),
-                                      _cv2_rgb(data()))
+    """Container features once refused by name, each read now as cv2
+    reads it: a colour matrix other than BT.601 or the identity (here
+    BT.709; test_colour_matrix_matches_cv2), a grid primary item
+    (tests/test_torch_avif_grid.py), and an `avis` file whose meta is
+    made a `free` box: its ftyp still lists the `avif` brand, which
+    libavif reads only with a primary item, so cv2 reads nothing and the
+    port raises IOError (sequences without a primary item under the
+    other brands: tests/test_torch_avif_items.py)."""
+    want = _cv2_rgb(data())
+    if want is None:
+        with pytest.raises(IOError):
+            avif.decode_avif(data(), "x.avif")
         return
-    with pytest.raises(NotImplementedError, match=what):
-        avif.decode_avif(data(), "x.avif")
+    np.testing.assert_array_equal(avif.decode_avif(data(), "x.avif"), want)
 
 
 def test_save_avif_still_refused(tmp_path):

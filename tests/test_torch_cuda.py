@@ -505,10 +505,9 @@ def test_texture_phase_on_card(device, tmp_path):
     assert out["avif_256"]["write_s"] > 0
     assert out["ht_1024"]["psnr_db"] >= chip_smoke.HT_1024_PSNR
     assert out["s1_film_avif"]["psnr_db"] >= 20.0
-    for jp2 in (out["jp2_texture"], out["ht_texture"]):
+    for jp2 in (out["jp2_texture"], out["ht_texture"], out["sr_texture"]):
         assert jp2["bit_equal"] and jp2["captured"] and jp2["finite"]
-    assert all(v.startswith("Cannot load image")
-               for v in out["unread"].values())
+    assert all(v != "read" for v in out["unread"].values())
     envs = out["logluv_env"]["maps"]
     assert sorted(envs) == sorted(chip_smoke.LOGLUV_ENVS)
     assert all(r["bit_equal"] and r["captured"] and r["finite"]

@@ -3,11 +3,12 @@ nothing of raises IOError, as ignis_tpu's load_image raises for
 cv2.imread's None (Radiance resolution lines other than -Y h +X w, BMP
 depths and compressions, Sun raster depths and types, TGA, invalid PNG
 headers), and a file cv2 reads is read as cv2 reads it (BMP bit fields
-with gaps or a missing mask). NotImplementedError is left only for files
-no writer here can make, each named in ROADMAP.md queue 1; the audit
-test lists them."""
+with gaps or a missing mask). NotImplementedError is left only for a
+file cv2 reads and the port does not, named in ROADMAP.md queue 1; the
+audit test lists it."""
 import ast
 import struct
+import sys
 from pathlib import Path
 
 import cv2
@@ -19,6 +20,10 @@ from ignis_tpu_torch.utils import image as imagelib
 
 FLAGS = cv2.IMREAD_UNCHANGED | cv2.IMREAD_ANYDEPTH | cv2.IMREAD_ANYCOLOR
 UTILS = Path(__file__).resolve().parent.parent / "ignis_tpu_torch" / "utils"
+UNREAD = Path(__file__).resolve().parent / "data" / "images_unread"
+
+sys.path.insert(0, str(UTILS.parent.parent / "scripts"))
+import make_named_fixtures as F  # noqa: E402
 
 
 def _cv2(data: bytes):
@@ -155,22 +160,19 @@ def test_invalid_png_headers_raise_ioerror(tmp_path, color, depth,
 
 
 # the refusals by name left under ignis_tpu_torch/utils, each a file that
-# cv2 reads (or may read) and no writer here makes (ROADMAP.md queue 1):
-# (module, the words the refusal names)
+# cv2 reads and the port does not (ROADMAP.md queue 1): (module, the
+# words the refusal names). An AV1 inter frame after a key frame is the
+# one left: cv2 reads the inter frame's picture, and an inter decoder is
+# a slice of its own.
 NAMED = {
-    ("av1.py", "is not ported"),              # AV1 tools via _refuse
-    ("avif.py", "iloc construction method"),
-    ("avif.py", "a derived image"),
-    ("avif.py", "an image sequence without a primary item"),
-    ("jpeg.py", "SOF11"),
-    ("tiff.py", "ThunderScan"),
+    ("av1.py", "inter frame is not ported"),
 }
 
 
 def test_refusals_by_name_are_the_listed_ones():
     """Every `raise NotImplementedError` under ignis_tpu_torch/utils names
-    one of the files in NAMED, which ROADMAP.md lists as read by cv2 but
-    made by no writer here; the rest of what cv2 reads nothing of raises
+    one of the files in NAMED, which ROADMAP.md lists as read by cv2 and
+    not by the port; the rest of what cv2 reads nothing of raises
     IOError."""
     found = set()
     for path in sorted(UTILS.glob("*.py")):
@@ -187,6 +189,22 @@ def test_refusals_by_name_are_the_listed_ones():
     assert found == NAMED
     roadmap = " ".join((UTILS.parent.parent / "ROADMAP.md").read_text()
                        .split())
-    for words in ("SOF11", "ThunderScan", "iloc construction method 2",
-                  "image sequence without a primary item"):
+    for words in ("an inter frame after a key frame",
+                  "an inter decoder is a slice of its own"):
         assert words in roadmap, words
+
+
+@pytest.mark.parametrize("name", sorted(F.UNREAD_FIXTURES))
+def test_named_fixtures_cv2_reads_nothing_of_raise_ioerror(name):
+    """The files of scripts/make_named_fixtures.py that cv2 reads nothing
+    of (a tile list OBU, an inter frame with nothing before it, superres
+    tile columns under 128 coded pixels, tmap and iovl primary items, a
+    tone map past cv2's signature window, iloc construction method 2, a
+    track without meta under the avif brand, ThunderScan grey, SOF11):
+    both packages raise IOError."""
+    path = UNREAD / name
+    assert _cv2(path.read_bytes()) is None
+    with pytest.raises(IOError):
+        imagelib.load_image(path)
+    with pytest.raises(IOError):
+        jax_image.load_image(str(path))

@@ -26,7 +26,9 @@ DATA = Path(__file__).resolve().parent / "data"
 FIXTURES = DATA / "images"
 UNREAD = DATA / "images_unread"
 OPJ = sorted(p.name for p in FIXTURES.glob("opj_*.jp2"))
-UNREAD_FILES = sorted(p.name for p in UNREAD.iterdir())
+# the JPEG 2000 files of images_unread (the others: test_torch_image_refusals)
+UNREAD_FILES = sorted(p.name for p in UNREAD.iterdir()
+                      if p.suffix in (".jp2", ".j2k", ".jph"))
 
 
 def _cv2_rgb(data: bytes):
@@ -242,5 +244,7 @@ def test_jp2_texture_step_and_refusals_on_cpu(tmp_path):
     assert out["bit_equal"] and out["finite"] and out["film_mean"] > 0
     assert out["shape"] == [64, 64, 3] and out["device"] == "cpu"
     refused = chip_smoke.unread_refusals()
-    assert sorted(refused) == UNREAD_FILES
-    assert all(v.startswith("Cannot load image") for v in refused.values())
+    assert sorted(k for k in refused if k in UNREAD_FILES) == UNREAD_FILES
+    assert all(refused[k].startswith("Cannot load image")
+               for k in UNREAD_FILES)
+    assert all(v != "read" for v in refused.values())

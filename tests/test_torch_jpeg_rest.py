@@ -204,3 +204,39 @@ def test_fixtures_load_as_jax(name):
     np.testing.assert_allclose(imagelib.load_image(path, linear=True),
                                jax_image.load_image(str(path), linear=True),
                                rtol=0, atol=tol / 255.0)
+
+
+# ---- lossless arithmetic (SOF11) -------------------------------------------
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
+import lossless_arith_encoder as LA  # noqa: E402
+
+
+def _sof11_source(nc, seed):
+    rng = np.random.default_rng(seed)
+    v = np.cumsum(rng.integers(-9, 10, (13, 17, nc)), 1) + 128
+    return np.clip(v, 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("predictor", range(1, 8))
+@pytest.mark.parametrize("nc,pt,dac,restart", [
+    (1, 0, None, 0), (3, 1, (1, 3), 0), (3, 0, None, 4), (1, 1, (0, 2), 5)],
+    ids=["grey", "rgb_pt1_dac", "rgb_restart", "grey_pt1_dac_restart"])
+def test_sof11_reads_nothing_as_cv2(tmp_path, predictor, nc, pt, dac,
+                                    restart):
+    """Lossless arithmetic-coded files of the fixture writer
+    (scripts/lossless_arith_encoder.py: T.81 H.1.2.3's 25 conditions on
+    the left and upper differences, predictors 1-7, point transform 0
+    and 1, grey and three components, with and without DAC, restart
+    intervals), each read back to its stored samples by the writer's
+    mirror decoder: libjpeg-turbo has no lossless arithmetic decoder, cv2
+    reads nothing, and the port raises IOError beside ignis_tpu's."""
+    src = _sof11_source(nc, predictor)
+    data = LA.sof11_jpeg(src, predictor, pt, restart, dac)
+    np.testing.assert_array_equal(LA.decode_sof11(data), src >> pt << pt)
+    assert _cv2(data) is None
+    p = tmp_path / "x.jpg"
+    p.write_bytes(data)
+    with pytest.raises(IOError, match="SOF11"):
+        imagelib.load_image(p)
+    with pytest.raises(IOError):
+        jax_image.load_image(str(p))

@@ -311,9 +311,10 @@ def test_save_image_exr_read_back_by_both_readers(tmp_path):
 # test: its file's suffix, the error and the words it names (the JPEG and
 # TIFF refused by name as no writer here makes them; TGA, which cv2 has
 # no codec for, IOError as ignis_tpu raises)
+# (suffix, the error its load raises, its words), or None where it reads
 _UNPORTED_VARIANT = {
-    ".jpg": (".jpg", NotImplementedError, "SOF11"),
-    ".bmp": (".tif", NotImplementedError, "ThunderScan"),
+    ".jpg": (".jpg", IOError, "SOF11"),
+    ".bmp": (".tif", None, None),
     ".tga": (".tga", IOError, "image type 1"),
 }
 
@@ -347,13 +348,14 @@ def test_unported_formats_raise(tmp_path, suffix):
     are ported: save_image writes each as 8-bit sRGB with +0.5 rounding
     and load_image reads it back, BMP and TGA exactly, JPEG (baseline
     4:2:0, quality 95) within 0.5 dB PSNR of the JAX writer's (OpenCV's)
-    file of the same image. Only a variant the port does not decode still
-    raises: a lossless arithmetic-coded (SOF11) JPEG and a ThunderScan
-    4-bit palette TIFF by name (NotImplementedError), a colour-mapped TGA
-    IOError (progressive, arithmetic-coded and lossless JPEGs, 8-bit
-    palette BMPs, CCITT TIFFs, WebP and AVIF files and BigTIFFs, the
-    refused variants here once, are read now: tests/test_torch_image.py,
-    tests/test_torch_ccitt.py, tests/test_torch_avif.py)."""
+    file of the same image. A variant cv2 reads nothing of raises
+    IOError: a lossless arithmetic-coded (SOF11) JPEG, once refused by
+    name, and a colour-mapped TGA; a ThunderScan 4-bit palette TIFF, once
+    refused by name, reads as cv2 reads it (progressive, arithmetic-coded
+    and lossless JPEGs, 8-bit palette BMPs, CCITT TIFFs, WebP and AVIF
+    files and BigTIFFs, the refused variants here once, are read now:
+    tests/test_torch_image.py, tests/test_torch_ccitt.py,
+    tests/test_torch_avif.py, tests/test_torch_thunderscan.py)."""
     import cv2
     from ignis_tpu.utils import image as jax_image
     img = _ldr_image()
@@ -390,6 +392,11 @@ def test_unported_formats_raise(tmp_path, suffix):
             data[2] = 1                            # colour-mapped
         variant = bytes(data)
     v_suffix, error, match = _UNPORTED_VARIANT[suffix]
-    (tmp_path / f"v{v_suffix}").write_bytes(bytes(variant))
+    v = tmp_path / f"v{v_suffix}"
+    v.write_bytes(bytes(variant))
+    if error is None:
+        want = cv2.imread(str(v), cv2.IMREAD_UNCHANGED)[..., ::-1]
+        np.testing.assert_array_equal(imagelib.decode_samples(v), want)
+        return
     with pytest.raises(error, match=match):
-        imagelib.load_image(tmp_path / f"v{v_suffix}")
+        imagelib.load_image(v)

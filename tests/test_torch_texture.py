@@ -291,10 +291,11 @@ def test_other_formats_raise(tmp_path, jax_image):
     """A JPEG texture, which this test once held to NotImplementedError,
     loads as the JAX loader loads it (within 1/255 before the sRGB
     decode), and an AVIF one, once refused here too, as cv2 reads it, and
-    so a CCITT Group 4 TIFF, refused here once; a truncated JPEG, a format
-    the port does not read (a ThunderScan 4-bit palette TIFF, once here a
-    WebP, an AVIF, a BigTIFF and the Group 4 TIFF, which the port reads
-    now) and bytes that neither package reads raise."""
+    so a CCITT Group 4 TIFF, refused here once, and a ThunderScan 4-bit
+    palette TIFF, refused here by name once (here codes of empty runs,
+    which libtiff leaves as its zeroed buffer); a truncated JPEG and bytes
+    that neither package reads raise (a WebP, an AVIF, a BigTIFF and the
+    Group 4 TIFF, once held here to raise, are read now)."""
     import cv2
     from ignis_tpu_torch.utils.image import load_image
     rgb = np.random.RandomState(2).randint(0, 256, (16, 24, 3)).astype(
@@ -332,8 +333,10 @@ def test_other_formats_raise(tmp_path, jax_image):
     (tmp_path / "t.tif").write_bytes(tiff_file(
         np.zeros((4, 4, 1), np.uint8), comp=32809, photo=3, bits=4,
         cmap=np.zeros((16, 3), np.uint16), encode=lambda c: bytes(8)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        load_image(tmp_path / "t.tif")
+    want = cv2.imread(str(tmp_path / "t.tif"), cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(load_image(tmp_path / "t.tif",
+                                             linear=True),
+                                  want[..., ::-1] / np.float32(255))
     (tmp_path / "x.webp").write_bytes(b"not an image")
     with pytest.raises(IOError, match="Cannot load"):
         load_image(tmp_path / "x.webp")
