@@ -5012,6 +5012,13 @@ HT_TEXTURE = "ht_texture_64.jp2"
 # texture of the same scene in a third step
 SR_TEXTURE = "sr_texture_64.avif"
 UNREAD_FIXTURES = ROOT / "tests" / "data" / "images_unread"
+# AVIF items of a key frame and inter frames of Pillow's sequences
+# (scripts/make_inter_fixtures.py, their cv2 pixels in cv2_pixels.npz):
+# a 64 x 64 one of 4 frames the texture of the same scene in a fourth
+# step, and the 256 x 256 one of 8 frames read and timed on the host
+INTER_FIXTURES = ROOT / "tests" / "data" / "images_inter"
+INTER_TEXTURE = "texture_64x64_n4.avif"
+INTER_256 = "s6_444_zoom_256x256_n8.avif"
 
 
 def jp2_texture_scene(texture, size=64):
@@ -5035,8 +5042,10 @@ def jp2_texture_scene(texture, size=64):
                         "radiance": [0.3, 0.3, 0.3]}]}
 
 
-def jp2_texture_step(device, out_dir, size=64, name=JP2_TEXTURE):
-    """The texture `name` (JP2_TEXTURE, HT_TEXTURE or SR_TEXTURE)
+def jp2_texture_step(device, out_dir, size=64, name=JP2_TEXTURE,
+                     folder=None):
+    """The texture `name` (JP2_TEXTURE, HT_TEXTURE or SR_TEXTURE in
+    IMAGE_FIXTURES, INTER_TEXTURE in `folder` INTER_FIXTURES)
     decoded (decode_samples) and loaded (load_image) on the host, each
     timed, then jp2_texture_scene loaded on `device` and one step
     rendered, the first a captured one on the card; its film held
@@ -5046,7 +5055,7 @@ def jp2_texture_step(device, out_dir, size=64, name=JP2_TEXTURE):
     import ignis_tpu_torch
     from ignis_tpu_torch.utils.image import (decode_samples, encode_png,
                                              load_image)
-    path = IMAGE_FIXTURES / name
+    path = Path(folder or IMAGE_FIXTURES) / name
     t0 = time.perf_counter()
     px = decode_samples(path)
     t1 = time.perf_counter()
@@ -5074,6 +5083,20 @@ def jp2_texture_step(device, out_dir, size=64, name=JP2_TEXTURE):
             "film_mean": float(film.mean()),
             "finite": bool(torch.isfinite(film).all()),
             "bit_equal": bool(torch.equal(film, films[1]))}
+
+
+def inter_read(name=INTER_256):
+    """An inter fixture decoded on the host (decode_samples), timed and
+    held to cv2's pixels exactly: its seconds and shape."""
+    from ignis_tpu_torch.utils.image import decode_samples
+    path = INTER_FIXTURES / name
+    t0 = time.perf_counter()
+    got = decode_samples(path)
+    sec = time.perf_counter() - t0
+    want = np.load(INTER_FIXTURES / "cv2_pixels.npz")[path.stem]
+    check(got.dtype == want.dtype and np.array_equal(got, want),
+          f"{name}: decoded {got.shape} {got.dtype} to cv2's pixels exactly")
+    return {"seconds": sec, "shape": list(got.shape)}
 
 
 def unread_refusals():
@@ -5377,9 +5400,10 @@ def phase_textures(device, build_dir=None, s1=None):
     finite, not black, no texture refused, and its film bit-equal to
     that of the same scene with each texture replaced by a PNG of its
     decoded 8-bit pixels (16-bit and float textures: an EXR of the image
-    load_image gives); the LogLuv environment step, the JPEG 2000, HTJ2K
-    and AVIF superres texture steps (jp2_texture_step), and the files cv2
-    reads nothing of (unread_refusals)."""
+    load_image gives); the LogLuv environment step, the JPEG 2000, HTJ2K,
+    AVIF superres and AVIF inter texture steps (jp2_texture_step), the
+    256 x 256 8-frame inter item read and timed (inter_read), and the
+    files cv2 reads nothing of (unread_refusals)."""
     import torch
     import ignis_tpu_torch
     from ignis_tpu_torch.utils.image import (decode_samples, encode_png,
@@ -5486,9 +5510,12 @@ def phase_textures(device, build_dir=None, s1=None):
               f"decoded in {row['decode_s']:.4f} s (max radiance "
               f"{row['max']:.6g})")
     steps = {}
-    for name, what in ((JP2_TEXTURE, "JPEG 2000"), (HT_TEXTURE, "HTJ2K"),
-                       (SR_TEXTURE, "AVIF superres")):
-        jp2 = steps[name] = jp2_texture_step(device, build_dir, name=name)
+    for name, what, folder in (
+            (JP2_TEXTURE, "JPEG 2000", None), (HT_TEXTURE, "HTJ2K", None),
+            (SR_TEXTURE, "AVIF superres", None),
+            (INTER_TEXTURE, "AVIF inter", INTER_FIXTURES)):
+        jp2 = steps[name] = jp2_texture_step(device, build_dir, name=name,
+                                             folder=folder)
         check(jp2["device"].startswith("cuda") and jp2["captured"]
               and jp2["finite"] and jp2["film_mean"] > 0
               and jp2["bit_equal"] and jp2["launches"]["K2"] > 0
@@ -5511,6 +5538,10 @@ def phase_textures(device, build_dir=None, s1=None):
         print(f"  {who} {len(got)} fixtures decoded exactly on the card's "
               f"host in {sum(got.values()):.3f} s (slowest "
               f"{max(got, key=got.get)} {max(got.values()):.3f} s)")
+    inter_256 = inter_read()
+    print(f"  AVIF inter on the card's host: {INTER_256} "
+          f"{inter_256['shape']} (a key frame and 7 inter frames) decoded "
+          f"exactly in {inter_256['seconds']:.3f} s")
     unread = unread_refusals()
     check(len(unread) == len(list(UNREAD_FIXTURES.iterdir()))
           and all(v != "read" for v in unread.values()),
@@ -5529,6 +5560,7 @@ def phase_textures(device, build_dir=None, s1=None):
             "jp2_texture": steps[JP2_TEXTURE],
             "ht_texture": steps[HT_TEXTURE],
             "sr_texture": steps[SR_TEXTURE],
+            "inter_texture": steps[INTER_TEXTURE], "inter_256": inter_256,
             "unread": unread}
 
 

@@ -1,4 +1,4 @@
-"""An AV1 intra-frame decoder: the bitstream of an AVIF image item, read as
+"""An AV1 decoder: the bitstream of an AVIF image item, read as
 the AV1 specification (version 1.0.0 with errata) reads it, to exactly
 the planes libaom and dav1d decode.
 
@@ -24,14 +24,20 @@ libaom reads it: each frame reconstructed when the next header comes,
 kept in the reference slots its refresh_frame_flags name, the last frame
 shown the output (`show_existing_frame` shows a slot's frame with the
 film grain stored with it). Film grain is synthesised on the output
-(av1_grain.py). An inter frame after a frame to refer to, which cv2
-reads, is refused by name (NotImplementedError: an inter decoder is a
-slice of its own); one with nothing decoded before it, a tile list OBU
-(large-scale tile), and a superres tile column under 128 coded pixels
-raise IOError, as libaom reads nothing of them.
+(av1_grain.py). Inter frames are read too: their uncompressed header
+(the references, frame_refs_short_signaling, sizes from the references,
+interpolation filter, motion modes, skip mode, global motion and the
+state loaded from the primary reference frame), the inter block syntax
+and the reference slots' saved state (7.20, 7.21); motion vector
+prediction is in av1_mv.py, inter prediction in av1_inter.py. An inter
+frame with nothing decoded before it, a tile list OBU (large-scale
+tile), a padding or metadata OBU whose trailing bits libaom refuses, and
+a superres tile column under 128 coded pixels raise IOError, as libaom
+reads nothing of them.
 """
 from __future__ import annotations
 
+import collections
 import copy
 
 import numpy as np
@@ -106,6 +112,30 @@ _IN_SET = {SET_DCTONLY: (DCT_DCT,), SET_INTRA_1: INTRA_SET1,
            SET_INTRA_2: INTRA_SET2, SET_INTER_1: INTER_SET1,
            SET_INTER_2: INTER_SET2, SET_INTER_3: INTER_SET3}
 
+# frame types, reference frames, interpolation filters, global motion
+KEY_FRAME, INTER_FRAME, INTRA_ONLY_FRAME, SWITCH_FRAME = range(4)
+NONE_FRAME, INTRA_FRAME = -1, 0
+(LAST_FRAME, LAST2_FRAME, LAST3_FRAME, GOLDEN_FRAME, BWDREF_FRAME,
+ ALTREF2_FRAME, ALTREF_FRAME) = range(1, 8)
+PRIMARY_REF_NONE = 7
+EIGHTTAP, EIGHTTAP_SMOOTH, EIGHTTAP_SHARP, BILINEAR, SWITCHABLE = range(5)
+IDENTITY, TRANSLATION, ROTZOOM, AFFINE = range(4)
+LF_REF_DELTAS = (1, 0, 0, 0, -1, 0, -1, -1)
+# inter modes (YMode of an inter block), motion modes, compound types
+NEARESTMV, NEARMV, GLOBALMV, NEWMV = range(13, 17)
+(NEAREST_NEARESTMV, NEAR_NEARMV, NEAREST_NEWMV, NEW_NEARESTMV, NEAR_NEWMV,
+ NEW_NEARMV, GLOBAL_GLOBALMV, NEW_NEWMV) = range(17, 25)
+SIMPLE, OBMC, LOCALWARP = range(3)
+(COMPOUND_WEDGE, COMPOUND_DIFFWTD, COMPOUND_AVERAGE, COMPOUND_INTRA,
+ COMPOUND_DISTANCE) = range(5)
+SIZE_GROUP = (0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 3, 3, 3, 3, 0, 0, 1, 1, 2,
+              2)
+WEDGE_BITS = (0, 0, 0, 4, 4, 4, 4, 4, 4, 4, 0, 0, 0, 0, 0, 0, 0, 0, 4, 4, 0,
+              0)
+COMPOUND_MODE_CTX_MAP = ((0, 1, 1, 1, 1), (1, 2, 3, 4, 4), (4, 4, 5, 6, 7))
+HAS_NEWMV = frozenset((NEWMV, NEW_NEWMV, NEAREST_NEWMV, NEW_NEARESTMV,
+                       NEAR_NEWMV, NEW_NEARMV))
+
 PALETTE_COLOR_CONTEXT = (-1, -1, 0, -1, -1, 4, 3, 2, 1)
 SEG_FEATURE_BITS = (8, 6, 6, 6, 6, 3, 0, 0)
 SEG_FEATURE_SIGNED = (1, 1, 1, 1, 1, 0, 0, 0)
@@ -147,7 +177,14 @@ def _default_cdfs():
                  "USE_WIENER", "USE_SGRPROJ", "COEFF_BASE_EOB", "COEFF_BASE",
                  "COEFF_BR", "EOB_PT_16", "EOB_PT_32", "EOB_PT_64",
                  "EOB_PT_128", "EOB_PT_256", "EOB_PT_512", "EOB_PT_1024",
-                 "EOB_EXTRA", "TXB_SKIP", "DC_SIGN")
+                 "EOB_EXTRA", "TXB_SKIP", "DC_SIGN", "Y_MODE", "IS_INTER",
+                 "COMP_MODE", "COMP_REF_TYPE", "UNI_COMP_REF", "COMP_REF",
+                 "COMP_BWDREF", "SINGLE_REF", "COMPOUND_MODE", "NEW_MV",
+                 "ZERO_MV", "REF_MV", "DRL_MODE", "INTERINTRA",
+                 "INTERINTRA_MODE", "WEDGE_INTERINTRA", "WEDGE_INDEX",
+                 "MOTION_MODE", "USE_OBMC", "COMPOUND_TYPE",
+                 "COMP_GROUP_IDX", "COMPOUND_IDX", "INTERP_FILTER",
+                 "SKIP_MODE", "SEGMENT_ID_PREDICTED")
         _DEFAULTS = {n: _cdfs(getattr(T, n)) for n in names}
         _DEFAULTS["DELTA_LF_MULTI"] = [_cdfs(T.DELTA_LF) for _ in range(4)]
         from .av1_mv import MV_CDFS
@@ -468,12 +505,18 @@ class Frame:
 
 
 class Block:
+    """A block's mode info. An inter block's `ref` is (RefFrame[0],
+    RefFrame[1]) and `mv` its two vectors (row, col) in 1/8 sample; an
+    intra block's `ref` is (INTRA_FRAME, NONE_FRAME)."""
     __slots__ = ("size", "skip", "is_inter", "y_mode", "uv_mode", "seg",
                  "tx_size", "pal_size", "pal_colors", "delta_lf",
                  "use_intrabc", "mv", "angle_y", "angle_uv", "cfl_u",
                  "cfl_v", "filter_mode", "color_map_y", "color_map_uv",
                  "pal_v", "row", "col", "lossless", "qindex", "avail",
-                 "var_tx")
+                 "var_tx", "ref", "skip_mode", "interp", "motion_mode",
+                 "comp_type", "interintra", "ii_mode", "wedge_ii",
+                 "wedge_index", "wedge_sign", "mask_type", "comp_group",
+                 "comp_idx", "warp", "ref_mv_idx", "mask")
 
 
 class Decoder:
@@ -487,8 +530,12 @@ class Decoder:
         self.frame_done = False
         # the reference slots: (pre-grain Frame, grain params, frame type)
         self.slots = [None] * 8
+        # what else each slot keeps (7.20): order hints, sizes, motion
+        # field, segment ids, loop filter deltas, CDFs, global motion
+        self.saved = [None] * 8
         self.output = None          # (Frame, grain params) shown last
         self.showed_existing = False
+        self.tools = collections.Counter()     # count_tools of each frame
         self.parse_obus(data)
 
     # ---- OBUs -------------------------------------------------------------
@@ -529,21 +576,123 @@ class Decoder:
             elif kind == 8:
                 raise IOError(f"AV1: a tile list OBU, which libaom reads "
                               f"only in large-scale tile mode ({self.name})")
+            elif kind == 5:
+                self.metadata(data, p, end)
+            elif kind == 15 and size and _last_nonzero(data, p, end) != 0x80:
+                raise IOError(f"AV1: a padding OBU whose trailing bits are "
+                              f"malformed, which libaom refuses ({self.name})")
             pos = end
         if not self.frame_done and self.output is None:
             raise IOError(f"AV1: no complete frame ({self.name})")
+
+    def metadata(self, data, p, end):
+        """Checks a metadata OBU (5.8) as libaom's read_metadata does: its
+        trailing bits (the last nonzero byte 0x80, or trailing_bits after
+        the scalability or timecode syntax with zero bytes after them);
+        IOError where libaom, and so cv2, reads nothing of the unit."""
+        def bad(why):
+            raise IOError(f"AV1: a metadata OBU {why}, which libaom refuses "
+                          f"({self.name})")
+        q, kind = p, 0
+        for i in range(8):
+            if q >= end:
+                bad("without its type")
+            kind |= (data[q] & 0x7f) << (7 * i)
+            q += 1
+            if not data[q - 1] & 0x80:
+                break
+        else:
+            bad("without its type")
+        if kind == 0 or kind >= 6:
+            if _last_nonzero(data, q, end) == 0:
+                bad("without trailing bits")
+            return
+        if kind == 4:                               # ITU-T T.35
+            n = 1 + (q < end and data[q] == 0xff)
+            idx = _last_nonzero_index(data, q, end)
+            if end - q < n or idx < q + n or data[idx] != 0x80:
+                bad("whose trailing bits are malformed")
+            return
+        if kind in (1, 2):                          # HDR CLL, MDCV
+            q += 4 if kind == 1 else 24
+            if q > end or _last_nonzero(data, q, end) != 0x80:
+                bad("whose trailing bits are malformed")
+            return
+        br = BitReader(data, q)
+        if kind == 3:                               # scalability
+            if br.f(8) == 14:
+                n = br.f(2) + 1
+                dims, desc, group = br.f(1), br.f(1), br.f(1)
+                br.f(3)
+                if dims:
+                    br.f(32 * n)
+                if desc:
+                    br.f(8 * n)
+                if group:
+                    for _ in range(br.f(8)):
+                        br.f(5)
+                        br.f(8 * br.f(3))
+        else:                                       # timecode
+            br.f(5)
+            full = br.f(1)
+            br.f(11)
+            if full:
+                br.f(17)
+            elif br.f(1):
+                br.f(6)
+                if br.f(1):
+                    br.f(6)
+                    if br.f(1):
+                        br.f(5)
+            br.f(br.f(5))
+        k = 8 - br.bitpos % 8
+        if br.f(k) != 1 << (k - 1):
+            bad("whose trailing bits are malformed")
+        if br.bitpos > end * 8 or any(data[br.bitpos >> 3:end]):
+            bad("whose trailing bits are malformed")
 
     def finish_frame(self):
         """Reconstructs the frame parsed last, stores it in the slots its
         refresh_frame_flags name, and makes it the output if shown."""
         from .av1_recon import reconstruct
         frame = reconstruct(self)
-        for i in range(8):
-            if self.refresh >> i & 1:
-                self.slots[i] = (frame, self.grain, self.frame_type)
+        if getattr(self, "tools", None) is not None:
+            count_tools(self, self.tools)
+        if self.refresh:
+            saved = self.frame_state()
+            for i in range(8):
+                if self.refresh >> i & 1:
+                    self.slots[i] = (frame, self.grain, self.frame_type)
+                    self.saved[i] = saved
         if self.show_frame:
             self.output = (frame, self.grain)
         self.frame_done = False
+
+    def frame_state(self):
+        """What the reference frame update (7.20) keeps of this frame
+        beside its planes: order hints, sizes, the motion field (7.19),
+        segment ids, the loop filter deltas, segmentation features, the
+        CDFs (those at the end of tile context_update_tile_id, counters
+        cleared, unless disable_frame_end_update_cdf) and the global
+        motion parameters."""
+        from .av1_mv import motion_field_store
+        seg = np.array([[b.seg for b in row] for row in self.mi], np.int8)
+        if self.seg_enabled and not self.seg_update_map:
+            seg = self.prev_seg.copy()
+        cdf = self.frame_cdf
+        if not self.disable_frame_end_cdf:
+            cdf = self.end_cdf
+            _clear_counts(cdf)
+        refs, mvs = motion_field_store(self)
+        return {"order_hint": self.order_hint,
+                "order_hints": list(self.order_hints), "up_w": self.up_w,
+                "w": self.w, "h": self.h, "mi_rows": self.mi_rows,
+                "mi_cols": self.mi_cols, "frame_type": self.frame_type,
+                "mf_refs": refs, "mf_mvs": mvs, "seg": seg,
+                "seg_feat": self.seg_feat,
+                "lf_ref_deltas": list(self.lf_ref_deltas),
+                "lf_mode_deltas": list(self.lf_mode_deltas), "cdf": cdf,
+                "gm": [list(g) for g in self.gm]}
 
     def sequence_header(self, br):
         s = {}
@@ -600,13 +749,18 @@ class Decoder:
         s["filter_intra"] = br.f(1)
         s["edge_filter"] = br.f(1)
         s["order_hint_bits"] = 0
+        for k in ("interintra", "masked", "warped_motion", "dual_filter",
+                  "jnt_comp", "ref_frame_mvs"):
+            s[k] = 0
         if s["reduced"]:
             s["force_sct"], s["force_imv"] = 2, 2
         else:
-            br.f(4)             # interintra, masked, warped, dual filter
+            for k in ("interintra", "masked", "warped_motion",
+                      "dual_filter"):
+                s[k] = br.f(1)
             order_hint = br.f(1)
             if order_hint:
-                br.f(2)
+                s["jnt_comp"], s["ref_frame_mvs"] = br.f(1), br.f(1)
             if br.f(1):
                 s["force_sct"] = 2
             else:
@@ -657,12 +811,13 @@ class Decoder:
         self.seq = s
 
     def frame_header(self, br):
-        """Reads an uncompressed header; False where it shows an existing
-        frame (show_existing_frame: that slot's frame, with the film
-        grain stored with it, becomes the output; no tiles follow)."""
+        """Reads an uncompressed header (5.9); False where it shows an
+        existing frame (show_existing_frame: that slot's frame, with the
+        film grain stored with it, becomes the output; no tiles follow)."""
         s = self.seq
+        obh = s["order_hint_bits"]
         if s["reduced"]:
-            frame_type, show_frame, showable = 0, 1, 0
+            frame_type, show_frame, showable = KEY_FRAME, 1, 0
             error_res = 1
         else:
             if br.f(1):
@@ -677,71 +832,101 @@ class Decoder:
                 frame, grain, kind = self.slots[idx]
                 self.output = (frame, grain)
                 self.showed_existing = True
-                if kind == 0:               # a key frame refreshes all
+                if kind == KEY_FRAME:       # a key frame refreshes all
                     self.slots = [self.slots[idx]] * 8
+                    self.saved = [self.saved[idx]] * 8
                 return False
             frame_type = br.f(2)
             show_frame = br.f(1)
             if show_frame and s["decoder_model"] and not s["equal_interval"]:
                 br.f(s["pres_len"])
-            showable = 0 if show_frame else br.f(1)
-            error_res = 1 if (frame_type == 0 and show_frame) else br.f(1)
-        if frame_type not in (0, 2):
-            if not any(self.slots):
-                raise IOError(f"AV1: an inter frame with no frame decoded "
-                              f"before it to refer to ({self.name})")
-            raise NotImplementedError(
-                f"AV1 inter frame is not ported ({self.name or 'AVIF file'}"
-                "): OpenCV reads it, and an inter decoder is a slice of its "
-                "own")
+            showable = int(frame_type != KEY_FRAME) if show_frame else br.f(1)
+            error_res = 1 if frame_type == SWITCH_FRAME or (
+                frame_type == KEY_FRAME and show_frame) else br.f(1)
+        intra = frame_type in (KEY_FRAME, INTRA_ONLY_FRAME)
+        if not intra and not any(self.slots):
+            raise IOError(f"AV1: an inter frame with no frame decoded "
+                          f"before it to refer to ({self.name})")
+        self.frame_is_intra, self.error_res = intra, error_res
         self.disable_cdf_update = br.f(1)
         if s["force_sct"] == 2:
             self.sct = br.f(1)
         else:
             self.sct = s["force_sct"]
-        if self.sct and s["force_imv"] == 2:
-            br.f(1)
+        self.force_imv = 0
+        if self.sct:
+            self.force_imv = br.f(1) if s["force_imv"] == 2 else \
+                s["force_imv"]
+        if intra:
+            self.force_imv = 1
         if s["frame_ids"]:
             br.f(s["id_len"])
-        size_override = 0 if s["reduced"] else br.f(1)
-        br.f(s["order_hint_bits"])
+        if frame_type == SWITCH_FRAME:
+            size_override = 1
+        else:
+            size_override = 0 if s["reduced"] else br.f(1)
+        self.order_hint = br.f(obh)
+        self.primary_ref = PRIMARY_REF_NONE if intra or error_res else \
+            br.f(3)
         if s["decoder_model"]:
             if br.f(1):
                 for idc, dm in zip(s["op_idc"], s["dm_op"]):
                     if dm and (idc == 0 or ((idc & 1) and (idc >> 8) & 1)):
                         br.f(s["removal_len"])
+        self.allow_hp = self.use_ref_frame_mvs = self.allow_intrabc = 0
         refresh = 0xff
-        if not (frame_type == 0 and show_frame):
+        if not (frame_type == SWITCH_FRAME or
+                (frame_type == KEY_FRAME and show_frame)):
             refresh = br.f(8)
-        if refresh != 0xff and error_res and s["order_hint_bits"]:
-            for _ in range(8):
-                br.f(s["order_hint_bits"])
+        if (not intra or refresh != 0xff) and error_res and obh:
+            for i in range(8):
+                hint = br.f(obh)
+                if self.saved[i] is None or \
+                        self.saved[i]["order_hint"] != hint:
+                    # RefValid 0: the slot keeps only this order hint
+                    self.slots[i] = None
+                    self.saved[i] = {"order_hint": hint}
         self.frame_type, self.show_frame, self.refresh = (
             frame_type, show_frame, refresh)
-        # frame_size, superres_params, render_size
-        if size_override:
-            self.w = br.f(s["wbits"]) + 1
-            self.h = br.f(s["hbits"]) + 1
+        self.ref_idx = [0] * 7
+        if intra:
+            self.frame_size(br, size_override)
+            self.allow_intrabc = br.f(1) if self.sct and \
+                self.up_w == self.w else 0
         else:
-            self.w, self.h = s["max_w"], s["max_h"]
-        self.up_w = self.w                  # UpscaledWidth
-        self.sr_denom = SUPERRES_NUM
-        if s["superres"] and br.f(1):
-            self.sr_denom = br.f(3) + 9     # SUPERRES_DENOM_MIN
-            # libaom keeps FrameWidth at least Min(16, UpscaledWidth)
-            self.w = max((self.up_w * SUPERRES_NUM + self.sr_denom // 2)
-                         // self.sr_denom, min(16, self.up_w))
-        if br.f(1):
-            br.f(16)
-            br.f(16)
-        self.mi_cols = 2 * ((self.w + 7) >> 3)
-        self.mi_rows = 2 * ((self.h + 7) >> 3)
-        self.allow_intrabc = br.f(1) if self.sct and \
-            self.up_w == self.w else 0
+            short = br.f(1) if obh else 0
+            if short:
+                last, gold = br.f(3), br.f(3)
+                self.set_frame_refs(last, gold)
+            for i in range(7):
+                if not short:
+                    self.ref_idx[i] = br.f(3)
+                if s["frame_ids"]:
+                    br.f(s["delta_id_len"])
+                if self.slots[self.ref_idx[i]] is None:
+                    raise IOError(f"AV1: an inter frame refers to an empty "
+                                  f"slot ({self.name})")
+            if size_override and not error_res:
+                self.frame_size_with_refs(br)
+            else:
+                self.frame_size(br, size_override)
+            self.allow_hp = 0 if self.force_imv else br.f(1)
+            self.interp_filter = SWITCHABLE if br.f(1) else br.f(2)
+            self.motion_switchable = br.f(1)
+            self.use_ref_frame_mvs = 0 if error_res or not \
+                s["ref_frame_mvs"] else br.f(1)
+        # OrderHints and RefFrameSignBias of LAST_FRAME .. ALTREF_FRAME
+        self.order_hints = [self.order_hint] + [
+            0 if intra else self.saved[self.ref_idx[i]]["order_hint"]
+            for i in range(7)]
+        self.sign_bias = [0] + [int(self.rel_dist(h, self.order_hint) > 0)
+                                for h in self.order_hints[1:]]
         if s["reduced"] or self.disable_cdf_update:
-            pass
+            self.disable_frame_end_cdf = 1
         else:
-            br.f(1)                         # disable_frame_end_update_cdf
+            self.disable_frame_end_cdf = br.f(1)
+        prev = None if self.primary_ref == PRIMARY_REF_NONE else \
+            self.saved[self.ref_idx[self.primary_ref]]
         self.tile_info(br)
         # quantization_params
         self.base_q = br.f(8)
@@ -762,26 +947,7 @@ class Decoder:
             qy, qu = br.f(4), br.f(4)
             qv = br.f(4) if s["sep_uv"] else qu
             self.qm = [qy, qu, qv]
-        # segmentation
-        self.seg_enabled = br.f(1)
-        self.seg_feat = [[None] * 8 for _ in range(8)]
-        if self.seg_enabled:
-            for i in range(8):
-                for j in range(8):
-                    if br.f(1):
-                        bits, lim = SEG_FEATURE_BITS[j], SEG_FEATURE_MAX[j]
-                        if SEG_FEATURE_SIGNED[j]:
-                            v = max(-lim, min(lim, br.su(1 + bits)))
-                        else:
-                            v = max(0, min(lim, br.f(bits)))
-                        self.seg_feat[i][j] = v
-        self.seg_pre_skip, self.last_seg = 0, 0
-        for i in range(8):
-            for j in range(8):
-                if self.seg_feat[i][j] is not None:
-                    self.last_seg = i
-                    if j >= 5:
-                        self.seg_pre_skip = 1
+        self.segmentation_params(br, prev)
         # delta_q, delta_lf
         self.delta_q_present = br.f(1) if self.base_q > 0 else 0
         self.delta_q_res = br.f(2) if self.delta_q_present else 0
@@ -792,6 +958,15 @@ class Decoder:
             if self.delta_lf_present:
                 self.delta_lf_res = br.f(2)
                 self.delta_lf_multi = br.f(1)
+        # the frame's CDFs: the defaults (coefficient CDFs by base_q_idx)
+        # or those saved with the primary reference frame
+        if prev is None:
+            q = self.base_q
+            qctx = 0 if q <= 20 else 1 if q <= 60 else 2 if q <= 120 else 3
+            self.frame_cdf = {k: v[qctx] if k in _COEFF_CDFS else v
+                              for k, v in _default_cdfs().items()}
+        else:
+            self.frame_cdf = prev["cdf"]
         self.lossless = []
         for sid in range(8):
             q = self.qidx(sid, None)
@@ -799,6 +974,7 @@ class Decoder:
                 q == 0 and self.dq[0][0] == 0 and self.dq[1] == [0, 0]
                 and self.dq[2] == [0, 0])
         self.coded_lossless = all(self.lossless)
+        all_lossless = self.coded_lossless and self.w == self.up_w
         self.seg_qm = [[15 if self.lossless[sid] or not self.using_qm
                         else self.qm[p] for sid in range(8)]
                        for p in range(3)]
@@ -806,9 +982,15 @@ class Decoder:
         self.lf_level = [0, 0, 0, 0]
         self.lf_sharp = 0
         self.lf_delta_enabled = 0
-        self.lf_ref_deltas = [1, 0, 0, 0, -1, 0, -1, -1]
+        self.lf_ref_deltas = list(LF_REF_DELTAS)
         self.lf_mode_deltas = [0, 0]
-        if not (self.coded_lossless or self.allow_intrabc):
+        if prev is not None:
+            self.lf_ref_deltas = list(prev["lf_ref_deltas"])
+            self.lf_mode_deltas = list(prev["lf_mode_deltas"])
+        if self.coded_lossless or self.allow_intrabc:
+            self.lf_ref_deltas = list(LF_REF_DELTAS)
+            self.lf_mode_deltas = [0, 0]
+        else:
             self.lf_level[0], self.lf_level[1] = br.f(6), br.f(6)
             if not s["mono"] and (self.lf_level[0] or self.lf_level[1]):
                 self.lf_level[2], self.lf_level[3] = br.f(6), br.f(6)
@@ -843,7 +1025,7 @@ class Decoder:
         nplanes = 1 if s["mono"] else 3
         self.lr_type = [RESTORE_NONE] * 3
         self.lr_size = [256, 256, 256]
-        if s["restoration"] and not self.coded_lossless and \
+        if s["restoration"] and not all_lossless and \
                 not self.allow_intrabc:
             chroma = False
             for p in range(nplanes):
@@ -862,17 +1044,262 @@ class Decoder:
                     else 0
                 self.lr_size[1] = self.lr_size[2] = self.lr_size[0] >> \
                     uv_shift
-        # tx mode, reference mode, warped motion, reduced tx set
+        # tx mode, reference mode, skip mode, warped motion, reduced tx set
         if self.coded_lossless:
             self.tx_mode_select = 0
         else:
             self.tx_mode_select = br.f(1)
+        self.reference_select = 0 if intra else br.f(1)
+        self.skip_mode_params(br)
+        self.allow_warped = 0 if intra or error_res or not \
+            s["warped_motion"] else br.f(1)
         self.reduced_tx_set = br.f(1)
+        self.global_motion_params(br, prev)
         self.grain = None
         if s["film_grain"] and (show_frame or showable) and br.f(1):
             from .av1_grain import read_grain_params
-            self.grain = read_grain_params(br, s["mono"], s["ssx"], s["ssy"])
+            seed = br.f(16)
+            if frame_type != INTER_FRAME or br.f(1):     # update_grain
+                self.grain = read_grain_params(br, s["mono"], s["ssx"],
+                                               s["ssy"], seed)
+            else:
+                idx = br.f(3)                # film_grain_params_ref_idx
+                ref = self.slots[idx]
+                if ref is None:
+                    raise IOError(f"AV1: film grain parameters of an empty "
+                                  f"slot ({self.name})")
+                if ref[1] is not None:
+                    self.grain = dict(ref[1], seed=seed)
         return True
+
+    def rel_dist(self, a, b):
+        """get_relative_dist (7.12.2... 5.9.x): a - b in order hints."""
+        bits = self.seq["order_hint_bits"]
+        if not bits:
+            return 0
+        diff = a - b
+        m = 1 << (bits - 1)
+        return (diff & (m - 1)) - (diff & m)
+
+    def frame_size(self, br, override):
+        """frame_size, superres_params and render_size (5.9.5-5.9.8)."""
+        s = self.seq
+        if override:
+            self.up_w = br.f(s["wbits"]) + 1
+            self.h = br.f(s["hbits"]) + 1
+        else:
+            self.up_w, self.h = s["max_w"], s["max_h"]
+        self.superres_params(br)
+        if br.f(1):
+            br.f(16)
+            br.f(16)
+
+    def superres_params(self, br):
+        """superres_params and compute_image_size: FrameWidth from
+        UpscaledWidth (up_w)."""
+        self.w = self.up_w
+        self.sr_denom = SUPERRES_NUM
+        if self.seq["superres"] and br.f(1):
+            self.sr_denom = br.f(3) + 9     # SUPERRES_DENOM_MIN
+            # libaom keeps FrameWidth at least Min(16, UpscaledWidth)
+            self.w = max((self.up_w * SUPERRES_NUM + self.sr_denom // 2)
+                         // self.sr_denom, min(16, self.up_w))
+        self.mi_cols = 2 * ((self.w + 7) >> 3)
+        self.mi_rows = 2 * ((self.h + 7) >> 3)
+
+    def frame_size_with_refs(self, br):
+        """frame_size_with_refs (5.9.7): a reference frame's size, or one
+        coded here."""
+        for i in range(7):
+            if br.f(1):                                 # found_ref
+                ref = self.saved[self.ref_idx[i]]
+                self.up_w, self.h = ref["up_w"], ref["h"]
+                self.superres_params(br)
+                return
+        self.frame_size(br, 1)
+
+    def set_frame_refs(self, last, gold):
+        """set_frame_refs (7.8): ref_frame_idx from LAST_FRAME's and
+        GOLDEN_FRAME's slots and the slots' order hints."""
+        ref = [-1] * 7
+        ref[0], ref[GOLDEN_FRAME - 1] = last, gold
+        used = [0] * 8
+        used[last] = used[gold] = 1
+        cur = 1 << (self.seq["order_hint_bits"] - 1)
+        hint = [cur + self.rel_dist(self.saved[i]["order_hint"]
+                                    if self.saved[i] else 0, self.order_hint)
+                for i in range(8)]
+
+        def pick(backward, latest):
+            best = -1
+            for i in range(8):
+                h = hint[i]
+                if used[i] or (h >= cur) != backward:
+                    continue
+                if best < 0 or (h >= hint[best] if latest
+                                else h < hint[best]):
+                    best = i
+            return best
+        r = pick(True, True)
+        if r >= 0:
+            ref[ALTREF_FRAME - 1], used[r] = r, 1
+        r = pick(True, False)
+        if r >= 0:
+            ref[BWDREF_FRAME - 1], used[r] = r, 1
+        r = pick(True, False)
+        if r >= 0:
+            ref[ALTREF2_FRAME - 1], used[r] = r, 1
+        for f in (LAST2_FRAME, LAST3_FRAME, BWDREF_FRAME, ALTREF2_FRAME,
+                  ALTREF_FRAME):
+            if ref[f - 1] < 0:
+                r = pick(False, True)
+                if r >= 0:
+                    ref[f - 1], used[r] = r, 1
+        r = -1
+        for i in range(8):
+            if r < 0 or hint[i] < hint[r]:
+                r = i
+        self.ref_idx = [r if v < 0 else v for v in ref]
+
+    def segmentation_params(self, br, prev):
+        """segmentation_params (5.9.14): the features are those of the
+        primary reference frame unless coded here."""
+        self.seg_enabled = br.f(1)
+        self.seg_update_map, self.seg_temporal = 1, 0
+        self.seg_feat = [[None] * 8 for _ in range(8)]
+        if self.seg_enabled:
+            update_data = 1
+            if prev is not None:
+                self.seg_update_map = br.f(1)
+                if self.seg_update_map:
+                    self.seg_temporal = br.f(1)
+                update_data = br.f(1)
+                self.seg_feat = [list(f) for f in prev["seg_feat"]]
+            if update_data:
+                for i in range(8):
+                    for j in range(8):
+                        v = None
+                        if br.f(1):
+                            bits = SEG_FEATURE_BITS[j]
+                            lim = SEG_FEATURE_MAX[j]
+                            if SEG_FEATURE_SIGNED[j]:
+                                v = max(-lim, min(lim, br.su(1 + bits)))
+                            else:
+                                v = max(0, min(lim, br.f(bits)))
+                        self.seg_feat[i][j] = v
+        self.seg_pre_skip, self.last_seg = 0, 0
+        for i in range(8):
+            for j in range(8):
+                if self.seg_feat[i][j] is not None:
+                    self.last_seg = i
+                    if j >= 5:
+                        self.seg_pre_skip = 1
+
+    def skip_mode_params(self, br):
+        """skip_mode_params (5.9.22): SkipModeFrame, the nearest forward
+        and backward (or two forward) references."""
+        self.skip_mode_present = 0
+        if self.frame_is_intra or not self.reference_select or \
+                not self.seq["order_hint_bits"]:
+            return
+        fwd = bwd = -1
+        fwd_h = bwd_h = 0
+        for i in range(7):
+            h = self.order_hints[i + 1]
+            dist = self.rel_dist(h, self.order_hint)
+            if dist < 0:
+                if fwd < 0 or self.rel_dist(h, fwd_h) > 0:
+                    fwd, fwd_h = i, h
+            elif dist > 0:
+                if bwd < 0 or self.rel_dist(h, bwd_h) < 0:
+                    bwd, bwd_h = i, h
+        if fwd < 0:
+            return
+        if bwd < 0:
+            bwd = -1
+            for i in range(7):
+                h = self.order_hints[i + 1]
+                if self.rel_dist(h, fwd_h) < 0 and (
+                        bwd < 0 or self.rel_dist(h, bwd_h) > 0):
+                    bwd, bwd_h = i, h
+            if bwd < 0:
+                return
+        self.skip_mode_frame = (1 + min(fwd, bwd), 1 + max(fwd, bwd))
+        self.skip_mode_present = br.f(1)
+
+    def global_motion_params(self, br, prev):
+        """global_motion_params (5.9.24): each reference's warp against
+        the primary reference frame's parameters."""
+        ident = [0, 0, 1 << 16, 0, 0, 1 << 16]
+        self.gm_type = [IDENTITY] * 8
+        self.gm = [list(ident) for _ in range(8)]
+        if self.frame_is_intra:
+            return
+        prev_gm = prev["gm"] if prev is not None else self.gm
+        for ref in range(1, 8):
+            typ = IDENTITY
+            if br.f(1):
+                if br.f(1):
+                    typ = ROTZOOM
+                else:
+                    typ = TRANSLATION if br.f(1) else AFFINE
+            self.gm_type[ref] = typ
+            g = self.gm[ref]
+
+            def param(idx):
+                abs_bits, prec_bits = 12, 15
+                if idx < 2:
+                    if typ == TRANSLATION:
+                        abs_bits = 9 - (1 - self.allow_hp)
+                        prec_bits = 3 - (1 - self.allow_hp)
+                    else:
+                        abs_bits, prec_bits = 12, 6
+                diff = 16 - prec_bits
+                rnd = (1 << 16) if idx % 3 == 2 else 0
+                sub = (1 << prec_bits) if idx % 3 == 2 else 0
+                mx = 1 << abs_bits
+                r = (prev_gm[ref][idx] >> diff) - sub
+                g[idx] = (self.signed_subexp(br, -mx, mx + 1, r) << diff) \
+                    + rnd
+            if typ >= ROTZOOM:
+                param(2)
+                param(3)
+                if typ == AFFINE:
+                    param(4)
+                    param(5)
+                else:
+                    g[4], g[5] = -g[3], g[2]
+            if typ >= TRANSLATION:
+                param(0)
+                param(1)
+
+    @staticmethod
+    def signed_subexp(br, low, high, r):
+        """decode_signed_subexp_with_ref (5.9.26-5.9.28), k = 3."""
+        mx, r = high - low, r - low
+        i = mk = 0
+        while True:
+            b2 = 3 + i - 1 if i else 3
+            a = 1 << b2
+            if mx <= mk + 3 * a:
+                v = br.ns(mx - mk) + mk
+                break
+            if br.f(1):
+                i += 1
+                mk += a
+            else:
+                v = br.f(b2) + mk
+                break
+
+        def recenter(r_, v_):
+            if v_ > 2 * r_:
+                return v_
+            return r_ - ((v_ + 1) >> 1) if v_ & 1 else r_ + (v_ >> 1)
+        if (r << 1) <= mx:
+            v = recenter(r, v)
+        else:
+            v = mx - 1 - recenter(mx - 1 - r, v)
+        return v + low
 
     def _delta_q(self, br):
         return br.su(7) if br.f(1) else 0
@@ -983,8 +1410,12 @@ class Decoder:
                 raise IOError(f"AV1: truncated tile ({self.name})")
             tr, tc = divmod(t, ncols)
             sd = SymbolDecoder(data, pos, size, self.disable_cdf_update)
-            TileDecoder(self, sd, self.row_starts[tr], self.row_starts[tr + 1],
-                        self.col_starts[tc], self.col_starts[tc + 1]).decode()
+            td = TileDecoder(self, sd, self.row_starts[tr],
+                             self.row_starts[tr + 1], self.col_starts[tc],
+                             self.col_starts[tc + 1])
+            td.decode()
+            if t == self.context_update_tile_id:
+                self.end_cdf = td.cdf
             pos += size
         if last == ntiles - 1:
             self.frame_done = True
@@ -1006,8 +1437,18 @@ class Decoder:
                 ((self.mi_rows + sy) >> sy, (self.mi_cols + sx) >> sx),
                 np.int8))
         self.lr_units = [{} for _ in range(3)]
-        q = self.base_q
-        self.qctx = 0 if q <= 20 else 1 if q <= 60 else 2 if q <= 120 else 3
+        self.end_cdf = None
+        # PrevSegmentIds (load_previous_segment_ids)
+        self.prev_seg = np.zeros((self.mi_rows, self.mi_cols), np.int8)
+        if self.primary_ref != PRIMARY_REF_NONE and self.seg_enabled:
+            prev = self.saved[self.ref_idx[self.primary_ref]]
+            if prev["mi_rows"] == self.mi_rows and \
+                    prev["mi_cols"] == self.mi_cols:
+                self.prev_seg = prev["seg"]
+        self.motion_field = None
+        if self.use_ref_frame_mvs:
+            from .av1_mv import motion_field_estimation
+            self.motion_field = motion_field_estimation(self)
 
 
 class TileDecoder:
@@ -1024,9 +1465,7 @@ class TileDecoder:
         self.d = dec
         self.sd = sd
         self.r0, self.r1, self.c0, self.c1 = r0, r1, c0, c1
-        qc = dec.qctx
-        self.cdf = {k: copy.deepcopy(v[qc] if k in _COEFF_CDFS else v)
-                    for k, v in _default_cdfs().items()}
+        self.cdf = copy_cdfs(dec.frame_cdf)
         np_ = dec.nplanes
         cols = dec.mi_cols + 32
         rows = dec.mi_rows + 32
@@ -1041,6 +1480,8 @@ class TileDecoder:
         self.current_q = dec.base_q
         self.sb4 = 32 if dec.seq["sb128"] else 16
         self.tx_types = {}           # luma TxTypes by (y4, x4)
+        self.above_seg_pred = [0] * cols
+        self.left_seg_pred = [0] * rows
 
     def decode(self):
         d = self.d
@@ -1052,6 +1493,7 @@ class TileDecoder:
                 for i in range(len(ll)):
                     ll[i] = 0
                     ld[i] = 0
+            self.left_seg_pred = [0] * len(self.left_seg_pred)
             for c in range(self.c0, self.c1, sb4):
                 self.superblock(r, c, bsize)
 
@@ -1316,63 +1758,24 @@ class TileDecoder:
         b.var_tx = None
         above = d.mi[r - 1][c] if avail_u else None
         left = d.mi[r][c - 1] if avail_l else None
-        # intra_frame_mode_info
-        b.seg = 0
-        b.skip = 0
-        if d.seg_pre_skip:
-            self.intra_segment_id(b, r, c, avail_u, avail_l)
-        if d.seg_pre_skip and d.seg_enabled and \
-                d.seg_feat[b.seg][6] is not None:
-            b.skip = 1
-        else:
-            ctx = (above.skip if above else 0) + (left.skip if left else 0)
-            b.skip = sd.symbol(cdf["SKIP"][ctx], p and p.skip)
-        if not d.seg_pre_skip:
-            self.intra_segment_id(b, r, c, avail_u, avail_l)
-        b.lossless = d.lossless[b.seg]
-        self.read_cdef(b, r, c, bsize)
-        sb_size = B128X128 if self.sb4 == 32 else B64X64
-        if self.read_deltas and not (bsize == sb_size and b.skip):
-            self.read_delta_q()
-            self.read_delta_lf()
-        self.read_deltas = 0
-        b.qindex = self.current_q
-        b.delta_lf = tuple(self.delta_lf)
-        b.use_intrabc = sd.symbol(cdf["INTRABC"]) if d.allow_intrabc else 0
+        b.ref = (INTRA_FRAME, NONE_FRAME)
+        b.mv = ((0, 0), (0, 0))
+        b.skip_mode = b.interintra = b.comp_group = b.ref_mv_idx = 0
+        b.motion_mode = SIMPLE
+        b.comp_type = COMPOUND_AVERAGE
+        b.comp_idx = 1
+        b.interp = (EIGHTTAP, EIGHTTAP)
+        b.warp = None
         b.pal_size = (0, 0)
         b.pal_colors = ((), ())
         b.filter_mode = -1
         b.angle_y = b.angle_uv = 0
         b.cfl_u = b.cfl_v = 0
-        if b.use_intrabc:
-            b.is_inter = 1
-            b.y_mode = b.uv_mode = DC_PRED
-            from .av1_mv import intrabc_mv
-            b.mv = intrabc_mv(self, b, r, c)
+        b.use_intrabc = 0
+        if d.frame_is_intra:
+            self.intra_frame_mode_info(b, r, c, above, left, p)
         else:
-            b.is_inter = 0
-            b.y_mode = sd.symbol(self.y_mode_cdf(above, left),
-                                 p and p.y_mode)
-            if bsize >= B8X8 and V_PRED <= b.y_mode <= D67:
-                b.angle_y = sd.symbol(cdf["ANGLE_DELTA"][b.y_mode - 1],
-                                      p and p.angle_y + 3) - 3
-            b.uv_mode = DC_PRED
-            if has_chroma:
-                b.uv_mode = sd.symbol(self.uv_mode_cdf(b), p and p.uv_mode)
-                if b.uv_mode == UV_CFL:
-                    self.read_cfl(b, p)
-                if bsize >= B8X8 and V_PRED <= b.uv_mode <= D67:
-                    b.angle_uv = sd.symbol(
-                        cdf["ANGLE_DELTA"][b.uv_mode - 1],
-                        p and p.angle_uv + 3) - 3
-            if bsize >= B8X8 and bw4 <= 16 and bh4 <= 16 and d.sct:
-                self.palette_mode_info(b, r, c, above, left)
-            if d.seq["filter_intra"] and b.y_mode == DC_PRED and \
-                    b.pal_size[0] == 0 and max(bw4, bh4) <= 8:
-                if sd.symbol(cdf["USE_FILTER_INTRA"][bsize],
-                             p and int(p.filter_mode >= 0)):
-                    b.filter_mode = sd.symbol(cdf["FILTER_INTRA_MODE"],
-                                              p and p.filter_mode)
+            self.inter_frame_mode_info(b, r, c, above, left)
         # palette_tokens
         b.color_map_y = b.color_map_uv = None
         if b.pal_size[0] or b.pal_size[1]:
@@ -1395,6 +1798,467 @@ class TileDecoder:
         if b.skip:
             self.reset_block_context(b)
         self.residual(b)
+
+    def intra_frame_mode_info(self, b, r, c, above, left, p):
+        """intra_frame_mode_info (5.11.7)."""
+        d, sd, cdf = self.d, self.sd, self.cdf
+        avail_u, avail_l = b.avail[:2]
+        b.seg = 0
+        b.skip = 0
+        if d.seg_pre_skip:
+            self.intra_segment_id(b, r, c, avail_u, avail_l)
+        if d.seg_pre_skip and d.seg_enabled and \
+                d.seg_feat[b.seg][6] is not None:
+            b.skip = 1
+        else:
+            ctx = (above.skip if above else 0) + (left.skip if left else 0)
+            b.skip = sd.symbol(cdf["SKIP"][ctx], p and p.skip)
+        if not d.seg_pre_skip:
+            self.intra_segment_id(b, r, c, avail_u, avail_l)
+        self.block_deltas(b)
+        b.use_intrabc = sd.symbol(cdf["INTRABC"]) if d.allow_intrabc else 0
+        if b.use_intrabc:
+            b.is_inter = 1
+            b.y_mode = b.uv_mode = DC_PRED
+            from .av1_mv import intrabc_mv
+            b.mv = (intrabc_mv(self, b, r, c), (0, 0))
+        else:
+            b.is_inter = 0
+            self.intra_modes(b, above, left, p,
+                             self.y_mode_cdf(above, left))
+
+    def block_deltas(self, b):
+        """Lossless, cdef_idx, delta q and delta lf of a block, after its
+        skip and segment id."""
+        d = self.d
+        b.lossless = d.lossless[b.seg]
+        self.read_cdef(b, b.row, b.col, b.size)
+        sb_size = B128X128 if self.sb4 == 32 else B64X64
+        if self.read_deltas and not (b.size == sb_size and b.skip):
+            self.read_delta_q()
+            self.read_delta_lf()
+        self.read_deltas = 0
+        b.qindex = self.current_q
+        b.delta_lf = tuple(self.delta_lf)
+
+    def intra_modes(self, b, above, left, p, y_cdf):
+        """The luma and chroma modes of an intra block (from its y_mode
+        read under `y_cdf`), their angle deltas, CFL alphas, palettes
+        and filter intra."""
+        d, sd, cdf = self.d, self.sd, self.cdf
+        bsize = b.size
+        bw4, bh4 = BW4[bsize], BH4[bsize]
+        b.y_mode = sd.symbol(y_cdf, p and p.y_mode)
+        if bsize >= B8X8 and V_PRED <= b.y_mode <= D67:
+            b.angle_y = sd.symbol(cdf["ANGLE_DELTA"][b.y_mode - 1],
+                                  p and p.angle_y + 3) - 3
+        b.uv_mode = DC_PRED
+        if self.has_chroma:
+            b.uv_mode = sd.symbol(self.uv_mode_cdf(b), p and p.uv_mode)
+            if b.uv_mode == UV_CFL:
+                self.read_cfl(b, p)
+            if bsize >= B8X8 and V_PRED <= b.uv_mode <= D67:
+                b.angle_uv = sd.symbol(
+                    cdf["ANGLE_DELTA"][b.uv_mode - 1],
+                    p and p.angle_uv + 3) - 3
+        if bsize >= B8X8 and bw4 <= 16 and bh4 <= 16 and d.sct:
+            self.palette_mode_info(b, b.row, b.col, above, left)
+        if d.seq["filter_intra"] and b.y_mode == DC_PRED and \
+                b.pal_size[0] == 0 and max(bw4, bh4) <= 8:
+            if sd.symbol(cdf["USE_FILTER_INTRA"][bsize],
+                         p and int(p.filter_mode >= 0)):
+                b.filter_mode = sd.symbol(cdf["FILTER_INTRA_MODE"],
+                                          p and p.filter_mode)
+
+    # ---- inter frames (5.11.18 and after) -----------------------------------
+    def seg_active(self, b, feature):
+        d = self.d
+        return d.seg_enabled and d.seg_feat[b.seg][feature] is not None
+
+    def inter_frame_mode_info(self, b, r, c, above, left):
+        """inter_frame_mode_info (5.11.18)."""
+        d, sd, cdf = self.d, self.sd, self.cdf
+        self.lref = left.ref if left else (INTRA_FRAME, NONE_FRAME)
+        self.aref = above.ref if above else (INTRA_FRAME, NONE_FRAME)
+        self.above_b, self.left_b = above, left
+        b.skip = 0
+        b.seg = 0
+        self.inter_segment_id(b, r, c, True)
+        # read_skip_mode
+        if not (self.seg_active(b, 6) or self.seg_active(b, 5) or
+                self.seg_active(b, 7)) and d.skip_mode_present and \
+                BW4[b.size] >= 2 and BH4[b.size] >= 2:
+            ctx = (above.skip_mode if above else 0) + \
+                (left.skip_mode if left else 0)
+            b.skip_mode = sd.symbol(cdf["SKIP_MODE"][ctx])
+        if b.skip_mode:
+            b.skip = 1
+        elif d.seg_pre_skip and self.seg_active(b, 6):
+            b.skip = 1
+        else:
+            ctx = (above.skip if above else 0) + (left.skip if left else 0)
+            b.skip = sd.symbol(cdf["SKIP"][ctx])
+        if not d.seg_pre_skip:
+            self.inter_segment_id(b, r, c, False)
+        self.block_deltas(b)
+        # read_is_inter
+        if b.skip_mode:
+            b.is_inter = 1
+        elif self.seg_active(b, 5):
+            b.is_inter = int(d.seg_feat[b.seg][5] != INTRA_FRAME)
+        elif self.seg_active(b, 7):
+            b.is_inter = 1
+        else:
+            li = self.lref[0] <= INTRA_FRAME
+            ai = self.aref[0] <= INTRA_FRAME
+            if above and left:
+                ctx = 3 if li and ai else int(li or ai)
+            elif above or left:
+                ctx = 2 * (ai if above else li)
+            else:
+                ctx = 0
+            b.is_inter = sd.symbol(cdf["IS_INTER"][ctx])
+        if b.is_inter:
+            self.inter_block_mode_info(b)
+        else:
+            self.intra_modes(b, above, left, None,
+                             cdf["Y_MODE"][SIZE_GROUP[b.size]])
+
+    def inter_segment_id(self, b, r, c, pre_skip):
+        """inter_segment_id (5.11.19) with its prediction from
+        PrevSegmentIds."""
+        d = self.d
+        if not d.seg_enabled:
+            b.seg = 0
+            return
+        bw4, bh4 = BW4[b.size], BH4[b.size]
+        pred = int(d.prev_seg[r:r + bh4, c:c + bw4].min())
+        if not d.seg_update_map:
+            b.seg = pred
+            return
+        if pre_skip and not d.seg_pre_skip:
+            b.seg = 0
+            return
+        if not pre_skip and b.skip:
+            flag = 0
+            self.intra_segment_id(b, r, c, *b.avail[:2])
+        elif d.seg_temporal:
+            ctx = self.left_seg_pred[r] + self.above_seg_pred[c]
+            flag = self.sd.symbol(self.cdf["SEGMENT_ID_PREDICTED"][ctx])
+            if flag:
+                b.seg = pred
+            else:
+                self.intra_segment_id(b, r, c, *b.avail[:2])
+        else:
+            self.intra_segment_id(b, r, c, *b.avail[:2])
+            return
+        for i in range(c, c + bw4):
+            self.above_seg_pred[i] = flag
+        for i in range(r, r + bh4):
+            self.left_seg_pred[i] = flag
+
+    def count_refs(self, f):
+        n = 0
+        if self.above_b is not None:
+            n += (self.aref[0] == f) + (self.aref[1] == f)
+        if self.left_b is not None:
+            n += (self.lref[0] == f) + (self.lref[1] == f)
+        return n
+
+    def ref_ctx(self, a, b_):
+        """ref_count_ctx of the counts of the references in `a` and in
+        `b_`."""
+        n0 = sum(self.count_refs(f) for f in a)
+        n1 = sum(self.count_refs(f) for f in b_)
+        return 0 if n0 < n1 else 1 if n0 == n1 else 2
+
+    def read_ref_frames(self, b):
+        """read_ref_frames (5.11.25) with the contexts of 8.3.2."""
+        d, sd, cdf = self.d, self.sd, self.cdf
+        if b.skip_mode:
+            b.ref = d.skip_mode_frame
+            return
+        if self.seg_active(b, 5):
+            b.ref = (d.seg_feat[b.seg][5], NONE_FRAME)
+            return
+        if self.seg_active(b, 6) or self.seg_active(b, 7):
+            b.ref = (LAST_FRAME, NONE_FRAME)
+            return
+        ab, lb = self.above_b, self.left_b
+        a0, a1 = self.aref
+        l0, l1 = self.lref
+        a_intra, l_intra = a0 <= INTRA_FRAME, l0 <= INTRA_FRAME
+        a_single, l_single = a1 <= INTRA_FRAME, l1 <= INTRA_FRAME
+        comp = 0
+        if d.reference_select and min(BW4[b.size], BH4[b.size]) >= 2:
+            def back(f):
+                return BWDREF_FRAME <= f <= ALTREF_FRAME
+            if ab and lb:
+                if a_single and l_single:
+                    ctx = back(a0) ^ back(l0)
+                elif a_single:
+                    ctx = 2 + int(back(a0) or a_intra)
+                elif l_single:
+                    ctx = 2 + int(back(l0) or l_intra)
+                else:
+                    ctx = 4
+            elif ab:
+                ctx = int(back(a0)) if a_single else 3
+            elif lb:
+                ctx = int(back(l0)) if l_single else 3
+            else:
+                ctx = 1
+            comp = sd.symbol(cdf["COMP_MODE"][ctx])
+        fwd4 = (LAST_FRAME, LAST2_FRAME, LAST3_FRAME, GOLDEN_FRAME)
+        bwd3 = (BWDREF_FRAME, ALTREF2_FRAME, ALTREF_FRAME)
+        if comp:
+            def same(x, y):
+                return (x >= BWDREF_FRAME) == (y >= BWDREF_FRAME)
+            a_comp = ab is not None and not a_intra and not a_single
+            l_comp = lb is not None and not l_intra and not l_single
+            a_uni = a_comp and same(a0, a1)
+            l_uni = l_comp and same(l0, l1)
+            if ab and not a_intra and lb and not l_intra:
+                sd_ = int(same(a0, l0))
+                if not a_comp and not l_comp:
+                    ctx = 1 + 2 * sd_
+                elif not a_comp:
+                    ctx = 3 + sd_ if l_uni else 1
+                elif not l_comp:
+                    ctx = 3 + sd_ if a_uni else 1
+                elif not a_uni and not l_uni:
+                    ctx = 0
+                elif not a_uni or not l_uni:
+                    ctx = 2
+                else:
+                    ctx = 3 + int((a0 == BWDREF_FRAME) ==
+                                  (l0 == BWDREF_FRAME))
+            elif ab and lb:
+                if a_comp:
+                    ctx = 1 + 2 * a_uni
+                elif l_comp:
+                    ctx = 1 + 2 * l_uni
+                else:
+                    ctx = 2
+            elif a_comp:
+                ctx = 4 * a_uni
+            elif l_comp:
+                ctx = 4 * l_uni
+            else:
+                ctx = 2
+            if sd.symbol(cdf["COMP_REF_TYPE"][ctx]) == 0:   # unidirectional
+                u = cdf["UNI_COMP_REF"]
+                if sd.symbol(u[self.ref_ctx(fwd4, bwd3)][0]):
+                    b.ref = (BWDREF_FRAME, ALTREF_FRAME)
+                elif sd.symbol(u[self.ref_ctx(
+                        (LAST2_FRAME,), (LAST3_FRAME, GOLDEN_FRAME))][1]):
+                    b.ref = (LAST_FRAME, GOLDEN_FRAME) if sd.symbol(u[
+                        self.ref_ctx((LAST3_FRAME,), (GOLDEN_FRAME,))][2]) \
+                        else (LAST_FRAME, LAST3_FRAME)
+                else:
+                    b.ref = (LAST_FRAME, LAST2_FRAME)
+                return
+            cr, cb = cdf["COMP_REF"], cdf["COMP_BWDREF"]
+            if sd.symbol(cr[self.ref_ctx((LAST_FRAME, LAST2_FRAME),
+                                         (LAST3_FRAME, GOLDEN_FRAME))][0]):
+                r0 = GOLDEN_FRAME if sd.symbol(cr[self.ref_ctx(
+                    (LAST3_FRAME,), (GOLDEN_FRAME,))][2]) else LAST3_FRAME
+            else:
+                r0 = LAST2_FRAME if sd.symbol(cr[self.ref_ctx(
+                    (LAST_FRAME,), (LAST2_FRAME,))][1]) else LAST_FRAME
+            if sd.symbol(cb[self.ref_ctx((BWDREF_FRAME, ALTREF2_FRAME),
+                                         (ALTREF_FRAME,))][0]):
+                r1 = ALTREF_FRAME
+            else:
+                r1 = ALTREF2_FRAME if sd.symbol(cb[self.ref_ctx(
+                    (BWDREF_FRAME,), (ALTREF2_FRAME,))][1]) else BWDREF_FRAME
+            b.ref = (r0, r1)
+            return
+        s_ = cdf["SINGLE_REF"]
+        if sd.symbol(s_[self.ref_ctx(fwd4, bwd3)][0]):
+            if sd.symbol(s_[self.ref_ctx((BWDREF_FRAME, ALTREF2_FRAME),
+                                         (ALTREF_FRAME,))][1]):
+                r0 = ALTREF_FRAME
+            else:
+                r0 = ALTREF2_FRAME if sd.symbol(s_[self.ref_ctx(
+                    (BWDREF_FRAME,), (ALTREF2_FRAME,))][5]) else BWDREF_FRAME
+        elif sd.symbol(s_[self.ref_ctx((LAST_FRAME, LAST2_FRAME),
+                                       (LAST3_FRAME, GOLDEN_FRAME))][2]):
+            r0 = GOLDEN_FRAME if sd.symbol(s_[self.ref_ctx(
+                (LAST3_FRAME,), (GOLDEN_FRAME,))][4]) else LAST3_FRAME
+        else:
+            r0 = LAST2_FRAME if sd.symbol(s_[self.ref_ctx(
+                (LAST_FRAME,), (LAST2_FRAME,))][3]) else LAST_FRAME
+        b.ref = (r0, NONE_FRAME)
+
+    def inter_block_mode_info(self, b):
+        """inter_block_mode_info (5.11.23): references, mode, DRL index,
+        vectors, inter-intra, motion mode, compound type and filters."""
+        from .av1_mv import (find_mv_stack, has_overlappable_candidates,
+                             find_warp_samples, read_mv, is_scaled)
+        d, sd, cdf = self.d, self.sd, self.cdf
+        self.read_ref_frames(b)
+        comp = b.ref[1] > INTRA_FRAME
+        st = find_mv_stack(self, b, comp)
+        if b.skip_mode:
+            b.y_mode = NEAREST_NEARESTMV
+        elif self.seg_active(b, 6) or self.seg_active(b, 7):
+            b.y_mode = GLOBALMV
+        elif comp:
+            ctx = COMPOUND_MODE_CTX_MAP[st.ref_mv_ctx >> 1][
+                min(st.new_mv_ctx, 4)]
+            b.y_mode = NEAREST_NEARESTMV + sd.symbol(
+                cdf["COMPOUND_MODE"][ctx])
+        elif sd.symbol(cdf["NEW_MV"][st.new_mv_ctx]) == 0:
+            b.y_mode = NEWMV
+        elif sd.symbol(cdf["ZERO_MV"][st.zero_mv_ctx]) == 0:
+            b.y_mode = GLOBALMV
+        else:
+            b.y_mode = NEARESTMV if sd.symbol(
+                cdf["REF_MV"][st.ref_mv_ctx]) == 0 else NEARMV
+        idx = 0
+        if b.y_mode in (NEWMV, NEW_NEWMV):
+            start = 0
+        elif b.y_mode in (NEARMV, NEAR_NEARMV, NEAR_NEWMV, NEW_NEARMV):
+            start = idx = 1
+        else:
+            start = None
+        if start is not None:
+            for i in range(start, start + 2):
+                if st.num > i + 1:
+                    if sd.symbol(cdf["DRL_MODE"][st.drl_ctx(i)]) == 0:
+                        idx = i
+                        break
+                    idx = i + 1
+        b.ref_mv_idx = idx
+        # assign_mv
+        mvs = []
+        for i in range(1 + comp):
+            mode = _single_mode(b.y_mode, i)
+            if mode == GLOBALMV:
+                pred = st.global_mvs[i]
+            else:
+                pos = 0 if mode == NEARESTMV else idx
+                if mode == NEWMV and st.num <= 1:
+                    pos = 0
+                pred = st.stack[pos][i]
+            if mode == NEWMV:
+                dr, dc = read_mv(self, 0)
+                pred = (pred[0] + dr, pred[1] + dc)
+            mvs.append(pred)
+        b.mv = (mvs[0], mvs[1] if comp else (0, 0))
+        # read_interintra_mode
+        s = d.seq
+        if not b.skip_mode and s["interintra"] and not comp and \
+                B8X8 <= b.size <= 9:
+            g = SIZE_GROUP[b.size]
+            b.interintra = sd.symbol(cdf["INTERINTRA"][g])
+            if b.interintra:
+                b.ii_mode = sd.symbol(cdf["INTERINTRA_MODE"][g])
+                b.ref = (b.ref[0], INTRA_FRAME)
+                b.wedge_ii = sd.symbol(cdf["WEDGE_INTERINTRA"][b.size])
+                if b.wedge_ii:
+                    b.wedge_index = sd.symbol(cdf["WEDGE_INDEX"][b.size])
+                    b.wedge_sign = 0
+        # read_motion_mode
+        bw4, bh4 = BW4[b.size], BH4[b.size]
+        b.motion_mode = SIMPLE
+        if not b.skip_mode and d.motion_switchable and \
+                min(bw4, bh4) >= 2 and not (
+                    not d.force_imv and b.y_mode in (GLOBALMV,
+                                                     GLOBAL_GLOBALMV) and
+                    d.gm_type[b.ref[0]] > TRANSLATION) and not comp and \
+                b.ref[1] != INTRA_FRAME and \
+                has_overlappable_candidates(self, b):
+            samples = find_warp_samples(self, b)
+            if d.force_imv or not samples or not d.allow_warped or \
+                    is_scaled(d, b.ref[0]):
+                b.motion_mode = sd.symbol(cdf["USE_OBMC"][b.size])
+            else:
+                b.motion_mode = sd.symbol(cdf["MOTION_MODE"][b.size])
+            if b.motion_mode == LOCALWARP:
+                b.warp = samples
+        # read_compound_type
+        if b.skip_mode:
+            b.comp_type = COMPOUND_AVERAGE
+        elif comp:
+            n = WEDGE_BITS[b.size]
+            if s["masked"]:
+                ctx = 0
+                for nb, (r0, r1) in ((self.above_b, self.aref),
+                                     (self.left_b, self.lref)):
+                    if nb is None:
+                        continue
+                    if r1 > INTRA_FRAME:
+                        ctx += nb.comp_group
+                    elif r0 == ALTREF_FRAME:
+                        ctx += 3
+                b.comp_group = sd.symbol(cdf["COMP_GROUP_IDX"][min(5, ctx)])
+            if b.comp_group == 0:
+                b.comp_type = COMPOUND_AVERAGE
+                if s["jnt_comp"]:
+                    fwd = abs(d.rel_dist(d.order_hints[b.ref[0]],
+                                         d.order_hint))
+                    bck = abs(d.rel_dist(d.order_hints[b.ref[1]],
+                                         d.order_hint))
+                    ctx = 3 if fwd == bck else 0
+                    for nb, (r0, r1) in ((self.above_b, self.aref),
+                                         (self.left_b, self.lref)):
+                        if nb is None:
+                            continue
+                        if r1 > INTRA_FRAME:
+                            ctx += nb.comp_idx
+                        elif r0 == ALTREF_FRAME:
+                            ctx += 1
+                    b.comp_idx = sd.symbol(cdf["COMPOUND_IDX"][ctx])
+                    b.comp_type = COMPOUND_AVERAGE if b.comp_idx else \
+                        COMPOUND_DISTANCE
+            elif n == 0:
+                b.comp_type = COMPOUND_DIFFWTD
+            else:
+                b.comp_type = sd.symbol(cdf["COMPOUND_TYPE"][b.size])
+            if b.comp_type == COMPOUND_WEDGE:
+                b.wedge_index = sd.symbol(cdf["WEDGE_INDEX"][b.size])
+                b.wedge_sign = sd.literal(1)
+            elif b.comp_type == COMPOUND_DIFFWTD:
+                b.mask_type = sd.literal(1)
+        elif b.interintra:
+            b.comp_type = COMPOUND_WEDGE if b.wedge_ii else COMPOUND_INTRA
+        # interpolation filters
+        if d.interp_filter == SWITCHABLE:
+            f = [EIGHTTAP, EIGHTTAP]
+            for dr in range(2 if s["dual_filter"] else 1):
+                large = min(bw4, bh4) >= 2
+                if b.skip_mode or b.motion_mode == LOCALWARP:
+                    need = False
+                elif large and b.y_mode == GLOBALMV:
+                    need = d.gm_type[b.ref[0]] == TRANSLATION
+                elif large and b.y_mode == GLOBAL_GLOBALMV:
+                    need = d.gm_type[b.ref[0]] == TRANSLATION or \
+                        d.gm_type[b.ref[1]] == TRANSLATION
+                else:
+                    need = True
+                if need:
+                    ctx = ((dr & 1) * 2 + (b.ref[1] > INTRA_FRAME)) * 4
+                    lt = at = 3
+                    if self.left_b is not None and b.ref[0] in self.lref:
+                        lt = self.left_b.interp[dr]
+                    if self.above_b is not None and b.ref[0] in self.aref:
+                        at = self.above_b.interp[dr]
+                    if lt == at:
+                        ctx += lt
+                    elif lt == 3:
+                        ctx += at
+                    elif at == 3:
+                        ctx += lt
+                    else:
+                        ctx += 3
+                    f[dr] = sd.symbol(cdf["INTERP_FILTER"][ctx])
+            if not s["dual_filter"]:
+                f[1] = f[0]
+            b.interp = tuple(f)
+        else:
+            b.interp = (d.interp_filter, d.interp_filter)
 
     def set_avail(self, b):
         """Sets `has_chroma` and the neighbours' availability (the tile's
@@ -2217,6 +3081,126 @@ def _scan_info(tx, txtype):
     info = (scan, stride, ppos, base_off, br_off, nb_base, nb_br)
     _SCAN_CACHE[key] = info
     return info
+
+
+def _last_nonzero_index(data, start, end):
+    """The index of the last nonzero byte of data[start:end], or -1."""
+    for i in range(end - 1, start - 1, -1):
+        if data[i]:
+            return i
+    return -1
+
+
+def _last_nonzero(data, start, end):
+    """libaom's get_last_nonzero_byte: that byte's value, or 0."""
+    i = _last_nonzero_index(data, start, end)
+    return data[i] if i >= 0 else 0
+
+
+def _single_mode(mode, ref_list):
+    """get_mode (5.11.26): the single-reference mode of each list."""
+    if mode < NEAREST_NEARESTMV:
+        return mode
+    if ref_list == 0:
+        if mode in (NEW_NEWMV, NEW_NEARESTMV, NEW_NEARMV):
+            return NEWMV
+        if mode in (NEAREST_NEARESTMV, NEAREST_NEWMV):
+            return NEARESTMV
+        if mode in (NEAR_NEARMV, NEAR_NEWMV):
+            return NEARMV
+        return GLOBALMV
+    if mode in (NEW_NEWMV, NEAREST_NEWMV, NEAR_NEWMV):
+        return NEWMV
+    if mode in (NEAREST_NEARESTMV, NEW_NEARESTMV):
+        return NEARESTMV
+    if mode in (NEAR_NEARMV, NEW_NEARMV):
+        return NEARMV
+    return GLOBALMV
+
+
+_MODE_NAMES = ("NEARESTMV", "NEARMV", "GLOBALMV", "NEWMV",
+               "NEAREST_NEARESTMV", "NEAR_NEARMV", "NEAREST_NEWMV",
+               "NEW_NEARESTMV", "NEAR_NEWMV", "NEW_NEARMV", "GLOBAL_GLOBALMV",
+               "NEW_NEWMV")
+_COMPOUND_NAMES = ("wedge", "difference weighted", "average", "inter-intra",
+                   "distance")
+_FILTER_NAMES = ("regular", "smooth", "sharp", "bilinear")
+
+
+def count_tools(d, c):
+    """Adds to Counter c the inter coding tools of the frame parsed last:
+    its type, each block's mode, reference kind, motion mode, compound
+    type and interpolation filters, the global motion types and skip
+    mode."""
+    c["frame: " + ("key", "inter", "intra-only", "switch")[d.frame_type]] += 1
+    if d.frame_is_intra:
+        return
+    for ref in range(1, 8):
+        if d.gm_type[ref]:
+            c["global motion: " + ("", "translation", "rotzoom",
+                                   "affine")[d.gm_type[ref]]] += 1
+    if d.use_ref_frame_mvs:
+        c["frame: use_ref_frame_mvs"] += 1
+    if d.error_res:
+        c["frame: error resilient"] += 1
+    if not d.seq["order_hint_bits"]:
+        c["frame: no order hints"] += 1
+    if d.primary_ref != PRIMARY_REF_NONE:
+        c["frame: primary_ref_frame"] += 1
+    if d.seg_enabled:
+        c["frame: segmentation"] += 1
+    seen = set()
+    for row in d.mi:
+        for b in row:
+            if id(b) in seen:
+                continue
+            seen.add(id(b))
+            if not b.is_inter:
+                c["block: intra"] += 1
+                continue
+            c["mode: " + _MODE_NAMES[b.y_mode - NEARESTMV]] += 1
+            if b.ref[1] > INTRA_FRAME:
+                kind = "compound bidirectional" if (
+                    b.ref[0] < BWDREF_FRAME) != (b.ref[1] < BWDREF_FRAME) \
+                    else "compound unidirectional"
+                c["compound: " + _COMPOUND_NAMES[b.comp_type]] += 1
+            else:
+                kind = "single"
+            c["reference: " + kind] += 1
+            if b.interintra:
+                c["inter-intra: " + ("wedge" if b.wedge_ii else
+                                     ("DC", "V", "H", "smooth")[
+                                         b.ii_mode])] += 1
+            c["motion mode: " + ("simple", "OBMC", "local warp")[
+                b.motion_mode]] += 1
+            f0, f1 = b.interp
+            c["filter: " + (_FILTER_NAMES[f0] if f0 == f1 else
+                            "dual " + _FILTER_NAMES[f0] + "/" +
+                            _FILTER_NAMES[f1])] += 1
+            if b.skip_mode:
+                c["block: skip_mode"] += 1
+
+
+def copy_cdfs(cdfs):
+    """A copy of a nested table of CDFs (dicts and lists of lists of
+    ints), as copy.deepcopy makes it, faster."""
+    if isinstance(cdfs, dict):
+        return {k: copy_cdfs(v) for k, v in cdfs.items()}
+    if cdfs and isinstance(cdfs[0], int):
+        return cdfs[:]
+    return [copy_cdfs(v) for v in cdfs]
+
+
+def _clear_counts(cdfs):
+    """Sets the symbol counter of every CDF in a nested table to 0."""
+    if isinstance(cdfs, dict):
+        for v in cdfs.values():
+            _clear_counts(v)
+    elif cdfs and isinstance(cdfs[0], int):
+        cdfs[-1] = 0
+    else:
+        for v in cdfs:
+            _clear_counts(v)
 
 
 def decode_av1(data: bytes, name: str = "") -> Frame:

@@ -338,7 +338,7 @@ def frame_state(seq: bytes, hdr: bytes) -> Decoder:
     them: what the tile syntax and the filters run against."""
     d = Decoder.__new__(Decoder)
     d.name, d.seq, d.frame_done = "", None, False
-    d.slots, d.output = [None] * 8, None
+    d.slots, d.saved, d.output = [None] * 8, [None] * 8, None
     d.sequence_header(BitReader(seq))
     d.frame_header(BitReader(hdr))
     d.begin_frame()

@@ -22,14 +22,22 @@ CDEF_UV_DIR = (((0, 1, 2, 3, 4, 5, 6, 7), (1, 2, 2, 2, 3, 4, 6, 0)),
 DIV_TABLE = (0, 840, 420, 280, 210, 168, 140, 120, 105)
 
 
+# modes that take loop_filter_mode_deltas[1] (7.14.4): NEARESTMV, NEARMV,
+# NEWMV and the compound modes but GLOBAL_GLOBALMV
+_MODE_TYPE = np.array([0] * 13 + [1, 1, 0, 1] + [1] * 6 + [0, 1], np.int8)
+
+
 def _mi_arrays(dec):
-    """Per 4 x 4 luma unit: block size, skip, segment and delta lf."""
+    """Per 4 x 4 luma unit: block size, skip, is_inter, segment, delta
+    lf, RefFrame[0] and the mode's loop filter mode type."""
     rows, cols = dec.mi_rows, dec.mi_cols
     size = np.zeros((rows, cols), np.int16)
     skip = np.zeros((rows, cols), np.int8)
     inter = np.zeros((rows, cols), np.int8)
     seg = np.zeros((rows, cols), np.int8)
     dlf = np.zeros((rows, cols, 4), np.int16)
+    ref = np.zeros((rows, cols), np.int8)
+    mode = np.zeros((rows, cols), np.int8)
     for r in range(rows):
         row = dec.mi[r]
         size[r] = [b.size for b in row]
@@ -37,11 +45,13 @@ def _mi_arrays(dec):
         inter[r] = [b.is_inter for b in row]
         seg[r] = [b.seg for b in row]
         dlf[r] = [b.delta_lf for b in row]
-    return size, skip, inter, seg, dlf
+        ref[r] = [b.ref[0] for b in row]
+        mode[r] = [b.y_mode for b in row]
+    return size, skip, inter, seg, dlf, ref, _MODE_TYPE[mode]
 
 
-def _levels(dec, plane, pas, seg, dlf):
-    """Filter level per 4 x 4 luma unit for one plane and pass."""
+def _levels(dec, plane, pas, seg, dlf, ref, mtype):
+    """Filter level per 4 x 4 luma unit for one plane and pass (7.14.4)."""
     i = pas if plane == 0 else plane + 1
     delta = dlf[..., i if dec.delta_lf_multi else 0].astype(np.int32)
     lvl = np.clip(delta + dec.lf_level[i], 0, 63)
@@ -50,13 +60,17 @@ def _levels(dec, plane, pas, seg, dlf):
         on = np.array([dec.seg_feat[s][1 + i] is not None for s in range(8)])
         lvl = np.where(on[seg], np.clip(lvl + feat[seg], 0, 63), lvl)
     if dec.lf_delta_enabled:
-        lvl = np.clip(lvl + (dec.lf_ref_deltas[0] << (lvl >> 5)), 0, 63)
+        shift = lvl >> 5
+        rd = np.array(dec.lf_ref_deltas, np.int32)[np.maximum(ref, 0)]
+        md = np.array(dec.lf_mode_deltas, np.int32)[mtype]
+        lvl = np.clip(lvl + (rd << shift) + np.where(ref > 0, md << shift,
+                                                      0), 0, 63)
     return lvl
 
 
 def deblock(dec, planes, only=None):
     """Deblocks `planes` in place (those of `only`, when given)."""
-    size, skip, inter, seg, dlf = _mi_arrays(dec)
+    size, skip, inter, seg, dlf, ref, mtype = _mi_arrays(dec)
     bw = np.array(BW4, np.int32)[size] * 4
     bh = np.array(BH4, np.int32)[size] * 4
     txw, txh = np.array(TXW, np.int32), np.array(TXH, np.int32)
@@ -73,7 +87,7 @@ def deblock(dec, planes, only=None):
         mr = np.minimum((np.arange(ph) << sy) | sy, dec.mi_rows - 1)
         mc = np.minimum((np.arange(pw) << sx) | sx, dec.mi_cols - 1)
         for pas in range(2):
-            lvl_mi = _levels(dec, p, pas, seg, dlf)
+            lvl_mi = _levels(dec, p, pas, seg, dlf, ref, mtype)
             lvl = lvl_mi[mr[:, None], mc[None, :]]
             if pas == 0:
                 prev_lvl = np.zeros_like(lvl)
@@ -261,7 +275,7 @@ def _floor_log2(v):
 def cdef(dec, planes, only=None):
     """The CDEF-filtered planes (those of `only`, when given; the others
     as they were)."""
-    size, skip, inter, seg, dlf = _mi_arrays(dec)
+    skip = _mi_arrays(dec)[1]
     bd = dec.bd
     cs = bd - 8
     rows, cols = dec.mi_rows, dec.mi_cols

@@ -11,10 +11,10 @@ import numpy as np
 from . import av1_tables as T
 
 
-def read_grain_params(br, mono, ssx, ssy):
-    """film_grain_params() after apply_grain == 1 (a key frame, so
-    update_grain is 1)."""
-    g = {"seed": br.f(16)}
+def read_grain_params(br, mono, ssx, ssy, seed=None):
+    """film_grain_params() after apply_grain == 1 and update_grain == 1;
+    `seed` is grain_seed where the caller has read it."""
+    g = {"seed": br.f(16) if seed is None else seed}
     ny = br.f(4)
     g["y"] = [(br.f(8), br.f(8)) for _ in range(ny)]
     g["cfl"] = 0 if mono else br.f(1)

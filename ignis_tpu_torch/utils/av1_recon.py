@@ -1,5 +1,6 @@
 """AV1 reconstruction: dequantisation, the inverse transforms, intra
-prediction, intra block copy and the in-loop filters, as the AV1
+prediction, intra block copy, inter prediction (av1_inter.py) and the
+in-loop filters, as the AV1
 specification defines them (libaom and dav1d decode to the same planes).
 
 The inverse transforms (DCT 4-64, ADST 4/8/16, flipped ADST, identity
@@ -684,15 +685,19 @@ class Recon:
         d = self.d
         batch_residuals(d)
         mx = self.mx
+        from .av1_inter import predict_inter_block
         from .av1_mv import predict_intrabc
-        done_ibc = set()
+        done = set()
         for rec in d.records:
             plane, x, y, tx, b = rec[:5]
             if b.is_inter:
                 key = (id(b), plane)
-                if key not in done_ibc:
-                    done_ibc.add(key)
-                    predict_intrabc(self, b, plane)
+                if key not in done:
+                    done.add(key)
+                    if b.use_intrabc:
+                        predict_intrabc(self, b, plane)
+                    else:
+                        predict_inter_block(self, b, plane)
             elif (b.pal_size[0] if plane == 0 else b.pal_size[1]):
                 self.palette(rec)
             else:

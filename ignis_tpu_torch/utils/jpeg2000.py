@@ -921,8 +921,10 @@ def decode_components(data: bytes, name="image"):
         tx1 = min(hd.XT0 + (p + 1) * hd.XT, hd.X)
         ty1 = min(hd.YT0 + (q + 1) * hd.YT, hd.Y)
         tile = _decode_tile(hd, t, tx0, ty0, tx1, ty1)
-        for c, arr in enumerate(tile):
-            out[c][ty0 - hd.Y0:ty1 - hd.Y0, tx0 - hd.X0:tx1 - hd.X0] = arr
+        for c, (arr, y0, x0) in enumerate(tile):
+            y0, x0 = y0 - hd.Y0, x0 - hd.X0
+            h, w = min(arr.shape[0], H - y0), min(arr.shape[1], W - x0)
+            out[c][y0:y0 + h, x0:x0 + w] = arr[:h, :w]
     return out, hd, space
 
 
@@ -934,13 +936,16 @@ def _decode_tile(hd: _Header, t, tx0, ty0, tx1, ty1):
     comps = [_tile_component(tx0, ty0, tx1, ty1, cod) for cod in codings]
     data = b"".join(hd.tiles[t]["parts"]) if t in hd.tiles else b""
     order = _packet_order(prog, layers, comps, tx0, ty0, pocs)
+    # the highest resolution each component's packets reach (OpenJPEG's
+    # resno_decoded): POC volumes may leave the top ones out
+    top = [max((r for _, r, cc, _ in order if cc == c), default=0)
+           for c in range(len(comps))]
     if mct and len(comps) >= 3:
         # OpenJPEG's opj_tcd_mct_decode refuses the transform (and the
         # tile) where components 0-2 differ in resolutions, or in the
         # highest one their packets reach
-        top = [max((r for _, r, cc, _ in order if cc == c), default=0)
-               for c in range(3)]
-        if len({len(comps[c]) for c in range(3)}) > 1 or len(set(top)) > 1:
+        if len({len(comps[c]) for c in range(3)}) > 1 or \
+                len(set(top[:3])) > 1:
             _unread("a colour transform over components of different "
                     "resolutions", hd.name)
     used = _read_packets(data, order, comps, quants, codings, sop, eph,
@@ -1011,11 +1016,15 @@ def _decode_tile(hd: _Header, t, tx0, ty0, tx1, ty1):
             band = b.band
             coeffs[id(band)][b.y0 - band.y0:b.y1 - band.y0,
                              b.x0 - band.x0:b.x1 - band.x0] = cb.block(i)
+    # OpenJPEG rebuilds a component only up to top[c] and puts that
+    # smaller picture at its own origin on the canvas, the rest of the
+    # tile left 0
     out = []
     for c, (res, cod, qnt) in enumerate(zip(comps, codings, quants)):
         prec = hd.comps[c][0]
         reversible = cod.wavelet == 1
         by_res = []
+        res = res[:top[c] + 1]
         for rr in res:
             arrs = []
             for band in rr["bands"]:
@@ -1046,7 +1055,9 @@ def _decode_tile(hd: _Header, t, tx0, ty0, tx1, ty1):
         lo, hi = (-(1 << (prec - 1)), (1 << (prec - 1)) - 1) if signed \
             else (0, (1 << prec) - 1)
         shift = 0 if signed else 1 << (prec - 1)
-        result.append(np.clip(arr + shift, lo, hi).astype(np.int32))
+        rr = comps[c][top[c]]
+        result.append((np.clip(arr + shift, lo, hi).astype(np.int32),
+                       rr["y0"], rr["x0"]))
     return result
 
 

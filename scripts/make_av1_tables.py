@@ -64,6 +64,47 @@ CDFS = {
     "MV_SIGN": (0x65bce0, (), 2, 3),
     "MV_CLASS0_BIT": (0x65bcf2, (), 2, 3),
     "MV_BIT": (0x65bcf8, (10,), 2, 3),
+    "MV_CLASS0_FP": (0x65bcc2, (2,), 4, 5),
+    "MV_FP": (0x65bcd6, (), 4, 5),
+    "MV_CLASS0_HP": (0x65bce6, (), 2, 3),
+    "MV_HP": (0x65bcec, (), 2, 3),
+    # inter frames
+    "Y_MODE": (0x64c640, (4,), 13, 14),
+    "COMP_MODE": (0x64c0a0, (5,), 2, 3),
+    "COMP_REF_TYPE": (0x64c0c0, (5,), 2, 3),
+    "SINGLE_REF": (0x64c1e0, (3, 6), 2, 3),
+    "COMPOUND_MODE": (0x64c480, (8,), 8, 9),
+    "INTERP_FILTER": (0x64c6b0, (16,), 3, 4),
+    "WEDGE_INDEX": (0x659b20, (22,), 16, 17),
+}
+
+# Inter CDFs whose arrays the compiler split: runs of whole CDFs in
+# .rodata (offset, count, entries per CDF in memory) and, between them,
+# the CDFs it writes with immediates in code, given here by value (the
+# specification's defaults, which are libaom's source). A run's last CDF
+# may lack its closing 0 and counter, which code writes too.
+SPLIT_CDFS = {
+    "IS_INTER": ((4,), 2, [(0x64c750, 3, 3), [[26538]]]),
+    "UNI_COMP_REF": ((3, 3), 2, [(0x64c0e0, 8, 3), [[26710]]]),
+    "COMP_REF": ((3, 3), 2, [(0x64c190, 8, 3), [[27544]]]),
+    "COMP_BWDREF": ((3, 2), 2, [(0x64c1c0, 6, 3)]),
+    "COMPOUND_IDX": ((6,), 2, [(0x64c2d0, 6, 3)]),
+    "COMP_GROUP_IDX": ((6,), 2, [(0x64c2f0, 6, 3)]),
+    "NEW_MV": ((6,), 2, [(0x64c310, 6, 3)]),
+    "ZERO_MV": ((2,), 2, [[[2175], [1054]]]),
+    "REF_MV": ((6,), 2, [(0x64c330, 6, 3)]),
+    "DRL_MODE": ((3,), 2, [(0x64c350, 3, 3)]),
+    "MOTION_MODE": ((22,), 3, [(0x64c360, 16, 4), [[10923, 21845]] * 2,
+                               (0x64c3e0, 4, 4)]),
+    "USE_OBMC": ((22,), 2, [(0x64c400, 22, 3)]),
+    "COMPOUND_TYPE": ((22,), 2, [[[16384]] * 3, (0x64c512, 19, 3)]),
+    "INTERINTRA": ((4,), 2, [(0x64c580, 3, 3), [[30237]]]),
+    "WEDGE_INTERINTRA": ((22,), 2, [[[16384]] * 3, (0x64c592, 8, 3),
+                                    [[16384]] * 11]),
+    "INTERINTRA_MODE": ((4,), 4, [(0x64c5c0, 3, 5),
+                                  [[4238, 11537, 25926]]]),
+    "SKIP_MODE": ((3,), 2, [(0x64c730, 3, 3)]),
+    "SEGMENT_ID_PREDICTED": ((3,), 2, [[[16384]] * 3]),
 }
 
 
@@ -103,6 +144,27 @@ def cdf_table(lib, off, dims, nsym, stride):
     return out if dims else out[0]
 
 
+def split_cdf_table(lib, dims, nsym, pieces):
+    """A CDF array from SPLIT_CDFS' runs and values, each run checked as
+    CDFs (falling inverse values, the closing 0 where the run holds it)."""
+    out = []
+    for piece in pieces:
+        if isinstance(piece, list):
+            out += piece
+            continue
+        off, count, stride = piece
+        raw = np.frombuffer(lib, "<u2", count * stride, off).astype(np.int64)
+        for i in range(count):
+            blk = raw[i * stride:i * stride + nsym]
+            assert np.all(np.diff(blk[:nsym - 1]) < 0) and blk[nsym - 2] > 0
+            assert i == count - 1 or blk[nsym - 1] == 0, (hex(off), i)
+            out.append([int(32768 - v) for v in blk[:nsym - 1]])
+    for d in reversed(dims[1:]):
+        out = [out[k:k + d] for k in range(0, len(out), d)]
+    assert len(out) == dims[0]
+    return out
+
+
 def ints(lib, off, dtype, n):
     return [int(v) for v in np.frombuffer(lib, dtype, n, off)]
 
@@ -120,6 +182,8 @@ def main(path):
              "import base64", "import zlib", "", "import numpy as np", ""]
     for name, (off, dims, nsym, stride) in CDFS.items():
         lines.append(f"{name} = {cdf_table(lib, off, dims, nsym, stride)!r}")
+    for name, (dims, nsym, pieces) in SPLIT_CDFS.items():
+        lines.append(f"{name} = {split_cdf_table(lib, dims, nsym, pieces)!r}")
     # CDFs the compiler folded into immediates (the same values stand in
     # dav1d's default context)
     # (USE_FILTER_INTRA's runs of 16384 are stored by code, the rest at
@@ -156,6 +220,44 @@ def main(path):
     lines.append(f"ONE_BY_X = {ints(lib, 0x690200, '<i4', 25)}")
     lines.append(f"COSPI = {ints(lib, 0x6510c0, '<i4', 64) + [0]}")
     lines.append(f"SINPI = {ints(lib, 0x650e88, '<i4', 5)}")
+    lines.append("# inter prediction: Subpel_Filters (REGULAR, SMOOTH, SHARP,")
+    lines.append("# BILINEAR, 4-tap REGULAR, 4-tap SMOOTH), 16 phases of 8 taps")
+    sub = [np.frombuffer(lib, "<i2", 128, o).reshape(16, 8).tolist()
+           for o in (0x690000, 0x68fe00, 0x68ff00, 0x690100, 0x69ce00,
+                     0x69cd00)]
+    assert all(sum(t) == 128 for f in sub for t in f)
+    lines.append(f"SUBPEL_FILTERS = {sub!r}")
+    warp = np.frombuffer(lib, "<i2", 193 * 8, 0x69bcc0).reshape(193, 8)
+    assert (warp.sum(1) == 128).all()
+    lines.append(f"WARPED_FILTERS = {warp.tolist()!r}")
+    lines.append(f"DIV_LUT = {ints(lib, 0x69baa0, '<i2', 257)}")
+    lines.append("# motion vector projection: 16384 / d for d = 0 .. 31")
+    lines.append(f"DIV_MULT = {ints(lib, 0x65bfa0, '<i4', 32)}")
+    obmc = {n: ints(lib, o, "u1", n) for n, o in (
+        (1, 0x68de1e), (2, 0x68de1c), (4, 0x68de18), (8, 0x68de10),
+        (16, 0x68de00), (32, 0x68dde0), (64, 0x68dda0))}
+    lines.append(f"OBMC_MASK = {obmc!r}")
+    qw = np.frombuffer(lib, "<i4", 8, 0x68e1e0).reshape(4, 2).tolist()
+    ql = np.frombuffer(lib, "<i4", 8, 0x68e1c0).reshape(4, 2).tolist()
+    lines.append(f"QUANT_DIST_WEIGHT = {qw!r}")
+    lines.append(f"QUANT_DIST_LOOKUP = {ql!r}")
+    # the specification's Wedge_Codebook order: h > w, h < w, h == w
+    cb = [np.frombuffer(lib, "<i4", 48, o).reshape(16, 3).tolist()
+          for o in (0x68e040, 0x68df80, 0x68dec0)]
+    lines.append("# direction, x offset, y offset of each wedge")
+    lines.append(f"WEDGE_CODEBOOK = {cb!r}")
+    # Wedge_Master_Vertical: its leading zeros are cleared by code, the
+    # rest stored from index 29
+    vert = [0] * 29 + ints(lib, 0x64c8fd, "u1", 35)
+    assert vert[28:36] == [0, 2, 7, 21, 43, 57, 62, 64] and \
+        set(vert[35:]) == {64}
+    # libaom's wedge_signflip_lookup, [block size][wedge] (its .data)
+    flip = np.frombuffer(lib, "u1", 22 * 16, 0x74e4c0)
+    lines.append(f"WEDGE_SIGNFLIP = {flip.reshape(22, 16).tolist()!r}")
+    lines.append(f"WEDGE_MASTER_OBLIQUE_EVEN = {ints(lib, 0x68e100, 'u1', 64)}")
+    lines.append(f"WEDGE_MASTER_OBLIQUE_ODD = {ints(lib, 0x68e140, 'u1', 64)}")
+    lines.append(f"WEDGE_MASTER_VERTICAL = {vert}")
+    lines.append(f"II_WEIGHTS_1D = {ints(lib, 0x68de40, 'u1', 128)}")
     lines.append("# film grain")
     lines.append(f"GAUSSIAN_SEQUENCE = {ints(lib, 0x69e500, '<i4', 2048)}")
     # libaom keeps a rectangular matrix column by column; the

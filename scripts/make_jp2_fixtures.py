@@ -27,7 +27,9 @@ dropped; the other entries stay as they are):
   markers;
 - `opj_poc`: three progression volumes (by resolution and component)
   over two layers; `opj_poc_tileparts`: 2 x 2 tiles, each with two
-  volumes, in tile-parts by layer;
+  volumes, in tile-parts by layer; `opj_poc_cut`: volumes that leave
+  two components' top two resolutions out (invalid under T.800, read by
+  cv2 as OpenJPEG rebuilds them: up to the resolution decoded);
 - `opj_rgn_comp0`: an RGN marker (maxshift 5) for component 0, as the
   encoder writes it (it shifts no coefficient itself); `opj_rgn_all`:
   the same file with RGN markers for components 1 and 2 inserted by hand;
@@ -375,6 +377,15 @@ def _poc_file():
         (3, 2, 2, 6, 3, PCRL, 1)), numres=6, cblk=(16, 16))
 
 
+def _poc_cut():
+    """Volumes that leave components 1 and 2 at 4 of their 6 resolutions
+    (invalid under T.800): OpenJPEG rebuilds those two only up to
+    resolution 3 and puts that 12 x 10 picture at the canvas's corner."""
+    return encode(planes(photo(40, 48, 43)), layers=(20, 0), pocs=(
+        (0, 0, 2, 3, 3, RLCP, 1), (3, 0, 2, 6, 1, CPRL, 1),
+        (3, 1, 2, 4, 3, PCRL, 1)), numres=6, cblk=(16, 16))
+
+
 # The encoder starts a volume that ends at a later layer than the one
 # before it at its own end layer (opj_pi_update_encode_poc_and_final), so
 # the packets of a volume split by layers are never written: the volumes
@@ -443,6 +454,7 @@ FIXTURES = {
                                       prog=RPCL),
     "opj_poc.jp2": _poc_file,
     "opj_poc_tileparts.jp2": _poc_tiles,
+    "opj_poc_cut.jp2": _poc_cut,
     "opj_rgn_comp0.jp2": lambda: encode(RGB(37), roi=(0, 5)),
     "opj_rgn_all.jp2": lambda: with_rgn(encode(RGB(38), roi=(0, 5),
                                                layers=(10, 0)), (1, 2), 5),

@@ -42,8 +42,10 @@ encoder under superres, 4:4:4, 10 bits, loop restoration, film grain,
 two tile columns and show_existing_frame, HEIF layouts
 (scripts/make_avif_items.py: gain maps, overlays, iloc construction
 method 2, track-only sequences, items and tracks that differ),
-ThunderScan TIFFs of the hand-written encoder and SOF11 JPEGs; and
-compare the port's decode with
+ThunderScan TIFFs of the hand-written encoder, SOF11 JPEGs and AVIF
+items of a key frame and inter frames from Pillow's sequences
+(scripts/make_inter_fixtures.py: any speed, 2-8 frames, size,
+subsampling, quality and motion); and compare the port's decode with
 cv2.imdecode (arithmetic JPEG within 1 level); where cv2 reads no AVIF (a
 grey one with alpha, a matrix libavif converts nothing of, a grid it
 refuses), no PAM, no OS/2 BMP, none of the files of the last image
@@ -56,7 +58,8 @@ repository's root:
     python scripts/torch_image_fuzz.py --seed 1 --seconds 60
 
 (`--openjpeg`: OpenJPEG's files only; `--htj2k`: the HT encoder's;
-`--named`: the families of the files once refused by name.)
+`--named`: the families of the files once refused by name; `--inter`:
+AV1 inter frames only.)
 
 It prints each mismatch and one closing line of counts, and exits 1 if
 any file differed.
@@ -85,6 +88,7 @@ import make_jp2_fixtures as opj  # noqa: E402
 import htj2k_encoder as ht  # noqa: E402
 import lossless_arith_encoder as sof11  # noqa: E402
 import make_avif_items as items  # noqa: E402
+import make_inter_fixtures as inter  # noqa: E402
 import make_named_fixtures as named  # noqa: E402
 import thunderscan_encoder as thunder  # noqa: E402
 
@@ -134,7 +138,7 @@ def one_case(rng):
     h, w = (int(v) for v in rng.integers(1, 90, 2))
     img = random_image(rng, h, w)
     bgr = np.ascontiguousarray(img[..., ::-1])
-    kind = rng.integers(0, 25)
+    kind = rng.integers(0, 26)
     if kind >= 21:
         return NAMED_CASES[kind - 21](rng, h, w, img)
     if kind >= 13:
@@ -865,9 +869,34 @@ def sof11_case(rng, h, w, img):
             strict_jpeg)
 
 
+def inter_case(rng, h, w, img):
+    """An AVIF item of a random Pillow sequence's first N samples (a key
+    frame, then inter frames: scripts/make_inter_fixtures.py) at any
+    speed, N of 2-8, size, subsampling, quality and motion (at speeds
+    0-2, which libaom takes tens of seconds for at larger sizes, up to
+    64 x 64 and 5 frames)."""
+    h, w = max(h, 8), max(w, 8)
+    n = int(rng.integers(2, 9))
+    motion = str(rng.choice(inter.MOTIONS))
+    speed = int(rng.integers(0, 11))
+    if speed < 3:       # libaom's slowest speeds: small items (seconds)
+        h, w, n = min(h, 64), min(w, 64), min(n, 5)
+    sub = str(rng.choice(["4:2:0", "4:2:2", "4:4:4"]))
+    q = int(rng.integers(20, 101))
+    label = f"AV1 inter {h}x{w} N {n} {motion} speed {speed} {sub} q{q}"
+    fr = inter.frames(h, w, n, motion, int(rng.integers(1 << 16)))
+    buf = io.BytesIO()
+    fr[0].save(buf, "AVIF", save_all=True, append_images=fr[1:],
+               duration=100, speed=speed, subsampling=sub, quality=q)
+    samples = named.sequence_samples(buf.getvalue(), n)
+    seq = samples[0][2:4 + samples[0][3]]
+    return label, avif.heif_image(b"".join(samples), seq, w, h), strict_avif
+
+
 REST_CASES = (logluv_case, ccitt_case, ycbcr_case, lossless_case,
               arith_case, grid_case, opj_case, ht_case)
-NAMED_CASES = (superres_case, items_case, thunderscan_case, sof11_case)
+NAMED_CASES = (superres_case, items_case, thunderscan_case, sof11_case,
+               inter_case)
 STRICT = (strict_tiff, strict_jpeg, near_jpeg, strict_avif, strict_jp2)
 
 
@@ -882,7 +911,9 @@ def main() -> int:
     ap.add_argument("--named", action="store_true",
                     help="only the families of the files once refused by "
                          "name: superres and show_existing_frame, HEIF "
-                         "items, ThunderScan, SOF11")
+                         "items, ThunderScan, SOF11, AV1 inter frames")
+    ap.add_argument("--inter", action="store_true",
+                    help="only AV1 inter frames (inter_case)")
     args = ap.parse_args()
     rng = np.random.default_rng(args.seed)
     files = bad = avifs = written = rest = opjs = hts = 0
@@ -895,6 +926,10 @@ def main() -> int:
         elif args.htj2k:
             h, w = (int(v) for v in rng.integers(1, 90, 2))
             label, data, other = ht_case(rng, h, w, random_image(rng, h, w))
+        elif args.inter:
+            h, w = (int(v) for v in rng.integers(8, 129, 2))
+            by_family["inter_case"] += 1
+            label, data, other = inter_case(rng, h, w, None)
         elif args.named:
             h, w = (int(v) for v in rng.integers(1, 65, 2))
             case = NAMED_CASES[int(rng.integers(len(NAMED_CASES)))]
@@ -934,7 +969,7 @@ def main() -> int:
                         got.astype(np.int64) - want).max() > 1:
             bad += 1
             print(f"mismatch: {label}: pixels differ")
-    if args.named:
+    if args.named or args.inter:
         print(f"{files} files of the once-refused kinds (drawn by family: "
               f"{by_family}), {bad} differed from cv2")
         return 1 if bad else 0

@@ -505,8 +505,10 @@ def test_texture_phase_on_card(device, tmp_path):
     assert out["avif_256"]["write_s"] > 0
     assert out["ht_1024"]["psnr_db"] >= chip_smoke.HT_1024_PSNR
     assert out["s1_film_avif"]["psnr_db"] >= 20.0
-    for jp2 in (out["jp2_texture"], out["ht_texture"], out["sr_texture"]):
+    for jp2 in (out["jp2_texture"], out["ht_texture"], out["sr_texture"],
+                out["inter_texture"]):
         assert jp2["bit_equal"] and jp2["captured"] and jp2["finite"]
+    assert out["inter_256"]["shape"] == [256, 256, 3]
     assert all(v != "read" for v in out["unread"].values())
     envs = out["logluv_env"]["maps"]
     assert sorted(envs) == sorted(chip_smoke.LOGLUV_ENVS)

@@ -3,9 +3,8 @@ nothing of raises IOError, as ignis_tpu's load_image raises for
 cv2.imread's None (Radiance resolution lines other than -Y h +X w, BMP
 depths and compressions, Sun raster depths and types, TGA, invalid PNG
 headers), and a file cv2 reads is read as cv2 reads it (BMP bit fields
-with gaps or a missing mask). NotImplementedError is left only for a
-file cv2 reads and the port does not, named in ROADMAP.md queue 1; the
-audit test lists it."""
+with gaps or a missing mask). No NotImplementedError is left: every
+file cv2 reads the port reads, and the audit test holds that."""
 import ast
 import struct
 import sys
@@ -159,39 +158,23 @@ def test_invalid_png_headers_raise_ioerror(tmp_path, color, depth,
     _both_raise(tmp_path, data, ".png")
 
 
-# the refusals by name left under ignis_tpu_torch/utils, each a file that
-# cv2 reads and the port does not (ROADMAP.md queue 1): (module, the
-# words the refusal names). An AV1 inter frame after a key frame is the
-# one left: cv2 reads the inter frame's picture, and an inter decoder is
-# a slice of its own.
-NAMED = {
-    ("av1.py", "inter frame is not ported"),
-}
-
-
 def test_refusals_by_name_are_the_listed_ones():
-    """Every `raise NotImplementedError` under ignis_tpu_torch/utils names
-    one of the files in NAMED, which ROADMAP.md lists as read by cv2 and
-    not by the port; the rest of what cv2 reads nothing of raises
+    """No `raise NotImplementedError` is left under ignis_tpu_torch/utils:
+    every file cv2 reads the port reads (AV1 inter frames were the last
+    refused by name), and the rest, which cv2 reads nothing of, raises
     IOError."""
-    found = set()
+    found = []
     for path in sorted(UTILS.glob("*.py")):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
-            if isinstance(node, ast.Raise) and isinstance(node.exc, ast.Call) \
-                    and getattr(node.exc.func, "id", "") == \
-                    "NotImplementedError":
-                text = ast.unparse(node.exc)
-                hits = {(m, w) for m, w in NAMED
-                        if m == path.name and w in text}
-                assert hits, f"{path.name}:{node.lineno}: {text}"
-                found |= hits
-    assert found == NAMED
-    roadmap = " ".join((UTILS.parent.parent / "ROADMAP.md").read_text()
-                       .split())
-    for words in ("an inter frame after a key frame",
-                  "an inter decoder is a slice of its own"):
-        assert words in roadmap, words
+            exc = getattr(node, "exc", None) if isinstance(
+                node, ast.Raise) else None
+            if exc is None:
+                continue
+            func = exc.func if isinstance(exc, ast.Call) else exc
+            if getattr(func, "id", "") == "NotImplementedError":
+                found.append(f"{path.name}:{node.lineno}")
+    assert not found, found
 
 
 @pytest.mark.parametrize("name", sorted(F.UNREAD_FIXTURES))

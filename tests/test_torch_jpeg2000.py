@@ -105,6 +105,7 @@ def test_jpeg2000_fixture_set():
         "opj_style3f.jp2", "opj_bypass_termall_53.jp2",
         "opj_bypass_termall_97.jp2", "opj_sop.jp2", "opj_eph.jp2",
         "opj_sop_eph.jp2", "opj_poc.jp2", "opj_poc_tileparts.jp2",
+        "opj_poc_cut.jp2",
         "opj_rgn_comp0.jp2", "opj_rgn_all.jp2",
         "opj_grey16_bypass_rgn.jp2", "opj_ppm.jp2", "opj_ppt.jp2",
         "opj_palette8.jp2", "opj_palette16_index.jp2",

@@ -41,10 +41,12 @@ def _cv2_rgb(data: bytes):
 
 
 def test_openjpeg_fixture_sets():
-    """OpenJPEG's fixtures: the 24 that cv2 reads and the 6 it reads
-    nothing of, as scripts/make_jp2_fixtures.py writes them, beside the
-    HT files cv2 reads nothing of (scripts/make_htj2k_fixtures.py)."""
-    assert len(OPJ) == 24
+    """OpenJPEG's fixtures: the 25 that cv2 reads (opj_poc_cut.jp2 among
+    them, whose POC volumes leave two components' top resolutions out)
+    and the 6 it reads nothing of, as scripts/make_jp2_fixtures.py writes
+    them, beside the HT files cv2 reads nothing of
+    (scripts/make_htj2k_fixtures.py)."""
+    assert len(OPJ) == 25
     assert UNREAD_FILES == sorted([
         "opj_sycc420.jp2", "opj_esycc.jp2", "opj_cmyk.jp2",
         "opj_mct_part2.jp2", "opj_17bit.jp2", "opj_4bit.jp2",
